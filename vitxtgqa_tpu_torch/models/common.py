@@ -1,0 +1,311 @@
+"""Shared transformer building blocks.
+
+Counterpart of vitxtgqa_tpu/models/common.py.  Parameter names follow the
+reference's torch state dict (BERT naming: ``attention.self.query``,
+``attention.output.dense``, ``intermediate.dense``, ``output.LayerNorm``,
+...), so ``utils/torch_convert.convert_t2s_like`` maps a port state dict
+onto the JAX params with no new code.
+
+dtype semantics follow flax: ``Linear`` computes in its parameters' dtype
+(the input is cast, as flax Dense casts to its ``dtype``); ``LayerNorm``
+normalises in float32 and returns its parameters' dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vitxtgqa_tpu_torch.ops import fused_block as FB
+from vitxtgqa_tpu_torch.ops.attention import decode_mha, mha_merged, quantize_kv
+from vitxtgqa_tpu_torch.ops.masks import NEG_INF, DecodeStepSpec
+from vitxtgqa_tpu_torch.options import Options
+
+
+def cfg_get(node: Any, key: str, default: Any = None) -> Any:
+    """Key lookup on a mapping or an attribute container."""
+    try:
+        return node[key]
+    except (KeyError, TypeError, IndexError):
+        return getattr(node, key, default)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    hidden_size: int = 768
+    num_hidden_layers: int = 3
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    layer_norm_eps: float = 1e-12
+    vocab_size: int = 30522
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+
+    @classmethod
+    def from_config(cls, node: Any) -> "TransformerConfig":
+        """Build from a BertConfig-style mapping (partial overrides)."""
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            val = cfg_get(node, f.name)
+            if val is not None:
+                kwargs[f.name] = val
+        return cls(**kwargs)
+
+
+class Linear(nn.Linear):
+    """nn.Linear that casts its input to the parameters' dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with float32 statistics, output in the parameters' dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(self.weight.dtype)
+
+
+class TransformerLayer(nn.Module):
+    """One post-LN BERT layer with KV export and cached decode."""
+
+    def __init__(self, cfg: TransformerConfig, opts: Options):
+        super().__init__()
+        self.cfg = cfg
+        self.opts = opts
+        d, m, eps = cfg.hidden_size, cfg.intermediate_size, cfg.layer_norm_eps
+        self.attention = nn.ModuleDict({
+            "self": nn.ModuleDict({
+                "query": Linear(d, d), "key": Linear(d, d), "value": Linear(d, d),
+            }),
+            "output": nn.ModuleDict({"dense": Linear(d, d), "LayerNorm": LayerNorm(d, eps=eps)}),
+        })
+        self.intermediate = nn.ModuleDict({"dense": Linear(d, m)})
+        self.output = nn.ModuleDict({"dense": Linear(m, d), "LayerNorm": LayerNorm(d, eps=eps)})
+
+    # flax-side names of the sublayers
+    query = property(lambda self: self.attention["self"]["query"])
+    key = property(lambda self: self.attention["self"]["key"])
+    value = property(lambda self: self.attention["self"]["value"])
+    attn_out = property(lambda self: self.attention["output"]["dense"])
+    attn_ln = property(lambda self: self.attention["output"]["LayerNorm"])
+    ffn_in = property(lambda self: self.intermediate["dense"])
+    ffn_out = property(lambda self: self.output["dense"])
+    ffn_ln = property(lambda self: self.output["LayerNorm"])
+
+    def _fused_block_ok(self, x: torch.Tensor) -> bool:
+        """The gate of the JAX _fused_block_ok: lane-aligned widths and at
+        least 2048 rows (the port is eval-only)."""
+        return (
+            x.shape[-1] == self.cfg.hidden_size
+            and FB.kernel_ok(x.shape[-1], self.cfg.intermediate_size,
+                             x.numel() // x.shape[-1])
+        )
+
+    def _finish(self, x_q, ctx, tanh_residual_base=None):
+        eps = self.cfg.layer_norm_eps
+        if self._fused_block_ok(x_q):
+            args = (
+                x_q, ctx, self.attn_out.weight, self.attn_out.bias,
+                self.attn_ln.weight, self.attn_ln.bias, self.ffn_in.weight,
+                self.ffn_in.bias, self.ffn_out.weight, self.ffn_out.bias,
+                self.ffn_ln.weight, self.ffn_ln.bias,
+            )
+            plain = self.opts.plain
+            if tanh_residual_base is not None:
+                fn = FB.fused_block_tanh_plain if plain else FB.fused_block_tanh
+                return fn(tanh_residual_base, *args, eps=eps)
+            fn = FB.fused_block_plain if plain else FB.fused_block
+            return fn(*args, eps=eps)
+        x = self.attn_ln(x_q + self.attn_out(ctx))
+        y = self.ffn_ln(x + self.ffn_out(F.gelu(self.ffn_in(x))))
+        if tanh_residual_base is not None:
+            y = tanh_residual_base + torch.tanh(y)
+        return y
+
+    def forward(self, x, bias, return_kv: bool = False, tanh_residual_base=None):
+        k_raw, v_raw = self.key(x), self.value(x)
+        ctx = mha_merged(self.query(x), k_raw, v_raw, bias,
+                         self.cfg.num_attention_heads, plain=self.opts.plain)
+        y = self._finish(x, ctx, tanh_residual_base)
+        return (y, (k_raw, v_raw)) if return_kv else y
+
+    def decode(self, x_t, k_all, v_all, spec):
+        """x_t [B, 1, D]; k_all/v_all: the unified merged cache (or int8
+        (values, scales) pairs); spec: a DecodeStepSpec."""
+        ctx = decode_mha(self.query(x_t), k_all, v_all, spec,
+                         self.cfg.num_attention_heads, plain=self.opts.plain)
+        return self._finish(x_t, ctx)
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of TransformerLayers (BertEncoder equivalent)."""
+
+    def __init__(self, cfg: TransformerConfig, opts: Options):
+        super().__init__()
+        self.cfg = cfg
+        self.layer = nn.ModuleList(
+            [TransformerLayer(cfg, opts) for _ in range(cfg.num_hidden_layers)]
+        )
+
+    def forward(self, x, bias, tanh_residual_base=None):
+        """With ``tanh_residual_base`` return ``base + tanh(stack(x))``; the
+        epilogue runs inside the last layer (the fused-block kernel's
+        tanh form where the block gate holds)."""
+        last = len(self.layer) - 1
+        for i, layer in enumerate(self.layer):
+            x = layer(x, bias, tanh_residual_base=tanh_residual_base if i == last else None)
+        return x
+
+    def encode_with_cache(self, x, bias):
+        """(final hidden, [(k, v)] per layer) — K/V are each layer's raw
+        merged projections [B, L, H*D], the decode-cache layout."""
+        kvs = []
+        for layer in self.layer:
+            x, kv = layer(x, bias, return_kv=True)
+            kvs.append(kv)
+        return x, kvs
+
+    def decode_step(self, x_t, dec_cache: List[Tuple], step: int,
+                    spec: DecodeStepSpec, write_offset: int):
+        """One cached decode step; this step's K/V rows are written at
+        ``write_offset + step`` of the unified cache IN PLACE (the JAX
+        version returns an updated copy).  An int8 cache gets the row
+        quantized per token, bit for bit as quantize_kv does.  Returns
+        (y_t [B, 1, D], dec_cache)."""
+        pos = write_offset + step
+
+        def write(cache, x_new):
+            if isinstance(cache, tuple):
+                vals, scales = cache
+                q8, sc = quantize_kv(x_new)
+                vals[:, pos: pos + 1] = q8
+                scales[:, pos: pos + 1] = sc.to(scales.dtype)
+            else:
+                cache[:, pos: pos + 1] = x_new.to(cache.dtype)
+
+        for layer, (ck, cv) in zip(self.layer, dec_cache):
+            write(ck, layer.key(x_t))
+            write(cv, layer.value(x_t))
+            x_t = layer.decode(x_t, ck, cv, spec)
+        return x_t, dec_cache
+
+    def quantize_cache(self, kvs):
+        """[(k, v)] merged caches -> [((k8, ks), (v8, vs))] int8."""
+        return [(quantize_kv(k), quantize_kv(v)) for k, v in kvs]
+
+
+class BertEmbeddings(nn.Module):
+    """Word + position + token-type embeddings, then LayerNorm."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, d)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, d)
+        self.LayerNorm = LayerNorm(d, eps=cfg.layer_norm_eps)
+
+    def forward(self, input_ids):
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        x = (
+            self.word_embeddings(input_ids)
+            + self.position_embeddings(pos)
+            + self.token_type_embeddings(torch.zeros_like(input_ids))
+        )
+        return self.LayerNorm(x)
+
+
+class TextEncoder(nn.Module):
+    """Question encoder: BertEmbeddings + N layers (reference TextBert)."""
+
+    def __init__(self, cfg: TransformerConfig, opts: Options):
+        super().__init__()
+        self.embeddings = BertEmbeddings(cfg)
+        self.encoder = TransformerEncoder(cfg, opts)
+
+    def forward(self, txt_inds, txt_mask):
+        bias = ((1.0 - txt_mask) * NEG_INF)[:, None, None, :]
+        return self.encoder(self.embeddings(txt_inds), bias)
+
+
+class PrevPredEmbeddings(nn.Module):
+    """Decoder-slot embeddings from previous predictions."""
+
+    MAX_DEC_LENGTH = 100
+    MAX_TYPE_NUM = 5
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        d, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.position_embeddings = nn.Embedding(self.MAX_DEC_LENGTH, d)
+        self.token_type_embeddings = nn.Embedding(self.MAX_TYPE_NUM, d)
+        self.ans_layer_norm = LayerNorm(d, eps=eps)
+        self.ocr_layer_norm = LayerNorm(d, eps=eps)
+        self.emb_layer_norm = LayerNorm(d, eps=eps)
+
+    def tables(self, ans_emb, ocr_emb):
+        """LayerNormed tables ([V, D], [B, N, D]); loop-invariant during
+        decode, so computed once before it."""
+        return self.ans_layer_norm(ans_emb).to(ocr_emb.dtype), self.ocr_layer_norm(ocr_emb)
+
+    def embed(self, ans, ocr, prev_inds, position_offset: int = 0):
+        """Gather decoder-slot embeddings from prepared tables; prev_inds
+        [B, S] index the joint [fixed vocab | OCR copy] space."""
+        b, s = prev_inds.shape
+        ans_num = ans.shape[0]
+        is_ocr = prev_inds >= ans_num
+        from_ans = ans[prev_inds.clamp(0, ans_num - 1)]
+        ocr_idx = (prev_inds - ans_num).clamp(0, ocr.shape[1] - 1)
+        from_ocr = torch.gather(ocr, 1, ocr_idx[..., None].expand(b, s, ocr.shape[2]))
+        raw = torch.where(is_ocr[..., None], from_ocr, from_ans)
+        positions = torch.arange(s, device=prev_inds.device)[None, :] + position_offset
+        emb = self.position_embeddings(positions) + self.token_type_embeddings(is_ocr.long())
+        return raw + self.emb_layer_norm(emb)
+
+
+class OcrPtrNet(nn.Module):
+    """Dynamic OCR-copy scores.  Keeps the reference quirk of ADDING the raw
+    0/1 OCR mask to the scores (valid slots get +1)."""
+
+    def __init__(self, hidden_size: int, query_key_size: int = 0):
+        super().__init__()
+        qk = query_key_size or hidden_size
+        self.qk = qk
+        self.query = Linear(hidden_size, qk)
+        self.key = Linear(hidden_size, qk)
+
+    def keys(self, key_inputs):
+        """Project the OCR keys; loop-invariant during decode."""
+        return self.key(key_inputs)
+
+    def scores_from_keys(self, query_inputs, k, attention_mask):
+        q = self.query(query_inputs)
+        scores = torch.einsum("bsd,bnd->bsn", q.float(), k.float()) / math.sqrt(self.qk)
+        return scores + attention_mask[:, None, :].float()
+
+    def forward(self, query_inputs, key_inputs, attention_mask):
+        return self.scores_from_keys(query_inputs, self.keys(key_inputs), attention_mask)
+
+
+class FixedVocabClassifier(nn.Module):
+    """Linear classifier whose weight doubles as the fixed-answer embedding
+    table (reference: classifier.module.weight)."""
+
+    def __init__(self, out_dim: int, in_dim: int = 768):
+        super().__init__()
+        self.module = Linear(in_dim, out_dim)
+
+    def forward(self, x):
+        return torch.matmul(x.float(), self.module.weight.float().t()) + self.module.bias.float()
+
+    def table(self) -> torch.Tensor:
+        """[out_dim, in_dim] view of the classifier weight."""
+        return self.module.weight

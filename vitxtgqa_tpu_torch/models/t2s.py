@@ -1,0 +1,228 @@
+"""T2S-QA (temporal-to-spatial grounding TextVideoQA), serving forward.
+
+Counterpart of vitxtgqa_tpu/models/t2s.py, ``inference_only`` branch:
+modality projections, text BERT, the QTV joint transformer with its tanh
+residual (whose buffer the decode reuses), grounding, then the MMT prefix
+encode and a KV-cached greedy decode of the pos variant.  The full-eval,
+training, recompute-decode and compact-serving branches are not ported
+yet and raise NotImplementedError naming their ROADMAP.md item.
+
+Parameter names are the reference's torch state-dict names (text_bert.*,
+TransLayer.encoder.layer.i.*, mmt.encoder.*, mmt.prev_pred_embeddings.*,
+Grounding_Module.*, ocr_ptr_net.*, classifier.module.*), so
+utils/convert.from_jax_params and vitxtgqa_tpu's convert_t2s_like are
+inverses and released reference checkpoints load as they are.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vitxtgqa_tpu_torch.models.base import JointQAModel, project_features
+from vitxtgqa_tpu_torch.models.common import (
+    FixedVocabClassifier,
+    LayerNorm,
+    Linear,
+    OcrPtrNet,
+    PrevPredEmbeddings,
+    TextEncoder,
+    TransformerConfig,
+    TransformerEncoder,
+    cfg_get,
+)
+from vitxtgqa_tpu_torch.models.grounding import Gumbel, GroundingModule
+from vitxtgqa_tpu_torch.ops.masks import MaskSpec, length_mask
+from vitxtgqa_tpu_torch.options import Options
+
+# 5050 fixed-vocabulary answers + 960 OCR copy slots (bench.py)
+PRODUCTION_NUM_FINAL_OUTPUTS = 5050 + 960
+
+
+def t2s_production_config() -> Dict[str, Any]:
+    """model_attributes.t2s of configs/t2s_abinet.yml, as Python (the card's
+    machine may lack PyYAML).  Sections the YAML leaves to BERT defaults
+    (text_bert widths, heads, FFN) take TransformerConfig's defaults."""
+    return {
+        "text_bert": {"num_hidden_layers": 3},
+        "obj": {"mmt_in_dim": 1074, "dropout_prob": 0.1},
+        "ocr": {"mmt_in_dim": 1004, "dropout_prob": 0.1},
+        "translayers": {"hidden_size": 768, "num_hidden_layers": 2},
+        "grounding": {
+            "frame_topk": 5, "ocr_topk": 5, "max_ocr_num": 960,
+            "frame_num": 64, "ocr_frame_num": 15, "hidden_size": 768,
+        },
+        "encoder": {"hidden_size": 768, "num_hidden_layers": 2},
+        "mmt": {"hidden_size": 768, "num_hidden_layers": 3},
+        "classifier": {
+            "type": "linear", "ocr_max_num": 960,
+            "ocr_ptr_net": {"hidden_size": 768, "query_key_size": 768},
+            "params": {},
+        },
+    }
+
+
+class _Wrap(nn.Module):
+    """Named container that reproduces the reference's module nesting."""
+
+    def __init__(self, **modules: nn.Module):
+        super().__init__()
+        for name, mod in modules.items():
+            self.add_module(name, mod)
+
+
+class T2S(JointQAModel):
+    def __init__(self, config: Any, num_final_outputs: int, bos_idx: int = 2,
+                 opts: Options = Options(), inference_only: bool = True,
+                 decode_recompute: bool = False, compact_serving: bool = False):
+        super().__init__()
+        if not inference_only:
+            raise NotImplementedError(
+                "T2S full-eval (ref/pos/neg variants) is ROADMAP.md queue 1 item 6"
+            )
+        if decode_recompute:
+            raise NotImplementedError(
+                "the recompute decode oracle (_recompute_decode) is ROADMAP.md queue 1 item 5"
+            )
+        if compact_serving:
+            raise NotImplementedError("compact serving is ROADMAP.md queue 1 item 10")
+        self.opts = opts
+        self.bos_idx = int(bos_idx)
+        c = config
+        mmt_cfg = TransformerConfig.from_config(cfg_get(c, "mmt"))
+        text_cfg = TransformerConfig.from_config(cfg_get(c, "text_bert"))
+        trans_cfg = TransformerConfig.from_config(cfg_get(c, "translayers"))
+        hidden = mmt_cfg.hidden_size
+        g = cfg_get(c, "grounding")
+        ptr = cfg_get(cfg_get(c, "classifier"), "ocr_ptr_net")
+        ocr_max = int(cfg_get(cfg_get(c, "classifier"), "ocr_max_num"))
+
+        with torch.device(opts.device):
+            self.text_bert = TextEncoder(text_cfg, opts)
+            # obj (frame) stream: ViT feature + frame-id embedding -> hidden
+            self.frame_embeddings = nn.Embedding(4000, 50)
+            self.linear_obj_feat_to_mmt_in = Linear(int(cfg_get(cfg_get(c, "obj"), "mmt_in_dim")), hidden)
+            self.obj_feat_layer_norm = LayerNorm(hidden, eps=1e-12)
+            # ocr stream: fasttext + phoc + temporal-id + track-id, and bbox
+            self.temporal_position_embeddings = nn.Embedding(4000, 50)
+            self.track_position_embeddings = nn.Embedding(4000, 50)
+            self.linear_ocr_feat_to_mmt_in = Linear(int(cfg_get(cfg_get(c, "ocr"), "mmt_in_dim")), hidden)
+            self.linear_ocr_bbox_to_mmt_in = Linear(4, hidden)
+            self.ocr_feat_layer_norm = LayerNorm(hidden, eps=1e-12)
+            self.ocr_bbox_layer_norm = LayerNorm(hidden, eps=1e-12)
+            # QTV cross-modal pre-fusion
+            self.TransLayer = _Wrap(encoder=TransformerEncoder(trans_cfg, opts))
+            self.Grounding_Module = GroundingModule(
+                in_dim=trans_cfg.hidden_size,
+                hidden_size=int(cfg_get(g, "hidden_size")),
+                frame_topk=int(cfg_get(g, "frame_topk")),
+                ocr_topk=int(cfg_get(g, "ocr_topk")),
+                frame_num=int(cfg_get(g, "frame_num")),
+                ocr_frame_num=int(cfg_get(g, "ocr_frame_num")),
+            )
+            self.mmt = _Wrap(
+                encoder=TransformerEncoder(mmt_cfg, opts),
+                prev_pred_embeddings=PrevPredEmbeddings(mmt_cfg),
+            )
+            self.classifier = FixedVocabClassifier(num_final_outputs - ocr_max, hidden)
+            self.ocr_ptr_net = OcrPtrNet(int(cfg_get(ptr, "hidden_size")),
+                                         int(cfg_get(ptr, "query_key_size")))
+        # the transformer stacks and the input projections compute in the
+        # compute dtype; grounding, the pointer net and the classifier stay
+        # float32 (as in the JAX model)
+        for name, mod in self.named_children():
+            if name not in ("Grounding_Module", "ocr_ptr_net", "classifier"):
+                mod.to(opts.dtype)
+
+    def init_weights(self, seed: int) -> "T2S":
+        """BERT-style random init from a seeded generator on the model's
+        device: N(0, 0.02) matrices and embeddings, zero biases, unit
+        LayerNorm scales."""
+        gen = torch.Generator(device=self.opts.device).manual_seed(int(seed))
+        with torch.no_grad():
+            for mod in self.modules():
+                if isinstance(mod, nn.LayerNorm):
+                    mod.weight.fill_(1.0)
+                    mod.bias.zero_()
+                elif isinstance(mod, (nn.Linear, nn.Embedding)):
+                    w = torch.empty(mod.weight.shape, device=mod.weight.device)
+                    mod.weight.copy_(w.normal_(0.0, 0.02, generator=gen))
+                    if getattr(mod, "bias", None) is not None:
+                        mod.bias.zero_()
+        return self
+
+    # ---- modality encodings ------------------------------------------------
+    def _encode_modalities(self, batch):
+        dt = self.opts.dtype
+        txt_mask = length_mask(batch["text_len"], batch["text"].shape[1])
+        txt_emb = self.text_bert(batch["text"], txt_mask)
+        obj_lin = project_features(
+            self.linear_obj_feat_to_mmt_in,
+            [batch["video_feat"].to(dt), self.frame_embeddings(batch["frame_id"])],
+            [True, False],
+        )
+        obj_in = self.obj_feat_layer_norm(obj_lin)
+        obj_mask = batch["frame_mask"].float()
+        ocr_lin = project_features(
+            self.linear_ocr_feat_to_mmt_in,
+            [batch["context_feature_0"].to(dt), batch["context_feature_1"].to(dt),
+             self.temporal_position_embeddings(batch["temporal_id"]),
+             self.track_position_embeddings(batch["track_id"])],
+            [True, True, False, False],
+        )
+        bbox = batch["ocr_bbox_coordinates"].to(dt)
+        ocr_in = self.ocr_feat_layer_norm(ocr_lin) + self.ocr_bbox_layer_norm(
+            self.linear_ocr_bbox_to_mmt_in(bbox)
+        )
+        ocr_mask = batch["ocr_mask"].float()
+        return txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask
+
+    def _apply_qtv(self, txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask,
+                   dec_len: int):
+        """Joint self-attention with the tanh residual back to each stream.
+        Returns (txt, obj, ocr, joint): the updated streams and the buffer
+        [B, round_up(l0 + dec_len, 128), D] they are slices of — the
+        decode's unified-cache geometry, so the decode takes it as is."""
+        l0 = txt_emb.shape[1] + obj_in.shape[1] + ocr_in.shape[1]
+        pad = (-(l0 + dec_len)) % self.LANE + dec_len
+        mask = F.pad(torch.cat([txt_mask, obj_mask, ocr_mask], dim=1), (0, pad))
+        x = torch.cat(
+            [txt_emb, obj_in, ocr_in, txt_emb.new_zeros((txt_emb.shape[0], pad, txt_emb.shape[2]))],
+            dim=1,
+        )
+        joint = self.TransLayer.encoder(x, MaskSpec(key_mask=mask), tanh_residual_base=x)
+        lt, lo = txt_emb.shape[1], obj_in.shape[1]
+        return joint[:, :lt], joint[:, lt: lt + lo], joint[:, lt + lo: l0], joint
+
+    # ---- forward -------------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, torch.Tensor], gumbel: Gumbel,
+                train: bool = False) -> Dict[str, Any]:
+        """Serving forward.  ``gumbel`` is a torch.Generator for the two
+        grounding draws, or the two noise tensors ([B, 2, F], [B, 2, N]).
+        Returns pos_scores [B, S, V + N] float32, ground_frame [B, topk],
+        ground_box [B, F * ocr_topk, 4] and the two top-k sizes."""
+        if train:
+            raise NotImplementedError("the T2S training step is ROADMAP.md queue 1 item 8")
+        txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask = self._encode_modalities(batch)
+        dec_len = batch["train_prev_inds"].shape[1]
+        txt_emb, obj_in, ocr_in, joint = self._apply_qtv(
+            txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, dec_len
+        )
+        g = self.Grounding_Module(
+            txt_emb, txt_mask, obj_in, obj_mask, batch["frame_id"], ocr_in, ocr_mask,
+            batch["ocr_bbox_coordinates"].to(self.opts.dtype), batch["temporal_id"], gumbel,
+        )
+        enc_mask = torch.cat([txt_mask, g["pos_obj_mask"], g["pos_ocr_mask"]], dim=1)
+        pos = self._greedy_decode(txt_emb, obj_in, ocr_in, enc_mask, g["pos_ocr_mask"],
+                                  dec_len, joint=joint)
+        return {
+            "pos_scores": pos,
+            "ground_frame": g["ground_frame"],
+            "ground_box": g["ground_bbox"],
+            "frame_topk": self.Grounding_Module.frame_topk,
+            "ocr_topk": self.Grounding_Module.ocr_topk,
+        }

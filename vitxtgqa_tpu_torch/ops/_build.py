@@ -1,0 +1,169 @@
+"""Build the port's CUDA sources with nvcc and bind them with ctypes.
+
+The sources under ``vitxtgqa_tpu_torch/csrc`` have a plain C interface, so
+they compile in seconds with
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC`` into ``build/kernels/<source hash>/libvitxtgqa_kernels.so``
+beside the package.  The build runs at first use and is keyed on a hash
+of the sources and flags, so a changed source rebuilds and an unchanged one
+loads the existing library.  There is no fallback: without nvcc, or on a
+failed build, this module raises.
+
+Every pointer crosses the ctypes boundary as ``c_void_p``, the stream as a
+``c_void_p`` holding ``torch.cuda.current_stream().cuda_stream``, and each
+C entry returns ``cudaGetLastError()`` after its launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libvitxtgqa_kernels.so"
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, key_mask, out; batch, seq_len, heads, head_dim, dec_len; stream
+    "vt_flash_attention_merged": [_P] * 5 + [_I] * 5 + [_P],
+    # x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, res, x32, xb, h, out;
+    # rows, d, m; eps; stream
+    "vt_fused_block": [_P] * 17 + [_I] * 3 + [_F, _P],
+    # q, k8, ks, v8, vs, key_mask, out; batch, cache_len, heads, head_dim,
+    # step, write_offset; stream
+    "vt_decode_attention_int8": [_P] * 7 + [_I] * 6 + [_P],
+}
+
+# launch counts per kernel wrapper: each wrapper adds one where it launches
+# its kernel and nowhere else (chip_smoke.py reads them around a forward)
+LAUNCHES: Dict[str, int] = {
+    "flash_attention_merged": 0,
+    "fused_block": 0,
+    "fused_block_tanh": 0,
+    "decode_attention_int8": 0,
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def find_nvcc() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates += [shutil.which("nvcc"), DEFAULT_NVCC]
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+        "/usr/local/cuda/bin): the port's CUDA kernels are compiled from "
+        f"{CSRC} with the CUDA toolkit's nvcc; there is no fallback"
+    )
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet; return
+    the library path.  Raises RuntimeError if nvcc is missing or fails."""
+    nvcc = find_nvcc()
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "nvcc.log").write_text(
+        " ".join(cmd) + f"\n# {time.perf_counter() - t0:.1f} s\n"
+        + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            + proc.stderr[-6000:]
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The bound kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.vt_error_string.argtypes = [ctypes.c_int]
+            handle.vt_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        text = lib().vt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({text})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+            device: Optional[torch.device] = None) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of
+    the given dtype (and shape / device, where given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")

@@ -1,0 +1,94 @@
+"""Attention-mask builders for the joint multimodal transformer.
+
+Counterpart of vitxtgqa_tpu/ops/masks.py.  The additive mask value stays
+-10000 (BERT style, kept for parity with the reference); the kernels
+build their masks in-kernel from the compact specs below and fill masked
+scores with -1e9 instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+NEG_INF = -10000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskSpec:
+    """Compact mask for full-sequence attention.
+
+    key_mask: [B, L] — 1 where the key is a valid encoder token (decoder
+        slots and padding are 0).
+    dec_len: length of the trailing causal decoder block (0 = plain
+        key-validity masking).
+    """
+
+    key_mask: torch.Tensor
+    dec_len: int = 0
+
+    def to_bias(self) -> torch.Tensor:
+        if self.dec_len == 0:
+            return self_attention_bias(self.key_mask)
+        enc = self.key_mask[:, : self.key_mask.shape[1] - self.dec_len]
+        return prefix_lm_bias(enc, self.dec_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeStepSpec:
+    """Compact mask for one cached decode step.
+
+    key_mask: [B, Lcache] — 1 where the cache slot holds a valid encoder key.
+    step: decoder position (a Python int: the port's decode loop is a
+        Python loop).
+    write_offset: index of decoder slot 0 inside the unified cache.
+
+    The query attends valid encoder keys and the decoder slots
+    ``write_offset .. write_offset + step``.
+    """
+
+    key_mask: torch.Tensor
+    step: int
+    write_offset: int = 0
+
+    def to_bias(self) -> torch.Tensor:
+        cols = torch.arange(self.key_mask.shape[1], device=self.key_mask.device)[None, :]
+        dec_ok = (cols >= self.write_offset) & (cols <= self.write_offset + self.step)
+        ok = (self.key_mask > 0) | dec_ok
+        return ((1.0 - ok.float()) * NEG_INF)[:, None, None, :]
+
+
+def joint_mask_spec(enc_mask: torch.Tensor, dec_len: int) -> MaskSpec:
+    """enc_mask [B, Lenc] -> MaskSpec over the joint [enc | dec] sequence."""
+    zeros = enc_mask.new_zeros((enc_mask.shape[0], dec_len))
+    return MaskSpec(key_mask=torch.cat([enc_mask, zeros], dim=1), dec_len=dec_len)
+
+
+def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """[B] lengths -> [B, max_len] float mask, 1 on valid positions."""
+    ar = torch.arange(max_len, device=lengths.device)[None, :]
+    return (ar < lengths[:, None]).float()
+
+
+def causal_mask(n: int, device=None) -> torch.Tensor:
+    """[n, n] lower-triangular float mask."""
+    return torch.tril(torch.ones((n, n), dtype=torch.float32, device=device))
+
+
+def self_attention_bias(key_mask: torch.Tensor) -> torch.Tensor:
+    """[B, L] key mask -> [B, 1, 1, L] additive bias."""
+    return ((1.0 - key_mask) * NEG_INF)[:, None, None, :]
+
+
+def prefix_lm_bias(enc_mask: torch.Tensor, dec_len: int) -> torch.Tensor:
+    """Joint prefix-LM + causal-decoder additive bias [B, 1, T, T],
+    T = Lenc + dec_len: every row attends valid encoder tokens; decoder
+    tokens are visible only to decoder rows, causally."""
+    b, lenc = enc_mask.shape
+    total = lenc + dec_len
+    key_mask = torch.cat([enc_mask, enc_mask.new_zeros((b, dec_len))], dim=1)
+    full = key_mask[:, None, :].expand(b, total, total).clone()
+    full[:, lenc:, lenc:] = causal_mask(dec_len, enc_mask.device).to(full.dtype)
+    return ((1.0 - full) * NEG_INF)[:, None, :, :]
+

@@ -1,0 +1,36 @@
+"""The port's mode switches, in one explicit object.
+
+The JAX package carries its modes as process-wide trace-time globals
+(``set_kv_cache_int8``, ``set_use_pallas``, ...), which needed a reset
+fixture between tests (tests/conftest.py).  Here a model takes one frozen
+``Options`` at construction and every layer reads it from there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Options:
+    """device: where parameters and activations live.
+    dtype: compute dtype of the transformer stacks (float32 or bfloat16);
+        grounding, the pointer network and the classifier compute in
+        float32 as in the JAX package.
+    kv_cache_int8: quantize the unified decode KV cache to int8 with
+        per-token scales (the serving default of bench.py).
+    plain: run every kernel op through its plain PyTorch version even on
+        CUDA — the oracle mode used to check the kernels on the card.
+    """
+
+    device: torch.device = torch.device("cpu")
+    dtype: torch.dtype = torch.float32
+    kv_cache_int8: bool = False
+    plain: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", torch.device(self.device))
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"unsupported compute dtype {self.dtype}")
