@@ -276,6 +276,22 @@ def test_decode_int8_plain_matches_pallas_interpret(geometry, step):
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("geometry,step", [("small", 0), ("small", 4), ("small", 11),
+                                           ("compact", 3)])
+def test_decode_bf16_cache_plain_matches_pallas_interpret(geometry, step):
+    """The bf16-cache form: the probabilities round to the cache's dtype
+    (f32 here) on both sides, scores in f32: 1e-5."""
+    from vitxtgqa_tpu.ops.pallas_attention import decode_attention
+
+    kw = dict(b=3, h=12, l_enc=372, d=64) if geometry == "compact" else {}
+    q, k, v, km = _decode_case(**kw)
+    h, wo = kw.get("h", 4), kw.get("l_enc", 96)
+    want = decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(km),
+                            jnp.int32(step), write_offset=wo, num_heads=h, interpret=True)
+    got = TDA.decode_attention(T(q), T(k), T(v), T(km), step, wo, h)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 def test_decode_mha_matches_jax(quantized):
     """The port routes an int8 cache to the decode kernel's plain version
@@ -307,6 +323,7 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing():
     q, k, v, km = _decode_case()
     (k8, ks), (v8, vs) = TA.quantize_kv(T(k)), TA.quantize_kv(T(v))
     TDA.decode_attention_int8(T(q), k8, ks, v8, vs, T(km), 0, 96, 4)
+    TDA.decode_attention(T(q), T(k), T(v), T(km), 0, 96, 4)
     x = T(_rand(np.random.default_rng(0), 1, 300, 64))
     TFA.flash_attention_merged(x, x, x, torch.ones(1, 300), 0, 4)
     assert _build.launch_counts() == {name: 0 for name in _build.LAUNCHES}

@@ -27,12 +27,13 @@ from vitxtgqa_tpu_torch.serving.engine import ServingEngine, group_generator
 from vitxtgqa_tpu_torch.utils.convert import from_jax_params
 
 FRAMES = 8
+DEC_STEPS = 4
 
 
 def _setup(ocr_pf=3, hidden=64, b=3, int8=False, seed=0):
     cfg = tiny_model_config(hidden=hidden, frames=FRAMES, ocr_per_frame=ocr_pf)
     nf = 32 + FRAMES * ocr_pf
-    batch = synthetic_batch(batch=b, frames=FRAMES, ocr_per_frame=ocr_pf, dec_steps=4,
+    batch = synthetic_batch(batch=b, frames=FRAMES, ocr_per_frame=ocr_pf, dec_steps=DEC_STEPS,
                             text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
                             num_final_outputs=nf, text_vocab=128, seed=seed)
     model = T2S(cfg, nf, bos_idx=2, opts=Options(kv_cache_int8=int8)).init_weights(seed)
@@ -49,13 +50,30 @@ def _state_numpy(model):
 
 SLICE_CASES = {
     # name: (ocr per frame, hidden, batch, int8 cache).  "wide" reaches the
-    # kernel gates: 8 x 30 OCR rows give a 384-row joint sequence (flash at
-    # >= 256 keys) and 6 x 384 = 2304 rows of lane-aligned width 128 (fused
-    # block)
+    # kernel gates: 8 x 30 OCR rows give a 384-row joint sequence (flash and
+    # the bf16 decode attention at >= 256 keys) and 6 x 384 = 2304 rows of
+    # lane-aligned width 128 (fused block).  "fused" forces the fused-decode
+    # gate on for both packages (JAX in Pallas interpret mode), at the
+    # batches where it engages by default
     "int8_cache": (3, 64, 3, True),
     "f32_cache": (3, 64, 3, False),
     "wide_int8_cache": (30, 128, 6, True),
+    "wide_f32_cache": (30, 128, 6, False),
+    "fused_b1": (3, 64, 1, True),
+    "fused_b2": (3, 64, 2, True),
 }
+
+
+def _force_fused_decode(monkeypatch):
+    """Switch the fused-decode gate on in both packages (the port's gate
+    otherwise needs CUDA tensors, the JAX one a TPU)."""
+    from vitxtgqa_tpu.models.common import TransformerEncoder as JEnc
+    from vitxtgqa_tpu.ops import pallas_decode_step as PDS
+    from vitxtgqa_tpu_torch.models.common import TransformerEncoder as TEnc
+
+    monkeypatch.setattr(JEnc, "fused_decode_ok", lambda self: True)
+    monkeypatch.setattr(PDS, "_FORCE_INTERPRET", True)
+    monkeypatch.setattr(TEnc, "fused_decode_ok", lambda self, x: True)
 
 
 @pytest.mark.parametrize("case", sorted(SLICE_CASES))
@@ -65,11 +83,15 @@ def test_slice_matches_jax_t2s_inference_only(case, monkeypatch):
     import vitxtgqa_tpu.models.grounding as G
     from vitxtgqa_tpu.models.common import set_kv_cache_int8
     from vitxtgqa_tpu.models.t2s import T2S as JT2S
+    from vitxtgqa_tpu_torch.ops import decode_attention as TDA
+    from vitxtgqa_tpu_torch.ops import decode_step as TDS
     from vitxtgqa_tpu_torch.ops import flash_attention as TFA
     from vitxtgqa_tpu_torch.ops import fused_block as TFB
 
     ocr_pf, hidden, b, int8 = SLICE_CASES[case]
     cfg, nf, batch, model = _setup(ocr_pf, hidden, b, int8)
+    if case.startswith("fused"):
+        _force_fused_decode(monkeypatch)
     n = FRAMES * ocr_pf
     rng = np.random.default_rng(5)
     noise = {(b, 2, FRAMES): rng.gumbel(size=(b, 2, FRAMES)).astype(np.float32),
@@ -91,25 +113,46 @@ def test_slice_matches_jax_t2s_inference_only(case, monkeypatch):
 
     calls = []
     for mod, name in ((TFA, "flash_attention_merged_plain"), (TFB, "fused_block_plain"),
-                      (TFB, "fused_block_tanh_plain")):
+                      (TFB, "fused_block_tanh_plain"), (TDA, "decode_attention_plain"),
+                      (TDS, "fused_decode_step_plain"), (TDS, "fused_epilogue_plain")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: calls.append(_n) or _r(*a, **k))
     got = model(_tensors(batch), (torch.from_numpy(noise[(b, 2, FRAMES)]),
                                   torch.from_numpy(noise[(b, 2, n)])))
 
     w, g = np.asarray(want["pos_scores"]), got["pos_scores"].numpy()
-    assert g.shape == w.shape == (b, 4, nf) and g.dtype == np.float32
+    assert g.shape == w.shape == (b, DEC_STEPS, nf) and g.dtype == np.float32
     np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5)
     np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
     np.testing.assert_array_equal(got["ground_frame"].numpy(), np.asarray(want["ground_frame"]))
     np.testing.assert_array_equal(got["ground_box"].numpy(), np.asarray(want["ground_box"]))
+    want_calls = []
     if case.startswith("wide"):
         # 1 QTV + 2 MMT encode layers: flash and fused block in each, the
-        # last (only) QTV layer in its tanh form
-        assert sorted(calls) == sorted(["flash_attention_merged_plain"] * 3
-                                       + ["fused_block_plain"] * 2 + ["fused_block_tanh_plain"])
-    else:
-        assert calls == []
+        # last (only) QTV layer in its tanh form; over a bf16/f32 cache the
+        # 2 MMT layers x 4 steps of decode attention
+        want_calls = (["flash_attention_merged_plain"] * 3 + ["fused_block_plain"] * 2
+                      + ["fused_block_tanh_plain"])
+        if not int8:
+            want_calls += ["decode_attention_plain"] * (2 * DEC_STEPS)
+    elif case.startswith("fused"):
+        want_calls = ["fused_decode_step_plain", "fused_epilogue_plain"] * DEC_STEPS
+    assert sorted(calls) == sorted(want_calls)
+
+
+def test_fused_branch_matches_the_per_layer_branch(monkeypatch):
+    """The port's fused decode against its own per-layer decode on the same
+    weights and batch: greedy tokens exact, scores within 5e-2 (the JAX
+    test's bound: the fused epilogue rounds the next embedding's emb rows to
+    bf16, the per-layer path does not)."""
+    _, _, batch, model = _setup(b=2, int8=True)
+    noise = lambda: torch.Generator().manual_seed(3)
+    per_layer = model(_tensors(batch), noise())
+    _force_fused_decode(monkeypatch)
+    fused = model(_tensors(batch), noise())
+    a, f = per_layer["pos_scores"].numpy(), fused["pos_scores"].numpy()
+    np.testing.assert_array_equal(f.argmax(-1), a.argmax(-1))
+    np.testing.assert_allclose(f, a, atol=5e-2, rtol=5e-2)
 
 
 @pytest.fixture(scope="module")
@@ -224,6 +267,7 @@ import sys
 import torch
 from vitxtgqa_tpu_torch import Options
 from vitxtgqa_tpu_torch.models.t2s import T2S
+from vitxtgqa_tpu_torch.serving import profiling  # noqa: F401
 from vitxtgqa_tpu_torch.serving.engine import ServingEngine
 from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
 

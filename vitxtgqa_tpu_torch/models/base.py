@@ -1,10 +1,13 @@
 """Joint-transformer + pointer-decode harness.
 
 Counterpart of vitxtgqa_tpu/models/base.py, serving branch only: encode
-once over the lane-aligned joint sequence, then a KV-cached greedy decode
-with the per-layer decode (no fused-decode kernels yet, and no compact
-geometry).  The multi-variant and teacher-forced paths belong to the
-full-eval and training slices (ROADMAP.md queue 1).
+once over the lane-aligned joint sequence, then a KV-cached greedy decode.
+With the int8 cache on CUDA at batch <= Options.fused_decode_max_batch each
+step is the single-kernel decode step plus the fused epilogue
+(ops/decode_step.py), as the JAX serving branch runs them on a TPU;
+otherwise each step runs the per-layer decode over the int8 or bf16 cache.
+The multi-variant, compact and teacher-forced paths belong to the full-eval,
+compact-serving and training slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -13,7 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vitxtgqa_tpu_torch.models.common import derived_weights
+from vitxtgqa_tpu_torch.ops import decode_step as DS
 from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec
+
+PAD_BIAS = -1e30  # classifier pad lanes: the greedy argmax never picks them
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -76,6 +83,12 @@ class JointQAModel(nn.Module):
         ppe = self.mmt.prev_pred_embeddings
         ans_tbl, ocr_tbl = ppe.tables(self.classifier.table(), ocr)
         ptr_keys = self.ocr_ptr_net.keys(ocr_out)
+        if encoder.fused_decode_ok(x):
+            # JAX's other fused form (step_fused: the fused step with the
+            # unfused epilogue, base.py:417-433) serves only multi-variant
+            # full-eval and compact serving, and arrives with those slices
+            return self._fused_greedy_decode(cache, key_mask_full, write_offset, ans_tbl,
+                                             ocr_tbl, ptr_keys, ocr_masks, dec_len)
 
         prev = torch.full((b,), self.bos_idx, dtype=torch.long, device=txt.device)
         steps = []
@@ -89,3 +102,49 @@ class JointQAModel(nn.Module):
             prev = scores_t.argmax(dim=-1)
             steps.append(scores_t)
         return torch.stack(steps, dim=1).float()
+
+    def _fused_greedy_decode(self, cache, key_mask, write_offset: int, ans_tbl, ocr_tbl,
+                             ptr_keys, ocr_masks, dec_len: int):
+        """The serving form of the JAX fused branch (base.py:342-415): per
+        step one fused_decode_step launch, two row commits and one
+        fused_epilogue launch.  The padded classifier, the padded answer
+        table and the LayerNormed (position, type) rows are built once per
+        set of weights (derived_weights), the step-0 embedding once per
+        forward; the pad lanes are sliced out once after the loop.  Returns
+        float32 scores [B, dec_len, V + N]."""
+        encoder = self.mmt.encoder
+        ppe = self.mmt.prev_pred_embeddings
+        stacks, kv8, kvsc, buffers = encoder.fused_decode_prep(cache)
+        v_fix = self.classifier.module.weight.shape[0]
+        v_p = -(-v_fix // self.LANE) * self.LANE
+
+        def tables():
+            w_c, b_c = self.classifier.module.weight, self.classifier.module.bias
+            pos_e = ppe.position_embeddings.weight[:dec_len]
+            type_e = ppe.token_type_embeddings.weight[:2]
+            emb_rows = ppe.emb_layer_norm(pos_e[:, None, :] + type_e[None, :, :])
+            return (F.pad(w_c.detach().float(), (0, 0, 0, v_p - v_fix)),
+                    F.pad(b_c.detach().float(), (0, v_p - v_fix), value=PAD_BIAS),
+                    F.pad(ans_tbl, (0, 0, 0, v_p - v_fix)),
+                    emb_rows.reshape(2 * dec_len, -1).float())
+
+        params = [*self.classifier.parameters(), *ppe.parameters()]
+        cls_w, cls_b, ans_pad, emb_rows = derived_weights(
+            self, f"epilogue_tables_{dec_len}", params, tables)
+        ptr = self.ocr_ptr_net.query
+        qk = ptr.weight.shape[0]
+        bos = torch.full((kv8.shape[1], 1), self.bos_idx, dtype=torch.long,
+                         device=kv8.device)
+        demb = ppe.embed(ans_tbl, ocr_tbl, bos, position_offset=0)
+        epilogue = DS.fused_epilogue_plain if self.opts.plain else DS.fused_epilogue
+        mask = ocr_masks.float().contiguous()
+        steps = []
+        for t in range(dec_len):
+            y_t, kv8, kvsc = encoder.fused_decode_step_apply(
+                stacks, demb, kv8, kvsc, t, key_mask, write_offset, buffers)
+            scores_pad, _tok, demb = epilogue(
+                y_t, cls_w, cls_b, ptr.weight, ptr.bias, ptr_keys, mask, ans_pad, ocr_tbl,
+                emb_rows, t, v_fix, 1.0 / qk ** 0.5, dec_len)
+            steps.append(scores_pad[:, 0])
+        s = torch.stack(steps, dim=1)
+        return torch.cat([s[..., :v_fix], s[..., v_p:]], dim=-1).float()

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vitxtgqa_tpu_torch.ops import decode_step as DS
 from vitxtgqa_tpu_torch.ops import fused_block as FB
 from vitxtgqa_tpu_torch.ops.attention import decode_mha, mha_merged, quantize_kv
 from vitxtgqa_tpu_torch.ops.masks import NEG_INF, DecodeStepSpec
@@ -33,6 +34,22 @@ def cfg_get(node: Any, key: str, default: Any = None) -> Any:
         return node[key]
     except (KeyError, TypeError, IndexError):
         return getattr(node, key, default)
+
+
+def derived_weights(owner: nn.Module, name: str, params, build):
+    """``build()``, kept on ``owner`` until one of ``params`` is replaced or
+    changed in place (``load_state_dict``, an optimizer step, ``.to``): the
+    weight layouts the serving decode derives from frozen parameters are
+    built once per model, not once per forward.  (Parameters made under
+    ``torch.inference_mode`` track no version; their key is their
+    identity and pointer.)"""
+    key = tuple((id(p), p.data_ptr(), 0 if p.is_inference() else p._version)
+                for p in params)
+    memo = owner.__dict__.setdefault("_derived_weights", {})
+    if name not in memo or memo[name][0] != key:
+        with torch.no_grad():
+            memo[name] = (key, build())
+    return memo[name][1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +168,7 @@ class TransformerEncoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, opts: Options):
         super().__init__()
         self.cfg = cfg
+        self.opts = opts
         self.layer = nn.ModuleList(
             [TransformerLayer(cfg, opts) for _ in range(cfg.num_hidden_layers)]
         )
@@ -200,6 +218,72 @@ class TransformerEncoder(nn.Module):
     def quantize_cache(self, kvs):
         """[(k, v)] merged caches -> [((k8, ks), (v8, vs))] int8."""
         return [(quantize_kv(k), quantize_kv(v)) for k, v in kvs]
+
+    def fused_decode_ok(self, x: torch.Tensor) -> bool:
+        """Whether the greedy decode over activations ``x`` [B, ...] takes
+        the single-kernel decode step (ops/decode_step.py): the JAX gate
+        (fused decode on, int8 cache, a kernel backend, batch <= the cap),
+        with a CUDA tensor for the TPU backend.  It does not read
+        ``opts.plain``: the oracle model takes the same branch through the
+        plain versions."""
+        o = self.opts
+        return (o.fused_decode and o.kv_cache_int8 and x.is_cuda
+                and x.shape[0] <= o.fused_decode_max_batch)
+
+    def _weight_stacks(self):
+        stack = lambda ts: torch.stack([t.detach() for t in ts])
+        vec = lambda ts: stack(ts).float()[:, None, :]
+        ls = self.layer
+        stacks = {}
+        for short, attr in (("q", "query"), ("k", "key"), ("v", "value"),
+                            ("o", "attn_out"), ("1", "ffn_in"), ("2", "ffn_out")):
+            stacks["w" + short] = stack([getattr(l, attr).weight for l in ls])
+            stacks["b" + short] = vec([getattr(l, attr).bias for l in ls])
+        for i, attr in (("1", "attn_ln"), ("2", "ffn_ln")):
+            stacks["s" + i] = vec([getattr(l, attr).weight for l in ls])
+            stacks["g" + i] = vec([getattr(l, attr).bias for l in ls])
+        return stacks
+
+    def fused_decode_prep(self, kvs):
+        """Pack the layer weights and the per-layer int8 caches for the
+        single-kernel decode step.
+
+        kvs: [((k8, ks), (v8, vs))] from quantize_cache.  Returns (stacks,
+        kv8 [L, B, Lp, 2*H*D] int8, kvsc [L, B, 2, Lp] f32, buffers): the
+        stacks hold the weights in nn.Linear layout [L, out, in] and the
+        biases and LayerNorm parameters as float32 [L, 1, width], built once
+        per set of weights (derived_weights); buffers are the step's
+        preallocated outputs and scratch on CUDA (None elsewhere)."""
+        stacks = derived_weights(self, "stacks", list(self.parameters()), self._weight_stacks)
+        kv8 = torch.stack([torch.cat([k8, v8], dim=-1) for (k8, _), (v8, _) in kvs])
+        kvsc = torch.stack([torch.stack([ks, vs], dim=1) for (_, ks), (_, vs) in kvs])
+        buffers = None
+        if kv8.is_cuda and not self.opts.plain:
+            n_layers, b = kv8.shape[:2]
+            buffers = DS.step_buffers(n_layers, b, self.cfg.hidden_size,
+                                      self.cfg.intermediate_size, kv8.device)
+        return stacks, kv8, kvsc, buffers
+
+    def fused_decode_step_apply(self, stacks, x_t, kv8, kvsc, step: int,
+                                key_mask, write_offset: int, buffers=None):
+        """One decode step through the single-kernel path; commits this
+        step's quantized K/V rows at ``write_offset + step`` of kv8 / kvsc
+        IN PLACE (one copy per packed array; the JAX version returns updated
+        copies).  Returns (y_t [B, 1, D], kv8, kvsc); on CUDA y_t lives in
+        ``buffers`` and is overwritten by the next step."""
+        if self.opts.plain:
+            out = DS.fused_decode_step_plain(
+                x_t, stacks, kv8, kvsc, key_mask, step, write_offset,
+                self.cfg.num_attention_heads, self.cfg.layer_norm_eps)
+        else:
+            out = DS.fused_decode_step(
+                x_t, stacks, kv8, kvsc, key_mask, step, write_offset,
+                self.cfg.num_attention_heads, self.cfg.layer_norm_eps, buffers=buffers)
+        y, row8, rowsc = out
+        pos = write_offset + step
+        kv8[:, :, pos] = row8[:, :, 0]
+        kvsc[:, :, :, pos] = rowsc[..., 0]
+        return y, kv8, kvsc
 
 
 class BertEmbeddings(nn.Module):

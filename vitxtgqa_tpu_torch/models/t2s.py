@@ -7,6 +7,19 @@ encode and a KV-cached greedy decode of the pos variant.  The full-eval,
 training, recompute-decode and compact-serving branches are not ported
 yet and raise NotImplementedError naming their ROADMAP.md item.
 
+What runs where on CUDA (every serving configuration of the JAX package):
+  - QTV and the MMT encode: the flash kernel; the fused block where the
+    rows reach 2048 (batch >= 2 at production width);
+  - int8 cache, batch <= Options.fused_decode_max_batch (default 2): per
+    step the single-kernel decode step and the fused epilogue;
+  - int8 cache above the cap, or Options(fused_decode=False): per-layer
+    decode through the int8 decode-attention kernel;
+  - bf16 cache (kv_cache_int8=False), any batch: per-layer decode through
+    the bf16 decode-attention kernel.
+On CPU tensors every kernel op runs its plain version and the decode takes
+the per-layer path, as JAX does off the TPU; Options(plain=True) runs the
+plain versions on the card along the same branches.
+
 Parameter names are the reference's torch state-dict names (text_bert.*,
 TransLayer.encoder.layer.i.*, mmt.encoder.*, mmt.prev_pred_embeddings.*,
 Grounding_Module.*, ocr_ptr_net.*, classifier.module.*), so

@@ -1,17 +1,21 @@
 """Build the port's CUDA sources with nvcc and bind them with ctypes.
 
 The sources under ``vitxtgqa_tpu_torch/csrc`` have a plain C interface, so
-they compile in seconds with
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` into ``build/kernels/<source hash>/libvitxtgqa_kernels.so``
+they compile in seconds: one ``nvcc -gencode arch=compute_90a,code=sm_90a
+-std=c++17 -O3 -c`` per ``.cu`` file, all started together, then one
+``nvcc -shared`` link into ``build/kernels/<source hash>/libvitxtgqa_kernels.so``
 beside the package.  The build runs at first use and is keyed on a hash
 of the sources and flags, so a changed source rebuilds and an unchanged one
 loads the existing library.  There is no fallback: without nvcc, or on a
-failed build, this module raises.
+failed build, this module raises.  ``--use_fast_math`` stays out of the
+flags: the decode step's int8 quantization needs IEEE division to match
+``quantize_kv`` bit for bit.
 
-Every pointer crosses the ctypes boundary as ``c_void_p``, the stream as a
-``c_void_p`` holding ``torch.cuda.current_stream().cuda_stream``, and each
-C entry returns ``cudaGetLastError()`` after its launches.
+Every pointer crosses the ctypes boundary as ``c_void_p`` (or, for the
+kernels with many operands, as one array of them, see ``pointers``), the
+stream as a ``c_void_p`` holding ``torch.cuda.current_stream().cuda_stream``,
+and each C entry returns ``cudaGetLastError()`` (or the cooperative
+launch's own error) after its launches.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ LIB_NAME = "libvitxtgqa_kernels.so"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,6 +51,15 @@ _SIGNATURES = {
     # q, k8, ks, v8, vs, key_mask, out; batch, cache_len, heads, head_dim,
     # step, write_offset; stream
     "vt_decode_attention_int8": [_P] * 7 + [_I] * 6 + [_P],
+    # q, k, v, key_mask, out; batch, cache_len, heads, head_dim, step,
+    # write_offset; stream
+    "vt_decode_attention": [_P] * 5 + [_I] * 6 + [_P],
+    # pointer array (order in csrc/fused_decode_step.cu); n_layers, batch,
+    # cache_len, d, m, heads, step, write_offset; eps; stream
+    "vt_fused_decode_step": [_P] + [_I] * 8 + [_F, _P],
+    # pointer array (order in csrc/fused_epilogue.cu); batch, d, vp, n, qk,
+    # s2, step, dec_len; qk_scale; stream
+    "vt_fused_epilogue": [_P] + [_I] * 8 + [_F, _P],
 }
 
 # launch counts per kernel wrapper: each wrapper adds one where it launches
@@ -56,6 +69,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_block": 0,
     "fused_block_tanh": 0,
     "decode_attention_int8": 0,
+    "decode_attention": 0,
+    "fused_decode_step": 0,
+    "fused_epilogue": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -98,6 +114,20 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands in parallel; return [(cmd, returncode, output,
+    seconds since the start)]."""
+    t0 = time.perf_counter()
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    out = []
+    for cmd, proc in procs:
+        text, _ = proc.communicate()
+        out.append((cmd, proc.returncode, text, time.perf_counter() - t0))
+    return out
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return
     the library path.  Raises RuntimeError if nvcc is missing or fails."""
@@ -107,20 +137,31 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + f"\n# {time.perf_counter() - t0:.1f} s\n"
-        + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            + proc.stderr[-6000:]
-        )
+    tag = os.getpid()
+    objs = []
+    compiles = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    log = []
+    steps = (compiles, [[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                         "-o", str(tmp), *map(str, objs)]])
+    for cmds in steps:
+        results = _run(cmds)
+        log += [" ".join(cmd) + f"\n# {sec:.1f} s\n" + text
+                for cmd, _, text, sec in results]
+        failed = [(cmd, rc, text) for cmd, rc, text, _ in results if rc != 0]
+        if failed:
+            (out_dir / "nvcc.log").write_text("\n".join(log))
+            cmd, rc, text = failed[0]
+            raise RuntimeError(
+                f"nvcc failed with exit code {rc} on {cmd[-1]}:\n" + text[-6000:]
+            )
+    (out_dir / "nvcc.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)
     return lib
 
@@ -145,6 +186,11 @@ def check(err: int, name: str) -> None:
     if err != 0:
         text = lib().vt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({text})")
+
+
+def pointers(*tensors: torch.Tensor) -> ctypes.Array:
+    """The tensors' device pointers as one C array of ``void*``."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def stream_of(t: torch.Tensor) -> int:

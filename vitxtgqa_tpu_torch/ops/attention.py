@@ -4,7 +4,8 @@ Counterpart of vitxtgqa_tpu/ops/attention.py, with the same shape gates:
 full-sequence attention with a MaskSpec goes to the flash kernel at key
 length >= 256 (MIN_KV, the JAX _PALLAS_MIN_KV), so the 20-token text BERT
 stays on the plain path; a decode step over an int8 cache always goes to
-the int8 decode kernel.  Each kernel wrapper launches its kernel on CUDA
+the int8 decode kernel, one over a bf16 cache to the bf16 decode kernel at
+key length >= 256.  Each kernel wrapper launches its kernel on CUDA
 tensors and runs its plain version on CPU tensors; ``plain=True`` takes
 the plain version on any device (the oracle mode of ``Options.plain``).
 """
@@ -16,8 +17,10 @@ import math
 import torch
 
 from vitxtgqa_tpu_torch.ops.decode_attention import (
+    decode_attention,
     decode_attention_int8,
     decode_attention_int8_plain,
+    decode_attention_plain,
 )
 from vitxtgqa_tpu_torch.ops.flash_attention import (
     flash_attention_merged,
@@ -92,12 +95,10 @@ def decode_mha(q_raw, k_raw, v_raw, spec: DecodeStepSpec, num_heads: int,
         return fn(q_raw, k_raw[0], k_raw[1], v_raw[0], v_raw[1],
                   spec.key_mask.float().contiguous(), spec.step,
                   spec.write_offset, num_heads)
-    if k_raw.shape[1] >= MIN_KV and q_raw.is_cuda and not plain:
-        raise NotImplementedError(
-            "decode attention over a bf16 cache (pallas_attention."
-            "decode_attention) has no CUDA kernel yet (ROADMAP.md queue 2); "
-            "serve with Options(kv_cache_int8=True)"
-        )
+    if k_raw.shape[1] >= MIN_KV:
+        fn = decode_attention_plain if plain else decode_attention
+        return fn(q_raw, k_raw, v_raw, spec.key_mask.float().contiguous(),
+                  spec.step, spec.write_offset, num_heads)
     ctx = mha(split_heads(q_raw, num_heads), split_heads(k_raw, num_heads),
               split_heads(v_raw, num_heads), spec)
     return merge_heads(ctx)

@@ -23,12 +23,21 @@ class Options:
         per-token scales (the serving default of bench.py).
     plain: run every kernel op through its plain PyTorch version even on
         CUDA — the oracle mode used to check the kernels on the card.
+    fused_decode: with the int8 cache on CUDA, run each greedy-decode step
+        as the single-kernel decode step plus the fused epilogue
+        (ops/decode_step.py) — the counterpart of the JAX
+        ``set_fused_decode`` (default on).
+    fused_decode_max_batch: the fused decode engages only at batch <= this
+        cap — the counterpart of ``set_fused_decode_max_batch`` (JAX
+        default 2).
     """
 
     device: torch.device = torch.device("cpu")
     dtype: torch.dtype = torch.float32
     kv_cache_int8: bool = False
     plain: bool = False
+    fused_decode: bool = True
+    fused_decode_max_batch: int = 2
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
