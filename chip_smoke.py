@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's T2S serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's T2S serving, full-eval and training paths
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -14,25 +15,47 @@ Phases (each prints one or more lines; any failure exits non-zero):
      from synthetic_batch; max |diff| against a stated tolerance, and
      CUDA-event times of both.  The decode step's attention is planted
      (PLANTED / BACKGROUND / TRAP) so that reading a slot it must not read
-     moves its output by far more than the tolerance;
-  4. slices: T2S at production width (t2s_production_config) in bf16,
-     behind a ServingEngine, in each serving configuration:
+     moves its output by far more than the tolerance.  The training
+     kernels at L 1152, 12 heads, batch 4 (rows 4608): the flash forward
+     with dropout 0.1 (dec_len 0 and 12) and its backward (rate 0 and
+     0.1), the block forward (5 outputs) and backward (12 gradients,
+     against autograd through block_train_plain), all with the same
+     seed-regenerated masks as their twins; the in-kernel keep rate over
+     >= 10^7 draws and the forward / backward stream equality; then again
+     at the training step's own shapes: the flash pair at [48, 1152, 768]
+     with the MMT mask, the block pair at 55,296 rows (QTV, MMT) and 960
+     (text BERT), against the twins on the same inputs.  Each
+     kernel's bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s)
+     is computed from the inputs of its timed call, and one PyTorch call
+     that computes the same function is timed beside it where one exists
+     (library_ms; the port never calls it);
+  4. slices: T2S at production width (t2s_production_config) in bf16:
        a. int8 KV cache, batch 8 (per-layer int8 decode attention);
        b. int8 KV cache, buckets (1, 2): the single-kernel decode step and
           the fused epilogue; then the forward latency at batch 1 and 2
           through the fused and the per-layer decode;
-       c. bf16 KV cache, batch 8 (per-layer bf16 decode attention).
-     Each checks its launch counts per forward (derived from the gates),
-     the outputs' shapes and finiteness, and the same batch, weights and
-     gumbel noise through the plain versions on the card.
-The line before the last is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.  Details go to DIR/chip_smoke.json
-(default DIR: build/).  Without a CUDA device it exits 2 and prints no
-result.
+       c. bf16 KV cache, batch 8 (per-layer bf16 decode attention);
+       d. full-eval, int8 cache, batch 8: the pos decode, then ref / neg
+          from one teacher-forced pass at 2B;
+       e. training: (i) one step at batch 4 through the kernels and through
+          the plain versions from the same weights, batch, gumbel noise and
+          dropout generator (loss, gradient norm, every parameter's
+          gradient), and the plain step with each planted block fault,
+          which the same limits must reject; (ii) batch 48, remat "attn",
+          >= 3 Adam steps through the kernels, with the step time, videos/s
+          and peak memory.
+     a-c serve behind a ServingEngine; each slice checks its launch counts
+     (derived from the gates), the outputs' shapes and finiteness, and the
+     same inputs through the plain versions on the card.
+The line before the last is the kernels' JSON record, the one before it the
+card's name and power limit, the last line ``{"ok": true, "device":
+{...}}``.  Details go to DIR/chip_smoke.json (default DIR: build/).
+Without a CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -54,6 +77,14 @@ L_JOINT, WRITE_OFFSET, DEC_LEN = 1152, 1140, 12
 # after accumulations in another order.  Epilogue scores are f32 dots of
 # length 768 over O(1) values; tokens must agree wherever the top two
 # plain scores differ by more than the score tolerance.
+# The training kernels: the flash forward with dropout as the forward
+# without; the block forward's five outputs are bf16 activations of |x| up
+# to ~5 (x1h, x2h, y) with the twin's rounding chain, so a few bf16 ulps,
+# as the eval block.  The two backward kernels are held scale-relative:
+# max |diff| / max |twin| per gradient.  Their twins keep f32 where the
+# kernels round P and dS (flash) or dlin2, dpre and dlin1 (block, as the
+# Pallas kernel does) to bf16 before a product, a 2^-9 relative error per
+# operand summed over 1152 keys or up to 55,296 rows.
 TOL = {
     "flash_attention_merged": 2e-2,
     "fused_block": 6e-2,
@@ -62,7 +93,16 @@ TOL = {
     "decode_attention": 2e-2,
     "fused_decode_step": 6e-2,
     "fused_epilogue": 2e-2,
+    "flash_attention_merged_bwd": 3e-2,
+    "block_train_fwd": 6e-2,
+    "block_train_bwd": 3e-2,
 }
+# the in-kernel dropout draws: keep share within 0.001 of 1 - rate (the
+# binomial standard deviation over 10^7 draws is 1e-4)
+RATE, KEEP_TOL, MIN_DRAWS = 0.1, 1e-3, 10 ** 7
+# H100 SXM peaks (NVIDIA's data sheet):
+# dense bf16 tensor-core operations and HBM3 bandwidth
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 ROW8_TOL, ROWSC_REL_TOL = 1, 1e-2
 # the decode-step check plants its attention scores (decode_step_cache), per
 # head after the 1/sqrt(64) scale: two allowed encoder keys and, from step
@@ -80,6 +120,9 @@ REPLACES = {
     "decode_attention": "vitxtgqa_tpu/ops/pallas_attention.py:896",
     "fused_decode_step": "vitxtgqa_tpu/ops/pallas_decode_step.py:207",
     "fused_epilogue": "vitxtgqa_tpu/ops/pallas_decode_step.py:472",
+    "flash_attention_merged_bwd": "vitxtgqa_tpu/ops/pallas_attention.py:779",
+    "block_train_fwd": "vitxtgqa_tpu/ops/pallas_block_bwd.py:321",
+    "block_train_bwd": "vitxtgqa_tpu/ops/pallas_block_bwd.py:428",
 }
 SOURCE = {
     "flash_attention_merged": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
@@ -89,20 +132,43 @@ SOURCE = {
     "decode_attention": "vitxtgqa_tpu_torch/csrc/decode_attention.cu",
     "fused_decode_step": "vitxtgqa_tpu_torch/csrc/fused_decode_step.cu",
     "fused_epilogue": "vitxtgqa_tpu_torch/csrc/fused_epilogue.cu",
+    "flash_attention_merged_bwd": "vitxtgqa_tpu_torch/csrc/flash_attention_bwd.cu",
+    "block_train_fwd": "vitxtgqa_tpu_torch/csrc/block_train.cu",
+    "block_train_bwd": "vitxtgqa_tpu_torch/csrc/block_train.cu",
 }
 # slice, kernels vs plain on the card: greedy tokens may diverge where two
 # scores tie within bf16 noise, and diverge for the rest of the sequence
 # after that; the first step sees identical inputs up to that noise
 MIN_TOKEN_AGREEMENT = 0.8
 STEP0_TOL = 0.15
+# full-eval's ref / neg scores come from one teacher-forced pass on the
+# decoded tokens: compared on the rows whose tokens agree, like step 0
+REFNEG_TOL = 0.15
+# the row log-sum-exp: f32 on both sides from the same bf16 operands
+LSE_TOL = 1e-3
+# training, kernels vs plain from the same weights, batch, noise and
+# dropout generator: bf16 rounding at other places through 14 blocks,
+# forward and backward.  The loss (InfoNCE x 1000 dominates it), the global
+# gradient norm and the gradient of every parameter tensor (each a relative
+# difference |g - g_plain| / |g_plain|, so a bias is held on its own and
+# not beside its weight, and a gradient off by a scale counts as much as
+# one off in direction) are held a few times beyond the readings of the
+# kernels on the H100 (PERF.md); each planted fault (PLANTED_FAULTS) must
+# break at least one of the three.
+LOSS_REL_TOL, GNORM_REL_TOL, GRAD_REL_TOL = 5e-4, 1e-3, 5e-2
+TRAIN_CHECK_BATCH = 4   # the kernel checks and the kernels-vs-plain step
+TRAIN_BATCH = 48        # configs/t2s_abinet.yml training_parameters.batch_size
+TRAIN_STEPS = 4         # the first is a warm-up; >= 3 are timed
 
 
-def expected_launches(cfg, batch: int, opts) -> dict:
-    """Kernel launches in one serving forward, derived from the port's
-    gates: flash in every QTV and MMT encode layer (joint sequence >= 256
-    keys); the fused block in those layers where the rows reach its gate,
-    the last QTV layer in its tanh form; per decode step either the fused
-    step + epilogue or one decode attention per MMT layer."""
+def expected_launches(cfg, batch: int, opts, full_eval: bool = False) -> dict:
+    """Kernel launches in one eval forward, derived from the port's gates:
+    flash in every QTV and MMT encode layer (joint sequence >= 256 keys);
+    the fused block in those layers where the rows reach its gate, the last
+    QTV layer in its tanh form; per decode step either the fused step +
+    epilogue or one decode attention per MMT layer; with ``full_eval`` the
+    teacher-forced ref / neg pass at 2B adds flash and the fused block in
+    each MMT layer.  No training kernel."""
     from vitxtgqa_tpu_torch.ops import fused_block as FB
 
     n_qtv = cfg["translayers"]["num_hidden_layers"]
@@ -110,15 +176,37 @@ def expected_launches(cfg, batch: int, opts) -> dict:
     block = FB.kernel_ok(768, 3072, batch * L_JOINT)
     fused = opts.fused_decode and opts.kv_cache_int8 and batch <= opts.fused_decode_max_batch
     per_layer = 0 if fused else n_mmt * DEC_LEN
+    tf_flash = n_mmt if full_eval else 0
+    tf_block = n_mmt if full_eval and FB.kernel_ok(768, 3072, 2 * batch * L_JOINT) else 0
     return {
-        "flash_attention_merged": n_qtv + n_mmt,
-        "fused_block": (n_qtv - 1 + n_mmt) if block else 0,
+        "flash_attention_merged": n_qtv + n_mmt + tf_flash,
+        "fused_block": (n_qtv - 1 + n_mmt if block else 0) + tf_block,
         "fused_block_tanh": 1 if block else 0,
         "decode_attention_int8": per_layer if opts.kv_cache_int8 else 0,
         "decode_attention": 0 if opts.kv_cache_int8 else per_layer,
         "fused_decode_step": DEC_LEN if fused else 0,
         "fused_epilogue": DEC_LEN if fused else 0,
+        "flash_attention_merged_bwd": 0,
+        "block_train_fwd": 0,
+        "block_train_bwd": 0,
     }
+
+
+def expected_train_launches(cfg, opts) -> dict:
+    """Kernel launches in one training step: per flash-route layer (QTV,
+    and MMT in each of the ref / pos / neg passes) the flash forward and
+    backward; per layer (text BERT too) the block forward, once more in the
+    backward with remat "attn", and the block backward; no eval kernel."""
+    n_text = cfg["text_bert"]["num_hidden_layers"]
+    n_qtv = cfg["translayers"]["num_hidden_layers"]
+    n_mmt = cfg["mmt"]["num_hidden_layers"]
+    flash = n_qtv + 3 * n_mmt
+    blocks = n_text + n_qtv + 3 * n_mmt
+    out = {name: 0 for name in REPLACES}
+    out.update(flash_attention_merged=flash, flash_attention_merged_bwd=flash,
+               block_train_fwd=blocks * (2 if opts.remat == "attn" else 1),
+               block_train_bwd=blocks)
+    return out
 
 
 def fail(msg: str):
@@ -229,35 +317,131 @@ def decode_step_cache(x_t, stacks, mask, step, gen, num_heads=12):
     return kv8, kvs
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound_of(n_bytes: float, flops: float):
+    """(least ms the card could take, what bounds it): the bytes the
+    function must move over HBM bandwidth, or its operations over the bf16
+    tensor-core peak, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_pairs(key_mask, dec_len: int) -> int:
+    """Allowed (query row, key) pairs of one head, summed over the batch:
+    the keys a flash call must visit (a masked key tile can be skipped;
+    the dropout's zeros are elementwise on a dense product and count)."""
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+
+    l = key_mask.shape[1]
+    allowed = FA._allowed(key_mask, l, dec_len)
+    return int(allowed.sum().item()) * (l if allowed.shape[2] == 1 else 1)
+
+
+def flash_bound(q, key_mask, dec_len: int, lse: bool = False):
+    """q, k, v read, out (and the lse) written; 2 products of 2*HD per
+    allowed pair."""
+    b, l, hd = q.shape
+    return bound_of(4 * nbytes(q) + nbytes(key_mask) + (b * 12 * l * 4 if lse else 0),
+                    4 * hd * attn_pairs(key_mask, dec_len))
+
+
+def flash_bwd_bound(q, key_mask, dec_len: int):
+    """q, k, v, out, dO and the lse read, dq, dk, dv written; 5 products
+    (S, dP, dV, dQ, dK) of 2*HD per allowed pair."""
+    b, l, hd = q.shape
+    return bound_of(8 * nbytes(q) + nbytes(key_mask) + b * 12 * l * 4,
+                    10 * hd * attn_pairs(key_mask, dec_len))
+
+
+def block_bound(rows: int, d: int, m: int, n_in: int, n_out: int, weight_bytes: int,
+                vec_bytes: int, backward: bool = False):
+    """A post-attention block over ``rows``: n_in / n_out activations of
+    width d or m read / written (bytes given), the weights, 2*rows*(d^2 +
+    2dm) operations forward and twice that backward."""
+    flops = 2 * rows * (d * d + 2 * d * m) * (2 if backward else 1)
+    return bound_of(n_in + n_out + weight_bytes + vec_bytes, flops)
+
+
+def decode_keys(key_mask, step: int) -> int:
+    """Cache slots one decode step must read, summed over the batch: the
+    valid encoder keys and the decoder slots up to this step."""
+    return int((key_mask > 0).sum().item()) + key_mask.shape[0] * (step + 1)
+
+
+def decode_bound(q, key_mask, step: int, elem_bytes: int, scale_bytes: int):
+    keys, hd = decode_keys(key_mask, step), q.shape[-1]
+    return bound_of(2 * nbytes(q) + nbytes(key_mask) + keys * (2 * hd * elem_bytes + scale_bytes),
+                    4 * hd * keys)
+
+
+def sdpa_split(x, h: int):
+    b, l, hd = x.shape
+    return x.view(b, l, h, hd // h).transpose(1, 2)
+
+
+def sdpa_mask(key_mask, dec_len: int):
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+
+    return FA._allowed(key_mask, key_mask.shape[1], dec_len)
+
+
+def decode_sdpa_mask(key_mask, step: int):
+    import torch
+
+    slot = torch.arange(key_mask.shape[1], device=key_mask.device)
+    dec = (slot >= WRITE_OFFSET) & (slot <= WRITE_OFFSET + step)
+    return ((key_mask > 0) | dec[None, :])[:, None, None, :]
+
+
+def keep_times(record, name, extra, ms, plain_ms, bound, library_ms=None):
+    """Print the times of one call at the main path's shape and keep them
+    as the kernel's record, with the bound of the same call."""
+    rec = record.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": None})
+    rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
+               bound_by=bound[1])
+    lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"kernel {name}{extra}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+          f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+
+
+def report(record, name, err, extra="", scale=None, **timed):
+    """Print one check against its tolerance and keep its error; the
+    gradient kernels are held scale-relative (err / scale).  ``timed``
+    (keep_times' arguments): the call's times are the kernel's record."""
+    tol = TOL[name]
+    rec = record.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": None})
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    crit = err
+    if scale is not None:
+        crit = err / scale
+        rec["max_rel_err"] = max(rec["max_rel_err"] or 0.0, crit)
+    what = "max|diff|/max|plain|" if scale is not None else "max|diff|"
+    status = "ok" if crit <= tol else "FAIL"
+    print(f"kernel {name}{extra}: {what} {crit:.3e} (tol {tol:.0e}) {status}", flush=True)
+    if crit > tol:
+        fail(f"{name}{extra} disagrees with its plain version")
+    if timed:
+        keep_times(record, name, extra, **timed)
+
+
 def check_kernels(dev, record):
     import torch
+    import torch.nn.functional as F
 
     from vitxtgqa_tpu_torch.ops import decode_attention as DA
     from vitxtgqa_tpu_torch.ops import decode_step as DS
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
     from vitxtgqa_tpu_torch.ops import fused_block as FB
-    from vitxtgqa_tpu_torch.ops.attention import quantize_kv
+    from vitxtgqa_tpu_torch.ops.attention import dequantize_kv, quantize_kv
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf = torch.bfloat16
     rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
     h, l, d, m = 12, L_JOINT, 768, 3072
     mask, ocr_mask = serving_masks(dev)
-
-    def report(name, err, ms, plain_ms, extra="", keep=True):
-        """Print one check; ``keep``: its times are the record's (the main
-        path's shape)."""
-        tol = TOL[name]
-        rec = record.setdefault(name, {"max_abs_err": 0.0, "ms": None, "plain_ms": None})
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if ms is not None and keep:
-            rec["ms"], rec["plain_ms"] = ms, plain_ms
-        timing = f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if ms is not None else ""
-        status = "ok" if err <= tol else "FAIL"
-        print(f"kernel {name}{extra}: max|diff| {err:.3e} (tol {tol:.0e}) {status}{timing}",
-              flush=True)
-        if err > tol:
-            fail(f"{name}{extra} disagrees with its plain version")
 
     # 1. flash attention, dec_len 0 (QTV / MMT encode) and 12 (full-eval)
     q, k, v = (rn(BATCH, l, d) for _ in range(3))
@@ -272,10 +456,17 @@ def check_kernels(dev, record):
         if dec_len:
             rows[:, l - dec_len:] = True
         err = (got.float() - want.float()).abs()[rows].max().item()
-        timed = dec_len == 0
-        ms = cuda_time_ms(lambda: FA.flash_attention_merged(q, k, v, km, dec_len, h)) if timed else None
-        pms = cuda_time_ms(lambda: FA.flash_attention_merged_plain(q, k, v, km, dec_len, h)) if timed else None
-        report("flash_attention_merged", err, ms, pms, f" [8,1152,768] dec_len={dec_len}")
+        timed = {}
+        if dec_len == 0:
+            qh, kh, vh, am = (sdpa_split(q, h), sdpa_split(k, h), sdpa_split(v, h),
+                              sdpa_mask(km, 0))
+            timed = dict(
+                ms=cuda_time_ms(lambda: FA.flash_attention_merged(q, k, v, km, dec_len, h)),
+                plain_ms=cuda_time_ms(lambda: FA.flash_attention_merged_plain(q, k, v, km, dec_len, h)),
+                library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, am)),
+                bound=flash_bound(q, km, 0))
+        report(record, "flash_attention_merged", err, extra=f" [8,1152,768] dec_len={dec_len}",
+               **timed)
 
     # 2. fused block and its tanh form, rows 9216, 768 -> 3072
     x_q, ctx, res = rn(BATCH, l, d), rn(BATCH, l, d, scale=0.5), rn(BATCH, l, d)
@@ -283,29 +474,40 @@ def check_kernels(dev, record):
     vec = lambda n, base=0.0: (base + torch.randn(n, generator=gen, device=dev) * 0.05).float()
     pv = (wo, vec(d), vec(d, 1.0), vec(d), w1, vec(m), w2, vec(d), vec(d, 1.0), vec(d))
     args = (x_q, ctx) + pv
-    for name, fn, plain, a in (
-        ("fused_block", FB.fused_block, FB.fused_block_plain, args),
-        ("fused_block_tanh", FB.fused_block_tanh, FB.fused_block_tanh_plain, (res,) + args),
+    rows = BATCH * l
+    for name, fn, plain, a, n_in in (
+        ("fused_block", FB.fused_block, FB.fused_block_plain, args, nbytes(x_q, ctx)),
+        ("fused_block_tanh", FB.fused_block_tanh, FB.fused_block_tanh_plain, (res,) + args,
+         nbytes(x_q, ctx, res)),
     ):
         got, want = fn(*a), plain(*a)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        report(name, err, cuda_time_ms(lambda: fn(*a)), cuda_time_ms(lambda: plain(*a)),
-               " [9216,768]->3072")
+        report(record, name, err, " [9216,768]->3072", ms=cuda_time_ms(lambda: fn(*a)),
+               plain_ms=cuda_time_ms(lambda: plain(*a)),
+               bound=block_bound(rows, d, m, n_in, nbytes(got), nbytes(wo, w1, w2),
+                                 nbytes(*pv[1:4], pv[5], *pv[7:])))
 
     # 3. int8 decode attention at steps 0 and 11, write_offset 1140
     qd = rn(BATCH, 1, d)
     (k8, ks), (v8, vs) = quantize_kv(rn(BATCH, l, d)), quantize_kv(rn(BATCH, l, d))
+    kdq, vdq = dequantize_kv(k8, ks, bf), dequantize_kv(v8, vs, bf)
     for step in (0, 11):
-        dargs = (qd, k8, ks, v8, vs, mask, step, 1140, h)
+        dargs = (qd, k8, ks, v8, vs, mask, step, WRITE_OFFSET, h)
         got, want = DA.decode_attention_int8(*dargs), DA.decode_attention_int8_plain(*dargs)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        timed = step == 11
-        report("decode_attention_int8", err,
-               cuda_time_ms(lambda: DA.decode_attention_int8(*dargs)) if timed else None,
-               cuda_time_ms(lambda: DA.decode_attention_int8_plain(*dargs)) if timed else None,
-               f" [8,1,768] x [8,1152,768] step={step}")
+        timed = {}
+        if step == 11:
+            am = decode_sdpa_mask(mask, step)
+            qh, kh, vh = sdpa_split(qd, h), sdpa_split(kdq, h), sdpa_split(vdq, h)
+            timed = dict(ms=cuda_time_ms(lambda: DA.decode_attention_int8(*dargs)),
+                         plain_ms=cuda_time_ms(lambda: DA.decode_attention_int8_plain(*dargs)),
+                         library_ms=cuda_time_ms(
+                             lambda: F.scaled_dot_product_attention(qh, kh, vh, am)),
+                         bound=decode_bound(qd, mask, step, 1, 8))
+        report(record, "decode_attention_int8", err,
+               extra=f" [8,1,768] x [8,1152,768] step={step}", **timed)
 
     # 4. bf16 decode attention, same steps
     kb, vb = rn(BATCH, l, d), rn(BATCH, l, d)
@@ -314,11 +516,17 @@ def check_kernels(dev, record):
         got, want = DA.decode_attention(*dargs), DA.decode_attention_plain(*dargs)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        timed = step == 11
-        report("decode_attention", err,
-               cuda_time_ms(lambda: DA.decode_attention(*dargs)) if timed else None,
-               cuda_time_ms(lambda: DA.decode_attention_plain(*dargs)) if timed else None,
-               f" [8,1,768] x bf16 [8,1152,768] step={step}")
+        timed = {}
+        if step == 11:
+            am = decode_sdpa_mask(mask, step)
+            qh, kh, vh = sdpa_split(qd, h), sdpa_split(kb, h), sdpa_split(vb, h)
+            timed = dict(ms=cuda_time_ms(lambda: DA.decode_attention(*dargs)),
+                         plain_ms=cuda_time_ms(lambda: DA.decode_attention_plain(*dargs)),
+                         library_ms=cuda_time_ms(
+                             lambda: F.scaled_dot_product_attention(qh, kh, vh, am)),
+                         bound=decode_bound(qd, mask, step, 2, 0))
+        report(record, "decode_attention", err,
+               extra=f" [8,1,768] x bf16 [8,1152,768] step={step}", **timed)
 
     # 5. the single-kernel decode step over 3 MMT layers, batch 1 / 2 / 8,
     # its attention planted (decode_step_cache)
@@ -341,11 +549,20 @@ def check_kernels(dev, record):
                   flush=True)
             if d8 > ROW8_TOL or dsc > ROWSC_REL_TOL:
                 fail(f"fused_decode_step quantized rows disagree at batch {b}, step {step}")
-            timed = step == 11
-            ms = cuda_time_ms(lambda: DS.fused_decode_step(*sargs, buffers=buffers)) if timed else None
-            pms = cuda_time_ms(lambda: DS.fused_decode_step_plain(*sargs)) if timed else None
-            report("fused_decode_step", err, ms, pms,
-                   f" [{b},1,768] x 3 layers, kv8 [3,{b},1152,1536] step={step}", keep=b == 1)
+            timed = {}
+            if step == 11:
+                ms = cuda_time_ms(lambda: DS.fused_decode_step(*sargs, buffers=buffers))
+                pms = cuda_time_ms(lambda: DS.fused_decode_step_plain(*sargs))
+                print(f"kernel fused_decode_step [{b},1,768] step=11: kernel {ms:.4f} ms, "
+                      f"plain {pms:.4f} ms", flush=True)
+                if b == 1:  # the record's shape: the fused branch's batch-1 step
+                    keys = 3 * (decode_keys(km, step) - b)
+                    flops = 3 * 2 * b * (4 * d * d + 2 * d * m) + 4 * d * keys
+                    moved = (nbytes(*stacks.values()) + nbytes(x_t, km, *got)
+                             + keys * (2 * d + 8))
+                    timed = dict(ms=ms, plain_ms=pms, bound=bound_of(moved, flops))
+            report(record, "fused_decode_step", err,
+                   extra=f" [{b},1,768] x 3 layers, kv8 [3,{b},1152,1536] step={step}", **timed)
 
     # 6. the fused epilogue, batch 1 / 2 / 8: scores, greedy token, next emb
     v_fix, v_p, n_ocr = 5050, 5120, 960
@@ -377,9 +594,270 @@ def check_kernels(dev, record):
               f"{want[1][:, 0, 0].tolist()}; next-embedding max|diff| {emb_err:.3e}", flush=True)
         if not bool(tok_ok.all()) or emb_err > TOL["fused_epilogue"]:
             fail(f"fused_epilogue token or embedding disagrees at batch {b}")
-        report("fused_epilogue", err, cuda_time_ms(lambda: DS.fused_epilogue(*eargs)),
-               cuda_time_ms(lambda: DS.fused_epilogue_plain(*eargs)),
-               f" [{b},1,768] -> [{b},1,{v_p + n_ocr}]", keep=b == 1)
+        ms = cuda_time_ms(lambda: DS.fused_epilogue(*eargs))
+        pms = cuda_time_ms(lambda: DS.fused_epilogue_plain(*eargs))
+        timed = {}
+        if b == 1:  # the record's shape: the fused branch's batch-1 step
+            moved = (nbytes(eargs[0], cls_b[:v_fix], ptr_w, ptr_b, eargs[5], eargs[6], *got)
+                     + v_fix * d * 4 + b * d * (2 + 2 + 4))  # classifier; gathered rows
+            timed = dict(ms=ms, plain_ms=pms,
+                         bound=bound_of(moved, 2 * b * d * (v_fix + d + n_ocr)))
+        else:
+            print(f"kernel fused_epilogue [{b}]: kernel {ms:.4f} ms, plain {pms:.4f} ms",
+                  flush=True)
+        report(record, "fused_epilogue", err, extra=f" [{b},1,768] -> [{b},1,{v_p + n_ocr}]",
+               **timed)
+    del q, k, v, x_q, ctx, res, kdq, vdq
+    torch.cuda.empty_cache()
+
+
+def check_training_kernels(dev, record):
+    """The training kernels at L 1152, 12 heads, batch TRAIN_CHECK_BATCH
+    against their twins with the same seed-regenerated masks, the keep
+    rate and stream equality of the in-kernel dropout, then the times at
+    the training step's own shapes (batch TRAIN_BATCH)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+    from vitxtgqa_tpu_torch.ops import dropout as D
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf = torch.bfloat16
+    rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
+    h, l, d, m, b = 12, L_JOINT, 768, 3072, TRAIN_CHECK_BATCH
+    serving_mask, _ = serving_masks(dev)
+    seed = torch.tensor([20261016], dtype=torch.int64, device=dev)
+    details = {}
+
+    def mask_for(batch, dec_len):
+        km = serving_mask[torch.arange(batch, device=dev) % BATCH].clone()
+        if dec_len:
+            km[:, l - dec_len:] = 0.0
+        return km.contiguous()
+
+    # 7. flash forward with dropout 0.1 and its lse, dec_len 0 (QTV) and 12
+    # (MMT), against the twin on the same Philox mask
+    q, k, v, g = (rn(b, l, d) for _ in range(4))
+    for dec_len in (0, 12):
+        km = mask_for(b, dec_len)
+        got, lse = FA.flash_attention_merged(q, k, v, km, dec_len, h, RATE, seed, return_lse=True)
+        want, want_lse = FA.flash_attention_merged_plain(q, k, v, km, dec_len, h, RATE, seed,
+                                                         return_lse=True)
+        torch.cuda.synchronize()
+        rows = km > 0
+        if dec_len:
+            rows[:, l - dec_len:] = True
+        err = (got.float() - want.float()).abs()[rows].max().item()
+        lse_err = (lse - want_lse).abs()[rows[:, None, :].expand_as(lse)].max().item()
+        report(record, "flash_attention_merged", err,
+               extra=f" dropout {RATE} [{b},1152,768] dec_len={dec_len}; lse max|diff| "
+                     f"{lse_err:.3e} (tol {LSE_TOL:.0e})")
+        if lse_err > LSE_TOL:
+            fail(f"flash_attention_merged lse disagrees at dec_len {dec_len}")
+
+    # 8. flash backward at rate 0 and 0.1, from the twin's out and lse
+    for dec_len in (0, 12):
+        km = mask_for(b, dec_len)
+        for rate in (0.0, RATE):
+            out, lse = FA.flash_attention_merged_plain(q, k, v, km, dec_len, h, rate, seed,
+                                                       return_lse=True)
+            got = FA.flash_attention_merged_bwd(q, k, v, km, out, lse, g, dec_len, h, rate, seed)
+            want = FA.flash_attention_merged_bwd_plain(q, k, v, km, out, lse, g, dec_len, h,
+                                                       rate, seed)
+            torch.cuda.synchronize()
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                err = (a.float() - w.float()).abs().max().item()
+                report(record, "flash_attention_merged_bwd", err, scale=w.float().abs().max().item(),
+                       extra=f" {name} rate={rate} [{b},1152,768] dec_len={dec_len}")
+
+    # 9. the flash dropout on uniform attention (q = k = 0, every key
+    # allowed): with v[key, head * 64 + c] = (key % 64 == c) the output
+    # counts the kept keys of each (row, head, key class) exactly, over
+    # B*H*L*L draws; with v[key, head * 64 + c] = (key == c) it shows the
+    # forward's keep bit of every (row, key < 64), and the backward's dv
+    # under dO[row, head * 64 + c] = (row == c) the backward's bit of every
+    # (row < 64, key < 64): the two, and the twin's mask, must be equal.
+    z = torch.zeros(b, l, d, dtype=bf, device=dev)
+    ones = torch.ones(b, l, device=dev)
+    key = torch.arange(l, device=dev)[:, None]
+    col = torch.arange(d, device=dev)[None, :] % 64
+    v_rate = (key % 64 == col).to(bf).expand(b, l, d).contiguous()
+    counts = torch.round(FA.flash_attention_merged(z, z, v_rate, ones, 0, h, RATE, seed).float()
+                         * l * (1 - RATE))
+    draws = b * h * l * l
+    keep_attn = counts.sum().item() / draws
+    v_eq = (key == col).to(bf).expand(b, l, d).contiguous()
+    out_eq, lse_eq = FA.flash_attention_merged(z, z, v_eq, ones, 0, h, RATE, seed, return_lse=True)
+    d_o = (torch.arange(l, device=dev)[:, None] == col).to(bf).expand(b, l, d).contiguous()
+    dv = FA.flash_attention_merged_bwd(z, z, v_eq, ones, out_eq, lse_eq, d_o, 0, h, RATE, seed)[2]
+    fwd_keep = out_eq.view(b, l, h, 64)[:, :64] != 0                       # [b, row, h, key]
+    bwd_keep = (dv.view(b, l, h, 64)[:, :64] != 0).permute(0, 3, 2, 1)     # [b, key, h, row]
+    plain_keep = D.keep_mask(seed, D.STREAM_ATTN, (b, h, 64, 64), RATE).permute(0, 2, 1, 3)
+    torch.cuda.synchronize()
+    streams_equal = bool(torch.equal(fwd_keep, bwd_keep) and torch.equal(fwd_keep, plain_keep))
+    print(f"dropout: flash keep share {keep_attn:.6f} over {draws} in-kernel draws (want "
+          f"{1 - RATE} +- {KEEP_TOL}); forward / backward / twin keep bits equal on "
+          f"{fwd_keep.numel()} entries: {streams_equal}", flush=True)
+    if abs(keep_attn - (1 - RATE)) > KEEP_TOL or draws < MIN_DRAWS or not streams_equal:
+        fail("the flash dropout's keep rate or its forward / backward streams")
+    details["flash_keep_share"], details["flash_draws"] = keep_attn, draws
+
+    # 10. the block forward (5 outputs, the emitted masks) and backward (12
+    # gradients against autograd through block_train_plain), rows b * 1152
+    rows = b * l
+    vec = lambda n, base=0.0: base + torch.randn(n, generator=gen, device=dev) * 0.05
+    x_q, ctx, gy = rn(rows, d), rn(rows, d), rn(rows, d)
+    w32 = [torch.randn(*s, generator=gen, device=dev) * 0.02 for s in ((d, d), (m, d), (d, m))]
+    vecs = [vec(d), vec(d, 1.0), vec(d), vec(m), vec(d), vec(d, 1.0), vec(d)]
+    wo, w1, w2 = (w.to(bf) for w in w32)
+    bo, s1, g1, b1, b2, s2, g2 = vecs
+    wargs = (wo, bo, s1, g1, w1, b1, w2, b2, s2, g2)
+    got = BT.block_train_fwd(x_q, ctx, *wargs, rate=RATE, seed=seed, emit_masks=True)
+    ma, mf = BT.masks_from_seed(seed, rows, d, RATE, dev)
+    twin = BT.block_train_fwd_plain(x_q, ctx, *wargs, mask_a=ma, mask_f=mf, rate=RATE)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("y", "x1h", "pre1", "h", "x2h"), got, twin):
+        report(record, "block_train_fwd", (a.float() - w.float()).abs().max().item(),
+               extra=f" {name} rate={RATE} [{rows},768]->3072")
+    masks_equal = bool(torch.equal(got[5].bool(), ma) and torch.equal(got[6].bool(), mf))
+    keep_block = [mk.float().mean().item() for mk in got[5:]]
+    print(f"dropout: block keep shares {keep_block[0]:.6f} / {keep_block[1]:.6f} over "
+          f"{rows * d} draws each; emitted masks equal the twin's: {masks_equal}", flush=True)
+    if not masks_equal or max(abs(kb - (1 - RATE)) for kb in keep_block) > KEEP_TOL:
+        fail("the block dropout's masks or keep rate")
+    details["block_keep_shares"] = keep_block
+
+    # autograd through the twin: bf16 activations, f32 weights and vectors
+    # (rounded to bf16 inside, as the model's bf16 parameters are)
+    leaves = [x_q.clone().requires_grad_(), ctx.clone().requires_grad_()]
+    params = [t.clone().requires_grad_()
+              for t in (w32[0], bo, s1, g1, w32[1], b1, w32[2], b2, s2, g2)]
+    BT.block_train_plain(*leaves, *params, mask_a=ma, mask_f=mf, rate=RATE).backward(gy)
+    bwd_args = (gy, ctx, *twin[1:], wo, w1, w2, s1, g1, s2)
+    got = BT.block_train_bwd(*bwd_args, rate=RATE, seed=seed)
+    torch.cuda.synchronize()
+    for name, a, t in zip(BT.GRAD_NAMES, got, leaves + params):
+        w = t.grad.float()
+        report(record, "block_train_bwd", (a.float() - w).abs().max().item(),
+               scale=w.abs().max().item(), extra=f" d{name} rate={RATE} [{rows},768]->3072")
+
+    # the backward's attention-output mask, element by element: with Wo = I
+    # dctx = dlin1 = K_a du1 / (1 - rate), zero exactly where the forward
+    # dropped
+    eye = torch.eye(d, device=dev, dtype=bf)
+    res = BT.block_train_fwd(x_q, ctx, eye, *wargs[1:], rate=RATE, seed=seed)
+    dctx = BT.block_train_bwd(gy, ctx, *res[1:], eye, w1, w2, s1, g1, s2, rate=RATE, seed=seed)[1]
+    torch.cuda.synchronize()
+    block_equal = bool(torch.equal(dctx != 0, ma))
+    print(f"dropout: block backward's attention-output keep bits equal the forward's on "
+          f"{ma.numel()} entries: {block_equal}", flush=True)
+    if not block_equal:
+        fail("the block dropout's forward / backward streams")
+    del q, k, v, g, z, v_rate, v_eq, d_o, dv, out_eq, got, twin, leaves, params, res, dctx
+    torch.cuda.empty_cache()
+
+    # 11. the training step's own shapes, each kernel against its twin on
+    # the same seed's masks with the tolerances above, then timed: the flash
+    # forward (dropout, lse) and backward at [48, 1152, 768] with the MMT
+    # mask; the block at 55,296 rows (QTV, MMT) and at 960 rows (text BERT:
+    # 48 x 20 question tokens).  The timed twins draw their masks from the
+    # seed as they run.
+    bt = TRAIN_BATCH
+    km = mask_for(bt, 12)
+    rows_ok = km > 0
+    rows_ok[:, l - 12:] = True
+    shape = f"[{bt},1152,768] dec_len=12"
+    q, k, v, g = (rn(bt, l, d) for _ in range(4))
+    out, lse = FA.flash_attention_merged(q, k, v, km, 12, h, RATE, seed, return_lse=True)
+    want, want_lse = FA.flash_attention_merged_plain(q, k, v, km, 12, h, RATE, seed,
+                                                     return_lse=True)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs()[rows_ok].max().item()
+    lse_err = (lse - want_lse).abs()[rows_ok[:, None, :].expand_as(lse)].max().item()
+    report(record, "flash_attention_merged", err,
+           extra=f" dropout {RATE} {shape}; lse max|diff| {lse_err:.3e} (tol {LSE_TOL:.0e})")
+    if lse_err > LSE_TOL:
+        fail(f"flash_attention_merged lse disagrees at {shape}")
+    del want, want_lse
+    got = FA.flash_attention_merged_bwd(q, k, v, km, out, lse, g, 12, h, RATE, seed)
+    want = FA.flash_attention_merged_bwd_plain(q, k, v, km, out, lse, g, 12, h, RATE, seed)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        report(record, "flash_attention_merged_bwd", (a.float() - w.float()).abs().max().item(),
+               scale=w.float().abs().max().item(), extra=f" {name} rate={RATE} {shape}")
+    del got, want
+    torch.cuda.empty_cache()
+
+    qh, kh, vh = (sdpa_split(t, h).detach().requires_grad_() for t in (q, k, v))
+    am = sdpa_mask(km, 12)
+    fwd_t = dict(ms=cuda_time_ms(lambda: FA.flash_attention_merged(
+                     q, k, v, km, 12, h, RATE, seed, return_lse=True)),
+                 plain_ms=cuda_time_ms(lambda: FA.flash_attention_merged_plain(
+                     q, k, v, km, 12, h, RATE, seed, return_lse=True), reps=3, warmup=1),
+                 library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, am, dropout_p=RATE)),
+                 bound=flash_bound(q, km, 12, lse=True))
+    # the record of #1 stays at its serving shape (section 1); this is its
+    # dropout form at the training shape, kept in the details
+    train_rec = {}
+    keep_times(train_rec, "flash_attention_merged", f" dropout {RATE} {shape}", **fwd_t)
+    details["flash_attention_merged_train"] = train_rec["flash_attention_merged"]
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, am, dropout_p=RATE)
+    lib_g = torch.randn_like(lib_out)
+    timed = dict(
+        ms=cuda_time_ms(lambda: FA.flash_attention_merged_bwd(
+            q, k, v, km, out, lse, g, 12, h, RATE, seed)),
+        plain_ms=cuda_time_ms(lambda: FA.flash_attention_merged_bwd_plain(
+            q, k, v, km, out, lse, g, 12, h, RATE, seed), reps=3, warmup=1),
+        library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+            lib_out, (qh, kh, vh), lib_g, retain_graph=True)),
+        bound=flash_bwd_bound(q, km, 12))
+    keep_times(record, "flash_attention_merged_bwd", f" rate={RATE} {shape}", **timed)
+    del q, k, v, g, out, lse, qh, kh, vh, am, lib_out, lib_g
+    torch.cuda.empty_cache()
+
+    wbytes, vbytes = nbytes(wo, w1, w2), nbytes(*vecs)
+    for rows in (bt * l, bt * 20):
+        x_q, ctx, gy = rn(rows, d), rn(rows, d), rn(rows, d)
+        ma, mf = BT.masks_from_seed(seed, rows, d, RATE, dev)
+        res = BT.block_train_fwd(x_q, ctx, *wargs, rate=RATE, seed=seed)
+        twin = BT.block_train_fwd_plain(x_q, ctx, *wargs, ma, mf, rate=RATE)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("y", "x1h", "pre1", "h", "x2h"), res, twin):
+            report(record, "block_train_fwd", (a.float() - w.float()).abs().max().item(),
+                   extra=f" {name} rate={RATE} [{rows},768]->3072")
+        del twin
+        bwd_args = (gy, ctx, *res[1:], wo, w1, w2, s1, g1, s2)
+        got = BT.block_train_bwd(*bwd_args, rate=RATE, seed=seed)
+        want = BT.block_train_bwd_plain(*bwd_args, ma, mf, rate=RATE)
+        torch.cuda.synchronize()
+        for name, a, w in zip(BT.GRAD_NAMES, got, want):
+            w = w.float()
+            report(record, "block_train_bwd", (a.float() - w).abs().max().item(),
+                   scale=w.abs().max().item(), extra=f" d{name} rate={RATE} [{rows},768]->3072")
+        del got, want, ma, mf
+        if rows == bt * l:
+            twin_masks = lambda: BT.masks_from_seed(seed, rows, d, RATE, dev)
+            act_d, act_m = rows * d * 2, rows * m * 2
+            keep_times(record, "block_train_fwd", f" rate={RATE} [{rows},768]->3072",
+                       ms=cuda_time_ms(lambda: BT.block_train_fwd(x_q, ctx, *wargs, rate=RATE,
+                                                                  seed=seed)),
+                       plain_ms=cuda_time_ms(lambda: BT.block_train_fwd_plain(
+                           x_q, ctx, *wargs, *twin_masks(), rate=RATE), reps=3, warmup=1),
+                       bound=block_bound(rows, d, m, 2 * act_d, 3 * act_d + 2 * act_m, wbytes,
+                                         vbytes))
+            keep_times(record, "block_train_bwd", f" rate={RATE} [{rows},768]->3072",
+                       ms=cuda_time_ms(lambda: BT.block_train_bwd(*bwd_args, rate=RATE,
+                                                                  seed=seed)),
+                       plain_ms=cuda_time_ms(lambda: BT.block_train_bwd_plain(
+                           *bwd_args, *twin_masks(), rate=RATE), reps=3, warmup=1),
+                       bound=block_bound(rows, d, m, 4 * act_d + 2 * act_m,
+                                         2 * act_d + 2 * wbytes, wbytes, vbytes, backward=True))
+        del x_q, ctx, gy, res, bwd_args
+        torch.cuda.empty_cache()
+    return details
 
 
 class Slices:
@@ -398,21 +876,30 @@ class Slices:
         print(f"slices: T2S production width, {self.n_params / 1e6:.1f}M params, bf16, "
               f"random weights from seed 0, built in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    def _new(self, **opts):
+    def _new(self, inference_only=True, **opts):
         import torch
 
         from vitxtgqa_tpu_torch import Options
         from vitxtgqa_tpu_torch.models.t2s import T2S
 
-        return T2S(self.cfg, self.nf, bos_idx=2, opts=Options(
-            device=self.dev, dtype=torch.bfloat16, **opts)).eval()
+        return T2S(self.cfg, self.nf, bos_idx=2, inference_only=inference_only,
+                   opts=Options(device=self.dev, dtype=torch.bfloat16, **opts))
 
-    def model(self, **opts):
-        """A T2S in eval mode with these Options fields, bf16 on the card,
-        holding the shared weights."""
-        m = self._new(**opts)
+    def model(self, inference_only=True, **opts):
+        """A T2S with these Options fields, bf16 on the card, holding the
+        shared weights (``inference_only=False``: full-eval)."""
+        m = self._new(inference_only, **opts)
         m.load_state_dict(self.state)
         return m
+
+
+def count_launches(name, record, counts, want):
+    """Fail unless ``counts`` are ``want``; add them to the record."""
+    for k, v in want.items():
+        if counts[k] != v:
+            fail(f"{name}: {k} launched {counts[k]} times, expected {v}")
+        record.setdefault(k, {}).setdefault("launches", 0)
+        record[k]["launches"] += counts[k]
 
 
 def check_outputs(outs, nf):
@@ -455,15 +942,10 @@ def serve_slice(name, sl: Slices, record, opts: dict, groups, rng_seed=0):
             outs = [f.result(timeout=600) for f in [eng.submit(s) for s in samples[:n]]]
             torch.cuda.synchronize()
             counts = _build.launch_counts()
-            want = expected_launches(sl.cfg, n, model.opts)
             print(f"slice {name}: launches in one served forward at batch {n} "
                   + json.dumps(counts), flush=True)
-            for k, v in want.items():
-                if counts[k] != v:
-                    fail(f"slice {name}: {k} launched {counts[k]} times in a batch-{n} "
-                         f"forward, expected {v}")
-                record.setdefault(k, {}).setdefault("launches", 0)
-                record[k]["launches"] += counts[k]
+            count_launches(f"slice {name}, a batch-{n} forward", record, counts,
+                           expected_launches(sl.cfg, n, model.opts))
             check_outputs(outs, sl.nf)
 
             sub = {k: v[:n] for k, v in batch.items()}
@@ -490,6 +972,243 @@ def serve_slice(name, sl: Slices, record, opts: dict, groups, rng_seed=0):
                 "ground_frame_agreement": gf})
     del plain_model
     return model, summary
+
+
+def full_eval_slice(sl: Slices, record, card):
+    """d. full-eval at batch 8, int8 cache: the pos decode, then ref / neg
+    from one teacher-forced pass at 2B; the same batch, weights and noise
+    through the plain versions."""
+    import numpy as np
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+    model = sl.model(inference_only=False, kv_cache_int8=True)
+    plain = sl.model(inference_only=False, kv_cache_int8=True, plain=True)
+    batch = synthetic_batch(batch=BATCH, num_final_outputs=sl.nf, seed=1)
+    tb = to_device(batch, sl.dev)
+    forward_ms(model, batch, sl.dev, reps=1)  # warm-up
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        kern = model(tb, group_generator(0, 0, sl.dev))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print("slice full_eval_b8: launches in one full-eval forward at batch 8 " + json.dumps(counts),
+          flush=True)
+    count_launches("slice full_eval_b8", record, counts,
+                   expected_launches(sl.cfg, BATCH, model.opts, full_eval=True))
+    with torch.inference_mode():
+        ref = plain(tb, group_generator(0, 0, sl.dev))
+    out = {k: v.float().cpu().numpy() for k, v in kern.items() if torch.is_tensor(v)}
+    want = {k: v.float().cpu().numpy() for k, v in ref.items() if torch.is_tensor(v)}
+    for k in ("ref_scores", "pos_scores", "neg_scores"):
+        if out[k].shape != (BATCH, DEC_LEN, sl.nf) or not np.isfinite(out[k]).all():
+            fail(f"slice full_eval_b8: {k} {out[k].shape}, finite {np.isfinite(out[k]).all()}")
+    tok, tok_p = out["pos_scores"].argmax(-1), want["pos_scores"].argmax(-1)
+    agree = float((tok == tok_p).mean())
+    same = (tok == tok_p).all(-1)
+    diffs = {k: float(np.abs(out[k][same] - want[k][same]).max()) if same.any() else None
+             for k in ("ref_scores", "neg_scores")}
+    lat = forward_ms(model, batch, sl.dev, reps=3)
+    print(f"slice full_eval_b8: kernels vs plain on the card: greedy-token agreement {agree:.4f} "
+          f"(min {MIN_TOKEN_AGREEMENT}); on the {int(same.sum())} rows with equal tokens max|d "
+          f"ref_scores| {diffs['ref_scores']}, max|d neg_scores| {diffs['neg_scores']} (tol "
+          f"{REFNEG_TOL}); forward median {statistics.median(lat):.2f} ms; card {card}", flush=True)
+    if agree < MIN_TOKEN_AGREEMENT or not same.any() or max(diffs.values()) > REFNEG_TOL:
+        fail("slice full_eval_b8: the kernels disagree with the plain versions")
+    del model, plain
+    return {"launches": counts, "token_agreement": agree, "rows_equal_tokens": int(same.sum()),
+            "max_abs_diff": diffs, "forward_ms_all": lat}
+
+
+@contextlib.contextmanager
+def planted_fault(name, model):
+    """Run the plain step with one fault a block kernel could have, in one
+    layer, by wrapping ops/block_train's plain versions for the duration:
+    "db2_dropped": the backward of MMT layer 2 returns db2 = 0 (in each of
+    the ref / pos / neg passes); "keep_scale_1": the block of text-BERT
+    layer 0 scales kept entries by 1 instead of 1 / (1 - rate), forward and
+    backward alike."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+
+    # wo: the third operand of the forward, the seventh of the backward;
+    # the rate: the fifteenth of either (after the two masks)
+    fwd, bwd = BT.block_train_fwd_plain, BT.block_train_bwd_plain
+    if name == "db2_dropped":
+        wo = model.get_parameter("mmt.encoder.layer.2.attention.output.dense.weight")
+
+        def bwd_fault(*a, **kw):
+            grads = bwd(*a, **kw)
+            if a[6].data_ptr() == wo.data_ptr():
+                grads = grads[:9] + (torch.zeros_like(grads[9]),) + grads[10:]
+            return grads
+
+        patches = {"block_train_bwd_plain": bwd_fault}
+    else:
+        wo = model.get_parameter("text_bert.encoder.layer.0.attention.output.dense.weight")
+
+        def unscaled(fn, at):
+            def call(*a, **kw):
+                if a[at].data_ptr() == wo.data_ptr():
+                    a = a[:14] + (1e-9,) + a[15:]   # same masks, scale 1 / (1 - 1e-9)
+                return fn(*a, **kw)
+            return call
+
+        patches = {"block_train_fwd_plain": unscaled(fwd, 2),
+                   "block_train_bwd_plain": unscaled(bwd, 6)}
+    for k, v in patches.items():
+        setattr(BT, k, v)
+    try:
+        yield
+    finally:
+        BT.block_train_fwd_plain, BT.block_train_bwd_plain = fwd, bwd
+
+
+PLANTED_FAULTS = ("db2_dropped", "keep_scale_1")
+
+
+def train_check_step(sl, tb, losses, plain, fault=None):
+    """One training step at batch TRAIN_CHECK_BATCH from the shared weights
+    and generators: (loss, global gradient norm, {parameter: f32 gradient},
+    launch counts)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.training.step import step_generators
+
+    model = sl.model(plain=plain)
+    _build.reset_launch_counts()
+    dropout_gen, gumbel_gen = step_generators(7, 0, sl.dev)
+    with planted_fault(fault, model) if fault else contextlib.nullcontext():
+        out = model(tb, gumbel_gen, train=True, dropout_gen=dropout_gen)
+        total = losses.total(tb, out)[0]
+        total.backward()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    grads = {k: p.grad.float().flatten() for k, p in model.named_parameters()
+             if p.grad is not None}
+    norm = torch.linalg.vector_norm(torch.cat(list(grads.values()))).item()
+    return total.item(), norm, grads, counts
+
+
+def step_agreement(run, ref):
+    """(loss relative difference, gradient-norm relative difference,
+    (largest per-parameter gradient relative difference |g - g_ref| /
+    |g_ref|, its parameter), parameters compared, whether all three are
+    within their limits) of ``run`` against ``ref``."""
+    (loss, norm, grads, _), (loss_r, norm_r, grads_r, _) = run, ref
+    if sorted(grads) != sorted(grads_r):
+        fail("slice train: two steps reach different parameters")
+    rel = {}
+    for k, w in grads_r.items():
+        # a key projection's bias moves every score of a query alike, which
+        # the softmax ignores: its gradient is 0 but for rounding, and is
+        # left out
+        nw = w.norm()
+        if nw > 0 and not k.endswith("attention.self.key.bias"):
+            rel[k] = float((grads[k] - w).norm() / nw)
+    worst = max(rel, key=rel.get)
+    loss_rel, norm_rel = abs(loss - loss_r) / abs(loss_r), abs(norm - norm_r) / norm_r
+    ok = loss_rel <= LOSS_REL_TOL and norm_rel <= GNORM_REL_TOL and rel[worst] <= GRAD_REL_TOL
+    return loss_rel, norm_rel, (rel[worst], worst), len(rel), ok
+
+
+def train_slice(sl: Slices, record, card):
+    """e. (i) one training step at batch TRAIN_CHECK_BATCH through the
+    kernels and through the plain versions, from the same weights, batch,
+    gumbel noise and dropout generator, and the plain step with each
+    planted fault; (ii) TRAIN_STEPS Adam steps at batch TRAIN_BATCH
+    through the kernels, remat "attn"."""
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+    from vitxtgqa_tpu_torch.training.optim import build_optimizer
+    from vitxtgqa_tpu_torch.training.step import step_generators, train_step
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+    dev, losses = sl.dev, Losses(sl.cfg["losses"])
+    tb = to_device(synthetic_batch(batch=TRAIN_CHECK_BATCH, num_final_outputs=sl.nf, seed=2), dev)
+    kern = train_check_step(sl, tb, losses, plain=False)
+    print(f"slice train: launches in one batch-{TRAIN_CHECK_BATCH} step " + json.dumps(kern[3]),
+          flush=True)
+    count_launches("slice train", record, kern[3],
+                   expected_train_launches(sl.cfg, Options(device=dev)))
+    plain = train_check_step(sl, tb, losses, plain=True)
+    if any(plain[3].values()):
+        fail(f"slice train: the plain step launched kernels {plain[3]}")
+    limits = (f"(limits: loss {LOSS_REL_TOL}, norm {GNORM_REL_TOL}, parameter {GRAD_REL_TOL}, "
+              f"relative to the plain step)")
+    summary = {"check": {"batch": TRAIN_CHECK_BATCH, "loss": [kern[0], plain[0]],
+                         "grad_norm": [kern[1], plain[1]]}, "planted": {}}
+    for name, run in [("kernels", kern)] + [(f, None) for f in PLANTED_FAULTS]:
+        if run is None:
+            run = train_check_step(sl, tb, losses, plain=True, fault=name)
+        loss_rel, norm_rel, (grad_rel, worst), n, ok = step_agreement(run, plain)
+        print(f"slice train: batch {TRAIN_CHECK_BATCH}, {name} vs plain: loss {run[0]:.6f} vs "
+              f"{plain[0]:.6f} (rel {loss_rel:.3e}), gradient norm {run[1]:.5f} vs {plain[1]:.5f} "
+              f"(rel {norm_rel:.3e}), per-parameter gradient rel diff max {grad_rel:.3e} "
+              f"({worst}) over {n} parameters {limits}: {'within' if ok else 'outside'}",
+              flush=True)
+        reading = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "max_grad_rel": grad_rel,
+                   "max_grad_rel_param": worst}
+        if name == "kernels":
+            summary["check"].update(reading)
+            if not ok:
+                fail("slice train: the kernel step disagrees with the plain step")
+        else:
+            summary["planted"][name] = reading
+            if ok:
+                fail(f"slice train: the planted fault {name} passes the limits")
+        del run
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    # (ii) batch 48 through the kernels
+    model = sl.model()
+    opt = build_optimizer(model, model_config=sl.cfg)
+    batch = to_device(synthetic_batch(batch=TRAIN_BATCH, num_final_outputs=sl.nf, seed=3), dev)
+    watch = {k: p.detach().clone() for k, p in model.named_parameters()
+             if k in ("text_bert.encoder.layer.0.attention.self.query.weight",
+                      "mmt.encoder.layer.2.output.dense.weight", "classifier.module.weight")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses_seen = [], []
+    for step in range(TRAIN_STEPS):
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        r = train_step(model, losses, opt, batch, step_generators(0, step, dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        count_launches(f"slice train, batch-{TRAIN_BATCH} step {step}", record,
+                       _build.launch_counts(), expected_train_launches(sl.cfg, model.opts))
+        losses_seen.append(float(r["loss"]))
+        if not r["applied"]:
+            fail(f"slice train: batch-{TRAIN_BATCH} step {step} had a non-finite loss or "
+                 f"gradient (loss {losses_seen[-1]}, norm {float(r['grad_norm'])})")
+    peak = torch.cuda.max_memory_allocated()
+    moved = {k: float((p.detach() - watch[k]).abs().max()) for k, p in model.named_parameters()
+             if k in watch}
+    med = statistics.median(times[1:])
+    print(f"slice train: batch {TRAIN_BATCH}, remat {model.opts.remat}, {TRAIN_STEPS} Adam steps "
+          f"through the kernels: losses {losses_seen}; step ms {[round(x, 2) for x in times]} "
+          f"(the first warms up); median {med:.2f} ms, {TRAIN_BATCH / med * 1e3:.2f} videos/s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; parameters moved {moved}; card {card}",
+          flush=True)
+    if min(moved.values()) <= 0.0:
+        fail("slice train: the Adam steps left a parameter unchanged")
+    summary["batch48"] = {"step_ms_all": times, "step_ms_median": med,
+                          "videos_per_s": TRAIN_BATCH / med * 1e3, "losses": losses_seen,
+                          "max_memory_allocated": peak, "param_max_abs_change": moved}
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return summary
 
 
 def forward_ms(model, batch, dev, reps=5):
@@ -565,6 +1284,10 @@ def run_slices(dev, record, card):
                                             [BATCH])
     del model
     torch.cuda.empty_cache()
+
+    details["full_eval_b8"] = full_eval_slice(sl, record, card)
+    torch.cuda.empty_cache()
+    details["train"] = train_slice(sl, record, card)
     return details
 
 
@@ -599,6 +1322,7 @@ def main(argv) -> int:
     check_kernels(dev, record)
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "kernels": record}
+    details["training_kernels"] = check_training_kernels(dev, record)
     details["slices"] = run_slices(dev, record, card)
     out_dir = argv[argv.index("--out") + 1] if "--out" in argv else os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -607,14 +1331,15 @@ def main(argv) -> int:
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
-         "launches": record[name].get("launches", 0),
-         "max_abs_err": record[name]["max_abs_err"], "ms": record[name]["ms"],
-         "plain_ms": record[name]["plain_ms"]}
+         **{key: record[name].get(key) for key in ("launches", "max_abs_err", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms")}}
         for name in REPLACES
     ]
     for k in kernels:
-        if k["launches"] <= 0:
-            fail(f"{k['name']} was never launched on the serving paths")
+        if not k["launches"]:
+            fail(f"{k['name']} was never launched on the driven paths")
+        if k["ms"] is None or k["bound_ms"] is None:
+            fail(f"{k['name']} has no time or bound")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

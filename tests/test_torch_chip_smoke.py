@@ -1,0 +1,87 @@
+"""chip_smoke.py's training-step check, dry-run on the CPU at a tiny width.
+
+The check holds a step through the kernels against the same step through
+the plain versions (loss, gradient norm, every parameter's gradient) and
+plants two block faults in the plain step that its limits must reject.
+On CPU tensors both models run the plain versions, so the two steps agree
+exactly here; what this test holds is the check's own machinery: each
+planted fault reaches the layer it names, moves that layer's gradients
+past the limit (float32, dropout at the config's 0.1, three layers of
+hidden 128), and is undone when its step ends.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as CS
+from tests.torch_helpers import cpu_options, one_torch_thread  # noqa: F401
+from vitxtgqa_tpu.utils.synthetic import tiny_model_config
+from vitxtgqa_tpu_torch.losses import Losses
+from vitxtgqa_tpu_torch.models.t2s import T2S
+from vitxtgqa_tpu_torch.ops import block_train as TBT
+from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+FRAMES, OCR_PF = 8, 30
+
+
+class _TinySlices:
+    """chip_smoke.Slices' interface over a tiny model on the CPU."""
+
+    dev = torch.device("cpu")
+
+    def __init__(self):
+        # three layers per stack: the planted faults name MMT layer 2 and
+        # text-BERT layer 0
+        self.cfg = tiny_model_config(hidden=128, layers=3, frames=FRAMES, ocr_per_frame=OCR_PF)
+        self.nf = 32 + FRAMES * OCR_PF
+        self.state = T2S(self.cfg, self.nf, opts=cpu_options()).init_weights(0).state_dict()
+
+    def model(self, plain=False):
+        m = T2S(self.cfg, self.nf, opts=cpu_options(plain=plain))
+        m.load_state_dict(self.state)
+        return m
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_cuda_sync():
+    """The check synchronizes the card after a step; there is none here."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+        yield
+
+
+@pytest.fixture(scope="module")
+def steps(no_cuda_sync):
+    sl = _TinySlices()
+    batch = synthetic_batch(batch=2, frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4,
+                            text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                            num_final_outputs=sl.nf, text_vocab=128, seed=0)
+    tb = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+    losses = Losses([{"type": "pos_bce_loss", "weight": 1.0}, {"type": "InfoNCE", "weight": 1000}])
+    return sl, tb, losses, CS.train_check_step(sl, tb, losses, plain=True)
+
+
+def test_train_check_step_agrees_with_itself(steps):
+    sl, tb, losses, plain = steps
+    kern = CS.train_check_step(sl, tb, losses, plain=False)
+    loss_rel, norm_rel, (grad_rel, _), n, ok = CS.step_agreement(kern, plain)
+    assert ok and loss_rel == norm_rel == grad_rel == 0.0
+    assert n > 100 and not any(kern[3].values())
+
+
+@pytest.mark.parametrize("fault, param", [
+    ("db2_dropped", "mmt.encoder.layer.2.output.dense.bias"),
+    ("keep_scale_1", "text_bert.encoder.layer.0."),
+])
+def test_planted_faults_break_the_step_limits(steps, fault, param):
+    """Each fault moves a gradient of its own layer past GRAD_REL_TOL
+    (db2 dropped: 1.0; keep scale 1 instead of 1 / 0.9: ~0.1), and the
+    plain versions are restored afterwards."""
+    sl, tb, losses, plain = steps
+    fwd, bwd = TBT.block_train_fwd_plain, TBT.block_train_bwd_plain
+    run = CS.train_check_step(sl, tb, losses, plain=True, fault=fault)
+    loss_rel, norm_rel, (grad_rel, worst), _, ok = CS.step_agreement(run, plain)
+    print(f"{fault}: loss {loss_rel:.3e}, norm {norm_rel:.3e}, parameter {grad_rel:.4f} ({worst})")
+    assert not ok and grad_rel > 2 * CS.GRAD_REL_TOL and worst.startswith(param)
+    assert TBT.block_train_fwd_plain is fwd and TBT.block_train_bwd_plain is bwd

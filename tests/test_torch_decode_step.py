@@ -16,9 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_helpers import cpu_options, one_torch_thread  # noqa: F401
 from vitxtgqa_tpu.models import common as JC
 from vitxtgqa_tpu.ops import pallas_decode_step as PDS
-from vitxtgqa_tpu_torch import Options
 from vitxtgqa_tpu_torch.models import common as TC
 from vitxtgqa_tpu_torch.ops import _build
 from vitxtgqa_tpu_torch.ops import attention as TA
@@ -119,7 +119,7 @@ def _encoders():
                                    JMaskSpec(key_mask=jnp.asarray(mask)))
     flat = flatten(jax.tree_util.tree_map(np.asarray, variables["params"]))
     entries = [e for i in range(N_LAYERS) for e in bert_layer_entries("", "", i)]
-    tenc = TC.TransformerEncoder(TC.TransformerConfig(**kw), Options(kv_cache_int8=True))
+    tenc = TC.TransformerEncoder(TC.TransformerConfig(**kw), cpu_options(kv_cache_int8=True))
     tenc.load_state_dict(convert_entries(flat, entries), strict=True)
     return jenc, variables, tenc, x, mask
 
@@ -219,7 +219,7 @@ def test_fused_decode_gate_matches_jax(fused, int8, device, b, cap, monkeypatch)
     jenc = JC.TransformerEncoder(JC.TransformerConfig(**kw, use_pallas=device))
     want = (jenc.apply(variables, method=JC.TransformerEncoder.fused_decode_ok)
             and b <= JC.fused_decode_max_batch())
-    opts = Options(kv_cache_int8=int8, fused_decode=fused, fused_decode_max_batch=cap)
+    opts = cpu_options(kv_cache_int8=int8, fused_decode=fused, fused_decode_max_batch=cap)
     tenc = TC.TransformerEncoder(TC.TransformerConfig(hidden_size=D, num_hidden_layers=1,
                                                       num_attention_heads=H,
                                                       intermediate_size=M), opts)

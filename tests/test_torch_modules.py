@@ -16,8 +16,8 @@ import torch
 from vitxtgqa_tpu.models import common as JC
 from vitxtgqa_tpu.ops.masks import DecodeStepSpec as JDecodeSpec
 from vitxtgqa_tpu.ops.masks import MaskSpec as JMaskSpec
+from tests.torch_helpers import cpu_options, one_torch_thread  # noqa: F401
 from vitxtgqa_tpu.utils.torch_convert import flatten
-from vitxtgqa_tpu_torch import Options
 from vitxtgqa_tpu_torch.models import common as TC
 from vitxtgqa_tpu_torch.ops import fused_block as TFB
 from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec
@@ -66,7 +66,7 @@ def _encoder_pair(hidden=64, layers=2, heads=4, ffn=128, x=None, spec=None):
     jenc = JC.TransformerEncoder(jcfg)
     params = _init(jenc, jnp.asarray(x), spec)
     entries = [e for i in range(layers) for e in bert_layer_entries("", "", i)]
-    tenc = _load(TC.TransformerEncoder(tcfg, Options()), params, entries)
+    tenc = _load(TC.TransformerEncoder(tcfg, cpu_options()), params, entries)
     return jenc, params, tenc
 
 
@@ -86,7 +86,7 @@ def test_transformer_layer_matches_flax(kind):
     jcfg, tcfg = _cfgs()
     jl = JC.TransformerLayer(jcfg)
     params = _init(jl, jnp.asarray(x), jb)
-    tl = _load(TC.TransformerLayer(tcfg, Options()), params, BERT_LAYER)
+    tl = _load(TC.TransformerLayer(tcfg, cpu_options()), params, BERT_LAYER)
     want_y, (want_k, want_v) = _apply(jl, params, jnp.asarray(x), jb, return_kv=True)
     got_y, (got_k, got_v) = tl(T(x), tb, return_kv=True)
     for g, w in ((got_y, want_y), (got_k, want_k), (got_v, want_v)):
@@ -169,7 +169,7 @@ def test_text_encoder_matches_flax():
         ("embeddings.LayerNorm", "embeddings/ln", "ln"),
         *bert_layer_entries("encoder", "encoder", 0),
     ]
-    tm = _load(TC.TextEncoder(tcfg, Options()), params, entries)
+    tm = _load(TC.TextEncoder(tcfg, cpu_options()), params, entries)
     want = _apply(jm, params, jnp.asarray(ids), jnp.asarray(mask))
     np.testing.assert_allclose(_np(tm(T(ids), T(mask))), np.asarray(want), atol=ATOL, rtol=ATOL)
 

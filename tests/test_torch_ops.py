@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 from vitxtgqa_tpu_torch.ops import _build
 from vitxtgqa_tpu_torch.ops import attention as TA
 from vitxtgqa_tpu_torch.ops import decode_attention as TDA

@@ -19,9 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_helpers import cpu_options, one_torch_thread  # noqa: F401
 from vitxtgqa_tpu.utils.synthetic import synthetic_batch, tiny_model_config
 from vitxtgqa_tpu.utils.torch_convert import convert_t2s_like, unflatten
-from vitxtgqa_tpu_torch import Options
 from vitxtgqa_tpu_torch.models.t2s import T2S, t2s_production_config
 from vitxtgqa_tpu_torch.serving.engine import ServingEngine, group_generator
 from vitxtgqa_tpu_torch.utils.convert import from_jax_params
@@ -36,7 +36,7 @@ def _setup(ocr_pf=3, hidden=64, b=3, int8=False, seed=0):
     batch = synthetic_batch(batch=b, frames=FRAMES, ocr_per_frame=ocr_pf, dec_steps=DEC_STEPS,
                             text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
                             num_final_outputs=nf, text_vocab=128, seed=seed)
-    model = T2S(cfg, nf, bos_idx=2, opts=Options(kv_cache_int8=int8)).init_weights(seed)
+    model = T2S(cfg, nf, bos_idx=2, opts=cpu_options(kv_cache_int8=int8)).init_weights(seed)
     return cfg, nf, batch, model
 
 
@@ -213,7 +213,7 @@ def test_from_jax_params_inverts_convert_t2s_like():
     assert sorted(back) == sorted(sd)
     for k in sd:
         assert torch.equal(back[k], sd[k]), k
-    fresh = T2S(tiny_model_config(), nf, opts=Options())
+    fresh = T2S(tiny_model_config(), nf, opts=cpu_options())
     fresh.load_state_dict(back, strict=True)
 
 
@@ -254,12 +254,9 @@ def test_port_synthetic_batch_equals_the_jax_packages():
 
 def test_unported_branches_raise():
     cfg = tiny_model_config()
-    for kw in (dict(inference_only=False), dict(decode_recompute=True),
-               dict(compact_serving=True)):
+    for kw in (dict(decode_recompute=True), dict(compact_serving=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            T2S(cfg, 56, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T2S(cfg, 56).forward({}, torch.Generator(), train=True)
+            T2S(cfg, 56, opts=cpu_options(), **kw)
 
 
 _SUBPROCESS = r"""
@@ -281,7 +278,7 @@ cfg = {
     "mmt": {**tl, "num_hidden_layers": 2},
     "classifier": {"ocr_max_num": 24, "ocr_ptr_net": {"hidden_size": 64, "query_key_size": 64}},
 }
-model = T2S(cfg, 56, opts=Options(kv_cache_int8=True)).init_weights(0)
+model = T2S(cfg, 56, opts=Options(device="cpu", kv_cache_int8=True)).init_weights(0)
 b = synthetic_batch(batch=2, frames=8, ocr_per_frame=3, dec_steps=4, text_len=10,
                     video_feat_dim=32, fasttext_dim=16, phoc_dim=24, num_final_outputs=56,
                     text_vocab=128)

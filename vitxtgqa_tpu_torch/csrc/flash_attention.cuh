@@ -1,0 +1,65 @@
+// Pieces shared by the merged-head flash attention forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu): the tile
+// geometry, the tile loads from the merged [B, L, H*D] layout, the mask
+// predicate and the dropout keep bits of a row's four consecutive keys.
+#pragma once
+
+#include "common.cuh"
+#include "philox.cuh"
+
+namespace vt {
+namespace flash {
+
+constexpr int HD = 64;        // head dim
+constexpr int BQ = 64;        // query rows per tile: 4 warps x 16 rows
+constexpr int BK = 64;        // keys per tile
+constexpr int NT = 128;       // threads per block
+constexpr int LDB = HD + 8;   // bf16 row stride of the q/k/v/dO tiles
+constexpr int LDP = BK + 8;   // bf16 row stride of probability / dS tiles
+constexpr int LDS = BK + 4;   // f32 row stride of score tiles
+constexpr int LDO = HD + 4;   // f32 row stride of the output accumulator
+
+// The mask of pallas_attention._allowed: query row r may attend key c
+// when key_mask[c] > 0, or when both lie in the trailing causal decoder
+// block of dec_len rows and c <= r.
+__device__ __forceinline__ bool allowed(float kmask, int row, int col, int l_enc, int dec_len) {
+  return kmask > 0.f || (dec_len > 0 && col >= l_enc && row >= l_enc && col <= row);
+}
+
+// rows [r0, r0 + 64) of one head's [L, 64] slice, zero past L
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, size_t base,
+                                          int r0, int L, int row_stride) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < 64 * (HD / 8); i += NT) {
+    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    uint4 val = zero;
+    if (r0 + r < L) val = *reinterpret_cast<const uint4*>(src + base + (size_t)(r0 + r) * row_stride + c);
+    *reinterpret_cast<uint4*>(&dst[r * LDB + c]) = val;
+  }
+}
+
+// Dropout keep flags of keys col0 .. col0 + 3 (col0 % 4 == 0) for query
+// row `row` of head h, batch b: element (b, h, row, col) of the [B, H, L,
+// L] probability mask, stream 0 (ops/dropout.py STREAM_ATTN).
+__device__ __forceinline__ void keep4(bool keep[4], uint32_t seed, uint32_t threshold, int col0,
+                                      int row, int h, int b) {
+  const uint4 w = philox_group(seed, 0u, (uint32_t)col0, (uint32_t)row, (uint32_t)h, (uint32_t)b);
+  keep[0] = w.x >= threshold;
+  keep[1] = w.y >= threshold;
+  keep[2] = w.z >= threshold;
+  keep[3] = w.w >= threshold;
+}
+
+// max / sum over the 16 lanes of a half warp
+__device__ __forceinline__ float half_max(float v) {
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace flash
+}  // namespace vt

@@ -1,0 +1,359 @@
+// Merged-head flash attention, backward: dq, dk and dv, with the
+// attention-probs dropout regenerated exactly as the forward drew it.
+//
+// Replaces: vitxtgqa_tpu/ops/pallas_attention.py:_flash_merged_bwd_impl
+// (the Pallas body _flash_merged_bwd_kernel).  For each head, with
+// P = exp(S * scale - lse) (the forward's mask, lse saved by the forward),
+// K_r = the forward's keep mask over 1 - rate (or 1 without dropout) and
+// D_i = rowsum(dO * O):
+//   dV = (P * K_r)^T dO
+//   dS = P * (K_r * (dO V^T) - D_i)
+//   dQ = dS K * scale,   dK = dS^T Q * scale
+// in f32 accumulation from bf16 operands; dq, dk and dv come back bf16 (the
+// dtypes of q, k and v).
+//
+// What bounds it on the H100: per allowed (query row, key) pair of a head
+// it does five products of 2 * 64 operations (S and dP = dO V^T
+// recomputed, dV, dQ, dK), 2.5x the forward's.  A masked key tile is
+// skipped, so only the allowed pairs count: at the training shape (B = 48,
+// L = 1152) with the MMT mask of a synthetic batch, 446 of the 1152 keys
+// of a row on average, that is 190 GFLOP (0.19 ms at 989 TFLOP/s), against
+// 0.68 GB that must move (q, k, v, O, dO and the lse read; dq, dk, dv
+// written; 0.20 ms at 3.35 TB/s): the bytes bind, by a hair
+// (chip_smoke.py, flash_bwd_bound).
+//
+// Design: the TPU kernel walks the q-blocks in order and accumulates dk/dv
+// in resident output blocks.  Blocks on a GPU run in no order, so this is
+// two launches and no atomics:
+//  1. flash_bwd_dq_kernel: a block per (64-row q tile, head, batch) first
+//     computes D_i for its rows from dO and O (and writes it out), then
+//     walks the key tiles accumulating dQ in wmma fragments;
+//  2. flash_bwd_dkv_kernel: a block per (64-key tile, head, batch) walks
+//     the q tiles and owns dK and dV for its keys (wmma fragments, a warp
+//     per 16 keys), reading D_i written by launch 1.
+// Both recompute S and dO V^T per tile pair with nvcuda::wmma; the
+// elementwise phase has a warp on two rows at a time, a lane on four
+// consecutive keys (one Philox evaluation gives their keep bits, the same
+// element coordinates as the forward).
+#include "flash_attention.cuh"
+
+namespace vt {
+namespace flash {
+
+using namespace nvcuda;
+
+struct SmemDq {
+  bf16 q[BQ * LDB];
+  bf16 dout[BQ * LDB];
+  bf16 k[BK * LDB];
+  bf16 v[BK * LDB];
+  bf16 ds[BQ * LDP];
+  float s[BQ * LDS];
+  float dp[BQ * LDS];
+  float lse[BQ];
+  float di[BQ];
+  float kmask[BK];
+};
+
+struct SmemDkv {
+  bf16 k[BK * LDB];
+  bf16 v[BK * LDB];
+  bf16 q[BQ * LDB];
+  bf16 dout[BQ * LDB];
+  bf16 pd[BQ * LDP];   // dropped, rescaled probabilities [q][key]
+  bf16 ds[BQ * LDP];   // dS [q][key]
+  float s[BQ * LDS];
+  float dp[BQ * LDS];
+  float lse[BQ];
+  float di[BQ];
+  float kmask[BK];
+};
+
+// S = A B^T-style products for one warp's 16 rows: acc[j] = rows x cols
+// 16j .. 16j+15 of X Y^T, X [16, 64] and Y [64, 64] bf16 in shared memory
+__device__ __forceinline__ void rows_times_t(float* dst, const bf16* x, const bf16* y) {
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::load_matrix_sync(a, x + kk * 16, LDB);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> yb;
+      wmma::load_matrix_sync(yb, y + (j * 16) * LDB + kk * 16, LDB);
+      wmma::mma_sync(acc[j], a, yb, acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j)
+    wmma::store_matrix_sync(dst + j * 16, acc[j], LDS, wmma::mem_row_major);
+}
+
+// the elementwise phase for one (q row, four keys): P, the dropped and
+// rescaled P, and dS
+struct Elem {
+  float p[4], pd[4], ds[4];
+};
+
+__device__ __forceinline__ Elem elementwise(const float* s_row, const float* dp_row, int c0,
+                                            int k0, int qrow, const float* kmask, float lse,
+                                            float di, int L, int l_enc, int dec_len,
+                                            float scale, bool dropout, uint32_t seed,
+                                            uint32_t threshold, float keep_scale, int h,
+                                            int b) {
+  Elem e;
+  const float4 s4 = *reinterpret_cast<const float4*>(s_row + c0);
+  const float4 d4 = *reinterpret_cast<const float4*>(dp_row + c0);
+  const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+  const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+  bool keep[4] = {true, true, true, true};
+  if (dropout) keep4(keep, seed, threshold, k0 + c0, qrow, h, b);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int col = k0 + c0 + t;
+    float p = 0.f;
+    if (col < L) {
+      const float x = allowed(kmask[c0 + t], qrow, col, l_enc, dec_len) ? sv[t] * scale : kNeg;
+      p = expf(x - lse);
+    }
+    const float kr = keep[t] ? keep_scale : 0.f;
+    e.p[t] = p;
+    e.pd[t] = p * kr;
+    e.ds[t] = p * (dv[t] * kr - di);
+  }
+  return e;
+}
+
+__device__ __forceinline__ void store4(bf16* dst, const float v[4]) {
+  __align__(8) bf16 vb[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) vb[t] = __float2bfloat16(v[t]);
+  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(vb);
+}
+
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ key_mask,
+                    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ di_out,
+                    bf16* __restrict__ dq, int L, int H, int dec_len, float scale,
+                    const int64_t* __restrict__ seed_ptr, uint32_t threshold,
+                    float keep_scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  SmemDq& sm = *reinterpret_cast<SmemDq*>(smem_raw);
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int half = lane >> 4, c0 = (lane & 15) * 4;
+  const int row_stride = H * HD;
+  const size_t base = (size_t)b * L * row_stride + (size_t)h * HD;
+  const size_t stat = ((size_t)b * H + h) * L;
+  const int l_enc = L - dec_len;
+  const bool dropout = seed_ptr != nullptr;
+  const uint32_t seed = dropout ? (uint32_t)(*seed_ptr) : 0u;
+
+  load_tile(sm.q, q, base, q0, L, row_stride);
+  load_tile(sm.dout, dout, base, q0, L, row_stride);
+  // D_i = rowsum(dO * O): a warp per row, two columns a lane
+  for (int r = warp; r < BQ; r += NT / 32) {
+    float acc = 0.f;
+    if (q0 + r < L) {
+      const size_t g = base + (size_t)(q0 + r) * row_stride;
+      for (int c = lane; c < HD; c += 32)
+        acc += __bfloat162float(dout[g + c]) * __bfloat162float(o[g + c]);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      sm.di[r] = acc;
+      if (q0 + r < L) di_out[stat + q0 + r] = acc;
+    }
+  }
+  if (tid < BQ) sm.lse[tid] = (q0 + tid < L) ? lse[stat + q0 + tid] : 0.f;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq_acc[HD / 16];
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.f);
+  __syncthreads();
+
+  for (int k0 = 0; k0 < L; k0 += BK) {
+    load_tile(sm.k, k, base, k0, L, row_stride);
+    load_tile(sm.v, v, base, k0, L, row_stride);
+    if (tid < BK) sm.kmask[tid] = (k0 + tid < L) ? key_mask[(size_t)b * L + k0 + tid] : 0.f;
+    __syncthreads();
+
+    rows_times_t(&sm.s[(warp * 16) * LDS], &sm.q[(warp * 16) * LDB], sm.k);
+    rows_times_t(&sm.dp[(warp * 16) * LDS], &sm.dout[(warp * 16) * LDB], sm.v);
+    __syncwarp();
+    for (int rr = 0; rr < 16; rr += 2) {
+      const int row = warp * 16 + rr + half;
+      const Elem e = elementwise(&sm.s[row * LDS], &sm.dp[row * LDS], c0, k0, q0 + row,
+                                 sm.kmask, sm.lse[row], sm.di[row], L, l_enc, dec_len, scale,
+                                 dropout, seed, threshold, keep_scale, h, b);
+      store4(&sm.ds[row * LDP + c0], e.ds);
+    }
+    __syncwarp();
+    // dQ += dS K for this warp's rows
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, &sm.ds[(warp * 16) * LDP + kk * 16], LDP);
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kb;
+        wmma::load_matrix_sync(kb, &sm.k[(kk * 16) * LDB + j * 16], LDB);
+        wmma::mma_sync(dq_acc[j], a, kb, dq_acc[j]);
+      }
+    }
+    __syncthreads();  // K/V tiles are overwritten next
+  }
+
+  // stage dQ through the score tile, then write bf16
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j)
+    wmma::store_matrix_sync(&sm.s[(warp * 16) * LDS + j * 16], dq_acc[j], LDS,
+                            wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < BQ * HD; i += NT) {
+    const int r = i / HD, c = i % HD;
+    if (q0 + r < L)
+      dq[base + (size_t)(q0 + r) * row_stride + c] = __float2bfloat16(sm.s[r * LDS + c] * scale);
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const float* __restrict__ key_mask,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ di, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int L, int H, int dec_len, float scale,
+                     const int64_t* __restrict__ seed_ptr, uint32_t threshold,
+                     float keep_scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  SmemDkv& sm = *reinterpret_cast<SmemDkv*>(smem_raw);
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int half = lane >> 4, c0 = (lane & 15) * 4;
+  const int row_stride = H * HD;
+  const size_t base = (size_t)b * L * row_stride + (size_t)h * HD;
+  const size_t stat = ((size_t)b * H + h) * L;
+  const int l_enc = L - dec_len;
+  const bool dropout = seed_ptr != nullptr;
+  const uint32_t seed = dropout ? (uint32_t)(*seed_ptr) : 0u;
+
+  load_tile(sm.k, k, base, k0, L, row_stride);
+  load_tile(sm.v, v, base, k0, L, row_stride);
+  if (tid < BK) sm.kmask[tid] = (k0 + tid < L) ? key_mask[(size_t)b * L + k0 + tid] : 0.f;
+
+  // this warp's 16 keys: dK and dV [16, 64] each
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[HD / 16], dv_acc[HD / 16];
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j) {
+    wmma::fill_fragment(dk_acc[j], 0.f);
+    wmma::fill_fragment(dv_acc[j], 0.f);
+  }
+
+  for (int q0 = 0; q0 < L; q0 += BQ) {
+    load_tile(sm.q, q, base, q0, L, row_stride);
+    load_tile(sm.dout, dout, base, q0, L, row_stride);
+    if (tid < BQ) {
+      const bool in = q0 + tid < L;
+      sm.lse[tid] = in ? lse[stat + q0 + tid] : 0.f;
+      sm.di[tid] = in ? di[stat + q0 + tid] : 0.f;
+    }
+    __syncthreads();
+
+    // S and dO V^T for this warp's 16 q rows against the block's 64 keys
+    rows_times_t(&sm.s[(warp * 16) * LDS], &sm.q[(warp * 16) * LDB], sm.k);
+    rows_times_t(&sm.dp[(warp * 16) * LDS], &sm.dout[(warp * 16) * LDB], sm.v);
+    __syncwarp();
+    for (int rr = 0; rr < 16; rr += 2) {
+      const int row = warp * 16 + rr + half;
+      const int qrow = q0 + row;
+      Elem e = elementwise(&sm.s[row * LDS], &sm.dp[row * LDS], c0, k0, qrow, sm.kmask,
+                           sm.lse[row], sm.di[row], L, l_enc, dec_len, scale, dropout, seed,
+                           threshold, keep_scale, h, b);
+      if (qrow >= L) {  // pad rows of the last q tile contribute nothing
+#pragma unroll
+        for (int t = 0; t < 4; ++t) e.pd[t] = e.ds[t] = 0.f;
+      }
+      store4(&sm.pd[row * LDP + c0], e.pd);
+      store4(&sm.ds[row * LDP + c0], e.ds);
+    }
+    __syncthreads();  // every warp reads all 64 q rows below
+
+    // dV += Pd^T dO, dK += dS^T Q for this warp's keys
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pa, sa;
+      wmma::load_matrix_sync(pa, &sm.pd[(kk * 16) * LDP + warp * 16], LDP);
+      wmma::load_matrix_sync(sa, &sm.ds[(kk * 16) * LDP + warp * 16], LDP);
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> ob, qb;
+        wmma::load_matrix_sync(ob, &sm.dout[(kk * 16) * LDB + j * 16], LDB);
+        wmma::load_matrix_sync(qb, &sm.q[(kk * 16) * LDB + j * 16], LDB);
+        wmma::mma_sync(dv_acc[j], pa, ob, dv_acc[j]);
+        wmma::mma_sync(dk_acc[j], sa, qb, dk_acc[j]);
+      }
+    }
+    __syncthreads();  // q / dO / P / dS tiles are overwritten next
+  }
+
+  // stage through the score tiles, then write bf16
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j) {
+    wmma::store_matrix_sync(&sm.s[(warp * 16) * LDS + j * 16], dk_acc[j], LDS,
+                            wmma::mem_row_major);
+    wmma::store_matrix_sync(&sm.dp[(warp * 16) * LDS + j * 16], dv_acc[j], LDS,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int i = tid; i < BK * HD; i += NT) {
+    const int r = i / HD, c = i % HD;
+    if (k0 + r < L) {
+      const size_t g = base + (size_t)(k0 + r) * row_stride + c;
+      dk[g] = __float2bfloat16(sm.s[r * LDS + c] * scale);
+      dv[g] = __float2bfloat16(sm.dp[r * LDS + c]);
+    }
+  }
+}
+
+}  // namespace flash
+}  // namespace vt
+
+// q, k, v, out, dout, dq, dk, dv [B, L, H*64] bf16; key_mask [B, L] f32;
+// lse [B, H, L] f32 from the forward; di [B, H, L] f32 scratch; seed:
+// int64 [1] on the device, or null for no dropout.
+extern "C" int vt_flash_attention_merged_bwd(const void* q, const void* k, const void* v,
+                                             const void* key_mask, const void* out,
+                                             const void* dout, const void* lse, void* di,
+                                             void* dq, void* dk, void* dv, const void* seed,
+                                             int batch, int seq_len, int num_heads,
+                                             int head_dim, int dec_len, unsigned int threshold,
+                                             float keep_scale, void* stream) {
+  using namespace vt::flash;
+  using vt::bf16;
+  if (head_dim != HD) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int smem_dq = (int)sizeof(SmemDq), smem_dkv = (int)sizeof(SmemDkv);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dkv);
+  if (err != cudaSuccess) return (int)err;
+  const float scale = 1.0f / sqrtf((float)head_dim);
+  const dim3 grid((seq_len + BQ - 1) / BQ, num_heads, batch);
+  flash_bwd_dq_kernel<<<grid, NT, smem_dq, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)key_mask, (const bf16*)out,
+      (const bf16*)dout, (const float*)lse, (float*)di, (bf16*)dq, seq_len, num_heads, dec_len,
+      scale, (const int64_t*)seed, (uint32_t)threshold, keep_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_kernel<<<grid, NT, smem_dkv, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)key_mask, (const bf16*)dout,
+      (const float*)lse, (const float*)di, (bf16*)dk, (bf16*)dv, seq_len, num_heads, dec_len,
+      scale, (const int64_t*)seed, (uint32_t)threshold, keep_scale);
+  return (int)cudaGetLastError();
+}

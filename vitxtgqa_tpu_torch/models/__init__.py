@@ -1,1 +1,1 @@
-"""Model modules (the T2S serving slice)."""
+"""Model modules (T2S: serving, full-eval and training)."""

@@ -1,13 +1,14 @@
 """Joint-transformer + pointer-decode harness.
 
-Counterpart of vitxtgqa_tpu/models/base.py, serving branch only: encode
-once over the lane-aligned joint sequence, then a KV-cached greedy decode.
-With the int8 cache on CUDA at batch <= Options.fused_decode_max_batch each
-step is the single-kernel decode step plus the fused epilogue
-(ops/decode_step.py), as the JAX serving branch runs them on a TPU;
-otherwise each step runs the per-layer decode over the int8 or bf16 cache.
-The multi-variant, compact and teacher-forced paths belong to the full-eval,
-compact-serving and training slices (ROADMAP.md queue 1).
+Counterpart of vitxtgqa_tpu/models/base.py: the teacher-forced prefix-LM
+pass ``_mmt_full`` (training and the full-eval ref/neg scores), and the
+serving decode: encode once over the lane-aligned joint sequence, then a
+KV-cached greedy decode.  With the int8 cache on CUDA at batch <=
+Options.fused_decode_max_batch each step is the single-kernel decode step
+plus the fused epilogue (ops/decode_step.py), as the JAX serving branch
+runs them on a TPU; otherwise each step runs the per-layer decode over the
+int8 or bf16 cache.  The multi-variant, recompute and compact decodes are
+not ported (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from torch import nn
 
 from vitxtgqa_tpu_torch.models.common import derived_weights
 from vitxtgqa_tpu_torch.ops import decode_step as DS
-from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec
+from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec, joint_mask_spec
 
 PAD_BIAS = -1e30  # classifier pad lanes: the greedy argmax never picks them
 
@@ -54,6 +55,24 @@ class JointQAModel(nn.Module):
     def _enc_row_pad(self, l_enc: int, dec_len: int) -> int:
         return (-(l_enc + dec_len)) % self.LANE
 
+    def _mmt_full(self, txt, obj, ocr, enc_mask, ocr_masks, prev_inds, train: bool = False,
+                  gen=None):
+        """One teacher-forced prefix-LM pass over [txt | obj | ocr | pad |
+        decoder slots of prev_inds] (JAX base.py:_mmt_full, non-compact);
+        returns float32 scores [B, S, V + N]."""
+        dec_len = prev_inds.shape[1]
+        ppe = self.mmt.prev_pred_embeddings
+        ans_tbl, ocr_tbl = ppe.tables(self.classifier.table(), ocr)
+        dec_emb = ppe.embed(ans_tbl, ocr_tbl, prev_inds, gen=gen)
+        l0 = txt.shape[1] + obj.shape[1] + ocr.shape[1]
+        pad = self._enc_row_pad(l0, dec_len)
+        zeros = txt.new_zeros((txt.shape[0], pad, txt.shape[2]))
+        x = torch.cat([txt, obj, ocr, zeros, dec_emb.to(txt.dtype)], dim=1)
+        spec = joint_mask_spec(F.pad(enc_mask.float(), (0, pad)), dec_len)
+        h = self.mmt.encoder(x, spec, train=train, gen=gen)
+        n_ocr = ocr.shape[1]
+        return self._scores(h[:, -dec_len:], h[:, l0 - n_ocr: l0], ocr_masks)
+
     def _greedy_decode(self, txt, obj, ocr, enc_mask, ocr_masks, dec_len: int,
                        joint=None):
         """Encode once, then a KV-cached greedy decode; returns float32
@@ -85,8 +104,8 @@ class JointQAModel(nn.Module):
         ptr_keys = self.ocr_ptr_net.keys(ocr_out)
         if encoder.fused_decode_ok(x):
             # JAX's other fused form (step_fused: the fused step with the
-            # unfused epilogue, base.py:417-433) serves only multi-variant
-            # full-eval and compact serving, and arrives with those slices
+            # unfused epilogue, base.py:417-433) is reached only with
+            # dynamic_scatter, that is by compact serving
             return self._fused_greedy_decode(cache, key_mask_full, write_offset, ans_tbl,
                                              ocr_tbl, ptr_keys, ocr_masks, dec_len)
 

@@ -9,6 +9,14 @@ onto the JAX params with no new code.
 dtype semantics follow flax: ``Linear`` computes in its parameters' dtype
 (the input is cast, as flax Dense casts to its ``dtype``); ``LayerNorm``
 normalises in float32 and returns its parameters' dtype.
+
+Training (``train=True`` with a dropout ``gen``erator): a layer on the
+flash route runs its attention as ops/attention.AttentionFn and its
+post-attention block as ops/block_train.BlockTrainFn (the JAX
+``_fused_block_bwd_ok`` path, gated on lane-aligned widths), each drawing
+one dropout seed per call from ``gen``; the embeddings' and the 20-key text
+BERT's attention dropouts draw their masks from ``gen``.  The eval fused
+block (``_fused_block_ok``) never runs in training, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,9 +29,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vitxtgqa_tpu_torch.ops import block_train as BT
 from vitxtgqa_tpu_torch.ops import decode_step as DS
+from vitxtgqa_tpu_torch.ops import dropout as D
 from vitxtgqa_tpu_torch.ops import fused_block as FB
-from vitxtgqa_tpu_torch.ops.attention import decode_mha, mha_merged, quantize_kv
+from vitxtgqa_tpu_torch.ops.attention import (
+    attention_train,
+    decode_mha,
+    mha_merged,
+    quantize_kv,
+)
 from vitxtgqa_tpu_torch.ops.masks import NEG_INF, DecodeStepSpec
 from vitxtgqa_tpu_torch.options import Options
 
@@ -58,6 +73,8 @@ class TransformerConfig:
     num_hidden_layers: int = 3
     num_attention_heads: int = 12
     intermediate_size: int = 3072
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     layer_norm_eps: float = 1e-12
     vocab_size: int = 30522
     max_position_embeddings: int = 512
@@ -119,7 +136,7 @@ class TransformerLayer(nn.Module):
 
     def _fused_block_ok(self, x: torch.Tensor) -> bool:
         """The gate of the JAX _fused_block_ok: lane-aligned widths and at
-        least 2048 rows (the port is eval-only)."""
+        least 2048 rows (eval only: training takes _finish_train)."""
         return (
             x.shape[-1] == self.cfg.hidden_size
             and FB.kernel_ok(x.shape[-1], self.cfg.intermediate_size,
@@ -147,7 +164,37 @@ class TransformerLayer(nn.Module):
             y = tanh_residual_base + torch.tanh(y)
         return y
 
-    def forward(self, x, bias, return_kv: bool = False, tanh_residual_base=None):
+    def _finish_train(self, x_q, ctx, gen):
+        """The training block: BlockTrainFn where the width gate of the JAX
+        _fused_block_bwd_ok holds (lane-aligned widths), else the same
+        expression in plain autograd on the same seed's masks.  One seed
+        per call from ``gen``."""
+        cfg = self.cfg
+        d = cfg.hidden_size
+        rate = cfg.hidden_dropout_prob if gen is not None else 0.0
+        seed = D.draw_seed(gen, x_q.device) if rate > 0.0 else None
+        args = (self.attn_out.weight, self.attn_out.bias, self.attn_ln.weight,
+                self.attn_ln.bias, self.ffn_in.weight, self.ffn_in.bias, self.ffn_out.weight,
+                self.ffn_out.bias, self.ffn_ln.weight, self.ffn_ln.bias)
+        if BT.kernel_ok(d, cfg.intermediate_size) and x_q.shape[-1] == d:
+            return BT.BlockTrainFn.apply(x_q, ctx.to(x_q.dtype), *args, rate,
+                                         cfg.layer_norm_eps, seed, self.opts.remat,
+                                         self.opts.plain)
+        masks = BT.seed_masks(seed, x_q.numel() // d, d, rate, x_q.device)
+        y = BT.block_train_plain(x_q.reshape(-1, d), ctx.reshape(-1, d).to(x_q.dtype), *args,
+                                 *masks, rate=rate, eps=cfg.layer_norm_eps)
+        return y.reshape(x_q.shape)
+
+    def forward(self, x, bias, return_kv: bool = False, tanh_residual_base=None, *,
+                train: bool = False, gen=None):
+        if train:
+            cfg = self.cfg
+            rate = cfg.attention_probs_dropout_prob if gen is not None else 0.0
+            ctx = attention_train(x, self.query, self.key, self.value, bias,
+                                  cfg.num_attention_heads, rate, gen, self.opts.remat,
+                                  self.opts.plain)
+            y = self._finish_train(x, ctx, gen)
+            return y if tanh_residual_base is None else tanh_residual_base + torch.tanh(y)
         k_raw, v_raw = self.key(x), self.value(x)
         ctx = mha_merged(self.query(x), k_raw, v_raw, bias,
                          self.cfg.num_attention_heads, plain=self.opts.plain)
@@ -173,13 +220,15 @@ class TransformerEncoder(nn.Module):
             [TransformerLayer(cfg, opts) for _ in range(cfg.num_hidden_layers)]
         )
 
-    def forward(self, x, bias, tanh_residual_base=None):
+    def forward(self, x, bias, tanh_residual_base=None, *, train: bool = False, gen=None):
         """With ``tanh_residual_base`` return ``base + tanh(stack(x))``; the
         epilogue runs inside the last layer (the fused-block kernel's
-        tanh form where the block gate holds)."""
+        tanh form where the block gate holds; plain autograd in training).
+        ``train``/``gen``: see TransformerLayer.forward."""
         last = len(self.layer) - 1
         for i, layer in enumerate(self.layer):
-            x = layer(x, bias, tanh_residual_base=tanh_residual_base if i == last else None)
+            x = layer(x, bias, tanh_residual_base=tanh_residual_base if i == last else None,
+                      train=train, gen=gen)
         return x
 
     def encode_with_cache(self, x, bias):
@@ -292,19 +341,20 @@ class BertEmbeddings(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         d = cfg.hidden_size
+        self.dropout_prob = cfg.hidden_dropout_prob
         self.word_embeddings = nn.Embedding(cfg.vocab_size, d)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, d)
         self.LayerNorm = LayerNorm(d, eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, gen=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = (
             self.word_embeddings(input_ids)
             + self.position_embeddings(pos)
             + self.token_type_embeddings(torch.zeros_like(input_ids))
         )
-        return self.LayerNorm(x)
+        return D.dropout(self.LayerNorm(x), self.dropout_prob, gen)
 
 
 class TextEncoder(nn.Module):
@@ -315,9 +365,9 @@ class TextEncoder(nn.Module):
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = TransformerEncoder(cfg, opts)
 
-    def forward(self, txt_inds, txt_mask):
+    def forward(self, txt_inds, txt_mask, train: bool = False, gen=None):
         bias = ((1.0 - txt_mask) * NEG_INF)[:, None, None, :]
-        return self.encoder(self.embeddings(txt_inds), bias)
+        return self.encoder(self.embeddings(txt_inds, gen), bias, train=train, gen=gen)
 
 
 class PrevPredEmbeddings(nn.Module):
@@ -329,6 +379,7 @@ class PrevPredEmbeddings(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.dropout_prob = cfg.hidden_dropout_prob
         self.position_embeddings = nn.Embedding(self.MAX_DEC_LENGTH, d)
         self.token_type_embeddings = nn.Embedding(self.MAX_TYPE_NUM, d)
         self.ans_layer_norm = LayerNorm(d, eps=eps)
@@ -340,9 +391,10 @@ class PrevPredEmbeddings(nn.Module):
         decode, so computed once before it."""
         return self.ans_layer_norm(ans_emb).to(ocr_emb.dtype), self.ocr_layer_norm(ocr_emb)
 
-    def embed(self, ans, ocr, prev_inds, position_offset: int = 0):
+    def embed(self, ans, ocr, prev_inds, position_offset: int = 0, gen=None):
         """Gather decoder-slot embeddings from prepared tables; prev_inds
-        [B, S] index the joint [fixed vocab | OCR copy] space."""
+        [B, S] index the joint [fixed vocab | OCR copy] space; ``gen``: the
+        training dropout of the (position, type) embedding."""
         b, s = prev_inds.shape
         ans_num = ans.shape[0]
         is_ocr = prev_inds >= ans_num
@@ -352,7 +404,7 @@ class PrevPredEmbeddings(nn.Module):
         raw = torch.where(is_ocr[..., None], from_ocr, from_ans)
         positions = torch.arange(s, device=prev_inds.device)[None, :] + position_offset
         emb = self.position_embeddings(positions) + self.token_type_embeddings(is_ocr.long())
-        return raw + self.emb_layer_norm(emb)
+        return raw + D.dropout(self.emb_layer_norm(emb), self.dropout_prob, gen)
 
 
 class OcrPtrNet(nn.Module):

@@ -1,11 +1,20 @@
-"""T2S-QA (temporal-to-spatial grounding TextVideoQA), serving forward.
+"""T2S-QA (temporal-to-spatial grounding TextVideoQA): serving, full-eval
+and the training forward.
 
-Counterpart of vitxtgqa_tpu/models/t2s.py, ``inference_only`` branch:
-modality projections, text BERT, the QTV joint transformer with its tanh
-residual (whose buffer the decode reuses), grounding, then the MMT prefix
-encode and a KV-cached greedy decode of the pos variant.  The full-eval,
-training, recompute-decode and compact-serving branches are not ported
-yet and raise NotImplementedError naming their ROADMAP.md item.
+Counterpart of vitxtgqa_tpu/models/t2s.py:
+  - serving (``inference_only``): modality projections, text BERT, the QTV
+    joint transformer with its tanh residual (whose buffer the decode
+    reuses), grounding, then the MMT prefix encode and a KV-cached greedy
+    decode of the pos variant;
+  - full-eval (``inference_only=False``, ``train=False``): the same pos
+    decode, then one teacher-forced ``_mmt_full`` at 2B over [ref; neg] on
+    the decoded tokens shifted behind BOS;
+  - training (``train=True``, ``train_variant_scan``): the dropouts of the
+    config, QTV over the 1152-row joint sequence, grounding with its
+    straight-through gumbel split, and three teacher-forced ``_mmt_full``
+    passes (ref, pos, neg) at batch B, a Python loop where JAX scans.
+The recompute-decode and compact-serving branches are not ported and raise
+NotImplementedError naming their ROADMAP.md item.
 
 What runs where on CUDA (every serving configuration of the JAX package):
   - QTV and the MMT encode: the flash kernel; the fused block where the
@@ -16,6 +25,11 @@ What runs where on CUDA (every serving configuration of the JAX package):
     decode through the int8 decode-attention kernel;
   - bf16 cache (kv_cache_int8=False), any batch: per-layer decode through
     the bf16 decode-attention kernel.
+  - full-eval's teacher-forced pass: flash with its dec_len = 12 causal tail
+    and the fused block (2B x 1152 rows);
+  - training: per flash-route layer (QTV, MMT) the flash forward and
+    backward kernels with in-kernel dropout, per layer (text BERT included)
+    the block_train forward and backward kernels.
 On CPU tensors every kernel op runs its plain version and the decode takes
 the per-layer path, as JAX does off the TPU; Options(plain=True) runs the
 plain versions on the card along the same branches.
@@ -29,7 +43,7 @@ inverses and released reference checkpoints load as they are.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +62,7 @@ from vitxtgqa_tpu_torch.models.common import (
     cfg_get,
 )
 from vitxtgqa_tpu_torch.models.grounding import Gumbel, GroundingModule
+from vitxtgqa_tpu_torch.ops.dropout import dropout
 from vitxtgqa_tpu_torch.ops.masks import MaskSpec, length_mask
 from vitxtgqa_tpu_torch.options import Options
 
@@ -75,6 +90,10 @@ def t2s_production_config() -> Dict[str, Any]:
             "ocr_ptr_net": {"hidden_size": 768, "query_key_size": 768},
             "params": {},
         },
+        "lr_scale_text_bert": 0.1,
+        "lr_scale_mmt": 1.0,
+        "text_bert_init_from_bert_base": True,
+        "losses": [{"type": "pos_bce_loss", "weight": 1.0}, {"type": "InfoNCE", "weight": 1000}],
     }
 
 
@@ -92,10 +111,6 @@ class T2S(JointQAModel):
                  opts: Options = Options(), inference_only: bool = True,
                  decode_recompute: bool = False, compact_serving: bool = False):
         super().__init__()
-        if not inference_only:
-            raise NotImplementedError(
-                "T2S full-eval (ref/pos/neg variants) is ROADMAP.md queue 1 item 6"
-            )
         if decode_recompute:
             raise NotImplementedError(
                 "the recompute decode oracle (_recompute_decode) is ROADMAP.md queue 1 item 5"
@@ -103,8 +118,11 @@ class T2S(JointQAModel):
         if compact_serving:
             raise NotImplementedError("compact serving is ROADMAP.md queue 1 item 10")
         self.opts = opts
+        self.inference_only = inference_only
         self.bos_idx = int(bos_idx)
         c = config
+        self.obj_dropout = float(cfg_get(cfg_get(c, "obj"), "dropout_prob") or 0.0)
+        self.ocr_dropout = float(cfg_get(cfg_get(c, "ocr"), "dropout_prob") or 0.0)
         mmt_cfg = TransformerConfig.from_config(cfg_get(c, "mmt"))
         text_cfg = TransformerConfig.from_config(cfg_get(c, "text_bert"))
         trans_cfg = TransformerConfig.from_config(cfg_get(c, "translayers"))
@@ -168,16 +186,16 @@ class T2S(JointQAModel):
         return self
 
     # ---- modality encodings ------------------------------------------------
-    def _encode_modalities(self, batch):
+    def _encode_modalities(self, batch, train: bool = False, gen=None):
         dt = self.opts.dtype
         txt_mask = length_mask(batch["text_len"], batch["text"].shape[1])
-        txt_emb = self.text_bert(batch["text"], txt_mask)
+        txt_emb = self.text_bert(batch["text"], txt_mask, train=train, gen=gen)
         obj_lin = project_features(
             self.linear_obj_feat_to_mmt_in,
             [batch["video_feat"].to(dt), self.frame_embeddings(batch["frame_id"])],
             [True, False],
         )
-        obj_in = self.obj_feat_layer_norm(obj_lin)
+        obj_in = dropout(self.obj_feat_layer_norm(obj_lin), self.obj_dropout, gen)
         obj_mask = batch["frame_mask"].float()
         ocr_lin = project_features(
             self.linear_ocr_feat_to_mmt_in,
@@ -190,11 +208,12 @@ class T2S(JointQAModel):
         ocr_in = self.ocr_feat_layer_norm(ocr_lin) + self.ocr_bbox_layer_norm(
             self.linear_ocr_bbox_to_mmt_in(bbox)
         )
+        ocr_in = dropout(ocr_in, self.ocr_dropout, gen)
         ocr_mask = batch["ocr_mask"].float()
         return txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask
 
     def _apply_qtv(self, txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask,
-                   dec_len: int):
+                   dec_len: int, train: bool = False, gen=None):
         """Joint self-attention with the tanh residual back to each stream.
         Returns (txt, obj, ocr, joint): the updated streams and the buffer
         [B, round_up(l0 + dec_len, 128), D] they are slices of — the
@@ -206,36 +225,84 @@ class T2S(JointQAModel):
             [txt_emb, obj_in, ocr_in, txt_emb.new_zeros((txt_emb.shape[0], pad, txt_emb.shape[2]))],
             dim=1,
         )
-        joint = self.TransLayer.encoder(x, MaskSpec(key_mask=mask), tanh_residual_base=x)
+        joint = self.TransLayer.encoder(x, MaskSpec(key_mask=mask), tanh_residual_base=x,
+                                        train=train, gen=gen)
         lt, lo = txt_emb.shape[1], obj_in.shape[1]
         return joint[:, :lt], joint[:, lt: lt + lo], joint[:, lt + lo: l0], joint
 
     # ---- forward -------------------------------------------------------------
-    @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor], gumbel: Gumbel,
-                train: bool = False) -> Dict[str, Any]:
-        """Serving forward.  ``gumbel`` is a torch.Generator for the two
-        grounding draws, or the two noise tensors ([B, 2, F], [B, 2, N]).
-        Returns pos_scores [B, S, V + N] float32, ground_frame [B, topk],
-        ground_box [B, F * ocr_topk, 4] and the two top-k sizes."""
+                train: bool = False, dropout_gen: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
+        """``gumbel`` is a torch.Generator for the two grounding draws, or
+        the two noise tensors ([B, 2, F], [B, 2, N]); ``dropout_gen`` the
+        training dropout generator on the model's device (None: no
+        dropout).  Returns pos_scores [B, S, V + N] float32 (and with
+        train=True or inference_only=False also ref_scores and
+        neg_scores), ground_frame [B, topk], ground_box [B, F * ocr_topk, 4]
+        and the two top-k sizes."""
         if train:
-            raise NotImplementedError("the T2S training step is ROADMAP.md queue 1 item 8")
-        txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask = self._encode_modalities(batch)
-        dec_len = batch["train_prev_inds"].shape[1]
-        txt_emb, obj_in, ocr_in, joint = self._apply_qtv(
-            txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, dec_len
-        )
+            return self._forward_train(batch, gumbel, dropout_gen)
+        with torch.no_grad():
+            return self._forward_eval(batch, gumbel)
+
+    def _grounding(self, batch, txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, gumbel):
         g = self.Grounding_Module(
             txt_emb, txt_mask, obj_in, obj_mask, batch["frame_id"], ocr_in, ocr_mask,
             batch["ocr_bbox_coordinates"].to(self.opts.dtype), batch["temporal_id"], gumbel,
         )
-        enc_mask = torch.cat([txt_mask, g["pos_obj_mask"], g["pos_ocr_mask"]], dim=1)
-        pos = self._greedy_decode(txt_emb, obj_in, ocr_in, enc_mask, g["pos_ocr_mask"],
-                                  dec_len, joint=joint)
-        return {
-            "pos_scores": pos,
+        common = {
             "ground_frame": g["ground_frame"],
             "ground_box": g["ground_bbox"],
             "frame_topk": self.Grounding_Module.frame_topk,
             "ocr_topk": self.Grounding_Module.ocr_topk,
         }
+        return g, common
+
+    def _forward_train(self, batch, gumbel, gen):
+        """The training forward of the production step (JAX t2s.py:357-390,
+        train_variant_scan): ref, pos and neg teacher-forced passes at
+        batch B, each with its own dropout draws."""
+        txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask = self._encode_modalities(
+            batch, train=True, gen=gen)
+        txt_emb, obj_in, ocr_in, _ = self._apply_qtv(
+            txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, 0, train=True, gen=gen)
+        g, common = self._grounding(batch, txt_emb, txt_mask, obj_in, obj_mask, ocr_in,
+                                    ocr_mask, gumbel)
+        prev = batch["train_prev_inds"]
+        scores = {}
+        for name, obj_m, ocr_m in (("ref", obj_mask, ocr_mask),
+                                   ("pos", g["pos_obj_mask"], g["pos_ocr_mask"]),
+                                   ("neg", g["neg_obj_mask"], g["neg_ocr_mask"])):
+            enc_mask = torch.cat([txt_mask, obj_m, ocr_m], dim=1)
+            scores[f"{name}_scores"] = self._mmt_full(txt_emb, obj_in, ocr_in, enc_mask, ocr_m,
+                                                      prev, train=True, gen=gen)
+        return {**scores, **common}
+
+    def _forward_eval(self, batch, gumbel):
+        txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask = self._encode_modalities(batch)
+        dec_len = batch["train_prev_inds"].shape[1]
+        txt_emb, obj_in, ocr_in, joint = self._apply_qtv(
+            txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, dec_len
+        )
+        g, common = self._grounding(batch, txt_emb, txt_mask, obj_in, obj_mask, ocr_in,
+                                    ocr_mask, gumbel)
+        enc_mask = torch.cat([txt_mask, g["pos_obj_mask"], g["pos_ocr_mask"]], dim=1)
+        pos = self._greedy_decode(txt_emb, obj_in, ocr_in, enc_mask, g["pos_ocr_mask"],
+                                  dec_len, joint=joint)
+        if self.inference_only:
+            return {"pos_scores": pos, **common}
+        # full-eval (JAX t2s.py:392-478, non-compact): ref and neg in one
+        # teacher-forced pass at 2B on the pos decode's tokens behind BOS
+        b = pos.shape[0]
+        chosen = pos.argmax(dim=-1)
+        prev = torch.cat([torch.full((b, 1), self.bos_idx, dtype=chosen.dtype,
+                                     device=chosen.device), chosen[:, :-1]], dim=1)
+        tile2 = lambda t: torch.cat([t, t], dim=0)
+        ocr_masks2 = torch.cat([ocr_mask, g["neg_ocr_mask"]], dim=0)
+        enc_mask2 = torch.cat([tile2(txt_mask), torch.cat([obj_mask, g["neg_obj_mask"]], dim=0),
+                               ocr_masks2], dim=1)
+        scores2 = self._mmt_full(tile2(txt_emb), tile2(obj_in), tile2(ocr_in), enc_mask2,
+                                 ocr_masks2, tile2(prev))
+        return {"ref_scores": scores2[:b], "pos_scores": pos, "neg_scores": scores2[b:],
+                **common}

@@ -41,10 +41,21 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, key_mask, out; batch, seq_len, heads, head_dim, dec_len; stream
-    "vt_flash_attention_merged": [_P] * 5 + [_I] * 5 + [_P],
+    # q, k, v, key_mask, out, lse, seed; batch, seq_len, heads, head_dim,
+    # dec_len; threshold; keep_scale; stream
+    "vt_flash_attention_merged": [_P] * 7 + [_I] * 5 + [_U, _F, _P],
+    # q, k, v, key_mask, out, dout, lse, di, dq, dk, dv, seed; batch,
+    # seq_len, heads, head_dim, dec_len; threshold; keep_scale; stream
+    "vt_flash_attention_merged_bwd": [_P] * 12 + [_I] * 5 + [_U, _F, _P],
+    # 12 block operands, seed, mask_a_out, mask_f_out, y, x1h, pre1, h,
+    # x2h, xb; rows, d, m; threshold; keep_scale, eps; stream
+    "vt_block_train_fwd": [_P] * 21 + [_I] * 3 + [_U, _F, _F, _P],
+    # g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, seed, 12
+    # gradients, 5 scratch buffers; rows, d, m; threshold; keep_scale, eps;
+    # stream
+    "vt_block_train_bwd": [_P] * 30 + [_I] * 3 + [_U, _F, _F, _P],
     # x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, res, x32, xb, h, out;
     # rows, d, m; eps; stream
     "vt_fused_block": [_P] * 17 + [_I] * 3 + [_F, _P],
@@ -72,6 +83,9 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention": 0,
     "fused_decode_step": 0,
     "fused_epilogue": 0,
+    "flash_attention_merged_bwd": 0,
+    "block_train_fwd": 0,
+    "block_train_bwd": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -8,6 +8,13 @@ the int8 decode kernel, one over a bf16 cache to the bf16 decode kernel at
 key length >= 256.  Each kernel wrapper launches its kernel on CUDA
 tensors and runs its plain version on CPU tensors; ``plain=True`` takes
 the plain version on any device (the oracle mode of ``Options.plain``).
+
+Training: ``AttentionFn`` is the flash route as one autograd node — the
+q/k/v projections, the flash forward (with its in-kernel dropout of the
+probabilities) and, in the backward, the flash backward kernel and the
+projections' gradients.  The 20-key text BERT stays on the plain path,
+with ordinary dropout of the probabilities drawn from a torch.Generator
+(``mha(..., dropout_rate, gen)``).
 """
 
 from __future__ import annotations
@@ -15,7 +22,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
+from vitxtgqa_tpu_torch.ops import dropout as D
 from vitxtgqa_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_int8,
@@ -24,6 +33,8 @@ from vitxtgqa_tpu_torch.ops.decode_attention import (
 )
 from vitxtgqa_tpu_torch.ops.flash_attention import (
     flash_attention_merged,
+    flash_attention_merged_bwd,
+    flash_attention_merged_bwd_plain,
     flash_attention_merged_plain,
 )
 from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec
@@ -58,31 +69,98 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * dh)
 
 
-def mha_reference(q, k, v, bias=None):
+def mha_reference(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None):
     """Scaled dot-product attention on [B, H, L, Dh]: f32 scores, the
-    probabilities rounded to v's dtype, f32 accumulation."""
+    probabilities (dropped with flax nn.Dropout semantics when a generator
+    is given) rounded to v's dtype, f32 accumulation."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if bias is not None:
         scores = scores + bias.float()
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = D.dropout(torch.softmax(scores, dim=-1), dropout_rate, gen).to(v.dtype)
     return torch.matmul(probs.float(), v.float()).to(v.dtype)
 
 
-def mha(q, k, v, bias=None):
+def mha(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None):
     """[B, H, Lq, Dh] attention; ``bias`` is an additive bias or a spec."""
     if isinstance(bias, (MaskSpec, DecodeStepSpec)):
         bias = bias.to_bias()
-    return mha_reference(q, k, v, bias)
+    return mha_reference(q, k, v, bias, dropout_rate, gen)
+
+
+def flash_ok(bias, num_keys: int) -> bool:
+    """The JAX gate of the flash route: a MaskSpec and >= MIN_KV keys."""
+    return isinstance(bias, MaskSpec) and num_keys >= MIN_KV
 
 
 def mha_merged(q_raw, k_raw, v_raw, bias, num_heads: int, plain: bool = False):
     """Full-sequence attention in merged-head layout; returns [B, L, H*D]."""
-    if isinstance(bias, MaskSpec) and k_raw.shape[1] >= MIN_KV:
+    if flash_ok(bias, k_raw.shape[1]):
         fn = flash_attention_merged_plain if plain else flash_attention_merged
         return fn(q_raw, k_raw, v_raw, bias.key_mask.float().contiguous(),
                   bias.dec_len, num_heads)
     ctx = mha(split_heads(q_raw, num_heads), split_heads(k_raw, num_heads),
               split_heads(v_raw, num_heads), bias)
+    return merge_heads(ctx)
+
+
+class AttentionFn(torch.autograd.Function):
+    """Training attention on the flash route, from the layer input x:
+    q/k/v = x W^T + b, then the flash forward with in-kernel dropout of the
+    probabilities (rate, seed), returning the merged context.  With
+    ``remat == "attn"`` it saves x, the context and the row log-sum-exp and
+    recomputes q/k/v with torch.matmul in its backward, so the backward
+    never relaunches the flash forward; with ``"none"`` it saves q/k/v.
+    The backward is the flash backward kernel, then the projections'
+    gradients.  ``plain`` runs the plain versions on any device."""
+
+    @staticmethod
+    def forward(fctx, x, wq, bq, wk, bk, wv, bv, key_mask, dec_len, num_heads, rate, seed,
+                remat, plain):
+        xw = x.to(wq.dtype)
+        q, k, v = (F.linear(xw, w, b).contiguous() for w, b in ((wq, bq), (wk, bk), (wv, bv)))
+        fwd = flash_attention_merged_plain if plain else flash_attention_merged
+        out, lse = fwd(q, k, v, key_mask, dec_len, num_heads, rate, seed, return_lse=True)
+        fctx.cfg = (dec_len, num_heads, rate, remat, plain, x.dtype)
+        saved = (q, k, v) if remat == "none" else (None, None, None)
+        fctx.save_for_backward(xw, wq, bq, wk, bk, wv, bv, key_mask, seed, out, lse, *saved)
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        dec_len, num_heads, rate, remat, plain, x_dtype = fctx.cfg
+        xw, wq, bq, wk, bk, wv, bv, key_mask, seed, out, lse, q, k, v = fctx.saved_tensors
+        if q is None:
+            q, k, v = (F.linear(xw, w, b).contiguous()
+                       for w, b in ((wq, bq), (wk, bk), (wv, bv)))
+        bwd = flash_attention_merged_bwd_plain if plain else flash_attention_merged_bwd
+        dq, dk, dv = bwd(q, k, v, key_mask, out, lse, g.to(out.dtype).contiguous(), dec_len,
+                         num_heads, rate, seed)
+        x2 = xw.reshape(-1, xw.shape[-1])
+        grads, dx = [], None
+        for dy, w in ((dq, wq), (dk, wk), (dv, wv)):
+            dy2 = dy.reshape(-1, dy.shape[-1])
+            part = torch.matmul(dy2, w)
+            dx = part if dx is None else dx + part
+            grads += [torch.matmul(dy2.t(), x2), dy2.sum(0).to(w.dtype)]
+        return (dx.reshape(xw.shape).to(x_dtype), *grads) + (None,) * 7
+
+
+def attention_train(x, layer_q, layer_k, layer_v, bias, num_heads: int, rate: float, gen,
+                    remat: str, plain: bool):
+    """Training self-attention of one layer from its input x ([B, L, D]);
+    returns the merged context [B, L, H*D].  On the flash route the whole
+    of it is AttentionFn, with one seed from ``gen`` for the in-kernel
+    dropout; elsewhere (the text BERT's 20 keys) the projections and the
+    plain attention run under autograd, the probabilities dropped with a
+    mask drawn from ``gen``."""
+    if flash_ok(bias, x.shape[1]):
+        seed = D.draw_seed(gen, x.device) if rate > 0.0 else None
+        return AttentionFn.apply(x, layer_q.weight, layer_q.bias, layer_k.weight, layer_k.bias,
+                                 layer_v.weight, layer_v.bias,
+                                 bias.key_mask.float().contiguous(), bias.dec_len, num_heads,
+                                 rate, seed, remat, plain)
+    ctx = mha(split_heads(layer_q(x), num_heads), split_heads(layer_k(x), num_heads),
+              split_heads(layer_v(x), num_heads), bias, rate, gen)
     return merge_heads(ctx)
 
 

@@ -1,0 +1,314 @@
+"""The training post-attention block: the forward kernel (#9a) and the
+backward kernel (#9b) wrappers and their plain PyTorch versions.
+
+Counterpart of vitxtgqa_tpu/ops/pallas_block_bwd.py:block_train — the
+block ``y = LN2(x + drop_f(gelu(x W1^T + b1) W2^T + b2))`` with ``x =
+LN1(x_q + drop_a(ctx Wo^T + bo))``, whose forward emits the residuals
+(x1h, pre1, h, x2h) and whose backward returns every input, weight, bias and
+LayerNorm gradient in one call.  The CUDA kernels are csrc/block_train.cu.
+Weights are in nn.Linear layout ([out, in]); biases and LayerNorm vectors
+are taken in float32; weight gradients come back float32 in the same
+layout.  On a CUDA tensor a wrapper launches its kernel (or raises); on a
+CPU tensor it runs the plain version.
+
+Dropout: the kernels take a seed (an int64 [1] tensor) and draw the two
+masks in-kernel: the Philox bits of element (row, col) of the [rows, d]
+mask in streams 1 and 2 (ops/dropout.py).  The plain versions take
+explicit keep masks (the JAX mask mode), so ``block_train_plain`` can be
+held against JAX's ``block_train(mask_a, mask_f, interpret=True)``; where
+a wrapper runs its plain version, it materialises the seed's masks for it
+(``seed_masks``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from vitxtgqa_tpu_torch.ops import _build
+from vitxtgqa_tpu_torch.ops import dropout as D
+from vitxtgqa_tpu_torch.ops.fused_block import LANE, gelu_erf
+
+GRAD_NAMES = ("x_q", "ctx", "wo", "bo", "s1", "g1", "w1", "b1", "w2", "b2", "s2", "g2")
+
+
+def kernel_ok(d: int, m: int) -> bool:
+    """The JAX gate block_bwd_kernel_ok: lane-aligned widths."""
+    return d % LANE == 0 and m % LANE == 0
+
+
+def gelu_erf_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx gelu(x) = Phi(x) + x phi(x) (pallas_block_bwd._gelu_grad)."""
+    return 0.5 * (1.0 + torch.erf(x * 0.7071067811865476)) + x * torch.exp(-0.5 * x * x) * 0.3989422804014327
+
+
+def _stats(x: torch.Tensor, eps: float):
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    return (x - mu) * inv, inv
+
+
+def _ln_bwd(g, xhat, inv, scale):
+    """Input gradient of y = xhat * scale + bias (pallas_block_bwd._ln_bwd)."""
+    dxh = g * scale
+    m1 = dxh.mean(dim=-1, keepdim=True)
+    m2 = (dxh * xhat).mean(dim=-1, keepdim=True)
+    return inv * (dxh - m1 - xhat * m2)
+
+
+def masks_from_seed(seed, rows: int, d: int, rate: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two keep masks [rows, d] that the kernels draw from ``seed``."""
+    return (D.keep_mask(seed, D.STREAM_BLOCK_A, (rows, d), rate, device),
+            D.keep_mask(seed, D.STREAM_BLOCK_F, (rows, d), rate, device))
+
+
+def seed_masks(seed, rows: int, d: int, rate: float, device):
+    """The plain versions' (mask_a, mask_f) for a kernel's seed: the
+    seed's masks, or (None, None) without dropout."""
+    return masks_from_seed(seed, rows, d, rate, device) if rate > 0.0 else (None, None)
+
+
+def _drop(x, mask, rate: float):
+    if rate <= 0.0:
+        return x
+    return torch.where(mask != 0, x * (1.0 / (1.0 - rate)), torch.zeros_like(x))
+
+
+def block_train_fwd_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                          mask_a=None, mask_f=None, rate: float = 0.0, eps: float = 1e-12):
+    """(y, x1h, pre1, h, x2h), rows [R, d] / [R, m] in x_q's dtype: f32
+    products from operands in x_q's dtype, f32 LayerNorm statistics, and
+    the kernel's roundings (x1h, x2h rounded before their LayerNorm, pre1
+    before the gelu)."""
+    dt = x_q.dtype
+    mm = lambda a, w: torch.matmul(a.to(dt).float(), w.to(dt).float().t())
+    attn = _drop(mm(ctx, wo) + bo.float(), mask_a, rate)
+    x1h = (x_q.float() + attn).to(dt)
+    xhat1, _ = _stats(x1h.float(), eps)
+    x = (xhat1 * s1.float() + g1.float()).to(dt)
+    pre1 = (mm(x, w1) + b1.float()).to(dt)
+    h = gelu_erf(pre1.float()).to(dt)
+    ffn = _drop(mm(h, w2) + b2.float(), mask_f, rate)
+    x2h = (x.float() + ffn).to(dt)
+    xhat2, _ = _stats(x2h.float(), eps)
+    y = (xhat2 * s2.float() + g2.float()).to(dt)
+    return y, x1h, pre1, h, x2h
+
+
+def block_train_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                      mask_a=None, mask_f=None, rate: float = 0.0, eps: float = 1e-12):
+    """The block's output y alone (differentiable: the autograd oracle of
+    the backward kernel)."""
+    return block_train_fwd_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                                 mask_a, mask_f, rate, eps)[0]
+
+
+def block_train_bwd_plain(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2,
+                          mask_a=None, mask_f=None, rate: float = 0.0, eps: float = 1e-12):
+    """The 12 gradients (dx_q, dctx, dWo, dbo, ds1, dg1, dW1, db1, dW2, db2,
+    ds2, dg2) for the cotangent ``g`` of y, from the forward's residuals:
+    the sequence of the Pallas kernel (_block_bwd_kernel) with its bf16
+    roundings of dlin2, dpre and dlin1 before their products."""
+    dt = ctx.dtype
+    f = lambda t: t.to(dt).float()
+    gf = g.float()
+    s1f, g1f, s2f = s1.float(), g1.float(), s2.float()
+    xhat2, inv2 = _stats(x2h.float(), eps)
+    ds2, dg2 = (gf * xhat2).sum(0), gf.sum(0)
+    du2 = _ln_bwd(gf, xhat2, inv2, s2f)
+    dlin2 = _drop(du2, mask_f, rate)
+    db2 = dlin2.sum(0)
+    dlin2 = f(dlin2)
+    dw2 = dlin2.t() @ f(h)
+    dpre = (dlin2 @ f(w2)) * gelu_erf_grad(pre1.float())
+    db1 = dpre.sum(0)
+    dpre = f(dpre)
+    xhat1, inv1 = _stats(x1h.float(), eps)
+    x = f(xhat1 * s1f + g1f)
+    dw1 = dpre.t() @ x
+    dx = du2 + dpre @ f(w1)
+    ds1, dg1 = (dx * xhat1).sum(0), dx.sum(0)
+    du1 = _ln_bwd(dx, xhat1, inv1, s1f)
+    dlin1 = _drop(du1, mask_a, rate)
+    dbo = dlin1.sum(0)
+    dlin1 = f(dlin1)
+    dctx = (dlin1 @ f(wo)).to(dt)
+    dwo = dlin1.t() @ f(ctx)
+    return (du1.to(dt), dctx, dwo, dbo, ds1, dg1, dw1, db1, dw2, db2, ds2, dg2)
+
+
+def _vec(t, n, name, dev):
+    t = t.to(torch.float32).contiguous()
+    _build.require(t, name, torch.float32, (n,), dev)
+    return t
+
+
+def _dropout_inputs(rate, seed, dev):
+    """(seed, threshold, keep_scale) for a launch."""
+    if rate <= 0.0:
+        return None, 0, 1.0
+    if seed is None:
+        raise ValueError("block_train: dropout needs a seed")
+    _build.require(seed, "seed", torch.int64, (1,), dev)
+    return seed, D.threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_widths(name, d, m):
+    if d != 768 or m % LANE:
+        raise NotImplementedError(
+            f"{name} kernel: hidden 768 and a lane-aligned FFN width only, got d={d}, m={m}")
+
+
+def block_train_fwd(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate: float = 0.0,
+                    seed=None, eps: float = 1e-12, emit_masks: bool = False):
+    """Forward kernel (#9a) on [rows, d] operands: (y, x1h, pre1, h, x2h),
+    and with ``emit_masks`` (dropout on) also the two int8 masks it drew.
+    On CPU tensors the plain version on the seed's masks."""
+    rows, d = x_q.shape
+    m = w1.shape[0]
+    if emit_masks and (seed is None or rate <= 0.0):
+        raise ValueError("block_train_fwd: emit_masks needs dropout (a seed and rate > 0)")
+    if not x_q.is_cuda:
+        mask_a, mask_f = seed_masks(seed, rows, d, rate, x_q.device)
+        out = block_train_fwd_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                                    mask_a, mask_f, rate, eps)
+        if emit_masks:
+            out = out + (mask_a.to(torch.int8), mask_f.to(torch.int8))
+        return out
+    _check_widths("block_train_fwd", d, m)
+    dev = x_q.device
+    bf = torch.bfloat16
+    _build.require(x_q, "x_q", bf, (rows, d), dev)
+    _build.require(ctx, "ctx", bf, (rows, d), dev)
+    _build.require(wo, "wo", bf, (d, d), dev)
+    _build.require(w1, "w1", bf, (m, d), dev)
+    _build.require(w2, "w2", bf, (d, m), dev)
+    bo, s1, g1, b2, s2, g2 = (_vec(t, d, n, dev) for t, n in
+                              ((bo, "bo"), (s1, "s1"), (g1, "g1"), (b2, "b2"), (s2, "s2"), (g2, "g2")))
+    b1 = _vec(b1, m, "b1", dev)
+    seed, thr, ks = _dropout_inputs(rate, seed, dev)
+    empty = lambda w, dt=bf: torch.empty((rows, w), dtype=dt, device=dev)
+    y, x1h, x2h, xb = empty(d), empty(d), empty(d), empty(d)
+    pre1, h = empty(m), empty(m)
+    ma_out = mf_out = None
+    if emit_masks:
+        ma_out, mf_out = empty(d, torch.int8), empty(d, torch.int8)
+    with torch.cuda.device(dev):
+        err = _build.lib().vt_block_train_fwd(
+            x_q.data_ptr(), ctx.data_ptr(), wo.data_ptr(), bo.data_ptr(), s1.data_ptr(),
+            g1.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            s2.data_ptr(), g2.data_ptr(), _ptr(seed), _ptr(ma_out), _ptr(mf_out), y.data_ptr(),
+            x1h.data_ptr(), pre1.data_ptr(), h.data_ptr(), x2h.data_ptr(), xb.data_ptr(), rows,
+            d, m, thr, ks, float(eps), _build.stream_of(x_q),
+        )
+    _build.check(err, "block_train_fwd")
+    _build.LAUNCHES["block_train_fwd"] += 1
+    out = (y, x1h, pre1, h, x2h)
+    return out + (ma_out, mf_out) if emit_masks else out
+
+
+def block_train_bwd(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, rate: float = 0.0,
+                    seed=None, eps: float = 1e-12):
+    """Backward kernel (#9b): the 12 gradients for the cotangent ``g``
+    [rows, d] of y (dx_q and dctx bf16, the rest f32), the masks
+    regenerated from the forward's seed.  On CPU tensors the plain version
+    on the seed's masks."""
+    rows, d = ctx.shape
+    m = w1.shape[0]
+    if not g.is_cuda:
+        mask_a, mask_f = seed_masks(seed, rows, d, rate, g.device)
+        return block_train_bwd_plain(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2,
+                                     mask_a, mask_f, rate, eps)
+    _check_widths("block_train_bwd", d, m)
+    dev = g.device
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, t, w in (("g", g, d), ("ctx", ctx, d), ("x1h", x1h, d), ("x2h", x2h, d),
+                       ("pre1", pre1, m), ("h", h, m)):
+        _build.require(t, name, bf, (rows, w), dev)
+    _build.require(wo, "wo", bf, (d, d), dev)
+    _build.require(w1, "w1", bf, (m, d), dev)
+    _build.require(w2, "w2", bf, (d, m), dev)
+    s1, g1, s2 = (_vec(t, d, n, dev) for t, n in ((s1, "s1"), (g1, "g1"), (s2, "s2")))
+    seed, thr, ks = _dropout_inputs(rate, seed, dev)
+    new = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
+    dxq, dctx = new(rows, d, dt=bf), new(rows, d, dt=bf)
+    dwo, dw1, dw2 = new(d, d), new(m, d), new(d, m)
+    dbo, ds1, dg1, db2, ds2, dg2, db1 = new(d), new(d), new(d), new(d), new(d), new(d), new(m)
+    du2 = new(rows, d)
+    dlin2, xb, dlin1 = new(rows, d, dt=bf), new(rows, d, dt=bf), new(rows, d, dt=bf)
+    dpre = new(rows, m, dt=bf)
+    with torch.cuda.device(dev):
+        err = _build.lib().vt_block_train_bwd(
+            g.data_ptr(), ctx.data_ptr(), x1h.data_ptr(), pre1.data_ptr(), h.data_ptr(),
+            x2h.data_ptr(), wo.data_ptr(), w1.data_ptr(), w2.data_ptr(), s1.data_ptr(),
+            g1.data_ptr(), s2.data_ptr(), _ptr(seed), dxq.data_ptr(), dctx.data_ptr(),
+            dwo.data_ptr(), dbo.data_ptr(), ds1.data_ptr(), dg1.data_ptr(), dw1.data_ptr(),
+            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ds2.data_ptr(), dg2.data_ptr(),
+            du2.data_ptr(), dlin2.data_ptr(), dpre.data_ptr(), xb.data_ptr(), dlin1.data_ptr(),
+            rows, d, m, thr, ks, float(eps), _build.stream_of(g),
+        )
+    _build.check(err, "block_train_bwd")
+    _build.LAUNCHES["block_train_bwd"] += 1
+    return (dxq, dctx, dwo, dbo, ds1, dg1, dw1, db1, dw2, db2, ds2, dg2)
+
+
+class BlockTrainFn(torch.autograd.Function):
+    """The training block as one autograd node over the two kernels (the
+    JAX ``block_train`` custom VJP).  ``remat == "attn"`` saves only x_q,
+    ctx and the dropout seed and relaunches the forward kernel in the
+    backward for the residuals (JAX's remat "attn" with fused_block_fwd);
+    ``"none"`` saves the residuals.  ``plain`` runs the plain versions on
+    the seed's masks on any device (Options.plain)."""
+
+    @staticmethod
+    def forward(fctx, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate, eps, seed, remat,
+                plain):
+        shape, d = x_q.shape, x_q.shape[-1]
+        x2, c2 = x_q.reshape(-1, d).contiguous(), ctx.reshape(-1, d).contiguous()
+        fctx.cfg = (shape, rate, eps, remat, plain)
+        res = _block_forward(x2, c2, (wo, bo, s1, g1, w1, b1, w2, b2, s2, g2), rate, eps, seed,
+                             plain)
+        if remat == "attn":
+            fctx.save_for_backward(x2, c2, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, seed)
+        else:
+            fctx.save_for_backward(c2, *res[1:], wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, seed)
+        return res[0].reshape(shape)
+
+    @staticmethod
+    def backward(fctx, gy):
+        shape, rate, eps, remat, plain = fctx.cfg
+        saved = fctx.saved_tensors
+        if remat == "attn":
+            x2, c2, *weights, seed = saved
+            _, x1h, pre1, h, x2h = _block_forward(x2, c2, weights, rate, eps, seed, plain)
+        else:
+            c2, x1h, pre1, h, x2h, *weights, seed = saved
+        wo, bo, s1, g1, w1, b1, w2, b2, s2, g2 = weights
+        d = shape[-1]
+        args = (gy.reshape(-1, d).to(c2.dtype).contiguous(), c2, x1h, pre1, h, x2h, wo, w1, w2,
+                s1, g1, s2)
+        if plain:
+            grads = block_train_bwd_plain(*args, *seed_masks(seed, c2.shape[0], d, rate, c2.device),
+                                          rate, eps)
+        else:
+            grads = block_train_bwd(*args, rate=rate, seed=seed, eps=eps)
+        dxq, dctx, dwo, dbo, ds1, dg1, dw1, db1, dw2, db2, ds2, dg2 = grads
+        like = lambda gr, p: gr.to(p.dtype)
+        return (dxq.reshape(shape), dctx.reshape(shape), like(dwo, wo), like(dbo, bo),
+                like(ds1, s1), like(dg1, g1), like(dw1, w1), like(db1, b1), like(dw2, w2),
+                like(db2, b2), like(ds2, s2), like(dg2, g2)) + (None,) * 5
+
+
+def _block_forward(x2, c2, weights, rate, eps, seed, plain):
+    """(y, x1h, pre1, h, x2h) through the forward kernel, or (``plain``)
+    its plain version on the seed's masks."""
+    if plain:
+        masks = seed_masks(seed, x2.shape[0], x2.shape[1], rate, x2.device)
+        return block_train_fwd_plain(x2, c2, *weights, *masks, rate, eps)
+    return block_train_fwd(x2, c2, *weights, rate=rate, seed=seed, eps=eps)

@@ -1,9 +1,10 @@
 """The port's mode switches, in one explicit object.
 
 The JAX package carries its modes as process-wide trace-time globals
-(``set_kv_cache_int8``, ``set_use_pallas``, ...), which needed a reset
-fixture between tests (tests/conftest.py).  Here a model takes one frozen
-``Options`` at construction and every layer reads it from there.
+(``set_kv_cache_int8``, ``set_use_pallas``, ``set_remat``, ...), which
+needed a reset fixture between tests (tests/conftest.py).  Here a model
+takes one frozen ``Options`` at construction and every layer reads it from
+there.
 """
 
 from __future__ import annotations
@@ -12,10 +13,15 @@ import dataclasses
 
 import torch
 
+REMAT_MODES = ("none", "attn")
+
 
 @dataclasses.dataclass(frozen=True)
 class Options:
-    """device: where parameters and activations live.
+    """device: where parameters and activations live.  The default is the
+        CUDA card: a model built with it on a machine without CUDA raises
+        (PyTorch does, when it allocates); nothing falls back to the CPU.
+        Pass ``device="cpu"`` to run on the CPU.
     dtype: compute dtype of the transformer stacks (float32 or bfloat16);
         grounding, the pointer network and the classifier compute in
         float32 as in the JAX package.
@@ -30,16 +36,36 @@ class Options:
     fused_decode_max_batch: the fused decode engages only at batch <= this
         cap — the counterpart of ``set_fused_decode_max_batch`` (JAX
         default 2).
+
+    Training (the counterpart of ``training_parameters.tpu.remat`` in
+    configs/t2s_abinet.yml, with that config's default):
+    remat: "attn" keeps only each layer's input, attention context and
+        row log-sum-exp for the backward, which recomputes the q/k/v
+        projections and relaunches the block's forward kernel instead of
+        holding their activations; "none" keeps them.  The JAX
+        ``set_remat`` (its "full", "dots" and "attn_qkv" modes are not
+        ported).
+    The config's other training switches (``kernel_dropout``,
+    ``fused_block_bwd``, ``fused_block_fwd``) have no field: on the card
+    the training block always runs its kernels with in-kernel dropout, and
+    ``plain`` is the one way to run the plain versions instead.
     """
 
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
     dtype: torch.dtype = torch.float32
     kv_cache_int8: bool = False
     plain: bool = False
     fused_decode: bool = True
     fused_decode_max_batch: int = 2
+    remat: str = "attn"
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"unsupported compute dtype {self.dtype}")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(
+                f"remat {self.remat!r}: the port has {REMAT_MODES} (the JAX "
+                "'full', 'dots' and 'attn_qkv' modes are ROADMAP.md queue 1 "
+                "item 13)"
+            )

@@ -35,9 +35,13 @@ TOP = 8
 
 
 def device_events(prof):
-    """(name, microseconds) of every device-side event the profiler saw."""
+    """(name, microseconds) of every device-side event the profiler saw,
+    without the ranges that user annotations (``record_function``, such
+    as ``Optimizer.step``) span on the device's timeline: those enclose
+    kernels that are counted already."""
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def profile_config(model, batch, dev, reps: int) -> dict:
