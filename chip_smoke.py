@@ -24,11 +24,17 @@ Phases (each prints one or more lines; any failure exits non-zero):
      >= 10^7 draws and the forward / backward stream equality; then again
      at the training step's own shapes: the flash pair at [48, 1152, 768]
      with the MMT mask, the block pair at 55,296 rows (QTV, MMT) and 960
-     (text BERT), against the twins on the same inputs.  Each
-     kernel's bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s)
-     is computed from the inputs of its timed call, and one PyTorch call
-     that computes the same function is timed beside it where one exists
-     (library_ms; the port never calls it);
+     (text BERT), against the twins on the same inputs.  The serving
+     modes' kernels: the W8A8 block at 9,216 and 3,072 rows (its ctx
+     quantization bit for bit), the int8-emitting flash forward at [8,
+     1152, 768] (its int8 cache and scales bit for bit, #1 timed on the
+     same inputs), the int8 pointer scores at [8, 1, 768] x [8, 960, 768],
+     and the decode attention and decode step again at the compact cache
+     length 384.  Each kernel's bound (bytes over 3.35 TB/s or operations
+     over the peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67
+     TFLOP/s f32) is computed from the inputs of its timed call, and one
+     PyTorch call that computes the same function is timed beside it where
+     one exists (library_ms; the port never calls it);
   4. slices: T2S at production width (t2s_production_config) in bf16:
        a. int8 KV cache, batch 8 (per-layer int8 decode attention);
        b. int8 KV cache, buckets (1, 2): the single-kernel decode step and
@@ -43,10 +49,21 @@ Phases (each prints one or more lines; any failure exits non-zero):
           gradient), and the plain step with each planted block fault,
           which the same limits must reject; (ii) batch 48, remat "attn",
           >= 3 Adam steps through the kernels, with the step time, videos/s
-          and peak memory.
-     a-c serve behind a ServingEngine; each slice checks its launch counts
-     (derived from the gates), the outputs' shapes and finiteness, and the
-     same inputs through the plain versions on the card.
+          and peak memory;
+       f. the serving preset (configs/t2s_serving.yml: int8 cache + compact
+          serving) at batch 8 and buckets (1, 2), and the batch-1 latency
+          of compact against exact;
+       g. W8A8 at batch 8 (int8 cache, bf16 cache, int8 + compact), and
+          its token agreement with the bf16 block (printed: the weights are
+          random);
+       h. compact full-eval at batch 8;
+       i. the module entry points of the two int8 kernels: the MMT
+          encoder's encode_with_cache(quantize=True), whose cache must equal
+          quantize_cache's bit for bit and decode to the same tokens, and
+          OcrPtrNet.scores_from_keys over int8 keys.
+     a-c and f-g serve behind a ServingEngine; each slice checks its launch
+     counts (derived from the gates), the outputs' shapes and finiteness,
+     and the same inputs through the plain versions on the card.
 The line before the last is the kernels' JSON record, the one before it the
 card's name and power limit, the last line ``{"ok": true, "device":
 {...}}``.  Details go to DIR/chip_smoke.json (default DIR: build/).
@@ -66,6 +83,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8
 L_JOINT, WRITE_OFFSET, DEC_LEN = 1152, 1140, 12
+# the compact joint sequence: 20 question tokens + 5 frames + 64 x 5 OCR
+# slots = 345 rows, padded with the decoder slots to 384
+L_COMPACT, COMPACT_OFFSET = 384, 372
 
 # tolerances of kernel vs plain version, bf16 at the serving shapes.
 # flash / decode outputs are attention averages of O(1) values (|out| ~ 0.1
@@ -85,6 +105,16 @@ L_JOINT, WRITE_OFFSET, DEC_LEN = 1152, 1140, 12
 # kernels round P and dS (flash) or dlin2, dpre and dlin1 (block, as the
 # Pallas kernel does) to bf16 before a product, a 2^-9 relative error per
 # operand summed over 1152 keys or up to 55,296 rows.
+# The serving modes' kernels: the W8A8 block's output is a LayerNorm output
+# in bf16 like the eval block's; its int32 sums are exact on both sides, and
+# the f32 epilogues differ in the order of the LayerNorm sums and in FMA
+# contraction, which can move an element of x or h across the rounding
+# boundary of its int8 step and its row by that step's weight (~1e-2 before
+# the LayerNorm): a few bf16 ulps, as the eval block.  Its quantized ctx
+# rows are exact (amax, IEEE division and rint only).  The int8-emitting
+# flash: its output as #1's, its int8 cache and scales exact.  The int8
+# pointer scores: f32 dots of length 768 over O(1) products in another
+# order, scores of |s| < ~20.
 TOL = {
     "flash_attention_merged": 2e-2,
     "fused_block": 6e-2,
@@ -96,13 +126,18 @@ TOL = {
     "flash_attention_merged_bwd": 3e-2,
     "block_train_fwd": 6e-2,
     "block_train_bwd": 3e-2,
+    "fused_block_w8a8": 6e-2,
+    "flash_attention_merged_q8": 2e-2,
+    "ptr_scores_int8": 1e-3,
 }
 # the in-kernel dropout draws: keep share within 0.001 of 1 - rate (the
 # binomial standard deviation over 10^7 draws is 1e-4)
 RATE, KEEP_TOL, MIN_DRAWS = 0.1, 1e-3, 10 ** 7
 # H100 SXM peaks (NVIDIA's data sheet):
-# dense bf16 tensor-core operations and HBM3 bandwidth
+# dense bf16 tensor-core operations and HBM3 bandwidth; dense int8
+# tensor-core operations; f32 outside the tensor cores
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_INT8_OPS, PEAK_F32_FLOPS = 1979e12, 67e12
 ROW8_TOL, ROWSC_REL_TOL = 1, 1e-2
 # the decode-step check plants its attention scores (decode_step_cache), per
 # head after the 1/sqrt(64) scale: two allowed encoder keys and, from step
@@ -123,6 +158,9 @@ REPLACES = {
     "flash_attention_merged_bwd": "vitxtgqa_tpu/ops/pallas_attention.py:779",
     "block_train_fwd": "vitxtgqa_tpu/ops/pallas_block_bwd.py:321",
     "block_train_bwd": "vitxtgqa_tpu/ops/pallas_block_bwd.py:428",
+    "fused_block_w8a8": "vitxtgqa_tpu/ops/pallas_ffn.py:466",
+    "flash_attention_merged_q8": "vitxtgqa_tpu/ops/pallas_attention.py:708",
+    "ptr_scores_int8": "vitxtgqa_tpu/ops/pallas_attention.py:1078",
 }
 SOURCE = {
     "flash_attention_merged": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
@@ -135,6 +173,9 @@ SOURCE = {
     "flash_attention_merged_bwd": "vitxtgqa_tpu_torch/csrc/flash_attention_bwd.cu",
     "block_train_fwd": "vitxtgqa_tpu_torch/csrc/block_train.cu",
     "block_train_bwd": "vitxtgqa_tpu_torch/csrc/block_train.cu",
+    "fused_block_w8a8": "vitxtgqa_tpu_torch/csrc/fused_block_w8a8.cu",
+    "flash_attention_merged_q8": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
+    "ptr_scores_int8": "vitxtgqa_tpu_torch/csrc/ptr_scores.cu",
 }
 # slice, kernels vs plain on the card: greedy tokens may diverge where two
 # scores tie within bf16 noise, and diverge for the rest of the sequence
@@ -161,35 +202,69 @@ TRAIN_BATCH = 48        # configs/t2s_abinet.yml training_parameters.batch_size
 TRAIN_STEPS = 4         # the first is a warm-up; >= 3 are timed
 
 
-def expected_launches(cfg, batch: int, opts, full_eval: bool = False) -> dict:
-    """Kernel launches in one eval forward, derived from the port's gates:
-    flash in every QTV and MMT encode layer (joint sequence >= 256 keys);
-    the fused block in those layers where the rows reach its gate, the last
-    QTV layer in its tanh form; per decode step either the fused step +
-    epilogue or one decode attention per MMT layer; with ``full_eval`` the
-    teacher-forced ref / neg pass at 2B adds flash and the fused block in
-    each MMT layer.  No training kernel."""
-    from vitxtgqa_tpu_torch.ops import fused_block as FB
+def joint_lengths(cfg, text_len: int = 20, dec_len: int = DEC_LEN):
+    """(full, compact) joint-sequence rows with the decoder slots, padded to
+    a multiple of 128 as the models pad them: [question | frames | OCR] and
+    [question | top-k frames | top-k OCR slots of every frame]."""
+    g = cfg["grounding"]
+    full = text_len + g["frame_num"] + g["frame_num"] * g["ocr_frame_num"]
+    compact = text_len + g["frame_topk"] + g["frame_num"] * g["ocr_topk"]
+    pad = lambda n: -(-(n + dec_len) // 128) * 128
+    return pad(full), pad(compact)
 
-    n_qtv = cfg["translayers"]["num_hidden_layers"]
-    n_mmt = cfg["mmt"]["num_hidden_layers"]
-    block = FB.kernel_ok(768, 3072, batch * L_JOINT)
-    fused = opts.fused_decode and opts.kv_cache_int8 and batch <= opts.fused_decode_max_batch
-    per_layer = 0 if fused else n_mmt * DEC_LEN
-    tf_flash = n_mmt if full_eval else 0
-    tf_block = n_mmt if full_eval and FB.kernel_ok(768, 3072, 2 * batch * L_JOINT) else 0
-    return {
-        "flash_attention_merged": n_qtv + n_mmt + tf_flash,
-        "fused_block": (n_qtv - 1 + n_mmt if block else 0) + tf_block,
-        "fused_block_tanh": 1 if block else 0,
-        "decode_attention_int8": per_layer if opts.kv_cache_int8 else 0,
-        "decode_attention": 0 if opts.kv_cache_int8 else per_layer,
-        "fused_decode_step": DEC_LEN if fused else 0,
-        "fused_epilogue": DEC_LEN if fused else 0,
-        "flash_attention_merged_bwd": 0,
-        "block_train_fwd": 0,
-        "block_train_bwd": 0,
-    }
+
+def expected_launches(cfg, batch: int, opts, full_eval: bool = False, text_len: int = 20,
+                      dec_len: int = DEC_LEN) -> dict:
+    """Kernel launches in one eval forward, derived from the port's gates.
+    In each QTV and MMT encode layer: flash where the joint sequence has >=
+    256 keys; where the rows reach the fused block's gate, the W8A8 block
+    under Options.w8a8, else the fused block (the last QTV layer in its tanh
+    form).  The MMT encodes the compact sequence under compact serving.
+    Per decode step: with the int8 cache at batch <= the cap and no W8A8,
+    the fused step and (not compact) the fused epilogue; else one decode
+    attention per MMT layer (the bf16 one only at >= 256 keys).  With
+    ``full_eval`` the teacher-forced pass at 2B over the full sequence, or
+    under compact serving ref at B over it and neg at B over the compact
+    one.  No training kernel, and no #11 / #12 (the decode keeps the
+    separate quantize pass and bf16 pointer keys, as JAX does)."""
+    from vitxtgqa_tpu_torch.models.common import TransformerConfig
+    from vitxtgqa_tpu_torch.ops import fused_block as FB
+    from vitxtgqa_tpu_torch.ops.attention import MIN_KV
+
+    qtv = TransformerConfig.from_config(cfg["translayers"])
+    mmt = TransformerConfig.from_config(cfg["mmt"])
+    l_full, l_compact = joint_lengths(cfg, text_len, dec_len)
+    l_mmt = l_compact if opts.compact_serving else l_full
+    out = {name: 0 for name in REPLACES}
+
+    def encode(tc, rows, seq, tanh_last):
+        n = tc.num_hidden_layers
+        if seq >= MIN_KV:
+            out["flash_attention_merged"] += n
+        if FB.kernel_ok(tc.hidden_size, tc.intermediate_size, rows * seq):
+            if opts.w8a8:
+                out["fused_block_w8a8"] += n
+            else:
+                out["fused_block"] += n - tanh_last
+                out["fused_block_tanh"] += tanh_last
+
+    encode(qtv, batch, l_full, 1)
+    encode(mmt, batch, l_mmt, 0)
+    fused = (opts.fused_decode and opts.kv_cache_int8 and not opts.w8a8
+             and batch <= opts.fused_decode_max_batch)
+    if fused:
+        out["fused_decode_step"] += dec_len
+        out["fused_epilogue"] += 0 if opts.compact_serving else dec_len
+    elif opts.kv_cache_int8:
+        out["decode_attention_int8"] += mmt.num_hidden_layers * dec_len
+    elif l_mmt >= MIN_KV:
+        out["decode_attention"] += mmt.num_hidden_layers * dec_len
+    if full_eval and opts.compact_serving:
+        encode(mmt, batch, l_full, 0)
+        encode(mmt, batch, l_compact, 0)
+    elif full_eval:
+        encode(mmt, 2 * batch, l_full, 0)
+    return out
 
 
 def expected_train_launches(cfg, opts) -> dict:
@@ -276,7 +351,7 @@ def decode_step_weights(dev, gen, n_layers=3, d=768, m=3072):
     return rn(BATCH, 1, d, scale=1.0), stacks
 
 
-def decode_step_cache(x_t, stacks, mask, step, gen, num_heads=12):
+def decode_step_cache(x_t, stacks, mask, step, gen, num_heads=12, write_offset=WRITE_OFFSET):
     """kv8 [L, B, Lp, 2d] int8 and kvs [L, B, 2, Lp] f32 for the decode
     step at ``step`` with the scores of PLANTED / BACKGROUND / TRAP.  Layer
     l's queries come from the plain step over layers < l, whose caches are
@@ -289,13 +364,13 @@ def decode_step_cache(x_t, stacks, mask, step, gen, num_heads=12):
 
     dev, (b, _, d), l = x_t.device, x_t.shape, mask.shape[1]
     n_layers, hd = stacks["wq"].shape[0], d // num_heads
-    pos = WRITE_OFFSET + step
+    pos = write_offset + step
     slot = torch.arange(l, device=dev)
-    allowed = (mask > 0) | ((slot >= WRITE_OFFSET) & (slot < pos))[None, :]
+    allowed = (mask > 0) | ((slot >= write_offset) & (slot < pos))[None, :]
     target = torch.full((b, l), BACKGROUND, device=dev)
     target[~allowed] = TRAP
     for row in range(b):
-        enc = allowed[row, :WRITE_OFFSET].nonzero()[:, 0]
+        enc = allowed[row, :write_offset].nonzero()[:, 0]
         target[row, enc[0]], target[row, enc[len(enc) // 2]] = PLANTED[:2]
         if step:
             target[row, pos - 1] = PLANTED[2]
@@ -305,7 +380,7 @@ def decode_step_cache(x_t, stacks, mask, step, gen, num_heads=12):
     for li in range(n_layers):
         x_l = x_t if li == 0 else DS.fused_decode_step_plain(
             x_t, {k: v[:li] for k, v in stacks.items()}, kv8[:li], kvs[:li], mask, step,
-            WRITE_OFFSET, num_heads)[0]
+            write_offset, num_heads)[0]
         q = (x_l[:, 0].float() @ stacks["wq"][li].float().t()
              + stacks["bq"][li].float()).reshape(b, num_heads, hd)
         unit = q / q.abs().amax(-1, keepdim=True)
@@ -321,11 +396,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound_of(n_bytes: float, flops: float):
+def bound_of(n_bytes: float, flops: float, peak: float = PEAK_FLOPS):
     """(least ms the card could take, what bounds it): the bytes the
-    function must move over HBM bandwidth, or its operations over the bf16
-    tensor-core peak, whichever is larger."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    function must move over HBM bandwidth, or its operations over the peak
+    of their type (default: the bf16 tensor cores), whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -357,12 +432,12 @@ def flash_bwd_bound(q, key_mask, dec_len: int):
 
 
 def block_bound(rows: int, d: int, m: int, n_in: int, n_out: int, weight_bytes: int,
-                vec_bytes: int, backward: bool = False):
+                vec_bytes: int, backward: bool = False, peak: float = PEAK_FLOPS):
     """A post-attention block over ``rows``: n_in / n_out activations of
     width d or m read / written (bytes given), the weights, 2*rows*(d^2 +
-    2dm) operations forward and twice that backward."""
+    2dm) operations forward and twice that backward, at ``peak``."""
     flops = 2 * rows * (d * d + 2 * d * m) * (2 if backward else 1)
-    return bound_of(n_in + n_out + weight_bytes + vec_bytes, flops)
+    return bound_of(n_in + n_out + weight_bytes + vec_bytes, flops, peak)
 
 
 def decode_keys(key_mask, step: int) -> int:
@@ -425,6 +500,52 @@ def report(record, name, err, extra="", scale=None, **timed):
         fail(f"{name}{extra} disagrees with its plain version")
     if timed:
         keep_times(record, name, extra, **timed)
+
+
+def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: int,
+                      keep: bool):
+    """The decode step over 3 MMT layers at each batch, steps 0 and 11, its
+    attention planted (decode_step_cache) over the cache length of
+    ``mask``: y against the tolerance, the quantized rows within one int8
+    step and 1% of the scale; the times at step 11, the batch-1 ones kept
+    as the kernel's record when ``keep``."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    dev, h, lp = mask.device, 12, mask.shape[1]
+    m, d = stacks["w1"].shape[1:]
+    for step in (0, 11):
+        kv8_all, kvs_all = decode_step_cache(x_all, stacks, mask, step, gen, h, write_offset)
+        for b in batches:
+            kv8, kvs = kv8_all[:, :b].contiguous(), kvs_all[:, :b].contiguous()
+            x_t, km = x_all[:b].contiguous(), mask[:b].contiguous()
+            buffers = DS.step_buffers(3, b, d, m, dev)
+            sargs = (x_t, stacks, kv8, kvs, km, step, write_offset, h)
+            got = DS.fused_decode_step(*sargs, buffers=buffers)
+            want = DS.fused_decode_step_plain(*sargs)
+            torch.cuda.synchronize()
+            err = (got[0].float() - want[0].float()).abs().max().item()
+            d8 = (got[1].int() - want[1].int()).abs().max().item()
+            dsc = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
+            shape = f"[{b},1,768] x 3 layers, kv8 [3,{b},{lp},1536] step={step}"
+            print(f"kernel fused_decode_step {shape}: row8 max|diff| {d8} (tol {ROW8_TOL}), "
+                  f"rowsc max rel diff {dsc:.3e} (tol {ROWSC_REL_TOL})", flush=True)
+            if d8 > ROW8_TOL or dsc > ROWSC_REL_TOL:
+                fail(f"fused_decode_step quantized rows disagree at {shape}")
+            timed = {}
+            if step == 11:
+                ms = cuda_time_ms(lambda: DS.fused_decode_step(*sargs, buffers=buffers))
+                pms = cuda_time_ms(lambda: DS.fused_decode_step_plain(*sargs))
+                keys = 3 * (decode_keys(km, step) - b)
+                flops = 3 * 2 * b * (4 * d * d + 2 * d * m) + 4 * d * keys
+                moved = nbytes(*stacks.values()) + nbytes(x_t, km, *got) + keys * (2 * d + 8)
+                bound = bound_of(moved, flops)
+                print(f"kernel fused_decode_step {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                      f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+                if b == 1 and keep:  # the record's shape: the fused branch's batch-1 step
+                    timed = dict(ms=ms, plain_ms=pms, bound=bound)
+            report(record, "fused_decode_step", err, extra=" " + shape, **timed)
 
 
 def check_kernels(dev, record):
@@ -531,38 +652,7 @@ def check_kernels(dev, record):
     # 5. the single-kernel decode step over 3 MMT layers, batch 1 / 2 / 8,
     # its attention planted (decode_step_cache)
     x_all, stacks = decode_step_weights(dev, gen)
-    for step in (0, 11):
-        kv8_all, kvs_all = decode_step_cache(x_all, stacks, mask, step, gen, h)
-        for b in (1, 2, BATCH):
-            kv8, kvs = kv8_all[:, :b].contiguous(), kvs_all[:, :b].contiguous()
-            x_t, km = x_all[:b].contiguous(), mask[:b].contiguous()
-            buffers = DS.step_buffers(3, b, d, m, dev)
-            sargs = (x_t, stacks, kv8, kvs, km, step, WRITE_OFFSET, h)
-            got = DS.fused_decode_step(*sargs, buffers=buffers)
-            want = DS.fused_decode_step_plain(*sargs)
-            torch.cuda.synchronize()
-            err = (got[0].float() - want[0].float()).abs().max().item()
-            d8 = (got[1].int() - want[1].int()).abs().max().item()
-            dsc = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
-            print(f"kernel fused_decode_step [{b},1,768] step={step}: row8 max|diff| {d8} "
-                  f"(tol {ROW8_TOL}), rowsc max rel diff {dsc:.3e} (tol {ROWSC_REL_TOL})",
-                  flush=True)
-            if d8 > ROW8_TOL or dsc > ROWSC_REL_TOL:
-                fail(f"fused_decode_step quantized rows disagree at batch {b}, step {step}")
-            timed = {}
-            if step == 11:
-                ms = cuda_time_ms(lambda: DS.fused_decode_step(*sargs, buffers=buffers))
-                pms = cuda_time_ms(lambda: DS.fused_decode_step_plain(*sargs))
-                print(f"kernel fused_decode_step [{b},1,768] step=11: kernel {ms:.4f} ms, "
-                      f"plain {pms:.4f} ms", flush=True)
-                if b == 1:  # the record's shape: the fused branch's batch-1 step
-                    keys = 3 * (decode_keys(km, step) - b)
-                    flops = 3 * 2 * b * (4 * d * d + 2 * d * m) + 4 * d * keys
-                    moved = (nbytes(*stacks.values()) + nbytes(x_t, km, *got)
-                             + keys * (2 * d + 8))
-                    timed = dict(ms=ms, plain_ms=pms, bound=bound_of(moved, flops))
-            report(record, "fused_decode_step", err,
-                   extra=f" [{b},1,768] x 3 layers, kv8 [3,{b},1152,1536] step={step}", **timed)
+    check_decode_step(record, x_all, stacks, mask, gen, (1, 2, BATCH), WRITE_OFFSET, True)
 
     # 6. the fused epilogue, batch 1 / 2 / 8: scores, greedy token, next emb
     v_fix, v_p, n_ocr = 5050, 5120, 960
@@ -609,6 +699,141 @@ def check_kernels(dev, record):
                **timed)
     del q, k, v, x_q, ctx, res, kdq, vdq
     torch.cuda.empty_cache()
+
+
+def compact_mask(dev):
+    """An encoder key mask at the compact geometry [BATCH, 384]: the
+    serving batch's question, 5 frames and 320 of its OCR slots, then the
+    padding and decoder slots."""
+    import torch
+    import torch.nn.functional as F
+
+    mask, ocr = serving_masks(dev)
+    enc = torch.cat([mask[:, :25], ocr[:, :320]], dim=1)
+    return F.pad(enc, (0, L_COMPACT - enc.shape[1])).contiguous()
+
+
+def check_serving_mode_kernels(dev, record):
+    """The serving modes' kernels against their twins: the W8A8 block (#8),
+    the int8-emitting flash (#11), the int8 pointer scores (#12), then the
+    decode attention (#4) and decode step (#5) at the compact cache
+    length."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_attention as DA
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+    from vitxtgqa_tpu_torch.ops import fused_block as FB
+    from vitxtgqa_tpu_torch.ops import ptr_scores as PS
+    from vitxtgqa_tpu_torch.ops.attention import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    bf = torch.bfloat16
+    rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
+    h, l, d, m = 12, L_JOINT, 768, 3072
+    mask, ocr_mask = serving_masks(dev)
+
+    # 12. the W8A8 block at 9,216 rows (a batch-8 encode) and 3,072 (the
+    # compact MMT at batch 8), its weights quantized once; the bf16 block
+    # timed on the same inputs
+    wo, w1, w2 = rn(d, d, scale=0.02), rn(m, d, scale=0.02), rn(d, m, scale=0.02)
+    wq = FB.quantize_block_weights(wo, w1, w2)
+    vec = lambda n, base=0.0: (base + torch.randn(n, generator=gen, device=dev) * 0.05).float()
+    bo, s1, g1, b1, b2, s2, g2 = vec(d), vec(d, 1.0), vec(d), vec(m), vec(d), vec(d, 1.0), vec(d)
+    for rows in (BATCH * L_JOINT, BATCH * L_COMPACT):
+        x_q, ctx = rn(rows, d), rn(rows, d, scale=0.5)
+        args = (x_q, ctx, wq[0], wq[1], bo, s1, g1, wq[2], wq[3], b1, wq[4], wq[5], b2, s2, g2)
+        got, c8, cs = FB.fused_block_w8a8(*args, return_ctx_q=True)
+        want = FB.fused_block_w8a8_plain(*args)
+        want8, want_s = FB.quant_rows(ctx)
+        torch.cuda.synchronize()
+        ctx_exact = bool(torch.equal(c8, want8) and torch.equal(cs, want_s[:, 0]))
+        print(f"kernel fused_block_w8a8 [{rows},768]: quantized ctx rows and scales equal to "
+              f"quant_rows: {ctx_exact}", flush=True)
+        if not ctx_exact:
+            fail(f"fused_block_w8a8 quantizes ctx otherwise than quant_rows at {rows} rows")
+        err = (got.float() - want.float()).abs().max().item()
+        ms = cuda_time_ms(lambda: FB.fused_block_w8a8(*args))
+        pms = cuda_time_ms(lambda: FB.fused_block_w8a8_plain(*args), reps=3, warmup=1)
+        bf_ms = cuda_time_ms(lambda: FB.fused_block(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2,
+                                                     s2, g2))
+        bound = block_bound(rows, d, m, nbytes(x_q, ctx), nbytes(got), nbytes(*wq[::2]),
+                            nbytes(*wq[1::2], bo, s1, g1, b1, b2, s2, g2), peak=PEAK_INT8_OPS)
+        print(f"kernel fused_block_w8a8 [{rows},768]: the bf16 block (#2) on the same inputs "
+              f"{bf_ms:.4f} ms", flush=True)
+        timed = dict(ms=ms, plain_ms=pms, bound=bound) if rows == BATCH * L_JOINT else {}
+        if not timed:
+            print(f"kernel fused_block_w8a8 [{rows},768]: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+        report(record, "fused_block_w8a8", err, f" [{rows},768]->3072", **timed)
+        del x_q, ctx, got, want, c8, want8
+
+    # 13. flash with the int8 cache emission at [8, 1152, 768], dec_len 12:
+    # the output as the plain forward's and bit for bit #1's on the same
+    # inputs, the cache bit for bit quantize_kv's; #1 and #1 + the separate
+    # quantize pass timed beside it
+    q, k, v = (rn(BATCH, l, d) for _ in range(3))
+    km = mask.clone()
+    km[:, l - DEC_LEN:] = 0.0
+    out, (k8, ks), (v8, vs) = FA.flash_attention_merged_q8(q, k, v, km, DEC_LEN, h)
+    want = FA.flash_attention_merged_plain(q, k, v, km, DEC_LEN, h)
+    out1 = FA.flash_attention_merged(q, k, v, km, DEC_LEN, h)
+    (wk8, wks), (wv8, wvs) = quantize_kv(k), quantize_kv(v)
+    torch.cuda.synchronize()
+    rows = km > 0
+    rows[:, l - DEC_LEN:] = True
+    err = (out.float() - want.float()).abs()[rows].max().item()
+    cache_exact = all(torch.equal(a, b) for a, b in ((k8, wk8), (ks, wks), (v8, wv8), (vs, wvs)))
+    same_as_1 = bool(torch.equal(out, out1))
+    print(f"kernel flash_attention_merged_q8 [8,1152,768] dec_len=12: int8 cache and scales equal "
+          f"to quantize_kv: {cache_exact}; output equal to #1's: {same_as_1}", flush=True)
+    if not cache_exact or not same_as_1:
+        fail("flash_attention_merged_q8's cache or output")
+    fa_args = (q, k, v, km, DEC_LEN, h)
+    ms1 = cuda_time_ms(lambda: FA.flash_attention_merged(*fa_args))
+    ms_sep = cuda_time_ms(lambda: (FA.flash_attention_merged(*fa_args), quantize_kv(k),
+                                   quantize_kv(v)))
+    ms = cuda_time_ms(lambda: FA.flash_attention_merged_q8(*fa_args))
+    print(f"kernel flash_attention_merged_q8 [8,1152,768]: #1 on the same inputs {ms1:.4f} ms, "
+          f"#1 + two quantize_kv {ms_sep:.4f} ms", flush=True)
+    report(record, "flash_attention_merged_q8", err, " [8,1152,768] dec_len=12", ms=ms,
+           plain_ms=cuda_time_ms(lambda: FA.flash_attention_merged_q8_plain(*fa_args)),
+           bound=bound_of(4 * nbytes(q) + nbytes(km, k8, ks, v8, vs),
+                          4 * d * attn_pairs(km, DEC_LEN)))
+    details = {"q8_flash_ms": ms, "flash_ms_same_inputs": ms1, "flash_plus_quantize_ms": ms_sep}
+    del q, k, v, out, out1, want, k8, v8, wk8, wv8
+
+    # 14. the int8 pointer scores at [8, 1, 768] x [8, 960, 768]
+    qp = torch.randn(BATCH, 1, d, generator=gen, device=dev) * 0.5
+    k8p, ksp = quantize_kv(rn(BATCH, 960, d))
+    got = PS.ptr_scores_int8(qp, k8p, ksp, ocr_mask)
+    want = PS.ptr_scores_int8_plain(qp, k8p, ksp, ocr_mask)
+    torch.cuda.synchronize()
+    report(record, "ptr_scores_int8", (got - want).abs().max().item(),
+           " [8,1,768] x [8,960,768]", ms=cuda_time_ms(lambda: PS.ptr_scores_int8(
+               qp, k8p, ksp, ocr_mask)),
+           plain_ms=cuda_time_ms(lambda: PS.ptr_scores_int8_plain(qp, k8p, ksp, ocr_mask)),
+           bound=bound_of(nbytes(qp, k8p, ksp, ocr_mask, got), 2 * k8p.numel(), PEAK_F32_FLOPS))
+
+    # 15. #4 and #5 at the compact cache length 384 (write offset 372)
+    cmask = compact_mask(dev)
+    qd = rn(BATCH, 1, d)
+    (k8, ks), (v8, vs) = quantize_kv(rn(BATCH, L_COMPACT, d)), quantize_kv(rn(BATCH, L_COMPACT, d))
+    for step in (0, 11):
+        dargs = (qd, k8, ks, v8, vs, cmask, step, COMPACT_OFFSET, h)
+        got, want = DA.decode_attention_int8(*dargs), DA.decode_attention_int8_plain(*dargs)
+        torch.cuda.synchronize()
+        report(record, "decode_attention_int8", (got.float() - want.float()).abs().max().item(),
+               extra=f" [8,1,768] x [8,384,768] step={step}")
+    bound = decode_bound(qd, cmask, 11, 1, 8)
+    print(f"kernel decode_attention_int8 [8,1,768] x [8,384,768] step=11: kernel "
+          f"{cuda_time_ms(lambda: DA.decode_attention_int8(*dargs)):.4f} ms, plain "
+          f"{cuda_time_ms(lambda: DA.decode_attention_int8_plain(*dargs)):.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    x_all, stacks = decode_step_weights(dev, gen)
+    check_decode_step(record, x_all, stacks, cmask, gen, (1, 2), COMPACT_OFFSET, False)
+    del x_all, stacks, k8, v8
+    torch.cuda.empty_cache()
+    return details
 
 
 def check_training_kernels(dev, record):
@@ -974,10 +1199,11 @@ def serve_slice(name, sl: Slices, record, opts: dict, groups, rng_seed=0):
     return model, summary
 
 
-def full_eval_slice(sl: Slices, record, card):
+def full_eval_slice(sl: Slices, record, card, compact: bool = False):
     """d. full-eval at batch 8, int8 cache: the pos decode, then ref / neg
-    from one teacher-forced pass at 2B; the same batch, weights and noise
-    through the plain versions."""
+    from one teacher-forced pass at 2B (h., ``compact``: the pos decode and
+    the neg pass on the kept rows, ref over the full sequence at B); the
+    same batch, weights and noise through the plain versions."""
     import numpy as np
     import torch
 
@@ -985,8 +1211,10 @@ def full_eval_slice(sl: Slices, record, card):
     from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
     from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
 
-    model = sl.model(inference_only=False, kv_cache_int8=True)
-    plain = sl.model(inference_only=False, kv_cache_int8=True, plain=True)
+    name = "compact_full_eval_b8" if compact else "full_eval_b8"
+    opts = dict(kv_cache_int8=True, compact_serving=compact)
+    model = sl.model(inference_only=False, **opts)
+    plain = sl.model(inference_only=False, plain=True, **opts)
     batch = synthetic_batch(batch=BATCH, num_final_outputs=sl.nf, seed=1)
     tb = to_device(batch, sl.dev)
     forward_ms(model, batch, sl.dev, reps=1)  # warm-up
@@ -995,9 +1223,9 @@ def full_eval_slice(sl: Slices, record, card):
         kern = model(tb, group_generator(0, 0, sl.dev))
     torch.cuda.synchronize()
     counts = _build.launch_counts()
-    print("slice full_eval_b8: launches in one full-eval forward at batch 8 " + json.dumps(counts),
+    print(f"slice {name}: launches in one full-eval forward at batch 8 " + json.dumps(counts),
           flush=True)
-    count_launches("slice full_eval_b8", record, counts,
+    count_launches(f"slice {name}", record, counts,
                    expected_launches(sl.cfg, BATCH, model.opts, full_eval=True))
     with torch.inference_mode():
         ref = plain(tb, group_generator(0, 0, sl.dev))
@@ -1005,22 +1233,90 @@ def full_eval_slice(sl: Slices, record, card):
     want = {k: v.float().cpu().numpy() for k, v in ref.items() if torch.is_tensor(v)}
     for k in ("ref_scores", "pos_scores", "neg_scores"):
         if out[k].shape != (BATCH, DEC_LEN, sl.nf) or not np.isfinite(out[k]).all():
-            fail(f"slice full_eval_b8: {k} {out[k].shape}, finite {np.isfinite(out[k]).all()}")
+            fail(f"slice {name}: {k} {out[k].shape}, finite {np.isfinite(out[k]).all()}")
     tok, tok_p = out["pos_scores"].argmax(-1), want["pos_scores"].argmax(-1)
     agree = float((tok == tok_p).mean())
     same = (tok == tok_p).all(-1)
     diffs = {k: float(np.abs(out[k][same] - want[k][same]).max()) if same.any() else None
              for k in ("ref_scores", "neg_scores")}
     lat = forward_ms(model, batch, sl.dev, reps=3)
-    print(f"slice full_eval_b8: kernels vs plain on the card: greedy-token agreement {agree:.4f} "
+    print(f"slice {name}: kernels vs plain on the card: greedy-token agreement {agree:.4f} "
           f"(min {MIN_TOKEN_AGREEMENT}); on the {int(same.sum())} rows with equal tokens max|d "
           f"ref_scores| {diffs['ref_scores']}, max|d neg_scores| {diffs['neg_scores']} (tol "
           f"{REFNEG_TOL}); forward median {statistics.median(lat):.2f} ms; card {card}", flush=True)
     if agree < MIN_TOKEN_AGREEMENT or not same.any() or max(diffs.values()) > REFNEG_TOL:
-        fail("slice full_eval_b8: the kernels disagree with the plain versions")
+        fail(f"slice {name}: the kernels disagree with the plain versions")
     del model, plain
     return {"launches": counts, "token_agreement": agree, "rows_equal_tokens": int(same.sum()),
             "max_abs_diff": diffs, "forward_ms_all": lat}
+
+
+def module_entry_slice(sl: Slices, record):
+    """i. The int8 kernels' module entry points at production width: the
+    MMT encoder's encode_with_cache(quantize=True) over a batch-8 joint
+    sequence (#11 in each layer), whose cache must equal quantize_cache of
+    the plain encode's K/V bit for bit, and whose per-layer greedy decode
+    must give the tokens of that cache's; OcrPtrNet.scores_from_keys over
+    int8 keys (#12) against its twin.  Launches counted around each."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.ops import ptr_scores as PS
+    from vitxtgqa_tpu_torch.ops.attention import quantize_kv
+    from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec
+
+    dev, bf = sl.dev, torch.bfloat16
+    model = sl.model(kv_cache_int8=True)
+    enc, ppe = model.mmt.encoder, model.mmt.prev_pred_embeddings
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    mask, ocr_mask = serving_masks(dev)
+    x = torch.randn(BATCH, L_JOINT, 768, generator=gen, device=dev).to(bf)
+    ocr = torch.randn(BATCH, 960, 768, generator=gen, device=dev).to(bf)
+    spec = MaskSpec(key_mask=mask)
+    only = lambda **kw: {**{k: 0 for k in REPLACES}, **kw}
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        _, emitted = enc.encode_with_cache(x, spec, quantize=True)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        count_launches("slice module_entries, encode_with_cache(quantize=True)", record, counts,
+                       only(flash_attention_merged_q8=3, fused_block=3))
+        separate = enc.quantize_cache(enc.encode_with_cache(x, spec)[1])
+        cache_equal = all(torch.equal(a, b) for layer_e, layer_s in zip(emitted, separate)
+                          for pair_e, pair_s in zip(layer_e, layer_s)
+                          for a, b in zip(pair_e, pair_s))
+        ans_tbl, ocr_tbl = ppe.tables(model.classifier.table(), ocr)
+        tokens = []
+        for cache in (emitted, separate):
+            prev = torch.full((BATCH,), model.bos_idx, dtype=torch.long, device=dev)
+            steps = []
+            for t in range(DEC_LEN):
+                x_t = ppe.embed(ans_tbl, ocr_tbl, prev[:, None], position_offset=t)
+                step = DecodeStepSpec(key_mask=mask, step=t, write_offset=WRITE_OFFSET)
+                y, cache = enc.decode_step(x_t, cache, t, step, WRITE_OFFSET)
+                prev = model.classifier(y)[:, 0].argmax(-1)
+                steps.append(prev)
+            tokens.append(torch.stack(steps, dim=1))
+        same_tokens = bool(torch.equal(*tokens))
+        print(f"slice module_entries: MMT encode_with_cache(quantize=True) at [8,1152,768]: cache "
+              f"equal to quantize_cache's: {cache_equal}; the per-layer decode from both gives "
+              f"equal tokens: {same_tokens} ({tokens[0][0].tolist()} ...)", flush=True)
+        if not cache_equal or not same_tokens:
+            fail("slice module_entries: encode_with_cache(quantize=True)")
+
+        ptr = model.ocr_ptr_net
+        y = torch.randn(BATCH, 1, 768, generator=gen, device=dev).to(bf)
+        keys = quantize_kv(ptr.keys(ocr))
+        _build.reset_launch_counts()
+        got = ptr.scores_from_keys(y, keys, ocr_mask)
+        torch.cuda.synchronize()
+        count_launches("slice module_entries, scores_from_keys((k8, ks))", record,
+                       _build.launch_counts(), only(ptr_scores_int8=1))
+        want = PS.ptr_scores_int8_plain(ptr.query(y), *keys, ocr_mask)
+    report(record, "ptr_scores_int8", (got - want).abs().max().item(),
+           " OcrPtrNet.scores_from_keys over int8 keys [8,1,768] x [8,960,768]")
+    del model, emitted, separate
+    return {"encode_launches": counts, "cache_equal": cache_equal, "tokens_equal": same_tokens}
 
 
 @contextlib.contextmanager
@@ -1231,7 +1527,7 @@ def forward_ms(model, batch, dev, reps=5):
 def run_slices(dev, record, card):
     import torch
 
-    from vitxtgqa_tpu_torch.serving.engine import ServingEngine
+    from vitxtgqa_tpu_torch.serving.engine import ServingEngine, group_generator, to_device
     from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
 
     sl = Slices(dev)
@@ -1285,7 +1581,56 @@ def run_slices(dev, record, card):
     del model
     torch.cuda.empty_cache()
 
+    # f. the serving preset (int8 cache + compact serving): batch 8 (per-layer
+    # decode), buckets (1, 2) (the step kernel, epilogue in PyTorch); batch-1
+    # latency against the exact geometry, in turns
+    preset = dict(kv_cache_int8=True, compact_serving=True)
+    model, details["serving_preset_b8"] = serve_slice("serving_preset_b8", sl, record, preset,
+                                                      [BATCH])
+    del model
+    compact, details["serving_preset_b1_b2"] = serve_slice("serving_preset_b1_b2", sl, record,
+                                                           preset, [1, 2])
+    exact = sl.model(kv_cache_int8=True)
+    sub = {k: v[:1] for k, v in batch.items()}
+    forward_ms(compact, sub, dev, reps=2)  # warm-up
+    forward_ms(exact, sub, dev, reps=2)
+    c1, e1 = forward_ms(compact, sub, dev), forward_ms(exact, sub, dev)
+    e2, c2 = forward_ms(exact, sub, dev), forward_ms(compact, sub, dev)
+    cm, em = statistics.median(c1 + c2), statistics.median(e1 + e2)
+    print(f"slice serving_preset_b1_b2: forward latency at batch 1: compact median {cm:.2f} ms "
+          f"(min {min(c1 + c2):.2f}), exact median {em:.2f} ms (min {min(e1 + e2):.2f}); "
+          f"card {card}", flush=True)
+    details["serving_preset_b1_b2"]["latency_b1"] = {
+        "compact_ms_all": c1 + c2, "exact_ms_all": e1 + e2, "compact_ms_median": cm,
+        "exact_ms_median": em}
+    del compact, exact
+
+    # g. W8A8 at batch 8: int8 cache, bf16 cache, and int8 + compact; its
+    # greedy tokens against the bf16 block's on the same batch (random
+    # weights: printed)
+    tb = to_device(batch, dev)
+    for name, opts in (("w8a8_b8", dict(kv_cache_int8=True)), ("w8a8_bf16_cache_b8", {}),
+                       ("w8a8_compact_b8", dict(kv_cache_int8=True, compact_serving=True))):
+        model, details[name] = serve_slice(name, sl, record, dict(w8a8=True, **opts), [BATCH])
+        bf16_block = sl.model(**opts)
+        with torch.inference_mode():
+            tok = model(tb, group_generator(0, 0, dev))["pos_scores"].argmax(-1)
+            tok_bf = bf16_block(tb, group_generator(0, 0, dev))["pos_scores"].argmax(-1)
+        agree = (tok == tok_bf).float().mean().item()
+        lat, lat_bf = forward_ms(model, batch, dev), forward_ms(bf16_block, batch, dev)
+        print(f"slice {name}: greedy-token agreement with the bf16 block {agree:.4f} (no limit: "
+              f"random weights); forward median {statistics.median(lat):.2f} ms, bf16 block "
+              f"{statistics.median(lat_bf):.2f} ms; card {card}", flush=True)
+        details[name].update(bf16_block_token_agreement=agree, forward_ms_all=lat,
+                             bf16_block_forward_ms_all=lat_bf)
+        del model, bf16_block
+    torch.cuda.empty_cache()
+
     details["full_eval_b8"] = full_eval_slice(sl, record, card)
+    # h. compact full-eval
+    details["compact_full_eval_b8"] = full_eval_slice(sl, record, card, compact=True)
+    # i. the int8 kernels' module entry points
+    details["module_entries"] = module_entry_slice(sl, record)
     torch.cuda.empty_cache()
     details["train"] = train_slice(sl, record, card)
     return details
@@ -1322,6 +1667,7 @@ def main(argv) -> int:
     check_kernels(dev, record)
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "kernels": record}
+    details["serving_mode_kernels"] = check_serving_mode_kernels(dev, record)
     details["training_kernels"] = check_training_kernels(dev, record)
     details["slices"] = run_slices(dev, record, card)
     out_dir = argv[argv.index("--out") + 1] if "--out" in argv else os.path.join(ROOT, "build")

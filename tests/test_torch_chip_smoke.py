@@ -10,6 +10,8 @@ past the limit (float32, dropout at the config's 0.1, three layers of
 hidden 128), and is undone when its step ends.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -18,8 +20,13 @@ import chip_smoke as CS
 from tests.torch_helpers import cpu_options, one_torch_thread  # noqa: F401
 from vitxtgqa_tpu.utils.synthetic import tiny_model_config
 from vitxtgqa_tpu_torch.losses import Losses
-from vitxtgqa_tpu_torch.models.t2s import T2S
+from vitxtgqa_tpu_torch.models import common as TC
+from vitxtgqa_tpu_torch.models.t2s import T2S, t2s_production_config
 from vitxtgqa_tpu_torch.ops import block_train as TBT
+from vitxtgqa_tpu_torch.ops import decode_attention as TDA
+from vitxtgqa_tpu_torch.ops import decode_step as TDS
+from vitxtgqa_tpu_torch.ops import flash_attention as TFA
+from vitxtgqa_tpu_torch.ops import fused_block as TFB
 from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
 
 FRAMES, OCR_PF = 8, 30
@@ -85,3 +92,66 @@ def test_planted_faults_break_the_step_limits(steps, fault, param):
     print(f"{fault}: loss {loss_rel:.3e}, norm {norm_rel:.3e}, parameter {grad_rel:.4f} ({worst})")
     assert not ok and grad_rel > 2 * CS.GRAD_REL_TOL and worst.startswith(param)
     assert TBT.block_train_fwd_plain is fwd and TBT.block_train_bwd_plain is bwd
+
+
+def test_joint_lengths_of_the_production_config():
+    assert CS.joint_lengths(t2s_production_config()) == (CS.L_JOINT, CS.L_COMPACT)
+    assert CS.COMPACT_OFFSET == CS.L_COMPACT - CS.DEC_LEN
+
+
+# each kernel and the plain version its wrapper runs on a CPU tensor
+PLAIN_OF = (
+    (TFA, "flash_attention_merged_plain", "flash_attention_merged"),
+    (TFB, "fused_block_plain", "fused_block"),
+    (TFB, "fused_block_tanh_plain", "fused_block_tanh"),
+    (TFB, "fused_block_w8a8_plain", "fused_block_w8a8"),
+    (TDA, "decode_attention_int8_plain", "decode_attention_int8"),
+    (TDA, "decode_attention_plain", "decode_attention"),
+    (TDS, "fused_decode_step_plain", "fused_decode_step"),
+    (TDS, "fused_epilogue_plain", "fused_epilogue"),
+)
+LAUNCH_CASES = {
+    # name: (batch, Options fields, full-eval).  The tiny wide geometry:
+    # the full joint sequence 384 (flash), 6 x 384 rows at width 128 (the
+    # block gate); the compact one 128 (neither)
+    "bf16_cache_b2": (2, {}, False),
+    "compact_b2": (2, dict(kv_cache_int8=True, compact_serving=True), False),
+    "compact_b6": (6, dict(kv_cache_int8=True, compact_serving=True), False),
+    "w8a8_b1": (1, dict(kv_cache_int8=True, w8a8=True), False),
+    "w8a8_b6": (6, dict(kv_cache_int8=True, w8a8=True), False),
+    "w8a8_compact_b6": (6, dict(kv_cache_int8=True, w8a8=True, compact_serving=True), False),
+    "full_eval_b6": (6, dict(kv_cache_int8=True), True),
+    "compact_full_eval_b6": (6, dict(kv_cache_int8=True, compact_serving=True), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_CASES))
+def test_expected_launches_count_the_kernel_calls_of_a_forward(case, monkeypatch):
+    """chip_smoke.expected_launches against the calls a tiny forward makes on
+    the CPU, where each wrapper runs its plain version (counted here) and
+    the fused-decode gate is opened as on a CUDA tensor."""
+    b, opts, full_eval = LAUNCH_CASES[case]
+    cfg = tiny_model_config(hidden=128, frames=FRAMES, ocr_per_frame=OCR_PF)
+    nf = 32 + FRAMES * OCR_PF
+    model = T2S(cfg, nf, opts=cpu_options(**opts), inference_only=not full_eval).init_weights(0)
+    gate = TC.TransformerEncoder.fused_decode_ok
+    monkeypatch.setattr(TC.TransformerEncoder, "fused_decode_ok",
+                        lambda self, x: gate(self, types.SimpleNamespace(is_cuda=True,
+                                                                         shape=x.shape)))
+    counts = {name: 0 for name in CS.REPLACES}
+
+    def counting(fn, kernel):
+        def call(*a, **kw):
+            counts[kernel] += 1
+            return fn(*a, **kw)
+        return call
+
+    for mod, plain, kernel in PLAIN_OF:
+        monkeypatch.setattr(mod, plain, counting(getattr(mod, plain), kernel))
+    batch = synthetic_batch(batch=b, frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4,
+                            text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                            num_final_outputs=nf, text_vocab=128, seed=0)
+    model({k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()},
+          torch.Generator().manual_seed(0))
+    want = CS.expected_launches(cfg, b, model.opts, full_eval=full_eval, text_len=10, dec_len=4)
+    assert counts == want

@@ -30,13 +30,13 @@ FRAMES = 8
 DEC_STEPS = 4
 
 
-def _setup(ocr_pf=3, hidden=64, b=3, int8=False, seed=0):
+def _setup(ocr_pf=3, hidden=64, b=3, int8=False, seed=0, **opts):
     cfg = tiny_model_config(hidden=hidden, frames=FRAMES, ocr_per_frame=ocr_pf)
     nf = 32 + FRAMES * ocr_pf
     batch = synthetic_batch(batch=b, frames=FRAMES, ocr_per_frame=ocr_pf, dec_steps=DEC_STEPS,
                             text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
                             num_final_outputs=nf, text_vocab=128, seed=seed)
-    model = T2S(cfg, nf, bos_idx=2, opts=cpu_options(kv_cache_int8=int8)).init_weights(seed)
+    model = T2S(cfg, nf, bos_idx=2, opts=cpu_options(kv_cache_int8=int8, **opts)).init_weights(seed)
     return cfg, nf, batch, model
 
 
@@ -54,14 +54,46 @@ SLICE_CASES = {
     # the bf16 decode attention at >= 256 keys) and 6 x 384 = 2304 rows of
     # lane-aligned width 128 (fused block).  "fused" forces the fused-decode
     # gate on for both packages (JAX in Pallas interpret mode), at the
-    # batches where it engages by default
+    # batches where it engages by default.  "compact": compact serving (JAX
+    # set_compact_serving), the MMT on the 28 kept rows (+ 4 decoder slots,
+    # 128 with the padding); with "fused" its step_fused branch.  "w8a8":
+    # the W8A8 block wherever the fused block engages (JAX: its block gate
+    # opened on the CPU, the W8A8 block through block_w8a8_reference)
     "int8_cache": (3, 64, 3, True),
     "f32_cache": (3, 64, 3, False),
     "wide_int8_cache": (30, 128, 6, True),
     "wide_f32_cache": (30, 128, 6, False),
     "fused_b1": (3, 64, 1, True),
     "fused_b2": (3, 64, 2, True),
+    "compact_int8": (3, 64, 3, True),
+    "compact_f32": (3, 64, 3, False),
+    "compact_fused_b1": (3, 64, 1, True),
+    "wide_w8a8": (30, 128, 6, True),
+    "wide_compact_w8a8": (30, 128, 6, True),
 }
+# W8A8 behind attention and LayerNorm: the int8 steps turn the frameworks'
+# last-bit f32 differences into larger ones (the wide case reads 2.7e-5),
+# and an activation rounded across its step's boundary would move its row
+# by a step's weight (tests/test_torch_w8a8.py); the W8A8 cases hold the
+# scores to this instead of 2e-5, tokens and grounding still exact
+W8A8_SCORE_TOL = 2e-4
+
+
+def _open_jax_w8a8_gate(monkeypatch):
+    """The JAX layer's fused-block gate opened on the CPU (its shape
+    condition), W8A8 on, the W8A8 block through block_w8a8_reference."""
+    from vitxtgqa_tpu.models.common import TransformerLayer as JLayer
+    from vitxtgqa_tpu.ops import attention as JA
+    from vitxtgqa_tpu.ops import pallas_ffn as P
+
+    def gate(self, x, deterministic):
+        rows = int(np.prod(x.shape[:-1]))
+        return (deterministic and x.shape[-1] == self.cfg.hidden_size
+                and P.ffn_kernel_ok(x.shape[-1], self.cfg.intermediate_size, rows))
+
+    monkeypatch.setattr(JLayer, "_fused_block_ok", gate)
+    monkeypatch.setattr(P, "fused_block_w8a8", P.block_w8a8_reference)
+    JA.set_w8a8(True)
 
 
 def _force_fused_decode(monkeypatch):
@@ -79,9 +111,10 @@ def _force_fused_decode(monkeypatch):
 @pytest.mark.parametrize("case", sorted(SLICE_CASES))
 def test_slice_matches_jax_t2s_inference_only(case, monkeypatch):
     """pos_scores within 2e-5 (f32 on both sides; the difference is
-    summation order through ~8 layers), greedy tokens and grounding exact."""
+    summation order through ~8 layers; W8A8: W8A8_SCORE_TOL), greedy tokens
+    and grounding exact."""
     import vitxtgqa_tpu.models.grounding as G
-    from vitxtgqa_tpu.models.common import set_kv_cache_int8
+    from vitxtgqa_tpu.models.common import set_compact_serving, set_kv_cache_int8
     from vitxtgqa_tpu.models.t2s import T2S as JT2S
     from vitxtgqa_tpu_torch.ops import decode_attention as TDA
     from vitxtgqa_tpu_torch.ops import decode_step as TDS
@@ -89,9 +122,13 @@ def test_slice_matches_jax_t2s_inference_only(case, monkeypatch):
     from vitxtgqa_tpu_torch.ops import fused_block as TFB
 
     ocr_pf, hidden, b, int8 = SLICE_CASES[case]
-    cfg, nf, batch, model = _setup(ocr_pf, hidden, b, int8)
-    if case.startswith("fused"):
+    compact, w8a8, fused = "compact" in case, "w8a8" in case, "fused" in case
+    cfg, nf, batch, model = _setup(ocr_pf, hidden, b, int8, compact_serving=compact, w8a8=w8a8)
+    if fused:
         _force_fused_decode(monkeypatch)
+    set_compact_serving(compact)
+    if w8a8:
+        _open_jax_w8a8_gate(monkeypatch)
     n = FRAMES * ocr_pf
     rng = np.random.default_rng(5)
     noise = {(b, 2, FRAMES): rng.gumbel(size=(b, 2, FRAMES)).astype(np.float32),
@@ -113,8 +150,9 @@ def test_slice_matches_jax_t2s_inference_only(case, monkeypatch):
 
     calls = []
     for mod, name in ((TFA, "flash_attention_merged_plain"), (TFB, "fused_block_plain"),
-                      (TFB, "fused_block_tanh_plain"), (TDA, "decode_attention_plain"),
-                      (TDS, "fused_decode_step_plain"), (TDS, "fused_epilogue_plain")):
+                      (TFB, "fused_block_tanh_plain"), (TFB, "fused_block_w8a8_plain"),
+                      (TDA, "decode_attention_plain"), (TDS, "fused_decode_step_plain"),
+                      (TDS, "fused_epilogue_plain")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: calls.append(_n) or _r(*a, **k))
     got = model(_tensors(batch), (torch.from_numpy(noise[(b, 2, FRAMES)]),
@@ -122,21 +160,34 @@ def test_slice_matches_jax_t2s_inference_only(case, monkeypatch):
 
     w, g = np.asarray(want["pos_scores"]), got["pos_scores"].numpy()
     assert g.shape == w.shape == (b, DEC_STEPS, nf) and g.dtype == np.float32
-    np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5)
+    tol = W8A8_SCORE_TOL if w8a8 else 2e-5
+    print(f"{case}: max |d pos_scores| {np.abs(g - w).max():.3e} (tol {tol})")
+    np.testing.assert_allclose(g, w, atol=tol, rtol=tol)
     np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
     np.testing.assert_array_equal(got["ground_frame"].numpy(), np.asarray(want["ground_frame"]))
     np.testing.assert_array_equal(got["ground_box"].numpy(), np.asarray(want["ground_box"]))
+    if compact:
+        # never-kept copy slots are pinned to -1e4 on both sides
+        pinned = w[..., 32:] == -1e4
+        assert pinned.any() and np.array_equal(g[..., 32:] == -1e4, pinned)
     want_calls = []
     if case.startswith("wide"):
-        # 1 QTV + 2 MMT encode layers: flash and fused block in each, the
-        # last (only) QTV layer in its tanh form; over a bf16/f32 cache the
-        # 2 MMT layers x 4 steps of decode attention
-        want_calls = (["flash_attention_merged_plain"] * 3 + ["fused_block_plain"] * 2
-                      + ["fused_block_tanh_plain"])
+        # 1 QTV + 2 MMT encode layers at 384 rows: flash and the block in
+        # each (W8A8: its own kernel, the tanh added after; else the last
+        # (only) QTV layer in its tanh form); over a bf16/f32 cache the 2
+        # MMT layers x 4 steps of decode attention.  Compact MMT rows (128
+        # a batch row) reach neither gate
+        block = (["fused_block_w8a8_plain"] * 3 if w8a8
+                 else ["fused_block_plain"] * 2 + ["fused_block_tanh_plain"])
+        want_calls = ["flash_attention_merged_plain"] * 3 + block
+        if compact:
+            want_calls = ["flash_attention_merged_plain", block[-1]]
         if not int8:
             want_calls += ["decode_attention_plain"] * (2 * DEC_STEPS)
-    elif case.startswith("fused"):
-        want_calls = ["fused_decode_step_plain", "fused_epilogue_plain"] * DEC_STEPS
+    elif fused:
+        want_calls = ["fused_decode_step_plain"] * DEC_STEPS
+        if not compact:  # compact serving takes step_fused: no fused epilogue
+            want_calls += ["fused_epilogue_plain"] * DEC_STEPS
     assert sorted(calls) == sorted(want_calls)
 
 
@@ -253,10 +304,12 @@ def test_port_synthetic_batch_equals_the_jax_packages():
 
 
 def test_unported_branches_raise():
+    """The recompute decode is the one branch left that raises; compact
+    serving is an Options field now and builds."""
     cfg = tiny_model_config()
-    for kw in (dict(decode_recompute=True), dict(compact_serving=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            T2S(cfg, 56, opts=cpu_options(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        T2S(cfg, 56, opts=cpu_options(), decode_recompute=True)
+    assert T2S(cfg, 56, opts=cpu_options(compact_serving=True, w8a8=True)).opts.compact_serving
 
 
 _SUBPROCESS = r"""

@@ -59,10 +59,13 @@ def _no_dropout_config(ocr_pf, hidden):
 # gates as in tests/test_torch_t2s.py (a 384-row joint sequence: the flash
 # route, AttentionFn; lane-aligned widths: BlockTrainFn)
 CASES = {"tiny": (3, 64, 3, False), "wide": (30, 128, 2, True)}
+# full-eval also under compact serving: the pos decode and the neg pass on
+# the kept rows (28 + 4 decoder slots, 128 with the padding), ref full
+FULL_EVAL_CASES = {**CASES, "compact_tiny": (3, 64, 3, False), "compact_wide": (30, 128, 2, True)}
 
 
 def _setup(case, seed=0):
-    ocr_pf, hidden, b, int8 = CASES[case]
+    ocr_pf, hidden, b, int8 = FULL_EVAL_CASES[case]
     cfg = _no_dropout_config(ocr_pf, hidden)
     n = FRAMES * ocr_pf
     nf = 32 + n
@@ -186,19 +189,22 @@ def test_training_switches_give_the_same_gradients(opts, default_training_grads,
     _assert_grads_close(_training_grads(**opts), default_training_grads, 1e-5, 1e-4)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(FULL_EVAL_CASES))
 def test_full_eval_matches_jax(case, monkeypatch):
     """inference_only=False: the pos greedy decode, then ref and neg from
-    one teacher-forced pass at 2B on the decoded tokens; scores within
-    2e-5, tokens and grounding exact."""
-    from vitxtgqa_tpu.models.common import set_kv_cache_int8
+    one teacher-forced pass at 2B on the decoded tokens (compact: ref at B
+    over the full sequence, neg at B on its kept rows); scores within 2e-5,
+    tokens and grounding exact."""
+    from vitxtgqa_tpu.models.common import set_compact_serving, set_kv_cache_int8
     from vitxtgqa_tpu.models.t2s import T2S as JT2S
 
     cfg, nf, batch, noise, int8 = _setup(case)
     b, n = batch["text"].shape[0], batch["ocr_mask"].shape[1]
+    compact = case.startswith("compact")
     _patch_jax_gumbel(monkeypatch, noise)
     set_kv_cache_int8(int8)
-    model = T2S(cfg, nf, bos_idx=2, opts=cpu_options(kv_cache_int8=int8),
+    set_compact_serving(compact)
+    model = T2S(cfg, nf, bos_idx=2, opts=cpu_options(kv_cache_int8=int8, compact_serving=compact),
                 inference_only=False).init_weights(0)
     jm = JT2S(config=cfg, num_final_outputs=nf, bos_idx=2, inference_only=False)
     want = jax.jit(lambda p, bt: jm.apply({"params": p}, bt, train=False,

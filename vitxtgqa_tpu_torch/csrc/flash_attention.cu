@@ -34,12 +34,60 @@
 // row.  The row sum l counts the dropped entries too; only the numerator
 // skips them.  Loads are synchronous 16-byte copies; cp.async/TMA double
 // buffering and wgmma are later work.
+//
+// The int8-cache form (kEmit) also replaces pallas_attention.py:
+// flash_attention_merged_q8 (_flash_merged_q8_kernel): the same forward,
+// plus the quantize_kv layout of this layer's K and V (k8 / v8 [B, L, H*D]
+// int8, ks / vs [B, L] f32 per-token scales), bit for bit: the amax of a
+// token's H*D bf16 values, scale = max(amax, 1e-6) / 127, rint(v / scale)
+// (IEEE division, round half to even) clipped to +-127.  The TPU kernel
+// quantizes at its first q block from a batch-resident K/V block; here a
+// block sees one head, but a token's scale spans all H heads, so the
+// q-tile-0 block of each (head h, batch b) quantizes tokens [h * ceil(L /
+// H), (h + 1) * ceil(L / H)) of batch b across all H*D columns, a warp per
+// token, before its own attention: the other q tiles run unchanged.  The
+// emission reads each K / V token once more (while the other blocks of the
+// batch stream the same K / V, so mostly from L2) and writes its int8 row
+// and scale: 3 bytes an element over q/k/v/out's 8, in place of the
+// separate quantize_kv pass and its launch.  kEmit is a template flag, so
+// the eval and training forms compile as before.
 #include "flash_attention.cuh"
 
 namespace vt {
 namespace flash {
 
 using namespace nvcuda;
+
+// quantize_kv of tokens [r0, r1) of one batch's [L, row_stride] slice, a
+// warp per token; row_stride % 8 == 0 (the row is read twice, the second
+// time from cache)
+__device__ __forceinline__ void emit_int8(const bf16* __restrict__ src, int8_t* __restrict__ dst8,
+                                          float* __restrict__ scales, int r0, int r1,
+                                          int row_stride) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = r0 + warp; r < r1; r += NT / 32) {
+    const bf16* row = src + (size_t)r * row_stride;
+    float amax = 0.f;
+    for (int c = lane * 8; c < row_stride; c += 256) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(__bfloat162float(e[t])));
+    }
+    const float scale = fmaxf(warp_max(amax), 1e-6f) / 127.0f;
+    for (int c = lane * 8; c < row_stride; c += 256) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      __align__(8) int8_t o[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        o[t] = (int8_t)fminf(fmaxf(rintf(__bfloat162float(e[t]) / scale), -127.f), 127.f);
+      *reinterpret_cast<uint2*>(dst8 + (size_t)r * row_stride + c) =
+          *reinterpret_cast<const uint2*>(o);
+    }
+    if (lane == 0) scales[r] = scale;
+  }
+}
 
 struct Smem {
   bf16 q[BQ * LDB];
@@ -53,12 +101,20 @@ struct Smem {
   float kmask[BK];
 };
 
+struct Emit {
+  int8_t* k8;
+  float* ks;
+  int8_t* v8;
+  float* vs;
+};
+
+template <bool kEmit>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ key_mask,
                  bf16* __restrict__ out, float* __restrict__ lse, int L, int H, int dec_len,
                  float scale, const int64_t* __restrict__ seed_ptr, uint32_t threshold,
-                 float keep_scale) {
+                 float keep_scale, Emit emit) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
@@ -75,6 +131,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int l_enc = L - dec_len;
   const bool dropout = seed_ptr != nullptr;
   const uint32_t seed = dropout ? (uint32_t)(*seed_ptr) : 0u;
+
+  if (kEmit && blockIdx.x == 0) {
+    const int per = (L + H - 1) / H;
+    const int r0 = h * per, r1 = min(L, r0 + per);
+    const size_t bb = (size_t)b * L * row_stride;
+    emit_int8(k + bb, emit.k8 + bb, emit.ks + (size_t)b * L, r0, r1, row_stride);
+    emit_int8(v + bb, emit.v8 + bb, emit.vs + (size_t)b * L, r0, r1, row_stride);
+  }
 
   load_tile(sm.q, q, base, q0, L, row_stride);
   for (int i = tid; i < BQ * LDO; i += NT) sm.o[i] = 0.f;
@@ -197,23 +261,28 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // q, k, v, out [B, L, H*64] bf16; key_mask [B, L] f32; lse [B, H, L] f32
 // or null (eval); seed: int64 [1] on the device, or null for no dropout;
-// threshold / keep_scale: the dropout keep test and 1 / (1 - rate).
+// k8, ks, v8, vs: the int8 cache of k and v ([B, L, H*64] int8, [B, L] f32),
+// or all null; threshold / keep_scale: the dropout keep test and 1 / (1 -
+// rate).
 extern "C" int vt_flash_attention_merged(const void* q, const void* k, const void* v,
                                          const void* key_mask, void* out, void* lse,
-                                         const void* seed, int batch, int seq_len,
-                                         int num_heads, int head_dim, int dec_len,
-                                         unsigned int threshold, float keep_scale,
-                                         void* stream) {
+                                         const void* seed, void* k8, void* ks, void* v8,
+                                         void* vs, int batch, int seq_len, int num_heads,
+                                         int head_dim, int dec_len, unsigned int threshold,
+                                         float keep_scale, void* stream) {
   using namespace vt::flash;
   if (head_dim != HD) return (int)cudaErrorInvalidValue;
+  const bool emit = k8 != nullptr;
+  if (emit && (ks == nullptr || v8 == nullptr || vs == nullptr)) return (int)cudaErrorInvalidValue;
+  auto kernel = emit ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
   const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((seq_len + BQ - 1) / BQ, num_heads, batch);
-  flash_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+  const Emit e = {(int8_t*)k8, (float*)ks, (int8_t*)v8, (float*)vs};
+  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       (const vt::bf16*)q, (const vt::bf16*)k, (const vt::bf16*)v, (const float*)key_mask,
       (vt::bf16*)out, (float*)lse, seq_len, num_heads, dec_len,
-      1.0f / sqrtf((float)head_dim), (const int64_t*)seed, (uint32_t)threshold, keep_scale);
+      1.0f / sqrtf((float)head_dim), (const int64_t*)seed, (uint32_t)threshold, keep_scale, e);
   return (int)cudaGetLastError();
 }

@@ -33,10 +33,13 @@ from vitxtgqa_tpu_torch.ops import block_train as BT
 from vitxtgqa_tpu_torch.ops import decode_step as DS
 from vitxtgqa_tpu_torch.ops import dropout as D
 from vitxtgqa_tpu_torch.ops import fused_block as FB
+from vitxtgqa_tpu_torch.ops import ptr_scores as PS
 from vitxtgqa_tpu_torch.ops.attention import (
     attention_train,
     decode_mha,
+    dequantize_kv,
     mha_merged,
+    mha_merged_quantize,
     quantize_kv,
 )
 from vitxtgqa_tpu_torch.ops.masks import NEG_INF, DecodeStepSpec
@@ -146,13 +149,25 @@ class TransformerLayer(nn.Module):
     def _finish(self, x_q, ctx, tanh_residual_base=None):
         eps = self.cfg.layer_norm_eps
         if self._fused_block_ok(x_q):
+            plain = self.opts.plain
+            if self.opts.w8a8:
+                # the weights quantized once per set of weights; the tanh
+                # residual after the kernel, as JAX adds it (no tanh form)
+                wo8, wos, w18, w1s, w28, w2s = derived_weights(
+                    self, "w8a8", [self.attn_out.weight, self.ffn_in.weight, self.ffn_out.weight],
+                    lambda: FB.quantize_block_weights(self.attn_out.weight, self.ffn_in.weight,
+                                                      self.ffn_out.weight))
+                fn = FB.fused_block_w8a8_plain if plain else FB.fused_block_w8a8
+                y = fn(x_q, ctx, wo8, wos, self.attn_out.bias, self.attn_ln.weight,
+                       self.attn_ln.bias, w18, w1s, self.ffn_in.bias, w28, w2s,
+                       self.ffn_out.bias, self.ffn_ln.weight, self.ffn_ln.bias, eps=eps)
+                return y if tanh_residual_base is None else tanh_residual_base + torch.tanh(y)
             args = (
                 x_q, ctx, self.attn_out.weight, self.attn_out.bias,
                 self.attn_ln.weight, self.attn_ln.bias, self.ffn_in.weight,
                 self.ffn_in.bias, self.ffn_out.weight, self.ffn_out.bias,
                 self.ffn_ln.weight, self.ffn_ln.bias,
             )
-            plain = self.opts.plain
             if tanh_residual_base is not None:
                 fn = FB.fused_block_tanh_plain if plain else FB.fused_block_tanh
                 return fn(tanh_residual_base, *args, eps=eps)
@@ -186,7 +201,15 @@ class TransformerLayer(nn.Module):
         return y.reshape(x_q.shape)
 
     def forward(self, x, bias, return_kv: bool = False, tanh_residual_base=None, *,
-                train: bool = False, gen=None):
+                quantize: bool = False, train: bool = False, gen=None):
+        """With ``return_kv`` also this layer's K/V ([B, L, H*D] each), or
+        with ``quantize`` as well their int8 decode cache ((k8, ks), (v8,
+        vs)), emitted by the flash launch on the flash route."""
+        if return_kv and quantize:
+            ctx, kq, vq = mha_merged_quantize(self.query(x), self.key(x), self.value(x), bias,
+                                              self.cfg.num_attention_heads,
+                                              plain=self.opts.plain)
+            return self._finish(x, ctx), (kq, vq)
         if train:
             cfg = self.cfg
             rate = cfg.attention_probs_dropout_prob if gen is not None else 0.0
@@ -231,12 +254,15 @@ class TransformerEncoder(nn.Module):
                       train=train, gen=gen)
         return x
 
-    def encode_with_cache(self, x, bias):
+    def encode_with_cache(self, x, bias, quantize: bool = False):
         """(final hidden, [(k, v)] per layer) — K/V are each layer's raw
-        merged projections [B, L, H*D], the decode-cache layout."""
+        merged projections [B, L, H*D], the decode-cache layout; with
+        ``quantize`` each entry is the ((k8, ks), (v8, vs)) int8 cache of
+        quantize_cache, emitted by the flash launch (the serving decode
+        keeps the separate quantize_cache pass, as JAX does)."""
         kvs = []
         for layer in self.layer:
-            x, kv = layer(x, bias, return_kv=True)
+            x, kv = layer(x, bias, return_kv=True, quantize=quantize)
             kvs.append(kv)
         return x, kvs
 
@@ -271,12 +297,12 @@ class TransformerEncoder(nn.Module):
     def fused_decode_ok(self, x: torch.Tensor) -> bool:
         """Whether the greedy decode over activations ``x`` [B, ...] takes
         the single-kernel decode step (ops/decode_step.py): the JAX gate
-        (fused decode on, int8 cache, a kernel backend, batch <= the cap),
-        with a CUDA tensor for the TPU backend.  It does not read
+        (fused decode on, int8 cache, not W8A8, a kernel backend, batch <=
+        the cap), with a CUDA tensor for the TPU backend.  It does not read
         ``opts.plain``: the oracle model takes the same branch through the
         plain versions."""
         o = self.opts
-        return (o.fused_decode and o.kv_cache_int8 and x.is_cuda
+        return (o.fused_decode and o.kv_cache_int8 and not o.w8a8 and x.is_cuda
                 and x.shape[0] <= o.fused_decode_max_batch)
 
     def _weight_stacks(self):
@@ -409,12 +435,14 @@ class PrevPredEmbeddings(nn.Module):
 
 class OcrPtrNet(nn.Module):
     """Dynamic OCR-copy scores.  Keeps the reference quirk of ADDING the raw
-    0/1 OCR mask to the scores (valid slots get +1)."""
+    0/1 OCR mask to the scores (valid slots get +1).  ``plain``: the int8-key
+    route runs its kernel's plain version on any device (Options.plain)."""
 
-    def __init__(self, hidden_size: int, query_key_size: int = 0):
+    def __init__(self, hidden_size: int, query_key_size: int = 0, plain: bool = False):
         super().__init__()
         qk = query_key_size or hidden_size
         self.qk = qk
+        self.plain = plain
         self.query = Linear(hidden_size, qk)
         self.key = Linear(hidden_size, qk)
 
@@ -423,7 +451,17 @@ class OcrPtrNet(nn.Module):
         return self.key(key_inputs)
 
     def scores_from_keys(self, query_inputs, k, attention_mask):
+        """``k``: the projected keys [B, N, QK], or int8 per-token-scaled
+        keys (k8, ks) in the quantize_kv layout, which take the
+        ptr_scores_int8 kernel on a CUDA tensor with one query row and a
+        lane-aligned width (the JAX gate) and are dequantized elsewhere."""
         q = self.query(query_inputs)
+        if isinstance(k, tuple):
+            k8, ks = k
+            if q.is_cuda and q.shape[1] == 1 and self.qk % 128 == 0:
+                fn = PS.ptr_scores_int8_plain if self.plain else PS.ptr_scores_int8
+                return fn(q, k8, ks, attention_mask.float().contiguous())
+            k = dequantize_kv(k8, ks, dtype=q.dtype)
         scores = torch.einsum("bsd,bnd->bsn", q.float(), k.float()) / math.sqrt(self.qk)
         return scores + attention_mask[:, None, :].float()
 

@@ -13,20 +13,25 @@ Counterpart of vitxtgqa_tpu/models/t2s.py:
     config, QTV over the 1152-row joint sequence, grounding with its
     straight-through gumbel split, and three teacher-forced ``_mmt_full``
     passes (ref, pos, neg) at batch B, a Python loop where JAX scans.
-The recompute-decode and compact-serving branches are not ported and raise
-NotImplementedError naming their ROADMAP.md item.
+Options.compact_serving (configs/t2s_serving.yml) runs the serving decode,
+and full-eval's pos decode and neg pass, on the rows the grounding keeps
+(``_compact_decode``); the ref pass stays full.  The recompute decode is not
+ported and raises NotImplementedError naming its ROADMAP.md item.
 
 What runs where on CUDA (every serving configuration of the JAX package):
-  - QTV and the MMT encode: the flash kernel; the fused block where the
-    rows reach 2048 (batch >= 2 at production width);
-  - int8 cache, batch <= Options.fused_decode_max_batch (default 2): per
-    step the single-kernel decode step and the fused epilogue;
-  - int8 cache above the cap, or Options(fused_decode=False): per-layer
-    decode through the int8 decode-attention kernel;
+  - QTV and the MMT encode: the flash kernel where the keys reach 256 (the
+    full 1152-row sequence, and the compact 384); the fused block where the
+    rows reach 2048 (full: batch >= 2; compact MMT: batch >= 6), or under
+    Options.w8a8 the W8A8 block there (its tanh residual added after it);
+  - int8 cache, batch <= Options.fused_decode_max_batch (default 2), not
+    W8A8: per step the single-kernel decode step and the fused epilogue,
+    or under compact serving the step kernel and the epilogue in PyTorch;
+  - int8 cache above the cap, under W8A8, or Options(fused_decode=False):
+    per-layer decode through the int8 decode-attention kernel;
   - bf16 cache (kv_cache_int8=False), any batch: per-layer decode through
     the bf16 decode-attention kernel.
   - full-eval's teacher-forced pass: flash with its dec_len = 12 causal tail
-    and the fused block (2B x 1152 rows);
+    and the fused block (2B x 1152 rows; compact: B x 1152 and B x 384);
   - training: per flash-route layer (QTV, MMT) the flash forward and
     backward kernels with in-kernel dropout, per layer (text BERT included)
     the block_train forward and backward kernels.
@@ -107,16 +112,18 @@ class _Wrap(nn.Module):
 
 
 class T2S(JointQAModel):
+    # whether the grounding's compact gather lists can be -1-padded (only the
+    # JAX wo_sg ablation's can); selects the trash-slot scatter
+    COMPACT_IDX_MAY_PAD = False
+
     def __init__(self, config: Any, num_final_outputs: int, bos_idx: int = 2,
                  opts: Options = Options(), inference_only: bool = True,
-                 decode_recompute: bool = False, compact_serving: bool = False):
+                 decode_recompute: bool = False):
         super().__init__()
         if decode_recompute:
             raise NotImplementedError(
                 "the recompute decode oracle (_recompute_decode) is ROADMAP.md queue 1 item 5"
             )
-        if compact_serving:
-            raise NotImplementedError("compact serving is ROADMAP.md queue 1 item 10")
         self.opts = opts
         self.inference_only = inference_only
         self.bos_idx = int(bos_idx)
@@ -160,7 +167,7 @@ class T2S(JointQAModel):
             )
             self.classifier = FixedVocabClassifier(num_final_outputs - ocr_max, hidden)
             self.ocr_ptr_net = OcrPtrNet(int(cfg_get(ptr, "hidden_size")),
-                                         int(cfg_get(ptr, "query_key_size")))
+                                         int(cfg_get(ptr, "query_key_size")), plain=opts.plain)
         # the transformer stacks and the input projections compute in the
         # compute dtype; grounding, the pointer net and the classifier stay
         # float32 (as in the JAX model)
@@ -230,6 +237,28 @@ class T2S(JointQAModel):
         lt, lo = txt_emb.shape[1], obj_in.shape[1]
         return joint[:, :lt], joint[:, lt: lt + lo], joint[:, lt + lo: l0], joint
 
+    @staticmethod
+    def _take_rows(x, idx):
+        """x [B, L, D] rows at idx [B, K] -> [B, K, D]."""
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+    def _compact_decode(self, txt_emb, txt_mask, obj_in, ocr_in, g, dec_len: int):
+        """Grounding-compacted serving decode (JAX t2s.py:_compact_decode):
+        the MMT prefill and decode run on [txt | top-k frames | top-k OCR
+        slots per frame] (345 rows, 384 with the decoder slots, at
+        production width) instead of the full masked sequence.  The kept
+        rows attend to the same keys either way, so their outputs are the
+        full path's; copy scores of never-kept OCR slots are -1e4."""
+        oi, ci = g["pos_obj_idx"].long(), g["pos_ocr_idx"].long()
+        oi_s, ci_s = oi.clamp_min(0), ci.clamp_min(0)
+        obj_mask_c = torch.gather(g["pos_obj_mask"], 1, oi_s) * (oi >= 0)
+        ocr_mask_c = torch.gather(g["pos_ocr_mask"], 1, ci_s) * (ci >= 0)
+        enc_mask_c = torch.cat([txt_mask, obj_mask_c, ocr_mask_c], dim=1)
+        return self._greedy_decode(
+            txt_emb, self._take_rows(obj_in, oi_s), self._take_rows(ocr_in, ci_s), enc_mask_c,
+            ocr_mask_c, dec_len, embed_ocr=ocr_in,
+            dynamic_scatter=(ci, ocr_in.shape[1], self.COMPACT_IDX_MAY_PAD))
+
     # ---- forward -------------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor], gumbel: Gumbel,
                 train: bool = False, dropout_gen: Optional[torch.Generator] = None
@@ -287,17 +316,34 @@ class T2S(JointQAModel):
         )
         g, common = self._grounding(batch, txt_emb, txt_mask, obj_in, obj_mask, ocr_in,
                                     ocr_mask, gumbel)
-        enc_mask = torch.cat([txt_mask, g["pos_obj_mask"], g["pos_ocr_mask"]], dim=1)
-        pos = self._greedy_decode(txt_emb, obj_in, ocr_in, enc_mask, g["pos_ocr_mask"],
-                                  dec_len, joint=joint)
+        compact = self.opts.compact_serving
+        if compact:
+            pos = self._compact_decode(txt_emb, txt_mask, obj_in, ocr_in, g, dec_len)
+        else:
+            enc_mask = torch.cat([txt_mask, g["pos_obj_mask"], g["pos_ocr_mask"]], dim=1)
+            pos = self._greedy_decode(txt_emb, obj_in, ocr_in, enc_mask, g["pos_ocr_mask"],
+                                      dec_len, joint=joint)
         if self.inference_only:
             return {"pos_scores": pos, **common}
-        # full-eval (JAX t2s.py:392-478, non-compact): ref and neg in one
-        # teacher-forced pass at 2B on the pos decode's tokens behind BOS
+        # full-eval (JAX t2s.py:392-478): ref and neg teacher-forced on the
+        # pos decode's tokens behind BOS
         b = pos.shape[0]
         chosen = pos.argmax(dim=-1)
         prev = torch.cat([torch.full((b, 1), self.bos_idx, dtype=chosen.dtype,
                                      device=chosen.device), chosen[:, :-1]], dim=1)
+        if compact:
+            # ref over the full sequence at batch B; neg on its kept rows,
+            # its copy scores scattered back to the full width
+            ref = self._mmt_full(txt_emb, obj_in, ocr_in,
+                                 torch.cat([txt_mask, obj_mask, ocr_mask], dim=1), ocr_mask, prev)
+            oi, ci = g["neg_obj_idx"].long(), g["neg_ocr_idx"].long()
+            ocr_mask_n = torch.gather(g["neg_ocr_mask"], 1, ci)
+            enc_mask_n = torch.cat([txt_mask, torch.gather(g["neg_obj_mask"], 1, oi),
+                                    ocr_mask_n], dim=1)
+            neg = self._mmt_full(txt_emb, self._take_rows(obj_in, oi), self._take_rows(ocr_in, ci),
+                                 enc_mask_n, ocr_mask_n, prev, embed_ocr=ocr_in,
+                                 dynamic_scatter=(ci, ocr_in.shape[1], False))
+            return {"ref_scores": ref, "pos_scores": pos, "neg_scores": neg, **common}
         tile2 = lambda t: torch.cat([t, t], dim=0)
         ocr_masks2 = torch.cat([ocr_mask, g["neg_ocr_mask"]], dim=0)
         enc_mask2 = torch.cat([tile2(txt_mask), torch.cat([obj_mask, g["neg_obj_mask"]], dim=0),

@@ -43,9 +43,9 @@ NVCC_FLAGS = (
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, key_mask, out, lse, seed; batch, seq_len, heads, head_dim,
-    # dec_len; threshold; keep_scale; stream
-    "vt_flash_attention_merged": [_P] * 7 + [_I] * 5 + [_U, _F, _P],
+    # q, k, v, key_mask, out, lse, seed, k8, ks, v8, vs; batch, seq_len,
+    # heads, head_dim, dec_len; threshold; keep_scale; stream
+    "vt_flash_attention_merged": [_P] * 11 + [_I] * 5 + [_U, _F, _P],
     # q, k, v, key_mask, out, dout, lse, di, dq, dk, dv, seed; batch,
     # seq_len, heads, head_dim, dec_len; threshold; keep_scale; stream
     "vt_flash_attention_merged_bwd": [_P] * 12 + [_I] * 5 + [_U, _F, _P],
@@ -59,6 +59,11 @@ _SIGNATURES = {
     # x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, res, x32, xb, h, out;
     # rows, d, m; eps; stream
     "vt_fused_block": [_P] * 17 + [_I] * 3 + [_F, _P],
+    # pointer array (order in csrc/fused_block_w8a8.cu); rows, d, m; eps;
+    # stream
+    "vt_fused_block_w8a8": [_P] + [_I] * 3 + [_F, _P],
+    # q, k8, ks, mask, out; batch, n, d; scale; stream
+    "vt_ptr_scores_int8": [_P] * 5 + [_I] * 3 + [_F, _P],
     # q, k8, ks, v8, vs, key_mask, out; batch, cache_len, heads, head_dim,
     # step, write_offset; stream
     "vt_decode_attention_int8": [_P] * 7 + [_I] * 6 + [_P],
@@ -86,6 +91,9 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_merged_bwd": 0,
     "block_train_fwd": 0,
     "block_train_bwd": 0,
+    "fused_block_w8a8": 0,
+    "flash_attention_merged_q8": 0,
+    "ptr_scores_int8": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

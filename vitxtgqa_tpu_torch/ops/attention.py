@@ -36,6 +36,8 @@ from vitxtgqa_tpu_torch.ops.flash_attention import (
     flash_attention_merged_bwd,
     flash_attention_merged_bwd_plain,
     flash_attention_merged_plain,
+    flash_attention_merged_q8,
+    flash_attention_merged_q8_plain,
 )
 from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec
 
@@ -45,9 +47,13 @@ MIN_KV = 256
 def quantize_kv(x: torch.Tensor):
     """[B, L, H*D] -> (int8 [B, L, H*D], scales [B, L] f32): symmetric
     per-token quantization.  The amax is taken in the input dtype, the
-    divide in f32 — bit for bit the JAX quantize_kv."""
-    amax = x.abs().amax(dim=-1).float()
-    scale = torch.clamp_min(amax, 1e-6) / 127.0
+    divide in f32 — bit for bit the JAX quantize_kv.  Also the W8A8 row and
+    weight quantizer (ops/fused_block.quant_rows, quantize_weight)."""
+    amax = torch.clamp_min(x.abs().amax(dim=-1).float(), 1e-6)
+    # a division by a tensor: on CUDA, PyTorch divides by a Python scalar as
+    # a multiplication by its reciprocal, which can round the last bit
+    # otherwise (the kernels and JAX divide)
+    scale = amax / torch.full_like(amax, 127.0)
     q8 = torch.clamp(torch.round(x.float() / scale[..., None]), -127, 127)
     return q8.to(torch.int8), scale
 
@@ -101,6 +107,19 @@ def mha_merged(q_raw, k_raw, v_raw, bias, num_heads: int, plain: bool = False):
     ctx = mha(split_heads(q_raw, num_heads), split_heads(k_raw, num_heads),
               split_heads(v_raw, num_heads), bias)
     return merge_heads(ctx)
+
+
+def mha_merged_quantize(q_raw, k_raw, v_raw, bias, num_heads: int, plain: bool = False):
+    """mha_merged (eval) with this layer's int8 decode cache: (ctx, (k8,
+    ks), (v8, vs)).  On the flash route one launch emits both
+    (flash_attention_merged_q8); elsewhere mha_merged and quantize_kv, the
+    same bits."""
+    if flash_ok(bias, k_raw.shape[1]):
+        fn = flash_attention_merged_q8_plain if plain else flash_attention_merged_q8
+        return fn(q_raw, k_raw, v_raw, bias.key_mask.float().contiguous(), bias.dec_len,
+                  num_heads)
+    ctx = mha_merged(q_raw, k_raw, v_raw, bias, num_heads, plain=plain)
+    return ctx, quantize_kv(k_raw), quantize_kv(v_raw)
 
 
 class AttentionFn(torch.autograd.Function):

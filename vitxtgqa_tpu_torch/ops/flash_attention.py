@@ -1,9 +1,10 @@
 """Merged-head flash attention, forward (with in-kernel dropout of the
-attention probabilities) and backward: the kernel wrappers and their plain
-PyTorch versions.
+attention probabilities, or with the emission of the int8 decode cache)
+and backward: the kernel wrappers and their plain PyTorch versions.
 
-Counterpart of vitxtgqa_tpu/ops/pallas_attention.py:flash_attention_merged
-and its backward _flash_merged_bwd_impl.  The CUDA kernels are
+Counterpart of vitxtgqa_tpu/ops/pallas_attention.py:flash_attention_merged,
+flash_attention_merged_q8 and the backward _flash_merged_bwd_impl.  The
+CUDA kernels are
 csrc/flash_attention.cu and csrc/flash_attention_bwd.cu.  On a CUDA tensor
 a wrapper launches its kernel (or raises); on a CPU tensor it runs the
 plain version, which is also the oracle the kernel is checked against on
@@ -144,12 +145,45 @@ def flash_attention_merged(q, k, v, key_mask, dec_len: int, num_heads: int,
         err = _build.lib().vt_flash_attention_merged(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
-            None if seed is None else seed.data_ptr(), b, l, num_heads,
-            hd_total // num_heads, dec_len, thr, ks, _build.stream_of(q),
+            None if seed is None else seed.data_ptr(), None, None, None, None, b, l,
+            num_heads, hd_total // num_heads, dec_len, thr, ks, _build.stream_of(q),
         )
     _build.check(err, "flash_attention_merged")
     _build.LAUNCHES["flash_attention_merged"] += 1
     return (out, lse) if return_lse else out
+
+
+def flash_attention_merged_q8_plain(q, k, v, key_mask, dec_len: int, num_heads: int):
+    """The eval forward and the quantize_kv layout of k and v:
+    (out, (k8, ks), (v8, vs)) — pallas_attention.flash_attention_merged_q8."""
+    from vitxtgqa_tpu_torch.ops.attention import quantize_kv
+
+    out = flash_attention_merged_plain(q, k, v, key_mask, dec_len, num_heads)
+    return out, quantize_kv(k), quantize_kv(v)
+
+
+def flash_attention_merged_q8(q, k, v, key_mask, dec_len: int, num_heads: int):
+    """flash_attention_merged (eval) that also emits this layer's int8
+    decode cache from the same launch: (out [B, L, H*D], (k8 [B, L, H*D]
+    int8, ks [B, L] f32), (v8, vs)), bit for bit quantize_kv's."""
+    if not q.is_cuda:
+        return flash_attention_merged_q8_plain(q, k, v, key_mask, dec_len, num_heads)
+    b, l, hd_total = _check_geometry(q, num_heads, dec_len, "flash_attention_merged_q8")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.require(t, name, torch.bfloat16, (b, l, hd_total), q.device)
+    _build.require(key_mask, "key_mask", torch.float32, (b, l), q.device)
+    out = torch.empty_like(q)
+    k8, v8 = (torch.empty((b, l, hd_total), dtype=torch.int8, device=q.device) for _ in range(2))
+    ks, vs = (torch.empty((b, l), dtype=torch.float32, device=q.device) for _ in range(2))
+    with torch.cuda.device(q.device):
+        err = _build.lib().vt_flash_attention_merged(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
+            None, None, k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(), b, l,
+            num_heads, hd_total // num_heads, dec_len, 0, 1.0, _build.stream_of(q),
+        )
+    _build.check(err, "flash_attention_merged_q8")
+    _build.LAUNCHES["flash_attention_merged_q8"] += 1
+    return out, (k8, ks), (v8, vs)
 
 
 def flash_attention_merged_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, num_heads: int,

@@ -1,10 +1,19 @@
-"""Fused post-attention block (eval), plain and tanh-residual forms: the
-kernel wrappers and their plain PyTorch versions.
+"""Fused post-attention block (eval), plain, tanh-residual and W8A8 forms:
+the kernel wrappers and their plain PyTorch versions.
 
-Counterpart of vitxtgqa_tpu/ops/pallas_ffn.py:fused_block and
-fused_block_tanh.  The CUDA kernels are csrc/fused_block.cu.  Weights are
-in nn.Linear layout ([out, in]); biases and LayerNorm parameters are taken
-in float32 as the Pallas wrapper takes them.
+Counterpart of vitxtgqa_tpu/ops/pallas_ffn.py:fused_block,
+fused_block_tanh and fused_block_w8a8.  The CUDA kernels are
+csrc/fused_block.cu and csrc/fused_block_w8a8.cu.  Weights are in
+nn.Linear layout ([out, in]); biases and LayerNorm parameters are taken in
+float32 as the Pallas wrapper takes them.
+
+W8A8 (the serving mode of Options.w8a8): the three products run int8 x
+int8 with per-row activation scales (``quant_rows``) and per-output-channel
+weight scales (``quantize_weight``, once per set of weights), x and h kept
+in float32 before they are quantized, and the gelu in the Abramowitz-Stegun
+form of the Pallas kernel (``gelu_as``).  The plain version sums the int8
+products in float64, where every partial sum of at most 127^2 * 3072 terms
+is an exact integer, so its int32 accumulators are the TPU kernel's.
 """
 
 from __future__ import annotations
@@ -12,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from vitxtgqa_tpu_torch.ops import _build
+from vitxtgqa_tpu_torch.ops.attention import quantize_kv
 
 LANE = 128
 MIN_ROWS = 2048  # the JAX gate (pallas_ffn.ffn_kernel_ok)
@@ -119,3 +129,105 @@ def fused_block_tanh(res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
                                       w2, b2, s2, g2, eps)
     return _launch("fused_block_tanh", res, x_q, ctx, wo, bo, s1, g1, w1, b1,
                    w2, b2, s2, g2, eps)
+
+
+# ---------------------------------------------------------------------------
+# W8A8
+# ---------------------------------------------------------------------------
+
+
+def erf_as(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz-Stegun 7.1.26 erf (pallas_ffn._erf; max abs err 1.5e-7)."""
+    a = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
+                + t * (-1.453152027 + t * 1.061405429))))
+    return torch.sign(x) * (1.0 - poly * torch.exp(-a * a))
+
+
+def gelu_as(x: torch.Tensor) -> torch.Tensor:
+    return x * 0.5 * (1.0 + erf_as(x * 0.7071067811865476))
+
+
+def quant_rows(x: torch.Tensor):
+    """[R, D] -> (int8 [R, D], f32 scales [R, 1]): symmetric per row, the
+    amax taken in x's dtype (pallas_ffn._quant_rows)."""
+    q, scale = quantize_kv(x)
+    return q, scale[..., None]
+
+
+def quantize_weight(w: torch.Tensor):
+    """nn.Linear weight [out, in] -> (int8 [out, in], f32 per-output-channel
+    scales [out]) — pallas_ffn.quantize_weight, whose [in, out] kernel
+    reduces over its axis 0: the rows of the [out, in] weight."""
+    return quantize_kv(w.float())
+
+
+def quantize_block_weights(wo, w1, w2):
+    """(wo8, wos, w18, w1s, w28, w2s): the block's three weights quantized
+    per output channel."""
+    return (*quantize_weight(wo), *quantize_weight(w1), *quantize_weight(w2))
+
+
+def _dot_w8a8(x, w8, w_scale):
+    """pallas_ffn._dot_w8a8: quantize x per row, the int8 product (exact,
+    in float64), then f32(acc) * x_scale * w_scale."""
+    xq, xs = quant_rows(x)
+    acc = torch.matmul(xq.double(), w8.double().t())
+    return acc.float() * xs * w_scale.float()
+
+
+def fused_block_w8a8_plain(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28,
+                           w2s, b2, s2, g2, eps: float = 1e-12):
+    """pallas_ffn.block_w8a8_reference on quantized weights
+    (quantize_block_weights): x = LN1(x_q + dot(ctx, Wo) + bo) and h =
+    gelu_as(dot(x, W1) + b1) in f32, out = LN2(x + dot(h, W2) + b2) in
+    x_q's dtype, each dot quantizing its left operand per row."""
+    shape, d = x_q.shape, x_q.shape[-1]
+    f = lambda t: t.float()
+    c2 = ctx.reshape(-1, d).to(x_q.dtype)
+    attn = _dot_w8a8(c2, wo8, wos) + f(bo)
+    x = _ln(x_q.reshape(-1, d).float() + attn, f(s1), f(g1), eps)
+    h = gelu_as(_dot_w8a8(x, w18, w1s) + f(b1))
+    y = _dot_w8a8(h, w28, w2s) + f(b2)
+    return _ln(x + y, f(s2), f(g2), eps).to(x_q.dtype).reshape(shape)
+
+
+def fused_block_w8a8(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28, w2s,
+                     b2, s2, g2, eps: float = 1e-12, return_ctx_q: bool = False):
+    """The W8A8 block on quantized weights; the arguments and return of
+    fused_block_w8a8_plain.  ``return_ctx_q`` (CUDA only) also returns the
+    kernel's per-row quantization of ctx, (int8 [R, D], f32 scales [R])."""
+    if not x_q.is_cuda:
+        return fused_block_w8a8_plain(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s,
+                                      b1, w28, w2s, b2, s2, g2, eps)
+    d, m = x_q.shape[-1], w18.shape[0]
+    if d != 768 or m % LANE:
+        raise NotImplementedError(
+            f"fused_block_w8a8 kernel: hidden 768 and a lane-aligned FFN width "
+            f"only, got d={d}, m={m}")
+    dev = x_q.device
+    x2, c2 = x_q.reshape(-1, d), ctx.reshape(-1, d)
+    rows = x2.shape[0]
+    _build.require(x2, "x_q", torch.bfloat16, device=dev)
+    _build.require(c2, "ctx", torch.bfloat16, (rows, d), dev)
+    for t, name, shape in ((wo8, "wo8", (d, d)), (w18, "w18", (m, d)), (w28, "w28", (d, m))):
+        _build.require(t, name, torch.int8, shape, dev)
+    vecs = [v.to(torch.float32).contiguous() for v in (wos, bo, s1, g1, w1s, b1, w2s, b2, s2, g2)]
+    for v, n in zip(vecs, (d, d, d, d, m, m, d, d, d, d)):
+        _build.require(v, "scale/bias/LayerNorm vector", torch.float32, (n,), dev)
+    wos, bo, s1, g1, w1s, b1, w2s, b2, s2, g2 = vecs
+    e = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
+    c8, cs = e((rows, d), torch.int8), e((rows,), torch.float32)
+    x32, x8, xs = e((rows, d), torch.float32), e((rows, d), torch.int8), e((rows,), torch.float32)
+    h, h8, hs = e((rows, m), torch.float32), e((rows, m), torch.int8), e((rows,), torch.float32)
+    out = e((rows, d), torch.bfloat16)
+    ptrs = _build.pointers(x2, c2, wo8, wos, bo, s1, g1, w18, w1s, b1, w28, w2s, b2, s2, g2,
+                           c8, cs, x32, x8, xs, h, h8, hs, out)
+    with torch.cuda.device(dev):
+        err = _build.lib().vt_fused_block_w8a8(ptrs, rows, d, m, float(eps),
+                                               _build.stream_of(x2))
+    _build.check(err, "fused_block_w8a8")
+    _build.LAUNCHES["fused_block_w8a8"] += 1
+    out = out.reshape(x_q.shape)
+    return (out, c8, cs) if return_ctx_q else out

@@ -36,6 +36,15 @@ class Options:
     fused_decode_max_batch: the fused decode engages only at batch <= this
         cap — the counterpart of ``set_fused_decode_max_batch`` (JAX
         default 2).
+    w8a8: the eval post-attention block runs its three products int8 x
+        int8 with per-row activation scales and per-output-channel weight
+        scales (ops/fused_block.fused_block_w8a8) wherever the fused block
+        engages; the fused decode is off under it — the JAX ``set_w8a8``.
+    compact_serving: the serving and full-eval decodes run the MMT on the
+        rows the pos grounding keeps (question, top-k frames, top-k OCR
+        slots per frame) and pin never-kept copy scores to -1e4 — the JAX
+        ``set_compact_serving`` (configs/t2s_serving.yml sets it, with
+        ``kv_cache_int8``).
 
     Training (the counterpart of ``training_parameters.tpu.remat`` in
     configs/t2s_abinet.yml, with that config's default):
@@ -57,6 +66,8 @@ class Options:
     plain: bool = False
     fused_decode: bool = True
     fused_decode_max_batch: int = 2
+    w8a8: bool = False
+    compact_serving: bool = False
     remat: str = "attn"
 
     def __post_init__(self):

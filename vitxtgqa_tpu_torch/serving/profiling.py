@@ -30,6 +30,12 @@ CONFIGS = (
     ("int8, batch 2, fused", dict(kv_cache_int8=True), 2),
     ("bf16, batch 8", dict(kv_cache_int8=False), 8),
     ("int8, batch 8", dict(kv_cache_int8=True), 8),
+    # the serving preset (configs/t2s_serving.yml) and the W8A8 mode
+    ("int8 + compact, batch 1", dict(kv_cache_int8=True, compact_serving=True), 1),
+    ("int8 + compact, batch 8", dict(kv_cache_int8=True, compact_serving=True), 8),
+    ("int8 + W8A8, batch 8", dict(kv_cache_int8=True, w8a8=True), 8),
+    ("int8 + compact + W8A8, batch 8", dict(kv_cache_int8=True, compact_serving=True,
+                                            w8a8=True), 8),
 )
 TOP = 8
 
