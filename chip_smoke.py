@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's T2S serving, full-eval and training paths
-once on one NVIDIA GPU.
+and its ViT frame-feature path once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -30,7 +30,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
      1152, 768] (its int8 cache and scales bit for bit, #1 timed on the
      same inputs), the int8 pointer scores at [8, 1, 768] x [8, 960, 768],
      and the decode attention and decode step again at the compact cache
-     length 384.  Each kernel's bound (bytes over 3.35 TB/s or operations
+     length 384.  The ViT's kernels: the fused FFN at ViT-L/16's 12,608
+     rows and ViT-B/32's 3,200, the bias-tensor attention on split-head
+     views with no bias at [8, 16, 577, 64] and with the key-mask and the
+     prefix-LM bias at [8, 12, 1152, 64].  Each kernel's bound (bytes over 3.35 TB/s or operations
      over the peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67
      TFLOP/s f32) is computed from the inputs of its timed call, and one
      PyTorch call that computes the same function is timed beside it where
@@ -60,7 +63,12 @@ Phases (each prints one or more lines; any failure exits non-zero):
        i. the module entry points of the two int8 kernels: the MMT
           encoder's encode_with_cache(quantize=True), whose cache must equal
           quantize_cache's bit for bit and decode to the same tokens, and
-          OcrPtrNet.scores_from_keys over int8 keys.
+          OcrPtrNet.scores_from_keys over int8 keys;
+       j. frames to answer: 64 uint8 frames at 240 x 320 through
+          preprocess_frames and ViT-L/16 at 224 px (CLS features against
+          the plain path, frames/s), the features served as one T2S request
+          at batch 1 with the int8 cache, its tokens against the plain path
+          end to end; then the ViT at 384 px (577 tokens) at batch 8.
      a-c and f-g serve behind a ServingEngine; each slice checks its launch
      counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
@@ -115,6 +123,11 @@ L_COMPACT, COMPACT_OFFSET = 384, 372
 # flash: its output as #1's, its int8 cache and scales exact.  The int8
 # pointer scores: f32 dots of length 768 over O(1) products in another
 # order, scores of |s| < ~20.
+# The ViT's kernels: the fused FFN's outputs are O(1) sums of 4,096 products
+# in bf16; the kernel takes the gelu of the f32 pre-activation where the
+# twin (ffn_reference) rounds it to bf16 first, so h differs by a bf16 ulp
+# here and there: the JAX test's bf16 limit (tests/test_pallas_ffn.py).  The
+# bias-tensor attention as the flash forward: averages of O(1) values.
 TOL = {
     "flash_attention_merged": 2e-2,
     "fused_block": 6e-2,
@@ -129,6 +142,8 @@ TOL = {
     "fused_block_w8a8": 6e-2,
     "flash_attention_merged_q8": 2e-2,
     "ptr_scores_int8": 1e-3,
+    "fused_ffn": 3e-2,
+    "fused_attention": 2e-2,
 }
 # the in-kernel dropout draws: keep share within 0.001 of 1 - rate (the
 # binomial standard deviation over 10^7 draws is 1e-4)
@@ -161,6 +176,8 @@ REPLACES = {
     "fused_block_w8a8": "vitxtgqa_tpu/ops/pallas_ffn.py:466",
     "flash_attention_merged_q8": "vitxtgqa_tpu/ops/pallas_attention.py:708",
     "ptr_scores_int8": "vitxtgqa_tpu/ops/pallas_attention.py:1078",
+    "fused_ffn": "vitxtgqa_tpu/ops/pallas_ffn.py:74",
+    "fused_attention": "vitxtgqa_tpu/ops/pallas_attention.py:1162",
 }
 SOURCE = {
     "flash_attention_merged": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
@@ -176,6 +193,8 @@ SOURCE = {
     "fused_block_w8a8": "vitxtgqa_tpu_torch/csrc/fused_block_w8a8.cu",
     "flash_attention_merged_q8": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
     "ptr_scores_int8": "vitxtgqa_tpu_torch/csrc/ptr_scores.cu",
+    "fused_ffn": "vitxtgqa_tpu_torch/csrc/fused_ffn.cu",
+    "fused_attention": "vitxtgqa_tpu_torch/csrc/fused_attention.cu",
 }
 # slice, kernels vs plain on the card: greedy tokens may diverge where two
 # scores tie within bf16 noise, and diverge for the rest of the sequence
@@ -200,6 +219,13 @@ LOSS_REL_TOL, GNORM_REL_TOL, GRAD_REL_TOL = 5e-4, 1e-3, 5e-2
 TRAIN_CHECK_BATCH = 4   # the kernel checks and the kernels-vs-plain step
 TRAIN_BATCH = 48        # configs/t2s_abinet.yml training_parameters.batch_size
 TRAIN_STEPS = 4         # the first is a warm-up; >= 3 are timed
+# slice j: the extractor's default chunk (tools/video_feat/obtain_vit_feat.py
+# --batch) and the timed forwards.  The CLS features are final-LayerNorm
+# outputs (|x| up to ~5); through 24 layers of bf16 rounding at other places
+# (the FFN's gelu rounding differs between kernel and twin) each frame's
+# feature is held to a relative L2 difference of a few bf16 ulps (2^-8).
+VIT_FRAMES, VIT_REPS = 64, 5
+VIT_FEAT_REL_TOL = 3e-2
 
 
 def joint_lengths(cfg, text_len: int = 20, dec_len: int = DEC_LEN):
@@ -281,6 +307,23 @@ def expected_train_launches(cfg, opts) -> dict:
     out.update(flash_attention_merged=flash, flash_attention_merged_bwd=flash,
                block_train_fwd=blocks * (2 if opts.remat == "attn" else 1),
                block_train_bwd=blocks)
+    return out
+
+
+def expected_vit_launches(cfg, batch: int) -> dict:
+    """Kernel launches in one ViT forward over ``batch`` frames, derived
+    from the port's gates: in every layer the fused FFN where the rows
+    (frames x tokens) reach its gate, the bias-tensor attention where the
+    tokens reach MIN_KV; no other kernel."""
+    from vitxtgqa_tpu_torch.ops.attention import MIN_KV
+    from vitxtgqa_tpu_torch.ops.ffn import ffn_kernel_ok
+
+    tokens = cfg.num_patches + 1
+    out = {name: 0 for name in REPLACES}
+    if ffn_kernel_ok(cfg.hidden_size, cfg.mlp_dim, batch * tokens):
+        out["fused_ffn"] = cfg.num_layers
+    if tokens >= MIN_KV:
+        out["fused_attention"] = cfg.num_layers
     return out
 
 
@@ -836,6 +879,81 @@ def check_serving_mode_kernels(dev, record):
     return details
 
 
+def check_vit_kernels(dev, record):
+    """The ViT path's kernels against their twins: the fused FFN (#13) at
+    ViT-L/16's chunk of 64 frames (12,608 rows, 1024 -> 4096 -> 1024) and
+    ViT-B/32's (3,200 rows, 768 -> 3072 -> 768); the bias-tensor attention
+    (#14) on split-head views of merged projections, with no bias at
+    [8, 16, 577, 64] (ViT-L/16 at 384 px), the key-mask bias at [8, 12,
+    1152, 64] (the serving batch's mask) and the prefix-LM bias there
+    (dec_len 12, one batch row with no valid key: fully masked rows), each
+    timed beside F.scaled_dot_product_attention with the same additive
+    mask.  The records keep the shapes of the ViT's own calls (12,608 rows;
+    577 tokens); the other times go to the details."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.ops import ffn as FFN
+    from vitxtgqa_tpu_torch.ops import fused_attention as FAT
+    from vitxtgqa_tpu_torch.ops.masks import prefix_lm_bias, self_attention_bias
+
+    gen = torch.Generator(device=dev).manual_seed(97531)
+    bf = torch.bfloat16
+    rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
+    vec = lambda n: (torch.randn(n, generator=gen, device=dev) * 0.05).float()
+    details = {}
+
+    # 16. the fused FFN
+    for rows, d, m, label in ((64 * 197, 1024, 4096, "ViT-L/16"), (64 * 50, 768, 3072, "ViT-B/32")):
+        x, w1, b1, w2, b2 = rn(rows, d), rn(m, d, scale=0.02), vec(m), rn(d, m, scale=0.02), vec(d)
+        args = (x, w1, b1, w2, b2)
+        got, want = FFN.fused_ffn(*args), FFN.fused_ffn_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ms = cuda_time_ms(lambda: FFN.fused_ffn(*args))
+        pms = cuda_time_ms(lambda: FFN.fused_ffn_plain(*args))
+        bound = bound_of(nbytes(x, w1, b1, w2, b2, got), 2 * rows * m * (d + d))
+        shape = f" {label} [{rows},{d}]->{m}"
+        details[f"fused_ffn{shape}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bound[0],
+                                        "max_abs_err": err}
+        timed = dict(ms=ms, plain_ms=pms, bound=bound) if d == 1024 else {}
+        if not timed:
+            print(f"kernel fused_ffn{shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+        report(record, "fused_ffn", err, shape, **timed)
+        del x, got, want
+
+    # 17. the bias-tensor attention
+    mask, _ = serving_masks(dev)
+    enc = mask[:, :L_JOINT - DEC_LEN].clone()
+    enc[3] = 0.0
+    forms = (("no bias", 16, 577, None),
+             ("key-mask bias", 12, L_JOINT, self_attention_bias(mask)),
+             ("prefix-LM bias dec_len=12, batch row 3 fully masked", 12, L_JOINT,
+              prefix_lm_bias(enc, DEC_LEN)))
+    for form, h, l, bias in forms:
+        q, k, v = (sdpa_split(rn(BATCH, l, h * 64), h) for _ in range(3))
+        got, want = FAT.fused_attention(q, k, v, bias), FAT.fused_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        am = None if bias is None else bias.to(bf)
+        ms = cuda_time_ms(lambda: FAT.fused_attention(q, k, v, bias))
+        pms = cuda_time_ms(lambda: FAT.fused_attention_plain(q, k, v, bias))
+        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, am))
+        bound = bound_of(4 * nbytes(q) + nbytes(bias), 4 * BATCH * h * l * l * 64)
+        shape = f" [{BATCH},{h},{l},64] {form}"
+        details[f"fused_attention{shape}"] = {"ms": ms, "plain_ms": pms, "library_ms": lib,
+                                              "bound_ms": bound[0], "max_abs_err": err}
+        timed = dict(ms=ms, plain_ms=pms, library_ms=lib, bound=bound) if l == 577 else {}
+        if not timed:
+            print(f"kernel fused_attention{shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"library {lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+        report(record, "fused_attention", err, shape, **timed)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return details
+
+
 def check_training_kernels(dev, record):
     """The training kernels at L 1152, 12 heads, batch TRAIN_CHECK_BATCH
     against their twins with the same seed-regenerated masks, the keep
@@ -1319,6 +1437,175 @@ def module_entry_slice(sl: Slices, record):
     return {"encode_launches": counts, "cache_equal": cache_equal, "tokens_equal": same_tokens}
 
 
+def vit_request(feats, nf: int):
+    """One T2S request (batch 1) around the 64 frame features [64, D]: the
+    synthetic batch's question and OCR, with video_feat the features,
+    every frame valid (frame ids 1-64), and mid_img_feat the last frame's
+    feature, the reference's "middle frame" as vitxtgqa_tpu/data/dataset.py
+    resolves it."""
+    import numpy as np
+
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+    n, d = feats.shape
+    batch = synthetic_batch(batch=1, frames=n, video_feat_dim=d, num_final_outputs=nf, seed=5)
+    ocr_pf = batch["temporal_id"].shape[1] // n
+    batch.update(video_feat=feats[None].astype(np.float32),
+                 mid_img_feat=feats[None, -1:].astype(np.float32),
+                 frame_id=np.arange(1, n + 1, dtype=np.int32)[None],
+                 frame_mask=np.ones((1, n), np.float32), frame_num=np.array([n], np.int64),
+                 temporal_id=np.repeat(np.arange(1, n + 1, dtype=np.int32), ocr_pf)[None],
+                 middel_frame_id=np.array([[n]], np.int64),
+                 middel_frame_idx=np.array([[n]], np.int64))
+    return batch
+
+
+def vit_slice(sl: Slices, record, card):
+    """j. Frames to answer: VIT_FRAMES uint8 frames at 240 x 320 from a seed
+    through preprocess_frames (the antialiased resize) and ViT-L/16 at 224
+    px, bf16, random weights from seed 0 -> CLS [64, 1024], against the
+    same frames through Options(plain=True); the launches at batch 64 (#13
+    in all 24 layers) and at batch 8 (1,576 rows, below the gate: none);
+    frames/s over VIT_REPS forwards at batch 64 and the device ms; then the
+    64 features as one T2S request at batch 1 with the int8 cache, served
+    through a ServingEngine, its greedy tokens against the plain path end to
+    end (plain features through the plain T2S)."""
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.models.vit import VIT_L_16, make_feature_extractor
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.serving.engine import ServingEngine, group_generator, to_device
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_frames
+
+    dev, bf = sl.dev, torch.bfloat16
+    cfg = VIT_L_16
+    t0 = time.perf_counter()
+    extract, vit = make_feature_extractor(cfg, None, Options(device=dev, dtype=bf))
+    extract_plain, _ = make_feature_extractor(cfg, vit.state_dict(),
+                                              Options(device=dev, dtype=bf, plain=True))
+    frames = torch.from_numpy(synthetic_frames(VIT_FRAMES, 240, 320, seed=0)).to(dev)
+    n_params = sum(p.numel() for p in vit.parameters())
+    print(f"slice vit_l16: ViT-L/16 at {cfg.image_size} px, {n_params / 1e6:.1f}M params, bf16, "
+          f"random weights from seed 0, built in {time.perf_counter() - t0:.1f} s; frames "
+          f"{tuple(frames.shape)} uint8", flush=True)
+    extract(frames)  # warm-up
+    summary = {"params_m": n_params / 1e6, "launches": {}}
+    for b in (VIT_FRAMES, 8):
+        _build.reset_launch_counts()
+        feats = extract(frames[:b])
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"slice vit_l16: launches in one forward at batch {b} " + json.dumps(counts),
+              flush=True)
+        count_launches(f"slice vit_l16, a batch-{b} forward", record, counts,
+                       expected_vit_launches(cfg, b))
+        summary["launches"][b] = counts
+    feats = extract(frames)
+    feats_plain = extract_plain(frames)
+    err, rel = feature_agreement(feats, feats_plain)
+    ok = feats.shape == (VIT_FRAMES, cfg.hidden_size) and bool(torch.isfinite(feats).all())
+    print(f"slice vit_l16: CLS {tuple(feats.shape)} {feats.dtype}, finite {ok}; kernels vs plain on "
+          f"the card: max|diff| {err:.4e}, largest per-frame relative L2 difference {rel:.4e} "
+          f"(limit {VIT_FEAT_REL_TOL})", flush=True)
+    if not ok or rel > VIT_FEAT_REL_TOL:
+        fail("slice vit_l16: the CLS features disagree with the plain versions")
+
+    lat = []
+    for _ in range(VIT_REPS):
+        t = time.perf_counter()
+        extract(frames)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(lat)
+    device_ms = cuda_time_ms(lambda: extract(frames), reps=VIT_REPS, warmup=1)
+    print(f"slice vit_l16: batch {VIT_FRAMES} forward ms {[round(x, 2) for x in lat]}, median "
+          f"{med:.2f} ms, {VIT_FRAMES / med * 1e3:.1f} frames/s; device {device_ms:.2f} ms per "
+          f"forward (CUDA events, queued); card {card}", flush=True)
+    summary.update(cls_max_abs_diff=err, cls_max_rel_l2=rel, forward_ms_all=lat,
+                   forward_ms_median=med, frames_per_s=VIT_FRAMES / med * 1e3,
+                   device_ms=device_ms)
+
+    # the 64 features as one T2S request, int8 cache, batch 1
+    opts = dict(kv_cache_int8=True)
+    model, plain_model = sl.model(**opts), sl.model(plain=True, **opts)
+    req = vit_request(feats.cpu().numpy(), sl.nf)
+    req_plain = vit_request(feats_plain.cpu().numpy(), sl.nf)
+    sample = {k: v[0] for k, v in req.items()}
+    with ServingEngine(model, buckets=(1,), max_wait_ms=300, rng_seed=0) as eng:
+        eng.warmup(sample)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = eng.submit(sample).result(timeout=600)
+        torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    count_launches("slice vit_l16, the T2S request", record, counts,
+                   expected_launches(sl.cfg, 1, model.opts))
+    check_outputs([out], sl.nf)
+    with torch.inference_mode():
+        want = plain_model(to_device(req_plain, dev), group_generator(0, 0, dev))
+    tok = out["pos_scores"].argmax(-1)
+    tok_plain = want["pos_scores"][0].float().cpu().numpy().argmax(-1)
+    agree = float((tok == tok_plain).mean())
+    print(f"slice vit_l16: the 64 features as a T2S request (int8 cache, batch 1): greedy tokens "
+          f"{tok.tolist()}, plain end to end {tok_plain.tolist()}, agreement {agree:.4f} (min "
+          f"{MIN_TOKEN_AGREEMENT})", flush=True)
+    if agree < MIN_TOKEN_AGREEMENT:
+        fail("slice vit_l16: the request's tokens disagree with the plain path")
+    summary.update(request_launches=counts, request_token_agreement=agree)
+    del model, plain_model, extract, extract_plain, vit
+    torch.cuda.empty_cache()
+    return summary
+
+
+def feature_agreement(got, want):
+    """(max |diff|, the largest per-row relative L2 difference) of two
+    feature matrices [N, D]."""
+    diff = (got.float() - want.float())
+    rel = diff.norm(dim=-1) / want.float().norm(dim=-1)
+    return diff.abs().max().item(), rel.max().item()
+
+
+def vit_module_entry(dev, record):
+    """The ViT layer stack at 384 px (577 tokens, ViT-L/16's published
+    fine-tuning size) for one forward at batch 8: the bias-tensor attention
+    (#14) and the fused FFN (#13, 4,616 rows) in all 24 layers, against
+    the same forward through the plain versions."""
+    import dataclasses
+
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.models.vit import VIT_L_16, ViT, preprocess_frames
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_frames
+
+    bf = torch.bfloat16
+    cfg = dataclasses.replace(VIT_L_16, image_size=384)
+    vit = ViT(cfg, Options(device=dev, dtype=bf)).init_weights(1).eval()
+    plain = ViT(cfg, Options(device=dev, dtype=bf, plain=True)).eval()
+    plain.load_state_dict(vit.state_dict())
+    frames = torch.from_numpy(synthetic_frames(BATCH, 240, 320, seed=3)).to(dev)
+    with torch.inference_mode():
+        images = preprocess_frames(frames, cfg.image_size)
+        _build.reset_launch_counts()
+        cls = vit(images)[0]
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        count_launches("slice vit_l16_384, a batch-8 forward", record, counts,
+                       expected_vit_launches(cfg, BATCH))
+        cls_plain = plain(images)[0]
+    err, rel = feature_agreement(cls, cls_plain)
+    print(f"slice vit_l16_384: launches in one forward at batch {BATCH} (577 tokens) "
+          + json.dumps(counts) + f"; CLS kernels vs plain: max|diff| {err:.4e}, largest "
+          f"per-frame relative L2 difference {rel:.4e} (limit {VIT_FEAT_REL_TOL})", flush=True)
+    if rel > VIT_FEAT_REL_TOL or not bool(torch.isfinite(cls).all()):
+        fail("slice vit_l16_384: the CLS features disagree with the plain versions")
+    del vit, plain
+    torch.cuda.empty_cache()
+    return {"launches": counts, "cls_max_abs_diff": err, "cls_max_rel_l2": rel}
+
+
 @contextlib.contextmanager
 def planted_fault(name, model):
     """Run the plain step with one fault a block kernel could have, in one
@@ -1632,6 +1919,9 @@ def run_slices(dev, record, card):
     # i. the int8 kernels' module entry points
     details["module_entries"] = module_entry_slice(sl, record)
     torch.cuda.empty_cache()
+    # j. frames to answer through ViT-L/16, and the ViT at 384 px
+    details["vit_l16"] = vit_slice(sl, record, card)
+    details["vit_l16_384"] = vit_module_entry(dev, record)
     details["train"] = train_slice(sl, record, card)
     return details
 
@@ -1668,6 +1958,7 @@ def main(argv) -> int:
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "kernels": record}
     details["serving_mode_kernels"] = check_serving_mode_kernels(dev, record)
+    details["vit_kernels"] = check_vit_kernels(dev, record)
     details["training_kernels"] = check_training_kernels(dev, record)
     details["slices"] = run_slices(dev, record, card)
     out_dir = argv[argv.index("--out") + 1] if "--out" in argv else os.path.join(ROOT, "build")

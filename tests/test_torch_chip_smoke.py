@@ -10,6 +10,7 @@ past the limit (float32, dropout at the config's 0.1, three layers of
 hidden 128), and is undone when its step ends.
 """
 
+import pathlib
 import types
 
 import numpy as np
@@ -155,3 +156,90 @@ def test_expected_launches_count_the_kernel_calls_of_a_forward(case, monkeypatch
           torch.Generator().manual_seed(0))
     want = CS.expected_launches(cfg, b, model.opts, full_eval=full_eval, text_len=10, dec_len=4)
     assert counts == want
+
+
+# slice j: (ViT config fields, frames) of a tiny forward whose kernel calls
+# are counted.  Tokens (64 / 8)^2 + 1 = 65: 31 frames are 2,015 rows (below
+# the fused FFN's 2,048), 32 are 2,080; at image 128, 257 tokens (>= 256:
+# the bias-tensor attention)
+VIT_LAUNCH_CASES = {
+    "below_ffn_gate": (dict(image_size=64), 31),
+    "ffn_gate": (dict(image_size=64), 32),
+    "attention_gate": (dict(image_size=128), 2),
+    "both": (dict(image_size=128), 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VIT_LAUNCH_CASES))
+def test_expected_vit_launches_count_the_kernel_calls_of_a_forward(case, monkeypatch):
+    """chip_smoke.expected_vit_launches against the calls a tiny ViT forward
+    makes on the CPU, where each wrapper runs its plain version (counted)."""
+    from vitxtgqa_tpu_torch.models import vit as TV
+    from vitxtgqa_tpu_torch.ops import ffn as TFFN
+    from vitxtgqa_tpu_torch.ops import fused_attention as TFAT
+
+    fields, frames = VIT_LAUNCH_CASES[case]
+    cfg = TV.ViTConfig(patch_size=8, hidden_size=128, num_layers=2, num_heads=2, mlp_dim=256,
+                       **fields)
+    counts = {name: 0 for name in CS.REPLACES}
+    for mod, plain, kernel in ((TFFN, "fused_ffn_plain", "fused_ffn"),
+                               (TFAT, "fused_attention_plain", "fused_attention")):
+        fn = getattr(mod, plain)
+
+        def call(*a, _fn=fn, _kernel=kernel, **kw):
+            counts[_kernel] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, plain, call)
+    model = TV.ViT(cfg, cpu_options()).init_weights(0).eval()
+    with torch.inference_mode():
+        model(torch.zeros(frames, cfg.image_size, cfg.image_size, 3))
+    assert counts == CS.expected_vit_launches(cfg, frames)
+
+
+@pytest.mark.parametrize("frames, image_size, ffn, attention", [
+    (64, 224, 24, 0), (11, 224, 24, 0), (10, 224, 0, 0), (8, 224, 0, 0), (8, 384, 24, 24),
+])
+def test_vit_l16_launches_of_slice_j(frames, image_size, ffn, attention):
+    """ViT-L/16: the fused FFN in all 24 layers from 11 frames (2,167 rows)
+    at 224 px and none below; the bias-tensor attention only at 384 px (577
+    tokens); no other kernel."""
+    import dataclasses
+
+    from vitxtgqa_tpu_torch.models.vit import VIT_L_16
+
+    cfg = dataclasses.replace(VIT_L_16, image_size=image_size)
+    want = {name: 0 for name in CS.REPLACES}
+    want.update(fused_ffn=ffn, fused_attention=attention)
+    assert CS.expected_vit_launches(cfg, frames) == want
+
+
+def test_the_kernel_record_names_fifteen_kernels(repo_root):
+    """REPLACES, SOURCE and TOL name the same 15 kernels; each source is in
+    the repo and each REPLACES line is the def of the Pallas kernel's
+    wrapper."""
+    root = pathlib.Path(repo_root)
+    assert len(CS.REPLACES) == 15
+    assert set(CS.REPLACES) == set(CS.SOURCE) == set(CS.TOL)
+    for name, where in CS.REPLACES.items():
+        assert (root / CS.SOURCE[name]).is_file(), name
+        path, line = where.split(":")
+        text = (root / path).read_text().splitlines()[int(line) - 1]
+        assert text.startswith("def "), (name, text)
+    assert CS.REPLACES["fused_ffn"].endswith("pallas_ffn.py:74")
+    assert CS.REPLACES["fused_attention"].endswith("pallas_attention.py:1162")
+
+
+def test_vit_request_carries_the_features():
+    """The request of slice j: the 64 features as video_feat, every frame
+    valid, mid_img_feat the last frame's feature, OCR temporal ids over
+    frames 1-64."""
+    feats = np.random.default_rng(0).standard_normal((64, 1024)).astype(np.float32)
+    req = CS.vit_request(feats, 5050 + 960)
+    assert req["video_feat"].shape == (1, 64, 1024)
+    np.testing.assert_array_equal(req["video_feat"][0], feats)
+    np.testing.assert_array_equal(req["mid_img_feat"][0, 0], feats[-1])
+    assert req["frame_mask"].tolist() == [[1.0] * 64]
+    assert req["frame_id"].tolist() == [list(range(1, 65))]
+    assert req["temporal_id"].shape == (1, 960)
+    assert req["temporal_id"][0, ::15].tolist() == list(range(1, 65))
+    assert int(req["frame_num"][0]) == 64

@@ -448,5 +448,21 @@ struct GeluEpi {
   __device__ void flush(float, int) const {}
 };
 
+// bias epilogue of h W2^T + b2 (the fused FFN's second product): out =
+// bf16(acc + b2)
+struct BiasEpi {
+  static constexpr bool kColSum = false;
+  const float* bias;
+  bf16* out;
+  int ld;
+  __device__ void operator()(int row, int col, const float v[8], float*) const {
+    __align__(16) bf16 ov[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) ov[t] = __float2bfloat16(v[t] + bias[col + t]);
+    *reinterpret_cast<uint4*>(out + (size_t)row * ld + col) = *reinterpret_cast<const uint4*>(ov);
+  }
+  __device__ void flush(float, int) const {}
+};
+
 }  // namespace gemm
 }  // namespace vt

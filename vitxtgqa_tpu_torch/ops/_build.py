@@ -76,6 +76,11 @@ _SIGNATURES = {
     # pointer array (order in csrc/fused_epilogue.cu); batch, d, vp, n, qk,
     # s2, step, dec_len; qk_scale; stream
     "vt_fused_epilogue": [_P] + [_I] * 8 + [_F, _P],
+    # x, w1, b1, w2, b2, h, out; rows, d, m, d2; stream
+    "vt_fused_ffn": [_P] * 7 + [_I] * 4 + [_P],
+    # q, k, v, bias, out, strides (14 int64: csrc/fused_attention.cu);
+    # batch, heads, len_q, len_k, head_dim; stream
+    "vt_fused_attention": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 # launch counts per kernel wrapper: each wrapper adds one where it launches
@@ -94,6 +99,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_block_w8a8": 0,
     "flash_attention_merged_q8": 0,
     "ptr_scores_int8": 0,
+    "fused_ffn": 0,
+    "fused_attention": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -5,7 +5,9 @@ full-sequence attention with a MaskSpec goes to the flash kernel at key
 length >= 256 (MIN_KV, the JAX _PALLAS_MIN_KV), so the 20-token text BERT
 stays on the plain path; a decode step over an int8 cache always goes to
 the int8 decode kernel, one over a bf16 cache to the bf16 decode kernel at
-key length >= 256.  Each kernel wrapper launches its kernel on CUDA
+key length >= 256; split-head attention (``mha``) with an array bias or
+none goes to the bias-tensor kernel at key length >= 256 with more than
+one query row and no dropout (the ViT from 256 tokens).  Each kernel wrapper launches its kernel on CUDA
 tensors and runs its plain version on CPU tensors; ``plain=True`` takes
 the plain version on any device (the oracle mode of ``Options.plain``).
 
@@ -39,6 +41,7 @@ from vitxtgqa_tpu_torch.ops.flash_attention import (
     flash_attention_merged_q8,
     flash_attention_merged_q8_plain,
 )
+from vitxtgqa_tpu_torch.ops.fused_attention import fused_attention, fused_attention_plain
 from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec
 
 MIN_KV = 256
@@ -86,10 +89,27 @@ def mha_reference(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None):
     return torch.matmul(probs.float(), v.float()).to(v.dtype)
 
 
-def mha(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None):
-    """[B, H, Lq, Dh] attention; ``bias`` is an additive bias or a spec."""
-    if isinstance(bias, (MaskSpec, DecodeStepSpec)):
+def fused_attention_ok(bias, len_q: int, len_k: int, dropout_rate: float) -> bool:
+    """The JAX gate of the split-head bias-tensor route (attention.py mha):
+    an array bias or none, more than one query row, >= MIN_KV keys and no
+    dropout."""
+    return (not isinstance(bias, MaskSpec) and len_q > 1 and len_k >= MIN_KV
+            and dropout_rate == 0.0)
+
+
+def mha(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None, plain: bool = False):
+    """[B, H, Lq, Dh] attention; ``bias`` is an additive bias array, None,
+    or a spec.  A MaskSpec takes the plain path here: its split-head flash
+    kernel (pallas_attention.flash_attention, #10) is still to port
+    (ROADMAP.md queue 2).  An array bias or none takes the bias-tensor
+    kernel (#14) where fused_attention_ok holds, or its plain version with
+    ``plain`` or on CPU tensors."""
+    if isinstance(bias, DecodeStepSpec):
         bias = bias.to_bias()
+    if isinstance(bias, MaskSpec):
+        bias = bias.to_bias()
+    elif fused_attention_ok(bias, q.shape[2], k.shape[2], dropout_rate):
+        return (fused_attention_plain if plain else fused_attention)(q, k, v, bias)
     return mha_reference(q, k, v, bias, dropout_rate, gen)
 
 

@@ -1,0 +1,84 @@
+"""Split-head attention with an additive bias tensor (eval): the kernel
+wrapper and its plain PyTorch version.
+
+Counterpart of vitxtgqa_tpu/ops/pallas_attention.py:fused_attention, which
+the split-head ``mha`` takes for an array bias or none (ops/attention.py).
+The CUDA kernel is csrc/fused_attention.cu: head width 64 (every model of
+the repo with >= 256 keys: T2S 768 / 12, ViT-L 1024 / 16, ViT-B 768 / 12),
+q / k / v read through their strides, so the split-head views of a merged
+projection are not copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vitxtgqa_tpu_torch.ops import _build
+
+HEAD_DIM = 64
+
+
+def fused_attention_plain(q, k, v, bias=None):
+    """softmax(Q K^T / sqrt(Dh) + bias) V on [B, H, L, Dh]: the ops/attention
+    mha_reference (f32 scores with the bias added, the probabilities
+    rounded to v's dtype, f32 accumulation)."""
+    from vitxtgqa_tpu_torch.ops.attention import mha_reference
+
+    return mha_reference(q, k, v, bias)
+
+
+def _strides(t: torch.Tensor, name: str):
+    """(batch, head, row) element strides of a [B, H, L, Dh] bf16 view whose
+    last dimension is contiguous and whose rows start 16-byte aligned."""
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: needs a contiguous last dimension and 16-byte aligned rows, "
+                         f"got strides {t.stride()}")
+    return list(t.stride()[:3])
+
+
+def fused_attention(q, k, v, bias=None):
+    """q [B, H, Lq, Dh], k / v [B, H, Lk, Dh]; bias [B, 1, 1, Lk], [B, 1, Lq,
+    Lk] or None -> [B, H, Lq, Dh] in q's dtype.  On CUDA tensors the kernel
+    (bf16, Dh 64; another head width raises), on CPU tensors the plain
+    version."""
+    if not q.is_cuda:
+        return fused_attention_plain(q, k, v, bias)
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    if dh != HEAD_DIM:
+        raise NotImplementedError(
+            f"fused_attention kernel: head width {HEAD_DIM} only, got {dh} (other widths: "
+            "ROADMAP.md queue 2, #14)")
+    dev = q.device
+    for t, name, shape in ((q, "q", (b, h, lq, dh)), (k, "k", (b, h, lk, dh)),
+                           (v, "v", (b, h, lk, dh))):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, expected "
+                             f"bf16 {shape} on {dev}")
+    strides = _strides(q, "q") + _strides(k, "k") + _strides(v, "v")
+    # the output is laid out [B, Lq, H, Dh]: merge_heads of its [B, H, Lq,
+    # Dh] view is then a free reshape
+    out = torch.empty((b, lq, h, dh), dtype=torch.bfloat16, device=dev).transpose(1, 2)
+    strides += list(out.stride()[:3])
+    bias_ptr = None
+    if bias is None:
+        strides += [0, 0]
+    else:
+        if bias.dim() != 4 or bias.shape[1] != 1 or bias.shape[0] != b or bias.shape[3] != lk \
+                or bias.shape[2] not in (1, lq):
+            raise ValueError(f"bias: shape {tuple(bias.shape)}, expected [{b}, 1, 1, {lk}] or "
+                             f"[{b}, 1, {lq}, {lk}]")
+        bias = bias.to(torch.float32).contiguous()
+        _build.require(bias, "bias", torch.float32, device=dev)
+        strides += [bias.stride(0), 0 if bias.shape[2] == 1 else bias.stride(2)]
+        bias_ptr = bias.data_ptr()
+    c_strides = (ctypes.c_longlong * 14)(*strides)
+    with torch.cuda.device(dev):
+        err = _build.lib().vt_fused_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(), c_strides, b,
+            h, lq, lk, dh, _build.stream_of(q))
+    _build.check(err, "fused_attention")
+    _build.LAUNCHES["fused_attention"] += 1
+    return out

@@ -3,7 +3,10 @@
     python -m vitxtgqa_tpu_torch.serving.profiling [--out DIR] [--reps N]
 
 T2S at production width (t2s_production_config), bf16, random weights from
-seed 0, in each serving configuration (CONFIGS).  For each: the host-clock
+seed 0, in each serving configuration (CONFIGS), and the ViT frame-feature
+extractor that makes its ``video_feat`` rows (VIT_CONFIGS: ViT-L/16 at 224
+px over the extractor's default chunk of 64 frames of 240 x 320, from
+uint8 frames to CLS features).  For each: the host-clock
 latency of 5 direct forwards ending in ``torch.cuda.synchronize()``
 (median and min), then ``torch.profiler`` over N more (default 3).  Device
 time counts only the profiler's device-side events (kernels, memcpy,
@@ -37,6 +40,8 @@ CONFIGS = (
     ("int8 + compact + W8A8, batch 8", dict(kv_cache_int8=True, compact_serving=True,
                                             w8a8=True), 8),
 )
+# (name, ViT preset, frames per forward)
+VIT_CONFIGS = (("ViT-L/16 extractor, batch 64", "VIT_L_16", 64),)
 TOP = 8
 
 
@@ -51,6 +56,7 @@ def device_events(prof):
 
 
 def profile_config(model, batch, dev, reps: int) -> dict:
+    """profile_forward over T2S forwards of ``batch``."""
     from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
 
     tb = to_device(batch, dev)
@@ -58,19 +64,29 @@ def profile_config(model, batch, dev, reps: int) -> dict:
     def forward(i):
         with torch.inference_mode():
             model(tb, group_generator(0, i, dev))
+
+    return profile_forward(forward, reps)
+
+
+def profile_forward(forward, reps: int) -> dict:
+    """Latency of ``forward(i)`` (5 calls after 3 warm-ups, each ending in
+    a synchronize) and the device events of ``reps`` more under the
+    profiler."""
+    def timed(i):
+        forward(i)
         torch.cuda.synchronize()
 
     for i in range(3):
-        forward(i)
+        timed(i)
     lat = []
     for i in range(5):
         t = time.perf_counter()
-        forward(i)
+        timed(i)
         lat.append((time.perf_counter() - t) * 1e3)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for i in range(reps):
-            forward(i)
+            timed(i)
     per_kernel = defaultdict(lambda: [0.0, 0])
     for name, us in device_events(prof):
         per_kernel[name][0] += us / 1e3 / reps
@@ -85,6 +101,23 @@ def profile_config(model, batch, dev, reps: int) -> dict:
             "device_ms_per_forward": device_ms, "idle_share": 1.0 - device_ms / median,
             "kernels": [{"name": n, "ms_per_forward": ms, "calls_per_forward": c}
                         for n, ms, c in kernels]}
+
+
+def _t2s(new, state, opts):
+    model = new(**opts)
+    model.load_state_dict(state)
+    return model
+
+
+def profile_vit(preset: str, frames: int, dev, reps: int) -> dict:
+    """profile_forward over the ViT extractor (bf16 on the card), uint8
+    frames to CLS."""
+    from vitxtgqa_tpu_torch.models import vit
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_frames
+
+    extract, _ = vit.make_feature_extractor(getattr(vit, preset))
+    x = torch.from_numpy(synthetic_frames(frames, 240, 320, seed=0)).to(dev)
+    return profile_forward(lambda i: extract(x), reps)
 
 
 def main(argv) -> int:
@@ -112,10 +145,12 @@ def main(argv) -> int:
     card = torch.cuda.get_device_name(0)
     result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "reps": reps, "configs": {}}
-    for name, opts, b in CONFIGS:
-        model = new(**opts)
-        model.load_state_dict(state)
-        r = profile_config(model, {k: v[:b] for k, v in batch.items()}, dev, reps)
+    runs = [(name, lambda o=opts, b=b: profile_config(_t2s(new, state, o), {
+        k: v[:b] for k, v in batch.items()}, dev, reps)) for name, opts, b in CONFIGS]
+    runs += [(name, lambda p=preset, b=b: profile_vit(p, b, dev, reps))
+             for name, preset, b in VIT_CONFIGS]
+    for name, run in runs:
+        r = run()
         result["configs"][name] = r
         print(f"profile {name}: latency median {r['latency_ms_median']:.3f} ms "
               f"(min {r['latency_ms_min']:.3f}), device {r['device_ms_per_forward']:.3f} ms "
@@ -123,7 +158,6 @@ def main(argv) -> int:
         for k in r["kernels"][:TOP]:
             print(f"    {k['ms_per_forward']:8.3f} ms  x{k['calls_per_forward']:<6g} "
                   f"{k['name'][:90]}", flush=True)
-        del model
         torch.cuda.empty_cache()
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile.json"), "w") as f:

@@ -103,3 +103,49 @@ def convert_entries(flat, entries) -> Dict[str, torch.Tensor]:
             sd[f"{tname}.weight"] = t(leaf("weight"))
             sd[f"{tname}.bias"] = t(leaf("bias"))
     return sd
+
+
+# (HF ViTModel name, flax name, kind) of the sublayers of one ViT layer
+VIT_LAYER = (
+    ("attention.attention.query", "query", "linear"),
+    ("attention.attention.key", "key", "linear"),
+    ("attention.attention.value", "value", "linear"),
+    ("attention.output.dense", "attn_out", "linear"),
+    ("layernorm_before", "ln1", "ln"),
+    ("intermediate.dense", "mlp_in", "linear"),
+    ("output.dense", "mlp_out", "linear"),
+    ("layernorm_after", "ln2", "ln"),
+)
+
+
+def vit_from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX ViT flat params (vitxtgqa_tpu.models.vit.ViT) -> the port ViT
+    ``state_dict()``: the inverse of vitxtgqa_tpu's convert_vit_state.  The
+    flax patchify kernel [p, p, 3, D] becomes the Conv2d weight [D, 3, p,
+    p]; the CLS token and positions keep their [1, n, D] shapes."""
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    entries = [("layernorm", "ln_final", "ln")]
+    layers = {int(k.split("/")[0][len("layer_"):]) for k in flat if k.startswith("layer_")}
+    for i in range(len(layers)):
+        entries += [(f"encoder.layer.{i}.{tn}", f"layer_{i}/{fn}", kind)
+                    for tn, fn, kind in VIT_LAYER]
+    sd = convert_entries(flat, entries)
+    sd["embeddings.patch_embeddings.projection.weight"] = t(
+        np.asarray(flat["patch_embed/kernel"]).transpose(3, 2, 0, 1))
+    sd["embeddings.patch_embeddings.projection.bias"] = t(flat["patch_embed/bias"])
+    sd["embeddings.cls_token"] = t(flat["cls_token"])
+    sd["embeddings.position_embeddings"] = t(flat["pos_embedding"])
+    return sd
+
+
+def strip_vit_prefix(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An HF ViT checkpoint's state dict -> the port ViT's: the ``vit.``
+    prefix of a model with a head (ViTForImageClassification) dropped, as
+    vitxtgqa_tpu's convert_vit_state drops it, and the pooler and the head,
+    which the extractor does not use, left out."""
+    out = {}
+    for k, v in sd.items():
+        k = k[len("vit."):] if k.startswith("vit.") else k
+        if not k.startswith(("pooler.", "classifier.")):
+            out[k] = v
+    return out

@@ -80,3 +80,15 @@ def synthetic_batch(
         "train_loss_mask": loss_mask,
         "targets": targets,
     }
+
+
+def synthetic_frames(batch: int = 64, h: int = 240, w: int = 320, seed: int = 0) -> np.ndarray:
+    """uint8 RGB frames [batch, h, w, 3] from a seed: a smooth colour field
+    per frame (so a resize has structure to keep) plus uniform noise."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0.0, 1.0, h), np.linspace(0.0, 1.0, w), indexing="ij")
+    phase = r.uniform(0.0, 2 * np.pi, (batch, 1, 1, 3))
+    freq = r.uniform(1.0, 6.0, (batch, 1, 1, 3))
+    field = 0.5 + 0.35 * np.sin(freq * (yy[None, ..., None] + xx[None, ..., None]) * np.pi + phase)
+    noise = r.uniform(-0.15, 0.15, (batch, h, w, 3))
+    return np.clip((field + noise) * 255.0, 0, 255).astype(np.uint8)
