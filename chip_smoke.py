@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's T2S serving, full-eval and training paths
-and its ViT frame-feature path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's T2S serving, full-eval and training paths,
+its ViT frame-feature path and its sequence-parallel path once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -33,13 +34,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
      length 384.  The ViT's kernels: the fused FFN at ViT-L/16's 12,608
      rows and ViT-B/32's 3,200, the bias-tensor attention on split-head
      views with no bias at [8, 16, 577, 64] and with the key-mask and the
-     prefix-LM bias at [8, 12, 1152, 64].  Each kernel's bound (bytes over 3.35 TB/s or operations
+     prefix-LM bias at [8, 12, 1152, 64].  The sequence-parallel kernels:
+     the split-head flash with a query-row offset (#10) on a rank's 576
+     rows against 1,152 keys at batch 8, offsets 0 and 576, dec_len 0 and
+     12, with dropout at offset 576 and its shards against the unsharded
+     rows bit for bit; its backward (#10b) at batch 4, rate 0 and 0.1,
+     against autograd through the twin.  Each kernel's bound (bytes over 3.35 TB/s or operations
      over the peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67
      TFLOP/s f32) is computed from the inputs of its timed call, and one
      PyTorch call that computes the same function is timed beside it where
      one exists (library_ms; the port never calls it);
   4. slices: T2S at production width (t2s_production_config) in bf16:
-       a. int8 KV cache, batch 8 (per-layer int8 decode attention);
+       a. int8 KV cache, batch 8 (per-layer int8 decode attention), and
+          the same forward from a model built with Options(kv_cache_int8=
+          True) alone (bf16 on the card by default), bit for bit;
        b. int8 KV cache, buckets (1, 2): the single-kernel decode step and
           the fused epilogue; then the forward latency at batch 1 and 2
           through the fused and the per-layer decode;
@@ -68,7 +76,18 @@ Phases (each prints one or more lines; any failure exits non-zero):
           preprocess_frames and ViT-L/16 at 224 px (CLS features against
           the plain path, frames/s), the features served as one T2S request
           at batch 1 with the int8 cache, its tokens against the plain path
-          end to end; then the ViT at 384 px (577 tokens) at batch 8.
+          end to end; then the ViT at 384 px (577 tokens) at batch 8, and
+          its backward at batch 2 through #14 against the plain stack's
+          (every parameter's gradient);
+       k. sequence parallelism over 2 ranks (torch.multiprocessing.spawn,
+          gloo, both ranks on the one card; the kernels are built before
+          the ranks start): (i) serving and (ii) full-eval with the int8
+          cache at batch 8, and (iii) a training step at batch 4 with the
+          QTV and MMT attention dropout at 0, each rank's launches as
+          derived (#10, #10b in #1's, #1b's place), the tokens (loss) equal
+          across the ranks, against the unsharded plain versions from the
+          same weights, batch and noise; the SP forward's latency against
+          the unsharded one and one all-gather's time.
      a-c and f-g serve behind a ServingEngine; each slice checks its launch
      counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
@@ -128,6 +147,9 @@ L_COMPACT, COMPACT_OFFSET = 384, 372
 # twin (ffn_reference) rounds it to bf16 first, so h differs by a bf16 ulp
 # here and there: the JAX test's bf16 limit (tests/test_pallas_ffn.py).  The
 # bias-tensor attention as the flash forward: averages of O(1) values.
+# The split-head flash with a row offset (#10) as #1, and its backward
+# (#10b) as #1b, scale-relative; its twin's gradients are autograd's
+# through the forward twin in f32.
 TOL = {
     "flash_attention_merged": 2e-2,
     "fused_block": 6e-2,
@@ -144,6 +166,8 @@ TOL = {
     "ptr_scores_int8": 1e-3,
     "fused_ffn": 3e-2,
     "fused_attention": 2e-2,
+    "flash_attention": 2e-2,
+    "flash_attention_bwd": 3e-2,
 }
 # the in-kernel dropout draws: keep share within 0.001 of 1 - rate (the
 # binomial standard deviation over 10^7 draws is 1e-4)
@@ -178,6 +202,8 @@ REPLACES = {
     "ptr_scores_int8": "vitxtgqa_tpu/ops/pallas_attention.py:1078",
     "fused_ffn": "vitxtgqa_tpu/ops/pallas_ffn.py:74",
     "fused_attention": "vitxtgqa_tpu/ops/pallas_attention.py:1162",
+    "flash_attention": "vitxtgqa_tpu/ops/pallas_attention.py:242",
+    "flash_attention_bwd": "vitxtgqa_tpu/ops/pallas_attention.py:350",
 }
 SOURCE = {
     "flash_attention_merged": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
@@ -195,6 +221,8 @@ SOURCE = {
     "ptr_scores_int8": "vitxtgqa_tpu_torch/csrc/ptr_scores.cu",
     "fused_ffn": "vitxtgqa_tpu_torch/csrc/fused_ffn.cu",
     "fused_attention": "vitxtgqa_tpu_torch/csrc/fused_attention.cu",
+    "flash_attention": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd": "vitxtgqa_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 # slice, kernels vs plain on the card: greedy tokens may diverge where two
 # scores tie within bf16 noise, and diverge for the rest of the sequence
@@ -226,6 +254,17 @@ TRAIN_STEPS = 4         # the first is a warm-up; >= 3 are timed
 # feature is held to a relative L2 difference of a few bf16 ulps (2^-8).
 VIT_FRAMES, VIT_REPS = 64, 5
 VIT_FEAT_REL_TOL = 3e-2
+# the 384-px ViT's backward through #14 against the plain stack, batch 2:
+# every parameter's gradient relative to the plain one's, the training
+# step's limit
+VIT_BWD_BATCH = 2
+# slice k: the sequence-parallel ranks, two processes on the one card
+# (gloo: NCCL refuses two ranks on one device); the SP training step's QTV
+# and MMT attention dropout (the JAX gate routes only dropout-free
+# attention to SP); forwards timed per configuration
+SP_RANKS = 2
+SP_TRAIN_ATTENTION_DROPOUT = 0.0
+SP_REPS = 3
 
 
 def joint_lengths(cfg, text_len: int = 20, dec_len: int = DEC_LEN):
@@ -307,6 +346,36 @@ def expected_train_launches(cfg, opts) -> dict:
     out.update(flash_attention_merged=flash, flash_attention_merged_bwd=flash,
                block_train_fwd=blocks * (2 if opts.remat == "attn" else 1),
                block_train_bwd=blocks)
+    return out
+
+
+def expected_sp_launches(cfg, batch: int, opts, sp: int = SP_RANKS, full_eval: bool = False,
+                         train: bool = False, text_len: int = 20, dec_len: int = DEC_LEN) -> dict:
+    """Kernel launches per rank of one forward (expected_launches) or one
+    training step (expected_train_launches) under sequence parallelism over
+    ``sp`` ranks: the split-head flash #10 (and in training its backward
+    #10b) in #1's (and #1b's) place wherever the SP gate holds, the joint
+    sequence divisible by the ranks and, in training, the stack's attention
+    dropout 0; every other kernel as without SP, on all rows (activations
+    are replicated)."""
+    from vitxtgqa_tpu_torch.models.common import TransformerConfig
+
+    l_full, l_compact = joint_lengths(cfg, text_len, dec_len)
+    if train:
+        out = expected_train_launches(cfg, opts)
+        for sect, passes in (("translayers", 1), ("mmt", 3)):
+            tc = TransformerConfig.from_config(cfg[sect])
+            if tc.attention_probs_dropout_prob == 0.0 and l_full % sp == 0:
+                n = passes * tc.num_hidden_layers
+                for merged, split in (("flash_attention_merged", "flash_attention"),
+                                      ("flash_attention_merged_bwd", "flash_attention_bwd")):
+                    out[merged] -= n
+                    out[split] += n
+        return out
+    if l_full % sp or l_compact % sp:
+        raise ValueError(f"joint sequences {l_full} / {l_compact} over {sp} ranks")
+    out = expected_launches(cfg, batch, opts, full_eval, text_len, dec_len)
+    out["flash_attention"], out["flash_attention_merged"] = out["flash_attention_merged"], 0
     return out
 
 
@@ -447,15 +516,17 @@ def bound_of(n_bytes: float, flops: float, peak: float = PEAK_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attn_pairs(key_mask, dec_len: int) -> int:
-    """Allowed (query row, key) pairs of one head, summed over the batch:
+def attn_pairs(key_mask, dec_len: int, off: int = 0, rows=None) -> int:
+    """Allowed (query row, key) pairs of one head, summed over the batch,
+    for the ``rows`` query rows from global row ``off`` (default: all):
     the keys a flash call must visit (a masked key tile can be skipped;
     the dropout's zeros are elementwise on a dense product and count)."""
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
 
     l = key_mask.shape[1]
-    allowed = FA._allowed(key_mask, l, dec_len)
-    return int(allowed.sum().item()) * (l if allowed.shape[2] == 1 else 1)
+    rows = l if rows is None else rows
+    allowed = FA._allowed(key_mask, l, dec_len, off, rows)
+    return int(allowed.sum().item()) * (rows if allowed.shape[2] == 1 else 1)
 
 
 def flash_bound(q, key_mask, dec_len: int, lse: bool = False):
@@ -1203,10 +1274,141 @@ def check_training_kernels(dev, record):
     return details
 
 
+def split_flash_bound(qs, k, key_mask, dec_len: int, off: int, lse: bool = False):
+    """#10: the shard's q read and out (and its lse) written, k and v read;
+    2 products of 2 * 64 per allowed pair of each head."""
+    b, h, rows, hd = qs.shape
+    moved = 2 * nbytes(qs) + 2 * nbytes(k) + nbytes(key_mask) + (b * h * rows * 4 if lse else 0)
+    return bound_of(moved, 4 * hd * h * attn_pairs(key_mask, dec_len, off, rows))
+
+
+def split_flash_bwd_bound(qs, k, key_mask, dec_len: int, off: int):
+    """#10b: q, out, dO and the lse read and dq written (the shard's rows),
+    k and v read and the f32 dk, dv written; 5 products of 2 * 64 per
+    allowed pair of each head."""
+    b, h, rows, hd = qs.shape
+    moved = 4 * nbytes(qs) + 2 * nbytes(k) + 4 * nbytes(k) + b * h * rows * 4 + nbytes(key_mask)
+    return bound_of(moved, 10 * hd * h * attn_pairs(key_mask, dec_len, off, rows))
+
+
+def check_sp_kernels(dev, record):
+    """The split-head flash attention with a query-row offset (#10) and its
+    backward (#10b), the kernels of sequence parallelism, on split-head
+    views of [B, 1152, 768] projections (no copy), a rank's query shard of
+    L / SP_RANKS = 576 rows against the 1,152 keys: #10 at batch 8 with
+    row_offset 0 and 576, dec_len 0 and 12 under the serving batch's
+    ragged mask, against its twin; with dropout 0.1 at offset 576, and the
+    shards with dropout concatenated against the unsharded call, bit for
+    bit; #10b at batch 4 (the SP training step's), rate 0 and 0.1, offsets 0
+    and 576 with dec_len 12, against autograd through the forward twin in
+    f32.  Timed: #10 at [8, 12, 576, 64] dec_len 0 (a QTV / MMT encode
+    rank's call) and #10b at rate 0, offset 576, dec_len 12 (an MMT rank's
+    rows across the decoder tail), each beside
+    F.scaled_dot_product_attention with the same boolean rows (its backward
+    for #10b)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    bf = torch.bfloat16
+    h, l, d, rows = 12, L_JOINT, 768, L_JOINT // SP_RANKS
+    serving_mask, _ = serving_masks(dev)
+    seed = torch.tensor([20261017], dtype=torch.int64, device=dev)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf)
+    details = {}
+
+    def mask_for(batch, dec_len):
+        km = serving_mask[torch.arange(batch, device=dev) % BATCH].clone()
+        if dec_len:
+            km[:, l - dec_len:] = 0.0
+        return km.contiguous()
+
+    # 18. #10 against its twin
+    q, k, v = (sdpa_split(rn(BATCH, l, d), h) for _ in range(3))
+    for dec_len in (0, 12):
+        km = mask_for(BATCH, dec_len)
+        for off in (0, rows):
+            qs = q[:, :, off:off + rows]
+            got = FA.flash_attention(qs, k, v, km, dec_len, off)
+            want = FA.flash_attention_plain(qs, k, v, km, dec_len, off)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            shape = (f" [{BATCH},{h},{rows},64] x [{BATCH},{h},{l},64] dec_len={dec_len} "
+                     f"row_offset={off}")
+            timed = {}
+            if dec_len == 0 and off == 0:
+                am = FA._allowed(km, l, dec_len, off, rows)
+                timed = dict(ms=cuda_time_ms(lambda: FA.flash_attention(qs, k, v, km, 0, 0)),
+                             plain_ms=cuda_time_ms(lambda: FA.flash_attention_plain(
+                                 qs, k, v, km, 0, 0)),
+                             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                                 qs, k, v, am)),
+                             bound=split_flash_bound(qs, k, km, 0, 0))
+            report(record, "flash_attention", err, shape, **timed)
+    km = mask_for(BATCH, 12)
+    qs = q[:, :, rows:]
+    got = FA.flash_attention(qs, k, v, km, 12, rows, RATE, seed)
+    want = FA.flash_attention_plain(qs, k, v, km, 12, rows, RATE, seed)
+    full = FA.flash_attention(q, k, v, km, 12, 0, RATE, seed)
+    shards = torch.cat([FA.flash_attention(q[:, :, o:o + rows], k, v, km, 12, o, RATE, seed)
+                        for o in range(0, l, rows)], dim=2)
+    torch.cuda.synchronize()
+    report(record, "flash_attention", (got.float() - want.float()).abs().max().item(),
+           f" dropout {RATE} [{BATCH},{h},{rows},64] dec_len=12 row_offset={rows}")
+    same = bool(torch.equal(shards, full))
+    print(f"kernel flash_attention: dropout {RATE}, the {SP_RANKS} shards concatenated equal the "
+          f"unsharded call's rows bit for bit: {same}", flush=True)
+    if not same:
+        fail("flash_attention: a shard's dropout rows differ from the unsharded call's")
+    del got, want, full, shards
+
+    # 19. #10b against autograd through the twin
+    b = TRAIN_CHECK_BATCH
+    q4, k4, v4 = q[:b], k[:b], v[:b]
+    g = sdpa_split(rn(b, rows, d), h)
+    km = mask_for(b, 12)
+    for rate in (0.0, RATE):
+        for off in (0, rows):
+            s_ = seed if rate else None
+            qs = q4[:, :, off:off + rows]
+            out, lse = FA.flash_attention(qs, k4, v4, km, 12, off, rate, s_, return_lse=True)
+            got = FA.flash_attention_bwd(qs, k4, v4, km, out, lse, g, 12, off, rate, s_)
+            leaves = [t.float().requires_grad_() for t in (qs, k4, v4)]
+            FA.flash_attention_plain(*leaves, km, 12, off, rate, s_).backward(g.float())
+            torch.cuda.synchronize()
+            for name, a, t in zip(("dq", "dk", "dv"), got, leaves):
+                w = t.grad
+                report(record, "flash_attention_bwd", (a.float() - w).abs().max().item(),
+                       scale=w.abs().max().item(),
+                       extra=f" {name} rate={rate} [{b},{h},{rows},64] x [{b},{h},{l},64] "
+                             f"dec_len=12 row_offset={off}")
+            del leaves
+    qs = q4[:, :, rows:]
+    out, lse = FA.flash_attention(qs, k4, v4, km, 12, rows, return_lse=True)
+    lib_q, lib_k, lib_v = (t.detach().requires_grad_() for t in (qs, k4, v4))
+    lib_out = F.scaled_dot_product_attention(lib_q, lib_k, lib_v,
+                                             FA._allowed(km, l, 12, rows, rows))
+    keep_times(record, "flash_attention_bwd", f" rate=0 [{b},{h},{rows},64] dec_len=12 "
+               f"row_offset={rows}",
+               ms=cuda_time_ms(lambda: FA.flash_attention_bwd(qs, k4, v4, km, out, lse, g, 12,
+                                                              rows)),
+               plain_ms=cuda_time_ms(lambda: FA.flash_attention_bwd_plain(
+                   qs, k4, v4, km, out, lse, g, 12, rows)),
+               library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                   lib_out, (lib_q, lib_k, lib_v), g, retain_graph=True)),
+               bound=split_flash_bwd_bound(qs, k4, km, 12, rows))
+    details["flash_attention_fwd_dropout_shards_equal"] = same
+    del q, k, v, q4, k4, v4, g, out, lse, lib_out
+    torch.cuda.empty_cache()
+    return details
+
+
 class Slices:
     """Production-width T2S models that share one set of random weights."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, quiet: bool = False):
         from vitxtgqa_tpu_torch.models.t2s import PRODUCTION_NUM_FINAL_OUTPUTS, t2s_production_config
 
         self.dev, self.cfg, self.nf = dev, t2s_production_config(), PRODUCTION_NUM_FINAL_OUTPUTS
@@ -1216,8 +1418,18 @@ class Slices:
         self.state = self._new(kv_cache_int8=True).init_weights(0).state_dict()
         torch.cuda.synchronize()
         self.n_params = sum(v.numel() for v in self.state.values())
-        print(f"slices: T2S production width, {self.n_params / 1e6:.1f}M params, bf16, "
-              f"random weights from seed 0, built in {time.perf_counter() - t0:.1f} s", flush=True)
+        if not quiet:
+            print(f"slices: T2S production width, {self.n_params / 1e6:.1f}M params, bf16, "
+                  f"random weights from seed 0, built in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+    def with_cfg(self, cfg):
+        """These weights under another model config of the same shapes."""
+        import copy
+
+        other = copy.copy(self)
+        other.cfg = cfg
+        return other
 
     def _new(self, inference_only=True, **opts):
         import torch
@@ -1654,16 +1866,16 @@ def planted_fault(name, model):
 PLANTED_FAULTS = ("db2_dropped", "keep_scale_1")
 
 
-def train_check_step(sl, tb, losses, plain, fault=None):
+def train_check_step(sl, tb, losses, plain, fault=None, **opts):
     """One training step at batch TRAIN_CHECK_BATCH from the shared weights
-    and generators: (loss, global gradient norm, {parameter: f32 gradient},
-    launch counts)."""
+    and generators, with these further Options fields: (loss, global
+    gradient norm, {parameter: f32 gradient}, launch counts)."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import _build
     from vitxtgqa_tpu_torch.training.step import step_generators
 
-    model = sl.model(plain=plain)
+    model = sl.model(plain=plain, **opts)
     _build.reset_launch_counts()
     dropout_gen, gumbel_gen = step_generators(7, 0, sl.dev)
     with planted_fault(fault, model) if fault else contextlib.nullcontext():
@@ -1811,6 +2023,287 @@ def forward_ms(model, batch, dev, reps=5):
     return out
 
 
+def vit_backward_check(dev, record):
+    """The 384-px ViT-L/16 stack's backward at batch VIT_BWD_BATCH through
+    the bias-tensor attention (#14, whose output is a FusedAttentionFn
+    node) against the plain stack's, from the same weights and frames:
+    every parameter's gradient within GRAD_REL_TOL relative (a key
+    projection's bias left out, as in the training step: its gradient is 0
+    but for rounding)."""
+    import dataclasses
+
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.models.vit import VIT_L_16, ViT, preprocess_frames
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_frames
+
+    cfg = dataclasses.replace(VIT_L_16, image_size=384)
+    frames = torch.from_numpy(synthetic_frames(VIT_BWD_BATCH, 240, 320, seed=4)).to(dev)
+    images = preprocess_frames(frames, cfg.image_size)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    g = torch.randn(VIT_BWD_BATCH, cfg.hidden_size, generator=gen, device=dev)
+    state, grads, counts = None, [], None
+    for plain in (False, True):
+        vit = ViT(cfg, Options(device=dev, plain=plain))
+        if state is None:
+            state = vit.init_weights(2).state_dict()
+        else:
+            vit.load_state_dict(state)
+        _build.reset_launch_counts()
+        (vit(images)[0].float() * g).sum().backward()
+        torch.cuda.synchronize()
+        if not plain:
+            counts = _build.launch_counts()
+        grads.append({k: p.grad.float() for k, p in vit.named_parameters() if p.grad is not None})
+        del vit
+    kern, ref = grads
+    if counts["fused_attention"] != cfg.num_layers or sorted(kern) != sorted(ref):
+        fail(f"vit_l16_384 backward: {counts['fused_attention']} #14 launches, "
+             f"{len(kern)} / {len(ref)} gradients")
+    rel = {k: float((kern[k] - w).norm() / w.norm()) for k, w in ref.items()
+           if w.norm() > 0 and not k.endswith("key.bias")}
+    worst = max(rel, key=rel.get)
+    print(f"slice vit_l16_384: backward at batch {VIT_BWD_BATCH} through #14 "
+          f"({counts['fused_attention']} launches) vs the plain stack: per-parameter gradient rel diff max {rel[worst]:.3e} "
+          f"({worst}) over {len(rel)} parameters (limit {GRAD_REL_TOL})", flush=True)
+    if rel[worst] > GRAD_REL_TOL:
+        fail("vit_l16_384 backward: the gradients through #14 disagree with the plain stack's")
+    del grads, kern, ref
+    torch.cuda.empty_cache()
+    return {"launches": counts, "max_grad_rel": rel[worst], "max_grad_rel_param": worst,
+            "params": len(rel)}
+
+
+def sp_forward(sl, sp, rank: int, name: str, opts: dict, inference_only: bool, card):
+    """A forward at batch BATCH under sequence parallelism, on every rank:
+    its launches against expected_sp_launches, the tokens equal across the
+    ranks, and (on rank 0) against the unsharded plain forward from the
+    same weights, batch and gumbel noise: greedy-token agreement, and for
+    full-eval the ref / neg scores on the rows with equal tokens.  Serving
+    also times the SP forward against the unsharded kernel forward, in
+    turns, and one all-gather of a rank's rows."""
+    import numpy as np
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.parallel import collectives as C
+    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+    dev = sl.dev
+    model = sl.model(inference_only, sp=sp, **opts)
+    batch = synthetic_batch(batch=BATCH, num_final_outputs=sl.nf, seed=0 if inference_only else 1)
+    tb = to_device(batch, dev)
+    forward_ms(model, batch, dev, reps=1)  # warm-up
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        out = model(tb, group_generator(0, 0, dev))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    want = expected_sp_launches(sl.cfg, BATCH, model.opts, full_eval=not inference_only)
+    if counts != want:
+        fail(f"slice {name}, rank {rank}: launches {counts}, expected {want}")
+    scores = {k: v.float().cpu().numpy() for k, v in out.items()
+              if k in ("ref_scores", "pos_scores", "neg_scores")}
+    tok = scores["pos_scores"].argmax(-1)
+    every = C.gather_objects(tok.tolist())
+    if any(t != every[0] for t in every):
+        fail(f"slice {name}: the ranks' tokens differ")
+    summary = {"launches": counts, "expected": want}
+    if rank == 0:
+        for k, v in scores.items():
+            if v.shape != (BATCH, DEC_LEN, sl.nf) or not np.isfinite(v).all():
+                fail(f"slice {name}: {k} {v.shape}, finite {np.isfinite(v).all()}")
+        plain = sl.model(inference_only, plain=True, **opts)
+        with torch.inference_mode():
+            ref = plain(tb, group_generator(0, 0, dev))
+        del plain
+        want_s = {k: v.float().cpu().numpy() for k, v in ref.items() if k in scores}
+        tok_p = want_s["pos_scores"].argmax(-1)
+        agree = float((tok == tok_p).mean())
+        same = (tok == tok_p).all(-1)
+        diffs = {k: float(np.abs(scores[k][same] - want_s[k][same]).max()) if same.any() else None
+                 for k in ("ref_scores", "neg_scores") if k in scores}
+        print(f"slice {name}: {SP_RANKS} ranks on one card, launches per rank " + json.dumps(
+            {k: v for k, v in counts.items() if v}) + f" (as derived); tokens equal across ranks; "
+              f"SP kernels vs unsharded plain: greedy-token agreement {agree:.4f} (min "
+              f"{MIN_TOKEN_AGREEMENT})" + (f"; on the {int(same.sum())} rows with equal tokens "
+              f"max|d ref/neg scores| {diffs} (tol {REFNEG_TOL})" if diffs else ""), flush=True)
+        if agree < MIN_TOKEN_AGREEMENT or (diffs and (not same.any()
+                                                       or max(diffs.values()) > REFNEG_TOL)):
+            fail(f"slice {name}: the SP kernels disagree with the unsharded plain versions")
+        summary.update(token_agreement=agree, refneg_max_abs_diff=diffs)
+    if inference_only:
+        sp1 = forward_ms(model, batch, dev, reps=SP_REPS)
+        un = []
+        if rank == 0:
+            unsharded = sl.model(inference_only, **opts)
+            forward_ms(unsharded, batch, dev, reps=1)
+            un = forward_ms(unsharded, batch, dev, reps=2 * SP_REPS)
+            del unsharded
+        C.synchronize()
+        sp2 = forward_ms(model, batch, dev, reps=SP_REPS)
+        rows = torch.randn(BATCH, L_JOINT // SP_RANKS, 12, 64, device=dev).to(torch.bfloat16)
+        gather = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            C.all_gather(rows, sp.group, dim=1)
+            torch.cuda.synchronize()
+            gather.append((time.perf_counter() - t) * 1e3)
+        if rank == 0:
+            print(f"slice {name}: forward latency at batch {BATCH}: SP over {SP_RANKS} ranks "
+                  f"median {statistics.median(sp1 + sp2):.2f} ms (all "
+                  f"{[round(x, 2) for x in sp1 + sp2]}), "
+                  f"unsharded kernels median {statistics.median(un):.2f} ms; one all-gather of "
+                  f"a rank's [{BATCH}, {L_JOINT // SP_RANKS}, 12, 64] bf16 rows median "
+                  f"{statistics.median(gather):.3f} ms; card {card}", flush=True)
+            summary.update(sp_forward_ms_all=sp1 + sp2, unsharded_forward_ms_all=un,
+                           all_gather_ms_all=gather)
+    del model
+    torch.cuda.empty_cache()
+    return summary
+
+
+def sp_train(sl, sp, rank: int, card):
+    """k(iii). One training step at batch TRAIN_CHECK_BATCH with the QTV and
+    MMT attention dropout at SP_TRAIN_ATTENTION_DROPOUT (the model config;
+    hidden dropout stays), remat "attn", under sequence parallelism on every
+    rank: its launches, the loss and gradient norm equal across the ranks,
+    and (rank 0) against the unsharded plain step from the same weights,
+    batch, gumbel noise and dropout generator: loss, gradient norm and every
+    parameter's gradient within the training step's limits."""
+    import copy
+
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.parallel import collectives as C
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+    cfg = copy.deepcopy(sl.cfg)
+    for sect in ("translayers", "mmt"):
+        cfg[sect]["attention_probs_dropout_prob"] = SP_TRAIN_ATTENTION_DROPOUT
+    slt = sl.with_cfg(cfg)
+    losses = Losses(cfg["losses"])
+    batch = synthetic_batch(batch=TRAIN_CHECK_BATCH, num_final_outputs=sl.nf, seed=2)
+    tb = to_device(batch, sl.dev)
+    kern = train_check_step(slt, tb, losses, plain=False, sp=sp)
+    want = expected_sp_launches(cfg, TRAIN_CHECK_BATCH, Options(device=sl.dev), train=True)
+    if kern[3] != want:
+        fail(f"slice k(iii), rank {rank}: launches {kern[3]}, expected {want}")
+    every = C.gather_objects([kern[0], kern[1]])
+    if any(e != every[0] for e in every):
+        fail(f"slice k(iii): the ranks' loss and gradient norm differ: {every}")
+    summary = {"launches": kern[3], "expected": want}
+    if rank == 0:
+        plain = train_check_step(slt, tb, losses, plain=True)
+        loss_rel, norm_rel, (grad_rel, worst), n, ok = step_agreement(kern, plain)
+        print(f"slice k(iii): a batch-{TRAIN_CHECK_BATCH} step over {SP_RANKS} ranks, launches per "
+              "rank " + json.dumps({k: v for k, v in kern[3].items() if v}) + " (as derived); "
+              f"loss {kern[0]:.6f} vs unsharded plain {plain[0]:.6f} (rel {loss_rel:.3e}), "
+              f"gradient norm rel {norm_rel:.3e}, per-parameter gradient rel diff max "
+              f"{grad_rel:.3e} ({worst}) over {n} parameters (limits {LOSS_REL_TOL}, "
+              f"{GNORM_REL_TOL}, {GRAD_REL_TOL}); card {card}", flush=True)
+        if not ok:
+            fail("slice k(iii): the SP step disagrees with the unsharded plain step")
+        summary.update(loss=[kern[0], plain[0]], loss_rel=loss_rel, grad_norm_rel=norm_rel,
+                       max_grad_rel=grad_rel, max_grad_rel_param=worst)
+        del plain
+    del kern
+    torch.cuda.empty_cache()
+    return summary
+
+
+def sp_rank(rank: int, directory: str, card: str):
+    """One rank of slice k (torch.multiprocessing.spawn's target): joins the
+    gloo group (a file:// rendezvous in ``directory``) on cuda:0, builds
+    the shared weights and runs k(i)-(iii) with every other rank; rank 0
+    writes its summary to ``directory``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from vitxtgqa_tpu_torch.parallel.mesh import build_sp_group
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous", rank=rank,
+                            world_size=SP_RANKS)
+    try:
+        sp = build_sp_group(SP_RANKS)
+        sl = Slices(dev, quiet=True)
+        out = {"k_i_serving_int8_b8": sp_forward(sl, sp, rank, "k(i) sp_serving_int8_b8",
+                                                 dict(kv_cache_int8=True), True, card),
+               "k_ii_full_eval_int8_b8": sp_forward(sl, sp, rank, "k(ii) sp_full_eval_int8_b8",
+                                                    dict(kv_cache_int8=True), False, card),
+               "k_iii_train_b4": sp_train(sl, sp, rank, card)}
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(directory, "rank0.json"), "w") as f:
+            json.dump(out, f)
+
+
+def sp_slice(record, card):
+    """k. Sequence parallelism: SP_RANKS ranks (torch.multiprocessing.spawn,
+    gloo, both on cuda:0) run k(i) serving and k(ii) full-eval with the int8
+    cache at batch 8, and k(iii) a training step at batch 4 (sp_rank); a
+    failing rank fails the script.  The launches of rank 0 go to the
+    record."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as directory:
+        t0 = time.perf_counter()
+        mp.spawn(sp_rank, args=(directory, card), nprocs=SP_RANKS, join=True)
+        with open(os.path.join(directory, "rank0.json")) as f:
+            out = json.load(f)
+    for name, summary in out.items():
+        count_launches(f"slice {name}", record, summary["launches"], summary["expected"])
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"slice k: {SP_RANKS} ranks done in {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def default_options_check(sl, model, batch, record):
+    """A serving forward at batch BATCH from a model built with
+    Options(kv_cache_int8=True) and nothing else (the card and, by default
+    there, bf16) equals slice a's forward on the same batch and noise."""
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.models.t2s import T2S
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
+
+    default = T2S(sl.cfg, sl.nf, bos_idx=2, opts=Options(kv_cache_int8=True))
+    default.load_state_dict(sl.state)
+    tb = to_device(batch, sl.dev)
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        got = default(tb, group_generator(0, 0, sl.dev))["pos_scores"]
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        want = model(tb, group_generator(0, 0, sl.dev))["pos_scores"]
+    count_launches("slice int8_b8, default Options", record, counts,
+                   expected_launches(sl.cfg, BATCH, default.opts))
+    equal = bool(torch.equal(got, want))
+    print(f"slice int8_b8: a model built with Options(kv_cache_int8=True) alone runs in "
+          f"{default.opts.dtype} on {default.opts.device}; its batch-{BATCH} scores equal slice "
+          f"a's bit for bit: {equal}", flush=True)
+    if not equal:
+        fail("the default Options' forward differs from slice a's")
+    return {"dtype": str(default.opts.dtype), "launches": counts, "scores_equal": equal}
+
+
 def run_slices(dev, record, card):
     import torch
 
@@ -1840,6 +2333,7 @@ def run_slices(dev, record, card):
           f"(min {min(lat):.2f}); card {card}", flush=True)
     details["int8_b8"].update(videos_per_s=vps, forward_ms_all=lat,
                               forward_ms_median=statistics.median(lat))
+    details["int8_b8_default_options"] = default_options_check(sl, model, batch, record)
     del model
 
     # b. int8 cache, buckets (1, 2): the fused decode step and epilogue
@@ -1922,7 +2416,12 @@ def run_slices(dev, record, card):
     # j. frames to answer through ViT-L/16, and the ViT at 384 px
     details["vit_l16"] = vit_slice(sl, record, card)
     details["vit_l16_384"] = vit_module_entry(dev, record)
+    details["vit_l16_384_backward"] = vit_backward_check(dev, record)
     details["train"] = train_slice(sl, record, card)
+    del sl
+    torch.cuda.empty_cache()
+    # k. sequence parallelism, on SP_RANKS processes
+    details["sp"] = sp_slice(record, card)
     return details
 
 
@@ -1960,6 +2459,7 @@ def main(argv) -> int:
     details["serving_mode_kernels"] = check_serving_mode_kernels(dev, record)
     details["vit_kernels"] = check_vit_kernels(dev, record)
     details["training_kernels"] = check_training_kernels(dev, record)
+    details["sp_kernels"] = check_sp_kernels(dev, record)
     details["slices"] = run_slices(dev, record, card)
     out_dir = argv[argv.index("--out") + 1] if "--out" in argv else os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)

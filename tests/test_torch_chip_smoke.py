@@ -10,6 +10,7 @@ past the limit (float32, dropout at the config's 0.1, three layers of
 hidden 128), and is undone when its step ends.
 """
 
+import copy
 import pathlib
 import types
 
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 import chip_smoke as CS
+from tests import torch_sp_ranks
 from tests.torch_helpers import cpu_options, one_torch_thread  # noqa: F401
 from vitxtgqa_tpu.utils.synthetic import tiny_model_config
 from vitxtgqa_tpu_torch.losses import Losses
@@ -214,11 +216,13 @@ def test_vit_l16_launches_of_slice_j(frames, image_size, ffn, attention):
 
 
 def test_the_kernel_record_names_fifteen_kernels(repo_root):
-    """REPLACES, SOURCE and TOL name the same 15 kernels; each source is in
-    the repo and each REPLACES line is the def of the Pallas kernel's
-    wrapper."""
+    """REPLACES, SOURCE and TOL name the same kernels, every one of the 17
+    pallas_call sites (#10 and #10b, the split-head flash forward and
+    backward, since its port); each source is in the repo and each REPLACES
+    line is the def of the Pallas kernel's wrapper (#10b: of its backward's
+    _flash_bwd_impl)."""
     root = pathlib.Path(repo_root)
-    assert len(CS.REPLACES) == 15
+    assert len(CS.REPLACES) == 17
     assert set(CS.REPLACES) == set(CS.SOURCE) == set(CS.TOL)
     for name, where in CS.REPLACES.items():
         assert (root / CS.SOURCE[name]).is_file(), name
@@ -227,6 +231,8 @@ def test_the_kernel_record_names_fifteen_kernels(repo_root):
         assert text.startswith("def "), (name, text)
     assert CS.REPLACES["fused_ffn"].endswith("pallas_ffn.py:74")
     assert CS.REPLACES["fused_attention"].endswith("pallas_attention.py:1162")
+    assert CS.REPLACES["flash_attention"].endswith("pallas_attention.py:242")
+    assert CS.REPLACES["flash_attention_bwd"].endswith("pallas_attention.py:350")
 
 
 def test_vit_request_carries_the_features():
@@ -243,3 +249,86 @@ def test_vit_request_carries_the_features():
     assert req["temporal_id"].shape == (1, 960)
     assert req["temporal_id"][0, ::15].tolist() == list(range(1, 65))
     assert int(req["frame_num"][0]) == 64
+
+
+# slice k: the launches per rank of a tiny SP forward / step, counted on two
+# gloo ranks on the CPU (tests/torch_sp_ranks.py), where each wrapper runs
+# its plain version.  (module, plain version, kernel it stands for)
+SP_PLAIN_OF = [
+    ("vitxtgqa_tpu_torch.ops.flash_attention", "flash_attention_merged_plain",
+     "flash_attention_merged"),
+    ("vitxtgqa_tpu_torch.ops.flash_attention", "flash_attention_merged_bwd_plain",
+     "flash_attention_merged_bwd"),
+    ("vitxtgqa_tpu_torch.ops.flash_attention", "flash_attention_plain", "flash_attention"),
+    ("vitxtgqa_tpu_torch.ops.flash_attention", "flash_attention_bwd_plain",
+     "flash_attention_bwd"),
+    ("vitxtgqa_tpu_torch.ops.fused_block", "fused_block_plain", "fused_block"),
+    ("vitxtgqa_tpu_torch.ops.fused_block", "fused_block_tanh_plain", "fused_block_tanh"),
+    ("vitxtgqa_tpu_torch.ops.fused_block", "fused_block_w8a8_plain", "fused_block_w8a8"),
+    ("vitxtgqa_tpu_torch.ops.decode_attention", "decode_attention_int8_plain",
+     "decode_attention_int8"),
+    ("vitxtgqa_tpu_torch.ops.decode_attention", "decode_attention_plain", "decode_attention"),
+    ("vitxtgqa_tpu_torch.ops.block_train", "block_train_fwd_plain", "block_train_fwd"),
+    ("vitxtgqa_tpu_torch.ops.block_train", "block_train_bwd_plain", "block_train_bwd"),
+]
+# name: (batch, Options fields, full-eval, training step).  The tiny wide
+# geometry of LAUNCH_CASES (384 joint rows: the flash route; 6 x 384 rows:
+# the block gate); the step with the QTV / MMT attention dropout at 0 (the
+# SP gate) and the hidden dropout at the config's 0.1, as slice k(iii)
+SP_LAUNCH_CASES = {
+    "sp_int8_b6": (6, dict(kv_cache_int8=True), False, False),
+    "sp_full_eval_b6": (6, dict(kv_cache_int8=True), True, False),
+    "sp_compact_b6": (6, dict(kv_cache_int8=True, compact_serving=True), False, False),
+    "sp_train_b2": (2, {}, False, True),
+}
+
+
+def _sp_launch_case(name):
+    b, opts, full_eval, train = SP_LAUNCH_CASES[name]
+    cfg = tiny_model_config(hidden=128, frames=FRAMES, ocr_per_frame=OCR_PF)
+    plain_cfg = {k: (copy.deepcopy(dict(v)) if hasattr(v, "items") else v) for k, v in cfg.items()}
+    for sect in ("grounding", "classifier"):
+        plain_cfg[sect] = {k: (dict(v) if hasattr(v, "items") else v)
+                           for k, v in plain_cfg[sect].items()}
+    if train:
+        for sect in ("translayers", "mmt"):
+            plain_cfg[sect]["attention_probs_dropout_prob"] = 0.0
+    nf = 32 + FRAMES * OCR_PF
+    batch = synthetic_batch(batch=b, frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4,
+                            text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                            num_final_outputs=nf, text_vocab=128, seed=0)
+    rng = np.random.default_rng(1)
+    state = T2S(cfg, nf, opts=cpu_options()).init_weights(0).state_dict()
+    return plain_cfg, dict(
+        kind="launches", cfg=plain_cfg, nf=nf, opts=opts, inference_only=not full_eval,
+        train=train, state=state, plain_of=SP_PLAIN_OF,
+        batch={k: np.asarray(v) for k, v in batch.items()},
+        noise=(rng.gumbel(size=(b, 2, FRAMES)).astype(np.float32),
+               rng.gumbel(size=(b, 2, FRAMES * OCR_PF)).astype(np.float32)),
+        losses=[{"type": "pos_bce_loss", "weight": 1.0}, {"type": "InfoNCE", "weight": 1000}])
+
+
+@pytest.fixture(scope="module")
+def sp_launches(tmp_path_factory):
+    cases = {name: _sp_launch_case(name)[1] for name in SP_LAUNCH_CASES}
+    return torch_sp_ranks.launch(cases, tmp_path_factory.mktemp("sp_launch_ranks"))
+
+
+@pytest.mark.parametrize("case", sorted(SP_LAUNCH_CASES))
+def test_expected_sp_launches_count_the_kernel_calls_of_each_rank(case, sp_launches):
+    """chip_smoke.expected_sp_launches against the calls each of two ranks
+    makes in a tiny sequence-parallel forward (serving, full-eval, compact)
+    or training step: the split-head flash (and its backward) where #1 (and
+    #1b) ran without SP, every other kernel as before."""
+    from vitxtgqa_tpu_torch import Options
+
+    b, opts, full_eval, train = SP_LAUNCH_CASES[case]
+    cfg, _ = _sp_launch_case(case)
+    want = CS.expected_sp_launches(cfg, b, Options(device="cpu", **opts), full_eval=full_eval,
+                                   train=train, text_len=10, dec_len=4)
+    assert want["flash_attention"] > 0 and not want["flash_attention_merged"]
+    if train:
+        assert want["flash_attention_bwd"] == want["flash_attention"] > 0
+    for rank in sp_launches:
+        got = {name: rank[case].get(name, 0) for name in CS.REPLACES}
+        assert got == want

@@ -376,6 +376,22 @@ def test_options_default_to_the_card():
         Options(remat="full")
 
 
+def test_options_resolve_the_dtype_by_device():
+    """The compute dtype defaults to bf16 on the card, whose kernels are
+    bf16, and float32 on the CPU; float32 on the card raises unless the
+    plain versions run (plain=True)."""
+    assert Options().dtype == torch.bfloat16
+    assert Options(device="cpu").dtype == torch.float32
+    assert Options(device="cpu", dtype=torch.bfloat16).dtype == torch.bfloat16
+    assert Options(dtype=torch.float32, plain=True).dtype == torch.float32
+    with pytest.raises(ValueError, match="bf16"):
+        Options(dtype=torch.float32)
+    with pytest.raises(ValueError, match="bf16"):
+        Options(device="cuda:0", dtype=torch.float32)
+    with pytest.raises(ValueError, match="compute dtype"):
+        Options(device="cpu", dtype=torch.float16)
+
+
 def _imports(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):

@@ -181,6 +181,27 @@ def test_an_hf_checkpoint_loads_after_the_prefix_strip():
     assert all(torch.equal(model.state_dict()[k], v) for k, v in sd.items())
 
 
+@pytest.mark.parametrize("wrap", ["model_blob", "module_prefix", "both"])
+def test_a_wrapped_checkpoint_loads_after_the_prefix_strip(wrap, tmp_path):
+    """A checkpoint saved as {"model": state_dict, ...} and / or with
+    DataParallel ``module.`` prefixes, which vitxtgqa_tpu's
+    load_state_dict unwraps, loads strictly into the port ViT through
+    torch.load(weights_only=True) and strip_vit_prefix, as video_feat.main
+    loads --weights."""
+    _, tcfg = _configs()
+    sd = TV.ViT(tcfg, cpu_options()).init_weights(5).state_dict()
+    blob = {f"vit.{k}": v.clone() for k, v in sd.items()}
+    blob["classifier.weight"] = torch.zeros(10, 128)
+    if wrap != "model_blob":
+        blob = {f"module.{k}": v for k, v in blob.items()}
+    if wrap != "module_prefix":
+        blob = {"model": blob, "epoch": torch.tensor(3)}
+    torch.save(blob, tmp_path / "ckpt.pth")
+    model = TV.ViT(tcfg, cpu_options())
+    model.load_state_dict(strip_vit_prefix(torch.load(tmp_path / "ckpt.pth", weights_only=True)))
+    assert all(torch.equal(model.state_dict()[k], v) for k, v in sd.items())
+
+
 def test_feature_extractor_matches_jax():
     """make_feature_extractor on uint8 frames (resized from 48 x 80) against
     the JAX extractor: CLS [B, D] float32."""

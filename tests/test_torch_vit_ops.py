@@ -172,6 +172,28 @@ def test_fused_attention_on_a_split_head_view():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("case", ["key_mask", "prefix_lm", "no_bias"])
+def test_fused_attention_grads_match_jax(case):
+    """The wrapper's output is a FusedAttentionFn node, whose backward
+    (recomputed through fused_attention_plain) gives q / k / v the
+    gradients of jax.grad through the JAX oracle mha_reference; on the card
+    the same node carries the kernel's output (chip_smoke.py holds the
+    384-px ViT's gradients through it)."""
+    from vitxtgqa_tpu.ops.attention import mha_reference
+
+    q, k, v, bias, _, _ = _attn_case(case)
+    g = _rand(np.random.default_rng(8), *q.shape)
+    jb = None if bias is None else jnp.asarray(bias)
+    want = jax.grad(lambda *a: jnp.sum(mha_reference(*a, jb) * jnp.asarray(g)),
+                    argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [T(a).requires_grad_() for a in (q, k, v)]
+    out = TFA.fused_attention(*leaves, None if bias is None else T(bias))
+    assert type(out.grad_fn).__name__ == "FusedAttentionFnBackward"
+    (out * T(g)).sum().backward()
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the split-head mha route against the JAX gate
 # ---------------------------------------------------------------------------
@@ -191,8 +213,10 @@ ROUTE_CASES = [
 def test_mha_takes_the_bias_kernel_where_the_jax_gate_does(kind, lq, lk, rate, monkeypatch):
     """The port's mha reaches fused_attention (#14) exactly where JAX's mha,
     with its Pallas path on, reaches pallas_attention.fused_attention; a
-    MaskSpec, which JAX sends to the split-head flash kernel (#10, not yet
-    ported) at equal lengths, takes the plain path in the port."""
+    MaskSpec, which JAX sends to the split-head flash kernel (#10) at equal
+    lengths, takes the plain path in the port's mha without sequence
+    parallelism (the port reaches #10 through sp_attention only; full
+    sequences take mha_merged's flash route)."""
     from vitxtgqa_tpu.ops import attention as JA
     from vitxtgqa_tpu.ops import masks as JM
     from vitxtgqa_tpu.ops import pallas_attention as JPA

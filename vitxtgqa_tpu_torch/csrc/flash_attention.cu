@@ -1,17 +1,31 @@
-// Merged-head flash attention, forward, with optional in-kernel dropout of
-// the attention probabilities and the row log-sum-exp for the backward.
+// Flash attention, forward, with optional in-kernel dropout of the
+// attention probabilities and the row log-sum-exp for the backward.
 //
 // Replaces: vitxtgqa_tpu/ops/pallas_attention.py:flash_attention_merged
-// (the Pallas body _flash_merged_kernel / _merged_heads_attend).  Computes,
-// per head h, softmax(Q_h K_h^T / sqrt(d) + mask) V_h on merged [B, L, H*D]
-// bf16 operands, with the mask built in-kernel from key_mask [B, L] plus a
+// (the Pallas body _flash_merged_kernel / _merged_heads_attend), and, as
+// its split-head form (#10), pallas_attention.py:flash_attention
+// (_flash_impl / _flash_kernel): q [B, H, Lq, 64] and k / v [B, H, Lk, 64]
+// read through their strides (the split-head views of the merged
+// projections, not copied), Lq != Lk (a sequence-parallel query shard
+// against the whole key range), and row_offset, the global row of query
+// row 0, which enters the mask and the dropout coordinates, so a shard's
+// rows are the unsharded call's rows.  The output is written [B, Lq, H,
+// 64]-major, so merge_heads and the ranks' row gather work on contiguous
+// row blocks.  One kernel body serves both, a template flag apart
+// (kSplit): the split form reads its offsets from a Geom of strides
+// (flash_attention.cuh); the merged form computes them from H as it did
+// before the split form existed, so #1's and #11's instantiations compile
+// as they did.
+//
+// Computes, per head h, softmax(Q_h K_h^T / sqrt(d) + mask) V_h on bf16
+// operands, with the mask built in-kernel from key_mask [B, Lk] plus a
 // trailing causal decoder block of dec_len rows (pallas_attention.py
-// _allowed): query row r may attend key c when key_mask[c] > 0, or when
-// both lie in the decoder block and c <= r.  Masked scores take -1e9.
+// _allowed): global query row r may attend key c when key_mask[c] > 0, or
+// when both lie in the decoder block and c <= r.  Masked scores take -1e9.
 // Training (rate > 0): the normalised probabilities are dropped where the
 // Philox bits of element (b, h, r, c) fall below the threshold
 // (philox.cuh) and the kept ones divided by 1 - rate, as
-// _merged_heads_attend does; lse [B, H, L] f32 receives m + log(l).
+// _merged_heads_attend does; lse [B, H, Lq] f32 receives m + log(l).
 //
 // What bounds it on the H100: at the training shape (B=48, L=1152, H=12,
 // D=64) one call is 4*B*L*L*H*D = 196 GFLOP against 4*B*L*H*D*2 bytes =
@@ -22,9 +36,12 @@
 // integer instructions each), which the integer units do beside the
 // tensor cores.
 //
+// #10 at its serving shape (q [8, 12, 576, 64] against [8, 12, 1152, 64])
+// is half of #1's work per rank: ~287 FLOP per byte, at the bf16 ridge.
+//
 // Design: one block of 4 warps per (64-row q tile, head, batch); heads are
-// read from the merged layout with a row stride of H*D, so no split/merge
-// copies.  The block walks the keys in 64-wide tiles with an online
+// read through their strides (merged: a row stride of H*D), so no
+// split/merge copies.  The block walks the keys in 64-wide tiles with an online
 // softmax: S = Q K^T through nvcuda::wmma bf16 m16n16k16 with f32
 // accumulate; each warp then handles two rows at a time, a lane owning four
 // consecutive keys (one Philox evaluation gives their four keep bits); the
@@ -51,6 +68,8 @@
 // and scale: 3 bytes an element over q/k/v/out's 8, in place of the
 // separate quantize_kv pass and its launch.  kEmit is a template flag, so
 // the eval and training forms compile as before.
+#include <type_traits>
+
 #include "flash_attention.cuh"
 
 namespace vt {
@@ -108,11 +127,11 @@ struct Emit {
   float* vs;
 };
 
-template <bool kEmit>
+template <bool kEmit, bool kSplit>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ key_mask,
-                 bf16* __restrict__ out, float* __restrict__ lse, int L, int H, int dec_len,
+                 bf16* __restrict__ out, float* __restrict__ lse, Geom g, int H, int dec_len,
                  float scale, const int64_t* __restrict__ seed_ptr, uint32_t threshold,
                  float keep_scale, Emit emit) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -126,21 +145,30 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = tid % 32;
   const int half = lane >> 4;       // which of the warp's two rows
   const int c0 = (lane & 15) * 4;   // this lane's four keys / output columns
-  const int row_stride = H * HD;
-  const size_t base = (size_t)b * L * row_stride + (size_t)h * HD;
-  const int l_enc = L - dec_len;
+  const int Lq = g.Lq, Lk = g.Lk;
+  const int row_stride = H * HD;  // the merged layout
+  const size_t merged = (size_t)b * Lk * row_stride + (size_t)h * HD;
+  const size_t qb = kSplit ? head_base(g.q, b, h) : merged;
+  const size_t kb = kSplit ? head_base(g.k, b, h) : merged;
+  const size_t vb = kSplit ? head_base(g.v, b, h) : merged;
+  const size_t ob = kSplit ? head_base(g.o, b, h) : merged;
+  using Stride = typename std::conditional<kSplit, long long, int>::type;
+  const Stride qs = kSplit ? g.q[2] : row_stride, ks = kSplit ? g.k[2] : row_stride;
+  const Stride vs = kSplit ? g.v[2] : row_stride, os = kSplit ? g.o[2] : row_stride;
+  const int row0 = kSplit ? g.row_offset : 0;
+  const int l_enc = Lk - dec_len;
   const bool dropout = seed_ptr != nullptr;
   const uint32_t seed = dropout ? (uint32_t)(*seed_ptr) : 0u;
 
-  if (kEmit && blockIdx.x == 0) {
-    const int per = (L + H - 1) / H;
-    const int r0 = h * per, r1 = min(L, r0 + per);
-    const size_t bb = (size_t)b * L * row_stride;
-    emit_int8(k + bb, emit.k8 + bb, emit.ks + (size_t)b * L, r0, r1, row_stride);
-    emit_int8(v + bb, emit.v8 + bb, emit.vs + (size_t)b * L, r0, r1, row_stride);
+  if (kEmit && blockIdx.x == 0) {  // the merged layout only
+    const int per = (Lk + H - 1) / H;
+    const int r0 = h * per, r1 = min(Lk, r0 + per);
+    const size_t bb = (size_t)b * Lk * row_stride;
+    emit_int8(k + bb, emit.k8 + bb, emit.ks + (size_t)b * Lk, r0, r1, row_stride);
+    emit_int8(v + bb, emit.v8 + bb, emit.vs + (size_t)b * Lk, r0, r1, row_stride);
   }
 
-  load_tile(sm.q, q, base, q0, L, row_stride);
+  load_tile(sm.q, q, qb, q0, Lq, qs);
   for (int i = tid; i < BQ * LDO; i += NT) sm.o[i] = 0.f;
   if (tid < BQ) {
     sm.m[tid] = -INFINITY;
@@ -148,10 +176,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
 
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    load_tile(sm.k, k, base, k0, L, row_stride);
-    load_tile(sm.v, v, base, k0, L, row_stride);
-    if (tid < BK) sm.kmask[tid] = (k0 + tid < L) ? key_mask[(size_t)b * L + k0 + tid] : 0.f;
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    load_tile(sm.k, k, kb, k0, Lk, ks);
+    load_tile(sm.v, v, vb, k0, Lk, vs);
+    if (tid < BK) sm.kmask[tid] = (k0 + tid < Lk) ? key_mask[(size_t)b * Lk + k0 + tid] : 0.f;
     __syncthreads();
 
     // S = Q K^T for this warp's 16 query rows
@@ -165,9 +193,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wmma::load_matrix_sync(a, &sm.q[(warp * 16) * LDB + kk * 16], LDB);
 #pragma unroll
         for (int j = 0; j < BK / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-          wmma::load_matrix_sync(kb, &sm.k[(j * 16) * LDB + kk * 16], LDB);
-          wmma::mma_sync(acc[j], a, kb, acc[j]);
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+          wmma::load_matrix_sync(kf, &sm.k[(j * 16) * LDB + kk * 16], LDB);
+          wmma::mma_sync(acc[j], a, kf, acc[j]);
         }
       }
 #pragma unroll
@@ -180,7 +208,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // online softmax, two rows at a time; a lane owns keys c0 .. c0 + 3
     for (int rr = 0; rr < 16; rr += 2) {
       const int row = warp * 16 + rr + half;
-      const int qrow = q0 + row;
+      const int qrow = row0 + q0 + row;  // global row
       const float4 s4 = *reinterpret_cast<const float4*>(&sm.s[row * LDS + c0]);
       const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
       float x[4];
@@ -189,7 +217,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int t = 0; t < 4; ++t) {
         const int col = k0 + c0 + t;
         x[t] = -INFINITY;  // past the sequence end: no weight at all
-        if (col < L) x[t] = allowed(sm.kmask[c0 + t], qrow, col, l_enc, dec_len) ? sv[t] * scale : kNeg;
+        if (col < Lk) x[t] = allowed(sm.kmask[c0 + t], qrow, col, l_enc, dec_len) ? sv[t] * scale : kNeg;
         mx = fmaxf(mx, x[t]);
       }
       mx = half_max(mx);
@@ -236,10 +264,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
         wmma::load_matrix_sync(pa, &sm.p[(warp * 16) * LDP + kk * 16], LDP);
-        wmma::load_matrix_sync(vb, &sm.v[(kk * 16) * LDB + j * 16], LDB);
-        wmma::mma_sync(oacc, pa, vb, oacc);
+        wmma::load_matrix_sync(vf, &sm.v[(kk * 16) * LDB + j * 16], LDB);
+        wmma::mma_sync(oacc, pa, vf, oacc);
       }
       wmma::store_matrix_sync(&sm.o[(warp * 16) * LDO + j * 16], oacc, LDO, wmma::mem_row_major);
     }
@@ -248,12 +276,28 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int i = tid; i < BQ * HD; i += NT) {
     const int r = i / HD, c = i % HD;
-    if (q0 + r < L)
-      out[base + (size_t)(q0 + r) * row_stride + c] =
+    if (q0 + r < Lq)
+      out[ob + (size_t)(q0 + r) * os + c] =
           __float2bfloat16(sm.o[r * LDO + c] / sm.l[r] * keep_scale);
   }
-  if (lse != nullptr && tid < BQ && q0 + tid < L)
-    lse[((size_t)b * H + h) * L + q0 + tid] = sm.m[tid] + logf(sm.l[tid]);
+  if (lse != nullptr && tid < BQ && q0 + tid < Lq)
+    lse[((size_t)b * H + h) * Lq + q0 + tid] = sm.m[tid] + logf(sm.l[tid]);
+}
+
+template <bool kEmit, bool kSplit>
+int launch_fwd(const void* q, const void* k, const void* v, const void* key_mask, void* out,
+               void* lse, const void* seed, Emit e, const Geom& g, int batch, int num_heads,
+               int dec_len, unsigned int threshold, float keep_scale, void* stream) {
+  auto kernel = flash_fwd_kernel<kEmit, kSplit>;
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((g.Lq + BQ - 1) / BQ, num_heads, batch);
+  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)key_mask, (bf16*)out,
+      (float*)lse, g, num_heads, dec_len, 1.0f / sqrtf((float)HD), (const int64_t*)seed,
+      (uint32_t)threshold, keep_scale, e);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace flash
@@ -274,15 +318,34 @@ extern "C" int vt_flash_attention_merged(const void* q, const void* k, const voi
   if (head_dim != HD) return (int)cudaErrorInvalidValue;
   const bool emit = k8 != nullptr;
   if (emit && (ks == nullptr || v8 == nullptr || vs == nullptr)) return (int)cudaErrorInvalidValue;
-  auto kernel = emit ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((seq_len + BQ - 1) / BQ, num_heads, batch);
   const Emit e = {(int8_t*)k8, (float*)ks, (int8_t*)v8, (float*)vs};
-  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const vt::bf16*)q, (const vt::bf16*)k, (const vt::bf16*)v, (const float*)key_mask,
-      (vt::bf16*)out, (float*)lse, seq_len, num_heads, dec_len,
-      1.0f / sqrtf((float)head_dim), (const int64_t*)seed, (uint32_t)threshold, keep_scale, e);
-  return (int)cudaGetLastError();
+  const Geom g = merged_geom(seq_len, num_heads);
+  return emit ? launch_fwd<true, false>(q, k, v, key_mask, out, lse, seed, e, g, batch,
+                                        num_heads, dec_len, threshold, keep_scale, stream)
+              : launch_fwd<false, false>(q, k, v, key_mask, out, lse, seed, e, g, batch,
+                                         num_heads, dec_len, threshold, keep_scale, stream);
+}
+
+// The split-head form (#10): q [B, H, Lq, 64], k / v [B, H, Lk, 64], out
+// [B, H, Lq, 64] bf16, each through its (batch, head, row) element strides
+// (strides: 12 int64, q, k, v, out), the last dimension contiguous and
+// every row 16-byte aligned; key_mask [B, Lk] f32; lse [B, H, Lq] f32 or
+// null; row_offset: the global row of query row 0; seed / threshold /
+// keep_scale as above.
+extern "C" int vt_flash_attention(const void* q, const void* k, const void* v,
+                                  const void* key_mask, void* out, void* lse, const void* seed,
+                                  const void* strides, int batch, int num_heads, int len_q,
+                                  int len_k, int head_dim, int dec_len, int row_offset,
+                                  unsigned int threshold, float keep_scale, void* stream) {
+  using namespace vt::flash;
+  if (head_dim != HD || batch <= 0 || num_heads <= 0 || len_q <= 0 || len_k <= 0 ||
+      dec_len < 0 || dec_len > len_k || row_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  Geom g = merged_geom(len_k, num_heads);
+  read_strides(g, (const long long*)strides, 4);
+  g.Lq = len_q;
+  g.row_offset = row_offset;
+  const Emit e = {nullptr, nullptr, nullptr, nullptr};
+  return launch_fwd<false, true>(q, k, v, key_mask, out, lse, seed, e, g, batch, num_heads,
+                                 dec_len, threshold, keep_scale, stream);
 }

@@ -1,16 +1,22 @@
-// Merged-head flash attention, backward: dq, dk and dv, with the
-// attention-probs dropout regenerated exactly as the forward drew it.
+// Flash attention, backward: dq, dk and dv, with the attention-probs
+// dropout regenerated exactly as the forward drew it.
 //
 // Replaces: vitxtgqa_tpu/ops/pallas_attention.py:_flash_merged_bwd_impl
-// (the Pallas body _flash_merged_bwd_kernel).  For each head, with
+// (the Pallas body _flash_merged_bwd_kernel), and, as its split-head form
+// (#10b), pallas_attention.py:_flash_bwd_impl (_flash_bwd_kernel): the
+// operands read and written through their strides (flash_attention.cuh
+// Geom), an Lq-row query shard at global row row_offset against Lk keys,
+// and dk / dv returned in f32, the shard's partial sums that the
+// sequence-parallel ranks add up before the cast (the TPU kernel's f32
+// accumulator blocks, summed by shard_map's psum).  For each head, with
 // P = exp(S * scale - lse) (the forward's mask, lse saved by the forward),
 // K_r = the forward's keep mask over 1 - rate (or 1 without dropout) and
 // D_i = rowsum(dO * O):
 //   dV = (P * K_r)^T dO
 //   dS = P * (K_r * (dO V^T) - D_i)
 //   dQ = dS K * scale,   dK = dS^T Q * scale
-// in f32 accumulation from bf16 operands; dq, dk and dv come back bf16 (the
-// dtypes of q, k and v).
+// in f32 accumulation from bf16 operands; dq comes back bf16, dk and dv
+// bf16 (#1b) or f32 (#10b).
 //
 // What bounds it on the H100: per allowed (query row, key) pair of a head
 // it does five products of 2 * 64 operations (S and dP = dO V^T
@@ -22,6 +28,9 @@
 // written; 0.20 ms at 3.35 TB/s): the bytes bind, by a hair
 // (chip_smoke.py, flash_bwd_bound).
 //
+// #10b at the SP training shape (q [4, 12, 576, 64] against [4, 12, 1152,
+// 64]) does half of #1b's work per rank and writes dk / dv in f32.
+//
 // Design: the TPU kernel walks the q-blocks in order and accumulates dk/dv
 // in resident output blocks.  Blocks on a GPU run in no order, so this is
 // two launches and no atomics:
@@ -29,7 +38,7 @@
 //     computes D_i for its rows from dO and O (and writes it out), then
 //     walks the key tiles accumulating dQ in wmma fragments;
 //  2. flash_bwd_dkv_kernel: a block per (64-key tile, head, batch) walks
-//     the q tiles and owns dK and dV for its keys (wmma fragments, a warp
+//     the (shard's) q tiles and owns dK and dV for its keys (wmma fragments, a warp
 //     per 16 keys), reading D_i written by launch 1.
 // Both recompute S and dO V^T per tile pair with nvcuda::wmma; the
 // elementwise phase has a warp on two rows at a time, a lane on four
@@ -91,15 +100,15 @@ __device__ __forceinline__ void rows_times_t(float* dst, const bf16* x, const bf
     wmma::store_matrix_sync(dst + j * 16, acc[j], LDS, wmma::mem_row_major);
 }
 
-// the elementwise phase for one (q row, four keys): P, the dropped and
-// rescaled P, and dS
+// the elementwise phase for one (global q row, four keys): P, the dropped
+// and rescaled P, and dS
 struct Elem {
   float p[4], pd[4], ds[4];
 };
 
 __device__ __forceinline__ Elem elementwise(const float* s_row, const float* dp_row, int c0,
                                             int k0, int qrow, const float* kmask, float lse,
-                                            float di, int L, int l_enc, int dec_len,
+                                            float di, int Lk, int l_enc, int dec_len,
                                             float scale, bool dropout, uint32_t seed,
                                             uint32_t threshold, float keep_scale, int h,
                                             int b) {
@@ -114,7 +123,7 @@ __device__ __forceinline__ Elem elementwise(const float* s_row, const float* dp_
   for (int t = 0; t < 4; ++t) {
     const int col = k0 + c0 + t;
     float p = 0.f;
-    if (col < L) {
+    if (col < Lk) {
       const float x = allowed(kmask[c0 + t], qrow, col, l_enc, dec_len) ? sv[t] * scale : kNeg;
       p = expf(x - lse);
     }
@@ -125,6 +134,9 @@ __device__ __forceinline__ Elem elementwise(const float* s_row, const float* dp_
   }
   return e;
 }
+
+__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
 
 __device__ __forceinline__ void store4(bf16* dst, const float v[4]) {
   __align__(8) bf16 vb[4];
@@ -138,7 +150,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ key_mask,
                     const bf16* __restrict__ o, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ di_out,
-                    bf16* __restrict__ dq, int L, int H, int dec_len, float scale,
+                    bf16* __restrict__ dq, Geom g, int H, int dec_len, float scale,
                     const int64_t* __restrict__ seed_ptr, uint32_t threshold,
                     float keep_scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -146,40 +158,43 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int half = lane >> 4, c0 = (lane & 15) * 4;
-  const int row_stride = H * HD;
-  const size_t base = (size_t)b * L * row_stride + (size_t)h * HD;
-  const size_t stat = ((size_t)b * H + h) * L;
-  const int l_enc = L - dec_len;
+  const int Lq = g.Lq, Lk = g.Lk;
+  const size_t qb = head_base(g.q, b, h), kb = head_base(g.k, b, h);
+  const size_t vb = head_base(g.v, b, h), ob = head_base(g.o, b, h);
+  const size_t gb = head_base(g.dout, b, h), dqb = head_base(g.dq, b, h);
+  const size_t stat = ((size_t)b * H + h) * Lq;
+  const int l_enc = Lk - dec_len;
   const bool dropout = seed_ptr != nullptr;
   const uint32_t seed = dropout ? (uint32_t)(*seed_ptr) : 0u;
 
-  load_tile(sm.q, q, base, q0, L, row_stride);
-  load_tile(sm.dout, dout, base, q0, L, row_stride);
+  load_tile(sm.q, q, qb, q0, Lq, g.q[2]);
+  load_tile(sm.dout, dout, gb, q0, Lq, g.dout[2]);
   // D_i = rowsum(dO * O): a warp per row, two columns a lane
   for (int r = warp; r < BQ; r += NT / 32) {
     float acc = 0.f;
-    if (q0 + r < L) {
-      const size_t g = base + (size_t)(q0 + r) * row_stride;
+    if (q0 + r < Lq) {
+      const bf16* gr = dout + gb + (size_t)((q0 + r) * g.dout[2]);
+      const bf16* orow = o + ob + (size_t)((q0 + r) * g.o[2]);
       for (int c = lane; c < HD; c += 32)
-        acc += __bfloat162float(dout[g + c]) * __bfloat162float(o[g + c]);
+        acc += __bfloat162float(gr[c]) * __bfloat162float(orow[c]);
     }
     acc = warp_sum(acc);
     if (lane == 0) {
       sm.di[r] = acc;
-      if (q0 + r < L) di_out[stat + q0 + r] = acc;
+      if (q0 + r < Lq) di_out[stat + q0 + r] = acc;
     }
   }
-  if (tid < BQ) sm.lse[tid] = (q0 + tid < L) ? lse[stat + q0 + tid] : 0.f;
+  if (tid < BQ) sm.lse[tid] = (q0 + tid < Lq) ? lse[stat + q0 + tid] : 0.f;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq_acc[HD / 16];
 #pragma unroll
   for (int j = 0; j < HD / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.f);
   __syncthreads();
 
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    load_tile(sm.k, k, base, k0, L, row_stride);
-    load_tile(sm.v, v, base, k0, L, row_stride);
-    if (tid < BK) sm.kmask[tid] = (k0 + tid < L) ? key_mask[(size_t)b * L + k0 + tid] : 0.f;
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    load_tile(sm.k, k, kb, k0, Lk, g.k[2]);
+    load_tile(sm.v, v, vb, k0, Lk, g.v[2]);
+    if (tid < BK) sm.kmask[tid] = (k0 + tid < Lk) ? key_mask[(size_t)b * Lk + k0 + tid] : 0.f;
     __syncthreads();
 
     rows_times_t(&sm.s[(warp * 16) * LDS], &sm.q[(warp * 16) * LDB], sm.k);
@@ -187,8 +202,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncwarp();
     for (int rr = 0; rr < 16; rr += 2) {
       const int row = warp * 16 + rr + half;
-      const Elem e = elementwise(&sm.s[row * LDS], &sm.dp[row * LDS], c0, k0, q0 + row,
-                                 sm.kmask, sm.lse[row], sm.di[row], L, l_enc, dec_len, scale,
+      const Elem e = elementwise(&sm.s[row * LDS], &sm.dp[row * LDS], c0, k0,
+                                 g.row_offset + q0 + row, sm.kmask, sm.lse[row], sm.di[row],
+                                 Lk, l_enc, dec_len, scale,
                                  dropout, seed, threshold, keep_scale, h, b);
       store4(&sm.ds[row * LDP + c0], e.ds);
     }
@@ -200,9 +216,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::load_matrix_sync(a, &sm.ds[(warp * 16) * LDP + kk * 16], LDP);
 #pragma unroll
       for (int j = 0; j < HD / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kb;
-        wmma::load_matrix_sync(kb, &sm.k[(kk * 16) * LDB + j * 16], LDB);
-        wmma::mma_sync(dq_acc[j], a, kb, dq_acc[j]);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kf;
+        wmma::load_matrix_sync(kf, &sm.k[(kk * 16) * LDB + j * 16], LDB);
+        wmma::mma_sync(dq_acc[j], a, kf, dq_acc[j]);
       }
     }
     __syncthreads();  // K/V tiles are overwritten next
@@ -216,17 +232,19 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   for (int i = tid; i < BQ * HD; i += NT) {
     const int r = i / HD, c = i % HD;
-    if (q0 + r < L)
-      dq[base + (size_t)(q0 + r) * row_stride + c] = __float2bfloat16(sm.s[r * LDS + c] * scale);
+    if (q0 + r < Lq)
+      dq[dqb + (size_t)((q0 + r) * g.dq[2]) + c] = __float2bfloat16(sm.s[r * LDS + c] * scale);
   }
 }
 
+// TG: the type of dk / dv (bf16 for #1b, f32 for #10b)
+template <typename TG>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ key_mask,
                      const bf16* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ di, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int L, int H, int dec_len, float scale,
+                     const float* __restrict__ di, TG* __restrict__ dk,
+                     TG* __restrict__ dv, Geom g, int H, int dec_len, float scale,
                      const int64_t* __restrict__ seed_ptr, uint32_t threshold,
                      float keep_scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -234,16 +252,18 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int half = lane >> 4, c0 = (lane & 15) * 4;
-  const int row_stride = H * HD;
-  const size_t base = (size_t)b * L * row_stride + (size_t)h * HD;
-  const size_t stat = ((size_t)b * H + h) * L;
-  const int l_enc = L - dec_len;
+  const int Lq = g.Lq, Lk = g.Lk;
+  const size_t qb = head_base(g.q, b, h), kb = head_base(g.k, b, h);
+  const size_t vb = head_base(g.v, b, h), gb = head_base(g.dout, b, h);
+  const size_t dkb = head_base(g.dk, b, h), dvb = head_base(g.dv, b, h);
+  const size_t stat = ((size_t)b * H + h) * Lq;
+  const int l_enc = Lk - dec_len;
   const bool dropout = seed_ptr != nullptr;
   const uint32_t seed = dropout ? (uint32_t)(*seed_ptr) : 0u;
 
-  load_tile(sm.k, k, base, k0, L, row_stride);
-  load_tile(sm.v, v, base, k0, L, row_stride);
-  if (tid < BK) sm.kmask[tid] = (k0 + tid < L) ? key_mask[(size_t)b * L + k0 + tid] : 0.f;
+  load_tile(sm.k, k, kb, k0, Lk, g.k[2]);
+  load_tile(sm.v, v, vb, k0, Lk, g.v[2]);
+  if (tid < BK) sm.kmask[tid] = (k0 + tid < Lk) ? key_mask[(size_t)b * Lk + k0 + tid] : 0.f;
 
   // this warp's 16 keys: dK and dV [16, 64] each
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[HD / 16], dv_acc[HD / 16];
@@ -253,11 +273,11 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wmma::fill_fragment(dv_acc[j], 0.f);
   }
 
-  for (int q0 = 0; q0 < L; q0 += BQ) {
-    load_tile(sm.q, q, base, q0, L, row_stride);
-    load_tile(sm.dout, dout, base, q0, L, row_stride);
+  for (int q0 = 0; q0 < Lq; q0 += BQ) {
+    load_tile(sm.q, q, qb, q0, Lq, g.q[2]);
+    load_tile(sm.dout, dout, gb, q0, Lq, g.dout[2]);
     if (tid < BQ) {
-      const bool in = q0 + tid < L;
+      const bool in = q0 + tid < Lq;
       sm.lse[tid] = in ? lse[stat + q0 + tid] : 0.f;
       sm.di[tid] = in ? di[stat + q0 + tid] : 0.f;
     }
@@ -270,10 +290,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int rr = 0; rr < 16; rr += 2) {
       const int row = warp * 16 + rr + half;
       const int qrow = q0 + row;
-      Elem e = elementwise(&sm.s[row * LDS], &sm.dp[row * LDS], c0, k0, qrow, sm.kmask,
-                           sm.lse[row], sm.di[row], L, l_enc, dec_len, scale, dropout, seed,
-                           threshold, keep_scale, h, b);
-      if (qrow >= L) {  // pad rows of the last q tile contribute nothing
+      Elem e = elementwise(&sm.s[row * LDS], &sm.dp[row * LDS], c0, k0, g.row_offset + qrow,
+                           sm.kmask, sm.lse[row], sm.di[row], Lk, l_enc, dec_len, scale,
+                           dropout, seed, threshold, keep_scale, h, b);
+      if (qrow >= Lq) {  // pad rows of the last q tile contribute nothing
 #pragma unroll
         for (int t = 0; t < 4; ++t) e.pd[t] = e.ds[t] = 0.f;
       }
@@ -290,17 +310,17 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::load_matrix_sync(sa, &sm.ds[(kk * 16) * LDP + warp * 16], LDP);
 #pragma unroll
       for (int j = 0; j < HD / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> ob, qb;
-        wmma::load_matrix_sync(ob, &sm.dout[(kk * 16) * LDB + j * 16], LDB);
-        wmma::load_matrix_sync(qb, &sm.q[(kk * 16) * LDB + j * 16], LDB);
-        wmma::mma_sync(dv_acc[j], pa, ob, dv_acc[j]);
-        wmma::mma_sync(dk_acc[j], sa, qb, dk_acc[j]);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> of, qf;
+        wmma::load_matrix_sync(of, &sm.dout[(kk * 16) * LDB + j * 16], LDB);
+        wmma::load_matrix_sync(qf, &sm.q[(kk * 16) * LDB + j * 16], LDB);
+        wmma::mma_sync(dv_acc[j], pa, of, dv_acc[j]);
+        wmma::mma_sync(dk_acc[j], sa, qf, dk_acc[j]);
       }
     }
     __syncthreads();  // q / dO / P / dS tiles are overwritten next
   }
 
-  // stage through the score tiles, then write bf16
+  // stage through the score tiles, then write
 #pragma unroll
   for (int j = 0; j < HD / 16; ++j) {
     wmma::store_matrix_sync(&sm.s[(warp * 16) * LDS + j * 16], dk_acc[j], LDS,
@@ -311,12 +331,38 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   for (int i = tid; i < BK * HD; i += NT) {
     const int r = i / HD, c = i % HD;
-    if (k0 + r < L) {
-      const size_t g = base + (size_t)(k0 + r) * row_stride + c;
-      dk[g] = __float2bfloat16(sm.s[r * LDS + c] * scale);
-      dv[g] = __float2bfloat16(sm.dp[r * LDS + c]);
+    if (k0 + r < Lk) {
+      put(dk + dkb + (size_t)((k0 + r) * g.dk[2]) + c, sm.s[r * LDS + c] * scale);
+      put(dv + dvb + (size_t)((k0 + r) * g.dv[2]) + c, sm.dp[r * LDS + c]);
     }
   }
+}
+
+template <typename TG>
+int launch_bwd(const void* q, const void* k, const void* v, const void* key_mask,
+               const void* out, const void* dout, const void* lse, void* di, void* dq, void* dk,
+               void* dv, const void* seed, const Geom& g, int batch, int num_heads, int dec_len,
+               unsigned int threshold, float keep_scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  auto dkv_kernel = flash_bwd_dkv_kernel<TG>;
+  const int smem_dq = (int)sizeof(SmemDq), smem_dkv = (int)sizeof(SmemDkv);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
+  if (err != cudaSuccess) return (int)err;
+  const float scale = 1.0f / sqrtf((float)HD);
+  flash_bwd_dq_kernel<<<dim3((g.Lq + BQ - 1) / BQ, num_heads, batch), NT, smem_dq, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)key_mask, (const bf16*)out,
+      (const bf16*)dout, (const float*)lse, (float*)di, (bf16*)dq, g, num_heads, dec_len,
+      scale, (const int64_t*)seed, (uint32_t)threshold, keep_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkv_kernel<<<dim3((g.Lk + BK - 1) / BK, num_heads, batch), NT, smem_dkv, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)key_mask, (const bf16*)dout,
+      (const float*)lse, (const float*)di, (TG*)dk, (TG*)dv, g, num_heads, dec_len, scale,
+      (const int64_t*)seed, (uint32_t)threshold, keep_scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace flash
@@ -333,27 +379,34 @@ extern "C" int vt_flash_attention_merged_bwd(const void* q, const void* k, const
                                              int head_dim, int dec_len, unsigned int threshold,
                                              float keep_scale, void* stream) {
   using namespace vt::flash;
-  using vt::bf16;
   if (head_dim != HD) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int smem_dq = (int)sizeof(SmemDq), smem_dkv = (int)sizeof(SmemDkv);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dkv);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = 1.0f / sqrtf((float)head_dim);
-  const dim3 grid((seq_len + BQ - 1) / BQ, num_heads, batch);
-  flash_bwd_dq_kernel<<<grid, NT, smem_dq, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)key_mask, (const bf16*)out,
-      (const bf16*)dout, (const float*)lse, (float*)di, (bf16*)dq, seq_len, num_heads, dec_len,
-      scale, (const int64_t*)seed, (uint32_t)threshold, keep_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<<<grid, NT, smem_dkv, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)key_mask, (const bf16*)dout,
-      (const float*)lse, (const float*)di, (bf16*)dk, (bf16*)dv, seq_len, num_heads, dec_len,
-      scale, (const int64_t*)seed, (uint32_t)threshold, keep_scale);
-  return (int)cudaGetLastError();
+  return launch_bwd<vt::bf16>(q, k, v, key_mask, out, dout, lse, di, dq, dk, dv, seed,
+                              merged_geom(seq_len, num_heads), batch, num_heads, dec_len,
+                              threshold, keep_scale, stream);
+}
+
+// The split-head form (#10b): q, out, dout, dq [B, H, Lq, 64] bf16; k, v
+// [B, H, Lk, 64] bf16; dk, dv [B, H, Lk, 64] f32; each through its (batch,
+// head, row) element strides (strides: 24 int64, q, k, v, out, dout, dq,
+// dk, dv), the last dimension contiguous and the bf16 rows 16-byte
+// aligned; key_mask [B, Lk] f32; lse [B, H, Lq] f32 from the forward; di
+// [B, H, Lq] f32 scratch; row_offset, seed, threshold, keep_scale as the
+// forward's.
+extern "C" int vt_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                      const void* key_mask, const void* out, const void* dout,
+                                      const void* lse, void* di, void* dq, void* dk, void* dv,
+                                      const void* seed, const void* strides, int batch,
+                                      int num_heads, int len_q, int len_k, int head_dim,
+                                      int dec_len, int row_offset, unsigned int threshold,
+                                      float keep_scale, void* stream) {
+  using namespace vt::flash;
+  if (head_dim != HD || batch <= 0 || num_heads <= 0 || len_q <= 0 || len_k <= 0 ||
+      dec_len < 0 || dec_len > len_k || row_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  Geom g = merged_geom(len_k, num_heads);
+  read_strides(g, (const long long*)strides, 8);
+  g.Lq = len_q;
+  g.row_offset = row_offset;
+  return launch_bwd<float>(q, k, v, key_mask, out, dout, lse, di, dq, dk, dv, seed, g, batch,
+                           num_heads, dec_len, threshold, keep_scale, stream);
 }

@@ -57,19 +57,6 @@ struct BiasSmem {
   float l[BQ];
 };
 
-// rows [r0, r0 + 64) of one head's [L, 64] slice at element offset base
-// with row stride rs, zero past L (rs as a 64-bit stride)
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, size_t base,
-                                          int r0, int L, long long rs) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < 64 * (HD / 8); i += NT) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    uint4 val = zero;
-    if (r0 + r < L) val = *reinterpret_cast<const uint4*>(src + base + (size_t)((r0 + r) * rs) + c);
-    *reinterpret_cast<uint4*>(&dst[r * LDB + c]) = val;
-  }
-}
-
 __global__ void __launch_bounds__(NT)
 bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -90,7 +77,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t vb = (size_t)(b * st.v[0] + h * st.v[1]);
   const float* brow = bias == nullptr ? nullptr : bias + b * st.bias[0];
 
-  load_rows(sm.q, q, qb, q0, Lq, st.q[2]);
+  load_tile(sm.q, q, qb, q0, Lq, st.q[2]);
   for (int i = tid; i < BQ * LDO; i += NT) sm.o[i] = 0.f;
   if (tid < BQ) {
     sm.m[tid] = -INFINITY;
@@ -99,8 +86,8 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   for (int k0 = 0; k0 < Lk; k0 += BK) {
-    load_rows(sm.k, k, kb, k0, Lk, st.k[2]);
-    load_rows(sm.v, v, vb, k0, Lk, st.v[2]);
+    load_tile(sm.k, k, kb, k0, Lk, st.k[2]);
+    load_tile(sm.v, v, vb, k0, Lk, st.v[2]);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 query rows

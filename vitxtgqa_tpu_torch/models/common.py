@@ -17,6 +17,11 @@ post-attention block as ops/block_train.BlockTrainFn (the JAX
 one dropout seed per call from ``gen``; the embeddings' and the 20-key text
 BERT's attention dropouts draw their masks from ``gen``.  The eval fused
 block (``_fused_block_ok``) never runs in training, as in JAX.
+
+Sequence parallelism: every layer passes ``opts.sp`` to the attention
+routing (ops/attention.py), which splits the query rows over the ranks
+where the JAX gates do; the projections and the post-attention block run
+on all rows on every rank.
 """
 
 from __future__ import annotations
@@ -208,19 +213,19 @@ class TransformerLayer(nn.Module):
         if return_kv and quantize:
             ctx, kq, vq = mha_merged_quantize(self.query(x), self.key(x), self.value(x), bias,
                                               self.cfg.num_attention_heads,
-                                              plain=self.opts.plain)
+                                              plain=self.opts.plain, sp=self.opts.sp)
             return self._finish(x, ctx), (kq, vq)
         if train:
             cfg = self.cfg
             rate = cfg.attention_probs_dropout_prob if gen is not None else 0.0
             ctx = attention_train(x, self.query, self.key, self.value, bias,
                                   cfg.num_attention_heads, rate, gen, self.opts.remat,
-                                  self.opts.plain)
+                                  self.opts.plain, sp=self.opts.sp)
             y = self._finish_train(x, ctx, gen)
             return y if tanh_residual_base is None else tanh_residual_base + torch.tanh(y)
         k_raw, v_raw = self.key(x), self.value(x)
         ctx = mha_merged(self.query(x), k_raw, v_raw, bias,
-                         self.cfg.num_attention_heads, plain=self.opts.plain)
+                         self.cfg.num_attention_heads, plain=self.opts.plain, sp=self.opts.sp)
         y = self._finish(x, ctx, tanh_residual_base)
         return (y, (k_raw, v_raw)) if return_kv else y
 

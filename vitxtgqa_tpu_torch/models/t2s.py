@@ -122,7 +122,7 @@ class T2S(JointQAModel):
         super().__init__()
         if decode_recompute:
             raise NotImplementedError(
-                "the recompute decode oracle (_recompute_decode) is ROADMAP.md queue 1 item 5"
+                "the recompute decode oracle (_recompute_decode) is ROADMAP.md queue 1 item 2"
             )
         self.opts = opts
         self.inference_only = inference_only

@@ -96,7 +96,7 @@ class ViTLayer(nn.Module):
         sa = self.attention["attention"]
         h = self.layernorm_before(x)
         q, k, v = (split_heads(sa[n](h), heads) for n in ("query", "key", "value"))
-        ctx = mha(q, k, v, plain=self.opts.plain)
+        ctx = mha(q, k, v, plain=self.opts.plain, sp=self.opts.sp)
         x = x + self.attention["output"]["dense"](merge_heads(ctx))
         return x + self.mlp(self.layernorm_after(x), deterministic)
 
@@ -188,7 +188,7 @@ def make_feature_extractor(cfg: ViTConfig = VIT_L_16, state: Optional[dict] = No
     D] in float32 on the model's device.  Without ``state`` the weights are
     random from seed 0; without ``options`` the model runs on the card in
     bf16, the dtype the kernels take."""
-    opts = options if options is not None else Options(dtype=torch.bfloat16)
+    opts = options if options is not None else Options()
     model = ViT(cfg, opts)
     if state is None:
         model.init_weights(0)

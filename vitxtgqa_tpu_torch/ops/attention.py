@@ -11,6 +11,13 @@ one query row and no dropout (the ViT from 256 tokens).  Each kernel wrapper lau
 tensors and runs its plain version on CPU tensors; ``plain=True`` takes
 the plain version on any device (the oracle mode of ``Options.plain``).
 
+Sequence parallelism (``sp``, an SPGroup; the JAX set_sequence_parallel):
+``mha`` sends full-sequence attention with no dropout to
+parallel/sequence_parallel.sp_attention before any other gate, and
+``mha_merged``, ``mha_merged_quantize`` and ``attention_train`` split the
+heads and take it where the JAX gates do.  Decode steps (one query row)
+never take it.
+
 Training: ``AttentionFn`` is the flash route as one autograd node — the
 q/k/v projections, the flash forward (with its in-kernel dropout of the
 probabilities) and, in the backward, the flash backward kernel and the
@@ -97,15 +104,28 @@ def fused_attention_ok(bias, len_q: int, len_k: int, dropout_rate: float) -> boo
             and dropout_rate == 0.0)
 
 
-def mha(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None, plain: bool = False):
+def sp_active(sp, length: int, dropout_rate: float = 0.0) -> bool:
+    """The JAX gate of the sequence-parallel route: an ``sp`` group (the
+    JAX set_sequence_parallel), no dropout and a sequence that the ranks
+    divide."""
+    return sp is not None and dropout_rate == 0.0 and length % sp.size == 0
+
+
+def mha(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None, plain: bool = False, sp=None):
     """[B, H, Lq, Dh] attention; ``bias`` is an additive bias array, None,
-    or a spec.  A MaskSpec takes the plain path here: its split-head flash
-    kernel (pallas_attention.flash_attention, #10) is still to port
-    (ROADMAP.md queue 2).  An array bias or none takes the bias-tensor
-    kernel (#14) where fused_attention_ok holds, or its plain version with
+    or a spec.  Under ``sp`` (an SPGroup) full-sequence attention (Lq ==
+    Lk) with no dropout is sequence-parallel (parallel/sequence_parallel.py,
+    the flash kernel #10 for a MaskSpec at >= MIN_KV keys).  Otherwise a
+    MaskSpec takes the plain path here (full sequences take mha_merged's
+    flash route), and an array bias or none takes the bias-tensor kernel
+    (#14) where fused_attention_ok holds, or its plain version with
     ``plain`` or on CPU tensors."""
     if isinstance(bias, DecodeStepSpec):
         bias = bias.to_bias()
+    if q.shape[2] == k.shape[2] and sp_active(sp, q.shape[2], dropout_rate):
+        from vitxtgqa_tpu_torch.parallel.sequence_parallel import sp_attention
+
+        return sp_attention(q, k, v, bias, sp, plain)
     if isinstance(bias, MaskSpec):
         bias = bias.to_bias()
     elif fused_attention_ok(bias, q.shape[2], k.shape[2], dropout_rate):
@@ -118,27 +138,31 @@ def flash_ok(bias, num_keys: int) -> bool:
     return isinstance(bias, MaskSpec) and num_keys >= MIN_KV
 
 
-def mha_merged(q_raw, k_raw, v_raw, bias, num_heads: int, plain: bool = False):
-    """Full-sequence attention in merged-head layout; returns [B, L, H*D]."""
-    if flash_ok(bias, k_raw.shape[1]):
+def mha_merged(q_raw, k_raw, v_raw, bias, num_heads: int, plain: bool = False, sp=None):
+    """Full-sequence attention in merged-head layout; returns [B, L, H*D].
+    Under ``sp`` (sp_active) the heads are split and ``mha`` takes the
+    sequence-parallel route, as the JAX mha_merged does."""
+    if flash_ok(bias, k_raw.shape[1]) and not sp_active(sp, q_raw.shape[1]):
         fn = flash_attention_merged_plain if plain else flash_attention_merged
         return fn(q_raw, k_raw, v_raw, bias.key_mask.float().contiguous(),
                   bias.dec_len, num_heads)
     ctx = mha(split_heads(q_raw, num_heads), split_heads(k_raw, num_heads),
-              split_heads(v_raw, num_heads), bias)
+              split_heads(v_raw, num_heads), bias, plain=plain, sp=sp)
     return merge_heads(ctx)
 
 
-def mha_merged_quantize(q_raw, k_raw, v_raw, bias, num_heads: int, plain: bool = False):
+def mha_merged_quantize(q_raw, k_raw, v_raw, bias, num_heads: int, plain: bool = False,
+                        sp=None):
     """mha_merged (eval) with this layer's int8 decode cache: (ctx, (k8,
     ks), (v8, vs)).  On the flash route one launch emits both
-    (flash_attention_merged_q8); elsewhere mha_merged and quantize_kv, the
-    same bits."""
-    if flash_ok(bias, k_raw.shape[1]):
+    (flash_attention_merged_q8); elsewhere, and under ``sp`` (the JAX gate,
+    which has no dropout term here), mha_merged and quantize_kv, the same
+    bits."""
+    if flash_ok(bias, k_raw.shape[1]) and not sp_active(sp, q_raw.shape[1]):
         fn = flash_attention_merged_q8_plain if plain else flash_attention_merged_q8
         return fn(q_raw, k_raw, v_raw, bias.key_mask.float().contiguous(), bias.dec_len,
                   num_heads)
-    ctx = mha_merged(q_raw, k_raw, v_raw, bias, num_heads, plain=plain)
+    ctx = mha_merged(q_raw, k_raw, v_raw, bias, num_heads, plain=plain, sp=sp)
     return ctx, quantize_kv(k_raw), quantize_kv(v_raw)
 
 
@@ -185,13 +209,20 @@ class AttentionFn(torch.autograd.Function):
 
 
 def attention_train(x, layer_q, layer_k, layer_v, bias, num_heads: int, rate: float, gen,
-                    remat: str, plain: bool):
+                    remat: str, plain: bool, sp=None):
     """Training self-attention of one layer from its input x ([B, L, D]);
-    returns the merged context [B, L, H*D].  On the flash route the whole
-    of it is AttentionFn, with one seed from ``gen`` for the in-kernel
-    dropout; elsewhere (the text BERT's 20 keys) the projections and the
-    plain attention run under autograd, the probabilities dropped with a
-    mask drawn from ``gen``."""
+    returns the merged context [B, L, H*D].  Under ``sp`` at rate 0
+    (sp_active) the projections run under autograd and the attention is
+    sequence-parallel (SPAttentionFn: the #10 forward and backward on the
+    flash route).  Otherwise, on the flash route the whole of it is
+    AttentionFn, with one seed from ``gen`` for the in-kernel dropout;
+    elsewhere (the text BERT's 20 keys) the projections and the plain
+    attention run under autograd, the probabilities dropped with a mask
+    drawn from ``gen``."""
+    if sp_active(sp, x.shape[1], rate):
+        ctx = mha(split_heads(layer_q(x), num_heads), split_heads(layer_k(x), num_heads),
+                  split_heads(layer_v(x), num_heads), bias, plain=plain, sp=sp)
+        return merge_heads(ctx)
     if flash_ok(bias, x.shape[1]):
         seed = D.draw_seed(gen, x.device) if rate > 0.0 else None
         return AttentionFn.apply(x, layer_q.weight, layer_q.bias, layer_k.weight, layer_k.bias,

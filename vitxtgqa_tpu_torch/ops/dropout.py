@@ -80,8 +80,11 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
 
 
 def philox_bits(seed: Seed, stream: int, shape: Sequence[int],
-                device: Optional[torch.device] = None) -> torch.Tensor:
-    """uint32 bits (as int64) of a mask of ``shape`` (up to 4 dims)."""
+                device: Optional[torch.device] = None, row_offset: int = 0) -> torch.Tensor:
+    """uint32 bits (as int64) of a mask of ``shape`` (up to 4 dims); with
+    ``row_offset`` the rows (the second-to-last dim) of a mask whose
+    coordinates start there: a sequence-parallel query shard's rows of
+    the whole sequence's mask."""
     if isinstance(seed, torch.Tensor):
         device = seed.device if device is None else device
         seed = seed.reshape(()).to(device=device, dtype=torch.int64)
@@ -92,16 +95,17 @@ def philox_bits(seed: Seed, stream: int, shape: Sequence[int],
     g0 = -(-n0 // 4)
     ar = lambda n, dim: torch.arange(n, device=device, dtype=torch.int64).reshape(
         [n if i == dim else 1 for i in range(4)])
-    words = philox4x32(ar(g0, 3), ar(n1, 2), ar(n2, 1), ar(n3, 0), seed, stream)
+    words = philox4x32(ar(g0, 3), ar(n1, 2) + row_offset, ar(n2, 1), ar(n3, 0), seed, stream)
     full = torch.broadcast_shapes(*(w.shape for w in words))
     bits = torch.stack([w.expand(full) for w in words], dim=-1).reshape(n3, n2, n1, g0 * 4)
     return bits[..., :n0].reshape(shape)
 
 
 def keep_mask(seed: Seed, stream: int, shape: Sequence[int], rate: float,
-              device: Optional[torch.device] = None) -> torch.Tensor:
-    """Bool keep mask of ``shape``: P(keep) = 1 - rate."""
-    return philox_bits(seed, stream, shape, device) >= threshold(rate)
+              device: Optional[torch.device] = None, row_offset: int = 0) -> torch.Tensor:
+    """Bool keep mask of ``shape``: P(keep) = 1 - rate (``row_offset``: see
+    philox_bits)."""
+    return philox_bits(seed, stream, shape, device, row_offset) >= threshold(rate)
 
 
 def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:

@@ -1,21 +1,29 @@
-"""Merged-head flash attention, forward (with in-kernel dropout of the
+"""Flash attention: the merged-head forward (with in-kernel dropout of the
 attention probabilities, or with the emission of the int8 decode cache)
-and backward: the kernel wrappers and their plain PyTorch versions.
+and backward, and the split-head forward and backward with a query-row
+offset (sequence parallelism): the kernel wrappers and their plain PyTorch
+versions.
 
 Counterpart of vitxtgqa_tpu/ops/pallas_attention.py:flash_attention_merged,
-flash_attention_merged_q8 and the backward _flash_merged_bwd_impl.  The
-CUDA kernels are
+flash_attention_merged_q8 and the backward _flash_merged_bwd_impl (#1,
+#11, #1b), and of flash_attention with its backward _flash_bwd_impl (#10,
+#10b), which only the sequence-parallel attention reaches
+(parallel/sequence_parallel.py).  The CUDA kernels are
 csrc/flash_attention.cu and csrc/flash_attention_bwd.cu.  On a CUDA tensor
 a wrapper launches its kernel (or raises); on a CPU tensor it runs the
 plain version, which is also the oracle the kernel is checked against on
 the card.  Dropout keeps the probability of element (b, h, row, key) where
-its Philox bits pass the threshold (ops/dropout.py, stream 0), so the
-forward, the backward and the plain versions draw the same mask.
+its Philox bits pass the threshold (ops/dropout.py, stream 0), with the
+row counted in the whole sequence, so the forward, the backward and the
+plain versions draw the same mask, and a query shard's rows draw the
+unsharded call's.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import ctypes
 
 import torch
 
@@ -25,15 +33,18 @@ from vitxtgqa_tpu_torch.ops import dropout as D
 NEG = -1e9  # masked-score fill of the kernels (pallas_attention.py _NEG)
 
 
-def _allowed(key_mask: torch.Tensor, length: int, dec_len: int) -> torch.Tensor:
-    """[B, 1, {1, L}, L] bool attention permission (pallas_attention._allowed)."""
+def _allowed(key_mask: torch.Tensor, length: int, dec_len: int, row_offset: int = 0,
+             rows: Optional[int] = None) -> torch.Tensor:
+    """[B, 1, {1, R}, L] bool attention permission of the R query rows that
+    start at global row ``row_offset`` (default: all L rows) over the L
+    keys (pallas_attention._allowed)."""
     key_ok = (key_mask > 0)[:, None, None, :]
     if dec_len == 0:
         return key_ok
     l_enc = length - dec_len
-    idx = torch.arange(length, device=key_mask.device)
-    rows, cols = idx[:, None], idx[None, :]
-    causal = (cols >= l_enc) & (rows >= l_enc) & (cols <= rows)
+    r = torch.arange(length if rows is None else rows, device=key_mask.device)[:, None] + row_offset
+    cols = torch.arange(length, device=key_mask.device)[None, :]
+    causal = (cols >= l_enc) & (r >= l_enc) & (cols <= r)
     return key_ok | causal[None, None]
 
 
@@ -213,4 +224,169 @@ def flash_attention_merged_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, num
         )
     _build.check(err, "flash_attention_merged_bwd")
     _build.LAUNCHES["flash_attention_merged_bwd"] += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# split-head flash attention with a query-row offset (#10, #10b)
+# ---------------------------------------------------------------------------
+
+
+def _split_scores(q, k, key_mask, dec_len: int, row_offset: int) -> torch.Tensor:
+    """Masked, scaled f32 scores [B, H, Lq, Lk] of the query rows that start
+    at global row ``row_offset``."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
+    return s.masked_fill(~_allowed(key_mask, k.shape[2], dec_len, row_offset, q.shape[2]), NEG)
+
+
+def _split_keep(q, k, rate: float, seed, row_offset: int) -> Optional[torch.Tensor]:
+    """The keep mask over 1 - rate ([B, H, Lq, Lk] f32) of the rows from
+    ``row_offset`` on, or None at rate 0."""
+    if rate <= 0.0:
+        return None
+    b, h, lq, _ = q.shape
+    keep = D.keep_mask(seed, D.STREAM_ATTN, (b, h, lq, k.shape[2]), rate, q.device, row_offset)
+    return keep.float() * (1.0 / (1.0 - rate))
+
+
+def flash_attention_plain(q, k, v, key_mask, dec_len: int, row_offset: int = 0,
+                          dropout_rate: float = 0.0, seed=None, return_lse: bool = False):
+    """q [B, H, Lq, D], k / v [B, H, Lk, D]: mha_reference over rows
+    [row_offset, row_offset + Lq) of the prefix-LM bias, with the kernels'
+    -1e9 fill; the probabilities dropped (Philox mask of the global rows)
+    and divided by 1 - rate, then rounded to v's dtype for the second
+    product; output [B, H, Lq, D] in q's dtype.  With ``return_lse`` also
+    the row log-sum-exp [B, H, Lq] f32."""
+    scores = _split_scores(q, k, key_mask, dec_len, row_offset)
+    w = torch.softmax(scores, dim=-1)
+    ks = _split_keep(q, k, dropout_rate, seed, row_offset)
+    if ks is not None:
+        w = w * ks
+    out = torch.matmul(w.to(v.dtype).float(), v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1)
+    return out
+
+
+def flash_attention_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len: int, row_offset: int = 0,
+                              dropout_rate: float = 0.0, seed=None):
+    """dq (q's dtype) and the f32 partial dk, dv of flash_attention for the
+    cotangent ``g`` of ``out`` ([B, H, Lq, D] each): P = exp(S - lse), dV =
+    (P K_r)^T g, dS = P (K_r (g V^T) - rowsum(g * out)), dQ = dS K /
+    sqrt(d), dK = dS^T Q / sqrt(d), with K_r the forward's keep mask over
+    1 - rate."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    p = torch.exp(_split_scores(q, k, key_mask, dec_len, row_offset) - lse.float()[..., None])
+    ks = _split_keep(q, k, dropout_rate, seed, row_offset)
+    gf = g.float()
+    dv = torch.matmul(p.transpose(-1, -2) if ks is None else (p * ks).transpose(-1, -2), gf)
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    if ks is not None:
+        dp = dp * ks
+    ds = p * (dp - (gf * out.float()).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk, dv
+
+
+def _head_strides(t: torch.Tensor, name: str, shape, dtype: torch.dtype, device) -> list:
+    """(batch, head, row) element strides of a [B, H, L, 64] view with a
+    contiguous last dimension and 16-byte aligned rows; raises otherwise."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, expected {dtype} "
+                         f"{tuple(shape)} on {device}")
+    per16 = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(st % per16 for st in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: needs a contiguous last dimension and 16-byte aligned rows, "
+                         f"got strides {t.stride()}")
+    return list(t.stride()[:3])
+
+
+def _split_empty(b: int, rows: int, h: int, d: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A [B, H, rows, D] view of a fresh [B, rows, H, D] buffer: merge_heads
+    of it is a free reshape, and a row block of it is contiguous."""
+    return torch.empty((b, rows, h, d), dtype=dtype, device=device).transpose(1, 2)
+
+
+def _split_geometry(q, k, dec_len: int, row_offset: int, name: str):
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if d != 64:
+        raise NotImplementedError(f"{name} kernel: head dim 64 only, got {d}")
+    if not 0 <= dec_len <= lk:
+        raise ValueError(f"dec_len {dec_len} outside [0, {lk}]")
+    if row_offset < 0 or row_offset + lq > lk:
+        raise ValueError(f"query rows [{row_offset}, {row_offset + lq}) outside the {lk} keys")
+    return b, h, lq, lk, d
+
+
+def flash_attention(q, k, v, key_mask, dec_len: int, row_offset: int = 0,
+                    dropout_rate: float = 0.0, seed=None, return_lse: bool = False):
+    """q [B, H, Lq, 64], k / v [B, H, Lk, 64] (bf16 on CUDA, any strides
+    with a contiguous last dimension: split_heads views are not copied);
+    key_mask [B, Lk] (1 = valid encoder key); dec_len: the trailing causal
+    decoder block of the Lk-row sequence; row_offset: the global row of
+    query row 0; dropout: rate and an int64 [1] seed tensor on the device.
+    Returns out [B, H, Lq, 64] (a view of a [B, Lq, H, 64] buffer), and
+    with ``return_lse`` the row log-sum-exp [B, H, Lq] f32."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, key_mask, dec_len, row_offset, dropout_rate, seed,
+                                     return_lse)
+    b, h, lq, lk, d = _split_geometry(q, k, dec_len, row_offset, "flash_attention")
+    dev, bf = q.device, torch.bfloat16
+    strides = (_head_strides(q, "q", (b, h, lq, d), bf, dev)
+               + _head_strides(k, "k", (b, h, lk, d), bf, dev)
+               + _head_strides(v, "v", (b, h, lk, d), bf, dev))
+    _build.require(key_mask, "key_mask", torch.float32, (b, lk), dev)
+    seed, thr, ks = _dropout_args(dropout_rate, seed)
+    if seed is not None:
+        _build.require(seed, "seed", torch.int64, (1,), dev)
+    out = _split_empty(b, lq, h, d, bf, dev)
+    strides += list(out.stride()[:3])
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=dev) if return_lse else None
+    with torch.cuda.device(dev):
+        err = _build.lib().vt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), None if seed is None else seed.data_ptr(),
+            (ctypes.c_longlong * 12)(*strides), b, h, lq, lk, d, dec_len, row_offset, thr, ks,
+            _build.stream_of(q))
+    _build.check(err, "flash_attention")
+    _build.LAUNCHES["flash_attention"] += 1
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, row_offset: int = 0,
+                        dropout_rate: float = 0.0, seed=None):
+    """dq [B, H, Lq, 64] bf16 and the f32 partial dk, dv [B, H, Lk, 64] of
+    flash_attention for the cotangent ``g`` of its ``out``, from the saved
+    ``lse``; q / k / v / out / g through their strides; the dropout mask is
+    regenerated from the forward's rate, seed and row offset."""
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len, row_offset,
+                                         dropout_rate, seed)
+    b, h, lq, lk, d = _split_geometry(q, k, dec_len, row_offset, "flash_attention_bwd")
+    dev, bf = q.device, torch.bfloat16
+    strides = []
+    for name, t, rows in (("q", q, lq), ("k", k, lk), ("v", v, lk), ("out", out, lq),
+                          ("g", g, lq)):
+        strides += _head_strides(t, name, (b, h, rows, d), bf, dev)
+    _build.require(key_mask, "key_mask", torch.float32, (b, lk), dev)
+    _build.require(lse, "lse", torch.float32, (b, h, lq), dev)
+    seed, thr, ks = _dropout_args(dropout_rate, seed)
+    if seed is not None:
+        _build.require(seed, "seed", torch.int64, (1,), dev)
+    dq = _split_empty(b, lq, h, d, bf, dev)
+    dk, dv = (_split_empty(b, lk, h, d, torch.float32, dev) for _ in range(2))
+    for t in (dq, dk, dv):
+        strides += list(t.stride()[:3])
+    di = torch.empty_like(lse)
+    with torch.cuda.device(dev):
+        err = _build.lib().vt_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), None if seed is None else seed.data_ptr(),
+            (ctypes.c_longlong * 24)(*strides), b, h, lq, lk, d, dec_len, row_offset, thr, ks,
+            _build.stream_of(q))
+    _build.check(err, "flash_attention_bwd")
+    _build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -1,5 +1,5 @@
-"""Split-head attention with an additive bias tensor (eval): the kernel
-wrapper and its plain PyTorch version.
+"""Split-head attention with an additive bias tensor: the kernel wrapper
+(differentiable: FusedAttentionFn) and its plain PyTorch version.
 
 Counterpart of vitxtgqa_tpu/ops/pallas_attention.py:fused_attention, which
 the split-head ``mha`` takes for an array bias or none (ops/attention.py).
@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from vitxtgqa_tpu_torch.ops import _build
+from vitxtgqa_tpu_torch.ops.flash_attention import _head_strides
 
 HEAD_DIM = 64
 
@@ -29,35 +30,17 @@ def fused_attention_plain(q, k, v, bias=None):
     return mha_reference(q, k, v, bias)
 
 
-def _strides(t: torch.Tensor, name: str):
-    """(batch, head, row) element strides of a [B, H, L, Dh] bf16 view whose
-    last dimension is contiguous and whose rows start 16-byte aligned."""
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-        raise ValueError(f"{name}: needs a contiguous last dimension and 16-byte aligned rows, "
-                         f"got strides {t.stride()}")
-    return list(t.stride()[:3])
-
-
-def fused_attention(q, k, v, bias=None):
-    """q [B, H, Lq, Dh], k / v [B, H, Lk, Dh]; bias [B, 1, 1, Lk], [B, 1, Lq,
-    Lk] or None -> [B, H, Lq, Dh] in q's dtype.  On CUDA tensors the kernel
-    (bf16, Dh 64; another head width raises), on CPU tensors the plain
-    version."""
-    if not q.is_cuda:
-        return fused_attention_plain(q, k, v, bias)
+def _launch(q, k, v, bias):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     if dh != HEAD_DIM:
         raise NotImplementedError(
             f"fused_attention kernel: head width {HEAD_DIM} only, got {dh} (other widths: "
             "ROADMAP.md queue 2, #14)")
-    dev = q.device
-    for t, name, shape in ((q, "q", (b, h, lq, dh)), (k, "k", (b, h, lk, dh)),
-                           (v, "v", (b, h, lk, dh))):
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape or t.device != dev:
-            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, expected "
-                             f"bf16 {shape} on {dev}")
-    strides = _strides(q, "q") + _strides(k, "k") + _strides(v, "v")
+    dev, bf = q.device, torch.bfloat16
+    strides = (_head_strides(q, "q", (b, h, lq, dh), bf, dev)
+               + _head_strides(k, "k", (b, h, lk, dh), bf, dev)
+               + _head_strides(v, "v", (b, h, lk, dh), bf, dev))
     # the output is laid out [B, Lq, H, Dh]: merge_heads of its [B, H, Lq,
     # Dh] view is then a free reshape
     out = torch.empty((b, lq, h, dh), dtype=torch.bfloat16, device=dev).transpose(1, 2)
@@ -82,3 +65,35 @@ def fused_attention(q, k, v, bias=None):
     _build.check(err, "fused_attention")
     _build.LAUNCHES["fused_attention"] += 1
     return out
+
+
+class FusedAttentionFn(torch.autograd.Function):
+    """The bias-tensor attention as one autograd node: the kernel forward
+    (the plain version on CPU tensors), and a backward that recomputes
+    through fused_attention_plain, as FusedFFNFn does: the gradients are
+    the plain graph's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        if not q.is_cuda:
+            return fused_attention_plain(q, k, v, bias)
+        return _launch(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = fused_attention_plain(*inputs)
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(grads) if t is not None and t.requires_grad else None for t in inputs)
+
+
+def fused_attention(q, k, v, bias=None):
+    """q [B, H, Lq, Dh], k / v [B, H, Lk, Dh]; bias [B, 1, 1, Lk], [B, 1, Lq,
+    Lk] or None -> [B, H, Lq, Dh] in q's dtype.  On CUDA tensors the kernel
+    (bf16, Dh 64; another head width raises), on CPU tensors the plain
+    version; differentiable (FusedAttentionFn)."""
+    return FusedAttentionFn.apply(q, k, v, bias)

@@ -65,6 +65,26 @@ def joint_mask_spec(enc_mask: torch.Tensor, dec_len: int) -> MaskSpec:
     return MaskSpec(key_mask=torch.cat([enc_mask, zeros], dim=1), dec_len=dec_len)
 
 
+def local_rows_bias(key_mask_full: torch.Tensor, dec_len: int, row_offset: int,
+                    l_local: int) -> torch.Tensor:
+    """Additive bias [B, 1, l_local, L] of the query rows row_offset ..
+    row_offset + l_local of a sequence-parallel shard, from the full [B, L]
+    key mask: MaskSpec(key_mask_full, dec_len).to_bias()'s rows (every row
+    sees the valid encoder keys; rows in the decoder block also see the
+    decoder keys causally) — vitxtgqa_tpu/parallel/sequence_parallel.py
+    _local_rows_bias."""
+    l = key_mask_full.shape[1]
+    l_enc = l - dec_len
+    dev = key_mask_full.device
+    rows = row_offset + torch.arange(l_local, device=dev)[:, None]
+    cols = torch.arange(l, device=dev)[None, :]
+    allowed = (key_mask_full > 0)[:, None, :]
+    if dec_len > 0:
+        causal = (cols >= l_enc) & (rows >= l_enc) & (cols <= rows)
+        allowed = allowed | causal[None]
+    return torch.where(allowed, 0.0, NEG_INF)[:, None]
+
+
 def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B] lengths -> [B, max_len] float mask, 1 on valid positions."""
     ar = torch.arange(max_len, device=lengths.device)[None, :]

@@ -10,8 +10,12 @@ there.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING, Optional
 
 import torch
+
+if TYPE_CHECKING:
+    from vitxtgqa_tpu_torch.parallel.mesh import SPGroup
 
 REMAT_MODES = ("none", "attn")
 
@@ -24,7 +28,9 @@ class Options:
         Pass ``device="cpu"`` to run on the CPU.
     dtype: compute dtype of the transformer stacks (float32 or bfloat16);
         grounding, the pointer network and the classifier compute in
-        float32 as in the JAX package.
+        float32 as in the JAX package.  The default (None) is bfloat16 on a
+        CUDA device, whose kernels are bf16, and float32 on the CPU; float32
+        on CUDA raises unless ``plain`` (the plain versions take it).
     kv_cache_int8: quantize the unified decode KV cache to int8 with
         per-token scales (the serving default of bench.py).
     plain: run every kernel op through its plain PyTorch version even on
@@ -54,6 +60,12 @@ class Options:
         holding their activations; "none" keeps them.  The JAX
         ``set_remat`` (its "full", "dots" and "attn_qkv" modes are not
         ported).
+    Parallelism:
+    sp: an SPGroup (parallel/mesh.build_sp_group) to run every
+        full-sequence attention sequence-parallel over its ranks, each
+        rank holding the whole model and batch — the JAX
+        ``set_sequence_parallel``; None (default) runs it whole.
+
     The config's other training switches (``kernel_dropout``,
     ``fused_block_bwd``, ``fused_block_fwd``) have no field: on the card
     the training block always runs its kernels with in-kernel dropout, and
@@ -61,7 +73,7 @@ class Options:
     """
 
     device: torch.device = torch.device("cuda")
-    dtype: torch.dtype = torch.float32
+    dtype: Optional[torch.dtype] = None
     kv_cache_int8: bool = False
     plain: bool = False
     fused_decode: bool = True
@@ -69,14 +81,23 @@ class Options:
     w8a8: bool = False
     compact_serving: bool = False
     remat: str = "attn"
+    sp: Optional["SPGroup"] = None
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
+        cuda = self.device.type == "cuda"
+        if self.dtype is None:
+            object.__setattr__(self, "dtype", torch.bfloat16 if cuda else torch.float32)
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"unsupported compute dtype {self.dtype}")
+        if cuda and self.dtype == torch.float32 and not self.plain:
+            raise ValueError(
+                "dtype float32 on a CUDA device: the port's kernels are bf16; use "
+                "torch.bfloat16 (the default there), or plain=True for the plain versions"
+            )
         if self.remat not in REMAT_MODES:
             raise ValueError(
                 f"remat {self.remat!r}: the port has {REMAT_MODES} (the JAX "
                 "'full', 'dots' and 'attn_qkv' modes are ROADMAP.md queue 1 "
-                "item 13)"
+                "item 6)"
             )

@@ -139,7 +139,7 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg, nf = t2s_production_config(), PRODUCTION_NUM_FINAL_OUTPUTS
     new = lambda **o: T2S(cfg, nf, bos_idx=2, opts=Options(
-        device=dev, dtype=torch.bfloat16, **o)).eval()
+        device=dev, **o)).eval()
     state = new(kv_cache_int8=True).init_weights(0).state_dict()
     batch = synthetic_batch(batch=max(b for _, _, b in CONFIGS), num_final_outputs=nf, seed=0)
     card = torch.cuda.get_device_name(0)

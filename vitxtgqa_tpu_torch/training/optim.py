@@ -20,7 +20,7 @@ optax reads its ``count``: a step skipped by the NaN tripwire does not
 advance it.
 
 Mixed precision: where the model holds a parameter in bfloat16 (the
-transformer stacks with ``Options(dtype=torch.bfloat16)``), the optimizer
+transformer stacks in bf16, Options' default on the card), the optimizer
 keeps a float32 master copy, steps that, and writes it back rounded; the
 JAX model keeps float32 parameters and casts them to its compute dtype.
 """

@@ -69,7 +69,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, nf = t2s_production_config(), PRODUCTION_NUM_FINAL_OUTPUTS
-    model = T2S(cfg, nf, bos_idx=2, opts=Options(device=dev, dtype=torch.bfloat16)).init_weights(0)
+    model = T2S(cfg, nf, bos_idx=2, opts=Options(device=dev)).init_weights(0)
     opt = build_optimizer(model, model_config=cfg)
     losses = Losses(cfg["losses"])
     batch = to_device(synthetic_batch(batch=batch_size, num_final_outputs=nf, seed=0), dev)

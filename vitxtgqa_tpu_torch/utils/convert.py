@@ -139,12 +139,17 @@ def vit_from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def strip_vit_prefix(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """An HF ViT checkpoint's state dict -> the port ViT's: the ``vit.``
-    prefix of a model with a head (ViTForImageClassification) dropped, as
-    vitxtgqa_tpu's convert_vit_state drops it, and the pooler and the head,
-    which the extractor does not use, left out."""
+    """An HF ViT checkpoint's state dict -> the port ViT's: a ``{"model":
+    state_dict, ...}`` checkpoint blob unwrapped and DataParallel
+    ``module.`` prefixes stripped, as vitxtgqa_tpu's load_state_dict does;
+    the ``vit.`` prefix of a model with a head (ViTForImageClassification)
+    dropped, as its convert_vit_state drops it; and the pooler and the
+    head, which the extractor does not use, left out."""
+    if isinstance(sd.get("model"), dict):
+        sd = sd["model"]
     out = {}
     for k, v in sd.items():
+        k = k[len("module."):] if k.startswith("module.") else k
         k = k[len("vit."):] if k.startswith("vit.") else k
         if not k.startswith(("pooler.", "classifier.")):
             out[k] = v
