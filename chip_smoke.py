@@ -13,7 +13,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      serving shapes (joint sequence 1152, hidden 768, batch 8, and batch
      1 / 2 / 8 for the decode-step kernels), bf16, with a ragged key mask
-     from synthetic_batch; max |diff| against a stated tolerance, and
+     from synthetic_batch, and for the flash forwards (#1, its dropout
+     form, #10; #1b with the first) also the masks of edge_masks: a batch
+     row with no valid key, and valid keys in one key tile only (the tile
+     walk's skip path);
+     max |diff| against a stated tolerance, and
      CUDA-event times of both.  The decode step's attention is planted
      (PLANTED / BACKGROUND / TRAP) so that reading a slot it must not read
      moves its output by far more than the tolerance.  The training
@@ -33,8 +37,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
      and the decode attention and decode step again at the compact cache
      length 384.  The ViT's kernels: the fused FFN at ViT-L/16's 12,608
      rows and ViT-B/32's 3,200, the bias-tensor attention on split-head
-     views with no bias at [8, 16, 577, 64] and with the key-mask and the
-     prefix-LM bias at [8, 12, 1152, 64].  The sequence-parallel kernels:
+     views with no bias and with a per-row bias at [8, 16, 577, 64] (577
+     query rows and keys: a last key tile of one key) and with the key-mask
+     and the prefix-LM bias at [8, 12, 1152, 64].  The sequence-parallel kernels:
      the split-head flash with a query-row offset (#10) on a rank's 576
      rows against 1,152 keys at batch 8, offsets 0 and 576, dec_len 0 and
      12, with dropout at offset 576 and its shards against the unsharded
@@ -577,6 +582,28 @@ def sdpa_mask(key_mask, dec_len: int):
     return FA._allowed(key_mask, key_mask.shape[1], dec_len)
 
 
+def edge_masks(key_mask, dec_len: int, tile: int = 64):
+    """The key masks that the flash forward's tile walk can get wrong
+    (csrc/flash_fwd.cuh), each a (label, [B, L] mask) from ``key_mask``
+    with its last dec_len keys cleared: batch row 3 with no valid key (its
+    encoder rows average V over every key and the block walks every tile),
+    and every row's valid keys in one key tile, keys [2 * tile, 3 * tile),
+    all valid (the other encoder tiles are skipped; a full tile keeps the
+    averages of O(1) values, so the tolerance's bf16 ulps hold)."""
+    l = key_mask.shape[1]
+    none = key_mask.clone()
+    none[3] = 0.0
+    one = key_mask.new_zeros(key_mask.shape)
+    one[:, 2 * tile:3 * tile] = 1.0
+    out = []
+    for label, km in (("batch row 3 with no valid key", none),
+                      (f"valid keys in one {tile}-key tile", one)):
+        if dec_len:
+            km[:, l - dec_len:] = 0.0
+        out.append((label, km.contiguous()))
+    return out
+
+
 def decode_sdpa_mask(key_mask, step: int):
     import torch
 
@@ -702,6 +729,14 @@ def check_kernels(dev, record):
                 bound=flash_bound(q, km, 0))
         report(record, "flash_attention_merged", err, extra=f" [8,1152,768] dec_len={dec_len}",
                **timed)
+    # the forward body's edge cases (edge_masks), every query row
+    for dec_len in (0, 12):
+        for label, km in edge_masks(mask, dec_len):
+            got = FA.flash_attention_merged(q, k, v, km, dec_len, h)
+            want = FA.flash_attention_merged_plain(q, k, v, km, dec_len, h)
+            torch.cuda.synchronize()
+            report(record, "flash_attention_merged", (got.float() - want.float()).abs().max().item(),
+                   extra=f" [8,1152,768] dec_len={dec_len}, {label}")
 
     # 2. fused block and its tanh form, rows 9216, 768 -> 3072
     x_q, ctx, res = rn(BATCH, l, d), rn(BATCH, l, d, scale=0.5), rn(BATCH, l, d)
@@ -955,12 +990,14 @@ def check_vit_kernels(dev, record):
     ViT-L/16's chunk of 64 frames (12,608 rows, 1024 -> 4096 -> 1024) and
     ViT-B/32's (3,200 rows, 768 -> 3072 -> 768); the bias-tensor attention
     (#14) on split-head views of merged projections, with no bias at
-    [8, 16, 577, 64] (ViT-L/16 at 384 px), the key-mask bias at [8, 12,
+    [8, 16, 577, 64] (ViT-L/16 at 384 px) and a random per-row bias there
+    (the ragged last key tile and the bias tile of the ring meet), the
+    key-mask bias at [8, 12,
     1152, 64] (the serving batch's mask) and the prefix-LM bias there
     (dec_len 12, one batch row with no valid key: fully masked rows), each
     timed beside F.scaled_dot_product_attention with the same additive
     mask.  The records keep the shapes of the ViT's own calls (12,608 rows;
-    577 tokens); the other times go to the details."""
+    577 tokens, no bias); the other times go to the details."""
     import torch
     import torch.nn.functional as F
 
@@ -998,7 +1035,9 @@ def check_vit_kernels(dev, record):
     mask, _ = serving_masks(dev)
     enc = mask[:, :L_JOINT - DEC_LEN].clone()
     enc[3] = 0.0
+    row_bias = torch.randn(BATCH, 1, 577, 577, generator=gen, device=dev) * 2.0
     forms = (("no bias", 16, 577, None),
+             ("per-row bias", 16, 577, row_bias),
              ("key-mask bias", 12, L_JOINT, self_attention_bias(mask)),
              ("prefix-LM bias dec_len=12, batch row 3 fully masked", 12, L_JOINT,
               prefix_lm_bias(enc, DEC_LEN)))
@@ -1015,7 +1054,7 @@ def check_vit_kernels(dev, record):
         shape = f" [{BATCH},{h},{l},64] {form}"
         details[f"fused_attention{shape}"] = {"ms": ms, "plain_ms": pms, "library_ms": lib,
                                               "bound_ms": bound[0], "max_abs_err": err}
-        timed = dict(ms=ms, plain_ms=pms, library_ms=lib, bound=bound) if l == 577 else {}
+        timed = dict(ms=ms, plain_ms=pms, library_ms=lib, bound=bound) if bias is None else {}
         if not timed:
             print(f"kernel fused_attention{shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
                   f"library {lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
@@ -1070,21 +1109,38 @@ def check_training_kernels(dev, record):
                      f"{lse_err:.3e} (tol {LSE_TOL:.0e})")
         if lse_err > LSE_TOL:
             fail(f"flash_attention_merged lse disagrees at dec_len {dec_len}")
-
-    # 8. flash backward at rate 0 and 0.1, from the twin's out and lse
-    for dec_len in (0, 12):
-        km = mask_for(b, dec_len)
-        for rate in (0.0, RATE):
-            out, lse = FA.flash_attention_merged_plain(q, k, v, km, dec_len, h, rate, seed,
-                                                       return_lse=True)
-            got = FA.flash_attention_merged_bwd(q, k, v, km, out, lse, g, dec_len, h, rate, seed)
-            want = FA.flash_attention_merged_bwd_plain(q, k, v, km, out, lse, g, dec_len, h,
-                                                       rate, seed)
+        # the dropout form on the forward body's edge cases, every row
+        for label, km in edge_masks(mask_for(b, dec_len), dec_len):
+            got, lse = FA.flash_attention_merged(q, k, v, km, dec_len, h, RATE, seed,
+                                                 return_lse=True)
+            want, want_lse = FA.flash_attention_merged_plain(q, k, v, km, dec_len, h, RATE, seed,
+                                                             return_lse=True)
             torch.cuda.synchronize()
-            for name, a, w in zip(("dq", "dk", "dv"), got, want):
-                err = (a.float() - w.float()).abs().max().item()
-                report(record, "flash_attention_merged_bwd", err, scale=w.float().abs().max().item(),
-                       extra=f" {name} rate={rate} [{b},1152,768] dec_len={dec_len}")
+            lse_err = (lse - want_lse).abs().max().item()
+            report(record, "flash_attention_merged", (got.float() - want.float()).abs().max().item(),
+                   extra=f" dropout {RATE} [{b},1152,768] dec_len={dec_len}, {label}; lse "
+                         f"max|diff| {lse_err:.3e} (tol {LSE_TOL:.0e})")
+            if lse_err > LSE_TOL:
+                fail(f"flash_attention_merged lse disagrees at dec_len {dec_len}, {label}")
+
+    # 8. flash backward at rate 0 and 0.1, from the twin's out and lse, on
+    # the serving mask and on a batch row with no valid key (edge_masks)
+    for dec_len in (0, 12):
+        none_label, none_km = edge_masks(mask_for(b, dec_len), dec_len)[0]
+        for label, km in (("", mask_for(b, dec_len)), (", " + none_label, none_km)):
+            for rate in (0.0, RATE):
+                out, lse = FA.flash_attention_merged_plain(q, k, v, km, dec_len, h, rate, seed,
+                                                           return_lse=True)
+                got = FA.flash_attention_merged_bwd(q, k, v, km, out, lse, g, dec_len, h, rate,
+                                                    seed)
+                want = FA.flash_attention_merged_bwd_plain(q, k, v, km, out, lse, g, dec_len, h,
+                                                           rate, seed)
+                torch.cuda.synchronize()
+                for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                    err = (a.float() - w.float()).abs().max().item()
+                    report(record, "flash_attention_merged_bwd", err,
+                           scale=w.float().abs().max().item(),
+                           extra=f" {name} rate={rate} [{b},1152,768] dec_len={dec_len}{label}")
 
     # 9. the flash dropout on uniform attention (q = k = 0, every key
     # allowed): with v[key, head * 64 + c] = (key % 64 == c) the output
@@ -1347,6 +1403,16 @@ def check_sp_kernels(dev, record):
                                  qs, k, v, am)),
                              bound=split_flash_bound(qs, k, km, 0, 0))
             report(record, "flash_attention", err, shape, **timed)
+        # the forward body's edge cases (edge_masks) at both offsets
+        for label, km in edge_masks(km, dec_len):
+            for off in (0, rows):
+                qs = q[:, :, off:off + rows]
+                got = FA.flash_attention(qs, k, v, km, dec_len, off)
+                want = FA.flash_attention_plain(qs, k, v, km, dec_len, off)
+                torch.cuda.synchronize()
+                report(record, "flash_attention", (got.float() - want.float()).abs().max().item(),
+                       f" [{BATCH},{h},{rows},64] x [{BATCH},{h},{l},64] dec_len={dec_len} "
+                       f"row_offset={off}, {label}")
     km = mask_for(BATCH, 12)
     qs = q[:, :, rows:]
     got = FA.flash_attention(qs, k, v, km, 12, rows, RATE, seed)
@@ -1782,7 +1848,8 @@ def vit_module_entry(dev, record):
     """The ViT layer stack at 384 px (577 tokens, ViT-L/16's published
     fine-tuning size) for one forward at batch 8: the bias-tensor attention
     (#14) and the fused FFN (#13, 4,616 rows) in all 24 layers, against
-    the same forward through the plain versions."""
+    the same forward through the plain versions; its device time (CUDA
+    events over VIT_REPS forwards)."""
     import dataclasses
 
     import torch
@@ -1807,15 +1874,17 @@ def vit_module_entry(dev, record):
         count_launches("slice vit_l16_384, a batch-8 forward", record, counts,
                        expected_vit_launches(cfg, BATCH))
         cls_plain = plain(images)[0]
+        ms = cuda_time_ms(lambda: vit(images), reps=VIT_REPS, warmup=1)
     err, rel = feature_agreement(cls, cls_plain)
     print(f"slice vit_l16_384: launches in one forward at batch {BATCH} (577 tokens) "
           + json.dumps(counts) + f"; CLS kernels vs plain: max|diff| {err:.4e}, largest "
-          f"per-frame relative L2 difference {rel:.4e} (limit {VIT_FEAT_REL_TOL})", flush=True)
+          f"per-frame relative L2 difference {rel:.4e} (limit {VIT_FEAT_REL_TOL}); one "
+          f"forward {ms:.3f} ms (CUDA events)", flush=True)
     if rel > VIT_FEAT_REL_TOL or not bool(torch.isfinite(cls).all()):
         fail("slice vit_l16_384: the CLS features disagree with the plain versions")
     del vit, plain
     torch.cuda.empty_cache()
-    return {"launches": counts, "cls_max_abs_diff": err, "cls_max_rel_l2": rel}
+    return {"launches": counts, "cls_max_abs_diff": err, "cls_max_rel_l2": rel, "forward_ms": ms}
 
 
 @contextlib.contextmanager

@@ -332,3 +332,33 @@ def test_expected_sp_launches_count_the_kernel_calls_of_each_rank(case, sp_launc
     for rank in sp_launches:
         got = {name: rank[case].get(name, 0) for name in CS.REPLACES}
         assert got == want
+
+
+@pytest.mark.parametrize("dec_len", [0, 12])
+def test_edge_masks_take_the_tile_walks_two_branches(dec_len):
+    """edge_masks: batch row 3 with no valid key, the rest as given; and
+    every row's valid keys exactly one full 64-key tile; the decoder keys
+    cleared.  The flash twin over each: the row with no key averages V over
+    its 1152 keys (a multiple of 128: no padded key), the encoder rows of
+    the one-tile mask attend that tile only."""
+    mask, _ = CS.serving_masks(torch.device("cpu"))
+    (l_none, none), (l_one, one) = CS.edge_masks(mask, dec_len)
+    l = mask.shape[1]
+    assert "no valid key" in l_none and "one 64-key tile" in l_one
+    assert not (none[3] > 0).any() and torch.equal(none[:3, :l - dec_len], mask[:3, :l - dec_len])
+    assert (one[:, 128:192] == 1).all() and one.sum().item() == 64 * one.shape[0]
+    if dec_len:
+        assert not none[:, l - dec_len:].any()
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((8, l, 128)).astype(np.float32))
+               for _ in range(3))
+    out = TFA.flash_attention_merged_plain(q, k, v, none, dec_len, 2)
+    enc_rows = l - dec_len
+    want = v.mean(dim=1, keepdim=True).expand(8, enc_rows, 128)[3]
+    torch.testing.assert_close(out[3, :enc_rows], want, atol=1e-5, rtol=1e-5)
+    out = TFA.flash_attention_merged_plain(q, k, v, one, dec_len, 2)
+    split = lambda x: x.reshape(8, -1, 2, 64).transpose(1, 2)
+    w = torch.softmax(split(q)[:, :, :enc_rows] @ split(k)[:, :, 128:192].transpose(-1, -2) / 8.0,
+                      dim=-1)
+    want = (w @ split(v)[:, :, 128:192]).transpose(1, 2).reshape(8, enc_rows, 128)
+    torch.testing.assert_close(out[:, :enc_rows], want, atol=1e-5, rtol=1e-5)

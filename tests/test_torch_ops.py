@@ -154,6 +154,10 @@ FLASH_CASES = {
     "blocked_q": (2, 4, 16, 244, 12, [200, 244]),
     "key_mask_only": (2, 4, 16, 130, 0, [77, 130]),
     "compact_rows": (2, 12, 64, 372, 12, [372, 233]),
+    # a batch row with no valid key at lengths that are not multiples of
+    # 128: its encoder rows average V over the JAX wrapper's padded keys
+    "no_key_row": (2, 4, 16, 130, 0, [0, 77]),
+    "no_key_row_dec": (2, 4, 16, 130, 12, [0, 100]),
 }
 
 

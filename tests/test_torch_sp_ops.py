@@ -105,6 +105,43 @@ def test_flash_bwd_twin_matches_pallas_grads(dec):
     np.testing.assert_allclose(dv_sum, np.asarray(wv), atol=2e-5)
 
 
+@pytest.mark.parametrize("dec", [0, 12])
+def test_flash_twins_match_pallas_on_a_row_with_no_key(dec):
+    """Batch row 1 with no valid key over 130 / 142 keys (not multiples of
+    128), query shards at row offsets 0 and 64 (the second across the
+    decoder block at dec_len 12): the forward twin within 2e-5 of the
+    Pallas kernel (its encoder rows average V over the 256 padded keys),
+    and the backward twin's dq within 2e-5 of jax.vjp's, the shards' dk /
+    dv summed within 2e-5 of the unsharded gradients."""
+    from vitxtgqa_tpu.ops.pallas_attention import flash_attention
+
+    rng = np.random.default_rng(13)
+    b, h, d, l = 2, 2, 16, 130 + dec
+    q, k, v, g = (rng.standard_normal((b, h, l, d)).astype(np.float32) for _ in range(4))
+    key_mask = np.zeros((b, l), np.float32)
+    key_mask[0, :100] = 1.0
+    jk, jv, jm = jnp.asarray(k), jnp.asarray(v), jnp.asarray(key_mask)
+    dk_sum = dv_sum = 0.0
+    for off, rows in ((0, 64), (64, l - 64)):
+        qs, gs = q[:, :, off:off + rows], g[:, :, off:off + rows]
+        want, vjp = jax.vjp(lambda a, b_, c: flash_attention(a, b_, c, jm, dec_len=dec,
+                                                             interpret=True,
+                                                             row_offset=jnp.int32(off)),
+                            jnp.asarray(qs), jk, jv)
+        wq, _, _ = vjp(jnp.asarray(gs))
+        out, lse = TFA.flash_attention(T(qs), T(k), T(v), T(key_mask), dec, off, return_lse=True)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5, err_msg=f"out {off}")
+        dq, dk, dv = TFA.flash_attention_bwd(T(qs), T(k), T(v), T(key_mask), out, lse, T(gs), dec,
+                                             off)
+        np.testing.assert_allclose(dq.numpy(), np.asarray(wq), atol=2e-5, err_msg=f"dq {off}")
+        dk_sum, dv_sum = dk_sum + dk.numpy(), dv_sum + dv.numpy()
+    _, vjp = jax.vjp(lambda a, b_, c: flash_attention(a, b_, c, jm, dec_len=dec, interpret=True),
+                     jnp.asarray(q), jk, jv)
+    _, wk, wv = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(dk_sum, np.asarray(wk), atol=2e-5)
+    np.testing.assert_allclose(dv_sum, np.asarray(wv), atol=2e-5)
+
+
 def test_dropout_shards_are_the_unsharded_rows():
     """With dropout, the Philox mask is counted by the global row: the
     shards' outputs and lse, concatenated, equal the unsharded call's bit

@@ -141,6 +141,30 @@ def test_flash_bwd_plain_matches_pallas_interpret_vjp(case):
 
 
 @pytest.mark.parametrize("dec", [0, 12])
+def test_flash_bwd_plain_matches_pallas_on_a_row_with_no_key(dec):
+    """Batch row 0 with no valid key at L 130 / 142 (not multiples of 128):
+    its encoder rows average V over the JAX wrapper's 256 padded keys, and
+    its gradients weigh every key 1 / 256, as the Pallas backward's padded
+    softmax does; the plain forward and backward within 2e-5 of jax.vjp
+    through the Pallas kernels."""
+    from vitxtgqa_tpu.ops.pallas_attention import flash_attention_merged
+
+    h = 4
+    q, k, v, key_mask, g = _merged(l_enc=130, dec=dec, seed=7)
+    key_mask[0] = 0.0
+    f = lambda q_, k_, v_: flash_attention_merged(q_, k_, v_, jnp.asarray(key_mask), dec,
+                                                  num_heads=h, interpret=True)
+    want_out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    out, lse = TFA.flash_attention_merged(T(q), T(k), T(v), T(key_mask), dec, h, return_lse=True)
+    np.testing.assert_allclose(_np(out), np.asarray(want_out), atol=2e-5)
+    assert (_np(lse)[0, :, :130] == -1e9).all()
+    got = TFA.flash_attention_merged_bwd(T(q), T(k), T(v), T(key_mask), out, lse, T(g), dec, h)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(_np(a), np.asarray(w), atol=2e-5, err_msg="d" + name)
+
+
+@pytest.mark.parametrize("dec", [0, 12])
 def test_flash_dropout_bwd_plain_matches_autograd(dec):
     """At rate 0.1 the plain backward (mask regenerated from the seed)
     equals autograd through the plain forward with the same seed, and the

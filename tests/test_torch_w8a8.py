@@ -198,6 +198,27 @@ def test_flash_q8_plain_matches_pallas_interpret():
         np.testing.assert_array_equal(_np(ts), np.asarray(js))
 
 
+def test_flash_q8_plain_matches_pallas_interpret_on_a_row_with_no_key():
+    """L 142 (not a multiple of 128), dec_len 12, batch row 0 with no valid
+    key: the output within 2e-5 of the Pallas kernel (the row's encoder
+    rows average V over the 256 padded keys), the int8 caches equal."""
+    from vitxtgqa_tpu.ops.pallas_attention import flash_attention_merged_q8
+
+    b, l, h, d = 2, 142, 4, 16
+    rng = np.random.default_rng(12)
+    q, k, v = (_rand(rng, b, l, h * d) for _ in range(3))
+    mask = (rng.random((b, l)) > 0.2).astype(np.float32)
+    mask[0] = 0.0
+    mask[:, l - 12:] = 0.0
+    want, (wk8, wks), (wv8, wvs) = flash_attention_merged_q8(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), dec_len=12,
+        num_heads=h, interpret=True)
+    got, (k8, ks), (v8, vs) = TFA.flash_attention_merged_q8(T(q), T(k), T(v), T(mask), 12, h)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5, rtol=2e-5)
+    for t8, w8 in ((k8, wk8), (v8, wv8)):
+        np.testing.assert_array_equal(_np(t8), np.asarray(w8))
+
+
 def test_encode_with_cache_quantize_matches_flax():
     """encode_with_cache(quantize=True) over 256 keys (the flash route):
     the port's emitted cache equals its own quantize_cache of the unfused

@@ -1,23 +1,38 @@
-"""Time the merged-head flash kernels (#1 forward, its dropout form, and
-#1b) of the port package found under --root, for an A/B of two checkouts
-on one card (run parent, change, change, parent back to back):
+"""Time every form of the flash forward body (#1, #10, #11, #14) and the
+merged-head backward (#1b) of the port package found under --root, for an
+A/B of two checkouts on one card (run parent, change, change, parent back
+to back):
 
     python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N]
 
-Shapes: #1 at [8, 1152, 768] dec_len 0 (serving), #1 with dropout 0.1 and
-#1b at [48, 1152, 768] dec_len 12 (the training step), the key mask of the
-synthetic serving batch.  Each time is CUDA events around --reps
-back-to-back calls, the median of 5 such runs.  Prints one JSON line with
-the card's name and power limit.  Run it as a file, not with -m, so that
-the package imported is the one under --root.
+Forms and shapes: #1 at [8, 1152, 768] with the key mask of the synthetic
+serving batch, dec_len 0 and 12; #1's dropout form (rate 0.1, with the
+lse) and #1b at [48, 1152, 768] dec_len 12 (the training step); #10 on
+split-head views, a rank's 576 query rows at offsets 0 and 576 against
+[8, 12, 1152, 64], dec_len 0; #11 at [8, 1152, 768] dec_len 12; #14 with
+no bias at [8, 16, 577, 64] (ViT-L/16 at 384 px) and with the key-mask and
+the prefix-LM bias at [8, 12, 1152, 64]; and one ViT-L/16 forward at 384
+px, batch 8 (random weights from seed 1), the path whose attention is #14
+in all 24 layers; and, on the host clock ending in a synchronize (median
+of 5 after a warm-up), one T2S forward at production width with the int8
+cache at batch 8 (random weights from seed 0, `synthetic_batch` seed 1):
+serving (chip_smoke.py slice a) and full-eval (slice d).  Each kernel time
+is CUDA events around
+--reps back-to-back calls, the median of 5 such runs; beside each form the
+time of F.scaled_dot_product_attention on the same inputs and mask where
+one call computes the same function (#11's quantization has none).  Prints
+one JSON line with the card's name and power limit.  Run it as a file, not
+with -m, so that the package imported is the one under --root.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import time
 
 
 def main(argv=None) -> int:
@@ -29,10 +44,18 @@ def main(argv=None) -> int:
     sys.path = [root] + [p for p in sys.path if os.path.abspath(p) != os.path.dirname(__file__)]
 
     import torch
+    import torch.nn.functional as F
 
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.models.t2s import (PRODUCTION_NUM_FINAL_OUTPUTS, T2S,
+                                               t2s_production_config)
+    from vitxtgqa_tpu_torch.models.vit import VIT_L_16, ViT, preprocess_frames
     from vitxtgqa_tpu_torch.ops import _build
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
-    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+    from vitxtgqa_tpu_torch.ops import fused_attention as FAT
+    from vitxtgqa_tpu_torch.ops.masks import prefix_lm_bias, self_attention_bias
+    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch, synthetic_frames
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels: needs a CUDA device")
@@ -40,13 +63,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(11)
     rn = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
+    split = lambda x, h: x.view(x.shape[0], x.shape[1], h, -1).transpose(1, 2)
     b = synthetic_batch(batch=8, seed=0)
     txt = (torch.arange(20)[None, :] < torch.as_tensor(b["text_len"])[:, None]).float()
     enc = torch.cat([txt, torch.as_tensor(b["frame_mask"]).float(),
                      torch.as_tensor(b["ocr_mask"]).float()], dim=1)
     mask8 = torch.nn.functional.pad(enc, (0, 1152 - enc.shape[1])).to(dev).contiguous()
-    mask48 = mask8[torch.arange(48) % 8].clone()
-    mask48[:, -12:] = 0.0
+    mask8_12 = mask8.clone()
+    mask8_12[:, -12:] = 0.0
+    mask48 = mask8_12[torch.arange(48) % 8].contiguous()
     seed = torch.tensor([7], dtype=torch.int64, device=dev)
 
     def timed(fn):
@@ -65,19 +90,88 @@ def main(argv=None) -> int:
             runs.append(start.elapsed_time(end) / args.reps)
         return statistics.median(runs)
 
+    ms, sdpa = {}, {}
+    allowed = lambda km, dec: FA._allowed(km, km.shape[1], dec)
+
     q, k, v = (rn(8, 1152, 768) for _ in range(3))
-    out = {"root": args.root,
-           "flash_fwd_ms": timed(lambda: FA.flash_attention_merged(q, k, v, mask8, 0, 12))}
+    qh, kh, vh = split(q, 12), split(k, 12), split(v, 12)
+    for dec, km in ((0, mask8), (12, mask8_12)):
+        ms[f"flash dec_len {dec}"] = timed(lambda: FA.flash_attention_merged(q, k, v, km, dec, 12))
+        sdpa[f"flash dec_len {dec}"] = timed(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, allowed(km, dec)))
+    ms["flash_q8 dec_len 12"] = timed(lambda: FA.flash_attention_merged_q8(q, k, v, mask8_12, 12,
+                                                                           12))
+    for off in (0, 576):
+        qs = qh[:, :, off:off + 576]
+        am = FA._allowed(mask8, 1152, 0, off, 576)
+        ms[f"split flash offset {off}"] = timed(lambda: FA.flash_attention(qs, kh, vh, mask8, 0,
+                                                                           off))
+        sdpa[f"split flash offset {off}"] = timed(
+            lambda: F.scaled_dot_product_attention(qs, kh, vh, am))
+    self_bias = self_attention_bias(mask8)
+    prefix_bias = prefix_lm_bias(mask8_12[:, :-12].contiguous(), 12)
+    for name, bias in (("fused key-mask bias 1152", self_bias),
+                       ("fused prefix-LM bias 1152", prefix_bias)):
+        am = bias.to(torch.bfloat16)
+        ms[name] = timed(lambda: FAT.fused_attention(qh, kh, vh, bias))
+        sdpa[name] = timed(lambda: F.scaled_dot_product_attention(qh, kh, vh, am))
+    del q, k, v, qh, kh, vh
+    qv, kv, vv = (split(rn(8, 577, 1024), 16) for _ in range(3))
+    ms["fused no bias 577"] = timed(lambda: FAT.fused_attention(qv, kv, vv, None))
+    sdpa["fused no bias 577"] = timed(lambda: F.scaled_dot_product_attention(qv, kv, vv))
+    del qv, kv, vv
+    cfg = dataclasses.replace(VIT_L_16, image_size=384)
+    vit = ViT(cfg, Options(device=dev, dtype=torch.bfloat16)).init_weights(1).eval()
+    with torch.inference_mode():
+        images = preprocess_frames(
+            torch.from_numpy(synthetic_frames(8, 240, 320, seed=3)).to(dev), cfg.image_size)
+        ms["ViT-L/16 384 px forward [8]"] = timed(lambda: vit(images))
+    del vit, images
+
+    def host_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs)
+
+    nf = PRODUCTION_NUM_FINAL_OUTPUTS
+    tb = to_device(synthetic_batch(batch=8, num_final_outputs=nf, seed=1), dev)
+    state = None
+    for name, inference_only in (("T2S serving forward, int8, [8] (host ms)", True),
+                                 ("T2S full-eval forward, int8, [8] (host ms)", False)):
+        model = T2S(t2s_production_config(), nf, bos_idx=2, inference_only=inference_only,
+                    opts=Options(device=dev, dtype=torch.bfloat16, kv_cache_int8=True))
+        if state is None:
+            state = model.init_weights(0).state_dict()
+        model.load_state_dict(state)
+        with torch.inference_mode():
+            ms[name] = host_ms(lambda: model(tb, group_generator(0, 0, dev)))
+        del model
+    del state, tb
+
     q, k, v, g = (rn(48, 1152, 768) for _ in range(4))
     fwd = lambda: FA.flash_attention_merged(q, k, v, mask48, 12, 12, 0.1, seed, return_lse=True)
     o, lse = fwd()
-    out["flash_fwd_dropout_ms"] = timed(fwd)
-    out["flash_bwd_ms"] = timed(lambda: FA.flash_attention_merged_bwd(
+    ms["flash dropout 0.1 [48]"] = timed(fwd)
+    qh, kh, vh = (split(t, 12).detach().requires_grad_() for t in (q, k, v))
+    am = allowed(mask48, 12)
+    sdpa["flash dropout 0.1 [48]"] = timed(
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, am, dropout_p=0.1))
+    ms["flash bwd [48]"] = timed(lambda: FA.flash_attention_merged_bwd(
         q, k, v, mask48, o, lse, g, 12, 12, 0.1, seed))
-    out["card"] = subprocess.run(
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, am, dropout_p=0.1)
+    lib_g = torch.randn_like(lib_out)
+    sdpa["flash bwd [48]"] = timed(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), lib_g,
+                                                               retain_graph=True))
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps(out), flush=True)
+    print(json.dumps({"root": args.root, "ms": ms, "sdpa_ms": sdpa, "card": card}), flush=True)
     return 0
 
 

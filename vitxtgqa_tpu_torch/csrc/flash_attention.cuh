@@ -1,8 +1,8 @@
-// Pieces shared by the flash attention forward (flash_attention.cu) and
-// backward (flash_attention_bwd.cu), merged-head (#1 / #1b) and split-head
-// (#10 / #10b): the tile geometry, the operands' strides (Geom), the tile
-// loads, the mask predicate and the dropout keep bits of a row's four
-// consecutive keys.
+// Pieces shared by the flash attention forward body (flash_fwd.cuh: #1,
+// #10, #11, #14) and backward (flash_attention_bwd.cu: #1b, #10b): the
+// operands' strides (Geom); and the backward's tile geometry, tile loads,
+// mask predicate and the dropout keep bits of a row's four consecutive
+// keys.
 #pragma once
 
 #include "common.cuh"
@@ -18,7 +18,6 @@ constexpr int NT = 128;       // threads per block
 constexpr int LDB = HD + 8;   // bf16 row stride of the q/k/v/dO tiles
 constexpr int LDP = BK + 8;   // bf16 row stride of probability / dS tiles
 constexpr int LDS = BK + 4;   // f32 row stride of score tiles
-constexpr int LDO = HD + 4;   // f32 row stride of the output accumulator
 
 // Where one flash call's operands live: the element strides (batch, head,
 // row) of each operand, the last dimension contiguous.  The merged [B, L,
@@ -87,17 +86,6 @@ __device__ __forceinline__ void keep4(bool keep[4], uint32_t seed, uint32_t thre
   keep[1] = w.y >= threshold;
   keep[2] = w.z >= threshold;
   keep[3] = w.w >= threshold;
-}
-
-// max / sum over the 16 lanes of a half warp
-__device__ __forceinline__ float half_max(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 }  // namespace flash

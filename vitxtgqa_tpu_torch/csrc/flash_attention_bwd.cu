@@ -9,7 +9,9 @@
 // and dk / dv returned in f32, the shard's partial sums that the
 // sequence-parallel ranks add up before the cast (the TPU kernel's f32
 // accumulator blocks, summed by shard_map's psum).  For each head, with
-// P = exp(S * scale - lse) (the forward's mask, lse saved by the forward),
+// P = exp(S * scale - lse) (the forward's mask, lse saved by the forward;
+// for a row with no allowed key, whose lse is the -1e9 fill, P = 1 /
+// round_up(Lk, 128) on every key, as the TPU kernels' padded keys have it),
 // K_r = the forward's keep mask over 1 - rate (or 1 without dropout) and
 // D_i = rowsum(dO * O):
 //   dV = (P * K_r)^T dO
@@ -100,6 +102,19 @@ __device__ __forceinline__ void rows_times_t(float* dst, const bf16* x, const bf
     wmma::store_matrix_sync(dst + j * 16, acc[j], LDS, wmma::mem_row_major);
 }
 
+// The row's lse as the elementwise phase takes it.  A masked score there
+// is kBwdFill, not the forward's -1e9 (exp(kBwdFill - lse) is 0 in f32 for
+// any row with an allowed key), so that a row with no allowed key, whose
+// lse is the -1e9 fill (flash_fwd.cuh), can take lse = kBwdFill +
+// log(round_up(Lk, 128)): P = 1 / round_up(Lk, 128) on each of its keys,
+// as the TPU kernels' padded keys have it (to a relative 5e-4 from the
+// rounding of that lse, below the bf16 rounding of P and dS).
+constexpr float kBwdFill = -1e4f;
+
+__device__ __forceinline__ float row_lse(float lse, int Lk) {
+  return lse <= 0.5f * kNeg ? kBwdFill + logf((float)((Lk + 127) / 128 * 128)) : lse;
+}
+
 // the elementwise phase for one (global q row, four keys): P, the dropped
 // and rescaled P, and dS
 struct Elem {
@@ -124,7 +139,8 @@ __device__ __forceinline__ Elem elementwise(const float* s_row, const float* dp_
     const int col = k0 + c0 + t;
     float p = 0.f;
     if (col < Lk) {
-      const float x = allowed(kmask[c0 + t], qrow, col, l_enc, dec_len) ? sv[t] * scale : kNeg;
+      const bool ok = allowed(kmask[c0 + t], qrow, col, l_enc, dec_len);
+      const float x = ok ? sv[t] * scale : kBwdFill;
       p = expf(x - lse);
     }
     const float kr = keep[t] ? keep_scale : 0.f;
@@ -184,7 +200,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (q0 + r < Lq) di_out[stat + q0 + r] = acc;
     }
   }
-  if (tid < BQ) sm.lse[tid] = (q0 + tid < Lq) ? lse[stat + q0 + tid] : 0.f;
+  if (tid < BQ) sm.lse[tid] = (q0 + tid < Lq) ? row_lse(lse[stat + q0 + tid], Lk) : 0.f;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq_acc[HD / 16];
 #pragma unroll
@@ -278,7 +294,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile(sm.dout, dout, gb, q0, Lq, g.dout[2]);
     if (tid < BQ) {
       const bool in = q0 + tid < Lq;
-      sm.lse[tid] = in ? lse[stat + q0 + tid] : 0.f;
+      sm.lse[tid] = in ? row_lse(lse[stat + q0 + tid], Lk) : 0.f;
       sm.di[tid] = in ? di[stat + q0 + tid] : 0.f;
     }
     __syncthreads();

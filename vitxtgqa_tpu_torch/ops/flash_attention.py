@@ -9,14 +9,19 @@ flash_attention_merged_q8 and the backward _flash_merged_bwd_impl (#1,
 #11, #1b), and of flash_attention with its backward _flash_bwd_impl (#10,
 #10b), which only the sequence-parallel attention reaches
 (parallel/sequence_parallel.py).  The CUDA kernels are
-csrc/flash_attention.cu and csrc/flash_attention_bwd.cu.  On a CUDA tensor
+csrc/flash_attention.cu (entry points of the forward body in
+csrc/flash_fwd.cuh, which #14 shares) and csrc/flash_attention_bwd.cu.  On a CUDA tensor
 a wrapper launches its kernel (or raises); on a CPU tensor it runs the
 plain version, which is also the oracle the kernel is checked against on
 the card.  Dropout keeps the probability of element (b, h, row, key) where
 its Philox bits pass the threshold (ops/dropout.py, stream 0), with the
 row counted in the whole sequence, so the forward, the backward and the
 plain versions draw the same mask, and a query shard's rows draw the
-unsharded call's.
+unsharded call's.  The JAX wrappers pad the keys to round_up(Lk, 128) with
+key mask 0, so a query row with no allowed key averages V over that many
+keys, the zero-padded ones included; the twins and the kernels count them
+too (``_padded_softmax``), and the backward gives such a row's keys the
+weight 1 / round_up(Lk, 128).
 """
 
 from __future__ import annotations
@@ -31,6 +36,30 @@ from vitxtgqa_tpu_torch.ops import _build
 from vitxtgqa_tpu_torch.ops import dropout as D
 
 NEG = -1e9  # masked-score fill of the kernels (pallas_attention.py _NEG)
+LANE = 128  # the JAX wrappers pad the keys to a multiple of this
+
+
+def _padded_softmax(scores: torch.Tensor, with_lse: bool):
+    """softmax (and, ``with_lse``, logsumexp, else None) over the last axis
+    of masked scores, with round_up(Lk, 128) - Lk more keys at the -1e9
+    fill (the JAX wrappers' padding): a row of fills averages over
+    round_up(Lk, 128) keys, any other row is unchanged."""
+    pad = -scores.shape[-1] % LANE
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=NEG)
+    w = torch.softmax(scores, dim=-1)
+    lse = torch.logsumexp(scores, dim=-1) if with_lse else None
+    return (w[..., :w.shape[-1] - pad] if pad else w), lse
+
+
+def _padded_probs(scores: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """exp(scores - lse), the probabilities the backward recomputes; a row
+    whose lse is the fill (no allowed key) weighs each key 1 / round_up(Lk,
+    128), as the JAX kernels' padded keys do."""
+    lse = lse.float()[..., None]
+    p = torch.exp(scores - lse)
+    l_pad = -(-scores.shape[-1] // LANE) * LANE
+    return torch.where(lse <= 0.5 * NEG, p / l_pad, p)
 
 
 def _allowed(key_mask: torch.Tensor, length: int, dec_len: int, row_offset: int = 0,
@@ -82,14 +111,13 @@ def flash_attention_merged_plain(q, k, v, key_mask, dec_len: int, num_heads: int
     says so) and divided by 1 - rate, then rounded to v's dtype for the
     second product (as the kernel does); output in q's dtype.  With
     ``return_lse`` also the row log-sum-exp [B, H, L] f32."""
-    scores = _scores(q, k, key_mask, dec_len, num_heads)
-    w = torch.softmax(scores, dim=-1)
+    w, lse = _padded_softmax(_scores(q, k, key_mask, dec_len, num_heads), return_lse)
     ks = _dropout_scale(q, num_heads, dropout_rate, seed)
     if ks is not None:
         w = w * ks
     out = _merge(torch.matmul(w.to(v.dtype).float(), _split(v, num_heads)), q.dtype)
     if return_lse:
-        return out, torch.logsumexp(scores, dim=-1)
+        return out, lse
     return out
 
 
@@ -101,7 +129,7 @@ def flash_attention_merged_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len: in
     the forward's keep mask over 1 - rate.  Returned in q / k / v's dtypes."""
     d = q.shape[2] // num_heads
     scale = 1.0 / d ** 0.5
-    p = torch.exp(_scores(q, k, key_mask, dec_len, num_heads) - lse.float()[..., None])
+    p = _padded_probs(_scores(q, k, key_mask, dec_len, num_heads), lse)
     ks = _dropout_scale(q, num_heads, dropout_rate, seed)
     gh, vh = _split(g, num_heads), _split(v, num_heads)
     pd = p if ks is None else p * ks
@@ -257,14 +285,14 @@ def flash_attention_plain(q, k, v, key_mask, dec_len: int, row_offset: int = 0,
     and divided by 1 - rate, then rounded to v's dtype for the second
     product; output [B, H, Lq, D] in q's dtype.  With ``return_lse`` also
     the row log-sum-exp [B, H, Lq] f32."""
-    scores = _split_scores(q, k, key_mask, dec_len, row_offset)
-    w = torch.softmax(scores, dim=-1)
+    w, lse = _padded_softmax(_split_scores(q, k, key_mask, dec_len, row_offset),
+                             return_lse)
     ks = _split_keep(q, k, dropout_rate, seed, row_offset)
     if ks is not None:
         w = w * ks
     out = torch.matmul(w.to(v.dtype).float(), v.float()).to(q.dtype)
     if return_lse:
-        return out, torch.logsumexp(scores, dim=-1)
+        return out, lse
     return out
 
 
@@ -276,7 +304,7 @@ def flash_attention_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len: int, row_
     sqrt(d), dK = dS^T Q / sqrt(d), with K_r the forward's keep mask over
     1 - rate."""
     scale = 1.0 / q.shape[-1] ** 0.5
-    p = torch.exp(_split_scores(q, k, key_mask, dec_len, row_offset) - lse.float()[..., None])
+    p = _padded_probs(_split_scores(q, k, key_mask, dec_len, row_offset), lse)
     ks = _split_keep(q, k, dropout_rate, seed, row_offset)
     gf = g.float()
     dv = torch.matmul(p.transpose(-1, -2) if ks is None else (p * ks).transpose(-1, -2), gf)

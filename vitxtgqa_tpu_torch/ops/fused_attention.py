@@ -3,7 +3,8 @@
 
 Counterpart of vitxtgqa_tpu/ops/pallas_attention.py:fused_attention, which
 the split-head ``mha`` takes for an array bias or none (ops/attention.py).
-The CUDA kernel is csrc/fused_attention.cu: head width 64 (every model of
+The CUDA kernel is csrc/fused_attention.cu, the flash forward body of
+csrc/flash_fwd.cuh under its bias policy: head width 64 (every model of
 the repo with >= 256 keys: T2S 768 / 12, ViT-L 1024 / 16, ViT-B 768 / 12),
 q / k / v read through their strides, so the split-head views of a merged
 projection are not copied.
