@@ -16,7 +16,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
      from synthetic_batch, and for the flash forwards (#1, its dropout
      form, #10; #1b with the first) also the masks of edge_masks: a batch
      row with no valid key, and valid keys in one key tile only (the tile
-     walk's skip path);
+     walk's skip path), and again at 577 keys (check_padded_keys: 63
+     padded keys, which a row of mask fills counts);
      max |diff| against a stated tolerance, and
      CUDA-event times of both.  The decode step's attention is planted
      (PLANTED / BACKGROUND / TRAP) so that reading a slot it must not read
@@ -106,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -405,6 +407,11 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+def worst_of(rel: dict):
+    """The key of the largest value of ``rel``, a NaN counting as the largest."""
+    return max(rel, key=lambda k: math.inf if math.isnan(rel[k]) else rel[k])
+
+
 def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -629,15 +636,15 @@ def report(record, name, err, extra="", scale=None, **timed):
     (keep_times' arguments): the call's times are the kernel's record."""
     tol = TOL[name]
     rec = record.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": None})
-    rec["max_abs_err"] = max(rec["max_abs_err"], err)
-    crit = err
+    crit = err if scale is None else err / scale
+    ok = crit <= tol  # False for a NaN error
+    rec["max_abs_err"] = max(rec["max_abs_err"], err) if ok else err
     if scale is not None:
-        crit = err / scale
-        rec["max_rel_err"] = max(rec["max_rel_err"] or 0.0, crit)
+        rec["max_rel_err"] = max(rec["max_rel_err"] or 0.0, crit) if ok else crit
     what = "max|diff|/max|plain|" if scale is not None else "max|diff|"
-    status = "ok" if crit <= tol else "FAIL"
-    print(f"kernel {name}{extra}: {what} {crit:.3e} (tol {tol:.0e}) {status}", flush=True)
-    if crit > tol:
+    print(f"kernel {name}{extra}: {what} {crit:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
         fail(f"{name}{extra} disagrees with its plain version")
     if timed:
         keep_times(record, name, extra, **timed)
@@ -672,7 +679,7 @@ def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: i
             shape = f"[{b},1,768] x 3 layers, kv8 [3,{b},{lp},1536] step={step}"
             print(f"kernel fused_decode_step {shape}: row8 max|diff| {d8} (tol {ROW8_TOL}), "
                   f"rowsc max rel diff {dsc:.3e} (tol {ROWSC_REL_TOL})", flush=True)
-            if d8 > ROW8_TOL or dsc > ROWSC_REL_TOL:
+            if not (d8 <= ROW8_TOL and dsc <= ROWSC_REL_TOL):
                 fail(f"fused_decode_step quantized rows disagree at {shape}")
             timed = {}
             if step == 11:
@@ -831,7 +838,7 @@ def check_kernels(dev, record):
         emb_err = (got[2] - want[2]).float().abs()[same].max().item() if same.any() else 0.0
         print(f"kernel fused_epilogue [{b}] tokens {got[1][:, 0, 0].tolist()} vs plain "
               f"{want[1][:, 0, 0].tolist()}; next-embedding max|diff| {emb_err:.3e}", flush=True)
-        if not bool(tok_ok.all()) or emb_err > TOL["fused_epilogue"]:
+        if not bool(tok_ok.all()) or not emb_err <= TOL["fused_epilogue"]:
             fail(f"fused_epilogue token or embedding disagrees at batch {b}")
         ms = cuda_time_ms(lambda: DS.fused_epilogue(*eargs))
         pms = cuda_time_ms(lambda: DS.fused_epilogue_plain(*eargs))
@@ -1107,7 +1114,7 @@ def check_training_kernels(dev, record):
         report(record, "flash_attention_merged", err,
                extra=f" dropout {RATE} [{b},1152,768] dec_len={dec_len}; lse max|diff| "
                      f"{lse_err:.3e} (tol {LSE_TOL:.0e})")
-        if lse_err > LSE_TOL:
+        if not lse_err <= LSE_TOL:
             fail(f"flash_attention_merged lse disagrees at dec_len {dec_len}")
         # the dropout form on the forward body's edge cases, every row
         for label, km in edge_masks(mask_for(b, dec_len), dec_len):
@@ -1120,7 +1127,7 @@ def check_training_kernels(dev, record):
             report(record, "flash_attention_merged", (got.float() - want.float()).abs().max().item(),
                    extra=f" dropout {RATE} [{b},1152,768] dec_len={dec_len}, {label}; lse "
                          f"max|diff| {lse_err:.3e} (tol {LSE_TOL:.0e})")
-            if lse_err > LSE_TOL:
+            if not lse_err <= LSE_TOL:
                 fail(f"flash_attention_merged lse disagrees at dec_len {dec_len}, {label}")
 
     # 8. flash backward at rate 0 and 0.1, from the twin's out and lse, on
@@ -1248,7 +1255,7 @@ def check_training_kernels(dev, record):
     lse_err = (lse - want_lse).abs()[rows_ok[:, None, :].expand_as(lse)].max().item()
     report(record, "flash_attention_merged", err,
            extra=f" dropout {RATE} {shape}; lse max|diff| {lse_err:.3e} (tol {LSE_TOL:.0e})")
-    if lse_err > LSE_TOL:
+    if not lse_err <= LSE_TOL:
         fail(f"flash_attention_merged lse disagrees at {shape}")
     del want, want_lse
     got = FA.flash_attention_merged_bwd(q, k, v, km, out, lse, g, 12, h, RATE, seed)
@@ -1345,6 +1352,62 @@ def split_flash_bwd_bound(qs, k, key_mask, dec_len: int, off: int):
     b, h, rows, hd = qs.shape
     moved = 4 * nbytes(qs) + 2 * nbytes(k) + 4 * nbytes(k) + b * h * rows * 4 + nbytes(key_mask)
     return bound_of(moved, 10 * hd * h * attn_pairs(key_mask, dec_len, off, rows))
+
+
+PAD_L = 577  # keys: not a multiple of 128, so round_up(PAD_L, 128) - PAD_L = 63 padded keys
+
+
+def check_padded_keys(dev, record):
+    """The flash forwards where a row of mask fills also counts the padded
+    keys up to round_up(Lk, 128) (csrc/flash_fwd.cuh; at 1152 keys there are
+    none): #1 and #10 (offsets 0 and 289 of the 577 rows) at PAD_L keys,
+    batch TRAIN_CHECK_BATCH, dec_len 0 and 12, on the masks of edge_masks
+    (a batch row with no valid key: its encoder rows average V over 640
+    keys), at rate 0 and at rate RATE with the lse; every row against the
+    twin."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    h, l, b = 12, PAD_L, TRAIN_CHECK_BATCH
+    serving_mask, _ = serving_masks(dev)
+    seed = torch.tensor([20261018], dtype=torch.int64, device=dev)
+    q, k, v = (torch.randn(b, l, 768, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    qh, kh, vh = (sdpa_split(x, h) for x in (q, k, v))
+    shards = ((0, l // 2 + 1), (l // 2 + 1, l - l // 2 - 1))
+
+    def check(name, kernel, twin, args, rate, extra):
+        """kernel(*args) against twin(*args), with the lse at rate > 0."""
+        s_ = seed if rate else None
+        got = kernel(*args, rate, s_, rate > 0)
+        want = twin(*args, rate, s_, rate > 0)
+        torch.cuda.synchronize()
+        if rate:
+            (got, lse), (want, want_lse) = got, want
+            lse_err = (lse - want_lse).abs().max().item()
+            extra += f"; lse max|diff| {lse_err:.3e} (tol {LSE_TOL:.0e})"
+        report(record, name, (got.float() - want.float()).abs().max().item(), extra)
+        if rate and not lse_err <= LSE_TOL:
+            fail(f"{name} lse disagrees at{extra}")
+
+    for dec_len in (0, 12):
+        km0 = serving_mask[:b, :l].clone()
+        if dec_len:
+            km0[:, l - dec_len:] = 0.0
+        for label, km in edge_masks(km0, dec_len):
+            for rate in (0.0, RATE):
+                form = f" rate {rate} dec_len={dec_len}, {label}"
+                check("flash_attention_merged", FA.flash_attention_merged,
+                      FA.flash_attention_merged_plain, (q, k, v, km, dec_len, h), rate,
+                      f" [{b},{l},768]{form}")
+                for off, rows in shards:
+                    check("flash_attention", FA.flash_attention, FA.flash_attention_plain,
+                          (qh[:, :, off:off + rows], kh, vh, km, dec_len, off), rate,
+                          f" [{b},{h},{rows},64] x [{b},{h},{l},64] row_offset={off}{form}")
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
 
 
 def check_sp_kernels(dev, record):
@@ -1585,7 +1648,7 @@ def serve_slice(name, sl: Slices, record, opts: dict, groups, rng_seed=0):
                   f"{diff_all:.4e} (step 0: {diff0:.4e}, tol {STEP0_TOL}), greedy-token "
                   f"agreement {agree:.4f} (min {MIN_TOKEN_AGREEMENT}), ground_frame agreement "
                   f"{gf:.4f}", flush=True)
-            if diff0 > STEP0_TOL or agree < MIN_TOKEN_AGREEMENT:
+            if not diff0 <= STEP0_TOL or agree < MIN_TOKEN_AGREEMENT:
                 fail(f"slice {name}: the kernels disagree with the plain versions")
             summary["groups"].append({
                 "batch": n, "launches": counts, "pos_scores_max_abs_diff": diff_all,
@@ -1640,7 +1703,8 @@ def full_eval_slice(sl: Slices, record, card, compact: bool = False):
           f"(min {MIN_TOKEN_AGREEMENT}); on the {int(same.sum())} rows with equal tokens max|d "
           f"ref_scores| {diffs['ref_scores']}, max|d neg_scores| {diffs['neg_scores']} (tol "
           f"{REFNEG_TOL}); forward median {statistics.median(lat):.2f} ms; card {card}", flush=True)
-    if agree < MIN_TOKEN_AGREEMENT or not same.any() or max(diffs.values()) > REFNEG_TOL:
+    if (agree < MIN_TOKEN_AGREEMENT or not same.any()
+            or not all(d <= REFNEG_TOL for d in diffs.values())):
         fail(f"slice {name}: the kernels disagree with the plain versions")
     del model, plain
     return {"launches": counts, "token_agreement": agree, "rows_equal_tokens": int(same.sum()),
@@ -1786,7 +1850,7 @@ def vit_slice(sl: Slices, record, card):
     print(f"slice vit_l16: CLS {tuple(feats.shape)} {feats.dtype}, finite {ok}; kernels vs plain on "
           f"the card: max|diff| {err:.4e}, largest per-frame relative L2 difference {rel:.4e} "
           f"(limit {VIT_FEAT_REL_TOL})", flush=True)
-    if not ok or rel > VIT_FEAT_REL_TOL:
+    if not ok or not rel <= VIT_FEAT_REL_TOL:
         fail("slice vit_l16: the CLS features disagree with the plain versions")
 
     lat = []
@@ -1880,7 +1944,7 @@ def vit_module_entry(dev, record):
           + json.dumps(counts) + f"; CLS kernels vs plain: max|diff| {err:.4e}, largest "
           f"per-frame relative L2 difference {rel:.4e} (limit {VIT_FEAT_REL_TOL}); one "
           f"forward {ms:.3f} ms (CUDA events)", flush=True)
-    if rel > VIT_FEAT_REL_TOL or not bool(torch.isfinite(cls).all()):
+    if not rel <= VIT_FEAT_REL_TOL or not bool(torch.isfinite(cls).all()):
         fail("slice vit_l16_384: the CLS features disagree with the plain versions")
     del vit, plain
     torch.cuda.empty_cache()
@@ -1975,7 +2039,7 @@ def step_agreement(run, ref):
         nw = w.norm()
         if nw > 0 and not k.endswith("attention.self.key.bias"):
             rel[k] = float((grads[k] - w).norm() / nw)
-    worst = max(rel, key=rel.get)
+    worst = worst_of(rel)
     loss_rel, norm_rel = abs(loss - loss_r) / abs(loss_r), abs(norm - norm_r) / norm_r
     ok = loss_rel <= LOSS_REL_TOL and norm_rel <= GNORM_REL_TOL and rel[worst] <= GRAD_REL_TOL
     return loss_rel, norm_rel, (rel[worst], worst), len(rel), ok
@@ -2133,11 +2197,11 @@ def vit_backward_check(dev, record):
              f"{len(kern)} / {len(ref)} gradients")
     rel = {k: float((kern[k] - w).norm() / w.norm()) for k, w in ref.items()
            if w.norm() > 0 and not k.endswith("key.bias")}
-    worst = max(rel, key=rel.get)
+    worst = worst_of(rel)
     print(f"slice vit_l16_384: backward at batch {VIT_BWD_BATCH} through #14 "
           f"({counts['fused_attention']} launches) vs the plain stack: per-parameter gradient rel diff max {rel[worst]:.3e} "
           f"({worst}) over {len(rel)} parameters (limit {GRAD_REL_TOL})", flush=True)
-    if rel[worst] > GRAD_REL_TOL:
+    if not rel[worst] <= GRAD_REL_TOL:
         fail("vit_l16_384 backward: the gradients through #14 disagree with the plain stack's")
     del grads, kern, ref
     torch.cuda.empty_cache()
@@ -2200,8 +2264,8 @@ def sp_forward(sl, sp, rank: int, name: str, opts: dict, inference_only: bool, c
               f"SP kernels vs unsharded plain: greedy-token agreement {agree:.4f} (min "
               f"{MIN_TOKEN_AGREEMENT})" + (f"; on the {int(same.sum())} rows with equal tokens "
               f"max|d ref/neg scores| {diffs} (tol {REFNEG_TOL})" if diffs else ""), flush=True)
-        if agree < MIN_TOKEN_AGREEMENT or (diffs and (not same.any()
-                                                       or max(diffs.values()) > REFNEG_TOL)):
+        if agree < MIN_TOKEN_AGREEMENT or (diffs and (
+                not same.any() or not all(d <= REFNEG_TOL for d in diffs.values()))):
             fail(f"slice {name}: the SP kernels disagree with the unsharded plain versions")
         summary.update(token_agreement=agree, refneg_max_abs_diff=diffs)
     if inference_only:
@@ -2529,6 +2593,7 @@ def main(argv) -> int:
     details["vit_kernels"] = check_vit_kernels(dev, record)
     details["training_kernels"] = check_training_kernels(dev, record)
     details["sp_kernels"] = check_sp_kernels(dev, record)
+    check_padded_keys(dev, record)
     details["slices"] = run_slices(dev, record, card)
     out_dir = argv[argv.index("--out") + 1] if "--out" in argv else os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)

@@ -362,3 +362,44 @@ def test_edge_masks_take_the_tile_walks_two_branches(dec_len):
                       dim=-1)
     want = (w @ split(v)[:, :, 128:192]).transpose(1, 2).reshape(8, enc_rows, 128)
     torch.testing.assert_close(out[:, :enc_rows], want, atol=1e-5, rtol=1e-5)
+
+
+def test_report_fails_on_a_nan_error():
+    """report and worst_of: a NaN error fails the check and is what the
+    record keeps, for the absolute and the scale-relative form alike."""
+    record = {}
+    CS.report(record, "flash_attention", 1e-3)
+    with pytest.raises(SystemExit):
+        CS.report(record, "flash_attention", float("nan"))
+    assert np.isnan(record["flash_attention"]["max_abs_err"])
+    with pytest.raises(SystemExit):
+        CS.report(record, "flash_attention_bwd", float("nan"), scale=2.0)
+    assert np.isnan(record["flash_attention_bwd"]["max_rel_err"])
+    assert CS.worst_of({"a": 0.1, "b": float("nan"), "c": 0.2}) == "b"
+    assert CS.worst_of({"a": 0.1, "c": 0.2}) == "c"
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["twin", "unpadded_kernel"])
+def test_check_padded_keys_rejects_a_kernel_without_the_padded_keys(padded, monkeypatch):
+    """check_padded_keys at 130 keys (126 padded) on the CPU, where the
+    wrappers run the twins: it passes, and a #1 that averages a row of mask
+    fills over Lk instead of round_up(Lk, 128) keys (the port before the
+    padded-key repair) is rejected."""
+    monkeypatch.setattr(CS, "PAD_L", 130)
+    if not padded:
+        plain = TFA.flash_attention_merged_plain
+
+        def unpadded(*args):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(TFA, "LANE", 1)
+                return plain(*args)
+
+        monkeypatch.setattr(TFA, "flash_attention_merged", unpadded)
+    record = {}
+    if padded:
+        CS.check_padded_keys(torch.device("cpu"), record)
+        assert record["flash_attention_merged"]["max_abs_err"] == 0.0
+        assert record["flash_attention"]["max_abs_err"] == 0.0
+    else:
+        with pytest.raises(SystemExit, match="flash_attention_merged"):
+            CS.check_padded_keys(torch.device("cpu"), record)

@@ -13,12 +13,8 @@ split-head views, a rank's 576 query rows at offsets 0 and 576 against
 no bias at [8, 16, 577, 64] (ViT-L/16 at 384 px) and with the key-mask and
 the prefix-LM bias at [8, 12, 1152, 64]; and one ViT-L/16 forward at 384
 px, batch 8 (random weights from seed 1), the path whose attention is #14
-in all 24 layers; and, on the host clock ending in a synchronize (median
-of 5 after a warm-up), one T2S forward at production width with the int8
-cache at batch 8 (random weights from seed 0, `synthetic_batch` seed 1):
-serving (chip_smoke.py slice a) and full-eval (slice d).  Each kernel time
-is CUDA events around
---reps back-to-back calls, the median of 5 such runs; beside each form the
+in all 24 layers.  Each time is CUDA events around --reps back-to-back
+calls, the median of 5 such runs; beside each form the
 time of F.scaled_dot_product_attention on the same inputs and mask where
 one call computes the same function (#11's quantization has none).  Prints
 one JSON line with the card's name and power limit.  Run it as a file, not
@@ -32,7 +28,6 @@ import os
 import statistics
 import subprocess
 import sys
-import time
 
 
 def main(argv=None) -> int:
@@ -47,14 +42,11 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     from vitxtgqa_tpu_torch import Options
-    from vitxtgqa_tpu_torch.models.t2s import (PRODUCTION_NUM_FINAL_OUTPUTS, T2S,
-                                               t2s_production_config)
     from vitxtgqa_tpu_torch.models.vit import VIT_L_16, ViT, preprocess_frames
     from vitxtgqa_tpu_torch.ops import _build
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
     from vitxtgqa_tpu_torch.ops import fused_attention as FAT
     from vitxtgqa_tpu_torch.ops.masks import prefix_lm_bias, self_attention_bias
-    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
     from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch, synthetic_frames
 
     if not torch.cuda.is_available():
@@ -127,32 +119,6 @@ def main(argv=None) -> int:
             torch.from_numpy(synthetic_frames(8, 240, 320, seed=3)).to(dev), cfg.image_size)
         ms["ViT-L/16 384 px forward [8]"] = timed(lambda: vit(images))
     del vit, images
-
-    def host_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        runs = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(runs)
-
-    nf = PRODUCTION_NUM_FINAL_OUTPUTS
-    tb = to_device(synthetic_batch(batch=8, num_final_outputs=nf, seed=1), dev)
-    state = None
-    for name, inference_only in (("T2S serving forward, int8, [8] (host ms)", True),
-                                 ("T2S full-eval forward, int8, [8] (host ms)", False)):
-        model = T2S(t2s_production_config(), nf, bos_idx=2, inference_only=inference_only,
-                    opts=Options(device=dev, dtype=torch.bfloat16, kv_cache_int8=True))
-        if state is None:
-            state = model.init_weights(0).state_dict()
-        model.load_state_dict(state)
-        with torch.inference_mode():
-            ms[name] = host_ms(lambda: model(tb, group_generator(0, 0, dev)))
-        del model
-    del state, tb
 
     q, k, v, g = (rn(48, 1152, 768) for _ in range(4))
     fwd = lambda: FA.flash_attention_merged(q, k, v, mask48, 12, 12, 0.1, seed, return_lse=True)

@@ -109,6 +109,9 @@ __device__ __forceinline__ void rows_times_t(float* dst, const bf16* x, const bf
 // log(round_up(Lk, 128)): P = 1 / round_up(Lk, 128) on each of its keys,
 // as the TPU kernels' padded keys have it (to a relative 5e-4 from the
 // rounding of that lse, below the bf16 rounding of P and dS).
+// Assumed: a row with an allowed key has lse > kBwdFill + 104 (its largest
+// allowed scaled score above about -9,900), so that exp(kBwdFill - lse)
+// underflows to 0 (the model's scaled scores are in the tens).
 constexpr float kBwdFill = -1e4f;
 
 __device__ __forceinline__ float row_lse(float lse, int Lk) {

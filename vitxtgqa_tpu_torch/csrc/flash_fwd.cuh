@@ -36,11 +36,11 @@
 // against 19 MB).  With dropout every probability also costs a quarter of
 // a Philox4x32-10 evaluation on the integer units.
 //
-// Design.  A block of kWG consumer warpgroups (128 threads each) owns 64 *
-// kWG query rows of one (head, batch): each warpgroup 64 rows.
-//  - S = Q K^T is wgmma m64n{BK}k16 from shared memory (sm90.cuh), Q and K
+// Design.  A block of one warpgroup (128 threads) owns 64 query rows of one
+// (head, batch) and walks the keys in tiles of 64.
+//  - S = Q K^T is wgmma m64n64k16 from shared memory (sm90.cuh), Q and K
 //    tiles in the 128-byte-swizzle layout (a 64-wide bf16 head row is one
-//    128-byte atom).  S lives in registers (BK / 2 floats a thread).
+//    128-byte atom).  S lives in registers (32 floats a thread).
 //  - The online softmax runs on the accumulator fragment: a thread holds
 //    two rows, the row max and sum are shuffles among the four lanes of a
 //    row; exponentials are ex2 with scale * log2(e) folded into one
@@ -52,10 +52,10 @@
 //    to bf16x2 is the A operand of O += P V (wgmma m64n64k16, register A),
 //    with V the MN-major B operand from shared memory (trans-b).  O stays
 //    in registers (32 floats a thread).
-//  - K / V tiles (and #14's bias tile) stream through a ring of STAGES
+//  - K / V tiles (and #14's bias tile) stream through a ring of two
 //    shared-memory stages filled by 16-byte cp.async copies: the copies of
-//    tile t + STAGES - 1 are issued before the products of tile t, and
-//    waited for with cp.async.wait_group.  Not TMA: serving is host-bound,
+//    tile t + 1 are issued before the products of tile t, and waited for
+//    with cp.async.wait_group.  Not TMA: serving is host-bound,
 //    and a tensor map per operand per call (cuTensorMapEncodeTiled) would
 //    add host work to every launch, while cp.async reads the strided
 //    split-head views with no descriptor; a TMA producer warp is later
@@ -85,10 +85,12 @@
 namespace vt {
 namespace flash {
 
-// tile sizes of the launches (chosen by measurement: PERF.md)
-constexpr int kFwdWG = 1;       // consumer warpgroups: 64 query rows each
-constexpr int kFwdBK = 64;      // keys per tile
-constexpr int kFwdStages = 2;   // K / V ring depth
+// tile sizes, chosen by measurement on the H100 (PERF.md section 6: 3 or 4
+// stages, two warpgroups of 64 rows and 128-key tiles were slower)
+constexpr int kBQ = 64;       // query rows of a block: one warpgroup
+constexpr int kBK = 64;       // keys per tile
+constexpr int kStages = 2;    // K / V ring depth
+constexpr int kThreads = 128;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -154,36 +156,30 @@ __device__ __forceinline__ void emit_int8(const bf16* __restrict__ src, int8_t* 
   }
 }
 
-// Shared-memory layout of one launch: the Q tile, STAGES stages of (K, V,
+// Shared-memory layout of one launch: the Q tile, kStages stages of (K, V,
 // bias) each 1024-byte aligned, then (mask policy) the key bit mask and the
 // live tile list.
-template <int kWG, int BK, int STAGES>
 struct FwdLayout {
-  static constexpr int kRows = 64 * kWG;
-  static constexpr int kQBytes = kRows * 128;
-  static constexpr int kKVBytes = BK * 128;
-  static constexpr int kBiasLd = BK + 8;  // floats: conflict-free float2 reads
-  int bias_rows;                          // 0 (none), 1 (one row) or kRows
+  static constexpr int kQBytes = kBQ * 128;
+  static constexpr int kKVBytes = kBK * 128;
+  static constexpr int kBiasLd = kBK + 8;  // floats: conflict-free float2 reads
+  int bias_rows;                           // 0 (none), 1 (one row) or kBQ
   int stage_bytes, n_words, n_tiles, bytes;
 
   __host__ __device__ FwdLayout(int Lk, bool mask, int rows) : bias_rows(rows) {
     const int bias_bytes = rows * kBiasLd * 4;
     stage_bytes = (2 * kKVBytes + bias_bytes + 1023) / 1024 * 1024;
-    n_tiles = (Lk + BK - 1) / BK;
-    n_words = n_tiles * (BK / 32);  // whole tiles: a tile reads BK / 32 words
+    n_tiles = (Lk + kBK - 1) / kBK;
+    n_words = n_tiles * (kBK / 32);  // whole tiles: a tile reads kBK / 32 words
     // + 1024: the dynamic shared memory is aligned to 1024 bytes in-kernel
-    bytes = 1024 + kQBytes + STAGES * stage_bytes + (mask ? 4 * (n_words + n_tiles) : 0);
+    bytes = 1024 + kQBytes + kStages * stage_bytes + (mask ? 4 * (n_words + n_tiles) : 0);
   }
 };
 
-template <bool kMask, bool kDropout, bool kEmit, int kWG, int BK, int STAGES>
-__global__ void __launch_bounds__(128 * kWG)
-flash_fwd_kernel(const FwdParams p) {
+template <bool kMask, bool kDropout, bool kEmit>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) {
   using namespace sm90;
-  constexpr int NTH = 128 * kWG;
-  constexpr int NJ = BK / 8;  // 8-key column chunks of the S fragment
-  using Layout = FwdLayout<kWG, BK, STAGES>;
-  static_assert(BK == 64 || BK == 128, "BK: 64 or 128 keys");
+  constexpr int NJ = kBK / 8;  // 8-key column chunks of the S fragment
   static_assert(!kDropout || kMask, "dropout: mask policy only");
 
   extern __shared__ unsigned char smem_raw[];
@@ -193,26 +189,25 @@ flash_fwd_kernel(const FwdParams p) {
 
   const Geom& g = p.g;
   const int Lq = g.Lq, Lk = g.Lk;
-  const int q0 = blockIdx.x * Layout::kRows;
+  const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, tq = lane & 3;
-  const int wg = tid / 128;
-  const int wrow = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;  // the thread's lower row
-  const Layout lay(Lk, kMask, kMask || p.bias == nullptr ? 0 : (p.bias_r == 0 ? 1 : Layout::kRows));
+  const int wrow = (tid / 32) * 16 + lane / 4;  // the thread's lower row
+  const FwdLayout lay(Lk, kMask, kMask || p.bias == nullptr ? 0 : (p.bias_r == 0 ? 1 : kBQ));
   const size_t qb = head_base(g.q, b, h), kb = head_base(g.k, b, h);
   const size_t vb = head_base(g.v, b, h), ob = head_base(g.o, b, h);
   const int l_enc = Lk - p.dec_len;
 
   unsigned char* q_s = sm;
-  unsigned char* stages = sm + Layout::kQBytes;
-  uint32_t* kbits = reinterpret_cast<uint32_t*>(stages + STAGES * lay.stage_bytes);
+  unsigned char* stages = sm + FwdLayout::kQBytes;
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(stages + kStages * lay.stage_bytes);
   int* live = reinterpret_cast<int*>(kbits + lay.n_words);
 
   // the live key tiles (mask policy); the bias policy walks them all
   int n_live = lay.n_tiles;
   if (kMask) {
     const float* km = p.key_mask + (size_t)b * Lk;
-    for (int w = tid / 32; w < lay.n_words; w += NTH / 32) {
+    for (int w = tid / 32; w < lay.n_words; w += kThreads / 32) {
       const int c = w * 32 + lane;
       const unsigned bits = __ballot_sync(0xffffffffu, c < Lk && km[c] > 0.f);
       if (lane == 0) kbits[w] = bits;
@@ -220,14 +215,14 @@ flash_fwd_kernel(const FwdParams p) {
     __syncthreads();
     if (tid == 0) {
       const int row_lo = g.row_offset + q0;
-      const int row_hi = g.row_offset + min(q0 + Layout::kRows, Lq) - 1;
+      const int row_hi = g.row_offset + min(q0 + kBQ, Lq) - 1;
       bool any = false;
       for (int w = 0; w < lay.n_words; ++w) any |= kbits[w] != 0u;
       const bool walk_all = !any && row_lo < l_enc;  // rows with no allowed key
       const bool dec_rows = p.dec_len > 0 && row_hi >= l_enc;
       int n = 0;
       for (int t = 0; t < lay.n_tiles; ++t) {
-        const int c0 = t * BK, c1 = min(c0 + BK, Lk);
+        const int c0 = t * kBK, c1 = min(c0 + kBK, Lk);
         bool on = walk_all || (dec_rows && c1 > l_enc && max(c0, l_enc) <= row_hi);
         for (int w = c0 / 32; !on && w < (c1 + 31) / 32; ++w) on = kbits[w] != 0u;
         if (on) live[n++] = t;
@@ -241,9 +236,9 @@ flash_fwd_kernel(const FwdParams p) {
   // one tile's K, V (and bias) into stage s
   auto load_stage = [&](int s, int t) {
     unsigned char* st = stages + s * lay.stage_bytes;
-    const uint32_t k_dst = smem_addr(st), v_dst = k_dst + Layout::kKVBytes;
-    const int k0 = t * BK;
-    for (int i = tid; i < BK * 8; i += NTH) {
+    const uint32_t k_dst = smem_addr(st), v_dst = k_dst + FwdLayout::kKVBytes;
+    const int k0 = t * kBK;
+    for (int i = tid; i < kBK * 8; i += kThreads) {
       const int r = i >> 3, c = i & 7, key = k0 + r;
       const bool ok = key < Lk;
       const size_t row = (size_t)(ok ? key : 0);
@@ -251,25 +246,25 @@ flash_fwd_kernel(const FwdParams p) {
       cp_async16(v_dst + sw128(r, c), p.v + vb + row * g.v[2] + c * 8, ok);
     }
     if (!kMask && lay.bias_rows > 0) {
-      const uint32_t b_dst = v_dst + Layout::kKVBytes;
+      const uint32_t b_dst = v_dst + FwdLayout::kKVBytes;
       const float* src = p.bias + b * p.bias_b;
       if (p.bias_vec16) {
-        for (int i = tid; i < lay.bias_rows * (BK / 4); i += NTH) {
-          const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
+        for (int i = tid; i < lay.bias_rows * (kBK / 4); i += kThreads) {
+          const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
           const int qr = q0 + r, key = k0 + c;
           const bool ok = qr < Lq && key < Lk;
           const int bytes = ok ? min(16, (Lk - key) * 4) : 0;
           const float* s_ = ok ? src + qr * p.bias_r + key : p.bias;
           asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                           b_dst + (uint32_t)((r * Layout::kBiasLd + c) * 4)),
+                           b_dst + (uint32_t)((r * FwdLayout::kBiasLd + c) * 4)),
                        "l"(s_), "r"(bytes)
                        : "memory");
         }
       } else {
-        for (int i = tid; i < lay.bias_rows * BK; i += NTH) {
-          const int r = i / BK, c = i % BK, qr = q0 + r, key = k0 + c;
+        for (int i = tid; i < lay.bias_rows * kBK; i += kThreads) {
+          const int r = i / kBK, c = i % kBK, qr = q0 + r, key = k0 + c;
           const bool ok = qr < Lq && key < Lk;
-          cp_async4(b_dst + (uint32_t)((r * Layout::kBiasLd + c) * 4),
+          cp_async4(b_dst + (uint32_t)((r * FwdLayout::kBiasLd + c) * 4),
                     ok ? src + qr * p.bias_r + key : p.bias, ok);
         }
       }
@@ -277,17 +272,17 @@ flash_fwd_kernel(const FwdParams p) {
   };
   auto tile_of = [&](int i) { return kMask ? live[i] : i; };
 
-  // prologue: Q and the first STAGES - 1 tiles, one commit group each
+  // prologue: Q and the first kStages - 1 tiles, one commit group each
   {
     const uint32_t q_dst = smem_addr(q_s);
-    for (int i = tid; i < Layout::kRows * 8; i += NTH) {
+    for (int i = tid; i < kBQ * 8; i += kThreads) {
       const int r = i >> 3, c = i & 7;
       const bool ok = q0 + r < Lq;
       cp_async16(q_dst + sw128(r, c), p.q + qb + (size_t)(ok ? q0 + r : 0) * g.q[2] + c * 8, ok);
     }
   }
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_live) load_stage(s, tile_of(s));
     cp_async_commit();
   }
@@ -297,8 +292,8 @@ flash_fwd_kernel(const FwdParams p) {
     const int r0 = h * per, r1 = min(Lk, r0 + per);
     const int rs = (int)g.k[2];
     const size_t bb = (size_t)b * g.k[0];
-    emit_int8<NTH>(p.k + bb, p.emit.k8 + bb, p.emit.ks + (size_t)b * Lk, r0, r1, rs);
-    emit_int8<NTH>(p.v + bb, p.emit.v8 + bb, p.emit.vs + (size_t)b * Lk, r0, r1, rs);
+    emit_int8<kThreads>(p.k + bb, p.emit.k8 + bb, p.emit.ks + (size_t)b * Lk, r0, r1, rs);
+    emit_int8<kThreads>(p.v + bb, p.emit.v8 + bb, p.emit.vs + (size_t)b * Lk, r0, r1, rs);
   }
 
   const float sl2 = 0.125f * kLog2e;  // 1 / sqrt(64), in the log2 domain
@@ -308,29 +303,25 @@ flash_fwd_kernel(const FwdParams p) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  const uint64_t q_desc = desc_sw128(smem_addr(q_s + wg * 64 * 128));
+  const uint64_t q_desc = desc_sw128(smem_addr(q_s));
 
   for (int i = 0; i < n_live; ++i) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<kStages - 2>();
     fence_proxy_async();
     __syncthreads();  // tile i has landed; every warp is done with tile i - 1's stage
-    if (i + STAGES - 1 < n_live) load_stage((i + STAGES - 1) % STAGES, tile_of(i + STAGES - 1));
+    if (i + kStages - 1 < n_live) load_stage((i + kStages - 1) % kStages, tile_of(i + kStages - 1));
     cp_async_commit();
 
-    const int t = tile_of(i), k0 = t * BK;
-    unsigned char* st = stages + (i % STAGES) * lay.stage_bytes;
-    const uint32_t k_addr = smem_addr(st), v_addr = k_addr + Layout::kKVBytes;
+    const int t = tile_of(i), k0 = t * kBK;
+    unsigned char* st = stages + (i % kStages) * lay.stage_bytes;
+    const uint32_t k_addr = smem_addr(st), v_addr = k_addr + FwdLayout::kKVBytes;
 
     // S = Q K^T
-    float s[BK / 2];
+    float s[kBK / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (BK == 64)
-        wgmma_ss_n64(s, q_desc + 2 * kk, desc_sw128(k_addr) + 2 * kk, kk > 0);
-      else
-        wgmma_ss_n128(s, q_desc + 2 * kk, desc_sw128(k_addr) + 2 * kk, kk > 0);
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(s, q_desc + 2 * kk, desc_sw128(k_addr) + 2 * kk, kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -341,17 +332,17 @@ flash_fwd_kernel(const FwdParams p) {
     // into the exponent (e2 = sl2); any other tile is rewritten into the
     // log2 domain (e2 = 1: the exponent's argument is then exactly x - ref,
     // so a row of fills weighs its keys 1 each).
-    const bool tail = k0 + BK > Lk;
+    const bool tail = k0 + kBK > Lk;
     bool raw = !tail;
     if constexpr (kMask) {
-      uint32_t wb[BK / 32];
+      uint32_t wb[kBK / 32];
 #pragma unroll
-      for (int w = 0; w < BK / 32; ++w) {
+      for (int w = 0; w < kBK / 32; ++w) {
         wb[w] = kbits[k0 / 32 + w];
         raw = raw && wb[w] == 0xffffffffu;
         wb[w] >>= 2 * tq;
       }
-      const bool dec_tile = p.dec_len > 0 && k0 + BK > l_enc;
+      const bool dec_tile = p.dec_len > 0 && k0 + kBK > l_enc;
       raw = raw && !dec_tile;
       if (!raw) {
 #pragma unroll
@@ -371,7 +362,7 @@ flash_fwd_kernel(const FwdParams p) {
     } else {
       raw = raw && lay.bias_rows == 0;
       if (!raw) {
-        const float* bs = reinterpret_cast<const float*>(st + 2 * Layout::kKVBytes);
+        const float* bs = reinterpret_cast<const float*>(st + 2 * FwdLayout::kKVBytes);
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -380,7 +371,7 @@ flash_fwd_kernel(const FwdParams p) {
             float2 bv = make_float2(0.f, 0.f);
             if (lay.bias_rows > 0)
               bv = *reinterpret_cast<const float2*>(
-                  bs + (lay.bias_rows == 1 ? 0 : (wrow + 8 * hh) * Layout::kBiasLd) + c);
+                  bs + (lay.bias_rows == 1 ? 0 : (wrow + 8 * hh) * FwdLayout::kBiasLd) + c);
             float x0 = s[4 * j + 2 * hh] * sl2 + bv.x * kLog2e;
             float x1 = s[4 * j + 2 * hh + 1] * sl2 + bv.y * kLog2e;
             if (tail && k0 + c >= Lk) x0 = -INFINITY;
@@ -452,9 +443,9 @@ flash_fwd_kernel(const FwdParams p) {
       o[4 * j + 2] *= corr_hi;
       o[4 * j + 3] *= corr_hi;
     }
-    uint32_t a[BK / 16][4];
+    uint32_t a[kBK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < kBK / 16; ++kk) {
       a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
       a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
       a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -463,13 +454,13 @@ flash_fwd_kernel(const FwdParams p) {
     wgmma_fence();
     fence_regs(o);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
+    for (int kk = 0; kk < kBK / 16; ++kk)
       wgmma_rs_n64_tb(o, a[kk], desc_sw128(v_addr + kk * 2048));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
+    for (int kk = 0; kk < kBK / 16; ++kk)
       asm volatile("" ::"r"(a[kk][0]), "r"(a[kk][1]), "r"(a[kk][2]), "r"(a[kk][3]) : "memory");
   }
   cp_async_wait<0>();
@@ -504,18 +495,16 @@ flash_fwd_kernel(const FwdParams p) {
 }
 
 // launch one forward over grid (q tiles, heads, batch) on `stream`
-template <bool kMask, bool kDropout, bool kEmit, int kWG = kFwdWG, int BK = kFwdBK,
-          int STAGES = kFwdStages>
+template <bool kMask, bool kDropout, bool kEmit>
 int launch_flash_fwd(const FwdParams& p, int batch, void* stream) {
-  using Layout = FwdLayout<kWG, BK, STAGES>;
-  auto kernel = flash_fwd_kernel<kMask, kDropout, kEmit, kWG, BK, STAGES>;
-  const int bias_rows = kMask || p.bias == nullptr ? 0 : (p.bias_r == 0 ? 1 : Layout::kRows);
-  const Layout lay(p.g.Lk, kMask, bias_rows);
+  auto kernel = flash_fwd_kernel<kMask, kDropout, kEmit>;
+  const int bias_rows = kMask || p.bias == nullptr ? 0 : (p.bias_r == 0 ? 1 : kBQ);
+  const FwdLayout lay(p.g.Lk, kMask, bias_rows);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.g.Lq + Layout::kRows - 1) / Layout::kRows, p.heads, batch);
-  kernel<<<grid, 128 * kWG, lay.bytes, (cudaStream_t)stream>>>(p);
+  const dim3 grid((p.g.Lq + kBQ - 1) / kBQ, p.heads, batch);
+  kernel<<<grid, kThreads, lay.bytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

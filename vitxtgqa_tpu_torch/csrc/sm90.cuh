@@ -80,21 +80,6 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], as wgmma_ss_n64
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : VT_R8(0), VT_R8(8), VT_R8(16), VT_R8(24), VT_R8(32), VT_R8(40), VT_R8(48), VT_R8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 // D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (four bf16x2 per
 // thread, the accumulator layout of a 64 x 16 slice), B MN-major from
 // shared memory (transposed by the instruction)
