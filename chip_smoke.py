@@ -45,7 +45,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
      rows against 1,152 keys at batch 8, offsets 0 and 576, dec_len 0 and
      12, with dropout at offset 576 and its shards against the unsharded
      rows bit for bit; its backward (#10b) at batch 4, rate 0 and 0.1,
-     against autograd through the twin.  Each kernel's bound (bytes over 3.35 TB/s or operations
+     offsets 0 and 576, against autograd through the twin on the serving
+     mask and against the backward twin on edge_masks (dec_len 0 and 12);
+     check_padded_keys holds #1b and #10b at 577 keys too (a row of mask
+     fills weighs each key 1 / 640), and #14 with -1e9 on every key of a
+     row at 577 keys.  Each kernel's bound (bytes over 3.35 TB/s or operations
      over the peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67
      TFLOP/s f32) is computed from the inputs of its timed call, and one
      PyTorch call that computes the same function is timed beside it where
@@ -220,7 +224,7 @@ SOURCE = {
     "decode_attention": "vitxtgqa_tpu_torch/csrc/decode_attention.cu",
     "fused_decode_step": "vitxtgqa_tpu_torch/csrc/fused_decode_step.cu",
     "fused_epilogue": "vitxtgqa_tpu_torch/csrc/fused_epilogue.cu",
-    "flash_attention_merged_bwd": "vitxtgqa_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_merged_bwd": "vitxtgqa_tpu_torch/csrc/flash_bwd.cuh",
     "block_train_fwd": "vitxtgqa_tpu_torch/csrc/block_train.cu",
     "block_train_bwd": "vitxtgqa_tpu_torch/csrc/block_train.cu",
     "fused_block_w8a8": "vitxtgqa_tpu_torch/csrc/fused_block_w8a8.cu",
@@ -229,7 +233,7 @@ SOURCE = {
     "fused_ffn": "vitxtgqa_tpu_torch/csrc/fused_ffn.cu",
     "fused_attention": "vitxtgqa_tpu_torch/csrc/fused_attention.cu",
     "flash_attention": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
-    "flash_attention_bwd": "vitxtgqa_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd": "vitxtgqa_tpu_torch/csrc/flash_bwd.cuh",
 }
 # slice, kernels vs plain on the card: greedy tokens may diverge where two
 # scores tie within bf16 noise, and diverge for the rest of the sequence
@@ -1358,13 +1362,16 @@ PAD_L = 577  # keys: not a multiple of 128, so round_up(PAD_L, 128) - PAD_L = 63
 
 
 def check_padded_keys(dev, record):
-    """The flash forwards where a row of mask fills also counts the padded
-    keys up to round_up(Lk, 128) (csrc/flash_fwd.cuh; at 1152 keys there are
-    none): #1 and #10 (offsets 0 and 289 of the 577 rows) at PAD_L keys,
-    batch TRAIN_CHECK_BATCH, dec_len 0 and 12, on the masks of edge_masks
-    (a batch row with no valid key: its encoder rows average V over 640
-    keys), at rate 0 and at rate RATE with the lse; every row against the
-    twin."""
+    """The flash kernels where a row of mask fills also counts the padded
+    keys up to round_up(Lk, 128) (at 1152 keys there are none), at PAD_L
+    keys, batch TRAIN_CHECK_BATCH, dec_len 0 and 12, on the masks of
+    edge_masks (a batch row with no valid key: its encoder rows average V
+    over 640 keys, and the backward weighs each of their keys 1 / 640), at
+    rate 0 and at rate RATE (with the lse), every row against the twin: the
+    forwards #1 and #10 (offsets 0 and 289 of the 577 rows) and the
+    backwards #1b and #10b on the twin's out and lse (the last key tile of
+    one key, #10b's last q tile of one row).  Then #14
+    (check_padded_bias)."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
@@ -1373,9 +1380,9 @@ def check_padded_keys(dev, record):
     h, l, b = 12, PAD_L, TRAIN_CHECK_BATCH
     serving_mask, _ = serving_masks(dev)
     seed = torch.tensor([20261018], dtype=torch.int64, device=dev)
-    q, k, v = (torch.randn(b, l, 768, generator=gen, device=dev).to(torch.bfloat16)
-               for _ in range(3))
-    qh, kh, vh = (sdpa_split(x, h) for x in (q, k, v))
+    q, k, v, gm = (torch.randn(b, l, 768, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    qh, kh, vh, gh = (sdpa_split(x, h) for x in (q, k, v, gm))
     shards = ((0, l // 2 + 1), (l // 2 + 1, l - l // 2 - 1))
 
     def check(name, kernel, twin, args, rate, extra):
@@ -1392,6 +1399,18 @@ def check_padded_keys(dev, record):
         if rate and not lse_err <= LSE_TOL:
             fail(f"{name} lse disagrees at{extra}")
 
+    def check_bwd(name, kernel, twin, fwd, args, g, rate, extra):
+        """kernel's dq, dk, dv against twin's, scale-relative, from the
+        forward twin's out and lse."""
+        s_ = seed if rate else None
+        out, lse = fwd(*args, rate, s_, True)
+        got = kernel(*args[:4], out, lse, g, *args[4:], rate, s_)
+        want = twin(*args[:4], out, lse, g, *args[4:], rate, s_)
+        torch.cuda.synchronize()
+        for grad, a, w in zip(("dq", "dk", "dv"), got, want):
+            report(record, name, (a.float() - w.float()).abs().max().item(),
+                   scale=w.float().abs().max().item(), extra=f" {grad}{extra}")
+
     for dec_len in (0, 12):
         km0 = serving_mask[:b, :l].clone()
         if dec_len:
@@ -1406,8 +1425,93 @@ def check_padded_keys(dev, record):
                     check("flash_attention", FA.flash_attention, FA.flash_attention_plain,
                           (qh[:, :, off:off + rows], kh, vh, km, dec_len, off), rate,
                           f" [{b},{h},{rows},64] x [{b},{h},{l},64] row_offset={off}{form}")
-    del q, k, v, qh, kh, vh
+            for rate in (0.0, RATE):
+                form = f" rate={rate} dec_len={dec_len}, {label}"
+                check_bwd("flash_attention_merged_bwd", FA.flash_attention_merged_bwd,
+                          FA.flash_attention_merged_bwd_plain, FA.flash_attention_merged_plain,
+                          (q, k, v, km, dec_len, h), gm, rate, f" [{b},{l},768]{form}")
+                for off, rows in shards + ((l - 1, 1),):
+                    check_bwd("flash_attention_bwd", FA.flash_attention_bwd,
+                              FA.flash_attention_bwd_plain, FA.flash_attention_plain,
+                              (qh[:, :, off:off + rows], kh, vh, km, dec_len, off),
+                              gh[:, :, :rows], rate,
+                              f" [{b},{h},{rows},64] x [{b},{h},{l},64] row_offset={off}{form}")
+
+    del q, k, v, gm, qh, kh, vh, gh
     torch.cuda.empty_cache()
+    check_padded_bias(dev, record)
+
+
+def check_padded_bias(dev, record):
+    """#14 at PAD_L keys, batch TRAIN_CHECK_BATCH, with -1e9 on every key of
+    a row (the Pallas kernel's padded keys share that row), broadcast over
+    the rows (batch row 1) and per row, against the twin.  V has mean 1: a
+    row of -1e9 averaged over Lk keys instead of round_up(Lk, 128) is then
+    off by about 63 / 640 ~ 0.1, above the tolerance (over zero-mean V the
+    same fault moves it by ~1e-2 only)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import fused_attention as FAT
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    h, l, b = 12, PAD_L, TRAIN_CHECK_BATCH
+    q, k, v = (torch.randn(b, l, 768, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    qh, kh, vh = sdpa_split(q, h), sdpa_split(k, h), sdpa_split(v + 1.0, h)
+    key_bias = torch.zeros(b, 1, 1, l, device=dev)
+    key_bias[0, ..., l // 2:] = -1e9
+    key_bias[1] = -1e9
+    row_bias = torch.randn(b, 1, l, l, generator=gen, device=dev) * 2.0
+    row_bias[1, 0, :64] = -1e9
+    row_bias[2, 0, l - 3:] = -1e9
+    for label, bias in (("batch row 1 all -1e9", key_bias),
+                        ("per-row bias, 67 rows all -1e9", row_bias)):
+        got = FAT.fused_attention(qh, kh, vh, bias)
+        want = FAT.fused_attention_plain(qh, kh, vh, bias)
+        torch.cuda.synchronize()
+        report(record, "fused_attention", (got.float() - want.float()).abs().max().item(),
+               f" [{b},{h},{l},64] {label}, V + 1")
+    del q, k, v, qh, kh, vh, key_bias, row_bias
+    torch.cuda.empty_cache()
+
+
+def check_split_bwd(record, q, k, v, g, key_mask, dec_len: int, rows: int, seed, label="",
+                    autograd: bool = True):
+    """#10b on the query shards of ``rows`` rows at offsets 0 and ``rows``
+    of split-head q / k / v (g: the shard's cotangent), rates 0 and RATE,
+    from the kernel forward's out and lse: against autograd through the
+    forward twin in f32, or (``autograd`` False) against the backward twin
+    on the same out and lse.  The second is the reference where a row has
+    no allowed key (edge_masks' batch row 3): the forward twin's masked
+    scores are constants, so autograd gives such a row no dq and its keys
+    no dk from it, while the Pallas backward and its twin weigh each of
+    its keys 1 / round_up(Lk, 128) (tests/test_torch_train_ops.py)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+
+    b, h, l = k.shape[:3]
+    for rate in (0.0, RATE):
+        for off in (0, rows):
+            s_ = seed if rate else None
+            qs = q[:, :, off:off + rows]
+            out, lse = FA.flash_attention(qs, k, v, key_mask, dec_len, off, rate, s_,
+                                          return_lse=True)
+            got = FA.flash_attention_bwd(qs, k, v, key_mask, out, lse, g, dec_len, off, rate, s_)
+            if autograd:
+                leaves = [t.detach().float().requires_grad_() for t in (qs, k, v)]
+                FA.flash_attention_plain(*leaves, key_mask, dec_len, off, rate,
+                                         s_).backward(g.float())
+                want = [t.grad for t in leaves]
+            else:
+                want = [t.float() for t in FA.flash_attention_bwd_plain(
+                    qs, k, v, key_mask, out, lse, g, dec_len, off, rate, s_)]
+            torch.cuda.synchronize()
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                report(record, "flash_attention_bwd", (a.float() - w).abs().max().item(),
+                       scale=w.abs().max().item(),
+                       extra=f" {name} rate={rate} [{b},{h},{rows},64] x [{b},{h},{l},64] "
+                             f"dec_len={dec_len} row_offset={off}{label}")
 
 
 def check_sp_kernels(dev, record):
@@ -1419,8 +1523,9 @@ def check_sp_kernels(dev, record):
     ragged mask, against its twin; with dropout 0.1 at offset 576, and the
     shards with dropout concatenated against the unsharded call, bit for
     bit; #10b at batch 4 (the SP training step's), rate 0 and 0.1, offsets 0
-    and 576 with dec_len 12, against autograd through the forward twin in
-    f32.  Timed: #10 at [8, 12, 576, 64] dec_len 0 (a QTV / MMT encode
+    and 576 with dec_len 12 against autograd through the forward twin in
+    f32, and on edge_masks with dec_len 0 and 12 against the backward twin
+    (check_split_bwd).  Timed: #10 at [8, 12, 576, 64] dec_len 0 (a QTV / MMT encode
     rank's call) and #10b at rate 0, offset 576, dec_len 12 (an MMT rank's
     rows across the decoder tail), each beside
     F.scaled_dot_product_attention with the same boolean rows (its backward
@@ -1493,27 +1598,19 @@ def check_sp_kernels(dev, record):
         fail("flash_attention: a shard's dropout rows differ from the unsharded call's")
     del got, want, full, shards
 
-    # 19. #10b against autograd through the twin
+    # 19. #10b against autograd through the twin on the serving mask, then
+    # the backward body's tile walk on edge_masks (a batch row with no valid
+    # key: its encoder rows weigh every key; valid keys in one key tile)
+    # against the backward twin
     b = TRAIN_CHECK_BATCH
     q4, k4, v4 = q[:b], k[:b], v[:b]
     g = sdpa_split(rn(b, rows, d), h)
     km = mask_for(b, 12)
-    for rate in (0.0, RATE):
-        for off in (0, rows):
-            s_ = seed if rate else None
-            qs = q4[:, :, off:off + rows]
-            out, lse = FA.flash_attention(qs, k4, v4, km, 12, off, rate, s_, return_lse=True)
-            got = FA.flash_attention_bwd(qs, k4, v4, km, out, lse, g, 12, off, rate, s_)
-            leaves = [t.float().requires_grad_() for t in (qs, k4, v4)]
-            FA.flash_attention_plain(*leaves, km, 12, off, rate, s_).backward(g.float())
-            torch.cuda.synchronize()
-            for name, a, t in zip(("dq", "dk", "dv"), got, leaves):
-                w = t.grad
-                report(record, "flash_attention_bwd", (a.float() - w).abs().max().item(),
-                       scale=w.abs().max().item(),
-                       extra=f" {name} rate={rate} [{b},{h},{rows},64] x [{b},{h},{l},64] "
-                             f"dec_len=12 row_offset={off}")
-            del leaves
+    check_split_bwd(record, q4, k4, v4, g, km, 12, rows, seed)
+    for dec_len in (0, 12):
+        for label, edge in edge_masks(mask_for(b, dec_len), dec_len):
+            check_split_bwd(record, q4, k4, v4, g, edge, dec_len, rows, seed, ", " + label,
+                            autograd=False)
     qs = q4[:, :, rows:]
     out, lse = FA.flash_attention(qs, k4, v4, km, 12, rows, return_lse=True)
     lib_q, lib_k, lib_v = (t.detach().requires_grad_() for t in (qs, k4, v4))
@@ -2584,6 +2681,10 @@ def main(argv) -> int:
     ptxas = [ln.split("ptxas info    : ")[-1] for ln in log if "Used" in ln or "spill" in ln]
     print(f"build: {build_s:.1f} s -> {os.path.relpath(lib_path, ROOT)}; ptxas: "
           + " | ".join(ptxas), flush=True)
+    print("build: the flash backward body (csrc/flash_bwd.cuh): " + "; ".join(
+        f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
+        for name, regs, st, ld in _build.ptxas_kernels(log, "flash_attention_bwd.cu")),
+        flush=True)
 
     record = {}
     check_kernels(dev, record)

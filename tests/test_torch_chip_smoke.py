@@ -403,3 +403,123 @@ def test_check_padded_keys_rejects_a_kernel_without_the_padded_keys(padded, monk
     else:
         with pytest.raises(SystemExit, match="flash_attention_merged"):
             CS.check_padded_keys(torch.device("cpu"), record)
+
+
+def _without_padded_probs(plain):
+    """``plain`` (a backward twin) with P = exp(S - lse) on every row: a row
+    of mask fills weighs each key 1, not 1 / round_up(Lk, 128) (the port's
+    backward before the padded-key repair)."""
+    def call(*args):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TFA, "_padded_probs",
+                       lambda scores, lse: torch.exp(scores - lse.float()[..., None]))
+            return plain(*args)
+    return call
+
+
+@pytest.mark.parametrize("broken", [None, "flash_attention_merged_bwd", "flash_attention_bwd"],
+                         ids=["twins", "merged_bwd_unpadded", "split_bwd_unpadded"])
+def test_check_padded_keys_holds_the_backward_kernels(broken, monkeypatch):
+    """check_padded_keys at 130 keys on the CPU, where the wrappers run the
+    twins: #1b, #10b and #14 pass with no difference, and a backward that
+    weighs the keys of a row of mask fills 1 each instead of 1 / 256 is
+    rejected, #1b's and #10b's alike."""
+    monkeypatch.setattr(CS, "PAD_L", 130)
+    if broken is not None:
+        monkeypatch.setattr(TFA, broken, _without_padded_probs(getattr(TFA, broken + "_plain")))
+        with pytest.raises(SystemExit, match=broken):
+            CS.check_padded_keys(torch.device("cpu"), {})
+        return
+    record = {}
+    CS.check_padded_keys(torch.device("cpu"), record)
+    for name in ("flash_attention_merged_bwd", "flash_attention_bwd"):
+        assert record[name]["max_abs_err"] == 0.0 and record[name]["max_rel_err"] == 0.0
+    assert record["fused_attention"]["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["twin", "unpadded_bwd"])
+def test_check_split_bwd_on_the_edge_masks(padded, monkeypatch):
+    """chip_smoke's #10b check on edge_masks (step 19), dry-run on the CPU
+    at 256 keys, 2 heads, shards of 128 rows: the wrapper (the backward
+    twin here) passes on both masks, both offsets, dec_len 0 and 12, rates
+    0 and 0.1; a backward without the padded probabilities fails on the
+    batch row with no valid key.  On the mask with valid keys the backward
+    twin also agrees with autograd through the forward twin (the check's
+    reference on the serving mask)."""
+    if not padded:
+        monkeypatch.setattr(TFA, "flash_attention_bwd",
+                            _without_padded_probs(TFA.flash_attention_bwd_plain))
+    rng = np.random.default_rng(4)
+    b, h, l, rows = CS.TRAIN_CHECK_BATCH, 2, 256, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, l, 64)).astype(np.float32))
+               for _ in range(3))
+    g = torch.from_numpy(rng.standard_normal((b, h, rows, 64)).astype(np.float32))
+    mask, _ = CS.serving_masks(torch.device("cpu"))
+    seed = torch.tensor([5], dtype=torch.int64)
+    twin, autograd = {}, {}
+    for dec_len in (0, 12):
+        km = mask[:b, :l].clone()
+        if dec_len:
+            km[:, l - dec_len:] = 0.0
+        for label, edge in CS.edge_masks(km, dec_len):
+            if not padded and "no valid key" in label:
+                with pytest.raises(SystemExit, match="flash_attention_bwd"):
+                    CS.check_split_bwd(twin, q, k, v, g, edge, dec_len, rows, seed, label,
+                                       autograd=False)
+                return
+            CS.check_split_bwd(twin, q, k, v, g, edge, dec_len, rows, seed, label,
+                               autograd=False)
+            if "no valid key" not in label:
+                CS.check_split_bwd(autograd, q, k, v, g, edge, dec_len, rows, seed, label)
+    assert twin["flash_attention_bwd"]["max_rel_err"] == 0.0
+    assert autograd["flash_attention_bwd"]["max_rel_err"] < 1e-5
+
+
+def test_ptxas_kernels_reads_the_report_of_one_source():
+    """_build.ptxas_kernels, which chip_smoke.py prints the backward body's
+    registers and spills with: each kernel of the named source's compile,
+    none of another's."""
+    from vitxtgqa_tpu_torch.ops import _build
+
+    info = "ptxas info    : "
+    log = [
+        "/usr/local/cuda/bin/nvcc -O3 -c -o /b/a.1.o /r/csrc/flash_attention_bwd.cu", "# 3.1 s",
+        info + "Compiling entry function '_ZN2vt5flash16flash_bwd_kernel' for 'sm_90a'",
+        info + "Function properties for _ZN2vt5flash16flash_bwd_kernel",
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        info + "Used 207 registers, used 2 barriers",
+        info + "Compiling entry function '_ZN2vt5flash20flash_bwd_pre_kernel' for 'sm_90a'",
+        info + "Function properties for _ZN2vt5flash20flash_bwd_pre_kernel",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        info + "Used 22 registers, used 0 barriers",
+        "/usr/local/cuda/bin/nvcc -O3 -c -o /b/b.1.o /r/csrc/fused_attention.cu", "# 3.0 s",
+        info + "Compiling entry function '_ZN2vt5flash14flash_fwd_kernel' for 'sm_90a'",
+        info + "Used 144 registers, used 1 barriers",
+    ]
+    assert _build.ptxas_kernels(log, "flash_attention_bwd.cu") == [
+        ("_ZN2vt5flash16flash_bwd_kernel", 207, "8", "12"),
+        ("_ZN2vt5flash20flash_bwd_pre_kernel", 22, "0", "0")]
+    assert _build.ptxas_kernels(log, "fused_attention.cu") == [
+        ("_ZN2vt5flash14flash_fwd_kernel", 144, "?", "?")]
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["twin", "unpadded_kernel"])
+def test_check_padded_bias_at_577_keys(padded, monkeypatch):
+    """check_padded_bias (the #14 part of check_padded_keys) at its card
+    length, 577 keys (63 padded), on the CPU: the twin passes, and a #14
+    that averages a row of -1e9 biases over Lk keys instead of
+    round_up(Lk, 128) (mha_reference, the port's twin before the
+    padded-key repair) is rejected, although the padded keys are only 63 of
+    640: V has mean 1 there, so the fault moves such a row by ~0.1."""
+    from vitxtgqa_tpu_torch.ops import attention as TA
+    from vitxtgqa_tpu_torch.ops import fused_attention as TFAT
+
+    assert CS.PAD_L == 577
+    record = {}
+    if padded:
+        CS.check_padded_bias(torch.device("cpu"), record)
+        assert record["fused_attention"]["max_abs_err"] == 0.0
+        return
+    monkeypatch.setattr(TFAT, "fused_attention", TA.mha_reference)
+    with pytest.raises(SystemExit, match="fused_attention"):
+        CS.check_padded_bias(torch.device("cpu"), record)

@@ -119,7 +119,9 @@ def _attn_case(case):
     """(q, k, v, bias or None, dtype, tolerance): test_pallas_attention.py's
     cases, and Lq != Lk and fully masked rows (every real key at -10000:
     a softmax over the scores shifted by -10000, as both kernels compute
-    it).  f32 within 2e-5, bf16 within 3e-2 (the JAX tests' limits)."""
+    it), and rows with -1e9 on every key at a key count off a multiple of
+    128 (the Pallas kernel's padded keys, also -1e9, share the row).  f32
+    within 2e-5, bf16 within 3e-2 (the JAX tests' limits)."""
     rng = np.random.default_rng(7)
     f32, bf = torch.float32, torch.bfloat16
     if case == "no_bias":
@@ -139,11 +141,26 @@ def _attn_case(case):
         return (*_qkv(rng, 2, 3, 50, 50, 24), _key_mask_bias(2, 50, [0, 45]), f32, 2e-5)
     if case == "fully_masked_prefix_lm_rows":
         return (*_qkv(rng, 2, 2, 46, 46, 16), _prefix_lm_bias(40, 6, [0, 40]), f32, 2e-5)
+    if case == "padded_keys_key_mask":
+        # batch row 1's bias is -1e9 on every key: the Pallas kernel's 126
+        # padded keys (also -1e9) take their share, 130 / 256 of the row
+        bias = np.zeros((2, 1, 1, 130), np.float32)
+        bias[0, ..., 100:] = -1e9
+        bias[1] = -1e9
+        return (*_qkv(rng, 2, 2, 130, 130, 16), bias, f32, 2e-5)
+    if case == "padded_keys_per_row":
+        # query rows 3, 17 and 39 of batch row 0 and 0-9 of batch row 1
+        # have -1e9 on every key: 300 / 384 of the row
+        bias = np.where(rng.random((2, 1, 40, 300)) < 0.3, -1e9, 0.0).astype(np.float32)
+        bias[0, 0, [3, 17, 39]] = -1e9
+        bias[1, 0, :10] = -1e9
+        return (*_qkv(rng, 2, 3, 40, 300, 24), bias, f32, 2e-5)
     raise KeyError(case)
 
 
 ATTN_CASES = ("no_bias", "key_mask", "prefix_lm", "bf16", "lq_ne_lk_key_mask",
-              "lq_ne_lk_per_row", "fully_masked_key_rows", "fully_masked_prefix_lm_rows")
+              "lq_ne_lk_per_row", "fully_masked_key_rows", "fully_masked_prefix_lm_rows",
+              "padded_keys_key_mask", "padded_keys_per_row")
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)

@@ -1,13 +1,15 @@
-"""Time every form of the flash forward body (#1, #10, #11, #14) and the
-merged-head backward (#1b) of the port package found under --root, for an
-A/B of two checkouts on one card (run parent, change, change, parent back
-to back):
+"""Time every form of the flash forward body (#1, #10, #11, #14) and of the
+backward (#1b, #10b) of the port package found under --root, for an A/B of
+two checkouts on one card (run parent, change, change, parent back to
+back):
 
     python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N]
 
 Forms and shapes: #1 at [8, 1152, 768] with the key mask of the synthetic
 serving batch, dec_len 0 and 12; #1's dropout form (rate 0.1, with the
-lse) and #1b at [48, 1152, 768] dec_len 12 (the training step); #10 on
+lse) and #1b at rate 0.1 and 0 at [48, 1152, 768] dec_len 12 (the
+training step); #10b on a rank's 576 query rows at offset 576 against [4,
+12, 1152, 64], dec_len 12 (the SP training step's); #10 on
 split-head views, a rank's 576 query rows at offsets 0 and 576 against
 [8, 12, 1152, 64], dec_len 0; #11 at [8, 1152, 768] dec_len 12; #14 with
 no bias at [8, 16, 577, 64] (ViT-L/16 at 384 px) and with the key-mask and
@@ -134,6 +136,27 @@ def main(argv=None) -> int:
     lib_g = torch.randn_like(lib_out)
     sdpa["flash bwd [48]"] = timed(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), lib_g,
                                                                retain_graph=True))
+    o0, lse0 = FA.flash_attention_merged(q, k, v, mask48, 12, 12, return_lse=True)
+    ms["flash bwd rate 0 [48]"] = timed(lambda: FA.flash_attention_merged_bwd(
+        q, k, v, mask48, o0, lse0, g, 12, 12))
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, am)
+    sdpa["flash bwd rate 0 [48]"] = timed(lambda: torch.autograd.grad(
+        lib_out, (qh, kh, vh), lib_g, retain_graph=True))
+    del q, k, v, g, o, lse, o0, lse0, qh, kh, vh, lib_out, lib_g
+    torch.cuda.empty_cache()
+
+    # #10b: an SP training rank's rows (offset 576 of 1152) at batch 4
+    q, k, v, g = (rn(4, 1152, 768) for _ in range(4))
+    qs, kh, vh = split(q, 12)[:, :, 576:], split(k, 12), split(v, 12)
+    gs = split(g, 12)[:, :, :576]
+    mask4 = mask48[:4].contiguous()
+    o, lse = FA.flash_attention(qs, kh, vh, mask4, 12, 576, return_lse=True)
+    ms["split flash bwd [4] offset 576"] = timed(lambda: FA.flash_attention_bwd(
+        qs, kh, vh, mask4, o, lse, gs, 12, 576))
+    lq, lk, lv = (t.detach().requires_grad_() for t in (qs, kh, vh))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, FA._allowed(mask4, 1152, 12, 576, 576))
+    sdpa["split flash bwd [4] offset 576"] = timed(lambda: torch.autograd.grad(
+        lib_out, (lq, lk, lv), gs, retain_graph=True))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

@@ -23,8 +23,13 @@
 //    them) and the output is scaled by 1 / (1 - rate); the row log-sum-exp
 //    (natural log, [B, H, Lq] f32) is written for the backward.
 //  - bias (#14): s * scale + bias, an f32 bias broadcast over the query
-//    rows (row stride 0) or per row, or none; keys past Lk take -inf; a row
-//    whose running max is still -inf takes its exponentials against 0.
+//    rows (row stride 0) or per row, or none; keys past Lk take -inf in the
+//    loop; a row whose running max is still -inf takes its exponentials
+//    against 0.  The JAX wrapper pads the keys to round_up(Lk, 128) with
+//    bias -1e9 and zero k / v, so at the end each row's sum gains
+//    round_up(Lk, 128) - Lk keys scoring -1e9: nothing for a row with a
+//    score above about -1e9 + 104, that share of the row for a row of -1e9
+//    biases.
 // The probabilities are rounded to bf16 for the P V product, as the Pallas
 // kernels feed bf16 weights to their second matmul.
 //
@@ -92,7 +97,6 @@ constexpr int kBK = 64;       // keys per tile
 constexpr int kStages = 2;    // K / V ring depth
 constexpr int kThreads = 128;
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Emit {
@@ -475,7 +479,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
   const bool filled_lo = kMask && m_lo <= kNeg, filled_hi = kMask && m_hi <= kNeg;
   if (filled_lo) l_lo += (float)(p.l_pad - Lk);
   if (filled_hi) l_hi += (float)(p.l_pad - Lk);
-  const float f_lo = p.keep_scale / l_lo, f_hi = p.keep_scale / l_hi;
+  float f_lo = p.keep_scale, f_hi = p.keep_scale;
+  if (!kMask && p.l_pad > Lk) {
+    // the padded keys, each scoring -1e9 (log2 domain: pad2) against the
+    // row max: 0 for a row with a score above about -1e9 + 104, a share
+    // of the row for a row of -1e9 biases; a row below pad2 is rescaled
+    // to it
+    const float pad2 = kNeg * kLog2e, n_pad = (float)(p.l_pad - Lk);
+    const float mf_lo = fmaxf(m_lo, pad2), mf_hi = fmaxf(m_hi, pad2);
+    const float c_lo = exp2_approx(m_lo - mf_lo), c_hi = exp2_approx(m_hi - mf_hi);
+    l_lo = fmaf(n_pad, exp2_approx(pad2 - mf_lo), l_lo * c_lo);
+    l_hi = fmaf(n_pad, exp2_approx(pad2 - mf_hi), l_hi * c_hi);
+    f_lo *= c_lo;
+    f_hi *= c_hi;
+  }
+  f_lo /= l_lo;
+  f_hi /= l_hi;
   const int r_lo = q0 + wrow, r_hi = r_lo + 8;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {

@@ -10,8 +10,10 @@
 // (the split-head views of a [B, L, H*64] projection need no copy), with an
 // f32 bias broadcast over the query rows ([B, 1, 1, Lk]: row stride 0) or
 // per row ([B, 1, Lq, Lk]), or none.  Scores are f32 (s * scale + bias,
-// as the Pallas kernel adds its bias after the scale); keys past Lk take
-// no weight (the Pallas kernel pads them with -1e9); the probabilities are
+// as the Pallas kernel adds its bias after the scale); the Pallas wrapper
+// pads the keys to round_up(Lk, 128) with zero k / v and bias -1e9, so the
+// softmax counts those keys at -1e9 too (a row of -1e9 biases averages V
+// over round_up(Lk, 128) keys, the padded ones included); the probabilities are
 // rounded to bf16 for the P V product, as the Pallas kernel feeds bf16
 // weights to its second matmul; out bf16, written through its own strides.
 //
@@ -53,7 +55,7 @@ extern "C" int vt_fused_attention(const void* q, const void* k, const void* v, c
   read_strides(p.g, s, 4);
   p.g.Lq = len_q;
   p.heads = num_heads;
-  p.l_pad = len_k;
+  p.l_pad = (len_k + 127) / 128 * 128;
   p.keep_scale = 1.0f;
   p.bias = (const float*)bias;
   p.bias_b = s[12];

@@ -16,7 +16,9 @@
 //  - an MN-major B operand (B of an A B product, the row index being the
 //    reduction dimension: V in P V), transposed by the instruction's
 //    trans-b bit, one k16 step 16 rows = 2048 bytes further, the 8-row
-//    groups 1024 bytes apart (SBO); one 64-wide N block, so LBO is unused.
+//    groups 1024 bytes apart (SBO); one 64-wide N block, so LBO is unused;
+//  - an MN-major A operand in the same way (tnsp-a: dS^T in the flash
+//    backward's dQ = dS K, the row index its reduction dimension).
 #pragma once
 
 #include <stdint.h>
@@ -93,6 +95,23 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : VT_R8(0), VT_R8(8), VT_R8(16), VT_R8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both MN-major from shared memory
+// (transposed by the instruction's tnsp-a and tnsp-b bits): A stored as 16
+// rows of its K dimension, each row the 64 M elements (128 bytes), B as
+// rows of its K dimension holding the 64 N elements; one k16 step 16 rows
+// = 2048 bytes further (the flash backward's dQ = dS K from dS^T and K)
+__device__ __forceinline__ void wgmma_ss_n64_tatb(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : VT_R8(0), VT_R8(8), VT_R8(16), VT_R8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 #undef VT_R8

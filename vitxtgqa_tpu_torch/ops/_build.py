@@ -46,14 +46,14 @@ _SIGNATURES = {
     # q, k, v, key_mask, out, lse, seed, k8, ks, v8, vs; batch, seq_len,
     # heads, head_dim, dec_len; threshold; keep_scale; stream
     "vt_flash_attention_merged": [_P] * 11 + [_I] * 5 + [_U, _F, _P],
-    # q, k, v, key_mask, out, dout, lse, di, dq, dk, dv, seed; batch,
+    # q, k, v, key_mask, out, dout, lse, scratch, dq, dk, dv, seed; batch,
     # seq_len, heads, head_dim, dec_len; threshold; keep_scale; stream
     "vt_flash_attention_merged_bwd": [_P] * 12 + [_I] * 5 + [_U, _F, _P],
     # q, k, v, key_mask, out, lse, seed, strides (12 int64: q, k, v, out);
     # batch, heads, len_q, len_k, head_dim, dec_len, row_offset; threshold;
     # keep_scale; stream
     "vt_flash_attention": [_P] * 8 + [_I] * 7 + [_U, _F, _P],
-    # q, k, v, key_mask, out, dout, lse, di, dq, dk, dv, seed, strides (24
+    # q, k, v, key_mask, out, dout, lse, scratch, dq, dk, dv, seed, strides (24
     # int64: q, k, v, out, dout, dq, dk, dv); batch, heads, len_q, len_k,
     # head_dim, dec_len, row_offset; threshold; keep_scale; stream
     "vt_flash_attention_bwd": [_P] * 13 + [_I] * 7 + [_U, _F, _P],
@@ -203,6 +203,27 @@ def build() -> Path:
         obj.unlink()
     os.replace(tmp, lib)
     return lib
+
+
+def ptxas_kernels(log, source: str):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    kernel compiled from ``source`` (a file name under csrc/), from the lines
+    of a build's nvcc.log (the -Xptxas -v report)."""
+    out, mine, name, spills = [], False, None, ("?", "?")
+    for ln in log:
+        if ln.endswith(".cu") and " -c " in ln:  # the command of one source
+            mine, name = ln.endswith("/" + source), None
+        elif not mine:
+            continue
+        elif "Compiling entry function" in ln:
+            name, spills = ln.split("'")[1], ("?", "?")
+        elif "spill stores" in ln and name:
+            parts = ln.replace(",", "").split()
+            spills = (parts[parts.index("spill") - 2], parts[parts.index("loads") - 3])
+        elif "Used" in ln and "registers" in ln and name:
+            out.append((name, int(ln.split("Used ")[1].split()[0]), *spills))
+            name = None
+    return out
 
 
 def lib() -> ctypes.CDLL:

@@ -10,7 +10,8 @@ flash_attention_merged_q8 and the backward _flash_merged_bwd_impl (#1,
 #10b), which only the sequence-parallel attention reaches
 (parallel/sequence_parallel.py).  The CUDA kernels are
 csrc/flash_attention.cu (entry points of the forward body in
-csrc/flash_fwd.cuh, which #14 shares) and csrc/flash_attention_bwd.cu.  On a CUDA tensor
+csrc/flash_fwd.cuh, which #14 shares) and csrc/flash_attention_bwd.cu (entry
+points of the backward body in csrc/flash_bwd.cuh).  On a CUDA tensor
 a wrapper launches its kernel (or raises); on a CPU tensor it runs the
 plain version, which is also the oracle the kernel is checked against on
 the card.  Dropout keeps the probability of element (b, h, row, key) where
@@ -152,6 +153,14 @@ def _dropout_args(rate: float, seed):
     return seed, D.threshold(rate), 1.0 / (1.0 - rate)
 
 
+def _bwd_scratch(b: int, h: int, lq: int, device) -> torch.Tensor:
+    """The backward kernel's f32 scratch (csrc/flash_bwd.cuh bwd_params):
+    per (batch, head) and query row, padded to a multiple of 64 rows, the
+    64 dq sums, D_i and the base-2 lse."""
+    lq_pad = -(-lq // 64) * 64
+    return torch.empty(b * h * lq_pad * 66, dtype=torch.float32, device=device)
+
+
 def _check_geometry(q, num_heads: int, dec_len: int, name: str):
     b, l, hd_total = q.shape
     if hd_total % num_heads or hd_total // num_heads != 64:
@@ -241,12 +250,12 @@ def flash_attention_merged_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, num
     seed, thr, ks = _dropout_args(dropout_rate, seed)
     if seed is not None:
         _build.require(seed, "seed", torch.int64, (1,), q.device)
-    di = torch.empty_like(lse)
+    scratch = _bwd_scratch(b, num_heads, l, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _build.lib().vt_flash_attention_merged_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if seed is None else seed.data_ptr(), b, l, num_heads,
             hd_total // num_heads, dec_len, thr, ks, _build.stream_of(q),
         )
@@ -407,11 +416,11 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, row_offset
     dk, dv = (_split_empty(b, lk, h, d, torch.float32, dev) for _ in range(2))
     for t in (dq, dk, dv):
         strides += list(t.stride()[:3])
-    di = torch.empty_like(lse)
+    scratch = _bwd_scratch(b, h, lq, dev)
     with torch.cuda.device(dev):
         err = _build.lib().vt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if seed is None else seed.data_ptr(),
             (ctypes.c_longlong * 24)(*strides), b, h, lq, lk, d, dec_len, row_offset, thr, ks,
             _build.stream_of(q))

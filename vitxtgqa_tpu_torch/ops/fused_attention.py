@@ -13,22 +13,33 @@ projection are not copied.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+import torch.nn.functional as F
 
 from vitxtgqa_tpu_torch.ops import _build
-from vitxtgqa_tpu_torch.ops.flash_attention import _head_strides
+from vitxtgqa_tpu_torch.ops.flash_attention import LANE, NEG, _head_strides
 
 HEAD_DIM = 64
 
 
 def fused_attention_plain(q, k, v, bias=None):
-    """softmax(Q K^T / sqrt(Dh) + bias) V on [B, H, L, Dh]: the ops/attention
-    mha_reference (f32 scores with the bias added, the probabilities
-    rounded to v's dtype, f32 accumulation)."""
-    from vitxtgqa_tpu_torch.ops.attention import mha_reference
-
-    return mha_reference(q, k, v, bias)
+    """softmax(Q K^T / sqrt(Dh) + bias) V on [B, H, L, Dh] as the Pallas
+    kernel computes it: f32 scores with the bias added, the softmax over
+    round_up(Lk, 128) keys, the keys past Lk scoring exactly -1e9 (a zero
+    key plus the -1e9 bias the JAX wrapper pads with) with zero values, the
+    probabilities rounded to v's dtype, f32 accumulation.  A row with a
+    score above about -1e9 + 104 is the mha_reference row; a row of -1e9
+    biases averages V over round_up(Lk, 128) keys, the padded ones
+    included."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if bias is not None:
+        scores = scores + bias.float()
+    lk = k.shape[2]
+    scores = F.pad(scores, (0, -lk % LANE), value=NEG)
+    probs = torch.softmax(scores, dim=-1)[..., :lk].to(v.dtype)
+    return torch.matmul(probs.float(), v.float()).to(v.dtype)
 
 
 def _launch(q, k, v, bias):

@@ -32,7 +32,7 @@ TOP = 12
 # (group, substrings of the kernel names it takes), first match wins
 GROUPS = (
     ("#1 flash forward", ("flash_fwd_kernel",)),
-    ("#1b flash backward", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("#1b flash backward", ("flash_bwd_",)),
     ("#9a block forward", ("LnFwdEpi", "GeluEpi")),
     ("#9b block backward", ("ln2_bwd_kernel", "LnBwdEpi", "GeluGradEpi", "StoreEpi",
                             "AtomicEpi")),
