@@ -19,7 +19,13 @@ Phases (each prints one or more lines; any failure exits non-zero):
      walk's skip path), and again at 577 keys (check_padded_keys: 63
      padded keys, which a row of mask fills counts);
      max |diff| against a stated tolerance, and
-     CUDA-event times of both.  The decode step's attention is planted
+     CUDA-event times of both.  The decode attention (#4 int8, #7 bf16
+     cache; check_decode_attention) at batch 1, 8 and 64 over 1152 keys,
+     the compact [8, 384] and a ragged [8, 300], steps 0 and 11, each on
+     the serving mask and with a batch row whose only allowed keys are the
+     decoder slots; at [8, 1152] step 11 warm and cold (caches in turn, so
+     none is left in the L2), with SDPA beside each, and its launch plan's
+     cudaOccupancyMaxActiveClusters.  The decode step's attention is planted
      (PLANTED / BACKGROUND / TRAP) so that reading a slot it must not read
      moves its output by far more than the tolerance.  The training
      kernels at L 1152, 12 heads, batch 4 (rows 4608): the flash forward
@@ -35,8 +41,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
      quantization bit for bit), the int8-emitting flash forward at [8,
      1152, 768] (its int8 cache and scales bit for bit, #1 timed on the
      same inputs), the int8 pointer scores at [8, 1, 768] x [8, 960, 768],
-     and the decode attention and decode step again at the compact cache
-     length 384.  The ViT's kernels: the fused FFN at ViT-L/16's 12,608
+     and the decode step again at the compact cache length 384.  The ViT's kernels: the fused FFN at ViT-L/16's 12,608
      rows and ViT-B/32's 3,200, the bias-tensor attention on split-head
      views with no bias and with a per-row bias at [8, 16, 577, 64] (577
      query rows and keys: a last key tile of one key) and with the key-mask
@@ -110,6 +115,7 @@ Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -124,6 +130,9 @@ L_JOINT, WRITE_OFFSET, DEC_LEN = 1152, 1140, 12
 # the compact joint sequence: 20 question tokens + 5 frames + 64 x 5 OCR
 # slots = 345 rows, padded with the decoder slots to 384
 L_COMPACT, COMPACT_OFFSET = 384, 372
+# a cache length no decode launch plan splits evenly (the JAX wrapper pads
+# it to 384); the H100's L2, which the cold decode timings overflow
+RAGGED_L, L2_BYTES = 300, 50 * 2 ** 20
 
 # tolerances of kernel vs plain version, bf16 at the serving shapes.
 # flash / decode outputs are attention averages of O(1) values (|out| ~ 0.1
@@ -615,11 +624,11 @@ def edge_masks(key_mask, dec_len: int, tile: int = 64):
     return out
 
 
-def decode_sdpa_mask(key_mask, step: int):
+def decode_sdpa_mask(key_mask, step: int, write_offset: int = WRITE_OFFSET):
     import torch
 
     slot = torch.arange(key_mask.shape[1], device=key_mask.device)
-    dec = (slot >= WRITE_OFFSET) & (slot <= WRITE_OFFSET + step)
+    dec = (slot >= write_offset) & (slot <= write_offset + step)
     return ((key_mask > 0) | dec[None, :])[:, None, None, :]
 
 
@@ -700,6 +709,149 @@ def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: i
             report(record, "fused_decode_step", err, extra=" " + shape, **timed)
 
 
+def decode_cases(dev):
+    """(label, [B, L] encoder key mask, write_offset) of the decode
+    attention checks: the serving batch's mask at batch 1, 8 and 64 (its
+    rows repeated) over the joint sequence, the compact mask at 384 keys,
+    and a ragged cache of RAGGED_L keys (the serving mask's first encoder
+    keys, then the decoder slots), which no launch plan splits evenly."""
+    import torch
+    import torch.nn.functional as F
+
+    mask, _ = serving_masks(dev)
+    rows64 = torch.arange(64, device=dev) % BATCH
+    ragged = F.pad(mask[:, :RAGGED_L - DEC_LEN], (0, DEC_LEN)).contiguous()
+    return [("[1,1152]", mask[:1].contiguous(), WRITE_OFFSET),
+            ("[8,1152]", mask, WRITE_OFFSET),
+            ("[64,1152]", mask[rows64].contiguous(), WRITE_OFFSET),
+            ("[8,384]", compact_mask(dev), COMPACT_OFFSET),
+            (f"[8,{RAGGED_L}]", ragged, RAGGED_L - DEC_LEN)]
+
+
+def decode_edge_masks(key_mask):
+    """The key masks the decode kernel's compaction can get wrong, each a
+    (label, mask): the mask itself, and batch row 3 (row 0 at batch 1) with
+    every encoder key masked, so that its only allowed keys are the decoder
+    slots (one at step 0)."""
+    none = key_mask.clone()
+    row = min(3, key_mask.shape[0] - 1)
+    none[row] = 0.0
+    return [("the serving mask", key_mask),
+            (f"batch row {row} with no valid encoder key", none.contiguous())]
+
+
+def cold_copies(n_bytes: int) -> int:
+    """Copies of an input set of n_bytes that, visited in turn, leave none
+    of a call's inputs in the L2 from its last visit."""
+    return max(1, -(-3 * L2_BYTES // n_bytes))
+
+
+def cuda_time_cold_ms(fn, sets, reps: int = 20) -> float:
+    """cuda_time_ms of fn(*s) over ``sets`` taken in turn (each set's
+    inputs evicted from the L2 by the others), as a forward's blocks evict
+    the decode cache between its calls."""
+    turn = itertools.count()
+    return cuda_time_ms(lambda: fn(*sets[next(turn) % len(sets)]), reps=reps)
+
+
+def decode_inputs(gen, b: int, l: int, int8: bool, copies: int = 1, d: int = 768):
+    """q [b, 1, d], ``copies`` caches [b, l, d] (int8: (k8, ks, v8, vs),
+    quantize_kv of normal values; else (k, v) in bf16) and each one's (k,
+    v) for SDPA (the int8 cache dequantized)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops.attention import dequantize_kv, quantize_kv
+
+    dev, bf = gen.device, torch.bfloat16
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf)
+    q, caches, kv = rn(b, 1, d), [], []
+    for _ in range(copies):
+        k, v = rn(b, l, d), rn(b, l, d)
+        if int8:
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            caches.append((k8, ks, v8, vs))
+            k, v = dequantize_kv(k8, ks, bf), dequantize_kv(v8, vs, bf)
+        else:
+            caches.append((k, v))
+        kv.append((k, v))
+    return q, caches, kv
+
+
+def check_decode_attention(dev, record, timed: bool = True):
+    """The decode attention (#4 int8, #7 bf16 cache) against its twins at
+    steps 0 and 11 on every case of decode_cases and both masks of
+    decode_edge_masks.  Then, on the card (``timed``), both forms at [8,
+    1152] step 11 warm (the same cache each call: the record's time, as
+    the kernel table has always kept it) and cold (cold_copies caches in turn),
+    each with its bound (decode_bound: the allowed keys only) and SDPA on
+    the same inputs (the dequantized cache for #4), #4 at the compact [8,
+    384] too, and each plan's cudaOccupancyMaxActiveClusters."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.ops import decode_attention as DA
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    h, int8_name = 12, "decode_attention_int8"
+    forms = {int8_name: (DA.decode_attention_int8, DA.decode_attention_int8_plain),
+             "decode_attention": (DA.decode_attention, DA.decode_attention_plain)}
+    for label, base, wo in decode_cases(dev):
+        b, l = base.shape
+        for name, (fn, plain) in forms.items():
+            q, (cache,), _ = decode_inputs(gen, b, l, name == int8_name)
+            for mlabel, km in decode_edge_masks(base):
+                for step in (0, 11):
+                    args = (q, *cache, km, step, wo, h)
+                    got, want = fn(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    report(record, name, (got.float() - want.float()).abs().max().item(),
+                           extra=f" [{b},1,768] x {label} step={step}, {mlabel}")
+            del q, cache
+    if not timed:
+        return {}
+
+    details = {}
+    for name in forms:
+        int8 = name == int8_name
+        plan = DA.launch_plan(BATCH, L_JOINT, h, 1 if int8 else 2)
+        occ = DA.max_active_clusters(BATCH, L_JOINT, h, int8)
+        print(f"kernel {name} [8,1152]: plan {plan._asdict()}, "
+              f"cudaOccupancyMaxActiveClusters {occ}", flush=True)
+        details[name] = {"plan": plan._asdict(), "max_active_clusters": occ}
+    mask, _ = serving_masks(dev)
+    for name, label, km, wo in ((int8_name, "[8,1152]", mask, WRITE_OFFSET),
+                                ("decode_attention", "[8,1152]", mask, WRITE_OFFSET),
+                                (int8_name, "[8,384]", compact_mask(dev), COMPACT_OFFSET)):
+        (fn, plain), int8, (b, l) = forms[name], name == int8_name, km.shape
+        copies = cold_copies(2 * b * l * 768 * (1 if int8 else 2))
+        q, caches, kv = decode_inputs(gen, b, l, int8, copies)
+        am = decode_sdpa_mask(km, 11, wo)
+        run = lambda *c: fn(q, *c, km, 11, wo, h)
+        sdpa = lambda k, v: F.scaled_dot_product_attention(sdpa_split(q, h), sdpa_split(k, h),
+                                                           sdpa_split(v, h), am)
+        warm = dict(ms=cuda_time_ms(lambda: run(*caches[0])),
+                    plain_ms=cuda_time_ms(lambda: plain(q, *caches[0], km, 11, wo, h)),
+                    library_ms=cuda_time_ms(lambda: sdpa(*kv[0])),
+                    bound=decode_bound(q, km, 11, 1 if int8 else 2, 8 if int8 else 0))
+        cold_ms, cold_sdpa = cuda_time_cold_ms(run, caches), cuda_time_cold_ms(sdpa, kv)
+        extra = f" [{b},1,768] x {label} step=11"
+        if label == "[8,1152]":
+            keep_times(record, name, extra + " (warm)", **warm)
+        else:
+            print(f"kernel {name}{extra} (warm): kernel {warm['ms']:.4f} ms, plain "
+                  f"{warm['plain_ms']:.4f} ms, library {warm['library_ms']:.4f} ms, bound "
+                  f"{warm['bound'][0]:.4f} ms ({warm['bound'][1]})", flush=True)
+        print(f"kernel {name}{extra} (cold, {copies} caches in turn): kernel {cold_ms:.4f} ms, "
+              f"library {cold_sdpa:.4f} ms", flush=True)
+        details[f"{name} {label}"] = dict(warm_ms=warm["ms"], plain_ms=warm["plain_ms"],
+                                          sdpa_warm_ms=warm["library_ms"],
+                                          bound_ms=warm["bound"][0], cold_ms=cold_ms,
+                                          sdpa_cold_ms=cold_sdpa, cold_copies=copies)
+        del q, caches, kv
+    torch.cuda.empty_cache()
+    return details
+
+
 def check_kernels(dev, record):
     import torch
     import torch.nn.functional as F
@@ -708,8 +860,6 @@ def check_kernels(dev, record):
     from vitxtgqa_tpu_torch.ops import decode_step as DS
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
     from vitxtgqa_tpu_torch.ops import fused_block as FB
-    from vitxtgqa_tpu_torch.ops.attention import dequantize_kv, quantize_kv
-
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf = torch.bfloat16
     rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
@@ -769,45 +919,8 @@ def check_kernels(dev, record):
                bound=block_bound(rows, d, m, n_in, nbytes(got), nbytes(wo, w1, w2),
                                  nbytes(*pv[1:4], pv[5], *pv[7:])))
 
-    # 3. int8 decode attention at steps 0 and 11, write_offset 1140
-    qd = rn(BATCH, 1, d)
-    (k8, ks), (v8, vs) = quantize_kv(rn(BATCH, l, d)), quantize_kv(rn(BATCH, l, d))
-    kdq, vdq = dequantize_kv(k8, ks, bf), dequantize_kv(v8, vs, bf)
-    for step in (0, 11):
-        dargs = (qd, k8, ks, v8, vs, mask, step, WRITE_OFFSET, h)
-        got, want = DA.decode_attention_int8(*dargs), DA.decode_attention_int8_plain(*dargs)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        timed = {}
-        if step == 11:
-            am = decode_sdpa_mask(mask, step)
-            qh, kh, vh = sdpa_split(qd, h), sdpa_split(kdq, h), sdpa_split(vdq, h)
-            timed = dict(ms=cuda_time_ms(lambda: DA.decode_attention_int8(*dargs)),
-                         plain_ms=cuda_time_ms(lambda: DA.decode_attention_int8_plain(*dargs)),
-                         library_ms=cuda_time_ms(
-                             lambda: F.scaled_dot_product_attention(qh, kh, vh, am)),
-                         bound=decode_bound(qd, mask, step, 1, 8))
-        report(record, "decode_attention_int8", err,
-               extra=f" [8,1,768] x [8,1152,768] step={step}", **timed)
-
-    # 4. bf16 decode attention, same steps
-    kb, vb = rn(BATCH, l, d), rn(BATCH, l, d)
-    for step in (0, 11):
-        dargs = (qd, kb, vb, mask, step, WRITE_OFFSET, h)
-        got, want = DA.decode_attention(*dargs), DA.decode_attention_plain(*dargs)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        timed = {}
-        if step == 11:
-            am = decode_sdpa_mask(mask, step)
-            qh, kh, vh = sdpa_split(qd, h), sdpa_split(kb, h), sdpa_split(vb, h)
-            timed = dict(ms=cuda_time_ms(lambda: DA.decode_attention(*dargs)),
-                         plain_ms=cuda_time_ms(lambda: DA.decode_attention_plain(*dargs)),
-                         library_ms=cuda_time_ms(
-                             lambda: F.scaled_dot_product_attention(qh, kh, vh, am)),
-                         bound=decode_bound(qd, mask, step, 2, 0))
-        report(record, "decode_attention", err,
-               extra=f" [8,1,768] x bf16 [8,1152,768] step={step}", **timed)
+    # 3-4. the decode attention, int8 and bf16 cache (check_decode_attention)
+    details = check_decode_attention(dev, record)
 
     # 5. the single-kernel decode step over 3 MMT layers, batch 1 / 2 / 8,
     # its attention planted (decode_step_cache)
@@ -857,8 +970,9 @@ def check_kernels(dev, record):
                   flush=True)
         report(record, "fused_epilogue", err, extra=f" [{b},1,768] -> [{b},1,{v_p + n_ocr}]",
                **timed)
-    del q, k, v, x_q, ctx, res, kdq, vdq
+    del q, k, v, x_q, ctx, res
     torch.cuda.empty_cache()
+    return details
 
 
 def compact_mask(dev):
@@ -876,11 +990,9 @@ def compact_mask(dev):
 def check_serving_mode_kernels(dev, record):
     """The serving modes' kernels against their twins: the W8A8 block (#8),
     the int8-emitting flash (#11), the int8 pointer scores (#12), then the
-    decode attention (#4) and decode step (#5) at the compact cache
-    length."""
+    decode step (#5) at the compact cache length."""
     import torch
 
-    from vitxtgqa_tpu_torch.ops import decode_attention as DA
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
     from vitxtgqa_tpu_torch.ops import fused_block as FB
     from vitxtgqa_tpu_torch.ops import ptr_scores as PS
@@ -974,24 +1086,12 @@ def check_serving_mode_kernels(dev, record):
            plain_ms=cuda_time_ms(lambda: PS.ptr_scores_int8_plain(qp, k8p, ksp, ocr_mask)),
            bound=bound_of(nbytes(qp, k8p, ksp, ocr_mask, got), 2 * k8p.numel(), PEAK_F32_FLOPS))
 
-    # 15. #4 and #5 at the compact cache length 384 (write offset 372)
+    # 15. #5 at the compact cache length 384 (write offset 372; #4 there:
+    # check_decode_attention)
     cmask = compact_mask(dev)
-    qd = rn(BATCH, 1, d)
-    (k8, ks), (v8, vs) = quantize_kv(rn(BATCH, L_COMPACT, d)), quantize_kv(rn(BATCH, L_COMPACT, d))
-    for step in (0, 11):
-        dargs = (qd, k8, ks, v8, vs, cmask, step, COMPACT_OFFSET, h)
-        got, want = DA.decode_attention_int8(*dargs), DA.decode_attention_int8_plain(*dargs)
-        torch.cuda.synchronize()
-        report(record, "decode_attention_int8", (got.float() - want.float()).abs().max().item(),
-               extra=f" [8,1,768] x [8,384,768] step={step}")
-    bound = decode_bound(qd, cmask, 11, 1, 8)
-    print(f"kernel decode_attention_int8 [8,1,768] x [8,384,768] step=11: kernel "
-          f"{cuda_time_ms(lambda: DA.decode_attention_int8(*dargs)):.4f} ms, plain "
-          f"{cuda_time_ms(lambda: DA.decode_attention_int8_plain(*dargs)):.4f} ms, bound "
-          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
     x_all, stacks = decode_step_weights(dev, gen)
     check_decode_step(record, x_all, stacks, cmask, gen, (1, 2), COMPACT_OFFSET, False)
-    del x_all, stacks, k8, v8
+    del x_all, stacks
     torch.cuda.empty_cache()
     return details
 
@@ -2685,11 +2785,15 @@ def main(argv) -> int:
         f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
         for name, regs, st, ld in _build.ptxas_kernels(log, "flash_attention_bwd.cu")),
         flush=True)
+    print("build: the decode attention body (csrc/decode_attention.cu): " + "; ".join(
+        f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
+        for name, regs, st, ld in _build.ptxas_kernels(log, "decode_attention.cu")),
+        flush=True)
 
     record = {}
-    check_kernels(dev, record)
+    decode = check_kernels(dev, record)
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "build_s": build_s, "kernels": record}
+               "build_s": build_s, "kernels": record, "decode_attention": decode}
     details["serving_mode_kernels"] = check_serving_mode_kernels(dev, record)
     details["vit_kernels"] = check_vit_kernels(dev, record)
     details["training_kernels"] = check_training_kernels(dev, record)

@@ -523,3 +523,44 @@ def test_check_padded_bias_at_577_keys(padded, monkeypatch):
     monkeypatch.setattr(TFAT, "fused_attention", TA.mha_reference)
     with pytest.raises(SystemExit, match="fused_attention"):
         CS.check_padded_bias(torch.device("cpu"), record)
+
+
+def _without_decoder_slots(plain):
+    """``plain`` (a decode twin) with no decoder slot allowed: a row's only
+    keys are its valid encoder keys."""
+    return lambda *args: plain(*args[:-3], -1, *args[-2:])
+
+
+def _without_last_span(plain, elem_bytes):
+    """``plain`` over the keys of all but the last block of each cluster
+    (launch_plan): a kernel that drops its last span."""
+    def call(q, *args):
+        *cache, km, step, wo, h = args
+        plan = TDA.launch_plan(q.shape[0], km.shape[1], h, elem_bytes)
+        cut = (plan.cluster - 1) * plan.span
+        return plain(q, *(t[:, :cut].contiguous() for t in cache), km[:, :cut].contiguous(),
+                     step, wo, h)
+    return call
+
+
+@pytest.mark.parametrize("fault", [None, "int8_without_decoder_slots", "bf16_without_decoder_slots",
+                                   "int8_without_last_span", "bf16_without_last_span"])
+def test_check_decode_attention_rejects_a_planted_fault(fault, monkeypatch):
+    """check_decode_attention (#4, #7) on the CPU, where the wrappers run
+    the twins, untimed: the twins pass with no difference, and a decode
+    kernel that drops the decoder slots, or the keys of a cluster's last
+    block, is rejected: on the batch row with no valid encoder key both
+    leave a row with no allowed key at all."""
+    record = {}
+    if fault is None:
+        CS.check_decode_attention(torch.device("cpu"), record, timed=False)
+        assert record["decode_attention_int8"]["max_abs_err"] == 0.0
+        assert record["decode_attention"]["max_abs_err"] == 0.0
+        return
+    name = "decode_attention_int8" if fault.startswith("int8") else "decode_attention"
+    plain = getattr(TDA, name + "_plain")
+    broken = (_without_decoder_slots(plain) if fault.endswith("decoder_slots")
+              else _without_last_span(plain, 1 if fault.startswith("int8") else 2))
+    monkeypatch.setattr(TDA, name, broken)
+    with pytest.raises(SystemExit, match=name):
+        CS.check_decode_attention(torch.device("cpu"), record, timed=False)

@@ -253,24 +253,38 @@ def test_fused_block_gate_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-def _decode_case(b=2, h=4, l_enc=96, dec_len=12, d=16, seed=3):
+def _decode_case(b=2, h=4, l_enc=96, dec_len=12, d=16, seed=3, masked_row=None):
+    """q, k, v and the key mask of one decode step; ``masked_row``: that
+    batch row has no valid encoder key (its only allowed keys are the
+    decoder slots)."""
     rng = np.random.default_rng(seed)
     l = l_enc + dec_len
     q = _rand(rng, b, 1, h * d)
     k, v = _rand(rng, b, l, h * d), _rand(rng, b, l, h * d)
     km = np.pad(_enc_mask(b, l_enc, [l_enc - 17, l_enc][:b] + [l_enc] * (b - 2)),
                 ((0, 0), (0, dec_len)))
+    if masked_row is not None:
+        km[masked_row] = 0.0
     return q, k, v, km
 
 
-@pytest.mark.parametrize("geometry,step", [("small", 0), ("small", 4), ("small", 11),
-                                           ("compact", 3)])
+# the decode cases: small; the compact cache (384 keys); a batch row with
+# every encoder key masked; a ragged cache of 300 keys, which the JAX
+# wrappers pad to 384 and no launch plan of the kernel splits evenly
+DECODE_GEOMETRY = {"small": {}, "compact": dict(b=3, h=12, l_enc=372, d=64),
+                   "masked_row": dict(b=3, masked_row=1),
+                   "ragged": dict(b=3, h=12, l_enc=288, d=64)}
+DECODE_CASES = [("small", 0), ("small", 4), ("small", 11), ("compact", 3), ("masked_row", 0),
+                ("masked_row", 11), ("ragged", 0), ("ragged", 11)]
+
+
+@pytest.mark.parametrize("geometry,step", DECODE_CASES)
 def test_decode_int8_plain_matches_pallas_interpret(geometry, step):
     """Both sides fold the scales the same way in f32: 1e-5."""
     from vitxtgqa_tpu.ops.attention import quantize_kv
     from vitxtgqa_tpu.ops.pallas_attention import decode_attention_int8
 
-    kw = dict(b=3, h=12, l_enc=372, d=64) if geometry == "compact" else {}
+    kw = DECODE_GEOMETRY[geometry]
     q, k, v, km = _decode_case(**kw)
     h, wo = kw.get("h", 4), kw.get("l_enc", 96)
     (k8, ks), (v8, vs) = quantize_kv(jnp.asarray(k)), quantize_kv(jnp.asarray(v))
@@ -281,14 +295,13 @@ def test_decode_int8_plain_matches_pallas_interpret(geometry, step):
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("geometry,step", [("small", 0), ("small", 4), ("small", 11),
-                                           ("compact", 3)])
+@pytest.mark.parametrize("geometry,step", DECODE_CASES)
 def test_decode_bf16_cache_plain_matches_pallas_interpret(geometry, step):
     """The bf16-cache form: the probabilities round to the cache's dtype
     (f32 here) on both sides, scores in f32: 1e-5."""
     from vitxtgqa_tpu.ops.pallas_attention import decode_attention
 
-    kw = dict(b=3, h=12, l_enc=372, d=64) if geometry == "compact" else {}
+    kw = DECODE_GEOMETRY[geometry]
     q, k, v, km = _decode_case(**kw)
     h, wo = kw.get("h", 4), kw.get("l_enc", 96)
     want = decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(km),
@@ -316,6 +329,40 @@ def test_decode_mha_matches_jax(quantized):
     want = JA.decode_mha(jnp.asarray(q), jk, jv, spec_j, num_heads=4)
     got = TA.decode_mha(T(q), tk, tv, spec_t, 4)
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8, 64, 576])
+@pytest.mark.parametrize("cache_len", [300, 384, 1152])
+def test_decode_launch_plan_covers_every_key_once(batch, cache_len):
+    """The decode kernel's launch plan at 12 heads of 64, both cache types:
+    the cluster's spans hold every key exactly once; a block's row segment
+    and a cache row are whole 16-byte chunks, which its threads split
+    evenly; its shared memory and compaction fit; and the grid has at
+    least 96 blocks at batch 1 and 8."""
+    for elem in (1, 2):
+        plan = TDA.launch_plan(batch, cache_len, 12, elem)
+        spans = [range(r * plan.span, min(cache_len, (r + 1) * plan.span))
+                 for r in range(plan.cluster)]
+        assert sorted(j for sp in spans for j in sp) == list(range(cache_len))
+        assert 1 <= plan.cluster <= TDA.MAX_CLUSTER
+        assert plan.heads_per_group * plan.head_groups == 12
+        assert (plan.heads_per_group * 64 * elem) % 16 == 0 and (12 * 64 * elem) % 16 == 0
+        assert TDA.THREADS % (plan.heads_per_group * 64 * elem // 16) == 0
+        assert plan.span <= TDA.MAX_PER_THREAD * TDA.THREADS
+        assert plan.smem == TDA.smem_bytes(plan.span, plan.heads_per_group, elem)
+        assert plan.smem <= TDA.SMEM_LIMIT
+        assert plan.blocks == batch * plan.head_groups * plan.cluster
+        if batch in (1, 8):
+            assert plan.blocks >= 96
+
+
+def test_decode_wrappers_need_the_decoder_slot():
+    """The kernel reads only the allowed keys, so the wrappers refuse a
+    step whose decoder slots leave the cache."""
+    TDA._check_slots(1152, 11, 1140)
+    for step, wo in ((12, 1140), (0, 1152), (0, -1), (-1, 1140)):
+        with pytest.raises(ValueError, match="decoder slots"):
+            TDA._check_slots(1152, step, wo)
 
 
 # ---------------------------------------------------------------------------

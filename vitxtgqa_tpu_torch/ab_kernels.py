@@ -1,9 +1,9 @@
-"""Time every form of the flash forward body (#1, #10, #11, #14) and of the
-backward (#1b, #10b) of the port package found under --root, for an A/B of
-two checkouts on one card (run parent, change, change, parent back to
-back):
+"""Time every form of the flash forward body (#1, #10, #11, #14), of the
+backward (#1b, #10b) and of the decode attention (#4, #7) of the port
+package found under --root, for an A/B of two checkouts on one card (run
+parent, change, change, parent back to back):
 
-    python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N]
+    python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N] [--forms decode]
 
 Forms and shapes: #1 at [8, 1152, 768] with the key mask of the synthetic
 serving batch, dec_len 0 and 12; #1's dropout form (rate 0.1, with the
@@ -15,16 +15,24 @@ split-head views, a rank's 576 query rows at offsets 0 and 576 against
 no bias at [8, 16, 577, 64] (ViT-L/16 at 384 px) and with the key-mask and
 the prefix-LM bias at [8, 12, 1152, 64]; and one ViT-L/16 forward at 384
 px, batch 8 (random weights from seed 1), the path whose attention is #14
-in all 24 layers.  Each time is CUDA events around --reps back-to-back
-calls, the median of 5 such runs; beside each form the
-time of F.scaled_dot_product_attention on the same inputs and mask where
-one call computes the same function (#11's quantization has none).  Prints
-one JSON line with the card's name and power limit.  Run it as a file, not
-with -m, so that the package imported is the one under --root.
+in all 24 layers.  The decode attention (``--forms decode``: only these)
+at step 11 of the 12 decoder slots over the serving batch's mask (its rows
+repeated), #4 over the int8 cache and #7 over the bf16 cache at [8, 1152],
+[1, 1152], [64, 1152] and [576, 1152] (the JAX bench's serving batch), and
+#4 at the compact [8, 384]; each twice: warm (the same cache every call)
+and cold (enough caches in turn that none is left in the 50 MB L2 from its
+last call, as a forward's other kernels leave it).  Each time is CUDA
+events around --reps back-to-back calls, the median of 5 such runs; beside
+each form the time of F.scaled_dot_product_attention on the same inputs
+and mask where one call computes the same function (#11's quantization has
+none; #4's SDPA reads the dequantized cache).  Prints one JSON line with
+the card's name and power limit.  Run it as a file, not with -m, so that
+the package imported is the one under --root.
 """
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -36,6 +44,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--forms", choices=("all", "decode"), default="all")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path = [root] + [p for p in sys.path if os.path.abspath(p) != os.path.dirname(__file__)]
@@ -46,8 +55,10 @@ def main(argv=None) -> int:
     from vitxtgqa_tpu_torch import Options
     from vitxtgqa_tpu_torch.models.vit import VIT_L_16, ViT, preprocess_frames
     from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.ops import decode_attention as DA
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
     from vitxtgqa_tpu_torch.ops import fused_attention as FAT
+    from vitxtgqa_tpu_torch.ops.attention import dequantize_kv, quantize_kv
     from vitxtgqa_tpu_torch.ops.masks import prefix_lm_bias, self_attention_bias
     from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch, synthetic_frames
 
@@ -86,6 +97,47 @@ def main(argv=None) -> int:
 
     ms, sdpa = {}, {}
     allowed = lambda km, dec: FA._allowed(km, km.shape[1], dec)
+
+    # the decode attention, warm and cold
+    compact = torch.nn.functional.pad(
+        torch.cat([mask8[:, :25], torch.as_tensor(b["ocr_mask"]).float()[:, :320].to(dev)], 1),
+        (0, 384 - 345)).contiguous()
+    for form, km, wo in (("#4 [8,1152]", mask8, 1140), ("#7 [8,1152]", mask8, 1140),
+                         ("#4 [1,1152]", mask8[:1], 1140), ("#7 [1,1152]", mask8[:1], 1140),
+                         ("#4 [64,1152]", mask8[torch.arange(64) % 8], 1140),
+                         ("#7 [64,1152]", mask8[torch.arange(64) % 8], 1140),
+                         ("#4 [576,1152]", mask8[torch.arange(576) % 8], 1140),
+                         ("#7 [576,1152]", mask8[torch.arange(576) % 8], 1140),
+                         ("#4 [8,384]", compact, 372)):
+        km = km.contiguous()
+        n, l = km.shape
+        int8 = form.startswith("#4")
+        slot = torch.arange(l, device=dev)
+        am = ((km > 0) | ((slot >= wo) & (slot <= wo + 11))[None, :])[:, None, None, :]
+        set_bytes = n * l * 768 * 2 * (1 if int8 else 2)
+        copies = max(1, -(-3 * 50 * 2 ** 20 // set_bytes))
+        q, caches, kvs = rn(n, 1, 768), [], []
+        for _ in range(copies):
+            k, v = rn(n, l, 768), rn(n, l, 768)
+            if int8:
+                (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+                caches.append((k8, ks, v8, vs))
+                k, v = dequantize_kv(k8, ks, torch.bfloat16), dequantize_kv(v8, vs, torch.bfloat16)
+            else:
+                caches.append((k, v))
+            kvs.append((split(k, 12), split(v, 12)))
+        fn = DA.decode_attention_int8 if int8 else DA.decode_attention
+        qh = split(q, 12)
+        run = lambda c: fn(q, *c, km, 11, wo, 12)
+        lib = lambda kv: F.scaled_dot_product_attention(qh, *kv, am)
+        for temp, pick in (("warm", lambda i: 0), ("cold", lambda i: i % copies)):
+            turn = itertools.count()
+            ms[f"decode {form} {temp}"] = timed(lambda: run(caches[pick(next(turn))]))
+            sdpa[f"decode {form} {temp}"] = timed(lambda: lib(kvs[pick(next(turn))]))
+        del q, caches, kvs, k, v
+        torch.cuda.empty_cache()
+    if args.forms == "decode":
+        return report(args.root, ms, sdpa)
 
     q, k, v = (rn(8, 1152, 768) for _ in range(3))
     qh, kh, vh = split(q, 12), split(k, 12), split(v, 12)
@@ -157,10 +209,14 @@ def main(argv=None) -> int:
     lib_out = F.scaled_dot_product_attention(lq, lk, lv, FA._allowed(mask4, 1152, 12, 576, 576))
     sdpa["split flash bwd [4] offset 576"] = timed(lambda: torch.autograd.grad(
         lib_out, (lq, lk, lv), gs, retain_graph=True))
+    return report(args.root, ms, sdpa)
+
+
+def report(root, ms, sdpa) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"root": args.root, "ms": ms, "sdpa_ms": sdpa, "card": card}), flush=True)
+    print(json.dumps({"root": root, "ms": ms, "sdpa_ms": sdpa, "card": card}), flush=True)
     return 0
 
 

@@ -73,11 +73,14 @@ _SIGNATURES = {
     # q, k8, ks, mask, out; batch, n, d; scale; stream
     "vt_ptr_scores_int8": [_P] * 5 + [_I] * 3 + [_F, _P],
     # q, k8, ks, v8, vs, key_mask, out; batch, cache_len, heads, head_dim,
-    # step, write_offset; stream
-    "vt_decode_attention_int8": [_P] * 7 + [_I] * 6 + [_P],
-    # q, k, v, key_mask, out; batch, cache_len, heads, head_dim, step,
-    # write_offset; stream
-    "vt_decode_attention": [_P] * 5 + [_I] * 6 + [_P],
+    # cluster, head_groups, step, write_offset; stream
+    "vt_decode_attention_int8": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k, v, key_mask, out; batch, cache_len, heads, head_dim, cluster,
+    # head_groups, step, write_offset; stream
+    "vt_decode_attention": [_P] * 5 + [_I] * 8 + [_P],
+    # int8; batch, cache_len, heads, head_dim, cluster, head_groups; out
+    # count (cudaOccupancyMaxActiveClusters of that launch)
+    "vt_decode_attention_clusters": [_I] * 7 + [_P],
     # pointer array (order in csrc/fused_decode_step.cu); n_layers, batch,
     # cache_len, d, m, heads, step, write_offset; eps; stream
     "vt_fused_decode_step": [_P] + [_I] * 8 + [_F, _P],

@@ -3,16 +3,111 @@ kernel wrappers and their plain PyTorch versions.
 
 Counterparts of vitxtgqa_tpu/ops/pallas_attention.py:decode_attention_int8
 and decode_attention.  Both CUDA kernels are csrc/decode_attention.cu (one
-template, with and without the scale folding).
+template, with and without the scale folding): a thread block cluster per
+(head group, batch row) whose blocks split the cache's keys into spans and
+read only the allowed keys' rows; ``launch_plan`` picks the cluster size
+and the head grouping.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from vitxtgqa_tpu_torch.ops import _build
 
 NEG = -1e9
+
+# the launch plan's constants: as csrc/decode_attention.cu has them, the
+# threads a block, the largest (portable) cluster and the keys a thread
+# tests in the compaction; then one wave of the H100's blocks, four on each
+# of its 132 SMs (a block's 192 threads take ~80 registers each, so four
+# fit an SM's 65,536, and their shared memory fits beside them up to
+# SMEM_TARGET), and the fewest keys a block's span may hold
+THREADS, MAX_CLUSTER, MAX_PER_THREAD = 192, 8, 32
+WAVE, SMEM_TARGET, MIN_SPAN = 4 * 132, 56 * 1024, 32
+SMEM_LIMIT = 227 * 1024  # shared memory a block may use on Hopper
+
+
+class DecodePlan(NamedTuple):
+    cluster: int          # blocks of a cluster: the key spans of one batch row
+    head_groups: int      # clusters per batch row, one per group of heads
+    heads_per_group: int
+    span: int             # keys of a block (the last one may hold fewer)
+    smem: int             # dynamic shared memory of a block, bytes
+    blocks: int
+
+
+def smem_bytes(span: int, heads_per_group: int, elem_bytes: int, head_dim: int = 64) -> int:
+    """csrc/decode_attention.cu's smem_bytes: V partial sums [THREADS x 16 /
+    elem_bytes], the peers' (max, sum) pairs and partial outputs, the row's
+    pairs, the scan's counts, and per key of the span its index, its vs and
+    its scores."""
+    return 4 * (THREADS * (16 // elem_bytes) + (2 * MAX_CLUSTER + 2) * heads_per_group
+                + heads_per_group * head_dim + MAX_CLUSTER + 8 + span * (2 + heads_per_group))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(batch: int, cache_len: int, num_heads: int, elem_bytes: int,
+                head_dim: int = 64) -> DecodePlan:
+    """The grid of one decode call, batch x head groups x cluster blocks:
+    first the cluster grows (2, 4, 8 key spans of at least MIN_SPAN keys),
+    then the heads split into more groups (a block holds the whole row
+    segment of its heads, 16-byte chunks over THREADS threads), each while
+    the grid stays within one WAVE.  A block whose shared memory would pass
+    SMEM_TARGET splits its span further while the cluster may grow, and
+    one that passes what shared memory or the compaction take must; a
+    cache no plan fits raises."""
+    per = 16 // elem_bytes  # elements of one 16-byte load
+    if (num_heads * head_dim * elem_bytes) % 16 or (head_dim * elem_bytes) % 16:
+        raise ValueError(f"decode attention: rows of {num_heads} x {head_dim} x {elem_bytes} B "
+                         "are not a whole number of 16-byte chunks")
+    groups = [g for g in range(1, num_heads + 1)
+              if num_heads % g == 0 and THREADS % (num_heads // g * head_dim // per) == 0]
+    if not groups:
+        raise NotImplementedError(f"decode attention: no head grouping of {num_heads} heads")
+    gi, cluster = 0, 1
+    blocks = lambda: batch * groups[gi] * cluster
+    while (cluster < MAX_CLUSTER and 2 * blocks() <= WAVE
+           and -(-cache_len // (2 * cluster)) >= MIN_SPAN):
+        cluster *= 2
+    while gi + 1 < len(groups) and batch * groups[gi + 1] * cluster <= WAVE:
+        gi += 1
+    hg = num_heads // groups[gi]
+    span = -(-cache_len // cluster)
+    smem = lambda: smem_bytes(span, hg, elem_bytes, head_dim)
+    while smem() > SMEM_TARGET and cluster < MAX_CLUSTER:
+        cluster *= 2
+        span = -(-cache_len // cluster)
+    while span > MAX_PER_THREAD * THREADS or smem() > SMEM_LIMIT:
+        if cluster == MAX_CLUSTER:
+            raise NotImplementedError(f"decode attention: a cache of {cache_len} keys")
+        cluster *= 2
+        span = -(-cache_len // cluster)
+    return DecodePlan(cluster, groups[gi], hg, span, smem(), blocks())
+
+
+def max_active_clusters(batch: int, cache_len: int, num_heads: int, int8: bool) -> int:
+    """cudaOccupancyMaxActiveClusters of the plan's launch on the current
+    card (0 if the card cannot run one of its clusters)."""
+    plan = launch_plan(batch, cache_len, num_heads, 1 if int8 else 2)
+    count = ctypes.c_int(0)
+    err = _build.lib().vt_decode_attention_clusters(
+        int(int8), batch, cache_len, num_heads, 64, plan.cluster, plan.head_groups,
+        ctypes.addressof(count))
+    _build.check(err, "decode_attention occupancy")
+    return count.value
+
+
+def _check_slots(l: int, step: int, write_offset: int) -> None:
+    """The kernel reads only the allowed keys, so a row must have one: the
+    decoder slot at write_offset."""
+    if not (0 <= write_offset and 0 <= step and write_offset + step < l):
+        raise ValueError(f"decode attention: decoder slots [{write_offset}, "
+                         f"{write_offset + step}] outside the cache of {l} keys")
 
 
 def _decoder_slots_ok(l, step, write_offset, device):
@@ -80,12 +175,14 @@ def decode_attention(q, k, v, key_mask, step: int, write_offset: int,
     for name, t in (("k", k), ("v", v)):
         _build.require(t, name, torch.bfloat16, (b, l, hd_total), dev)
     _build.require(key_mask, "key_mask", torch.float32, (b, l), dev)
+    _check_slots(l, step, write_offset)
+    plan = launch_plan(b, l, num_heads, 2)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = _build.lib().vt_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
-            out.data_ptr(), b, l, num_heads, hd_total // num_heads, int(step),
-            int(write_offset), _build.stream_of(q),
+            out.data_ptr(), b, l, num_heads, hd_total // num_heads, plan.cluster,
+            plan.head_groups, int(step), int(write_offset), _build.stream_of(q),
         )
     _build.check(err, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
@@ -107,13 +204,15 @@ def decode_attention_int8(q, k8, ks, v8, vs, key_mask, step: int,
         _build.require(t, name, torch.int8, (b, l, hd_total), dev)
     for name, t in (("ks", ks), ("vs", vs), ("key_mask", key_mask)):
         _build.require(t, name, torch.float32, (b, l), dev)
+    _check_slots(l, step, write_offset)
+    plan = launch_plan(b, l, num_heads, 1)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = _build.lib().vt_decode_attention_int8(
             q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
             vs.data_ptr(), key_mask.data_ptr(), out.data_ptr(), b, l,
-            num_heads, hd_total // num_heads, int(step), int(write_offset),
-            _build.stream_of(q),
+            num_heads, hd_total // num_heads, plan.cluster, plan.head_groups,
+            int(step), int(write_offset), _build.stream_of(q),
         )
     _build.check(err, "decode_attention_int8")
     _build.LAUNCHES["decode_attention_int8"] += 1
