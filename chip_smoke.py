@@ -35,8 +35,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
      seed-regenerated masks as their twins; the in-kernel keep rate over
      >= 10^7 draws and the forward / backward stream equality; then again
      at the training step's own shapes: the flash pair at [48, 1152, 768]
-     with the MMT mask, the block pair at 55,296 rows (QTV, MMT) and 960
-     (text BERT), against the twins on the same inputs.  The serving
+     with the MMT mask; the block pair (check_block_kernels) at 4,608,
+     55,296 rows (QTV, MMT), 960 (text BERT) and the ragged 1,000 and
+     9,000, rate 0 and 0.1, against the twins on the same inputs, its
+     emitted masks equal to the twin's and two backward calls equal bit
+     for bit, timed at 55,296 and 960.  The serving
      modes' kernels: the W8A8 block at 9,216 and 3,072 rows (its ctx
      quantization bit for bit), the int8-emitting flash forward at [8,
      1152, 768] (its int8 cache and scales bit for bit, #1 timed on the
@@ -266,6 +269,11 @@ LSE_TOL = 1e-3
 LOSS_REL_TOL, GNORM_REL_TOL, GRAD_REL_TOL = 5e-4, 1e-3, 5e-2
 TRAIN_CHECK_BATCH = 4   # the kernel checks and the kernels-vs-plain step
 TRAIN_BATCH = 48        # configs/t2s_abinet.yml training_parameters.batch_size
+# the block kernels (#9a, #9b) are also held at two ragged row counts:
+# 1,000 (a last 128-row tile of 104 rows, one split of the weight
+# gradients' reduction) and 9,000 (a last tile of 40 rows; four splits of
+# the rows, the last of 2,088: ops/block_train.launch_plan)
+BLOCK_RAGGED_ROWS = (1000, 9000)
 TRAIN_STEPS = 4         # the first is a warm-up; >= 3 are timed
 # slice j: the extractor's default chunk (tools/video_feat/obtain_vit_feat.py
 # --batch) and the timed forwards.  The CLS features are final-LayerNorm
@@ -1399,46 +1407,98 @@ def check_training_kernels(dev, record):
     del q, k, v, g, out, lse, qh, kh, vh, am, lib_out, lib_g
     torch.cuda.empty_cache()
 
-    wbytes, vbytes = nbytes(wo, w1, w2), nbytes(*vecs)
-    for rows in (bt * l, bt * 20):
-        x_q, ctx, gy = rn(rows, d), rn(rows, d), rn(rows, d)
-        ma, mf = BT.masks_from_seed(seed, rows, d, RATE, dev)
-        res = BT.block_train_fwd(x_q, ctx, *wargs, rate=RATE, seed=seed)
-        twin = BT.block_train_fwd_plain(x_q, ctx, *wargs, ma, mf, rate=RATE)
-        torch.cuda.synchronize()
-        for name, a, w in zip(("y", "x1h", "pre1", "h", "x2h"), res, twin):
-            report(record, "block_train_fwd", (a.float() - w.float()).abs().max().item(),
-                   extra=f" {name} rate={RATE} [{rows},768]->3072")
-        del twin
-        bwd_args = (gy, ctx, *res[1:], wo, w1, w2, s1, g1, s2)
-        got = BT.block_train_bwd(*bwd_args, rate=RATE, seed=seed)
-        want = BT.block_train_bwd_plain(*bwd_args, ma, mf, rate=RATE)
-        torch.cuda.synchronize()
-        for name, a, w in zip(BT.GRAD_NAMES, got, want):
-            w = w.float()
-            report(record, "block_train_bwd", (a.float() - w).abs().max().item(),
-                   scale=w.abs().max().item(), extra=f" d{name} rate={RATE} [{rows},768]->3072")
-        del got, want, ma, mf
-        if rows == bt * l:
-            twin_masks = lambda: BT.masks_from_seed(seed, rows, d, RATE, dev)
-            act_d, act_m = rows * d * 2, rows * m * 2
-            keep_times(record, "block_train_fwd", f" rate={RATE} [{rows},768]->3072",
-                       ms=cuda_time_ms(lambda: BT.block_train_fwd(x_q, ctx, *wargs, rate=RATE,
-                                                                  seed=seed)),
-                       plain_ms=cuda_time_ms(lambda: BT.block_train_fwd_plain(
-                           x_q, ctx, *wargs, *twin_masks(), rate=RATE), reps=3, warmup=1),
-                       bound=block_bound(rows, d, m, 2 * act_d, 3 * act_d + 2 * act_m, wbytes,
-                                         vbytes))
-            keep_times(record, "block_train_bwd", f" rate={RATE} [{rows},768]->3072",
-                       ms=cuda_time_ms(lambda: BT.block_train_bwd(*bwd_args, rate=RATE,
-                                                                  seed=seed)),
-                       plain_ms=cuda_time_ms(lambda: BT.block_train_bwd_plain(
-                           *bwd_args, *twin_masks(), rate=RATE), reps=3, warmup=1),
-                       bound=block_bound(rows, d, m, 4 * act_d + 2 * act_m,
-                                         2 * act_d + 2 * wbytes, wbytes, vbytes, backward=True))
-        del x_q, ctx, gy, res, bwd_args
-        torch.cuda.empty_cache()
+    details["block_times"] = check_block_kernels(
+        dev, record, (b * l, bt * l, bt * 20) + BLOCK_RAGGED_ROWS, timed_rows=(bt * l, bt * 20))
     return details
+
+
+def check_block_kernels(dev, record, cases, d: int = 768, m: int = 3072, timed_rows=()):
+    """The block kernels (#9a, #9b) against their twins on the same seed's
+    masks, at each row count of ``cases`` with rate 0 and RATE: the
+    forward's five outputs (with dropout, also its emitted masks, equal to
+    the twin's), the backward's 12 gradients scale-relative, and a second
+    backward call equal to the first bit for bit on all 12 (the kernels sum
+    in a fixed order).  For the rows of ``timed_rows`` both kernels are then
+    timed at RATE with their twins and bounds; the first is the kernels'
+    record.  Returns {rows: {kernel: ms}}."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+
+    gen = torch.Generator(device=dev).manual_seed(2718)
+    bf = torch.bfloat16
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf)
+    vec = lambda n, base=0.0: base + torch.randn(n, generator=gen, device=dev) * 0.05
+    seed = torch.tensor([20261017], dtype=torch.int64, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    wo, w1, w2 = ((torch.randn(*s, generator=gen, device=dev) * 0.02).to(bf)
+                  for s in ((d, d), (m, d), (d, m)))
+    vecs = [vec(d), vec(d, 1.0), vec(d), vec(m), vec(d), vec(d, 1.0), vec(d)]
+    bo, s1, g1, b1, b2, s2, g2 = vecs
+    wargs = (wo, bo, s1, g1, w1, b1, w2, b2, s2, g2)
+    times = {}
+    for rows in cases:
+        x_q, ctx, gy = rn(rows, d), rn(rows, d), rn(rows, d)
+        for rate in (0.0, RATE):
+            kw = dict(rate=rate, seed=seed if rate else None)
+            label = f" rate={rate} [{rows},{d}]->{m}"
+            ma, mf = BT.seed_masks(seed, rows, d, rate, dev)
+            got = BT.block_train_fwd(x_q, ctx, *wargs, emit_masks=rate > 0, **kw)
+            twin = BT.block_train_fwd_plain(x_q, ctx, *wargs, ma, mf, rate=rate)
+            sync()
+            for name, a, w in zip(("y", "x1h", "pre1", "h", "x2h"), got, twin):
+                report(record, "block_train_fwd", (a.float() - w.float()).abs().max().item(),
+                       extra=f" {name}{label}")
+            if rate and not (torch.equal(got[5].bool(), ma) and torch.equal(got[6].bool(), mf)):
+                fail(f"block_train_fwd{label}: the masks it drew differ from the twin's")
+            bwd_args = (gy, ctx, *twin[1:], wo, w1, w2, s1, g1, s2)
+            del got, twin
+            grads = BT.block_train_bwd(*bwd_args, **kw)
+            again = BT.block_train_bwd(*bwd_args, **kw)
+            want = BT.block_train_bwd_plain(*bwd_args, ma, mf, rate=rate)
+            sync()
+            for name, a, w in zip(BT.GRAD_NAMES, grads, want):
+                w = w.float()
+                report(record, "block_train_bwd", (a.float() - w).abs().max().item(),
+                       scale=w.abs().max().item(), extra=f" d{name}{label}")
+            differ = [name for name, a, b in zip(BT.GRAD_NAMES, grads, again)
+                      if not torch.equal(a, b)]
+            print(f"kernel block_train_bwd{label}: a second call bit-identical on all 12 outputs: "
+                  f"{not differ}", flush=True)
+            if differ:
+                fail(f"block_train_bwd{label}: two calls differ in d{', d'.join(differ)}")
+            del grads, again, want, ma, mf
+            if rate and rows in timed_rows:
+                times[rows] = block_times(record if rows == timed_rows[0] else {}, rows, d, m,
+                                          x_q, ctx, wargs, bwd_args, seed, vecs)
+            del bwd_args
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return times
+
+
+def block_times(record, rows, d, m, x_q, ctx, wargs, bwd_args, seed, vecs):
+    """#9a and #9b at RATE on one row count: kernel, twin (its masks drawn
+    from the seed as it runs) and bound, kept in ``record``."""
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+
+    wo, w1, w2 = wargs[0], wargs[4], wargs[6]
+    wbytes, vbytes = nbytes(wo, w1, w2), nbytes(*vecs)
+    masks = lambda: BT.masks_from_seed(seed, rows, d, RATE, x_q.device)
+    act_d, act_m = rows * d * 2, rows * m * 2
+    extra = f" rate={RATE} [{rows},{d}]->{m}"
+    keep_times(record, "block_train_fwd", extra,
+               ms=cuda_time_ms(lambda: BT.block_train_fwd(x_q, ctx, *wargs, rate=RATE, seed=seed)),
+               plain_ms=cuda_time_ms(lambda: BT.block_train_fwd_plain(
+                   x_q, ctx, *wargs, *masks(), rate=RATE), reps=3, warmup=1),
+               bound=block_bound(rows, d, m, 2 * act_d, 3 * act_d + 2 * act_m, wbytes, vbytes))
+    keep_times(record, "block_train_bwd", extra,
+               ms=cuda_time_ms(lambda: BT.block_train_bwd(*bwd_args, rate=RATE, seed=seed)),
+               plain_ms=cuda_time_ms(lambda: BT.block_train_bwd_plain(
+                   *bwd_args, *masks(), rate=RATE), reps=3, warmup=1),
+               bound=block_bound(rows, d, m, 4 * act_d + 2 * act_m, 2 * act_d + 2 * wbytes,
+                                 wbytes, vbytes, backward=True))
+    return {name: record[name]["ms"] for name in ("block_train_fwd", "block_train_bwd")}
 
 
 def split_flash_bound(qs, k, key_mask, dec_len: int, off: int, lse: bool = False):
@@ -2788,6 +2848,10 @@ def main(argv) -> int:
     print("build: the decode attention body (csrc/decode_attention.cu): " + "; ".join(
         f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
         for name, regs, st, ld in _build.ptxas_kernels(log, "decode_attention.cu")),
+        flush=True)
+    print("build: the training block (csrc/block_train.cu, csrc/gemm_sm90.cuh): " + "; ".join(
+        f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
+        for name, regs, st, ld in _build.ptxas_kernels(log, "block_train.cu")),
         flush=True)
 
     record = {}

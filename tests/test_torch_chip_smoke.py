@@ -564,3 +564,78 @@ def test_check_decode_attention_rejects_a_planted_fault(fault, monkeypatch):
     monkeypatch.setattr(TDA, name, broken)
     with pytest.raises(SystemExit, match=name):
         CS.check_decode_attention(torch.device("cpu"), record, timed=False)
+
+
+def _without_last_split(bwd):
+    """A block backward whose weight gradients miss the rows of the last
+    split of their reduction (launch_plan's), as a kernel that dropped its
+    last partial K chunk would."""
+    def call(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, rate=0.0, seed=None, eps=1e-12):
+        plan = TBT.launch_plan(ctx.shape[0], ctx.shape[1], w1.shape[0])
+        grads = list(bwd(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, rate=rate, seed=seed,
+                         eps=eps))
+        cut = (plan.splits - 1) * plan.k_chunk
+        rows_of = [t[:cut] for t in (g, ctx, x1h, pre1, h, x2h)]
+        part = bwd(*rows_of, wo, w1, w2, s1, g1, s2, rate=rate, seed=seed, eps=eps)
+        for i in (2, 6, 8):  # dWo, dW1, dW2
+            grads[i] = part[i]
+        return tuple(grads)
+    return call
+
+
+def _without_ragged_rows(fwd):
+    """A block forward that leaves the rows past the last whole 128-row
+    tile at zero."""
+    def call(*args, **kw):
+        out = list(fwd(*args, **kw))
+        rows = out[0].shape[0]
+        for i in range(5):
+            out[i] = out[i].clone()
+            out[i][rows // 128 * 128:] = 0
+        return tuple(out)
+    return call
+
+
+def _nondeterministic(bwd):
+    """A block backward whose second call moves one element of dW1 by one
+    float32 ulp (a reduction whose order changes between calls)."""
+    calls = [0]
+
+    def call(*args, **kw):
+        grads = list(bwd(*args, **kw))
+        calls[0] += 1
+        if calls[0] % 2 == 0:
+            grads[6] = grads[6].clone()
+            grads[6].view(-1)[0] = torch.nextafter(grads[6].view(-1)[0], torch.tensor(np.inf))
+        return tuple(grads)
+    return call
+
+
+@pytest.mark.parametrize("fault", [None, "without_last_split", "without_ragged_rows",
+                                   "nondeterministic"])
+def test_check_block_kernels_rejects_a_planted_fault(fault, monkeypatch):
+    """check_block_kernels (#9a, #9b) on the CPU at hidden 128, FFN 256 and
+    its ragged row counts (BLOCK_RAGGED_ROWS), untimed: the twins pass with
+    no difference, and each planted fault is rejected: weight gradients
+    without the last split of the rows (9,000 rows: four splits), a forward
+    without the rows past the last whole tile (1,000 rows: 104 of them), a
+    backward whose second call differs in one bit."""
+    record = {}
+    small = dict(d=128, m=256)
+    if fault is None:
+        CS.check_block_kernels(torch.device("cpu"), record, CS.BLOCK_RAGGED_ROWS, **small)
+        assert record["block_train_fwd"]["max_abs_err"] == 0.0
+        assert record["block_train_bwd"]["max_rel_err"] == 0.0
+        return
+    assert TBT.launch_plan(9000, 128, 256).splits > 1
+    if fault == "without_last_split":
+        monkeypatch.setattr(TBT, "block_train_bwd", _without_last_split(TBT.block_train_bwd))
+        rows, match = 9000, "block_train_bwd"
+    elif fault == "without_ragged_rows":
+        monkeypatch.setattr(TBT, "block_train_fwd", _without_ragged_rows(TBT.block_train_fwd))
+        rows, match = 1000, "block_train_fwd"
+    else:
+        monkeypatch.setattr(TBT, "block_train_bwd", _nondeterministic(TBT.block_train_bwd))
+        rows, match = 1000, "two calls differ in dw1"
+    with pytest.raises(SystemExit, match=match):
+        CS.check_block_kernels(torch.device("cpu"), record, (rows,), **small)

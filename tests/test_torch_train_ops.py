@@ -371,3 +371,50 @@ def test_training_wrappers_on_cpu_run_plain_and_count_nothing():
                                    torch.tensor([1]))
     assert all(n == 0 for n in _build.launch_counts().values())
     assert TBT.kernel_ok(768, 3072) and not TBT.kernel_ok(64, 128)
+
+
+@pytest.mark.parametrize("rows", [20, 40, 540, 960, 1000, 4608, 9000, 9216, 55296])
+@pytest.mark.parametrize("widths", [(768, 3072), (64, 128)], ids=["production", "tiny"])
+def test_block_launch_plan_covers_every_row_once(rows, widths):
+    """launch_plan, the cut of the block backward's reductions over the
+    rows: the activation products' 128-row tiles cover the rows; the row
+    passes' warps (block b, warp w: rows 8 b + w, then every 8 row_blocks
+    further) take every row once and every block a row; the weight
+    gradients' splits (multiples of the K step) take every row once, none
+    empty; and the scratch holds what csrc/block_train.cu reads: three [d]
+    column sums per row-pass block for each LayerNorm, db1's [m] per row
+    tile, and per split the three f32 weight-gradient partials."""
+    d, m = widths
+    plan = TBT.launch_plan(rows, d, m)
+    assert (plan.m_tiles - 1) * TBT.TILE_M < rows <= plan.m_tiles * TBT.TILE_M
+    per = TBT.ROWS_PER_BLOCK
+    seen = np.zeros(rows, dtype=int)
+    for b in range(plan.row_blocks):
+        taken = 0
+        for w in range(per):
+            rows_of = np.arange(b * per + w, rows, plan.row_blocks * per)
+            seen[rows_of] += 1
+            taken += rows_of.size
+        assert taken > 0, f"row-pass block {b} has no row"
+    assert (seen == 1).all()
+    assert plan.row_blocks <= TBT.ROW_BLOCKS_MAX
+    assert plan.k_chunk % TBT.K_STEP == 0 and 1 <= plan.splits <= TBT.MAX_SPLITS
+    cover = np.zeros(rows, dtype=int)
+    for s in range(plan.splits):
+        lo, hi = s * plan.k_chunk, min(rows, (s + 1) * plan.k_chunk)
+        assert lo < hi, f"split {s} is empty"
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    assert plan.col_floats == 2 * plan.row_blocks * 3 * d + plan.m_tiles * m
+    assert plan.w_floats == (plan.splits * (d * d + m * d + d * m) if plan.splits > 1 else 0)
+
+
+def test_block_launch_plan_of_the_training_step():
+    """The step's shapes: 55,296 rows in four splits of 13,824 (37.7 MB of
+    f32 partials for dW1), the text BERT's 960 rows in one."""
+    big, text = TBT.launch_plan(55296), TBT.launch_plan(960)
+    assert (big.splits, big.k_chunk, big.m_tiles, big.row_blocks) == (4, 13824, 432, 264)
+    assert big.w_floats == 4 * (768 * 768 + 2 * 3072 * 768)
+    assert (text.splits, text.k_chunk, text.w_floats) == (1, 960, 0)
+    with pytest.raises(ValueError):
+        TBT.launch_plan(0)

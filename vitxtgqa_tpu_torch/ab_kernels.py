@@ -3,7 +3,7 @@ backward (#1b, #10b) and of the decode attention (#4, #7) of the port
 package found under --root, for an A/B of two checkouts on one card (run
 parent, change, change, parent back to back):
 
-    python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N] [--forms decode]
+    python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N] [--forms decode|block]
 
 Forms and shapes: #1 at [8, 1152, 768] with the key mask of the synthetic
 serving batch, dec_len 0 and 12; #1's dropout form (rate 0.1, with the
@@ -28,6 +28,15 @@ and mask where one call computes the same function (#11's quantization has
 none; #4's SDPA reads the dequantized cache).  Prints one JSON line with
 the card's name and power limit.  Run it as a file, not with -m, so that
 the package imported is the one under --root.
+
+``--forms block`` times only the training block: #9a and #9b at 55,296
+rows (48 x 1152: QTV, MMT) and 960 (48 x 20: the text BERT), at rate 0.1
+and 0, and beside each (``gemm_ms``) the same three (forward) or six
+(backward) products alone as bf16 torch.matmul calls: a yardstick of the
+products, not a library column, since no single call computes the block;
+then the kernels that share block_gemm.cuh, #2 and #3 at the serving
+shape (9,216 rows) and #13 at ViT-L/16's 12,608 rows, to show that they
+did not move.
 """
 
 import argparse
@@ -44,7 +53,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--forms", choices=("all", "decode"), default="all")
+    ap.add_argument("--forms", choices=("all", "decode", "block"), default="all")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path = [root] + [p for p in sys.path if os.path.abspath(p) != os.path.dirname(__file__)]
@@ -97,6 +106,9 @@ def main(argv=None) -> int:
 
     ms, sdpa = {}, {}
     allowed = lambda km, dec: FA._allowed(km, km.shape[1], dec)
+    if args.forms == "block":
+        gemm = block_forms(ms, timed, rn, dev, seed)
+        return report(args.root, ms, sdpa, gemm_ms=gemm)
 
     # the decode attention, warm and cold
     compact = torch.nn.functional.pad(
@@ -212,11 +224,56 @@ def main(argv=None) -> int:
     return report(args.root, ms, sdpa)
 
 
-def report(root, ms, sdpa) -> int:
+def block_forms(ms, timed, rn, dev, seed):
+    """#9a / #9b (and the products alone as torch.matmul: returned), #2,
+    #3 and #13 into ``ms``."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+    from vitxtgqa_tpu_torch.ops import ffn as FFN
+    from vitxtgqa_tpu_torch.ops import fused_block as FB
+
+    gemm = {}
+    d, m = 768, 3072
+    vec = lambda n, base=0.0: base + 0.05 * torch.randn(n, device=dev)
+    wo, w1, w2 = (rn(*s) * 0.02 for s in ((d, d), (m, d), (d, m)))
+    vecs = (vec(d), vec(d, 1.0), vec(d), vec(m), vec(d), vec(d, 1.0), vec(d))
+    bo, s1, g1, b1, b2, s2, g2 = vecs
+    wargs = (wo, bo, s1, g1, w1, b1, w2, b2, s2, g2)
+    for rows in (48 * 1152, 48 * 20):
+        x_q, ctx, gy = rn(rows, d), rn(rows, d), rn(rows, d)
+        res = BT.block_train_fwd(x_q, ctx, *wargs, rate=0.1, seed=seed)
+        bwd_args = (gy, ctx, *res[1:], wo, w1, w2, s1, g1, s2)
+        for rate in (0.1, 0.0):
+            kw = dict(rate=rate, seed=seed if rate else None)
+            ms[f"#9a [{rows}] rate {rate}"] = timed(
+                lambda: BT.block_train_fwd(x_q, ctx, *wargs, **kw))
+            ms[f"#9b [{rows}] rate {rate}"] = timed(lambda: BT.block_train_bwd(*bwd_args, **kw))
+        x, pre1, h = res[4], res[2], res[3]
+        fwd_mm = lambda: (ctx @ wo.t(), x @ w1.t(), h @ w2.t())
+        bwd_mm = lambda: (gy @ w2, pre1 @ w1, gy @ wo, gy.t() @ ctx, pre1.t() @ x, gy.t() @ h)
+        gemm[f"#9a [{rows}]"] = timed(fwd_mm)
+        gemm[f"#9b [{rows}]"] = timed(bwd_mm)
+        del x_q, ctx, gy, res, bwd_args, x, pre1, h
+        torch.cuda.empty_cache()
+    # the kernels on block_gemm.cuh's tiles
+    rows = 8 * 1152
+    x_q, ctx, res = rn(rows, d), rn(rows, d) * 0.5, rn(rows, d)
+    args = (x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2)
+    ms[f"#2 [{rows}]"] = timed(lambda: FB.fused_block(*args))
+    ms[f"#3 [{rows}]"] = timed(lambda: FB.fused_block_tanh(res, *args))
+    rows, d, m = 64 * 197, 1024, 4096
+    ffn = (rn(rows, d), rn(m, d) * 0.02, vec(m), rn(d, m) * 0.02, vec(d))
+    ms[f"#13 [{rows}]"] = timed(lambda: FFN.fused_ffn(*ffn))
+    return gemm
+
+
+def report(root, ms, sdpa, **beside) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"root": root, "ms": ms, "sdpa_ms": sdpa, "card": card}), flush=True)
+    print(json.dumps({"root": root, "ms": ms, "sdpa_ms": sdpa, **beside, "card": card}),
+          flush=True)
     return 0
 
 

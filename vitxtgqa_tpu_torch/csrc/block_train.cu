@@ -22,111 +22,223 @@
 // What bounds it on the H100: at the training shape (R = 48 * 1152 = 55,296
 // rows, d = 768, m = 3072) the forward is 2R(d^2 + 2dm) = 587 GFLOP and the
 // backward twice that, against ~0.9 GB (forward) and ~2 GB (backward) of
-// activations: the tensor cores bound both.
+// activations: the tensor cores bound both (0.59 / 1.19 ms at 989 TFLOP/s).
 //
-// Design.  The TPU backward keeps all weight-gradient accumulators (9.4 MB
-// each for dW1 / dW2) resident in VMEM across its sequential row grid; a
-// Hopper block has 227 KB of shared memory and blocks run in no order.  So
-// the backward is a row-local pass plus products that reduce over the rows:
-//  A. ln2_bwd_kernel (a warp per row): du2 = LN2'(g), dlin2 = K_f du2,
-//     column sums ds2, dg2, db2;
-//  B. tile GEMM dh = dlin2 W2, epilogue dpre = dh gelu'(pre1), sums db1;
-//  C. row GEMM dx = du2 + dpre W1, epilogue: LN1 backward (dx_q = du1),
-//     dlin1 = K_a du1, x = bf16(LN1(x1h)) for dW1, sums ds1, dg1, dbo;
-//  D. tile GEMM dctx = dlin1 Wo;
-//  E. three tile GEMMs over the rows, split over R with f32 atomics:
-//     dWo = dlin1^T ctx, dW1 = dpre^T x, dW2 = dlin2^T h.
-// Column sums reduce in registers over a warp's rows, then in shared
-// memory, then with one f32 atomic per column and block.  Every product is
-// one of the GEMM tiles of block_gemm.cuh (shared with fused_block.cu);
-// no library GEMM.  The forward is three launches: row GEMM (Wo, dropout,
-// LN1), tile GEMM (W1, gelu), row GEMM (W2, dropout, LN2).
-#include <initializer_list>
-
-#include "block_gemm.cuh"
+// Design.  Every product is gemm_sm90.cuh's wgmma body (128-row tiles on
+// two warpgroups, a cp.async ring), its epilogue on the register
+// accumulator; the LayerNorms, which need whole 768-wide rows, are light
+// row passes (a warp a row) over the pre-norm values that the GEMM
+// epilogues write, so no block holds a full row of the output and the
+// weights are read once per 128 rows.  The TPU backward keeps its weight
+// gradient accumulators resident across a sequential row grid; here the
+// reductions over the rows are split-K products whose f32 partials, like
+// the blocks' column sums, go to scratch and are added in a fixed order:
+// no atomics, so two calls give the same bits.
+//  Forward (5 launches):
+//   F1 GEMM ctx Wo^T, epilogue x1h = bf16(x_q + K_a (acc + bo)) (+ mask);
+//   F2 rows: xb = bf16(LN1(x1h));
+//   F3 GEMM xb W1^T, epilogue pre1 = bf16(acc + b1), h = bf16(gelu(pre1));
+//   F4 GEMM h W2^T, epilogue x2h = bf16(xb + K_f (acc + b2)) (+ mask);
+//   F5 rows: y = bf16(LN2(x2h)).
+//  Backward (7 launches):
+//   B1 rows: du2 = LN2'(g) (f32), dlin2 = K_f du2, partial sums ds2, dg2, db2;
+//   B2 GEMM dlin2 W2, epilogue dpre = bf16(acc gelu'(pre1)), partial sums db1;
+//   B3 GEMM dpre W1, epilogue dx = du2 + acc (f32, over du2);
+//   B4 rows: LN1 backward: dx_q = du1, dlin1 = K_a du1, xb = bf16(LN1(x1h)),
+//      partial sums ds1, dg1, dbo;
+//   B5 GEMM dlin1 Wo -> dctx;
+//   B6 one launch of the three weight gradients over the rows, split in K
+//      (both operands MN-major): dWo = dlin1^T ctx, dW1 = dpre^T xb, dW2 =
+//      dlin2^T h, into f32 partials (into the outputs with one split);
+//   B7 the partials summed in order into the 10 f32 outputs.
+// The row passes' grid (row_blocks) and the split (k_chunk) come from the
+// wrapper's plan (ops/block_train.launch_plan), which sizes the scratch.
+#include "gemm_sm90.cuh"
+#include "philox.cuh"
+#include "row_ops.cuh"
 
 namespace vt {
-namespace gemm {
+namespace bt {
 
-// ---- backward epilogues ----------------------------------------------------
+using gemm::load4;
+using gemm::RGROUPS;
+using gemm::RN;
+using gemm::store4;
+using g90::Tile;
 
-// dpre = acc * gelu'(pre1), bf16; column sums of the f32 dpre are db1
+using g90::launch_gemm;
+
+constexpr int kRowThreads = 256;  // row passes: a warp a row, 8 rows a block
+
+// one product over all its rows: A [M, K] K-major, B K-major (x W^T) or
+// MN-major (dy W)
+inline g90::GemmArgs one(const bf16* a, int lda, const bf16* b, int ldb, int M, int N, int K) {
+  g90::GemmArgs args = {};
+  args.p[0] = g90::make_problem({a, lda}, {b, ldb}, M, N, K, K, 0);
+  args.n_problems = 1;
+  args.items = g90::items_of(args.p[0]);
+  return args;
+}
+
+// ---- dropout -------------------------------------------------------------
+struct Drop {
+  const int64_t* seed;  // null: no dropout
+  int8_t* mask_out;     // the drawn mask [R, 768], or null
+  uint32_t stream;
+  uint32_t threshold;
+  float keep_scale;     // 1 / (1 - rate)
+};
+
+__device__ __forceinline__ uint32_t seed_of(const Drop& d) {
+  return d.seed != nullptr ? (uint32_t)(*d.seed) : 0u;
+}
+
+// keep flags of columns col .. col + 3 (col % 4 == 0) of one row
+__device__ __forceinline__ void row_keep4(const Drop& d, uint32_t seed, int row, int col,
+                                          bool keep[4]) {
+  const uint4 w = philox_group(seed, d.stream, (uint32_t)col, (uint32_t)row, 0u, 0u);
+  keep[0] = w.x >= d.threshold;
+  keep[1] = w.y >= d.threshold;
+  keep[2] = w.z >= d.threshold;
+  keep[3] = w.w >= d.threshold;
+}
+
+// ---- GEMM epilogues (on the staged tile, eight columns of a row at a time)
+
+// the keep flags of columns col .. col + 7 (col % 8 == 0) of one row, and
+// the drawn mask's eight bytes
+__device__ __forceinline__ void row_keep8(const Drop& d, uint32_t seed, int row, int col,
+                                          size_t gi, bool keep[8]) {
+  row_keep4(d, seed, row, col, keep);
+  row_keep4(d, seed, row, col + 4, keep + 4);
+  if (d.mask_out != nullptr) {
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) w[e / 4] |= (uint32_t)keep[e] << (8 * (e % 4));
+    *reinterpret_cast<uint2*>(d.mask_out + gi) = make_uint2(w[0], w[1]);
+  }
+}
+
+// F1 / F4: out = bf16(resid + K (acc + bias)), the drawn mask to mask_out
+struct ResidDropEpi {
+  const float* bias;
+  const bf16* resid;
+  bf16* out;
+  Drop drop;
+  __device__ void operator()(const Tile& t, int) const {
+    const bool dropout = drop.seed != nullptr;
+    const uint32_t seed = seed_of(drop);
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      const size_t gi = (size_t)row * t.N + col;
+      float b[8], r[8];
+      bool keep[8];
+      g90::load8(bias + col, b);
+      g90::unpack8(*reinterpret_cast<const uint4*>(resid + gi), r);
+      if (dropout) row_keep8(drop, seed, row, col, gi, keep);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float a = v[e] + b[e];
+        if (dropout) a = keep[e] ? a * drop.keep_scale : 0.f;
+        v[e] = r[e] + a;
+      }
+      *reinterpret_cast<uint4*>(out + gi) = g90::pack8(v);
+    });
+  }
+};
+
+// F3: pre = bf16(acc + bias), h = bf16(gelu(pre))
+struct GeluEpi {
+  const float* bias;
+  bf16* pre;
+  bf16* h;
+  __device__ void operator()(const Tile& t, int) const {
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      const size_t gi = (size_t)row * t.N + col;
+      float b[8];
+      g90::load8(bias + col, b);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += b[e];
+      const uint4 p = g90::pack8(v);
+      *reinterpret_cast<uint4*>(pre + gi) = p;
+      g90::unpack8(p, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = gemm::gelu_erf(v[e]);
+      *reinterpret_cast<uint4*>(h + gi) = g90::pack8(v);
+    });
+  }
+};
+
+// B2: dp = acc gelu'(pre1); dpre = bf16(dp); the tile's column sums of
+// the f32 dp to db1_part[m_tile][N]
 struct GeluGradEpi {
-  static constexpr bool kColSum = true;
   const bf16* pre1;
   bf16* dpre;
-  float* db1;
-  int ld;
-  __device__ void operator()(int row, int col, const float v[8], float* colsum) const {
-    const size_t g = (size_t)row * ld + col;
-    const uint4 raw = *reinterpret_cast<const uint4*>(pre1 + g);
-    const bf16* p = reinterpret_cast<const bf16*>(&raw);
-    __align__(16) bf16 out[8];
+  float* db1_part;
+  __device__ void operator()(const Tile& t, int) const {
+    float cs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      const size_t gi = (size_t)row * t.N + col;
+      float p[8];
+      g90::unpack8(*reinterpret_cast<const uint4*>(pre1 + gi), p);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float dp = v[t] * gelu_erf_grad(__bfloat162float(p[t]));
-      out[t] = __float2bfloat16(dp);
-      atomicAdd(colsum + t, dp);
-    }
-    *reinterpret_cast<uint4*>(dpre + g) = *reinterpret_cast<const uint4*>(out);
+      for (int e = 0; e < 8; ++e) {
+        v[e] *= gemm::gelu_erf_grad(p[e]);
+        cs[e] += v[e];
+      }
+      *reinterpret_cast<uint4*>(dpre + gi) = g90::pack8(v);
+    });
+    g90::tile_colsum(t, cs, db1_part + (size_t)t.m_tile * t.N + t.n0);
   }
-  __device__ void flush(float sum, int col) const { atomicAdd(db1 + col, sum); }
 };
 
+// B3: dx = du2 + acc, f32, in place over du2
+struct AddF32Epi {
+  float* dx;
+  __device__ void operator()(const Tile& t, int) const {
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      float* p = dx + (size_t)row * t.N + col;
+      float u[8];
+      g90::load8(p, u);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += u[e];
+      g90::store8(p, v);
+    });
+  }
+};
+
+// B5: out = bf16(acc)
 struct StoreEpi {
-  static constexpr bool kColSum = false;
   bf16* out;
-  int ld;
-  __device__ void operator()(int row, int col, const float v[8], float*) const {
-    __align__(16) bf16 o[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) o[t] = __float2bfloat16(v[t]);
-    *reinterpret_cast<uint4*>(out + (size_t)row * ld + col) = *reinterpret_cast<const uint4*>(o);
+  __device__ void operator()(const Tile& t, int) const {
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      *reinterpret_cast<uint4*>(out + (size_t)row * t.N + col) = g90::pack8(v);
+    });
   }
-  __device__ void flush(float, int) const {}
 };
 
-// split-K partial products of a weight gradient, added into f32 out
-struct AtomicEpi {
-  static constexpr bool kColSum = false;
-  float* out;
-  int ld;
-  __device__ void operator()(int row, int col, const float v[8], float*) const {
-    float* o = out + (size_t)row * ld + col;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) atomicAdd(o + t, v[t]);
+// B6: problem p's split s stores its f32 partial at out[p] + s * stride[p]
+// (stride 0 with one split: the output itself)
+struct PartialEpi {
+  float* out[g90::kMaxProblems];
+  size_t stride[g90::kMaxProblems];
+  __device__ void operator()(const Tile& t, int p) const {
+    float* o = (p == 0 ? out[0] : p == 1 ? out[1] : out[2]) +
+               t.split * (p == 0 ? stride[0] : p == 1 ? stride[1] : stride[2]);
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      g90::store8(o + (size_t)row * t.N + col, v);
+    });
   }
-  __device__ void flush(float, int) const {}
 };
 
-// LayerNorm backward through y = xhat * s + b: du = inv (g s - mean(g s) -
-// xhat mean(g s xhat)), per row of RGROUPS x 4 lane values
-__device__ __forceinline__ void ln_bwd_row(const float g[RGROUPS][4], const float xhat[RGROUPS][4],
-                                           const float s[RGROUPS][4], float inv,
-                                           float du[RGROUPS][4]) {
-  float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-  for (int q = 0; q < RGROUPS; ++q)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float dxh = g[q][t] * s[q][t];
-      m1 += dxh;
-      m2 += dxh * xhat[q][t];
-    }
-  m1 = warp_sum(m1) / RN;
-  m2 = warp_sum(m2) / RN;
-#pragma unroll
-  for (int q = 0; q < RGROUPS; ++q)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) du[q][t] = inv * (g[q][t] * s[q][t] - m1 - xhat[q][t] * m2);
-}
+// ---- LayerNorm row passes (a warp a row, a lane on four consecutive
+// columns in each of six 128-column groups) --------------------------------
 
 // the row's x values (bf16 in memory) and their LayerNorm xhat
 __device__ __forceinline__ float row_xhat(const bf16* x, int lane, float eps,
                                           float xhat[RGROUPS][4]) {
 #pragma unroll
   for (int q = 0; q < RGROUPS; ++q) load4(x + q * 128 + lane * 4, xhat[q]);
-  const RowStats st = row_stats(xhat, eps);
+  const gemm::RowStats st = gemm::row_stats(xhat, eps);
 #pragma unroll
   for (int q = 0; q < RGROUPS; ++q)
 #pragma unroll
@@ -134,167 +246,222 @@ __device__ __forceinline__ float row_xhat(const bf16* x, int lane, float eps,
   return st.inv;
 }
 
-// add a warp's register column sums into the block's shared sums
-__device__ __forceinline__ void add_colsums(float* red, const float cs[RGROUPS][4], int lane) {
+// out = bf16(xhat * s + g): the forward's LN1 / LN2 and the backward's xb
+__device__ __forceinline__ void ln_store(bf16* out, const float xhat[RGROUPS][4], const float* s,
+                                         const float* g, int lane) {
+#pragma unroll
+  for (int q = 0; q < RGROUPS; ++q) {
+    const int c = q * 128 + lane * 4;
+    float sv[4], gv[4], y[4];
+    load4(s + c, sv);
+    load4(g + c, gv);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) y[t] = xhat[q][t] * sv[t] + gv[t];
+    store4(out + c, y);
+  }
+}
+
+// LayerNorm backward through y = xhat * s + b: du = inv (g s - mean(g s) -
+// xhat mean(g s xhat))
+__device__ __forceinline__ void ln_bwd_row(const float g[RGROUPS][4], const float xhat[RGROUPS][4],
+                                           const float* s, float inv, float du[RGROUPS][4]) {
+  float sv[RGROUPS][4];
+  const int lane = threadIdx.x % 32;
+  float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+  for (int q = 0; q < RGROUPS; ++q) {
+    load4(s + q * 128 + lane * 4, sv[q]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float dxh = g[q][t] * sv[q][t];
+      m1 += dxh;
+      m2 += dxh * xhat[q][t];
+    }
+  }
+  m1 = warp_sum(m1) / RN;
+  m2 = warp_sum(m2) / RN;
 #pragma unroll
   for (int q = 0; q < RGROUPS; ++q)
 #pragma unroll
-    for (int t = 0; t < 4; ++t) atomicAdd(red + q * 128 + lane * 4 + t, cs[q][t]);
+    for (int t = 0; t < 4; ++t) du[q][t] = inv * (g[q][t] * sv[q][t] - m1 - xhat[q][t] * m2);
 }
 
-// Step C: dx = acc + du2; LN1 backward
-struct LnBwdEpi {
-  static constexpr bool kColSum = true;
-  const float* du2;
-  const bf16* x1h;
-  const float* s1;
-  const float* g1;
-  bf16* xb;     // bf16(LN1(x1h)): the dW1 operand
-  bf16* dxq;
-  bf16* dlin1;
-  float* ds1;
-  float* dg1;
-  float* dbo;
-  Drop drop;
-  float eps;
-
-  __device__ void operator()(const float* Cs, int m0, int M, float* red) const {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const bool dropout = drop_on(drop);
-    const uint32_t seed = drop_seed(drop);
-    float cs_s[RGROUPS][4] = {}, cs_g[RGROUPS][4] = {}, cs_b[RGROUPS][4] = {};
-    for (int r = warp; r < RBM; r += NT / 32) {
-      const int row = m0 + r;
-      if (row >= M) continue;
-      const size_t rb = (size_t)row * RN;
-      float dx[RGROUPS][4], xhat[RGROUPS][4], s[RGROUPS][4], du[RGROUPS][4];
-      const float inv = row_xhat(x1h + rb, lane, eps, xhat);
-#pragma unroll
-      for (int q = 0; q < RGROUPS; ++q) {
-        const int c = q * 128 + lane * 4;
-        float cv[4], dv[4], gv[4], xv[4];
-        load4(&Cs[r * RLDC + c], cv);
-        load4(du2 + rb + c, dv);
-        load4(s1 + c, s[q]);
-        load4(g1 + c, gv);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          dx[q][t] = cv[t] + dv[t];
-          xv[t] = xhat[q][t] * s[q][t] + gv[t];
-          cs_s[q][t] += dx[q][t] * xhat[q][t];
-          cs_g[q][t] += dx[q][t];
-        }
-        store4(xb + rb + c, xv);
-      }
-      ln_bwd_row(dx, xhat, s, inv, du);
-#pragma unroll
-      for (int q = 0; q < RGROUPS; ++q) {
-        const int c = q * 128 + lane * 4;
-        store4(dxq + rb + c, du[q]);
-        bool keep[4] = {true, true, true, true};
-        if (dropout) drop_keep4(drop, seed, row, c, RN, keep);
-        float dl[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          dl[t] = dropout ? (keep[t] ? du[q][t] * drop.keep_scale : 0.f) : du[q][t];
-          cs_b[q][t] += dl[t];
-        }
-        store4(dlin1 + rb + c, dl);
-      }
-    }
-    add_colsums(red, cs_s, lane);
-    add_colsums(red + RN, cs_g, lane);
-    add_colsums(red + 2 * RN, cs_b, lane);
-    float* const outs[3] = {ds1, dg1, dbo};
-    flush_colsums(red, outs, 3);
-  }
-};
-
-// Step A: a warp per row; du2 = LN2'(g), dlin2 = K_f du2
-__global__ void __launch_bounds__(NT)
-ln2_bwd_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x2h,
-               const float* __restrict__ s2, float* __restrict__ du2, bf16* __restrict__ dlin2,
-               float* ds2, float* dg2, float* db2, Drop drop, int M, float eps) {
-  __shared__ __align__(16) float red[3 * RN];
+// the block's three column sums in a fixed order (warp 0's, then warp
+// 1's added, ...) into part[blockIdx.x][3][768]
+__device__ __forceinline__ void row_colsums(float* red, const float cs[3][RGROUPS][4],
+                                            float* part) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.x * RBM;
-  for (int i = threadIdx.x; i < 3 * RN; i += NT) red[i] = 0.f;
-  const bool dropout = drop_on(drop);
-  const uint32_t seed = drop_seed(drop);
-  float cs_s[RGROUPS][4] = {}, cs_g[RGROUPS][4] = {}, cs_b[RGROUPS][4] = {};
-  for (int r = warp; r < RBM; r += NT / 32) {
-    const int row = m0 + r;
-    if (row >= M) continue;
+  for (int w = 0; w < kRowThreads / 32; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+#pragma unroll
+        for (int q = 0; q < RGROUPS; ++q)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            float* r = red + n * RN + q * 128 + lane * 4 + t;
+            *r = (w == 0 ? 0.f : *r) + cs[n][q][t];
+          }
+    }
+    __syncthreads();
+  }
+  float* out = part + (size_t)blockIdx.x * 3 * RN;
+  for (int i = threadIdx.x; i < 3 * RN; i += kRowThreads) out[i] = red[i];
+}
+
+// F2 / F5: out = bf16(LN(x))
+__global__ void __launch_bounds__(kRowThreads)
+ln_fwd_rows(const bf16* __restrict__ x, const float* __restrict__ s, const float* __restrict__ g,
+            bf16* __restrict__ out, int M, float eps) {
+  const int lane = threadIdx.x % 32, per = kRowThreads / 32;
+  for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
+    float xhat[RGROUPS][4];
+    row_xhat(x + (size_t)row * RN, lane, eps, xhat);
+    ln_store(out + (size_t)row * RN, xhat, s, g, lane);
+  }
+}
+
+// B1: du2 = LN2'(g), dlin2 = K_f du2; partial sums of g xhat, g, dlin2
+__global__ void __launch_bounds__(kRowThreads)
+ln2_bwd_rows(const bf16* __restrict__ g, const bf16* __restrict__ x2h,
+             const float* __restrict__ s2, float* __restrict__ du2, bf16* __restrict__ dlin2,
+             float* __restrict__ part, Drop drop, int M, float eps) {
+  __shared__ __align__(16) float red[3 * RN];
+  const int lane = threadIdx.x % 32, per = kRowThreads / 32;
+  const bool dropout = drop.seed != nullptr;
+  const uint32_t seed = seed_of(drop);
+  float cs[3][RGROUPS][4] = {};
+  for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
     const size_t rb = (size_t)row * RN;
-    float gv[RGROUPS][4], xhat[RGROUPS][4], s[RGROUPS][4], du[RGROUPS][4];
+    float gv[RGROUPS][4], xhat[RGROUPS][4], du[RGROUPS][4];
     const float inv = row_xhat(x2h + rb, lane, eps, xhat);
 #pragma unroll
     for (int q = 0; q < RGROUPS; ++q) {
-      const int c = q * 128 + lane * 4;
-      load4(g + rb + c, gv[q]);
-      load4(s2 + c, s[q]);
+      load4(g + rb + q * 128 + lane * 4, gv[q]);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        cs_s[q][t] += gv[q][t] * xhat[q][t];
-        cs_g[q][t] += gv[q][t];
+        cs[0][q][t] += gv[q][t] * xhat[q][t];
+        cs[1][q][t] += gv[q][t];
       }
     }
-    ln_bwd_row(gv, xhat, s, inv, du);
+    ln_bwd_row(gv, xhat, s2, inv, du);
 #pragma unroll
     for (int q = 0; q < RGROUPS; ++q) {
       const int c = q * 128 + lane * 4;
       store4(du2 + rb + c, du[q]);
       bool keep[4] = {true, true, true, true};
-      if (dropout) drop_keep4(drop, seed, row, c, RN, keep);
+      if (dropout) row_keep4(drop, seed, row, c, keep);
       float dl[4];
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         dl[t] = dropout ? (keep[t] ? du[q][t] * drop.keep_scale : 0.f) : du[q][t];
-        cs_b[q][t] += dl[t];
+        cs[2][q][t] += dl[t];
       }
       store4(dlin2 + rb + c, dl);
     }
   }
-  __syncthreads();
-  add_colsums(red, cs_s, lane);
-  add_colsums(red + RN, cs_g, lane);
-  add_colsums(red + 2 * RN, cs_b, lane);
-  float* const outs[3] = {ds2, dg2, db2};
-  flush_colsums(red, outs, 3);
+  row_colsums(red, cs, part);
 }
 
-}  // namespace gemm
+// B4: LN1 backward from dx (f32): dx_q = du1, dlin1 = K_a du1, xb =
+// bf16(LN1(x1h)); partial sums of dx xhat, dx, dlin1
+__global__ void __launch_bounds__(kRowThreads)
+ln1_bwd_rows(const float* __restrict__ dx, const bf16* __restrict__ x1h,
+             const float* __restrict__ s1, const float* __restrict__ g1, bf16* __restrict__ xb,
+             bf16* __restrict__ dxq, bf16* __restrict__ dlin1, float* __restrict__ part,
+             Drop drop, int M, float eps) {
+  __shared__ __align__(16) float red[3 * RN];
+  const int lane = threadIdx.x % 32, per = kRowThreads / 32;
+  const bool dropout = drop.seed != nullptr;
+  const uint32_t seed = seed_of(drop);
+  float cs[3][RGROUPS][4] = {};
+  for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
+    const size_t rb = (size_t)row * RN;
+    float dv[RGROUPS][4], xhat[RGROUPS][4], du[RGROUPS][4];
+    const float inv = row_xhat(x1h + rb, lane, eps, xhat);
+    ln_store(xb + rb, xhat, s1, g1, lane);
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q) {
+      load4(dx + rb + q * 128 + lane * 4, dv[q]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        cs[0][q][t] += dv[q][t] * xhat[q][t];
+        cs[1][q][t] += dv[q][t];
+      }
+    }
+    ln_bwd_row(dv, xhat, s1, inv, du);
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q) {
+      const int c = q * 128 + lane * 4;
+      store4(dxq + rb + c, du[q]);
+      bool keep[4] = {true, true, true, true};
+      if (dropout) row_keep4(drop, seed, row, c, keep);
+      float dl[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        dl[t] = dropout ? (keep[t] ? du[q][t] * drop.keep_scale : 0.f) : du[q][t];
+        cs[2][q][t] += dl[t];
+      }
+      store4(dlin1 + rb + c, dl);
+    }
+  }
+  row_colsums(red, cs, part);
+}
+
+// ---- B7: partials summed in a fixed order ------------------------------------
+// dst[i] = sum over s < count of src[s * stride + i], i < n (n, stride and
+// the pointers' offsets multiples of 4 floats)
+struct SumJob {
+  const float* src;
+  float* dst;
+  int n, count;
+  long long stride;
+};
+constexpr int kMaxJobs = 10;
+struct SumJobs {
+  SumJob j[kMaxJobs];
+  int n_jobs;
+};
+
+__global__ void __launch_bounds__(256) sum_partials(const SumJobs jobs) {
+  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // a float4 of one job
+#pragma unroll
+  for (int k = 0; k < kMaxJobs; ++k) {
+    if (k >= jobs.n_jobs) return;
+    const SumJob& jb = jobs.j[k];
+    const int units = jb.n / 4;
+    if (idx < units) {
+      const float4* src = reinterpret_cast<const float4*>(jb.src) + idx;
+      float4 s = src[0];
+#pragma unroll 8
+      for (int c = 1; c < jb.count; ++c) {  // the loads issued ahead, the adds in order
+        const float4 v = src[c * (jb.stride / 4)];
+        s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+      }
+      reinterpret_cast<float4*>(jb.dst)[idx] = s;
+      return;
+    }
+    idx -= units;
+  }
+}
+
+}  // namespace bt
 }  // namespace vt
 
-using namespace vt::gemm;
+using namespace vt::bt;
 using vt::bf16;
 
 namespace {
 
-template <class K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
+// check a launch; leave the entry point with its error
+#define VT_TRY(expr)                          \
+  do {                                        \
+    const cudaError_t e_ = (expr);            \
+    if (e_ != cudaSuccess) return (int)e_;    \
+  } while (0)
 
-// the split of the R rows for a weight-gradient product with `tiles`
-// output tiles: about four waves of 132 SMs, chunks a multiple of GBK
-int row_chunk(int rows, int tiles) {
-  const int splits = max(1, min((rows + 255) / 256, (4 * 132 + tiles - 1) / tiles));
-  const int chunk = (rows + splits - 1) / splits;
-  return (chunk + GBK - 1) / GBK * GBK;
-}
-
-// dW [n_out, n_in] += A^T B, A [rows, n_out], B [rows, n_in]
-cudaError_t weight_grad(const bf16* a, const bf16* b, float* dw, int rows, int n_out, int n_in,
-                        cudaStream_t st) {
-  auto kernel = tile_gemm_kernel<true, true, AtomicEpi>;
-  cudaError_t err = allow_smem(kernel, kTileSmem);
-  if (err != cudaSuccess) return err;
-  const int tiles = (n_out / GBM) * (n_in / GBN);
-  const int chunk = row_chunk(rows, tiles);
-  const dim3 grid(n_in / GBN, n_out / GBM, (rows + chunk - 1) / chunk);
-  kernel<<<grid, NT, kTileSmem, st>>>(a, b, n_out, n_in, rows, chunk, AtomicEpi{dw, n_in});
-  return cudaGetLastError();
+bool widths_ok(int rows, int d, int m) {
+  return d == RN && m % vt::g90::kBN == 0 && rows > 0;
 }
 
 }  // namespace
@@ -302,8 +469,8 @@ cudaError_t weight_grad(const bf16* a, const bf16* b, float* dw, int rows, int n
 // #9a.  x_q, ctx [rows, d] bf16; wo [d, d], w1 [m, d], w2 [d, m] bf16;
 // bo, s1, g1, b1, b2, s2, g2 f32.  Dropout: seed (int64 [1] on the device),
 // or null (rate 0); mask_a_out / mask_f_out (nullable) receive the drawn
-// int8 keep masks [rows, d].  Outputs y, x1h, x2h [rows, d], pre1, h [rows, m] bf16; scratch
-// xb [rows, d] bf16.
+// int8 keep masks [rows, d].  Outputs y, x1h, x2h [rows, d], pre1, h
+// [rows, m] bf16; scratch xb [rows, d] bf16 (bf16(LN1(x1h))).
 extern "C" int vt_block_train_fwd(const void* x_q, const void* ctx, const void* wo,
                                   const void* bo, const void* s1, const void* g1, const void* w1,
                                   const void* b1, const void* w2, const void* b2, const void* s2,
@@ -312,42 +479,39 @@ extern "C" int vt_block_train_fwd(const void* x_q, const void* ctx, const void* 
                                   void* y, void* x1h, void* pre1, void* h, void* x2h, void* xb,
                                   int rows, int d, int m, unsigned int threshold,
                                   float keep_scale, float eps, void* stream) {
-  if (d != RN || m % GBN != 0 || rows <= 0) return (int)cudaErrorInvalidValue;
+  if (!widths_ok(rows, d, m)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto row_kernel = row_gemm_kernel<false, LnFwdEpi>;
-  auto gelu_kernel = tile_gemm_kernel<false, false, GeluEpi>;
-  constexpr int row_bytes = row_smem<LnFwdEpi>();
-  cudaError_t err = allow_smem(row_kernel, row_bytes);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(gelu_kernel, kTileSmem);
-  if (err != cudaSuccess) return (int)err;
   const Drop drop_a = {(const int64_t*)seed, (int8_t*)mask_a_out, 1u, threshold, keep_scale};
   const Drop drop_f = {(const int64_t*)seed, (int8_t*)mask_f_out, 2u, threshold, keep_scale};
-  const int row_blocks = (rows + RBM - 1) / RBM;
+  const int per = kRowThreads / 32;
+  const int row_blocks = min((rows + per - 1) / per, 2 * 132);
 
-  LnFwdEpi ln1 = {(const float*)bo, (const bf16*)x_q, nullptr, (const float*)s1,
-                  (const float*)g1, nullptr, nullptr, (bf16*)xb, (bf16*)x1h, drop_a, eps};
-  row_kernel<<<row_blocks, NT, row_bytes, st>>>((const bf16*)ctx, (const bf16*)wo, rows, d, ln1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 ggrid(m / GBN, (rows + GBM - 1) / GBM, 1);
-  GeluEpi gelu = {(const float*)b1, (bf16*)pre1, (bf16*)h, m};
-  gelu_kernel<<<ggrid, NT, kTileSmem, st>>>((const bf16*)xb, (const bf16*)w1, rows, m, d, d, gelu);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  LnFwdEpi ln2 = {(const float*)b2, (const bf16*)xb, nullptr, (const float*)s2,
-                  (const float*)g2, nullptr, nullptr, (bf16*)y, (bf16*)x2h, drop_f, eps};
-  row_kernel<<<row_blocks, NT, row_bytes, st>>>((const bf16*)h, (const bf16*)w2, rows, m, ln2);
+  VT_TRY((launch_gemm<false, false>(one((const bf16*)ctx, d, (const bf16*)wo, d, rows, d, d),
+                             ResidDropEpi{(const float*)bo, (const bf16*)x_q, (bf16*)x1h, drop_a},
+                             st)));
+  ln_fwd_rows<<<row_blocks, kRowThreads, 0, st>>>((const bf16*)x1h, (const float*)s1,
+                                                  (const float*)g1, (bf16*)xb, rows, eps);
+  VT_TRY(cudaGetLastError());
+  VT_TRY((launch_gemm<false, false>(one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),
+                             GeluEpi{(const float*)b1, (bf16*)pre1, (bf16*)h}, st)));
+  VT_TRY((launch_gemm<false, false>(one((const bf16*)h, m, (const bf16*)w2, m, rows, d, m),
+                             ResidDropEpi{(const float*)b2, (const bf16*)xb, (bf16*)x2h, drop_f},
+                             st)));
+  ln_fwd_rows<<<row_blocks, kRowThreads, 0, st>>>((const bf16*)x2h, (const float*)s2,
+                                                  (const float*)g2, (bf16*)y, rows, eps);
   return (int)cudaGetLastError();
 }
 
 // #9b.  g, ctx, x1h, x2h [rows, d], pre1, h [rows, m] bf16; weights and
-// LayerNorm vectors as in the forward; the dropout seed as in the forward.  Outputs dxq, dctx [rows, d] bf16; dwo [d, d], dw1 [m, d],
-// dw2 [d, m], dbo, ds1, dg1, db2, ds2, dg2 [d], db1 [m] f32 (zeroed here).
+// LayerNorm vectors as in the forward; the dropout seed as in the forward.
+// Outputs dxq, dctx [rows, d] bf16; dwo [d, d], dw1 [m, d], dw2 [d, m],
+// dbo, ds1, dg1, db2, ds2, dg2 [d], db1 [m] f32 (every element written).
 // Scratch: du2 [rows, d] f32; dlin2, xb, dlin1 [rows, d] and dpre
-// [rows, m] bf16.
+// [rows, m] bf16; col_part f32 [2 * row_blocks * 3 * d + m_tiles * m]
+// (the column sums' partials); w_part f32 [splits * (d * d + 2 * m * d)]
+// (the weight gradients' partials; unused with one split).  The plan
+// (ops/block_train.launch_plan): row_blocks, the row passes' grid, and
+// k_chunk, the rows of one split of the weight gradients (a multiple of 64).
 extern "C" int vt_block_train_bwd(const void* g, const void* ctx, const void* x1h,
                                   const void* pre1, const void* h, const void* x2h,
                                   const void* wo, const void* w1, const void* w2, const void* s1,
@@ -356,62 +520,78 @@ extern "C" int vt_block_train_bwd(const void* g, const void* ctx, const void* x1
                                   void* dwo, void* dbo, void* ds1, void* dg1, void* dw1,
                                   void* db1, void* dw2, void* db2, void* ds2, void* dg2,
                                   void* du2, void* dlin2, void* dpre, void* xb, void* dlin1,
+                                  void* col_part, void* w_part, int row_blocks, int k_chunk,
                                   int rows, int d, int m, unsigned int threshold,
                                   float keep_scale, float eps, void* stream) {
-  if (d != RN || m % GBN != 0 || rows <= 0) return (int)cudaErrorInvalidValue;
+  if (!widths_ok(rows, d, m) || row_blocks <= 0 || k_chunk <= 0 || k_chunk % vt::g90::kBK)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  const size_t fd = sizeof(float) * d;
-  for (void* p : {dbo, ds1, dg1, db2, ds2, dg2}) {
-    err = cudaMemsetAsync(p, 0, fd, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if ((err = cudaMemsetAsync(db1, 0, sizeof(float) * m, st)) != cudaSuccess) return (int)err;
-  if ((err = cudaMemsetAsync(dwo, 0, fd * d, st)) != cudaSuccess) return (int)err;
-  if ((err = cudaMemsetAsync(dw1, 0, fd * m, st)) != cudaSuccess) return (int)err;
-  if ((err = cudaMemsetAsync(dw2, 0, fd * m, st)) != cudaSuccess) return (int)err;
   const Drop drop_a = {(const int64_t*)seed, nullptr, 1u, threshold, keep_scale};
   const Drop drop_f = {(const int64_t*)seed, nullptr, 2u, threshold, keep_scale};
-  const int row_blocks = (rows + RBM - 1) / RBM;
+  const int m_tiles = (rows + vt::g90::kBM - 1) / vt::g90::kBM;
+  float* ln2_part = (float*)col_part;
+  float* ln1_part = ln2_part + (size_t)row_blocks * 3 * d;
+  float* db1_part = ln1_part + (size_t)row_blocks * 3 * d;
 
-  // A. LN2 backward and the FFN dropout
-  ln2_bwd_kernel<<<row_blocks, NT, 0, st>>>((const bf16*)g, (const bf16*)x2h, (const float*)s2,
-                                            (float*)du2, (bf16*)dlin2, (float*)ds2, (float*)dg2,
-                                            (float*)db2, drop_f, rows, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // B1. LN2 backward and the FFN dropout
+  ln2_bwd_rows<<<row_blocks, kRowThreads, 0, st>>>((const bf16*)g, (const bf16*)x2h,
+                                                   (const float*)s2, (float*)du2, (bf16*)dlin2,
+                                                   ln2_part, drop_f, rows, eps);
+  VT_TRY(cudaGetLastError());
+  // B2. dpre = (dlin2 W2) gelu'(pre1); db1's partials
+  VT_TRY((launch_gemm<false, true>(one((const bf16*)dlin2, d, (const bf16*)w2, m, rows, m, d),
+                            GeluGradEpi{(const bf16*)pre1, (bf16*)dpre, db1_part}, st)));
+  // B3. dx = du2 + dpre W1
+  VT_TRY((launch_gemm<false, true>(one((const bf16*)dpre, m, (const bf16*)w1, d, rows, d, m),
+                            AddF32Epi{(float*)du2}, st)));
+  // B4. LN1 backward and the attention-output dropout
+  ln1_bwd_rows<<<row_blocks, kRowThreads, 0, st>>>(
+      (const float*)du2, (const bf16*)x1h, (const float*)s1, (const float*)g1, (bf16*)xb,
+      (bf16*)dxq, (bf16*)dlin1, ln1_part, drop_a, rows, eps);
+  VT_TRY(cudaGetLastError());
+  // B5. dctx = dlin1 Wo
+  VT_TRY((launch_gemm<false, true>(one((const bf16*)dlin1, d, (const bf16*)wo, d, rows, d, d),
+                            StoreEpi{(bf16*)dctx}, st)));
 
-  // B. dpre = (dlin2 W2) * gelu'(pre1); db1
-  auto dh_kernel = tile_gemm_kernel<false, true, GeluGradEpi>;
-  if ((err = allow_smem(dh_kernel, kTileSmem)) != cudaSuccess) return (int)err;
-  const dim3 gm(m / GBN, (rows + GBM - 1) / GBM, 1);
-  dh_kernel<<<gm, NT, kTileSmem, st>>>((const bf16*)dlin2, (const bf16*)w2, rows, m, d, d,
-                                       GeluGradEpi{(const bf16*)pre1, (bf16*)dpre, (float*)db1, m});
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // B6. the weight gradients, reduced over the rows in splits of k_chunk
+  const int splits = (rows + k_chunk - 1) / k_chunk;
+  const size_t n_o = (size_t)d * d, n_1 = (size_t)m * d, n_2 = (size_t)d * m;
+  float* part_o = splits > 1 ? (float*)w_part : (float*)dwo;
+  float* part_1 = splits > 1 ? part_o + splits * n_o : (float*)dw1;
+  float* part_2 = splits > 1 ? part_1 + splits * n_1 : (float*)dw2;
+  vt::g90::GemmArgs wg = {};
+  const bf16* a_of[3] = {(const bf16*)dlin1, (const bf16*)dpre, (const bf16*)dlin2};
+  const bf16* b_of[3] = {(const bf16*)ctx, (const bf16*)xb, (const bf16*)h};
+  const int out_of[3] = {d, m, d}, in_of[3] = {d, d, m};
+  for (int p = 0; p < 3; ++p) {
+    wg.p[p] = vt::g90::make_problem({a_of[p], out_of[p]}, {b_of[p], in_of[p]}, out_of[p],
+                                    in_of[p], rows, k_chunk, wg.items);
+    wg.items += vt::g90::items_of(wg.p[p]);
+  }
+  wg.n_problems = 3;
+  const size_t stride = splits > 1 ? 1 : 0;
+  VT_TRY((launch_gemm<true, true>(
+      wg, PartialEpi{{part_o, part_1, part_2}, {stride * n_o, stride * n_1, stride * n_2}}, st)));
 
-  // C. dx = du2 + dpre W1; LN1 backward, the attention-output dropout
-  auto dx_kernel = row_gemm_kernel<true, LnBwdEpi>;
-  constexpr int dx_bytes = row_smem<LnBwdEpi>();
-  if ((err = allow_smem(dx_kernel, dx_bytes)) != cudaSuccess) return (int)err;
-  LnBwdEpi ln1 = {(const float*)du2, (const bf16*)x1h, (const float*)s1, (const float*)g1,
-                  (bf16*)xb, (bf16*)dxq, (bf16*)dlin1, (float*)ds1, (float*)dg1, (float*)dbo,
-                  drop_a, eps};
-  dx_kernel<<<row_blocks, NT, dx_bytes, st>>>((const bf16*)dpre, (const bf16*)w1, rows, m, ln1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  // D. dctx = dlin1 Wo
-  auto dctx_kernel = tile_gemm_kernel<false, true, StoreEpi>;
-  if ((err = allow_smem(dctx_kernel, kTileSmem)) != cudaSuccess) return (int)err;
-  const dim3 gd(d / GBN, (rows + GBM - 1) / GBM, 1);
-  dctx_kernel<<<gd, NT, kTileSmem, st>>>((const bf16*)dlin1, (const bf16*)wo, rows, d, d, d,
-                                         StoreEpi{(bf16*)dctx, d});
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  // E. weight gradients, reduced over the rows
-  if ((err = weight_grad((const bf16*)dlin1, (const bf16*)ctx, (float*)dwo, rows, d, d, st)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = weight_grad((const bf16*)dpre, (const bf16*)xb, (float*)dw1, rows, m, d, st)) !=
-      cudaSuccess)
-    return (int)err;
-  return (int)weight_grad((const bf16*)dlin2, (const bf16*)h, (float*)dw2, rows, d, m, st);
+  // B7. every partial summed in order
+  SumJobs jobs = {};
+  auto add = [&](const float* src, void* dst, int n, int count, long long stride_) {
+    jobs.j[jobs.n_jobs++] = {src, (float*)dst, n, count, stride_};
+  };
+  if (splits > 1) {
+    add(part_o, dwo, (int)n_o, splits, (long long)n_o);
+    add(part_1, dw1, (int)n_1, splits, (long long)n_1);
+    add(part_2, dw2, (int)n_2, splits, (long long)n_2);
+  }
+  void* const ln2_out[3] = {ds2, dg2, db2};
+  void* const ln1_out[3] = {ds1, dg1, dbo};
+  for (int n = 0; n < 3; ++n) {
+    add(ln2_part + n * d, ln2_out[n], d, row_blocks, 3LL * d);
+    add(ln1_part + n * d, ln1_out[n], d, row_blocks, 3LL * d);
+  }
+  add(db1_part, db1, m, m_tiles, m);
+  long long units = 0;
+  for (int k = 0; k < jobs.n_jobs; ++k) units += jobs.j[k].n / 4;
+  sum_partials<<<(unsigned)((units + 255) / 256), 256, 0, st>>>(jobs);
+  return (int)cudaGetLastError();
 }

@@ -17,7 +17,7 @@
 // above the bf16 ridge, so the tensor cores bound it.
 //
 // Design (first version): three launches of the GEMM tiles in
-// block_gemm.cuh (shared with the training block, block_train.cu).
+// block_gemm.cuh (shared with the ViT FFN, fused_ffn.cu).
 //  1. row_gemm_kernel: a block owns 32 full rows of the 768-wide output,
 //     runs ctx Wo^T with nvcuda::wmma bf16 (f32 accumulate), then adds bias
 //     and residual and applies LayerNorm in the epilogue from shared
@@ -28,7 +28,8 @@
 //     optional res + tanh(bf16(.)) epilogue.
 // The gelu intermediate does round-trip device memory (2 * 56.6 MB at the
 // serving shape); keeping it on-chip (chunk over M with an f32 [tile, 768]
-// accumulator) is the next step, as are cp.async/TMA pipelining and wgmma.
+// accumulator) is the next step, as is moving the products to the wgmma
+// body of gemm_sm90.cuh (the training block's).
 #include "block_gemm.cuh"
 
 // x_q, ctx, res: [rows, d] bf16 (res nullable: plain block without the tanh
@@ -44,31 +45,30 @@ extern "C" int vt_fused_block(const void* x_q, const void* ctx, const void* wo, 
   using vt::bf16;
   if (d != RN || m % GBN != 0 || rows <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto row_kernel = row_gemm_kernel<false, LnFwdEpi>;
-  auto gelu_kernel = tile_gemm_kernel<false, false, GeluEpi>;
-  constexpr int row_bytes = row_smem<LnFwdEpi>();
+  auto row_kernel = row_gemm_kernel<LnFwdEpi>;
+  auto gelu_kernel = tile_gemm_kernel<GeluEpi>;
+  constexpr int row_bytes = kRowSmem;
   cudaError_t err =
       cudaFuncSetAttribute(row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, row_bytes);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
   if (err != cudaSuccess) return (int)err;
-  const Drop none = {nullptr, nullptr, 0u, 0u, 1.f};
 
   const int row_blocks = (rows + RBM - 1) / RBM;
   LnFwdEpi ln1 = {(const float*)bo, (const bf16*)x_q, nullptr, (const float*)s1,
-                  (const float*)g1, nullptr, (float*)x32, (bf16*)xb, nullptr, none, eps};
+                  (const float*)g1, nullptr, (float*)x32, (bf16*)xb, eps};
   row_kernel<<<row_blocks, NT, row_bytes, st>>>((const bf16*)ctx, (const bf16*)wo, rows, d, ln1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const dim3 ggrid(m / GBN, (rows + GBM - 1) / GBM, 1);
-  GeluEpi gelu = {(const float*)b1, nullptr, (bf16*)h, m};
-  gelu_kernel<<<ggrid, NT, kTileSmem, st>>>((const bf16*)xb, (const bf16*)w1, rows, m, d, d, gelu);
+  GeluEpi gelu = {(const float*)b1, (bf16*)h, m};
+  gelu_kernel<<<ggrid, NT, kTileSmem, st>>>((const bf16*)xb, (const bf16*)w1, rows, m, d, gelu);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   LnFwdEpi ln2 = {(const float*)b2, nullptr, (const float*)x32, (const float*)s2,
-                  (const float*)g2, (const bf16*)res, nullptr, (bf16*)out, nullptr, none, eps};
+                  (const float*)g2, (const bf16*)res, nullptr, (bf16*)out, eps};
   row_kernel<<<row_blocks, NT, row_bytes, st>>>((const bf16*)h, (const bf16*)w2, rows, m, ln2);
   return (int)cudaGetLastError();
 }

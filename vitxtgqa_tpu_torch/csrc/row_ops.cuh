@@ -1,0 +1,76 @@
+// Row helpers shared by the post-attention block kernels: the eval
+// block's and the FFN's tiles (block_gemm.cuh), the W8A8 block
+// (fused_block_w8a8.cu) and the training block's row passes
+// (block_train.cu): four-wide vector loads and stores, the erf gelu and
+// its derivative, and the LayerNorm statistics of a 768-wide row held by
+// one warp (a lane on four consecutive columns in each of six 128-column
+// groups).
+#pragma once
+
+#include "common.cuh"
+
+namespace vt {
+namespace gemm {
+
+constexpr int RN = 768;            // the row width (the hidden size)
+constexpr int RGROUPS = RN / 128;  // a lane's four-column groups per row
+
+// ---- small vector helpers -------------------------------------------------
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const bf16* p, float v[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const bf16* b = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) v[t] = __bfloat162float(b[t]);
+}
+
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float v[4]) {
+  __align__(8) bf16 b[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) b[t] = __float2bfloat16(v[t]);
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(b);
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return x * 0.5f * (1.0f + erff(x * 0.7071067811865476f));
+}
+
+// d/dx gelu(x) = Phi(x) + x phi(x)
+__device__ __forceinline__ float gelu_erf_grad(float x) {
+  return 0.5f * (1.0f + erff(x * 0.7071067811865476f)) +
+         x * expf(-0.5f * x * x) * 0.3989422804014327f;
+}
+
+// LayerNorm statistics of one row held as RGROUPS x 4 values per lane
+struct RowStats {
+  float mu, inv;
+};
+
+__device__ __forceinline__ RowStats row_stats(const float x[RGROUPS][4], float eps) {
+  float s = 0.f;
+#pragma unroll
+  for (int g = 0; g < RGROUPS; ++g)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) s += x[g][t];
+  const float mu = warp_sum(s) / RN;
+  float v = 0.f;
+#pragma unroll
+  for (int g = 0; g < RGROUPS; ++g)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float d = x[g][t] - mu;
+      v += d * d;
+    }
+  return {mu, rsqrtf(warp_sum(v) / RN + eps)};
+}
+
+}  // namespace gemm
+}  // namespace vt

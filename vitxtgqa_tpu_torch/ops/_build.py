@@ -61,9 +61,10 @@ _SIGNATURES = {
     # x2h, xb; rows, d, m; threshold; keep_scale, eps; stream
     "vt_block_train_fwd": [_P] * 21 + [_I] * 3 + [_U, _F, _F, _P],
     # g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, seed, 12
-    # gradients, 5 scratch buffers; rows, d, m; threshold; keep_scale, eps;
+    # gradients, 7 scratch buffers; row_blocks, k_chunk (the plan of
+    # ops/block_train.launch_plan); rows, d, m; threshold; keep_scale, eps;
     # stream
-    "vt_block_train_bwd": [_P] * 30 + [_I] * 3 + [_U, _F, _F, _P],
+    "vt_block_train_bwd": [_P] * 32 + [_I] * 5 + [_U, _F, _F, _P],
     # x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, res, x32, xb, h, out;
     # rows, d, m; eps; stream
     "vt_fused_block": [_P] * 17 + [_I] * 3 + [_F, _P],

@@ -9,7 +9,9 @@ LayerNorm gradient in one call.  The CUDA kernels are csrc/block_train.cu.
 Weights are in nn.Linear layout ([out, in]); biases and LayerNorm vectors
 are taken in float32; weight gradients come back float32 in the same
 layout.  On a CUDA tensor a wrapper launches its kernel (or raises); on a
-CPU tensor it runs the plain version.
+CPU tensor it runs the plain version.  ``launch_plan`` cuts the backward's
+reductions over the rows (the LayerNorm row passes' grid, the weight
+gradients' split of the rows) and sizes their scratch.
 
 Dropout: the kernels take a seed (an int64 [1] tensor) and draw the two
 masks in-kernel: the Philox bits of element (row, col) of the [rows, d]
@@ -22,7 +24,7 @@ a wrapper runs its plain version, it materialises the seed's masks for it
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +33,45 @@ from vitxtgqa_tpu_torch.ops import dropout as D
 from vitxtgqa_tpu_torch.ops.fused_block import LANE, gelu_erf
 
 GRAD_NAMES = ("x_q", "ctx", "wo", "bo", "s1", "g1", "w1", "b1", "w2", "b2", "s2", "g2")
+
+# csrc/block_train.cu's constants: the GEMM tile's rows and columns and
+# its K step (gemm_sm90.cuh), the LayerNorm row passes' rows a block (a
+# warp a row) and their grid's cap (two blocks on each of the H100's 132
+# SMs); then the weight gradients' split of the rows: at most MAX_SPLITS
+# splits of at least SPLIT_ROWS rows, so that their one launch fills the
+# card at the training shape (162 tiles of 128 x 256 x 4 splits: ~4.9
+# waves of 132 blocks)
+TILE_M, TILE_N, K_STEP = 128, 256, 64
+ROWS_PER_BLOCK, ROW_BLOCKS_MAX = 8, 2 * 132
+MAX_SPLITS, SPLIT_ROWS = 4, 2048
+
+
+class BlockPlan(NamedTuple):
+    m_tiles: int      # 128-row tiles of the activation products
+    row_blocks: int   # blocks of the LayerNorm row passes, one column-sum partial each
+    k_chunk: int      # rows of one split of the weight gradients (a multiple of K_STEP)
+    splits: int       # splits of the rows; the last holds rows - (splits - 1) * k_chunk
+    col_floats: int   # f32 scratch of the column-sum partials
+    w_floats: int     # f32 scratch of the weight-gradient partials (0 with one split)
+
+
+def launch_plan(rows: int, d: int = 768, m: int = 3072) -> BlockPlan:
+    """The backward's cut of its ``rows``: the row passes' grid (each
+    block's warps take rows blockIdx * 8 + warp, then every row_blocks * 8
+    further) and the weight gradients' split of the rows, with the scratch
+    that csrc/block_train.cu's vt_block_train_bwd reads them from: per row
+    pass and block three [d] column sums (LN2: ds2, dg2, db2; LN1: ds1,
+    dg1, dbo), per 128-row tile db1's [m], and per split the three f32
+    weight-gradient partials."""
+    if rows <= 0:
+        raise ValueError(f"block_train: {rows} rows")
+    m_tiles = -(-rows // TILE_M)
+    row_blocks = min(-(-rows // ROWS_PER_BLOCK), ROW_BLOCKS_MAX)
+    splits = max(1, min(MAX_SPLITS, rows // SPLIT_ROWS))
+    k_chunk = -(-(-(-rows // splits)) // K_STEP) * K_STEP
+    splits = -(-rows // k_chunk)
+    return BlockPlan(m_tiles, row_blocks, k_chunk, splits, 2 * row_blocks * 3 * d + m_tiles * m,
+                     splits * (d * d + 2 * m * d) if splits > 1 else 0)
 
 
 def kernel_ok(d: int, m: int) -> bool:
@@ -160,9 +201,10 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _check_widths(name, d, m):
-    if d != 768 or m % LANE:
+    if d != 768 or m % TILE_N:
         raise NotImplementedError(
-            f"{name} kernel: hidden 768 and a lane-aligned FFN width only, got d={d}, m={m}")
+            f"{name} kernel: hidden 768 and an FFN width a multiple of {TILE_N} (the GEMM "
+            f"tile's columns) only, got d={d}, m={m}")
 
 
 def block_train_fwd(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate: float = 0.0,
@@ -243,6 +285,8 @@ def block_train_bwd(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, rate: flo
     du2 = new(rows, d)
     dlin2, xb, dlin1 = new(rows, d, dt=bf), new(rows, d, dt=bf), new(rows, d, dt=bf)
     dpre = new(rows, m, dt=bf)
+    plan = launch_plan(rows, d, m)
+    col_part, w_part = new(plan.col_floats), new(max(plan.w_floats, 4))
     with torch.cuda.device(dev):
         err = _build.lib().vt_block_train_bwd(
             g.data_ptr(), ctx.data_ptr(), x1h.data_ptr(), pre1.data_ptr(), h.data_ptr(),
@@ -251,6 +295,7 @@ def block_train_bwd(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, rate: flo
             dwo.data_ptr(), dbo.data_ptr(), ds1.data_ptr(), dg1.data_ptr(), dw1.data_ptr(),
             db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ds2.data_ptr(), dg2.data_ptr(),
             du2.data_ptr(), dlin2.data_ptr(), dpre.data_ptr(), xb.data_ptr(), dlin1.data_ptr(),
+            col_part.data_ptr(), w_part.data_ptr(), plan.row_blocks, plan.k_chunk,
             rows, d, m, thr, ks, float(eps), _build.stream_of(g),
         )
     _build.check(err, "block_train_bwd")

@@ -33,9 +33,9 @@ TOP = 12
 GROUPS = (
     ("#1 flash forward", ("flash_fwd_kernel",)),
     ("#1b flash backward", ("flash_bwd_",)),
-    ("#9a block forward", ("LnFwdEpi", "GeluEpi")),
-    ("#9b block backward", ("ln2_bwd_kernel", "LnBwdEpi", "GeluGradEpi", "StoreEpi",
-                            "AtomicEpi")),
+    ("#9a block forward", ("ResidDropEpi", "GeluEpi", "ln_fwd_rows")),
+    ("#9b block backward", ("ln2_bwd_rows", "ln1_bwd_rows", "GeluGradEpi", "AddF32Epi",
+                            "StoreEpi", "PartialEpi", "sum_partials")),
     ("cuBLAS products", ("gemm", "gemv", "xmma", "cutlass", "nvjet")),
 )
 
