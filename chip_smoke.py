@@ -39,13 +39,19 @@ Phases (each prints one or more lines; any failure exits non-zero):
      55,296 rows (QTV, MMT), 960 (text BERT) and the ragged 1,000 and
      9,000, rate 0 and 0.1, against the twins on the same inputs, its
      emitted masks equal to the twin's and two backward calls equal bit
-     for bit, timed at 55,296 and 960.  The serving
+     for bit, timed at 55,296 and 960, and again at the FFN width 3,200
+     (narrow GEMM tiles) at 4,608 and 1,000 rows.  The eval block and its
+     tanh form (check_eval_block: EVAL_BLOCK_CASES) at 9,216, 2,304,
+     3,072 and the ragged 2,100 rows, at the FFN width 3,200, and with an
+     LN1 output at 64 + O(1) that an f32 second residual must keep.  The serving
      modes' kernels: the W8A8 block at 9,216 and 3,072 rows (its ctx
      quantization bit for bit), the int8-emitting flash forward at [8,
      1152, 768] (its int8 cache and scales bit for bit, #1 timed on the
      same inputs), the int8 pointer scores at [8, 1, 768] x [8, 960, 768],
-     and the decode step again at the compact cache length 384.  The ViT's kernels: the fused FFN at ViT-L/16's 12,608
-     rows and ViT-B/32's 3,200, the bias-tensor attention on split-head
+     and the decode step again at the compact cache length 384.  The
+     ViT's kernels: the fused FFN (check_ffn: FFN_CASES) at ViT-L/16's
+     12,608 rows, ViT-B/32's 3,200, ViT-L/16 384 px's 4,616 and at widths
+     of 1,152, the bias-tensor attention on split-head
      views with no bias and with a per-row bias at [8, 16, 577, 64] (577
      query rows and keys: a last key tile of one key) and with the key-mask
      and the prefix-LM bias at [8, 12, 1152, 64].  The sequence-parallel kernels:
@@ -274,6 +280,25 @@ TRAIN_BATCH = 48        # configs/t2s_abinet.yml training_parameters.batch_size
 # gradients' reduction) and 9,000 (a last tile of 40 rows; four splits of
 # the rows, the last of 2,088: ops/block_train.launch_plan)
 BLOCK_RAGGED_ROWS = (1000, 9000)
+# ... and at the FFN width 3,200, no multiple of 256: every product of a
+# launch over it takes the narrow 128-column tile (ops/gemm_sm90.py)
+BLOCK_NARROW_M, BLOCK_NARROW_ROWS = 3200, (4608, 1000)
+# the eval block (#2, #3), (rows, FFN width, LN1 shift): the serving
+# batch's 9,216 rows (the kernels' record), batch 2's 2,304, the compact
+# MMT's 3,072 (384 rows a video at batch 8), a ragged 2,100 (a last
+# 128-row tile of 52 rows) at the FFN width 3,200 (narrow tiles), and
+# 2,100 rows whose LN1 output sits at 64 + O(1) under a weak FFN (W2 at a
+# tenth of the scale): there a kernel that rounded x to bf16 before the
+# second residual, where the Pallas kernel keeps it in f32, would move the
+# output by up to half a bf16 step at 64 (0.25) over an O(1) spread
+EVAL_BLOCK_CASES = ((9216, 3072, 0.0), (2304, 3072, 0.0), (3072, 3072, 0.0), (2100, 3200, 0.0),
+                    (2100, 3072, 64.0))
+# the ViT FFN (#13), (rows, d, m, d2, label): ViT-L/16's chunk of 64
+# frames at 224 px (the kernel's record), ViT-B/32's, ViT-L/16 at 384 px
+# and batch 8 (4,616 rows: a last 128-row tile of 8), and ragged rows at
+# FFN and output widths of 1,152, no multiple of 256 (narrow tiles)
+FFN_CASES = ((64 * 197, 1024, 4096, 1024, "ViT-L/16"), (64 * 50, 768, 3072, 768, "ViT-B/32"),
+             (8 * 577, 1024, 4096, 1024, "ViT-L/16 384 px"), (2100, 768, 1152, 1152, "narrow"))
 TRAIN_STEPS = 4         # the first is a warm-up; >= 3 are timed
 # slice j: the extractor's default chunk (tools/video_feat/obtain_vit_feat.py
 # --batch) and the timed forwards.  The CLS features are final-LayerNorm
@@ -867,11 +892,10 @@ def check_kernels(dev, record):
     from vitxtgqa_tpu_torch.ops import decode_attention as DA
     from vitxtgqa_tpu_torch.ops import decode_step as DS
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
-    from vitxtgqa_tpu_torch.ops import fused_block as FB
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf = torch.bfloat16
     rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
-    h, l, d, m = 12, L_JOINT, 768, 3072
+    h, l, d = 12, L_JOINT, 768
     mask, ocr_mask = serving_masks(dev)
 
     # 1. flash attention, dec_len 0 (QTV / MMT encode) and 12 (full-eval)
@@ -907,28 +931,12 @@ def check_kernels(dev, record):
             report(record, "flash_attention_merged", (got.float() - want.float()).abs().max().item(),
                    extra=f" [8,1152,768] dec_len={dec_len}, {label}")
 
-    # 2. fused block and its tanh form, rows 9216, 768 -> 3072
-    x_q, ctx, res = rn(BATCH, l, d), rn(BATCH, l, d, scale=0.5), rn(BATCH, l, d)
-    wo, w1, w2 = rn(d, d, scale=0.02), rn(m, d, scale=0.02), rn(d, m, scale=0.02)
-    vec = lambda n, base=0.0: (base + torch.randn(n, generator=gen, device=dev) * 0.05).float()
-    pv = (wo, vec(d), vec(d, 1.0), vec(d), w1, vec(m), w2, vec(d), vec(d, 1.0), vec(d))
-    args = (x_q, ctx) + pv
-    rows = BATCH * l
-    for name, fn, plain, a, n_in in (
-        ("fused_block", FB.fused_block, FB.fused_block_plain, args, nbytes(x_q, ctx)),
-        ("fused_block_tanh", FB.fused_block_tanh, FB.fused_block_tanh_plain, (res,) + args,
-         nbytes(x_q, ctx, res)),
-    ):
-        got, want = fn(*a), plain(*a)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        report(record, name, err, " [9216,768]->3072", ms=cuda_time_ms(lambda: fn(*a)),
-               plain_ms=cuda_time_ms(lambda: plain(*a)),
-               bound=block_bound(rows, d, m, n_in, nbytes(got), nbytes(wo, w1, w2),
-                                 nbytes(*pv[1:4], pv[5], *pv[7:])))
+    # 2. fused block and its tanh form (check_eval_block)
+    eval_block = check_eval_block(dev, record)
 
     # 3-4. the decode attention, int8 and bf16 cache (check_decode_attention)
     details = check_decode_attention(dev, record)
+    details["eval_block"] = eval_block
 
     # 5. the single-kernel decode step over 3 MMT layers, batch 1 / 2 / 8,
     # its attention planted (decode_step_cache)
@@ -978,9 +986,61 @@ def check_kernels(dev, record):
                   flush=True)
         report(record, "fused_epilogue", err, extra=f" [{b},1,768] -> [{b},1,{v_p + n_ocr}]",
                **timed)
-    del q, k, v, x_q, ctx, res
+    del q, k, v
     torch.cuda.empty_cache()
     return details
+
+
+def check_eval_block(dev, record, cases=EVAL_BLOCK_CASES, d: int = 768, timed: bool = True):
+    """The eval block (#2) and its tanh form (#3) against their twins at
+    each (rows, FFN width, LN1 shift) of ``cases`` (EVAL_BLOCK_CASES), the
+    weights and inputs from one seed; with ``timed``, each case's kernel
+    and twin times and bound, the first case's kept as the kernels'
+    record.  Returns {case: {kernel: times}}."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import fused_block as FB
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    bf = torch.bfloat16
+    rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
+    vec = lambda n, base=0.0: (base + torch.randn(n, generator=gen, device=dev) * 0.05).float()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    times = {}
+    for i, (rows, m, shift) in enumerate(cases):
+        x_q, ctx, res = rn(rows, d), rn(rows, d, scale=0.5), rn(rows, d)
+        wo, w1 = rn(d, d, scale=0.02), rn(m, d, scale=0.02)
+        w2 = rn(d, m, scale=0.002 if shift else 0.02)
+        pv = (wo, vec(d), vec(d, 1.0), vec(d, shift), w1, vec(m), w2, vec(d), vec(d, 1.0), vec(d))
+        args = (x_q, ctx) + pv
+        label = f" [{rows},{d}]->{m}" + (f", LN1 shift {shift:g}" if shift else "")
+        for name, fn, plain, a, n_in in (
+            ("fused_block", FB.fused_block, FB.fused_block_plain, args, nbytes(x_q, ctx)),
+            ("fused_block_tanh", FB.fused_block_tanh, FB.fused_block_tanh_plain, (res,) + args,
+             nbytes(x_q, ctx, res)),
+        ):
+            got, want = fn(*a), plain(*a)
+            sync()
+            err = (got.float() - want.float()).abs().max().item()
+            timed_case = {}
+            if timed:
+                timed_case = dict(
+                    ms=cuda_time_ms(lambda: fn(*a)), plain_ms=cuda_time_ms(lambda: plain(*a)),
+                    bound=block_bound(rows, d, m, n_in, nbytes(got), nbytes(wo, w1, w2),
+                                      nbytes(*pv[1:4], pv[5], *pv[7:])))
+                times.setdefault(label.strip(), {})[name] = {
+                    "ms": timed_case["ms"], "plain_ms": timed_case["plain_ms"],
+                    "bound_ms": timed_case["bound"][0], "max_abs_err": err}
+                if i:
+                    print(f"kernel {name}{label}: kernel {timed_case['ms']:.4f} ms, plain "
+                          f"{timed_case['plain_ms']:.4f} ms, bound {timed_case['bound'][0]:.4f} "
+                          f"ms ({timed_case['bound'][1]})", flush=True)
+            report(record, name, err, label, **(timed_case if i == 0 else {}))
+            del got, want
+        del x_q, ctx, res, args, pv
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return times
 
 
 def compact_mask(dev):
@@ -1105,9 +1165,10 @@ def check_serving_mode_kernels(dev, record):
 
 
 def check_vit_kernels(dev, record):
-    """The ViT path's kernels against their twins: the fused FFN (#13) at
-    ViT-L/16's chunk of 64 frames (12,608 rows, 1024 -> 4096 -> 1024) and
-    ViT-B/32's (3,200 rows, 768 -> 3072 -> 768); the bias-tensor attention
+    """The ViT path's kernels against their twins: the fused FFN (#13,
+    check_ffn) at ViT-L/16's chunk of 64 frames (12,608 rows, 1024 -> 4096
+    -> 1024), ViT-B/32's (3,200 rows, 768 -> 3072 -> 768), ViT-L/16 at 384
+    px (4,616 rows) and at widths of 1,152; the bias-tensor attention
     (#14) on split-head views of merged projections, with no bias at
     [8, 16, 577, 64] (ViT-L/16 at 384 px) and a random per-row bias there
     (the ragged last key tile and the bias tile of the ring meet), the
@@ -1120,35 +1181,16 @@ def check_vit_kernels(dev, record):
     import torch
     import torch.nn.functional as F
 
-    from vitxtgqa_tpu_torch.ops import ffn as FFN
     from vitxtgqa_tpu_torch.ops import fused_attention as FAT
     from vitxtgqa_tpu_torch.ops.masks import prefix_lm_bias, self_attention_bias
 
     gen = torch.Generator(device=dev).manual_seed(97531)
     bf = torch.bfloat16
     rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
-    vec = lambda n: (torch.randn(n, generator=gen, device=dev) * 0.05).float()
     details = {}
 
     # 16. the fused FFN
-    for rows, d, m, label in ((64 * 197, 1024, 4096, "ViT-L/16"), (64 * 50, 768, 3072, "ViT-B/32")):
-        x, w1, b1, w2, b2 = rn(rows, d), rn(m, d, scale=0.02), vec(m), rn(d, m, scale=0.02), vec(d)
-        args = (x, w1, b1, w2, b2)
-        got, want = FFN.fused_ffn(*args), FFN.fused_ffn_plain(*args)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ms = cuda_time_ms(lambda: FFN.fused_ffn(*args))
-        pms = cuda_time_ms(lambda: FFN.fused_ffn_plain(*args))
-        bound = bound_of(nbytes(x, w1, b1, w2, b2, got), 2 * rows * m * (d + d))
-        shape = f" {label} [{rows},{d}]->{m}"
-        details[f"fused_ffn{shape}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bound[0],
-                                        "max_abs_err": err}
-        timed = dict(ms=ms, plain_ms=pms, bound=bound) if d == 1024 else {}
-        if not timed:
-            print(f"kernel fused_ffn{shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-                  f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
-        report(record, "fused_ffn", err, shape, **timed)
-        del x, got, want
+    details.update(check_ffn(dev, record))
 
     # 17. the bias-tensor attention
     mask, _ = serving_masks(dev)
@@ -1180,6 +1222,44 @@ def check_vit_kernels(dev, record):
         report(record, "fused_attention", err, shape, **timed)
         del q, k, v, got, want
     torch.cuda.empty_cache()
+    return details
+
+
+def check_ffn(dev, record, cases=FFN_CASES, timed: bool = True):
+    """The fused FFN (#13) against its twin at each (rows, d, m, d2,
+    label) of ``cases`` (FFN_CASES); with ``timed``, each case's kernel and
+    twin times and bound, the first case's kept as the kernel's record.
+    Returns {case: times}."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import ffn as FFN
+
+    gen = torch.Generator(device=dev).manual_seed(97531)
+    rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(
+        torch.bfloat16)
+    vec = lambda n: (torch.randn(n, generator=gen, device=dev) * 0.05).float()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    details = {}
+    for i, (rows, d, m, d2, label) in enumerate(cases):
+        x, w1, b1, w2, b2 = rn(rows, d), rn(m, d, scale=0.02), vec(m), rn(d2, m, scale=0.02), vec(d2)
+        args = (x, w1, b1, w2, b2)
+        got, want = FFN.fused_ffn(*args), FFN.fused_ffn_plain(*args)
+        sync()
+        err = (got.float() - want.float()).abs().max().item()
+        shape = f" {label} [{rows},{d}]->{m}->{d2}"
+        timed_case = {}
+        if timed:
+            ms = cuda_time_ms(lambda: FFN.fused_ffn(*args))
+            pms = cuda_time_ms(lambda: FFN.fused_ffn_plain(*args))
+            bound = bound_of(nbytes(x, w1, b1, w2, b2, got), 2 * rows * m * (d + d2))
+            details[f"fused_ffn{shape}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bound[0],
+                                            "max_abs_err": err}
+            timed_case = dict(ms=ms, plain_ms=pms, bound=bound)
+            if i:
+                print(f"kernel fused_ffn{shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                      f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+        report(record, "fused_ffn", err, shape, **(timed_case if i == 0 else {}))
+        del x, got, want
     return details
 
 
@@ -1409,18 +1489,22 @@ def check_training_kernels(dev, record):
 
     details["block_times"] = check_block_kernels(
         dev, record, (b * l, bt * l, bt * 20) + BLOCK_RAGGED_ROWS, timed_rows=(bt * l, bt * 20))
+    details["block_times"].update(check_block_kernels(
+        dev, record, BLOCK_NARROW_ROWS, m=BLOCK_NARROW_M, timed_rows=BLOCK_NARROW_ROWS[:1],
+        keep=False))
     return details
 
 
-def check_block_kernels(dev, record, cases, d: int = 768, m: int = 3072, timed_rows=()):
+def check_block_kernels(dev, record, cases, d: int = 768, m: int = 3072, timed_rows=(),
+                        keep: bool = True):
     """The block kernels (#9a, #9b) against their twins on the same seed's
     masks, at each row count of ``cases`` with rate 0 and RATE: the
     forward's five outputs (with dropout, also its emitted masks, equal to
     the twin's), the backward's 12 gradients scale-relative, and a second
     backward call equal to the first bit for bit on all 12 (the kernels sum
     in a fixed order).  For the rows of ``timed_rows`` both kernels are then
-    timed at RATE with their twins and bounds; the first is the kernels'
-    record.  Returns {rows: {kernel: ms}}."""
+    timed at RATE with their twins and bounds; with ``keep``, the first is
+    the kernels' record.  Returns {"rows x m": {kernel: ms}}."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import block_train as BT
@@ -1469,8 +1553,9 @@ def check_block_kernels(dev, record, cases, d: int = 768, m: int = 3072, timed_r
                 fail(f"block_train_bwd{label}: two calls differ in d{', d'.join(differ)}")
             del grads, again, want, ma, mf
             if rate and rows in timed_rows:
-                times[rows] = block_times(record if rows == timed_rows[0] else {}, rows, d, m,
-                                          x_q, ctx, wargs, bwd_args, seed, vecs)
+                keep_here = keep and rows == timed_rows[0]
+                times[f"{rows} x {m}"] = block_times(record if keep_here else {}, rows, d, m,
+                                                     x_q, ctx, wargs, bwd_args, seed, vecs)
             del bwd_args
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -2849,10 +2934,11 @@ def main(argv) -> int:
         f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
         for name, regs, st, ld in _build.ptxas_kernels(log, "decode_attention.cu")),
         flush=True)
-    print("build: the training block (csrc/block_train.cu, csrc/gemm_sm90.cuh): " + "; ".join(
-        f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
-        for name, regs, st, ld in _build.ptxas_kernels(log, "block_train.cu")),
-        flush=True)
+    for source, what in (("block_train.cu", "the training block"),
+                         ("fused_block.cu", "the eval block"), ("fused_ffn.cu", "the ViT FFN")):
+        print(f"build: {what} (csrc/{source}, csrc/gemm_sm90.cuh): " + "; ".join(
+            f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
+            for name, regs, st, ld in _build.ptxas_kernels(log, source)), flush=True)
 
     record = {}
     decode = check_kernels(dev, record)

@@ -639,3 +639,68 @@ def test_check_block_kernels_rejects_a_planted_fault(fault, monkeypatch):
         rows, match = 1000, "two calls differ in dw1"
     with pytest.raises(SystemExit, match=match):
         CS.check_block_kernels(torch.device("cpu"), record, (rows,), **small)
+
+
+def _without_last_columns(ffn):
+    """A fused FFN whose output misses its last 128 columns, as a GEMM that
+    counted N // 256 column tiles of a width no multiple of 256 would."""
+    def call(*args):
+        out = ffn(*args).clone()
+        out[..., -128:] = 0
+        return out
+    return call
+
+
+@pytest.mark.parametrize("fault", [None, "without_last_columns"])
+def test_check_ffn_rejects_a_planted_fault(fault, monkeypatch):
+    """check_ffn (#13) on the CPU, untimed, at small widths of 128 and 384
+    (one a multiple of 128 and not of 256) and ragged rows: the twin passes
+    with no difference, and an FFN that leaves its last 128 output columns
+    unwritten is rejected."""
+    from vitxtgqa_tpu_torch.ops import ffn as TFFN
+
+    cases = ((300, 128, 256, 128, "small"), (260, 128, 384, 384, "narrow"))
+    record = {}
+    if fault is None:
+        CS.check_ffn(torch.device("cpu"), record, cases, timed=False)
+        assert record["fused_ffn"]["max_abs_err"] == 0.0
+        return
+    monkeypatch.setattr(TFFN, "fused_ffn", _without_last_columns(TFFN.fused_ffn))
+    with pytest.raises(SystemExit, match="fused_ffn"):
+        CS.check_ffn(torch.device("cpu"), record, cases, timed=False)
+
+
+def _with_bf16_residual(tanh: bool):
+    """The eval block (or its tanh form) with x rounded to bf16 before the
+    second residual, where the Pallas kernel keeps it in f32."""
+    def block(*args, eps=1e-12):
+        res, args = (args[0], args[1:]) if tanh else (None, args)
+        x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2 = args
+        dt = x_q.dtype
+        mm = lambda a, w: torch.matmul(a.to(dt).float(), w.to(dt).float().t())
+        x = TFB._ln(x_q.float() + (mm(ctx, wo) + bo.float()), s1.float(), g1.float(), eps)
+        h = TFB.gelu_erf(mm(x, w1) + b1.float()).to(dt)
+        out = TFB._ln(x.to(dt).float() + (mm(h, w2) + b2.float()), s2.float(), g2.float(), eps)
+        return out.to(dt) if res is None else (res.float() + torch.tanh(out.to(dt).float())).to(dt)
+    return block
+
+
+@pytest.mark.parametrize("fault", [None, "fused_block", "fused_block_tanh"])
+def test_check_eval_block_rejects_a_planted_fault(fault, monkeypatch):
+    """check_eval_block (#2, #3) on the CPU, untimed, at its cases' row
+    counts and LN1 shifts with hidden 768 and FFN widths of 384 and 256:
+    the twins pass with no difference, and a block that rounds x to bf16
+    before its second residual is rejected on the case whose LN1 output
+    sits at 64 + O(1)."""
+    cases = tuple((min(rows, 260), 384 if m % 256 else 256, shift)
+                  for rows, m, shift in CS.EVAL_BLOCK_CASES)
+    assert any(shift for _, _, shift in cases)
+    record = {}
+    if fault is None:
+        CS.check_eval_block(torch.device("cpu"), record, cases, timed=False)
+        assert record["fused_block"]["max_abs_err"] == 0.0
+        assert record["fused_block_tanh"]["max_abs_err"] == 0.0
+        return
+    monkeypatch.setattr(TFB, fault, _with_bf16_residual(fault.endswith("tanh")))
+    with pytest.raises(SystemExit, match=fault):
+        CS.check_eval_block(torch.device("cpu"), record, cases[-1:], timed=False)

@@ -1,0 +1,127 @@
+"""The launch plans of the kernels on csrc/gemm_sm90.cuh's wgmma body, on
+the CPU: ops/gemm_sm90.py mirrors the header's choice of tile form and
+the blocks' walk over the output, so each launch of the ViT FFN (#13),
+the eval block (#2 / #3) and the training block (#9a / #9b) can be
+checked to store every output row and column exactly once (per split of
+its reduction); and the model layers' routes (JAX's width gates) admit
+no FFN width that the wrappers refuse.
+"""
+
+import pytest
+
+from tests.torch_helpers import one_torch_thread  # noqa: F401
+from vitxtgqa_tpu_torch.ops import block_train as BT
+from vitxtgqa_tpu_torch.ops import ffn as FFN
+from vitxtgqa_tpu_torch.ops import fused_block as FB
+from vitxtgqa_tpu_torch.ops import gemm_sm90 as G
+
+ROWS = (2048, 2100, 3072, 3200, 4616, 9216, 12608, 55296)
+WIDTHS = (768, 1024, 1152, 3072, 3200, 4096)
+
+
+def assert_covers_once(ln: G.Launch):
+    """Every block's columns lie below its problem's N, and per problem and
+    split the blocks tile [0, M) x [0, N) exactly once: their row ranges
+    partition the rows, their column ranges the columns, and each (rows,
+    columns) pair is one block's."""
+    seen = {}
+    for pi, split, rows, cols in G.blocks(ln):
+        p = ln.problems[pi]
+        assert 0 <= rows.start < rows.stop <= p.M and 0 <= cols.start < cols.stop <= p.N
+        key = (pi, split, rows.start, rows.stop, cols.start, cols.stop)
+        assert key not in seen, f"two blocks store {key}"
+        seen[key] = True
+    for pi, p in enumerate(ln.problems):
+        for split in range(-(-p.K // p.k_chunk)):
+            mine = [k[2:] for k in seen if k[:2] == (pi, split)]
+            row_cuts = sorted({(r0, r1) for r0, r1, _, _ in mine})
+            col_cuts = sorted({(c0, c1) for _, _, c0, c1 in mine})
+            assert [r0 for r0, _ in row_cuts] == [0] + [r1 for _, r1 in row_cuts[:-1]]
+            assert row_cuts[-1][1] == p.M
+            assert [c0 for c0, _ in col_cuts] == [0] + [c1 for _, c1 in col_cuts[:-1]]
+            assert col_cuts[-1][1] == p.N
+            assert len(mine) == len(row_cuts) * len(col_cuts)
+
+
+@pytest.mark.parametrize("n", WIDTHS)
+@pytest.mark.parametrize("rows", ROWS)
+def test_a_product_covers_every_output_once(rows, n):
+    """x W^T over [rows, n] in the form launch_gemm picks: narrow (128
+    columns) where n is no multiple of 256 (1,152, 3,200) or the wide tiles
+    would not fill one wave of the card."""
+    ln = G.launch(G.problem(rows, n, 768))
+    if n % G.WIDE_N:
+        assert ln.tile_n == G.NARROW_N
+    assert_covers_once(ln)
+
+
+def test_the_coverage_check_rejects_a_launch_without_its_last_128_columns():
+    """A launch over N = 1,152 in 256-column tiles (the body before its
+    narrow form) counts N // 256 column tiles and leaves the last 128
+    columns unwritten: the check fails on it."""
+    ln = G.Launch((G.problem(2100, 1152, 768),), G.WIDE_N)
+    with pytest.raises(AssertionError):
+        assert_covers_once(ln)
+
+
+def test_the_form_of_a_launch():
+    """The wide form at the main paths' large products, the narrow one
+    where a width is no multiple of 256 or the narrow tiles fit one wave
+    (132 SMs): the 960-row text BERT block's 768-wide products, batch 2's
+    eval block."""
+    assert G.launch(G.problem(12608, 4096, 1024)).tile_n == G.WIDE_N
+    assert G.launch(G.problem(9216, 768, 3072)).tile_n == G.WIDE_N   # 216 wide tiles
+    assert G.launch(G.problem(3072, 768, 3072)).tile_n == G.WIDE_N   # 72: 144 narrow
+    assert G.launch(G.problem(2304, 768, 3072)).tile_n == G.NARROW_N  # 54: 108 narrow
+    assert G.launch(G.problem(960, 768, 768)).tile_n == G.NARROW_N    # 24: 48 narrow
+    assert G.launch(G.problem(960, 3072, 768)).tile_n == G.WIDE_N     # 96: 192 narrow
+    assert G.launch(G.problem(55296, 1152, 768)).tile_n == G.NARROW_N
+    with pytest.raises(ValueError):
+        G.launch(G.problem(100, 1000, 768))  # no multiple of 128
+    with pytest.raises(ValueError):
+        G.launch(G.problem(100, 768, 1000))  # a K-major K off the 64-deep step
+    assert G.launch(G.problem(768, 768, 1000, 512), ragged_k=True).tile_n == G.NARROW_N
+
+
+@pytest.mark.parametrize("m", range(128, 4097, 128))
+def test_the_routes_admit_only_widths_the_wrappers_take(m):
+    """At hidden 768, every FFN width that a model layer routes to a
+    kernel (JAX's gates: BT.kernel_ok, FB.kernel_ok, FFN.ffn_kernel_ok)
+    passes that kernel's width check, and each launch of its plan covers
+    its output once.  Before the narrow tile, the training block refused
+    m = 1,152 and 3,200 that its route admitted."""
+    d = 768
+    assert BT.kernel_ok(d, m) and FB.kernel_ok(d, m, 2048) and FFN.ffn_kernel_ok(d, m, 2048)
+    BT.check_widths("block_train", d, m)
+    FB.check_widths("fused_block", d, m)
+    FFN.check_widths(d, m, d)
+    for rows in (960, 2100, 9216, 55296):
+        for ln in BT.gemm_launches(rows, d, m):
+            assert_covers_once(ln)
+    for rows in (2100, 9216):
+        for ln in FB.launch_plan(rows, d, m) + FFN.launch_plan(rows, d, m, d):
+            assert_covers_once(ln)
+
+
+@pytest.mark.parametrize("d, m", [(640, 3072), (768, 3000)])
+def test_the_wrappers_refuse_what_the_kernels_do_not_take(d, m):
+    """A hidden width other than 768 (the row passes), or an FFN width no
+    multiple of 128, raises before a launch."""
+    with pytest.raises(NotImplementedError):
+        BT.check_widths("block_train", d, m)
+    with pytest.raises(NotImplementedError):
+        FB.check_widths("fused_block", d, m)
+
+
+def test_the_block_plans_of_the_main_paths():
+    """The forms of the main paths' launches: the training step's 55,296
+    rows and the eval block's 9,216 wide throughout; the 960-row text BERT
+    block narrow on its 768-wide products; at m = 3,200 the launches over
+    m narrow (the 768-wide ones at 55,296 rows wide); the ViT-L/16 FFN
+    wide."""
+    N, W = G.NARROW_N, G.WIDE_N
+    assert {ln.tile_n for ln in BT.gemm_launches(55296)} == {W}
+    assert [ln.tile_n for ln in BT.gemm_launches(960)] == [N, W, N, W, N, N, W]
+    assert [ln.tile_n for ln in BT.gemm_launches(55296, 768, 3200)] == [W, N, W, N, W, W, N]
+    assert {ln.tile_n for ln in FB.launch_plan(9216)} == {W}
+    assert {ln.tile_n for ln in FFN.launch_plan(12608, 1024, 4096, 1024)} == {W}

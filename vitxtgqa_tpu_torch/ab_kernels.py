@@ -29,14 +29,17 @@ none; #4's SDPA reads the dequantized cache).  Prints one JSON line with
 the card's name and power limit.  Run it as a file, not with -m, so that
 the package imported is the one under --root.
 
-``--forms block`` times only the training block: #9a and #9b at 55,296
-rows (48 x 1152: QTV, MMT) and 960 (48 x 20: the text BERT), at rate 0.1
-and 0, and beside each (``gemm_ms``) the same three (forward) or six
-(backward) products alone as bf16 torch.matmul calls: a yardstick of the
-products, not a library column, since no single call computes the block;
-then the kernels that share block_gemm.cuh, #2 and #3 at the serving
-shape (9,216 rows) and #13 at ViT-L/16's 12,608 rows, to show that they
-did not move.
+``--forms block`` times only the kernels on csrc/gemm_sm90.cuh's wgmma
+body, and #8 beside them: #9a and #9b at 55,296 rows (48 x 1152: QTV,
+MMT) and 960 (48 x 20: the text BERT), at rate 0.1 and 0, and at 55,296
+rows with the FFN width 3,200 (narrow tiles; null where the package under
+--root refuses it), with beside each (``gemm_ms``) the same three
+(forward) or six (backward) products alone as bf16 torch.matmul calls: a
+yardstick of the products, not a library column, since no single call
+computes the block; #2 at the serving batch's 9,216 rows, batch 2's 2,304
+and the compact MMT's 3,072, its three products alone beside it, #3 and
+the W8A8 block #8 at 9,216; and #13 at ViT-L/16's 12,608 rows, ViT-B/32's
+3,200 and ViT-L/16 384 px's 4,616, its twin beside it (``plain_ms``).
 """
 
 import argparse
@@ -107,8 +110,7 @@ def main(argv=None) -> int:
     ms, sdpa = {}, {}
     allowed = lambda km, dec: FA._allowed(km, km.shape[1], dec)
     if args.forms == "block":
-        gemm = block_forms(ms, timed, rn, dev, seed)
-        return report(args.root, ms, sdpa, gemm_ms=gemm)
+        return report(args.root, ms, sdpa, **block_forms(ms, timed, rn, dev, seed))
 
     # the decode attention, warm and cold
     compact = torch.nn.functional.pad(
@@ -225,47 +227,74 @@ def main(argv=None) -> int:
 
 
 def block_forms(ms, timed, rn, dev, seed):
-    """#9a / #9b (and the products alone as torch.matmul: returned), #2,
-    #3 and #13 into ``ms``."""
+    """#9a / #9b (and the products alone as torch.matmul: returned under
+    "gemm_ms"), #2, #3, #8 and #13 (and #13's twin: returned under
+    "plain_ms") into ``ms``; a form that the package under --root refuses
+    (NotImplementedError: #9 at m = 3,200 before the narrow tile) is null."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import block_train as BT
     from vitxtgqa_tpu_torch.ops import ffn as FFN
     from vitxtgqa_tpu_torch.ops import fused_block as FB
 
-    gemm = {}
-    d, m = 768, 3072
+    gemm, plain = {}, {}
+    d = 768
     vec = lambda n, base=0.0: base + 0.05 * torch.randn(n, device=dev)
-    wo, w1, w2 = (rn(*s) * 0.02 for s in ((d, d), (m, d), (d, m)))
-    vecs = (vec(d), vec(d, 1.0), vec(d), vec(m), vec(d), vec(d, 1.0), vec(d))
-    bo, s1, g1, b1, b2, s2, g2 = vecs
-    wargs = (wo, bo, s1, g1, w1, b1, w2, b2, s2, g2)
-    for rows in (48 * 1152, 48 * 20):
+
+    def block_weights(m):
+        wo, w1, w2 = (rn(*s) * 0.02 for s in ((d, d), (m, d), (d, m)))
+        bo, s1, g1, b1, b2, s2, g2 = (vec(d), vec(d, 1.0), vec(d), vec(m), vec(d), vec(d, 1.0),
+                                      vec(d))
+        return (wo, bo, s1, g1, w1, b1, w2, b2, s2, g2)
+
+    wargs = block_weights(3072)
+    wo, w1, w2 = wargs[0], wargs[4], wargs[6]
+    for rows, m, rates in ((48 * 1152, 3072, (0.1, 0.0)), (48 * 20, 3072, (0.1, 0.0)),
+                           (48 * 1152, 3200, (0.1,))):
+        wa = wargs if m == 3072 else block_weights(m)
+        tag = f"[{rows}]" if m == 3072 else f"[{rows}] m {m}"
         x_q, ctx, gy = rn(rows, d), rn(rows, d), rn(rows, d)
-        res = BT.block_train_fwd(x_q, ctx, *wargs, rate=0.1, seed=seed)
-        bwd_args = (gy, ctx, *res[1:], wo, w1, w2, s1, g1, s2)
-        for rate in (0.1, 0.0):
+        try:
+            res = BT.block_train_fwd(x_q, ctx, *wa, rate=0.1, seed=seed)
+        except NotImplementedError:
+            res = None
+        for rate in rates:
             kw = dict(rate=rate, seed=seed if rate else None)
-            ms[f"#9a [{rows}] rate {rate}"] = timed(
-                lambda: BT.block_train_fwd(x_q, ctx, *wargs, **kw))
-            ms[f"#9b [{rows}] rate {rate}"] = timed(lambda: BT.block_train_bwd(*bwd_args, **kw))
-        x, pre1, h = res[4], res[2], res[3]
-        fwd_mm = lambda: (ctx @ wo.t(), x @ w1.t(), h @ w2.t())
-        bwd_mm = lambda: (gy @ w2, pre1 @ w1, gy @ wo, gy.t() @ ctx, pre1.t() @ x, gy.t() @ h)
-        gemm[f"#9a [{rows}]"] = timed(fwd_mm)
-        gemm[f"#9b [{rows}]"] = timed(bwd_mm)
-        del x_q, ctx, gy, res, bwd_args, x, pre1, h
+            if res is None:
+                ms[f"#9a {tag} rate {rate}"] = ms[f"#9b {tag} rate {rate}"] = None
+                continue
+            bwd_args = (gy, ctx, *res[1:], wa[0], wa[4], wa[6], wa[2], wa[3], wa[8])
+            ms[f"#9a {tag} rate {rate}"] = timed(lambda: BT.block_train_fwd(x_q, ctx, *wa, **kw))
+            ms[f"#9b {tag} rate {rate}"] = timed(lambda: BT.block_train_bwd(*bwd_args, **kw))
+        if m == 3072:
+            x, pre1, h = res[4], res[2], res[3]
+            gemm[f"#9a [{rows}]"] = timed(lambda: (ctx @ wo.t(), x @ w1.t(), h @ w2.t()))
+            gemm[f"#9b [{rows}]"] = timed(lambda: (gy @ w2, pre1 @ w1, gy @ wo, gy.t() @ ctx,
+                                                   pre1.t() @ x, gy.t() @ h))
+        del x_q, ctx, gy, res
         torch.cuda.empty_cache()
-    # the kernels on block_gemm.cuh's tiles
-    rows = 8 * 1152
-    x_q, ctx, res = rn(rows, d), rn(rows, d) * 0.5, rn(rows, d)
-    args = (x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2)
-    ms[f"#2 [{rows}]"] = timed(lambda: FB.fused_block(*args))
-    ms[f"#3 [{rows}]"] = timed(lambda: FB.fused_block_tanh(res, *args))
-    rows, d, m = 64 * 197, 1024, 4096
-    ffn = (rn(rows, d), rn(m, d) * 0.02, vec(m), rn(d, m) * 0.02, vec(d))
-    ms[f"#13 [{rows}]"] = timed(lambda: FFN.fused_ffn(*ffn))
-    return gemm
+
+    # the eval block, its tanh form and the W8A8 block; the three products
+    # alone as bf16 torch.matmul beside them
+    q8 = FB.quantize_block_weights(wo, w1, w2)
+    for rows in (8 * 1152, 2 * 1152, 8 * 384):
+        x_q, ctx, res, h = rn(rows, d), rn(rows, d) * 0.5, rn(rows, d), rn(rows, 3072)
+        args = (x_q, ctx) + wargs
+        ms[f"#2 [{rows}]"] = timed(lambda: FB.fused_block(*args))
+        gemm[f"#2 [{rows}]"] = timed(lambda: (ctx @ wo.t(), x_q @ w1.t(), h @ w2.t()))
+        if rows == 8 * 1152:
+            ms[f"#3 [{rows}]"] = timed(lambda: FB.fused_block_tanh(res, *args))
+            bo, s1, g1, b1, b2, s2, g2 = (wargs[i] for i in (1, 2, 3, 5, 7, 8, 9))
+            ms[f"#8 [{rows}]"] = timed(lambda: FB.fused_block_w8a8(
+                x_q, ctx, q8[0], q8[1], bo, s1, g1, q8[2], q8[3], b1, q8[4], q8[5], b2, s2, g2))
+        del x_q, ctx, res, h, args
+    # the ViT FFN and its twin
+    for rows, d_in, m in ((64 * 197, 1024, 4096), (64 * 50, 768, 3072), (8 * 577, 1024, 4096)):
+        ffn = (rn(rows, d_in), rn(m, d_in) * 0.02, vec(m), rn(d_in, m) * 0.02, vec(d_in))
+        ms[f"#13 [{rows}]"] = timed(lambda: FFN.fused_ffn(*ffn))
+        plain[f"#13 [{rows}]"] = timed(lambda: FFN.fused_ffn_plain(*ffn))
+        del ffn
+    return {"gemm_ms": gemm, "plain_ms": plain}
 
 
 def report(root, ms, sdpa, **beside) -> int:

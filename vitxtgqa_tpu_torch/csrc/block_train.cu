@@ -63,22 +63,12 @@ namespace bt {
 using gemm::load4;
 using gemm::RGROUPS;
 using gemm::RN;
+using gemm::row_xhat;
 using gemm::store4;
-using g90::Tile;
-
 using g90::launch_gemm;
+using g90::one;
 
 constexpr int kRowThreads = 256;  // row passes: a warp a row, 8 rows a block
-
-// one product over all its rows: A [M, K] K-major, B K-major (x W^T) or
-// MN-major (dy W)
-inline g90::GemmArgs one(const bf16* a, int lda, const bf16* b, int ldb, int M, int N, int K) {
-  g90::GemmArgs args = {};
-  args.p[0] = g90::make_problem({a, lda}, {b, ldb}, M, N, K, K, 0);
-  args.n_problems = 1;
-  args.items = g90::items_of(args.p[0]);
-  return args;
-}
 
 // ---- dropout -------------------------------------------------------------
 struct Drop {
@@ -125,7 +115,8 @@ struct ResidDropEpi {
   const bf16* resid;
   bf16* out;
   Drop drop;
-  __device__ void operator()(const Tile& t, int) const {
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
     const bool dropout = drop.seed != nullptr;
     const uint32_t seed = seed_of(drop);
     g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
@@ -151,7 +142,8 @@ struct GeluEpi {
   const float* bias;
   bf16* pre;
   bf16* h;
-  __device__ void operator()(const Tile& t, int) const {
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
     g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
       const size_t gi = (size_t)row * t.N + col;
       float b[8];
@@ -174,7 +166,8 @@ struct GeluGradEpi {
   const bf16* pre1;
   bf16* dpre;
   float* db1_part;
-  __device__ void operator()(const Tile& t, int) const {
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
     float cs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
       const size_t gi = (size_t)row * t.N + col;
@@ -194,7 +187,8 @@ struct GeluGradEpi {
 // B3: dx = du2 + acc, f32, in place over du2
 struct AddF32Epi {
   float* dx;
-  __device__ void operator()(const Tile& t, int) const {
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
     g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
       float* p = dx + (size_t)row * t.N + col;
       float u[8];
@@ -209,7 +203,8 @@ struct AddF32Epi {
 // B5: out = bf16(acc)
 struct StoreEpi {
   bf16* out;
-  __device__ void operator()(const Tile& t, int) const {
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
     g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
       *reinterpret_cast<uint4*>(out + (size_t)row * t.N + col) = g90::pack8(v);
     });
@@ -221,7 +216,8 @@ struct StoreEpi {
 struct PartialEpi {
   float* out[g90::kMaxProblems];
   size_t stride[g90::kMaxProblems];
-  __device__ void operator()(const Tile& t, int p) const {
+  template <class T>
+  __device__ void operator()(const T& t, int p) const {
     float* o = (p == 0 ? out[0] : p == 1 ? out[1] : out[2]) +
                t.split * (p == 0 ? stride[0] : p == 1 ? stride[1] : stride[2]);
     g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
@@ -233,30 +229,14 @@ struct PartialEpi {
 // ---- LayerNorm row passes (a warp a row, a lane on four consecutive
 // columns in each of six 128-column groups) --------------------------------
 
-// the row's x values (bf16 in memory) and their LayerNorm xhat
-__device__ __forceinline__ float row_xhat(const bf16* x, int lane, float eps,
-                                          float xhat[RGROUPS][4]) {
-#pragma unroll
-  for (int q = 0; q < RGROUPS; ++q) load4(x + q * 128 + lane * 4, xhat[q]);
-  const gemm::RowStats st = gemm::row_stats(xhat, eps);
-#pragma unroll
-  for (int q = 0; q < RGROUPS; ++q)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) xhat[q][t] = (xhat[q][t] - st.mu) * st.inv;
-  return st.inv;
-}
-
 // out = bf16(xhat * s + g): the forward's LN1 / LN2 and the backward's xb
 __device__ __forceinline__ void ln_store(bf16* out, const float xhat[RGROUPS][4], const float* s,
                                          const float* g, int lane) {
 #pragma unroll
   for (int q = 0; q < RGROUPS; ++q) {
     const int c = q * 128 + lane * 4;
-    float sv[4], gv[4], y[4];
-    load4(s + c, sv);
-    load4(g + c, gv);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) y[t] = xhat[q][t] * sv[t] + gv[t];
+    float y[4];
+    gemm::ln_affine(xhat[q], s, g, c, y);
     store4(out + c, y);
   }
 }
@@ -453,15 +433,10 @@ using vt::bf16;
 
 namespace {
 
-// check a launch; leave the entry point with its error
-#define VT_TRY(expr)                          \
-  do {                                        \
-    const cudaError_t e_ = (expr);            \
-    if (e_ != cudaSuccess) return (int)e_;    \
-  } while (0)
-
+// d the LayerNorm rows' 768; m any multiple of the narrow tile's 128 columns
+// (a launch over an m that is no multiple of 256 takes narrow tiles)
 bool widths_ok(int rows, int d, int m) {
-  return d == RN && m % vt::g90::kBN == 0 && rows > 0;
+  return d == RN && m % vt::g90::Narrow::kBN == 0 && rows > 0;
 }
 
 }  // namespace
@@ -563,11 +538,9 @@ extern "C" int vt_block_train_bwd(const void* g, const void* ctx, const void* x1
   const bf16* a_of[3] = {(const bf16*)dlin1, (const bf16*)dpre, (const bf16*)dlin2};
   const bf16* b_of[3] = {(const bf16*)ctx, (const bf16*)xb, (const bf16*)h};
   const int out_of[3] = {d, m, d}, in_of[3] = {d, d, m};
-  for (int p = 0; p < 3; ++p) {
+  for (int p = 0; p < 3; ++p)
     wg.p[p] = vt::g90::make_problem({a_of[p], out_of[p]}, {b_of[p], in_of[p]}, out_of[p],
-                                    in_of[p], rows, k_chunk, wg.items);
-    wg.items += vt::g90::items_of(wg.p[p]);
-  }
+                                    in_of[p], rows, k_chunk);
   wg.n_problems = 3;
   const size_t stride = splits > 1 ? 1 : 0;
   VT_TRY((launch_gemm<true, true>(

@@ -8,8 +8,14 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+// check a launch; leave the entry point with its error
+#define VT_TRY(expr)                       \
+  do {                                     \
+    const cudaError_t e_ = (expr);         \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
 
 namespace vt {
 

@@ -8,67 +8,159 @@
 //   out = LN2(x + h W2^T + b2)
 //   tanh form: out = res + tanh(bf16(out))
 // Weights arrive in torch nn.Linear layout ([out, in], bf16); biases and
-// LayerNorm scale/shift in f32.  The gelu is the exact-erf form (erff); the
-// Pallas kernel approximated erf with A&S 7.1.26 because Mosaic has none.
+// LayerNorm scale/shift in f32.  The gelu is the exact-erf form (erff) of
+// the f32 pre-activation; the Pallas kernel approximated erf with A&S
+// 7.1.26 because Mosaic has none.  x stays f32 for the second residual.
 //
 // What bounds it on the H100: at the serving shape (rows = 8*1152 = 9216,
 // D = 768, M = 3072) the three products are 2*rows*(D*D + 2*D*M) = 98 GFLOP
 // against ~16 MB of weights and 3*rows*D*2 = 42 MB of activations — far
-// above the bf16 ridge, so the tensor cores bound it.
+// above the bf16 ridge, so the tensor cores bound it (0.099 ms).
 //
-// Design (first version): three launches of the GEMM tiles in
-// block_gemm.cuh (shared with the ViT FFN, fused_ffn.cu).
-//  1. row_gemm_kernel: a block owns 32 full rows of the 768-wide output,
-//     runs ctx Wo^T with nvcuda::wmma bf16 (f32 accumulate), then adds bias
-//     and residual and applies LayerNorm in the epilogue from shared
-//     memory; writes x in f32 (kept for the second residual) and in bf16.
-//  2. tile_gemm_kernel: a 128x128-tile GEMM for x W1^T whose epilogue adds
-//     b1 and applies the erf gelu, writing h [rows, 3072] bf16.
-//  3. row_gemm_kernel again for h W2^T + b2 + x, LayerNorm, and the
-//     optional res + tanh(bf16(.)) epilogue.
-// The gelu intermediate does round-trip device memory (2 * 56.6 MB at the
-// serving shape); keeping it on-chip (chunk over M with an f32 [tile, 768]
-// accumulator) is the next step, as is moving the products to the wgmma
-// body of gemm_sm90.cuh (the training block's).
-#include "block_gemm.cuh"
+// Design: the training block's (block_train.cu, #9a): every product on
+// gemm_sm90.cuh's wgmma body (128-row tiles on two warpgroups, a cp.async
+// ring), its epilogue on the tile staged in shared memory, and the
+// LayerNorms, which need whole 768-wide rows, as light row passes (a warp
+// a row, row_ops.cuh) over f32 pre-norm values that the GEMM epilogues
+// write; so no block holds a full output row and the weights are read once
+// per 128 rows.  Five launches:
+//  1. GEMM ctx Wo^T, epilogue x32 = x_q + (acc + bo)        (f32);
+//  2. rows: x32 = LN1(x32) in place, xb = bf16(x32);
+//  3. GEMM xb W1^T, epilogue h = bf16(gelu_erf(acc + b1))   (ffn_epi.cuh);
+//  4. GEMM h W2^T, epilogue x32 += acc + b2, in place (each element is one
+//     tile's);
+//  5. rows: out = bf16(LN2(x32)), or bf16(res + tanh(bf16(LN2(x32)))).
+// The f32 round trips of x32 cost ~0.03 ms at the serving shape; h's
+// 2 * rows * M * 2 bytes (113 MB, ~0.03 ms).
+#include "ffn_epi.cuh"
+
+namespace vt {
+namespace eval_block {
+
+using gemm::load4;
+using gemm::RGROUPS;
+using gemm::RN;
+using gemm::store4;
+
+constexpr int kRowThreads = 256;  // row passes: a warp a row, 8 rows a block
+
+// launch 1: out = resid + (acc + bias), f32
+struct ResidEpi {
+  const float* bias;
+  const bf16* resid;
+  float* out;
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      const size_t gi = (size_t)row * t.N + col;
+      float b[8], r[8];
+      g90::load8(bias + col, b);
+      g90::unpack8(*reinterpret_cast<const uint4*>(resid + gi), r);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = r[e] + (v[e] + b[e]);
+      g90::store8(out + gi, v);
+    });
+  }
+};
+
+// launch 4: x = x + (acc + bias), f32, in place
+struct AddEpi {
+  const float* bias;
+  float* x;
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      float* p = x + (size_t)row * t.N + col;
+      float b[8], u[8];
+      g90::load8(bias + col, b);
+      g90::load8(p, u);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = u[e] + (v[e] + b[e]);
+      g90::store8(p, v);
+    });
+  }
+};
+
+// launch 2: x = LN1(x) in place (f32) and xb = bf16(x)
+__global__ void __launch_bounds__(kRowThreads)
+ln1_rows(float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ g,
+         bf16* __restrict__ xb, int M, float eps) {
+  const int lane = threadIdx.x % 32, per = kRowThreads / 32;
+  for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
+    const size_t rb = (size_t)row * RN;
+    float xhat[RGROUPS][4];
+    gemm::row_xhat(x + rb, lane, eps, xhat);
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q) {
+      const int c = q * 128 + lane * 4;
+      float y[4];
+      gemm::ln_affine(xhat[q], s, g, c, y);
+      store4(x + rb + c, y);
+      store4(xb + rb + c, y);
+    }
+  }
+}
+
+// launch 5: out = bf16(LN2(x)), or with res bf16(res + tanh(bf16(LN2(x))))
+__global__ void __launch_bounds__(kRowThreads)
+ln2_rows(const float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ g,
+         const bf16* __restrict__ res, bf16* __restrict__ out, int M, float eps) {
+  const int lane = threadIdx.x % 32, per = kRowThreads / 32;
+  for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
+    const size_t rb = (size_t)row * RN;
+    float xhat[RGROUPS][4];
+    gemm::row_xhat(x + rb, lane, eps, xhat);
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q) {
+      const int c = q * 128 + lane * 4;
+      float y[4];
+      gemm::ln_affine(xhat[q], s, g, c, y);
+      if (res != nullptr) {
+        float r[4];
+        load4(res + rb + c, r);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) y[t] = r[t] + tanhf(round_bf16(y[t]));
+      }
+      store4(out + rb + c, y);
+    }
+  }
+}
+
+}  // namespace eval_block
+}  // namespace vt
 
 // x_q, ctx, res: [rows, d] bf16 (res nullable: plain block without the tanh
 // epilogue); wo [d, d], w1 [m, d], w2 [d, m] bf16 in nn.Linear layout;
 // bo, s1, g1, b1, b2, s2, g2 f32.  Scratch from the caller: x32 [rows, d]
-// f32, xb [rows, d] bf16, h [rows, m] bf16.  out [rows, d] bf16.
+// f32, xb [rows, d] bf16, h [rows, m] bf16.  out [rows, d] bf16.  d = 768,
+// m a multiple of 128 (the narrow tile).
 extern "C" int vt_fused_block(const void* x_q, const void* ctx, const void* wo, const void* bo,
                               const void* s1, const void* g1, const void* w1, const void* b1,
                               const void* w2, const void* b2, const void* s2, const void* g2,
                               const void* res, void* x32, void* xb, void* h, void* out, int rows,
                               int d, int m, float eps, void* stream) {
-  using namespace vt::gemm;
-  using vt::bf16;
-  if (d != RN || m % GBN != 0 || rows <= 0) return (int)cudaErrorInvalidValue;
+  using namespace vt;
+  using namespace vt::eval_block;
+  if (d != RN || m <= 0 || m % g90::Narrow::kBN != 0 || rows <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto row_kernel = row_gemm_kernel<LnFwdEpi>;
-  auto gelu_kernel = tile_gemm_kernel<GeluEpi>;
-  constexpr int row_bytes = kRowSmem;
-  cudaError_t err =
-      cudaFuncSetAttribute(row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, row_bytes);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
-  if (err != cudaSuccess) return (int)err;
+  const int per = kRowThreads / 32;
+  const int row_blocks = min((rows + per - 1) / per, 2 * 132);
 
-  const int row_blocks = (rows + RBM - 1) / RBM;
-  LnFwdEpi ln1 = {(const float*)bo, (const bf16*)x_q, nullptr, (const float*)s1,
-                  (const float*)g1, nullptr, (float*)x32, (bf16*)xb, eps};
-  row_kernel<<<row_blocks, NT, row_bytes, st>>>((const bf16*)ctx, (const bf16*)wo, rows, d, ln1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 ggrid(m / GBN, (rows + GBM - 1) / GBM, 1);
-  GeluEpi gelu = {(const float*)b1, (bf16*)h, m};
-  gelu_kernel<<<ggrid, NT, kTileSmem, st>>>((const bf16*)xb, (const bf16*)w1, rows, m, d, gelu);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  LnFwdEpi ln2 = {(const float*)b2, nullptr, (const float*)x32, (const float*)s2,
-                  (const float*)g2, (const bf16*)res, nullptr, (bf16*)out, eps};
-  row_kernel<<<row_blocks, NT, row_bytes, st>>>((const bf16*)h, (const bf16*)w2, rows, m, ln2);
+  VT_TRY((g90::launch_gemm<false, false>(
+      g90::one((const bf16*)ctx, d, (const bf16*)wo, d, rows, d, d),
+      ResidEpi{(const float*)bo, (const bf16*)x_q, (float*)x32}, st)));
+  ln1_rows<<<row_blocks, kRowThreads, 0, st>>>((float*)x32, (const float*)s1, (const float*)g1,
+                                               (bf16*)xb, rows, eps);
+  VT_TRY(cudaGetLastError());
+  VT_TRY((g90::launch_gemm<false, false>(
+      g90::one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),
+      ffn::GeluBiasEpi{(const float*)b1, (bf16*)h}, st)));
+  VT_TRY((g90::launch_gemm<false, false>(
+      g90::one((const bf16*)h, m, (const bf16*)w2, m, rows, d, m),
+      AddEpi{(const float*)b2, (float*)x32}, st)));
+  ln2_rows<<<row_blocks, kRowThreads, 0, st>>>((const float*)x32, (const float*)s2,
+                                               (const float*)g2, (const bf16*)res, (bf16*)out,
+                                               rows, eps);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,7 @@
 // Tiles load with synchronous 16-byte copies into padded shared memory;
 // fragments are 32-bit shared-memory reads.  wgmma (s8, 64-row tiles) and
 // TMA pipelining are later work, as is keeping h on chip.
-#include "block_gemm.cuh"
+#include "row_ops.cuh"
 
 namespace vt {
 namespace w8a8 {

@@ -14,48 +14,53 @@
 // out: ~3,100 FLOP per byte, far above the bf16 ridge (~295), so the
 // tensor cores bound it (0.214 ms at 989 TFLOP/s).
 //
-// Design (first version): the TPU kernel keeps both weights and a
-// [512, m] f32 intermediate in VMEM; an SM's 227 KB of shared memory holds
-// neither (a [64, 1024] f32 output accumulator alone is 256 KB).  So two
-// launches of block_gemm.cuh's 128 x 128 tile GEMM (nvcuda::wmma bf16,
-// f32 accumulate; shared with the eval block, fused_block.cu): x W1^T with
-// GeluEpi (+ b1, gelu, round to bf16) into h [rows, m] bf16 in device
-// memory, then h W2^T with BiasEpi (+ b2).  h's
-// round trip is 2 * rows * m * 2 bytes (206 MB at 12,608 rows, ~0.06 ms at
-// 3.35 TB/s).  Keeping h on chip (a loop over m chunks into an f32 [tile,
-// d2] accumulator) and moving the products to the wgmma body of
-// gemm_sm90.cuh (the training block's, with its cp.async ring) are later
-// work.
-#include "block_gemm.cuh"
+// Design: the TPU kernel keeps both weights and a [512, m] f32
+// intermediate in VMEM; an SM's 227 KB of shared memory holds neither (a
+// [64, 1024] f32 output accumulator alone is 256 KB).  So two launches of
+// gemm_sm90.cuh's wgmma body (128-row tiles on two warpgroups, a cp.async
+// ring; 256 columns, or 128 where a width is no multiple of 256 or the
+// wide tiles would not fill the card): x W1^T with ffn_epi.cuh's
+// GeluBiasEpi (+ b1, gelu, round to bf16) into h [rows, m] bf16 in device
+// memory, then h W2^T with BiasEpi (+ b2).  h's round trip is 2 * rows * m
+// * 2 bytes (206 MB at 12,608 rows, ~0.06 ms at 3.35 TB/s).
+#include "ffn_epi.cuh"
+
+namespace vt {
+namespace ffn {
+
+// out = bf16(acc + bias)
+struct BiasEpi {
+  const float* bias;
+  bf16* out;
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      float b[8];
+      g90::load8(bias + col, b);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += b[e];
+      *reinterpret_cast<uint4*>(out + (size_t)row * t.N + col) = g90::pack8(v);
+    });
+  }
+};
+
+}  // namespace ffn
+}  // namespace vt
 
 // x [rows, d], w1 [m, d], w2 [d2, m] bf16; b1 [m], b2 [d2] f32; scratch h
-// [rows, m] bf16; out [rows, d2] bf16.  d and m multiples of 32, m and d2
-// multiples of 128.
+// [rows, m] bf16; out [rows, d2] bf16.  d a multiple of 64 (the K step),
+// m and d2 multiples of 128 (the narrow tile).
 extern "C" int vt_fused_ffn(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, void* h, void* out, int rows, int d, int m, int d2,
                             void* stream) {
-  using namespace vt::gemm;
-  using vt::bf16;
-  if (rows <= 0 || d % GBK != 0 || m % GBN != 0 || d2 % GBN != 0)
+  using namespace vt;
+  constexpr int kN = g90::Narrow::kBN;
+  if (rows <= 0 || d <= 0 || d % g90::kBK != 0 || m % kN != 0 || d2 % kN != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto gelu_kernel = tile_gemm_kernel<GeluEpi>;
-  auto bias_kernel = tile_gemm_kernel<BiasEpi>;
-  cudaError_t err =
-      cudaFuncSetAttribute(gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bias_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
-  if (err != cudaSuccess) return (int)err;
-
-  const int row_tiles = (rows + GBM - 1) / GBM;
-  const GeluEpi gelu = {(const float*)b1, (bf16*)h, m};
-  gelu_kernel<<<dim3(m / GBN, row_tiles, 1), NT, kTileSmem, st>>>(
-      (const bf16*)x, (const bf16*)w1, rows, m, d, gelu);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const BiasEpi bias = {(const float*)b2, (bf16*)out, d2};
-  bias_kernel<<<dim3(d2 / GBN, row_tiles, 1), NT, kTileSmem, st>>>(
-      (const bf16*)h, (const bf16*)w2, rows, d2, m, bias);
-  return (int)cudaGetLastError();
+  VT_TRY((g90::launch_gemm<false, false>(g90::one((const bf16*)x, d, (const bf16*)w1, d, rows, m, d),
+                                         ffn::GeluBiasEpi{(const float*)b1, (bf16*)h}, st)));
+  return (int)g90::launch_gemm<false, false>(
+      g90::one((const bf16*)h, m, (const bf16*)w2, m, rows, d2, m),
+      ffn::BiasEpi{(const float*)b2, (bf16*)out}, st);
 }

@@ -1,8 +1,11 @@
-// A wgmma GEMM body for Hopper (sm_90a), templated over its operand
-// layouts and its epilogue:
+// A wgmma GEMM body for Hopper (sm_90a), templated over its tile form,
+// its operand layouts and its epilogue:
 //
 //   C[M, N] = A[M, K] B[K, N] over k in one split of K, bf16 operands, f32
 //   accumulated in registers, handed to an epilogue functor.
+//
+// Its users: the training block (block_train.cu, #9a / #9b), the eval block
+// (fused_block.cu, #2 / #3) and the ViT FFN (fused_ffn.cu, #13).
 //
 // Operand layouts (row-major storage with a leading dimension ld):
 //  - A K-major: A[m, k] at a[m * ld + k] (activations);
@@ -14,18 +17,26 @@
 // K-major tiles are rows of 64 K-elements (128 bytes) in the 128-byte
 // swizzle of sm90.cuh; an MN-major tile is one such 64 x 64 block per 64
 // MN-elements, its rows the K index, the blocks 8 KB apart (the
-// descriptor's leading byte offset, LBO; the 8-row groups 1 KB apart,
-// SBO).  The instruction's transpose bits read them MN-major.
+// descriptor's leading byte offset, LBO, for a tile 128 or 256 wide; the
+// 8-row groups 1 KB apart, SBO).  The instruction's transpose bits read
+// them MN-major.
 //
 // Tiles: a block of two consumer warpgroups (256 threads) owns kBM = 128
-// output rows (64 a warpgroup) by kBN = 256 columns and walks K in steps
-// of kBK = 64 through a ring of kStages shared-memory stages filled by
-// 16-byte cp.async copies (every thread copies; zero fill past the ragged
-// edge of M, and of K where K is the rows of a weight gradient).  The
-// copies of step i + kStages - 2 are issued at step i, after a barrier that every
-// warpgroup reaches only once its products of step i - 2 are complete
-// (wgmma.wait_group 1 keeps one step's products in flight behind the
-// next).  Copies reach wgmma through the async-proxy fence.
+// output rows (64 a warpgroup) by Form::kBN columns and walks K in steps
+// of kBK = 64 through a ring of Form::kStages shared-memory stages filled
+// by 16-byte cp.async copies (every thread copies; zero fill past the
+// ragged edge of M, and of K where K is the rows of a weight gradient).
+// The copies of step i + kStages - 2 are issued at step i, after a barrier
+// that every warpgroup reaches only once its products of step i - 2 are
+// complete (wgmma.wait_group 1 keeps one step's products in flight behind
+// the next).  Copies reach wgmma through the async-proxy fence.
+//
+// Two forms, chosen per launch by launch_gemm (PERF.md section 6 has the
+// sweep): Wide, 256 columns (m64n256k16); Narrow, 128 columns
+// (m64n128k16), for a launch where some N is no multiple of 256 or whose
+// narrow tiles fit one wave of the card; one block an SM.  N is a multiple
+// of the form's width; the host-side mirror of the choice and of the tile
+// walk is ops/gemm_sm90.py.
 //
 // Work: a launch covers up to three problems (the weight gradients of the
 // training block share one), each cut into splits of K x row tiles x
@@ -38,7 +49,8 @@
 // in chunks of eight consecutive columns of a row (a thread keeps its
 // columns, so an epilogue's column sums stay in registers until
 // tile_colsum adds the threads' in a fixed order), so the epilogue's loads
-// and stores are 16-byte and row-contiguous.
+// and stores are 16-byte and row-contiguous.  Rows past M are never
+// handed to the epilogue.
 #pragma once
 
 #include "common.cuh"
@@ -47,14 +59,31 @@
 namespace vt {
 namespace g90 {
 
-// the tile, chosen by measurement on the H100 (PERF.md section 6: 128 x
-// 128 tiles with 3 or 4 stages, or two blocks an SM, were slower)
 constexpr int kBM = 128;      // output rows of a block: two warpgroups of 64
-constexpr int kBN = 256;      // output columns of a block
 constexpr int kBK = 64;       // K step: one 128-byte swizzled row of bf16
-constexpr int kStages = 4;    // ring depth: copies run two K steps ahead
 constexpr int kThreads = 256;
 constexpr int kMaxProblems = 3;
+
+// a tile form: its output columns and ring depth, and its shared memory
+// (one block an SM)
+template <int BN, int STAGES>
+struct Form {
+  static constexpr int kBN = BN, kStages = STAGES;
+  static constexpr int kA = kBM * kBK * 2;  // 16 KB, either layout
+  static constexpr int kB = BN * kBK * 2;
+  static constexpr int kStage = kA + kB;
+  static constexpr int kLdC = BN + 8;  // f32 row stride of the staged tile
+  static_assert(kBM * kLdC * 4 <= STAGES * kStage, "the staged tile fits the ring");
+  static_assert(STAGES >= 3, "a ring of at least three stages");
+  static constexpr int kRed = kThreads * 8 * 4;  // a thread's eight column sums
+  // + 1024: the dynamic shared memory is aligned to 1024 bytes in-kernel
+  static constexpr int kBytes = 1024 + STAGES * kStage + kRed;
+};
+
+// the forms, chosen by measurement on the H100 (PERF.md section 6)
+using Wide = Form<256, 4>;
+using Narrow = Form<128, 4>;
+constexpr int kSMs = 132;  // the H100's SMs: one wave of one-block-an-SM tiles
 
 // wgmma descriptor of a 128-byte-swizzled tile with an explicit leading
 // byte offset (the MN-block stride of an MN-major operand wider than 64)
@@ -62,32 +91,6 @@ __device__ __forceinline__ uint64_t desc_sw128_lbo(uint32_t addr, uint32_t lbo) 
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
-
-#define VT_R8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
-                 "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// D[64 x 256] += A[64 x 16] B[16 x 256] from shared memory (descriptors);
-// TA / TB: the operand is MN-major (transposed by the instruction)
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, %131, %132;\n}\n"
-      : VT_R8(0), VT_R8(8), VT_R8(16), VT_R8(24), VT_R8(32), VT_R8(40), VT_R8(48), VT_R8(56), VT_R8(64), VT_R8(72), VT_R8(80), VT_R8(88), VT_R8(96), VT_R8(104), VT_R8(112), VT_R8(120)
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-
-#undef VT_R8
 
 // one operand: row-major storage with leading dimension ld (elements)
 struct Operand {
@@ -97,6 +100,7 @@ struct Operand {
 
 // one product C[M, N] = A B over K, cut into splits of k_chunk rows of K
 // (a multiple of kBK); its blocks are items item0 .. item0 + items - 1
+// (the tile counts are the launch's: tile_args)
 struct Problem {
   Operand a, b;
   int M, N, K, k_chunk;
@@ -108,34 +112,30 @@ struct GemmArgs {
   int n_problems, items;
 };
 
-// a host-side problem: its tile counts and first item
-inline Problem make_problem(Operand a, Operand b, int M, int N, int K, int k_chunk, int item0) {
-  Problem p = {a, b, M, N, K, k_chunk, (M + kBM - 1) / kBM, N / kBN,
-               (K + k_chunk - 1) / k_chunk, item0};
+inline Problem make_problem(Operand a, Operand b, int M, int N, int K, int k_chunk) {
+  Problem p = {a, b, M, N, K, k_chunk, 0, 0, 0, 0};
   return p;
 }
 
-inline int items_of(const Problem& p) { return p.m_tiles * p.n_tiles * p.splits; }
+// one product over all its rows: A [M, K] K-major, B K-major (x W^T) or
+// MN-major (dy W)
+inline GemmArgs one(const bf16* a, int lda, const bf16* b, int ldb, int M, int N, int K) {
+  GemmArgs args = {};
+  args.p[0] = make_problem({a, lda}, {b, ldb}, M, N, K, K);
+  args.n_problems = 1;
+  return args;
+}
 
 // the staged output tile an epilogue sees
+template <int BN>
 struct Tile {
+  static constexpr int kBN = BN;
   const float* c;  // [kBM][ld] f32 in shared memory
   int ld;
   int m0, n0;      // global row and column of c[0]
   int M, N;
   int m_tile, split;
   float* red;      // [kThreads / (kBN / 8)][kBN] f32 shared scratch (column sums)
-};
-
-struct Layout {
-  static constexpr int kA = kBM * kBK * 2;  // 16 KB, either layout
-  static constexpr int kB = kBN * kBK * 2;
-  static constexpr int kStage = kA + kB;
-  static constexpr int kLdC = kBN + 8;  // f32 row stride of the staged tile
-  static_assert(kBM * kLdC * 4 <= kStages * kStage, "the staged tile fits the ring");
-  static constexpr int kRed = kThreads * 8 * 4;  // a thread's eight column sums
-  // + 1024: the dynamic shared memory is aligned to 1024 bytes in-kernel
-  static constexpr int kBytes = 1024 + kStages * kStage + kRed;
 };
 
 // copy rows r0 .. r0 + ROWS - 1 (< limit, else zero) x 64 K-elements from
@@ -165,13 +165,21 @@ __device__ __forceinline__ void load_mnmajor(uint32_t dst, const Operand& o, int
   }
 }
 
+// one k16 product of the form's width
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256)
+    sm90::wgmma_ss_n256<TA, TB>(d, da, db);
+  else
+    sm90::wgmma_ss_n128<TA, TB>(d, da, db);
+}
+
 // the tile loop; see the header comment
-template <bool kAMN, bool kBMN, class Epi>
+template <class F, bool kAMN, bool kBMN, class Epi>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, const Epi epi) {
   using namespace sm90;
-  using L = Layout;
+  constexpr int kBN = F::kBN, kStages = F::kStages;
   constexpr int kAhead = kStages - 2;  // K steps whose copies are in flight
-  static_assert(kAhead >= 1, "a ring of at least three stages");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
@@ -193,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, 
   const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
 
   auto load = [&](int s, int kt) {
-    const uint32_t a_dst = base + s * L::kStage, b_dst = a_dst + L::kA;
+    const uint32_t a_dst = base + s * F::kStage, b_dst = a_dst + F::kA;
     const int k0 = kb + kt * kBK;
     if (kAMN)
       load_mnmajor<kBM>(a_dst, pr.a, m0, k0, ke);
@@ -221,15 +229,15 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, 
     __syncthreads();  // step i has landed; every warpgroup is done with step i - 2
     if (i + kAhead < nk) load((i + kAhead) % kStages, i + kAhead);
     cp_async_commit();
-    const uint32_t a_addr = base + (i % kStages) * L::kStage + wg * 8192;
-    const uint32_t b_addr = base + (i % kStages) * L::kStage + L::kA;
+    const uint32_t a_addr = base + (i % kStages) * F::kStage + wg * 8192;
+    const uint32_t b_addr = base + (i % kStages) * F::kStage + F::kA;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t da = desc_sw128(a_addr + (kAMN ? kk * 2048 : kk * 32));
       const uint64_t db = kBMN ? desc_sw128_lbo(b_addr + kk * 2048, 8192)
                                : desc_sw128(b_addr + kk * 32);
-      wgmma_ss_n256<kAMN ? 1 : 0, kBMN ? 1 : 0>(acc, da, db);
+      wgmma_ss<kBN, kAMN ? 1 : 0, kBMN ? 1 : 0>(acc, da, db);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -248,24 +256,65 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, 
   for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(c_s + (r0 + 8 * h) * L::kLdC + 8 * j + 2 * (lane & 3)) =
+      *reinterpret_cast<float2*>(c_s + (r0 + 8 * h) * F::kLdC + 8 * j + 2 * (lane & 3)) =
           make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   __syncthreads();
-  const Tile tile = {c_s, L::kLdC, m0, n0, pr.M, pr.N, m_tile, split,
-                     reinterpret_cast<float*>(sm + kStages * L::kStage)};
+  const Tile<kBN> tile = {c_s, F::kLdC, m0, n0, pr.M, pr.N, m_tile, split,
+                          reinterpret_cast<float*>(sm + kStages * F::kStage)};
   epi(tile, pi);
 }
 
-// launch one GemmArgs on `st`
+// Narrow where some problem's N is no multiple of the wide tile, or where
+// the launch's narrow tiles (over all problems and splits) fit one wave of
+// the card, twice as many blocks on it as wide ones (ops/gemm_sm90.tile_n)
+inline bool narrow_launch(const GemmArgs& a) {
+  long long wide = 0;
+  for (int i = 0; i < a.n_problems; ++i) {
+    const Problem& p = a.p[i];
+    if (p.N % Wide::kBN) return true;
+    wide += (long long)((p.M + kBM - 1) / kBM) * (p.N / Wide::kBN) *
+            ((p.K + p.k_chunk - 1) / p.k_chunk);
+  }
+  return 2 * wide <= kSMs;
+}
+
+// every problem's tile counts and first item for tiles bn columns wide;
+// false where a problem does not fit them (N no multiple of bn, a K-major
+// K or a split no multiple of the K step)
+inline bool tile_args(GemmArgs& a, int bn, bool ragged_k) {
+  a.items = 0;
+  for (int i = 0; i < a.n_problems; ++i) {
+    Problem& p = a.p[i];
+    if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.N % bn || p.k_chunk <= 0 || p.k_chunk % kBK ||
+        (!ragged_k && p.K % kBK))
+      return false;
+    p.m_tiles = (p.M + kBM - 1) / kBM;
+    p.n_tiles = p.N / bn;
+    p.splits = (p.K + p.k_chunk - 1) / p.k_chunk;
+    p.item0 = a.items;
+    a.items += p.m_tiles * p.n_tiles * p.splits;
+  }
+  return true;
+}
+
+// launch one GemmArgs in form F on `st`
+template <class F, bool kAMN, bool kBMN, class Epi>
+cudaError_t launch_form(GemmArgs args, const Epi& epi, cudaStream_t st) {
+  // K-major loads read whole K steps; only the MN-major pair zero-fills K
+  if (!tile_args(args, F::kBN, kAMN && kBMN)) return cudaErrorInvalidValue;
+  auto kernel = gemm_kernel<F, kAMN, kBMN, Epi>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kBytes);
+  if (err != cudaSuccess) return err;
+  if (args.items > 0) kernel<<<args.items, kThreads, F::kBytes, st>>>(args, epi);
+  return cudaGetLastError();
+}
+
+// launch one GemmArgs on `st` in the form narrow_launch picks
 template <bool kAMN, bool kBMN, class Epi>
 cudaError_t launch_gemm(const GemmArgs& args, const Epi& epi, cudaStream_t st) {
-  auto kernel = gemm_kernel<kAMN, kBMN, Epi>;
-  constexpr int bytes = Layout::kBytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  if (args.items > 0) kernel<<<args.items, kThreads, bytes, st>>>(args, epi);
-  return cudaGetLastError();
+  return narrow_launch(args) ? launch_form<Narrow, kAMN, kBMN>(args, epi, st)
+                             : launch_form<Wide, kAMN, kBMN>(args, epi, st);
 }
 
 // ---- epilogue helpers --------------------------------------------------------
@@ -273,9 +322,9 @@ cudaError_t launch_gemm(const GemmArgs& args, const Epi& epi, cudaStream_t st) {
 // f(row, col, v) for each chunk of eight consecutive columns of each row
 // of the tile below M: thread t takes columns (t % (kBN / 8)) * 8 .. + 7
 // of rows t / (kBN / 8), then every kThreads / (kBN / 8) rows further
-template <class F>
-__device__ __forceinline__ void tile_rows(const Tile& t, F&& f) {
-  constexpr int kPer = kBN / 8, kRows = kThreads / kPer;
+template <class T, class F>
+__device__ __forceinline__ void tile_rows(const T& t, F&& f) {
+  constexpr int kPer = T::kBN / 8, kRows = kThreads / kPer;
   const int c = (threadIdx.x % kPer) * 8;
   for (int r = threadIdx.x / kPer; r < kBM && t.m0 + r < t.M; r += kRows) {
     const float4 lo = *reinterpret_cast<const float4*>(t.c + r * t.ld + c);
@@ -288,8 +337,9 @@ __device__ __forceinline__ void tile_rows(const Tile& t, F&& f) {
 // the tile's column sums in a fixed order: cs[e] is this thread's sum of
 // column (t % (kBN / 8)) * 8 + e over its rows (tile_rows); the row
 // groups' sums meet in red and thread c < kBN adds them in order into out[c]
-__device__ __forceinline__ void tile_colsum(const Tile& t, const float (&cs)[8], float* out) {
-  constexpr int kPer = kBN / 8, kGroups = kThreads / kPer;
+template <class T>
+__device__ __forceinline__ void tile_colsum(const T& t, const float (&cs)[8], float* out) {
+  constexpr int kBN = T::kBN, kPer = kBN / 8, kGroups = kThreads / kPer;
   float* r = t.red + (threadIdx.x / kPer) * kBN + (threadIdx.x % kPer) * 8;
 #pragma unroll
   for (int e = 0; e < 8; ++e) r[e] = cs[e];

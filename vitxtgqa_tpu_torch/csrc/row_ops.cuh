@@ -1,10 +1,9 @@
-// Row helpers shared by the post-attention block kernels: the eval
-// block's and the FFN's tiles (block_gemm.cuh), the W8A8 block
-// (fused_block_w8a8.cu) and the training block's row passes
-// (block_train.cu): four-wide vector loads and stores, the erf gelu and
-// its derivative, and the LayerNorm statistics of a 768-wide row held by
-// one warp (a lane on four consecutive columns in each of six 128-column
-// groups).
+// Row helpers shared by the post-attention block kernels: the eval block's
+// row passes (fused_block.cu), the W8A8 block (fused_block_w8a8.cu) and
+// the training block's row passes (block_train.cu): four-wide vector loads
+// and stores, the erf gelu and its derivative, and the LayerNorm of a
+// 768-wide row held by one warp (a lane on four consecutive columns in
+// each of six 128-column groups).
 #pragma once
 
 #include "common.cuh"
@@ -70,6 +69,31 @@ __device__ __forceinline__ RowStats row_stats(const float x[RGROUPS][4], float e
       v += d * d;
     }
   return {mu, rsqrtf(warp_sum(v) / RN + eps)};
+}
+
+// the row's values (f32 or bf16 in memory) and their LayerNorm xhat, a
+// warp on the row; returns 1 / std
+template <class T>
+__device__ __forceinline__ float row_xhat(const T* x, int lane, float eps,
+                                          float xhat[RGROUPS][4]) {
+#pragma unroll
+  for (int q = 0; q < RGROUPS; ++q) load4(x + q * 128 + lane * 4, xhat[q]);
+  const RowStats st = row_stats(xhat, eps);
+#pragma unroll
+  for (int q = 0; q < RGROUPS; ++q)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) xhat[q][t] = (xhat[q][t] - st.mu) * st.inv;
+  return st.inv;
+}
+
+// y = xhat * s + g on the four columns c .. c + 3
+__device__ __forceinline__ void ln_affine(const float xhat[4], const float* s, const float* g,
+                                          int c, float y[4]) {
+  float sv[4], gv[4];
+  load4(s + c, sv);
+  load4(g + c, gv);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) y[t] = xhat[t] * sv[t] + gv[t];
 }
 
 }  // namespace gemm

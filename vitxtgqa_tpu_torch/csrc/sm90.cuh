@@ -16,7 +16,9 @@
 //  - an MN-major B operand (B of an A B product, the row index being the
 //    reduction dimension: V in P V), transposed by the instruction's
 //    trans-b bit, one k16 step 16 rows = 2048 bytes further, the 8-row
-//    groups 1024 bytes apart (SBO); one 64-wide N block, so LBO is unused;
+//    groups 1024 bytes apart (SBO); one 64-wide N block, so LBO is unused
+//    (a wider MN-major operand is 64-wide blocks whose stride is the
+//    descriptor's LBO: gemm_sm90.cuh);
 //  - an MN-major A operand in the same way (tnsp-a: dS^T in the flash
 //    backward's dQ = dS K, the row index its reduction dimension).
 #pragma once
@@ -112,6 +114,44 @@ __device__ __forceinline__ void wgmma_ss_n64_tatb(float (&d)[32], uint64_t da, u
       "%32, %33, p, 1, 1, 1, 1;\n}\n"
       : VT_R8(0), VT_R8(8), VT_R8(16), VT_R8(24)
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N], N = 256 or 128, from shared memory
+// (descriptors); TA / TB: the operand is MN-major (transposed by the
+// instruction).  The GEMM body's wide and narrow tiles (gemm_sm90.cuh).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : VT_R8(0), VT_R8(8), VT_R8(16), VT_R8(24), VT_R8(32), VT_R8(40), VT_R8(48), VT_R8(56),
+        VT_R8(64), VT_R8(72), VT_R8(80), VT_R8(88), VT_R8(96), VT_R8(104), VT_R8(112), VT_R8(120)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : VT_R8(0), VT_R8(8), VT_R8(16), VT_R8(24), VT_R8(32), VT_R8(40), VT_R8(48), VT_R8(56)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 #undef VT_R8

@@ -11,7 +11,8 @@ are taken in float32; weight gradients come back float32 in the same
 layout.  On a CUDA tensor a wrapper launches its kernel (or raises); on a
 CPU tensor it runs the plain version.  ``launch_plan`` cuts the backward's
 reductions over the rows (the LayerNorm row passes' grid, the weight
-gradients' split of the rows) and sizes their scratch.
+gradients' split of the rows) and sizes their scratch; ``gemm_launches``
+lists the GEMM launches of both kernels.
 
 Dropout: the kernels take a seed (an int64 [1] tensor) and draw the two
 masks in-kernel: the Philox bits of element (row, col) of the [rows, d]
@@ -30,18 +31,19 @@ import torch
 
 from vitxtgqa_tpu_torch.ops import _build
 from vitxtgqa_tpu_torch.ops import dropout as D
+from vitxtgqa_tpu_torch.ops import gemm_sm90 as G
 from vitxtgqa_tpu_torch.ops.fused_block import LANE, gelu_erf
 
 GRAD_NAMES = ("x_q", "ctx", "wo", "bo", "s1", "g1", "w1", "b1", "w2", "b2", "s2", "g2")
 
-# csrc/block_train.cu's constants: the GEMM tile's rows and columns and
-# its K step (gemm_sm90.cuh), the LayerNorm row passes' rows a block (a
-# warp a row) and their grid's cap (two blocks on each of the H100's 132
-# SMs); then the weight gradients' split of the rows: at most MAX_SPLITS
-# splits of at least SPLIT_ROWS rows, so that their one launch fills the
-# card at the training shape (162 tiles of 128 x 256 x 4 splits: ~4.9
-# waves of 132 blocks)
-TILE_M, TILE_N, K_STEP = 128, 256, 64
+# csrc/block_train.cu's constants: the GEMM tile's rows and its K step
+# (gemm_sm90.cuh), the LayerNorm row passes' rows a block (a warp a row)
+# and their grid's cap (two blocks on each of the H100's 132 SMs); then
+# the weight gradients' split of the rows: at most MAX_SPLITS splits of at
+# least SPLIT_ROWS rows, so that their one launch fills the card at the
+# training shape (162 tiles of 128 x 256 x 4 splits: ~4.9 waves of 132
+# blocks)
+TILE_M, K_STEP = G.TILE_M, G.K_STEP
 ROWS_PER_BLOCK, ROW_BLOCKS_MAX = 8, 2 * 132
 MAX_SPLITS, SPLIT_ROWS = 4, 2048
 
@@ -72,6 +74,18 @@ def launch_plan(rows: int, d: int = 768, m: int = 3072) -> BlockPlan:
     splits = -(-rows // k_chunk)
     return BlockPlan(m_tiles, row_blocks, k_chunk, splits, 2 * row_blocks * 3 * d + m_tiles * m,
                      splits * (d * d + 2 * m * d) if splits > 1 else 0)
+
+
+def gemm_launches(rows: int, d: int = 768, m: int = 3072):
+    """csrc/block_train.cu's GEMM launches (ops/gemm_sm90.py), in order:
+    the forward's F1 ctx Wo^T, F3 xb W1^T, F4 h W2^T; the backward's B2
+    dlin2 W2, B3 dpre W1, B5 dlin1 Wo and B6, the three weight gradients
+    in one launch, their reduction over the rows split by launch_plan."""
+    k_chunk = launch_plan(rows, d, m).k_chunk
+    one = lambda n, k: G.launch(G.problem(rows, n, k))
+    return (one(d, d), one(m, d), one(d, m), one(m, d), one(d, m), one(d, d),
+            G.launch(G.problem(d, d, rows, k_chunk), G.problem(m, d, rows, k_chunk),
+                     G.problem(d, m, rows, k_chunk), ragged_k=True))
 
 
 def kernel_ok(d: int, m: int) -> bool:
@@ -200,11 +214,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_widths(name, d, m):
-    if d != 768 or m % TILE_N:
+def check_widths(name: str, d: int, m: int) -> None:
+    """Raise unless csrc/block_train.cu takes these widths: hidden 768 (its
+    LayerNorm row passes) and an FFN width that its route admits, a
+    multiple of the narrow GEMM tile's 128 columns."""
+    if d != 768 or m <= 0 or m % G.NARROW_N:
         raise NotImplementedError(
-            f"{name} kernel: hidden 768 and an FFN width a multiple of {TILE_N} (the GEMM "
-            f"tile's columns) only, got d={d}, m={m}")
+            f"{name} kernel: hidden 768 and an FFN width a multiple of {G.NARROW_N} (the "
+            f"narrow GEMM tile's columns) only, got d={d}, m={m}")
 
 
 def block_train_fwd(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate: float = 0.0,
@@ -223,7 +240,7 @@ def block_train_fwd(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate: floa
         if emit_masks:
             out = out + (mask_a.to(torch.int8), mask_f.to(torch.int8))
         return out
-    _check_widths("block_train_fwd", d, m)
+    check_widths("block_train_fwd", d, m)
     dev = x_q.device
     bf = torch.bfloat16
     _build.require(x_q, "x_q", bf, (rows, d), dev)
@@ -267,7 +284,7 @@ def block_train_bwd(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, rate: flo
         mask_a, mask_f = seed_masks(seed, rows, d, rate, g.device)
         return block_train_bwd_plain(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2,
                                      mask_a, mask_f, rate, eps)
-    _check_widths("block_train_bwd", d, m)
+    check_widths("block_train_bwd", d, m)
     dev = g.device
     bf, f32 = torch.bfloat16, torch.float32
     for name, t, w in (("g", g, d), ("ctx", ctx, d), ("x1h", x1h, d), ("x2h", x2h, d),

@@ -2,9 +2,10 @@
 its plain PyTorch version and its autograd rule.
 
 Counterpart of vitxtgqa_tpu/ops/pallas_ffn.py:fused_ffn, ffn_reference and
-ffn_kernel_ok.  The CUDA kernel is csrc/fused_ffn.cu.  Weights are in
-nn.Linear layout (w1 [M, D], w2 [D2, M]), as ops/fused_block.py takes
-them; the biases are taken in float32 as the Pallas wrapper takes them.
+ffn_kernel_ok.  The CUDA kernel is csrc/fused_ffn.cu (two wgmma GEMMs,
+``launch_plan``).  Weights are in nn.Linear layout (w1 [M, D], w2 [D2,
+M]), as ops/fused_block.py takes them; the biases are taken in float32 as
+the Pallas wrapper takes them.
 
 On the card the kernel takes the gelu of the f32 pre-activation and rounds
 it to bf16 (pallas_ffn._ffn_kernel); the plain version rounds the
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from vitxtgqa_tpu_torch.ops import _build
+from vitxtgqa_tpu_torch.ops import gemm_sm90 as G
 
 LANE = 128
 MIN_ROWS = 2048  # the JAX gate (pallas_ffn.ffn_kernel_ok)
@@ -37,12 +39,24 @@ def fused_ffn_plain(x, w1, b1, w2, b2):
     return (torch.matmul(h, w2.to(dt).t()) + b2).to(dt)
 
 
-def _launch(x, w1, b1, w2, b2):
-    d, m, d2 = x.shape[-1], w1.shape[0], w2.shape[0]
+def check_widths(d: int, m: int, d2: int) -> None:
+    """Raise unless the kernel takes these widths: lane-aligned (the
+    narrow GEMM tile's 128 columns; d a multiple of the 64-deep K step)."""
     if d % LANE or m % LANE or d2 % LANE:
         raise NotImplementedError(
             f"fused_ffn kernel: lane-aligned widths only (multiples of {LANE}), got d={d}, "
             f"m={m}, d2={d2}")
+
+
+def launch_plan(rows: int, d: int, m: int, d2: int):
+    """csrc/fused_ffn.cu's two GEMM launches (ops/gemm_sm90.py): x W1^T
+    into h [rows, m], then h W2^T into out [rows, d2]."""
+    return G.launch(G.problem(rows, m, d)), G.launch(G.problem(rows, d2, m))
+
+
+def _launch(x, w1, b1, w2, b2):
+    d, m, d2 = x.shape[-1], w1.shape[0], w2.shape[0]
+    check_widths(d, m, d2)
     dev = x.device
     x2 = x.reshape(-1, d)
     rows = x2.shape[0]

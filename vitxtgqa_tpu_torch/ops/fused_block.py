@@ -3,7 +3,8 @@ the kernel wrappers and their plain PyTorch versions.
 
 Counterpart of vitxtgqa_tpu/ops/pallas_ffn.py:fused_block,
 fused_block_tanh and fused_block_w8a8.  The CUDA kernels are
-csrc/fused_block.cu and csrc/fused_block_w8a8.cu.  Weights are in
+csrc/fused_block.cu (three wgmma GEMMs and two LayerNorm row passes,
+``launch_plan``) and csrc/fused_block_w8a8.cu.  Weights are in
 nn.Linear layout ([out, in]); biases and LayerNorm parameters are taken in
 float32 as the Pallas wrapper takes them.
 
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from vitxtgqa_tpu_torch.ops import _build
+from vitxtgqa_tpu_torch.ops import gemm_sm90 as G
 from vitxtgqa_tpu_torch.ops.attention import quantize_kv
 
 LANE = 128
@@ -68,14 +70,30 @@ def fused_block_tanh_plain(res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2,
     return _block_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps, res)
 
 
-def _launch(name, res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps):
-    d = x_q.shape[-1]
-    m = w1.shape[0]
-    if d != 768 or m % LANE:
+def check_widths(name: str, d: int, m: int) -> None:
+    """Raise unless csrc/fused_block.cu takes these widths: hidden 768 (its
+    LayerNorm row passes) and a lane-aligned FFN width (the narrow GEMM
+    tile's 128 columns)."""
+    if d != 768 or m <= 0 or m % LANE:
         raise NotImplementedError(
             f"{name} kernel: hidden 768 and a lane-aligned FFN width only, "
             f"got d={d}, m={m}"
         )
+
+
+def launch_plan(rows: int, d: int = 768, m: int = 3072):
+    """csrc/fused_block.cu's three GEMM launches (ops/gemm_sm90.py): ctx
+    Wo^T and h W2^T into the f32 [rows, d] pre-norm rows, xb W1^T into h
+    [rows, m]; its two LayerNorm row passes take every row, a warp a
+    row."""
+    return (G.launch(G.problem(rows, d, d)), G.launch(G.problem(rows, m, d)),
+            G.launch(G.problem(rows, d, m)))
+
+
+def _launch(name, res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps):
+    d = x_q.shape[-1]
+    m = w1.shape[0]
+    check_widths(name, d, m)
     dev = x_q.device
     x2 = x_q.reshape(-1, d)
     c2 = ctx.reshape(-1, d)
