@@ -704,3 +704,123 @@ def test_check_eval_block_rejects_a_planted_fault(fault, monkeypatch):
     monkeypatch.setattr(TFB, fault, _with_bf16_residual(fault.endswith("tanh")))
     with pytest.raises(SystemExit, match=fault):
         CS.check_eval_block(torch.device("cpu"), record, cases[-1:], timed=False)
+
+
+def _w8a8_with_fault(fault: str):
+    """The W8A8 block's twin with one fault planted: h quantized per
+    128-column tile instead of per row ("h_per_tile"), or each product's
+    two scales multiplied together before the sum, acc * (xs * ws), where
+    the twin takes (acc * xs) * ws ("scale_order")."""
+    def dot(xq, xs, w8, ws):
+        acc = torch.matmul(xq.double(), w8.double().t()).float()
+        return acc * (xs * ws.float()) if fault == "scale_order" else acc * xs * ws.float()
+
+    def block(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28, w2s, b2, s2, g2,
+              eps=1e-12, return_quant=False):
+        d, f = x_q.shape[-1], (lambda t: t.float())
+        c2 = ctx.reshape(-1, d).to(x_q.dtype)
+        c8, cs = TFB.quant_rows(c2)
+        x = TFB._ln(x_q.reshape(-1, d).float() + (dot(c8, cs, wo8, wos) + f(bo)), f(s1), f(g1),
+                    eps)
+        x8, xs = TFB.quant_rows(x)
+        h = TFB.gelu_as(dot(x8, xs, w18, w1s) + f(b1))
+        if fault == "h_per_tile":
+            tiles = [TFB.quant_rows(t) for t in h.split(128, dim=1)]
+            h8 = torch.cat([q for q, _ in tiles], dim=1)
+            hs = tiles[0][1]
+            y = sum(dot(q, s, w, w2s) for (q, s), w in zip(tiles, w28.split(128, dim=1)))
+        else:
+            h8, hs = TFB.quant_rows(h)
+            y = dot(h8, hs, w28, w2s)
+        out = TFB._ln(x + (y + f(b2)), f(s2), f(g2), eps).to(x_q.dtype).reshape(x_q.shape)
+        if not return_quant:
+            return out
+        return out, (c8, cs[:, 0]), (x8, xs[:, 0]), (h8, hs[:, 0])
+    return block
+
+
+@pytest.mark.parametrize("fault", [None, "h_per_tile", "scale_order"])
+def test_check_w8a8_block_rejects_a_planted_fault(fault, monkeypatch):
+    """check_w8a8_block (#8) on the CPU, untimed, at hidden 256 and FFN
+    width 1,024 over 2,048 rows (two million values of h): the twin passes,
+    and a block that quantizes h per 128-column tile, or applies a product's
+    two scales in the other order (a last-bit difference that moves some
+    values of h across an int8 step), is rejected by the h8 it forms from
+    its own x8."""
+    record, kw = {}, dict(cases=((2048, 1024),), d=256, timed=False, s8_cases=((130, 128, 256),))
+    if fault is None:
+        CS.check_w8a8_block(torch.device("cpu"), record, **kw)
+        assert record["fused_block_w8a8"]["max_abs_err"] == 0.0
+        return
+    monkeypatch.setattr(TFB, "fused_block_w8a8", _w8a8_with_fault(fault))
+    with pytest.raises(SystemExit, match="fused_block_w8a8 forms or quantizes h"):
+        CS.check_w8a8_block(torch.device("cpu"), record, **kw)
+
+
+def _step_without_w_cur(x_t, stacks, kv8, kvs, key_mask, step, write_offset, num_heads,
+                        eps=1e-12, buffers=None):
+    """fused_decode_step_plain with the current slot's term w_cur * v_cur
+    dropped from the context (the slot still takes its softmax weight)."""
+    n_layers, b, l_p, two_hd = kv8.shape
+    hd_total = two_hd // 2
+    hd = hd_total // num_heads
+    pos = write_offset + int(step)
+    cols = torch.arange(l_p)
+    is_cur = (cols == pos)[None, None, :]
+    allowed = (key_mask > 0) | ((cols >= write_offset) & (cols < pos))[None, :]
+    xv, dt = x_t[:, 0], x_t.dtype
+    heads = lambda t: t.reshape(t.shape[0], -1, num_heads, hd)
+    rows8, rowsc = [], []
+    for l in range(n_layers):
+        proj = lambda w, bias: (torch.matmul(xv.float(), stacks[w][l].to(dt).float().t())
+                                + stacks[bias][l].float()).to(dt)
+        q, k_t, v_t = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+        (k8_t, k_sc), (v8_t, v_sc) = TDS.quantize_kv(k_t), TDS.quantize_kv(v_t)
+        rows8.append(torch.cat([k8_t, v8_t], dim=-1)[:, None, :])
+        rowsc.append(torch.stack([k_sc, v_sc], dim=1)[:, :, None])
+        kf = heads(kv8[l, :, :, :hd_total].to(dt).float())
+        vf = heads(kv8[l, :, :, hd_total:].to(dt).float())
+        qh = q.float().reshape(b, num_heads, hd)
+        scores = torch.einsum("bhd,blhd->bhl", qh, kf) * (kvs[l, :, 0] * hd ** -0.5)[:, None, :]
+        cur = torch.einsum("bhd,bhd->bh", qh, k8_t.to(dt).float().reshape(b, num_heads, hd))
+        scores = scores.masked_fill(~allowed[:, None, :], TDS.NEG)
+        scores = torch.where(is_cur, (cur * (k_sc * hd ** -0.5)[:, None])[:, :, None], scores)
+        w = torch.softmax(scores, dim=-1)
+        wv = torch.where(is_cur, 0.0, w * kvs[l, :, 1][:, None, :]).to(dt).float()
+        ctx = torch.einsum("bhl,blhd->bhd", wv, vf).reshape(b, hd_total).to(dt)
+        xv = TFB.fused_block_plain(xv, ctx, *(stacks[n][l] for n in TDS.STACK_NAMES[6:]),
+                                   eps=eps)
+    return xv[:, None, :], torch.stack(rows8), torch.stack(rowsc)
+
+
+def _step_with_head_off_by_one(*args, buffers=None, **kw):
+    """The twin whose quantized K rows are one int8 step off in head 0."""
+    y, row8, rowsc = TDS.fused_decode_step_plain(*args, **kw)
+    row8 = row8.clone()
+    row8[..., :64] = (row8[..., :64].int() + 1).clamp(-127, 127).to(torch.int8)
+    return y, row8, rowsc
+
+
+@pytest.mark.parametrize("fault", [None, "without_w_cur", "head_off_by_one"])
+def test_check_decode_step_rejects_a_planted_fault(fault, monkeypatch):
+    """check_decode_step (#5) on the CPU, untimed, at the compact cache of
+    384 slots, batch 1 and 2, FFN width 256: the twin passes, and a step
+    that drops the current slot's weighted value, or whose quantized rows
+    are one int8 step off in one head, is rejected (the first through the
+    next layers' quantized rows, which it moves far past their limits; the
+    second by ROW8_HEAD_MOVED, since one step alone is within ROW8_TOL)."""
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x_all, stacks = CS.decode_step_weights(dev, gen, m=256)
+    mask = CS.compact_mask(dev)
+    kw = dict(batches=(1, 2), write_offset=CS.COMPACT_OFFSET, keep=False, timed=False)
+    record = {}
+    if fault is None:
+        CS.check_decode_step(record, x_all, stacks, mask, gen, **kw)
+        assert record["fused_decode_step"]["max_abs_err"] == 0.0
+        return
+    broken = _step_without_w_cur if fault == "without_w_cur" else _step_with_head_off_by_one
+    monkeypatch.setattr(TDS, "fused_decode_step", broken)
+    match = "fused_decode_step" if fault == "without_w_cur" else "quantized rows disagree"
+    with pytest.raises(SystemExit, match=match):
+        CS.check_decode_step(record, x_all, stacks, mask, gen, **kw)

@@ -1,10 +1,11 @@
 """The launch plans of the kernels on csrc/gemm_sm90.cuh's wgmma body, on
 the CPU: ops/gemm_sm90.py mirrors the header's choice of tile form and
 the blocks' walk over the output, so each launch of the ViT FFN (#13),
-the eval block (#2 / #3) and the training block (#9a / #9b) can be
-checked to store every output row and column exactly once (per split of
-its reduction); and the model layers' routes (JAX's width gates) admit
-no FFN width that the wrappers refuse.
+the eval block (#2 / #3), the training block (#9a / #9b) and the W8A8
+block's s8 products (#8) can be checked to store every output row and
+column exactly once (per split of its reduction) in K steps that cover K;
+and the model layers' routes (JAX's width gates) admit no FFN width that
+the wrappers refuse.
 """
 
 import pytest
@@ -125,3 +126,58 @@ def test_the_block_plans_of_the_main_paths():
     assert [ln.tile_n for ln in BT.gemm_launches(55296, 768, 3200)] == [W, N, W, N, W, W, N]
     assert {ln.tile_n for ln in FB.launch_plan(9216)} == {W}
     assert {ln.tile_n for ln in FFN.launch_plan(12608, 1024, 4096, 1024)} == {W}
+
+
+def assert_k_steps_cover(ln: G.Launch):
+    """Per problem and split, the K steps (k_step elements each, from the
+    split's start) cover the split's rows of K exactly: no step reads past
+    K, none is left out."""
+    for pi, p in enumerate(ln.problems):
+        for split in range(-(-p.K // p.k_chunk)):
+            steps = list(G.k_steps(ln, pi, split))
+            kb = split * p.k_chunk
+            assert [s.start for s in steps] == list(range(kb, kb + len(steps) * ln.k_step,
+                                                          ln.k_step))
+            assert steps[-1].stop == min(p.K, kb + p.k_chunk)
+
+
+S8_ROWS = (2048, 2100, 2304, 3072, 9216)
+
+
+@pytest.mark.parametrize("k", (768, 3072))
+@pytest.mark.parametrize("n", (768, 3072))
+@pytest.mark.parametrize("rows", S8_ROWS)
+def test_an_s8_product_covers_every_output_once(rows, n, k):
+    """The W8A8 block's s8 products (launch_gemm_s8: 128-column tiles, K
+    steps of 128 int8) at its row counts (batch 8, compact, batch 2, the
+    ragged 2,100, the 2,048 gate) and widths: every output element is
+    one block's, and the K steps cover K exactly."""
+    ln = G.launch_s8(G.problem(rows, n, k))
+    assert (ln.tile_n, ln.k_step) == (G.NARROW_N, G.S8_K_STEP)
+    assert_covers_once(ln)
+    assert_k_steps_cover(ln)
+
+
+@pytest.mark.parametrize("rows", S8_ROWS)
+def test_the_w8a8_launch_plan(rows):
+    """ops/fused_block.w8a8_launch_plan: c8 Wo8^T over [rows, 768] (K
+    768), x8 W18^T over [rows, 3072] (K 768), h8 W28^T over [rows, 768] (K
+    3,072), each covering its output once in K steps of 128."""
+    plan = FB.w8a8_launch_plan(rows)
+    assert [(ln.problems[0].N, ln.problems[0].K) for ln in plan] == [(768, 768), (3072, 768),
+                                                                      (768, 3072)]
+    for ln in plan:
+        assert_covers_once(ln)
+        assert_k_steps_cover(ln)
+
+
+def test_the_k_step_checks_reject_what_the_kernels_refuse():
+    """A K of 64 more than a multiple of 128 tiles in bf16 (steps of 64)
+    but not in s8 (steps of 128), and the check of the steps rejects a
+    launch that walks such a K in steps of 128 (its last step would read
+    past K)."""
+    assert_k_steps_cover(G.launch(G.problem(2100, 768, 832)))
+    with pytest.raises(ValueError):
+        G.launch_s8(G.problem(2100, 768, 832))
+    with pytest.raises(AssertionError):
+        assert_k_steps_cover(G.Launch((G.problem(2100, 768, 832),), G.NARROW_N, G.S8_K_STEP))

@@ -3,7 +3,7 @@ backward (#1b, #10b) and of the decode attention (#4, #7) of the port
 package found under --root, for an A/B of two checkouts on one card (run
 parent, change, change, parent back to back):
 
-    python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N] [--forms decode|block]
+    python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N] [--forms decode|block|step]
 
 Forms and shapes: #1 at [8, 1152, 768] with the key mask of the synthetic
 serving batch, dec_len 0 and 12; #1's dropout form (rate 0.1, with the
@@ -36,10 +36,18 @@ rows with the FFN width 3,200 (narrow tiles; null where the package under
 --root refuses it), with beside each (``gemm_ms``) the same three
 (forward) or six (backward) products alone as bf16 torch.matmul calls: a
 yardstick of the products, not a library column, since no single call
-computes the block; #2 at the serving batch's 9,216 rows, batch 2's 2,304
-and the compact MMT's 3,072, its three products alone beside it, #3 and
-the W8A8 block #8 at 9,216; and #13 at ViT-L/16's 12,608 rows, ViT-B/32's
-3,200 and ViT-L/16 384 px's 4,616, its twin beside it (``plain_ms``).
+computes the block; #2 and the W8A8 block #8 on the same inputs at the
+serving batch's 9,216 rows, batch 2's 2,304 and the compact MMT's 3,072,
+#2's three products alone beside it, #3 at 9,216; and #13 at ViT-L/16's
+12,608 rows, ViT-B/32's 3,200 and ViT-L/16 384 px's 4,616, its twin beside
+it (``plain_ms``).
+
+``--forms step`` times only the fused decode step #5 (3 MMT layers, step 11
+of 12, its attention planted as chip_smoke.py's check plants it) at batch
+1 and 2 over 1,152 keys and batch 1 over the compact 384, warm (the same
+weights and cache every call) and cold (chip_smoke.cold_copies sets of
+weight stacks and caches in turn), its twin beside each (``plain_ms``: a
+record, not a yardstick).
 """
 
 import argparse
@@ -56,7 +64,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--forms", choices=("all", "decode", "block"), default="all")
+    ap.add_argument("--forms", choices=("all", "decode", "block", "step"), default="all")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path = [root] + [p for p in sys.path if os.path.abspath(p) != os.path.dirname(__file__)]
@@ -111,6 +119,8 @@ def main(argv=None) -> int:
     allowed = lambda km, dec: FA._allowed(km, km.shape[1], dec)
     if args.forms == "block":
         return report(args.root, ms, sdpa, **block_forms(ms, timed, rn, dev, seed))
+    if args.forms == "step":
+        return report(args.root, ms, sdpa, **step_forms(ms, timed, dev))
 
     # the decode attention, warm and cold
     compact = torch.nn.functional.pad(
@@ -282,11 +292,11 @@ def block_forms(ms, timed, rn, dev, seed):
         args = (x_q, ctx) + wargs
         ms[f"#2 [{rows}]"] = timed(lambda: FB.fused_block(*args))
         gemm[f"#2 [{rows}]"] = timed(lambda: (ctx @ wo.t(), x_q @ w1.t(), h @ w2.t()))
+        bo, s1, g1, b1, b2, s2, g2 = (wargs[i] for i in (1, 2, 3, 5, 7, 8, 9))
+        ms[f"#8 [{rows}]"] = timed(lambda: FB.fused_block_w8a8(
+            x_q, ctx, q8[0], q8[1], bo, s1, g1, q8[2], q8[3], b1, q8[4], q8[5], b2, s2, g2))
         if rows == 8 * 1152:
             ms[f"#3 [{rows}]"] = timed(lambda: FB.fused_block_tanh(res, *args))
-            bo, s1, g1, b1, b2, s2, g2 = (wargs[i] for i in (1, 2, 3, 5, 7, 8, 9))
-            ms[f"#8 [{rows}]"] = timed(lambda: FB.fused_block_w8a8(
-                x_q, ctx, q8[0], q8[1], bo, s1, g1, q8[2], q8[3], b1, q8[4], q8[5], b2, s2, g2))
         del x_q, ctx, res, h, args
     # the ViT FFN and its twin
     for rows, d_in, m in ((64 * 197, 1024, 4096), (64 * 50, 768, 3072), (8 * 577, 1024, 4096)):
@@ -295,6 +305,39 @@ def block_forms(ms, timed, rn, dev, seed):
         plain[f"#13 [{rows}]"] = timed(lambda: FFN.fused_ffn_plain(*ffn))
         del ffn
     return {"gemm_ms": gemm, "plain_ms": plain}
+
+
+def step_forms(ms, timed, dev):
+    """#5 warm and cold into ``ms``, its twin (returned under "plain_ms")."""
+    import torch
+
+    import chip_smoke as CS
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    plain = {}
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    mask, _ = CS.serving_masks(dev)
+    x_all, stacks = CS.decode_step_weights(dev, gen)
+    for lp, km_all, wo in ((1152, mask, CS.WRITE_OFFSET),
+                           (384, CS.compact_mask(dev), CS.COMPACT_OFFSET)):
+        kv8_all, kvs_all = CS.decode_step_cache(x_all, stacks, km_all, 11, gen, 12, wo)
+        for b in ((1, 2) if lp == 1152 else (1,)):
+            kv8, kvs = kv8_all[:, :b].contiguous(), kvs_all[:, :b].contiguous()
+            x_t, km = x_all[:b].contiguous(), km_all[:b].contiguous()
+            bufs = DS.step_buffers(3, b, 768, 3072, dev)
+            copies = CS.cold_copies(CS.nbytes(*stacks.values(), kv8, kvs))
+            sets = [(stacks, kv8, kvs)] + [({k: v.clone() for k, v in stacks.items()},
+                                            kv8.clone(), kvs.clone()) for _ in range(copies - 1)]
+            run = lambda st, k8, ks: DS.fused_decode_step(x_t, st, k8, ks, km, 11, wo, 12,
+                                                          buffers=bufs)
+            turn = itertools.count()
+            ms[f"#5 [{b},{lp}] warm"] = timed(lambda: run(*sets[0]))
+            ms[f"#5 [{b},{lp}] cold"] = timed(lambda: run(*sets[next(turn) % copies]))
+            plain[f"#5 [{b},{lp}]"] = timed(lambda: DS.fused_decode_step_plain(
+                x_t, stacks, kv8, kvs, km, 11, wo, 12))
+            del sets
+            torch.cuda.empty_cache()
+    return {"plain_ms": plain}
 
 
 def report(root, ms, sdpa, **beside) -> int:

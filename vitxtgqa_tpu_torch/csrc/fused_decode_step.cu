@@ -22,20 +22,38 @@
 // What bounds it on the H100: at batch 1-2 the weight reads, 14.2 MB per
 // layer (42.5 MB per 3-layer step; ~13 us at 3.35 TB/s), plus 3.5 MB of
 // int8 cache per row and layer; the FLOPs (2 per weight byte per row) are
-// negligible.  The per-layer dependencies (QKV -> attention -> Wo + LN1 ->
-// W1 + gelu -> W2 + LN2 -> next QKV) cost one grid-wide barrier each.
+// negligible.  The per-layer dependencies cost grid-wide barriers, and
+// every phase between two barriers is a chain of memory latencies.
 //
-// Design: a persistent cooperative kernel, one or two blocks of 512
-// threads per SM (sized by the occupancy query), with
-// cooperative_groups::this_grid().sync() between the five phases of a
-// layer.  Each GEMV phase spreads its output rows over every warp of the
-// grid: a warp owns one row of the [out, in] weight, reads it as 16-byte
-// loads (contiguous across the warp), and dots it with all batch rows held
-// in shared memory.  The attention phase gives a block one (row, head)
-// unit.  LayerNorms are recomputed by every block that needs their output
-// (a B x 768 row each), which costs less than another barrier.  Scratch
-// written inside the launch is read back with __ldcg (L2, not the
-// non-coherent L1 path).
+// Design: a persistent cooperative kernel, one block of 384 threads per SM
+// (168 registers a thread), four phases a layer with
+// cooperative_groups::this_grid().sync() between them, where the first
+// version had five and put each (row, head) unit's attention on one block
+// (PERF.md section 6 has the phase times that chose this):
+//  A. LN2 of the previous layer (every block, from the f32 rows staged in
+//     shared memory), then the Q/K/V GEMV;
+//  B. attention and Wo: each (batch row, head) unit is cut into key spans
+//     that together fill the grid.  Every block of a unit scores all its
+//     keys (so each forms the same softmax max and sum, and the weights
+//     round after normalising as in the twin), then weighs V over its own
+//     span only and writes that f32 partial; the unit's blocks meet at a
+//     counter (no grid barrier), each sums the unit's partials in span order
+//     into ctx_h (bf16), and each multiplies ctx_h by its share of the
+//     output rows of Wo[:, h], writing the head's f32 partial of ctx Wo^T;
+//  C. x1 = LN1(x + sum of the head partials in head order + bo) in every
+//     block, then the W1 GEMV with the gelu;
+//  D. the W2 GEMV, x1 + h W2^T + b2 -> the next layer's pre-LN rows.
+// Each GEMV gives a warp several weight rows at once (one row of 3,072, or
+// four of 768), the groups of rows dealt to the blocks in turn so that
+// every SM streams, and issues all of a lane's 16-byte loads of them before
+// the phase's input is formed (the LayerNorm, the staging of h), so twelve
+// loads a lane are in flight under it.  Before the attention phase each
+// warp prefetches its W1 and W2 rows into L2 (cp.async.bulk.prefetch), and
+// before the W2 phase its next-layer Q/K/V rows.  Scratch written inside
+// the launch is read back with __ldcg (L2, not the non-coherent L1 path).
+// The grid and the shared-memory attribute are computed once per device.
+// The widths are the MMT's (768, 3,072, 12 heads of 64) and the cache at
+// most 1,152 slots; the wrapper raises on others.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -45,13 +63,20 @@ namespace cg = cooperative_groups;
 namespace vt {
 namespace step {
 
-constexpr int NT = 512;
+constexpr int NT = 384;
 constexpr int NW = NT / 32;
 constexpr int HD = 64;
 constexpr int MAXB = 8;
-constexpr int kMaxBlocksPerSM = 2;  // more blocks only make each barrier slower
+constexpr int kD = 768, kM = 3072;  // the MMT's hidden and FFN widths
+constexpr int kH = kD / HD;
+constexpr int kLoads = 12;          // a lane's 16-byte weight loads in flight
+constexpr int kMaxLp = 1152;        // cache slots (the exact serving sequence)
+constexpr int kMaxSpans = 16;       // key spans of one (row, head) unit
 constexpr float kFill = -1e30f;     // pallas_decode_step.py _NEG
-constexpr int kAttnExtra = 3 * HD + NW * HD + 40;  // attention scratch beyond the scores
+// attention scratch beyond the scores: qh, cur (k8 | v8), per-warp partial
+// outputs, reduction scratch, scalars, ctx_h
+constexpr int kAttnExtra = HD + 2 * HD + NW * HD + 32 + 8 + HD;
+static_assert(kMaxLp + kAttnExtra <= kM, "attention scratch fits the GEMV input of one row");
 
 struct Params {
   const bf16* x;                                                 // [B, D]
@@ -64,10 +89,12 @@ struct Params {
   int8_t* row8;                                                  // [L, B, 2*D]
   float* rowsc;                                                  // [L, B, 2]
   bf16* qkv;                                                     // [B, 3*D] scratch
-  bf16* ctx;                                                     // [B, D] scratch
   float* pre;                                                    // [B, D] pre-LN rows
   bf16* h;                                                       // [B, M] scratch
-  int L, B, Lp, D, M, H, step, write_offset;
+  float* opart;                                                  // [H, B, D] ctx_h Wo[:, h]^T
+  float* apart;                                                  // [B*H, spans, HD] V partials
+  int* arrive;                                                   // [B*H] span counters
+  int L, B, Lp, step, write_offset, spans;
   float eps, scale;
 };
 
@@ -79,176 +106,342 @@ __device__ __forceinline__ int8_t quantize(float x, float sc) {
   return (int8_t)fminf(fmaxf(rintf(x / sc), -127.f), 127.f);
 }
 
-// out[b][n] = act[b, :] . W[n, :] for n over the grid's warps; act is
-// [B][K] f32 in shared memory; epi(b, n, acc) consumes each dot.
-template <typename Row, typename Epi>
-__device__ __forceinline__ void gemv(Row wrow, const float* act, int K, int N, int B, Epi epi) {
+// an asynchronous L2 prefetch of `bytes` (a multiple of 16) from p
+__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bf16x8(uint4 raw, float (&w)[8]) {
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) w[t] = __bfloat162float(e[t]);
+}
+
+// the first row of this warp's first group of R rows: groups go to the
+// blocks in turn, so that a phase's rows spread over every SM
+__device__ __forceinline__ int first_group() {
+  return (threadIdx.x / 32) * gridDim.x + blockIdx.x;
+}
+
+// out[b][n] = act[b, :] . W[n, :] for the N rows of one [N, K] weight: a
+// warp takes R = kLoads / (K / 256) consecutive rows at once and loads them
+// all before it uses any.  The warp's first loads are issued before
+// prep(), which every thread calls and which fills act ([B][K] f32 in
+// shared memory, B <= MB) and ends in a block barrier, so the weights
+// stream while the input is formed.  epi(b, n, acc) consumes each dot on
+// lane 0.
+template <int K, int MB, typename Row, typename Prep, typename Epi>
+__device__ __forceinline__ void gemv(Row wrow, const float* act, int N, int B, Prep prep,
+                                     Epi epi) {
+  constexpr int kPer = K / 256, R = kLoads / kPer;
   const int lane = threadIdx.x % 32;
-  const int nw = gridDim.x * NW;
-  for (int n = blockIdx.x * NW + threadIdx.x / 32; n < N; n += nw) {
-    const bf16* wr = wrow(n);
-    float acc[MAXB];
+  const int step = gridDim.x * NW * R;
+  uint4 raw[R][kPer];
+  auto load = [&](int n0) {
 #pragma unroll
-    for (int b = 0; b < MAXB; ++b) acc[b] = 0.f;
-#pragma unroll 4
-    for (int k0 = lane * 8; k0 < K; k0 += 256) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(wr + k0));
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-      float w[8];
+    for (int r = 0; r < R; ++r) {
+      const bf16* wr = wrow(min(n0 + r, N - 1));
 #pragma unroll
-      for (int t = 0; t < 8; ++t) w[t] = __bfloat162float(e[t]);
+      for (int i = 0; i < kPer; ++i)
+        raw[r][i] = __ldg(reinterpret_cast<const uint4*>(wr + lane * 8 + i * 256));
+    }
+  };
+  int n0 = first_group() * R;
+  if (n0 < N) load(n0);
+  prep();
+  for (; n0 < N; n0 += step) {
+    float acc[R][MB];
 #pragma unroll
-      for (int b = 0; b < MAXB; ++b) {
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int b = 0; b < MB; ++b) acc[r][b] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k0 = lane * 8 + i * 256;
+#pragma unroll
+      for (int b = 0; b < MB; ++b) {
         if (b < B) {
           const float4 a0 = *reinterpret_cast<const float4*>(act + b * K + k0);
           const float4 a1 = *reinterpret_cast<const float4*>(act + b * K + k0 + 4);
-          acc[b] += a0.x * w[0] + a0.y * w[1] + a0.z * w[2] + a0.w * w[3] + a1.x * w[4] +
-                    a1.y * w[5] + a1.z * w[6] + a1.w * w[7];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float w[8];
+            bf16x8(raw[r][i], w);
+            acc[r][b] += a0.x * w[0] + a0.y * w[1] + a0.z * w[2] + a0.w * w[3] + a1.x * w[4] +
+                         a1.y * w[5] + a1.z * w[6] + a1.w * w[7];
+          }
         }
       }
     }
+    if (n0 + step < N) load(n0 + step);
 #pragma unroll
-    for (int b = 0; b < MAXB; ++b) {
-      if (b < B) {
-        const float s = warp_sum(acc[b]);
-        if (lane == 0) epi(b, n, s);
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int b = 0; b < MB; ++b) {
+        if (b < B) {
+          const float s = warp_sum(acc[r][b]);
+          if (lane == 0 && n0 + r < N) epi(b, n0 + r, s);
+        }
       }
-    }
   }
 }
 
-// LayerNorm of the B rows of src (global, written in this launch) with the
-// f32 scale / shift; a warp per row.  Each output is nullable: out_f32
-// (shared) takes the f32 result, out_bf_f32 (shared) its bf16 rounding as
-// f32, out_bf (global) the bf16 values.
-__device__ void layer_norm_rows(const float* src, const float* gamma, const float* beta,
-                                int B, int D, float eps, float* out_f32, float* out_bf_f32,
+// prefetch into L2 the weight rows this warp's gemv<K> will read (a group
+// of R rows is contiguous; N is a multiple of R): one bulk prefetch a group
+template <int K, typename Row>
+__device__ __forceinline__ void prefetch_rows(Row wrow, int N) {
+  constexpr int R = kLoads / (K / 256);
+  if (threadIdx.x % 32) return;
+  for (int n0 = first_group() * R; n0 < N; n0 += gridDim.x * NW * R)
+    prefetch_l2(wrow(n0), R * K * 2);
+}
+
+// LayerNorm of the B rows of src (shared memory, f32) with the f32 scale
+// / shift: a warp forms each row's statistics, then every thread
+// normalises elements.  Each output is nullable: out_f32 (shared) takes the
+// f32 result, out_bf_f32 (shared) its bf16 rounding as f32, out_bf
+// (global) the bf16 values.  Safe in place (out_f32 == src); stats is
+// 2 * B floats of shared scratch.  Ends in a block barrier.
+__device__ void layer_norm_rows(const float* src, const float* gamma, const float* beta, int B,
+                                float eps, float* stats, float* out_f32, float* out_bf_f32,
                                 bf16* out_bf) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   for (int b = warp; b < B; b += NW) {
-    const float* r = src + (size_t)b * D;
+    const float* r = src + b * kD;
     float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += __ldcg(r + c);
-    const float mu = warp_sum(s) / D;
+#pragma unroll
+    for (int c = lane; c < kD; c += 32) s += r[c];
+    const float mu = warp_sum(s) / kD;
     float v = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = __ldcg(r + c) - mu;
+#pragma unroll
+    for (int c = lane; c < kD; c += 32) {
+      const float d = r[c] - mu;
       v += d * d;
     }
-    const float inv = rsqrtf(warp_sum(v) / D + eps);
-    for (int c = lane; c < D; c += 32) {
-      const float y = (__ldcg(r + c) - mu) * inv * gamma[c] + beta[c];
-      if (out_f32) out_f32[b * D + c] = y;
-      if (out_bf_f32) out_bf_f32[b * D + c] = round_bf16(y);
-      if (out_bf) out_bf[(size_t)b * D + c] = __float2bfloat16(y);
+    const float inv = rsqrtf(warp_sum(v) / kD + eps);
+    if (lane == 0) stats[2 * b] = mu, stats[2 * b + 1] = inv;
+  }
+  __syncthreads();
+  constexpr int kU = 4;  // elements a thread, their scale / shift loaded together
+  for (int i0 = threadIdx.x; i0 < B * kD; i0 += kU * NT) {
+    float gv[kU], bv[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int c = (i0 + u * NT) % kD;
+      gv[u] = __ldg(gamma + c);
+      bv[u] = __ldg(beta + c);
     }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * NT, b = i / kD;
+      if (i >= B * kD) break;
+      const float y = (src[i] - stats[2 * b]) * stats[2 * b + 1] * gv[u] + bv[u];
+      if (out_f32) out_f32[i] = y;
+      if (out_bf_f32) out_bf_f32[i] = round_bf16(y);
+      if (out_bf) out_bf[i] = __float2bfloat16(y);
+    }
+  }
+  __syncthreads();
+}
+
+// dst[i] = src[i] for count f32 values written in this launch
+__device__ __forceinline__ void stage_f32(float* dst, const float* src, int count) {
+  for (int i = threadIdx.x * 4; i < count; i += NT * 4)
+    *reinterpret_cast<float4*>(dst + i) = __ldcg(reinterpret_cast<const float4*>(src + i));
+}
+
+// dst[i] = f32(src[i]) for count bf16 values written in this launch
+__device__ __forceinline__ void stage_bf16(float* dst, const bf16* src, int count) {
+  for (int i = threadIdx.x * 8; i < count; i += NT * 8) {
+    float w[8];
+    bf16x8(__ldcg(reinterpret_cast<const uint4*>(src + i)), w);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) dst[i + t] = w[t];
   }
 }
 
-// Attention for one (batch row, head) unit of layer l; `sm` is shared
-// scratch of kAttnExtra + Lp floats.
-__device__ void attention_unit(const Params& p, int l, int b, int h, float* sm) {
-  float* s = sm;                 // [Lp] scores, then weights
-  float* qh = s + p.Lp;          // [HD] query of this head
-  float* cur = qh + HD;          // [2 * HD] k8_t, v8_t of this head
-  float* part = cur + 2 * HD;    // [NW * HD] per-warp partial outputs
-  float* red = part + NW * HD;   // [32] reduction scratch
-  float* scal = red + 32;        // k_sc, v_sc, w_cur
-  const int tid = threadIdx.x, D = p.D;
-  const bf16* qkv = p.qkv + (size_t)b * 3 * D;
+// four int8 of a word as exact floats: each byte, biased by 128, becomes
+// the mantissa of 2^23 (a byte permute and a subtraction, no conversion)
+__device__ __forceinline__ void i8x4(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  f[1] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  f[2] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  f[3] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+}
+
+__device__ __forceinline__ void i8x16(int4 w, float (&f)[16]) {
+  i8x4((uint32_t)w.x, f);
+  i8x4((uint32_t)w.y, f + 4);
+  i8x4((uint32_t)w.z, f + 8);
+  i8x4((uint32_t)w.w, f + 12);
+}
+
+// the shared attention scratch of one unit (kMaxLp + kAttnExtra floats)
+struct AttnSmem {
+  float *s, *qh, *cur, *part, *red, *scal, *ctxh;
+  __device__ explicit AttnSmem(float* sm) {
+    s = sm;
+    qh = s + kMaxLp;
+    cur = qh + HD;
+    part = cur + 2 * HD;
+    red = part + NW * HD;
+    scal = red + 32;
+    ctxh = scal + 8;
+  }
+};
+
+constexpr int kKeyPass = NT / 4;              // keys a pass: four lanes a key
+constexpr int kBatch = 4;                     // key passes whose loads are in flight together
+constexpr int kKeyIts = kMaxLp / NT;          // keys a thread in the masking pass
+constexpr int kVPre = 2;                      // V passes of a span loaded early
+
+// Attention of one (batch row b, head h) unit of layer l over key span sp of
+// S: the new row's quantization (span 0 writes row8 / rowsc), the scores and
+// softmax over all keys, the weighted V rows of the span -> apart.  Four
+// lanes share a key, sixteen channels each (int8 to f32 by byte permutes);
+// the span's first V rows and scales load under the softmax.
+__device__ void attention_span(const Params& p, int l, int b, int h, int sp, int S,
+                               const AttnSmem& a) {
+  const int tid = threadIdx.x, ch = tid % 4;
+  const bf16* qkv = p.qkv + (size_t)b * 3 * kD;
   const int pos = p.write_offset + p.step;
+  const size_t cache0 = ((size_t)l * p.B + b) * p.Lp;
+  const int8_t* kv = p.kv8 + cache0 * 2 * kD + h * HD + ch * 16;
+  const float* ks = p.kvs + ((size_t)l * p.B + b) * 2 * p.Lp;
+  const float* vs = ks + p.Lp;
+  const float* mask = p.mask + (size_t)b * p.Lp;
+  const int j0 = sp * p.Lp / S, j1 = (sp + 1) * p.Lp / S;
+  // every key's mask and K scale (a key a thread), loaded first
+  float mk[kKeyIts], ksk[kKeyIts];
+#pragma unroll
+  for (int it = 0; it < kKeyIts; ++it) {
+    const int j = tid + it * NT;
+    if (j < p.Lp) mk[it] = mask[j], ksk[it] = ks[j];
+  }
 
   // the new row's scales from the amax over all heads (bf16 values)
   float ka = 0.f, va = 0.f;
-  for (int c = tid; c < D; c += NT) {
-    ka = fmaxf(ka, fabsf(__bfloat162float(__ldcg(qkv + D + c))));
-    va = fmaxf(va, fabsf(__bfloat162float(__ldcg(qkv + 2 * D + c))));
+  if (tid < 2 * kD / 8) {
+    float w[8];
+    bf16x8(__ldcg(reinterpret_cast<const uint4*>(qkv + kD + tid * 8)), w);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) (tid < kD / 8 ? ka : va) = fmaxf(tid < kD / 8 ? ka : va, fabsf(w[t]));
   }
-  ka = block_max(ka, red);
-  va = block_max(va, red);
+  ka = block_max(ka, a.red);
+  va = block_max(va, a.red);
   const float k_sc = fmaxf(ka, 1e-6f) / 127.f;
   const float v_sc = fmaxf(va, 1e-6f) / 127.f;
-  int8_t* r8 = p.row8 + ((size_t)l * p.B + b) * 2 * D;
+  int8_t* r8 = p.row8 + ((size_t)l * p.B + b) * 2 * kD;
   if (tid < HD) {
     const int c = h * HD + tid;
-    qh[tid] = __bfloat162float(__ldcg(qkv + c));
-    const int8_t k8 = quantize(__bfloat162float(__ldcg(qkv + D + c)), k_sc);
-    const int8_t v8 = quantize(__bfloat162float(__ldcg(qkv + 2 * D + c)), v_sc);
-    cur[tid] = (float)k8;
-    cur[HD + tid] = (float)v8;
-    r8[c] = k8;
-    r8[D + c] = v8;
+    a.qh[tid] = __bfloat162float(__ldcg(qkv + c));
+    const int8_t k8 = quantize(__bfloat162float(__ldcg(qkv + kD + c)), k_sc);
+    const int8_t v8 = quantize(__bfloat162float(__ldcg(qkv + 2 * kD + c)), v_sc);
+    a.cur[tid] = (float)k8;
+    a.cur[HD + tid] = (float)v8;
+    if (sp == 0) {
+      r8[c] = k8;
+      r8[kD + c] = v8;
+    }
   }
-  if (h == 0 && tid == 0) {
+  if (h == 0 && sp == 0 && tid == 0) {
     p.rowsc[((size_t)l * p.B + b) * 2] = k_sc;
     p.rowsc[((size_t)l * p.B + b) * 2 + 1] = v_sc;
   }
   __syncthreads();
 
-  const size_t cache0 = ((size_t)l * p.B + b) * p.Lp;
-  const int8_t* kv = p.kv8 + cache0 * 2 * D;
-  const float* ks = p.kvs + ((size_t)l * p.B + b) * 2 * p.Lp;
-  const float* vs = ks + p.Lp;
-  const float* mask = p.mask + (size_t)b * p.Lp;
-  float lmax = -INFINITY;
-  for (int j = tid; j < p.Lp; j += NT) {
-    float sc;
-    if (j == pos) {
-      float acc = 0.f;
-      for (int t = 0; t < HD; ++t) acc += qh[t] * cur[t];
-      sc = acc * (k_sc * p.scale);
-    } else if (mask[j] > 0.f || (j >= p.write_offset && j < pos)) {
-      const int8_t* kr = kv + (size_t)j * 2 * D + h * HD;
-      float acc = 0.f;
+  float qr[16];
 #pragma unroll
-      for (int c = 0; c < HD; c += 16) {
-        const int4 w = __ldg(reinterpret_cast<const int4*>(kr + c));
-        const int8_t* e = reinterpret_cast<const int8_t*>(&w);
+  for (int t = 0; t < 16; ++t) qr[t] = a.qh[ch * 16 + t];
+  float cur_sc = 0.f;  // the current token's score (slot pos)
+  for (int t = 0; t < HD; ++t) cur_sc += a.qh[t] * a.cur[t];
+  cur_sc *= k_sc * p.scale;
+  // q . k of every key, kBatch passes' loads in flight at a time
+  for (int it0 = 0; it0 * kKeyPass < p.Lp; it0 += kBatch) {
+    int4 kr[kBatch];
 #pragma unroll
-        for (int t = 0; t < 16; ++t) acc += qh[c + t] * (float)e[t];
-      }
-      sc = acc * (ks[j] * p.scale);
-    } else {
-      sc = kFill;
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = tid / 4 + (it0 + u) * kKeyPass;
+      if (j < p.Lp && j != pos) kr[u] = __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * kD));
     }
-    s[j] = sc;
-    lmax = fmaxf(lmax, sc);
-  }
-  const float mx = block_max(lmax, red);
-  float lsum = 0.f;
-  for (int j = tid; j < p.Lp; j += NT) {
-    const float e = expf(s[j] - mx);
-    s[j] = e;
-    lsum += e;
-  }
-  const float total = block_sum(lsum, red);
-  for (int j = tid; j < p.Lp; j += NT) {
-    const float w = s[j] / total;
-    if (j == pos) {
-      scal[2] = w;
-      s[j] = 0.f;
-    } else {
-      s[j] = round_bf16(w * vs[j]);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = tid / 4 + (it0 + u) * kKeyPass;
+      float part = 0.f;
+      if (j < p.Lp && j != pos) {
+        float kf[16];
+        i8x16(kr[u], kf);
+#pragma unroll
+        for (int t = 0; t < 16; ++t) part += qr[t] * kf[t];
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      if (ch == 0 && j < p.Lp) a.s[j] = part;
     }
   }
   __syncthreads();
+  // the scores: scaled, masked, the current token's from registers
+  float lmax = -INFINITY;
+#pragma unroll
+  for (int it = 0; it < kKeyIts; ++it) {
+    const int j = tid + it * NT;
+    if (j >= p.Lp) break;
+    float sc;
+    if (j == pos) sc = cur_sc;
+    else if (mk[it] > 0.f || (j >= p.write_offset && j < pos)) sc = a.s[j] * (ksk[it] * p.scale);
+    else sc = kFill;
+    a.s[j] = sc;
+    lmax = fmaxf(lmax, sc);
+  }
+  int4 vr[kVPre];
+  float vsr[kVPre];
+#pragma unroll
+  for (int it = 0; it < kVPre; ++it) {
+    const int j = j0 + tid / 4 + it * kKeyPass;
+    if (j < j1 && j != pos) {
+      vr[it] = __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * kD + kD));
+      vsr[it] = vs[j];
+    }
+  }
+  const float mx = block_max(lmax, a.red);
+  float lsum = 0.f;
+  for (int j = tid; j < p.Lp; j += NT) {
+    const float e = expf(a.s[j] - mx);
+    a.s[j] = e;
+    lsum += e;
+  }
+  const float total = block_sum(lsum, a.red);
+  if (tid == 0) {
+    a.scal[0] = a.s[pos] / total;  // w_cur
+    a.scal[1] = v_sc;
+  }
 
-  // weights x V: a lane owns 16 channels of one key (one 16-byte load);
-  // a warp covers 8 keys, the block 128 keys per pass; lanes that share
-  // channels reduce by shuffles, the warps through shared memory
-  const int lane = tid % 32, warp = tid / 32, chunk = lane % 4;
+  // the span's weights x V: a lane owns 16 channels of one key; a warp
+  // covers 8 keys, the block 96 keys per pass; each weight is rounded
+  // after normalising (slot pos is skipped: w_cur enters in head_out);
+  // lanes that share channels reduce by shuffles, the warps through shared
+  // memory
+  const int lane = tid % 32, warp = tid / 32;
   float acc[16];
 #pragma unroll
   for (int t = 0; t < 16; ++t) acc[t] = 0.f;
-  for (int j = warp * 8 + lane / 4; j < p.Lp; j += NT / 4) {
-    const float w = s[j];
+  auto weigh = [&](int j, int4 raw, float vsj) {
+    const float w = round_bf16(a.s[j] / total * vsj);
     if (w != 0.f) {
-      const int4 raw = __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * D + D + h * HD + chunk * 16));
-      const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+      float vf[16];
+      i8x16(raw, vf);
 #pragma unroll
-      for (int t = 0; t < 16; ++t) acc[t] += w * (float)e[t];
+      for (int t = 0; t < 16; ++t) acc[t] += w * vf[t];
     }
+  };
+#pragma unroll
+  for (int it = 0; it < kVPre; ++it) {
+    const int j = j0 + tid / 4 + it * kKeyPass;
+    if (j < j1 && j != pos) weigh(j, vr[it], vsr[it]);
   }
+  for (int j = j0 + tid / 4 + kVPre * kKeyPass; j < j1; j += kKeyPass)
+    if (j != pos) weigh(j, __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * kD + kD)), vs[j]);
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
     acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], 4);
@@ -257,94 +450,244 @@ __device__ void attention_unit(const Params& p, int l, int b, int h, float* sm) 
   }
   if (lane < 4) {
 #pragma unroll
-    for (int t = 0; t < 16; ++t) part[warp * HD + chunk * 16 + t] = acc[t];
+    for (int t = 0; t < 16; ++t) a.part[warp * HD + ch * 16 + t] = acc[t];
   }
   __syncthreads();
   if (tid < HD) {
     float o = 0.f;
 #pragma unroll
-    for (int i = 0; i < NW; ++i) o += part[i * HD + tid];
-    o += scal[2] * (cur[HD + tid] * v_sc);
-    p.ctx[(size_t)b * D + h * HD + tid] = __float2bfloat16(o);
+    for (int i = 0; i < NW; ++i) o += a.part[i * HD + tid];
+    p.apart[((size_t)(b * kH + h) * S + sp) * HD + tid] = o;
   }
-  __syncthreads();  // the unit's scratch is reused by the next unit
 }
 
+// wait until `count` arrivals at *counter, this block's included (the
+// blocks of one unit; co-resident under the cooperative launch)
+__device__ __forceinline__ void unit_barrier(int* counter, int count) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(counter, 1);
+    int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
+    } while (seen < count);
+  }
+  __syncthreads();
+}
+
+constexpr int kWoPre = 2;  // passes of a span's Wo rows loaded before the wait
+
+// Wo rows n .. of head h for this span's outputs: eight lanes on one output
+// row (128 bytes of Wo), a warp on four
+struct WoSlice {
+  const bf16* wo;  // Wo[l] + h * HD + (lane % 8) * 8
+  int n_lo, n_hi;
+  uint4 pre[kWoPre];
+  __device__ WoSlice(const Params& p, int l, int h, int sp, int S) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    wo = p.wo + (size_t)l * kD * kD + h * HD + (lane % 8) * 8;
+    n_lo = sp * kD / S;
+    n_hi = (sp + 1) * kD / S;
+#pragma unroll
+    for (int i = 0; i < kWoPre; ++i) {
+      const int n = n_lo + warp * 4 + i * NW * 4 + lane / 8;
+      if (n < n_hi) pre[i] = __ldg(reinterpret_cast<const uint4*>(wo + (size_t)n * kD));
+    }
+  }
+};
+
+// ctx_h = bf16(sum of the unit's span partials in span order + w_cur *
+// v_cur), then this span's share of ctx_h Wo[n, h*HD:(h+1)*HD]^T -> opart
+__device__ void head_out(const Params& p, int b, int h, int S, const WoSlice& wos,
+                         const AttnSmem& a) {
+  const int tid = threadIdx.x;
+  if (tid < HD) {
+    const float* part = p.apart + (size_t)(b * kH + h) * S * HD + tid;
+    float o = 0.f;
+    for (int s = 0; s < S; ++s) o += __ldcg(part + s * HD);
+    o += a.scal[0] * (a.cur[HD + tid] * a.scal[1]);
+    a.ctxh[tid] = round_bf16(o);
+  }
+  __syncthreads();
+  const int lane = tid % 32, warp = tid / 32, c8 = lane % 8;
+  auto out = [&](int i, uint4 raw) {  // pass i: warp-uniform
+    const int n = wos.n_lo + warp * 4 + i * NW * 4 + lane / 8;
+    float acc = 0.f;
+    if (n < wos.n_hi) {
+      float w[8];
+      bf16x8(raw, w);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) acc += a.ctxh[c8 * 8 + t] * w[t];
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (c8 == 0 && n < wos.n_hi) p.opart[((size_t)h * p.B + b) * kD + n] = acc;
+  };
+#pragma unroll
+  for (int i = 0; i < kWoPre; ++i)
+    if (wos.n_lo + warp * 4 + i * NW * 4 < wos.n_hi) out(i, wos.pre[i]);
+  for (int i = kWoPre; wos.n_lo + warp * 4 + i * NW * 4 < wos.n_hi; ++i) {
+    const int n = min(wos.n_lo + warp * 4 + i * NW * 4 + lane / 8, wos.n_hi - 1);
+    out(i, __ldg(reinterpret_cast<const uint4*>(wos.wo + (size_t)n * kD)));
+  }
+  __syncthreads();  // the unit's scratch is reused by the block's next unit
+}
+
+// MB: the largest batch of the instantiation (its GEMV accumulators)
+template <int MB>
 __global__ void __launch_bounds__(NT, 1) fused_step_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  const int B = p.B, D = p.D, M = p.M;
-  float* xs = smem;          // [B][D] layer input (bf16 values)
-  float* x1 = xs + B * D;    // [B][D] LN1 output, f32
-  float* act = x1 + B * D;   // [B][max(D, M)] GEMV input; attention scratch
+  const int B = p.B, S = p.spans, units = B * kH;
+  float* xs = smem;             // [B][D] layer input (bf16 values)
+  float* x1 = xs + B * kD;      // [B][D] pre-LN1 rows, then LN1's output, f32
+  float* act = x1 + B * kD;     // [B][max(D, M)] GEMV input; attention scratch
+  float* stats = act + B * kM;  // [B][2] LayerNorm statistics
+  const AttnSmem attn(act);
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
+  auto qkv_row = [&](int l) {
+    const size_t o = (size_t)l * kD * kD;
+    const bf16 *wq = p.wq + o, *wk = p.wk + o, *wv = p.wv + o;
+    return [=](int n) { return (n < kD ? wq : (n < 2 * kD ? wk : wv)) + (size_t)(n % kD) * kD; };
+  };
 
   for (int l = 0; l < p.L; ++l) {
-    const size_t wDD = (size_t)l * D * D, wMD = (size_t)l * M * D;
-    const size_t vD = (size_t)l * D, vM = (size_t)l * M;
-    // A: the layer input, then the Q/K/V rows
-    if (l == 0) {
-      for (int i = tid; i < B * D; i += NT) xs[i] = __bfloat162float(p.x[i]);
-    } else {
-      layer_norm_rows(p.pre, p.s2 + vD - D, p.g2 + vD - D, B, D, p.eps, nullptr, xs, nullptr);
+    const size_t vD = (size_t)l * kD, vM = (size_t)l * kM;
+    const bf16* w1 = p.w1 + (size_t)l * kM * kD;
+    const bf16* w2 = p.w2 + (size_t)l * kD * kM;
+    auto w1_row = [=](int n) { return w1 + (size_t)n * kD; };
+    auto w2_row = [=](int n) { return w2 + (size_t)n * kM; };
+    // A: the layer input (LN2 of the previous layer's rows), then the
+    // Q/K/V rows
+    gemv<kD, MB>(qkv_row(l), xs, 3 * kD, B, [&] {
+      if (l == 0) {
+        for (int i = tid; i < B * kD; i += NT) xs[i] = __bfloat162float(p.x[i]);
+        __syncthreads();
+      } else {
+        stage_f32(act, p.pre, B * kD);
+        __syncthreads();
+        layer_norm_rows(act, p.s2 + vD - kD, p.g2 + vD - kD, B, p.eps, stats, nullptr, xs,
+                        nullptr);
+      }
+    }, [&](int b, int n, float a) {
+      const float* bias = n < kD ? p.bq : (n < 2 * kD ? p.bk : p.bv);
+      p.qkv[(size_t)b * 3 * kD + n] = __float2bfloat16(a + bias[vD + n % kD]);
+    });
+    prefetch_rows<kD>(w1_row, kM);
+    prefetch_rows<kM>(w2_row, kD);
+    grid.sync();
+
+    // B: attention over key spans and the head's share of ctx Wo^T
+    for (int item = blockIdx.x; item < units * S; item += gridDim.x) {
+      const int u = item / S, sp = item % S;
+      attention_span(p, l, u / kH, u % kH, sp, S, attn);
+      const WoSlice wos(p, l, u % kH, sp, S);
+      if (S > 1) unit_barrier(p.arrive + u, (l + 1) * S);
+      else __syncthreads();
+      head_out(p, u / kH, u % kH, S, wos, attn);
     }
-    __syncthreads();
-    gemv([&](int n) {
-           const bf16* w = n < D ? p.wq : (n < 2 * D ? p.wk : p.wv);
-           return w + wDD + (size_t)(n % D) * D;
-         },
-         xs, D, 3 * D, B, [&](int b, int n, float a) {
-           const float* bias = n < D ? p.bq : (n < 2 * D ? p.bk : p.bv);
-           p.qkv[(size_t)b * 3 * D + n] = __float2bfloat16(a + bias[vD + n % D]);
-         });
     grid.sync();
 
-    // B: quantize the new rows, attention over the cache
-    for (int u = blockIdx.x; u < B * p.H; u += gridDim.x) attention_unit(p, l, u / p.H, u % p.H, act);
+    // C: x1 = LN1(x + sum_h opart[h] + bo) (in every block), then
+    // h = bf16(gelu(bf16(x1) W1^T + b1))
+    gemv<kD, MB>(w1_row, act, kM, B, [&] {
+      for (int i = tid * 4; i < B * kD; i += NT * 4) {
+        const int n = i % kD;
+        float4 o = __ldcg(reinterpret_cast<const float4*>(p.opart + i));
+#pragma unroll
+        for (int hh = 1; hh < kH; ++hh) {
+          const float4 t =
+              __ldcg(reinterpret_cast<const float4*>(p.opart + (size_t)hh * B * kD + i));
+          o.x += t.x, o.y += t.y, o.z += t.z, o.w += t.w;
+        }
+        const float* bo = p.bo + vD + n;
+        x1[i] = xs[i] + (o.x + bo[0]);
+        x1[i + 1] = xs[i + 1] + (o.y + bo[1]);
+        x1[i + 2] = xs[i + 2] + (o.z + bo[2]);
+        x1[i + 3] = xs[i + 3] + (o.w + bo[3]);
+      }
+      __syncthreads();
+      layer_norm_rows(x1, p.s1 + vD, p.g1 + vD, B, p.eps, stats, x1, act, nullptr);
+    }, [&](int b, int n, float a) {
+      p.h[(size_t)b * kM + n] = __float2bfloat16(gelu_erf(a + p.b1[vM + n]));
+    });
+    if (l + 1 < p.L) prefetch_rows<kD>(qkv_row(l + 1), 3 * kD);
     grid.sync();
 
-    // C: ctx Wo^T + bo + residual -> pre
-    for (int i = tid; i < B * D; i += NT) act[i] = __bfloat162float(__ldcg(p.ctx + i));
-    __syncthreads();
-    gemv([&](int n) { return p.wo + wDD + (size_t)n * D; }, act, D, D, B,
-         [&](int b, int n, float a) { p.pre[(size_t)b * D + n] = xs[b * D + n] + (a + p.bo[vD + n]); });
-    grid.sync();
-
-    // D: LN1 (in every block), then gelu(bf16(x1) W1^T + b1) -> h
-    layer_norm_rows(p.pre, p.s1 + vD, p.g1 + vD, B, D, p.eps, x1, act, nullptr);
-    __syncthreads();
-    gemv([&](int n) { return p.w1 + wMD + (size_t)n * D; }, act, D, M, B,
-         [&](int b, int n, float a) {
-           p.h[(size_t)b * M + n] = __float2bfloat16(gelu_erf(a + p.b1[vM + n]));
-         });
-    grid.sync();
-
-    // E: x1 + h W2^T + b2 -> pre (LN2 runs at the next layer's start)
-    for (int i = tid; i < B * M; i += NT) act[i] = __bfloat162float(__ldcg(p.h + i));
-    __syncthreads();
-    gemv([&](int n) { return p.w2 + wMD + (size_t)n * M; }, act, M, D, B,
-         [&](int b, int n, float a) { p.pre[(size_t)b * D + n] = x1[b * D + n] + (a + p.b2[vD + n]); });
+    // D: x1 + h W2^T + b2 -> pre (LN2 runs at the next layer's start)
+    gemv<kM, MB>(w2_row, act, kD, B, [&] {
+      stage_bf16(act, p.h, B * kM);
+      __syncthreads();
+    }, [&](int b, int n, float a) {
+      p.pre[(size_t)b * kD + n] = x1[b * kD + n] + (a + p.b2[vD + n]);
+    });
     grid.sync();
   }
   if (blockIdx.x == 0) {
-    const size_t vD = (size_t)(p.L - 1) * D;
-    layer_norm_rows(p.pre, p.s2 + vD, p.g2 + vD, B, D, p.eps, nullptr, nullptr, p.y);
+    // every unit barrier of the launch is behind the last grid barrier:
+    // the counters go back to zero for the next launch
+    for (int u = tid; u < units; u += NT) p.arrive[u] = 0;
+    const size_t vD = (size_t)(p.L - 1) * kD;
+    stage_f32(act, p.pre, B * kD);
+    __syncthreads();
+    layer_norm_rows(act, p.s2 + vD, p.g2 + vD, B, p.eps, stats, nullptr, nullptr, p.y);
   }
+}
+
+// the cooperative grid (one block an SM) of the current device, with the
+// shared-memory attribute set to the instantiation's largest launch;
+// computed once a device
+struct Launch {
+  int grid;
+  cudaError_t err;
+};
+
+template <int MB>
+Launch launch_config() {
+  constexpr int kMaxSmem = (2 * MB * kD + MB * kM + 2 * MB) * 4;
+  static Launch cached[64];
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return {0, err != cudaSuccess ? err : cudaErrorInvalidDevice};
+  if (done[dev]) return cached[dev];
+  Launch c = {0, cudaSuccess};
+  int sms = 0, coop = 0, per_sm = 0;
+  c.err = cudaFuncSetAttribute(fused_step_kernel<MB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+  if (c.err == cudaSuccess) c.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (c.err == cudaSuccess) c.err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (c.err == cudaSuccess && !coop) c.err = cudaErrorNotSupported;
+  if (c.err == cudaSuccess)
+    c.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_step_kernel<MB>, NT,
+                                                          kMaxSmem);
+  if (c.err == cudaSuccess && per_sm < 1) c.err = cudaErrorCooperativeLaunchTooLarge;
+  c.grid = sms;
+  cached[dev] = c;
+  done[dev] = true;
+  return c;
 }
 
 }  // namespace step
 }  // namespace vt
 
 // ptrs, in order: x, wq, bq, wk, bk, wv, bv, wo, bo, s1, g1, w1, b1, w2,
-// b2, s2, g2, kv8, kvs, mask, y, row8, rowsc, qkv, ctx, pre, h (27).
+// b2, s2, g2, kv8, kvs, mask, y, row8, rowsc, qkv, pre, h, opart [H, B, D]
+// f32, apart [B * H * 16, 64] f32, arrive [B * H] int32 (zero before the
+// first launch; each launch leaves it zero) (29).  d = 768, m = 3072.
 extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, int cache_len,
                                     int d, int m, int num_heads, int step, int write_offset,
                                     float eps, void* stream) {
   using namespace vt::step;
   using vt::bf16;
-  if (d != num_heads * HD || d % 256 || m % 256 || batch < 1 || batch > MAXB ||
-      write_offset + step >= cache_len)
+  if (d != kD || m != kM || num_heads != kH || batch < 1 || batch > MAXB ||
+      cache_len > kMaxLp || write_offset + step >= cache_len)
     return (int)cudaErrorInvalidValue;
+  const bool small = batch <= 2;  // the fused decode's route: batch 1 and 2
+  const Launch cfg = small ? launch_config<2>() : launch_config<MAXB>();
+  if (cfg.err != cudaSuccess) return (int)cfg.err;
   Params p;
   int i = 0;
   p.x = (const bf16*)ptrs[i++];
@@ -371,38 +714,28 @@ extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, 
   p.row8 = (int8_t*)ptrs[i++];
   p.rowsc = (float*)ptrs[i++];
   p.qkv = (bf16*)ptrs[i++];
-  p.ctx = (bf16*)ptrs[i++];
   p.pre = (float*)ptrs[i++];
   p.h = (bf16*)ptrs[i++];
+  p.opart = (float*)ptrs[i++];
+  p.apart = (float*)ptrs[i++];
+  p.arrive = (int*)ptrs[i++];
   p.L = n_layers;
   p.B = batch;
   p.Lp = cache_len;
-  p.D = d;
-  p.M = m;
-  p.H = num_heads;
   p.step = step;
   p.write_offset = write_offset;
+  // key spans of a unit: the units' spans fill the grid at most once, so
+  // every block of a unit is resident when it waits for the others
+  const int units = batch * kH;
+  p.spans = cfg.grid / units < 1 ? 1 : (cfg.grid / units > kMaxSpans ? kMaxSpans : cfg.grid / units);
   p.eps = eps;
   p.scale = 1.0f / sqrtf((float)HD);
 
-  const int act = batch * (m > d ? m : d);
-  const int attn = cache_len + kAttnExtra;
-  const int smem = (2 * batch * d + (act > attn ? act : attn)) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_step_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_step_kernel, NT, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = (per_sm < kMaxBlocksPerSM ? per_sm : kMaxBlocksPerSM) * sms;
+  const int smem = (2 * batch * d + batch * m + 2 * batch) * (int)sizeof(float);
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)fused_step_kernel, grid, NT, args, smem,
-                                    (cudaStream_t)stream);
+  const void* kernel = small ? (const void*)fused_step_kernel<2> : (const void*)fused_step_kernel<MAXB>;
+  cudaError_t err =
+      cudaLaunchCooperativeKernel(kernel, cfg.grid, NT, args, smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,13 @@
 // A wgmma GEMM body for Hopper (sm_90a), templated over its tile form,
 // its operand layouts and its epilogue:
 //
-//   C[M, N] = A[M, K] B[K, N] over k in one split of K, bf16 operands, f32
-//   accumulated in registers, handed to an epilogue functor.
+//   C[M, N] = A[M, K] B[K, N] over k in one split of K, bf16 operands with
+//   f32 accumulated in registers, or s8 operands with s32 accumulated
+//   (exact), handed to an epilogue functor as an f32 tile.
 //
 // Its users: the training block (block_train.cu, #9a / #9b), the eval block
-// (fused_block.cu, #2 / #3) and the ViT FFN (fused_ffn.cu, #13).
+// (fused_block.cu, #2 / #3) and the ViT FFN (fused_ffn.cu, #13) in bf16; the
+// W8A8 block (fused_block_w8a8.cu, #8) in s8.
 //
 // Operand layouts (row-major storage with a leading dimension ld):
 //  - A K-major: A[m, k] at a[m * ld + k] (activations);
@@ -21,22 +23,31 @@
 // 8-row groups 1 KB apart, SBO).  The instruction's transpose bits read
 // them MN-major.
 //
+// Element forms (Elem<T>): bf16, K step 64 elements, m64nNk16 products; s8,
+// K step 128 elements, m64nNk32 products, both operands K-major (the
+// integer wgmma has no transpose).  Either way a K step is one 128-byte
+// swizzled row and a product step 32 bytes of it, so the ring, the swizzle
+// and the descriptors' K advance are the same bytes; the s32 sums are
+// converted to f32 (__int2float_rn) where the tile is staged.
+//
 // Tiles: a block of two consumer warpgroups (256 threads) owns kBM = 128
 // output rows (64 a warpgroup) by Form::kBN columns and walks K in steps
-// of kBK = 64 through a ring of Form::kStages shared-memory stages filled
-// by 16-byte cp.async copies (every thread copies; zero fill past the
+// of one 128-byte row through a ring of Form::kStages shared-memory stages
+// filled by 16-byte cp.async copies (every thread copies; zero fill past the
 // ragged edge of M, and of K where K is the rows of a weight gradient).
 // The copies of step i + kStages - 2 are issued at step i, after a barrier
 // that every warpgroup reaches only once its products of step i - 2 are
 // complete (wgmma.wait_group 1 keeps one step's products in flight behind
 // the next).  Copies reach wgmma through the async-proxy fence.
 //
-// Two forms, chosen per launch by launch_gemm (PERF.md section 6 has the
-// sweep): Wide, 256 columns (m64n256k16); Narrow, 128 columns
-// (m64n128k16), for a launch where some N is no multiple of 256 or whose
-// narrow tiles fit one wave of the card; one block an SM.  N is a multiple
-// of the form's width; the host-side mirror of the choice and of the tile
-// walk is ops/gemm_sm90.py.
+// Tile forms (PERF.md section 6 has the sweeps): in bf16, chosen per launch
+// by launch_gemm, Wide, 256 columns (m64n256) and a 4-stage ring, or
+// Narrow, 128 columns (m64n128), for a launch where some N is no multiple
+// of 256 or whose narrow tiles fit one wave of the card; one block an SM.
+// In s8 (launch_gemm_s8) one form, S8: 128 columns and a 3-stage ring, two
+// blocks an SM, since the W8A8 epilogues cost more than its products.  N is
+// a multiple of the form's width; the host-side mirror of the choice and of
+// the tile walk is ops/gemm_sm90.py.
 //
 // Work: a launch covers up to three problems (the weight gradients of the
 // training block share one), each cut into splits of K x row tiles x
@@ -60,7 +71,7 @@ namespace vt {
 namespace g90 {
 
 constexpr int kBM = 128;      // output rows of a block: two warpgroups of 64
-constexpr int kBK = 64;       // K step: one 128-byte swizzled row of bf16
+constexpr int kBK = 64;       // the bf16 K step: one 128-byte swizzled row
 constexpr int kThreads = 256;
 constexpr int kMaxProblems = 3;
 
@@ -80,9 +91,27 @@ struct Form {
   static constexpr int kBytes = 1024 + STAGES * kStage + kRed;
 };
 
-// the forms, chosen by measurement on the H100 (PERF.md section 6)
+// the element forms: accumulator type and K step (elements of one
+// 128-byte row)
+template <class T>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  using Acc = float;
+  static constexpr int kK = 64;
+};
+template <>
+struct Elem<int8_t> {
+  using Acc = int;
+  static constexpr int kK = 128;
+};
+
+// the forms, chosen by measurement on the H100 (PERF.md section 6); S8, the
+// s8 products' one form, fits two blocks an SM, so one block's epilogue
+// runs under the other's products
 using Wide = Form<256, 4>;
 using Narrow = Form<128, 4>;
+using S8 = Form<128, 3>;
 constexpr int kSMs = 132;  // the H100's SMs: one wave of one-block-an-SM tiles
 
 // wgmma descriptor of a 128-byte-swizzled tile with an explicit leading
@@ -92,14 +121,15 @@ __device__ __forceinline__ uint64_t desc_sw128_lbo(uint32_t addr, uint32_t lbo) 
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// one operand: row-major storage with leading dimension ld (elements)
+// one operand: row-major storage with leading dimension ld (elements of
+// the launch's element form)
 struct Operand {
-  const bf16* p;
+  const void* p;
   int ld;
 };
 
 // one product C[M, N] = A B over K, cut into splits of k_chunk rows of K
-// (a multiple of kBK); its blocks are items item0 .. item0 + items - 1
+// (a multiple of the K step); its blocks are items item0 .. item0 + items - 1
 // (the tile counts are the launch's: tile_args)
 struct Problem {
   Operand a, b;
@@ -119,7 +149,7 @@ inline Problem make_problem(Operand a, Operand b, int M, int N, int K, int k_chu
 
 // one product over all its rows: A [M, K] K-major, B K-major (x W^T) or
 // MN-major (dy W)
-inline GemmArgs one(const bf16* a, int lda, const bf16* b, int ldb, int M, int N, int K) {
+inline GemmArgs one(const void* a, int lda, const void* b, int ldb, int M, int N, int K) {
   GemmArgs args = {};
   args.p[0] = make_problem({a, lda}, {b, ldb}, M, N, K, K);
   args.n_problems = 1;
@@ -138,15 +168,17 @@ struct Tile {
   float* red;      // [kThreads / (kBN / 8)][kBN] f32 shared scratch (column sums)
 };
 
-// copy rows r0 .. r0 + ROWS - 1 (< limit, else zero) x 64 K-elements from
-// k0 of a K-major operand into a swizzled [ROWS][64] tile
-template <int ROWS>
+// copy rows r0 .. r0 + ROWS - 1 (< limit, else zero) x one 128-byte row of
+// K-elements from k0 of a K-major operand into a swizzled [ROWS][128 B] tile
+template <int ROWS, class T>
 __device__ __forceinline__ void load_kmajor(uint32_t dst, const Operand& o, int r0, int limit,
                                             int k0) {
+  constexpr int kChunk = 16 / sizeof(T);  // elements of a 16-byte chunk
+  const T* p = static_cast<const T*>(o.p);
   for (int i = threadIdx.x; i < ROWS * 8; i += kThreads) {
     const int r = i >> 3, c = i & 7, row = r0 + r;
     const bool ok = row < limit;
-    sm90::cp_async16(dst + sm90::sw128(r, c), o.p + (size_t)(ok ? row : 0) * o.ld + k0 + c * 8,
+    sm90::cp_async16(dst + sm90::sw128(r, c), p + (size_t)(ok ? row : 0) * o.ld + k0 + c * kChunk,
                      ok);
   }
 }
@@ -157,15 +189,16 @@ template <int WIDTH>
 __device__ __forceinline__ void load_mnmajor(uint32_t dst, const Operand& o, int mn0, int k0,
                                              int k_end) {
   constexpr int kChunks = WIDTH / 8;
+  const bf16* p = static_cast<const bf16*>(o.p);
   for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
     const int r = i / kChunks, cc = i % kChunks, k = k0 + r;
     const bool ok = k < k_end;
     sm90::cp_async16(dst + (cc >> 3) * 8192 + sm90::sw128(r, cc & 7),
-                     o.p + (size_t)(ok ? k : 0) * o.ld + mn0 + cc * 8, ok);
+                     p + (size_t)(ok ? k : 0) * o.ld + mn0 + cc * 8, ok);
   }
 }
 
-// one k16 product of the form's width
+// one 32-byte product step of the form's width: bf16 k16, or s8 k32
 template <int BN, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da, uint64_t db) {
   if constexpr (BN == 256)
@@ -174,10 +207,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da, uint64
     sm90::wgmma_ss_n128<TA, TB>(d, da, db);
 }
 
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(int (&d)[BN / 2], uint64_t da, uint64_t db) {
+  static_assert(TA == 0 && TB == 0, "the s8 products read K-major operands only");
+  if constexpr (BN == 256)
+    sm90::wgmma_ss_s8_n256(d, da, db);
+  else
+    sm90::wgmma_ss_s8_n128(d, da, db);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
+
 // the tile loop; see the header comment
-template <class F, bool kAMN, bool kBMN, class Epi>
+template <class F, bool kAMN, bool kBMN, class Epi, class T>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, const Epi epi) {
   using namespace sm90;
+  using Acc = typename Elem<T>::Acc;
+  constexpr int kK = Elem<T>::kK;
   constexpr int kBN = F::kBN, kStages = F::kStages;
   constexpr int kAhead = kStages - 2;  // K steps whose copies are in flight
   extern __shared__ unsigned char smem_raw[];
@@ -198,19 +245,19 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, 
   const int m_tile = t / pr.n_tiles, n_tile = t - m_tile * pr.n_tiles;
   const int m0 = m_tile * kBM, n0 = n_tile * kBN;
   const int kb = split * pr.k_chunk, ke = min(pr.K, kb + pr.k_chunk);
-  const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
+  const int nk = ke > kb ? (ke - kb + kK - 1) / kK : 0;
 
   auto load = [&](int s, int kt) {
     const uint32_t a_dst = base + s * F::kStage, b_dst = a_dst + F::kA;
-    const int k0 = kb + kt * kBK;
+    const int k0 = kb + kt * kK;
     if (kAMN)
       load_mnmajor<kBM>(a_dst, pr.a, m0, k0, ke);
     else
-      load_kmajor<kBM>(a_dst, pr.a, m0, pr.M, k0);
+      load_kmajor<kBM, T>(a_dst, pr.a, m0, pr.M, k0);
     if (kBMN)
       load_mnmajor<kBN>(b_dst, pr.b, n0, k0, ke);
     else
-      load_kmajor<kBN>(b_dst, pr.b, n0, pr.N, k0);
+      load_kmajor<kBN, T>(b_dst, pr.b, n0, pr.N, k0);
   };
 
 #pragma unroll
@@ -218,9 +265,9 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, 
     if (s < nk) load(s, s);
     cp_async_commit();
   }
-  float acc[kBN / 2];
+  Acc acc[kBN / 2];
 #pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
   const int wg = threadIdx.x / 128;
 
   for (int i = 0; i < nk; ++i) {
@@ -233,7 +280,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, 
     const uint32_t b_addr = base + (i % kStages) * F::kStage + F::kA;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
+    for (int kk = 0; kk < 4; ++kk) {  // 32-byte product steps of the 128-byte row
       const uint64_t da = desc_sw128(a_addr + (kAMN ? kk * 2048 : kk * 32));
       const uint64_t db = kBMN ? desc_sw128_lbo(b_addr + kk * 2048, 8192)
                                : desc_sw128(b_addr + kk * 32);
@@ -247,8 +294,8 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, 
   cp_async_wait<0>();
   __syncthreads();  // every warpgroup is done with the ring
 
-  // stage the tile: acc[4 j + 2 h + e] is row 16 (warp % 4) + lane / 4 +
-  // 8 h of the warpgroup's 64, column 8 j + 2 (lane % 4) + e
+  // stage the tile in f32: acc[4 j + 2 h + e] is row 16 (warp % 4) + lane /
+  // 4 + 8 h of the warpgroup's 64, column 8 j + 2 (lane % 4) + e
   float* c_s = reinterpret_cast<float*>(sm);
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const int r0 = wg * 64 + (warp & 3) * 16 + lane / 4;
@@ -257,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, 
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       *reinterpret_cast<float2*>(c_s + (r0 + 8 * h) * F::kLdC + 8 * j + 2 * (lane & 3)) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          make_float2(to_f32(acc[4 * j + 2 * h]), to_f32(acc[4 * j + 2 * h + 1]));
   __syncthreads();
   const Tile<kBN> tile = {c_s, F::kLdC, m0, n0, pr.M, pr.N, m_tile, split,
                           reinterpret_cast<float*>(sm + kStages * F::kStage)};
@@ -280,13 +327,13 @@ inline bool narrow_launch(const GemmArgs& a) {
 
 // every problem's tile counts and first item for tiles bn columns wide;
 // false where a problem does not fit them (N no multiple of bn, a K-major
-// K or a split no multiple of the K step)
-inline bool tile_args(GemmArgs& a, int bn, bool ragged_k) {
+// K or a split no multiple of the K step k_step)
+inline bool tile_args(GemmArgs& a, int bn, bool ragged_k, int k_step) {
   a.items = 0;
   for (int i = 0; i < a.n_problems; ++i) {
     Problem& p = a.p[i];
-    if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.N % bn || p.k_chunk <= 0 || p.k_chunk % kBK ||
-        (!ragged_k && p.K % kBK))
+    if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.N % bn || p.k_chunk <= 0 || p.k_chunk % k_step ||
+        (!ragged_k && p.K % k_step))
       return false;
     p.m_tiles = (p.M + kBM - 1) / kBM;
     p.n_tiles = p.N / bn;
@@ -297,12 +344,12 @@ inline bool tile_args(GemmArgs& a, int bn, bool ragged_k) {
   return true;
 }
 
-// launch one GemmArgs in form F on `st`
-template <class F, bool kAMN, bool kBMN, class Epi>
+// launch one GemmArgs in form F and element type T on `st`
+template <class F, bool kAMN, bool kBMN, class T, class Epi>
 cudaError_t launch_form(GemmArgs args, const Epi& epi, cudaStream_t st) {
   // K-major loads read whole K steps; only the MN-major pair zero-fills K
-  if (!tile_args(args, F::kBN, kAMN && kBMN)) return cudaErrorInvalidValue;
-  auto kernel = gemm_kernel<F, kAMN, kBMN, Epi>;
+  if (!tile_args(args, F::kBN, kAMN && kBMN, Elem<T>::kK)) return cudaErrorInvalidValue;
+  auto kernel = gemm_kernel<F, kAMN, kBMN, Epi, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kBytes);
   if (err != cudaSuccess) return err;
@@ -310,11 +357,18 @@ cudaError_t launch_form(GemmArgs args, const Epi& epi, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// launch one GemmArgs on `st` in the form narrow_launch picks
+// launch one GemmArgs of bf16 operands on `st` in the form narrow_launch
+// picks
 template <bool kAMN, bool kBMN, class Epi>
 cudaError_t launch_gemm(const GemmArgs& args, const Epi& epi, cudaStream_t st) {
-  return narrow_launch(args) ? launch_form<Narrow, kAMN, kBMN>(args, epi, st)
-                             : launch_form<Wide, kAMN, kBMN>(args, epi, st);
+  return narrow_launch(args) ? launch_form<Narrow, kAMN, kBMN, bf16>(args, epi, st)
+                             : launch_form<Wide, kAMN, kBMN, bf16>(args, epi, st);
+}
+
+// launch one GemmArgs of int8 operands (both K-major) on `st`: form S8
+template <class Epi>
+cudaError_t launch_gemm_s8(const GemmArgs& args, const Epi& epi, cudaStream_t st) {
+  return launch_form<S8, false, false, int8_t>(args, epi, st);
 }
 
 // ---- epilogue helpers --------------------------------------------------------

@@ -1,9 +1,9 @@
-// Row helpers shared by the post-attention block kernels: the eval block's
-// row passes (fused_block.cu), the W8A8 block (fused_block_w8a8.cu) and
-// the training block's row passes (block_train.cu): four-wide vector loads
-// and stores, the erf gelu and its derivative, and the LayerNorm of a
-// 768-wide row held by one warp (a lane on four consecutive columns in
-// each of six 128-column groups).
+// Row helpers shared by the post-attention block kernels' row passes: the
+// eval block (fused_block.cu), the W8A8 block (fused_block_w8a8.cu, its
+// LayerNorms and x's quantization) and the training block (block_train.cu):
+// four-wide vector loads and stores, the erf gelu and its derivative, and
+// the LayerNorm of a 768-wide row held by one warp (a lane on four
+// consecutive columns in each of six 128-column groups).
 #pragma once
 
 #include "common.cuh"

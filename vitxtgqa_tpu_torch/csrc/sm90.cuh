@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // shared-memory addresses and the 128-byte swizzle, wgmma matrix
 // descriptors, the wgmma fence / commit / wait and the products themselves
-// (bf16 in, f32 accumulated in registers), cp.async copies with zero fill,
-// the async-proxy fence, and ex2.approx.
+// (bf16 in, f32 accumulated in registers; s8 in, s32 accumulated, for the
+// W8A8 block), cp.async copies with zero fill, the async-proxy fence, and
+// ex2.approx.
 //
 // The shared-memory tiles these kernels feed to wgmma are rows of 64 bf16
 // (128 bytes: one head row, or one 64-wide slice of a K dimension) in the
@@ -21,6 +22,9 @@
 //    descriptor's LBO: gemm_sm90.cuh);
 //  - an MN-major A operand in the same way (tnsp-a: dS^T in the flash
 //    backward's dQ = dS K, the row index its reduction dimension).
+// A row of 128 int8 is the same 128 bytes: the s8 products read K-major
+// tiles only (the integer form has no transpose), one k32 step 32 bytes
+// further along the row, exactly as a bf16 k16 step.
 #pragma once
 
 #include <stdint.h>
@@ -65,6 +69,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define VT_R8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
@@ -155,6 +165,47 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
 }
 
 #undef VT_R8
+
+#define VT_I8(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+                 "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// D[64 x N] += A[64 x 32] B[32 x N], N = 256 or 128, s8 x s8 summed exactly
+// in s32; A and B K-major from shared memory (descriptors).  The W8A8
+// block's wide and narrow tiles (gemm_sm90.cuh).
+__device__ __forceinline__ void wgmma_ss_s8_n256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : VT_I8(0), VT_I8(8), VT_I8(16), VT_I8(24), VT_I8(32), VT_I8(40), VT_I8(48), VT_I8(56),
+        VT_I8(64), VT_I8(72), VT_I8(80), VT_I8(88), VT_I8(96), VT_I8(104), VT_I8(112), VT_I8(120)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : VT_I8(0), VT_I8(8), VT_I8(16), VT_I8(24), VT_I8(32), VT_I8(40), VT_I8(48), VT_I8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef VT_I8
 
 // 16-byte global -> shared copy, cache-global; zero-filled when !valid
 // (then src must still be a mapped address)

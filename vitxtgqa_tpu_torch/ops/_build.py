@@ -71,6 +71,8 @@ _SIGNATURES = {
     # pointer array (order in csrc/fused_block_w8a8.cu); rows, d, m; eps;
     # stream
     "vt_fused_block_w8a8": [_P] + [_I] * 3 + [_F, _P],
+    # a8, b8, c (the s8 products alone); M, N, K; stream
+    "vt_gemm_s8": [_P] * 3 + [_I] * 3 + [_P],
     # q, k8, ks, mask, out; batch, n, d; scale; stream
     "vt_ptr_scores_int8": [_P] * 5 + [_I] * 3 + [_F, _P],
     # q, k8, ks, v8, vs, key_mask, out; batch, cache_len, heads, head_dim,

@@ -28,6 +28,10 @@ from vitxtgqa_tpu_torch.ops.fused_block import fused_block_plain
 
 NEG = -1e30  # pallas_decode_step.py _NEG
 MAX_BATCH = 8  # the kernels hold at most 8 batch rows on chip
+STEP_WIDTHS = (768, 3072)  # csrc/fused_decode_step.cu: the MMT's hidden and FFN widths
+HEAD_DIM = 64
+MAX_CACHE = 1152  # cache slots of one step kernel launch (the exact serving sequence)
+MAX_SPANS = 16  # key spans of one (batch row, head) unit of the step kernel
 STACK_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "s1", "g1",
                "w1", "b1", "w2", "b2", "s2", "g2")
 
@@ -84,17 +88,23 @@ def fused_decode_step_plain(x_t, stacks, kv8, kvs, key_mask, step: int,
 
 def step_buffers(n_layers: int, b: int, d: int, m: int, device) -> dict:
     """The outputs and scratch of one fused_decode_step launch; allocate
-    once per decode and pass to every step."""
+    once per decode and pass to every step.  ``opart`` holds each head's
+    f32 share of ctx Wo^T, ``apart`` each key span's f32 weighted V rows,
+    and ``arrive`` the span counters of the (row, head) units, zero here
+    and left zero by every launch."""
     dev = torch.device(device)
+    h = d // HEAD_DIM
     e = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
     return {
         "y": e((b, 1, d), torch.bfloat16),
         "row8": e((n_layers, b, 1, 2 * d), torch.int8),
         "rowsc": e((n_layers, b, 2, 1), torch.float32),
         "qkv": e((b, 3 * d), torch.bfloat16),
-        "ctx": e((b, d), torch.bfloat16),
         "pre": e((b, d), torch.float32),
         "h": e((b, m), torch.bfloat16),
+        "opart": e((h, b, d), torch.float32),
+        "apart": e((b * h * MAX_SPANS, HEAD_DIM), torch.float32),
+        "arrive": torch.zeros((b * h,), dtype=torch.int32, device=dev),
     }
 
 
@@ -112,11 +122,13 @@ def fused_decode_step(x_t, stacks, kv8, kvs, key_mask, step: int,
     d = x_t.shape[-1]
     m = stacks["w1"].shape[1]
     check_head_dim("fused_decode_step", two_hd // 2, num_heads)
-    if two_hd != 2 * d or d % 256 or m % 256 or b > MAX_BATCH:
+    if (two_hd != 2 * d or (d, m) != STEP_WIDTHS or d != num_heads * HEAD_DIM
+            or b > MAX_BATCH or l_p > MAX_CACHE):
         raise NotImplementedError(
             f"fused_decode_step kernel: H*D == hidden, hidden and FFN widths "
-            f"multiples of 256 and batch <= {MAX_BATCH}; got hidden {d}, "
-            f"H*D {two_hd // 2}, FFN {m}, batch {b}"
+            f"{STEP_WIDTHS}, batch <= {MAX_BATCH} and at most {MAX_CACHE} cache "
+            f"slots; got hidden {d}, H*D {two_hd // 2}, FFN {m}, batch {b}, "
+            f"cache {l_p}"
         )
     if not 0 <= write_offset + int(step) < l_p:
         raise ValueError(f"decoder slot {write_offset + int(step)} outside the cache ({l_p})")
@@ -138,7 +150,8 @@ def fused_decode_step(x_t, stacks, kv8, kvs, key_mask, step: int,
         _build.require(buf[name], name, t.dtype, t.shape, dev)
     ptrs = _build.pointers(
         x_t, *(stacks[n] for n in STACK_NAMES), kv8, kvs, key_mask,
-        *(buf[n] for n in ("y", "row8", "rowsc", "qkv", "ctx", "pre", "h")),
+        *(buf[n] for n in ("y", "row8", "rowsc", "qkv", "pre", "h", "opart", "apart",
+                           "arrive")),
     )
     with torch.cuda.device(dev):
         err = _build.lib().vt_fused_decode_step(

@@ -4,7 +4,8 @@ the kernel wrappers and their plain PyTorch versions.
 Counterpart of vitxtgqa_tpu/ops/pallas_ffn.py:fused_block,
 fused_block_tanh and fused_block_w8a8.  The CUDA kernels are
 csrc/fused_block.cu (three wgmma GEMMs and two LayerNorm row passes,
-``launch_plan``) and csrc/fused_block_w8a8.cu.  Weights are in
+``launch_plan``) and csrc/fused_block_w8a8.cu (three s8 wgmma GEMMs, three
+row passes and the quantization of h, ``w8a8_launch_plan``).  Weights are in
 nn.Linear layout ([out, in]); biases and LayerNorm parameters are taken in
 float32 as the Pallas wrapper takes them.
 
@@ -88,6 +89,16 @@ def launch_plan(rows: int, d: int = 768, m: int = 3072):
     row."""
     return (G.launch(G.problem(rows, d, d)), G.launch(G.problem(rows, m, d)),
             G.launch(G.problem(rows, d, m)))
+
+
+def w8a8_launch_plan(rows: int, d: int = 768, m: int = 3072):
+    """csrc/fused_block_w8a8.cu's three GEMM launches on the body's s8 form
+    (ops/gemm_sm90.py: 128-column tiles, K steps of 128 int8): c8 Wo8^T into
+    the f32 [rows, d] pre-norm rows, x8 W18^T into h [rows, m] (f32, and its
+    row amax), h8 W28^T into the pre-norm rows; its three row passes and
+    the quantization of h take every row."""
+    ln = lambda n, k: G.launch_s8(G.problem(rows, n, k))
+    return (ln(d, d), ln(m, d), ln(d, m))
 
 
 def _launch(name, res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps):
@@ -195,6 +206,31 @@ def _dot_w8a8(x, w8, w_scale):
     return acc.float() * xs * w_scale.float()
 
 
+def s8_products_plain(a8, b8):
+    """f32(a8 b8^T) of int8 [M, K] and [N, K]: the exact integer sums (in
+    float64), rounded once to f32 as the kernel stages them."""
+    return torch.matmul(a8.double(), b8.double().t()).float()
+
+
+def s8_products(a8, b8):
+    """The s8 form of csrc/gemm_sm90.cuh's wgmma body alone, f32(a8 b8^T):
+    the check of the W8A8 block's products against exact integer sums (N
+    and K multiples of 128).  No model path calls it."""
+    if not a8.is_cuda:
+        return s8_products_plain(a8, b8)
+    (m, k), n = a8.shape, b8.shape[0]
+    if n % LANE or k % G.S8_K_STEP:
+        raise NotImplementedError(f"s8_products: N and K multiples of 128, got {n}, {k}")
+    _build.require(a8, "a8", torch.int8, device=a8.device)
+    _build.require(b8, "b8", torch.int8, (n, k), a8.device)
+    c = torch.empty((m, n), dtype=torch.float32, device=a8.device)
+    with torch.cuda.device(a8.device):
+        err = _build.lib().vt_gemm_s8(a8.data_ptr(), b8.data_ptr(), c.data_ptr(), m, n, k,
+                                      _build.stream_of(a8))
+    _build.check(err, "s8_products")
+    return c
+
+
 def fused_block_w8a8_plain(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28,
                            w2s, b2, s2, g2, eps: float = 1e-12):
     """pallas_ffn.block_w8a8_reference on quantized weights
@@ -211,12 +247,45 @@ def fused_block_w8a8_plain(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28,
     return _ln(x + y, f(s2), f(g2), eps).to(x_q.dtype).reshape(shape)
 
 
+def h_quant_from_x8(x8, xs, w18, w1s, b1):
+    """The twin's h and its per-row quantization from a given quantization
+    of x (x8 int8 [R, D], xs f32 [R]): (h8 int8 [R, M], hs f32 [R]), as
+    fused_block_w8a8_plain forms them (its second _dot_w8a8, then
+    quant_rows); the check of a kernel's h8 from the kernel's own x8."""
+    acc = torch.matmul(x8.double(), w18.double().t())
+    h = gelu_as(acc.float() * xs[:, None] * w1s.float() + b1.float())
+    h8, hs = quant_rows(h)
+    return h8, hs[:, 0]
+
+
+def _w8a8_stages_plain(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28, w2s, b2,
+                       s2, g2, eps):
+    """fused_block_w8a8_plain's output and its three quantizations
+    ((c8, cs), (x8, xs), (h8, hs)), scales [R]."""
+    d = x_q.shape[-1]
+    f = lambda t: t.float()
+    c2 = ctx.reshape(-1, d).to(x_q.dtype)
+    c8, cs = quant_rows(c2)
+    x = _ln(x_q.reshape(-1, d).float() + (_dot_w8a8(c2, wo8, wos) + f(bo)), f(s1), f(g1), eps)
+    x8, xs = quant_rows(x)
+    h = gelu_as(_dot_w8a8(x, w18, w1s) + f(b1))
+    h8, hs = quant_rows(h)
+    y = _dot_w8a8(h, w28, w2s) + f(b2)
+    out = _ln(x + y, f(s2), f(g2), eps).to(x_q.dtype).reshape(x_q.shape)
+    return out, (c8, cs[:, 0]), (x8, xs[:, 0]), (h8, hs[:, 0])
+
+
 def fused_block_w8a8(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28, w2s,
-                     b2, s2, g2, eps: float = 1e-12, return_ctx_q: bool = False):
+                     b2, s2, g2, eps: float = 1e-12, return_quant: bool = False):
     """The W8A8 block on quantized weights; the arguments and return of
-    fused_block_w8a8_plain.  ``return_ctx_q`` (CUDA only) also returns the
-    kernel's per-row quantization of ctx, (int8 [R, D], f32 scales [R])."""
+    fused_block_w8a8_plain.  ``return_quant`` also returns the block's three
+    per-row quantizations, ((c8, cs), (x8, xs), (h8, hs)) of ctx, x and h
+    (int8 [R, width], f32 scales [R]): the kernel's on a CUDA tensor, the
+    twin's on a CPU one."""
     if not x_q.is_cuda:
+        if return_quant:
+            return _w8a8_stages_plain(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28,
+                                      w2s, b2, s2, g2, eps)
         return fused_block_w8a8_plain(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s,
                                       b1, w28, w2s, b2, s2, g2, eps)
     d, m = x_q.shape[-1], w18.shape[0]
@@ -238,14 +307,17 @@ def fused_block_w8a8(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28, w2s,
     e = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
     c8, cs = e((rows, d), torch.int8), e((rows,), torch.float32)
     x32, x8, xs = e((rows, d), torch.float32), e((rows, d), torch.int8), e((rows,), torch.float32)
-    h, h8, hs = e((rows, m), torch.float32), e((rows, m), torch.int8), e((rows,), torch.float32)
+    hmax, h32, h8 = e((rows,), torch.float32), e((rows, m), torch.float32), e((rows, m), torch.int8)
     out = e((rows, d), torch.bfloat16)
     ptrs = _build.pointers(x2, c2, wo8, wos, bo, s1, g1, w18, w1s, b1, w28, w2s, b2, s2, g2,
-                           c8, cs, x32, x8, xs, h, h8, hs, out)
+                           c8, cs, x32, x8, xs, hmax, h32, h8, out)
     with torch.cuda.device(dev):
         err = _build.lib().vt_fused_block_w8a8(ptrs, rows, d, m, float(eps),
                                                _build.stream_of(x2))
     _build.check(err, "fused_block_w8a8")
     _build.LAUNCHES["fused_block_w8a8"] += 1
     out = out.reshape(x_q.shape)
-    return (out, c8, cs) if return_ctx_q else out
+    if not return_quant:
+        return out
+    hs = torch.clamp_min(hmax, 1e-6) / torch.full_like(hmax, 127.0)  # the kernel's scale of h
+    return out, (c8, cs), (x8, xs), (h8, hs)

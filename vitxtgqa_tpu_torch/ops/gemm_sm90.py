@@ -5,19 +5,22 @@ covers every output element exactly once and that a wrapper admits only
 the widths its kernel takes.
 
 A launch is one to three problems C[M, N] = A B over K, each cut into
-splits of ``k_chunk`` rows of K; its blocks own 128 output rows by 256
-columns (the wide form) or by 128 (the narrow form, for a launch where
-some N is no multiple of 256, or whose narrow tiles fit one wave of the
-H100's 132 SMs).  The constants and the rule are the header's (``kBM``,
-``Wide``, ``Narrow``, ``kSMs``, ``narrow_launch``, ``tile_args`` and the
-item walk of ``gemm_kernel``).
+splits of ``k_chunk`` rows of K and walked in K steps of one 128-byte row:
+64 bf16 elements (``K_STEP``) or 128 int8 (``S8_K_STEP``).  In bf16 its
+blocks own 128 output rows by 256 columns (the wide form) or by 128 (the
+narrow form, for a launch where some N is no multiple of 256, or whose
+narrow tiles fit one wave of the H100's 132 SMs); the s8 products of the
+W8A8 block take one form of 128 columns (``launch_s8``).  The constants
+and the rule are the header's (``kBM``, ``Wide``, ``Narrow``, ``S8``,
+``kSMs``, ``Elem``, ``narrow_launch``, ``launch_gemm_s8``, ``tile_args``
+and the item walk of ``gemm_kernel``).
 """
 
 from __future__ import annotations
 
 from typing import Iterator, NamedTuple, Sequence, Tuple
 
-TILE_M, K_STEP = 128, 64
+TILE_M, K_STEP, S8_K_STEP = 128, 64, 128
 WIDE_N, NARROW_N = 256, 128
 SMS = 132  # kSMs: one wave of one-block-an-SM tiles on the H100
 
@@ -32,6 +35,7 @@ class Problem(NamedTuple):
 class Launch(NamedTuple):
     problems: Tuple[Problem, ...]
     tile_n: int   # the form's output columns a block: WIDE_N or NARROW_N
+    k_step: int = K_STEP  # elements of K a step: K_STEP (bf16) or S8_K_STEP
 
 
 def problem(M: int, N: int, K: int, k_chunk: int = 0) -> Problem:
@@ -56,16 +60,25 @@ def tile_n(problems: Sequence[Problem]) -> int:
 
 
 def launch(*problems: Problem, ragged_k: bool = False) -> Launch:
-    """The launch of these problems, in the form launch_gemm picks; raises
-    where tile_args refuses them (the kernel would return an error).  K is
-    a multiple of K_STEP unless ``ragged_k`` (both operands MN-major: the
-    weight gradients' reduction over the rows)."""
-    bn = tile_n(problems)
+    """The bf16 launch of these problems, in the form launch_gemm picks;
+    raises where tile_args refuses them (the kernel would return an error).
+    K is a multiple of K_STEP unless ``ragged_k`` (both operands MN-major:
+    the weight gradients' reduction over the rows)."""
+    return _checked(problems, tile_n(problems), K_STEP, ragged_k)
+
+
+def launch_s8(*problems: Problem) -> Launch:
+    """The s8 launch of these problems (launch_gemm_s8: form S8, 128
+    columns, K steps of 128 int8, both operands K-major)."""
+    return _checked(problems, NARROW_N, S8_K_STEP, False)
+
+
+def _checked(problems, bn: int, k_step: int, ragged_k: bool) -> Launch:
     for p in problems:
-        if (min(p.M, p.N, p.K) <= 0 or p.N % bn or p.k_chunk <= 0 or p.k_chunk % K_STEP
-                or (not ragged_k and p.K % K_STEP)):
-            raise ValueError(f"gemm_sm90: no {bn}-column tiling of {p}")
-    return Launch(tuple(problems), bn)
+        if (min(p.M, p.N, p.K) <= 0 or p.N % bn or p.k_chunk <= 0 or p.k_chunk % k_step
+                or (not ragged_k and p.K % k_step)):
+            raise ValueError(f"gemm_sm90: no {bn}-column tiling of {p} in K steps of {k_step}")
+    return Launch(tuple(problems), bn, k_step)
 
 
 def blocks(ln: Launch) -> Iterator[Tuple[int, int, range, range]]:
@@ -80,3 +93,15 @@ def blocks(ln: Launch) -> Iterator[Tuple[int, int, range, range]]:
             m_tile, n_tile = divmod(t, n_tiles)
             m0, n0 = m_tile * TILE_M, n_tile * ln.tile_n
             yield pi, split, range(m0, min(m0 + TILE_M, p.M)), range(n0, n0 + ln.tile_n)
+
+
+def k_steps(ln: Launch, pi: int, split: int) -> Iterator[range]:
+    """The K elements that each step of a block of problem ``pi``, split
+    ``split`` reads (gemm_kernel's loop: ceil(split length / k_step) steps
+    from the split's start; a K-major load past K would read out of
+    bounds, so the steps must end at K)."""
+    p = ln.problems[pi]
+    kb = split * p.k_chunk
+    ke = min(p.K, kb + p.k_chunk)
+    for i in range(-(-(ke - kb) // ln.k_step)):
+        yield range(kb + i * ln.k_step, kb + (i + 1) * ln.k_step)
