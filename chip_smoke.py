@@ -50,10 +50,19 @@ Phases (each prints one or more lines; any failure exits non-zero):
      alone bit for bit the exact sums at S8_PRODUCT_CASES; the bf16 block
      timed on the same inputs), the int8-emitting flash forward at [8,
      1152, 768] (its int8 cache and scales bit for bit, #1 timed on the
-     same inputs), the int8 pointer scores at [8, 1, 768] x [8, 960, 768],
-     and the decode step again at the compact cache length 384 (batch 1
+     same inputs), the int8 pointer scores (check_ptr_scores: PTR_CASES,
+     batch 1, 8 and 576 over 960 slots and batch 1 and 8 over 961; on
+     integer q bit for bit; timed warm and cold beside the bf16-key
+     einsum, a yardstick; its SASS holds no I2F: check_no_i2f), and the
+     decode step again at the compact cache length 384 (batch 1
      and 2; at 1,152 keys batch 1, 2 and 8; steps 0 and 11; timed warm
-     and cold).  The
+     and cold).  The fused epilogue first at batch 2, 1, 2, 8, 3, 8 in
+     turn (check_epilogue_batch_order: each instantiation at its largest
+     batch after a smaller one), then (check_fused_epilogue) at batch 1, 2
+     and 8, random and with a planted tie of two classifier rows in two
+     blocks' shares (the lower must win) and a planted OCR row, its pad
+     lanes exactly -1e30, timed warm and cold beside its two GEMVs as
+     torch.matmul (a yardstick).  The
      ViT's kernels: the fused FFN (check_ffn: FFN_CASES) at ViT-L/16's
      12,608 rows, ViT-B/32's 3,200, ViT-L/16 384 px's 4,616 and at widths
      of 1,152, the bias-tensor attention on split-head
@@ -316,6 +325,25 @@ S8_PRODUCT_CASES = ((9216, 768, 768), (9216, 3072, 768), (9216, 768, 3072), (210
 # FFN and output widths of 1,152, no multiple of 256 (narrow tiles)
 FFN_CASES = ((64 * 197, 1024, 4096, 1024, "ViT-L/16"), (64 * 50, 768, 3072, 768, "ViT-B/32"),
              (8 * 577, 1024, 4096, 1024, "ViT-L/16 384 px"), (2100, 768, 1152, 1152, "narrow"))
+# the fused epilogue (#6): the classifier's 5,050 answers padded to 5,120
+# lanes, 960 OCR slots, hidden and pointer width 768, at batch 1, 2 and 8;
+# each batch also with a planted tie: two classifier rows with the same
+# weights and a bias of EPI_TIE_BIAS, above every other score, in
+# different blocks' shares of the work, of which the lower index must win
+# in every batch row but row 1, where a key planted along q scores
+# EPI_OCR_SCORE, so that the gather of an OCR row is held too
+EPI_V_FIX, EPI_V_P, EPI_N = 5050, 5120, 960
+EPI_BATCHES = (1, 2, BATCH)
+EPI_TIE_BIAS, EPI_OCR_SCORE = 50.0, 100.0
+# check_epilogue_batch_order: a serving process that alternates its buckets
+# launches each instantiation of #6 (batch <= 2, batch <= 8) at its largest
+# batch, then a smaller one, then the largest again
+EPI_ORDER = (2, 1, 2, BATCH, 3, BATCH)
+# the int8 pointer scores (#12), (batch, OCR slots): batch 1, the serving
+# batch 8 (the kernel's record) and the JAX bench's 576 (425 MB of keys),
+# and 961 slots at batch 1 and 8, no multiple of either tile form's keys
+# (ops/ptr_scores.launch_plan: 4 and 32), so the last tile holds one key
+PTR_CASES = ((1, 960), (8, 960), (576, 960), (1, 961), (8, 961))
 TRAIN_STEPS = 4         # the first is a warm-up; >= 3 are timed
 # slice j: the extractor's default chunk (tools/video_feat/obtain_vit_feat.py
 # --batch) and the timed forwards.  The CLS features are final-LayerNorm
@@ -933,14 +961,12 @@ def check_kernels(dev, record):
     import torch
     import torch.nn.functional as F
 
-    from vitxtgqa_tpu_torch.ops import decode_attention as DA
-    from vitxtgqa_tpu_torch.ops import decode_step as DS
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf = torch.bfloat16
     rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
     h, l, d = 12, L_JOINT, 768
-    mask, ocr_mask = serving_masks(dev)
+    mask, _ = serving_masks(dev)
 
     # 1. flash attention, dec_len 0 (QTV / MMT encode) and 12 (full-eval)
     q, k, v = (rn(BATCH, l, d) for _ in range(3))
@@ -988,52 +1014,276 @@ def check_kernels(dev, record):
     details["decode_step"] = check_decode_step(record, x_all, stacks, mask, gen, (1, 2, BATCH),
                                                WRITE_OFFSET, True)
 
-    # 6. the fused epilogue, batch 1 / 2 / 8: scores, greedy token, next emb
-    v_fix, v_p, n_ocr = 5050, 5120, 960
-    cls_w = torch.zeros(v_p, d, device=dev)
-    cls_w[:v_fix] = torch.randn(v_fix, d, generator=gen, device=dev) * 0.05
-    cls_b = torch.full((v_p,), -1e30, device=dev)
-    cls_b[:v_fix] = torch.randn(v_fix, generator=gen, device=dev) * 0.01
-    ptr_w = torch.randn(d, d, generator=gen, device=dev) * 0.05
-    ptr_b = torch.randn(d, generator=gen, device=dev) * 0.01
-    keys_all = torch.randn(BATCH, n_ocr, d, generator=gen, device=dev) * 0.2
-    ans = torch.zeros(v_p, d, device=dev, dtype=bf)
-    ans[:v_fix] = rn(v_fix, d, scale=0.3)
-    ocr_all = rn(BATCH, n_ocr, d, scale=0.3)
-    emb = torch.randn(2 * DEC_LEN, d, generator=gen, device=dev) * 0.1
-    y_all = rn(BATCH, 1, d)
-    for b in (1, 2, BATCH):
-        eargs = (y_all[:b].contiguous(), cls_w, cls_b, ptr_w, ptr_b, keys_all[:b].contiguous(),
-                 ocr_mask[:b].contiguous(), ans, ocr_all[:b].contiguous(), emb, 3, v_fix,
-                 1.0 / d ** 0.5, DEC_LEN)
-        got, want = DS.fused_epilogue(*eargs), DS.fused_epilogue_plain(*eargs)
-        torch.cuda.synchronize()
-        err = (got[0] - want[0]).abs().max().item()
-        top2 = want[0][:, 0].topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > TOL["fused_epilogue"]
-        tok_ok = (got[1][:, 0, 0] == want[1][:, 0, 0]) | ~clear
-        same = got[1][:, 0, 0] == want[1][:, 0, 0]
-        emb_err = (got[2] - want[2]).float().abs()[same].max().item() if same.any() else 0.0
-        print(f"kernel fused_epilogue [{b}] tokens {got[1][:, 0, 0].tolist()} vs plain "
-              f"{want[1][:, 0, 0].tolist()}; next-embedding max|diff| {emb_err:.3e}", flush=True)
-        if not bool(tok_ok.all()) or not emb_err <= TOL["fused_epilogue"]:
-            fail(f"fused_epilogue token or embedding disagrees at batch {b}")
-        ms = cuda_time_ms(lambda: DS.fused_epilogue(*eargs))
-        pms = cuda_time_ms(lambda: DS.fused_epilogue_plain(*eargs))
-        timed = {}
-        if b == 1:  # the record's shape: the fused branch's batch-1 step
-            moved = (nbytes(eargs[0], cls_b[:v_fix], ptr_w, ptr_b, eargs[5], eargs[6], *got)
-                     + v_fix * d * 4 + b * d * (2 + 2 + 4))  # classifier; gathered rows
-            timed = dict(ms=ms, plain_ms=pms,
-                         bound=bound_of(moved, 2 * b * d * (v_fix + d + n_ocr)))
-        else:
-            print(f"kernel fused_epilogue [{b}]: kernel {ms:.4f} ms, plain {pms:.4f} ms",
-                  flush=True)
-        report(record, "fused_epilogue", err, extra=f" [{b},1,768] -> [{b},1,{v_p + n_ocr}]",
-               **timed)
+    # 6. the fused epilogue: first its batch order (check_epilogue_batch_order,
+    # before any other launch of it in this process), then check_fused_epilogue
+    check_epilogue_batch_order(dev, record)
+    details["epilogue"] = check_fused_epilogue(dev, record)
     del q, k, v
     torch.cuda.empty_cache()
     return details
+
+
+def epilogue_inputs(dev, gen, b: int, d: int = 768, keys=None):
+    """The fused epilogue's arguments at batch b (fused_epilogue_plain's
+    order, step 3 of DEC_LEN): random weights, tables and keys from gen,
+    the serving batch's OCR mask (its rows repeated); ``keys`` replaces the
+    pointer keys."""
+    import torch
+
+    _, ocr_mask = serving_masks(dev)
+    bf = torch.bfloat16
+    rn = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=dev) * scale
+    cls_w = torch.zeros(EPI_V_P, d, device=dev)
+    cls_w[:EPI_V_FIX] = rn(EPI_V_FIX, d, scale=0.05)
+    cls_b = torch.full((EPI_V_P,), -1e30, device=dev)
+    cls_b[:EPI_V_FIX] = rn(EPI_V_FIX, scale=0.01)
+    ans = torch.zeros(EPI_V_P, d, device=dev, dtype=bf)
+    ans[:EPI_V_FIX] = rn(EPI_V_FIX, d, scale=0.3).to(bf)
+    ptr_w, ptr_b = rn(d, d, scale=0.05), rn(d, scale=0.01)
+    keys = rn(b, EPI_N, d, scale=0.2) if keys is None else keys
+    mask = ocr_mask[torch.arange(b, device=dev) % ocr_mask.shape[0]].contiguous()
+    return [rn(b, 1, d).to(bf), cls_w, cls_b, ptr_w, ptr_b, keys, mask, ans,
+            rn(b, EPI_N, d, scale=0.3).to(bf), rn(2 * DEC_LEN, d, scale=0.1), 3, EPI_V_FIX,
+            1.0 / d ** 0.5, DEC_LEN]
+
+
+def plant_epilogue(eargs, grid: int):
+    """Plant the tie and the OCR row into epilogue_inputs' arguments (in
+    place): classifier rows r1 = 3 and r2, the first row from EPI_V_FIX / 2
+    whose item lies in another block's share of a grid of ``grid`` blocks
+    (ops/decode_step.epilogue_block_of), get row 7's weights and the bias
+    EPI_TIE_BIAS; at batch >= 2, row 1's key at its first valid OCR slot
+    n1 is set along its q so that it scores EPI_OCR_SCORE.  Returns (r1,
+    r2, n1 or None)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    y, cls_w, cls_b, ptr_w, ptr_b, keys, mask = eargs[:7]
+    qk = ptr_w.shape[0]
+    owner = lambda r: DS.epilogue_block_of(qk + r, grid)
+    r1 = 3
+    r2 = next(r for r in range(EPI_V_FIX // 2, EPI_V_FIX) if owner(r) != owner(r1))
+    cls_w[r1] = cls_w[r2] = cls_w[7]
+    cls_b[r1] = cls_b[r2] = EPI_TIE_BIAS
+    if y.shape[0] < 2:
+        return r1, r2, None
+    n1 = int(torch.nonzero(mask[1] > 0)[0, 0])
+    q = y[1, 0].float() @ ptr_w.t() + ptr_b
+    keys[1, n1] = q * ((EPI_OCR_SCORE - float(mask[1, n1])) / (float(q @ q) * eargs[12]))
+    return r1, r2, n1
+
+
+def check_no_i2f(opcodes: dict):
+    """The int8 pointer scores' kernels (#12) convert their int8 keys with
+    PRMT and FADD: fail on any I2F-family instruction (I2F, I2FP) in any of
+    them but one rounded toward +inf (.RP), the reciprocal seed of an
+    integer division (a block's first tile), which no value conversion
+    uses (opcodes: ops/_build.sass, the built library's SASS by kernel)."""
+    mine = {k: v for k, v in opcodes.items() if "ptr_scores_int8_kernel" in k}
+    i2f = lambda op: op.startswith("I2F")
+    conv = sorted({op for v in mine.values() for op in v if i2f(op) and ".RP" not in op})
+    seeds = [sum(i2f(op) and ".RP" in op for op in v) for v in mine.values()]
+    prmt = [sum(op.startswith("PRMT") for op in v) for v in mine.values()]
+    print(f"build: SASS of the int8 pointer scores ({len(mine)} kernels): I2F-family conversions "
+          f"{conv or 'none'}; division seeds (I2F .RP) per kernel {sorted(seeds)}; PRMT per "
+          f"kernel {sorted(prmt)}", flush=True)
+    if not mine or conv:
+        fail("the int8 pointer scores' SASS is missing or holds an I2F conversion")
+
+
+def check_epilogue_batch_order(dev, record, order=EPI_ORDER):
+    """The fused epilogue (#6) at the batches of ``order`` in turn, each
+    batch with its own inputs and one epilogue_buffers that all its calls
+    share, against its twin: it launches at every one (a launch setup kept
+    per batch, not per instantiation, leaves the kernel's shared-memory
+    attribute at a smaller batch's after that batch, and the next launch
+    at the larger one is refused) and agrees within the tolerance (the
+    scores; the tokens where the twin's top two differ by more; the next
+    embedding where the tokens agree).  Run it before any other launch of
+    #6 in the process."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    gen = torch.Generator(device=dev).manual_seed(97531)
+    tol = TOL["fused_epilogue"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    inputs = {}
+    for b in dict.fromkeys(order):
+        eargs = epilogue_inputs(dev, gen, b)
+        inputs[b] = (eargs, DS.epilogue_buffers(b, eargs[3].shape[0], dev),
+                     DS.fused_epilogue_plain(*eargs))
+    for i, b in enumerate(order):
+        eargs, buf, want = inputs[b]
+        label = f" [{b},1,768], call {i + 1} of the batch order {list(order)}"
+        try:
+            got = DS.fused_epilogue(*eargs, buffers=buf)
+            sync()
+        except RuntimeError as e:
+            fail(f"fused_epilogue did not launch at{label}: {e}")
+        tok, wtok = got[1][:, 0, 0], want[1][:, 0, 0]
+        top2 = want[0][:, 0].topk(2, dim=-1).values
+        same = tok == wtok
+        emb_err = (got[2] - want[2]).float().abs()[same].max().item() if same.any() else 0.0
+        if not bool((same | ((top2[:, 0] - top2[:, 1]) <= tol)).all()) or not emb_err <= tol:
+            fail(f"fused_epilogue token or embedding disagrees at{label}")
+        report(record, "fused_epilogue", (got[0] - want[0]).abs().max().item(), extra=label)
+    del inputs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True):
+    """The fused epilogue (#6) against its twin at each batch, on random
+    inputs and with the planted tie and OCR row (plant_epilogue): the
+    scores within the tolerance and their pad lanes exactly -1e30, the
+    tokens equal wherever the twin's top two differ by more than the
+    tolerance, the next embedding within it where the tokens agree; with
+    the plant, the lower tied row wins bit for bit (both rows' scores
+    equal) in every batch row but row 1, whose planted OCR slot wins.  With
+    ``timed``, each batch's time warm (the same inputs every call) and
+    cold (cold_copies sets of classifier, pointer weights and keys in
+    turn), the twin's, and its two GEMVs alone as float32 torch.matmul (a
+    yardstick: no single call computes the epilogue); batch 1 warm is the
+    kernel's record.  The launches share one epilogue_buffers, as a
+    forward's do.  Returns {batch: times}."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    tol = TOL["fused_epilogue"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    times = {}
+    for b in batches:
+        eargs = epilogue_inputs(dev, gen, b)
+        d, qk = eargs[0].shape[-1], eargs[3].shape[0]
+        grid = (DS.epilogue_grid(b, d, qk) if dev.type == "cuda"
+                else DS.EPILOGUE_BLOCKS_PER_SM * DS.H100_SMS)
+        buf = DS.epilogue_buffers(b, qk, dev)
+        for planted in (False, True):
+            plant = plant_epilogue(eargs, grid) if planted else None
+            got = DS.fused_epilogue(*eargs, buffers=buf)
+            want = DS.fused_epilogue_plain(*eargs)
+            sync()
+            scores, tok, wtok = got[0][:, 0], got[1][:, 0, 0], want[1][:, 0, 0]
+            err = (scores - want[0][:, 0]).abs().max().item()
+            pads = bool((scores[:, EPI_V_FIX:EPI_V_P] == -1e30).all())
+            top2 = want[0][:, 0].topk(2, dim=-1).values
+            tok_ok = (tok == wtok) | ((top2[:, 0] - top2[:, 1]) <= tol)
+            same = tok == wtok
+            emb_err = (got[2] - want[2]).float().abs()[same].max().item() if same.any() else 0.0
+            label = f" [{b},1,768] -> [{b},1,{EPI_V_P + EPI_N}]" + (" planted" if planted else "")
+            print(f"kernel fused_epilogue{label}: tokens {tok.tolist()} vs plain {wtok.tolist()}; "
+                  f"next-embedding max|diff| {emb_err:.3e}; pad lanes -1e30: {pads}", flush=True)
+            if not bool(tok_ok.all()) or not emb_err <= tol or not pads:
+                fail(f"fused_epilogue token, embedding or pad lanes disagree at{label}")
+            if planted:
+                r1, r2, n1 = plant
+                want_tok = torch.full_like(tok, r1)
+                if n1 is not None:
+                    want_tok[1] = EPI_V_P + n1
+                tied = bool(torch.equal(scores[:, r1], scores[:, r2]))
+                print(f"kernel fused_epilogue{label}: rows {r1} and {r2} (blocks "
+                      f"{DS.epilogue_block_of(qk + r1, grid)} and "
+                      f"{DS.epilogue_block_of(qk + r2, grid)} of {grid}) tie: {tied}; tokens "
+                      f"{tok.tolist()}, expected {want_tok.tolist()}", flush=True)
+                if not tied or not torch.equal(tok, want_tok):
+                    fail(f"fused_epilogue's planted tie or OCR row at{label}")
+            timed_rec = {}
+            if timed and not planted:
+                run = lambda cls_w, ptr_w, keys: DS.fused_epilogue(
+                    eargs[0], cls_w, eargs[2], ptr_w, eargs[4], keys, *eargs[6:], buffers=buf)
+                first = (eargs[1], eargs[3], eargs[5])
+                copies = cold_copies(nbytes(*first))
+                sets = [first] + [tuple(t.clone() for t in first) for _ in range(copies - 1)]
+                turn = itertools.count()
+                ms = cuda_time_ms(lambda: run(*first))
+                cold = cuda_time_ms(lambda: run(*sets[next(turn) % copies]))
+                pms = cuda_time_ms(lambda: DS.fused_epilogue_plain(*eargs))
+                y32 = eargs[0][:, 0].float()
+                gemv = cuda_time_ms(lambda: (y32 @ eargs[1].t(), y32 @ eargs[3].t()))
+                del sets
+                moved = (nbytes(eargs[0], eargs[2][:EPI_V_FIX], *eargs[3:7], *got)
+                         + EPI_V_FIX * d * 4 + b * d * (2 + 2 + 4))  # classifier; gathered rows
+                bound = bound_of(moved, 2 * b * d * (EPI_V_FIX + qk + EPI_N), PEAK_F32_FLOPS)
+                print(f"kernel fused_epilogue [{b}]: kernel {ms:.4f} ms warm, {cold:.4f} ms cold "
+                      f"({copies} sets in turn), plain {pms:.4f} ms, yardstick (its two GEMVs "
+                      f"as torch.matmul) {gemv:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})",
+                      flush=True)
+                times[b] = dict(warm_ms=ms, cold_ms=cold, plain_ms=pms, yardstick_ms=gemv,
+                                bound_ms=bound[0], cold_copies=copies)
+                if b == 1:  # the record's shape: the fused branch's batch-1 step
+                    timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
+            report(record, "fused_epilogue", err, extra=label, **timed_rec)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return times
+
+
+def check_ptr_scores(dev, record, cases=PTR_CASES, d: int = 768, timed: bool = True):
+    """The int8 pointer scores (#12) against their twin at each (batch,
+    slots) of ``cases``, on the serving batch's OCR mask (its rows
+    repeated; a 961st slot valid): random q within the tolerance, and q of
+    small integers bit for bit (the dot is then exact in any order, so the
+    scale's order, acc * (ks * scale) + mask, decides every bit).  With
+    ``timed``, each case's time warm (the same keys every call) and cold
+    (cold_copies sets of keys in turn), the twin's, and the bf16-key
+    einsum that the JAX package's default decode takes instead
+    (OcrPtrNet.scores_from_keys on bf16 keys: a yardstick, it reads twice
+    the bytes); batch 8 warm is the kernel's record.  Returns {case:
+    times}."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.ops import ptr_scores as PS
+    from vitxtgqa_tpu_torch.ops.attention import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    _, ocr_mask = serving_masks(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    times = {}
+    for b, n in cases:
+        mask = F.pad(ocr_mask, (0, max(0, n - ocr_mask.shape[1])), value=1.0)[:, :n]
+        mask = mask[torch.arange(b, device=dev) % mask.shape[0]].contiguous()
+        kb = torch.randn(b, n, d, generator=gen, device=dev).to(torch.bfloat16)
+        k8, ks = quantize_kv(kb)
+        q = torch.randn(b, 1, d, generator=gen, device=dev) * 0.5
+        qi = torch.randint(-2, 3, (b, 1, d), generator=gen, device=dev).float()
+        got, want = PS.ptr_scores_int8(q, k8, ks, mask), PS.ptr_scores_int8_plain(q, k8, ks, mask)
+        got_i = PS.ptr_scores_int8(qi, k8, ks, mask)
+        exact = bool(torch.equal(got_i, PS.ptr_scores_int8_plain(qi, k8, ks, mask)))
+        sync()
+        label = f" [{b},1,{d}] x [{b},{n},{d}]"
+        print(f"kernel ptr_scores_int8{label}: integer q bit for bit: {exact}", flush=True)
+        if not exact:
+            fail(f"ptr_scores_int8 on integer q is not the twin's bit for bit at{label}")
+        timed_rec = {}
+        if timed:
+            copies = cold_copies(nbytes(k8, ks))
+            sets = [(k8, ks)] + [quantize_kv(torch.randn(b, n, d, generator=gen, device=dev)
+                                             .to(torch.bfloat16)) for _ in range(copies - 1)]
+            turn = itertools.count()
+            ms = cuda_time_ms(lambda: PS.ptr_scores_int8(q, k8, ks, mask))
+            cold = cuda_time_ms(lambda: PS.ptr_scores_int8(q, *sets[next(turn) % copies], mask))
+            pms = cuda_time_ms(lambda: PS.ptr_scores_int8_plain(q, k8, ks, mask))
+            yard = cuda_time_ms(lambda: torch.einsum("bsd,bnd->bsn", q, kb.float()) / d ** 0.5
+                                + mask[:, None, :])
+            del sets
+            bound = bound_of(nbytes(q, k8, ks, mask, got), 2 * k8.numel(), PEAK_F32_FLOPS)
+            print(f"kernel ptr_scores_int8{label}: kernel {ms:.4f} ms warm, {cold:.4f} ms cold "
+                  f"({copies} sets in turn), plain {pms:.4f} ms, yardstick (the bf16-key einsum) "
+                  f"{yard:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+            times[f"[{b},{n}]"] = dict(warm_ms=ms, cold_ms=cold, plain_ms=pms, yardstick_ms=yard,
+                                       bound_ms=bound[0], cold_copies=copies)
+            if (b, n) == (BATCH, 960):
+                timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
+        report(record, "ptr_scores_int8", (got - want).abs().max().item(), label, **timed_rec)
+        del kb, k8, ks, got, want, got_i
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return times
 
 
 def check_eval_block(dev, record, cases=EVAL_BLOCK_CASES, d: int = 768, timed: bool = True):
@@ -1187,14 +1437,13 @@ def check_serving_mode_kernels(dev, record):
     import torch
 
     from vitxtgqa_tpu_torch.ops import flash_attention as FA
-    from vitxtgqa_tpu_torch.ops import ptr_scores as PS
     from vitxtgqa_tpu_torch.ops.attention import quantize_kv
 
     gen = torch.Generator(device=dev).manual_seed(2468)
     bf = torch.bfloat16
     rn = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev) * scale).to(bf)
     h, l, d = 12, L_JOINT, 768
-    mask, ocr_mask = serving_masks(dev)
+    mask, _ = serving_masks(dev)
 
     # 12. the W8A8 block (check_w8a8_block)
     w8a8 = check_w8a8_block(dev, record)
@@ -1235,17 +1484,8 @@ def check_serving_mode_kernels(dev, record):
                "w8a8": w8a8}
     del q, k, v, out, out1, want, k8, v8, wk8, wv8
 
-    # 14. the int8 pointer scores at [8, 1, 768] x [8, 960, 768]
-    qp = torch.randn(BATCH, 1, d, generator=gen, device=dev) * 0.5
-    k8p, ksp = quantize_kv(rn(BATCH, 960, d))
-    got = PS.ptr_scores_int8(qp, k8p, ksp, ocr_mask)
-    want = PS.ptr_scores_int8_plain(qp, k8p, ksp, ocr_mask)
-    torch.cuda.synchronize()
-    report(record, "ptr_scores_int8", (got - want).abs().max().item(),
-           " [8,1,768] x [8,960,768]", ms=cuda_time_ms(lambda: PS.ptr_scores_int8(
-               qp, k8p, ksp, ocr_mask)),
-           plain_ms=cuda_time_ms(lambda: PS.ptr_scores_int8_plain(qp, k8p, ksp, ocr_mask)),
-           bound=bound_of(nbytes(qp, k8p, ksp, ocr_mask, got), 2 * k8p.numel(), PEAK_F32_FLOPS))
+    # 14. the int8 pointer scores (check_ptr_scores)
+    details["ptr_scores"] = check_ptr_scores(dev, record)
 
     # 15. #5 at the compact cache length 384 (write offset 372; #4 there:
     # check_decode_attention)
@@ -3033,6 +3273,13 @@ def main(argv) -> int:
         print(f"build: {what} (csrc/{source}, csrc/gemm_sm90.cuh): " + "; ".join(
             f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
             for name, regs, st, ld in _build.ptxas_kernels(log, source)), flush=True)
+
+    for source, what in (("fused_epilogue.cu", "the fused epilogue"),
+                         ("ptr_scores.cu", "the int8 pointer scores")):
+        print(f"build: {what} (csrc/{source}): " + "; ".join(
+            f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
+            for name, regs, st, ld in _build.ptxas_kernels(log, source)), flush=True)
+    check_no_i2f(_build.sass(lib_path))
 
     record = {}
     decode = check_kernels(dev, record)

@@ -30,6 +30,7 @@ from vitxtgqa_tpu_torch.ops import decode_attention as TDA
 from vitxtgqa_tpu_torch.ops import decode_step as TDS
 from vitxtgqa_tpu_torch.ops import flash_attention as TFA
 from vitxtgqa_tpu_torch.ops import fused_block as TFB
+from vitxtgqa_tpu_torch.ops import ptr_scores as TPS
 from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
 
 FRAMES, OCR_PF = 8, 30
@@ -824,3 +825,163 @@ def test_check_decode_step_rejects_a_planted_fault(fault, monkeypatch):
     match = "fused_decode_step" if fault == "without_w_cur" else "quantized rows disagree"
     with pytest.raises(SystemExit, match=match):
         CS.check_decode_step(record, x_all, stacks, mask, gen, **kw)
+
+
+def _epilogue_with_fault(fault: str):
+    """fused_epilogue_plain with one planted fault: ``higher_tie`` breaks a
+    tie of the top score to the higher index, ``wrong_type`` adds the emb
+    row of the other token type, ``mask_dropped`` leaves the OCR mask out
+    of the copy scores."""
+    def epilogue(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask, ans_tbl, ocr_tbl, emb_rows,
+                 step, n_fixed, qk_scale, dec_len, buffers=None):
+        if fault == "mask_dropped":
+            ocr_mask = torch.zeros_like(ocr_mask)
+        scores, idx, nxt = TDS.fused_epilogue_plain(
+            y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask, ans_tbl, ocr_tbl, emb_rows, step,
+            n_fixed, qk_scale, dec_len)
+        if fault == "mask_dropped":
+            return scores, idx, nxt
+        s = scores[:, 0]
+        idx = s.shape[-1] - 1 - s.flip(-1).argmax(-1) if fault == "higher_tie" else idx[:, 0, 0]
+        v_p, n = cls_w.shape[0], ocr_tbl.shape[1]
+        is_ocr = idx >= v_p
+        rows = torch.arange(y.shape[0])
+        raw = torch.where(is_ocr[:, None], ocr_tbl[rows, (idx - v_p).clamp(0, n - 1)].float(),
+                          ans_tbl[idx.clamp(max=v_p - 1)].float())
+        kind = is_ocr.long() if fault == "higher_tie" else 1 - is_ocr.long()
+        emb = emb_rows[2 * min(int(step) + 1, dec_len - 1) + kind].to(torch.bfloat16).float()
+        return scores, idx.to(torch.int32)[:, None, None], (raw + emb).to(y.dtype)[:, None, :]
+    return epilogue
+
+
+@pytest.mark.parametrize("fault", [None, "higher_tie", "wrong_type", "mask_dropped"])
+def test_check_fused_epilogue_rejects_a_planted_fault(fault, monkeypatch):
+    """check_fused_epilogue (#6) on the CPU, untimed, at the serving widths
+    and batch 1 and 2: the twin passes (its planted tie goes to the lower
+    row), and an epilogue that breaks the tie to the higher index, adds the
+    emb row of the wrong token type or drops the OCR mask is rejected (the
+    first by the planted tie, the second by the next embedding, the third
+    by the scores)."""
+    dev = torch.device("cpu")
+    record = {}
+    if fault is None:
+        CS.check_fused_epilogue(dev, record, batches=(1, 2), timed=False)
+        assert record["fused_epilogue"]["max_abs_err"] == 0.0
+        return
+    monkeypatch.setattr(TDS, "fused_epilogue", _epilogue_with_fault(fault))
+    match = {"higher_tie": "planted tie", "wrong_type": "token, embedding",
+             "mask_dropped": "disagrees with its plain version"}[fault]
+    with pytest.raises(SystemExit, match=match):
+        CS.check_fused_epilogue(dev, record, batches=(1, 2), timed=False)
+
+
+def _epilogue_with_launch_setup(kept: str):
+    """fused_epilogue_plain behind a model of the kernel's launch setup:
+    the shared-memory attribute of each instantiation (batch <= 2, <= 8)
+    is set at a cache miss, to the largest launch of the instantiation
+    (``per_instantiation``), or to the launch's own bytes with the cache
+    keyed by batch (``per_batch``); a launch of more bytes than the
+    attribute is refused, as the card refuses it."""
+    attr, seen = {}, set()
+    smem = lambda b: (b * 768 + 8 * 768) * 4  # csrc/fused_epilogue.cu smem_bytes
+
+    def epilogue(*args, buffers=None):
+        b = args[0].shape[0]
+        mb = 2 if b <= 2 else 8
+        key = mb if kept == "per_instantiation" else b
+        if key not in seen:
+            seen.add(key)
+            attr[mb] = smem(mb) if kept == "per_instantiation" else smem(b)
+        if smem(b) > attr[mb]:
+            raise RuntimeError("fused_epilogue: CUDA error 1 (invalid argument)")
+        return TDS.fused_epilogue_plain(*args)
+    return epilogue
+
+
+@pytest.mark.parametrize("kept", ["per_instantiation", "per_batch"])
+def test_check_epilogue_batch_order_rejects_a_setup_kept_per_batch(kept, monkeypatch):
+    """check_epilogue_batch_order (#6) on the CPU at EPI_ORDER (batch 2, 1,
+    2, 8, 3, 8): a launch setup made once an instantiation, at its largest
+    launch, passes; one kept per batch, which leaves the attribute at
+    batch 1's after batch 1, is refused at the second batch-2 call."""
+    dev = torch.device("cpu")
+    record = {}
+    monkeypatch.setattr(TDS, "fused_epilogue", _epilogue_with_launch_setup(kept))
+    if kept == "per_instantiation":
+        CS.check_epilogue_batch_order(dev, record)
+        assert record["fused_epilogue"]["max_abs_err"] == 0.0
+        return
+    with pytest.raises(SystemExit, match=r"did not launch at \[2,1,768\], call 3 of"):
+        CS.check_epilogue_batch_order(dev, record)
+
+
+def _ptr_scores_with_fault(fault: str):
+    """ptr_scores_int8_plain with one planted fault: ``scale_order`` folds
+    the scale as (acc * ks) * scale, ``scale_dropped`` leaves 1 / sqrt(D)
+    out, ``last_tile_skipped`` leaves the keys of a partial last tile of
+    the launch plan unscored (zero)."""
+    def scores(q, k8, ks, mask):
+        d = q.shape[-1]
+        s = torch.einsum("bsd,bnd->bsn", q.float(), k8.float())
+        if fault == "scale_order":
+            return (s * ks[:, None, :]) * (1.0 / d ** 0.5) + mask[:, None, :]
+        if fault == "scale_dropped":
+            return s * ks[:, None, :] + mask[:, None, :]
+        out = TPS.ptr_scores_int8_plain(q, k8, ks, mask)
+        plan = TPS.launch_plan(q.shape[0], k8.shape[1])
+        out[..., (plan.tiles_per_row - 1) * plan.keys_per_tile:] = 0.0
+        return out
+    return scores
+
+
+@pytest.mark.parametrize("fault", [None, "scale_order", "scale_dropped", "last_tile_skipped"])
+def test_check_ptr_scores_rejects_a_planted_fault(fault, monkeypatch):
+    """check_ptr_scores (#12) on the CPU, untimed, at batch 1 over 960 and
+    961 slots and batch 8 over 961 (a last tile of one key in both plan
+    forms): the twin passes, and scores that fold the scale in the other
+    order (caught only by the integer-q case, bit for bit), drop it, or
+    skip the last partial tile are rejected."""
+    dev = torch.device("cpu")
+    record = {}
+    cases = ((1, 960), (1, 961), (8, 961))
+    if fault is None:
+        CS.check_ptr_scores(dev, record, cases=cases, timed=False)
+        assert record["ptr_scores_int8"]["max_abs_err"] == 0.0
+        return
+    monkeypatch.setattr(TPS, "ptr_scores_int8", _ptr_scores_with_fault(fault))
+    match = "bit for bit" if fault == "scale_order" else "ptr_scores_int8"
+    with pytest.raises(SystemExit, match=match):
+        CS.check_ptr_scores(dev, record, cases=cases, timed=False)
+
+
+SASS = """
+	code for sm_90a
+		Function : _ZN2vt3ptr22ptr_scores_int8_kernelILi3ELi4EEEvPKfPKaS3_S3_Pfiifix
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+        /*0010*/                   PRMT R4, R2, 0x7540, R3 ;               /* 0x0000754002047816 */
+        /*0020*/              @!P0 FADD R5, R4, -8388736 ;                 /* 0x4b00008004057421 */
+        /*0030*/                   I2F.RP R6, R7 ;                         /* 0x0000000700067306 */
+        /*0040*/                   EXIT ;                                  /* 0x000000000000794d */
+		Function : _ZN2vt9epilogue21fused_epilogue_kernelILi2EEEvNS0_6ParamsE
+        /*0000*/                   I2FP.F32.S32 R0, R1 ;                   /* 0x0000000100007245 */
+"""
+
+
+def test_sass_opcodes_and_the_i2f_check():
+    """_build.sass_opcodes reads each kernel's opcodes (predicates
+    dropped); check_no_i2f passes the pointer scores with no I2F-family
+    conversion but an integer division's reciprocal seed, whatever other
+    kernels hold, and fails one with an int8 or int32 conversion."""
+    from vitxtgqa_tpu_torch.ops import _build
+
+    ops = _build.sass_opcodes(SASS)
+    ptr = "_ZN2vt3ptr22ptr_scores_int8_kernelILi3ELi4EEEvPKfPKaS3_S3_Pfiifix"
+    assert ops[ptr] == ["LDC", "PRMT", "FADD", "I2F.RP", "EXIT"]
+    assert ops["_ZN2vt9epilogue21fused_epilogue_kernelILi2EEEvNS0_6ParamsE"] == ["I2FP.F32.S32"]
+    CS.check_no_i2f(ops)
+    for conversion in ("I2F.F32.S8", "I2FP.F32.S32"):
+        with pytest.raises(SystemExit, match="I2F"):
+            CS.check_no_i2f({**ops, ptr: ops[ptr] + [conversion]})
+    with pytest.raises(SystemExit, match="missing"):
+        CS.check_no_i2f({})

@@ -3,7 +3,8 @@ backward (#1b, #10b) and of the decode attention (#4, #7) of the port
 package found under --root, for an A/B of two checkouts on one card (run
 parent, change, change, parent back to back):
 
-    python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N] [--forms decode|block|step]
+    python3 vitxtgqa_tpu_torch/ab_kernels.py --root DIR [--reps N]
+        [--forms decode|block|step|epilogue]
 
 Forms and shapes: #1 at [8, 1152, 768] with the key mask of the synthetic
 serving batch, dec_len 0 and 12; #1's dropout form (rate 0.1, with the
@@ -48,6 +49,24 @@ of 12, its attention planted as chip_smoke.py's check plants it) at batch
 weights and cache every call) and cold (chip_smoke.cold_copies sets of
 weight stacks and caches in turn), its twin beside each (``plain_ms``: a
 record, not a yardstick).
+
+``--forms epilogue`` times only the fused greedy-decode epilogue #6 and the
+int8 pointer scores #12.  #6 at batch 1 and 2 over the serving batch's 960
+OCR slots (classifier 5,050 of 5,120 padded rows, hidden and pointer
+width 768), warm (the same weights and keys every call) and cold
+(chip_smoke.cold_copies sets of classifier, pointer weights and keys in
+turn), its two GEMVs alone as float32 torch.matmul beside each
+(``yardstick_ms``); where the package under --root has
+``epilogue_buffers``, the calls share one set of them, as a forward's do.
+#12 at [B, 1, 768] x [B, 960, 768] int8 for B = 1, 8 and 576 (the JAX
+bench's serving batch, 425 MB of keys) and at [8, 961] (no multiple of
+either tile form's keys: the last tile holds one key), warm and cold, and
+beside each the bf16-key einsum that the JAX package's default decode
+takes instead (``OcrPtrNet.scores_from_keys`` on bf16 keys: a yardstick,
+not a library column, since it reads twice the bytes).  Floors in the
+same timing loop (``floor_ms``): x.sum() over 21 MB and 6 MB of float32
+(the bytes of #6 at batch 1 and of #12 at batch 8), warm and cold, and a
+one-element add_ (one launch).
 """
 
 import argparse
@@ -64,7 +83,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--forms", choices=("all", "decode", "block", "step"), default="all")
+    ap.add_argument("--forms", choices=("all", "decode", "block", "step", "epilogue"), default="all")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path = [root] + [p for p in sys.path if os.path.abspath(p) != os.path.dirname(__file__)]
@@ -121,6 +140,8 @@ def main(argv=None) -> int:
         return report(args.root, ms, sdpa, **block_forms(ms, timed, rn, dev, seed))
     if args.forms == "step":
         return report(args.root, ms, sdpa, **step_forms(ms, timed, dev))
+    if args.forms == "epilogue":
+        return report(args.root, ms, sdpa, **epilogue_forms(ms, timed, dev))
 
     # the decode attention, warm and cold
     compact = torch.nn.functional.pad(
@@ -338,6 +359,87 @@ def step_forms(ms, timed, dev):
             del sets
             torch.cuda.empty_cache()
     return {"plain_ms": plain}
+
+
+def epilogue_forms(ms, timed, dev):
+    """#6 and #12 warm and cold into ``ms``; their yardsticks and the
+    floors (returned under "yardstick_ms" and "floor_ms")."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as CS
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+    from vitxtgqa_tpu_torch.ops import ptr_scores as PS
+    from vitxtgqa_tpu_torch.ops.attention import quantize_kv
+
+    yard = {}
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rn = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=dev) * scale
+    _, ocr_mask = CS.serving_masks(dev)
+    d, v_fix, v_p, n = 768, 5050, 5120, 960
+    ans = torch.zeros(v_p, d, device=dev, dtype=torch.bfloat16)
+    ans[:v_fix] = rn(v_fix, d, scale=0.3).to(torch.bfloat16)
+    cls_b = torch.full((v_p,), -1e30, device=dev)
+    cls_b[:v_fix] = rn(v_fix, scale=0.01)
+    ptr_b, emb = rn(d, scale=0.01), rn(2 * 12, d, scale=0.1)
+
+    def weights(b):
+        cls_w = torch.zeros(v_p, d, device=dev)
+        cls_w[:v_fix] = rn(v_fix, d, scale=0.05)
+        return cls_w, rn(d, d, scale=0.05), rn(b, n, d, scale=0.2)
+
+    for b in (1, 2):
+        y = rn(b, 1, d).to(torch.bfloat16)
+        mask = ocr_mask[:b].contiguous()
+        ocr = rn(b, n, d, scale=0.3).to(torch.bfloat16)
+        first = weights(b)
+        copies = CS.cold_copies(CS.nbytes(*first))
+        sets = [first] + [weights(b) for _ in range(copies - 1)]
+        kw = {"buffers": DS.epilogue_buffers(b, d, dev)} if hasattr(DS, "epilogue_buffers") else {}
+        run = lambda cls_w, ptr_w, keys: DS.fused_epilogue(
+            y, cls_w, cls_b, ptr_w, ptr_b, keys, mask, ans, ocr, emb, 3, v_fix,
+            1.0 / math.sqrt(d), 12, **kw)
+        y32 = y[:, 0].float()
+        gemv = lambda cls_w, ptr_w, keys: (y32 @ cls_w.t(), y32 @ ptr_w.t())
+        for temp, pick in (("warm", lambda i: 0), ("cold", lambda i: i % copies)):
+            turn = itertools.count()
+            ms[f"#6 [{b}] {temp}"] = timed(lambda: run(*sets[pick(next(turn))]))
+            yard[f"#6 [{b}] {temp}"] = timed(lambda: gemv(*sets[pick(next(turn))]))
+        del sets, first
+        torch.cuda.empty_cache()
+
+    for b, slots in ((1, n), (8, n), (576, n), (8, n + 1)):
+        mask = F.pad(ocr_mask, (0, slots - n), value=1.0)
+        mask = mask[torch.arange(b) % mask.shape[0]].contiguous()
+        q = rn(b, 1, d, scale=0.5)
+        copies = CS.cold_copies(b * slots * d)
+        sets = []
+        for _ in range(copies):
+            kb = rn(b, slots, d).to(torch.bfloat16)
+            sets.append((*quantize_kv(kb), kb))
+        bf16_scores = lambda kbf: (torch.einsum("bsd,bnd->bsn", q, kbf.float()) / math.sqrt(d)
+                                   + mask[:, None, :])
+        key = f"#12 [{b}]" if slots == n else f"#12 [{b},{slots}]"
+        for temp, pick in (("warm", lambda i: 0), ("cold", lambda i: i % copies)):
+            turn = itertools.count()
+            ms[f"{key} {temp}"] = timed(
+                lambda: PS.ptr_scores_int8(q, *sets[pick(next(turn))][:2], mask))
+            yard[f"{key} {temp}"] = timed(lambda: bf16_scores(sets[pick(next(turn))][2]))
+        del sets, kb
+        torch.cuda.empty_cache()
+
+    floor = {}
+    for mb in (21, 6):
+        xs = [torch.randn(mb * 2 ** 18, device=dev) for _ in range(CS.cold_copies(mb * 2 ** 20))]
+        for temp, pick in (("warm", lambda i: 0), ("cold", lambda i: i % len(xs))):
+            turn = itertools.count()
+            floor[f"x.sum {mb} MB {temp}"] = timed(lambda: xs[pick(next(turn))].sum())
+        del xs
+    one = torch.zeros(1, device=dev)
+    floor["one-element add_"] = timed(lambda: one.add_(1))
+    return {"yardstick_ms": yard, "floor_ms": floor}
 
 
 def report(root, ms, sdpa, **beside) -> int:

@@ -639,35 +639,11 @@ __global__ void __launch_bounds__(NT, 1) fused_step_kernel(const Params p) {
 // the cooperative grid (one block an SM) of the current device, with the
 // shared-memory attribute set to the instantiation's largest launch;
 // computed once a device
-struct Launch {
-  int grid;
-  cudaError_t err;
-};
-
 template <int MB>
-Launch launch_config() {
+CoopLaunch launch_config() {
   constexpr int kMaxSmem = (2 * MB * kD + MB * kM + 2 * MB) * 4;
-  static Launch cached[64];
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev >= 64) return {0, err != cudaSuccess ? err : cudaErrorInvalidDevice};
-  if (done[dev]) return cached[dev];
-  Launch c = {0, cudaSuccess};
-  int sms = 0, coop = 0, per_sm = 0;
-  c.err = cudaFuncSetAttribute(fused_step_kernel<MB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
-  if (c.err == cudaSuccess) c.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (c.err == cudaSuccess) c.err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (c.err == cudaSuccess && !coop) c.err = cudaErrorNotSupported;
-  if (c.err == cudaSuccess)
-    c.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_step_kernel<MB>, NT,
-                                                          kMaxSmem);
-  if (c.err == cudaSuccess && per_sm < 1) c.err = cudaErrorCooperativeLaunchTooLarge;
-  c.grid = sms;
-  cached[dev] = c;
-  done[dev] = true;
-  return c;
+  static CoopCache cache;
+  return coop_launch(cache, (const void*)fused_step_kernel<MB>, NT, kMaxSmem, 1);
 }
 
 }  // namespace step
@@ -686,7 +662,7 @@ extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, 
       cache_len > kMaxLp || write_offset + step >= cache_len)
     return (int)cudaErrorInvalidValue;
   const bool small = batch <= 2;  // the fused decode's route: batch 1 and 2
-  const Launch cfg = small ? launch_config<2>() : launch_config<MAXB>();
+  const auto cfg = small ? launch_config<2>() : launch_config<MAXB>();
   if (cfg.err != cudaSuccess) return (int)cfg.err;
   Params p;
   int i = 0;

@@ -16,6 +16,8 @@ post-scan compact epilogue are not ported (ROADMAP.md queue 1).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -177,9 +179,9 @@ class JointQAModel(nn.Module):
         step one fused_decode_step launch, two row commits and one
         fused_epilogue launch.  The padded classifier, the padded answer
         table and the LayerNormed (position, type) rows are built once per
-        set of weights (derived_weights), the step-0 embedding once per
-        forward; the pad lanes are sliced out once after the loop.  Returns
-        float32 scores [B, dec_len, V + N]."""
+        set of weights (derived_weights), the step-0 embedding and the
+        epilogue's scratch once per forward; the pad lanes are sliced out
+        once after the loop.  Returns float32 scores [B, dec_len, V + N]."""
         encoder = self.mmt.encoder
         ppe = self.mmt.prev_pred_embeddings
         stacks, kv8, kvsc, buffers = encoder.fused_decode_prep(cache)
@@ -204,7 +206,10 @@ class JointQAModel(nn.Module):
         bos = torch.full((kv8.shape[1], 1), self.bos_idx, dtype=torch.long,
                          device=kv8.device)
         demb = ppe.embed(ans_tbl, ocr_tbl, bos, position_offset=0)
-        epilogue = DS.fused_epilogue_plain if self.opts.plain else DS.fused_epilogue
+        epilogue = DS.fused_epilogue_plain
+        if kv8.is_cuda and not self.opts.plain:  # one scratch for every step's launch
+            epilogue = functools.partial(DS.fused_epilogue, buffers=DS.epilogue_buffers(
+                kv8.shape[1], qk, kv8.device))
         mask = ocr_masks.float().contiguous()
         steps = []
         for t in range(dec_len):

@@ -90,6 +90,8 @@ _SIGNATURES = {
     # pointer array (order in csrc/fused_epilogue.cu); batch, d, vp, n, qk,
     # s2, step, dec_len; qk_scale; stream
     "vt_fused_epilogue": [_P] + [_I] * 8 + [_F, _P],
+    # batch, d, qk; out grid (the launch's blocks on the current device)
+    "vt_fused_epilogue_grid": [_I] * 3 + [_P],
     # x, w1, b1, w2, b2, h, out; rows, d, m, d2; stream
     "vt_fused_ffn": [_P] * 7 + [_I] * 4 + [_P],
     # q, k, v, bias, out, strides (14 int64: csrc/fused_attention.cu);
@@ -230,6 +232,32 @@ def ptxas_kernels(log, source: str):
             out.append((name, int(ln.split("Used ")[1].split()[0]), *spills))
             name = None
     return out
+
+
+def sass_opcodes(text: str) -> Dict[str, list]:
+    """{kernel: [opcode, ...]} from the text of ``cuobjdump -sass``: each
+    ``Function :`` header starts a kernel, each ``/*addr*/`` line adds its
+    opcode (the first word after an optional ``@P`` predicate)."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            out[name] = []
+        elif name is not None and ln.strip().startswith("/*") and "*/" in ln:
+            words = ln.split("*/", 1)[1].split(";")[0].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                out[name].append(words[0])
+    return out
+
+
+def sass(lib_path: Path) -> Dict[str, list]:
+    """sass_opcodes of the built library (cuobjdump beside nvcc)."""
+    cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return sass_opcodes(text)
 
 
 def lib() -> ctypes.CDLL:

@@ -19,6 +19,8 @@ functions take ``[in, out]``.  Biases and LayerNorm parameters are float32
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from vitxtgqa_tpu_torch.ops import _build
@@ -32,6 +34,9 @@ STEP_WIDTHS = (768, 3072)  # csrc/fused_decode_step.cu: the MMT's hidden and FFN
 HEAD_DIM = 64
 MAX_CACHE = 1152  # cache slots of one step kernel launch (the exact serving sequence)
 MAX_SPANS = 16  # key spans of one (batch row, head) unit of the step kernel
+# csrc/fused_epilogue.cu: (max, index) partials a batch row (kMaxGrid), warps
+# a block, blocks an SM at most; the H100's SM count
+EPILOGUE_MAX_GRID, EPILOGUE_WARPS, EPILOGUE_BLOCKS_PER_SM, H100_SMS = 1024, 8, 2, 132
 STACK_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "s1", "g1",
                "w1", "b1", "w2", "b2", "s2", "g2")
 
@@ -194,11 +199,45 @@ def fused_epilogue_plain(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask,
     return scores[:, None, :], idx.to(torch.int32)[:, None, None], nxt[:, None, :]
 
 
+def epilogue_buffers(b: int, qk: int, device) -> dict:
+    """The scratch of one fused_epilogue launch; allocate once per decode
+    and pass to every step.  ``q`` holds the pointer query, each entry
+    (launch tag << 32) | float32 bits, ``part_v`` / ``part_i`` each block's
+    (max, index) per batch row, and ``sync`` the blocks' ticket and the
+    last launch's tag; q and sync are zero here, and every launch leaves
+    the ticket zero."""
+    dev = torch.device(device)
+    return {
+        "q": torch.zeros((b, qk), dtype=torch.int64, device=dev),
+        "part_v": torch.empty((b, EPILOGUE_MAX_GRID), dtype=torch.float32, device=dev),
+        "part_i": torch.empty((b, EPILOGUE_MAX_GRID), dtype=torch.int32, device=dev),
+        "sync": torch.zeros((2,), dtype=torch.int32, device=dev),
+    }
+
+
+def epilogue_block_of(item: int, grid: int) -> int:
+    """The block of a grid of ``grid`` blocks whose warp scores work item
+    ``item`` of csrc/fused_epilogue.cu: the items are the q rows, then the
+    classifier rows, then the key rows; item i goes to warp i mod W of the
+    grid's W = EPILOGUE_WARPS * grid warps, numbered block-minor (warp w is
+    warp w // grid of block w mod grid)."""
+    return item % (EPILOGUE_WARPS * grid) % grid
+
+
+def epilogue_grid(b: int, d: int, qk: int) -> int:
+    """The blocks of one fused_epilogue launch on the current CUDA device."""
+    grid = ctypes.c_int(0)
+    _build.check(_build.lib().vt_fused_epilogue_grid(b, d, qk, ctypes.byref(grid)),
+                 "fused_epilogue_grid")
+    return grid.value
+
+
 def fused_epilogue(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask, ans_tbl,
                    ocr_tbl, emb_rows, step: int, n_fixed: int, qk_scale: float,
-                   dec_len: int):
+                   dec_len: int, buffers: dict | None = None):
     """Decode-step epilogue in one launch; the arguments and returns of
-    fused_epilogue_plain."""
+    fused_epilogue_plain.  ``buffers`` (epilogue_buffers) holds the
+    launch's scratch; without it each call allocates its own."""
     if not y.is_cuda:
         return fused_epilogue_plain(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys,
                                     ocr_mask, ans_tbl, ocr_tbl, emb_rows, step,
@@ -225,9 +264,18 @@ def fused_epilogue(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask, ans_tbl,
     scores = torch.empty((b, 1, v_p + n), dtype=f32, device=dev)
     tok = torch.empty((b, 1, 1), dtype=torch.int32, device=dev)
     nxt = torch.empty((b, 1, d), dtype=bf, device=dev)
-    q = torch.empty((b, qk), dtype=f32, device=dev)
+    if buffers is None:
+        buf = epilogue_buffers(b, qk, dev)
+    else:
+        buf = buffers
+        for name, dt, shape in (
+            ("q", torch.int64, (b, qk)), ("part_v", f32, (b, EPILOGUE_MAX_GRID)),
+            ("part_i", torch.int32, (b, EPILOGUE_MAX_GRID)), ("sync", torch.int32, (2,)),
+        ):
+            _build.require(buf[name], name, dt, shape, dev)
     ptrs = _build.pointers(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask,
-                           ans_tbl, ocr_tbl, emb_rows, scores, tok, nxt, q)
+                           ans_tbl, ocr_tbl, emb_rows, scores, tok, nxt,
+                           *(buf[n] for n in ("q", "part_v", "part_i", "sync")))
     with torch.cuda.device(dev):
         err = _build.lib().vt_fused_epilogue(
             ptrs, b, d, v_p, n, qk, s2, int(step), int(dec_len),
