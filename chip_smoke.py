@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's T2S serving, full-eval and training paths,
-its ViT frame-feature path and its sequence-parallel path once on one
-NVIDIA GPU.
+its ViT frame-feature path, its sequence-parallel path and its runtime
+(train, validate, checkpoint, resume, predict) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -125,7 +125,29 @@ Phases (each prints one or more lines; any failure exits non-zero):
           derived (#10, #10b in #1's, #1b's place), the tokens (loss) equal
           across the ranks, against the unsharded plain versions from the
           same weights, batch and noise; the SP forward's latency against
-          the unsharded one and one all-gather's time.
+          the unsharded one and one all-gather's time;
+       l. the runtime (vitxtgqa_tpu_torch.run) on a fixture tree written at
+          run time (4 train, 2 val, 2 test videos of 1,024-d ViT features,
+          3 questions each), configs/t2s_abinet.yml's model and worker
+          processes, batch 2, bf16: (i) run() trains 3 steps with a
+          validation probe each, the snapshot's and the final validation,
+          ckpt/best and ckpt/final, the six val/ metrics in [0, 1]; (ii)
+          the trainer's first step through the kernels against the plain
+          versions from the same weights, batch and generators (the loss
+          and the gradient norm, RUNTIME_LOSS_REL_TOL /
+          RUNTIME_GNORM_REL_TOL, and every parameter's gradient, the
+          training step's limit), the plain step with each planted fault
+          outside those limits, and each form's distance from the float32
+          step printed (RUNTIME_STEP_FORMS: also the kernels with #1 / #1b
+          or #9a / #9b run through their twins); (iii) a resume from
+          ckpt/best: iteration, epoch position and parameters restored bit
+          for bit, one more step; (iv) predictions on the test split with
+          configs/t2s_serving.yml at batch 2 and 6, the EvalAI JSON's
+          schema; (v) the recompute decode oracle at production width,
+          serving and full-eval, its tokens and scores against the cached
+          decode's; each part's launches as derived, and the host-clock ms
+          of every iteration and validation pass and the data-wait share
+          printed.
      a-c and f-g serve behind a ServingEngine; each slice checks its launch
      counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
@@ -138,6 +160,7 @@ Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -363,6 +386,26 @@ VIT_BWD_BATCH = 2
 SP_RANKS = 2
 SP_TRAIN_ATTENTION_DROPOUT = 0.0
 SP_REPS = 3
+# slice l: the runtime's batch (the fixtures hold 12 train and 6 val
+# questions) and its training steps
+RUNTIME_BATCH, RUNTIME_STEPS = 2, 3
+# ... and the limits of its first step through the kernels against the
+# plain versions (bf16 both) on the fixture batch: the loss and the global
+# gradient norm a few times beyond the readings on the H100 (loss 2.7e-5
+# to 1.6e-3, norm 3.7e-4 to 2.6e-3; PERF.md lists each run's), every
+# parameter's gradient at the training step's GRAD_REL_TOL.  At this batch
+# the loss and the norm cannot tell a fault from bf16 rounding: the
+# InfoNCE term (weight 1000, temperature 0.1) amplifies the rounding that
+# hundreds of identical padded OCR slots make coherent, so every bf16 form
+# of the step (RUNTIME_STEP_FORMS) lands up to ~1.6e-3 from the float32
+# step, kernels and twins alike, and ~1.4e9 of the norm is one bias's
+# gradient (the OCR bbox LayerNorm's constant padded rows).  The
+# per-parameter gradients tell them apart (the kernels' largest ~1.5e-2,
+# each planted fault's 0.1 or more), and the check rejects each planted
+# fault in the run; a step in another precision launches no kernel, which
+# the launch check rejects.  Slice e's LOSS_REL_TOL / GNORM_REL_TOL were read on
+# its synthetic batch, where random rows average the rounding out.
+RUNTIME_LOSS_REL_TOL, RUNTIME_GNORM_REL_TOL = 5e-3, 1e-2
 
 
 def joint_lengths(cfg, text_len: int = 20, dec_len: int = DEC_LEN):
@@ -374,6 +417,26 @@ def joint_lengths(cfg, text_len: int = 20, dec_len: int = DEC_LEN):
     compact = text_len + g["frame_topk"] + g["frame_num"] * g["ocr_topk"]
     pad = lambda n: -(-(n + dec_len) // 128) * 128
     return pad(full), pad(compact)
+
+
+def encode_launches(out: dict, opts, tc, batch: int, seq: int, tanh_last: int) -> None:
+    """Add one eval encode's launches to ``out``: per layer of the stack
+    ``tc`` over ``batch`` sequences of ``seq`` rows, flash where the keys
+    reach MIN_KV; where the rows reach the fused block's gate, the W8A8
+    block under Options.w8a8, else the fused block (the last layer in its
+    tanh form if ``tanh_last``)."""
+    from vitxtgqa_tpu_torch.ops import fused_block as FB
+    from vitxtgqa_tpu_torch.ops.attention import MIN_KV
+
+    n = tc.num_hidden_layers
+    if seq >= MIN_KV:
+        out["flash_attention_merged"] += n
+    if FB.kernel_ok(tc.hidden_size, tc.intermediate_size, batch * seq):
+        if opts.w8a8:
+            out["fused_block_w8a8"] += n
+        else:
+            out["fused_block"] += n - tanh_last
+            out["fused_block_tanh"] += tanh_last
 
 
 def expected_launches(cfg, batch: int, opts, full_eval: bool = False, text_len: int = 20,
@@ -391,7 +454,6 @@ def expected_launches(cfg, batch: int, opts, full_eval: bool = False, text_len: 
     one.  No training kernel, and no #11 / #12 (the decode keeps the
     separate quantize pass and bf16 pointer keys, as JAX does)."""
     from vitxtgqa_tpu_torch.models.common import TransformerConfig
-    from vitxtgqa_tpu_torch.ops import fused_block as FB
     from vitxtgqa_tpu_torch.ops.attention import MIN_KV
 
     qtv = TransformerConfig.from_config(cfg["translayers"])
@@ -399,18 +461,7 @@ def expected_launches(cfg, batch: int, opts, full_eval: bool = False, text_len: 
     l_full, l_compact = joint_lengths(cfg, text_len, dec_len)
     l_mmt = l_compact if opts.compact_serving else l_full
     out = {name: 0 for name in REPLACES}
-
-    def encode(tc, rows, seq, tanh_last):
-        n = tc.num_hidden_layers
-        if seq >= MIN_KV:
-            out["flash_attention_merged"] += n
-        if FB.kernel_ok(tc.hidden_size, tc.intermediate_size, rows * seq):
-            if opts.w8a8:
-                out["fused_block_w8a8"] += n
-            else:
-                out["fused_block"] += n - tanh_last
-                out["fused_block_tanh"] += tanh_last
-
+    encode = functools.partial(encode_launches, out, opts)
     encode(qtv, batch, l_full, 1)
     encode(mmt, batch, l_mmt, 0)
     fused = (opts.fused_decode and opts.kv_cache_int8 and not opts.w8a8
@@ -427,6 +478,26 @@ def expected_launches(cfg, batch: int, opts, full_eval: bool = False, text_len: 
         encode(mmt, batch, l_compact, 0)
     elif full_eval:
         encode(mmt, 2 * batch, l_full, 0)
+    return out
+
+
+def expected_recompute_launches(cfg, batch: int, opts, full_eval: bool = False,
+                                text_len: int = 20, dec_len: int = DEC_LEN) -> dict:
+    """Kernel launches in one forward of the recompute decode oracle
+    (T2S(..., decode_recompute=True)): the QTV encode over the joint
+    sequence without decoder slots, then ``dec_len`` teacher-forced MMT
+    passes over it with them, at B (serving) or 3B (full-eval: ref, pos and
+    neg stacked); no decode kernel."""
+    from vitxtgqa_tpu_torch.models.common import TransformerConfig
+
+    g = cfg["grounding"]
+    l0 = text_len + g["frame_num"] * (1 + g["ocr_frame_num"])
+    out = {name: 0 for name in REPLACES}
+    encode_launches(out, opts, TransformerConfig.from_config(cfg["translayers"]), batch,
+                    -(-l0 // 128) * 128, 1)
+    for _ in range(dec_len):
+        encode_launches(out, opts, TransformerConfig.from_config(cfg["mmt"]),
+                        3 * batch if full_eval else batch, -(-(l0 + dec_len) // 128) * 128, 0)
     return out
 
 
@@ -508,6 +579,37 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def child_processes() -> list:
+    """(pid, command line) of each live process whose parent is this one."""
+    me, out = os.getpid(), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                # the fields after the command's closing parenthesis:
+                # state, parent pid, ...
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:  # it ended meanwhile
+            continue
+        if int(ppid) == me and state != "Z":
+            out.append((int(pid), cmd[:160]))
+    return out
+
+
+def stop_child_processes() -> None:
+    """Stop the servers that slice l's worker pools and slice k's spawn
+    started (the forkserver, the resource tracker), wait for them, and fail
+    if any other process this script started is still running."""
+    from vitxtgqa_tpu_torch.data.loader import stop_worker_servers
+
+    stop_worker_servers()
+    left = child_processes()
+    if left:
+        fail(f"processes still running at the end: {left}")
+    print("processes: none of those this script started is still running", flush=True)
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2699,12 +2801,14 @@ def train_check_step(sl, tb, losses, plain, fault=None, **opts):
     return total.item(), norm, grads, counts
 
 
-def step_agreement(run, ref):
+def step_agreement(run, ref, loss_tol=LOSS_REL_TOL, norm_tol=GNORM_REL_TOL):
     """(loss relative difference, gradient-norm relative difference,
     (largest per-parameter gradient relative difference |g - g_ref| /
     |g_ref|, its parameter), parameters compared, whether all three are
-    within their limits) of ``run`` against ``ref``."""
-    (loss, norm, grads, _), (loss_r, norm_r, grads_r, _) = run, ref
+    within their limits: ``loss_tol``, ``norm_tol``, GRAD_REL_TOL) of
+    ``run`` against ``ref``, each (loss, norm, {parameter: gradient},
+    ...)."""
+    (loss, norm, grads, *_), (loss_r, norm_r, grads_r, *_) = run, ref
     if sorted(grads) != sorted(grads_r):
         fail("slice train: two steps reach different parameters")
     rel = {}
@@ -2717,7 +2821,7 @@ def step_agreement(run, ref):
             rel[k] = float((grads[k] - w).norm() / nw)
     worst = worst_of(rel)
     loss_rel, norm_rel = abs(loss - loss_r) / abs(loss_r), abs(norm - norm_r) / norm_r
-    ok = loss_rel <= LOSS_REL_TOL and norm_rel <= GNORM_REL_TOL and rel[worst] <= GRAD_REL_TOL
+    ok = loss_rel <= loss_tol and norm_rel <= norm_tol and rel[worst] <= GRAD_REL_TOL
     return loss_rel, norm_rel, (rel[worst], worst), len(rel), ok
 
 
@@ -3082,6 +3186,422 @@ def sp_slice(record, card):
     return out
 
 
+def runtime_eval_forwards(iterations: int, log_interval: int, snapshot_interval: int,
+                          val_batches: int, first: int = 1) -> int:
+    """Eval forwards of the trainer over iterations ``first`` to
+    ``iterations`` of a training run: a one-batch validation probe every
+    ``log_interval``, a full validation (``val_batches`` forwards) every
+    ``snapshot_interval`` and one more at the end (finalize)."""
+    its = range(first, iterations + 1)
+    snapshots = sum(i % snapshot_interval == 0 for i in its) + 1
+    return sum(i % log_interval == 0 for i in its) + snapshots * val_batches
+
+
+def runtime_launches(cfg, opts, steps: int, forwards: int, batch: int) -> dict:
+    """Kernel launches of ``steps`` training steps and ``forwards`` full-eval
+    forwards at ``batch``."""
+    train = expected_train_launches(cfg, opts)
+    val = expected_launches(cfg, batch, opts, full_eval=True)
+    return {k: steps * train[k] + forwards * val[k] for k in REPLACES}
+
+
+def runtime_argv(config: str, run_type: str, fixroot: str, save_dir: str, **tp) -> list:
+    """``python -m vitxtgqa_tpu_torch.run`` arguments on the fixture tree:
+    the config's model and switches (its worker processes too), these
+    training_parameters."""
+    return (["--config", os.path.join(ROOT, "configs", config), "--model", "t2s", "--datasets",
+             "vtextgqa", "--run_type", run_type,
+             f"dataset_attributes.vtextgqa.data_root_dir={fixroot}",
+             f"training_parameters.save_dir={save_dir}", "training_parameters.seed=1"]
+            + [f"training_parameters.{k}={v}" for k, v in tp.items()])
+
+
+def write_fixtures(root: str) -> None:
+    """The fixture tree of tools/make_fixtures.py (numpy only) under root."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", os.path.join(ROOT, "tools", "make_fixtures.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tool.main(root)
+
+
+def runtime_trainer(argv):
+    """A loaded trainer of these arguments (run()'s steps before train())."""
+    from vitxtgqa_tpu_torch.core.config import build_config
+    from vitxtgqa_tpu_torch.core.flags import get_parser
+    from vitxtgqa_tpu_torch.run import setup_imports
+    from vitxtgqa_tpu_torch.training.trainer import BaseTrainer
+
+    setup_imports()
+    args = get_parser().parse_args(argv)
+    trainer = BaseTrainer(build_config(args.config, opts=args.opts, args=args))
+    trainer.load()
+    return trainer
+
+
+def check_predictions(name, trainer):
+    """The EvalAI JSON of a prediction run has the JAX trainer's schema, a
+    row per test question."""
+    reports = os.path.join(trainer.logger.save_dir, "reports")
+    (report,) = os.listdir(reports)
+    with open(os.path.join(reports, report)) as f:
+        rows = json.load(f)
+    g = trainer.model_cfg["grounding"]
+    keys = ["answer", "grounded box", "grounded frame", "pred_source", "question_id", "video_id"]
+    for row in rows:
+        if (sorted(row) != keys or len(row["grounded frame"]) != g["frame_topk"]
+                or [len(row["grounded box"]), len(row["grounded box"][0])]
+                != [g["frame_num"] * g["ocr_topk"], 4]
+                or not set(row["pred_source"]) <= {"OCR", "VOCAB"}
+                or not isinstance(row["answer"], str)):
+            fail(f"slice {name}: a prediction row off the schema: {row}")
+    if len(rows) != len(trainer.datasets["test"]):
+        fail(f"slice {name}: {len(rows)} predictions for {len(trainer.datasets['test'])} questions")
+    return rows
+
+
+@contextlib.contextmanager
+def plain_family(name):
+    """Run one kernel family's autograd node through its plain twins (its
+    plain flag set) for the duration: "attention" (#1 / #1b, AttentionFn)
+    or "block" (#9a / #9b, BlockTrainFn)."""
+    from vitxtgqa_tpu_torch.ops import attention as A
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+
+    cls = {"attention": A.AttentionFn, "block": BT.BlockTrainFn}[name]
+    apply = cls.apply
+    cls.apply = lambda *a: apply(*a[:-1], True)   # plain is the last argument
+    try:
+        yield
+    finally:
+        del cls.apply
+
+
+# slice l's first step, each form from the trainer's weights, batch and
+# generators: (options, the family run through its plain twins)
+RUNTIME_STEP_FORMS = {
+    "kernels": ({}, None),
+    "plain": ({"plain": True}, None),
+    "float32": ({"plain": True, "dtype": "float32"}, None),
+    "plain_attention": ({}, "attention"),
+    "plain_block": ({}, "block"),
+}
+FAMILY_KERNELS = {"attention": ("flash_attention_merged", "flash_attention_merged_bwd"),
+                  "block": ("block_train_fwd", "block_train_bwd")}
+
+
+def runtime_step(k, tensors, dev, form: str = "kernels", fault=None) -> dict:
+    """The first training step of trainer ``k``'s model on ``tensors`` in
+    one of RUNTIME_STEP_FORMS (a fresh model from the trainer's weights),
+    with one of PLANTED_FAULTS where named: its loss and parts, every
+    parameter's f32 gradient and their global norm, the launch counts and
+    the grounded frames."""
+    import dataclasses
+
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.training.step import step_generators
+    from vitxtgqa_tpu_torch.training.trainer import build_model
+
+    fields, family = RUNTIME_STEP_FORMS[form]
+    fields = {n: getattr(torch, v) if n == "dtype" else v for n, v in fields.items()}
+    model = build_model("t2s", k.model_cfg, k.dataset_name, dataclasses.replace(k.opts, **fields))
+    model.load_state_dict(k.model.state_dict())
+    dropout_gen, gumbel_gen = step_generators(k.rng_seed, 1, dev)
+    _build.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        if family:
+            stack.enter_context(plain_family(family))
+        if fault:
+            stack.enter_context(planted_fault(fault, model))
+        out = model(tensors, gumbel_gen, train=True, dropout_gen=dropout_gen)
+        total, parts = k.losses.total(tensors, out)
+        total.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.float().flatten() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return {"loss": total.item(), "parts": {n: float(v.detach()) for n, v in parts.items()},
+            "grads": grads, "launches": _build.launch_counts(),
+            "norm": torch.linalg.vector_norm(torch.cat(list(grads.values()))).item(),
+            "ground_frame": out["ground_frame"].tolist()}
+
+
+def runtime_agreement(run: dict, ref: dict):
+    """step_agreement of two runtime_step results at slice l's limits,
+    flat: (loss, norm, largest gradient relative difference, its
+    parameter, parameters compared, within)."""
+    flat = lambda r: (r["loss"], r["norm"], r["grads"])
+    loss_rel, norm_rel, (grad_rel, worst), n, ok = step_agreement(
+        flat(run), flat(ref), RUNTIME_LOSS_REL_TOL, RUNTIME_GNORM_REL_TOL)
+    return loss_rel, norm_rel, grad_rel, worst, n, ok
+
+
+def runtime_step_check(k, tensors, dev) -> dict:
+    """Slice l (ii): the trainer's first step through the kernels against
+    the plain versions (bf16 both) within RUNTIME_LOSS_REL_TOL /
+    RUNTIME_GNORM_REL_TOL / GRAD_REL_TOL; the plain step with each planted
+    fault outside them; each form's distance from the float32 step
+    printed, the kernels with one family's plain twins swapped in among
+    them.  Launches: the derived ones through the kernels, none of a
+    family run plain."""
+    steps = {form: runtime_step(k, tensors, dev, form) for form in RUNTIME_STEP_FORMS}
+    train = expected_train_launches(k.model_cfg, k.opts)
+    for form, (fields, family) in RUNTIME_STEP_FORMS.items():
+        want = {n: 0 if fields or n in FAMILY_KERNELS.get(family, ()) else v
+                for n, v in train.items()}
+        if steps[form]["launches"] != want:
+            fail(f"slice runtime_check: {form} launches {steps[form]['launches']} (want {want})")
+    kern, plain, f32 = steps["kernels"], steps["plain"], steps["float32"]
+    loss_rel, norm_rel, grad_rel, worst, n, ok = runtime_agreement(kern, plain)
+    print(f"slice runtime_check: the trainer's first step, kernels vs plain (bf16): loss "
+          f"{kern['loss']:.6f} vs {plain['loss']:.6f} (rel {loss_rel:.3e}, limit "
+          f"{RUNTIME_LOSS_REL_TOL}; {kern['parts']} vs {plain['parts']}), gradient norm "
+          f"{kern['norm']:.6g} vs {plain['norm']:.6g} (rel {norm_rel:.3e}, limit "
+          f"{RUNTIME_GNORM_REL_TOL}), per-parameter gradient rel diff max {grad_rel:.3e} "
+          f"({worst}) over {n} parameters (limit {GRAD_REL_TOL}); grounding equal "
+          f"{kern['ground_frame'] == plain['ground_frame'] == f32['ground_frame']}", flush=True)
+    summary = {"loss": {f: s["loss"] for f, s in steps.items()},
+               "parts": {f: s["parts"] for f, s in steps.items()},
+               "grad_norm": {f: s["norm"] for f, s in steps.items()},
+               "against_plain": runtime_agreement(kern, plain)[:4], "against_float32": {},
+               "faults": {}}
+    for form in RUNTIME_STEP_FORMS:
+        if form != "float32":
+            yard = runtime_agreement(steps[form], f32)
+            summary["against_float32"][form] = yard[:4]
+            print(f"slice runtime_check: {form} against the float32 step: loss {yard[0]:.3e}, "
+                  f"gradient norm {yard[1]:.3e}, parameter max {yard[2]:.3e} ({yard[3]})"
+                  + ("" if form in ("kernels", "plain") else
+                     "; against plain: loss {:.3e}, gradient norm {:.3e}, parameter max {:.3e} "
+                     "({})".format(*runtime_agreement(steps[form], plain)[:4])), flush=True)
+    del steps
+    faults_ok = True
+    for fault in PLANTED_FAULTS:
+        run = runtime_agreement(runtime_step(k, tensors, dev, "plain", fault=fault), plain)
+        summary["faults"][fault] = run[:4]
+        faults_ok &= not run[5]
+        print(f"slice runtime_check: the plain step with the planted fault {fault} against "
+              f"plain: loss {run[0]:.3e}, gradient norm {run[1]:.3e}, parameter max "
+              f"{run[2]:.3e} ({run[3]}): {'rejected' if not run[5] else 'PASSED the limits'}",
+              flush=True)
+    if not ok:
+        fail("slice runtime_check: the kernel step disagrees with the plain step")
+    if not faults_ok:
+        fail("slice runtime_check: a planted fault passes the limits")
+    return summary
+
+
+def decode_agreement(out: dict, ref: dict):
+    """(greedy-token agreement, max |d pos_scores| at step 0, {scores: max
+    |d| on the rows whose tokens all agree, None if none do}) of a
+    forward's outputs against another's: pos_scores, and ref / neg where
+    both have them.  A NaN is never within a tolerance."""
+    import numpy as np
+
+    got = {k: v.float().cpu().numpy() for k, v in out.items()
+           if k in ("pos_scores", "ref_scores", "neg_scores")}
+    want = {k: ref[k].float().cpu().numpy() for k in got if k in ref}
+    tok, tok_r = got["pos_scores"].argmax(-1), want["pos_scores"].argmax(-1)
+    same = (tok == tok_r).all(-1)
+    nan = lambda d: float("inf") if np.isnan(d) else float(d)
+    diffs = {k: nan(np.abs(got[k][same] - want[k][same]).max()) if same.any() else None
+             for k in want}
+    diff0 = nan(np.abs(got["pos_scores"][:, 0] - want["pos_scores"][:, 0]).max())
+    return float((tok == tok_r).mean()), diff0, diffs
+
+
+def runtime_slice(dev, record, card):
+    """l. The runtime on fixture data written at run time by
+    tools/make_fixtures.py, configs/t2s_abinet.yml's model at its widths
+    (the fixtures' answer vocabulary sets the classifier) and its worker
+    processes, batch RUNTIME_BATCH, bf16: (i) run() trains RUNTIME_STEPS
+    steps with its validations and checkpoints; (ii) runtime_step_check:
+    the first step through the kernels against the plain versions, the
+    planted faults, each form against float32; (iii) a resume from
+    ckpt/best and one more step; (iv) predictions with
+    configs/t2s_serving.yml at batch 2 (the fused decode step) and at 6
+    (the int8 decode attention); (v) the recompute decode oracle at
+    production width against the cached decode, serving and full-eval,
+    tokens and scores.  Launches as derived in each; the host-clock times
+    of each iteration and validation pass and the data-wait share
+    printed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.data.loader import infinite_batches
+    from vitxtgqa_tpu_torch.models.t2s import T2S
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.run import run
+    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    try:
+        fixroot = os.path.join(tmp, "data")
+        write_fixtures(fixroot)
+        train_tp = dict(batch_size=RUNTIME_BATCH, max_iterations=RUNTIME_STEPS,
+                        warmup_iterations=2, snapshot_interval=RUNTIME_STEPS, log_interval=1)
+        save = os.path.join(tmp, "train")
+
+        # (i) train through run()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = run(runtime_argv("t2s_abinet.yml", "train", fixroot, save, **train_tp))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        cfg, opts = trainer.model_cfg, trainer.opts
+        val_batches = len(trainer.loaders["val"])
+        forwards = runtime_eval_forwards(RUNTIME_STEPS, 1, RUNTIME_STEPS, val_batches)
+        print(f"slice runtime_train: classifier {trainer.model.classifier.module.weight.shape[0]} "
+              f"answers + {cfg['classifier']['ocr_max_num']} OCR slots, {opts.dtype}, batch "
+              f"{RUNTIME_BATCH}; launches in {RUNTIME_STEPS} steps and {forwards} full-eval "
+              "forwards " + json.dumps(counts), flush=True)
+        count_launches("slice runtime_train", record, counts,
+                       runtime_launches(cfg, opts, RUNTIME_STEPS, forwards, RUNTIME_BATCH))
+        losses = list(trainer.meter["train/total_loss"].series)
+        if len(losses) != RUNTIME_STEPS or not all(np.isfinite(losses)):
+            fail(f"slice runtime_train: losses {losses}")
+        for d in ("best", "final"):
+            if not os.path.exists(os.path.join(save, "ckpt", d, "state.pt")):
+                fail(f"slice runtime_train: no ckpt/{d}")
+        scalars = trainer.meter.get_scalar_dict()
+        val = {t: scalars.get(f"val/vtextgqa/{t}") for t in (
+            "textvqa_accuracy", "stvqa_anls", "IOU@0.3", "IOU@0.5", "GQA@0.3", "GQA@0.5")}
+        if not all(v is not None and 0.0 <= v <= 1.0 for v in val.values()):
+            fail(f"slice runtime_train: validation metrics {val}")
+        it_ms, wait_ms, val_ms = (trainer.timings[k] for k in ("iteration_ms", "data_wait_ms",
+                                                                "val_ms"))
+        share, later = sum(wait_ms) / sum(it_ms), sum(wait_ms[1:]) / sum(it_ms[1:])
+        print(f"slice runtime_train: losses {losses}; val {val}; iteration ms "
+              f"{[round(x, 2) for x in it_ms]} (the first builds the step's state), data-wait "
+              f"ms {[round(x, 2) for x in wait_ms]} ({trainer.loaders['train'].num_workers} "
+              f"worker processes), data-wait share {share:.4f}, after the first iteration "
+              f"{later:.4f}; validation "
+              f"pass ms ({val_batches} batches) {[round(x, 2) for x in val_ms]}; run() wall "
+              f"{wall:.1f} s; card {card}", flush=True)
+        out["train"] = {"launches": counts, "losses": losses, "val": val, "iteration_ms": it_ms,
+                        "data_wait_ms": wait_ms, "data_wait_share": share,
+                        "data_wait_share_after_first": later, "val_ms": val_ms,
+                        "wall_s": wall}
+        del trainer
+
+        # (ii) the first step in each form, and the plain step with each
+        # planted fault
+        k = runtime_trainer(runtime_argv("t2s_abinet.yml", "train", fixroot,
+                                         os.path.join(tmp, "check"), **train_tp))
+        tensors, _ = k._split_device_batch(next(infinite_batches(k.loaders["train"])))
+        k.close()
+        out["check"] = runtime_step_check(k, tensors, dev)
+        del k, tensors
+        torch.cuda.empty_cache()
+
+        # (iii) resume from ckpt/best, one more step
+        best = os.path.join(save, "ckpt", "best")
+        with open(os.path.join(best, "meta.json")) as f:
+            meta = json.load(f)
+        r = runtime_trainer(runtime_argv("t2s_abinet.yml", "train", fixroot,
+                                         os.path.join(tmp, "resume"),
+                                         **{**train_tp, "max_iterations": RUNTIME_STEPS + 1})
+                            + [f"training_parameters.resume_file={best}"])
+        saved = torch.load(os.path.join(best, "state.pt"), map_location=dev)["model"]
+        state = r.model.state_dict()
+        equal = sorted(saved) == sorted(state) and all(torch.equal(state[n], saved[n])
+                                                        for n in saved)
+        where = (r.iteration, r.current_epoch, r.epoch_batch)
+        if where != (meta["iteration"], meta["epoch"], meta["epoch_batch"]) or not equal:
+            fail(f"slice runtime_resume: restored {where}, meta {meta['iteration']}, "
+                 f"{meta['epoch']}, {meta['epoch_batch']}; parameters equal {equal}")
+        del saved, state
+        _build.reset_launch_counts()
+        r.train()
+        r.close()
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        forwards = runtime_eval_forwards(RUNTIME_STEPS + 1, 1, RUNTIME_STEPS, val_batches,
+                                         first=RUNTIME_STEPS + 1)
+        count_launches("slice runtime_resume", record, counts,
+                       runtime_launches(r.model_cfg, r.opts, 1, forwards, RUNTIME_BATCH))
+        losses = list(r.meter["train/total_loss"].series)
+        if len(losses) != 1 or not np.isfinite(losses[0]):
+            fail(f"slice runtime_resume: losses {losses}")
+        print(f"slice runtime_resume: restored iteration {where[0]}, epoch {where[1]}, batch "
+              f"{where[2]} of it, parameters bit for bit; step {RUNTIME_STEPS + 1} loss "
+              f"{losses[0]:.6f}, {r.timings['iteration_ms'][0]:.2f} ms; launches "
+              + json.dumps(counts), flush=True)
+        out["resume"] = {"restored": where, "loss": losses[0], "launches": counts,
+                         "iteration_ms": r.timings["iteration_ms"]}
+        del r
+        torch.cuda.empty_cache()
+
+        # (iv) predictions with the serving preset
+        for b in (2, 6):
+            _build.reset_launch_counts()
+            p = run(runtime_argv("t2s_serving.yml", "inference", fixroot,
+                                 os.path.join(tmp, f"predict_b{b}"), batch_size=b)
+                    + [f"training_parameters.resume_file={best}"])
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            name = f"runtime_predict_b{b}"
+            batches = len(p.loaders["test"])
+            want = {n: batches * v for n, v in expected_launches(p.model_cfg, b, p.opts).items()}
+            count_launches(f"slice {name}", record, counts, want)
+            rows = check_predictions(name, p)
+            print(f"slice {name}: {len(rows)} predictions in {batches} batches ({p.opts}); "
+                  f"launches " + json.dumps(counts) + f"; first row {json.dumps(rows[0])[:200]}",
+                  flush=True)
+            out[name] = {"launches": counts, "rows": len(rows)}
+            del p
+
+        # (v) the recompute decode oracle at production width
+        sl = Slices(dev, quiet=True)
+        tb = to_device(synthetic_batch(batch=RUNTIME_BATCH, num_final_outputs=sl.nf, seed=4), dev)
+        for full_eval in (False, True):
+            name = "runtime_recompute" + ("_full_eval" if full_eval else "")
+            models = []
+            for recompute in (False, True):
+                m = T2S(sl.cfg, sl.nf, bos_idx=2, inference_only=not full_eval,
+                        decode_recompute=recompute, opts=Options(device=dev))
+                m.load_state_dict(sl.state)
+                models.append(m)
+            with torch.inference_mode():
+                cached = models[0](tb, group_generator(0, 0, dev))
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                oracle = models[1](tb, group_generator(0, 0, dev))
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = _build.launch_counts()
+            count_launches(f"slice {name}", record, counts, expected_recompute_launches(
+                sl.cfg, RUNTIME_BATCH, models[1].opts, full_eval=full_eval))
+            agree, diff0, diffs = decode_agreement(oracle, cached)
+            print(f"slice {name}: batch {RUNTIME_BATCH}, the recompute oracle against the cached "
+                  f"decode: greedy-token agreement {agree:.4f} (min {MIN_TOKEN_AGREEMENT}), "
+                  f"max|d pos_scores| at step 0 {diff0:.4e} (tol {STEP0_TOL}), on the rows with "
+                  f"equal tokens {diffs} (tol {REFNEG_TOL}); the oracle's forward {ms:.2f} ms "
+                  f"(the first, host clock); launches " + json.dumps(counts) + f"; card {card}",
+                  flush=True)
+            if not (agree >= MIN_TOKEN_AGREEMENT and diff0 <= STEP0_TOL
+                    and all(d is not None and d <= REFNEG_TOL for d in diffs.values())):
+                fail(f"slice {name}: the oracle disagrees with the cached decode")
+            out[name] = {"token_agreement": agree, "step0_max_abs_diff": diff0,
+                         "equal_rows_max_abs_diff": diffs, "forward_ms": ms, "launches": counts}
+            del models, cached, oracle
+        del sl
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def default_options_check(sl, model, batch, record):
     """A serving forward at batch BATCH from a model built with
     Options(kv_cache_int8=True) and nothing else (the card and, by default
@@ -3231,6 +3751,8 @@ def run_slices(dev, record, card):
     torch.cuda.empty_cache()
     # k. sequence parallelism, on SP_RANKS processes
     details["sp"] = sp_slice(record, card)
+    # l. the runtime: train, check, resume, predict; the recompute oracle
+    details["runtime"] = runtime_slice(dev, record, card)
     return details
 
 
@@ -3280,6 +3802,8 @@ def main(argv) -> int:
             f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
             for name, regs, st, ld in _build.ptxas_kernels(log, source)), flush=True)
     check_no_i2f(_build.sass(lib_path))
+    out_dir = argv[argv.index("--out") + 1] if "--out" in argv else os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
 
     record = {}
     decode = check_kernels(dev, record)
@@ -3291,8 +3815,7 @@ def main(argv) -> int:
     details["sp_kernels"] = check_sp_kernels(dev, record)
     check_padded_keys(dev, record)
     details["slices"] = run_slices(dev, record, card)
-    out_dir = argv[argv.index("--out") + 1] if "--out" in argv else os.path.join(ROOT, "build")
-    os.makedirs(out_dir, exist_ok=True)
+    stop_child_processes()
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
 

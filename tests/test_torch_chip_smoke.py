@@ -985,3 +985,20 @@ def test_sass_opcodes_and_the_i2f_check():
             CS.check_no_i2f({**ops, ptr: ops[ptr] + [conversion]})
     with pytest.raises(SystemExit, match="missing"):
         CS.check_no_i2f({})
+
+
+def test_stop_child_processes_fails_on_a_process_left_running():
+    """The end-of-run check refuses a child process that is still running,
+    and passes once it has been reaped."""
+    import subprocess
+
+    child = subprocess.Popen(["sleep", "60"])
+    try:
+        assert child.pid in [pid for pid, _ in CS.child_processes()]
+        with pytest.raises(SystemExit, match="still running"):
+            CS.stop_child_processes()
+    finally:
+        child.kill()
+        child.wait()
+    assert child.pid not in [pid for pid, _ in CS.child_processes()]
+    CS.stop_child_processes()

@@ -304,11 +304,13 @@ def test_port_synthetic_batch_equals_the_jax_packages():
 
 
 def test_unported_branches_raise():
-    """The recompute decode is the one branch left that raises; compact
-    serving is an Options field now and builds."""
+    """The recompute decode oracle builds now (tests/test_torch_recompute.py
+    holds it against JAX); an unported remat mode still raises, naming its
+    ROADMAP.md item; compact serving is an Options field and builds."""
     cfg = tiny_model_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T2S(cfg, 56, opts=cpu_options(), decode_recompute=True)
+    assert T2S(cfg, 56, opts=cpu_options(), decode_recompute=True).decode_recompute
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        cpu_options(remat="full")
     assert T2S(cfg, 56, opts=cpu_options(compact_serving=True, w8a8=True)).opts.compact_serving
 
 

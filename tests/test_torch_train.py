@@ -91,7 +91,10 @@ def _patch_jax_gumbel(monkeypatch, noise):
 
 
 def _jax_params(model):
-    state = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    # copies: JAX may alias a numpy array's memory on the CPU, and the
+    # port's optimizer then updates that memory in place while an
+    # asynchronously dispatched JAX step still reads it
+    state = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
     return unflatten(convert_t2s_like(state, text_layers=1, qtv_layers=1, mmt_layers=2))
 
 

@@ -10,8 +10,10 @@ runs them on a TPU — or, under compact serving, the step kernel and the
 per-step epilogue in PyTorch (JAX's step_fused); otherwise each step runs
 the per-layer decode over the int8 or bf16 cache.  Both passes take the
 compact hooks (``embed_ocr``, ``dynamic_scatter``) of compact serving and
-compact full-eval.  The multi-variant and recompute decodes and the
-post-scan compact epilogue are not ported (ROADMAP.md queue 1).
+compact full-eval.  ``_recompute_decode`` is the reference-style greedy
+decode that reruns ``_mmt_full`` at every step, the parity oracle of the
+cached decode.  The multi-variant cached decode and the post-scan compact
+epilogue are not ported (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -221,3 +223,23 @@ class JointQAModel(nn.Module):
             steps.append(scores_pad[:, 0])
         s = torch.stack(steps, dim=1)
         return torch.cat([s[..., :v_fix], s[..., v_p:]], dim=-1).float()
+
+    def _recompute_decode(self, txt, obj, ocr, enc_mask, ocr_masks, dec_len: int,
+                          n_variants: int = 1, argmax_variant: int = 0):
+        """Reference-style greedy decode (JAX base.py:_recompute_decode): the
+        full teacher-forced ``_mmt_full`` pass at every one of the
+        ``dec_len`` steps on the tokens chosen so far; the parity oracle of
+        the cached decode.  The batch holds ``n_variants`` mask variants
+        stacked along it, and the argmax of variant ``argmax_variant``
+        feeds all of them.  Returns the last pass's float32 scores [B,
+        dec_len, V + N]."""
+        b = txt.shape[0] // n_variants
+        lo = argmax_variant * b
+        prev = torch.zeros((txt.shape[0], dec_len), dtype=torch.long, device=txt.device)
+        prev[:, 0] = self.bos_idx
+        scores = None
+        for _ in range(dec_len):
+            scores = self._mmt_full(txt, obj, ocr, enc_mask, ocr_masks, prev)
+            chosen = scores[lo: lo + b].argmax(dim=-1).repeat(n_variants, 1)
+            prev = torch.cat([prev[:, :1], chosen[:, :-1]], dim=1)
+        return scores

@@ -15,8 +15,11 @@ Counterpart of vitxtgqa_tpu/models/t2s.py:
     passes (ref, pos, neg) at batch B, a Python loop where JAX scans.
 Options.compact_serving (configs/t2s_serving.yml) runs the serving decode,
 and full-eval's pos decode and neg pass, on the rows the grounding keeps
-(``_compact_decode``); the ref pass stays full.  The recompute decode is not
-ported and raises NotImplementedError naming its ROADMAP.md item.
+(``_compact_decode``); the ref pass stays full.  ``decode_recompute``
+swaps the cached decode for the reference's loop (``_recompute_decode``: the
+full MMT at every step), the parity oracle: serving decodes the pos variant
+with it, full-eval the three variants stacked at 3B with the pos argmax
+feeding all three, and neither reuses the QTV buffer nor compacts.
 
 What runs where on CUDA (every serving configuration of the JAX package):
   - QTV and the MMT encode: the flash kernel where the keys reach 256 (the
@@ -54,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vitxtgqa_tpu_torch.core.registry import registry
 from vitxtgqa_tpu_torch.models.base import JointQAModel, project_features
 from vitxtgqa_tpu_torch.models.common import (
     FixedVocabClassifier,
@@ -111,6 +115,7 @@ class _Wrap(nn.Module):
             self.add_module(name, mod)
 
 
+@registry.register_model("t2s")
 class T2S(JointQAModel):
     # whether the grounding's compact gather lists can be -1-padded (only the
     # JAX wo_sg ablation's can); selects the trash-slot scatter
@@ -120,11 +125,8 @@ class T2S(JointQAModel):
                  opts: Options = Options(), inference_only: bool = True,
                  decode_recompute: bool = False):
         super().__init__()
-        if decode_recompute:
-            raise NotImplementedError(
-                "the recompute decode oracle (_recompute_decode) is ROADMAP.md queue 1 item 2"
-            )
         self.opts = opts
+        self.decode_recompute = bool(decode_recompute)
         self.inference_only = inference_only
         self.bos_idx = int(bos_idx)
         c = config
@@ -311,11 +313,17 @@ class T2S(JointQAModel):
     def _forward_eval(self, batch, gumbel):
         txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask = self._encode_modalities(batch)
         dec_len = batch["train_prev_inds"].shape[1]
+        # the cached decodes reuse the QTV buffer in the cache's geometry;
+        # the recompute oracle builds its own sequences (JAX t2s.py:252)
         txt_emb, obj_in, ocr_in, joint = self._apply_qtv(
-            txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, dec_len
+            txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask,
+            0 if self.decode_recompute else dec_len
         )
         g, common = self._grounding(batch, txt_emb, txt_mask, obj_in, obj_mask, ocr_in,
                                     ocr_mask, gumbel)
+        if self.decode_recompute:
+            return {**self._recompute_variants(txt_emb, txt_mask, obj_in, obj_mask, ocr_in,
+                                               ocr_mask, g, dec_len), **common}
         compact = self.opts.compact_serving
         if compact:
             pos = self._compact_decode(txt_emb, txt_mask, obj_in, ocr_in, g, dec_len)
@@ -352,3 +360,22 @@ class T2S(JointQAModel):
                                  ocr_masks2, tile2(prev))
         return {"ref_scores": scores2[:b], "pos_scores": pos, "neg_scores": scores2[b:],
                 **common}
+
+    def _recompute_variants(self, txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, g,
+                            dec_len: int):
+        """The recompute oracle's scores (JAX t2s.py:292-296, 480-503):
+        serving decodes the pos variant alone; full-eval the [ref; pos;
+        neg] variants stacked at 3B, the pos argmax feeding all three (the
+        reference's loop, t2s.py:315-354)."""
+        if self.inference_only:
+            enc_mask = torch.cat([txt_mask, g["pos_obj_mask"], g["pos_ocr_mask"]], dim=1)
+            return {"pos_scores": self._recompute_decode(txt_emb, obj_in, ocr_in, enc_mask,
+                                                         g["pos_ocr_mask"], dec_len)}
+        tile3 = lambda t: torch.cat([t, t, t], dim=0)
+        ocr_masks = torch.cat([ocr_mask, g["pos_ocr_mask"], g["neg_ocr_mask"]], dim=0)
+        enc_mask3 = torch.cat([tile3(txt_mask), torch.cat(
+            [obj_mask, g["pos_obj_mask"], g["neg_obj_mask"]], dim=0), ocr_masks], dim=1)
+        scores3 = self._recompute_decode(tile3(txt_emb), tile3(obj_in), tile3(ocr_in), enc_mask3,
+                                         ocr_masks, dec_len, n_variants=3, argmax_variant=1)
+        ref, pos, neg = scores3.chunk(3, dim=0)
+        return {"ref_scores": ref, "pos_scores": pos, "neg_scores": neg}

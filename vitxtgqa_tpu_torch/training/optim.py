@@ -162,6 +162,27 @@ class Optimizer:
             p.grad = None
             m.grad = None
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The count of applied updates, Adam's moments and the float32
+        master copies (None where the parameter is its own master)."""
+        return {"count": self.count, "adam": self.adam.state_dict(),
+                "masters": [None if m is p else m.detach().clone() for p, m in self.pairs]}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore ``state_dict()``'s output over the same parameters; the
+        model's own parameters are restored from its state_dict."""
+        if len(state["masters"]) != len(self.pairs):
+            raise ValueError(f"optimizer state for {len(state['masters'])} parameters, "
+                             f"this optimizer has {len(self.pairs)}")
+        self.count = int(state["count"])
+        with torch.no_grad():
+            for (p, m), saved in zip(self.pairs, state["masters"]):
+                if (saved is None) != (m is p):
+                    raise ValueError("optimizer state of another parameter dtype layout")
+                if saved is not None:
+                    m.copy_(saved)
+        self.adam.load_state_dict(state["adam"])
+
 
 def build_optimizer(model: nn.Module, optimizer_attributes: Any = None,
                     training_parameters: Any = None, model_config: Any = None) -> Optimizer:

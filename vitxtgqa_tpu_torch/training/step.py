@@ -2,8 +2,8 @@
 clipping and the Adam update.
 
 Counterpart of the step body of vitxtgqa_tpu/training/trainer.py
-(``train_step``) and bench.py's ``_run_train_bench``.  The full trainer
-(data loading, checkpoints, early stopping) is not ported.
+(``train_step``) and bench.py's ``_run_train_bench``; training/trainer.py
+runs it once per iteration.
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ def train_step(model, losses: Losses, optimizer: Optimizer, batch: Dict[str, tor
     """``generators``: (dropout generator, gumbel generator or the two
     noise tensors).  A non-finite loss or gradient norm skips the update
     (the JAX trainer's NaN tripwire), which costs one host sync a step.
-    Returns the loss, each weighted loss, the gradient norm before clipping
-    and whether the update was applied."""
+    Returns the loss, each weighted loss, the gradient norm before clipping,
+    whether the update was applied and the forward's outputs (detached)."""
     dropout_gen, gumbel = generators
     out = model(batch, gumbel, train=True, dropout_gen=dropout_gen)
     total, parts = losses.total(batch, out)
@@ -42,4 +42,5 @@ def train_step(model, losses: Losses, optimizer: Optimizer, batch: Dict[str, tor
     else:
         optimizer.zero_grad()
     return {"loss": total.detach(), "losses": {k: v.detach() for k, v in parts.items()},
-            "grad_norm": norm, "applied": applied}
+            "grad_norm": norm, "applied": applied,
+            "out": {k: v.detach() if torch.is_tensor(v) else v for k, v in out.items()}}
