@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's T2S serving, full-eval and training paths,
-its ViT frame-feature path, its sequence-parallel path and its runtime
-(train, validate, checkpoint, resume, predict) once on one NVIDIA GPU.
+its ViT frame-feature path, its sequence-parallel path, its runtime
+(train, validate, checkpoint, resume, predict) and the zoo's T2S-family
+models once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -77,7 +78,13 @@ Phases (each prints one or more lines; any failure exits non-zero):
      mask and against the backward twin on edge_masks (dec_len 0 and 12);
      check_padded_keys holds #1b and #10b at 577 keys too (a row of mask
      fills weighs each key 1 / 640), and #14 with -1e9 on every key of a
-     row at 577 keys.  Each kernel's bound (bytes over 3.35 TB/s or operations
+     row at 577 keys.  The decode kernels at the zoo's geometries
+     (check_zoo_geometries, zoo_masks): #4 and #7 at batch 8 over M4C's
+     1,024 slots (the question, the middle frame, its <= 15 OCR slots: ~36
+     allowed keys) and wo_sg's compact 128, steps 0 and 11, with a row whose
+     only keys are the decoder slots; #5 at batch 1 and 2 over both, its
+     attention planted; each timed at step 11.  Each kernel's bound (bytes
+     over 3.35 TB/s or operations
      over the peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67
      TFLOP/s f32) is computed from the inputs of its timed call, and one
      PyTorch call that computes the same function is timed beside it where
@@ -148,7 +155,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
           decode's; each part's launches as derived, and the host-clock ms
           of every iteration and validation pass and the data-wait share
           printed.
-     a-c and f-g serve behind a ServingEngine; each slice checks its launch
+       m. the zoo's T2S-family models (wo_tg, wo_sg, M4C, T5-ViteVQA, GT-box)
+          at their shipped configs' model blocks, bf16, random weights: (i)
+          each served at batch 2 (int8: #5 / #6) and 8 (int8: #4; bf16:
+          #7) against the plain versions (M4C's, T5's and GT-box's grounding
+          bit for bit), its forward latency at 2 and 8; (ii) the serving
+          preset on the ablations on a batch with a 2-frame row (wo_sg's
+          gather list -1-padded, through the trash-slot scatter; compact
+          over 128 slots at 2 and 8, held against the exact geometry; wo_tg
+          falls back to the full decode); (iii) the ablations' full-eval at
+          2; (iv) M4C's training step at batch 4 against the plain step at
+          slice e's limits, then a timed step at 48; (v) run() on fixtures
+          (no worker processes): M4C train+val 2 iterations, GT-box val on
+          the annotations; (vi) M4C's recompute oracle at batch 2.
+     a-c, f-g and m serve behind a ServingEngine; each slice checks its launch
      counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
 The line before the last is the kernels' JSON record, the one before it the
@@ -406,17 +426,67 @@ RUNTIME_BATCH, RUNTIME_STEPS = 2, 3
 # the launch check rejects.  Slice e's LOSS_REL_TOL / GNORM_REL_TOL were read on
 # its synthetic batch, where random rows average the rounding out.
 RUNTIME_LOSS_REL_TOL, RUNTIME_GNORM_REL_TOL = 5e-3, 1e-2
+# slice m: the zoo's T2S-family models, each at its shipped config's model
+# block (the ablations: configs/t2s_abinet.yml's, t2s_production_config)
+ZOO = ("t2s_wo_tg", "t2s_wo_sg", "m4c", "t5vitevqa", "gt_box")
+ZOO_CONFIGS = {"m4c": ("m4c_abinet.yml", "m4c"), "t5vitevqa": ("t5vitevqa_abinet.yml", "t5vitevqa"),
+               "gt_box": ("gt_box_clipocr.yml", "gt_box")}
+# the models whose grounding heads see no kernel's output (one MMT pass;
+# the 20-row text BERT and the projections run no kernel): their grounding
+# is held bit for bit against the plain run
+SINGLE_PASS = ("m4c", "t5vitevqa", "gt_box")
+# the zoo's new decode geometries: M4C's cache of 1,024 slots (20 question
+# rows + 1 frame + 960 OCR slots + the 12 decoder slots, padded), whose
+# allowed keys are the question, the frame and the middle frame's <= 15
+# OCR slots; wo_sg's compact cache of 128 (20 + 5 frames + 75 OCR slots +
+# 12, padded)
+L_M4C, L_WO_SG = 1024, 128
+# the runtime's M4C training steps (slice m (v)); the forward latencies'
+# repetitions
+ZOO_RUNTIME_STEPS, ZOO_REPS = 2, 3
 
 
-def joint_lengths(cfg, text_len: int = 20, dec_len: int = DEC_LEN):
+# the T2S family: the QTV, the contrastive variants, full-eval
+T2S_FAMILY = ("t2s", "t2s_wo_tg", "t2s_wo_sg")
+
+
+def joint_lengths(cfg, text_len: int = 20, dec_len: int = DEC_LEN, model: str = "t2s"):
     """(full, compact) joint-sequence rows with the decoder slots, padded to
-    a multiple of 128 as the models pad them: [question | frames | OCR] and
-    [question | top-k frames | top-k OCR slots of every frame]."""
+    a multiple of 128 as the models pad them: [question | frames | OCR]
+    (M4C: the one middle frame) and the rows compact serving keeps, None
+    where the model's grounding gives no gather list: T2S's [question |
+    top-k frames | top-k OCR slots of every frame], wo_sg's [question |
+    top-k frames | every OCR slot of those frames]."""
     g = cfg["grounding"]
-    full = text_len + g["frame_num"] + g["frame_num"] * g["ocr_frame_num"]
-    compact = text_len + g["frame_topk"] + g["frame_num"] * g["ocr_topk"]
+    frames, ocr = (1 if model == "m4c" else g["frame_num"]), g["frame_num"] * g["ocr_frame_num"]
+    compact = {"t2s": g["frame_num"] * g["ocr_topk"],
+               "t2s_wo_sg": g["frame_topk"] * g["ocr_frame_num"]}.get(model)
     pad = lambda n: -(-(n + dec_len) // 128) * 128
-    return pad(full), pad(compact)
+    return (pad(text_len + frames + ocr),
+            None if compact is None else pad(text_len + g["frame_topk"] + compact))
+
+
+def zoo_config(key: str):
+    """The model block of ``key`` at production width: T2S's (and its
+    ablations') t2s_production_config, the others' from their shipped
+    configs (ZOO_CONFIGS), as plain dicts."""
+    from vitxtgqa_tpu_torch.models.t2s import t2s_production_config
+
+    if key in T2S_FAMILY:
+        return t2s_production_config()
+    from vitxtgqa_tpu_torch.core.config import build_config
+
+    config, block = ZOO_CONFIGS[key]
+    return build_config(os.path.join(ROOT, "configs", config)).model_attributes[block].to_dict()
+
+
+def model_class(key: str):
+    """The port's registered model class of ``key``."""
+    from vitxtgqa_tpu_torch.core.registry import registry
+    from vitxtgqa_tpu_torch.run import setup_imports
+
+    setup_imports()
+    return registry.get_model_class(key)
 
 
 def encode_launches(out: dict, opts, tc, batch: int, seq: int, tanh_last: int) -> None:
@@ -440,40 +510,44 @@ def encode_launches(out: dict, opts, tc, batch: int, seq: int, tanh_last: int) -
 
 
 def expected_launches(cfg, batch: int, opts, full_eval: bool = False, text_len: int = 20,
-                      dec_len: int = DEC_LEN) -> dict:
-    """Kernel launches in one eval forward, derived from the port's gates.
-    In each QTV and MMT encode layer: flash where the joint sequence has >=
-    256 keys; where the rows reach the fused block's gate, the W8A8 block
-    under Options.w8a8, else the fused block (the last QTV layer in its tanh
-    form).  The MMT encodes the compact sequence under compact serving.
-    Per decode step: with the int8 cache at batch <= the cap and no W8A8,
-    the fused step and (not compact) the fused epilogue; else one decode
-    attention per MMT layer (the bf16 one only at >= 256 keys).  With
-    ``full_eval`` the teacher-forced pass at 2B over the full sequence, or
-    under compact serving ref at B over it and neg at B over the compact
-    one.  No training kernel, and no #11 / #12 (the decode keeps the
-    separate quantize pass and bf16 pointer keys, as JAX does)."""
+                      dec_len: int = DEC_LEN, model: str = "t2s") -> dict:
+    """Kernel launches in one eval forward of ``model``, derived from the
+    port's gates.  In each QTV (the T2S family only) and MMT encode layer:
+    flash where the joint sequence has >= 256 keys; where the rows reach the
+    fused block's gate, the W8A8 block under Options.w8a8, else the fused
+    block (the last QTV layer in its tanh form).  The MMT encodes the
+    compact sequence under compact serving where the model compacts
+    (``_compact_ok``: T2S, wo_sg's serving decode).  Per decode step: with
+    the int8 cache at batch <= the cap and no W8A8, the fused step and (not
+    compact) the fused epilogue; else one decode attention per MMT layer
+    (the bf16 one only at >= 256 keys).  With ``full_eval`` (the T2S
+    family) the teacher-forced pass at 2B over the full sequence, or under
+    compact full-eval (T2S only) ref at B over it and neg at B over the
+    compact one.  No training kernel, and no #11 / #12 (the decode keeps
+    the separate quantize pass and bf16 pointer keys, as JAX does)."""
     from vitxtgqa_tpu_torch.models.common import TransformerConfig
     from vitxtgqa_tpu_torch.ops.attention import MIN_KV
 
-    qtv = TransformerConfig.from_config(cfg["translayers"])
     mmt = TransformerConfig.from_config(cfg["mmt"])
-    l_full, l_compact = joint_lengths(cfg, text_len, dec_len)
-    l_mmt = l_compact if opts.compact_serving else l_full
+    l_full, l_compact = joint_lengths(cfg, text_len, dec_len, model)
+    compact = (opts.compact_serving and l_compact is not None
+               and not (full_eval and model != "t2s"))
+    l_mmt = l_compact if compact else l_full
     out = {name: 0 for name in REPLACES}
     encode = functools.partial(encode_launches, out, opts)
-    encode(qtv, batch, l_full, 1)
+    if model in T2S_FAMILY:
+        encode(TransformerConfig.from_config(cfg["translayers"]), batch, l_full, 1)
     encode(mmt, batch, l_mmt, 0)
     fused = (opts.fused_decode and opts.kv_cache_int8 and not opts.w8a8
              and batch <= opts.fused_decode_max_batch)
     if fused:
         out["fused_decode_step"] += dec_len
-        out["fused_epilogue"] += 0 if opts.compact_serving else dec_len
+        out["fused_epilogue"] += 0 if compact else dec_len
     elif opts.kv_cache_int8:
         out["decode_attention_int8"] += mmt.num_hidden_layers * dec_len
     elif l_mmt >= MIN_KV:
         out["decode_attention"] += mmt.num_hidden_layers * dec_len
-    if full_eval and opts.compact_serving:
+    if full_eval and compact:
         encode(mmt, batch, l_full, 0)
         encode(mmt, batch, l_compact, 0)
     elif full_eval:
@@ -482,35 +556,40 @@ def expected_launches(cfg, batch: int, opts, full_eval: bool = False, text_len: 
 
 
 def expected_recompute_launches(cfg, batch: int, opts, full_eval: bool = False,
-                                text_len: int = 20, dec_len: int = DEC_LEN) -> dict:
+                                text_len: int = 20, dec_len: int = DEC_LEN,
+                                model: str = "t2s") -> dict:
     """Kernel launches in one forward of the recompute decode oracle
-    (T2S(..., decode_recompute=True)): the QTV encode over the joint
-    sequence without decoder slots, then ``dec_len`` teacher-forced MMT
-    passes over it with them, at B (serving) or 3B (full-eval: ref, pos and
-    neg stacked); no decode kernel."""
+    (``decode_recompute=True``): the QTV encode (the T2S family) over the
+    joint sequence without decoder slots, then ``dec_len`` teacher-forced
+    MMT passes over it with them, at B (serving, and the single-variant
+    models) or 3B (full-eval: ref, pos and neg stacked); no decode
+    kernel."""
     from vitxtgqa_tpu_torch.models.common import TransformerConfig
 
     g = cfg["grounding"]
-    l0 = text_len + g["frame_num"] * (1 + g["ocr_frame_num"])
+    l0 = text_len + (1 if model == "m4c" else g["frame_num"]) + g["frame_num"] * g["ocr_frame_num"]
     out = {name: 0 for name in REPLACES}
-    encode_launches(out, opts, TransformerConfig.from_config(cfg["translayers"]), batch,
-                    -(-l0 // 128) * 128, 1)
+    if model in T2S_FAMILY:
+        encode_launches(out, opts, TransformerConfig.from_config(cfg["translayers"]), batch,
+                        -(-l0 // 128) * 128, 1)
     for _ in range(dec_len):
         encode_launches(out, opts, TransformerConfig.from_config(cfg["mmt"]),
                         3 * batch if full_eval else batch, -(-(l0 + dec_len) // 128) * 128, 0)
     return out
 
 
-def expected_train_launches(cfg, opts) -> dict:
+def expected_train_launches(cfg, opts, model: str = "t2s") -> dict:
     """Kernel launches in one training step: per flash-route layer (QTV,
-    and MMT in each of the ref / pos / neg passes) the flash forward and
-    backward; per layer (text BERT too) the block forward, once more in the
-    backward with remat "attn", and the block backward; no eval kernel."""
+    and MMT in each of the ref / pos / neg passes; the single-variant
+    models: the MMT once) the flash forward and backward; per layer (text
+    BERT too) the block forward, once more in the backward with remat
+    "attn", and the block backward; no eval kernel."""
+    family = model in T2S_FAMILY
     n_text = cfg["text_bert"]["num_hidden_layers"]
-    n_qtv = cfg["translayers"]["num_hidden_layers"]
-    n_mmt = cfg["mmt"]["num_hidden_layers"]
-    flash = n_qtv + 3 * n_mmt
-    blocks = n_text + n_qtv + 3 * n_mmt
+    n_qtv = cfg["translayers"]["num_hidden_layers"] if family else 0
+    n_mmt = cfg["mmt"]["num_hidden_layers"] * (3 if family else 1)
+    flash = n_qtv + n_mmt
+    blocks = n_text + n_qtv + n_mmt
     out = {name: 0 for name in REPLACES}
     out.update(flash_attention_merged=flash, flash_attention_merged_bwd=flash,
                block_train_fwd=blocks * (2 if opts.remat == "attn" else 1),
@@ -1056,6 +1135,80 @@ def check_decode_attention(dev, record, timed: bool = True):
                                           sdpa_cold_ms=cold_sdpa, cold_copies=copies)
         del q, caches, kv
     torch.cuda.empty_cache()
+    return details
+
+
+def zoo_masks(dev):
+    """(label, [BATCH, L] encoder key mask, write_offset) of the zoo's new
+    decode geometries, from the serving batch: M4C's 1,024-slot cache (the
+    question, the middle frame's feature, the middle frame's valid OCR
+    slots; ~36 allowed keys with the decoder slots) and wo_sg's compact
+    128-slot cache (the question, 5 frames, their 75 OCR slots)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+    b = {k: torch.as_tensor(v) for k, v in synthetic_batch(batch=BATCH, seed=0).items()}
+    txt = (torch.arange(20)[None, :] < b["text_len"][:, None]).float()
+    mid = ((b["temporal_id"] == b["middel_frame_id"]) & (b["ocr_mask"] > 0)).float()
+    m4c = torch.cat([txt, torch.ones(BATCH, 1), mid], dim=1)
+    wo_sg = torch.cat([txt, b["frame_mask"][:, :5].float(), b["ocr_mask"][:, :75].float()], dim=1)
+    pad = lambda m, l: F.pad(m, (0, l - m.shape[1])).to(dev).contiguous()
+    return [(f"m4c [{BATCH},{L_M4C}]", pad(m4c, L_M4C), L_M4C - DEC_LEN),
+            (f"wo_sg compact [{BATCH},{L_WO_SG}]", pad(wo_sg, L_WO_SG), L_WO_SG - DEC_LEN)]
+
+
+def check_zoo_geometries(dev, record, timed: bool = True):
+    """The decode kernels at the zoo's new geometries (zoo_masks), against
+    their twins: #4 and #7 at batch 8, steps 0 and 11, on the mask and with
+    a batch row whose only allowed keys are the decoder slots; #5 at batch 1
+    and 2 (check_decode_step, its attention planted).  With ``timed``, #4
+    and #7 at step 11 warm (kernel, twin, SDPA, bound) and #5's warm and
+    cold times.  Returns the times."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.ops import decode_attention as DA
+
+    gen = torch.Generator(device=dev).manual_seed(97531)
+    h, int8_name = 12, "decode_attention_int8"
+    forms = {int8_name: (DA.decode_attention_int8, DA.decode_attention_int8_plain),
+             "decode_attention": (DA.decode_attention, DA.decode_attention_plain)}
+    details = {}
+    for label, km, wo in zoo_masks(dev):
+        b, l = km.shape
+        allowed = int((km[:, :wo] > 0).sum(1).max().item())
+        print(f"kernel geometry {label}: at most {allowed} allowed encoder keys a row of {wo}",
+              flush=True)
+        for name, (fn, plain) in forms.items():
+            int8 = name == int8_name
+            q, (cache,), kv = decode_inputs(gen, b, l, int8)
+            for mlabel, m in decode_edge_masks(km):
+                for step in (0, 11):
+                    args = (q, *cache, m, step, wo, h)
+                    got, want = fn(*args), plain(*args)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    report(record, name, (got.float() - want.float()).abs().max().item(),
+                           extra=f" [{b},1,768] x {label} step={step}, {mlabel}")
+            if timed:
+                am = decode_sdpa_mask(km, 11, wo)
+                ms = cuda_time_ms(lambda: fn(q, *cache, km, 11, wo, h))
+                pms = cuda_time_ms(lambda: plain(q, *cache, km, 11, wo, h))
+                lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    sdpa_split(q, h), sdpa_split(kv[0][0], h), sdpa_split(kv[0][1], h), am))
+                bound = decode_bound(q, km, 11, 1 if int8 else 2, 8 if int8 else 0)
+                print(f"kernel {name} [{b},1,768] x {label} step=11 (warm): kernel {ms:.4f} ms, "
+                      f"plain {pms:.4f} ms, library {lib:.4f} ms, bound {bound[0]:.4f} ms "
+                      f"({bound[1]})", flush=True)
+                details[f"{name} {label}"] = dict(warm_ms=ms, plain_ms=pms, sdpa_warm_ms=lib,
+                                                  bound_ms=bound[0])
+            del q, cache, kv
+        x_all, stacks = decode_step_weights(dev, gen)
+        details[f"fused_decode_step {label}"] = check_decode_step(
+            record, x_all, stacks, km, gen, (1, 2), wo, False, timed=timed)
+        del x_all, stacks
     return details
 
 
@@ -2313,20 +2466,22 @@ def check_sp_kernels(dev, record):
 
 
 class Slices:
-    """Production-width T2S models that share one set of random weights."""
+    """Production-width models of one registered key (T2S by default; slice
+    m: the zoo's) that share one set of random weights."""
 
-    def __init__(self, dev, quiet: bool = False):
-        from vitxtgqa_tpu_torch.models.t2s import PRODUCTION_NUM_FINAL_OUTPUTS, t2s_production_config
-
-        self.dev, self.cfg, self.nf = dev, t2s_production_config(), PRODUCTION_NUM_FINAL_OUTPUTS
+    def __init__(self, dev, quiet: bool = False, key: str = "t2s"):
         import torch
 
+        from vitxtgqa_tpu_torch.models.t2s import PRODUCTION_NUM_FINAL_OUTPUTS
+
+        self.dev, self.key, self.nf = dev, key, PRODUCTION_NUM_FINAL_OUTPUTS
+        self.cfg = zoo_config(key)
         t0 = time.perf_counter()
         self.state = self._new(kv_cache_int8=True).init_weights(0).state_dict()
         torch.cuda.synchronize()
         self.n_params = sum(v.numel() for v in self.state.values())
         if not quiet:
-            print(f"slices: T2S production width, {self.n_params / 1e6:.1f}M params, bf16, "
+            print(f"slices: {key} production width, {self.n_params / 1e6:.1f}M params, bf16, "
                   f"random weights from seed 0, built in {time.perf_counter() - t0:.1f} s",
                   flush=True)
 
@@ -2338,21 +2493,41 @@ class Slices:
         other.cfg = cfg
         return other
 
-    def _new(self, inference_only=True, **opts):
+    def _new(self, inference_only=True, decode_recompute=False, **opts):
+        import inspect
+
         import torch
 
         from vitxtgqa_tpu_torch import Options
-        from vitxtgqa_tpu_torch.models.t2s import T2S
 
-        return T2S(self.cfg, self.nf, bos_idx=2, inference_only=inference_only,
-                   opts=Options(device=self.dev, dtype=torch.bfloat16, **opts))
+        cls = model_class(self.key)
+        kw = ({"inference_only": inference_only}
+              if "inference_only" in inspect.signature(cls).parameters else {})
+        return cls(self.cfg, self.nf, bos_idx=2, decode_recompute=decode_recompute,
+                   opts=Options(device=self.dev, dtype=torch.bfloat16, **opts), **kw)
 
     def model(self, inference_only=True, **opts):
-        """A T2S with these Options fields, bf16 on the card, holding the
+        """A model with these Options fields, bf16 on the card, holding the
         shared weights (``inference_only=False``: full-eval)."""
         m = self._new(inference_only, **opts)
         m.load_state_dict(self.state)
         return m
+
+    def batch(self, b: int, seed: int):
+        """The synthetic batch at production dims (with the GT-box fields
+        for gt_box)."""
+        from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+        return synthetic_batch(batch=b, num_final_outputs=self.nf, seed=seed,
+                               gt_box=self.key == "gt_box")
+
+    def grounding_shapes(self):
+        """(ground_frame, ground_box) shapes of one row of the outputs."""
+        g = self.cfg["grounding"]
+        f, k, ft, ot = g["frame_num"], g["ocr_frame_num"], g["frame_topk"], g["ocr_topk"]
+        return {"t2s": ((ft,), (f * ot, 4)), "t2s_wo_tg": ((ft,), (f * min(ft * ot, k), 4)),
+                "t2s_wo_sg": ((ft,), (ft * k, 4)), "m4c": ((1,), (ot, 4)),
+                "t5vitevqa": ((f,), (ft * ot, 4)), "gt_box": ((f,), (f * k, 4))}[self.key]
 
 
 def count_launches(name, record, counts, want):
@@ -2364,36 +2539,38 @@ def count_launches(name, record, counts, want):
         record[k]["launches"] += counts[k]
 
 
-def check_outputs(outs, nf):
+def check_outputs(outs, nf, shapes=((5,), (64 * 5, 4))):
     import numpy as np
 
     for o in outs:
         if o["pos_scores"].shape != (DEC_LEN, nf) or o["pos_scores"].dtype != np.float32:
             fail(f"pos_scores {o['pos_scores'].shape} {o['pos_scores'].dtype}")
-        if o["ground_frame"].shape != (5,) or o["ground_box"].shape != (64 * 5, 4):
-            fail(f"grounding shapes {o['ground_frame'].shape} {o['ground_box'].shape}")
+        if (o["ground_frame"].shape, o["ground_box"].shape) != shapes:
+            fail(f"grounding shapes {o['ground_frame'].shape} {o['ground_box'].shape}, "
+                 f"expected {shapes}")
         for k in ("pos_scores", "ground_box"):
             if not np.isfinite(o[k]).all():
                 fail(f"non-finite {k}")
 
 
-def serve_slice(name, sl: Slices, record, opts: dict, groups, rng_seed=0):
+def serve_slice(name, sl: Slices, record, opts: dict, groups, rng_seed=0, batch=None):
     """Serve ``groups`` (one request count per group, each filling its own
     bucket) through a ServingEngine over the kernels; check the launch
     counts of every group's forward, that the engine's rows equal a direct
     forward, and the direct forward against the plain versions on the same
-    batch, weights and gumbel noise.  Returns (model, summary)."""
+    batch (``sl.batch(max(groups), 0)`` unless given), weights and gumbel
+    noise; the grounding of the models whose heads see no kernel output
+    (SINGLE_PASS) equal bit for bit.  Returns (model, summary)."""
     import numpy as np
     import torch
 
     from vitxtgqa_tpu_torch.ops import _build
     from vitxtgqa_tpu_torch.serving.engine import ServingEngine, group_generator, to_device
-    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
 
     model, plain_model = sl.model(**opts), sl.model(plain=True, **opts)
     buckets = tuple(sorted(set(groups)))
     nb = max(buckets)
-    batch = synthetic_batch(batch=nb, num_final_outputs=sl.nf, seed=0)
+    batch = sl.batch(nb, 0) if batch is None else batch
     samples = [{k: v[i] for k, v in batch.items()} for i in range(nb)]
     summary = {"opts": {k: str(v) for k, v in opts.items()}, "groups": []}
     with ServingEngine(model, buckets=buckets, max_wait_ms=300, rng_seed=rng_seed) as eng:
@@ -2407,8 +2584,8 @@ def serve_slice(name, sl: Slices, record, opts: dict, groups, rng_seed=0):
             print(f"slice {name}: launches in one served forward at batch {n} "
                   + json.dumps(counts), flush=True)
             count_launches(f"slice {name}, a batch-{n} forward", record, counts,
-                           expected_launches(sl.cfg, n, model.opts))
-            check_outputs(outs, sl.nf)
+                           expected_launches(sl.cfg, n, model.opts, model=sl.key))
+            check_outputs(outs, sl.nf, sl.grounding_shapes())
 
             sub = {k: v[:n] for k, v in batch.items()}
             tb = to_device(sub, sl.dev)
@@ -2428,6 +2605,9 @@ def serve_slice(name, sl: Slices, record, opts: dict, groups, rng_seed=0):
                   f"{gf:.4f}", flush=True)
             if not diff0 <= STEP0_TOL or agree < MIN_TOKEN_AGREEMENT:
                 fail(f"slice {name}: the kernels disagree with the plain versions")
+            if sl.key in SINGLE_PASS and not all(torch.equal(kern[k], plain[k]) for k in (
+                    "ground_frame", "ground_box")):
+                fail(f"slice {name}: the grounding differs from the plain versions'")
             summary["groups"].append({
                 "batch": n, "launches": counts, "pos_scores_max_abs_diff": diff_all,
                 "step0_max_abs_diff": diff0, "token_agreement": agree,
@@ -2436,23 +2616,25 @@ def serve_slice(name, sl: Slices, record, opts: dict, groups, rng_seed=0):
     return model, summary
 
 
-def full_eval_slice(sl: Slices, record, card, compact: bool = False):
+def full_eval_slice(sl: Slices, record, card, compact: bool = False, batch_size: int = BATCH):
     """d. full-eval at batch 8, int8 cache: the pos decode, then ref / neg
     from one teacher-forced pass at 2B (h., ``compact``: the pos decode and
     the neg pass on the kept rows, ref over the full sequence at B); the
-    same batch, weights and noise through the plain versions."""
+    same batch, weights and noise through the plain versions.  Slice m:
+    the ablations at batch 2."""
     import numpy as np
     import torch
 
     from vitxtgqa_tpu_torch.ops import _build
     from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
-    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
 
-    name = "compact_full_eval_b8" if compact else "full_eval_b8"
+    name = f"{'compact_' if compact else ''}full_eval_b{batch_size}"
+    if sl.key != "t2s":
+        name = f"{sl.key}_{name}"
     opts = dict(kv_cache_int8=True, compact_serving=compact)
     model = sl.model(inference_only=False, **opts)
     plain = sl.model(inference_only=False, plain=True, **opts)
-    batch = synthetic_batch(batch=BATCH, num_final_outputs=sl.nf, seed=1)
+    batch = sl.batch(batch_size, 1)
     tb = to_device(batch, sl.dev)
     forward_ms(model, batch, sl.dev, reps=1)  # warm-up
     _build.reset_launch_counts()
@@ -2460,16 +2642,16 @@ def full_eval_slice(sl: Slices, record, card, compact: bool = False):
         kern = model(tb, group_generator(0, 0, sl.dev))
     torch.cuda.synchronize()
     counts = _build.launch_counts()
-    print(f"slice {name}: launches in one full-eval forward at batch 8 " + json.dumps(counts),
-          flush=True)
+    print(f"slice {name}: launches in one full-eval forward at batch {batch_size} "
+          + json.dumps(counts), flush=True)
     count_launches(f"slice {name}", record, counts,
-                   expected_launches(sl.cfg, BATCH, model.opts, full_eval=True))
+                   expected_launches(sl.cfg, batch_size, model.opts, full_eval=True, model=sl.key))
     with torch.inference_mode():
         ref = plain(tb, group_generator(0, 0, sl.dev))
     out = {k: v.float().cpu().numpy() for k, v in kern.items() if torch.is_tensor(v)}
     want = {k: v.float().cpu().numpy() for k, v in ref.items() if torch.is_tensor(v)}
     for k in ("ref_scores", "pos_scores", "neg_scores"):
-        if out[k].shape != (BATCH, DEC_LEN, sl.nf) or not np.isfinite(out[k]).all():
+        if out[k].shape != (batch_size, DEC_LEN, sl.nf) or not np.isfinite(out[k]).all():
             fail(f"slice {name}: {k} {out[k].shape}, finite {np.isfinite(out[k]).all()}")
     tok, tok_p = out["pos_scores"].argmax(-1), want["pos_scores"].argmax(-1)
     agree = float((tok == tok_p).mean())
@@ -3197,11 +3379,12 @@ def runtime_eval_forwards(iterations: int, log_interval: int, snapshot_interval:
     return sum(i % log_interval == 0 for i in its) + snapshots * val_batches
 
 
-def runtime_launches(cfg, opts, steps: int, forwards: int, batch: int) -> dict:
-    """Kernel launches of ``steps`` training steps and ``forwards`` full-eval
-    forwards at ``batch``."""
-    train = expected_train_launches(cfg, opts)
-    val = expected_launches(cfg, batch, opts, full_eval=True)
+def runtime_launches(cfg, opts, steps: int, forwards: int, batch: int,
+                     model: str = "t2s") -> dict:
+    """Kernel launches of ``steps`` training steps and ``forwards`` eval
+    forwards (full-eval in the T2S family) at ``batch``."""
+    train = expected_train_launches(cfg, opts, model)
+    val = expected_launches(cfg, batch, opts, full_eval=model in T2S_FAMILY, model=model)
     return {k: steps * train[k] + forwards * val[k] for k in REPLACES}
 
 
@@ -3602,6 +3785,340 @@ def runtime_slice(dev, record, card):
     return out
 
 
+def collapse_ground_ids(batch, row: int = 0, frames: int = 2, ocr_per_frame: int = 15):
+    """Plant a row of ``frames`` real frames into ``batch`` (in place): its
+    temporal top-k (k > frames) then takes padding frames, whose id 0 maps
+    onto frame 1, so wo_sg's OCR gather list is -1-padded; its first OCR
+    slot valid, which a padded entry scattered into slot 0 would clobber."""
+    batch["frame_id"][row, frames:] = 0
+    batch["frame_mask"][row, frames:] = 0.0
+    batch["frame_num"][row] = frames
+    batch["temporal_id"][row, frames * ocr_per_frame:] = 0
+    batch["ocr_mask"][row, frames * ocr_per_frame:] = 0.0
+    batch["ocr_mask"][row, 0] = 1.0
+    return batch
+
+
+@contextlib.contextmanager
+def padded_scatter_probe(seen: list):
+    """Record, for each compact scatter of copy scores, (whether its gather
+    list held -1 entries, whether it took the trash-slot form)."""
+    from vitxtgqa_tpu_torch.models.base import JointQAModel
+
+    real = JointQAModel.__dict__["_scatter_dynamic"]
+
+    def probe(dynamic, idx, full_n, may_pad):
+        seen.append((bool((idx < 0).any()), bool(may_pad)))
+        return real.__func__(dynamic, idx, full_n, may_pad)
+
+    JointQAModel._scatter_dynamic = staticmethod(probe)
+    try:
+        yield
+    finally:
+        JointQAModel._scatter_dynamic = real
+
+
+def compact_agreement(compact: dict, exact: dict, temporal_id, n_vocab: int):
+    """(greedy-token agreement, max |d| at step 0 over the fixed vocabulary
+    and the kept copy slots) of wo_sg's compact decode against its exact
+    geometry on the same batch, weights and noise.  The kept slots are
+    those of the grounded frames (frames_to_ocr_mask of the outputs'
+    ground_frame, the pos mask's definition); every other copy slot is
+    pinned to -1e4 by the compact decode and is left out."""
+    import torch
+
+    gf = compact["ground_frame"]
+    t1 = torch.where(gf == 0, torch.ones_like(gf), gf)
+    kept = (temporal_id[:, None, :] == t1[:, :, None]).any(1)
+    cols = torch.cat([torch.ones_like(kept[:, :1]).expand(-1, n_vocab), kept], dim=1)
+    c, e = compact["pos_scores"].float(), exact["pos_scores"].float()
+    agree = float((c.argmax(-1) == e.argmax(-1)).float().mean())
+    d0 = (c[:, 0] - e[:, 0]).abs()[cols]
+    return agree, float("inf") if torch.isnan(d0).any() else float(d0.max())
+
+
+def zoo_preset_slice(sl: Slices, record, card, groups):
+    """m (ii). The serving preset (int8 cache + compact serving) on the
+    zoo's ablation ``sl.key`` at each batch of ``groups``, through
+    serve_slice (launches as derived: wo_sg on its 128-slot compact cache,
+    wo_tg falling back to the full decode), on a batch whose row 0 has 2
+    real frames (collapse_ground_ids).  For wo_sg: the -1-padded gather
+    list reaches the trash-slot scatter, and the compact decode agrees
+    with the exact geometry (compact_agreement, tokens under slice a's
+    rule, step 0 within STEP0_TOL)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
+
+    name = f"{sl.key}_serving_preset"
+    batch = collapse_ground_ids(sl.batch(max(groups), 0))
+    preset = dict(kv_cache_int8=True, compact_serving=True)
+    seen = []
+    with padded_scatter_probe(seen):
+        model, summary = serve_slice(name, sl, record, preset, groups, batch=batch)
+    if sl.key != "t2s_wo_sg":
+        if seen:
+            fail(f"slice {name}: {sl.key} has no gather list, yet its decode compacted")
+        return summary
+    if not any(neg and pad for neg, pad in seen):
+        fail(f"slice {name}: no -1-padded gather list reached the trash-slot scatter")
+    exact = sl.model(kv_cache_int8=True)
+    for b in sorted(set(groups)):
+        tb = to_device({k: v[:b] for k, v in batch.items()}, sl.dev)
+        with torch.inference_mode():
+            c = model(tb, group_generator(0, 0, sl.dev))
+            e = exact(tb, group_generator(0, 0, sl.dev))
+        agree, d0 = compact_agreement(c, e, tb["temporal_id"], sl.nf - sl.cfg["classifier"][
+            "ocr_max_num"])
+        lat = forward_ms(model, {k: v[:b] for k, v in batch.items()}, sl.dev, reps=ZOO_REPS)
+        print(f"slice {name}: batch {b}, compact ({L_WO_SG} cache slots) against the exact "
+              f"geometry: greedy-token agreement {agree:.4f} (min {MIN_TOKEN_AGREEMENT}), max|d| "
+              f"at step 0 over the vocabulary and the kept slots {d0:.4e} (tol {STEP0_TOL}); "
+              f"forward median {statistics.median(lat):.2f} ms; card {card}", flush=True)
+        if agree < MIN_TOKEN_AGREEMENT or not d0 <= STEP0_TOL:
+            fail(f"slice {name}: the compact decode disagrees with the exact geometry")
+        summary[f"compact_vs_exact_b{b}"] = {"token_agreement": agree, "step0_max_abs_diff": d0,
+                                              "forward_ms_all": lat}
+    summary["padded_scatters"] = sum(neg for neg, _ in seen)
+    del model, exact
+    return summary
+
+
+def zoo_train_slice(sl: Slices, record, card):
+    """m (iv). M4C's training step at batch TRAIN_CHECK_BATCH through the
+    kernels against the plain step from the same weights, batch and
+    generators (loss, gradient norm, every parameter's gradient at slice
+    e's limits), its launches as derived (#1, #1b, #9a, #9b at the 1,024-row
+    geometry); then one timed step at batch TRAIN_BATCH after a warm-up
+    step."""
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+    from vitxtgqa_tpu_torch.training.optim import build_optimizer
+    from vitxtgqa_tpu_torch.training.step import step_generators, train_step
+
+    dev, losses, name = sl.dev, Losses(sl.cfg["losses"]), f"{sl.key}_train"
+    tb = to_device(sl.batch(TRAIN_CHECK_BATCH, 2), dev)
+    kern = train_check_step(sl, tb, losses, plain=False)
+    count_launches(f"slice {name}", record, kern[3],
+                   expected_train_launches(sl.cfg, Options(device=dev), sl.key))
+    plain = train_check_step(sl, tb, losses, plain=True)
+    if any(plain[3].values()):
+        fail(f"slice {name}: the plain step launched kernels {plain[3]}")
+    loss_rel, norm_rel, (grad_rel, worst), n, ok = step_agreement(kern, plain)
+    print(f"slice {name}: batch {TRAIN_CHECK_BATCH}, kernels vs plain: loss {kern[0]:.6f} vs "
+          f"{plain[0]:.6f} (rel {loss_rel:.3e}, limit {LOSS_REL_TOL}), gradient norm "
+          f"{kern[1]:.5f} vs {plain[1]:.5f} (rel {norm_rel:.3e}, limit {GNORM_REL_TOL}), "
+          f"per-parameter gradient rel diff max {grad_rel:.3e} ({worst}) over {n} parameters "
+          f"(limit {GRAD_REL_TOL}); launches " + json.dumps(kern[3]), flush=True)
+    if not ok:
+        fail(f"slice {name}: the kernel step disagrees with the plain step")
+    summary = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "max_grad_rel": grad_rel,
+               "max_grad_rel_param": worst, "launches": kern[3]}
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    model = sl.model()
+    opt = build_optimizer(model, model_config=sl.cfg)
+    batch = to_device(sl.batch(TRAIN_BATCH, 3), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for step in range(2):
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        r = train_step(model, losses, opt, batch, step_generators(0, step, dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        count_launches(f"slice {name}, batch-{TRAIN_BATCH} step {step}", record,
+                       _build.launch_counts(), expected_train_launches(sl.cfg, model.opts, sl.key))
+        if not r["applied"]:
+            fail(f"slice {name}: batch-{TRAIN_BATCH} step {step} had a non-finite loss or "
+                 f"gradient")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"slice {name}: batch {TRAIN_BATCH}, remat {model.opts.remat}: step ms "
+          f"{[round(x, 2) for x in times]} (the first warms up), "
+          f"{TRAIN_BATCH / times[-1] * 1e3:.2f} videos/s; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; card {card}", flush=True)
+    summary["batch48"] = {"step_ms_all": times, "max_memory_allocated": peak}
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return summary
+
+
+def zoo_runtime_argv(model: str, run_type: str, fixroot: str, save_dir: str, **tp) -> list:
+    """runtime_argv for a zoo model on its shipped config (ZOO_CONFIGS) and
+    dataset, no worker processes."""
+    config, block = ZOO_CONFIGS[model]
+    dataset = "gt_box" if model == "gt_box" else "vtextgqa"
+    return (["--config", os.path.join(ROOT, "configs", config), "--model", model, "--datasets",
+             dataset, "--run_type", run_type,
+             f"dataset_attributes.{dataset}.data_root_dir={fixroot}",
+             f"training_parameters.save_dir={save_dir}", "training_parameters.seed=1",
+             "training_parameters.num_workers=0"]
+            + [f"training_parameters.{k}={v}" for k, v in tp.items()])
+
+
+def zoo_runtime_slice(dev, record, card):
+    """m (v). run() on a fixture tree written at run time (with
+    fps10_ocr_detection_ClipOCR linked to its OCR directory, the GT-box
+    config's), bf16, no worker processes: M4C train+val for
+    ZOO_RUNTIME_STEPS iterations (a validation probe each, the snapshot's
+    and the final validation), GT-box val on the fixtures' annotations;
+    launches as derived from the gates, losses finite, the six val/
+    metrics in [0, 1]."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.run import run
+    from vitxtgqa_tpu_torch.training.trainer import BaseTrainer
+
+    out = {}
+    evaluate = BaseTrainer.evaluate
+    passes = []  # (split, loss averages, metric averages) of every validation pass
+
+    def recorded(self, split):
+        passes.append((split, *evaluate(self, split)))
+        return passes[-1][1:]
+
+    BaseTrainer.evaluate = recorded
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        fixroot = os.path.join(tmp, "data")
+        write_fixtures(fixroot)
+        os.symlink("fps10_ocr_detection", os.path.join(fixroot, "fps10_ocr_detection_ClipOCR"))
+        train_tp = dict(batch_size=RUNTIME_BATCH, max_iterations=ZOO_RUNTIME_STEPS,
+                        warmup_iterations=1, log_interval=1, snapshot_interval=ZOO_RUNTIME_STEPS)
+        for model, run_type, tp in (("m4c", "train+val", train_tp),
+                                    ("gt_box", "val", dict(batch_size=RUNTIME_BATCH))):
+            name = f"{model}_runtime"
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer = run(zoo_runtime_argv(model, run_type, fixroot, os.path.join(tmp, model),
+                                           **tp))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            val_batches = len(trainer.loaders["val"])
+            steps = trainer.iteration
+            forwards = (runtime_eval_forwards(steps, 1, steps, val_batches) if steps
+                        else val_batches)
+            count_launches(f"slice {name}", record, counts, runtime_launches(
+                trainer.model_cfg, trainer.opts, steps, forwards, RUNTIME_BATCH, model))
+            losses = list(trainer.meter["train/total_loss"].series) if steps else []
+            if len(losses) != (ZOO_RUNTIME_STEPS if model == "m4c" else 0) or not all(
+                    np.isfinite(losses)):
+                fail(f"slice {name}: losses {losses}")
+            split, _, metrics = passes[-1]
+            val = {t: metrics.get(f"{trainer.dataset_name}/{t}") for t in (
+                "textvqa_accuracy", "stvqa_anls", "IOU@0.3", "IOU@0.5", "GQA@0.3", "GQA@0.5")}
+            if split != "val" or not all(v is not None and 0.0 <= v <= 1.0 for v in val.values()):
+                fail(f"slice {name}: validation metrics {val}")
+            print(f"slice {name}: {steps} steps and {forwards} eval forwards at batch "
+                  f"{RUNTIME_BATCH} ({trainer.opts.dtype}); losses {losses}; val {val}; "
+                  f"iteration ms {[round(x, 2) for x in trainer.timings['iteration_ms']]}, "
+                  f"validation pass ms {[round(x, 2) for x in trainer.timings['val_ms']]}; run() "
+                  f"wall {wall:.1f} s; launches " + json.dumps(counts) + f"; card {card}",
+                  flush=True)
+            out[name] = {"launches": counts, "losses": losses, "val": val, "wall_s": wall,
+                         "iteration_ms": trainer.timings["iteration_ms"],
+                         "val_ms": trainer.timings["val_ms"]}
+            del trainer
+        torch.cuda.empty_cache()
+    finally:
+        BaseTrainer.evaluate = evaluate
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def zoo_recompute_slice(sl: Slices, record, card):
+    """m (vi). The recompute decode oracle of ``sl.key`` at batch
+    RUNTIME_BATCH against the cached decode (bf16 cache), as slice l (v)
+    holds T2S's: tokens under the tie rule, step 0 and the rows with equal
+    tokens within the slices' tolerances; its launches as derived."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
+
+    name = f"{sl.key}_recompute"
+    tb = to_device(sl.batch(RUNTIME_BATCH, 4), sl.dev)
+    cached, oracle = sl.model(), sl._new(decode_recompute=True)
+    oracle.load_state_dict(sl.state)
+    with torch.inference_mode():
+        want = cached(tb, group_generator(0, 0, sl.dev))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = oracle(tb, group_generator(0, 0, sl.dev))
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _build.launch_counts()
+    count_launches(f"slice {name}", record, counts, expected_recompute_launches(
+        sl.cfg, RUNTIME_BATCH, oracle.opts, model=sl.key))
+    agree, diff0, diffs = decode_agreement(got, want)
+    print(f"slice {name}: batch {RUNTIME_BATCH}, the recompute oracle against the cached decode: "
+          f"greedy-token agreement {agree:.4f} (min {MIN_TOKEN_AGREEMENT}), max|d pos_scores| at "
+          f"step 0 {diff0:.4e} (tol {STEP0_TOL}), on the rows with equal tokens {diffs} (tol "
+          f"{REFNEG_TOL}); the oracle's forward {ms:.2f} ms; launches " + json.dumps(counts)
+          + f"; card {card}", flush=True)
+    if not (agree >= MIN_TOKEN_AGREEMENT and diff0 <= STEP0_TOL
+            and all(d is not None and d <= REFNEG_TOL for d in diffs.values())):
+        fail(f"slice {name}: the oracle disagrees with the cached decode")
+    return {"token_agreement": agree, "step0_max_abs_diff": diff0,
+            "equal_rows_max_abs_diff": diffs, "forward_ms": ms, "launches": counts}
+
+
+def zoo_slice(dev, record, card):
+    """m. The zoo's T2S-family models at production width, bf16, random
+    weights from seed 0: (i) each served through the kernels at batch 2
+    (int8 cache: #5 / #6) and 8 (int8: #4), and at 8 over the bf16 cache
+    (#7), against the plain versions (serve_slice), and its forward
+    latency at 2 and 8; (ii) the serving preset on the ablations
+    (zoo_preset_slice: wo_sg compact over 128 slots at 2 and 8, a -1-padded
+    gather list; wo_tg's fallback); (iii) the ablations' full-eval at 2;
+    (iv) M4C's training step (zoo_train_slice); (v) the runtime
+    (zoo_runtime_slice); (vi) M4C's recompute oracle."""
+    out = {}
+    for key in ZOO:
+        sl = Slices(dev, key=key)
+        rec = {}
+        _, rec["int8_b2_b8"] = serve_slice(f"{key}_int8_b2_b8", sl, record,
+                                           dict(kv_cache_int8=True), [2, BATCH])
+        _, rec["bf16_b8"] = serve_slice(f"{key}_bf16_b8", sl, record, {}, [BATCH])
+        model = sl.model(kv_cache_int8=True)
+        lat = {}
+        for b in (2, BATCH):
+            sub = sl.batch(b, 0)
+            forward_ms(model, sub, dev, reps=1)  # warm-up
+            lat[b] = forward_ms(model, sub, dev, reps=ZOO_REPS)
+        del model
+        launches = {f"{g}_b{grp['batch']}": {k: v for k, v in grp["launches"].items() if v}
+                    for g in rec for grp in rec[g]["groups"]}
+        med = {b: statistics.median(v) for b, v in lat.items()}
+        print(f"slice m {key}: {sl.n_params / 1e6:.1f}M params; kernel launches per forward "
+              + json.dumps(launches) + f"; int8-cache forward median {med[2]:.2f} ms at batch 2, "
+              f"{med[BATCH]:.2f} ms at batch {BATCH}; card {card}", flush=True)
+        rec["forward_ms_all"] = lat
+        if key in ("t2s_wo_tg", "t2s_wo_sg"):
+            rec["serving_preset"] = zoo_preset_slice(
+                sl, record, card, [2, BATCH] if key == "t2s_wo_sg" else [2])
+            rec["full_eval_b2"] = full_eval_slice(sl, record, card, batch_size=2)
+        if key == "m4c":
+            rec["train"] = zoo_train_slice(sl, record, card)
+            rec["recompute"] = zoo_recompute_slice(sl, record, card)
+        out[key] = rec
+        del sl
+    out["runtime"] = zoo_runtime_slice(dev, record, card)
+    return out
+
+
 def default_options_check(sl, model, batch, record):
     """A serving forward at batch BATCH from a model built with
     Options(kv_cache_int8=True) and nothing else (the card and, by default
@@ -3753,6 +4270,8 @@ def run_slices(dev, record, card):
     details["sp"] = sp_slice(record, card)
     # l. the runtime: train, check, resume, predict; the recompute oracle
     details["runtime"] = runtime_slice(dev, record, card)
+    # m. the zoo's T2S-family models
+    details["zoo"] = zoo_slice(dev, record, card)
     return details
 
 
@@ -3814,6 +4333,7 @@ def main(argv) -> int:
     details["training_kernels"] = check_training_kernels(dev, record)
     details["sp_kernels"] = check_sp_kernels(dev, record)
     check_padded_keys(dev, record)
+    details["zoo_geometries"] = check_zoo_geometries(dev, record)
     details["slices"] = run_slices(dev, record, card)
     stop_child_processes()
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

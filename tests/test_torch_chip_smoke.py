@@ -1002,3 +1002,205 @@ def test_stop_child_processes_fails_on_a_process_left_running():
         child.wait()
     assert child.pid not in [pid for pid, _ in CS.child_processes()]
     CS.stop_child_processes()
+
+
+# ---------------------------------------------------------------------------
+# slice m: the zoo's T2S-family models
+# ---------------------------------------------------------------------------
+
+# (model, batch, Options fields, full-eval, recompute oracle) of a tiny
+# forward whose kernel calls are counted.  The tiny wide geometry (text 10,
+# 8 frames x 30 OCR slots, 4 decoder slots, top-2, width 128): T2S-shaped
+# joint sequences of 384 rows (flash; the block from 6 sequences), M4C's
+# 10 + 1 + 240 + 4 -> 256 (flash; the block from 8), wo_sg's compact
+# 10 + 2 + 2 x 30 + 4 -> 128 (neither)
+ZOO_LAUNCH_CASES = {
+    "wo_tg_preset_b2": ("t2s_wo_tg", 2, dict(kv_cache_int8=True, compact_serving=True), False,
+                        False),
+    "wo_tg_full_eval_b6": ("t2s_wo_tg", 6, dict(kv_cache_int8=True), True, False),
+    "wo_sg_preset_b2": ("t2s_wo_sg", 2, dict(kv_cache_int8=True, compact_serving=True), False,
+                        False),
+    "wo_sg_preset_b6": ("t2s_wo_sg", 6, dict(kv_cache_int8=True, compact_serving=True), False,
+                        False),
+    "wo_sg_compact_full_eval_b6": ("t2s_wo_sg", 6, dict(kv_cache_int8=True,
+                                                         compact_serving=True), True, False),
+    "m4c_int8_b2": ("m4c", 2, dict(kv_cache_int8=True), False, False),
+    "m4c_int8_b8": ("m4c", 8, dict(kv_cache_int8=True), False, False),
+    "m4c_bf16_b8": ("m4c", 8, {}, False, False),
+    "m4c_recompute_b8": ("m4c", 8, {}, False, True),
+    "t5vitevqa_bf16_b6": ("t5vitevqa", 6, {}, False, False),
+    "gt_box_int8_b2": ("gt_box", 2, dict(kv_cache_int8=True), False, False),
+}
+
+
+def _zoo_tiny(key, b, planted=False, **kw):
+    """A tiny zoo model (width 128) and its batch, with the fused-decode
+    gate opened as on a CUDA tensor by the caller."""
+    from vitxtgqa_tpu_torch.core.registry import registry
+    from vitxtgqa_tpu_torch.run import setup_imports
+
+    setup_imports()
+    cfg = tiny_model_config(hidden=128, frames=FRAMES, ocr_per_frame=OCR_PF).to_dict()
+    if key == "m4c":
+        cfg["obj"]["mmt_in_dim"], cfg["ocr"]["mmt_in_dim"] = 32, 40
+    opts = {k: kw.pop(k) for k in list(kw) if k not in ("inference_only", "decode_recompute")}
+    cls = registry.get_model_class(key)
+    if key not in CS.T2S_FAMILY:
+        kw.pop("inference_only", None)
+    nf = 32 + FRAMES * OCR_PF
+    model = cls(cfg, nf, opts=cpu_options(**opts), **kw).init_weights(0)
+    batch = synthetic_batch(batch=b, frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4,
+                            text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                            num_final_outputs=nf, text_vocab=128, seed=0, gt_box=key == "gt_box")
+    if planted:
+        CS.collapse_ground_ids(batch, frames=1, ocr_per_frame=OCR_PF)
+    return cfg, model, {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+
+
+def _count_plain_calls(monkeypatch):
+    counts = {name: 0 for name in CS.REPLACES}
+
+    def counting(fn, kernel):
+        def call(*a, **kw):
+            counts[kernel] += 1
+            return fn(*a, **kw)
+        return call
+
+    for mod, plain, kernel in PLAIN_OF:
+        monkeypatch.setattr(mod, plain, counting(getattr(mod, plain), kernel))
+    gate = TC.TransformerEncoder.fused_decode_ok
+    monkeypatch.setattr(TC.TransformerEncoder, "fused_decode_ok",
+                        lambda self, x: gate(self, types.SimpleNamespace(is_cuda=True,
+                                                                         shape=x.shape)))
+    return counts
+
+
+def _zoo_want(case, cfg, model):
+    key, b, _, full_eval, recompute = ZOO_LAUNCH_CASES[case]
+    if recompute:
+        return CS.expected_recompute_launches(cfg, b, model.opts, text_len=10, dec_len=4,
+                                              model=key)
+    return CS.expected_launches(cfg, b, model.opts, full_eval=full_eval, text_len=10, dec_len=4,
+                                model=key)
+
+
+@pytest.mark.parametrize("case", sorted(ZOO_LAUNCH_CASES))
+def test_expected_launches_count_the_zoo_forwards(case, monkeypatch):
+    """chip_smoke.expected_launches (and expected_recompute_launches) with
+    the zoo's model keys against the calls a tiny forward of each makes on
+    the CPU (plain versions counted, the fused-decode gate opened as on a
+    CUDA tensor): the QTV only in the T2S family, M4C's 256-row sequence,
+    compact serving only where the grounding gives the lists (wo_sg's
+    serving decode, over 128 slots), wo_tg's and full-eval's fallbacks."""
+    key, b, opts, full_eval, recompute = ZOO_LAUNCH_CASES[case]
+    counts = _count_plain_calls(monkeypatch)
+    cfg, model, tb = _zoo_tiny(key, b, inference_only=not full_eval, decode_recompute=recompute,
+                               **opts)
+    model(tb, torch.Generator().manual_seed(0))
+    want = _zoo_want(case, cfg, model)
+    assert counts == want and any(want.values())
+
+
+def test_zoo_geometries_of_the_production_configs():
+    """The zoo's joint sequences at production width: M4C 1,024 rows,
+    wo_sg's compact 128, wo_tg none (no gather list); zoo_masks holds those
+    lengths, M4C's with a few dozen allowed keys."""
+    assert CS.joint_lengths(CS.zoo_config("m4c"), model="m4c") == (CS.L_M4C, None)
+    assert CS.joint_lengths(CS.zoo_config("t2s_wo_sg"), model="t2s_wo_sg") == (CS.L_JOINT,
+                                                                              CS.L_WO_SG)
+    assert CS.joint_lengths(CS.zoo_config("t2s_wo_tg"), model="t2s_wo_tg") == (CS.L_JOINT, None)
+    for key in ("t5vitevqa", "gt_box"):
+        assert CS.joint_lengths(CS.zoo_config(key), model=key)[0] == CS.L_JOINT
+    (m4c, km, wo), (sg, kc, wc) = CS.zoo_masks(torch.device("cpu"))
+    assert km.shape == (CS.BATCH, CS.L_M4C) and wo == CS.L_M4C - CS.DEC_LEN
+    assert kc.shape == (CS.BATCH, CS.L_WO_SG) and wc == CS.L_WO_SG - CS.DEC_LEN
+    live = (km > 0).sum(1)
+    assert 20 <= int(live.min()) and int(live.max()) <= 20 + 1 + 15
+
+
+def test_check_zoo_geometries_dry_run():
+    """check_zoo_geometries untimed on the CPU (each wrapper there runs its
+    plain version): every case reached, errors 0."""
+    record = {}
+    CS.check_zoo_geometries(torch.device("cpu"), record, timed=False)
+    for name in ("decode_attention_int8", "decode_attention", "fused_decode_step"):
+        assert record[name]["max_abs_err"] == 0.0, name
+
+
+def _scatter_into_slot_0():
+    """A fault of the compact scatter: the -1 entries of a padded gather
+    list written into copy slot 0 (after the real entries) instead of the
+    trash slot."""
+    from vitxtgqa_tpu_torch.models.base import JointQAModel
+
+    real = JointQAModel.__dict__["_scatter_dynamic"].__func__
+
+    def scatter(dynamic, idx, full_n, may_pad):
+        full = real(dynamic, idx, full_n, may_pad)
+        pad = idx < 0
+        if may_pad and pad.any():
+            for row in pad.any(1).nonzero()[:, 0]:
+                last = pad[row].nonzero()[-1, 0]
+                full[row, :, 0] = dynamic[row, :, last]
+        return full
+
+    return staticmethod(scatter)
+
+
+@pytest.mark.parametrize("fault", [None, "padded_into_slot_0"])
+def test_compact_agreement_rejects_an_unwrapped_padded_list(fault, monkeypatch):
+    """Slice m (ii)'s check of wo_sg under the serving preset on a batch
+    whose row 0 has one real frame: the -1-padded gather list reaches the
+    trash-slot scatter (padded_scatter_probe), and the compact decode
+    agrees with the exact geometry (compact_agreement) within STEP0_TOL;
+    with the padded entries scattered into copy slot 0 instead, slot 0's
+    score moves by its mask's 1.0 and the check rejects it."""
+    from vitxtgqa_tpu_torch.models.base import JointQAModel
+
+    if fault:
+        monkeypatch.setattr(JointQAModel, "_scatter_dynamic", _scatter_into_slot_0())
+    _, compact, tb = _zoo_tiny("t2s_wo_sg", 2, planted=True, kv_cache_int8=True,
+                               compact_serving=True)
+    _, exact, _ = _zoo_tiny("t2s_wo_sg", 2, planted=True, kv_cache_int8=True)
+    seen = []
+    with CS.padded_scatter_probe(seen):
+        c = compact(tb, torch.Generator().manual_seed(0))
+    e = exact(tb, torch.Generator().manual_seed(0))
+    assert seen and all(pad for _, pad in seen) and any(neg for neg, _ in seen)
+    agree, d0 = CS.compact_agreement(c, e, tb["temporal_id"], 32)
+    if fault:
+        assert d0 > CS.STEP0_TOL
+    else:
+        assert agree == 1.0 and d0 <= 1e-4
+
+
+@pytest.mark.parametrize("fault", ["ignores_missing_lists", "never_compacts"])
+@pytest.mark.parametrize("case", ["wo_tg_preset_b2", "wo_sg_preset_b2",
+                                  "wo_sg_compact_full_eval_b6"])
+def test_slice_m_rejects_a_compact_gate_fault(case, fault, monkeypatch):
+    """A compact gate that ignores a missing gather list (the gate before
+    the ablations: compact serving alone) raises on wo_tg and on wo_sg's
+    full-eval, failing the slice; one that never compacts leaves wo_sg's
+    serving decode uncompacted, whose launches (the fused epilogue, no
+    compact MMT) count_launches rejects.  Where a fault changes nothing
+    (wo_tg never compacts; wo_sg's full-eval neither), the slice passes."""
+    from vitxtgqa_tpu_torch.models.t2s import T2S as PT2S
+
+    gate = {"ignores_missing_lists": lambda self, g, full_eval: self.opts.compact_serving,
+            "never_compacts": lambda self, g, full_eval: False}[fault]
+    monkeypatch.setattr(PT2S, "_compact_ok", gate)
+    key, b, opts, full_eval, _ = ZOO_LAUNCH_CASES[case]
+    counts = _count_plain_calls(monkeypatch)
+    cfg, model, tb = _zoo_tiny(key, b, inference_only=not full_eval, **opts)
+    broken = (fault == "ignores_missing_lists" and (key == "t2s_wo_tg" or full_eval)
+              or fault == "never_compacts" and case == "wo_sg_preset_b2")
+    if fault == "ignores_missing_lists" and broken:
+        with pytest.raises(KeyError):
+            model(tb, torch.Generator().manual_seed(0))
+        return
+    model(tb, torch.Generator().manual_seed(0))
+    if broken:
+        with pytest.raises(SystemExit, match="launched"):
+            CS.count_launches("slice m", {}, counts, _zoo_want(case, cfg, model))
+    else:
+        CS.count_launches("slice m", {}, counts, _zoo_want(case, cfg, model))

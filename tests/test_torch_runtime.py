@@ -118,13 +118,17 @@ def test_build_config_equals_the_jax_packages(repo_root, name, opts):
 
 
 def test_the_ports_defaults_are_copies(repo_root):
-    """defaults/configs holds base.yml and every file the two T2S configs'
-    includes reach, each a copy of the JAX package's."""
+    """defaults/configs holds base.yml and every file the includes of the
+    T2S-family configs reach (the two T2S configs, M4C's, T5-ViteVQA's and
+    GT-box's, whose T2S_human.yml includes gt_box.yml), each a copy of the
+    JAX package's."""
     from vitxtgqa_tpu_torch.core.config import DEFAULTS_DIR
 
     rels = sorted(os.path.relpath(os.path.join(d, f), DEFAULTS_DIR)
                   for d, _, names in os.walk(DEFAULTS_DIR) for f in names)
-    assert rels == ["base.yml", os.path.join("datasets", "videoqa", "vtextgqa.yml")]
+    videoqa = os.path.join("datasets", "videoqa")
+    assert rels == ["base.yml"] + [os.path.join(videoqa, f) for f in (
+        "T2S_human.yml", "gt_box.yml", "vtextgqa.yml")]
     for rel in rels:
         jax_copy = os.path.join(repo_root, "vitxtgqa_tpu", "defaults", "configs", rel)
         assert open(os.path.join(DEFAULTS_DIR, rel)).read() == open(jax_copy).read(), rel
@@ -142,8 +146,14 @@ def test_the_ports_registry_is_its_own():
     assert port_registry is not jax_registry
     assert port_registry.get_model_class("t2s").__module__ == "vitxtgqa_tpu_torch.models.t2s"
     assert jax_registry.get_model_class("t2s").__module__ == "vitxtgqa_tpu.models.t2s"
-    assert port_registry.list("model") == ["t2s"] and "m4c" in jax_registry.list("model")
-    assert port_registry.list("builder") == ["vtextgqa"]
+    assert sorted(port_registry.list("model")) == sorted(
+        ["t2s", "t2s_wo_tg", "t2s_wo_sg", "m4c", "t5vitevqa", "gt_box", "T2S_human"])
+    assert {"m4c", "transtr"} <= set(jax_registry.list("model"))
+    assert sorted(port_registry.list("builder")) == ["gt_box", "gt_box_clipocr", "vtextgqa"]
+    for kind in ("model", "builder"):
+        for name in port_registry.list(kind):
+            assert port_registry._get_class(kind, name).__module__.startswith(
+                "vitxtgqa_tpu_torch."), (kind, name)
     assert sorted(port_registry.list("metric")) == sorted(SIX)
     for kind in ("processor", "builder", "metric", "trainer"):
         for name in port_registry.list(kind):
@@ -694,12 +704,6 @@ REFUSALS = {
     "float16": ("cpu", {"compute_dtype": "float16"}, False, ValueError, "computes in"),
     "use_pallas_false_on_the_card": ("auto", {"use_pallas": False}, True, ValueError,
                                      "never the main path"),
-    "kernel_dropout_false": ("cpu", {"kernel_dropout": False}, False, ValueError,
-                             "queue 1 item 3"),
-    "fused_block_bwd_false": ("cpu", {"fused_block_bwd": False}, False, ValueError,
-                              "queue 1 item 3"),
-    "fused_block_fwd_false": ("cpu", {"fused_block_fwd": False}, False, ValueError,
-                              "queue 1 item 3"),
     "fused_grads": ("cpu", {"fused_grads": True}, False, NotImplementedError, "queue 1 item 6"),
     "compact_train": ("cpu", {"compact_train": True}, False, NotImplementedError,
                       "queue 1 item 6"),
@@ -734,6 +738,11 @@ MAPPINGS = {
     "always_on_true": ("cpu", {k: True for k in ("kernel_dropout", "fused_block_bwd",
                                                   "fused_block_fwd", "variant_scan")}, False, {}),
     "variant_scan_false": ("cpu", {"variant_scan": False}, False, {}),
+    # JAX's XLA block (base.yml's default, kept by the zoo's configs): the
+    # port runs its one training block
+    "kernel_dropout_false": ("cpu", {"kernel_dropout": False}, False, {}),
+    "fused_block_bwd_false": ("cpu", {"fused_block_bwd": False}, False, {}),
+    "fused_block_fwd_false": ("cpu", {"fused_block_fwd": False}, False, {}),
     "unported_false": ("cpu", {k: False for k in ("fused_grads", "compact_train", "dense_mm",
                                                    "split_dense")}, False, {}),
     "remat_attn": ("cpu", {"remat": "attn"}, False, dict(remat="attn")),

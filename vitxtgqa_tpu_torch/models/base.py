@@ -14,6 +14,13 @@ compact full-eval.  ``_recompute_decode`` is the reference-style greedy
 decode that reruns ``_mmt_full`` at every step, the parity oracle of the
 cached decode.  The multi-variant cached decode and the post-scan compact
 epilogue are not ported (ROADMAP.md queue 1).
+
+The zoo's models share the rest of their assembly here: the modality
+streams (``_add_frame_stream`` / ``_frame_stream``, ``_add_ocr_stream`` /
+``_ocr_stream``), the decoder heads (``_add_decoder``), the seeded init,
+and for the single-variant models (M4C, T5-ViteVQA, GT-box) the one
+forward ``_single_pass``: teacher-forced in training, the greedy decode (or
+the recompute oracle) in eval.
 """
 
 from __future__ import annotations
@@ -24,9 +31,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vitxtgqa_tpu_torch.models.common import derived_weights
+from vitxtgqa_tpu_torch.models.common import (
+    FixedVocabClassifier,
+    LayerNorm,
+    Linear,
+    OcrPtrNet,
+    PrevPredEmbeddings,
+    TransformerEncoder,
+    cfg_get,
+    derived_weights,
+)
 from vitxtgqa_tpu_torch.ops import decode_step as DS
-from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec, joint_mask_spec
+from vitxtgqa_tpu_torch.ops.dropout import dropout
+from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec, joint_mask_spec, length_mask
 
 PAD_BIAS = -1e30  # classifier pad lanes: the greedy argmax never picks them
 
@@ -45,6 +62,15 @@ def project_features(dense: nn.Module, parts, normalize) -> torch.Tensor:
     return dense(cat)
 
 
+class Wrap(nn.Module):
+    """Named container that reproduces the reference's module nesting."""
+
+    def __init__(self, **modules: nn.Module):
+        super().__init__()
+        for name, mod in modules.items():
+            self.add_module(name, mod)
+
+
 class JointQAModel(nn.Module):
     """Base for models that own ``mmt`` (``.encoder`` and
     ``.prev_pred_embeddings``), ``classifier``, ``ocr_ptr_net``, ``opts``
@@ -53,6 +79,134 @@ class JointQAModel(nn.Module):
     # joint sequences are padded so that enc + dec is a multiple of 128,
     # which keeps the cache slots and write_offset equal to the JAX ones
     LANE = 128
+    # children that stay float32 under a bf16 compute dtype (the JAX
+    # models' Dense layers without a dtype: grounding, pointer, classifier)
+    FLOAT32_CHILDREN = ("Grounding_Module", "PostHoc", "ocr_ptr_net", "classifier")
+
+    # ---- assembly (call inside ``torch.device(opts.device)``) ---------------
+    def _add_frame_stream(self, c, hidden: int, frame_embed: bool = True):
+        """The obj stream's modules: the frame-id embedding (not M4C's), the
+        projection of config ``obj.mmt_in_dim`` features and its LayerNorm."""
+        obj = cfg_get(c, "obj")
+        self.obj_dropout = float(cfg_get(obj, "dropout_prob") or 0.0)
+        if frame_embed:
+            self.frame_embeddings = nn.Embedding(4000, 50)
+        self.linear_obj_feat_to_mmt_in = Linear(int(cfg_get(obj, "mmt_in_dim")), hidden)
+        self.obj_feat_layer_norm = LayerNorm(hidden, eps=1e-12)
+
+    def _add_ocr_stream(self, c, hidden: int, ocr_ids: bool = True):
+        """The OCR stream's modules: the temporal- and track-id embeddings
+        (not M4C's), the projections of config ``ocr.mmt_in_dim`` features
+        and of the boxes, and their LayerNorms."""
+        ocr = cfg_get(c, "ocr")
+        self.ocr_dropout = float(cfg_get(ocr, "dropout_prob") or 0.0)
+        if ocr_ids:
+            self.temporal_position_embeddings = nn.Embedding(4000, 50)
+            self.track_position_embeddings = nn.Embedding(4000, 50)
+        self.linear_ocr_feat_to_mmt_in = Linear(int(cfg_get(ocr, "mmt_in_dim")), hidden)
+        self.linear_ocr_bbox_to_mmt_in = Linear(4, hidden)
+        self.ocr_feat_layer_norm = LayerNorm(hidden, eps=1e-12)
+        self.ocr_bbox_layer_norm = LayerNorm(hidden, eps=1e-12)
+
+    def _add_decoder(self, c, mmt_cfg, num_final_outputs: int, opts):
+        """The MMT with its decoder-slot embeddings, the fixed-vocabulary
+        classifier and the OCR pointer net."""
+        ptr = cfg_get(cfg_get(c, "classifier"), "ocr_ptr_net")
+        ocr_max = int(cfg_get(cfg_get(c, "classifier"), "ocr_max_num"))
+        self.mmt = Wrap(encoder=TransformerEncoder(mmt_cfg, opts),
+                        prev_pred_embeddings=PrevPredEmbeddings(mmt_cfg))
+        self.classifier = FixedVocabClassifier(num_final_outputs - ocr_max, mmt_cfg.hidden_size)
+        self.ocr_ptr_net = OcrPtrNet(int(cfg_get(ptr, "hidden_size")),
+                                     int(cfg_get(ptr, "query_key_size")), plain=opts.plain)
+
+    def _cast_to_compute_dtype(self):
+        """The transformer stacks and the input projections compute in the
+        compute dtype; FLOAT32_CHILDREN stay float32 (as in the JAX models)."""
+        for name, mod in self.named_children():
+            if name not in self.FLOAT32_CHILDREN:
+                mod.to(self.opts.dtype)
+
+    def init_weights(self, seed: int) -> "JointQAModel":
+        """BERT-style random init from a seeded generator on the model's
+        device: N(0, 0.02) matrices and embeddings, zero biases, unit
+        LayerNorm scales."""
+        gen = torch.Generator(device=self.opts.device).manual_seed(int(seed))
+        with torch.no_grad():
+            for mod in self.modules():
+                if isinstance(mod, nn.LayerNorm):
+                    mod.weight.fill_(1.0)
+                    mod.bias.zero_()
+                elif isinstance(mod, (nn.Linear, nn.Embedding)):
+                    w = torch.empty(mod.weight.shape, device=mod.weight.device)
+                    mod.weight.copy_(w.normal_(0.0, 0.02, generator=gen))
+                    if getattr(mod, "bias", None) is not None:
+                        mod.bias.zero_()
+        return self
+
+    # ---- modality streams ----------------------------------------------------
+    def _text_stream(self, batch, train: bool = False, gen=None):
+        txt_mask = length_mask(batch["text_len"], batch["text"].shape[1])
+        return self.text_bert(batch["text"], txt_mask, train=train, gen=gen), txt_mask
+
+    def _frame_stream(self, batch, gen=None):
+        """Every sampled frame: its l2-normalised feature with its frame-id
+        embedding, projected and LayerNormed (dropout with ``gen``)."""
+        obj_lin = project_features(
+            self.linear_obj_feat_to_mmt_in,
+            [batch["video_feat"].to(self.opts.dtype), self.frame_embeddings(batch["frame_id"])],
+            [True, False],
+        )
+        return dropout(self.obj_feat_layer_norm(obj_lin), self.obj_dropout, gen)
+
+    def _ocr_stream(self, batch, gen=None, ids=("temporal_id", "track_id"),
+                    box: str = "ocr_bbox_coordinates"):
+        """The OCR slots: l2-normalised FastText and PHOC features (with the
+        embeddings of the ``ids`` fields, None for none), projected and
+        LayerNormed, plus the LayerNormed projection of the ``box`` field."""
+        dt = self.opts.dtype
+        parts = [batch["context_feature_0"].to(dt), batch["context_feature_1"].to(dt)]
+        if ids is not None:
+            parts += [self.temporal_position_embeddings(batch[ids[0]]),
+                      self.track_position_embeddings(batch[ids[1]])]
+        ocr_lin = project_features(self.linear_ocr_feat_to_mmt_in, parts,
+                                   [True, True, False, False][:len(parts)])
+        ocr_in = self.ocr_feat_layer_norm(ocr_lin) + self.ocr_bbox_layer_norm(
+            self.linear_ocr_bbox_to_mmt_in(batch[box].to(dt)))
+        return dropout(ocr_in, self.ocr_dropout, gen)
+
+    # ---- forward -------------------------------------------------------------
+    def forward(self, batch, gumbel=None, train: bool = False, dropout_gen=None):
+        """``gumbel``: a torch.Generator for the grounding's draws, or the
+        noise tensors (T2S and its ablations; the other models draw none);
+        ``dropout_gen`` the training dropout generator on the model's
+        device (None: no dropout).  Eval runs under no_grad."""
+        if train:
+            return self._forward_train(batch, gumbel, dropout_gen)
+        with torch.no_grad():
+            return self._forward_eval(batch, gumbel)
+
+    def _forward_train(self, batch, gumbel, gen):
+        return self._single_pass(batch, True, gen)
+
+    def _forward_eval(self, batch, gumbel):
+        return self._single_pass(batch, False, None)
+
+    def _single_pass(self, batch, train: bool, gen=None):
+        """The single-variant models' forward (JAX m4c.py / t5vitevqa.py /
+        gt_box.py ``__call__``): ``_streams`` gives the three streams, their
+        masks (the OCR mask is also the pointer's) and the grounding
+        outputs; training runs one teacher-forced pass, eval the greedy
+        decode (the recompute oracle under ``decode_recompute``).  Returns
+        pos_scores float32 [B, S, V + N] and the grounding outputs."""
+        txt, txt_mask, obj, obj_mask, ocr, ocr_mask, out = self._streams(batch, train, gen)
+        enc_mask = torch.cat([txt_mask, obj_mask, ocr_mask], dim=1)
+        if train:
+            scores = self._mmt_full(txt, obj, ocr, enc_mask, ocr_mask, batch["train_prev_inds"],
+                                    train=True, gen=gen)
+        else:
+            decode = self._recompute_decode if self.decode_recompute else self._greedy_decode
+            scores = decode(txt, obj, ocr, enc_mask, ocr_mask, batch["train_prev_inds"].shape[1])
+        return {"pos_scores": scores, **out}
 
     def _scores(self, dec_out, ocr_out, ocr_mask):
         fixed = self.classifier(dec_out)

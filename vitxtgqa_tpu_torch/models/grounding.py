@@ -3,9 +3,12 @@
 Counterpart of vitxtgqa_tpu/models/grounding.py, with the same static-shape
 index plumbing.  The two gumbel draws (temporal, then spatial) are
 injectable: ``GroundingModule.forward`` takes a ``torch.Generator`` to draw
-them from, or the two noise tensors themselves ([B, 2, F] and [B, 2, N]).
+them from, or the two noise tensors themselves ([B, 2, F] and [B, 2, N]);
+a grounding that needs one draw only (the ablations of
+models/t2s_ablations.py) takes its own from either (``draw_noise``).
 Grounding computes in float32, as the JAX module does (its Dense layers
-carry no compute dtype).
+carry no compute dtype).  ``QuestionPooling`` is the question pooling that
+the post-hoc heads (models/posthoc.py, models/t5vitevqa.py) share.
 """
 
 from __future__ import annotations
@@ -24,6 +27,15 @@ from vitxtgqa_tpu_torch.ops.gumbel import (
 )
 
 Gumbel = Union[torch.Generator, Tuple[torch.Tensor, torch.Tensor]]
+TEMPORAL, SPATIAL = 0, 1  # the draws of a Gumbel pair
+
+
+def draw_noise(gumbel: Gumbel, which: int, shape, device) -> torch.Tensor:
+    """The ``which`` draw (TEMPORAL [B, 2, F] or SPATIAL [B, 2, N]): taken
+    from the pair, or drawn from the generator."""
+    if isinstance(gumbel, torch.Generator):
+        return sample_gumbel(shape, gumbel, device=device)
+    return gumbel[which]
 
 
 def attention_score(q_global, feats, mask):
@@ -92,35 +104,40 @@ def spatial_grounding(noise, q_global, ocr_feat, ocr_box, new_ocr_mask,
     return ground_box, pos_topk, neg_topk, flat, flat_n
 
 
-class GroundingModule(nn.Module):
-    """Question pooling, then temporal and spatial grounding."""
+class QuestionPooling(nn.Module):
+    """Self-attention pooling of the question rows (JAX pool_question)."""
 
-    def __init__(self, in_dim: int, hidden_size: int, frame_topk: int, ocr_topk: int,
-                 frame_num: int, ocr_frame_num: int, tau: float = 1.0):
+    def __init__(self, in_dim: int, hidden_size: int):
         super().__init__()
-        self.frame_topk = frame_topk
-        self.ocr_topk = ocr_topk
-        self.frame_num = frame_num
-        self.ocr_frame_num = ocr_frame_num
-        self.tau = tau
         self.q_linear = Linear(in_dim, hidden_size)
         self.self_attn = Linear(hidden_size, 1)
 
     def pool_question(self, q_feat, q_mask):
+        """[B, T, D], [B, T] -> q_global [B, 1, hidden] float32."""
         q_proj = self.q_linear(q_feat)
         attn = torch.softmax(self.self_attn(q_proj)[..., 0], dim=-1) * q_mask
         attn = attn / (attn.sum(dim=-1, keepdim=True) + 1e-12)
         return torch.einsum("bl,bld->bd", attn, q_proj)[:, None, :]
 
+
+class GroundingModule(QuestionPooling):
+    """Question pooling, then temporal and spatial grounding."""
+
+    def __init__(self, in_dim: int, hidden_size: int, frame_topk: int, ocr_topk: int,
+                 frame_num: int, ocr_frame_num: int, tau: float = 1.0):
+        super().__init__(in_dim, hidden_size)
+        self.frame_topk = frame_topk
+        self.ocr_topk = ocr_topk
+        self.frame_num = frame_num
+        self.ocr_frame_num = ocr_frame_num
+        self.tau = tau
+
     def forward(self, q_feat, q_mask, frame_feat, frame_mask, frame_id, ocr_feat,
                 ocr_mask, ocr_box, temporal_id, gumbel: Gumbel):
         q_global = self.pool_question(q_feat, q_mask)
         b, f, n = frame_feat.shape[0], frame_feat.shape[1], ocr_feat.shape[1]
-        if isinstance(gumbel, torch.Generator):
-            noise_t = sample_gumbel((b, 2, f), gumbel, device=q_global.device)
-            noise_s = sample_gumbel((b, 2, n), gumbel, device=q_global.device)
-        else:
-            noise_t, noise_s = gumbel
+        noise_t = draw_noise(gumbel, TEMPORAL, (b, 2, f), q_global.device)
+        noise_s = draw_noise(gumbel, SPATIAL, (b, 2, n), q_global.device)
         ground_frame, pos_f, neg_f, pos_f_idx, neg_f_idx = temporal_grounding(
             noise_t, q_global, frame_feat, frame_mask, frame_id, self.frame_topk, self.tau,
         )

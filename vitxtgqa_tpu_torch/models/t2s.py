@@ -20,6 +20,9 @@ swaps the cached decode for the reference's loop (``_recompute_decode``: the
 full MMT at every step), the parity oracle: serving decodes the pos variant
 with it, full-eval the three variants stacked at 3B with the pos argmax
 feeding all three, and neither reuses the QTV buffer nor compacts.
+``GROUNDING_CLS`` is the hook of the ablations (models/t2s_ablations.py);
+the compact paths run only where the grounding returns the gather lists
+they need (``_compact_ok``).
 
 What runs where on CUDA (every serving configuration of the JAX package):
   - QTV and the MMT encode: the flash kernel where the keys reach 256 (the
@@ -51,28 +54,21 @@ inverses and released reference checkpoints load as they are.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from vitxtgqa_tpu_torch.core.registry import registry
-from vitxtgqa_tpu_torch.models.base import JointQAModel, project_features
+from vitxtgqa_tpu_torch.models.base import JointQAModel, Wrap
 from vitxtgqa_tpu_torch.models.common import (
-    FixedVocabClassifier,
-    LayerNorm,
-    Linear,
-    OcrPtrNet,
-    PrevPredEmbeddings,
     TextEncoder,
     TransformerConfig,
     TransformerEncoder,
     cfg_get,
 )
-from vitxtgqa_tpu_torch.models.grounding import Gumbel, GroundingModule
-from vitxtgqa_tpu_torch.ops.dropout import dropout
-from vitxtgqa_tpu_torch.ops.masks import MaskSpec, length_mask
+from vitxtgqa_tpu_torch.models.grounding import GroundingModule
+from vitxtgqa_tpu_torch.ops.masks import MaskSpec
 from vitxtgqa_tpu_torch.options import Options
 
 # 5050 fixed-vocabulary answers + 960 OCR copy slots (bench.py)
@@ -106,19 +102,12 @@ def t2s_production_config() -> Dict[str, Any]:
     }
 
 
-class _Wrap(nn.Module):
-    """Named container that reproduces the reference's module nesting."""
-
-    def __init__(self, **modules: nn.Module):
-        super().__init__()
-        for name, mod in modules.items():
-            self.add_module(name, mod)
-
-
 @registry.register_model("t2s")
 class T2S(JointQAModel):
+    # the grounding mechanism; the ablations swap it (models/t2s_ablations.py)
+    GROUNDING_CLS = GroundingModule
     # whether the grounding's compact gather lists can be -1-padded (only the
-    # JAX wo_sg ablation's can); selects the trash-slot scatter
+    # wo_sg ablation's can); selects the trash-slot scatter
     COMPACT_IDX_MAY_PAD = False
 
     def __init__(self, config: Any, num_final_outputs: int, bos_idx: int = 2,
@@ -130,32 +119,21 @@ class T2S(JointQAModel):
         self.inference_only = inference_only
         self.bos_idx = int(bos_idx)
         c = config
-        self.obj_dropout = float(cfg_get(cfg_get(c, "obj"), "dropout_prob") or 0.0)
-        self.ocr_dropout = float(cfg_get(cfg_get(c, "ocr"), "dropout_prob") or 0.0)
         mmt_cfg = TransformerConfig.from_config(cfg_get(c, "mmt"))
         text_cfg = TransformerConfig.from_config(cfg_get(c, "text_bert"))
         trans_cfg = TransformerConfig.from_config(cfg_get(c, "translayers"))
         hidden = mmt_cfg.hidden_size
         g = cfg_get(c, "grounding")
-        ptr = cfg_get(cfg_get(c, "classifier"), "ocr_ptr_net")
-        ocr_max = int(cfg_get(cfg_get(c, "classifier"), "ocr_max_num"))
 
         with torch.device(opts.device):
             self.text_bert = TextEncoder(text_cfg, opts)
             # obj (frame) stream: ViT feature + frame-id embedding -> hidden
-            self.frame_embeddings = nn.Embedding(4000, 50)
-            self.linear_obj_feat_to_mmt_in = Linear(int(cfg_get(cfg_get(c, "obj"), "mmt_in_dim")), hidden)
-            self.obj_feat_layer_norm = LayerNorm(hidden, eps=1e-12)
+            self._add_frame_stream(c, hidden)
             # ocr stream: fasttext + phoc + temporal-id + track-id, and bbox
-            self.temporal_position_embeddings = nn.Embedding(4000, 50)
-            self.track_position_embeddings = nn.Embedding(4000, 50)
-            self.linear_ocr_feat_to_mmt_in = Linear(int(cfg_get(cfg_get(c, "ocr"), "mmt_in_dim")), hidden)
-            self.linear_ocr_bbox_to_mmt_in = Linear(4, hidden)
-            self.ocr_feat_layer_norm = LayerNorm(hidden, eps=1e-12)
-            self.ocr_bbox_layer_norm = LayerNorm(hidden, eps=1e-12)
+            self._add_ocr_stream(c, hidden)
             # QTV cross-modal pre-fusion
-            self.TransLayer = _Wrap(encoder=TransformerEncoder(trans_cfg, opts))
-            self.Grounding_Module = GroundingModule(
+            self.TransLayer = Wrap(encoder=TransformerEncoder(trans_cfg, opts))
+            self.Grounding_Module = self.GROUNDING_CLS(
                 in_dim=trans_cfg.hidden_size,
                 hidden_size=int(cfg_get(g, "hidden_size")),
                 frame_topk=int(cfg_get(g, "frame_topk")),
@@ -163,63 +141,15 @@ class T2S(JointQAModel):
                 frame_num=int(cfg_get(g, "frame_num")),
                 ocr_frame_num=int(cfg_get(g, "ocr_frame_num")),
             )
-            self.mmt = _Wrap(
-                encoder=TransformerEncoder(mmt_cfg, opts),
-                prev_pred_embeddings=PrevPredEmbeddings(mmt_cfg),
-            )
-            self.classifier = FixedVocabClassifier(num_final_outputs - ocr_max, hidden)
-            self.ocr_ptr_net = OcrPtrNet(int(cfg_get(ptr, "hidden_size")),
-                                         int(cfg_get(ptr, "query_key_size")), plain=opts.plain)
-        # the transformer stacks and the input projections compute in the
-        # compute dtype; grounding, the pointer net and the classifier stay
-        # float32 (as in the JAX model)
-        for name, mod in self.named_children():
-            if name not in ("Grounding_Module", "ocr_ptr_net", "classifier"):
-                mod.to(opts.dtype)
-
-    def init_weights(self, seed: int) -> "T2S":
-        """BERT-style random init from a seeded generator on the model's
-        device: N(0, 0.02) matrices and embeddings, zero biases, unit
-        LayerNorm scales."""
-        gen = torch.Generator(device=self.opts.device).manual_seed(int(seed))
-        with torch.no_grad():
-            for mod in self.modules():
-                if isinstance(mod, nn.LayerNorm):
-                    mod.weight.fill_(1.0)
-                    mod.bias.zero_()
-                elif isinstance(mod, (nn.Linear, nn.Embedding)):
-                    w = torch.empty(mod.weight.shape, device=mod.weight.device)
-                    mod.weight.copy_(w.normal_(0.0, 0.02, generator=gen))
-                    if getattr(mod, "bias", None) is not None:
-                        mod.bias.zero_()
-        return self
+            self._add_decoder(c, mmt_cfg, num_final_outputs, opts)
+        self._cast_to_compute_dtype()
 
     # ---- modality encodings ------------------------------------------------
     def _encode_modalities(self, batch, train: bool = False, gen=None):
-        dt = self.opts.dtype
-        txt_mask = length_mask(batch["text_len"], batch["text"].shape[1])
-        txt_emb = self.text_bert(batch["text"], txt_mask, train=train, gen=gen)
-        obj_lin = project_features(
-            self.linear_obj_feat_to_mmt_in,
-            [batch["video_feat"].to(dt), self.frame_embeddings(batch["frame_id"])],
-            [True, False],
-        )
-        obj_in = dropout(self.obj_feat_layer_norm(obj_lin), self.obj_dropout, gen)
-        obj_mask = batch["frame_mask"].float()
-        ocr_lin = project_features(
-            self.linear_ocr_feat_to_mmt_in,
-            [batch["context_feature_0"].to(dt), batch["context_feature_1"].to(dt),
-             self.temporal_position_embeddings(batch["temporal_id"]),
-             self.track_position_embeddings(batch["track_id"])],
-            [True, True, False, False],
-        )
-        bbox = batch["ocr_bbox_coordinates"].to(dt)
-        ocr_in = self.ocr_feat_layer_norm(ocr_lin) + self.ocr_bbox_layer_norm(
-            self.linear_ocr_bbox_to_mmt_in(bbox)
-        )
-        ocr_in = dropout(ocr_in, self.ocr_dropout, gen)
-        ocr_mask = batch["ocr_mask"].float()
-        return txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask
+        txt_emb, txt_mask = self._text_stream(batch, train, gen)
+        obj_in, ocr_in = self._frame_stream(batch, gen), self._ocr_stream(batch, gen)
+        return (txt_emb, txt_mask, obj_in, batch["frame_mask"].float(), ocr_in,
+                batch["ocr_mask"].float())
 
     def _apply_qtv(self, txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask,
                    dec_len: int, train: bool = False, gen=None):
@@ -261,22 +191,12 @@ class T2S(JointQAModel):
             ocr_mask_c, dec_len, embed_ocr=ocr_in,
             dynamic_scatter=(ci, ocr_in.shape[1], self.COMPACT_IDX_MAY_PAD))
 
-    # ---- forward -------------------------------------------------------------
-    def forward(self, batch: Dict[str, torch.Tensor], gumbel: Gumbel,
-                train: bool = False, dropout_gen: Optional[torch.Generator] = None
-                ) -> Dict[str, Any]:
-        """``gumbel`` is a torch.Generator for the two grounding draws, or
-        the two noise tensors ([B, 2, F], [B, 2, N]); ``dropout_gen`` the
-        training dropout generator on the model's device (None: no
-        dropout).  Returns pos_scores [B, S, V + N] float32 (and with
-        train=True or inference_only=False also ref_scores and
-        neg_scores), ground_frame [B, topk], ground_box [B, F * ocr_topk, 4]
-        and the two top-k sizes."""
-        if train:
-            return self._forward_train(batch, gumbel, dropout_gen)
-        with torch.no_grad():
-            return self._forward_eval(batch, gumbel)
-
+    # ---- forward (JointQAModel.forward) ---------------------------------------
+    # ``gumbel`` is a torch.Generator for the grounding's draws, or the two
+    # noise tensors ([B, 2, F], [B, 2, N]).  Returns pos_scores [B, S, V + N]
+    # float32 (and with train=True or inference_only=False also ref_scores
+    # and neg_scores), ground_frame [B, topk], ground_box [B, F * ocr_topk,
+    # 4] and the two top-k sizes.
     def _grounding(self, batch, txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, gumbel):
         g = self.Grounding_Module(
             txt_emb, txt_mask, obj_in, obj_mask, batch["frame_id"], ocr_in, ocr_mask,
@@ -324,7 +244,7 @@ class T2S(JointQAModel):
         if self.decode_recompute:
             return {**self._recompute_variants(txt_emb, txt_mask, obj_in, obj_mask, ocr_in,
                                                ocr_mask, g, dec_len), **common}
-        compact = self.opts.compact_serving
+        compact = self._compact_ok(g, full_eval=not self.inference_only)
         if compact:
             pos = self._compact_decode(txt_emb, txt_mask, obj_in, ocr_in, g, dec_len)
         else:
@@ -360,6 +280,15 @@ class T2S(JointQAModel):
                                  ocr_masks2, tile2(prev))
         return {"ref_scores": scores2[:b], "pos_scores": pos, "neg_scores": scores2[b:],
                 **common}
+
+    def _compact_ok(self, g, full_eval: bool) -> bool:
+        """Whether the decode runs on the grounding-kept rows (JAX
+        t2s.py:275-279 and 410-415): compact serving on, the cached decode,
+        and the grounding's gather lists, pos and in full-eval neg too.  The
+        wo_tg ablation returns no list (the full decode), wo_sg no neg list
+        (a full full-eval)."""
+        return (self.opts.compact_serving and not self.decode_recompute and "pos_ocr_idx" in g
+                and (not full_eval or "neg_ocr_idx" in g))
 
     def _recompute_variants(self, txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, g,
                             dec_len: int):

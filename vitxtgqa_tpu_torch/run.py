@@ -27,6 +27,10 @@ MANIFEST = (
     "vitxtgqa_tpu_torch.data.builders",
     "vitxtgqa_tpu_torch.metrics.metrics",
     "vitxtgqa_tpu_torch.models.t2s",
+    "vitxtgqa_tpu_torch.models.t2s_ablations",
+    "vitxtgqa_tpu_torch.models.m4c",
+    "vitxtgqa_tpu_torch.models.t5vitevqa",
+    "vitxtgqa_tpu_torch.models.gt_box",
     "vitxtgqa_tpu_torch.training.trainer",
 )
 

@@ -23,6 +23,7 @@ synchronize), and per validation pass its time.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import time
@@ -49,8 +50,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # training_parameters.tpu switches of the JAX package that the port has no
 # counterpart for: accepted when false, an error when set
 UNPORTED = ("fused_grads", "compact_train", "dense_mm", "split_dense")
-# the training block's kernel forms, which the port always runs on the card
-ALWAYS_ON = ("kernel_dropout", "fused_block_bwd", "fused_block_fwd")
 
 
 def _tpu_get(tpu, key: str, default=None):
@@ -69,8 +68,11 @@ def options_from_config(tp: Any) -> Options:
         (the plain versions are the oracle, never the main path);
       * remat: "attn" or "none" (also None / false); the JAX modes "full",
         "dots" and "attn_qkv" raise (Options);
-      * kernel_dropout, fused_block_bwd, fused_block_fwd: true (the port's
-        one training block); false raises;
+      * kernel_dropout, fused_block_bwd, fused_block_fwd: either.  The port
+        has one training block, its kernels with in-kernel dropout; JAX's
+        false forms (base.yml's default, which the zoo's configs keep) run
+        XLA's block with materialised masks and autodiff: the same function
+        with another dropout stream, as the port's can never be JAX's;
       * variant_scan: either (the port loops over the three variants);
       * kv_cache_int8, fused_decode, fused_decode_max_batch, w8a8,
         compact_serving: the Options fields of the same names;
@@ -109,12 +111,6 @@ def options_from_config(tp: Any) -> Options:
         raise ValueError(
             "training_parameters.tpu.use_pallas=false on the card: the port runs its kernels "
             "there; the plain versions are the oracle (Options.plain), never the main path")
-    for key in ALWAYS_ON:
-        if not _tpu_get(tpu, key, True):
-            raise ValueError(
-                f"training_parameters.tpu.{key}=false: the port's training block always runs "
-                "its kernels with in-kernel dropout (the other forms are ROADMAP.md queue 1 "
-                "item 3); set it to true")
     for key in UNPORTED:
         if _tpu_get(tpu, key, False):
             raise NotImplementedError(
@@ -145,8 +141,13 @@ def build_model(model_key: str, model_cfg: Any, dataset_name: str, opts: Options
     cls = registry.get_model_class(model_key)
     num_final = registry.get(f"{dataset_name}_num_final_outputs")
     proc = registry.get(f"{dataset_name}_answer_processor")
+    # only a model with a serving variant takes the flag (T2S and its
+    # ablations; the others' eval forward is one pass already), as in JAX
+    kwargs = {}
+    if "inference_only" in inspect.signature(cls).parameters:
+        kwargs["inference_only"] = inference_only
     return cls(model_cfg, int(num_final), bos_idx=int(getattr(proc, "BOS_IDX", 2)), opts=opts,
-               inference_only=inference_only)
+               **kwargs)
 
 
 def _host(out: Dict[str, Any]) -> Dict[str, Any]:
@@ -224,7 +225,8 @@ class BaseTrainer:
         workers = int(getattr(tp, "num_workers", 0) or 0)
         for split in sorted(splits):
             try:
-                ds = builder.load(split, self.ds_cfg, seed=self.seed)
+                ds = builder.load(split, self.ds_cfg, seed=self.seed, reference_compat=bool(
+                    getattr(tp, "reference_compat", False)))
             except (FileNotFoundError, ValueError) as e:
                 self.logger.write(f"split {split} unavailable: {e}", "warning")
                 continue

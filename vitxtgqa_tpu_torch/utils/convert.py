@@ -2,11 +2,15 @@
 
 ``from_jax_params`` maps the JAX T2S model's flat parameter dict
 (``"qtv/layer_0/query/kernel" -> np.ndarray``, the ``flatten`` form of
-vitxtgqa_tpu/utils/torch_convert.py) onto the port's ``state_dict()``.  The
-port names its parameters after the reference's torch state dict, so this
-is the inverse of vitxtgqa_tpu's ``convert_t2s_like``: flax Dense kernels
-[in, out] become Linear weights [out, in], Embed ``embedding`` becomes
-``weight``, LayerNorm ``scale`` becomes ``weight``.
+vitxtgqa_tpu/utils/torch_convert.py) onto the port's ``state_dict()``;
+``from_jax_family_params`` does so for any model of the T2S family (t2s,
+its ablations, m4c, t5vitevqa, gt_box), by the family's flags
+(``FAMILY_FLAGS``: QTV, grounding, post-hoc head, frame-id embedding,
+OCR ids).  The port names its parameters after the reference's torch state
+dict, so these are the inverses of vitxtgqa_tpu's ``convert_t2s_like`` with
+the same flags: flax Dense kernels [in, out] become Linear weights [out,
+in], Embed ``embedding`` becomes ``weight``, LayerNorm ``scale`` becomes
+``weight``.
 """
 
 from __future__ import annotations
@@ -44,25 +48,56 @@ def _num_layers(flat, flax_prefix: str) -> int:
     return max(ids) + 1 if ids else 0
 
 
-def t2s_entries(flat) -> Iterator[Tuple[str, str, str]]:
-    """(torch module name, flax module path, kind) for every T2S module."""
+# convert_t2s_like's flags for each model of the family
+T2S_FLAGS = dict(has_qtv=True, has_grounding=True, has_posthoc=False, obj_has_frame_embed=True,
+                 ocr_has_ids=True)
+FAMILY_FLAGS = {
+    "t2s": T2S_FLAGS, "t2s_wo_tg": T2S_FLAGS, "t2s_wo_sg": T2S_FLAGS,
+    "m4c": dict(has_qtv=False, has_grounding=False, has_posthoc=True, obj_has_frame_embed=False,
+                ocr_has_ids=False),
+    "t5vitevqa": dict(has_qtv=False, has_grounding=False, has_posthoc=True,
+                      obj_has_frame_embed=True, ocr_has_ids=True),
+    "gt_box": dict(has_qtv=False, has_grounding=False, has_posthoc=False,
+                   obj_has_frame_embed=True, ocr_has_ids=True),
+}
+FAMILY_FLAGS["T2S_human"] = FAMILY_FLAGS["gt_box"]
+
+
+def family_entries(flat, has_qtv: bool = True, has_grounding: bool = True,
+                   has_posthoc: bool = False, obj_has_frame_embed: bool = True,
+                   ocr_has_ids: bool = True) -> Iterator[Tuple[str, str, str]]:
+    """(torch module name, flax module path, kind) for every module of a
+    T2S-family model with these flags."""
     e, fe = "text_bert.embeddings", "text_bert/embeddings"
     yield from [
         (f"{e}.word_embeddings", f"{fe}/word_embeddings", "embed"),
         (f"{e}.position_embeddings", f"{fe}/position_embeddings", "embed"),
         (f"{e}.token_type_embeddings", f"{fe}/token_type_embeddings", "embed"),
         (f"{e}.LayerNorm", f"{fe}/ln", "ln"),
-        ("frame_embeddings", "frame_embeddings", "embed"),
+    ]
+    if obj_has_frame_embed:
+        yield ("frame_embeddings", "frame_embeddings", "embed")
+    yield from [
         ("linear_obj_feat_to_mmt_in", "linear_obj_feat_to_mmt_in", "linear"),
         ("obj_feat_layer_norm", "obj_feat_layer_norm", "ln"),
-        ("temporal_position_embeddings", "temporal_position_embeddings", "embed"),
-        ("track_position_embeddings", "track_position_embeddings", "embed"),
+    ]
+    if ocr_has_ids:
+        yield from [
+            ("temporal_position_embeddings", "temporal_position_embeddings", "embed"),
+            ("track_position_embeddings", "track_position_embeddings", "embed"),
+        ]
+    yield from [
         ("linear_ocr_feat_to_mmt_in", "linear_ocr_feat_to_mmt_in", "linear"),
         ("linear_ocr_bbox_to_mmt_in", "linear_ocr_bbox_to_mmt_in", "linear"),
         ("ocr_feat_layer_norm", "ocr_feat_layer_norm", "ln"),
         ("ocr_bbox_layer_norm", "ocr_bbox_layer_norm", "ln"),
-        ("Grounding_Module.q_linear", "grounding/q_linear", "linear"),
-        ("Grounding_Module.self_attn", "grounding/self_attn", "linear"),
+    ]
+    heads = ([("Grounding_Module", "grounding")] if has_grounding else []) + (
+        [("PostHoc", "posthoc")] if has_posthoc else [])
+    for tp, fp in heads:
+        yield from [(f"{tp}.q_linear", f"{fp}/q_linear", "linear"),
+                    (f"{tp}.self_attn", f"{fp}/self_attn", "linear")]
+    yield from [
         ("mmt.prev_pred_embeddings.position_embeddings", "prev_pred_embeddings/position_embeddings", "embed"),
         ("mmt.prev_pred_embeddings.token_type_embeddings", "prev_pred_embeddings/token_type_embeddings", "embed"),
         ("mmt.prev_pred_embeddings.ans_layer_norm", "prev_pred_embeddings/ans_ln", "ln"),
@@ -72,16 +107,23 @@ def t2s_entries(flat) -> Iterator[Tuple[str, str, str]]:
         ("ocr_ptr_net.key", "ocr_ptr_net/key", "linear"),
         ("classifier.module", "classifier", "classifier"),
     ]
-    for tp, fp in (("text_bert.encoder", "text_bert/encoder"),
-                   ("TransLayer.encoder", "qtv"), ("mmt.encoder", "mmt")):
+    stacks = [("text_bert.encoder", "text_bert/encoder")]
+    stacks += [("TransLayer.encoder", "qtv")] if has_qtv else []
+    for tp, fp in stacks + [("mmt.encoder", "mmt")]:
         for i in range(_num_layers(flat, fp)):
             yield from bert_layer_entries(tp, fp, i)
 
 
-def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """JAX T2S flat params -> the port T2S ``state_dict()`` (float32 CPU
+def from_jax_family_params(flat: Dict[str, np.ndarray], model: str) -> Dict[str, torch.Tensor]:
+    """The JAX flat params of the registered ``model`` (a key of
+    FAMILY_FLAGS) -> the port model's ``state_dict()`` (float32 CPU
     tensors; ``load_state_dict`` casts them to the model's dtypes)."""
-    return convert_entries(flat, t2s_entries(flat))
+    return convert_entries(flat, family_entries(flat, **FAMILY_FLAGS[model]))
+
+
+def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX T2S flat params -> the port T2S ``state_dict()``."""
+    return from_jax_family_params(flat, "t2s")
 
 
 def convert_entries(flat, entries) -> Dict[str, torch.Tensor]:

@@ -24,9 +24,15 @@ def synthetic_batch(
     num_final_outputs: int = 5050 + 960,
     text_vocab: int = 30522,
     seed: int = 0,
+    gt_box: bool = False,
 ) -> Dict[str, np.ndarray]:
     """A batch with the exact field layout the models consume
-    (see vitxtgqa_tpu/data/dataset.py docstring for shapes)."""
+    (see vitxtgqa_tpu/data/dataset.py docstring for shapes).  ``gt_box``
+    adds the GT-box oracle's fields as the JAX package's model-zoo test
+    does (tests/test_model_zoo.py: random annotated boxes from their own
+    generator, the sampled frames as the annotated ones, the detected
+    masks and ids as the annotated ones); the other fields stay as they
+    are without it."""
     r = np.random.default_rng(seed)
     n = frames * ocr_per_frame
     frame_num = r.integers(frames // 2, frames + 1, batch)
@@ -49,7 +55,7 @@ def synthetic_batch(
     loss_mask = np.zeros((batch, dec_steps), np.float32)
     loss_mask[:, :3] = 1.0
     mid_idx = np.maximum(frame_num, 1)
-    return {
+    out = {
         "question_id": np.arange(batch, dtype=np.int64),
         "text": r.integers(1, text_vocab, (batch, text_len)).astype(np.int64),
         "text_len": np.full((batch,), text_len - 2, np.int64),
@@ -80,6 +86,13 @@ def synthetic_batch(
         "train_loss_mask": loss_mask,
         "targets": targets,
     }
+    if gt_box:
+        out.update(
+            ocr_bbox_list=np.random.default_rng((seed, 1)).random((batch, n, 4)).astype(np.float32),
+            frame_list=frame_id.astype(np.int64), frame_mask_embedding=frame_mask,
+            ocr_mask_embedding=ocr_mask, ocr_track_id=out["track_id"],
+            ocr_temporal_id=temporal)
+    return out
 
 
 def synthetic_frames(batch: int = 64, h: int = 240, w: int = 320, seed: int = 0) -> np.ndarray:
