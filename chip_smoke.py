@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's T2S serving, full-eval and training paths,
 its ViT frame-feature path, its sequence-parallel path, its runtime
-(train, validate, checkpoint, resume, predict) and the zoo's T2S-family
-models once on one NVIDIA GPU.
+(train, validate, checkpoint, resume, predict), the zoo's T2S-family
+models and its selector baselines (TranSTR, MIST) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -83,10 +83,17 @@ Phases (each prints one or more lines; any failure exits non-zero):
      1,024 slots (the question, the middle frame, its <= 15 OCR slots: ~36
      allowed keys) and wo_sg's compact 128, steps 0 and 11, with a row whose
      only keys are the decoder slots; #5 at batch 1 and 2 over both, its
-     attention planted; each timed at step 11.  Each kernel's bound (bytes
-     over 3.35 TB/s or operations
-     over the peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67
-     TFLOP/s f32) is computed from the inputs of its timed call, and one
+     attention planted; each timed at step 11.  The same at the selector
+     baselines' geometries (selector_masks): TranSTR's 1,024 slots, where
+     an encoder row has 2 allowed keys (the fused frame and one grounded
+     OCR slot, row 0's in the last 64-key tile; a row with 1), and MIST's
+     1,152 with a frame-mask entry of 2.0 (a frame picked twice), with #1
+     (rate 0 and 0.1) and #1b at batch 4 on both (check_selector_flash);
+     on MIST's, each of #1, #1b, #4, #7 and #5 also against itself on the
+     mask clipped to 1 (an entry > 0 is one allowed key).  Each kernel's
+     bound (bytes over 3.35 TB/s or operations over the peak of their
+     type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s f32) is
+     computed from the inputs of its timed call, and one
      PyTorch call that computes the same function is timed beside it where
      one exists (library_ms; the port never calls it);
   4. slices: T2S at production width (t2s_production_config) in bf16:
@@ -167,9 +174,19 @@ Phases (each prints one or more lines; any failure exits non-zero):
           2; (iv) M4C's training step at batch 4 against the plain step at
           slice e's limits, then a timed step at 48; (v) run() on fixtures
           (no worker processes): M4C train+val 2 iterations, GT-box val on
-          the annotations; (vi) M4C's recompute oracle at batch 2.
-     a-c, f-g and m serve behind a ServingEngine; each slice checks its launch
-     counts (derived from the gates), the outputs' shapes and finiteness,
+          the annotations; (vi) M4C's recompute oracle at batch 2;
+       n. the selector baselines TranSTR (configs/transtr_abinet.yml: the
+          MMT over 1,024 rows with no question rows) and MIST
+          (configs/mist_abinet.yml: 1,152 rows, its frame mask summed over
+          gumbel picks with replacement), bf16, random weights: (i) each
+          served at batch 2 (int8: #5 / #6) and 8 (int8: #4; bf16: #7)
+          against the plain versions, the grounding bit for bit, its
+          forward latency at 2 and 8; (ii) its training step at batch 4
+          against the plain step at slice e's limits, then one at 48 (#1's
+          dropout form, #1b, #9a, #9b); (iii) its recompute oracle at
+          batch 2; (iv) run() train+val for both, 2 iterations each.
+     a-c, f-g, m and n serve behind a ServingEngine; each slice checks its
+     launch counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
 The line before the last is the kernels' JSON record, the one before it the
 card's name and power limit, the last line ``{"ok": true, "device":
@@ -427,42 +444,60 @@ RUNTIME_BATCH, RUNTIME_STEPS = 2, 3
 # its synthetic batch, where random rows average the rounding out.
 RUNTIME_LOSS_REL_TOL, RUNTIME_GNORM_REL_TOL = 5e-3, 1e-2
 # slice m: the zoo's T2S-family models, each at its shipped config's model
-# block (the ablations: configs/t2s_abinet.yml's, t2s_production_config)
+# block (the ablations: configs/t2s_abinet.yml's, t2s_production_config);
+# slice n: the selector baselines
 ZOO = ("t2s_wo_tg", "t2s_wo_sg", "m4c", "t5vitevqa", "gt_box")
+SELECTORS = ("transtr", "mist")
 ZOO_CONFIGS = {"m4c": ("m4c_abinet.yml", "m4c"), "t5vitevqa": ("t5vitevqa_abinet.yml", "t5vitevqa"),
-               "gt_box": ("gt_box_clipocr.yml", "gt_box")}
+               "gt_box": ("gt_box_clipocr.yml", "gt_box"),
+               "transtr": ("transtr_abinet.yml", "transtr"), "mist": ("mist_abinet.yml", "mist")}
 # the models whose grounding heads see no kernel's output (one MMT pass;
-# the 20-row text BERT and the projections run no kernel): their grounding
-# is held bit for bit against the plain run
-SINGLE_PASS = ("m4c", "t5vitevqa", "gt_box")
+# the 20-row text BERT, the projections and the selectors run no kernel in
+# eval): their grounding is held bit for bit against the plain run
+SINGLE_PASS = ("m4c", "t5vitevqa", "gt_box") + SELECTORS
 # the zoo's new decode geometries: M4C's cache of 1,024 slots (20 question
 # rows + 1 frame + 960 OCR slots + the 12 decoder slots, padded), whose
 # allowed keys are the question, the frame and the middle frame's <= 15
 # OCR slots; wo_sg's compact cache of 128 (20 + 5 frames + 75 OCR slots +
 # 12, padded)
 L_M4C, L_WO_SG = 1024, 128
-# the runtime's M4C training steps (slice m (v)); the forward latencies'
-# repetitions
+# TranSTR's cache: no question rows, its one fused frame, 960 OCR slots and
+# the 12 decoder slots, padded; an encoder row's allowed keys are the frame
+# and its one grounded OCR slot (kf * ko = 1).  MIST's is T2S's 1,152.
+L_TRANSTR = 1024
+# the runtime's training steps (slices m (v), n (iv)); the forward
+# latencies' repetitions
 ZOO_RUNTIME_STEPS, ZOO_REPS = 2, 3
+# run() on fixtures: (model, run type) of slice m (v) and slice n (iv)
+ZOO_RUNTIME_RUNS = (("m4c", "train+val"), ("gt_box", "val"))
+SELECTOR_RUNTIME_RUNS = (("transtr", "train+val"), ("mist", "train+val"))
 
 
 # the T2S family: the QTV, the contrastive variants, full-eval
 T2S_FAMILY = ("t2s", "t2s_wo_tg", "t2s_wo_sg")
 
 
+def encoder_rows(cfg, text_len: int = 20, model: str = "t2s") -> int:
+    """The MMT's encoder rows of ``model``: [question | frames | OCR] (M4C:
+    the one middle frame; TranSTR: no question, its frame_topk fused
+    frames)."""
+    g = cfg["grounding"]
+    frames = {"m4c": 1, "transtr": g["frame_topk"]}.get(model, g["frame_num"])
+    return (0 if model == "transtr" else text_len) + frames + g["frame_num"] * g["ocr_frame_num"]
+
+
 def joint_lengths(cfg, text_len: int = 20, dec_len: int = DEC_LEN, model: str = "t2s"):
     """(full, compact) joint-sequence rows with the decoder slots, padded to
-    a multiple of 128 as the models pad them: [question | frames | OCR]
-    (M4C: the one middle frame) and the rows compact serving keeps, None
-    where the model's grounding gives no gather list: T2S's [question |
-    top-k frames | top-k OCR slots of every frame], wo_sg's [question |
-    top-k frames | every OCR slot of those frames]."""
+    a multiple of 128 as the models pad them: the encoder rows
+    (encoder_rows) and the rows compact serving keeps, None where the
+    model's grounding gives no gather list: T2S's [question | top-k frames
+    | top-k OCR slots of every frame], wo_sg's [question | top-k frames |
+    every OCR slot of those frames]."""
     g = cfg["grounding"]
-    frames, ocr = (1 if model == "m4c" else g["frame_num"]), g["frame_num"] * g["ocr_frame_num"]
     compact = {"t2s": g["frame_num"] * g["ocr_topk"],
                "t2s_wo_sg": g["frame_topk"] * g["ocr_frame_num"]}.get(model)
     pad = lambda n: -(-(n + dec_len) // 128) * 128
-    return (pad(text_len + frames + ocr),
+    return (pad(encoder_rows(cfg, text_len, model)),
             None if compact is None else pad(text_len + g["frame_topk"] + compact))
 
 
@@ -566,8 +601,7 @@ def expected_recompute_launches(cfg, batch: int, opts, full_eval: bool = False,
     kernel."""
     from vitxtgqa_tpu_torch.models.common import TransformerConfig
 
-    g = cfg["grounding"]
-    l0 = text_len + (1 if model == "m4c" else g["frame_num"]) + g["frame_num"] * g["ocr_frame_num"]
+    l0 = encoder_rows(cfg, text_len, model)
     out = {name: 0 for name in REPLACES}
     if model in T2S_FAMILY:
         encode_launches(out, opts, TransformerConfig.from_config(cfg["translayers"]), batch,
@@ -1159,13 +1193,120 @@ def zoo_masks(dev):
             (f"wo_sg compact [{BATCH},{L_WO_SG}]", pad(wo_sg, L_WO_SG), L_WO_SG - DEC_LEN)]
 
 
-def check_zoo_geometries(dev, record, timed: bool = True):
-    """The decode kernels at the zoo's new geometries (zoo_masks), against
-    their twins: #4 and #7 at batch 8, steps 0 and 11, on the mask and with
-    a batch row whose only allowed keys are the decoder slots; #5 at batch 1
-    and 2 (check_decode_step, its attention planted).  With ``timed``, #4
-    and #7 at step 11 warm (kernel, twin, SDPA, bound) and #5's warm and
-    cold times.  Returns the times."""
+def selector_masks(dev):
+    """(label, [BATCH, L] encoder key mask, write_offset) of the selector
+    baselines' geometries.  TranSTR's 1,024 slots: the fused frame and one
+    grounded OCR slot a row, 2 allowed encoder keys (row 0's the last OCR
+    slot, key 960, in the last 64-key tile with the decoder slots; row 1's
+    masked by its OCR mask: 1 key).  MIST's 1,152: the question, the 5
+    picks of 64 frames with replacement summed (a frame picked twice holds
+    2.0, three times 3.0: row 0 picks its first frame twice), 25 OCR
+    slots."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
+
+    gen, rows = torch.Generator().manual_seed(2468), torch.arange(BATCH)
+    tr = torch.zeros(BATCH, L_TRANSTR)
+    tr[:, 0] = 1.0
+    slot = torch.randint(0, 960, (BATCH,), generator=gen)
+    slot[0] = 959
+    tr[rows, 1 + slot] = 1.0
+    tr[1, 1 + slot[1]] = 0.0
+    b = synthetic_batch(batch=BATCH, seed=0)
+    txt = (torch.arange(20)[None, :] < torch.as_tensor(b["text_len"])[:, None]).float()
+    picks = torch.randint(0, 64, (BATCH, 5), generator=gen)
+    picks[0, 1] = picks[0, 0]
+    frames = torch.zeros(BATCH, 64).scatter_add_(1, picks, torch.ones(BATCH, 5))
+    ocr = torch.zeros(BATCH, 960).scatter_(
+        1, torch.argsort(torch.rand(BATCH, 960, generator=gen), dim=1)[:, :25], 1.0)
+    mist = F.pad(torch.cat([txt, frames, ocr], dim=1), (0, L_JOINT - 20 - 64 - 960))
+    return [(f"transtr [{BATCH},{L_TRANSTR}]", tr.to(dev).contiguous(), L_TRANSTR - DEC_LEN),
+            (f"mist [{BATCH},{L_JOINT}] with 2.0 entries", mist.to(dev).contiguous(),
+             WRITE_OFFSET)]
+
+
+CLIPPED = ", against itself on the mask clipped to 1"
+
+
+def check_selector_flash(record, label, km, gen, batch: int):
+    """#1 (rate 0, and its dropout form with the lse) and #1b on a selector
+    mask's first ``batch`` rows (the MMT's joint mask: dec_len 12) against
+    their twins; on a mask with entries above 1 each kernel also against
+    itself on the mask clipped to 1 (an entry > 0 is one allowed key)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+
+    dev, l, h = km.device, km.shape[1], 12
+    km = km[:batch].contiguous()
+    clipped = km.clamp(max=1.0).contiguous() if bool((km > 1).any()) else None
+    q, k, v, g = (torch.randn(batch, l, 768, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    seed = torch.tensor([20261019], dtype=torch.int64, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for rate in (0.0, RATE):
+        s_, shape = (seed if rate else None), f" rate {rate} [{batch},{l},768] x {label}"
+        fwd = lambda fn, m: fn(q, k, v, m, DEC_LEN, h, rate, s_, return_lse=True)
+        (got, lse), (want, want_lse) = (fwd(FA.flash_attention_merged, km),
+                                        fwd(FA.flash_attention_merged_plain, km))
+        bwd = lambda fn, m: fn(q, k, v, m, want, want_lse, g, DEC_LEN, h, rate, s_)
+        gb, wb = bwd(FA.flash_attention_merged_bwd, km), bwd(FA.flash_attention_merged_bwd_plain, km)
+        sync()
+        lse_err = (lse - want_lse).abs().max().item()
+        report(record, "flash_attention_merged", (got.float() - want.float()).abs().max().item(),
+               extra=f"{shape}; lse max|diff| {lse_err:.3e} (tol {LSE_TOL:.0e})")
+        if not lse_err <= LSE_TOL:
+            fail(f"flash_attention_merged lse disagrees at{shape}")
+        for name, a, w in zip(("dq", "dk", "dv"), gb, wb):
+            report(record, "flash_attention_merged_bwd", (a.float() - w.float()).abs().max().item(),
+                   scale=w.float().abs().max().item(), extra=f" {name}{shape}")
+        if clipped is None:
+            continue
+        c = fwd(FA.flash_attention_merged, clipped)[0]
+        cb = bwd(FA.flash_attention_merged_bwd, clipped)
+        sync()
+        report(record, "flash_attention_merged", (got.float() - c.float()).abs().max().item(),
+               extra=shape + CLIPPED)
+        for name, a, w in zip(("dq", "dk", "dv"), gb, cb):
+            report(record, "flash_attention_merged_bwd", (a.float() - w.float()).abs().max().item(),
+                   scale=w.float().abs().max().item(), extra=f" {name}{shape}{CLIPPED}")
+
+
+def check_step_clip(record, label, x_all, stacks, km, gen, batches, write_offset: int):
+    """#5 (its attention planted, decode_step_cache) on a mask with entries
+    above 1 against itself on the mask clipped to 1, steps 0 and 11."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    dev, clipped = km.device, km.clamp(max=1.0).contiguous()
+    m, d = stacks["w1"].shape[1:]
+    for step in (0, 11):
+        kv8_all, kvs_all = decode_step_cache(x_all, stacks, km, step, gen, 12, write_offset)
+        for b in batches:
+            kv8, kvs = kv8_all[:, :b].contiguous(), kvs_all[:, :b].contiguous()
+            buffers = DS.step_buffers(3, b, d, m, dev)
+            y = [DS.fused_decode_step(x_all[:b].contiguous(), stacks, kv8, kvs,
+                                      mk[:b].contiguous(), step, write_offset, 12,
+                                      buffers=buffers)[0].clone() for mk in (km, clipped)]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            report(record, "fused_decode_step", (y[0].float() - y[1].float()).abs().max().item(),
+                   extra=f" [{b},1,768] x 3 layers over {label} step={step}{CLIPPED}")
+
+
+def check_zoo_geometries(dev, record, timed: bool = True, flash_batch: int = TRAIN_CHECK_BATCH):
+    """The decode kernels at the zoo's new geometries (zoo_masks and
+    selector_masks), against their twins: #4 and #7 at batch 8, steps 0 and
+    11, on the mask and with a batch row whose only allowed keys are the
+    decoder slots; #5 at batch 1 and 2 (check_decode_step, its attention
+    planted).  On the selector masks also #1 and #1b at batch
+    ``flash_batch`` (check_selector_flash), and on MIST's, whose entries
+    reach 2.0, each of #1, #1b, #4, #7 and #5 against itself on the mask
+    clipped to 1.  With ``timed``, #4 and #7 at step 11 warm (kernel, twin,
+    SDPA, bound) and #5's warm and cold times.  Returns the times."""
     import torch
     import torch.nn.functional as F
 
@@ -1176,11 +1317,12 @@ def check_zoo_geometries(dev, record, timed: bool = True):
     forms = {int8_name: (DA.decode_attention_int8, DA.decode_attention_int8_plain),
              "decode_attention": (DA.decode_attention, DA.decode_attention_plain)}
     details = {}
-    for label, km, wo in zoo_masks(dev):
+    for label, km, wo in zoo_masks(dev) + selector_masks(dev):
         b, l = km.shape
         allowed = int((km[:, :wo] > 0).sum(1).max().item())
         print(f"kernel geometry {label}: at most {allowed} allowed encoder keys a row of {wo}",
               flush=True)
+        clipped = km.clamp(max=1.0).contiguous() if bool((km > 1).any()) else None
         for name, (fn, plain) in forms.items():
             int8 = name == int8_name
             q, (cache,), kv = decode_inputs(gen, b, l, int8)
@@ -1192,6 +1334,13 @@ def check_zoo_geometries(dev, record, timed: bool = True):
                         torch.cuda.synchronize()
                     report(record, name, (got.float() - want.float()).abs().max().item(),
                            extra=f" [{b},1,768] x {label} step={step}, {mlabel}")
+            if clipped is not None:
+                for step in (0, 11):
+                    got, c = fn(q, *cache, km, step, wo, h), fn(q, *cache, clipped, step, wo, h)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    report(record, name, (got.float() - c.float()).abs().max().item(),
+                           extra=f" [{b},1,768] x {label} step={step}{CLIPPED}")
             if timed:
                 am = decode_sdpa_mask(km, 11, wo)
                 ms = cuda_time_ms(lambda: fn(q, *cache, km, 11, wo, h))
@@ -1208,7 +1357,13 @@ def check_zoo_geometries(dev, record, timed: bool = True):
         x_all, stacks = decode_step_weights(dev, gen)
         details[f"fused_decode_step {label}"] = check_decode_step(
             record, x_all, stacks, km, gen, (1, 2), wo, False, timed=timed)
+        if clipped is not None:
+            check_step_clip(record, label, x_all, stacks, km, gen, (1, 2), wo)
         del x_all, stacks
+    for label, km, _ in selector_masks(dev):
+        check_selector_flash(record, label, km, gen, flash_batch)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return details
 
 
@@ -2527,7 +2682,8 @@ class Slices:
         f, k, ft, ot = g["frame_num"], g["ocr_frame_num"], g["frame_topk"], g["ocr_topk"]
         return {"t2s": ((ft,), (f * ot, 4)), "t2s_wo_tg": ((ft,), (f * min(ft * ot, k), 4)),
                 "t2s_wo_sg": ((ft,), (ft * k, 4)), "m4c": ((1,), (ot, 4)),
-                "t5vitevqa": ((f,), (ft * ot, 4)), "gt_box": ((f,), (f * k, 4))}[self.key]
+                "t5vitevqa": ((f,), (ft * ot, 4)), "gt_box": ((f,), (f * k, 4)),
+                "transtr": ((ft,), (ft * ot, 4)), "mist": ((ft,), (min(25, f * k), 4))}[self.key]
 
 
 def count_launches(name, record, counts, want):
@@ -2995,11 +3151,11 @@ def step_agreement(run, ref, loss_tol=LOSS_REL_TOL, norm_tol=GNORM_REL_TOL):
         fail("slice train: two steps reach different parameters")
     rel = {}
     for k, w in grads_r.items():
-        # a key projection's bias moves every score of a query alike, which
-        # the softmax ignores: its gradient is 0 but for rounding, and is
-        # left out
+        # a key projection's bias (the BERT layers', the DETR layers') moves
+        # every score of a query alike, which the softmax ignores: its
+        # gradient is 0 but for rounding, and is left out
         nw = w.norm()
-        if nw > 0 and not k.endswith("attention.self.key.bias"):
+        if nw > 0 and not k.endswith(("attention.self.key.bias", "k_lin.bias")):
             rel[k] = float((grads[k] - w).norm() / nw)
     worst = worst_of(rel)
     loss_rel, norm_rel = abs(loss - loss_r) / abs(loss_r), abs(norm - norm_r) / norm_r
@@ -3885,12 +4041,13 @@ def zoo_preset_slice(sl: Slices, record, card, groups):
 
 
 def zoo_train_slice(sl: Slices, record, card):
-    """m (iv). M4C's training step at batch TRAIN_CHECK_BATCH through the
-    kernels against the plain step from the same weights, batch and
-    generators (loss, gradient norm, every parameter's gradient at slice
-    e's limits), its launches as derived (#1, #1b, #9a, #9b at the 1,024-row
-    geometry); then one timed step at batch TRAIN_BATCH after a warm-up
-    step."""
+    """m (iv), n (ii). The training step of ``sl.key`` (M4C, TranSTR, MIST)
+    at batch TRAIN_CHECK_BATCH through the kernels against the plain step
+    from the same weights, batch and generators (loss, gradient norm, every
+    parameter's gradient at slice e's limits), its launches as derived (#1,
+    #1b, #9a, #9b at the model's geometry: 1,024 rows for M4C and TranSTR,
+    1,152 for MIST); then one timed step at batch TRAIN_BATCH after a
+    warm-up step."""
     import torch
 
     from vitxtgqa_tpu_torch import Options
@@ -3962,14 +4119,15 @@ def zoo_runtime_argv(model: str, run_type: str, fixroot: str, save_dir: str, **t
             + [f"training_parameters.{k}={v}" for k, v in tp.items()])
 
 
-def zoo_runtime_slice(dev, record, card):
-    """m (v). run() on a fixture tree written at run time (with
+def zoo_runtime_slice(dev, record, card, runs=ZOO_RUNTIME_RUNS):
+    """m (v), n (iv). run() on a fixture tree written at run time (with
     fps10_ocr_detection_ClipOCR linked to its OCR directory, the GT-box
-    config's), bf16, no worker processes: M4C train+val for
-    ZOO_RUNTIME_STEPS iterations (a validation probe each, the snapshot's
-    and the final validation), GT-box val on the fixtures' annotations;
-    launches as derived from the gates, losses finite, the six val/
-    metrics in [0, 1]."""
+    config's), bf16, no worker processes, each (model, run type) of
+    ``runs``: train+val for ZOO_RUNTIME_STEPS iterations (a validation
+    probe each, the snapshot's and the final validation; slice m: M4C,
+    slice n: TranSTR and MIST), val alone (GT-box on the fixtures'
+    annotations); launches as derived from the gates, losses finite, the
+    six val/ metrics in [0, 1]."""
     import shutil
     import tempfile
 
@@ -3996,8 +4154,8 @@ def zoo_runtime_slice(dev, record, card):
         os.symlink("fps10_ocr_detection", os.path.join(fixroot, "fps10_ocr_detection_ClipOCR"))
         train_tp = dict(batch_size=RUNTIME_BATCH, max_iterations=ZOO_RUNTIME_STEPS,
                         warmup_iterations=1, log_interval=1, snapshot_interval=ZOO_RUNTIME_STEPS)
-        for model, run_type, tp in (("m4c", "train+val", train_tp),
-                                    ("gt_box", "val", dict(batch_size=RUNTIME_BATCH))):
+        for model, run_type in runs:
+            tp = train_tp if "train" in run_type else dict(batch_size=RUNTIME_BATCH)
             name = f"{model}_runtime"
             _build.reset_launch_counts()
             t0 = time.perf_counter()
@@ -4013,7 +4171,7 @@ def zoo_runtime_slice(dev, record, card):
             count_launches(f"slice {name}", record, counts, runtime_launches(
                 trainer.model_cfg, trainer.opts, steps, forwards, RUNTIME_BATCH, model))
             losses = list(trainer.meter["train/total_loss"].series) if steps else []
-            if len(losses) != (ZOO_RUNTIME_STEPS if model == "m4c" else 0) or not all(
+            if len(losses) != (ZOO_RUNTIME_STEPS if "train" in run_type else 0) or not all(
                     np.isfinite(losses)):
                 fail(f"slice {name}: losses {losses}")
             split, _, metrics = passes[-1]
@@ -4039,7 +4197,7 @@ def zoo_runtime_slice(dev, record, card):
 
 
 def zoo_recompute_slice(sl: Slices, record, card):
-    """m (vi). The recompute decode oracle of ``sl.key`` at batch
+    """m (vi), n (iii). The recompute decode oracle of ``sl.key`` at batch
     RUNTIME_BATCH against the cached decode (bf16 cache), as slice l (v)
     holds T2S's: tokens under the tie rule, step 0 and the rows with equal
     tokens within the slices' tolerances; its launches as derived."""
@@ -4075,37 +4233,44 @@ def zoo_recompute_slice(sl: Slices, record, card):
             "equal_rows_max_abs_diff": diffs, "forward_ms": ms, "launches": counts}
 
 
+def zoo_serve(sl: Slices, record, card, slice_name: str = "m") -> dict:
+    """m (i), n (i). ``sl.key`` served through the kernels at batch 2 (int8
+    cache: #5 / #6) and 8 (int8: #4), and at 8 over the bf16 cache (#7),
+    against the plain versions (serve_slice), and its forward latency at 2
+    and 8."""
+    rec = {}
+    key, dev = sl.key, sl.dev
+    _, rec["int8_b2_b8"] = serve_slice(f"{key}_int8_b2_b8", sl, record,
+                                       dict(kv_cache_int8=True), [2, BATCH])
+    _, rec["bf16_b8"] = serve_slice(f"{key}_bf16_b8", sl, record, {}, [BATCH])
+    model = sl.model(kv_cache_int8=True)
+    lat = {}
+    for b in (2, BATCH):
+        sub = sl.batch(b, 0)
+        forward_ms(model, sub, dev, reps=1)  # warm-up
+        lat[b] = forward_ms(model, sub, dev, reps=ZOO_REPS)
+    del model
+    launches = {f"{g}_b{grp['batch']}": {k: v for k, v in grp["launches"].items() if v}
+                for g in rec for grp in rec[g]["groups"]}
+    med = {b: statistics.median(v) for b, v in lat.items()}
+    print(f"slice {slice_name} {key}: {sl.n_params / 1e6:.1f}M params; kernel launches per "
+          "forward " + json.dumps(launches) + f"; int8-cache forward median {med[2]:.2f} ms at "
+          f"batch 2, {med[BATCH]:.2f} ms at batch {BATCH}; card {card}", flush=True)
+    rec["forward_ms_all"] = lat
+    return rec
+
+
 def zoo_slice(dev, record, card):
     """m. The zoo's T2S-family models at production width, bf16, random
-    weights from seed 0: (i) each served through the kernels at batch 2
-    (int8 cache: #5 / #6) and 8 (int8: #4), and at 8 over the bf16 cache
-    (#7), against the plain versions (serve_slice), and its forward
-    latency at 2 and 8; (ii) the serving preset on the ablations
-    (zoo_preset_slice: wo_sg compact over 128 slots at 2 and 8, a -1-padded
-    gather list; wo_tg's fallback); (iii) the ablations' full-eval at 2;
-    (iv) M4C's training step (zoo_train_slice); (v) the runtime
-    (zoo_runtime_slice); (vi) M4C's recompute oracle."""
+    weights from seed 0: (i) each served (zoo_serve); (ii) the serving
+    preset on the ablations (zoo_preset_slice: wo_sg compact over 128 slots
+    at 2 and 8, a -1-padded gather list; wo_tg's fallback); (iii) the
+    ablations' full-eval at 2; (iv) M4C's training step (zoo_train_slice);
+    (v) the runtime (zoo_runtime_slice); (vi) M4C's recompute oracle."""
     out = {}
     for key in ZOO:
         sl = Slices(dev, key=key)
-        rec = {}
-        _, rec["int8_b2_b8"] = serve_slice(f"{key}_int8_b2_b8", sl, record,
-                                           dict(kv_cache_int8=True), [2, BATCH])
-        _, rec["bf16_b8"] = serve_slice(f"{key}_bf16_b8", sl, record, {}, [BATCH])
-        model = sl.model(kv_cache_int8=True)
-        lat = {}
-        for b in (2, BATCH):
-            sub = sl.batch(b, 0)
-            forward_ms(model, sub, dev, reps=1)  # warm-up
-            lat[b] = forward_ms(model, sub, dev, reps=ZOO_REPS)
-        del model
-        launches = {f"{g}_b{grp['batch']}": {k: v for k, v in grp["launches"].items() if v}
-                    for g in rec for grp in rec[g]["groups"]}
-        med = {b: statistics.median(v) for b, v in lat.items()}
-        print(f"slice m {key}: {sl.n_params / 1e6:.1f}M params; kernel launches per forward "
-              + json.dumps(launches) + f"; int8-cache forward median {med[2]:.2f} ms at batch 2, "
-              f"{med[BATCH]:.2f} ms at batch {BATCH}; card {card}", flush=True)
-        rec["forward_ms_all"] = lat
+        rec = zoo_serve(sl, record, card)
         if key in ("t2s_wo_tg", "t2s_wo_sg"):
             rec["serving_preset"] = zoo_preset_slice(
                 sl, record, card, [2, BATCH] if key == "t2s_wo_sg" else [2])
@@ -4116,6 +4281,31 @@ def zoo_slice(dev, record, card):
         out[key] = rec
         del sl
     out["runtime"] = zoo_runtime_slice(dev, record, card)
+    return out
+
+
+def selector_slice(dev, record, card):
+    """n. The selector baselines, TranSTR (its MMT over 1,024 rows, an
+    encoder row's allowed keys the fused frame and one grounded OCR slot)
+    and MIST (1,152 rows, its frame mask summed over picks with
+    replacement), at their shipped configs' model blocks, bf16, random
+    weights from seed 0: (i) each served (zoo_serve), its grounding bit for
+    bit against the plain run; (ii) its training step at batch 4 against
+    the plain step, then at 48 (zoo_train_slice); (iii) its recompute
+    oracle at batch 2 (zoo_recompute_slice); (iv) run() train+val for both
+    (zoo_runtime_slice)."""
+    import torch
+
+    out = {}
+    for key in SELECTORS:
+        sl = Slices(dev, key=key)
+        rec = zoo_serve(sl, record, card, slice_name="n")
+        rec["train"] = zoo_train_slice(sl, record, card)
+        rec["recompute"] = zoo_recompute_slice(sl, record, card)
+        out[key] = rec
+        del sl
+        torch.cuda.empty_cache()
+    out["runtime"] = zoo_runtime_slice(dev, record, card, runs=SELECTOR_RUNTIME_RUNS)
     return out
 
 
@@ -4272,6 +4462,8 @@ def run_slices(dev, record, card):
     details["runtime"] = runtime_slice(dev, record, card)
     # m. the zoo's T2S-family models
     details["zoo"] = zoo_slice(dev, record, card)
+    # n. the selector baselines, TranSTR and MIST
+    details["selectors"] = selector_slice(dev, record, card)
     return details
 
 

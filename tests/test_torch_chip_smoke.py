@@ -1011,9 +1011,10 @@ def test_stop_child_processes_fails_on_a_process_left_running():
 # (model, batch, Options fields, full-eval, recompute oracle) of a tiny
 # forward whose kernel calls are counted.  The tiny wide geometry (text 10,
 # 8 frames x 30 OCR slots, 4 decoder slots, top-2, width 128): T2S-shaped
-# joint sequences of 384 rows (flash; the block from 6 sequences), M4C's
-# 10 + 1 + 240 + 4 -> 256 (flash; the block from 8), wo_sg's compact
-# 10 + 2 + 2 x 30 + 4 -> 128 (neither)
+# joint sequences of 384 rows (flash; the block from 6 sequences; MIST's
+# too), M4C's 10 + 1 + 240 + 4 -> 256 (flash; the block from 8), TranSTR's
+# 0 + 2 + 240 + 4 -> 256 (no question rows), wo_sg's compact 10 + 2 +
+# 2 x 30 + 4 -> 128 (neither)
 ZOO_LAUNCH_CASES = {
     "wo_tg_preset_b2": ("t2s_wo_tg", 2, dict(kv_cache_int8=True, compact_serving=True), False,
                         False),
@@ -1030,6 +1031,14 @@ ZOO_LAUNCH_CASES = {
     "m4c_recompute_b8": ("m4c", 8, {}, False, True),
     "t5vitevqa_bf16_b6": ("t5vitevqa", 6, {}, False, False),
     "gt_box_int8_b2": ("gt_box", 2, dict(kv_cache_int8=True), False, False),
+    "transtr_int8_b2": ("transtr", 2, dict(kv_cache_int8=True), False, False),
+    "transtr_int8_b8": ("transtr", 8, dict(kv_cache_int8=True), False, False),
+    "transtr_bf16_b8": ("transtr", 8, {}, False, False),
+    "transtr_recompute_b2": ("transtr", 2, {}, False, True),
+    "mist_int8_b2": ("mist", 2, dict(kv_cache_int8=True), False, False),
+    "mist_int8_b6": ("mist", 6, dict(kv_cache_int8=True), False, False),
+    "mist_bf16_b6": ("mist", 6, {}, False, False),
+    "mist_recompute_b2": ("mist", 2, {}, False, True),
 }
 
 
@@ -1089,9 +1098,10 @@ def test_expected_launches_count_the_zoo_forwards(case, monkeypatch):
     """chip_smoke.expected_launches (and expected_recompute_launches) with
     the zoo's model keys against the calls a tiny forward of each makes on
     the CPU (plain versions counted, the fused-decode gate opened as on a
-    CUDA tensor): the QTV only in the T2S family, M4C's 256-row sequence,
-    compact serving only where the grounding gives the lists (wo_sg's
-    serving decode, over 128 slots), wo_tg's and full-eval's fallbacks."""
+    CUDA tensor): the QTV only in the T2S family, M4C's and TranSTR's
+    256-row sequences, compact serving only where the grounding gives the
+    lists (wo_sg's serving decode, over 128 slots), wo_tg's and
+    full-eval's fallbacks."""
     key, b, opts, full_eval, recompute = ZOO_LAUNCH_CASES[case]
     counts = _count_plain_calls(monkeypatch)
     cfg, model, tb = _zoo_tiny(key, b, inference_only=not full_eval, decode_recompute=recompute,
@@ -1103,8 +1113,12 @@ def test_expected_launches_count_the_zoo_forwards(case, monkeypatch):
 
 def test_zoo_geometries_of_the_production_configs():
     """The zoo's joint sequences at production width: M4C 1,024 rows,
-    wo_sg's compact 128, wo_tg none (no gather list); zoo_masks holds those
-    lengths, M4C's with a few dozen allowed keys."""
+    wo_sg's compact 128, wo_tg none (no gather list), TranSTR 1,024 (no
+    question rows), MIST 1,152; zoo_masks holds those lengths, M4C's with a
+    few dozen allowed keys; selector_masks TranSTR's with 1 or 2 allowed
+    encoder keys a row (row 0's OCR key in the last 64-key tile) and MIST's
+    with a frame entry of 2.0 or more in row 0, 5 picks and 25 OCR slots a
+    row."""
     assert CS.joint_lengths(CS.zoo_config("m4c"), model="m4c") == (CS.L_M4C, None)
     assert CS.joint_lengths(CS.zoo_config("t2s_wo_sg"), model="t2s_wo_sg") == (CS.L_JOINT,
                                                                               CS.L_WO_SG)
@@ -1116,15 +1130,56 @@ def test_zoo_geometries_of_the_production_configs():
     assert kc.shape == (CS.BATCH, CS.L_WO_SG) and wc == CS.L_WO_SG - CS.DEC_LEN
     live = (km > 0).sum(1)
     assert 20 <= int(live.min()) and int(live.max()) <= 20 + 1 + 15
+    assert CS.joint_lengths(CS.zoo_config("transtr"), model="transtr") == (CS.L_TRANSTR, None)
+    assert CS.joint_lengths(CS.zoo_config("mist"), model="mist") == (CS.L_JOINT, None)
+    (_, kt, wt), (_, kmist, wmist) = CS.selector_masks(torch.device("cpu"))
+    assert kt.shape == (CS.BATCH, CS.L_TRANSTR) and wt == CS.L_TRANSTR - CS.DEC_LEN
+    live = (kt > 0).sum(1)
+    assert int(live.max()) == 2 and int(live.min()) == 1 and float(kt[0, 960]) == 1.0
+    assert kmist.shape == (CS.BATCH, CS.L_JOINT) and wmist == CS.WRITE_OFFSET
+    assert float(kmist[0, 20:84].max()) >= 2.0 and bool((kmist[:, 20:84].sum(1) == 5).all())
+    assert int((kmist[:, 84:1044] > 0).sum(1).min()) == int((kmist[:, 84:1044] > 0).sum(1).max()) \
+        == 25
 
 
 def test_check_zoo_geometries_dry_run():
     """check_zoo_geometries untimed on the CPU (each wrapper there runs its
-    plain version): every case reached, errors 0."""
+    plain version; the flash checks at batch 1): every case reached, errors
+    0."""
     record = {}
-    CS.check_zoo_geometries(torch.device("cpu"), record, timed=False)
-    for name in ("decode_attention_int8", "decode_attention", "fused_decode_step"):
+    CS.check_zoo_geometries(torch.device("cpu"), record, timed=False, flash_batch=1)
+    for name in ("decode_attention_int8", "decode_attention", "fused_decode_step",
+                 "flash_attention_merged", "flash_attention_merged_bwd"):
         assert record[name]["max_abs_err"] == 0.0, name
+
+
+# the plain version behind each kernel that MIST's mask reaches on the CPU
+BONUS_TWINS = {"flash_attention_merged": (TFA, "flash_attention_merged_plain"),
+               "decode_attention": (TDA, "decode_attention_plain"),
+               "fused_decode_step": (TDS, "fused_decode_step_plain")}
+
+
+@pytest.mark.parametrize("kernel", sorted(BONUS_TWINS))
+def test_check_zoo_geometries_rejects_a_kernel_that_adds_the_mask(kernel, monkeypatch):
+    """A kernel and its twin that both read a mask entry above 1 as more
+    than one allowed key (as the XLA bias (1 - m) * -10000 does: here their
+    output moved by 1 wherever the mask holds one) agree with each other,
+    and the check against the kernel itself on the mask clipped to 1
+    rejects them."""
+    mod, name = BONUS_TWINS[kernel]
+    real = getattr(mod, name)
+
+    def bonus(*a, **kw):
+        mask = next(t for t in a if torch.is_tensor(t) and t.dtype == torch.float32
+                    and t.dim() == 2)
+        out = real(*a, **kw)
+        if bool((mask > 1).any()):
+            (out[0] if isinstance(out, tuple) else out).add_(1.0)
+        return out
+
+    monkeypatch.setattr(mod, name, bonus)
+    with pytest.raises(SystemExit, match="disagrees"):
+        CS.check_zoo_geometries(torch.device("cpu"), {}, timed=False, flash_batch=1)
 
 
 def _scatter_into_slot_0():

@@ -147,7 +147,8 @@ def test_the_ports_registry_is_its_own():
     assert port_registry.get_model_class("t2s").__module__ == "vitxtgqa_tpu_torch.models.t2s"
     assert jax_registry.get_model_class("t2s").__module__ == "vitxtgqa_tpu.models.t2s"
     assert sorted(port_registry.list("model")) == sorted(
-        ["t2s", "t2s_wo_tg", "t2s_wo_sg", "m4c", "t5vitevqa", "gt_box", "T2S_human"])
+        ["t2s", "t2s_wo_tg", "t2s_wo_sg", "m4c", "t5vitevqa", "gt_box", "T2S_human", "transtr",
+         "mist"])
     assert {"m4c", "transtr"} <= set(jax_registry.list("model"))
     assert sorted(port_registry.list("builder")) == ["gt_box", "gt_box_clipocr", "vtextgqa"]
     for kind in ("model", "builder"):

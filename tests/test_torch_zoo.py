@@ -1,15 +1,31 @@
-"""The port's T2S-family zoo (the wo_tg / wo_sg ablations, M4C with
-post-hoc grounding, T5-ViteVQA, the GT-box oracle) against the JAX models.
+"""The port's zoo of video models (the wo_tg / wo_sg ablations, M4C with
+post-hoc grounding, T5-ViteVQA, the GT-box oracle, and the selector
+baselines TranSTR and MIST) against the JAX models.
 
 CPU, float32, tiny config (utils/synthetic.tiny_model_config: hidden 64,
-8 frames x 3 OCR slots, top-2 grounding) with every dropout at 0; weights
-the port's seeded init converted by vitxtgqa_tpu's convert_t2s_like with
-each model's family flags (utils/convert.FAMILY_FLAGS); the gumbel noise
-numpy draws keyed by shape, patched into the JAX grounding and passed to
-the port (tests/test_torch_train.py).  M4C's tiny config states its input
-widths (obj 32, OCR 16 + 24): the port's projections take the config's,
-the JAX ones infer theirs.  Tolerances: scores within 2e-5 (float32 on
-both sides, another summation order), tokens and grounding exact, losses
+8 frames x 3 OCR slots, top-2 grounding) with every dropout at 0 (TranSTR's
+selector's too); weights the port's seeded init converted by
+vitxtgqa_tpu's convert_t2s_like with each model's family flags
+(utils/convert.FAMILY_FLAGS), or its convert_transtr / convert_mist.  The
+noise is shared: the T2S family's gumbel draws numpy arrays keyed by
+shape, patched into the JAX grounding and passed to the port
+(tests/test_torch_train.py); TranSTR's perturbed top-k normal draws keyed
+by shape (the two draws differ in shape), patched into JAX's
+``jax.random.normal`` as diff_topk sees it, so that its custom_vjp's
+forward and backward regenerate the same numbers; MIST's gumbel and
+padding draws keyed by (shape, kind, draw index), each framework counting
+its own draws in call order (``NoiseQueue``).  MIST's frame mask holds
+1 (or 1 - 2^-24, the straight-through sum) where a frame was picked, 2.0
+where it was picked twice; the port takes an entry > 0 as an allowed key,
+as the kernels do, where JAX's XLA bias adds (1 - m) * -10000.  So MIST's
+seeds give duplicate-free picks (``assert_duplicate_free``), and its
+training is held against JAX with the bias builders binarized by the
+kernels' rule (``binarize_jax_masks``): JAX's XLA bias passes the frame
+mask a gradient of slope -10000, which neither the port nor JAX's kernels
+pass (tests/test_torch_mist.py holds the planted duplicate).  M4C's tiny config states its input widths
+(obj 32, OCR 16 + 24): the port's projections take the config's, the JAX
+ones infer theirs.  Tolerances: scores within 2e-5 (float32 on both
+sides, another summation order), tokens and grounding exact, losses
 within 1e-5 relative, gradients as tests/test_torch_train.py holds them
 (1e-4 of each tensor's largest entry plus 1e-3 relative).
 
@@ -18,7 +34,9 @@ compact paths on a batch planted so that wo_sg's gather lists are
 -1-padded and wo_tg's grounded-frame list too; the compact gates against
 JAX's; the -1 wraps; the recompute oracle against the cached decode; the
 family converter.  The training forward and gradients are in
-tests/test_torch_zoo_train.py, the runtime in tests/test_torch_zoo_runtime.py.
+tests/test_torch_zoo_train.py, the runtime in tests/test_torch_zoo_runtime.py,
+the selectors' own parts in tests/test_torch_transtr.py and
+tests/test_torch_mist.py.
 """
 
 import importlib
@@ -33,7 +51,8 @@ import chip_smoke as CS
 from tests.test_torch_t2s import _force_fused_decode
 from tests.torch_helpers import cpu_options, one_torch_thread  # noqa: F401
 from vitxtgqa_tpu.utils.synthetic import tiny_model_config
-from vitxtgqa_tpu.utils.torch_convert import convert_t2s_like, unflatten
+from vitxtgqa_tpu.utils.torch_convert import (convert_mist, convert_t2s_like, convert_transtr,
+                                              unflatten)
 from vitxtgqa_tpu_torch.models.t2s_ablations import _first_k_true_indices, _scatter_ones
 from vitxtgqa_tpu_torch.utils.convert import FAMILY_FLAGS, from_jax_family_params
 from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
@@ -48,8 +67,12 @@ ZOO = {
     "m4c": ("m4c:M4C",) * 2,
     "t5vitevqa": ("t5vitevqa:T5ViteVQA",) * 2,
     "gt_box": ("gt_box:GTBox",) * 2,
+    "transtr": ("transtr:TranSTR",) * 2,
+    "mist": ("mist:MIST",) * 2,
 }
 ABLATIONS = ("t2s_wo_tg", "t2s_wo_sg")
+SELECTORS = ("transtr", "mist")
+NOISE_KINDS = ("gumbel", "normal", "uniform")
 
 
 def _cls(package, path):
@@ -65,18 +88,19 @@ def port_cls(key):
     return _cls("vitxtgqa_tpu_torch", ZOO[key][1])
 
 
-def zoo_config(key, dropout=False):
+def zoo_config(key, dropout=False, frames=FRAMES, ocr_per_frame=OPF):
     """The tiny config with every dropout at 0 (``dropout=False``); M4C's
     with its input widths."""
-    cfg = tiny_model_config(hidden=64, frames=FRAMES, ocr_per_frame=OPF, topk=TOPK)
+    cfg = tiny_model_config(hidden=64, frames=frames, ocr_per_frame=ocr_per_frame, topk=TOPK)
     c = cfg.to_dict()
     if not dropout:
         for sect in ("text_bert", "translayers", "mmt", "encoder"):
             c[sect].update(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
         c["obj"]["dropout_prob"] = c["ocr"]["dropout_prob"] = 0.0
+        c["grounding"].update(dropout_prob=0.0, resize_dropout_prob=0.0)
     if key == "m4c":
         c["obj"]["mmt_in_dim"], c["ocr"]["mmt_in_dim"] = 32, 16 + 24
-    if key in ("m4c", "t5vitevqa", "gt_box"):
+    if key in ("m4c", "t5vitevqa", "gt_box") + SELECTORS:
         c["losses"] = [{"type": "pos_bce_loss", "weight": 1.0}]
     return type(cfg)(c)
 
@@ -118,6 +142,106 @@ def port_noise(noise, b=3):
     return torch.from_numpy(noise[(b, 2, FRAMES)]), torch.from_numpy(noise[(b, 2, N)])
 
 
+class NoiseQueue:
+    """A noise source (ops/gumbel.sample's callable): numbers keyed by
+    (shape, kind, draw index), the index counted per (shape, kind) by each
+    instance, so that two instances, one a framework, give the same
+    sequence in call order (tests/test_mist_full_model_parity.py)."""
+
+    def __init__(self, seed=5):
+        self.seed, self.counts = seed, {}
+
+    def draw(self, shape, kind, index):
+        shape = tuple(int(x) for x in shape)
+        rng = np.random.default_rng([self.seed, index, NOISE_KINDS.index(kind), *shape])
+        return {"gumbel": rng.gumbel, "normal": rng.standard_normal,
+                "uniform": rng.random}[kind](size=shape).astype(np.float32)
+
+    def __call__(self, shape, kind):
+        shape = tuple(int(x) for x in shape)
+        i = self.counts.get((shape, kind), 0)
+        self.counts[(shape, kind)] = i + 1
+        return self.draw(shape, kind, i)
+
+
+def patch_jax_selector_noise(monkeypatch, key, seed=5, queue=None):
+    """Feed the JAX selector of ``key`` NoiseQueue(seed)'s numbers (or
+    ``queue``'s, a fresh instance like the port's):
+    TranSTR's perturbed top-k its first draw of each shape (as
+    ``jax.random.normal`` inside diff_topk, so that the custom_vjp's
+    backward regenerates the forward's numbers; the two draws differ in
+    shape), MIST's Selector gumbel draws and padding noise in call
+    order."""
+    queue = NoiseQueue(seed) if queue is None else queue
+    if key == "transtr":
+        import types
+
+        import vitxtgqa_tpu.ops.diff_topk as DT
+
+        normal = lambda rng, shape, dtype=jnp.float32: jnp.asarray(queue.draw(shape, "normal", 0),
+                                                                   dtype)
+        monkeypatch.setattr(DT, "jax", types.SimpleNamespace(
+            lax=jax.lax, nn=jax.nn, random=types.SimpleNamespace(normal=normal)))
+        return
+    import vitxtgqa_tpu.models.mist as JM
+
+    def jax_gumbel(rng, logits, tau=1.0, axis=-1, hard=True):
+        y = jax.nn.softmax((logits + jnp.asarray(queue(logits.shape, "gumbel"))) / tau, axis=axis)
+        yh = jnp.put_along_axis(jnp.zeros_like(y), jnp.argmax(y, axis=axis, keepdims=True), 1.0,
+                                axis=axis, inplace=False)
+        return yh + y - jax.lax.stop_gradient(y)
+
+    monkeypatch.setattr(JM, "gumbel_softmax", jax_gumbel)
+    monkeypatch.setattr(JM, "_pad_noise", lambda rng, shape: jnp.asarray(queue(shape, "uniform")))
+
+
+def binarize_jax_masks(monkeypatch):
+    """JAX's additive bias builders (its XLA route) under the kernels' rule:
+    a key-mask entry > 0 is an allowed key, no gradient into the mask (the
+    JAX package's Pallas kernels, and the port on every path)."""
+    import vitxtgqa_tpu.ops.masks as JMK
+
+    def self_bias(key_mask):
+        return jnp.where(key_mask > 0, 0.0, JMK.NEG_INF)[:, None, None, :]
+
+    def prefix_bias(enc_mask, dec_len):
+        b, lenc = enc_mask.shape
+        ok = jnp.concatenate([enc_mask > 0, jnp.zeros((b, dec_len), bool)], axis=1)
+        full = jnp.broadcast_to(ok[:, None, :], (b, lenc + dec_len, lenc + dec_len))
+        full = full.at[:, lenc:, lenc:].set(JMK.causal_mask(dec_len)[None] > 0)
+        return jnp.where(full, 0.0, JMK.NEG_INF)[:, None]
+
+    monkeypatch.setattr(JMK, "self_attention_bias", self_bias)
+    monkeypatch.setattr(JMK, "prefix_lm_bias", prefix_bias)
+
+
+def shared_noise(monkeypatch, key, b=3, train=False):
+    """Patch the JAX model of ``key`` to the test's noise (and, to train
+    MIST, its masks to the kernels' rule) and return the port's ``gumbel``
+    argument."""
+    if key in SELECTORS:
+        patch_jax_selector_noise(monkeypatch, key)
+        if key == "mist" and train:
+            binarize_jax_masks(monkeypatch)
+        return NoiseQueue()
+    noise = zoo_noise(b)
+    patch_jax_gumbel(monkeypatch, noise)
+    return port_noise(noise, b)
+
+
+def port_gumbel(key, b=3):
+    """The port's ``gumbel`` argument of the test's noise, without JAX."""
+    return NoiseQueue() if key in SELECTORS else port_noise(zoo_noise(b), b)
+
+
+def assert_duplicate_free(out):
+    """MIST's frame picks of every row are distinct (its frame mask 0 / 1;
+    a frame picked twice holds 2.0)."""
+    gf = np.asarray(out["ground_frame"])
+    assert all(len(set(row.tolist())) == len(row) for row in gf), \
+        f"the seed's frame picks repeat: {gf}; choose another"
+
+
 def tensors(batch):
     return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
 
@@ -133,11 +257,21 @@ def port_model(key, cfg=None, seed=0, **kw):
     return port_cls(key)(cfg, NF, bos_idx=2, opts=cpu_options(**opts), **kw).init_weights(seed)
 
 
+def jax_flat(key, state):
+    """The JAX package's flat params of ``key`` from a port state dict of
+    the tiny config (one text-BERT layer, two MMT layers, two DETR layers,
+    two ISTA rounds)."""
+    if key == "transtr":
+        return convert_transtr(state, text_layers=1, mmt_layers=2)
+    if key == "mist":
+        return convert_mist(state, text_layers=1, mmt_layers=2)
+    return convert_t2s_like(state, text_layers=1, qtv_layers=1, mmt_layers=2, **FAMILY_FLAGS[key])
+
+
 def jax_params(model, key):
     # copies: JAX may alias a numpy array's memory on the CPU
     state = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
-    return unflatten(convert_t2s_like(state, text_layers=1, qtv_layers=1, mmt_layers=2,
-                                      **FAMILY_FLAGS[key]))
+    return unflatten(jax_flat(key, state))
 
 
 def jax_eval(key, cfg, params, batch, **kw):
@@ -164,14 +298,15 @@ def assert_outputs_match(got, want, keys=("pos_scores",)):
 def test_eval_forward_matches_jax(key, monkeypatch):
     """The eval forward (the ablations' serving forward): pos_scores within
     2e-5, tokens and the grounding outputs exact."""
-    noise = zoo_noise()
-    patch_jax_gumbel(monkeypatch, noise)
+    gumbel = shared_noise(monkeypatch, key)
     batch = zoo_batch(key)
     model = port_model(key, **serving_kw(key))
     want = jax_eval(key, zoo_config(key), jax_params(model, key), batch, **serving_kw(key))
-    got = model(tensors(batch), port_noise(noise))
+    got = model(tensors(batch), gumbel)
     assert sorted(k for k in got if k.endswith("_scores")) == ["pos_scores"]
     assert_outputs_match(got, want)
+    if key == "mist":
+        assert_duplicate_free(got)
 
 
 def test_m4c_middle_frame_index_zero_wraps_as_jax_does(monkeypatch):
@@ -309,9 +444,9 @@ def test_cached_decode_chooses_the_oracles_tokens(key):
     """The recompute oracle (decode_recompute=True: the full MMT at every
     step) and the cached decode from the same weights, batch and noise:
     tokens equal, scores within 2e-5; the grounding equal."""
-    batch, noise = zoo_batch(key), zoo_noise()
+    batch = zoo_batch(key)
     outs = [port_model(key, decode_recompute=r, **serving_kw(key))(tensors(batch),
-                                                                    port_noise(noise))
+                                                                    port_gumbel(key))
             for r in (True, False)]
     want, got = outs
     np.testing.assert_array_equal(got["pos_scores"].numpy().argmax(-1),
@@ -323,7 +458,8 @@ def test_cached_decode_chooses_the_oracles_tokens(key):
 
 @pytest.mark.parametrize("key", sorted(ZOO) + ["t2s", "T2S_human"])
 def test_family_converter_inverts_convert_t2s_like(key):
-    """convert_t2s_like with the model's flags, then the port's
+    """convert_t2s_like with the model's flags (TranSTR's and MIST's
+    convert_transtr / convert_mist), then the port's
     from_jax_family_params: the port's state dict back, every tensor
     exact, no name missing or left over."""
     cls_key = "gt_box" if key == "T2S_human" else key
@@ -334,7 +470,8 @@ def test_family_converter_inverts_convert_t2s_like(key):
     else:
         model = port_model(cls_key, seed=3)
     state = {k: v.detach().numpy() for k, v in model.state_dict().items()}
-    flat = convert_t2s_like(state, text_layers=1, qtv_layers=1, mmt_layers=2, **FAMILY_FLAGS[key])
+    flat = jax_flat(cls_key, state) if key in SELECTORS else convert_t2s_like(
+        state, text_layers=1, qtv_layers=1, mmt_layers=2, **FAMILY_FLAGS[key])
     back = from_jax_family_params(flat, key)
     assert sorted(back) == sorted(state)
     for k, v in state.items():

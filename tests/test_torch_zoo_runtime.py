@@ -1,6 +1,7 @@
-"""The port's runtime with the T2S-family zoo against the JAX package's:
-the GT-box dataset, an M4C training run, GT-box validation through
-``run()``, and the CLI training and validating each trainable zoo model.
+"""The port's runtime with the zoo against the JAX package's: the GT-box
+dataset, an M4C training run, GT-box validation through ``run()``, and the
+CLI training, validating and predicting with each trainable zoo model
+(TranSTR and MIST included).
 
 CPU, on a fixture tree written by tools/make_fixtures.py into a temporary
 directory per module, with a link ``fps10_ocr_detection_ClipOCR`` to its
@@ -13,6 +14,7 @@ three steps as gradients are held (1e-4 of each tensor's largest change
 plus 1e-3 relative).
 """
 
+import json
 import os
 
 import jax
@@ -20,9 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_runtime import (FRAMES, NO_DROPOUT, OCR, OCR_PER_FRAME, SIX, TINY, TRAIN3,
-                                      _assert_batches_equal, _cfg, _port_trainer, _reseed_data,
-                                      _series)
+from tests.test_torch_runtime import (FRAMES, NO_DROPOUT, OCR, OCR_PER_FRAME, SIX, TINY, TOPK,
+                                      TRAIN3, _assert_batches_equal, _cfg, _port_trainer,
+                                      _reseed_data, _series)
 from tests.torch_helpers import one_torch_thread  # noqa: F401
 from vitxtgqa_tpu_torch.core.registry import registry as port_registry
 from vitxtgqa_tpu_torch.run import run as port_run, setup_imports
@@ -35,6 +37,19 @@ ZOO_RUNS = {
     "t2s_wo_tg": ("t2s_abinet.yml", "t2s", "vtextgqa"),
     "t2s_wo_sg": ("t2s_abinet.yml", "t2s", "vtextgqa"),
     "gt_box": ("gt_box_clipocr.yml", "gt_box", "gt_box"),
+    "transtr": ("transtr_abinet.yml", "transtr", "vtextgqa"),
+    "mist": ("mist_abinet.yml", "mist", "vtextgqa"),
+}
+# a predicted row's (grounded frames, grounded boxes) at the tiny geometry
+# (8 frames x 3 OCR slots, top-2): wo_tg's boxes are every frame's top
+# min(2 x 2, 3) slots, wo_sg's every slot of its frames; M4C the middle
+# frame and its top-2 slots; T5-ViteVQA every frame id and the top 2 x 2
+# slots; TranSTR its 2 x 2 grounded slots; MIST its min(25, 24) masked ones
+PREDICTED_GROUNDING = {
+    "t2s_wo_tg": (TOPK, FRAMES * min(TOPK * TOPK, OCR_PER_FRAME)),
+    "t2s_wo_sg": (TOPK, TOPK * OCR_PER_FRAME), "m4c": (1, TOPK),
+    "t5vitevqa": (FRAMES, TOPK * TOPK), "transtr": (TOPK, TOPK * TOPK),
+    "mist": (TOPK, min(25, OCR)),
 }
 
 
@@ -117,7 +132,7 @@ def _jax_weights(jtrainer, model):
         flatten(jax.tree_util.tree_map(np.array, jtrainer.params)), model).items()}
 
 
-@pytest.mark.parametrize("model", ["m4c", "t5vitevqa", "gt_box"])
+@pytest.mark.parametrize("model", ["m4c", "t5vitevqa", "gt_box", "transtr", "mist"])
 def test_zoo_configs_equal_the_jax_packages(repo_root, model):
     """build_config of the zoo's configs (their includes among the port's
     copied defaults) equals the JAX package's."""
@@ -247,10 +262,13 @@ def test_gt_box_validation_through_run_matches_the_jax_trainer(repo_root, fixroo
     assert got[1] == want[1]
 
 
-@pytest.mark.parametrize("model", ["m4c", "t5vitevqa", "t2s_wo_tg", "t2s_wo_sg"])
+@pytest.mark.parametrize("model", ["m4c", "t5vitevqa", "t2s_wo_tg", "t2s_wo_sg", "transtr",
+                                   "mist"])
 def test_cli_trains_and_validates_each_zoo_model(repo_root, fixroot, tmp_path, model):
     """``python -m vitxtgqa_tpu_torch.run --model <key>`` on the CPU: three
-    steps, ckpt/best and ckpt/final, the six val/ metrics in [0, 1].  The
+    steps, ckpt/best and ckpt/final, the six val/ metrics in [0, 1]; then
+    ``--run_type inference`` from ckpt/best predicts the test split into
+    the EvalAI JSON, the grounding of each row in the model's shapes.  The
     ablations run on configs/t2s_abinet.yml, whose one model_attributes
     block (t2s) serves them (the JAX trainer's rule)."""
     save = tmp_path / "save"
@@ -265,3 +283,16 @@ def test_cli_trains_and_validates_each_zoo_model(repo_root, fixroot, tmp_path, m
     for t in SIX:
         assert 0.0 <= scalars[f"val/vtextgqa/{t}"] <= 1.0, t
     assert all(np.isfinite(v) for v in _series(trainer.meter, "train/total_loss"))
+
+    best = os.path.join(str(save), "ckpt", "best")
+    pred = port_run(zoo_cli(repo_root, model, "inference")
+                    + zoo_opts(model, fixroot, tmp_path / "pred", evalai_inference=True)
+                    + [f"training_parameters.resume_file={best}"])
+    (report,) = os.listdir(os.path.join(str(tmp_path), "pred", "reports"))
+    rows = json.load(open(os.path.join(str(tmp_path), "pred", "reports", report)))
+    assert len(rows) == len(pred.datasets["test"]) > 0
+    frames, boxes = PREDICTED_GROUNDING[model]
+    for row in rows:
+        assert len(row["grounded frame"]) == frames
+        assert np.asarray(row["grounded box"]).shape == (boxes, 4)
+        assert set(row["pred_source"]) <= {"OCR", "VOCAB"}

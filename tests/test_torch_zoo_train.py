@@ -1,14 +1,19 @@
-"""The training forward of the port's T2S-family zoo against the JAX
-models: the train-mode scores, the losses and every parameter's gradient.
+"""The training forward of the port's zoo against the JAX models: the
+train-mode scores, the losses and every parameter's gradient.
 
 CPU, float32, the tiny configs of tests/test_torch_zoo.py with every
-dropout at 0 and the gumbel noise injected.  The ablations train the three
-contrastive variants (ref, pos, neg) with pos_bce and InfoNCE x 1000, JAX
-with train_variant_scan as the production step does; M4C, T5-ViteVQA and
-GT-box one teacher-forced pass with pos_bce.  Tolerances as
-tests/test_torch_train.py: scores within 2e-5, losses within 1e-5
-relative, each gradient within 1e-4 of its largest entry (floored at 1e-5
-of the model's largest) plus 1e-3 relative.
+dropout at 0 and the noise shared (tests/test_torch_zoo.shared_noise).  The
+ablations train the three contrastive variants (ref, pos, neg) with
+pos_bce and InfoNCE x 1000, JAX with train_variant_scan as the production
+step does; M4C, T5-ViteVQA, GT-box, TranSTR and MIST one teacher-forced
+pass with pos_bce.  TranSTR's selector gradients come through the
+perturbed top-k's estimator (JAX's custom_vjp on the same noise); MIST's
+selectors and question pooling get none (their only path to the loss is
+the MMT's key mask, which passes no gradient in the port, nor in JAX's
+bias builders binarized as its kernels are; tests/test_torch_zoo.py).
+Tolerances as tests/test_torch_train.py: scores within 2e-5, losses
+within 1e-5 relative, each gradient within 1e-4 of its largest entry
+(floored at 1e-5 of the model's largest) plus 1e-3 relative.
 """
 
 import jax
@@ -16,9 +21,9 @@ import numpy as np
 import pytest
 
 from tests.test_torch_train import _assert_grads_close
-from tests.test_torch_zoo import (ABLATIONS, NF, ZOO, jax_cls, jax_params, patch_jax_gumbel,
-                                  port_model, port_noise, tensors, zoo_batch, zoo_config,
-                                  zoo_noise)
+from tests.test_torch_zoo import (ABLATIONS, NF, ZOO, assert_duplicate_free, jax_cls,
+                                  jax_params, port_model, shared_noise, tensors, zoo_batch,
+                                  zoo_config)
 from tests.torch_helpers import one_torch_thread  # noqa: F401
 from vitxtgqa_tpu.utils.torch_convert import flatten
 from vitxtgqa_tpu_torch.losses import Losses
@@ -29,8 +34,7 @@ from vitxtgqa_tpu_torch.utils.convert import from_jax_family_params
 def test_train_forward_losses_and_grads_match_jax(key, monkeypatch):
     from vitxtgqa_tpu.losses import Losses as JLosses
 
-    noise = zoo_noise()
-    patch_jax_gumbel(monkeypatch, noise)
+    gumbel = shared_noise(monkeypatch, key, train=True)
     cfg, batch = zoo_config(key), zoo_batch(key)
     losses = [dict(x) for x in cfg["losses"]]
     model = port_model(key)
@@ -47,7 +51,9 @@ def test_train_forward_losses_and_grads_match_jax(key, monkeypatch):
     (want_total, (want_parts, want_out)), want_grads = jax.jit(
         jax.value_and_grad(loss_fn, has_aux=True))(jax_params(model, key))
 
-    out = model(tensors(batch), port_noise(noise), train=True)
+    out = model(tensors(batch), gumbel, train=True)
+    if key == "mist":
+        assert_duplicate_free(out)
     total, parts = Losses(losses).total(tensors(batch), out)
     total.backward()
     keys = ("ref_scores", "pos_scores", "neg_scores") if key in ABLATIONS else ("pos_scores",)

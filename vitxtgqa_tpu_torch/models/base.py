@@ -18,9 +18,9 @@ epilogue are not ported (ROADMAP.md queue 1).
 The zoo's models share the rest of their assembly here: the modality
 streams (``_add_frame_stream`` / ``_frame_stream``, ``_add_ocr_stream`` /
 ``_ocr_stream``), the decoder heads (``_add_decoder``), the seeded init,
-and for the single-variant models (M4C, T5-ViteVQA, GT-box) the one
-forward ``_single_pass``: teacher-forced in training, the greedy decode (or
-the recompute oracle) in eval.
+and for the single-variant models (M4C, T5-ViteVQA, GT-box, TranSTR, MIST)
+the one forward ``_single_pass``: teacher-forced in training, the greedy
+decode (or the recompute oracle) in eval.
 """
 
 from __future__ import annotations
@@ -80,8 +80,11 @@ class JointQAModel(nn.Module):
     # which keeps the cache slots and write_offset equal to the JAX ones
     LANE = 128
     # children that stay float32 under a bf16 compute dtype (the JAX
-    # models' Dense layers without a dtype: grounding, pointer, classifier)
-    FLOAT32_CHILDREN = ("Grounding_Module", "PostHoc", "ocr_ptr_net", "classifier")
+    # models' Dense layers without a dtype: grounding, pointer, classifier,
+    # and the selectors of TranSTR and MIST, whose indicators are exact only
+    # in float32)
+    FLOAT32_CHILDREN = ("Grounding_Module", "PostHoc", "VideoQAmodel", "ocr_ptr_net",
+                        "classifier")
 
     # ---- assembly (call inside ``torch.device(opts.device)``) ---------------
     def _add_frame_stream(self, c, hidden: int, frame_embed: bool = True):
@@ -177,28 +180,32 @@ class JointQAModel(nn.Module):
     # ---- forward -------------------------------------------------------------
     def forward(self, batch, gumbel=None, train: bool = False, dropout_gen=None):
         """``gumbel``: a torch.Generator for the grounding's draws, or the
-        noise tensors (T2S and its ablations; the other models draw none);
-        ``dropout_gen`` the training dropout generator on the model's
-        device (None: no dropout).  Eval runs under no_grad."""
+        noise itself: T2S and its ablations take the noise tensors, TranSTR
+        and MIST a callable source (ops/gumbel.sample); M4C, T5-ViteVQA and
+        GT-box draw none.  ``dropout_gen`` is the training dropout generator
+        on the model's device (None: no dropout).  Eval runs under
+        no_grad."""
         if train:
             return self._forward_train(batch, gumbel, dropout_gen)
         with torch.no_grad():
             return self._forward_eval(batch, gumbel)
 
     def _forward_train(self, batch, gumbel, gen):
-        return self._single_pass(batch, True, gen)
+        return self._single_pass(batch, True, gen, gumbel)
 
     def _forward_eval(self, batch, gumbel):
-        return self._single_pass(batch, False, None)
+        return self._single_pass(batch, False, None, gumbel)
 
-    def _single_pass(self, batch, train: bool, gen=None):
+    def _single_pass(self, batch, train: bool, gen=None, gumbel=None):
         """The single-variant models' forward (JAX m4c.py / t5vitevqa.py /
-        gt_box.py ``__call__``): ``_streams`` gives the three streams, their
-        masks (the OCR mask is also the pointer's) and the grounding
-        outputs; training runs one teacher-forced pass, eval the greedy
-        decode (the recompute oracle under ``decode_recompute``).  Returns
-        pos_scores float32 [B, S, V + N] and the grounding outputs."""
-        txt, txt_mask, obj, obj_mask, ocr, ocr_mask, out = self._streams(batch, train, gen)
+        gt_box.py / transtr.py / mist.py ``__call__``): ``_streams`` gives
+        the three streams, their masks (the OCR mask is also the pointer's)
+        and the grounding outputs; training runs one teacher-forced pass,
+        eval the greedy decode (the recompute oracle under
+        ``decode_recompute``).  Returns pos_scores float32 [B, S, V + N] and
+        the grounding outputs."""
+        txt, txt_mask, obj, obj_mask, ocr, ocr_mask, out = self._streams(batch, train, gen,
+                                                                          gumbel)
         enc_mask = torch.cat([txt_mask, obj_mask, ocr_mask], dim=1)
         if train:
             scores = self._mmt_full(txt, obj, ocr, enc_mask, ocr_mask, batch["train_prev_inds"],

@@ -50,7 +50,7 @@ class GTBox(JointQAModel):
             self._add_decoder(c, mmt_cfg, num_final_outputs, opts)
         self._cast_to_compute_dtype()
 
-    def _streams(self, batch, train: bool, gen):
+    def _streams(self, batch, train: bool, gen, gumbel=None):
         txt, txt_mask = self._text_stream(batch, train, gen)
         obj = self._frame_stream(batch, gen)
         # the OCR stream over the annotation grid (reference: gt_box.py:255-292)

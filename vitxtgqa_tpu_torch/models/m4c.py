@@ -60,7 +60,7 @@ class M4C(JointQAModel):
             self._add_decoder(c, mmt_cfg, num_final_outputs, opts)
         self._cast_to_compute_dtype()
 
-    def _streams(self, batch, train: bool, gen):
+    def _streams(self, batch, train: bool, gen, gumbel=None):
         txt, txt_mask = self._text_stream(batch, train, gen)
         # the middle frame's feature (reference: m4c.py:185-210)
         mid = l2_normalize(batch["mid_img_feat"].to(self.opts.dtype))

@@ -67,7 +67,7 @@ class T5ViteVQA(JointQAModel):
             self._add_decoder(c, mmt_cfg, num_final_outputs, opts)
         self._cast_to_compute_dtype()
 
-    def _streams(self, batch, train: bool, gen):
+    def _streams(self, batch, train: bool, gen, gumbel=None):
         txt, txt_mask = self._text_stream(batch, train, gen)
         obj, ocr = self._frame_stream(batch, gen), self._ocr_stream(batch, gen)
         ocr_mask = batch["ocr_mask"].float()

@@ -5,13 +5,22 @@ or drawn from a given ``torch.Generator``, so a test can feed both
 frameworks the same numbers.  Top-k breaks ties by the lower index, as
 ``jax.lax.top_k`` does: a stable sort, not ``torch.topk`` (whose tie order
 is unspecified — and the grounding's bottom-k is dominated by -10000 ties).
+
+``sample`` is the draw of the selector baselines (models/transtr.py,
+models/mist.py): from a ``torch.Generator``, or from a callable source
+``(shape, kind) -> array`` that a test fills with another framework's
+numbers.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple, Union
 
 import torch
+
+# a generator, or a callable (shape, kind) -> array, kind "gumbel",
+# "normal" or "uniform"
+NoiseSource = Union[torch.Generator, Callable[[Tuple[int, ...], str], object]]
 
 
 def sample_gumbel(shape, generator: Optional[torch.Generator] = None,
@@ -20,6 +29,25 @@ def sample_gumbel(shape, generator: Optional[torch.Generator] = None,
     e = torch.empty(shape, device=device, dtype=torch.float32)
     e.exponential_(generator=generator)
     return -torch.log(e)
+
+
+def sample(source: NoiseSource, shape, kind: str = "gumbel", device=None) -> torch.Tensor:
+    """float32 noise of ``shape``: standard Gumbel, standard normal or
+    uniform on [0, 1) (``kind``) drawn from a generator, or what a callable
+    source returns for (shape, kind)."""
+    shape = tuple(int(s) for s in shape)
+    if not isinstance(source, torch.Generator):
+        if source is None:
+            raise ValueError(f"a {kind} draw of {shape} needs a torch.Generator or a noise source")
+        return torch.as_tensor(source(shape, kind), dtype=torch.float32, device=device)
+    if kind == "gumbel":
+        return sample_gumbel(shape, source, device=device)
+    x = torch.empty(shape, device=device, dtype=torch.float32)
+    if kind == "normal":
+        return x.normal_(generator=source)
+    if kind == "uniform":
+        return x.uniform_(generator=source)
+    raise ValueError(f"unknown noise kind {kind!r}")
 
 
 def gumbel_softmax(logits: torch.Tensor, noise: torch.Tensor, tau: float = 1.0,

@@ -3,7 +3,12 @@
 Counterpart of vitxtgqa_tpu/ops/masks.py.  The additive mask value stays
 -10000 (BERT style, kept for parity with the reference); the kernels
 build their masks in-kernel from the compact specs below and fill masked
-scores with -1e9 instead.
+scores with -1e9 instead.  A key-mask entry > 0 is an allowed key on every
+path, as in the kernels (and the JAX package's Pallas kernels): MIST's
+frame mask holds 2.0 where a frame was picked twice, which the JAX
+package's XLA bias ``(1 - m) * -10000`` turns into a +10000 bonus (the
+reference's quirk) and these builders do not; nor do they pass a gradient
+into the mask (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -96,9 +101,14 @@ def causal_mask(n: int, device=None) -> torch.Tensor:
     return torch.tril(torch.ones((n, n), dtype=torch.float32, device=device))
 
 
+def _bias(allowed: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """0 where ``allowed``, NEG_INF elsewhere, in ``like``'s dtype."""
+    return torch.where(allowed, 0.0, NEG_INF).to(like.dtype)
+
+
 def self_attention_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """[B, L] key mask -> [B, 1, 1, L] additive bias."""
-    return ((1.0 - key_mask) * NEG_INF)[:, None, None, :]
+    return _bias(key_mask > 0, key_mask)[:, None, None, :]
 
 
 def prefix_lm_bias(enc_mask: torch.Tensor, dec_len: int) -> torch.Tensor:
@@ -107,8 +117,8 @@ def prefix_lm_bias(enc_mask: torch.Tensor, dec_len: int) -> torch.Tensor:
     tokens are visible only to decoder rows, causally."""
     b, lenc = enc_mask.shape
     total = lenc + dec_len
-    key_mask = torch.cat([enc_mask, enc_mask.new_zeros((b, dec_len))], dim=1)
-    full = key_mask[:, None, :].expand(b, total, total).clone()
-    full[:, lenc:, lenc:] = causal_mask(dec_len, enc_mask.device).to(full.dtype)
-    return ((1.0 - full) * NEG_INF)[:, None, :, :]
+    key_ok = torch.cat([enc_mask > 0, enc_mask.new_zeros((b, dec_len), dtype=torch.bool)], dim=1)
+    allowed = key_ok[:, None, :].expand(b, total, total).clone()
+    allowed[:, lenc:, lenc:] = causal_mask(dec_len, enc_mask.device) > 0
+    return _bias(allowed, enc_mask)[:, None, :, :]
 

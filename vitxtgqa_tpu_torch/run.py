@@ -31,6 +31,8 @@ MANIFEST = (
     "vitxtgqa_tpu_torch.models.m4c",
     "vitxtgqa_tpu_torch.models.t5vitevqa",
     "vitxtgqa_tpu_torch.models.gt_box",
+    "vitxtgqa_tpu_torch.models.transtr",
+    "vitxtgqa_tpu_torch.models.mist",
     "vitxtgqa_tpu_torch.training.trainer",
 )
 

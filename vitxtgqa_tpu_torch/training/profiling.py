@@ -1,9 +1,11 @@
-"""Where the time of a T2S training step goes, on one CUDA card.
+"""Where the time of a training step goes, on one CUDA card.
 
     python -m vitxtgqa_tpu_torch.training.profiling [--out DIR] [--batch N] [--reps N]
+        [--model KEY]
 
-T2S at production width (t2s_production_config), bf16 with float32
-master weights, random weights from seed 0, the production step
+T2S at production width (t2s_production_config), or with ``--model`` a
+zoo model at its shipped config's model block (MODEL_CONFIGS), bf16 with
+float32 master weights, random weights from seed 0, the production step
 (Options' defaults: remat "attn", the block_train kernels, in-kernel
 dropout; Adam with clipping and the schedule) at batch N (default 48, the
 config's).  The host-clock time of 5 steps ending in
@@ -12,7 +14,8 @@ config's).  The host-clock time of 5 steps ending in
 (serving/profiling.py); the idle share is ``1 - device time per step /
 median step time``.  Kernel time is grouped by the port's kernels (#1,
 #1b, #9a, #9b), cuBLAS products and the rest.  Prints a summary and the
-largest kernels; writes DIR/profile_train.json (default: build/).
+largest kernels; writes DIR/profile_train.json (default: build/;
+profile_train_KEY.json for another model).
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ import torch
 from vitxtgqa_tpu_torch.serving.profiling import device_events
 
 TOP = 12
+# --model: the config and its model block of each zoo model (T2S:
+# t2s_production_config)
+MODEL_CONFIGS = {"m4c": ("m4c_abinet.yml", "m4c"), "transtr": ("transtr_abinet.yml", "transtr"),
+                 "mist": ("mist_abinet.yml", "mist")}
 # (group, substrings of the kernel names it takes), first match wins
 GROUPS = (
     ("#1 flash forward", ("flash_fwd_kernel",)),
@@ -53,23 +60,32 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.core.config import build_config
+    from vitxtgqa_tpu_torch.core.registry import registry
     from vitxtgqa_tpu_torch.losses import Losses
-    from vitxtgqa_tpu_torch.models.t2s import (PRODUCTION_NUM_FINAL_OUTPUTS, T2S,
-                                               t2s_production_config)
+    from vitxtgqa_tpu_torch.models.t2s import PRODUCTION_NUM_FINAL_OUTPUTS, t2s_production_config
+    from vitxtgqa_tpu_torch.run import setup_imports
     from vitxtgqa_tpu_torch.serving.engine import to_device
     from vitxtgqa_tpu_torch.training.optim import build_optimizer
     from vitxtgqa_tpu_torch.training.step import step_generators, train_step
     from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
 
     arg = lambda flag, default: type(default)(argv[argv.index(flag) + 1]) if flag in argv else default
-    batch_size, reps = arg("--batch", 48), arg("--reps", 2)
-    out_dir = arg("--out", os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "build"))
+    batch_size, reps, key = arg("--batch", 48), arg("--reps", 2), arg("--model", "t2s")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    out_dir = arg("--out", os.path.join(root, "build"))
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, nf = t2s_production_config(), PRODUCTION_NUM_FINAL_OUTPUTS
-    model = T2S(cfg, nf, bos_idx=2, opts=Options(device=dev)).init_weights(0)
+    nf = PRODUCTION_NUM_FINAL_OUTPUTS
+    if key == "t2s":
+        cfg = t2s_production_config()
+    else:
+        config, block = MODEL_CONFIGS[key]
+        cfg = build_config(os.path.join(root, "configs", config)).model_attributes[block].to_dict()
+    setup_imports()
+    model = registry.get_model_class(key)(cfg, nf, bos_idx=2,
+                                          opts=Options(device=dev)).init_weights(0)
     opt = build_optimizer(model, model_config=cfg)
     losses = Losses(cfg["losses"])
     batch = to_device(synthetic_batch(batch=batch_size, num_final_outputs=nf, seed=0), dev)
@@ -104,14 +120,14 @@ def main(argv) -> int:
     card = torch.cuda.get_device_name(0)
     kernels = sorted(((n, ms, c / reps) for n, (ms, c) in per_kernel.items()), key=lambda r: -r[1])
     result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "batch": batch_size, "reps": reps, "step_ms_all": lat, "step_ms_median": median,
+              "model": key, "batch": batch_size, "reps": reps, "step_ms_all": lat, "step_ms_median": median,
               "step_ms_min": min(lat), "videos_per_s": batch_size / median * 1e3,
               "device_ms_per_step": device_ms, "idle_share": 1.0 - device_ms / median,
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "groups_ms_per_step": dict(groups),
               "kernels": [{"name": n, "ms_per_step": ms, "calls_per_step": c}
                           for n, ms, c in kernels]}
-    print(f"profile train, batch {batch_size}: step median {median:.3f} ms (min {min(lat):.3f}), "
+    print(f"profile train {key}, batch {batch_size}: step median {median:.3f} ms (min {min(lat):.3f}), "
           f"{result['videos_per_s']:.2f} videos/s, device {device_ms:.3f} ms per step, idle share "
           f"{result['idle_share']:.3f}, max_memory_allocated "
           f"{result['max_memory_allocated'] / 2**30:.2f} GiB; {card}", flush=True)
@@ -120,7 +136,8 @@ def main(argv) -> int:
     for n, ms, c in kernels[:TOP]:
         print(f"    {ms:9.3f} ms  x{c:<6g} {n[:100]}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_train.json"), "w") as f:
+    name = "profile_train.json" if key == "t2s" else f"profile_train_{key}.json"
+    with open(os.path.join(out_dir, name), "w") as f:
         json.dump(result, f, indent=1)
     return 0
 

@@ -3,14 +3,16 @@
 ``from_jax_params`` maps the JAX T2S model's flat parameter dict
 (``"qtv/layer_0/query/kernel" -> np.ndarray``, the ``flatten`` form of
 vitxtgqa_tpu/utils/torch_convert.py) onto the port's ``state_dict()``;
-``from_jax_family_params`` does so for any model of the T2S family (t2s,
-its ablations, m4c, t5vitevqa, gt_box), by the family's flags
-(``FAMILY_FLAGS``: QTV, grounding, post-hoc head, frame-id embedding,
-OCR ids).  The port names its parameters after the reference's torch state
-dict, so these are the inverses of vitxtgqa_tpu's ``convert_t2s_like`` with
-the same flags: flax Dense kernels [in, out] become Linear weights [out,
-in], Embed ``embedding`` becomes ``weight``, LayerNorm ``scale`` becomes
-``weight``.
+``from_jax_family_params`` does so for any of the zoo's video models
+(t2s, its ablations, m4c, t5vitevqa, gt_box, transtr, mist), by the
+model's flags (``FAMILY_FLAGS``: QTV, grounding, post-hoc head, frame-id
+embedding, OCR ids, selector).  The port names its parameters after the
+reference's torch state dict, so these are the inverses of vitxtgqa_tpu's
+``convert_t2s_like`` with the same flags, of its ``convert_transtr`` (the
+selector's DETR decoders, ``selector_entries``) and of its
+``convert_mist`` (the question pooling and the ISTA selectors): flax Dense
+kernels [in, out] become Linear weights [out, in], Embed ``embedding``
+becomes ``weight``, LayerNorm ``scale`` becomes ``weight``.
 """
 
 from __future__ import annotations
@@ -42,8 +44,11 @@ def bert_layer_entries(torch_prefix: str, flax_prefix: str, i: int):
     return [(f"{t}.{tn}", f"{f}/{fn}", kind) for tn, fn, kind in BERT_LAYER]
 
 
-def _num_layers(flat, flax_prefix: str) -> int:
-    pat = re.compile(rf"^{re.escape(flax_prefix)}/layer_(\d+)/")
+def _num_layers(flat, flax_prefix: str, layer: str = "layer_") -> int:
+    """The number of ``{flax_prefix}/{layer}{i}`` modules (an empty prefix:
+    at the root)."""
+    root = f"{re.escape(flax_prefix)}/" if flax_prefix else ""
+    pat = re.compile(rf"^{root}{layer}(\d+)/")
     ids = {int(m.group(1)) for k in flat for m in [pat.match(k)] if m}
     return max(ids) + 1 if ids else 0
 
@@ -61,13 +66,54 @@ FAMILY_FLAGS = {
                    obj_has_frame_embed=True, ocr_has_ids=True),
 }
 FAMILY_FLAGS["T2S_human"] = FAMILY_FLAGS["gt_box"]
+# TranSTR and MIST: T2S's streams and decoder heads without QTV or
+# grounding, with their selector (``VideoQAmodel``)
+for _key in ("transtr", "mist"):
+    FAMILY_FLAGS[_key] = dict(has_qtv=False, has_grounding=False, has_posthoc=False,
+                              obj_has_frame_embed=True, ocr_has_ids=True, selector=_key)
+
+
+def _detr_entries(flat, torch_prefix: str, flax_prefix: str):
+    """A DETR decoder stack (models/detr.DetrDecoder): the reference's
+    ``multihead_attn`` is the JAX module's ``cross_attn``."""
+    for i in range(_num_layers(flat, flax_prefix)):
+        t, f = f"{torch_prefix}.layers.{i}", f"{flax_prefix}/layer_{i}"
+        for tattn, fattn in (("self_attn", "self_attn"), ("multihead_attn", "cross_attn")):
+            for lin in ("q_lin", "k_lin", "v_lin", "out_lin"):
+                yield (f"{t}.{tattn}.{lin}", f"{f}/{fattn}/{lin}", "linear")
+        yield from [(f"{t}.linear1", f"{f}/linear1", "linear"),
+                    (f"{t}.linear2", f"{f}/linear2", "linear")]
+        yield from [(f"{t}.norm{j}", f"{f}/norm{j}", "ln") for j in (1, 2, 3)]
+    yield (f"{torch_prefix}.norm", f"{flax_prefix}/norm", "ln")
+
+
+def selector_entries(flat, selector: str):
+    """The ``VideoQAmodel`` selector of TranSTR (its resizer and three DETR
+    decoders) or of MIST (the question pooling, each ISTA round's two
+    selectors)."""
+    v = "VideoQAmodel"
+    if selector == "transtr":
+        yield from [(f"{v}.ocr_resize.fc", "selector/ocr_resize/Dense_0", "linear"),
+                    (f"{v}.ocr_resize.layer_norm", "selector/ocr_resize/LayerNorm_0", "ln")]
+        for dec in ("frame_decoder", "ocr_decoder", "fo_decoder"):
+            yield from _detr_entries(flat, f"{v}.{dec}", f"selector/{dec}")
+        return
+    yield (f"{v}.self_attn", "q_self_attn", "linear")
+    for i in range(_num_layers(flat, "", "ista_")):
+        for sel in ("seg_selector", "reg_selector"):
+            t, f = f"{v}.ISTA.{i}.{sel}", f"ista_{i}/{sel}"
+            yield from [(f"{t}.linear_Q", f"{f}/linear_Q", "linear"),
+                        (f"{t}.norm_Q", f"{f}/norm_Q", "ln"),
+                        (f"{t}.linear_K", f"{f}/linear_K", "linear"),
+                        (f"{t}.norm_K", f"{f}/norm_K", "ln")]
 
 
 def family_entries(flat, has_qtv: bool = True, has_grounding: bool = True,
                    has_posthoc: bool = False, obj_has_frame_embed: bool = True,
-                   ocr_has_ids: bool = True) -> Iterator[Tuple[str, str, str]]:
+                   ocr_has_ids: bool = True, selector: str = None
+                   ) -> Iterator[Tuple[str, str, str]]:
     """(torch module name, flax module path, kind) for every module of a
-    T2S-family model with these flags."""
+    zoo model with these flags (``selector``: "transtr" or "mist")."""
     e, fe = "text_bert.embeddings", "text_bert/embeddings"
     yield from [
         (f"{e}.word_embeddings", f"{fe}/word_embeddings", "embed"),
@@ -97,6 +143,8 @@ def family_entries(flat, has_qtv: bool = True, has_grounding: bool = True,
     for tp, fp in heads:
         yield from [(f"{tp}.q_linear", f"{fp}/q_linear", "linear"),
                     (f"{tp}.self_attn", f"{fp}/self_attn", "linear")]
+    if selector:
+        yield from selector_entries(flat, selector)
     yield from [
         ("mmt.prev_pred_embeddings.position_embeddings", "prev_pred_embeddings/position_embeddings", "embed"),
         ("mmt.prev_pred_embeddings.token_type_embeddings", "prev_pred_embeddings/token_type_embeddings", "embed"),
