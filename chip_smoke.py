@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's T2S serving, full-eval and training paths,
 its ViT frame-feature path, its sequence-parallel path, its runtime
 (train, validate, checkpoint, resume, predict), the zoo's T2S-family
-models and its selector baselines (TranSTR, MIST) once on one NVIDIA GPU.
+models, its selector baselines (TranSTR, MIST) and its data parallelism
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -184,7 +185,30 @@ Phases (each prints one or more lines; any failure exits non-zero):
           forward latency at 2 and 8; (ii) its training step at batch 4
           against the plain step at slice e's limits, then one at 48 (#1's
           dropout form, #1b, #9a, #9b); (iii) its recompute oracle at
-          batch 2; (iv) run() train+val for both, 2 iterations each.
+          batch 2; (iv) run() train+val for both, 2 iterations each;
+       o. data parallelism over 2 ranks (torch.multiprocessing.spawn,
+          gloo, both on the one card; the kernels built before the ranks
+          start), the production T2S at the global batch 48, 24 rows a
+          rank: (i) one step with every dropout 0 and the gumbel draws of
+          the step's shared generator (each rank its rows of the global
+          draw) against the one-process step at 48 from the same weights
+          and batch (odd rows with one active decode step: the ranks'
+          loss-mask counts differ) at slice e's limits, loss, gradient
+          norm and every parameter's applied gradient, the ranks'
+          parameters after the update equal, each rank's launches as
+          derived; the same step with each planted fault (DP_FAULTS)
+          outside the limits; (ii) 4 steps with the config's dropout:
+          each rank's ms a step, ms of one all-reduce of the float32
+          gradients (gloo: through the host, a capability) and peak
+          memory; (iii) ``python -m torch.distributed.run --standalone
+          --nproc_per_node 2 -m vitxtgqa_tpu_torch.run ...
+          training_parameters.distributed_init=True`` on slice l's
+          fixtures (3 iterations at global batch 4, validation,
+          predictions, dropout 0) against run() in this process: each
+          iteration's loss within slice l's limit, rank 0's one log file
+          and checkpoints, each test question predicted once, no process
+          left (dp_cli_faults); (iv) (i) on NCCL with a card a rank where
+          the machine has 2 cards, else a line saying why it did not run.
      a-c, f-g, m and n serve behind a ServingEngine; each slice checks its
      launch counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
@@ -723,6 +747,14 @@ def stop_child_processes() -> None:
     if left:
         fail(f"processes still running at the end: {left}")
     print("processes: none of those this script started is still running", flush=True)
+
+
+def sync(dev) -> None:
+    """Wait for the card (no-op for the CPU of a dry run)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2624,16 +2656,22 @@ class Slices:
     """Production-width models of one registered key (T2S by default; slice
     m: the zoo's) that share one set of random weights."""
 
-    def __init__(self, dev, quiet: bool = False, key: str = "t2s"):
+    def __init__(self, dev, quiet: bool = False, key: str = "t2s", cfg=None, nf=None,
+                 dtype=None):
+        """``cfg``, ``nf`` and ``dtype`` (default: the key's production
+        config, its answers and bf16) let a dry run on the CPU build a tiny
+        model in float32."""
         import torch
 
         from vitxtgqa_tpu_torch.models.t2s import PRODUCTION_NUM_FINAL_OUTPUTS
 
-        self.dev, self.key, self.nf = dev, key, PRODUCTION_NUM_FINAL_OUTPUTS
-        self.cfg = zoo_config(key)
+        self.dev, self.key = dev, key
+        self.nf = PRODUCTION_NUM_FINAL_OUTPUTS if nf is None else nf
+        self.cfg = zoo_config(key) if cfg is None else cfg
+        self.dtype = torch.bfloat16 if dtype is None else dtype
         t0 = time.perf_counter()
         self.state = self._new(kv_cache_int8=True).init_weights(0).state_dict()
-        torch.cuda.synchronize()
+        sync(dev)
         self.n_params = sum(v.numel() for v in self.state.values())
         if not quiet:
             print(f"slices: {key} production width, {self.n_params / 1e6:.1f}M params, bf16, "
@@ -2659,7 +2697,7 @@ class Slices:
         kw = ({"inference_only": inference_only}
               if "inference_only" in inspect.signature(cls).parameters else {})
         return cls(self.cfg, self.nf, bos_idx=2, decode_recompute=decode_recompute,
-                   opts=Options(device=self.dev, dtype=torch.bfloat16, **opts), **kw)
+                   opts=Options(device=self.dev, dtype=self.dtype, **opts), **kw)
 
     def model(self, inference_only=True, **opts):
         """A model with these Options fields, bf16 on the card, holding the
@@ -4309,6 +4347,421 @@ def selector_slice(dev, record, card):
     return out
 
 
+# slice o: data parallelism over DP_RANKS ranks, gloo with both on the one
+# card (NCCL refuses two ranks on one device) or, where the machine has a
+# card for every rank, NCCL with a card a rank; the production step at the
+# global batch TRAIN_BATCH, TRAIN_BATCH / DP_RANKS rows a rank
+DP_RANKS = 2
+# the planted faults of the data-parallel step (dp_fault), each of which
+# the parity limits must reject: every rank divides its losses by its own
+# counts (the ranks' losses sum to a sum of their ratios, not the global
+# ratio), nothing is summed over the ranks (neither the gradients nor the
+# losses), or every rank takes the first rows of the global gumbel draws
+# instead of its own
+DP_FAULTS = ("local_counts", "unreduced", "first_rows")
+# the CLI phase: slice l's fixtures at a global batch of 4 (2 a rank), the
+# data assembled in 2 worker processes a rank
+DP_CLI_BATCH, DP_CLI_WORKERS = 4, 2
+# a dry run's global batch (the CPU, tiny widths)
+DP_DRY_BATCH = 4
+
+
+def dp_rows(sl) -> int:
+    """Slice o's global batch: TRAIN_BATCH on the card, DP_DRY_BATCH in a
+    dry run."""
+    return TRAIN_BATCH if sl.dev.type == "cuda" else DP_DRY_BATCH
+
+
+@contextlib.contextmanager
+def dp_fault(name):
+    """Plant one of DP_FAULTS for the duration (module docstring of slice
+    o): "local_counts" skips the losses' all-reduce of their denominators,
+    "unreduced" the optimizer's all-reduce of the gradients and losses,
+    "first_rows" makes RankRows hand every rank rows 0..B of the draw."""
+    from vitxtgqa_tpu_torch import losses as L
+    from vitxtgqa_tpu_torch.ops import gumbel as G
+    from vitxtgqa_tpu_torch.training import optim as O
+
+    saved = [(L, "all_reduce", L.all_reduce), (O, "all_reduce_flat_", O.all_reduce_flat_),
+             (G.RankRows, "__call__", G.RankRows.__call__)]
+    if name == "local_counts":
+        L.all_reduce = lambda t, group=None: t
+    elif name == "unreduced":
+        O.all_reduce_flat_ = lambda tensors, group=None: None
+    else:
+        def first_rows(self, shape, kind):
+            shape = tuple(int(s) for s in shape)
+            dev = self.source.device if hasattr(self.source, "device") else None
+            return G.sample(self.source, (shape[0] * self.size,) + shape[1:], kind,
+                            dev)[:shape[0]].contiguous()
+        G.RankRows.__call__ = first_rows
+    try:
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+def dp_step(sl, tensors, group=None, fault=None) -> dict:
+    """entry.data_parallel_step of the shared weights on ``tensors`` (a
+    rank's rows with a DataGroup ``group``, else the global batch in one
+    process), with a planted fault where named (the ranks' parameters
+    after the update then not checked equal), and its launch counts."""
+    from vitxtgqa_tpu_torch.entry import data_parallel_step
+    from vitxtgqa_tpu_torch.ops import _build
+
+    model = sl.model()
+    sync(sl.dev)
+    _build.reset_launch_counts()
+    with dp_fault(fault) if fault else contextlib.nullcontext():
+        out = data_parallel_step(model, sl.cfg, tensors, group, check_replicas=fault is None)
+    sync(sl.dev)
+    return {**out, "launches": _build.launch_counts(), "model_opts": model.opts}
+
+
+def dp_parity(sl, group, rank: int, card: str) -> dict:
+    """o(i). The step on this rank's rows of the global batch
+    (entry.dryrun_model_and_batch's), then with each planted fault; rank 0
+    holds each against the one-process step on the global batch at slice
+    e's limits (loss, gradient norm, every parameter's applied gradient:
+    entry.step_gaps); the launches of the rank."""
+    from vitxtgqa_tpu_torch.entry import dryrun_model_and_batch, step_gaps, within
+    from vitxtgqa_tpu_torch.parallel import collectives as C
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+
+    g = dp_rows(sl)
+    _, _, batch = dryrun_model_and_batch(sl.dev, g)
+    rows = to_device({k: v[rank::DP_RANKS] for k, v in batch.items()}, sl.dev)
+    kern = dp_step(sl, rows, group)
+    want = ({n: 0 for n in REPLACES} if sl.dev.type == "cpu"
+            else expected_train_launches(sl.cfg, kern["model_opts"]))
+    if kern["launches"] != want:
+        fail(f"slice o(i), rank {rank}: launches {kern['launches']}, expected {want}")
+    every = C.gather_objects([kern["loss"], kern["norm"]])
+    if any(e != every[0] for e in every):
+        fail(f"slice o(i): the ranks' global loss and gradient norm differ: {every}")
+    faults = {f: dp_step(sl, rows, group, fault=f) for f in DP_FAULTS}
+    C.synchronize()
+    summary = {"launches": kern["launches"], "expected": want}
+    if rank != 0:
+        return summary
+    del rows
+    ref = dp_step(sl, to_device(batch, sl.dev))
+    limits = (LOSS_REL_TOL, GNORM_REL_TOL, GRAD_REL_TOL, None)
+    for name, run in [("kernels", kern)] + list(faults.items()):
+        gaps = step_gaps(run, ref)
+        ok = within(gaps, limits)
+        (grad_rel, worst), (up_rel, up_worst) = gaps["grad_rel"], gaps["update_rel"]
+        print(f"slice o(i): {'the step' if name == 'kernels' else 'planted fault ' + name} on "
+              f"{DP_RANKS} ranks of {g // DP_RANKS} rows vs one process at {g}: loss "
+              f"{run['loss']:.6f} vs {ref['loss']:.6f} (rel {gaps['loss_rel']:.3e}), gradient "
+              f"norm rel {gaps['norm_rel']:.3e}, applied gradient rel max {grad_rel:.3e} "
+              f"({worst}) over {len(ref['grads'])} parameters (limits: loss {LOSS_REL_TOL}, "
+              f"norm {GNORM_REL_TOL}, parameter {GRAD_REL_TOL}): "
+              f"{'within' if ok else 'outside'}; update rel max {up_rel:.3e} ({up_worst}); "
+              f"card {card}", flush=True)
+        reading = {"loss": run["loss"], "loss_rel": gaps["loss_rel"],
+                   "grad_norm_rel": gaps["norm_rel"], "max_grad_rel": grad_rel,
+                   "max_grad_rel_param": worst, "max_update_rel": up_rel}
+        if name == "kernels":
+            summary.update(reading, loss_one_process=ref["loss"])
+            if not ok:
+                fail("slice o(i): the data-parallel step disagrees with the one-process step")
+        else:
+            summary.setdefault("planted", {})[name] = reading
+            if ok:
+                fail(f"slice o(i): the planted fault {name} passes the limits")
+    return summary
+
+
+def dp_timing(sl, group, rank: int, card: str) -> dict:
+    """o(ii). The production step with the config's dropout at the global
+    batch TRAIN_BATCH over the ranks (entry.dryrun_model_and_batch's model
+    and batch with dropout), TRAIN_STEPS steps (the first warms up): each
+    rank's ms a step; the ms of the step's all-reduce of the float32
+    gradients and losses (the optimizer's all_reduce_flat_ inside
+    train_step, host clock from a synchronize before it to one after; gloo
+    moves them through the host); the device memory allocated when the
+    steps start, after a garbage collection (o(i)'s optimizers linger in
+    reference cycles until one runs, one more on rank 0), and its peak
+    over them."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from vitxtgqa_tpu_torch.entry import dryrun_model_and_batch
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.parallel import collectives as C
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+    from vitxtgqa_tpu_torch.training import optim as O
+    from vitxtgqa_tpu_torch.training.step import step_generators, train_step
+
+    cuda = sl.dev.type == "cuda"
+    g = dp_rows(sl)
+    cfg, _, batch = dryrun_model_and_batch(sl.dev, g, dropout=True)
+    sl = sl.with_cfg(cfg)
+    model = sl.model()
+    opt = O.build_optimizer(model, model_config=sl.cfg, group=group)
+    losses = Losses(sl.cfg["losses"], group=group)
+    rows = to_device({k: v[rank::DP_RANKS] for k, v in batch.items()}, sl.dev)
+    real, reduce_ms, reduce_bytes = O.all_reduce_flat_, [], []
+
+    def timed_all_reduce(tensors, group=None):
+        sync(sl.dev)
+        t = time.perf_counter()
+        real(tensors, group)
+        sync(sl.dev)
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        reduce_bytes.append(sum(x.numel() * x.element_size() for x in tensors))
+
+    gc.collect()
+    base = torch.cuda.memory_allocated() if cuda else None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    times, seen = [], []
+    O.all_reduce_flat_ = timed_all_reduce
+    try:
+        for step in range(TRAIN_STEPS if cuda else 2):
+            sync(sl.dev)
+            _build.reset_launch_counts()
+            t = time.perf_counter()
+            r = train_step(model, losses, opt, rows, step_generators(0, step, sl.dev, group))
+            sync(sl.dev)
+            times.append((time.perf_counter() - t) * 1e3)
+            counts = _build.launch_counts()
+            want = (expected_train_launches(sl.cfg, model.opts) if cuda
+                    else {n: 0 for n in REPLACES})
+            if counts != want:
+                fail(f"slice o(ii), rank {rank}, step {step}: launches {counts}, expected {want}")
+            seen.append(float(r["loss"]))
+            if not r["applied"]:
+                fail(f"slice o(ii): step {step} was skipped (loss {seen[-1]})")
+    finally:
+        O.all_reduce_flat_ = real
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    mine = {"rank": rank, "step_ms_all": times, "step_ms_median": statistics.median(times[1:]),
+            "allreduce_ms_all": reduce_ms, "allreduce_ms_median": statistics.median(reduce_ms[1:]),
+            "allreduce_bytes": reduce_bytes[-1], "memory_allocated_at_start": base,
+            "max_memory_allocated": peak, "losses": seen, "launches_a_step": counts}
+    every = C.gather_objects(mine)
+    if rank == 0:
+        for e in every:
+            mem = "not on the card" if e["max_memory_allocated"] is None else (
+                f"{e['memory_allocated_at_start'] / 2**30:.2f} GiB at the start, peak "
+                f"{e['max_memory_allocated'] / 2**30:.2f} GiB")
+            print(f"slice o(ii): rank {e['rank']}, {g // DP_RANKS} rows a step of "
+                  f"global batch {g} with the config's dropout: step ms "
+                  f"{[round(x, 2) for x in e['step_ms_all']]} (the first warms up), median "
+                  f"{e['step_ms_median']:.2f}; of it the all-reduce of the "
+                  f"{e['allreduce_bytes'] / 2**20:.1f} MiB of float32 gradients and losses "
+                  f"{[round(x, 2) for x in e['allreduce_ms_all']]} ms (median "
+                  f"{e['allreduce_ms_median']:.2f}; {dist.get_backend()} through the host: "
+                  f"a capability, not a data-parallel rate); device memory allocated {mem}; "
+                  f"losses {e['losses']}; card {card}", flush=True)
+    del model, opt
+    return {"ranks": every}
+
+
+def dp_rank(rank: int, directory: str, card: str, cards: int, dry: bool):
+    """One rank of slice o (torch.multiprocessing.spawn's target): takes
+    its backend and card from parallel/mesh.rank_device over ``cards``
+    cards (1: gloo, both ranks on card 0; DP_RANKS: NCCL, a card a rank),
+    or the CPU at a tiny width (``dry``: gloo, float32), joins the process
+    group (a file:// rendezvous in ``directory``), builds the shared
+    weights of entry.dryrun_model_and_batch's model (every dropout 0) and
+    runs o(i), then (not for NCCL's repeat) o(ii); rank 0 writes the
+    summary to ``directory``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from vitxtgqa_tpu_torch.entry import dryrun_model_and_batch
+    from vitxtgqa_tpu_torch.parallel.mesh import build_data_group, rank_device
+
+    if dry:
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend, dev = rank_device(rank, DP_RANKS, not dry, cards)
+    cfg, nf, _ = dryrun_model_and_batch(dev, 1)
+    dist.init_process_group(backend, init_method=f"file://{directory}/rendezvous", rank=rank,
+                            world_size=DP_RANKS)
+    try:
+        sl = Slices(dev, quiet=True, cfg=cfg, nf=nf, dtype=torch.float32 if dry else None)
+        group = build_data_group(DP_RANKS, batch_size=dp_rows(sl))
+        out = {"parity": dp_parity(sl, group, rank, card)}
+        if backend == "gloo":
+            out["timing"] = dp_timing(sl, group, rank, card)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(directory, "rank0.json"), "w") as f:
+            json.dump(out, f)
+
+
+def dp_spawn(card: str, cards: int, dry: bool = False) -> dict:
+    """Run dp_rank on DP_RANKS spawned processes over ``cards`` cards;
+    rank 0's summary."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as directory:
+        mp.spawn(dp_rank, args=(directory, card, cards, dry), nprocs=DP_RANKS, join=True)
+        with open(os.path.join(directory, "rank0.json")) as f:
+            return json.load(f)
+
+
+def dp_dropout_opts() -> list:
+    """CLI options setting every dropout of the t2s config to 0."""
+    return ([f"model_attributes.t2s.{sect}.{k}=0.0" for sect in ("text_bert", "translayers", "mmt")
+             for k in ("hidden_dropout_prob", "attention_probs_dropout_prob")]
+            + [f"model_attributes.t2s.{sect}.dropout_prob=0.0" for sect in ("obj", "ocr")])
+
+
+def tagged_processes(tag: str) -> list:
+    """(pid, command line) of each live process whose environment holds
+    ``CHIP_SMOKE_DP_TAG=tag``."""
+    out = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        if f"CHIP_SMOKE_DP_TAG={tag}".encode() in env:
+            out.append((int(pid), cmd[:160]))
+    return out
+
+
+def dp_cli(card: str, extra=(), timeout: float = 600.0) -> dict:
+    """o(iii). ``python -m torch.distributed.run --standalone --nproc_per_node
+    DP_RANKS -m vitxtgqa_tpu_torch.run ... training_parameters.
+    distributed_init=True`` on slice l's fixtures: configs/t2s_abinet.yml,
+    train+inference with EvalAI predictions, RUNTIME_STEPS iterations at
+    the global batch DP_CLI_BATCH, every dropout 0, DP_CLI_WORKERS worker
+    processes a rank (``extra``: more options, a dry run's); the same
+    through run() in this process.  Each iteration's loss within
+    RUNTIME_LOSS_REL_TOL of the one-process run's; one log file, ckpt/best
+    and ckpt/final written by a world of DP_RANKS; the test report lists
+    each test question once; no process of the run left behind."""
+    import shutil
+    import tempfile
+    import uuid
+
+    from vitxtgqa_tpu_torch.run import run
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    try:
+        fixroot = os.path.join(tmp, "data")
+        write_fixtures(fixroot)
+        tp = dict(batch_size=DP_CLI_BATCH, max_iterations=RUNTIME_STEPS, warmup_iterations=2,
+                  snapshot_interval=RUNTIME_STEPS, log_interval=1, num_workers=DP_CLI_WORKERS,
+                  evalai_inference=True)
+        argv = lambda save: (runtime_argv("t2s_abinet.yml", "train+inference", fixroot,
+                                          os.path.join(tmp, save), **tp)
+                             + dp_dropout_opts() + list(extra))
+        one = run(argv("one"))
+        want = list(one.meter["train/total_loss"].series)
+        questions = len(one.datasets["test"])
+        del one
+        tag = uuid.uuid4().hex
+        env = dict(os.environ, CHIP_SMOKE_DP_TAG=tag,
+                   PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(DP_RANKS), "-m", "vitxtgqa_tpu_torch.run"]
+               + argv("dp") + ["training_parameters.distributed_init=True"])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=timeout)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            fail(f"slice o(iii): the torchrun command exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        left = tagged_processes(tag)
+        save = os.path.join(tmp, "dp")
+        with open(os.path.join(save, "scalars.jsonl")) as f:
+            got = [r["train/total_loss"] for r in map(json.loads, f) if "train/total_loss" in r]
+        with open(os.path.join(save, "ckpt", "final", "meta.json")) as f:
+            meta = json.load(f)
+        logs = [n for n in os.listdir(save) if n.endswith(".log")]
+        reports = os.path.join(save, "reports")
+        (test,) = [n for n in os.listdir(reports) if "_test_" in n]
+        with open(os.path.join(reports, test)) as f:
+            qids = [row["question_id"] for row in json.load(f)]
+        facts = {"losses": got, "losses_one_process": want,
+                 "checkpoints": all(os.path.exists(os.path.join(save, "ckpt", d, "state.pt"))
+                                    for d in ("best", "final")),
+                 "world_size": meta.get("world_size"), "log_files": logs,
+                 "predictions": qids, "questions": questions, "left": left}
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        print(f"slice o(iii): torchrun with {DP_RANKS} processes, global batch {DP_CLI_BATCH}, "
+              f"{RUNTIME_STEPS} iterations: losses {got} vs one process {want} (rel "
+              f"{[f'{x:.3e}' for x in rel]}, limit {RUNTIME_LOSS_REL_TOL}); checkpoints of a "
+              f"world of {meta.get('world_size')}: best and final {facts['checkpoints']}; log "
+              f"files {len(logs)}; {len(qids)} test predictions for {questions} questions "
+              f"({len(set(qids))} distinct); processes left {left}; {wall:.1f} s; card {card}",
+              flush=True)
+        faults = dp_cli_faults(facts)
+        if faults:
+            fail("slice o(iii): " + "; ".join(faults))
+        return {"losses": got, "losses_one_process": want, "loss_rel": rel, "wall_s": wall,
+                "predictions": len(qids), "world_size": meta.get("world_size")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dp_cli_faults(facts: dict) -> list:
+    """What o(iii)'s run got wrong, from its facts: each iteration's loss
+    against the one-process run's (RUNTIME_LOSS_REL_TOL), the checkpoints
+    (best and final, of a world of DP_RANKS, one log file: rank 0's), each
+    test question predicted once, no process left."""
+    got, want = facts["losses"], facts["losses_one_process"]
+    out = []
+    if len(got) != RUNTIME_STEPS or len(want) != RUNTIME_STEPS or not all(
+            abs(g - w) <= RUNTIME_LOSS_REL_TOL * abs(w) for g, w in zip(got, want)):
+        out.append(f"losses {got} against the one-process run's {want}")
+    if (not facts["checkpoints"] or facts["world_size"] != DP_RANKS
+            or len(facts["log_files"]) != 1):
+        out.append(f"checkpoints {facts['checkpoints']}, world {facts['world_size']}, log "
+                   f"files {facts['log_files']}")
+    qids, n = facts["predictions"], facts["questions"]
+    if len(qids) != n or len(set(qids)) != n:
+        out.append(f"{len(qids)} predictions ({len(set(qids))} distinct) for {n} test questions")
+    if facts["left"]:
+        out.append(f"processes left running: {facts['left']}")
+    return out
+
+
+def dp_slice(record, card, dry: bool = False) -> dict:
+    """o. Data parallelism: (i) parity and (ii) timing on DP_RANKS gloo
+    ranks (dp_spawn; both on the card, or on the CPU for a dry run), rank
+    0's launches into the record; (iii) the torchrun CLI (dp_cli; a dry
+    run calls it itself); (iv) (i) again on NCCL with a card a rank where
+    the machine has DP_RANKS cards, else a line saying why not."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = dp_spawn(card, 1, dry)
+    count_launches("slice o(i)", record, out["parity"]["launches"], out["parity"]["expected"])
+    if not dry:
+        out["cli"] = dp_cli(card)
+        cards = torch.cuda.device_count()
+        if cards >= DP_RANKS:
+            out["nccl"] = dp_spawn(card, DP_RANKS)
+        else:
+            print(f"slice o(iv): not run: NCCL with a card a rank needs {DP_RANKS} cards and "
+                  f"this machine has {cards} (gloo ran both ranks on the one card)", flush=True)
+            out["nccl"] = None
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"slice o: done in {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def default_options_check(sl, model, batch, record):
     """A serving forward at batch BATCH from a model built with
     Options(kv_cache_int8=True) and nothing else (the card and, by default
@@ -4464,6 +4917,8 @@ def run_slices(dev, record, card):
     details["zoo"] = zoo_slice(dev, record, card)
     # n. the selector baselines, TranSTR and MIST
     details["selectors"] = selector_slice(dev, record, card)
+    # o. data parallelism over DP_RANKS ranks: parity, timing, the torchrun CLI
+    details["dp"] = dp_slice(record, card)
     return details
 
 

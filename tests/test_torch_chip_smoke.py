@@ -20,6 +20,7 @@ import torch
 
 import chip_smoke as CS
 from tests import torch_sp_ranks
+from tests.test_torch_train import _no_dropout_config
 from tests.torch_helpers import cpu_options, one_torch_thread  # noqa: F401
 from vitxtgqa_tpu.utils.synthetic import tiny_model_config
 from vitxtgqa_tpu_torch.losses import Losses
@@ -1259,3 +1260,95 @@ def test_slice_m_rejects_a_compact_gate_fault(case, fault, monkeypatch):
             CS.count_launches("slice m", {}, counts, _zoo_want(case, cfg, model))
     else:
         CS.count_launches("slice m", {}, counts, _zoo_want(case, cfg, model))
+
+
+# ---------------------------------------------------------------------------
+# slice o: data parallelism, dry-run on two gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_slice_o_launches_count_each_ranks_kernel_calls(tmp_path):
+    """chip_smoke.expected_train_launches against the calls each of two
+    data-parallel ranks makes in one training step (tests/torch_dp_ranks.py)
+    at the tiny wide geometry (384 joint rows: the flash route; lane-aligned
+    widths: the block gate), every dropout 0: each rank launches the
+    one-process step's kernels, #1, #1b, #9a and #9b, on its rows."""
+    from tests import torch_dp_ranks
+    from vitxtgqa_tpu_torch import Options
+
+    cfg = _no_dropout_config(OCR_PF, 128).to_dict()
+    nf = 32 + FRAMES * OCR_PF
+    batch = synthetic_batch(batch=4, frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4,
+                            text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                            num_final_outputs=nf, text_vocab=128, seed=0)
+    state = {k: v.numpy() for k, v in
+             T2S(cfg, nf, opts=cpu_options()).init_weights(0).state_dict().items()}
+    case = dict(kind="launches", cfg=cfg, nf=nf, state=state, batch=batch, seed=7,
+                plain_of=SP_PLAIN_OF,
+                losses=[{"type": "pos_bce_loss", "weight": 1.0}, {"type": "InfoNCE", "weight": 1000}])
+    ranks = torch_dp_ranks.start({"step": case}, tmp_path).results()
+    want = CS.expected_train_launches(cfg, Options(device="cpu"))
+    assert min(want[n] for n in ("flash_attention_merged", "flash_attention_merged_bwd",
+                                 "block_train_fwd", "block_train_bwd")) > 0
+    for rank in ranks:
+        assert {n: rank["step"].get(n, 0) for n in CS.REPLACES} == want
+
+
+@pytest.fixture(scope="module")
+def dp_dry():
+    return CS.dp_spawn("cpu", 1, dry=True)
+
+
+def test_slice_o_parity_holds_and_rejects_the_planted_faults(dp_dry):
+    """dp_spawn's dry run (two gloo ranks on the CPU, the tiny model of
+    entry.dryrun_model_and_batch in float32): the data-parallel step
+    against the one-process step within float32 noise, each planted fault
+    outside slice e's limits (dp_parity fails the run otherwise), and
+    o(ii)'s readings of both ranks (the same global losses)."""
+    par = dp_dry["parity"]
+    assert par["loss_rel"] <= 1e-5 and par["grad_norm_rel"] <= 1e-5
+    assert par["max_grad_rel"] <= 1e-4
+    for fault in CS.DP_FAULTS:
+        r = par["planted"][fault]
+        assert (r["loss_rel"] > CS.LOSS_REL_TOL or r["grad_norm_rel"] > CS.GNORM_REL_TOL
+                or r["max_grad_rel"] > CS.GRAD_REL_TOL), fault
+    ranks = dp_dry["timing"]["ranks"]
+    assert [r["rank"] for r in ranks] == [0, 1] and ranks[0]["losses"] == ranks[1]["losses"]
+    assert all(r["allreduce_bytes"] > 0 and len(r["step_ms_all"]) == 2 for r in ranks)
+
+
+def _dp_cli_extra():
+    """The dry run's options: the CPU, float32, tiny widths (the runtime
+    tests'), the fixtures' geometry."""
+    from tests.test_torch_runtime import tiny_opts
+
+    return [o for o in tiny_opts("/fixtures", "/save") if not o.startswith((
+        "dataset_attributes.vtextgqa.data_root_dir", "training_parameters.save_dir",
+        "training_parameters.batch_size", "training_parameters.num_workers",
+        "training_parameters.seed"))]
+
+
+def test_slice_o_cli_dry_run():
+    """dp_cli on the CPU: torchrun's two gloo processes run the CLI (three
+    iterations, validation, predictions) on fixtures, their losses equal the
+    one-process run's, rank 0 writes one log and the checkpoints, the test
+    report has each question once, and nothing is left running."""
+    out = CS.dp_cli("cpu", extra=_dp_cli_extra())
+    assert out["world_size"] == CS.DP_RANKS and out["predictions"] == 6
+    np.testing.assert_allclose(out["losses"], out["losses_one_process"], rtol=1e-5)
+
+
+GOOD_CLI = {"losses": [3.0, 2.0, 1.0], "losses_one_process": [3.0, 2.0, 1.0],
+            "checkpoints": True, "world_size": 2, "log_files": ["run.log"],
+            "predictions": [1, 2, 3], "questions": 3, "left": []}
+
+
+@pytest.mark.parametrize("fault", [
+    dict(losses=[3.0, 2.0, 1.01]), dict(losses=[3.0, 2.0]), dict(checkpoints=False),
+    dict(world_size=1), dict(log_files=["a.log", "b.log"]), dict(predictions=[1, 2, 2]),
+    dict(predictions=[1, 2]), dict(left=[(7, "python -m vitxtgqa_tpu_torch.run")])],
+    ids=["loss_off", "step_missing", "no_checkpoint", "one_rank", "two_logs",
+         "a_question_twice", "a_question_missing", "a_process_left"])
+def test_slice_o_cli_checks_reject_a_planted_fault(fault):
+    assert CS.dp_cli_faults(GOOD_CLI) == []
+    assert CS.dp_cli_faults({**GOOD_CLI, **fault})

@@ -426,8 +426,8 @@ def _inject_port_noise(monkeypatch, noise):
 
     real = T.step_generators
 
-    def gens(seed, step, device):
-        dropout_gen, _ = real(seed, step, device)
+    def gens(seed, step, device, group=None):
+        dropout_gen, _ = real(seed, step, device, group)
         return dropout_gen, tuple(torch.from_numpy(noise[(2, 2, n)]) for n in (FRAMES, OCR))
 
     monkeypatch.setattr(T, "step_generators", gens)
@@ -680,10 +680,21 @@ def test_the_runtime_reads_nothing_of_the_jax_package(repo_root, fixroot, tmp_pa
 # ---------------------------------------------------------------------------
 
 
-def _tp(device="cpu", **tpu):
+def _tp(device="cpu", batch_size=None, **tpu):
     from vitxtgqa_tpu_torch.core.config import ConfigNode
 
-    return ConfigNode({"device": device, "tpu": tpu})
+    tp = {"device": device, "tpu": tpu}
+    if batch_size is not None:
+        tp["batch_size"] = batch_size
+    return ConfigNode(tp)
+
+
+def _world(monkeypatch, size: int):
+    """options_from_config in a torch.distributed world of ``size``
+    processes (the data axis reads the world size)."""
+    from vitxtgqa_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "process_count", lambda: size)
 
 
 def _no_cuda(monkeypatch):
@@ -713,10 +724,23 @@ REFUSALS = {
     "remat_full": ("cpu", {"remat": "full"}, False, ValueError, "queue 1 item 6"),
     "remat_dots": ("cpu", {"remat": "dots"}, False, ValueError, "queue 1 item 6"),
     "remat_attn_qkv": ("cpu", {"remat": "attn_qkv"}, False, ValueError, "queue 1 item 6"),
-    "mesh_data_2": ("cpu", {"mesh": {"data": 2}}, False, NotImplementedError, "queue 1 item 5"),
     "mesh_sp_2": ("cpu", {"mesh": {"data": -1, "sp": 2}}, False, NotImplementedError,
                   "queue 1 item 5"),
+    "mesh_model_2": ("cpu", {"mesh": {"model": 2}}, False, NotImplementedError,
+                     "tensor parallelism .*queue 1 item 5"),
+    "mesh_pp_2": ("cpu", {"mesh": {"pp": 2}}, False, NotImplementedError,
+                  "pipeline parallelism .*queue 1 item 5"),
+    "mesh_data_2_sp_2": ("cpu", {"mesh": {"data": 2, "sp": 2}}, False, NotImplementedError,
+                         "data axis together with sequence parallelism .*queue 1 item 5"),
+    "mesh_data_not_the_world": ("cpu", {"mesh": {"data": 3}}, False, ValueError,
+                                "spans the world of 2"),
+    "batch_not_divisible": ("cpu", {"mesh": {"data": -1}}, False, ValueError,
+                            "batch_size 3 .* not divisible by the data axis of 2"),
 }
+# (world size, global batch) of the cases that run in a world of several
+# processes; the others run in one
+WORLDS = {"mesh_data_2_sp_2": (2, 4), "mesh_data_not_the_world": (2, 4),
+          "batch_not_divisible": (2, 3), "mesh_data_2": (2, 4)}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
@@ -725,8 +749,10 @@ def test_config_switch_raises(case, monkeypatch):
 
     device, tpu, cuda, err, words = REFUSALS[case]
     (_cuda if cuda else _no_cuda)(monkeypatch)
+    world, batch = WORLDS.get(case, (1, None))
+    _world(monkeypatch, world)
     with pytest.raises(err, match=words):
-        options_from_config(_tp(device, **tpu))
+        options_from_config(_tp(device, batch, **tpu))
 
 
 # (device, tpu switches, whether CUDA is there, the Options fields expected)
@@ -753,6 +779,8 @@ MAPPINGS = {
                 False, dict(kv_cache_int8=True, fused_decode=False, fused_decode_max_batch=4,
                             w8a8=True, compact_serving=True)),
     "mesh_one_device": ("cpu", {"mesh": {"data": -1, "model": 1, "sp": 1, "pp": 1}}, False, {}),
+    # the data axis over a world of two processes, a global batch of 4
+    "mesh_data_2": ("cpu", {"mesh": {"data": 2}}, False, {}),
 }
 
 
@@ -762,7 +790,9 @@ def test_config_switch_maps_onto_options(case, monkeypatch):
 
     device, tpu, cuda, fields = MAPPINGS[case]
     (_cuda if cuda else _no_cuda)(monkeypatch)
-    opts = options_from_config(_tp(device, **tpu))
+    world, batch = WORLDS.get(case, (1, None))
+    _world(monkeypatch, world)
+    opts = options_from_config(_tp(device, batch, **tpu))
     assert opts.device.type == ("cuda" if cuda else "cpu")
     for k, v in fields.items():
         assert getattr(opts, k) == v, k
@@ -786,13 +816,21 @@ def test_the_t2s_configs_map_onto_options(repo_root, name, monkeypatch):
 
 @pytest.mark.parametrize("how", ["env", "config"])
 def test_run_refuses_multi_process_runs(repo_root, fixroot, tmp_path, monkeypatch, how):
-    argv = _cli(repo_root) + tiny_opts(fixroot, tmp_path)
+    """The multi-process switch (VITXTGQA_DISTRIBUTED=1 or
+    training_parameters.distributed_init) without a torchrun environment
+    raises, naming the launch; it trains nothing in one process."""
+    from vitxtgqa_tpu_torch.parallel.mesh import WORLD_ENV
+
+    for key in WORLD_ENV:
+        monkeypatch.delenv(key, raising=False)
+    argv = _cli(repo_root) + tiny_opts(fixroot, tmp_path / "s")
     if how == "env":
         monkeypatch.setenv("VITXTGQA_DISTRIBUTED", "1")
     else:
         argv += ["training_parameters.distributed_init=True"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="torchrun environment .*torch.distributed.run"):
         port_run(argv)
+    assert not os.path.exists(os.path.join(str(tmp_path), "s"))
 
 
 def test_run_without_a_device_option_needs_the_card(repo_root, fixroot, tmp_path, monkeypatch):

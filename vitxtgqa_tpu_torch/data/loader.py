@@ -1,10 +1,10 @@
 """Batched, shuffled, epoch-seeded data loading with host prefetch.
 
 The port's copy of vitxtgqa_tpu/data/loader.py (reference:
-pythia/datasets/multi_dataset.py:254-293, samplers.py:10-66) for one
-process: the loader yields fixed-shape numpy batches on the host, in the
-same epoch-seeded order; `prefetch_batches` overlaps their assembly with
-the device's compute on a host thread.
+pythia/datasets/multi_dataset.py:254-293, samplers.py:10-66): the loader
+yields fixed-shape numpy batches on the host, in the same epoch-seeded
+order; `prefetch_batches` overlaps their assembly with the device's compute
+on a host thread.
 
 Beyond the JAX loader, for an exact resume: ``iter_from`` starts an epoch
 at a batch offset, and ``infinite_batches`` tags each batch with its epoch
@@ -12,7 +12,26 @@ and its index in the epoch.  With ``num_workers=0`` the samples draw from
 the dataset's host generators in order (as in JAX), and each batch carries
 their state after its assembly (``host["data_rng"]``); with worker
 processes each sample draws from generators seeded by (seed, epoch,
-index), so a batch depends on its place alone, whatever the worker count.
+dataset index), so a batch depends on its place alone, whatever the worker
+count.
+
+Ranks of a data axis (``rank``, ``world_size``): the loader's j-th batch
+on rank r is rows r, r + W, ... of the one-process run's j-th global batch
+of ``batch_size * world_size`` samples (padded with its last sample where
+``pad_last``, as one process pads).  The ranks' real rows are those of the
+JAX package's rank sampler (the epoch's order padded to a multiple of the
+world size by wrapping, the rank's stride of it), and their union is the
+one-process batch; ``host["n_valid"]`` counts the rank's real rows
+(positions below the dataset's size), neither the padding nor the JAX
+sampler's wrap-around copies.  Every rank yields the
+same number of batches: with ``drop_last``, the one-process run's (the JAX
+multi-host loader can yield one more, holding wrap-around copies);
+without it, ``pad_last`` is required.  A sample's draws depend on its
+global position alone: with worker processes through the (seed, epoch,
+index) seeding, and with none each rank assembles the whole global batch
+in order, so that the host generators advance as in one process, and keeps
+its rows (the rank's host work is the global batch's).  ``merge_rows``
+puts the ranks' rows back in the global order.
 """
 
 from __future__ import annotations
@@ -30,7 +49,8 @@ from vitxtgqa_tpu_torch.data.dataset import collate
 
 class EpochSampler:
     """Epoch-seeded shuffled (or sequential) indices (the reference
-    DistributedSampler's order at world size 1, samplers.py:10-66)."""
+    DistributedSampler's order at world size 1, samplers.py:10-66); the
+    loader takes a rank's rows of it."""
 
     def __init__(self, n: int, shuffle: bool = True, seed: int = 0):
         self.n = n
@@ -45,6 +65,17 @@ class EpochSampler:
         if self.shuffle:
             return np.random.default_rng(self.seed + self.epoch).permutation(self.n).tolist()
         return list(range(self.n))
+
+
+def merge_rows(per_rank: List[List[Any]]) -> List[Any]:
+    """The ranks' rows of one global batch in the one-process order: row k
+    of rank r is global row k * world_size + r.  A rank's real rows come
+    first (DataLoader), so merging their real rows gives the global batch's
+    real rows."""
+    out: List[Any] = []
+    for k in range(max((len(rows) for rows in per_rank), default=0)):
+        out.extend(rows[k] for rows in per_rank if k < len(rows))
+    return out
 
 
 _PROCESS_DATASETS: Dict[int, Any] = {}
@@ -99,7 +130,12 @@ class DataLoader:
         drop_last: bool = False,
         num_workers: int = 0,
         pad_last: bool = False,
+        rank: int = 0,
+        world_size: int = 1,
     ):
+        if world_size > 1 and not (drop_last or pad_last):
+            raise ValueError("a loader of several ranks drops or pads its last batch, so that "
+                             "every rank holds batch_size rows")
         self.dataset = dataset
         self.batch_size = batch_size
         self.drop_last = drop_last
@@ -110,13 +146,16 @@ class DataLoader:
         # records the real count
         self.pad_last = pad_last
         self.sampler = EpochSampler(len(dataset), shuffle=shuffle, seed=seed)
+        # this process's rows of each global batch: rank, rank + world_size, ...
+        self.rank = rank
+        self.world_size = world_size
 
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
 
     def __len__(self) -> int:
-        n = self.sampler.n
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        n, g = self.sampler.n, self.batch_size * self.world_size
+        return n // g if self.drop_last else -(-n // g)
 
     def _emit(self, samples: List[Any], n_real: int) -> Dict[str, Any]:
         batch = collate(samples)
@@ -169,16 +208,26 @@ class DataLoader:
     def iter_from(self, start_batch: int) -> Iterator[Dict[str, Any]]:
         """The epoch's batches from index ``start_batch`` on (the earlier
         ones are skipped without being assembled)."""
-        indices = self.sampler.indices()
-        for start in range(start_batch * self.batch_size, len(indices), self.batch_size):
-            chunk = indices[start : start + self.batch_size]
+        order = self.sampler.indices()
+        r, w = self.rank, self.world_size
+        g = self.batch_size * w
+        for start in range(start_batch * g, len(order), g):
+            chunk = order[start : start + g]
             n_real = len(chunk)
-            if n_real < self.batch_size:
+            if n_real < g:
                 if self.drop_last:
                     return
                 if self.pad_last:
-                    chunk = chunk + [chunk[-1]] * (self.batch_size - n_real)
-            yield self._emit(self._fetch(chunk), n_real)
+                    chunk = chunk + [chunk[-1]] * (g - n_real)
+            rows = range(r, len(chunk), w)
+            if self.num_workers <= 0:
+                # the whole global batch in order: the host generators
+                # advance as in one process
+                everything = self._fetch(chunk)
+                samples = [everything[k] for k in rows]
+            else:
+                samples = self._fetch([chunk[k] for k in rows])
+            yield self._emit(samples, sum(k < n_real for k in rows))
 
 
 def infinite_batches(

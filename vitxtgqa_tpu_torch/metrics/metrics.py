@@ -100,8 +100,17 @@ def decode_answers(
     return out
 
 
+def pred_indices(output) -> np.ndarray:
+    """The greedy answer indices [B, S]: ``pred_inds`` where the output
+    carries them (the ranks of a data axis gather those, not the scores),
+    else the argmax of ``pos_scores``."""
+    if "pred_inds" in output:
+        return np.asarray(output["pred_inds"])
+    return np.asarray(output["pos_scores"]).argmax(-1)
+
+
 def _qa_predictions(tensors, output, host, ctx):
-    pred_inds = np.asarray(output["pos_scores"]).argmax(-1)
+    pred_inds = pred_indices(output)
     preds = decode_answers(pred_inds, host["context_tokens"], ctx.answer_processor)
     # score against the tiled-to-10 answer list, like the reference's
     # gt_answers_enc (vtextgqa/dataset.py:290-298, metrics.py:212)

@@ -249,7 +249,8 @@ class JointQAModel(nn.Module):
         dec_len = prev_inds.shape[1]
         ppe = self.mmt.prev_pred_embeddings
         ans_tbl, ocr_tbl = ppe.tables(self.classifier.table(),
-                                      ocr if embed_ocr is None else embed_ocr)
+                                      ocr if embed_ocr is None else embed_ocr,
+                                      float32_answers=True)
         dec_emb = ppe.embed(ans_tbl, ocr_tbl, prev_inds, gen=gen)
         l0 = txt.shape[1] + obj.shape[1] + ocr.shape[1]
         pad = self._enc_row_pad(l0, dec_len)

@@ -107,12 +107,15 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with float32 statistics, output in the parameters' dtype."""
+    """LayerNorm with float32 statistics, output in the parameters' dtype
+    (``float32``: the float32 output before that rounding)."""
+
+    def float32(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
-                         self.bias.float(), self.eps)
-        return y.to(self.weight.dtype)
+        return self.float32(x).to(self.weight.dtype)
 
 
 class TransformerLayer(nn.Module):
@@ -417,10 +420,18 @@ class PrevPredEmbeddings(nn.Module):
         self.ocr_layer_norm = LayerNorm(d, eps=eps)
         self.emb_layer_norm = LayerNorm(d, eps=eps)
 
-    def tables(self, ans_emb, ocr_emb):
+    def tables(self, ans_emb, ocr_emb, float32_answers: bool = False):
         """LayerNormed tables ([V, D], [B, N, D]); loop-invariant during
-        decode, so computed once before it."""
-        return self.ans_layer_norm(ans_emb).to(ocr_emb.dtype), self.ocr_layer_norm(ocr_emb)
+        decode, so computed once before it.  The answer table is in the OCR
+        table's dtype, or float32 where ``float32_answers`` (the
+        teacher-forced pass: every decoder slot of the batch that names an
+        answer gathers its row, so the gather's backward adds hundreds of
+        contributions into a row, which bf16 would round at every add)."""
+        if float32_answers:
+            ans = self.ans_layer_norm.float32(ans_emb)
+        else:
+            ans = self.ans_layer_norm(ans_emb).to(ocr_emb.dtype)
+        return ans, self.ocr_layer_norm(ocr_emb)
 
     def embed(self, ans, ocr, prev_inds, position_offset: int = 0, gen=None):
         """Gather decoder-slot embeddings from prepared tables; prev_inds
@@ -429,7 +440,7 @@ class PrevPredEmbeddings(nn.Module):
         b, s = prev_inds.shape
         ans_num = ans.shape[0]
         is_ocr = prev_inds >= ans_num
-        from_ans = ans[prev_inds.clamp(0, ans_num - 1)]
+        from_ans = ans[prev_inds.clamp(0, ans_num - 1)].to(ocr.dtype)
         ocr_idx = (prev_inds - ans_num).clamp(0, ocr.shape[1] - 1)
         from_ocr = torch.gather(ocr, 1, ocr_idx[..., None].expand(b, s, ocr.shape[2]))
         raw = torch.where(is_ocr[..., None], from_ocr, from_ans)

@@ -2,8 +2,9 @@
 
 Counterpart of vitxtgqa_tpu/models/grounding.py, with the same static-shape
 index plumbing.  The two gumbel draws (temporal, then spatial) are
-injectable: ``GroundingModule.forward`` takes a ``torch.Generator`` to draw
-them from, or the two noise tensors themselves ([B, 2, F] and [B, 2, N]);
+injectable: ``GroundingModule.forward`` takes a ``torch.Generator`` or a
+noise source (ops/gumbel.sample) to draw them from, or the two noise
+tensors themselves ([B, 2, F] and [B, 2, N]);
 a grounding that needs one draw only (the ablations of
 models/t2s_ablations.py) takes its own from either (``draw_noise``).
 Grounding computes in float32, as the JAX module does (its Dense layers
@@ -13,7 +14,7 @@ the post-hoc heads (models/posthoc.py, models/t5vitevqa.py) share.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Callable, Tuple, Union
 
 import torch
 from torch import nn
@@ -21,21 +22,22 @@ from torch import nn
 from vitxtgqa_tpu_torch.models.common import Linear
 from vitxtgqa_tpu_torch.ops.gumbel import (
     gumbel_softmax,
-    sample_gumbel,
+    sample,
     topk_indices_sorted,
     topk_mask,
 )
 
-Gumbel = Union[torch.Generator, Tuple[torch.Tensor, torch.Tensor]]
+Gumbel = Union[torch.Generator, Callable, Tuple[torch.Tensor, torch.Tensor]]
 TEMPORAL, SPATIAL = 0, 1  # the draws of a Gumbel pair
 
 
 def draw_noise(gumbel: Gumbel, which: int, shape, device) -> torch.Tensor:
     """The ``which`` draw (TEMPORAL [B, 2, F] or SPATIAL [B, 2, N]): taken
-    from the pair, or drawn from the generator."""
-    if isinstance(gumbel, torch.Generator):
-        return sample_gumbel(shape, gumbel, device=device)
-    return gumbel[which]
+    from the pair, or drawn from the generator or the noise source
+    (ops/gumbel.sample: a rank's ``RankRows``)."""
+    if isinstance(gumbel, (tuple, list)):
+        return gumbel[which]
+    return sample(gumbel, shape, "gumbel", device)
 
 
 def attention_score(q_global, feats, mask):

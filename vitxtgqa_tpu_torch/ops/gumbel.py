@@ -9,7 +9,8 @@ is unspecified — and the grounding's bottom-k is dominated by -10000 ties).
 ``sample`` is the draw of the selector baselines (models/transtr.py,
 models/mist.py): from a ``torch.Generator``, or from a callable source
 ``(shape, kind) -> array`` that a test fills with another framework's
-numbers.
+numbers.  ``RankRows`` is the source of a rank of the data axis: it draws at
+the global batch's shape and hands the rank its rows.
 """
 
 from __future__ import annotations
@@ -48,6 +49,24 @@ def sample(source: NoiseSource, shape, kind: str = "gumbel", device=None) -> tor
     if kind == "uniform":
         return x.uniform_(generator=source)
     raise ValueError(f"unknown noise kind {kind!r}")
+
+
+class RankRows:
+    """The noise source of rank ``rank`` of a data axis of ``size`` ranks:
+    each draw is made at the global batch's shape (the leading dimension
+    times ``size``) from ``source``, which every rank holds alike (a
+    generator seeded alike, or a callable), and the rank takes its rows of
+    it, ``rank::size`` (data/loader.py's layout).  So every rank draws what
+    one process draws for the global batch."""
+
+    def __init__(self, source: NoiseSource, rank: int, size: int):
+        self.source, self.rank, self.size = source, rank, size
+
+    def __call__(self, shape, kind: str):
+        shape = tuple(int(s) for s in shape)
+        device = self.source.device if isinstance(self.source, torch.Generator) else None
+        full = sample(self.source, (shape[0] * self.size,) + shape[1:], kind, device)
+        return full[self.rank::self.size].contiguous()
 
 
 def gumbel_softmax(logits: torch.Tensor, noise: torch.Tensor, tau: float = 1.0,

@@ -2,10 +2,10 @@
 
 Counterpart of vitxtgqa_tpu/parallel/collectives.py (reference:
 pythia/utils/distributed_utils.py): the host-level helpers keep their
-names, and the tensor collectives that sequence parallelism needs sit
-beside them (in the JAX package XLA emits those inside shard_map).  Each
-helper is a no-op, or returns its input, when torch.distributed is not
-initialised or runs one process.
+names, and the tensor collectives that sequence and data parallelism need
+sit beside them (in the JAX package XLA emits those inside its sharded
+jit and shard_map).  Each helper is a no-op, or returns its input, when
+torch.distributed is not initialised or runs one process.
 
 Backends: NCCL runs one rank per card (a multi-card machine, launched with
 ``torchrun``).  Two ranks on one card, as on a machine with one H100, need
@@ -85,3 +85,34 @@ def all_reduce(t: torch.Tensor, group: Optional[Any] = None) -> torch.Tensor:
     out = t.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+def all_reduce_flat_(tensors: List[torch.Tensor], group: Optional[Any] = None) -> None:
+    """Sum each of ``tensors`` (one dtype) over the ranks, in place, through
+    one flat buffer: one collective for the lot (the data axis's gradients
+    and the step's losses)."""
+    if not tensors or dist.get_world_size(group) == 1:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def assert_replicas_equal(tensors: List[torch.Tensor], what: str,
+                          group: Optional[Any] = None) -> None:
+    """Raise unless every rank holds the same ``tensors`` (bit for bit, as
+    far as a float64 sum and an index-weighted sum of squares of each can
+    tell): one small gather, e.g. of the parameters at load."""
+    if dist.get_world_size(group) == 1:
+        return
+    sums = [[float(t.detach().double().sum()),
+             float(t.detach().double().square().sum()) * (i + 1)]
+            for i, t in enumerate(tensors)]
+    every: List[Any] = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, sums, group=group)
+    for rank, other in enumerate(every):
+        if other != every[0]:
+            raise RuntimeError(f"{what} differ between rank 0 and rank {rank}")

@@ -6,10 +6,18 @@ tools/run.py:67-88).
 
 It runs on the CUDA card unless the config says
 ``training_parameters.device=cpu`` (then the plain versions run on the
-CPU); a machine without CUDA and no such option raises.  One process, one
-device: multi-process runs (``VITXTGQA_DISTRIBUTED=1``,
-``training_parameters.distributed_init: true``) raise here, a mesh axis
-above 1 in the trainer (``options_from_config``; ROADMAP.md queue 1 item 5).
+CPU); a machine without CUDA and no such option raises.
+
+Data parallelism: ``VITXTGQA_DISTRIBUTED=1`` or
+``training_parameters.distributed_init: true`` joins the world that
+``torchrun`` describes (parallel/mesh.init_world: NCCL where every rank has
+its own card, gloo where ranks share one or run on the CPU) and leaves it
+at the end; the trainer then runs the config's mesh ``data`` axis over the
+ranks (training/trainer.py).  Without a torchrun environment the switch
+raises; it never falls back to one process:
+
+    python -m torch.distributed.run --nproc_per_node N -m vitxtgqa_tpu_torch.run \
+        --config ... training_parameters.distributed_init=True
 """
 
 from __future__ import annotations
@@ -17,9 +25,13 @@ from __future__ import annotations
 import importlib
 import os
 
+import torch
+import torch.distributed as dist
+
 from vitxtgqa_tpu_torch.core.config import build_config
 from vitxtgqa_tpu_torch.core.flags import get_parser
 from vitxtgqa_tpu_torch.core.registry import registry
+from vitxtgqa_tpu_torch.parallel.mesh import close_world, init_world
 
 # every module that registers a processor, builder, metric, model or trainer
 MANIFEST = (
@@ -54,26 +66,31 @@ def run(argv=None):
     registry.register("config", cfg)
 
     tp = cfg.training_parameters
+    joined = False
     if os.environ.get("VITXTGQA_DISTRIBUTED", "") == "1" or bool(
             getattr(tp, "distributed_init", False)):
-        raise NotImplementedError(
-            "multi-process runs (VITXTGQA_DISTRIBUTED=1 / training_parameters."
-            "distributed_init) are ROADMAP.md queue 1 item 5; the port runs one process")
-
-    trainer_cls = registry.get_trainer_class(getattr(tp, "trainer", "base_trainer"))
-    trainer = trainer_cls(cfg)
-    trainer.load()
+        if not dist.is_initialized():
+            cuda = str(getattr(tp, "device", "auto") or "auto") != "cpu"
+            init_world(cuda and torch.cuda.is_available())
+            joined = True
     try:
-        trainer.train()
-    except Exception:
-        # log the traceback to the run's log file before re-raising
-        # (reference: tools/run.py:75-84)
-        import traceback
+        trainer_cls = registry.get_trainer_class(getattr(tp, "trainer", "base_trainer"))
+        trainer = trainer_cls(cfg)
+        trainer.load()
+        try:
+            trainer.train()
+        except Exception:
+            # log the traceback to the run's log file before re-raising
+            # (reference: tools/run.py:75-84)
+            import traceback
 
-        trainer.logger.write(traceback.format_exc(), "error")
-        raise
+            trainer.logger.write(traceback.format_exc(), "error")
+            raise
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if joined:
+            close_world()
     return trainer
 
 

@@ -12,10 +12,18 @@ the final model, git provenance, resume with the optimizer state).  Layout:
 Each snapshot directory holds ``state.pt`` ({"model": state_dict,
 "optimizer": Optimizer.state_dict(), "generator": the train dataset's host
 generator state or None}) and ``meta.json`` (iteration, epoch, the batch
-index in the epoch, the early-stopping fields, git fields and the config).
+index in the epoch, the early-stopping fields, the world size, git fields
+and the config).  On a data axis every rank's generators hold the one
+state that ``generator`` keeps: with no worker processes each rank draws
+the whole global batch in order (data/loader.py), with them the draws are
+seeded by position, so a snapshot resumes at any world size.
 A snapshot is written into a sibling directory and renamed into place, so
 a reader never sees half of one; ``best`` hard-links the files of the
 snapshot it copies where the file system allows.  Saving is synchronous.
+
+On the ranks of a data axis rank 0 alone writes (the others pass no state)
+and every rank waits at a barrier after a save, so that each can then
+restore the same files.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import subprocess
 from typing import Any, Dict, Optional
 
 import torch
+
+from vitxtgqa_tpu_torch.parallel.collectives import is_main_process, process_count, synchronize
 
 STATE, META = "state.pt", "meta.json"
 
@@ -65,7 +75,8 @@ class Checkpoint:
 
     def __init__(self, save_dir: str, config: Any = None):
         self.root = os.path.join(save_dir, "ckpt")
-        os.makedirs(os.path.join(self.root, "models"), exist_ok=True)
+        if is_main_process():
+            os.makedirs(os.path.join(self.root, "models"), exist_ok=True)
         self.config = config
 
     # -- paths -------------------------------------------------------------
@@ -89,6 +100,7 @@ class Checkpoint:
             "epoch_batch": epoch_batch,
             "best_iteration": best_iteration,
             "best_metric_value": best_metric_value,
+            "world_size": process_count(),
             **_git_metadata(),
         }
         if self.config is not None:
@@ -117,19 +129,25 @@ class Checkpoint:
             shutil.rmtree(path)
         os.replace(tmp, path)
 
-    def save(self, state: Dict[str, Any], iteration: int, update_best: bool = False,
+    def save(self, state: Optional[Dict[str, Any]], iteration: int, update_best: bool = False,
              best_iteration: int = 0, best_metric_value: Optional[float] = None,
              epoch: int = 0, epoch_batch: int = 0) -> None:
-        path = self._model_path(iteration)
-        meta = self._meta(iteration, best_iteration, best_metric_value, epoch, epoch_batch)
-        self._write(path, state, meta)
-        if update_best:
-            self._write(self.best_path, None, meta, link_from=path)
+        """Write the snapshot of ``iteration`` (and ``best``) on rank 0, then
+        wait for every rank."""
+        if is_main_process():
+            path = self._model_path(iteration)
+            meta = self._meta(iteration, best_iteration, best_metric_value, epoch, epoch_batch)
+            self._write(path, state, meta)
+            if update_best:
+                self._write(self.best_path, None, meta, link_from=path)
+        synchronize("checkpoint")
 
-    def finalize(self, state: Dict[str, Any], iteration: int, epoch: int = 0,
+    def finalize(self, state: Optional[Dict[str, Any]], iteration: int, epoch: int = 0,
                  epoch_batch: int = 0) -> None:
-        self._write(self.final_path, state,
-                    self._meta(iteration, iteration, None, epoch, epoch_batch))
+        if is_main_process():
+            self._write(self.final_path, state,
+                        self._meta(iteration, iteration, None, epoch, epoch_batch))
+        synchronize("checkpoint")
 
     # -- restore -----------------------------------------------------------
     def load(self, path: Optional[str] = None, map_location: Any = "cpu") -> Dict[str, Any]:

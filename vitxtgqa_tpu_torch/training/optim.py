@@ -19,6 +19,12 @@ The schedule is read at the optimizer's own count of applied updates, as
 optax reads its ``count``: a step skipped by the NaN tripwire does not
 advance it.
 
+Data parallelism (``group``, a parallel/mesh.DataGroup): ``clip()`` sums
+the float32 master gradients over the ranks in one all-reduce before it
+takes the norm, so every rank clips, steps Adam and writes back the same
+values.  The reduction runs once, after the backward (overlapping it with
+the backward, as DDP's bucket hooks do, is not done).
+
 Mixed precision: where the model holds a parameter in bfloat16 (the
 transformer stacks in bf16, Options' default on the card), the optimizer
 keeps a float32 master copy, steps that, and writes it back rounded; the
@@ -31,6 +37,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+
+from vitxtgqa_tpu_torch.parallel.collectives import all_reduce_flat_
 
 # configs/t2s_abinet.yml optimizer_attributes and training_parameters
 PRODUCTION_OPTIMIZER = {"type": "Adam", "params": {"lr": 1e-4, "eps": 1e-8, "weight_decay": 0}}
@@ -96,12 +104,14 @@ def param_groups(model: nn.Module, scales: Dict[str, float]) -> List[Dict[str, A
 class Optimizer:
     """Clip, schedule and Adam over a model's parameters (float32 master
     copies where a parameter is not float32): ``clip()`` takes the
-    parameters' ``.grad``, then ``apply()`` updates, or ``zero_grad()``
-    drops the gradients without an update."""
+    parameters' ``.grad`` (summed over the ranks of ``group``), then
+    ``apply()`` updates, or ``zero_grad()`` drops the gradients without an
+    update."""
 
     def __init__(self, model: nn.Module, lr: float, eps: float = 1e-8, weight_decay: float = 0.0,
                  scales: Optional[Dict[str, float]] = None, max_grad_norm: Optional[float] = None,
-                 schedule=lambda count: 1.0):
+                 schedule=lambda count: 1.0, group: Optional[Any] = None):
+        self.group = group
         self.base_lr = float(lr)
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
@@ -133,11 +143,14 @@ class Optimizer:
             grads.append(g)
         return grads
 
-    def clip(self) -> torch.Tensor:
-        """Move the gradients onto the master copies and clip them in place;
-        returns their global L2 norm before clipping (float32, on the
-        device, no sync)."""
+    def clip(self, extra: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        """Move the gradients onto the master copies (on a data axis, sum
+        them over the ranks, with the float32 tensors ``extra`` in the same
+        all-reduce) and clip them in place; returns their global L2 norm
+        before clipping (float32, on the device, no sync)."""
         grads = self._master_grads()
+        if self.group is not None:
+            all_reduce_flat_(grads + list(extra), self.group.group)
         if self.max_grad_norm:
             return torch.nn.utils.clip_grad_norm_([m for _, m in self.pairs], self.max_grad_norm)
         return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -185,9 +198,11 @@ class Optimizer:
 
 
 def build_optimizer(model: nn.Module, optimizer_attributes: Any = None,
-                    training_parameters: Any = None, model_config: Any = None) -> Optimizer:
+                    training_parameters: Any = None, model_config: Any = None,
+                    group: Optional[Any] = None) -> Optimizer:
     """The port's build_optimizer: Adam only (the JAX Adamax and SGD
-    branches are not ported); the production config's by default."""
+    branches are not ported); the production config's by default; its
+    gradients summed over the ranks of ``group`` (a DataGroup) where given."""
     oa = PRODUCTION_OPTIMIZER if optimizer_attributes is None else optimizer_attributes
     tp = PRODUCTION_TRAINING if training_parameters is None else training_parameters
     kind = str(_get(oa, "type", "Adam") or "Adam").lower()
@@ -204,5 +219,5 @@ def build_optimizer(model: nn.Module, optimizer_attributes: Any = None,
         weight_decay=float(_get(params, "weight_decay", 0.0) or 0.0),
         scales=module_lr_scales(model_config) if model_config is not None else None,
         max_grad_norm=float(max_norm) if max_norm else None,
-        schedule=lambda count: lr_multiplier(count, *warm, lr_steps, ratio),
+        schedule=lambda count: lr_multiplier(count, *warm, lr_steps, ratio), group=group,
     )

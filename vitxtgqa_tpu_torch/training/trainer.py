@@ -19,6 +19,26 @@ the CPU.
 Per iteration the trainer keeps the host-clock time of the iteration and of
 its wait for the batch (``timings``; the iteration ends in a device
 synchronize), and per validation pass its time.
+
+Data parallelism (the JAX trainer's ``data`` mesh axis,
+vitxtgqa_tpu/training/trainer.py:110-165): in a torch.distributed world of
+N processes (``python -m vitxtgqa_tpu_torch.run`` under ``torchrun``, which
+joins it), each rank loads its rows of every global batch of
+``batch_size`` (data/loader.py), runs its kernels on them, and the losses
+and gradients are summed over the ranks (losses.py, training/optim.py), so
+that the run equals the one-process run on the same global batches.  The
+JAX trainer turns its Pallas kernels and the int8 cache off on a
+multi-device mesh (vitxtgqa_tpu/training/trainer.py:391-422): there
+``pallas_call`` replicates under GSPMD, a property of that compiler and not
+of the function; here each rank runs its kernels on its own rows and keeps
+the cache the config asks for.  Every rank runs the same iterations and
+validation batches (a collective on one rank alone would hang).  The
+validation losses and metrics, the logged training values and the
+predictions are the global batch's: each rank's rows (the real ones: the
+padding and the sampler's wrap-around copies are counted nowhere) are
+gathered once a pass and merged in the one-process order, losses as
+(numerator, denominator) sums.  Rank 0 alone logs, writes checkpoints and
+predictions; early stopping is decided once and broadcast.
 """
 
 from __future__ import annotations
@@ -36,9 +56,22 @@ from vitxtgqa_tpu_torch import Options
 from vitxtgqa_tpu_torch.core.config import ConfigNode
 from vitxtgqa_tpu_torch.core.meter import Meter
 from vitxtgqa_tpu_torch.core.registry import registry
-from vitxtgqa_tpu_torch.data.loader import DataLoader, infinite_batches, prefetch_batches
+from vitxtgqa_tpu_torch.data.loader import (
+    DataLoader,
+    infinite_batches,
+    merge_rows,
+    prefetch_batches,
+)
 from vitxtgqa_tpu_torch.losses import Losses
-from vitxtgqa_tpu_torch.metrics.metrics import MetricContext, Metrics, decode_answers
+from vitxtgqa_tpu_torch.metrics.metrics import MetricContext, Metrics, decode_answers, pred_indices
+from vitxtgqa_tpu_torch.parallel.collectives import (
+    assert_replicas_equal,
+    broadcast_scalar,
+    gather_objects,
+    is_main_process,
+    process_count,
+)
+from vitxtgqa_tpu_torch.parallel.mesh import build_data_group, data_axis
 from vitxtgqa_tpu_torch.training.checkpoint import Checkpoint
 from vitxtgqa_tpu_torch.training.early_stopping import EarlyStopping
 from vitxtgqa_tpu_torch.training.optim import build_optimizer
@@ -55,6 +88,14 @@ UNPORTED = ("fused_grads", "compact_train", "dense_mm", "split_dense")
 def _tpu_get(tpu, key: str, default=None):
     value = tpu.get(key) if tpu is not None else None
     return default if value is None else value
+
+
+def mesh_axes(tp: Any) -> Dict[str, int]:
+    """training_parameters.tpu.mesh's axes (data -1, model / sp / pp 1 where
+    absent)."""
+    mesh = _tpu_get(getattr(tp, "tpu", None), "mesh", {}) or {}
+    return {k: int(_tpu_get(mesh, k, -1 if k == "data" else 1)) for k in ("data", "model", "sp",
+                                                                          "pp")}
 
 
 def options_from_config(tp: Any) -> Options:
@@ -77,7 +118,9 @@ def options_from_config(tp: Any) -> Options:
       * kv_cache_int8, fused_decode, fused_decode_max_batch, w8a8,
         compact_serving: the Options fields of the same names;
       * fused_grads, compact_train, dense_mm, split_dense: false, or raise;
-      * mesh: one device (data -1 or 1, model / sp / pp 1), or raise.
+      * mesh: the data axis over the world's processes (parallel/mesh.
+        data_axis: -1 or the world size, the global batch divisible by it);
+        model, pp or sp above 1 raise (ROADMAP.md queue 1 item 5).
     prefetch, pp_microbatches, async_checkpoint, profile_steps and
     debug_nans are read by the trainer or have no effect on the model."""
     tpu = getattr(tp, "tpu", None)
@@ -91,6 +134,9 @@ def options_from_config(tp: Any) -> Options:
                 "has none; set training_parameters.device=cpu to run the plain versions on "
                 "the CPU")
         dev = torch.device("cuda" if device == "auto" else device)
+        if process_count() > 1 and dev.index is None:
+            # a rank's card: the current device, which run.py's init_world set
+            dev = torch.device("cuda", torch.cuda.current_device())
     else:
         raise ValueError(f"training_parameters.device={device!r}: use cpu, cuda or auto")
     cuda = dev.type == "cuda"
@@ -115,12 +161,13 @@ def options_from_config(tp: Any) -> Options:
         if _tpu_get(tpu, key, False):
             raise NotImplementedError(
                 f"training_parameters.tpu.{key} is not ported (ROADMAP.md queue 1 item 6)")
-    mesh = _tpu_get(tpu, "mesh", {}) or {}
-    axes = {k: int(_tpu_get(mesh, k, 1)) for k in ("data", "model", "sp", "pp")}
-    if axes["data"] not in (-1, 1) or any(axes[k] != 1 for k in ("model", "sp", "pp")):
+    axes = mesh_axes(tp)
+    data_axis(**axes, batch_size=getattr(tp, "batch_size", None))
+    if axes["sp"] > 1:
         raise NotImplementedError(
-            f"training_parameters.tpu.mesh {axes}: the runtime drives one device; data, "
-            "tensor, sequence and pipeline parallelism through it are ROADMAP.md queue 1 item 5")
+            f"training_parameters.tpu.mesh sp={axes['sp']}: the runtime does not run sequence "
+            "parallelism (ROADMAP.md queue 1 item 5); Options(sp=parallel.mesh.build_sp_group(n)) "
+            "serves and trains a model in n processes of one's own")
     remat = str(_tpu_get(tpu, "remat", "none"))
     if remat in ("None", "false", "False"):
         remat = "none"
@@ -187,6 +234,9 @@ class BaseTrainer:
         self.ds_cfg = self.config.dataset_attributes[self.dataset_name]
         self.opts = options_from_config(tp)
         self.device = self.opts.device
+        # the data axis: None in one process
+        self.dp = build_data_group(**mesh_axes(tp), batch_size=int(tp.batch_size))
+        self.rank, self.world = (self.dp.rank, self.dp.size) if self.dp else (0, 1)
 
         save_dir = getattr(tp, "save_dir", "./save")
         if save_dir in ("./save", "save"):
@@ -196,10 +246,13 @@ class BaseTrainer:
             save_dir = os.path.join(save_dir, slug)
         self.logger = Logger(
             save_dir, level=getattr(tp, "logger_level", "info"),
-            should_log=not getattr(tp, "should_not_log", False),
+            should_log=not getattr(tp, "should_not_log", False), main=is_main_process(),
         )
         registry.register("writer", self.logger)
         self.logger.write(f"device {self.device}, compute dtype {self.opts.dtype}")
+        if self.dp is not None:
+            self.logger.write(f"data axis: {self.world} ranks, {int(tp.batch_size) // self.world} "
+                              f"rows of each global batch of {tp.batch_size} a rank")
 
         self._load_datasets()
         self._load_model()
@@ -221,7 +274,7 @@ class BaseTrainer:
 
         self.datasets: Dict[str, Any] = {}
         self.loaders: Dict[str, DataLoader] = {}
-        batch_size = int(tp.batch_size)
+        batch_size = int(tp.batch_size) // self.world  # this rank's rows of a global batch
         workers = int(getattr(tp, "num_workers", 0) or 0)
         for split in sorted(splits):
             try:
@@ -235,7 +288,7 @@ class BaseTrainer:
                 ds, batch_size=batch_size, shuffle=(split == "train"),
                 seed=self.seed, drop_last=(split == "train"),
                 pad_last=(split != "train"),
-                num_workers=min(workers, 16),
+                num_workers=min(workers, 16), rank=self.rank, world_size=self.world,
             )
         if not self.datasets:
             raise RuntimeError(
@@ -272,15 +325,19 @@ class BaseTrainer:
             self.logger.write("serving mode: single-variant inference path")
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.write(f"model {model_key}: {n_params / 1e6:.1f}M params")
+        if self.dp is not None:
+            # the same seeded init on every rank: checked once
+            assert_replicas_equal(list(self.model.parameters()), "the initial parameters",
+                                  self.dp.group)
         self.losses = Losses(list(getattr(self.model_cfg, "losses", []) or []),
-                             self.dataset_name)
+                             self.dataset_name, group=self.dp)
         self.metrics = Metrics(list(getattr(self.model_cfg, "metrics", []) or []),
                                self.dataset_name,
                                reference_compat=bool(getattr(tp, "reference_compat", False)))
 
     def _load_optimizer(self):
         self.optimizer = build_optimizer(self.model, self.config.optimizer_attributes, self.tp,
-                                         self.model_cfg)
+                                         self.model_cfg, group=self.dp)
 
     def lr_at(self, iteration: int) -> float:
         return self.optimizer.base_lr * self.optimizer.schedule(iteration)
@@ -398,7 +455,7 @@ class BaseTrainer:
             self.data_rng = host.get("data_rng")
             tensors, batch = self._split_device_batch(batch)
             r = train_step(self.model, self.losses, self.optimizer, tensors,
-                           step_generators(self.rng_seed, self.iteration, self.device))
+                           step_generators(self.rng_seed, self.iteration, self.device, self.dp))
             self._sync()
             t1 = time.perf_counter()
             self.timings["iteration_ms"].append((t1 - t0) * 1e3)
@@ -408,11 +465,11 @@ class BaseTrainer:
                 update = {f"train/{k}": float(v) for k, v in r["losses"].items()}
                 update["train/total_loss"] = float(r["loss"])
                 update["train/grad_norm"] = float(r["grad_norm"])
-                train_metrics = self.metrics(
-                    batch["tensors"], _host(r["out"]), batch["host"],
-                    self.metric_contexts.get("train") or MetricContext(self.answer_processor),
-                    train=True,
-                )
+                ctx = self.metric_contexts.get("train") or MetricContext(self.answer_processor)
+                (merged,) = self._merged([self._record(batch["tensors"], _host(r["out"]),
+                                                       batch["host"], losses=False)])
+                train_metrics = self.metrics(merged["tensors"], merged["out"], merged["host"],
+                                             ctx, train=True)
                 update.update({f"train/{k}": v for k, v in train_metrics.items()})
                 self.meter.update(update)
                 elapsed = train_timer.get_time_since_start()
@@ -440,7 +497,7 @@ class BaseTrainer:
         """The eval forward (full-eval, or serving for a prediction-only
         run) on device tensors, its gumbel draws a function of (seed + 7,
         step) as the JAX trainer's fold_in(rng, step) key is."""
-        return self.model(tensors, step_generators(self.rng_seed, step, self.device)[1])
+        return self.model(tensors, step_generators(self.rng_seed, step, self.device, self.dp)[1])
 
     def _val_probe(self):
         """1-batch validation estimate at log cadence
@@ -459,7 +516,9 @@ class BaseTrainer:
             batch = next(it)
         dev, batch = self._split_device_batch(batch)
         out = _host(self._eval_out(dev, self.iteration))
-        _, ldict = self.losses.total(_torch(batch["tensors"]), _torch(out))
+        # every row, the padding too
+        (merged,) = self._merged([self._record(batch["tensors"], out, batch["host"])])
+        ldict = self._merged_losses(merged)
         probe = {f"val/{k}": float(v) for k, v in ldict.items()}
         self.meter.update(probe)
         self.logger.add_scalars(probe, self.iteration)
@@ -487,7 +546,8 @@ class BaseTrainer:
         monitored = self.early_stopping.monitored_metric
         value = combined.get(f"val/{monitored}", loss_avg.get("total_loss", 0.0))
         is_best = self.early_stopping.is_best(value)
-        stop = self.early_stopping(value, self.iteration)
+        # decided once (every rank holds the same merged values)
+        stop = bool(broadcast_scalar(self.early_stopping(value, self.iteration)))
         self.checkpoint.save(
             self._state(), self.iteration, update_best=is_best,
             best_iteration=self.early_stopping.best_iteration,
@@ -495,7 +555,11 @@ class BaseTrainer:
         return stop
 
     def _state(self):
-        # the iteration counter and the data position ride in meta.json
+        """The snapshot's state on rank 0 (None on the others, which write
+        nothing); the iteration counter and the data position ride in
+        meta.json."""
+        if not is_main_process():
+            return None
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
                 "generator": self.data_rng}
 
@@ -517,26 +581,76 @@ class BaseTrainer:
         }
         return tensors, out_np, host
 
+    def _record(self, tensors, out_np, host, losses: bool = True) -> Dict[str, Any]:
+        """What scoring reads of this rank's rows of one batch: each loss's
+        (weight, numerator, denominator) and the metrics' inputs, with the
+        scores replaced by their argmax (the ranks gather this, not the
+        scores)."""
+        n = int(np.asarray(tensors["question_id"]).shape[0])
+        rec: Dict[str, Any] = {
+            "tensors": {"question_id": np.asarray(tensors["question_id"])},
+            "out": {k: v for k, v in out_np.items() if not k.endswith("_scores")},
+            "host": {k: v for k, v in host.items() if isinstance(v, list)}}
+        if "pos_scores" in out_np:
+            rec["out"]["pred_inds"] = pred_indices(out_np)
+        if losses:
+            if n:
+                rec["terms"] = {k: (w, float(num), float(den)) for k, (w, num, den) in
+                                self.losses.terms(_torch(tensors), _torch(out_np)).items()}
+            else:
+                rec["terms"] = {f"{self.losses.dataset_name}/{name}": (w, 0.0, 0.0)
+                                for name, w, _, _ in self.losses.entries}
+        return rec
+
+    def _merged(self, records: list) -> list:
+        """The ranks' records of the same batches (one gather) merged into
+        the global batches' records, rows in the one-process order."""
+        every = gather_objects(records)
+        merged = []
+        for parts in zip(*every):
+            rec: Dict[str, Any] = {}
+            for field in ("tensors", "out"):
+                rec[field] = {}
+                for k, v in parts[0][field].items():
+                    if getattr(v, "ndim", 0) >= 1:
+                        rows = merge_rows([list(p[field][k]) for p in parts])
+                        v = np.asarray(rows) if rows else v
+                    rec[field][k] = v
+            rec["host"] = {k: merge_rows([p["host"][k] for p in parts]) for k in parts[0]["host"]}
+            if "terms" in parts[0]:
+                rec["terms"] = {k: (w, sum(p["terms"][k][1] for p in parts),
+                                    sum(p["terms"][k][2] for p in parts))
+                                for k, (w, _, _) in parts[0]["terms"].items()}
+            merged.append(rec)
+        return merged
+
+    @staticmethod
+    def _merged_losses(rec) -> Dict[str, float]:
+        return {k: w * num / max(den, 1.0) for k, (w, num, den) in rec["terms"].items()}
+
     def evaluate(self, split: str):
         """Full-split evaluation: losses + configured metrics
-        (reference: base_trainer.py:394-410), each the mean over batches."""
+        (reference: base_trainer.py:394-410), each the mean over batches;
+        on a data axis each batch's are the global batch's."""
         t0 = time.perf_counter()
         loader = self.loaders[split]
         ctx = self.metric_contexts[split]
         loss_sums: Dict[str, float] = {}
         metric_sums: Dict[str, float] = {}
-        n_batches = 0
+        records, n_batches = [], 0
         for i, batch in enumerate(self._prefetched(iter(loader))):
             dev, batch = self._split_device_batch(batch)
             out_np = _host(self._eval_out(dev, i))
             tensors, out_np, host = self._trim_padding(batch, out_np)
-            total, ldict = self.losses.total(_torch(tensors), _torch(out_np))
-            loss_sums["total_loss"] = loss_sums.get("total_loss", 0.0) + float(total)
-            for k, v in ldict.items():
-                loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
-            for k, v in self.metrics(tensors, out_np, host, ctx, train=False).items():
-                metric_sums[k] = metric_sums.get(k, 0.0) + float(v)
             n_batches += 1
+            records.append(self._record(tensors, out_np, host))
+        for rec in self._merged(records):
+            ldict = self._merged_losses(rec)
+            loss_sums["total_loss"] = loss_sums.get("total_loss", 0.0) + sum(ldict.values())
+            for k, v in ldict.items():
+                loss_sums[k] = loss_sums.get(k, 0.0) + v
+            for k, v in self.metrics(rec["tensors"], rec["out"], rec["host"], ctx).items():
+                metric_sums[k] = metric_sums.get(k, 0.0) + float(v)
         self.timings["val_ms"].append((time.perf_counter() - t0) * 1e3)
         if n_batches == 0:
             return {}, {}
@@ -564,11 +678,13 @@ class BaseTrainer:
             self.logger.add_scalars({f"{split}/{k}": v for k, v in report.items()},
                                     self.iteration)
 
-    def predict_for_evalai(self, split: str) -> str:
+    def predict_for_evalai(self, split: str) -> Optional[str]:
         """Prediction JSON dump (reference: test_reporter.py:17-149,
-        vtextgqa/dataset.py:315-363); returns its path."""
+        vtextgqa/dataset.py:315-363); returns its path (None on the ranks
+        but 0 of a data axis, whose rows rank 0 gathers and writes, each
+        question once)."""
         loader = self.loaders[split]
-        predictions = []
+        per_batch = []  # each batch's rows
         for bi, batch in enumerate(self._prefetched(iter(loader))):
             dev, batch = self._split_device_batch(batch)
             out = _host(self._eval_out(dev, bi))
@@ -579,6 +695,7 @@ class BaseTrainer:
             frames = np.asarray(out["ground_frame"]).tolist()
             boxes = np.asarray(out["ground_box"]).tolist()
             qids = np.asarray(tensors["question_id"]).tolist()
+            rows = []
             for i, qid in enumerate(qids):
                 sources = []
                 for idx in pred_inds[i].tolist():
@@ -588,7 +705,7 @@ class BaseTrainer:
                         if idx == self.answer_processor.EOS_IDX:
                             break
                         sources.append("VOCAB")
-                predictions.append(
+                rows.append(
                     {
                         "question_id": qid,
                         "video_id": host["image_id"][i],
@@ -598,6 +715,12 @@ class BaseTrainer:
                         "pred_source": sources,
                     }
                 )
+            per_batch.append(rows)
+        every = gather_objects(per_batch)
+        if not is_main_process():
+            return None
+        per_batch = [merge_rows(list(ranks)) for ranks in zip(*every)]
+        predictions = [p for rows in per_batch for p in rows]
         report_dir = os.path.join(self.logger.save_dir, "reports")
         os.makedirs(report_dir, exist_ok=True)
         path = os.path.join(

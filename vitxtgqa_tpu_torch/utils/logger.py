@@ -4,7 +4,9 @@ copy of vitxtgqa_tpu/utils/logger.py).
 (reference: pythia/utils/logger.py:15-141.)  tensorboardX is replaced by a
 plain JSONL scalar log (save_dir/scalars.jsonl) that any dashboard can
 tail.  The JAX logger also attaches TensorBoard where the package exists;
-the port does not (its import pulls TensorFlow into the trainer).
+the port does not (its import pulls TensorFlow into the trainer).  On the
+ranks of a data axis only rank 0 logs (``main``): the others write no file,
+nothing to stdout and no scalar.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ from typing import Any, Dict
 
 class Logger:
     def __init__(self, save_dir: str = "./save", name: str = "vitxtgqa_tpu_torch",
-                 level: str = "info", should_log: bool = True):
+                 level: str = "info", should_log: bool = True, main: bool = True):
         self.save_dir = save_dir
-        self.should_log = should_log
-        os.makedirs(save_dir, exist_ok=True)
+        self.should_log = should_log and main
+        if main:
+            os.makedirs(save_dir, exist_ok=True)
         timestamp = time.strftime("%Y-%m-%dT%H:%M:%S")
         self.log_file = os.path.join(save_dir, f"{name}_{timestamp}.log")
         self.scalar_file = os.path.join(save_dir, "scalars.jsonl")
@@ -32,13 +35,16 @@ class Logger:
         self._logger.handlers.clear()
         self._logger.propagate = False
         fmt = logging.Formatter("%(asctime)s %(levelname)s: %(message)s")
-        if should_log:
+        if self.should_log:
             fh = logging.FileHandler(self.log_file)
             fh.setFormatter(fmt)
             self._logger.addHandler(fh)
-        sh = logging.StreamHandler(sys.stdout)
-        sh.setFormatter(fmt)
-        self._logger.addHandler(sh)
+        if main:
+            sh = logging.StreamHandler(sys.stdout)
+            sh.setFormatter(fmt)
+            self._logger.addHandler(sh)
+        else:
+            self._logger.addHandler(logging.NullHandler())
 
     def write(self, message: Any, level: str = "info"):
         getattr(self._logger, level, self._logger.info)(str(message))

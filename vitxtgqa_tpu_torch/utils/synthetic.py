@@ -2,7 +2,8 @@
 
 The same generator as vitxtgqa_tpu/utils/synthetic.py:synthetic_batch
 (numpy only, identical output for the same arguments — a test holds the
-two equal), kept in the port so that it runs without the JAX package.
+two equal), kept in the port so that it runs without the JAX package, and
+its ``tiny_model_config`` (the port's dry runs: entry.dryrun_multichip).
 """
 
 from __future__ import annotations
@@ -93,6 +94,49 @@ def synthetic_batch(
             ocr_mask_embedding=ocr_mask, ocr_track_id=out["track_id"],
             ocr_temporal_id=temporal)
     return out
+
+
+def tiny_model_config(hidden: int = 64, heads: int = 4, layers: int = 1,
+                      frames: int = 8, ocr_per_frame: int = 3,
+                      video_feat_dim: int = 32, fasttext_dim: int = 16,
+                      phoc_dim: int = 24, topk: int = 2):
+    """A miniature t2s-shaped model config for CPU dry runs (the JAX
+    package's, as a port ConfigNode)."""
+    from vitxtgqa_tpu_torch.core.config import ConfigNode
+
+    tl = {
+        "hidden_size": hidden,
+        "num_hidden_layers": layers,
+        "num_attention_heads": heads,
+        "intermediate_size": hidden * 2,
+    }
+    n = frames * ocr_per_frame
+    return ConfigNode(
+        {
+            "text_bert": {**tl, "vocab_size": 128, "max_position_embeddings": 40},
+            "obj": {"mmt_in_dim": video_feat_dim + 50, "dropout_prob": 0.1},
+            "ocr": {"mmt_in_dim": fasttext_dim + phoc_dim + 100, "dropout_prob": 0.1},
+            "translayers": dict(tl),
+            "grounding": {
+                "frame_topk": topk, "ocr_topk": topk, "max_ocr_num": n,
+                "frame_num": frames, "ocr_frame_num": ocr_per_frame,
+                "hidden_size": hidden,
+            },
+            "encoder": dict(tl),
+            "mmt": {**tl, "num_hidden_layers": max(layers, 2)},
+            "classifier": {
+                "type": "linear", "ocr_max_num": n,
+                "ocr_ptr_net": {"hidden_size": hidden, "query_key_size": hidden},
+                "params": {},
+            },
+            "lr_scale_text_bert": 0.1,
+            "lr_scale_mmt": 1.0,
+            "losses": [
+                {"type": "pos_bce_loss", "weight": 1.0},
+                {"type": "InfoNCE", "weight": 1000},
+            ],
+        }
+    )
 
 
 def synthetic_frames(batch: int = 64, h: int = 240, w: int = 320, seed: int = 0) -> np.ndarray:
