@@ -11,6 +11,7 @@ hidden 128), and is undone when its step ends.
 """
 
 import copy
+import os
 import pathlib
 import types
 
@@ -30,6 +31,8 @@ from vitxtgqa_tpu_torch.ops import block_train as TBT
 from vitxtgqa_tpu_torch.ops import decode_attention as TDA
 from vitxtgqa_tpu_torch.ops import decode_step as TDS
 from vitxtgqa_tpu_torch.ops import flash_attention as TFA
+from vitxtgqa_tpu_torch.ops import ffn as TFF
+from vitxtgqa_tpu_torch.ops import fused_attention as TFAT
 from vitxtgqa_tpu_torch.ops import fused_block as TFB
 from vitxtgqa_tpu_torch.ops import ptr_scores as TPS
 from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
@@ -1352,3 +1355,243 @@ GOOD_CLI = {"losses": [3.0, 2.0, 1.0], "losses_one_process": [3.0, 2.0, 1.0],
 def test_slice_o_cli_checks_reject_a_planted_fault(fault):
     assert CS.dp_cli_faults(GOOD_CLI) == []
     assert CS.dp_cli_faults({**GOOD_CLI, **fault})
+
+
+# ---------------------------------------------------------------------------
+# slice p: the engine at bucket 48, the serve demo, the raw-video pipeline
+# ---------------------------------------------------------------------------
+
+VIT_PLAIN_OF = ((TFF, "fused_ffn_plain", "fused_ffn"),
+                (TFAT, "fused_attention_plain", "fused_attention"))
+P_GEOMETRY = dict(videos=2, frames=8, width=64, height=48, ocr_per_frame=3, questions=3, fps=10)
+P_VIT = dict(image_size=32, patch_size=16, hidden_size=64, num_layers=1, num_heads=4, mlp_dim=128)
+
+
+def _plain_launch_counters(monkeypatch):
+    """chip_smoke's launch counters read the plain twins' calls (the
+    fused-decode gate opened as on a CUDA tensor, _count_plain_calls; the
+    ViT's twins too)."""
+    from vitxtgqa_tpu_torch.ops import _build
+
+    counts = _count_plain_calls(monkeypatch)
+    for mod, plain, kernel in VIT_PLAIN_OF:
+        real = getattr(mod, plain)
+        monkeypatch.setattr(mod, plain, lambda *a, _r=real, _k=kernel, **kw: (
+            counts.__setitem__(_k, counts[_k] + 1), _r(*a, **kw))[1])
+    monkeypatch.setattr(_build, "launch_counts", lambda: dict(counts))
+    monkeypatch.setattr(_build, "reset_launch_counts",
+                        lambda: counts.update({k: 0 for k in counts}))
+    return counts
+
+
+def test_slice_p_serve_demo_dry_run(monkeypatch):
+    """serve_demo_slice on the CPU at the tiny wide geometry (384 joint
+    rows: flash; the block from 6 sequences), buckets (2, 6): the launches
+    counted over the warm-up and every group the clients' requests formed
+    equal serve_demo_launches' derivation from the group sizes (bucket 2
+    through the fused decode step and epilogue, 6 through the block and
+    the int8 decode attention), and serve_demo_faults passes."""
+    from vitxtgqa_tpu_torch import serve as S
+
+    _plain_launch_counters(monkeypatch)
+    cfg = tiny_model_config(hidden=128, frames=FRAMES, ocr_per_frame=OCR_PF)
+    nf = 32 + FRAMES * OCR_PF
+    knobs = S.Knobs(buckets=(2, 6), wait_ms=5.0, clients=3, requests=12, rps=100.0)
+    out = CS.serve_demo_slice({}, "cpu", knobs=knobs, device="cpu", model_config=cfg,
+                              num_final_outputs=nf, batch_kw=dict(
+                                  frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4, text_len=10,
+                                  video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                                  text_vocab=128))
+    assert sum(out["group_sizes"]) == 12 and out["report"]["groups"] == len(out["group_sizes"])
+    want = CS.serve_demo_launches(cfg, cpu_options(kv_cache_int8=True), (2, 6),
+                                  out["group_sizes"], text_len=10, dec_len=4)
+    assert out["launches"] == want
+    assert want["fused_decode_step"] > 0 and want["fused_block"] > 0
+
+
+def test_slice_p_engine_check_rejects_a_response_from_the_wrong_group():
+    """engine_row_faults on two groups of 4 served on the CPU: each group's
+    responses are its direct forward's rows; a response of the other
+    group's forward in their place is flagged."""
+    from vitxtgqa_tpu_torch.serving.engine import ServingEngine, group_generator, to_device
+
+    sl = _TinySlices()
+    model = sl.model()
+    batch = synthetic_batch(batch=8, frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4,
+                            text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                            num_final_outputs=sl.nf, text_vocab=128, seed=0)
+    rows = [{k: v[i] for k, v in batch.items()} for i in range(8)]
+    cpu = torch.device("cpu")
+    with ServingEngine(model, buckets=(4,), max_wait_ms=300) as eng:
+        groups = [[f.result(timeout=120) for f in [eng.submit(r) for r in rows[4 * g:4 * g + 4]]]
+                  for g in range(2)]
+        assert eng._group_counter == 2
+    direct = []
+    for g in range(2):
+        with torch.inference_mode():
+            out = model(to_device({k: v[4 * g:4 * g + 4] for k, v in batch.items()}, cpu),
+                        group_generator(0, g, cpu))
+        direct.append({k: v.numpy() for k, v in out.items() if torch.is_tensor(v) and v.ndim})
+        assert CS.engine_row_faults(groups[g], direct[g]) == []
+    planted = list(groups[0])
+    planted[2] = groups[1][2]
+    assert CS.engine_row_faults(planted, direct[0]) == [2]
+
+
+@pytest.fixture(scope="module")
+def pipeline_dry(no_cuda_sync):
+    """pipeline_slice on the CPU: the tiny ViT, 2 videos of 8 frames at 64
+    x 48 written by cv2 (stage 1), stage 4 at tiny widths (the e2e tests'
+    options), the plain-call counters in place of the launch counters."""
+    from tests.test_torch_e2e_pipeline import tiny_opts
+    from vitxtgqa_tpu_torch.models.vit import ViTConfig
+
+    pytest.importorskip("cv2")
+    with pytest.MonkeyPatch.context() as mp:
+        _plain_launch_counters(mp)
+        return CS.pipeline_slice("cpu", {}, "cpu", geo=P_GEOMETRY, vit_cfg=ViTConfig(**P_VIT),
+                                 extra=tiny_opts(), cv2_video=True)
+
+
+def test_slice_p_pipeline_dry_run(pipeline_dry):
+    """Every stage ran: stage 1 decoded the cv2 clips, stage 2's features
+    equal the plain path's (the CPU runs the plain versions), stage 4 with
+    both configs predicted every question in the EvalAI schema, answering
+    as the plain versions, with the launches derived (count_launches
+    inside), and the reference .pth predicted as its weights' port file."""
+    assert pipeline_dry["cv2"] and pipeline_dry["stage2"]["max_rel_l2"] == 0.0
+    for config in CS.PIPELINE_CONFIGS:
+        run = pipeline_dry[f"stage4_{config}"]
+        assert run["answer_agreement"] == 1.0 and run["rows"] == 6
+    assert pipeline_dry["stage4_t2s_serving.yml"]["launches"]["decode_attention_int8"] > 0
+    assert pipeline_dry["ckpt_equal"] and set(pipeline_dry["seconds"]) >= {
+        "stage1", "stage2", "stage3", "stage4_ckpt"}
+
+
+def test_slice_p_rejects_a_missing_or_repeated_question(pipeline_dry):
+    rows = pipeline_dry["stage4_t2s_abinet.yml"]["predictions"]
+    qids = [r["question_id"] for r in rows]
+    g = {"frame_topk": 2, "ocr_topk": 2, "frame_num": FRAMES}
+    assert CS.prediction_faults(rows, qids, g) == []
+    assert CS.prediction_faults(rows[1:], qids, g)
+    assert CS.prediction_faults(rows[:-1] + rows[:1], qids, g)
+
+
+def test_slice_p_rejects_a_reference_dict_missing_a_live_name(tmp_path):
+    """Stage 4 from a reference .pth that lacks a live parameter fails the
+    slice (the trainer's restore raises KeyError naming it)."""
+    from tests.test_torch_e2e_pipeline import tiny_opts
+    from vitxtgqa_tpu_torch import e2e_pipeline as P
+    from vitxtgqa_tpu_torch.models.vit import ViTConfig
+
+    inp = CS.pipeline_inputs(str(tmp_path), P_GEOMETRY, cv2_video=False)
+    feats, work = str(tmp_path / "feats"), str(tmp_path / "work")
+    P.extract_features(inp["frames"], feats, cfg=ViTConfig(**P_VIT), device="cpu")
+    os.makedirs(work)
+    P.assemble_data_root(work, inp["questions"], inp["ocr"], feats, inp["meta"])
+    config = os.path.join(CS.ROOT, "configs", "t2s_abinet.yml")
+    k = CS.runtime_trainer(P.inference_argv(work, config, "t2s", extra_opts=tiny_opts()))
+    k.close()
+    gone = "mmt.encoder.layer.0.output.dense.bias"
+    ref = CS.write_reference_pth(k.model.state_dict(), str(tmp_path / "ref.pth"),
+                                 {"Grounding_Module.frame_attn.weight": (4, 64)}, drop=(gone,))
+    with pytest.raises(SystemExit, match=f"KeyError.*{gone}"):
+        CS.stage4(P, work, config, ckpt=ref, extra=tiny_opts())
+
+
+@pytest.mark.parametrize("case", ["flipped_row_on_a_near_tie", "more_rows_than_the_cap",
+                                  "no_run_on_the_kernels_grounding",
+                                  "forced_run_disagrees", "a_row_of_equal_grounding_off"])
+def test_near_tie_check_holds_flipped_rows_against_plain_on_the_kernels_grounding(case):
+    """near_tie_faults: a row whose grounding flipped, its copy scores 1
+    off plain's, passes when plain on the kernels' grounding agrees within
+    STEP0_TOL and the rows stay within the cap; each planted fault fails:
+    a second such row over a cap of 1, no forced run, a forced run that
+    disagrees in that row, and a row of equal grounding whose copy score
+    is 1 off (the check every earlier slice keeps)."""
+    rng = np.random.default_rng(0)
+    kp = rng.standard_normal((4, 3, 10)).astype(np.float32)
+    pp = kp + 0.01
+    pp[1, 0, 8] += 1.0
+    forced = kp - 0.01
+    same = np.array([True, False, True, True])
+    cap = 1
+    if case == "more_rows_than_the_cap":
+        same[3] = False
+    elif case == "no_run_on_the_kernels_grounding":
+        forced = None
+    elif case == "forced_run_disagrees":
+        forced[1, 0, 9] += 1.0
+    elif case == "a_row_of_equal_grounding_off":
+        pp[2, 0, 8] += 1.0
+    faults, step0 = CS.near_tie_faults(kp, pp, forced, same, cap)
+    if case == "flipped_row_on_a_near_tie":
+        assert faults == [] and step0 == pytest.approx(0.01, abs=1e-6)
+    else:
+        assert faults, case
+    # the earlier slices' check, on the same arrays, sees the flipped row
+    assert np.abs(kp[:, 0] - pp[:, 0]).max() > CS.STEP0_TOL
+
+
+def test_bf16_ulp_is_the_spacing_of_bfloat16():
+    """bf16_ulp(x): the next bfloat16 above |x| (one more in its bits) less |x|."""
+    for x in (1.0, 1.5, 0.3, 0.013, 3e-5, -2.5):
+        t = torch.tensor(abs(x), dtype=torch.bfloat16)
+        nxt = (t.view(torch.int16) + 1).view(torch.bfloat16)
+        assert CS.bf16_ulp(x if x > 0 else -float(t)) == float(nxt) - float(t), x
+
+
+def test_grounding_probe_forces_a_grounding_and_swap_margins_name_the_flips():
+    """On the tiny T2S on the CPU: two forwards whose OCR features differ
+    pick other slots in some rows; a third on the first batch with the
+    second's grounding forced in returns that grounding; swap_margins
+    pairs each pick of one with a pick of the other in the same frame, and
+    each run ranks its own pick at least as high."""
+    from vitxtgqa_tpu_torch.serving.engine import group_generator
+
+    sl = _TinySlices()
+    model = sl.model(plain=True).eval()
+    batch = synthetic_batch(batch=4, frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4,
+                            text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                            num_final_outputs=sl.nf, text_vocab=128, seed=0)
+    tb = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+    moved = dict(tb)
+    gen = torch.Generator().manual_seed(3)
+    moved["context_feature_0"] = tb["context_feature_0"] + 0.5 * torch.randn(
+        tb["context_feature_0"].shape, generator=gen)
+    cpu = torch.device("cpu")
+    outs, probes = [], []
+    for b in (moved, tb):
+        probes.append(CS.GroundingProbe(model))
+        with torch.inference_mode():
+            outs.append(model(b, group_generator(0, 0, cpu)))
+        probes[-1].remove()
+    kern, plain = probes
+    same = np.asarray([torch.equal(outs[0]["ground_box"][r], outs[1]["ground_box"][r])
+                       for r in range(4)])
+    assert not same.all()
+    force = CS.GroundingProbe(model, force=kern.out)
+    with torch.inference_mode():
+        forced = model(tb, group_generator(0, 0, cpu))
+    force.remove()
+    for k in ("ground_frame", "ground_box"):
+        assert torch.equal(forced[k], outs[0][k])
+    assert not torch.equal(forced["pos_scores"], outs[1]["pos_scores"])
+    swaps = CS.swap_margins(kern, plain, np.flatnonzero(~same))
+    assert {s["row"] for s in swaps} == set(np.flatnonzero(~same).tolist())
+    per_frame = model.Grounding_Module.ocr_frame_num
+    for s in swaps:
+        key = "pos_obj_idx" if s["kind"] == "frame" else "pos_ocr_idx"
+        kset, pset = (set(p.out[key][s["row"]].tolist()) for p in (kern, plain))
+        assert s["kernel_pick"] in kset - pset and s["plain_pick"] in pset - kset
+        if s["kind"] == "ocr":
+            assert s["kernel_pick"] // per_frame == s["plain_pick"] // per_frame
+        assert s["plain_margin_ulps"] == pytest.approx(
+            s["plain_margin"] / CS.bf16_ulp(s["plain_score"]))
+        a, b = (plain.scores[s["kind"]][s["row"], i].item()
+                for i in (s["kernel_pick"], s["plain_pick"]))
+        if a > 0 and b > 0:
+            assert s["plain_log_margin"] == pytest.approx(np.log(b) - np.log(a), rel=1e-6)
+            assert s["plain_log_margin_ulps"] == pytest.approx(
+                s["plain_log_margin"] / CS.bf16_ulp(np.log(b)))
+        assert np.isnan(s["row_log_score_diff"]) or s["row_log_score_diff"] >= 0

@@ -101,3 +101,17 @@ class Options:
                 "'full', 'dots' and 'attn_qkv' modes are ROADMAP.md queue 1 "
                 "item 6)"
             )
+
+
+def entry_device(device=None, knob: str = "device='cpu'") -> torch.device:
+    """The device an entry point (serve, the raw-video pipeline, the
+    runtime) runs on: the card unless the caller names another (``None``
+    and ``"auto"`` mean the card).  On a machine without CUDA the card
+    raises, naming ``knob``, the caller's way to ask for the CPU; nothing
+    falls back to the CPU."""
+    name = "cuda" if device is None or str(device) == "auto" else str(device)
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name} is a CUDA device and this machine has none; set {knob} to "
+                           "run the plain versions on the CPU")
+    return dev

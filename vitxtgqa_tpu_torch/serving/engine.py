@@ -90,8 +90,13 @@ class ServingEngine:
         """One forward of a padded batch with the group's gumbel generator
         (outputs stay on the device)."""
         with torch.inference_mode():
-            return self.model(to_device(batch, self.device),
+            return self.model(self.copy_in(batch),
                               group_generator(self.rng_seed, group_id, self.device))
+
+    def copy_in(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """The padded batch on the model's device (one copy an array, from
+        pageable host memory)."""
+        return to_device(batch, self.device)
 
     # -- client API ---------------------------------------------------------
     def submit(self, sample: Dict[str, np.ndarray]) -> Future:

@@ -64,6 +64,7 @@ from vitxtgqa_tpu_torch.data.loader import (
 )
 from vitxtgqa_tpu_torch.losses import Losses
 from vitxtgqa_tpu_torch.metrics.metrics import MetricContext, Metrics, decode_answers, pred_indices
+from vitxtgqa_tpu_torch.options import entry_device
 from vitxtgqa_tpu_torch.parallel.collectives import (
     assert_replicas_equal,
     broadcast_scalar,
@@ -77,6 +78,7 @@ from vitxtgqa_tpu_torch.training.early_stopping import EarlyStopping
 from vitxtgqa_tpu_torch.training.optim import build_optimizer
 from vitxtgqa_tpu_torch.training.step import step_generators, train_step
 from vitxtgqa_tpu_torch.utils.logger import Logger
+from vitxtgqa_tpu_torch.utils.torch_convert import reference_state
 from vitxtgqa_tpu_torch.utils.timer import Timer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -125,20 +127,12 @@ def options_from_config(tp: Any) -> Options:
     debug_nans are read by the trainer or have no effect on the model."""
     tpu = getattr(tp, "tpu", None)
     device = str(getattr(tp, "device", "auto") or "auto")
-    if device == "cpu":
-        dev = torch.device("cpu")
-    elif device == "auto" or device.startswith("cuda"):
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"training_parameters.device={device} runs on a CUDA device and this machine "
-                "has none; set training_parameters.device=cpu to run the plain versions on "
-                "the CPU")
-        dev = torch.device("cuda" if device == "auto" else device)
-        if process_count() > 1 and dev.index is None:
-            # a rank's card: the current device, which run.py's init_world set
-            dev = torch.device("cuda", torch.cuda.current_device())
-    else:
+    if device not in ("cpu", "auto") and not device.startswith("cuda"):
         raise ValueError(f"training_parameters.device={device!r}: use cpu, cuda or auto")
+    dev = entry_device(device, knob="training_parameters.device=cpu")
+    if dev.type == "cuda" and process_count() > 1 and dev.index is None:
+        # a rank's card: the current device, which run.py's init_world set
+        dev = torch.device("cuda", torch.cuda.current_device())
     cuda = dev.type == "cuda"
 
     dtype = None
@@ -377,10 +371,16 @@ class BaseTrainer:
 
     def _restore(self, path: str):
         state = self.checkpoint.load(path, map_location=self.device)
-        self.model.load_state_dict(state["model"])
-        if not os.path.isdir(path):  # a bare model blob: weights only
-            self.logger.write(f"loaded model weights from {path}")
+        if not os.path.isdir(path):
+            # a bare model blob, the port's or the reference's: weights
+            # only, the reference's dead parameters dropped
+            weights, dropped = reference_state(state["model"], self.model)
+            self.model.load_state_dict(weights)
+            self.logger.write(f"loaded model weights from {path}" + (
+                f"; dropped {len(dropped)} names the model does not have, e.g. {dropped[:5]}"
+                if dropped else ""))
             return
+        self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         meta = self.checkpoint.load_meta(path)
         self.iteration = int(meta["iteration"])

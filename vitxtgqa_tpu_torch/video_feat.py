@@ -12,7 +12,8 @@ writes ``<out>/<video>/<n>.npy``, the frame's CLS feature as float32 [1,
 ``--weights`` is a torch checkpoint of HF ``ViTModel`` (or a model with a
 head: its ``vit.`` prefix is stripped); without it the weights are random
 from seed 0, for pipeline tests only.  Pillow is needed here alone, and is
-imported by ``main``.
+imported by ``extract_features``, which the raw-video pipeline's stage 2
+runs too (e2e_pipeline.py).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import Callable, Iterator, List, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +60,32 @@ def write_features(frames_root: str, out_root: str, extract: Callable,
     return n_written
 
 
+def extract_features(frames_root: str, out_root: str, weights: Optional[str] = None,
+                     batch: int = 64, cfg=None, device=None) -> int:
+    """Every video's frames through the ViT ``cfg`` (default ViT-L/16) on
+    ``device`` (default: the card, bf16), each frame resized by PIL to the
+    ViT's image size, into ``<out_root>/<video>/<n>.npy``; ``weights``: an
+    HF ViT torch checkpoint.  Returns the number of frames."""
+    from PIL import Image
+
+    from vitxtgqa_tpu_torch.models.vit import VIT_L_16, make_feature_extractor
+    from vitxtgqa_tpu_torch.options import Options, entry_device
+    from vitxtgqa_tpu_torch.utils.convert import strip_vit_prefix
+
+    cfg = VIT_L_16 if cfg is None else cfg
+    dev = entry_device(device)
+    state = None
+    if weights:
+        state = strip_vit_prefix(torch.load(weights, map_location="cpu", weights_only=True))
+    extract, _ = make_feature_extractor(cfg, state, Options(device=dev))
+    size = (cfg.image_size, cfg.image_size)
+
+    def load_frame(path: str) -> np.ndarray:
+        return np.asarray(Image.open(path).convert("RGB").resize(size), dtype=np.uint8)
+
+    return write_features(frames_root, out_root, extract, load_frame, batch)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", required=True, help="directory of <video>/<n>.jpg")
@@ -66,22 +93,7 @@ def main(argv=None) -> int:
     ap.add_argument("--weights", default=None, help="torch ViTModel checkpoint")
     ap.add_argument("--batch", type=int, default=64)
     args = ap.parse_args(argv)
-
-    from PIL import Image
-
-    from vitxtgqa_tpu_torch.models.vit import VIT_L_16, make_feature_extractor
-    from vitxtgqa_tpu_torch.utils.convert import strip_vit_prefix
-
-    state = None
-    if args.weights:
-        state = strip_vit_prefix(torch.load(args.weights, map_location="cpu", weights_only=True))
-    extract, _ = make_feature_extractor(VIT_L_16, state)
-    size = (VIT_L_16.image_size, VIT_L_16.image_size)
-
-    def load_frame(path: str) -> np.ndarray:
-        return np.asarray(Image.open(path).convert("RGB").resize(size), dtype=np.uint8)
-
-    write_features(args.frames, args.out, extract, load_frame, args.batch)
+    extract_features(args.frames, args.out, args.weights, args.batch)
     return 0
 
 
