@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's T2S serving, full-eval and training paths,
 its ViT frame-feature path, its sequence-parallel path, its runtime
 (train, validate, checkpoint, resume, predict), the zoo's T2S-family
-models, its selector baselines (TranSTR, MIST), its data parallelism, and
-its serving demo and raw-video pipeline once on one NVIDIA GPU.
+models, its selector baselines (TranSTR, MIST), its data parallelism, its
+serving demo and raw-video pipeline, and the legacy image-VQA zoo once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -238,7 +239,28 @@ Phases (each prints one or more lines; any failure exits non-zero):
           raising on the card; stage 4 from a reference .pth (dead names
           planted, {"model": ...}, ``module.`` prefixes, ``classifier.*``)
           equal bit for bit to stage 4 from the port's torch file of the
-          same weights; each stage's seconds.
+          same weights; each stage's seconds;
+       q. the legacy image-VQA zoo (pythia and its question-only /
+          image-only ablations, LoRRA, BAN, top-down bottom-up; plain
+          PyTorch, no kernel may launch) at configs/pythia_vqa2.yml's /
+          lorra_textvqa.yml's widths (vocab 100,000 x embed 300, hidden
+          1,024), 14 question tokens, batch 128, MMF's features (VQA2's 100
+          fc6 boxes and 196 resnet152 cells of 2,048; TextVQA's 137 boxes,
+          50 OCR tokens of 300), 3,129 / 8,000 + 50 answers: (i) each
+          model's eval forward and a training step with dropout off in
+          bf16 against the same weights in float32 (the argmax agreement
+          printed; the loss, the gradient norm and every non-scalar
+          parameter's relative gradient difference at LEGACY_*_REL_TOL),
+          each planted fault (LEGACY_FAULTS: LSTM / GRU gates swapped,
+          weight norm over rows, a dropped bias gradient) outside the
+          limits and every limit catching one; (iii) 4 Adamax steps timed
+          (the config's optimizer and schedule, dropout on), the eval
+          forward's ms and the peak memory; (ii) run() on synthetic VQA2 /
+          VizWiz / TextVQA trees it writes (utils/legacy_fixtures, 8
+          worker processes): pythia on vqa2 and LoRRA on textvqa (3
+          iterations, validation, EvalAI records of val and test), pythia
+          on vqa2,vizwiz (6 iterations), its dataset schedule against the
+          port's MultiDataset on the same seed.
      a-c, f-g, m, n and p serve behind a ServingEngine; each slice checks its
      launch counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
@@ -3395,13 +3417,15 @@ def train_check_step(sl, tb, losses, plain, fault=None, **opts):
     return total.item(), norm, grads, counts
 
 
-def step_agreement(run, ref, loss_tol=LOSS_REL_TOL, norm_tol=GNORM_REL_TOL):
+def step_agreement(run, ref, loss_tol=LOSS_REL_TOL, norm_tol=GNORM_REL_TOL,
+                   noise=("attention.self.key.bias", "k_lin.bias")):
     """(loss relative difference, gradient-norm relative difference,
     (largest per-parameter gradient relative difference |g - g_ref| /
     |g_ref|, its parameter), parameters compared, whether all three are
     within their limits: ``loss_tol``, ``norm_tol``, GRAD_REL_TOL) of
     ``run`` against ``ref``, each (loss, norm, {parameter: gradient},
-    ...)."""
+    ...).  ``noise``: the name endings of parameters left out, whose
+    gradient is 0 but for rounding."""
     (loss, norm, grads, *_), (loss_r, norm_r, grads_r, *_) = run, ref
     if sorted(grads) != sorted(grads_r):
         fail("slice train: two steps reach different parameters")
@@ -3411,7 +3435,7 @@ def step_agreement(run, ref, loss_tol=LOSS_REL_TOL, norm_tol=GNORM_REL_TOL):
         # every score of a query alike, which the softmax ignores: its
         # gradient is 0 but for rounding, and is left out
         nw = w.norm()
-        if nw > 0 and not k.endswith(("attention.self.key.bias", "k_lin.bias")):
+        if nw > 0 and not k.endswith(tuple(noise)):
             rel[k] = float((grads[k] - w).norm() / nw)
     worst = worst_of(rel)
     loss_rel, norm_rel = abs(loss - loss_r) / abs(loss_r), abs(norm - norm_r) / norm_r
@@ -5470,6 +5494,487 @@ def default_options_check(sl, model, batch, record):
     return {"dtype": str(default.opts.dtype), "launches": counts, "scores_equal": equal}
 
 
+# ---------------------------------------------------------------------------
+# slice q: the legacy image-VQA zoo
+# ---------------------------------------------------------------------------
+
+# the six legacy models (models/legacy_vqa.py) and the config whose model
+# block each runs (ban and top_down_bottom_up have no shipped config: they
+# take pythia's widths, from which the JAX models synthesize their sections)
+LEGACY = ("pythia", "pythia_question_only", "pythia_image_only", "lorra", "ban",
+          "top_down_bottom_up")
+LEGACY_CONFIGS = {"lorra": ("lorra_textvqa.yml", "lorra", "textvqa")}
+# the configs' widths (vocab 100,000 x embed 300, hidden 1,024), 14 question
+# tokens (the vqa defaults' max_length), batch 128; MMF's features: VQA2's
+# detectron fc6 (100 boxes) and resnet152 (196 cells) of 2,048, TextVQA's
+# 137 boxes and 50 OCR tokens of 300 (+ 50-d order vectors); the answer
+# spaces VQA2's 3,129 and TextVQA's 8,000 + 50 copy slots
+LEGACY_GEOMETRY = dict(batch=128, text_len=14, vocab=100_000, embed=300, hidden=1024,
+                       feat=2048, boxes={"vqa2": 100, "textvqa": 137}, grid=196, ocr=50,
+                       context=300, answers={"vqa2": 3129, "textvqa": 8000})
+# bf16 against float32 from the same weights and batch, dropout off: the
+# loss, the gradient norm and every parameter's relative gradient difference
+# (legacy_agreement), a few times what an H100 reads (700 W: up to 4.4e-7
+# and 1.1e-4 on the loss and the norm; gradients below)
+LEGACY_LOSS_REL_TOL, LEGACY_GNORM_REL_TOL, LEGACY_GRAD_REL_TOL = 5e-6, 5e-4, 2.5e-1
+# a parameter's gradient difference is relative to its gradient or to this
+# share of the global gradient norm, whichever is larger: the weight-norm
+# scales of the top-down attentions (the attention's temperature) read
+# 1e-10 to 4e-9 of the norm, sums that cancel to 5e-5 of their layer's
+# weight gradient, so that bf16's rounding of the features moves them by
+# 0.07-0.61 of themselves (3e-5 of that layer's gradient)
+LEGACY_GRAD_FLOOR = 1e-6
+# gradients that are float rounding alone: the bias before a softmax over
+# the locations (top-down attention), over the question tokens (the
+# attention text embedding's conv2) and over BAN's glimpse grid
+LEGACY_NOISE = ("image_attention_model.module.transform.bias", "conv2.bias",
+                "logits_net.h_bias")
+# planted faults (legacy_fault), the model each runs on
+LEGACY_FAULTS = {"lstm_gates_swapped": "pythia", "gru_gates_swapped": "ban",
+                 "wn_row_norm": "top_down_bottom_up", "bias_grad_dropped": "lorra"}
+LEGACY_STEPS = 4          # Adamax steps timed (the first warms up)
+LEGACY_RUNTIME_STEPS = 3  # run()'s iterations at batch 128; the two-dataset run twice that
+
+
+def legacy_config(key: str, geo=LEGACY_GEOMETRY) -> dict:
+    """The model block ``key`` runs: its shipped config's (pythia's for
+    ban / top_down_bottom_up), at the geometry's widths."""
+    from vitxtgqa_tpu_torch.core.config import build_config
+
+    config, block, _ = LEGACY_CONFIGS.get(key, ("pythia_vqa2.yml", "pythia", "vqa2"))
+    cfg = build_config(os.path.join(ROOT, "configs", config)).model_attributes[block].to_dict()
+    cfg.update(vocab_size=geo["vocab"], embed_dim=geo["embed"], hidden_dim=geo["hidden"])
+    return cfg
+
+
+def legacy_batch(key: str, geo=LEGACY_GEOMETRY, seed: int = 0) -> dict:
+    """A batch of ``key``'s dataset (TextVQA's for lorra, VQA2's else) at
+    the geometry: padded box rows zeroed past each image's count, OCR rows
+    and order vectors past each question's, sparse soft targets."""
+    import numpy as np
+
+    ds = LEGACY_CONFIGS.get(key, (None, None, "vqa2"))[2]
+    r = np.random.default_rng(seed)
+    b, t, k = geo["batch"], geo["text_len"], geo["boxes"][ds]
+    nout = geo["answers"][ds] + (geo["ocr"] if ds == "textvqa" else 0)
+    boxes = r.integers(k // 4, k + 1, b)
+    feat0 = r.standard_normal((b, k, geo["feat"]), dtype=np.float32)
+    feat0[np.arange(k)[None, :] >= boxes[:, None]] = 0.0
+    targets = np.zeros((b, nout), np.float32)
+    for i in range(b):
+        targets[i, r.integers(0, nout, 3)] = (0.3, 0.6, 1.0)
+    batch = {"text": r.integers(1, geo["vocab"], (b, t)), "text_len": r.integers(3, t + 1, b),
+             "image_feature_0": feat0, "image_info_0_max_features": boxes,
+             "image_feature_1": r.standard_normal((b, geo["grid"], geo["feat"]),
+                                                  dtype=np.float32),
+             "targets": targets}
+    if ds == "textvqa":
+        n = r.integers(1, geo["ocr"] + 1, b)
+        live = np.arange(geo["ocr"])[None, :] < n[:, None]
+        ctx = r.standard_normal((b, geo["ocr"], geo["context"]), dtype=np.float32)
+        ctx[~live] = 0.0
+        order = np.eye(geo["ocr"], dtype=np.float32)[None].repeat(b, 0)
+        order[~live] = 0.0
+        batch.update(context_feature_0=ctx, context_info_0_max_features=n, order_vectors=order)
+    return batch
+
+
+def legacy_models(key: str, dev, geo=LEGACY_GEOMETRY, dtype=None, ref_dtype=None, seed=0):
+    """(the model in ``dtype`` (bf16), the same weights in ``ref_dtype``
+    (float32; the plain versions' Options on the card), the batch on the
+    device, the answer count).  The weights are the seeded init's with
+    each weight-norm scale redrawn (legacy_scales): JAX's g = 1 shrinks
+    every weight-normed output by its ||v||, which leaves the scores near 0
+    and the loss flat at a random init, where no fault can move it."""
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.run import setup_imports
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+
+    setup_imports()
+    dtype = torch.bfloat16 if dtype is None else dtype
+    ref_dtype = torch.float32 if ref_dtype is None else ref_dtype
+    cls, cfg = model_class(key), legacy_config(key, geo)
+    tb = to_device(legacy_batch(key, geo, seed), dev)
+    nout = tb["targets"].shape[1]
+    opts = lambda d: Options(device=dev, dtype=d, plain=dev.type == "cuda" and d == torch.float32)
+    model = legacy_scales(cls(cfg, nout, opts=opts(dtype), example=tb).init_weights(seed), seed)
+    ref = cls(cfg, nout, opts=opts(ref_dtype), example=tb)
+    ref.load_state_dict(model.state_dict())
+    return model, ref, tb, nout
+
+
+def legacy_scales(model, seed: int):
+    """Each weight-norm scale (g, h_mat_g) redrawn to ||v|| * U(0.5, 2) from
+    ``seed``: the gain of an unnormalised layer, as a trained model's, in
+    place of the init's 1."""
+    import torch
+
+    gen = torch.Generator().manual_seed(int(seed))
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in params.items():
+            if name.endswith((".g", ".h_mat_g")):
+                u = 0.5 + 1.5 * torch.rand((), generator=gen).item()
+                p.fill_(u * torch.linalg.vector_norm(params[name[:-1] + "v"]).item())
+    return model
+
+
+@contextlib.contextmanager
+def legacy_fault(name, model):
+    """A fault the legacy path could have, for the duration:
+    "lstm_gates_swapped" / "gru_gates_swapped": the cell reads its cell and
+    output gates (LSTM: g, o) or its update and candidate gates (GRU: z, n)
+    swapped, a tanh gate for a sigmoid one (a swap of two sigmoid gates,
+    both near 0.5 at a random init, moves little);
+    "wn_row_norm": weight norm over each output row instead of the whole
+    matrix; "bias_grad_dropped": the classifier's last bias gets no
+    gradient."""
+    import torch
+
+    from vitxtgqa_tpu_torch.models import embeddings as E
+    from vitxtgqa_tpu_torch.models import layers as L
+
+    saved = (E.lstm_step, E.gru_step, L.wn_weight)
+    hook = None
+    def reorder(x, n, order, dim):
+        parts = x.chunk(n, dim=dim)
+        return torch.cat([parts[i] for i in order], dim=dim)
+
+    if name == "lstm_gates_swapped":
+        def lstm(gx, h, c, w_hh):
+            order = (0, 1, 3, 2)
+            return saved[0](reorder(gx, 4, order, -1), h, c, reorder(w_hh, 4, order, 0))
+        E.lstm_step = lstm
+    elif name == "gru_gates_swapped":
+        def gru(gx, h, w_hh, b_hn):
+            order = (0, 2, 1)
+            return saved[1](reorder(gx, 3, order, -1), h, reorder(w_hh, 3, order, 0), b_hn)
+        E.gru_step = gru
+    elif name == "wn_row_norm":
+        def wn(v, g):
+            v32 = v.float()
+            return (v32 / torch.linalg.vector_norm(v32, dim=-1, keepdim=True).clamp_min(1e-12)
+                    * g.float()).to(v.dtype)
+        L.wn_weight = wn
+    else:
+        bias = [p for n, p in model.named_parameters() if n.startswith("classifier")][-1]
+        hook = bias.register_hook(torch.zeros_like)
+    try:
+        yield
+    finally:
+        E.lstm_step, E.gru_step, L.wn_weight = saved
+        if hook is not None:
+            hook.remove()
+
+
+def legacy_step(model, tb, losses, fault=None):
+    """A training forward with dropout off, the logit_bce loss and its
+    backward: (loss, global gradient norm, {parameter: f32 gradient})."""
+    import torch
+
+    with legacy_fault(fault, model) if fault else contextlib.nullcontext():
+        out = model(tb, None, train=True, dropout_gen=None)
+        total = losses.total(tb, out)[0]
+        total.backward()
+    grads = {k: p.grad.float().flatten() for k, p in model.named_parameters()
+             if p.grad is not None}
+    norm = torch.linalg.vector_norm(torch.cat(list(grads.values()))).item()
+    model.zero_grad(set_to_none=True)
+    return total.item(), norm, grads
+
+
+def legacy_agreement(run, want, noise):
+    """(loss rel, norm rel, (gradient rel, its parameter), parameters
+    compared, (the weight-norm scales' largest gradient rel, its
+    parameter)) of ``run`` against ``want``, each (loss, norm, {parameter:
+    gradient}).  A parameter's gradient rel is |g - g_ref| over the larger
+    of |g_ref| and LEGACY_GRAD_FLOOR of the global gradient norm; every
+    parameter counts but the ``noise`` endings, whose gradient is 0 but for
+    rounding."""
+    (loss, norm, grads), (loss_r, norm_r, grads_r) = run, want
+    if sorted(grads) != sorted(grads_r):
+        fail("slice legacy: two steps reach different parameters")
+    floor = LEGACY_GRAD_FLOOR * norm_r
+    rel = {k: float((grads[k] - w).norm()) / max(float(w.norm()), floor)
+           for k, w in grads_r.items() if not k.endswith(tuple(noise))}
+    worst = worst_of(rel)
+    scales = {k: v for k, v in rel.items() if k.endswith((".g", ".h_mat_g"))}
+    top = worst_of(scales) if scales else None
+    return (abs(loss - loss_r) / abs(loss_r), abs(norm - norm_r) / norm_r, (rel[worst], worst),
+            len(rel), (scales.get(top, 0.0), top))
+
+
+def legacy_broken(loss_rel, norm_rel, grad_rel, limits):
+    """The limits (loss, norm, gradient) a reading is outside of."""
+    return [name for name, v, lim in zip(("loss", "norm", "gradient"),
+                                         (loss_rel, norm_rel, grad_rel), limits) if not v <= lim]
+
+
+def legacy_check(dev, geo=LEGACY_GEOMETRY, dtype=None, ref_dtype=None, models=LEGACY,
+                 limits=None, faults=LEGACY_FAULTS, timed=True, card=""):
+    """q (i) and (iii).  Each model at the geometry in ``dtype`` (bf16)
+    against itself in ``ref_dtype`` (float32) from the same weights and
+    batch: the eval forward's argmax agreement (printed), a training step
+    with dropout off at the limits (loss, gradient norm, every parameter's
+    relative gradient difference), each planted fault (LEGACY_FAULTS, in
+    the ``dtype`` step) outside them and every limit broken by some fault;
+    then, ``timed``, LEGACY_STEPS Adamax steps in ``dtype`` with dropout
+    (legacy_times).  No kernel may launch.  Returns the readings."""
+    import torch
+
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.ops import _build
+
+    limits = limits or (LEGACY_LOSS_REL_TOL, LEGACY_GNORM_REL_TOL, LEGACY_GRAD_REL_TOL)
+    noise = LEGACY_NOISE
+    out, broken_by = {}, {}
+    _build.reset_launch_counts()
+    for key in models:
+        model, ref, tb, nout = legacy_models(key, dev, geo, dtype, ref_dtype)
+        losses = Losses([{"type": "logit_bce"}], "vqa2")
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.inference_mode():
+            scores, scores_ref = model(tb)["scores"], ref(tb)["scores"]
+        if scores.shape != (geo["batch"], nout) or not torch.isfinite(scores).all():
+            fail(f"slice legacy {key}: scores {tuple(scores.shape)}, finite "
+                 f"{bool(torch.isfinite(scores).all())}")
+        agree = (scores.argmax(-1) == scores_ref.argmax(-1)).float().mean().item()
+        want = legacy_step(ref, tb, losses)
+        del ref
+        run = legacy_step(model, tb, losses)
+        loss_rel, norm_rel, (grad_rel, worst), n, (sc_rel, sc_worst) = legacy_agreement(
+            run, want, noise)
+        broken = legacy_broken(loss_rel, norm_rel, grad_rel, limits)
+        print(f"slice legacy {key}: {n_params / 1e6:.1f}M params, batch {geo['batch']}, "
+              f"{model.opts.dtype} vs float32: argmax agreement {agree:.4f} (printed: random "
+              f"weights); loss {run[0]:.6f} vs {want[0]:.6f} (rel {loss_rel:.3e}), gradient "
+              f"norm {run[1]:.5f} vs {want[1]:.5f} (rel {norm_rel:.3e}), per-parameter gradient "
+              f"rel diff max {grad_rel:.3e} ({worst}) over {n} parameters (limits: loss, norm, "
+              f"gradient {limits}): {'outside ' + str(broken) if broken else 'within'}; of "
+              f"these the weight-norm scales' rel max {sc_rel:.3e} ({sc_worst})",
+              flush=True)
+        rec = {"params_m": n_params / 1e6, "argmax_agreement": agree, "loss": [run[0], want[0]],
+               "grad_norm": [run[1], want[1]], "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+               "max_grad_rel": grad_rel, "max_grad_rel_param": worst, "outside": broken,
+               "max_scalar_grad_rel": sc_rel, "max_scalar_grad_rel_param": sc_worst,
+               "planted": {}}
+        del run
+        for fault in [f for f, m in faults.items() if m == key]:
+            bad = legacy_step(model, tb, losses, fault=fault)
+            f_loss, f_norm, (f_grad, f_worst), _, _ = legacy_agreement(bad, want, noise)
+            hit = legacy_broken(f_loss, f_norm, f_grad, limits)
+            print(f"slice legacy {key}: planted {fault}: loss rel {f_loss:.3e}, norm rel "
+                  f"{f_norm:.3e}, gradient rel max {f_grad:.3e} ({f_worst}): outside the limits "
+                  f"{hit}", flush=True)
+            rec["planted"][fault] = {"loss_rel": f_loss, "grad_norm_rel": f_norm,
+                                     "max_grad_rel": f_grad, "outside": hit}
+            broken_by[fault] = hit
+            del bad
+        del want
+        if timed:
+            rec.update(legacy_times(key, model, tb, losses, dev, card))
+        out[key] = rec
+        del model, tb
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    launched = {k: v for k, v in _build.launch_counts().items() if v}
+    if launched:
+        fail(f"slice legacy: the legacy models launched kernels {launched}")
+    for key, rec in out.items():
+        if rec["outside"]:
+            fail(f"slice legacy {key}: the step disagrees with float32 outside the limits "
+                 f"{rec['outside']}")
+    for fault, hit in broken_by.items():
+        if not hit:
+            fail(f"slice legacy: the planted fault {fault} passes the limits")
+    caught = {lim for hit in broken_by.values() for lim in hit}
+    if faults and caught != {"loss", "norm", "gradient"}:
+        fail(f"slice legacy: only the limits {sorted(caught)} caught a planted fault")
+    return out
+
+
+def legacy_times(key, model, tb, losses, dev, card):
+    """LEGACY_STEPS Adamax steps (the config's optimizer_attributes and
+    schedule, dropout from the step's generator): each step's ms, the
+    median after the first, the peak memory, parameters moved; then the
+    eval forward's ms (median of 5 after one warm-up)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.core.config import build_config
+    from vitxtgqa_tpu_torch.training.optim import build_optimizer
+    from vitxtgqa_tpu_torch.training.step import step_generators, train_step
+
+    config = LEGACY_CONFIGS.get(key, ("pythia_vqa2.yml",))[0]
+    full = build_config(os.path.join(ROOT, "configs", config))
+    opt = build_optimizer(model, full.optimizer_attributes, full.training_parameters)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    before_names = list(before)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times, seen = [], []
+    for step in range(LEGACY_STEPS):
+        t = time.perf_counter()
+        r = train_step(model, losses, opt, tb, step_generators(0, step, dev))
+        sync(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+        seen.append(float(r["loss"]))
+        if not r["applied"]:
+            fail(f"slice legacy {key}: Adamax step {step} had a non-finite loss or gradient")
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    moved = sum(bool((p.detach() != before[k]).any()) for k, p in model.named_parameters())
+    if not moved:
+        fail(f"slice legacy {key}: the Adamax steps left every parameter unchanged")
+    del before
+    fwd = []
+    for i in range(6):
+        t = time.perf_counter()
+        with torch.inference_mode():
+            model(tb)
+        sync(dev)
+        fwd.append((time.perf_counter() - t) * 1e3)
+    step_ms, fwd_ms = statistics.median(times[1:]), statistics.median(fwd[1:])
+    print(f"slice legacy {key}: {LEGACY_STEPS} Adamax steps at batch {tb['text'].shape[0]}, "
+          f"{model.opts.dtype}: losses {seen}, {moved} of {len(before_names)} parameters moved "
+          f"(the others get no gradient at the init), step ms {[round(x, 2) for x in times]} (the first "
+          f"warms up), median {step_ms:.2f}; eval forward ms median {fwd_ms:.2f} (min "
+          f"{min(fwd[1:]):.2f}); max_memory_allocated {peak / 2**30:.2f} GiB; card {card}",
+          flush=True)
+    return {"step_ms_all": times, "step_ms_median": step_ms, "forward_ms_all": fwd,
+            "forward_ms_median": fwd_ms, "max_memory_allocated": peak, "adamax_losses": seen,
+            "params_moved": moved}
+
+
+def legacy_runtime(card, geo=LEGACY_GEOMETRY, extra=None, workers=None,
+                   steps=LEGACY_RUNTIME_STEPS):
+    """q (ii).  ``python -m vitxtgqa_tpu_torch.run``'s run() on synthetic
+    VQA2 / VizWiz / TextVQA trees the port writes (utils/legacy_fixtures:
+    3 batches of training questions, one of validation, half of test,
+    8 questions an image, the geometry's features and answer spaces; the
+    question vocabulary the models' 100,000 words): pythia on vqa2 and
+    LoRRA on textvqa (``steps`` iterations, the snapshot's and the final
+    validation, EvalAI predictions of val and test), then pythia on
+    vqa2,vizwiz (VizWiz on VQA2's answer space, twice the steps), its
+    schedule printed and held against the port's own MultiDataset on the
+    same seed.  ``extra(model)``: more opts (the CPU dry run's); ``workers``:
+    training_parameters.num_workers (None: the configs' 8).  No kernel may
+    launch."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vitxtgqa_tpu_torch.data.multi_dataset import MultiDataset
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.run import run
+    from vitxtgqa_tpu_torch.utils.legacy_fixtures import write_tree
+
+    b = geo["batch"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_legacy_")
+    out = {}
+    try:
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        questions = {"train": 3 * b, "val": b, "test": max(1, b // 2)}
+        write_tree(root, questions=questions, per_image=8, feat_dim=geo["feat"],
+                   boxes=dict(geo["boxes"], vizwiz=geo["boxes"]["vqa2"]), grid=geo["grid"],
+                   question_vocab=geo["vocab"] - 4, ocr_tokens=geo["ocr"],
+                   text_len=geo["text_len"],
+                   answers=dict(geo["answers"], vizwiz=geo["answers"]["vqa2"]))
+        print(f"slice legacy runtime: wrote the VQA2 / VizWiz / TextVQA trees ({questions} "
+              f"questions each) in {time.perf_counter() - t0:.1f} s", flush=True)
+        two = os.path.join(tmp, "pythia_vqa2_vizwiz.yml")
+        with open(two, "w") as f:
+            f.write(f"includes:\n- {os.path.join(ROOT, 'configs', 'pythia_vqa2.yml')}\n"
+                    "- common/defaults/configs/datasets/vqa/vizwiz.yml\n")
+        runs = (("pythia_vqa2", "pythia_vqa2.yml", "pythia", ("vqa2",), steps),
+                ("lorra_textvqa", "lorra_textvqa.yml", "lorra", ("textvqa",), steps),
+                ("pythia_vqa2_vizwiz", two, "pythia", ("vqa2", "vizwiz"), 2 * steps))
+        _build.reset_launch_counts()
+        for name, config, model, datasets, n_steps in runs:
+            save = os.path.join(tmp, name)
+            argv = ["--config", config if os.path.isabs(config) else
+                    os.path.join(ROOT, "configs", config), "--model", model, "--datasets",
+                    ",".join(datasets), "--run_type",
+                    "train" if len(datasets) > 1 else "train+inference",
+                    f"training_parameters.save_dir={save}", "training_parameters.seed=1",
+                    f"training_parameters.max_iterations={n_steps}",
+                    "training_parameters.log_interval=1",
+                    f"training_parameters.snapshot_interval={n_steps}",
+                    "training_parameters.evalai_inference=True",
+                    f"training_parameters.batch_size={b}"]
+            argv += [f"dataset_attributes.{d}.data_root_dir={root}" for d in datasets]
+            if len(datasets) > 1:
+                argv += ["dataset_attributes.vizwiz.processors.answer_processor.params."
+                         "vocab_file=vocabs/answers_vqa.txt"]
+            if workers is not None:
+                argv += [f"training_parameters.num_workers={workers}"]
+            t0 = time.perf_counter()
+            trainer = run(argv + (list(extra(model)) if extra else []))
+            wall = time.perf_counter() - t0
+            losses = list(trainer.meter["train/total_loss"].series)
+            ds = datasets[0]
+            acc = trainer.meter.get_scalar_dict().get(f"val/{ds}/vqa_accuracy")
+            if (trainer.iteration != n_steps or len(losses) != n_steps
+                    or not all(np.isfinite(losses)) or acc is None or not 0.0 <= acc <= 1.0):
+                fail(f"slice legacy runtime {name}: iteration {trainer.iteration}, losses "
+                     f"{losses}, val vqa_accuracy {acc}")
+            rec = {"losses": losses, "val_vqa_accuracy": acc, "wall_s": wall,
+                   "iteration_ms": trainer.timings["iteration_ms"],
+                   "val_ms": trainer.timings["val_ms"], "dtype": str(trainer.opts.dtype)}
+            if len(datasets) > 1:
+                multi = trainer.multi_train
+                own = MultiDataset(multi.loaders, proportional=True, seed=trainer.seed)
+                want = [own.dataset_for_step(s) for s in range(n_steps)]
+                print(f"slice legacy runtime {name}: schedule {trainer.datasets_drawn} (the "
+                      f"port's MultiDataset on seed {trainer.seed}: {want})", flush=True)
+                if trainer.datasets_drawn != want:
+                    fail(f"slice legacy runtime {name}: the run drew {trainer.datasets_drawn}, "
+                         f"the schedule is {want}")
+                rec["schedule"] = want
+            else:
+                reports = os.path.join(save, "reports")
+                rows = {f.rsplit("_", 1)[0]: _json.load(open(os.path.join(reports, f)))
+                        for f in sorted(os.listdir(reports))}
+                sizes = {k: len(v) for k, v in rows.items()}
+                if sizes != {f"{ds}_val": questions["val"], f"{ds}_test": questions["test"]}:
+                    fail(f"slice legacy runtime {name}: EvalAI records {sizes}")
+                keys = {"question_id", "answer"} | (
+                    {"actual_answers", "question_tokens", "image_id"} if ds == "vqa2" else set())
+                if any(set(r) != keys or not isinstance(r["answer"], str)
+                       for rs in rows.values() for r in rs):
+                    fail(f"slice legacy runtime {name}: a record is not {sorted(keys)}")
+                rec["records"] = sizes
+            print(f"slice legacy runtime {name}: {n_steps} steps at batch {b} ("
+                  f"{trainer.opts.dtype}), losses {[round(x, 5) for x in losses]}, val "
+                  f"vqa_accuracy {acc:.4f}; iteration ms "
+                  f"{[round(x, 2) for x in trainer.timings['iteration_ms']]}, validation pass "
+                  f"ms {[round(x, 2) for x in trainer.timings['val_ms']]}; run() wall "
+                  f"{wall:.1f} s; card {card}", flush=True)
+            out[name] = rec
+            del trainer
+        launched = {k: v for k, v in _build.launch_counts().items() if v}
+        if launched:
+            fail(f"slice legacy runtime: kernels launched {launched}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def legacy_slice(dev, card) -> dict:
+    """q. The legacy image-VQA zoo: the checks of legacy_check, then the
+    runtime's runs (legacy_runtime)."""
+    import torch
+
+    out = {"check": legacy_check(dev, card=card)}
+    torch.cuda.empty_cache()
+    out["runtime"] = legacy_runtime(card)
+    return out
+
+
 def run_slices(dev, record, card):
     import torch
 
@@ -5598,6 +6103,8 @@ def run_slices(dev, record, card):
     details["dp"] = dp_slice(record, card)
     # p. serving at bucket 48, the serve demo, the raw-video pipeline
     details["serving"] = serving_slice(dev, record, card)
+    # q. the legacy image-VQA zoo: bf16 against float32, Adamax steps, run()
+    details["legacy"] = legacy_slice(dev, card)
     return details
 
 

@@ -1595,3 +1595,83 @@ def test_grounding_probe_forces_a_grounding_and_swap_margins_name_the_flips():
             assert s["plain_log_margin_ulps"] == pytest.approx(
                 s["plain_log_margin"] / CS.bf16_ulp(np.log(b)))
         assert np.isnan(s["row_log_score_diff"]) or s["row_log_score_diff"] >= 0
+
+
+# ---------------------------------------------------------------------------
+# slice q: the legacy image-VQA zoo
+# ---------------------------------------------------------------------------
+
+# the tiny geometry of slice q's dry runs (the card's: CS.LEGACY_GEOMETRY)
+LEGACY_TINY = dict(CS.LEGACY_GEOMETRY, batch=6, vocab=60, embed=8, hidden=16, feat=16,
+                   boxes={"vqa2": 7, "textvqa": 9}, grid=5, answers={"vqa2": 20, "textvqa": 20})
+
+
+def test_slice_q_geometry_is_the_configs():
+    """The six models at configs/pythia_vqa2.yml's / lorra_textvqa.yml's
+    widths (ban and top_down_bottom_up on pythia's block), batch 128, MMF's
+    feature shapes and answer spaces; a batch's shapes at a geometry."""
+    g = CS.LEGACY_GEOMETRY
+    assert (g["batch"], g["text_len"], g["vocab"], g["embed"], g["hidden"]) == (
+        128, 14, 100_000, 300, 1024)
+    assert (g["feat"], g["boxes"], g["grid"], g["ocr"], g["context"], g["answers"]) == (
+        2048, {"vqa2": 100, "textvqa": 137}, 196, 50, 300, {"vqa2": 3129, "textvqa": 8000})
+    for key in CS.LEGACY:
+        cfg = CS.legacy_config(key)
+        assert (cfg["vocab_size"], cfg["embed_dim"], cfg["hidden_dim"]) == (100_000, 300, 1024)
+    b = CS.legacy_batch("lorra", LEGACY_TINY)
+    assert b["image_feature_0"].shape == (6, 9, 16) and b["targets"].shape == (6, 20 + 50)
+    assert b["context_feature_0"].shape == (6, 50, 300) and b["order_vectors"].shape == (6, 50, 50)
+    for i, n in enumerate(b["image_info_0_max_features"]):
+        assert not b["image_feature_0"][i, n:].any() and b["image_feature_0"][i, :n].all()
+    assert CS.legacy_batch("ban", LEGACY_TINY)["targets"].shape == (6, 20)
+
+
+def test_slice_q_check_dry_run(no_cuda_sync):
+    """legacy_check on the CPU at the tiny geometry, float32 against
+    float32: every model within the limits (equal), every planted fault
+    outside them and each of the three limits catching one; then the
+    Adamax steps move parameters and no kernel launched."""
+    out = CS.legacy_check(torch.device("cpu"), LEGACY_TINY, dtype=torch.float32)
+    assert sorted(out) == sorted(CS.LEGACY)
+    for key, rec in out.items():
+        assert rec["loss_rel"] == rec["grad_norm_rel"] == rec["max_grad_rel"] == 0.0, key
+        assert rec["params_moved"] >= 1 and len(rec["step_ms_all"]) == CS.LEGACY_STEPS
+    planted = {f: out[m]["planted"][f]["outside"] for f, m in CS.LEGACY_FAULTS.items()}
+    assert all(planted.values()) and {x for v in planted.values() for x in v} == {
+        "loss", "norm", "gradient"}
+
+
+@pytest.mark.parametrize("fault", sorted(CS.LEGACY_FAULTS))
+def test_slice_q_rejects_each_planted_fault_alone(fault, no_cuda_sync):
+    """The model alone is within the limits; with ``fault`` planted and
+    limits too wide to catch it, the check fails ("passes the limits")."""
+    key = CS.LEGACY_FAULTS[fault]
+    out = CS.legacy_check(torch.device("cpu"), LEGACY_TINY, dtype=torch.float32, models=(key,),
+                          faults={}, timed=False)
+    assert not out[key]["outside"]
+    try:
+        CS.legacy_check(torch.device("cpu"), LEGACY_TINY, dtype=torch.float32, models=(key,),
+                        faults={fault: key}, timed=False, limits=(1e9, 1e9, 1e9))
+    except SystemExit as e:
+        assert "passes the limits" in str(e)
+    else:
+        raise AssertionError(f"{fault} passed limits of 1e9")
+
+
+def test_slice_q_runtime_dry_run(no_cuda_sync):
+    """legacy_runtime on the CPU at the tiny geometry (float32, no
+    workers): pythia on vqa2 and LoRRA on textvqa train, validate and
+    write every EvalAI record; the two-dataset run draws the port's
+    MultiDataset schedule."""
+    def extra(model):
+        return ["training_parameters.device=cpu",
+                "training_parameters.tpu.compute_dtype=float32",
+                f"model_attributes.{model}.vocab_size=60", f"model_attributes.{model}.embed_dim=8",
+                f"model_attributes.{model}.hidden_dim=16"]
+
+    out = CS.legacy_runtime("cpu", LEGACY_TINY, extra=extra, workers=0)
+    assert sorted(out) == ["lorra_textvqa", "pythia_vqa2", "pythia_vqa2_vizwiz"]
+    assert out["pythia_vqa2"]["records"] == {"vqa2_val": 6, "vqa2_test": 3}
+    assert out["lorra_textvqa"]["records"] == {"textvqa_val": 6, "textvqa_test": 3}
+    two = out["pythia_vqa2_vizwiz"]
+    assert len(two["schedule"]) == 2 * CS.LEGACY_RUNTIME_STEPS == len(two["losses"])

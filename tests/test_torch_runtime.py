@@ -120,15 +120,17 @@ def test_build_config_equals_the_jax_packages(repo_root, name, opts):
 def test_the_ports_defaults_are_copies(repo_root):
     """defaults/configs holds base.yml and every file the includes of the
     T2S-family configs reach (the two T2S configs, M4C's, T5-ViteVQA's and
-    GT-box's, whose T2S_human.yml includes gt_box.yml), each a copy of the
-    JAX package's."""
+    GT-box's, whose T2S_human.yml includes gt_box.yml) and the legacy
+    image-VQA datasets' defaults (vqa2, vizwiz, textvqa), each a copy of
+    the JAX package's."""
     from vitxtgqa_tpu_torch.core.config import DEFAULTS_DIR
 
     rels = sorted(os.path.relpath(os.path.join(d, f), DEFAULTS_DIR)
                   for d, _, names in os.walk(DEFAULTS_DIR) for f in names)
-    videoqa = os.path.join("datasets", "videoqa")
+    videoqa, vqa = os.path.join("datasets", "videoqa"), os.path.join("datasets", "vqa")
     assert rels == ["base.yml"] + [os.path.join(videoqa, f) for f in (
-        "T2S_human.yml", "gt_box.yml", "vtextgqa.yml")]
+        "T2S_human.yml", "gt_box.yml", "vtextgqa.yml")] + [
+        os.path.join(vqa, f) for f in ("textvqa.yml", "vizwiz.yml", "vqa2.yml")]
     for rel in rels:
         jax_copy = os.path.join(repo_root, "vitxtgqa_tpu", "defaults", "configs", rel)
         assert open(os.path.join(DEFAULTS_DIR, rel)).read() == open(jax_copy).read(), rel
@@ -148,14 +150,20 @@ def test_the_ports_registry_is_its_own():
     assert jax_registry.get_model_class("t2s").__module__ == "vitxtgqa_tpu.models.t2s"
     assert sorted(port_registry.list("model")) == sorted(
         ["t2s", "t2s_wo_tg", "t2s_wo_sg", "m4c", "t5vitevqa", "gt_box", "T2S_human", "transtr",
-         "mist"])
-    assert {"m4c", "transtr"} <= set(jax_registry.list("model"))
-    assert sorted(port_registry.list("builder")) == ["gt_box", "gt_box_clipocr", "vtextgqa"]
+         "mist", "pythia", "pythia_question_only", "pythia_image_only", "lorra", "ban",
+         "top_down_bottom_up"])
+    assert {"m4c", "transtr", "pythia", "ban"} <= set(jax_registry.list("model"))
+    assert sorted(port_registry.list("builder")) == sorted(
+        ["gt_box", "gt_box_clipocr", "vtextgqa", "vqa2", "vizwiz", "textvqa", "vqa2_ocr"])
+    # every processor and metric of the JAX registry
+    for kind in ("processor", "metric"):
+        assert set(jax_registry.list(kind)) <= set(port_registry.list(kind)), kind
     for kind in ("model", "builder"):
         for name in port_registry.list(kind):
             assert port_registry._get_class(kind, name).__module__.startswith(
                 "vitxtgqa_tpu_torch."), (kind, name)
-    assert sorted(port_registry.list("metric")) == sorted(SIX)
+    assert sorted(port_registry.list("metric")) == sorted(SIX + ("vqa_accuracy",
+                                                                  "temporal_accuracy"))
     for kind in ("processor", "builder", "metric", "trainer"):
         for name in port_registry.list(kind):
             assert port_registry._get_class(kind, name).__module__.startswith("vitxtgqa_tpu_torch.")

@@ -243,8 +243,8 @@ def test_losses_match_jax():
     for k in parts:
         np.testing.assert_allclose(float(parts[k]), float(jparts[k]), rtol=1e-6, err_msg=k)
     np.testing.assert_allclose(float(total), float(jtotal), rtol=1e-6)
-    with pytest.raises(ValueError, match="not ported"):
-        Losses([{"type": "bce_kl_combined"}])
+    with pytest.raises(ValueError, match="not in the registry"):
+        Losses([{"type": "nope"}])
 
 
 def test_lr_multiplier_matches_jax_schedule():

@@ -1,4 +1,5 @@
-"""Per-frame feature store: npy reads with a whole-video LRU.
+"""Feature stores: per-frame npy reads with a whole-video LRU, and padded
+[N, D] -> [max_loc, D] reads for the legacy image-VQA datasets.
 
 The numpy path of vitxtgqa_tpu/data/feature_readers.py: the JAX reader
 returns the same arrays from it when its native threaded reader (_featio)
@@ -12,7 +13,7 @@ from __future__ import annotations
 import glob
 import os
 from collections import OrderedDict
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -35,6 +36,30 @@ class _LRU:
         self.store.move_to_end(key)
         while len(self.store) > self.capacity:
             self.store.popitem(last=False)
+
+
+class PaddedFeatureReader:
+    """<dir>/<id>.npy [N, D] -> (padded [max_loc, D], n_valid)
+    (reference: feature_readers.py:103-142)."""
+
+    def __init__(self, base_dir: str, max_loc: int = 100, cache_size: int = 256):
+        self.base_dir = base_dir
+        self.max_loc = max_loc
+        self.cache = _LRU(cache_size)
+
+    def read(self, item_id: str) -> Tuple[np.ndarray, int]:
+        cached = self.cache.get(item_id)
+        if cached is not None:
+            return cached
+        feat = np.load(os.path.join(self.base_dir, f"{item_id}.npy"), allow_pickle=True)
+        if feat.ndim == 1:
+            feat = feat[None, :]
+        n = min(len(feat), self.max_loc)
+        out = np.zeros((self.max_loc, feat.shape[-1]), np.float32)
+        out[:n] = feat[:n]
+        result = (out, n)
+        self.cache.put(item_id, result)
+        return result
 
 
 class VideoFeatureReader:

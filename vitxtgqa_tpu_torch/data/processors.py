@@ -1,12 +1,12 @@
 """Per-sample processors (config-selected, registry-keyed).
 
-The port's copy of vitxtgqa_tpu/data/processors.py, with the processors
-that the vtextgqa dataset and the T2S configs name (bert_tokenizer,
-m4c_answer, simple_word, fasttext, phoc, copy, bbox and their vocab base);
-the legacy image-VQA answer processors (glove, vqa_answer,
-multi_hot_answer_from_vocab, soft_copy_answer) come with their models
-(ROADMAP.md queue 1 item 4); simple_sentence, which no config names, is
-left out.
+The port's copy of vitxtgqa_tpu/data/processors.py, every processor of
+its registry: those of the vtextgqa dataset and the T2S configs
+(bert_tokenizer, m4c_answer, simple_word, fasttext, phoc, copy, bbox and
+their vocab base), and those of the legacy image-VQA datasets
+(simple_sentence, the text preprocessor of the vqa2 / vizwiz / textvqa
+defaults; glove; the answer processors vqa_answer,
+multi_hot_answer_from_vocab and soft_copy_answer).
 
 Same registry keys and call contracts as the reference processor suite
 (reference: pythia/datasets/processors.py:167-1156) so dataset configs work
@@ -19,13 +19,13 @@ of per-token Python loops.
 from __future__ import annotations
 
 import os
-from collections import defaultdict
+from collections import Counter, defaultdict
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from vitxtgqa_tpu_torch.core.registry import registry
-from vitxtgqa_tpu_torch.data.text import VocabDict, word_tokenize
+from vitxtgqa_tpu_torch.data.text import VocabDict, tokenize, word_tokenize
 from vitxtgqa_tpu_torch.data.word_vectors import load_word_vectors
 from vitxtgqa_tpu_torch.data.wordpiece import WordPieceTokenizer
 from vitxtgqa_tpu_torch.ops.phoc import PHOC_DIM, build_phoc_batch
@@ -80,6 +80,15 @@ class SimpleWordProcessor(BaseProcessor):
 
     def __call__(self, item, *args, **kwargs):
         return {"text": word_tokenize(item["text"], *args, **kwargs)}
+
+
+@registry.register_processor("simple_sentence")
+class SimpleSentenceProcessor(BaseProcessor):
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __call__(self, item, *args, **kwargs):
+        return {"text": tokenize(item["text"], *args, **kwargs)}
 
 
 @registry.register_processor("vocab")
@@ -387,3 +396,152 @@ class M4CAnswerProcessor(BaseProcessor):
             "train_prev_inds": train_prev_inds,
             "train_loss_mask": train_loss_mask,
         }
+
+
+@registry.register_processor("glove")
+class GloVeProcessor(VocabProcessor):
+    """Token indices looked up in a pre-extracted embedding table
+    (reference: processors.py:317-357 over torchtext GloVe caches; here the
+    vectors come from the vocab-embedding family, data/vocab_embeddings.py)."""
+
+    def __init__(self, config, *args, data_root_dir: Optional[str] = None, **kwargs):
+        super().__init__(config, *args, data_root_dir=data_root_dir, **kwargs)
+        from vitxtgqa_tpu_torch.data.vocab_embeddings import Vocab as EmbedVocab
+
+        vocab_cfg = _cfg_get(config, "vocab") or {}
+        vocab_file = _cfg_get(vocab_cfg, "vocab_file")
+        if vocab_file and data_root_dir and not os.path.isabs(vocab_file):
+            vocab_file = os.path.join(data_root_dir, vocab_file)
+        self.embed_vocab = EmbedVocab(
+            type="intersected", vocab_file=vocab_file,
+            model_file=_cfg_get(vocab_cfg, "model_file"),
+            embedding_dim=int(_cfg_get(vocab_cfg, "embedding_dim", 300)))
+
+    def __call__(self, item):
+        tokens = self._tokens_of(item)
+        table = self.embed_vocab.get_vectors()
+        out = np.zeros((self.max_length, self.embed_vocab.dim), np.float32)
+        for i, tok in enumerate(tokens[: self.max_length]):
+            out[i] = table[self.embed_vocab.stoi.get(tok, self.embed_vocab.UNK_INDEX)]
+        return {"text": out}
+
+
+def _soft_score(answers: List[Any], target: Any) -> float:
+    """The VQA leave-one-out accuracy of ``target`` among ``answers``: the
+    mean over each answer left out of min(1, matches among the others / 3)."""
+    gt = list(enumerate(answers))
+    accs = []
+    for g in gt:
+        matching = [o for o in gt if o != g and o[1] == target]
+        accs.append(min(1.0, len(matching) / 3.0))
+    return sum(accs) / len(accs)
+
+
+@registry.register_processor("vqa_answer")
+class VQAAnswerProcessor(BaseProcessor):
+    """VQA soft-score answer targets over a fixed vocabulary
+    (reference: processors.py:498-677)."""
+
+    DEFAULT_NUM_ANSWERS = 10
+
+    def __init__(self, config, *args, data_root_dir: Optional[str] = None, **kwargs):
+        self.answer_vocab = VocabDict(_cfg_get(config, "vocab_file"), data_root_dir=data_root_dir)
+        pre = _cfg_get(config, "preprocessor")
+        self.preprocessor = Processor(pre) if pre is not None else None
+        self.num_answers = int(_cfg_get(config, "num_answers", self.DEFAULT_NUM_ANSWERS))
+
+    def get_vocab_size(self) -> int:
+        return self.answer_vocab.num_vocab
+
+    def get_true_vocab_size(self) -> int:
+        return self.answer_vocab.num_vocab
+
+    def word2idx(self, word):
+        return self.answer_vocab.word2idx(word)
+
+    def idx2word(self, idx):
+        return self.answer_vocab.idx2word(idx)
+
+    def _increase_to_ten(self, tokens):
+        while len(tokens) < self.DEFAULT_NUM_ANSWERS:
+            tokens = tokens + tokens[: self.DEFAULT_NUM_ANSWERS - len(tokens)]
+        return tokens
+
+    def compute_answers_scores(self, answers_indices) -> np.ndarray:
+        """Leave-one-out soft score per unique index, UNK zeroed
+        (reference: processors.py:634-654)."""
+        scores = np.zeros(self.get_vocab_size(), np.float32)
+        indices = [int(a) for a in answers_indices]
+        for answer in set(indices):
+            if answer != self.answer_vocab.UNK_INDEX:
+                scores[answer] = _soft_score(indices, answer)
+        return scores
+
+    def _tokens(self, item) -> List[str]:
+        if "answer_tokens" in item:
+            tokens = list(item["answer_tokens"])
+        elif "answers" in item:
+            assert self.preprocessor is not None
+            tokens = [self.preprocessor({"text": a})["text"] for a in item["answers"]]
+        else:
+            raise AssertionError("need 'answers' or 'answer_tokens'")
+        return self._increase_to_ten(tokens)
+
+    def __call__(self, item):
+        tokens = self._tokens(item)
+        indices = np.full(self.DEFAULT_NUM_ANSWERS, self.answer_vocab.UNK_INDEX, np.int64)
+        for i, tok in enumerate(tokens[: self.DEFAULT_NUM_ANSWERS]):
+            indices[i] = self.answer_vocab.word2idx(tok)
+        return {"answers": tokens, "answers_indices": indices,
+                "answers_scores": self.compute_answers_scores(indices)}
+
+
+@registry.register_processor("multi_hot_answer_from_vocab")
+class MultiHotAnswerFromVocabProcessor(VQAAnswerProcessor):
+    """Multi-hot targets (reference: processors.py:680-688)."""
+
+    def compute_answers_scores(self, answers_indices) -> np.ndarray:
+        scores = np.zeros(self.get_vocab_size(), np.float32)
+        scores[np.asarray(answers_indices, np.int64)] = 1.0
+        scores[self.answer_vocab.UNK_INDEX] = 0.0
+        return scores
+
+
+@registry.register_processor("soft_copy_answer")
+class SoftCopyAnswerProcessor(VQAAnswerProcessor):
+    """VQA answers + the OCR soft-copy space (reference:
+    processors.py:690-781, LoRRA's answer space): the scores over the
+    fixed vocabulary, then ``max_length`` OCR slots, each the soft score of
+    its (preprocessed) token among the answers."""
+
+    DEFAULT_MAX_LENGTH = 200
+
+    def __init__(self, config, *args, data_root_dir: Optional[str] = None, **kwargs):
+        super().__init__(config, *args, data_root_dir=data_root_dir, **kwargs)
+        self.max_length = int(_cfg_get(config, "max_length", self.DEFAULT_MAX_LENGTH))
+        ctx_pre = _cfg_get(config, "context_preprocessor")
+        self.context_preprocessor = Processor(ctx_pre) if ctx_pre is not None else None
+
+    def get_vocab_size(self) -> int:
+        return self.answer_vocab.num_vocab + self.max_length
+
+    def get_true_vocab_size(self) -> int:
+        return self.answer_vocab.num_vocab
+
+    def __call__(self, item):
+        out = super().__call__({"answers": item["answers"]})
+        answers = out["answers"]
+        n_vocab = self.answer_vocab.num_vocab
+        scores = np.zeros(self.get_vocab_size(), np.float32)
+        scores[:n_vocab] = out["answers_scores"][:n_vocab]
+        tokens = list(item.get("tokens", []))
+        if self.context_preprocessor is not None:
+            tokens = [self.context_preprocessor({"text": t})["text"] for t in tokens]
+        counter = Counter(answers)
+        token_scores = np.zeros(self.max_length, np.float32)
+        for i, tok in enumerate(tokens[: self.max_length]):
+            if counter[tok]:
+                token_scores[i] = _soft_score(answers, tok)
+        scores[-self.max_length:] = token_scores
+        out["answers_scores"] = scores
+        return out

@@ -1,5 +1,5 @@
 """Host-side evaluators: answer normalisation, VQA soft accuracy, ANLS,
-box grounding (reference: pythia/utils/m4c_evaluators.py:5-406).
+temporal and box grounding (reference: pythia/utils/m4c_evaluators.py:5-406).
 
 The normalisation tables (contractions, number words, punctuation) are the
 published EvalAI VQA-eval constants — part of the metric definition, kept
@@ -172,6 +172,25 @@ class STVQAANLSEvaluator:
             max(self.get_anls(e["pred_answer"], gt) for gt in e["gt_answers"])
             for e in pred_list
         ]
+        return scores, (sum(scores) / len(scores) if scores else 0.0)
+
+
+class TempGroundAccuracyEvaluator:
+    """Any predicted frame inside a GT temporal span
+    (reference: m4c_evaluators.py:301-326)."""
+
+    def eval_pred_list(self, pred_list: List[dict]):
+        scores = []
+        for entry in pred_list:
+            hit = 0
+            for span in entry["st_gt"]:
+                t0, t1 = span["temporal_gt"]
+                st = int(t0 * entry["video_fps"]) + 1
+                ed = int(t1 * entry["video_fps"]) + 1
+                if any(st <= f <= ed for f in entry["pred_frame"]):
+                    hit = 1
+                    break
+            scores.append(hit)
         return scores, (sum(scores) / len(scores) if scores else 0.0)
 
 

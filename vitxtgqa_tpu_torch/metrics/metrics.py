@@ -1,10 +1,10 @@
 """Registry-keyed metrics (reference: pythia/modules/metrics.py:53-545).
 
-The port's copy of vitxtgqa_tpu/metrics/metrics.py with the six metrics of
-configs/t2s_abinet.yml (textvqa_accuracy, stvqa_anls, IOU@0.3 / 0.5,
-GQA@0.3 / 0.5); ``reference_compat`` is an argument of ``Metrics`` (the JAX
-package's process-wide switch).  The legacy classifier metric
-(vqa_accuracy) and the temporal analysis metric come with their models.
+The port's copy of vitxtgqa_tpu/metrics/metrics.py, every metric of its
+registry: the six of configs/t2s_abinet.yml (textvqa_accuracy, stvqa_anls,
+IOU@0.3 / 0.5, GQA@0.3 / 0.5), the legacy classifiers' vqa_accuracy and
+the temporal grounding metric temporal_accuracy; ``reference_compat`` is
+an argument of ``Metrics`` (the JAX package's process-wide switch).
 
 Design changes vs the reference:
   * GT grounding annotations are loaded once into a question_id-keyed index
@@ -29,6 +29,7 @@ from vitxtgqa_tpu_torch.data.text import word_tokenize
 from vitxtgqa_tpu_torch.metrics.evaluators import (
     BoxGroundAccuracyEvaluator,
     STVQAANLSEvaluator,
+    TempGroundAccuracyEvaluator,
     TextVQAAccuracyEvaluator,
 )
 
@@ -161,6 +162,25 @@ class TextVQAAccuracy:
         return float(acc)
 
 
+@registry.register_metric("vqa_accuracy")
+class VQAAccuracy:
+    """Classifier-VQA soft accuracy: the soft target score at the argmax
+    answer, averaged over the batch (the legacy VQA datasets' monitored
+    metric; its evident definition, as in the JAX package: the targets are
+    leave-one-out soft scores, so targets[argmax(scores)] is the VQA
+    accuracy of the predicted answer).  Reads ``pred_inds`` where the
+    output carries it (the ranks of a data axis gather the argmax, not the
+    scores), else the argmax of ``scores``."""
+
+    name = "vqa_accuracy"
+
+    def __call__(self, tensors, output, host, ctx) -> float:
+        picks = (np.asarray(output["pred_inds"]) if "pred_inds" in output
+                 else np.asarray(output["scores"]).argmax(-1))
+        targets = np.asarray(tensors["targets"])
+        return float(targets[np.arange(len(picks)), picks].mean())
+
+
 @registry.register_metric("stvqa_anls")
 class STVQAANLS:
     name = "stvqa_anls"
@@ -237,6 +257,21 @@ class GQA05(_GQABase):
     threshold = 0.5
 
 
+@registry.register_metric("temporal_accuracy")
+class TemporalAccuracy:
+    """Temporal-only grounding hit: any predicted frame inside a GT span
+    (an analysis metric, reference: m4c_evaluators.py:301-326)."""
+
+    name = "temporal_accuracy"
+
+    def __init__(self):
+        self.evaluator = TempGroundAccuracyEvaluator()
+
+    def __call__(self, tensors, output, host, ctx) -> float:
+        _, acc = self.evaluator.eval_pred_list(_box_predictions(tensors, output, host, ctx))
+        return float(acc)
+
+
 class Metrics:
     """Config-driven metric collection (reference: metrics.py:53-131).
 
@@ -264,7 +299,8 @@ class Metrics:
         for name, fn in self.entries:
             if train and name not in self.TRAIN_ALLOWED:
                 continue
-            if not train and ctx.ground_index is None and name.startswith(("IOU", "GQA")):
+            if not train and ctx.ground_index is None and name.startswith(
+                    ("IOU", "GQA", "temporal")):
                 continue
             out[f"{self.dataset_name}/{name}"] = fn(tensors, output, host, ctx)
         return out

@@ -3,6 +3,10 @@ tools/run.py:67-88).
 
     python -m vitxtgqa_tpu_torch.run --config configs/t2s_abinet.yml --model t2s \
         --datasets vtextgqa --run_type train [opts...]
+    python -m vitxtgqa_tpu_torch.run --config configs/pythia_vqa2.yml --model pythia \
+        --datasets vqa2 [opts...]
+    python -m vitxtgqa_tpu_torch.run --config configs/lorra_textvqa.yml --model lorra \
+        --datasets textvqa [opts...]
 
 It runs on the CUDA card unless the config says
 ``training_parameters.device=cpu`` (then the plain versions run on the
@@ -45,6 +49,7 @@ MANIFEST = (
     "vitxtgqa_tpu_torch.models.gt_box",
     "vitxtgqa_tpu_torch.models.transtr",
     "vitxtgqa_tpu_torch.models.mist",
+    "vitxtgqa_tpu_torch.models.legacy_vqa",
     "vitxtgqa_tpu_torch.training.trainer",
 )
 

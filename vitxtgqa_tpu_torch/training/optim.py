@@ -1,6 +1,6 @@
-"""Optimizer construction: Adam with the warmup / step-decay learning-rate
-multiplier, torch-style global-norm clipping, and per-module learning-rate
-scales as parameter groups.
+"""Optimizer construction: Adam, Adamax or SGD (with momentum) with the
+warmup / step-decay learning-rate multiplier, torch-style global-norm
+clipping, and per-module learning-rate scales as parameter groups.
 
 Counterpart of vitxtgqa_tpu/training/optim.py (reference semantics:
 pythia/utils/general.py lr_lambda_update and clip_gradients,
@@ -10,10 +10,17 @@ pythia/utils/build_utils.py, the parameter groups of pythia/models/t2s.py):
     step)``;
   * clipping scales by ``min(1, max_norm / (norm + 1e-6))``, which is
     ``torch.nn.utils.clip_grad_norm_``;
-  * ``torch.optim.Adam``, whose ``weight_decay`` is the L2-coupled decay the
-    JAX chain reproduces with ``add_decayed_weights``;
+  * the config's ``optimizer_attributes.type``: ``Adam`` / ``AdamW``
+    (``torch.optim.Adam``: the JAX chain routes both to ``optax.adam``),
+    ``Adamax`` (``torch.optim.Adamax``: its infinity norm is
+    max(b2 * u, |g| + eps), eps inside the max, as optax's
+    ``update_infinity_moment``) and ``SGD`` (``torch.optim.SGD`` with the
+    config's ``momentum``: its buffer starts at the first gradient and
+    takes no dampening, as optax's ``trace``; momentum 0 is plain SGD, as
+    ``optax.sgd(momentum=None)``).  Each ``weight_decay`` is the L2-coupled
+    decay the JAX chain reproduces with ``add_decayed_weights``;
   * a module's scale multiplies its group's learning rate (the JAX chain
-    scales the post-Adam update, which is the same for Adam).  A scale that
+    scales the post-optimizer update, which is the same for all three).  A scale that
     names no module raises, as ``assert_scales_resolve`` does.
 The schedule is read at the optimizer's own count of applied updates, as
 optax reads its ``count``: a step skipped by the NaN tripwire does not
@@ -101,16 +108,22 @@ def param_groups(model: nn.Module, scales: Dict[str, float]) -> List[Dict[str, A
     return [g for g in groups if g["params"]]
 
 
+# optimizer_attributes.type (lower case) -> the torch optimizer
+KINDS = {"adam": torch.optim.Adam, "adamw": torch.optim.Adam, "adamax": torch.optim.Adamax,
+         "sgd": torch.optim.SGD}
+
+
 class Optimizer:
-    """Clip, schedule and Adam over a model's parameters (float32 master
-    copies where a parameter is not float32): ``clip()`` takes the
-    parameters' ``.grad`` (summed over the ranks of ``group``), then
-    ``apply()`` updates, or ``zero_grad()`` drops the gradients without an
-    update."""
+    """Clip, schedule and the update (Adam by default; ``kind``: a key of
+    KINDS) over a model's parameters (float32 master copies where a
+    parameter is not float32): ``clip()`` takes the parameters' ``.grad``
+    (summed over the ranks of ``group``), then ``apply()`` updates, or
+    ``zero_grad()`` drops the gradients without an update."""
 
     def __init__(self, model: nn.Module, lr: float, eps: float = 1e-8, weight_decay: float = 0.0,
                  scales: Optional[Dict[str, float]] = None, max_grad_norm: Optional[float] = None,
-                 schedule=lambda count: 1.0, group: Optional[Any] = None):
+                 schedule=lambda count: 1.0, group: Optional[Any] = None, kind: str = "adam",
+                 momentum: float = 0.0):
         self.group = group
         self.base_lr = float(lr)
         self.schedule = schedule
@@ -125,8 +138,11 @@ class Optimizer:
                 self.pairs.append((p, m))
                 masters.append(m)
             adam_groups.append({"params": masters, "lr_scale": g["lr_scale"], "lr": self.base_lr})
-        self.adam = torch.optim.Adam(adam_groups, lr=self.base_lr, eps=eps,
-                                     weight_decay=weight_decay)
+        if kind not in KINDS:
+            raise ValueError(f"optimizer {kind!r}: the port has {sorted(KINDS)}")
+        extra = dict(momentum=momentum) if kind == "sgd" else dict(eps=eps)
+        self.inner = KINDS[kind](adam_groups, lr=self.base_lr, weight_decay=weight_decay,
+                                 **extra)
 
     def _master_grads(self) -> List[torch.Tensor]:
         """Every master copy gets a float32 gradient; a parameter the loss
@@ -156,12 +172,12 @@ class Optimizer:
         return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
 
     def apply(self) -> None:
-        """One Adam update from the clipped gradients at the scheduled
-        learning rate; the master copies are written back to the model."""
+        """One update from the clipped gradients at the scheduled learning
+        rate; the master copies are written back to the model."""
         mult = self.schedule(self.count)
-        for group in self.adam.param_groups:
+        for group in self.inner.param_groups:
             group["lr"] = self.base_lr * mult * group["lr_scale"]
-        self.adam.step()
+        self.inner.step()
         with torch.no_grad():
             for p, m in self.pairs:
                 if m is not p:
@@ -176,9 +192,11 @@ class Optimizer:
             m.grad = None
 
     def state_dict(self) -> Dict[str, Any]:
-        """The count of applied updates, Adam's moments and the float32
-        master copies (None where the parameter is its own master)."""
-        return {"count": self.count, "adam": self.adam.state_dict(),
+        """The count of applied updates, the optimizer's state (Adam's or
+        Adamax's moments, SGD's momentum buffers; under the key "adam") and
+        the float32 master copies (None where the parameter is its own
+        master)."""
+        return {"count": self.count, "adam": self.inner.state_dict(),
                 "masters": [None if m is p else m.detach().clone() for p, m in self.pairs]}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -194,20 +212,18 @@ class Optimizer:
                     raise ValueError("optimizer state of another parameter dtype layout")
                 if saved is not None:
                     m.copy_(saved)
-        self.adam.load_state_dict(state["adam"])
+        self.inner.load_state_dict(state["adam"])
 
 
 def build_optimizer(model: nn.Module, optimizer_attributes: Any = None,
                     training_parameters: Any = None, model_config: Any = None,
                     group: Optional[Any] = None) -> Optimizer:
-    """The port's build_optimizer: Adam only (the JAX Adamax and SGD
-    branches are not ported); the production config's by default; its
-    gradients summed over the ranks of ``group`` (a DataGroup) where given."""
+    """The port's build_optimizer: the config's Adam, Adamax or SGD; the
+    production config's by default; its gradients summed over the ranks of
+    ``group`` (a DataGroup) where given."""
     oa = PRODUCTION_OPTIMIZER if optimizer_attributes is None else optimizer_attributes
     tp = PRODUCTION_TRAINING if training_parameters is None else training_parameters
     kind = str(_get(oa, "type", "Adam") or "Adam").lower()
-    if kind not in ("adam", "adamw"):
-        raise ValueError(f"optimizer {kind!r} is not ported (Adam only)")
     params = _get(oa, "params", {}) or {}
     lr_steps = list(_get(tp, "lr_steps", []) or []) if _get(tp, "lr_scheduler", False) else []
     warm = (bool(_get(tp, "use_warmup", False)), float(_get(tp, "warmup_factor", 0.2)),
@@ -220,4 +236,5 @@ def build_optimizer(model: nn.Module, optimizer_attributes: Any = None,
         scales=module_lr_scales(model_config) if model_config is not None else None,
         max_grad_norm=float(max_norm) if max_norm else None,
         schedule=lambda count: lr_multiplier(count, *warm, lr_steps, ratio), group=group,
+        kind=kind, momentum=float(_get(params, "momentum", 0.0) or 0.0),
     )

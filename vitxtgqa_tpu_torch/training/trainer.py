@@ -39,6 +39,15 @@ padding and the sampler's wrap-around copies are counted nowhere) are
 gathered once a pass and merged in the one-process order, losses as
 (numerator, denominator) sums.  Rank 0 alone logs, writes checkpoints and
 predictions; early stopping is decided once and broadcast.
+
+More than one dataset (``--datasets a,b``): the first is the primary one
+(its validation, head sizes, loss and metric keys, as in JAX); training
+draws each iteration's dataset from data/multi_dataset.MultiDataset, the
+JAX schedule of (seed, iteration), and on a data axis each rank its rows
+of that dataset's global batch.  The legacy image-VQA models (KERNEL_FREE:
+no kernel on their forward) run in the config's compute dtype, float32 on
+the card too, and their datasets write their own EvalAI records
+(``format_for_evalai``).
 """
 
 from __future__ import annotations
@@ -56,12 +65,14 @@ from vitxtgqa_tpu_torch import Options
 from vitxtgqa_tpu_torch.core.config import ConfigNode
 from vitxtgqa_tpu_torch.core.meter import Meter
 from vitxtgqa_tpu_torch.core.registry import registry
+from vitxtgqa_tpu_torch.data.dataset import collate
 from vitxtgqa_tpu_torch.data.loader import (
     DataLoader,
     infinite_batches,
     merge_rows,
     prefetch_batches,
 )
+from vitxtgqa_tpu_torch.data.multi_dataset import MultiDataset
 from vitxtgqa_tpu_torch.losses import Losses
 from vitxtgqa_tpu_torch.metrics.metrics import MetricContext, Metrics, decode_answers, pred_indices
 from vitxtgqa_tpu_torch.options import entry_device
@@ -100,13 +111,16 @@ def mesh_axes(tp: Any) -> Dict[str, int]:
                                                                           "pp")}
 
 
-def options_from_config(tp: Any) -> Options:
+def options_from_config(tp: Any, kernel_free: bool = False) -> Options:
     """The Options of a run from ``training_parameters`` (device) and its
     ``tpu`` section:
       * device: ``cpu`` runs on the CPU; ``auto`` (the default) and ``cuda``
         run on the card, and raise where there is none;
       * compute_dtype: absent takes Options' default for the device (bf16 on
-        the card, float32 on the CPU); float32 on the card raises;
+        the card, float32 on the CPU); float32 on the card raises for a
+        model whose forward reaches the port's kernels, which are bf16;
+        ``kernel_free`` (a model that reaches none: the legacy image-VQA
+        models' KERNEL_FREE) takes it there, as JAX takes it everywhere;
       * use_pallas: absent or true is the kernels; false raises on the card
         (the plain versions are the oracle, never the main path);
       * remat: "attn" or "none" (also None / false); the JAX modes "full",
@@ -142,7 +156,7 @@ def options_from_config(tp: Any) -> Options:
             raise ValueError(f"training_parameters.tpu.compute_dtype={name!r}: the port computes "
                              f"in {sorted(DTYPES)}")
         dtype = DTYPES[str(name)]
-        if cuda and dtype == torch.float32:
+        if cuda and dtype == torch.float32 and not kernel_free:
             raise ValueError(
                 "training_parameters.tpu.compute_dtype=float32 on the card: the port's kernels "
                 "are bf16; set training_parameters.tpu.compute_dtype=bfloat16 (or run on the "
@@ -167,6 +181,9 @@ def options_from_config(tp: Any) -> Options:
         remat = "none"
     return Options(
         device=dev, dtype=dtype, remat=remat,
+        # no kernel to take float32 on the card: the plain versions are the
+        # only ones its forward reaches
+        plain=bool(kernel_free and cuda and dtype == torch.float32),
         kv_cache_int8=bool(_tpu_get(tpu, "kv_cache_int8", False)),
         fused_decode=bool(_tpu_get(tpu, "fused_decode", True)),
         fused_decode_max_batch=int(_tpu_get(tpu, "fused_decode_max_batch", 2)),
@@ -175,18 +192,34 @@ def options_from_config(tp: Any) -> Options:
     )
 
 
+def kernel_free(model_key: str) -> bool:
+    """Whether the registered model's forward reaches no kernel of the port
+    (the legacy image-VQA models)."""
+    try:
+        return bool(getattr(registry.get_model_class(model_key), "KERNEL_FREE", False))
+    except KeyError:
+        return False
+
+
 def build_model(model_key: str, model_cfg: Any, dataset_name: str, opts: Options,
-                inference_only: bool = False):
+                inference_only: bool = False, example: Optional[Dict[str, Any]] = None):
     """Instantiate a registered model with registry-resolved head sizes
-    (reference wiring: build_utils.py:38-51, vqa2/builder.py:40-48)."""
+    (reference wiring: build_utils.py:38-51, vqa2/builder.py:40-48).  The
+    legacy image-VQA models take their input widths from ``example`` (a
+    batch of the data), where the flax models infer them at init."""
     cls = registry.get_model_class(model_key)
     num_final = registry.get(f"{dataset_name}_num_final_outputs")
+    # legacy answer processors (vqa_answer, soft_copy_answer) have no decode
+    # BOS; their models never decode, so any value works
     proc = registry.get(f"{dataset_name}_answer_processor")
     # only a model with a serving variant takes the flag (T2S and its
     # ablations; the others' eval forward is one pass already), as in JAX
     kwargs = {}
-    if "inference_only" in inspect.signature(cls).parameters:
+    params = inspect.signature(cls).parameters
+    if "inference_only" in params:
         kwargs["inference_only"] = inference_only
+    if "example" in params:
+        kwargs["example"] = example
     return cls(model_cfg, int(num_final), bos_idx=int(getattr(proc, "BOS_IDX", 2)), opts=opts,
                **kwargs)
 
@@ -220,13 +253,12 @@ class BaseTrainer:
             else list(self.config.datasets)
         )
         self.dataset_names = [n.strip() for n in names if n.strip()]
-        if len(self.dataset_names) != 1:
-            raise NotImplementedError(
-                f"datasets {self.dataset_names}: the port trains on one dataset; the "
-                "multi-dataset schedule comes with the model zoo (ROADMAP.md queue 1 item 4)")
+        # the first dataset is the primary one: its validation, its head
+        # sizes, its losses' and metrics' keys; with more, training draws
+        # each step's dataset from the MultiDataset schedule
         self.dataset_name = self.dataset_names[0]
         self.ds_cfg = self.config.dataset_attributes[self.dataset_name]
-        self.opts = options_from_config(tp)
+        self.opts = options_from_config(tp, kernel_free(self.config.model))
         self.device = self.opts.device
         # the data axis: None in one process
         self.dp = build_data_group(**mesh_axes(tp), batch_size=int(tp.batch_size))
@@ -289,6 +321,21 @@ class BaseTrainer:
                 f"no dataset splits could be loaded for {self.dataset_name!r} "
                 f"(data_root_dir={self.ds_cfg.data_root_dir!r}); check paths"
             )
+        self.multi_train = None
+        if len(self.dataset_names) > 1 and "train" in self.loaders:
+            # multi-dataset training (reference: multi_dataset.py): every
+            # dataset's train loader, each rank its rows of each global
+            # batch, on the schedule of (seed, step)
+            loaders = {self.dataset_name: self.loaders["train"]}
+            for name in self.dataset_names[1:]:
+                ds = registry.get_builder_class(name)().load(
+                    "train", self.config.dataset_attributes[name], seed=self.seed)
+                loaders[name] = DataLoader(ds, batch_size=batch_size, shuffle=True,
+                                           seed=self.seed, drop_last=True,
+                                           num_workers=min(workers, 16), rank=self.rank,
+                                           world_size=self.world)
+            self.multi_train = MultiDataset(loaders, proportional=bool(
+                getattr(tp, "dataset_size_proportional_sampling", True)), seed=self.seed)
         primary = "train" if "train" in self.datasets else sorted(self.datasets)[0]
         self.primary_split = primary
         self.datasets[primary].update_registry_for_model()
@@ -313,8 +360,13 @@ class BaseTrainer:
         # prediction-only runs take the serving path (skips the contrastive
         # variants; predictions are identical, losses just can't be logged)
         serving = bool(getattr(tp, "evalai_inference", False)) and "train" not in self.run_type
+        example = None
+        if "example" in inspect.signature(registry.get_model_class(model_key)).parameters:
+            # one sample of the data, for the model's input widths (the
+            # legacy datasets draw nothing: reading it moves no generator)
+            example = collate([self.datasets[self.primary_split][0]])["tensors"]
         self.model = build_model(model_key, self.model_cfg, self.dataset_name, self.opts,
-                                 inference_only=serving).init_weights(self.seed)
+                                 inference_only=serving, example=example).init_weights(self.seed)
         if serving:
             self.logger.write("serving mode: single-variant inference path")
         n_params = sum(p.numel() for p in self.model.parameters())
@@ -350,6 +402,7 @@ class BaseTrainer:
         self.current_epoch = 0
         self.epoch_batch = 0  # batches of current_epoch already trained on
         self.data_rng: Optional[Dict[str, Any]] = None
+        self.datasets_drawn: list = []  # a multi-dataset run's dataset at each iteration
         self.max_iterations = int(getattr(tp, "max_iterations", 10000))
         self.log_interval = int(getattr(tp, "log_interval", 100))
         self.snapshot_interval = int(getattr(tp, "snapshot_interval", 1000))
@@ -442,8 +495,13 @@ class BaseTrainer:
 
         self.logger.write(f"training {self.config.model} for {self.max_iterations} iterations")
         should_stop = False
-        batches = self._prefetched(infinite_batches(
-            self.loaders["train"], start_epoch=self.current_epoch, start_batch=self.epoch_batch))
+        if self.multi_train is not None:
+            # the schedule resumes at the iteration (multi_dataset.py)
+            batches = self._prefetched(self.multi_train.iter_from(self.iteration))
+        else:
+            batches = self._prefetched(infinite_batches(
+                self.loaders["train"], start_epoch=self.current_epoch,
+                start_batch=self.epoch_batch))
         train_timer = Timer()
         while self.iteration < self.max_iterations and not should_stop:
             t0 = time.perf_counter()
@@ -451,8 +509,11 @@ class BaseTrainer:
             t_data = time.perf_counter()
             self.iteration += 1
             host = batch["host"]
-            self.current_epoch, self.epoch_batch = host["epoch"], host["epoch_batch"] + 1
-            self.data_rng = host.get("data_rng")
+            if self.multi_train is None:
+                self.current_epoch, self.epoch_batch = host["epoch"], host["epoch_batch"] + 1
+                self.data_rng = host.get("data_rng")
+            else:
+                self.datasets_drawn.append(host.get("dataset_name"))
             tensors, batch = self._split_device_batch(batch)
             r = train_step(self.model, self.losses, self.optimizer, tensors,
                            step_generators(self.rng_seed, self.iteration, self.device, self.dp))
@@ -593,13 +654,18 @@ class BaseTrainer:
             "host": {k: v for k, v in host.items() if isinstance(v, list)}}
         if "pos_scores" in out_np:
             rec["out"]["pred_inds"] = pred_indices(out_np)
+        if "scores" in out_np:
+            # the legacy classifiers: the answer index, and the targets the
+            # soft accuracy reads at it
+            rec["out"] = {k: v for k, v in rec["out"].items() if k != "scores"}
+            rec["out"]["pred_inds"] = np.asarray(out_np["scores"]).argmax(-1)
+            if "targets" in tensors:
+                rec["tensors"]["targets"] = np.asarray(tensors["targets"])
         if losses:
-            if n:
-                rec["terms"] = {k: (w, float(num), float(den)) for k, (w, num, den) in
-                                self.losses.terms(_torch(tensors), _torch(out_np)).items()}
-            else:
-                rec["terms"] = {f"{self.losses.dataset_name}/{name}": (w, 0.0, 0.0)
-                                for name, w, _, _ in self.losses.entries}
+            flat = lambda x: x.detach().float().reshape(-1).cpu().tolist()
+            rec["terms"] = {k: (w, flat(num), flat(den)) for k, (w, num, den) in
+                            self.losses.terms(_torch(tensors), _torch(out_np)).items()
+                            } if n else self.losses.zero_terms()
         return rec
 
     def _merged(self, records: list) -> list:
@@ -618,15 +684,16 @@ class BaseTrainer:
                     rec[field][k] = v
             rec["host"] = {k: merge_rows([p["host"][k] for p in parts]) for k in parts[0]["host"]}
             if "terms" in parts[0]:
-                rec["terms"] = {k: (w, sum(p["terms"][k][1] for p in parts),
-                                    sum(p["terms"][k][2] for p in parts))
+                rec["terms"] = {k: (w, np.sum([p["terms"][k][1] for p in parts], axis=0),
+                                    np.sum([p["terms"][k][2] for p in parts], axis=0))
                                 for k, (w, _, _) in parts[0]["terms"].items()}
             merged.append(rec)
         return merged
 
     @staticmethod
     def _merged_losses(rec) -> Dict[str, float]:
-        return {k: w * num / max(den, 1.0) for k, (w, num, den) in rec["terms"].items()}
+        return {k: w * float(np.sum(np.asarray(num) / np.maximum(np.asarray(den), 1.0)))
+                for k, (w, num, den) in rec["terms"].items()}
 
     def evaluate(self, split: str):
         """Full-split evaluation: losses + configured metrics
@@ -684,11 +751,18 @@ class BaseTrainer:
         but 0 of a data axis, whose rows rank 0 gathers and writes, each
         question once)."""
         loader = self.loaders[split]
+        ds = self.datasets[split]
         per_batch = []  # each batch's rows
         for bi, batch in enumerate(self._prefetched(iter(loader))):
             dev, batch = self._split_device_batch(batch)
             out = _host(self._eval_out(dev, bi))
             tensors, out, host = self._trim_padding(batch, out)
+            if "pos_scores" not in out and hasattr(ds, "format_for_evalai"):
+                # the legacy image-VQA datasets format their own records
+                # (reference: test_reporter.py:126-134 delegates to
+                # dataset.format_for_evalai; vqa2/dataset.py:180-206)
+                per_batch.append(ds.format_for_evalai(tensors, out, host))
+                continue
             pred_inds = np.asarray(out["pos_scores"]).argmax(-1)
             answers = decode_answers(pred_inds, host["context_tokens"], self.answer_processor)
             vocab_size = self.answer_processor.get_true_vocab_size()

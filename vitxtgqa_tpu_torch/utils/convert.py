@@ -12,7 +12,11 @@ reference's torch state dict, so these are the inverses of vitxtgqa_tpu's
 selector's DETR decoders, ``selector_entries``) and of its
 ``convert_mist`` (the question pooling and the ISTA selectors): flax Dense
 kernels [in, out] become Linear weights [out, in], Embed ``embedding``
-becomes ``weight``, LayerNorm ``scale`` becomes ``weight``.
+becomes ``weight``, LayerNorm ``scale`` becomes ``weight``.  The legacy
+image-VQA models (pythia and its ablations, lorra, ban,
+top_down_bottom_up) are mapped from their flat keys alone
+(``legacy_entries``), their RNN cells onto torch's stacked LSTM / GRU
+weights.
 """
 
 from __future__ import annotations
@@ -162,10 +166,74 @@ def family_entries(flat, has_qtv: bool = True, has_grounding: bool = True,
             yield from bert_layer_entries(tp, fp, i)
 
 
+# the legacy image-VQA models (models/legacy_vqa.py): their port modules
+# carry the flax module names, so their entries follow from the flat keys
+LEGACY_MODELS = ("pythia", "pythia_question_only", "pythia_image_only", "lorra", "ban",
+                 "top_down_bottom_up")
+# flax RNN cells: the gate Dense names in torch's gate order
+RNN_GATES = {"lstm": "ifgo", "gru": "rzn"}
+_CELL = re.compile(r"^(.*)/(fwd|bwd)_(\d+)/([ih][a-z])/(kernel|bias)$")
+
+
+def legacy_entries(flat) -> Iterator[Tuple[str, str, str]]:
+    """(torch name, flax path, kind) of a legacy model's flat params: a
+    module path keeps its names ("/" -> "."); Dense and Conv ``kernel`` /
+    ``bias`` and Embed ``embedding`` take torch's names and layouts, a
+    weight-normed linear's ``v`` is transposed ("wn"), BCNet's ``h_mat*``
+    / ``h_bias`` pass as they are, and each LSTM / GRU cell (``fwd_<k>`` /
+    ``bwd_<k>`` of a stacked RNN) becomes the RNN's stacked weights of
+    layer k ("lstm" / "gru")."""
+    done = set()
+    for key in sorted(flat):
+        cell = _CELL.match(key)
+        if cell:
+            mod, direction, layer = cell.group(1), cell.group(2), cell.group(3)
+            path = f"{mod}/{direction}_{layer}"
+            if path not in done:
+                done.add(path)
+                kind = "lstm" if f"{path}/ii/kernel" in flat else "gru"
+                sfx = f"_l{layer}" + ("_reverse" if direction == "bwd" else "")
+                yield (f"{mod.replace('/', '.')}|{sfx}", path, kind)
+            continue
+        mod, leaf = key.rsplit("/", 1) if "/" in key else ("", key)
+        tmod = mod.replace("/", ".")
+        if leaf == "kernel":
+            kind = "conv1d" if np.ndim(flat[key]) == 3 else "linear"
+            if (tmod, kind) not in done:
+                done.add((tmod, kind))
+                yield (tmod, mod, kind)
+        elif leaf == "embedding":
+            yield (tmod, mod, "embed")
+        elif leaf == "v":
+            yield (tmod, mod, "wn")
+        elif leaf in ("h_mat", "h_mat_v", "h_mat_g", "h_bias"):
+            yield (f"{tmod}.{leaf}", key, "param")
+        elif leaf not in ("bias", "g", "b"):
+            raise KeyError(f"legacy_entries: no rule for {key}")
+
+
+def _rnn_cell(cell: Dict[str, np.ndarray], kind: str) -> Dict[str, np.ndarray]:
+    """A flax cell's gate Dense params ({"ii/kernel": ..., ...}) -> the port
+    StackedRNN's weights of one layer and direction (models/embeddings.py):
+    the gates stacked in torch's order, and the biases the cell has."""
+    gates = RNN_GATES[kind]
+    out = {"weight_ih": np.concatenate([np.asarray(cell[f"i{g}/kernel"]).T for g in gates]),
+           "weight_hh": np.concatenate([np.asarray(cell[f"h{g}/kernel"]).T for g in gates])}
+    if kind == "lstm":
+        out["bias"] = np.concatenate([np.asarray(cell[f"h{g}/bias"]) for g in gates])
+    else:
+        out["bias_ih"] = np.concatenate([np.asarray(cell[f"i{g}/bias"]) for g in gates])
+        out["bias_hn"] = np.asarray(cell["hn/bias"])
+    return out
+
+
 def from_jax_family_params(flat: Dict[str, np.ndarray], model: str) -> Dict[str, torch.Tensor]:
     """The JAX flat params of the registered ``model`` (a key of
-    FAMILY_FLAGS) -> the port model's ``state_dict()`` (float32 CPU
-    tensors; ``load_state_dict`` casts them to the model's dtypes)."""
+    FAMILY_FLAGS or LEGACY_MODELS) -> the port model's ``state_dict()``
+    (float32 CPU tensors; ``load_state_dict`` casts them to the model's
+    dtypes)."""
+    if model in LEGACY_MODELS:
+        return convert_entries(flat, legacy_entries(flat))
     return convert_entries(flat, family_entries(flat, **FAMILY_FLAGS[model]))
 
 
@@ -189,6 +257,20 @@ def convert_entries(flat, entries) -> Dict[str, torch.Tensor]:
             sd[f"{tname}.bias"] = t(leaf("bias"))
         elif kind == "embed":
             sd[f"{tname}.weight"] = t(leaf("embedding"))
+        elif kind == "conv1d":  # flax [k, in, out] -> torch [out, in, k]
+            sd[f"{tname}.weight"] = t(np.asarray(leaf("kernel")).transpose(2, 1, 0))
+            sd[f"{tname}.bias"] = t(leaf("bias"))
+        elif kind == "wn":  # weight norm: v [in, out] -> [out, in]; g, b as they are
+            sd[f"{tname}.v"] = t(np.asarray(leaf("v")).T)
+            sd[f"{tname}.g"] = t(leaf("g"))
+            sd[f"{tname}.b"] = t(leaf("b"))
+        elif kind == "param":
+            sd[tname] = t(flat[fname])
+        elif kind in RNN_GATES:
+            mod, sfx = tname.split("|")
+            cell = {k[len(fname) + 1:]: v for k, v in flat.items() if k.startswith(fname + "/")}
+            for name, w in _rnn_cell(cell, kind).items():
+                sd[f"{mod}.{name}{sfx}"] = t(w)
         else:  # the classifier keeps [out, in] in both frameworks
             sd[f"{tname}.weight"] = t(leaf("weight"))
             sd[f"{tname}.bias"] = t(leaf("bias"))
