@@ -3,8 +3,8 @@
 its ViT frame-feature path, its sequence-parallel path, its runtime
 (train, validate, checkpoint, resume, predict), the zoo's T2S-family
 models, its selector baselines (TranSTR, MIST), its data parallelism, its
-serving demo and raw-video pipeline, and the legacy image-VQA zoo once on
-one NVIDIA GPU.
+serving demo and raw-video pipeline, the legacy image-VQA zoo and the
+mesh's sp and pp axes once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -260,7 +260,28 @@ Phases (each prints one or more lines; any failure exits non-zero):
           worker processes): pythia on vqa2 and LoRRA on textvqa (3
           iterations, validation, EvalAI records of val and test), pythia
           on vqa2,vizwiz (6 iterations), its dataset schedule against the
-          port's MultiDataset on the same seed.
+          port's MultiDataset on the same seed;
+       r. the mesh's sp and pp axes (parallel/mesh.build_mesh,
+          parallel/pipeline.py) on gloo ranks sharing the one card
+          (torch.multiprocessing.spawn; the kernels built before the ranks
+          start), the production T2S at 3 / 2 / 3 layers, every dropout 0:
+          (i) pp 3 (the text BERT and the MMT pipelined): full-eval with
+          the int8 cache at batch 6 on every stage, each stage's launches
+          as derived (expected_pp_launches), the tokens equal across the
+          ranks and against one process at slice d's limits; then a step
+          at the global batch 48 against the one-process step at slice e's
+          limits, the ranks' parameters equal after it, and each planted
+          fault (MESH_FAULTS: a stage skipped, every gradient summed over
+          the stages) outside the limits; (ii) pp 2 (the QTV pipelined):
+          the same full-eval check; (iii) data x sp = 2 x 2 on four ranks:
+          the step at 48, 24 rows a data row (#10 / #10b in the QTV / MMT
+          attentions), against one process; each rank's ms of the checked
+          step and of a second; (iv) ``python -m torch.distributed.run
+          --standalone --nproc_per_node 4 -m vitxtgqa_tpu_torch.run ...
+          training_parameters.tpu.mesh.data=2 training_parameters.tpu.
+          mesh.sp=2`` on slice l's fixtures against run() in this process
+          (dp_cli, dp_cli_faults: losses, checkpoints, each test question
+          once, no process left); each phase's seconds.
      a-c, f-g, m, n and p serve behind a ServingEngine; each slice checks its
      launch counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
@@ -4880,17 +4901,19 @@ def tagged_processes(tag: str) -> list:
     return out
 
 
-def dp_cli(card: str, extra=(), timeout: float = 600.0) -> dict:
+def dp_cli(card: str, extra=(), timeout: float = 600.0, ranks: int = DP_RANKS,
+           label: str = "o(iii)") -> dict:
     """o(iii). ``python -m torch.distributed.run --standalone --nproc_per_node
-    DP_RANKS -m vitxtgqa_tpu_torch.run ... training_parameters.
+    ranks -m vitxtgqa_tpu_torch.run ... training_parameters.
     distributed_init=True`` on slice l's fixtures: configs/t2s_abinet.yml,
     train+inference with EvalAI predictions, RUNTIME_STEPS iterations at
     the global batch DP_CLI_BATCH, every dropout 0, DP_CLI_WORKERS worker
-    processes a rank (``extra``: more options, a dry run's); the same
-    through run() in this process.  Each iteration's loss within
-    RUNTIME_LOSS_REL_TOL of the one-process run's; one log file, ckpt/best
-    and ckpt/final written by a world of DP_RANKS; the test report lists
-    each test question once; no process of the run left behind."""
+    processes a rank (``extra``: more options, a dry run's or slice r's
+    mesh); the same through run() in this process (``extra`` less its mesh
+    axes).  Each iteration's loss within RUNTIME_LOSS_REL_TOL of the
+    one-process run's; one log file, ckpt/best and ckpt/final written by a
+    world of ``ranks``; the test report lists each test question once; no
+    process of the run left behind."""
     import shutil
     import tempfile
     import uuid
@@ -4907,7 +4930,7 @@ def dp_cli(card: str, extra=(), timeout: float = 600.0) -> dict:
         argv = lambda save: (runtime_argv("t2s_abinet.yml", "train+inference", fixroot,
                                           os.path.join(tmp, save), **tp)
                              + dp_dropout_opts() + list(extra))
-        one = run(argv("one"))
+        one = run([o for o in argv("one") if ".tpu.mesh." not in o])
         want = list(one.meter["train/total_loss"].series)
         questions = len(one.datasets["test"])
         del one
@@ -4915,14 +4938,14 @@ def dp_cli(card: str, extra=(), timeout: float = 600.0) -> dict:
         env = dict(os.environ, CHIP_SMOKE_DP_TAG=tag,
                    PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
         cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                "--nproc_per_node", str(DP_RANKS), "-m", "vitxtgqa_tpu_torch.run"]
+                "--nproc_per_node", str(ranks), "-m", "vitxtgqa_tpu_torch.run"]
                + argv("dp") + ["training_parameters.distributed_init=True"])
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
                               timeout=timeout)
         wall = time.perf_counter() - t0
         if proc.returncode:
-            fail(f"slice o(iii): the torchrun command exited {proc.returncode}:\n"
+            fail(f"slice {label}: the torchrun command exited {proc.returncode}:\n"
                  f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
         left = tagged_processes(tag)
         save = os.path.join(tmp, "dp")
@@ -4941,33 +4964,33 @@ def dp_cli(card: str, extra=(), timeout: float = 600.0) -> dict:
                  "world_size": meta.get("world_size"), "log_files": logs,
                  "predictions": qids, "questions": questions, "left": left}
         rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
-        print(f"slice o(iii): torchrun with {DP_RANKS} processes, global batch {DP_CLI_BATCH}, "
+        print(f"slice {label}: torchrun with {ranks} processes, global batch {DP_CLI_BATCH}, "
               f"{RUNTIME_STEPS} iterations: losses {got} vs one process {want} (rel "
               f"{[f'{x:.3e}' for x in rel]}, limit {RUNTIME_LOSS_REL_TOL}); checkpoints of a "
               f"world of {meta.get('world_size')}: best and final {facts['checkpoints']}; log "
               f"files {len(logs)}; {len(qids)} test predictions for {questions} questions "
               f"({len(set(qids))} distinct); processes left {left}; {wall:.1f} s; card {card}",
               flush=True)
-        faults = dp_cli_faults(facts)
+        faults = dp_cli_faults(facts, ranks)
         if faults:
-            fail("slice o(iii): " + "; ".join(faults))
+            fail(f"slice {label}: " + "; ".join(faults))
         return {"losses": got, "losses_one_process": want, "loss_rel": rel, "wall_s": wall,
                 "predictions": len(qids), "world_size": meta.get("world_size")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def dp_cli_faults(facts: dict) -> list:
-    """What o(iii)'s run got wrong, from its facts: each iteration's loss
-    against the one-process run's (RUNTIME_LOSS_REL_TOL), the checkpoints
-    (best and final, of a world of DP_RANKS, one log file: rank 0's), each
-    test question predicted once, no process left."""
+def dp_cli_faults(facts: dict, ranks: int = DP_RANKS) -> list:
+    """What o(iii)'s (r(iv)'s) run got wrong, from its facts: each
+    iteration's loss against the one-process run's (RUNTIME_LOSS_REL_TOL),
+    the checkpoints (best and final, of a world of ``ranks``, one log
+    file: rank 0's), each test question predicted once, no process left."""
     got, want = facts["losses"], facts["losses_one_process"]
     out = []
     if len(got) != RUNTIME_STEPS or len(want) != RUNTIME_STEPS or not all(
             abs(g - w) <= RUNTIME_LOSS_REL_TOL * abs(w) for g, w in zip(got, want)):
         out.append(f"losses {got} against the one-process run's {want}")
-    if (not facts["checkpoints"] or facts["world_size"] != DP_RANKS
+    if (not facts["checkpoints"] or facts["world_size"] != ranks
             or len(facts["log_files"]) != 1):
         out.append(f"checkpoints {facts['checkpoints']}, world {facts['world_size']}, log "
                    f"files {facts['log_files']}")
@@ -5975,6 +5998,440 @@ def legacy_slice(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice r: the mesh's sp and pp axes (data x sp, the GPipe pipeline)
+# ---------------------------------------------------------------------------
+
+# slice r's worlds on the one card: (ranks, (data, sp, pp)); pp 3 pipelines
+# the text BERT and the MMT (3 layers each), pp 2 the QTV (2 layers), data x
+# sp splits the global batch over two data rows and each row's attentions
+# over two ranks
+MESH_PLANS = {"pp3": (3, (1, 1, 3)), "pp2": (2, (1, 1, 2)), "dsp": (4, (2, 2, 1))}
+# full-eval under a pipeline: batch 6 (the text BERT's 6 rows and the MMT's
+# 12 teacher-forced rows divide into 3 and 2 microbatches); a dry run's
+# global batch (the CPU, tiny widths at the production layer counts)
+MESH_EVAL_BATCH, MESH_DRY_BATCH = 6, 6
+# the planted faults of a pipelined step (mesh_fault), each of which slice
+# e's limits must reject: the second stage passes its input through
+# unchanged, or the optimizer sums the replicated gradients over the stages
+# a second time (each counted pp times)
+MESH_FAULTS = ("stage_skipped", "summed_twice")
+# r(iv): torchrun with data x sp = 2 x 2 on slice l's fixtures
+MESH_CLI_RANKS, MESH_CLI_AXES = 4, ("training_parameters.tpu.mesh.data=2",
+                                    "training_parameters.tpu.mesh.sp=2")
+# the production layer counts (text BERT, QTV, MMT) a dry run keeps
+MESH_LAYERS = {"text_bert": 3, "translayers": 2, "mmt": 3}
+
+
+def stage_encode_launches(out: dict, opts, tc, batch: int, seq: int, tanh_last: int, pp: int,
+                          stage: int, sign: int = 1) -> None:
+    """Add (``sign`` -1: take away) one eval encode's launches on stage
+    ``stage`` of ``pp``: the stage's layers over each of the
+    Options.pp_microbatches microbatches' rows (0: one a stage), the tanh
+    form in the last stage's last layer (encode_launches; pp 1: the whole
+    stack)."""
+    import dataclasses
+
+    m = 1 if pp == 1 else opts.pp_microbatches or pp
+    part = {name: 0 for name in out}
+    own = dataclasses.replace(tc, num_hidden_layers=tc.num_hidden_layers // pp)
+    for _ in range(m):
+        encode_launches(part, opts, own, batch // m, seq, tanh_last if stage == pp - 1 else 0)
+    for name, v in part.items():
+        out[name] += sign * v
+
+
+def expected_pp_launches(cfg, batch: int, opts, pp: int, stage: int, full_eval: bool = False,
+                         train: bool = False, text_len: int = 20,
+                         dec_len: int = DEC_LEN) -> dict:
+    """Kernel launches on stage ``stage`` of a ``pp``-stage pipeline in one
+    full-eval forward (expected_launches) or one training step
+    (expected_train_launches) at ``batch`` rows: a stack whose layer count
+    divides by pp (in training, with both dropout rates 0) launches its
+    stage's layers once a microbatch (Options.pp_microbatches; 0: one a
+    stage), the eval block's gate on a microbatch's rows, the tanh form in
+    the last stage; every other stack, the cached encode and the decode
+    launch as in one process."""
+    from vitxtgqa_tpu_torch.models.common import TransformerConfig
+    from vitxtgqa_tpu_torch.ops.attention import MIN_KV
+
+    l_full, _ = joint_lengths(cfg, text_len, dec_len)
+    m = opts.pp_microbatches or pp
+    stacks = {s: TransformerConfig.from_config(cfg[s]) for s in ("text_bert", "translayers", "mmt")}
+    piped = {s: tc.num_hidden_layers % pp == 0 and (not train or (
+        tc.hidden_dropout_prob == 0.0 and tc.attention_probs_dropout_prob == 0.0))
+        for s, tc in stacks.items()}
+    if train:
+        out = expected_train_launches(cfg, opts)
+        for sect, seq, passes in (("text_bert", text_len, 1), ("translayers", l_full, 1),
+                                  ("mmt", l_full, 3)):
+            if not piped[sect]:
+                continue
+            n = stacks[sect].num_hidden_layers
+            delta = passes * (n // pp * m - n)   # layers a rank launches, less one process's
+            out["block_train_fwd"] += delta * (2 if opts.remat == "attn" else 1)
+            out["block_train_bwd"] += delta
+            if seq >= MIN_KV:
+                out["flash_attention_merged"] += delta
+                out["flash_attention_merged_bwd"] += delta
+        return out
+    if opts.compact_serving:
+        raise ValueError("expected_pp_launches: the exact geometry only")
+    out = expected_launches(cfg, batch, opts, full_eval, text_len, dec_len)
+    passes = [("text_bert", batch, text_len, 0), ("translayers", batch, l_full, 1)]
+    if full_eval:
+        passes.append(("mmt", 2 * batch, l_full, 0))
+    for sect, rows, seq, tanh in passes:
+        if piped[sect]:
+            stage_encode_launches(out, opts, stacks[sect], rows, seq, tanh, 1, 0, sign=-1)
+            stage_encode_launches(out, opts, stacks[sect], rows, seq, tanh, pp, stage)
+    return out
+
+
+@contextlib.contextmanager
+def mesh_fault(name):
+    """Plant one of MESH_FAULTS for the duration: "stage_skipped" makes
+    stage 1 of every pipelined pass return its input, "summed_twice" makes
+    the optimizer's gradient all-reduce sum over the pp stages once more."""
+    from vitxtgqa_tpu_torch.parallel import pipeline as P
+    from vitxtgqa_tpu_torch.training import optim as O
+
+    saved = [(P, "gpipe", P.gpipe), (O.Optimizer, "clip", O.Optimizer.clip)]
+    if name == "stage_skipped":
+        def skipping(stage_fn, layers, payload, group, num_microbatches=0):
+            fn = lambda ls, inp, i: inp["h"] if group.rank == 1 else stage_fn(ls, inp, i)
+            return saved[0][2](fn, layers, payload, group, num_microbatches)
+        P.gpipe = skipping
+    else:
+        def twice(self, extra=()):
+            reduce = O.all_reduce_flat_
+
+            def again(tensors, group=None):
+                reduce(tensors, group)
+                reduce(tensors, self.pp.group)
+            O.all_reduce_flat_ = again
+            try:
+                return saved[1][2](self, extra)
+            finally:
+                O.all_reduce_flat_ = reduce
+        O.Optimizer.clip = twice
+    try:
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+def mesh_config(dev):
+    """(model config, final outputs) of slice r: entry.dryrun_model_and_batch's
+    (every dropout 0); on the CPU its tiny widths at MESH_LAYERS."""
+    from vitxtgqa_tpu_torch.entry import dryrun_model_and_batch
+
+    cfg, nf, _ = dryrun_model_and_batch(dev, 1)
+    if dev.type == "cpu":
+        for sect, n in MESH_LAYERS.items():
+            cfg[sect]["num_hidden_layers"] = n
+    return cfg, nf
+
+
+def mesh_geometry(sl) -> dict:
+    """The text and decoder lengths of slice r's batches."""
+    return dict(text_len=20, dec_len=DEC_LEN) if sl.dev.type == "cuda" else dict(text_len=10,
+                                                                                dec_len=4)
+
+
+def mesh_timed(fn, dev) -> tuple:
+    """(fn(), its host-clock ms from a synchronize to a synchronize)."""
+    sync(dev)
+    t = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
+    """r(i) / r(ii). Full-eval with the int8 cache at MESH_EVAL_BATCH on every
+    rank of a pipeline: its launches against expected_pp_launches for the
+    rank's stage, the tokens equal across the ranks, and (rank 0) against
+    the one-process forward from the same weights, batch and gumbel noise
+    at slice d's limits (tokens, ref / neg scores on the rows with equal
+    tokens); each rank's forward ms."""
+    import numpy as np
+    import torch
+
+    from vitxtgqa_tpu_torch.entry import dryrun_model_and_batch
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.parallel import collectives as C
+    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
+
+    b = MESH_EVAL_BATCH
+    _, _, batch = dryrun_model_and_batch(sl.dev, b)
+    tb = to_device(batch, sl.dev)
+    model = sl.model(False, kv_cache_int8=True, pp=mesh.pp)
+    run = lambda m: m(tb, group_generator(0, 0, sl.dev))
+    with torch.inference_mode():
+        run(model)   # warm-up
+        _build.reset_launch_counts()
+        out, ms = mesh_timed(lambda: run(model), sl.dev)
+    counts = _build.launch_counts()
+    stage, pp = mesh.coords["pp"], mesh.shape["pp"]
+    want = ({n: 0 for n in REPLACES} if sl.dev.type == "cpu" else expected_pp_launches(
+        sl.cfg, b, model.opts, pp, stage, full_eval=True, **mesh_geometry(sl)))
+    if counts != want:
+        fail(f"slice r {name}, rank {rank} (stage {stage}): launches {counts}, expected {want}")
+    scores = {k: v.float().cpu().numpy() for k, v in out.items()
+              if k in ("ref_scores", "pos_scores", "neg_scores")}
+    tok = scores["pos_scores"].argmax(-1)
+    every = C.gather_objects({"rank": rank, "stage": stage, "tokens": tok.tolist(), "ms": ms,
+                              "launches": {k: v for k, v in counts.items() if v}})
+    if any(e["tokens"] != every[0]["tokens"] for e in every):
+        fail(f"slice r {name}: the ranks' tokens differ")
+    summary = {"launches": counts, "expected": want}
+    if rank != 0:
+        return summary
+    for k, v in scores.items():
+        if v.shape[0] != b or not np.isfinite(v).all():
+            fail(f"slice r {name}: {k} {v.shape}, finite {np.isfinite(v).all()}")
+    one = sl.model(False, kv_cache_int8=True)
+    with torch.inference_mode():
+        run(one)
+        ref, one_ms = mesh_timed(lambda: run(one), sl.dev)
+    del one
+    want_s = {k: v.float().cpu().numpy() for k, v in ref.items() if k in scores}
+    tok_1 = want_s["pos_scores"].argmax(-1)
+    agree = float((tok == tok_1).mean())
+    same = (tok == tok_1).all(-1)
+    diffs = {k: float(np.abs(scores[k][same] - want_s[k][same]).max()) if same.any() else None
+             for k in ("ref_scores", "neg_scores")}
+    print(f"slice r {name}: full-eval at batch {b} over {pp} pipeline stages, launches a rank "
+          + "; ".join(f"rank {e['rank']} (stage {e['stage']}) " + json.dumps(e["launches"])
+                      for e in every)
+          + f" (as derived); tokens equal across the ranks; against one process: greedy-token "
+          f"agreement {agree:.4f} (min {MIN_TOKEN_AGREEMENT}), on the {int(same.sum())} rows with "
+          f"equal tokens max|d ref/neg scores| {diffs} (tol {REFNEG_TOL}); forward ms a rank "
+          f"{[round(e['ms'], 2) for e in every]}, one process {one_ms:.2f}; card {card}",
+          flush=True)
+    if agree < MIN_TOKEN_AGREEMENT or not same.any() or not all(
+            d <= REFNEG_TOL for d in diffs.values()):
+        fail(f"slice r {name}: the pipelined full-eval disagrees with one process")
+    summary.update(token_agreement=agree, refneg_max_abs_diff=diffs,
+                   forward_ms=[e["ms"] for e in every], one_process_forward_ms=one_ms)
+    return summary
+
+
+@contextlib.contextmanager
+def mesh_collective_ms(dev, into: dict):
+    """Add to ``into`` the host-clock ms (a synchronize before and after
+    each) of the pipeline's ring shifts, broadcasts and all-gathers of the
+    stages' gradients (stage_grads) and of the optimizer's gradient
+    all-reduce (all_reduce_flat_) while the context is open."""
+    from vitxtgqa_tpu_torch.parallel import pipeline as P
+    from vitxtgqa_tpu_torch.training import optim as O
+
+    saved = {"shift": (P, "shift"), "broadcast_from": (P, "broadcast_from"),
+             "stage_grads": (P, "stage_grads"),
+             "all_reduce_flat_": (O, "all_reduce_flat_")}
+    real = {key: getattr(owner, name) for key, (owner, name) in saved.items()}
+
+    def timed(key):
+        def call(*a, **kw):
+            sync(dev)
+            t = time.perf_counter()
+            out = real[key](*a, **kw)
+            sync(dev)
+            into[key] = into.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        return call
+
+    for key, (owner, name) in saved.items():
+        setattr(owner, name, timed(key))
+    try:
+        yield into
+    finally:
+        for key, (owner, name) in saved.items():
+            setattr(owner, name, real[key])
+
+
+def mesh_step(sl, mesh, tensors, fault=None, collectives=None) -> dict:
+    """entry.data_parallel_step of the shared weights on ``mesh`` (None:
+    one process) on ``tensors`` (the data row's rows, else the global
+    batch), with a planted fault where named (the ranks' parameters then
+    not checked equal); its launch counts and host-clock ms (with the
+    collectives' ms added to the dict ``collectives`` where given)."""
+    from vitxtgqa_tpu_torch.entry import data_parallel_step
+    from vitxtgqa_tpu_torch.ops import _build
+
+    model = sl.model(sp=mesh.sp, pp=mesh.pp) if mesh else sl.model()
+    sync(sl.dev)
+    _build.reset_launch_counts()
+    timing = (mesh_collective_ms(sl.dev, collectives) if collectives is not None
+              else contextlib.nullcontext())
+    with mesh_fault(fault) if fault else contextlib.nullcontext(), timing:
+        out, ms = mesh_timed(lambda: data_parallel_step(
+            model, sl.cfg, tensors, mesh.data if mesh else None, check_replicas=fault is None),
+            sl.dev)
+    return {**out, "launches": _build.launch_counts(), "model_opts": model.opts, "ms": ms}
+
+
+def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
+    """r(i) / r(iii). One step with every dropout 0 at the global batch
+    (TRAIN_BATCH; MESH_DRY_BATCH in a dry run) on the mesh, each data row
+    its rows and the gumbel draws of the step's shared generator, against
+    the one-process step on the global batch at slice e's limits (loss,
+    gradient norm, every parameter's applied gradient), the ranks'
+    parameters equal after the update, each rank's launches as derived
+    (expected_pp_launches for its stage, expected_sp_launches for the
+    rows of a data row); under a pipeline each planted fault (MESH_FAULTS)
+    outside the limits; each rank's ms of the step and of a second one,
+    and of the second's collectives (mesh_collective_ms)."""
+    from vitxtgqa_tpu_torch.entry import dryrun_model_and_batch, step_gaps, within
+    from vitxtgqa_tpu_torch.parallel import collectives as C
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+
+    g = TRAIN_BATCH if sl.dev.type == "cuda" else MESH_DRY_BATCH
+    _, _, batch = dryrun_model_and_batch(sl.dev, g)
+    d, n = mesh.coords["data"], mesh.shape["data"]
+    rows = to_device({k: v[d::n] for k, v in batch.items()}, sl.dev)
+    kern = mesh_step(sl, mesh, rows)
+    stage, pp, sp = mesh.coords["pp"], mesh.shape["pp"], mesh.shape["sp"]
+    if sl.dev.type == "cpu":
+        want = {k: 0 for k in REPLACES}
+    elif pp > 1:
+        want = expected_pp_launches(sl.cfg, g // n, kern["model_opts"], pp, stage, train=True)
+    else:
+        want = expected_sp_launches(sl.cfg, g // n, kern["model_opts"], sp, train=True)
+    if kern["launches"] != want:
+        fail(f"slice r {name}, rank {rank}: launches {kern['launches']}, expected {want}")
+    spent = {}
+    again = mesh_step(sl, mesh, rows, collectives=spent)
+    faults = {f: mesh_step(sl, mesh, rows, fault=f) for f in (MESH_FAULTS if pp > 1 else ())}
+    every = C.gather_objects({"rank": rank, "coords": mesh.coords, "loss": kern["loss"],
+                              "norm": kern["norm"], "ms": [kern["ms"], again["ms"]],
+                              "collectives_ms": spent,
+                              "launches": {k: v for k, v in kern["launches"].items() if v}})
+    if any((e["loss"], e["norm"]) != (every[0]["loss"], every[0]["norm"]) for e in every):
+        fail(f"slice r {name}: the ranks' global loss and gradient norm differ: {every}")
+    summary = {"launches": kern["launches"], "expected": want}
+    if rank != 0:
+        return summary
+    del rows
+    ref = mesh_step(sl, None, to_device(batch, sl.dev))
+    limits = (LOSS_REL_TOL, GNORM_REL_TOL, GRAD_REL_TOL, None)
+    print(f"slice r {name}: a step at global batch {g} on data {n} x sp {sp} x pp {pp}, "
+          "launches a rank " + "; ".join(f"rank {e['rank']} {e['coords']} "
+                                         + json.dumps(e["launches"]) for e in every)
+          + f" (as derived); step ms a rank (the checked step, a second) "
+          + json.dumps({e["rank"]: [round(x, 2) for x in e["ms"]] for e in every})
+          + ", of the second the collectives' ms (a synchronize around each: the ring "
+          "shift, the broadcasts, the stages' gradient all-gathers, the optimizer's "
+          "all-reduce) "
+          + json.dumps({e["rank"]: {k: round(v, 2) for k, v in e["collectives_ms"].items()}
+                        for e in every})
+          + f", one process {ref['ms']:.2f}; card {card}", flush=True)
+    for label, run in [("kernels", kern)] + list(faults.items()):
+        gaps = step_gaps(run, ref)
+        ok = within(gaps, limits)
+        grad_rel, worst = gaps["grad_rel"]
+        print(f"slice r {name}: {'the step' if label == 'kernels' else 'planted fault ' + label} "
+              f"vs one process: loss {run['loss']:.6f} vs {ref['loss']:.6f} (rel "
+              f"{gaps['loss_rel']:.3e}), gradient norm rel {gaps['norm_rel']:.3e}, applied "
+              f"gradient rel max {grad_rel:.3e} ({worst}) (limits: loss {LOSS_REL_TOL}, norm "
+              f"{GNORM_REL_TOL}, parameter {GRAD_REL_TOL}): {'within' if ok else 'outside'}; "
+              f"card {card}", flush=True)
+        reading = {"loss": run["loss"], "loss_rel": gaps["loss_rel"],
+                   "grad_norm_rel": gaps["norm_rel"], "max_grad_rel": grad_rel,
+                   "max_grad_rel_param": worst}
+        if label == "kernels":
+            summary.update(reading, loss_one_process=ref["loss"],
+                           step_ms={e["rank"]: e["ms"] for e in every},
+                           collectives_ms={e["rank"]: e["collectives_ms"] for e in every},
+                           one_process_step_ms=ref["ms"])
+            if not ok:
+                fail(f"slice r {name}: the step on the mesh disagrees with the one-process step")
+        else:
+            summary.setdefault("planted", {})[label] = reading
+            if ok:
+                fail(f"slice r {name}: the planted fault {label} passes the limits")
+    return summary
+
+
+def mesh_rank(rank: int, directory: str, card: str, plan: str, dry: bool):
+    """One rank of a slice r world (torch.multiprocessing.spawn's target):
+    gloo with every rank on the one card (or the CPU for a dry run, tiny
+    widths at the production layer counts, float32), the mesh of
+    MESH_PLANS[plan]; a pipeline runs the full-eval check, pp 3 and data x
+    sp the step's; rank 0 writes the summary to ``directory``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from vitxtgqa_tpu_torch.parallel.mesh import build_mesh, rank_device
+
+    world, (data, sp, pp) = MESH_PLANS[plan]
+    if dry:
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, dev = rank_device(rank, world, not dry, 1)
+    cfg, nf = mesh_config(dev)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        t0 = time.perf_counter()
+        sl = Slices(dev, quiet=True, cfg=cfg, nf=nf, dtype=torch.float32 if dry else None)
+        mesh = build_mesh(data, 1, sp, pp)
+        out = {}
+        if pp > 1:
+            out["eval"] = mesh_forward(sl, mesh, rank, plan, card)
+        if plan != "pp2":
+            out["step"] = mesh_train(sl, mesh, rank, plan, card)
+        out["rank_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(directory, "rank0.json"), "w") as f:
+            json.dump(out, f)
+
+
+def mesh_spawn(card: str, plan: str, dry: bool = False) -> dict:
+    """Run mesh_rank on the world of ``plan``; rank 0's summary and the
+    phase's seconds."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        mp.spawn(mesh_rank, args=(directory, card, plan, dry), nprocs=MESH_PLANS[plan][0],
+                 join=True)
+        with open(os.path.join(directory, "rank0.json")) as f:
+            out = json.load(f)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"slice r {plan}: {MESH_PLANS[plan][0]} ranks done in {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def mesh_slice(record, card, dry: bool = False) -> dict:
+    """r. The mesh's sp and pp axes on the one card: (i) pp 3 (full-eval,
+    then the step with its planted faults), (ii) pp 2 (full-eval), (iii)
+    data x sp = 2 x 2 (the step), each world's rank 0 launches into the
+    record; (iv) the torchrun CLI on four processes with mesh.data=2
+    mesh.sp=2 against run() in this process (dp_cli; not in a dry run)."""
+    t0 = time.perf_counter()
+    out = {plan: mesh_spawn(card, plan, dry) for plan in MESH_PLANS}
+    for plan, res in out.items():
+        for part in ("eval", "step"):
+            if part in res:
+                count_launches(f"slice r {plan} {part}", record, res[part]["launches"],
+                               res[part]["expected"])
+    if not dry:
+        out["cli"] = dp_cli(card, extra=MESH_CLI_AXES, ranks=MESH_CLI_RANKS, label="r(iv)")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"slice r: done in {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def run_slices(dev, record, card):
     import torch
 
@@ -6105,6 +6562,8 @@ def run_slices(dev, record, card):
     details["serving"] = serving_slice(dev, record, card)
     # q. the legacy image-VQA zoo: bf16 against float32, Adamax steps, run()
     details["legacy"] = legacy_slice(dev, card)
+    # r. the mesh's sp and pp axes: pp 3, pp 2, data x sp, the torchrun CLI
+    details["mesh"] = mesh_slice(record, card)
     return details
 
 

@@ -1358,6 +1358,117 @@ def test_slice_o_cli_checks_reject_a_planted_fault(fault):
 
 
 # ---------------------------------------------------------------------------
+# slice r: the mesh's sp and pp axes, dry runs on gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+
+# the launches a rank of each (how the ranks group, axes, training): a
+# pipeline of the first 3 or 2 ranks of a world of 4 (the fourth sits out
+# pp 3) and data x sp = 2 x 2, at the tiny wide geometry (384 joint rows:
+# the flash route; 6 x 384 rows at width 128: the eval block's gate, which
+# a microbatch's rows may miss) with the production layer counts 3 / 2 / 3
+# and every dropout 0, at a global batch of 6
+MESH_LAUNCH_RUNS = {
+    "pp3_eval": ("first", 3, False), "pp3_train": ("first", 3, True),
+    "pp2_eval": ("first", 2, False), "pp2_train": ("first", 2, True),
+    "dsp_train": ("mesh", (2, 2, 1), True),
+}
+MESH_LAUNCH_BATCH = 6
+
+
+def _mesh_launch_config():
+    cfg = _no_dropout_config(OCR_PF, 128).to_dict()
+    for sect, n in CS.MESH_LAYERS.items():
+        cfg[sect]["num_hidden_layers"] = n
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def slice_r_dry(tmp_path_factory):
+    """(the launch runs' config, each rank's plain-version calls in
+    MESH_LAUNCH_RUNS on four ranks of tests/torch_mesh_ranks.py, mesh_spawn's
+    dry run of r(i)): the four ranks start first and run while this process
+    runs the dry run's three."""
+    from tests import torch_mesh_ranks
+
+    cfg = _mesh_launch_config()
+    b, nf = MESH_LAUNCH_BATCH, 32 + FRAMES * OCR_PF
+    batch = synthetic_batch(batch=b, frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4,
+                            text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                            num_final_outputs=nf, text_vocab=128, seed=0)
+    rng = np.random.default_rng(1)
+    noise = {(b, 2, FRAMES): rng.gumbel(size=(b, 2, FRAMES)).astype(np.float32),
+             (b, 2, FRAMES * OCR_PF): rng.gumbel(size=(b, 2, FRAMES * OCR_PF)).astype(np.float32)}
+    state = {k: v.numpy() for k, v in
+             T2S(cfg, nf, opts=cpu_options()).init_weights(0).state_dict().items()}
+    case = dict(kind="launches", cfg=cfg, nf=nf, state=state, batch=batch, noise=noise,
+                runs=MESH_LAUNCH_RUNS, plain_of=SP_PLAIN_OF,
+                losses=[{"type": "pos_bce_loss", "weight": 1.0},
+                        {"type": "InfoNCE", "weight": 1000}])
+    ranks = torch_mesh_ranks.start({"launches": case}, tmp_path_factory.mktemp("mesh_launch"),
+                                   world=4)
+    try:
+        dry = CS.mesh_spawn("cpu", "pp3", dry=True)
+        return cfg, ranks.results(), dry
+    finally:
+        for p in ranks.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+@pytest.mark.parametrize("run", sorted(MESH_LAUNCH_RUNS))
+def test_slice_r_launches_count_each_ranks_kernel_calls(slice_r_dry, run):
+    """chip_smoke.expected_pp_launches (for the rank's stage) and
+    expected_sp_launches (a data row's rows) against the calls each rank
+    makes in a full-eval forward with the int8 cache or a training step on
+    a pipeline of 3 or 2 stages, or on data x sp: a pipelined stack's
+    layers once a microbatch on the stage that owns them, the tanh form on
+    the last stage, the eval block where a microbatch's rows reach its
+    gate; the split-head flash pair on data x sp."""
+    from vitxtgqa_tpu_torch import Options
+
+    cfg, ranks, _ = slice_r_dry
+    how, axes, train = MESH_LAUNCH_RUNS[run]
+    seen = 0
+    for rank in ranks:
+        got = rank["launches"].get(run)
+        if got is None:
+            continue
+        seen += 1
+        counts = {n: got["counts"].get(n, 0) for n in CS.REPLACES}
+        opts = Options(device="cpu", kv_cache_int8=not train)
+        if how == "first":
+            want = CS.expected_pp_launches(cfg, got["rows"], opts, axes, got["stage"],
+                                           full_eval=not train, train=train, text_len=10,
+                                           dec_len=4)
+        else:
+            want = CS.expected_sp_launches(cfg, got["rows"], opts, axes[1], train=True,
+                                           text_len=10, dec_len=4)
+        assert counts == want, (run, got["stage"])
+        assert sum(want.values()) > 0
+    assert seen == (3 if run.startswith("pp3") else 4)
+    if run == "pp2_eval":   # the QTV's microbatches of 3 x 384 rows miss the eval block's gate
+        assert all(r["launches"][run]["counts"].get("fused_block_tanh", 0) == 0 for r in ranks)
+
+
+def test_slice_r_pp3_holds_and_rejects_the_planted_faults(slice_r_dry):
+    """mesh_spawn's dry run of r(i) (three gloo ranks on the CPU, the tiny
+    model at the production layer counts in float32): full-eval equal to
+    one process; the pipelined step within float32 noise of the
+    one-process step; a stage skipped and a replicated gradient summed over
+    the stages each outside slice e's limits (mesh_train fails the run
+    otherwise)."""
+    ev, step = slice_r_dry[2]["eval"], slice_r_dry[2]["step"]
+    assert ev["token_agreement"] == 1.0 and max(ev["refneg_max_abs_diff"].values()) <= 1e-5
+    assert step["loss_rel"] <= 1e-5 and step["grad_norm_rel"] <= 1e-5
+    assert step["max_grad_rel"] <= 1e-4
+    assert sorted(step["planted"]) == sorted(CS.MESH_FAULTS)
+    for fault, r in step["planted"].items():
+        assert (r["loss_rel"] > CS.LOSS_REL_TOL or r["grad_norm_rel"] > CS.GNORM_REL_TOL
+                or r["max_grad_rel"] > CS.GRAD_REL_TOL), fault
+
+
+# ---------------------------------------------------------------------------
 # slice p: the engine at bucket 48, the serve demo, the raw-video pipeline
 # ---------------------------------------------------------------------------
 

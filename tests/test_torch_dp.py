@@ -430,13 +430,17 @@ def test_dryrun_multichip_on_two_ranks():
     assert out["grad_rel"][0] <= tol and out["update_rel"][0] <= update_tol
 
 
-@pytest.mark.parametrize("kw, words", [
-    (dict(model=2), "tensor parallelism"), (dict(pp=2), "pipeline parallelism"),
-    (dict(sp=2), "data axis together with sequence parallelism")])
-def test_dryrun_multichip_refuses_the_unported_axes(kw, words):
+@pytest.mark.parametrize("kw, err, words", [
+    (dict(model=2), NotImplementedError, "tensor parallelism"),
+    (dict(pp=4), ValueError, "sp=1 x pp=4 needs a multiple of 4 processes; the world has 2"),
+    (dict(sp=4), ValueError, "sp=4 x pp=1 needs a multiple of 4 processes; the world has 2")])
+def test_dryrun_multichip_refuses_the_unported_axes(kw, err, words):
+    """The tensor-parallel axis raises, naming its slice; the sp and pp
+    axes run (tests/test_torch_mesh.py) and raise, before any rank starts,
+    for a world too small for them."""
     from vitxtgqa_tpu_torch.entry import dryrun_multichip
 
-    with pytest.raises(NotImplementedError, match=words):
+    with pytest.raises(err, match=words):
         dryrun_multichip(2, device="cpu", **kw)
 
 

@@ -732,14 +732,18 @@ REFUSALS = {
     "remat_full": ("cpu", {"remat": "full"}, False, ValueError, "queue 1 item 6"),
     "remat_dots": ("cpu", {"remat": "dots"}, False, ValueError, "queue 1 item 6"),
     "remat_attn_qkv": ("cpu", {"remat": "attn_qkv"}, False, ValueError, "queue 1 item 6"),
-    "mesh_sp_2": ("cpu", {"mesh": {"data": -1, "sp": 2}}, False, NotImplementedError,
-                  "queue 1 item 5"),
+    # sp and pp run (tests/test_torch_mesh.py); a world too small for them raises
+    "mesh_sp_2": ("cpu", {"mesh": {"data": -1, "sp": 2}}, False, ValueError,
+                  "sp=2 x pp=1 needs a multiple of 2 processes; the world has 1"),
     "mesh_model_2": ("cpu", {"mesh": {"model": 2}}, False, NotImplementedError,
                      "tensor parallelism .*queue 1 item 5"),
-    "mesh_pp_2": ("cpu", {"mesh": {"pp": 2}}, False, NotImplementedError,
-                  "pipeline parallelism .*queue 1 item 5"),
-    "mesh_data_2_sp_2": ("cpu", {"mesh": {"data": 2, "sp": 2}}, False, NotImplementedError,
-                         "data axis together with sequence parallelism .*queue 1 item 5"),
+    "mesh_pp_2": ("cpu", {"mesh": {"pp": 2}}, False, ValueError,
+                  "sp=1 x pp=2 needs a multiple of 2 processes; the world has 1"),
+    "mesh_data_2_sp_2": ("cpu", {"mesh": {"data": 2, "sp": 2}}, False, ValueError,
+                         "data x model x sp x pp needs 4 processes"),
+    # the trainer's build_mesh is the one layout of the world
+    "mesh_sp_2_without_the_mesh": ("cpu", {"mesh": {"sp": 2}}, False, ValueError,
+                                   "takes the built mesh"),
     "mesh_data_not_the_world": ("cpu", {"mesh": {"data": 3}}, False, ValueError,
                                 "spans the world of 2"),
     "batch_not_divisible": ("cpu", {"mesh": {"data": -1}}, False, ValueError,
@@ -747,7 +751,7 @@ REFUSALS = {
 }
 # (world size, global batch) of the cases that run in a world of several
 # processes; the others run in one
-WORLDS = {"mesh_data_2_sp_2": (2, 4), "mesh_data_not_the_world": (2, 4),
+WORLDS = {"mesh_data_2_sp_2": (2, 4), "mesh_sp_2_without_the_mesh": (2, 4), "mesh_data_not_the_world": (2, 4),
           "batch_not_divisible": (2, 3), "mesh_data_2": (2, 4)}
 
 

@@ -282,8 +282,10 @@ class Ranks:
         return out
 
 
-def start(cases, directory, world: int = 2, timeout: float = 600.0) -> Ranks:
-    """Start ``cases`` on ``world`` gloo ranks in the background."""
+def start(cases, directory, world: int = 2, timeout: float = 600.0,
+          module: str = "tests.torch_dp_ranks") -> Ranks:
+    """Start ``cases`` on ``world`` gloo ranks of ``module`` (its ``main``
+    takes DIR RANK WORLD) in the background."""
     directory = str(directory)
     with open(os.path.join(directory, "cases.pkl"), "wb") as f:
         pickle.dump(cases, f)
@@ -293,7 +295,7 @@ def start(cases, directory, world: int = 2, timeout: float = 600.0) -> Ranks:
     for r in range(world):
         with open(logs[r], "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "tests.torch_dp_ranks", directory, str(r), str(world)],
+                [sys.executable, "-m", module, directory, str(r), str(world)],
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
     return Ranks(procs, logs, directory, timeout)
 

@@ -1,11 +1,13 @@
 """The port's entry points: the counterparts of ``__graft_entry__.entry()``
-and of the data-parallel part of ``__graft_entry__.dryrun_multichip``.
+and of ``__graft_entry__.dryrun_multichip`` on the data, sp and pp axes.
 
     fn, args = entry()
     out = fn(*args)   # the serving forward on the card
 
-    dryrun_multichip(2)                  # two ranks on the card(s)
-    dryrun_multichip(2, device="cpu")    # two gloo ranks on the CPU
+    dryrun_multichip(2)                        # two ranks on the card(s)
+    dryrun_multichip(2, device="cpu")          # two gloo ranks on the CPU
+    dryrun_multichip(4, device="cpu", sp=2)    # data x sp = 2 x 2
+    dryrun_multichip(2, device="cpu", pp=2)    # a pipeline of two stages
 
 ``entry()`` builds T2S at production dims (configs/t2s_abinet.yml's model,
 ``models/t2s.t2s_production_config``; 5050 answers + 960 OCR copy slots,
@@ -13,23 +15,28 @@ BOS 2) with random weights from seed 0, and a synthetic batch of 2 videos
 on the device.  ``fn`` is the serving forward (the pos greedy decode and
 the grounding), its gumbel draws fixed by a seed.
 
-``dryrun_multichip(n)`` spawns ``n`` ranks (``torch.multiprocessing``, a
-``file://`` rendezvous in a temporary directory): gloo on the CPU or where
-ranks share a card, NCCL with a card a rank.  Each takes one full T2S
-training step (forward, the losses, backward, the gradients' all-reduce,
-clipping, Adam) on its rows of a global batch of ``2 n`` at ``data=n``,
-every dropout at 0 and the gumbel draws from the shared generator; this
-process takes the same step on the global batch alone, from the same
-seeded weights.  The loss, the gradient norm, every parameter's gradient
-and (on the CPU) update, relative L2 differences, a key projection's bias
-left out (softmax ignores it), must agree within ``DRYRUN_LIMITS``, and every rank
-must hold the same parameters after the update (``data_parallel_step``,
-which chip_smoke.py's slice o runs too).  The batch's rows carry
+``dryrun_multichip(n, sp=, pp=)`` spawns ``n`` ranks
+(``torch.multiprocessing``, a ``file://`` rendezvous in a temporary
+directory): gloo on the CPU or where ranks share a card, NCCL with a card a
+rank.  They form the mesh data x sp x pp (parallel/mesh.build_mesh, data =
+n / (sp pp)), and each takes one full T2S training step (forward, the
+losses, backward with the pipelined stacks' gradients all-gathered over
+the stages, the gradients' all-reduce over the mesh and their mean over the
+sp x pp replicas, clipping, Adam) on its data
+row's rows of a global batch of ``2 data``, every dropout at 0 and the
+gumbel draws from the shared generator; this process takes the same step
+on the global batch alone, from the same seeded weights.  The loss, the
+gradient norm, every parameter's gradient and (on the CPU) update,
+relative L2 differences, a key projection's bias left out (softmax
+ignores it), must agree within ``DRYRUN_LIMITS``, and every rank must
+hold the same parameters after the update (``data_parallel_step``,
+which chip_smoke.py's slices o and r run too).  The batch's rows carry
 unequal loss-mask counts, so a mean of the ranks' ratios would not pass.
 On the CPU the model is the tiny T2S in float32; on the card the
-production T2S in bf16 through the kernels.  The JAX function's tensor,
-pipeline and data x sequence-parallel parts raise (ROADMAP.md queue 1
-item 5).
+production T2S in bf16 through the kernels (at 3 / 2 / 3 layers: pp 3
+pipelines the text BERT and the MMT, pp 2 the QTV).  The default mesh is
+the data axis alone; the JAX function's tensor-parallel part (``model``)
+raises (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -102,12 +109,13 @@ def dryrun_model_and_batch(device: torch.device, rows: int, dropout: bool = Fals
 def data_parallel_step(model, cfg, tensors: Dict[str, torch.Tensor], group=None,
                        check_replicas: bool = True) -> Dict[str, Any]:
     """One training step of ``model`` (the config's losses, the production
-    optimizer) on ``tensors`` (this rank's rows on a data axis ``group``,
-    else the global batch), the gumbel draws from step_generators(
-    DRYRUN_SEED, 0): the global loss and gradient norm, each parameter's
-    applied (reduced, clipped) float32 gradient and float32 update,
-    flattened.  On a data axis every rank must hold the same parameters
-    after the update (``check_replicas``)."""
+    optimizer, the model's sp and pp groups) on ``tensors`` (this data
+    row's rows on a data axis ``group``, else the global batch), the
+    gumbel draws from step_generators(DRYRUN_SEED, 0): the global loss and
+    gradient norm, each parameter's applied (reduced, clipped) float32
+    gradient and float32 update, flattened.  On a mesh (a data group, or
+    the model's sp or pp group) every rank of the world must hold the same
+    parameters after the update (``check_replicas``)."""
     from vitxtgqa_tpu_torch.losses import Losses
     from vitxtgqa_tpu_torch.parallel.collectives import assert_replicas_equal
     from vitxtgqa_tpu_torch.training.optim import build_optimizer
@@ -129,9 +137,9 @@ def data_parallel_step(model, cfg, tensors: Dict[str, torch.Tensor], group=None,
                    step_generators(DRYRUN_SEED, 0, tensors["text"].device, group))
     if not r["applied"]:
         raise RuntimeError(f"a data-parallel step was skipped (loss {float(r['loss'])})")
-    if group is not None and check_replicas:
-        assert_replicas_equal([m for _, m in opt.pairs], "the parameters after the update",
-                              group.group)
+    on_mesh = group is not None or model.opts.sp is not None or model.opts.pp is not None
+    if on_mesh and check_replicas:
+        assert_replicas_equal([m for _, m in opt.pairs], "the parameters after the update")
     return {"loss": float(r["loss"]), "norm": float(r["grad_norm"]), "grads": grads,
             "update": {n: (m.detach().float() - b).flatten()
                        for n, (_, m), b in zip(names, opt.pairs, before)}}
@@ -171,21 +179,24 @@ def within(gaps: Dict[str, Any], limits) -> bool:
             and (update_tol is None or gaps["update_rel"][0] <= update_tol))
 
 
-def _dryrun_step(device: torch.device, batch: Dict[str, np.ndarray], group=None):
-    """data_parallel_step of the dry run's model (seed-0 weights), on the
-    CPU for the parent's comparison."""
+def _dryrun_step(device: torch.device, batch: Dict[str, np.ndarray], mesh=None):
+    """data_parallel_step of the dry run's model (seed-0 weights) on
+    ``mesh`` (None: one process), on the CPU for the parent's
+    comparison."""
     cfg, nf, _ = dryrun_model_and_batch(device, 1)
-    model = T2S(cfg, nf, bos_idx=2, opts=Options(device=device)).init_weights(0)
-    out = data_parallel_step(model, cfg, to_device(batch, device), group)
+    opts = Options(device=device, sp=mesh.sp if mesh else None, pp=mesh.pp if mesh else None)
+    model = T2S(cfg, nf, bos_idx=2, opts=opts).init_weights(0)
+    out = data_parallel_step(model, cfg, to_device(batch, device), mesh.data if mesh else None)
     return {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v)
             for k, v in out.items()}
 
 
-def _dryrun_rank(rank: int, n: int, device_type: str, directory: str) -> None:
+def _dryrun_rank(rank: int, n: int, device_type: str, directory: str, sp: int = 1,
+                 pp: int = 1) -> None:
     """One rank of dryrun_multichip (torch.multiprocessing.spawn's target)."""
     import torch.distributed as dist
 
-    from vitxtgqa_tpu_torch.parallel.mesh import build_data_group, rank_device
+    from vitxtgqa_tpu_torch.parallel.mesh import build_mesh, rank_device
 
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,9 +204,10 @@ def _dryrun_rank(rank: int, n: int, device_type: str, directory: str) -> None:
     dist.init_process_group(backend, init_method=f"file://{directory}/rendezvous", rank=rank,
                             world_size=n)
     try:
-        group = build_data_group(n, batch_size=DRYRUN_ROWS * n)
-        _, _, batch = dryrun_model_and_batch(device, DRYRUN_ROWS * n)
-        out = _dryrun_step(device, {k: v[rank::n] for k, v in batch.items()}, group)
+        mesh = build_mesh(-1, 1, sp, pp)
+        d, data = mesh.coords["data"], mesh.shape["data"]
+        _, _, batch = dryrun_model_and_batch(device, DRYRUN_ROWS * data)
+        out = _dryrun_step(device, {k: v[d::data] for k, v in batch.items()}, mesh)
     finally:
         dist.destroy_process_group()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
@@ -203,36 +215,36 @@ def _dryrun_rank(rank: int, n: int, device_type: str, directory: str) -> None:
 
 def dryrun_multichip(n_devices: int, device: str = "cuda", model: int = 1, sp: int = 1,
                      pp: int = 1) -> Dict[str, Any]:
-    """The data-parallel step on ``n_devices`` ranks against the
-    one-process step on the same global batch (module docstring), on the
-    card unless ``device="cpu"``; raises where they disagree, and returns
+    """The step on the mesh data x sp x pp of ``n_devices`` ranks against
+    the one-process step on the same global batch (module docstring), on
+    the card unless ``device="cpu"``; raises where they disagree (a mesh
+    the ranks cannot hold, and ``model > 1``, raise first), and returns
     the readings."""
     import torch.multiprocessing as mp
 
-    from vitxtgqa_tpu_torch.parallel.mesh import data_axis
+    from vitxtgqa_tpu_torch.parallel.mesh import mesh_shape
 
-    if sp > 1 and n_devices > 1:
-        data_axis(n_devices, model, sp, pp)   # raises: data x sequence parallelism
-    data_axis(n_devices, model, 1, pp, batch_size=DRYRUN_ROWS * n_devices, world=n_devices)
+    data = mesh_shape(-1, model, sp, pp, world=n_devices)["data"]
     dev = torch.device(device)
     with tempfile.TemporaryDirectory() as directory:
-        mp.spawn(_dryrun_rank, args=(n_devices, dev.type, directory), nprocs=n_devices,
+        mp.spawn(_dryrun_rank, args=(n_devices, dev.type, directory, sp, pp), nprocs=n_devices,
                  join=True)
         ranks = [torch.load(os.path.join(directory, f"rank{r}.pt")) for r in range(n_devices)]
-    _, _, batch = dryrun_model_and_batch(dev, DRYRUN_ROWS * n_devices)
+    _, _, batch = dryrun_model_and_batch(dev, DRYRUN_ROWS * data)
     ref = _dryrun_step(dev, batch)
     limits = DRYRUN_LIMITS[dev.type]
     loss_tol, norm_tol, tol, update_tol = limits
     got = ranks[0]
-    out = {"ranks": n_devices, "device": dev.type, "loss": [got["loss"], ref["loss"]],
-           **step_gaps(got, ref)}
-    print(f"dryrun_multichip: {n_devices} ranks on {dev.type}, a step at global batch "
-          f"{DRYRUN_ROWS * n_devices}: loss {got['loss']:.6f} vs one process {ref['loss']:.6f} "
+    out = {"ranks": n_devices, "mesh": {"data": data, "sp": sp, "pp": pp}, "device": dev.type,
+           "loss": [got["loss"], ref["loss"]], **step_gaps(got, ref)}
+    print(f"dryrun_multichip: {n_devices} ranks on {dev.type}, mesh data {data} x sp {sp} x pp "
+          f"{pp}, a step at global batch {DRYRUN_ROWS * data}: loss {got['loss']:.6f} vs one "
+          f"process {ref['loss']:.6f} "
           f"(rel {out['loss_rel']:.3e}), gradient norm rel {out['norm_rel']:.3e}, per-parameter "
           f"gradient rel max {out['grad_rel'][0]:.3e} ({out['grad_rel'][1]}), update rel max "
           f"{out['update_rel'][0]:.3e} ({out['update_rel'][1]}); limits {loss_tol}, {norm_tol}, "
           f"{tol}, {update_tol}", flush=True)
     if not within(out, limits):
-        raise RuntimeError(f"dryrun_multichip: the data-parallel step disagrees with the "
+        raise RuntimeError(f"dryrun_multichip: the step on the mesh disagrees with the "
                            f"one-process step: {out}")
     return out

@@ -21,7 +21,10 @@ block (``_fused_block_ok``) never runs in training, as in JAX.
 Sequence parallelism: every layer passes ``opts.sp`` to the attention
 routing (ops/attention.py), which splits the query rows over the ranks
 where the JAX gates do; the projections and the post-attention block run
-on all rows on every rank.
+on all rows on every rank.  Pipeline parallelism: a stack for which
+``TransformerEncoder.pipelined`` holds runs its layers over the stages of
+``opts.pp`` (parallel/pipeline.py), each stage's layers on their own
+routes.
 """
 
 from __future__ import annotations
@@ -251,11 +254,31 @@ class TransformerEncoder(nn.Module):
             [TransformerLayer(cfg, opts) for _ in range(cfg.num_hidden_layers)]
         )
 
+    def pipelined(self, deterministic: bool) -> bool:
+        """Whether the full-sequence forward runs through the GPipe
+        schedule (the JAX _pp_eligible): a pp group (Options.pp), a layer
+        count that divides over its stages, and a deterministic pass (eval,
+        or training without a dropout generator) or both dropout rates 0
+        (dropout draws do not ride the pipeline's payload)."""
+        pp, cfg = self.opts.pp, self.cfg
+        return (pp is not None and cfg.num_hidden_layers % pp.size == 0
+                and (deterministic or (cfg.hidden_dropout_prob == 0.0
+                                       and cfg.attention_probs_dropout_prob == 0.0)))
+
     def forward(self, x, bias, tanh_residual_base=None, *, train: bool = False, gen=None):
         """With ``tanh_residual_base`` return ``base + tanh(stack(x))``; the
         epilogue runs inside the last layer (the fused-block kernel's
         tanh form where the block gate holds; plain autograd in training).
-        ``train``/``gen``: see TransformerLayer.forward."""
+        ``train``/``gen``: see TransformerLayer.forward.  Where ``pipelined``
+        holds the stack runs over the pp group's stages
+        (parallel/pipeline.py); the cached encode and decode methods below
+        keep the single-stage layout, as in JAX."""
+        if self.pipelined(deterministic=not train or gen is None):
+            from vitxtgqa_tpu_torch.parallel.pipeline import pipeline_encoder_apply
+
+            return pipeline_encoder_apply(self.layer, x, bias, self.opts.pp,
+                                          self.opts.pp_microbatches, tanh_residual_base,
+                                          train=train, gen=gen)
         last = len(self.layer) - 1
         for i, layer in enumerate(self.layer):
             x = layer(x, bias, tanh_residual_base=tanh_residual_base if i == last else None,

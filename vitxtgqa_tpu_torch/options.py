@@ -15,7 +15,7 @@ from typing import TYPE_CHECKING, Optional
 import torch
 
 if TYPE_CHECKING:
-    from vitxtgqa_tpu_torch.parallel.mesh import SPGroup
+    from vitxtgqa_tpu_torch.parallel.mesh import PPGroup, SPGroup
 
 REMAT_MODES = ("none", "attn")
 
@@ -65,6 +65,13 @@ class Options:
         full-sequence attention sequence-parallel over its ranks, each
         rank holding the whole model and batch — the JAX
         ``set_sequence_parallel``; None (default) runs it whole.
+    pp: a PPGroup (parallel/mesh.build_mesh) to run every eligible
+        transformer stack (its layer count a multiple of the stages; eval,
+        or no dropout) through the GPipe schedule over its ranks
+        (parallel/pipeline.py) — the JAX ``set_pipeline``; None (default)
+        runs every stack on one rank.
+    pp_microbatches: the schedule's microbatches (0: one a stage), the
+        JAX ``training_parameters.tpu.pp_microbatches``.
 
     The config's other training switches (``kernel_dropout``,
     ``fused_block_bwd``, ``fused_block_fwd``) have no field: on the card
@@ -82,6 +89,8 @@ class Options:
     compact_serving: bool = False
     remat: str = "attn"
     sp: Optional["SPGroup"] = None
+    pp: Optional["PPGroup"] = None
+    pp_microbatches: int = 0
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
@@ -95,6 +104,8 @@ class Options:
                 "dtype float32 on a CUDA device: the port's kernels are bf16; use "
                 "torch.bfloat16 (the default there), or plain=True for the plain versions"
             )
+        if self.pp_microbatches < 0:
+            raise ValueError(f"pp_microbatches={self.pp_microbatches}: 0 (one a stage) or more")
         if self.remat not in REMAT_MODES:
             raise ValueError(
                 f"remat {self.remat!r}: the port has {REMAT_MODES} (the JAX "

@@ -50,12 +50,13 @@ def broadcast_scalar(value, source: int = 0):
     return box[0]
 
 
-def gather_objects(obj: Any) -> List[Any]:
-    """Every process's ``obj`` (picklable), in rank order."""
+def gather_objects(obj: Any, group: Optional[Any] = None) -> List[Any]:
+    """Every process's ``obj`` (picklable), in rank order: of the world,
+    or of ``group``'s ranks."""
     if process_count() <= 1:
         return [obj]
-    out: List[Any] = [None] * process_count()
-    dist.all_gather_object(out, obj)
+    out: List[Any] = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 

@@ -1,46 +1,59 @@
-"""The process groups of the port: the data axis and the sequence-parallel
-group of an initialised torch.distributed world.
+"""The device mesh of the port: the data, sequence-parallel and pipeline
+groups of an initialised torch.distributed world.
 
 Counterpart of vitxtgqa_tpu/parallel/mesh.py's ``build_mesh``.  The JAX
 package shards one program over a device mesh; the port runs one process
-per rank (PyTorch's idiom), each holding the whole model.
+per rank (PyTorch's idiom), each holding the whole model.  ``build_mesh``
+lays the world's ranks out as JAX lays out its devices: row-major over
+``[data, model, sp, pp]``, so world rank ((d * model + m) * sp + s) * pp + p
+is the JAX mesh's device of coordinates (d, m, s, p).
 
-- The ``data`` axis (``build_data_group``): each rank takes its rows of the
-  global batch (data/loader.py), and the losses and gradients are summed
-  over the ranks (losses.py, training/optim.py), so a step on N ranks is
-  the one-process step on the global batch.  ``-1`` is the world size;
-  the global batch must divide by the axis, as in the JAX trainer's
-  multi-host branch (vitxtgqa_tpu/training/trainer.py:131-135): no rank
-  sits idle.
-- The ``sp`` axis (``build_sp_group``): each rank holds the whole model and
-  the whole batch, as JAX replicates activations outside its shard_map, and
-  the sequence-parallel attention splits only the query rows
-  (parallel/sequence_parallel.py).
+- The ``data`` axis (``Mesh.data``, a DataGroup): each data row takes its
+  rows of the global batch (data/loader.py), and the losses and gradients
+  are summed over the data group (losses.py, training/optim.py), so a step
+  on N rows equals the one-process step on the global batch.  The global
+  batch must divide by the axis, as in the JAX trainer's multi-host branch
+  (vitxtgqa_tpu/training/trainer.py:131-135): no rank sits idle (JAX's
+  ``build_mesh(batch_size=)`` shrinks the axis instead).
+- The ``sp`` axis (``Mesh.sp``, an SPGroup): the ranks of a data row that
+  hold its whole batch and split the query rows of each full-sequence
+  attention (parallel/sequence_parallel.py).
+- The ``pp`` axis (``Mesh.pp``, a PPGroup): the stages of the GPipe
+  schedule over a transformer stack's layers (parallel/pipeline.py).
+  Every rank holds the whole model; a pipelined pass leaves every stage
+  with the whole stack's gradients (all-gathered over the group in its
+  backward), so the pp ranks hold a data row's gradients as replicas.
 
-``init_world`` joins the world that ``torchrun`` describes.  Tensor
-parallelism (the ``model`` axis), pipeline parallelism (``pp``) and the data
-axis together with ``sp`` are not ported (ROADMAP.md queue 1 item 5).
+Every sp and pp rank of one data row computes what that row's rank would
+compute alone: the same rows, the same dropout and gumbel draws
+(training/step.py folds in the data coordinate only).  ``-1`` for the data
+axis takes the world over sp x pp; the product of the axes must equal the
+world size.  Tensor parallelism (the ``model`` axis) is not ported
+(ROADMAP.md queue 1 item 5: its slice splits the post-attention block
+kernels at the two all-reduces of row-parallel products).
+
+``init_world`` joins the world that ``torchrun`` describes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from vitxtgqa_tpu_torch.parallel.collectives import process_count
 
-# the JAX mesh's axes that the port does not run, and where they stand
+AXES = ("data", "model", "sp", "pp")
+# the JAX mesh's axis that the port does not run, and where it stands
 NOT_PORTED = {
-    "model": "tensor parallelism (the mesh's model axis) is not ported "
+    "model": "tensor parallelism (the mesh's model axis) is not ported: it comes with the "
+             "tensor-parallel slice, which splits the post-attention block kernels at the "
+             "all-reduces of the row-parallel attn_out / ffn_out products "
              "(ROADMAP.md queue 1 item 5)",
-    "pp": "pipeline parallelism (the mesh's pp axis, parallel/pipeline.py) is not ported "
-          "(ROADMAP.md queue 1 item 5)",
-    "data_sp": "the data axis together with sequence parallelism is not ported "
-               "(ROADMAP.md queue 1 item 5)",
 }
 # torchrun's description of the world
 WORLD_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -68,61 +81,128 @@ class DataGroup:
     size: int
 
 
-def _refuse_unported(model: int, pp: int) -> None:
+@dataclasses.dataclass(frozen=True, eq=False)
+class PPGroup:
+    """group: the torch.distributed process group of the pipeline stages;
+    rank: this process's stage; size: the number of stages; peers: the
+    world rank of each stage (a broadcast's source names a world rank)."""
+
+    group: Any
+    rank: int
+    size: int
+    peers: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """The mesh of this rank: ``shape`` the size of each axis of AXES,
+    ``coords`` this rank's coordinate on each; ``data``, ``sp`` and ``pp``
+    its groups, None where the axis has one rank (nothing to reduce)."""
+
+    shape: Dict[str, int]
+    coords: Dict[str, int]
+    data: Optional[DataGroup] = None
+    sp: Optional[SPGroup] = None
+    pp: Optional[PPGroup] = None
+
+
+def mesh_shape(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,
+               batch_size: Optional[int] = None, world: Optional[int] = None) -> Dict[str, int]:
+    """The size of each axis of the mesh over a world of ``world``
+    processes (default: this one's).  ``data=-1`` takes world / (sp * pp);
+    the product must equal the world; ``batch_size`` (the global batch),
+    where given, must divide by the data axis.  ``model > 1`` raises
+    NotImplementedError, a shape the world cannot hold ValueError."""
     if model > 1:
         raise NotImplementedError(f"mesh model={model}: " + NOT_PORTED["model"])
-    if pp > 1:
-        raise NotImplementedError(f"mesh pp={pp}: " + NOT_PORTED["pp"])
+    world = process_count() if world is None else int(world)
+    if min(sp, pp, model) < 1 or data == 0 or data < -1:
+        raise ValueError(f"mesh data={data}, model={model}, sp={sp}, pp={pp}: sizes are >= 1 "
+                         "(data -1 takes the rest of the world)")
+    rest = model * sp * pp
+    if data == -1:
+        if world % rest:
+            raise ValueError(f"mesh sp={sp} x pp={pp} needs a multiple of {rest} processes; "
+                             f"the world has {world}")
+        data = world // rest
+    if data * rest != world:
+        raise ValueError(f"mesh data={data}: the data axis times model x sp x pp = {rest} spans "
+                         f"the world of {world} processes (-1 takes the world size over them); "
+                         f"data x model x sp x pp needs {data * rest} processes")
+    if batch_size is not None and int(batch_size) % data:
+        raise ValueError(f"batch_size {batch_size} (the global batch) is not divisible by the "
+                         f"data axis of {data} ranks")
+    return {"data": data, "model": model, "sp": sp, "pp": pp}
+
+
+def rank_coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
+    """The mesh coordinates of world rank ``rank``: the JAX mesh's device
+    order, row-major over AXES."""
+    idx = np.unravel_index(int(rank), tuple(shape[a] for a in AXES))
+    return {a: int(i) for a, i in zip(AXES, idx)}
+
+
+def axis_ranks(shape: Dict[str, int], axis: str, coords: Dict[str, int]) -> Tuple[int, ...]:
+    """The world ranks along ``axis`` through ``coords`` (the other
+    coordinates fixed), in the axis's order."""
+    sizes = tuple(shape[a] for a in AXES)
+    return tuple(int(np.ravel_multi_index(tuple(i if a == axis else coords[a] for a in AXES),
+                                          sizes)) for i in range(shape[axis]))
+
+
+def _axis_group(shape: Dict[str, int], axis: str, coords: Dict[str, int]):
+    """(this rank's process group along ``axis``, its world ranks).  Every
+    rank creates every group of the axis in the same order
+    (``new_group`` is collective); an axis that spans the world is the
+    world's group."""
+    mine = axis_ranks(shape, axis, coords)
+    if shape[axis] == dist.get_world_size():
+        return dist.group.WORLD, mine
+    group = None
+    others = [a for a in AXES if a != axis]
+    for line in np.ndindex(*(shape[a] for a in others)):
+        ranks = axis_ranks(shape, axis, {**dict(zip(others, line)), axis: 0})
+        g = dist.new_group(list(ranks))
+        if ranks == mine:
+            group = g
+    return group, mine
+
+
+def build_mesh(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,
+               batch_size: Optional[int] = None) -> Mesh:
+    """The mesh of the initialised world (mesh_shape's sizes; one process
+    without an initialised world: every axis 1).  Every rank must call it
+    with the same sizes."""
+    shape = mesh_shape(data, model, sp, pp, batch_size)
+    initialized = dist.is_available() and dist.is_initialized()
+    if not initialized and process_count() > 1:
+        raise RuntimeError("build_mesh: initialise torch.distributed first "
+                           "(init_process_group with this rank and the world size)")
+    rank = dist.get_rank() if initialized else 0
+    coords = rank_coords(rank, shape)
+    groups: Dict[str, Any] = {}
+    for axis, cls in (("data", DataGroup), ("sp", SPGroup), ("pp", PPGroup)):
+        if shape[axis] == 1:
+            continue
+        group, ranks = _axis_group(shape, axis, coords)
+        extra = {"peers": ranks} if cls is PPGroup else {}
+        groups[axis] = cls(group=group, rank=coords[axis], size=shape[axis], **extra)
+    return Mesh(shape=shape, coords=coords, **groups)
 
 
 def build_sp_group(sp: int, data: int = 1, model: int = 1, pp: int = 1) -> SPGroup:
-    """The ``sp`` ranks of an initialised torch.distributed world as one
-    sequence-parallel group (``Options.sp``).  The world must hold exactly
-    ``sp`` processes; a ``data``, ``model`` or ``pp`` axis above 1 raises."""
-    _refuse_unported(model, pp)
-    if data > 1:
-        raise NotImplementedError(f"mesh data={data}, sp={sp}: " + NOT_PORTED["data_sp"])
-    if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError("build_sp_group: initialise torch.distributed first "
-                           "(init_process_group with this rank and the world size)")
-    world = dist.get_world_size()
-    if sp != world:
-        raise ValueError(f"sp={sp} must equal the world size {world}")
-    return SPGroup(group=dist.group.WORLD, rank=dist.get_rank(), size=sp)
-
-
-def data_axis(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,
-              batch_size: Optional[int] = None, world: Optional[int] = None) -> int:
-    """The size of the mesh's data axis in a world of ``world`` processes
-    (default: this one's).  ``-1`` is the world size; another value must
-    equal it; ``batch_size`` (the global batch), where given, must divide
-    by it.  ``model > 1``, ``pp > 1`` and ``sp > 1`` beside a data axis
-    above 1 raise."""
-    _refuse_unported(model, pp)
-    world = process_count() if world is None else int(world)
-    if sp > 1:
-        if data > 1 or (data == -1 and world > sp):
-            raise NotImplementedError(f"mesh data={data}, sp={sp}: " + NOT_PORTED["data_sp"])
-        return 1
-    size = world if data == -1 else data
-    if size != world:
-        raise ValueError(f"mesh data={data}: the data axis spans the world of {world} "
-                         "processes (-1 takes the world size)")
-    if batch_size is not None and int(batch_size) % size:
-        raise ValueError(f"batch_size {batch_size} (the global batch) is not divisible by the "
-                         f"data axis of {size} ranks")
-    return size
+    """This rank's sequence-parallel group of build_mesh(data, model, sp,
+    pp) (``Options.sp``); the world must hold the mesh."""
+    if sp < 2:
+        raise ValueError(f"sp={sp}: a sequence-parallel group has at least 2 ranks")
+    return build_mesh(data, model, sp, pp).sp
 
 
 def build_data_group(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,
                      batch_size: Optional[int] = None) -> Optional[DataGroup]:
-    """The data axis of the initialised world as a DataGroup, or None where
-    it has one rank (one process: nothing is reduced); raises as
-    ``data_axis``."""
-    size = data_axis(data, model, sp, pp, batch_size)
-    if size == 1:
-        return None
-    return DataGroup(group=dist.group.WORLD, rank=dist.get_rank(), size=size)
+    """This rank's data group of build_mesh(...), or None where the axis
+    has one rank (nothing is reduced); raises as mesh_shape."""
+    return build_mesh(data, model, sp, pp, batch_size).data
 
 
 def rank_device(local_rank: int, local_world: int, cuda: bool,

@@ -32,6 +32,17 @@ takes the norm, so every rank clips, steps Adam and writes back the same
 values.  The reduction runs once, after the backward (overlapping it with
 the backward, as DDP's bucket hooks do, is not done).
 
+The mesh's sp and pp axes (the model's ``Options.sp`` / ``Options.pp``):
+the sp and pp ranks of a data row replicate its compute and leave the step
+with its gradients and losses alike (parallel/sequence_parallel.py makes
+the attentions' gradients equal, parallel/pipeline.py all-gathers each
+pipelined stack's over its stages).  So ``clip()`` sums them over every
+rank of the mesh in one all-reduce and divides by sp x pp: the sum over
+the data axis of each data row's replica mean.  The mean makes the replicas' gradients
+equal bit for bit, where a kernel that adds with atomics (#1b's dQ) sums
+in another order on another rank and the replicas' parameters would drift
+apart by rounding.
+
 Mixed precision: where the model holds a parameter in bfloat16 (the
 transformer stacks in bf16, Options' default on the card), the optimizer
 keeps a float32 master copy, steps that, and writes it back rounded; the
@@ -125,6 +136,9 @@ class Optimizer:
                  schedule=lambda count: 1.0, group: Optional[Any] = None, kind: str = "adam",
                  momentum: float = 0.0):
         self.group = group
+        opts = getattr(model, "opts", None)
+        self.sp = getattr(opts, "sp", None)
+        self.pp = getattr(opts, "pp", None)
         self.base_lr = float(lr)
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
@@ -160,13 +174,21 @@ class Optimizer:
         return grads
 
     def clip(self, extra: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-        """Move the gradients onto the master copies (on a data axis, sum
-        them over the ranks, with the float32 tensors ``extra`` in the same
-        all-reduce) and clip them in place; returns their global L2 norm
-        before clipping (float32, on the device, no sync)."""
+        """Move the gradients onto the master copies (on a mesh, summed with
+        the float32 tensors ``extra`` over its ranks in one all-reduce, and
+        divided by the sp x pp replicas of each data row) and clip them in
+        place; returns their global L2 norm before clipping (float32, on
+        the device, no sync)."""
         grads = self._master_grads()
-        if self.group is not None:
-            all_reduce_flat_(grads + list(extra), self.group.group)
+        tensors = grads + list(extra)
+        axes = [g for g in (self.group, self.sp, self.pp) if g is not None]
+        # one axis: its group; more: the mesh, which spans the world (mesh_shape)
+        if axes:
+            all_reduce_flat_(tensors, axes[0].group if len(axes) == 1 else None)
+        replicas = (self.sp.size if self.sp else 1) * (self.pp.size if self.pp else 1)
+        if replicas > 1:
+            for t in tensors:
+                t.div_(replicas)
         if self.max_grad_norm:
             return torch.nn.utils.clip_grad_norm_([m for _, m in self.pairs], self.max_grad_norm)
         return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -220,7 +242,8 @@ def build_optimizer(model: nn.Module, optimizer_attributes: Any = None,
                     group: Optional[Any] = None) -> Optimizer:
     """The port's build_optimizer: the config's Adam, Adamax or SGD; the
     production config's by default; its gradients summed over the ranks of
-    ``group`` (a DataGroup) where given."""
+    ``group`` (a DataGroup) where given, and over the model's sp and pp
+    replicas (Optimizer.clip)."""
     oa = PRODUCTION_OPTIMIZER if optimizer_attributes is None else optimizer_attributes
     tp = PRODUCTION_TRAINING if training_parameters is None else training_parameters
     kind = str(_get(oa, "type", "Adam") or "Adam").lower()

@@ -12,7 +12,10 @@ that no two ranks draw the same masks for their different rows (JAX draws
 one mask over the global batch); the losses are the rank's shares
 (losses.py), and the step's losses ride the gradients' all-reduce, so the
 NaN tripwire decides on the global loss and norm on every rank alike and
-the returned loss is the global one.
+the returned loss is the global one.  The group is the mesh's data group:
+every sp and pp rank of one data row replicates that row's compute, so
+they take the same rows and draw the same dropout and gumbel numbers (the
+generators fold in the data coordinate, never the world rank).
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ def step_generators(seed: int, step: int, device,
                     group: Optional[Any] = None) -> Tuple[torch.Generator, Any]:
     """(dropout, gumbel) generators of one step, a function of (seed,
     step) as the JAX trainer's ``fold_in(rng, step)`` keys are.  On a data
-    axis (``group``, a DataGroup) the dropout generator also folds in the
-    rank, and the gumbel draws come from a RankRows over the step's
-    generator."""
+    axis (``group``, the mesh's DataGroup) the dropout generator also folds
+    in the data coordinate, and the gumbel draws come from a RankRows over
+    the step's generator."""
     s = np.random.SeedSequence([int(seed), int(step) % 2**32]).generate_state(2)
     drop, gumbel = (torch.Generator(device=device).manual_seed(int(x)) for x in s)
     if group is None:

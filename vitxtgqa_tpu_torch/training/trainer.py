@@ -40,6 +40,17 @@ gathered once a pass and merged in the one-process order, losses as
 (numerator, denominator) sums.  Rank 0 alone logs, writes checkpoints and
 predictions; early stopping is decided once and broadcast.
 
+The mesh's sp and pp axes (``training_parameters.tpu.mesh.sp`` / ``.pp``,
+``pp_microbatches``; parallel/mesh.build_mesh lays the world out as the
+JAX mesh): the model's Options carry the sp and pp groups, so every
+full-sequence attention splits its query rows over the sp ranks and every
+eligible stack runs the GPipe schedule over the pp stages.  The sp and pp
+ranks of one data row replicate that row: the loader's rows, the dropout
+and gumbel draws and the losses' shares are the data coordinate's, and
+the records are gathered over the data group alone, so each question is
+counted once.  The parameters are checked equal over the whole world
+after they load and after the first step.
+
 More than one dataset (``--datasets a,b``): the first is the primary one
 (its validation, head sizes, loss and metric keys, as in JAX); training
 draws each iteration's dataset from data/multi_dataset.MultiDataset, the
@@ -83,7 +94,7 @@ from vitxtgqa_tpu_torch.parallel.collectives import (
     is_main_process,
     process_count,
 )
-from vitxtgqa_tpu_torch.parallel.mesh import build_data_group, data_axis
+from vitxtgqa_tpu_torch.parallel.mesh import Mesh, build_mesh, mesh_shape
 from vitxtgqa_tpu_torch.training.checkpoint import Checkpoint
 from vitxtgqa_tpu_torch.training.early_stopping import EarlyStopping
 from vitxtgqa_tpu_torch.training.optim import build_optimizer
@@ -111,7 +122,8 @@ def mesh_axes(tp: Any) -> Dict[str, int]:
                                                                           "pp")}
 
 
-def options_from_config(tp: Any, kernel_free: bool = False) -> Options:
+def options_from_config(tp: Any, kernel_free: bool = False,
+                        mesh: Optional[Mesh] = None) -> Options:
     """The Options of a run from ``training_parameters`` (device) and its
     ``tpu`` section:
       * device: ``cpu`` runs on the CPU; ``auto`` (the default) and ``cuda``
@@ -134,11 +146,15 @@ def options_from_config(tp: Any, kernel_free: bool = False) -> Options:
       * kv_cache_int8, fused_decode, fused_decode_max_batch, w8a8,
         compact_serving: the Options fields of the same names;
       * fused_grads, compact_train, dense_mm, split_dense: false, or raise;
-      * mesh: the data axis over the world's processes (parallel/mesh.
-        data_axis: -1 or the world size, the global batch divisible by it);
-        model, pp or sp above 1 raise (ROADMAP.md queue 1 item 5).
-    prefetch, pp_microbatches, async_checkpoint, profile_steps and
-    debug_nans are read by the trainer or have no effect on the model."""
+      * mesh: data x sp x pp over the world's processes (parallel/mesh.
+        mesh_shape: data -1 takes the rest, the product the world size,
+        the global batch divisible by the data axis); ``mesh`` (the
+        trainer's build_mesh, required where sp or pp is above 1) gives
+        Options its sp and pp groups; model above 1 raises (the
+        tensor-parallel slice, ROADMAP.md queue 1 item 5);
+      * pp_microbatches: Options.pp_microbatches (0: one a stage).
+    prefetch, async_checkpoint, profile_steps and debug_nans are read by
+    the trainer or have no effect on the model."""
     tpu = getattr(tp, "tpu", None)
     device = str(getattr(tp, "device", "auto") or "auto")
     if device not in ("cpu", "auto") and not device.startswith("cuda"):
@@ -170,12 +186,11 @@ def options_from_config(tp: Any, kernel_free: bool = False) -> Options:
             raise NotImplementedError(
                 f"training_parameters.tpu.{key} is not ported (ROADMAP.md queue 1 item 6)")
     axes = mesh_axes(tp)
-    data_axis(**axes, batch_size=getattr(tp, "batch_size", None))
-    if axes["sp"] > 1:
-        raise NotImplementedError(
-            f"training_parameters.tpu.mesh sp={axes['sp']}: the runtime does not run sequence "
-            "parallelism (ROADMAP.md queue 1 item 5); Options(sp=parallel.mesh.build_sp_group(n)) "
-            "serves and trains a model in n processes of one's own")
+    shape = mesh_shape(**axes, batch_size=getattr(tp, "batch_size", None))
+    if mesh is None and (shape["sp"] > 1 or shape["pp"] > 1):
+        raise ValueError(f"mesh sp={shape['sp']}, pp={shape['pp']}: options_from_config takes "
+                         "the built mesh (mesh=parallel/mesh.build_mesh(...), which every rank "
+                         "calls alike)")
     remat = str(_tpu_get(tpu, "remat", "none"))
     if remat in ("None", "false", "False"):
         remat = "none"
@@ -189,6 +204,9 @@ def options_from_config(tp: Any, kernel_free: bool = False) -> Options:
         fused_decode_max_batch=int(_tpu_get(tpu, "fused_decode_max_batch", 2)),
         w8a8=bool(_tpu_get(tpu, "w8a8", False)),
         compact_serving=bool(_tpu_get(tpu, "compact_serving", False)),
+        sp=mesh.sp if mesh is not None else None,
+        pp=mesh.pp if mesh is not None else None,
+        pp_microbatches=int(_tpu_get(tpu, "pp_microbatches", 0)),
     )
 
 
@@ -258,10 +276,12 @@ class BaseTrainer:
         # each step's dataset from the MultiDataset schedule
         self.dataset_name = self.dataset_names[0]
         self.ds_cfg = self.config.dataset_attributes[self.dataset_name]
-        self.opts = options_from_config(tp, kernel_free(self.config.model))
+        # the mesh of the world (every axis 1 in one process); the data
+        # axis: None where it has one rank
+        self.mesh = build_mesh(**mesh_axes(tp), batch_size=int(tp.batch_size))
+        self.opts = options_from_config(tp, kernel_free(self.config.model), mesh=self.mesh)
         self.device = self.opts.device
-        # the data axis: None in one process
-        self.dp = build_data_group(**mesh_axes(tp), batch_size=int(tp.batch_size))
+        self.dp = self.mesh.data
         self.rank, self.world = (self.dp.rank, self.dp.size) if self.dp else (0, 1)
 
         save_dir = getattr(tp, "save_dir", "./save")
@@ -276,9 +296,14 @@ class BaseTrainer:
         )
         registry.register("writer", self.logger)
         self.logger.write(f"device {self.device}, compute dtype {self.opts.dtype}")
-        if self.dp is not None:
-            self.logger.write(f"data axis: {self.world} ranks, {int(tp.batch_size) // self.world} "
-                              f"rows of each global batch of {tp.batch_size} a rank")
+        if process_count() > 1:
+            shape = self.mesh.shape
+            self.logger.write(
+                f"mesh data {shape['data']} x sp {shape['sp']} x pp {shape['pp']} over "
+                f"{process_count()} processes: {int(tp.batch_size) // self.world} rows of each "
+                f"global batch of {tp.batch_size} a data row"
+                + (f", {self.opts.pp_microbatches or shape['pp']} microbatches a pipelined pass"
+                   if shape["pp"] > 1 else ""))
 
         self._load_datasets()
         self._load_model()
@@ -321,6 +346,7 @@ class BaseTrainer:
                 f"no dataset splits could be loaded for {self.dataset_name!r} "
                 f"(data_root_dir={self.ds_cfg.data_root_dir!r}); check paths"
             )
+        self._seed_sequence_draws()
         self.multi_train = None
         if len(self.dataset_names) > 1 and "train" in self.loaders:
             # multi-dataset training (reference: multi_dataset.py): every
@@ -340,6 +366,20 @@ class BaseTrainer:
         self.primary_split = primary
         self.datasets[primary].update_registry_for_model()
         self.answer_processor = registry.get(f"{self.dataset_name}_answer_processor")
+
+    def _seed_sequence_draws(self) -> None:
+        """Seed the answer processors' choice among matching decode
+        sequences from the run's seed (the JAX package leaves that
+        generator unseeded; worker processes seed each sample from its
+        (seed, epoch, index) already): a run repeats, every rank assembles
+        the same global batches and keeps its data row's rows, and the sp /
+        pp ranks of a data row, which replicate its compute, draw the same
+        targets."""
+        for i, split in enumerate(sorted(self.datasets)):
+            rng = getattr(getattr(self.datasets[split], "answer_processor", None), "rng", None)
+            if isinstance(rng, np.random.Generator):
+                rng.bit_generator.state = np.random.default_rng(
+                    np.random.SeedSequence([self.seed, i])).bit_generator.state
 
     def _load_model(self):
         tp = self.tp
@@ -371,10 +411,9 @@ class BaseTrainer:
             self.logger.write("serving mode: single-variant inference path")
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.write(f"model {model_key}: {n_params / 1e6:.1f}M params")
-        if self.dp is not None:
-            # the same seeded init on every rank: checked once
-            assert_replicas_equal(list(self.model.parameters()), "the initial parameters",
-                                  self.dp.group)
+        if process_count() > 1:
+            # the same seeded init on every rank of the world: checked once
+            assert_replicas_equal(list(self.model.parameters()), "the initial parameters")
         self.losses = Losses(list(getattr(self.model_cfg, "losses", []) or []),
                              self.dataset_name, group=self.dp)
         self.metrics = Metrics(list(getattr(self.model_cfg, "metrics", []) or []),
@@ -503,6 +542,7 @@ class BaseTrainer:
                 self.loaders["train"], start_epoch=self.current_epoch,
                 start_batch=self.epoch_batch))
         train_timer = Timer()
+        replicas_checked = False
         while self.iteration < self.max_iterations and not should_stop:
             t0 = time.perf_counter()
             batch = next(batches)
@@ -517,6 +557,11 @@ class BaseTrainer:
             tensors, batch = self._split_device_batch(batch)
             r = train_step(self.model, self.losses, self.optimizer, tensors,
                            step_generators(self.rng_seed, self.iteration, self.device, self.dp))
+            if not replicas_checked and process_count() > 1:
+                # every sp / pp / data rank steps alike: checked after the first step
+                assert_replicas_equal(list(self.model.parameters()),
+                                      "the parameters after the first step")
+                replicas_checked = True
             self._sync()
             t1 = time.perf_counter()
             self.timings["iteration_ms"].append((t1 - t0) * 1e3)
@@ -668,10 +713,16 @@ class BaseTrainer:
                             } if n else self.losses.zero_terms()
         return rec
 
+    def _gather_rows(self, obj) -> list:
+        """Every data row's ``obj`` in data order: gathered over the data
+        group, whose ranks hold the rows of one sp / pp coordinate (the
+        other sp / pp ranks hold copies of the same rows)."""
+        return gather_objects(obj, self.dp.group) if self.dp is not None else [obj]
+
     def _merged(self, records: list) -> list:
-        """The ranks' records of the same batches (one gather) merged into
-        the global batches' records, rows in the one-process order."""
-        every = gather_objects(records)
+        """The data rows' records of the same batches (one gather) merged
+        into the global batches' records, rows in the one-process order."""
+        every = self._gather_rows(records)
         merged = []
         for parts in zip(*every):
             rec: Dict[str, Any] = {}
@@ -790,7 +841,7 @@ class BaseTrainer:
                     }
                 )
             per_batch.append(rows)
-        every = gather_objects(per_batch)
+        every = self._gather_rows(per_batch)
         if not is_main_process():
             return None
         per_batch = [merge_rows(list(ranks)) for ranks in zip(*every)]
