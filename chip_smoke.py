@@ -4,7 +4,7 @@ its ViT frame-feature path, its sequence-parallel path, its runtime
 (train, validate, checkpoint, resume, predict), the zoo's T2S-family
 models, its selector baselines (TranSTR, MIST), its data parallelism, its
 serving demo and raw-video pipeline, the legacy image-VQA zoo and the
-mesh's sp and pp axes once on one NVIDIA GPU.
+mesh's sp, pp and model axes once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -281,7 +281,22 @@ Phases (each prints one or more lines; any failure exits non-zero):
           training_parameters.tpu.mesh.data=2 training_parameters.tpu.
           mesh.sp=2`` on slice l's fixtures against run() in this process
           (dp_cli, dp_cli_faults: losses, checkpoints, each test question
-          once, no process left); each phase's seconds.
+          once, no process left); each phase's seconds;
+       s. tensor parallelism, the mesh's model axis (parallel/
+          tensor_parallel.py): (i) in this process, the split forms of #2
+          / #3 / #9a / #9b (check_tp_blocks) at model 2 on 2 x 1,152 and
+          4 x 1,152 rows, both ranks' shards with their partials summed,
+          against their twins and the unsplit twin, each planted sum
+          (TP_SUM_FAULTS) outside the tolerance, one rank's form timed
+          beside the unsplit kernel; #1 / #1b on a rank's heads at their
+          head offset (check_tp_flash), offset 0 planted; (ii) slice r's
+          harness on the plan "tp2" (two gloo ranks sharing the card, model
+          2): full-eval at 6 over the bf16 cache and a step at
+          TP_TRAIN_BATCH against one process, the launches as derived
+          (expected_tp_launches), TP_FAULTS outside the limits; then
+          dp_cli with mesh.model=2 on two processes, its ckpt/final
+          restored whole in this process (reload_whole); (iii)
+          entry.dryrun_multichip(4), data 2 x model 2; its seconds.
      a-c, f-g, m, n and p serve behind a ServingEngine; each slice checks its
      launch counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
@@ -368,6 +383,11 @@ TOL = {
     "fused_attention": 2e-2,
     "flash_attention": 2e-2,
     "flash_attention_bwd": 3e-2,
+    # the split forms (slice s) against their twins: as the unsplit kernels
+    "fused_block_tp": 6e-2,
+    "fused_block_tanh_tp": 6e-2,
+    "block_train_fwd_tp": 6e-2,
+    "block_train_bwd_tp": 3e-2,
 }
 # the in-kernel dropout draws: keep share within 0.001 of 1 - rate (the
 # binomial standard deviation over 10^7 draws is 1e-4)
@@ -408,6 +428,12 @@ REPLACES = {
     "fused_attention": "vitxtgqa_tpu/ops/pallas_attention.py:1162",
     "flash_attention": "vitxtgqa_tpu/ops/pallas_attention.py:242",
     "flash_attention_bwd": "vitxtgqa_tpu/ops/pallas_attention.py:350",
+    # the split forms of tensor parallelism: the same TPU kernels under the
+    # JAX mesh's model axis
+    "fused_block_tp": "vitxtgqa_tpu/ops/pallas_ffn.py:233",
+    "fused_block_tanh_tp": "vitxtgqa_tpu/ops/pallas_ffn.py:370",
+    "block_train_fwd_tp": "vitxtgqa_tpu/ops/pallas_block_bwd.py:321",
+    "block_train_bwd_tp": "vitxtgqa_tpu/ops/pallas_block_bwd.py:428",
 }
 SOURCE = {
     "flash_attention_merged": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
@@ -427,6 +453,10 @@ SOURCE = {
     "fused_attention": "vitxtgqa_tpu_torch/csrc/fused_attention.cu",
     "flash_attention": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd": "vitxtgqa_tpu_torch/csrc/flash_bwd.cuh",
+    "fused_block_tp": "vitxtgqa_tpu_torch/csrc/fused_block.cu",
+    "fused_block_tanh_tp": "vitxtgqa_tpu_torch/csrc/fused_block.cu",
+    "block_train_fwd_tp": "vitxtgqa_tpu_torch/csrc/block_train.cu",
+    "block_train_bwd_tp": "vitxtgqa_tpu_torch/csrc/block_train.cu",
 }
 # slice, kernels vs plain on the card: greedy tokens may diverge where two
 # scores tie within bf16 noise, and diverge for the rest of the sequence
@@ -776,6 +806,21 @@ def expected_sp_launches(cfg, batch: int, opts, sp: int = SP_RANKS, full_eval: b
     return out
 
 
+def expected_tp_launches(cfg, batch: int, opts, full_eval: bool = False, train: bool = False,
+                         text_len: int = 20, dec_len: int = DEC_LEN) -> dict:
+    """Kernel launches per rank of one forward (expected_launches) or one
+    training step (expected_train_launches) under tensor parallelism
+    (Options.tp; the bf16 cache, no W8A8): the split forms in the eval and
+    training blocks' places, as often (a layer's heads and FFN split, its
+    rows whole on every rank); the flash and decode kernels as in one
+    process, on the rank's heads."""
+    out = (expected_train_launches(cfg, opts) if train
+           else expected_launches(cfg, batch, opts, full_eval, text_len, dec_len))
+    for name in ("fused_block", "fused_block_tanh", "block_train_fwd", "block_train_bwd"):
+        out[name + "_tp"], out[name] = out[name], 0
+    return out
+
+
 def expected_vit_launches(cfg, batch: int) -> dict:
     """Kernel launches in one ViT forward over ``batch`` frames, derived
     from the port's gates: in every layer the fused FFN where the rows
@@ -1064,7 +1109,9 @@ def report(record, name, err, extra="", scale=None, **timed):
     gradient kernels are held scale-relative (err / scale).  ``timed``
     (keep_times' arguments): the call's times are the kernel's record."""
     tol = TOL[name]
-    rec = record.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": None})
+    rec = record.setdefault(name, {})   # a slice may have counted its launches first
+    rec.setdefault("max_abs_err", 0.0)
+    rec.setdefault("max_rel_err", None)
     crit = err if scale is None else err / scale
     ok = crit <= tol  # False for a NaN error
     rec["max_abs_err"] = max(rec["max_abs_err"], err) if ok else err
@@ -2793,8 +2840,10 @@ class Slices:
     def model(self, inference_only=True, **opts):
         """A model with these Options fields, bf16 on the card, holding the
         shared weights (``inference_only=False``: full-eval)."""
+        from vitxtgqa_tpu_torch.parallel.tensor_parallel import local_state
+
         m = self._new(inference_only, **opts)
-        m.load_state_dict(self.state)
+        m.load_state_dict(local_state(m, self.state))   # a tensor-parallel rank's shards
         return m
 
     def batch(self, b: int, seed: int):
@@ -3907,12 +3956,15 @@ def plain_family(name):
     """Run one kernel family's autograd node through its plain twins (its
     plain flag set) for the duration: "attention" (#1 / #1b, AttentionFn)
     or "block" (#9a / #9b, BlockTrainFn)."""
+    import inspect
+
     from vitxtgqa_tpu_torch.ops import attention as A
     from vitxtgqa_tpu_torch.ops import block_train as BT
 
     cls = {"attention": A.AttentionFn, "block": BT.BlockTrainFn}[name]
     apply = cls.apply
-    cls.apply = lambda *a: apply(*a[:-1], True)   # plain is the last argument
+    at = list(inspect.signature(cls.forward).parameters).index("plain") - 1   # less fctx
+    cls.apply = lambda *a: apply(*a[:at], True, *a[at + 1:])
     try:
         yield
     finally:
@@ -4902,7 +4954,7 @@ def tagged_processes(tag: str) -> list:
 
 
 def dp_cli(card: str, extra=(), timeout: float = 600.0, ranks: int = DP_RANKS,
-           label: str = "o(iii)") -> dict:
+           label: str = "o(iii)", reload: bool = False) -> dict:
     """o(iii). ``python -m torch.distributed.run --standalone --nproc_per_node
     ranks -m vitxtgqa_tpu_torch.run ... training_parameters.
     distributed_init=True`` on slice l's fixtures: configs/t2s_abinet.yml,
@@ -4913,7 +4965,9 @@ def dp_cli(card: str, extra=(), timeout: float = 600.0, ranks: int = DP_RANKS,
     axes).  Each iteration's loss within RUNTIME_LOSS_REL_TOL of the
     one-process run's; one log file, ckpt/best and ckpt/final written by a
     world of ``ranks``; the test report lists each test question once; no
-    process of the run left behind."""
+    process of the run left behind.  With ``reload`` (slice s) a trainer
+    in this process (no mesh) then restores ckpt/final: the whole model
+    and its optimizer state load in one process."""
     import shutil
     import tempfile
     import uuid
@@ -4974,10 +5028,35 @@ def dp_cli(card: str, extra=(), timeout: float = 600.0, ranks: int = DP_RANKS,
         faults = dp_cli_faults(facts, ranks)
         if faults:
             fail(f"slice {label}: " + "; ".join(faults))
+        if reload:
+            reload_whole(argv("reload"), os.path.join(save, "ckpt", "final"), label, card)
         return {"losses": got, "losses_one_process": want, "loss_rel": rel, "wall_s": wall,
                 "predictions": len(qids), "world_size": meta.get("world_size")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def reload_whole(argv, path: str, label: str, card: str) -> None:
+    """A trainer of ``argv`` (less its mesh axes) in this process restores
+    the checkpoint ``path``: every parameter and its optimizer moments at
+    the model's whole shapes."""
+    argv = [o for o in argv if ".tpu.mesh." not in o] + [
+        "training_parameters.resume_file=" + path, "training_parameters.num_workers=0"]
+    trainer = runtime_trainer(argv)
+    try:
+        opt = trainer.optimizer
+        state = opt.inner.state_dict()["state"]
+        moments = [(i, k, tuple(v.shape)) for i, st in state.items() for k, v in st.items()
+                   if hasattr(v, "dim") and v.dim() > 0]
+        bad = [(i, k, shape) for i, k, shape in moments
+               if shape != tuple(opt.pairs[i][1].shape)]
+        print(f"slice {label}: ckpt/final restored in one process: iteration "
+              f"{trainer.iteration}, {len(opt.pairs)} parameters, {len(moments)} optimizer "
+              f"moments at the whole shapes ({len(bad)} not); card {card}", flush=True)
+        if bad or not moments:
+            fail(f"slice {label}: the checkpoint's optimizer state is not whole: {bad[:5]}")
+    finally:
+        trainer.close()
 
 
 def dp_cli_faults(facts: dict, ranks: int = DP_RANKS) -> list:
@@ -6006,7 +6085,10 @@ def legacy_slice(dev, card) -> dict:
 # the text BERT and the MMT (3 layers each), pp 2 the QTV (2 layers), data x
 # sp splits the global batch over two data rows and each row's attentions
 # over two ranks
-MESH_PLANS = {"pp3": (3, (1, 1, 3)), "pp2": (2, (1, 1, 2)), "dsp": (4, (2, 2, 1))}
+# the worlds of slices r and s: (ranks, (data, model, sp, pp))
+MESH_PLANS = {"pp3": (3, (1, 1, 1, 3)), "pp2": (2, (1, 1, 1, 2)), "dsp": (4, (2, 1, 2, 1)),
+              "tp2": (2, (1, 2, 1, 1))}
+R_PLANS, S_PLANS = ("pp3", "pp2", "dsp"), ("tp2",)
 # full-eval under a pipeline: batch 6 (the text BERT's 6 rows and the MMT's
 # 12 teacher-forced rows divide into 3 and 2 microbatches); a dry run's
 # global batch (the CPU, tiny widths at the production layer counts)
@@ -6016,6 +6098,14 @@ MESH_EVAL_BATCH, MESH_DRY_BATCH = 6, 6
 # unchanged, or the optimizer sums the replicated gradients over the stages
 # a second time (each counted pp times)
 MESH_FAULTS = ("stage_skipped", "summed_twice")
+# ... and of a tensor-parallel step (slice s): the attention's input
+# gradient left a rank's partial (copy_to_model's all-reduce skipped), or
+# the whole parameters' gradients summed over the model replicas and not
+# averaged
+TP_FAULTS = ("partial_kept", "replicas_summed")
+# slice s's step: the global batch (gloo carries every f32 partial through
+# the host: four all-reduces a layer of rows x 768 floats)
+TP_TRAIN_BATCH = 8
 # r(iv): torchrun with data x sp = 2 x 2 on slice l's fixtures
 MESH_CLI_RANKS, MESH_CLI_AXES = 4, ("training_parameters.tpu.mesh.data=2",
                                     "training_parameters.tpu.mesh.sp=2")
@@ -6090,18 +6180,34 @@ def expected_pp_launches(cfg, batch: int, opts, pp: int, stage: int, full_eval: 
 
 @contextlib.contextmanager
 def mesh_fault(name):
-    """Plant one of MESH_FAULTS for the duration: "stage_skipped" makes
-    stage 1 of every pipelined pass return its input, "summed_twice" makes
-    the optimizer's gradient all-reduce sum over the pp stages once more."""
+    """Plant one of MESH_FAULTS or TP_FAULTS for the duration:
+    "stage_skipped" makes stage 1 of every pipelined pass return its input,
+    "summed_twice" makes the optimizer's gradient all-reduce sum over the
+    pp stages once more; "partial_kept" leaves the attention's input
+    gradient each rank's partial (copy_to_model's backward passes it
+    through), "replicas_summed" keeps the whole parameters' gradients
+    summed over the model replicas (no mean)."""
     from vitxtgqa_tpu_torch.parallel import pipeline as P
+    from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
     from vitxtgqa_tpu_torch.training import optim as O
 
-    saved = [(P, "gpipe", P.gpipe), (O.Optimizer, "clip", O.Optimizer.clip)]
+    saved = [(P, "gpipe", P.gpipe), (O.Optimizer, "clip", O.Optimizer.clip),
+             (TP._CopyToModel, "backward", TP._CopyToModel.__dict__["backward"])]
     if name == "stage_skipped":
         def skipping(stage_fn, layers, payload, group, num_microbatches=0):
             fn = lambda ls, inp, i: inp["h"] if group.rank == 1 else stage_fn(ls, inp, i)
             return saved[0][2](fn, layers, payload, group, num_microbatches)
         P.gpipe = skipping
+    elif name == "partial_kept":
+        TP._CopyToModel.backward = staticmethod(lambda ctx, g: (g, None))
+    elif name == "replicas_summed":
+        def summed(self, extra=()):
+            norm = saved[1][2](self, extra)
+            for p, m in self.pairs:   # undo the mean of the whole parameters' gradients
+                if not TP.is_sharded(p) and m.grad is not None:
+                    m.grad.mul_(self.tp.size)
+            return norm
+        O.Optimizer.clip = summed
     else:
         def twice(self, extra=()):
             reduce = O.all_reduce_flat_
@@ -6167,7 +6273,9 @@ def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
     b = MESH_EVAL_BATCH
     _, _, batch = dryrun_model_and_batch(sl.dev, b)
     tb = to_device(batch, sl.dev)
-    model = sl.model(False, kv_cache_int8=True, pp=mesh.pp)
+    # a model mesh predicts over the bf16 cache, as JAX's trainer does
+    int8 = mesh.model is None
+    model = sl.model(False, kv_cache_int8=int8, pp=mesh.pp, tp=mesh.model)
     run = lambda m: m(tb, group_generator(0, 0, sl.dev))
     with torch.inference_mode():
         run(model)   # warm-up
@@ -6175,8 +6283,13 @@ def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
         out, ms = mesh_timed(lambda: run(model), sl.dev)
     counts = _build.launch_counts()
     stage, pp = mesh.coords["pp"], mesh.shape["pp"]
-    want = ({n: 0 for n in REPLACES} if sl.dev.type == "cpu" else expected_pp_launches(
-        sl.cfg, b, model.opts, pp, stage, full_eval=True, **mesh_geometry(sl)))
+    if sl.dev.type == "cpu":
+        want = {n: 0 for n in REPLACES}
+    elif mesh.model is not None:
+        want = expected_tp_launches(sl.cfg, b, model.opts, full_eval=True, **mesh_geometry(sl))
+    else:
+        want = expected_pp_launches(sl.cfg, b, model.opts, pp, stage, full_eval=True,
+                                    **mesh_geometry(sl))
     if counts != want:
         fail(f"slice r {name}, rank {rank} (stage {stage}): launches {counts}, expected {want}")
     scores = {k: v.float().cpu().numpy() for k, v in out.items()
@@ -6192,7 +6305,7 @@ def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
     for k, v in scores.items():
         if v.shape[0] != b or not np.isfinite(v).all():
             fail(f"slice r {name}: {k} {v.shape}, finite {np.isfinite(v).all()}")
-    one = sl.model(False, kv_cache_int8=True)
+    one = sl.model(False, kv_cache_int8=int8)
     with torch.inference_mode():
         run(one)
         ref, one_ms = mesh_timed(lambda: run(one), sl.dev)
@@ -6203,7 +6316,10 @@ def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
     same = (tok == tok_1).all(-1)
     diffs = {k: float(np.abs(scores[k][same] - want_s[k][same]).max()) if same.any() else None
              for k in ("ref_scores", "neg_scores")}
-    print(f"slice r {name}: full-eval at batch {b} over {pp} pipeline stages, launches a rank "
+    where = (f"over {mesh.shape['model']} tensor-parallel ranks (bf16 cache)" if not int8
+             else f"over {pp} pipeline stages")
+    print(f"slice {'s' if not int8 else 'r'} {name}: full-eval at batch {b} {where}, launches "
+          "a rank "
           + "; ".join(f"rank {e['rank']} (stage {e['stage']}) " + json.dumps(e["launches"])
                       for e in every)
           + f" (as derived); tokens equal across the ranks; against one process: greedy-token "
@@ -6213,7 +6329,8 @@ def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
           flush=True)
     if agree < MIN_TOKEN_AGREEMENT or not same.any() or not all(
             d <= REFNEG_TOL for d in diffs.values()):
-        fail(f"slice r {name}: the pipelined full-eval disagrees with one process")
+        fail(f"slice {'s' if not int8 else 'r'} {name}: the full-eval on the mesh disagrees "
+             "with one process")
     summary.update(token_agreement=agree, refneg_max_abs_diff=diffs,
                    forward_ms=[e["ms"] for e in every], one_process_forward_ms=one_ms)
     return summary
@@ -6261,7 +6378,7 @@ def mesh_step(sl, mesh, tensors, fault=None, collectives=None) -> dict:
     from vitxtgqa_tpu_torch.entry import data_parallel_step
     from vitxtgqa_tpu_torch.ops import _build
 
-    model = sl.model(sp=mesh.sp, pp=mesh.pp) if mesh else sl.model()
+    model = sl.model(sp=mesh.sp, pp=mesh.pp, tp=mesh.model) if mesh else sl.model()
     sync(sl.dev)
     _build.reset_launch_counts()
     timing = (mesh_collective_ms(sl.dev, collectives) if collectives is not None
@@ -6281,14 +6398,17 @@ def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
     gradient norm, every parameter's applied gradient), the ranks'
     parameters equal after the update, each rank's launches as derived
     (expected_pp_launches for its stage, expected_sp_launches for the
-    rows of a data row); under a pipeline each planted fault (MESH_FAULTS)
-    outside the limits; each rank's ms of the step and of a second one,
+    rows of a data row, expected_tp_launches on a model mesh); under a
+    pipeline each planted fault of MESH_FAULTS, on a model mesh each of
+    TP_FAULTS, outside the limits; on a model mesh the global batch is
+    TP_TRAIN_BATCH; each rank's ms of the step and of a second one,
     and of the second's collectives (mesh_collective_ms)."""
     from vitxtgqa_tpu_torch.entry import dryrun_model_and_batch, step_gaps, within
     from vitxtgqa_tpu_torch.parallel import collectives as C
     from vitxtgqa_tpu_torch.serving.engine import to_device
 
-    g = TRAIN_BATCH if sl.dev.type == "cuda" else MESH_DRY_BATCH
+    tp = mesh.model is not None
+    g = (TP_TRAIN_BATCH if tp else TRAIN_BATCH) if sl.dev.type == "cuda" else MESH_DRY_BATCH
     _, _, batch = dryrun_model_and_batch(sl.dev, g)
     d, n = mesh.coords["data"], mesh.shape["data"]
     rows = to_device({k: v[d::n] for k, v in batch.items()}, sl.dev)
@@ -6296,6 +6416,8 @@ def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
     stage, pp, sp = mesh.coords["pp"], mesh.shape["pp"], mesh.shape["sp"]
     if sl.dev.type == "cpu":
         want = {k: 0 for k in REPLACES}
+    elif tp:
+        want = expected_tp_launches(sl.cfg, g // n, kern["model_opts"], train=True)
     elif pp > 1:
         want = expected_pp_launches(sl.cfg, g // n, kern["model_opts"], pp, stage, train=True)
     else:
@@ -6304,7 +6426,8 @@ def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
         fail(f"slice r {name}, rank {rank}: launches {kern['launches']}, expected {want}")
     spent = {}
     again = mesh_step(sl, mesh, rows, collectives=spent)
-    faults = {f: mesh_step(sl, mesh, rows, fault=f) for f in (MESH_FAULTS if pp > 1 else ())}
+    planted = TP_FAULTS if tp else MESH_FAULTS if pp > 1 else ()
+    faults = {f: mesh_step(sl, mesh, rows, fault=f) for f in planted}
     every = C.gather_objects({"rank": rank, "coords": mesh.coords, "loss": kern["loss"],
                               "norm": kern["norm"], "ms": [kern["ms"], again["ms"]],
                               "collectives_ms": spent,
@@ -6317,7 +6440,9 @@ def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
     del rows
     ref = mesh_step(sl, None, to_device(batch, sl.dev))
     limits = (LOSS_REL_TOL, GNORM_REL_TOL, GRAD_REL_TOL, None)
-    print(f"slice r {name}: a step at global batch {g} on data {n} x sp {sp} x pp {pp}, "
+    label = f"slice {'s' if tp else 'r'} {name}"
+    print(f"{label}: a step at global batch {g} on data {n} x model {mesh.shape['model']} x sp "
+          f"{sp} x pp {pp}, "
           "launches a rank " + "; ".join(f"rank {e['rank']} {e['coords']} "
                                          + json.dumps(e["launches"]) for e in every)
           + f" (as derived); step ms a rank (the checked step, a second) "
@@ -6328,11 +6453,11 @@ def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
           + json.dumps({e["rank"]: {k: round(v, 2) for k, v in e["collectives_ms"].items()}
                         for e in every})
           + f", one process {ref['ms']:.2f}; card {card}", flush=True)
-    for label, run in [("kernels", kern)] + list(faults.items()):
+    for what, run in [("kernels", kern)] + list(faults.items()):
         gaps = step_gaps(run, ref)
         ok = within(gaps, limits)
         grad_rel, worst = gaps["grad_rel"]
-        print(f"slice r {name}: {'the step' if label == 'kernels' else 'planted fault ' + label} "
+        print(f"{label}: {'the step' if run is kern else 'planted fault ' + what} "
               f"vs one process: loss {run['loss']:.6f} vs {ref['loss']:.6f} (rel "
               f"{gaps['loss_rel']:.3e}), gradient norm rel {gaps['norm_rel']:.3e}, applied "
               f"gradient rel max {grad_rel:.3e} ({worst}) (limits: loss {LOSS_REL_TOL}, norm "
@@ -6341,17 +6466,17 @@ def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
         reading = {"loss": run["loss"], "loss_rel": gaps["loss_rel"],
                    "grad_norm_rel": gaps["norm_rel"], "max_grad_rel": grad_rel,
                    "max_grad_rel_param": worst}
-        if label == "kernels":
+        if run is kern:
             summary.update(reading, loss_one_process=ref["loss"],
                            step_ms={e["rank"]: e["ms"] for e in every},
                            collectives_ms={e["rank"]: e["collectives_ms"] for e in every},
                            one_process_step_ms=ref["ms"])
             if not ok:
-                fail(f"slice r {name}: the step on the mesh disagrees with the one-process step")
+                fail(f"{label}: the step on the mesh disagrees with the one-process step")
         else:
-            summary.setdefault("planted", {})[label] = reading
+            summary.setdefault("planted", {})[what] = reading
             if ok:
-                fail(f"slice r {name}: the planted fault {label} passes the limits")
+                fail(f"{label}: the planted fault {what} passes the limits")
     return summary
 
 
@@ -6359,15 +6484,16 @@ def mesh_rank(rank: int, directory: str, card: str, plan: str, dry: bool):
     """One rank of a slice r world (torch.multiprocessing.spawn's target):
     gloo with every rank on the one card (or the CPU for a dry run, tiny
     widths at the production layer counts, float32), the mesh of
-    MESH_PLANS[plan]; a pipeline runs the full-eval check, pp 3 and data x
-    sp the step's; rank 0 writes the summary to ``directory``."""
+    MESH_PLANS[plan]; a pipeline and a model mesh run the full-eval check,
+    every plan but pp 2 the step's; rank 0 writes the summary to
+    ``directory``."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
     from vitxtgqa_tpu_torch.parallel.mesh import build_mesh, rank_device
 
-    world, (data, sp, pp) = MESH_PLANS[plan]
+    world, (data, model, sp, pp) = MESH_PLANS[plan]
     if dry:
         torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6379,9 +6505,9 @@ def mesh_rank(rank: int, directory: str, card: str, plan: str, dry: bool):
     try:
         t0 = time.perf_counter()
         sl = Slices(dev, quiet=True, cfg=cfg, nf=nf, dtype=torch.float32 if dry else None)
-        mesh = build_mesh(data, 1, sp, pp)
+        mesh = build_mesh(data, model, sp, pp)
         out = {}
-        if pp > 1:
+        if pp > 1 or model > 1:
             out["eval"] = mesh_forward(sl, mesh, rank, plan, card)
         if plan != "pp2":
             out["step"] = mesh_train(sl, mesh, rank, plan, card)
@@ -6407,8 +6533,20 @@ def mesh_spawn(card: str, plan: str, dry: bool = False) -> dict:
         with open(os.path.join(directory, "rank0.json")) as f:
             out = json.load(f)
     out["phase_s"] = time.perf_counter() - t0
-    print(f"slice r {plan}: {MESH_PLANS[plan][0]} ranks done in {out['phase_s']:.1f} s",
-          flush=True)
+    print(f"slice {'r' if plan in R_PLANS else 's'} {plan}: {MESH_PLANS[plan][0]} ranks done "
+          f"in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def mesh_worlds(record, card, plans, dry: bool = False) -> dict:
+    """mesh_spawn for each of ``plans``, each world's rank 0 launches into
+    the record."""
+    out = {plan: mesh_spawn(card, plan, dry) for plan in plans}
+    for plan, res in out.items():
+        for part in ("eval", "step"):
+            if part in res:
+                count_launches(f"slice {'r' if plan in R_PLANS else 's'} {plan} {part}", record,
+                               res[part]["launches"], res[part]["expected"])
     return out
 
 
@@ -6419,16 +6557,285 @@ def mesh_slice(record, card, dry: bool = False) -> dict:
     record; (iv) the torchrun CLI on four processes with mesh.data=2
     mesh.sp=2 against run() in this process (dp_cli; not in a dry run)."""
     t0 = time.perf_counter()
-    out = {plan: mesh_spawn(card, plan, dry) for plan in MESH_PLANS}
-    for plan, res in out.items():
-        for part in ("eval", "step"):
-            if part in res:
-                count_launches(f"slice r {plan} {part}", record, res[part]["launches"],
-                               res[part]["expected"])
+    out = mesh_worlds(record, card, R_PLANS, dry)
     if not dry:
         out["cli"] = dp_cli(card, extra=MESH_CLI_AXES, ranks=MESH_CLI_RANKS, label="r(iv)")
     out["wall_s"] = time.perf_counter() - t0
     print(f"slice r: done in {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# slice s: tensor parallelism (the mesh's model axis)
+# ---------------------------------------------------------------------------
+
+# s(i): the split forms at the model axis of 2, on 2 and 4 sequences of
+# 1,152 rows, every rank's shards in this process and their partials summed
+TP_SIZE, TP_ROWS = 2, (2 * 1152, 4 * 1152)
+# a split form's reduction, planted: one rank's partial kept alone, or the
+# sum counted twice
+TP_SUM_FAULTS = ("partial_dropped", "summed_twice")
+# s(ii): run() on two ranks at mesh.model=2 (dp_cli)
+TP_CLI_RANKS, TP_CLI_AXES = 2, ("training_parameters.tpu.mesh.model=2",)
+
+
+def tp_reduce(fault=None):
+    """The one-process sum of the ranks' partials, or a planted fault of
+    TP_SUM_FAULTS."""
+    from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
+
+    if fault == "partial_dropped":
+        return lambda parts: parts[0].clone()
+    if fault == "summed_twice":
+        return lambda parts: 2 * TP.shard_sum(parts)
+    return TP.shard_sum
+
+
+def tp_bound(rows, d, dl, ml, n_in, n_out, wbytes, vbytes, backward=False):
+    """One rank's split form: its activations read and written (bytes
+    given), its shards of the weights; 2 rows (d dl + 2 d ml) operations
+    forward, twice that backward."""
+    flops = 2 * rows * (d * dl + 2 * d * ml) * (2 if backward else 1)
+    return bound_of(n_in + n_out + wbytes + vbytes, flops)
+
+
+def check_tp_blocks(dev, record, rows_list=TP_ROWS, d: int = 768, m: int = 3072,
+                    n: int = TP_SIZE, timed: bool = True) -> dict:
+    """s(i). Each split form against its plain twin, the ranks' shards of one
+    set of weights run in this process with their partials summed
+    (tensor_parallel.drive): #2 / #3 (fused_block_tp, fused_block_tanh_tp)
+    and #9a / #9b at RATE (block_train_fwd_tp: the outputs and the masks
+    drawn, which must be the seed's; block_train_bwd_tp: the 12 gradients
+    scale-relative), every rank's whole outputs bit for bit alike; each
+    TP_SUM_FAULTS reduction outside the tolerance.  With ``timed``, at the
+    first row count one rank's form (its launches, no collective), its
+    twin and the unsplit kernel are timed, with the rank's bound, and kept
+    as the split forms' record.  Returns the times."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+    from vitxtgqa_tpu_torch.ops import fused_block as FB
+    from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
+
+    gen = torch.Generator(device=dev).manual_seed(3141)
+    bf = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    rn = lambda *s_, scale=1.0: (torch.randn(*s_, generator=gen, device=dev) * scale).to(bf)
+    vec = lambda k, base=0.0: base + torch.randn(k, generator=gen, device=dev) * 0.05
+    seed = torch.tensor([20261019], dtype=torch.int64, device=dev)
+    wo, w1, w2 = rn(d, d, scale=0.02), rn(m, d, scale=0.02), rn(d, m, scale=0.02)
+    bo, s1, g1, b1, b2, s2, g2 = vec(d), vec(d, 1.0), vec(d), vec(m), vec(d), vec(d, 1.0), vec(d)
+    cut = lambda t, dim: [c.contiguous() for c in t.chunk(n, dim)]
+    wo_s, w1_s, b1_s, w2_s = cut(wo, 1), cut(w1, 0), cut(b1, 0), cut(w2, 1)
+    dl, ml = d // n, m // n
+    wbytes, vbytes = nbytes(wo_s[0], w1_s[0], w2_s[0]), nbytes(bo, s1, g1, b1_s[0], b2, s2, g2)
+    times = {}
+
+    def held(name, outs, want, extra, scale=False):
+        """Every rank's outputs (lists of tensors) against the twin's."""
+        for r, (got, exp) in enumerate(zip(outs, want)):
+            for i, (a, w) in enumerate(zip(got, exp)):
+                err = (a.float() - w.float()).abs().max().item()
+                report(record, name, err, f"{extra} rank {r} output {i}",
+                       scale=w.float().abs().max().item() if scale else None)
+
+    def whole_alike(name, outs, idx, extra):
+        for r in range(1, n):
+            for i in idx:
+                if not torch.equal(outs[r][i], outs[0][i]):
+                    fail(f"{name}{extra}: rank {r}'s whole output {i} differs from rank 0's")
+
+    def faults_break(name, run, want, extra, idx):
+        for f in TP_SUM_FAULTS:
+            got = run(f)
+            err = max((got[0][i].float() - want[0][i].float()).abs().max().item() for i in idx)
+            print(f"kernel {name}{extra}: planted {f}: max|diff| {err:.3e} (tol "
+                  f"{TOL[name]:.0e}) {'rejected' if not err <= TOL[name] else 'PASSES'}",
+                  flush=True)
+            if err <= TOL[name]:
+                fail(f"{name}{extra}: the planted fault {f} passes the tolerance")
+
+    for k, rows in enumerate(rows_list):
+        x_q, ctx, res, gy = rn(rows, d), rn(rows, d, scale=0.5), rn(rows, d), rn(rows, d)
+        ctx_s = cut(ctx, 1)
+        extra = f" [{rows},{d}] model {n} (dl {dl}, ml {ml})"
+        for name, r_ in (("fused_block_tp", None), ("fused_block_tanh_tp", res)):
+            def run(fault=None, plain=False, r_=r_):
+                steps = [FB.fused_block_tp_steps(x_q, ctx_s[i], wo_s[i], bo, s1, g1, w1_s[i],
+                                                 b1_s[i], w2_s[i], b2, s2, g2, res=r_,
+                                                 plain=plain) for i in range(n)]
+                return [[o] for o in TP.drive(steps, tp_reduce(fault))]
+            got, want = run(), run(plain=True)
+            sync(dev)
+            whole_alike(name, got, (0,), extra)
+            held(name, got, want, extra)
+            unsplit = (FB.fused_block_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2)
+                       if r_ is None else
+                       FB.fused_block_tanh_plain(r_, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2,
+                                                 s2, g2))
+            err = (got[0][0].float() - unsplit.float()).abs().max().item()
+            print(f"kernel {name}{extra}: against the unsplit block's twin max|diff| {err:.3e}",
+                  flush=True)
+            if not err <= TOL[name]:
+                fail(f"{name}{extra}: the split form disagrees with the unsplit block")
+            faults_break(name, run, want, extra, (0,))
+            if timed and k == 0:
+                one = lambda plain: TP.drive([FB.fused_block_tp_steps(
+                    x_q, ctx_s[0], wo_s[0], bo, s1, g1, w1_s[0], b1_s[0], w2_s[0], b2, s2, g2,
+                    res=r_, plain=plain)], lambda p: p[0])
+                whole = ((lambda: FB.fused_block(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2,
+                                                 g2)) if r_ is None else
+                         (lambda: FB.fused_block_tanh(r_, x_q, ctx, wo, bo, s1, g1, w1, b1, w2,
+                                                      b2, s2, g2)))
+                unsplit_ms = cuda_time_ms(whole)
+                n_in = nbytes(x_q, ctx_s[0]) + (nbytes(r_) if r_ is not None else 0)
+                keep_times(record, name, extra + " one rank, no collective",
+                           ms=cuda_time_ms(lambda: one(False)),
+                           plain_ms=cuda_time_ms(lambda: one(True), reps=5, warmup=1),
+                           bound=tp_bound(rows, d, dl, ml, n_in, nbytes(x_q), wbytes, vbytes))
+                record[name]["unsplit_ms"] = unsplit_ms
+                times[name] = {"ms": record[name]["ms"], "unsplit_ms": unsplit_ms}
+                print(f"kernel {name}{extra}: the unsplit kernel ({name[:-3]}) {unsplit_ms:.4f} "
+                      f"ms", flush=True)
+            del got, want, unsplit
+
+        def fwd(fault=None, plain=False):
+            steps = [BT.block_train_fwd_tp_steps(x_q, ctx_s[i], wo_s[i], bo, s1, g1, w1_s[i],
+                                                 b1_s[i], w2_s[i], b2, s2, g2, RATE, seed,
+                                                 plain=plain, emit_masks=True) for i in range(n)]
+            return TP.drive(steps, tp_reduce(fault))
+        got, twin = fwd(), fwd(plain=True)
+        sync(dev)
+        ma, mf = BT.masks_from_seed(seed, rows, d, RATE, dev)
+        for r in range(n):
+            if not (torch.equal(got[r][5].bool(), ma) and torch.equal(got[r][6].bool(), mf)):
+                fail(f"block_train_fwd_tp{extra}: rank {r}'s masks differ from the seed's")
+        whole_alike("block_train_fwd_tp", got, (0, 1, 4), extra)
+        held("block_train_fwd_tp", [g[:5] for g in got], [t[:5] for t in twin], extra)
+        faults_break("block_train_fwd_tp", fwd, twin, extra, (0,))
+        bwd_in = [(gy, ctx_s[i], twin[0][1], twin[i][2], twin[i][3], twin[0][4], wo_s[i],
+                   w1_s[i], w2_s[i], s1, g1, s2) for i in range(n)]
+
+        def bwd(fault=None, plain=False):
+            steps = [BT.block_train_bwd_tp_steps(*bwd_in[i], RATE, seed, plain=plain)
+                     for i in range(n)]
+            return TP.drive(steps, tp_reduce(fault))
+        grads, want = bwd(), bwd(plain=True)
+        sync(dev)
+        whole_alike("block_train_bwd_tp", grads, (0, 3, 4, 5, 9, 10, 11), extra)
+        held("block_train_bwd_tp", grads, want, extra, scale=True)
+        faults_break("block_train_bwd_tp", bwd, want, extra, (0,))
+        if timed and k == 0:
+            fwd1 = lambda plain: TP.drive([BT.block_train_fwd_tp_steps(
+                x_q, ctx_s[0], wo_s[0], bo, s1, g1, w1_s[0], b1_s[0], w2_s[0], b2, s2, g2, RATE,
+                seed, plain=plain)], lambda p: p[0])
+            bwd1 = lambda plain: TP.drive([BT.block_train_bwd_tp_steps(
+                *bwd_in[0], RATE, seed, plain=plain)], lambda p: p[0])
+            act_d, act_l, act_m = rows * d * 2, rows * dl * 2, rows * ml * 2
+            for name, fn, whole, bound in (
+                    ("block_train_fwd_tp", fwd1,
+                     lambda: BT.block_train_fwd(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                                                rate=RATE, seed=seed),
+                     tp_bound(rows, d, dl, ml, act_d + act_l, 3 * act_d + 2 * act_m, wbytes,
+                              vbytes)),
+                    ("block_train_bwd_tp", bwd1,
+                     lambda: BT.block_train_bwd(gy, ctx, *BT.block_train_fwd(
+                         x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate=RATE,
+                         seed=seed)[1:], wo, w1, w2, s1, g1, s2, rate=RATE, seed=seed),
+                     tp_bound(rows, d, dl, ml, 3 * act_d + act_l + 2 * act_m,
+                              act_d + act_l + 2 * wbytes, wbytes, vbytes, backward=True))):
+                unsplit_ms = cuda_time_ms(whole)
+                keep_times(record, name, extra + f" rate={RATE} one rank, no collective",
+                           ms=cuda_time_ms(lambda: fn(False)),
+                           plain_ms=cuda_time_ms(lambda: fn(True), reps=3, warmup=1),
+                           bound=bound)
+                record[name]["unsplit_ms"] = unsplit_ms
+                times[name] = {"ms": record[name]["ms"], "unsplit_ms": unsplit_ms}
+                print(f"kernel {name}{extra}: the unsplit kernel ({name[:-3]}"
+                      f"{', with its forward' if 'bwd' in name else ''}) {unsplit_ms:.4f} ms",
+                      flush=True)
+        del got, twin, grads, want, bwd_in
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return times
+
+
+def check_tp_flash(dev, record, b: int = TRAIN_CHECK_BATCH, n: int = TP_SIZE):
+    """s(i). #1 and #1b on one rank's heads (12 / n of them, the last rank's:
+    head offset 12 - 12 / n) at RATE against their twins at that offset,
+    on the serving mask; the planted fault, the kernels at offset 0 (the
+    first heads' dropout mask), outside the tolerance."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    h = 12 // n
+    off = 12 - h
+    mask, _ = serving_masks(dev)   # the decoder slots at its end, every key there 0
+    km, dec = mask[:b].contiguous(), DEC_LEN
+    l = km.shape[1]
+    seed = torch.tensor([20261020], dtype=torch.int64, device=dev)
+    bf = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    q, k, v, g = (torch.randn(b, l, h * 64, generator=gen, device=dev).to(bf) for _ in range(4))
+    extra = f" heads {off}..{11} of 12 (model {n}, rank {n - 1}) rate={RATE} [{b},{l}]"
+    want, lse = FA.flash_attention_merged_plain(q, k, v, km, dec, h, RATE, seed, True, off)
+    got, got_lse = FA.flash_attention_merged(q, k, v, km, dec, h, RATE, seed, True, off)
+    sync(dev)
+    report(record, "flash_attention_merged", (got.float() - want.float()).abs().max().item(),
+           extra)
+    wrong = FA.flash_attention_merged(q, k, v, km, dec, h, RATE, seed, False, 0)
+    err = (wrong.float() - want.float()).abs().max().item()
+    print(f"kernel flash_attention_merged{extra}: planted head offset 0: max|diff| {err:.3e} "
+          f"{'rejected' if not err <= TOL['flash_attention_merged'] else 'PASSES'}", flush=True)
+    if err <= TOL["flash_attention_merged"]:
+        fail("flash_attention_merged: the planted head offset 0 passes the tolerance")
+    grads = FA.flash_attention_merged_bwd(q, k, v, km, want, lse, g, dec, h, RATE, seed, off)
+    twin = FA.flash_attention_merged_bwd_plain(q, k, v, km, want, lse, g, dec, h, RATE, seed, off)
+    wrong = FA.flash_attention_merged_bwd(q, k, v, km, want, lse, g, dec, h, RATE, seed, 0)
+    sync(dev)
+    worst = 0.0
+    for name, a, w, x in zip("qkv", grads, twin, wrong):
+        scale = w.float().abs().max().item()
+        report(record, "flash_attention_merged_bwd", (a.float() - w.float()).abs().max().item(),
+               f" d{name}{extra}", scale=scale)
+        worst = max(worst, (x.float() - w.float()).abs().max().item() / scale)
+    print(f"kernel flash_attention_merged_bwd{extra}: planted head offset 0: max|diff|/max|plain| "
+          f"{worst:.3e}", flush=True)
+    if worst <= TOL["flash_attention_merged_bwd"]:
+        fail("flash_attention_merged_bwd: the planted head offset 0 passes the tolerance")
+
+
+def tp_slice(record, card, dry: bool = False) -> dict:
+    """s. Tensor parallelism on the one card: (i) the split forms against
+    their twins (check_tp_blocks) and #1 / #1b at a rank's head offset
+    (check_tp_flash), in this process; (ii) two gloo ranks on the card at
+    model 2 (mesh_spawn "tp2": full-eval over the bf16 cache against one
+    process, a step at TP_TRAIN_BATCH against one process with TP_FAULTS
+    rejected, each rank's launches into the record), then run() through
+    the torchrun CLI at mesh.model=2 against run() in this process, its
+    checkpoint restored in one process (dp_cli, reload); (iii)
+    entry.dryrun_multichip(4), JAX's default data 2 x model 2 mesh.  A dry
+    run (the CPU) runs (ii)'s ranks only."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {}
+    if not dry:
+        dev = torch.device("cuda", 0)
+        out["kernels"] = check_tp_blocks(dev, record)
+        check_tp_flash(dev, record)
+    out.update(mesh_worlds(record, card, S_PLANS, dry))
+    if not dry:
+        from vitxtgqa_tpu_torch.entry import dryrun_multichip
+
+        out["cli"] = dp_cli(card, extra=TP_CLI_AXES, ranks=TP_CLI_RANKS, label="s(ii)",
+                            reload=True)
+        t = time.perf_counter()
+        out["dryrun_multichip_4"] = dryrun_multichip(4)
+        print(f"slice s(iii): entry.dryrun_multichip(4), data 2 x model 2, in "
+              f"{time.perf_counter() - t:.1f} s; card {card}", flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"slice s: done in {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -6564,6 +6971,9 @@ def run_slices(dev, record, card):
     details["legacy"] = legacy_slice(dev, card)
     # r. the mesh's sp and pp axes: pp 3, pp 2, data x sp, the torchrun CLI
     details["mesh"] = mesh_slice(record, card)
+    # s. tensor parallelism: the split forms, two ranks at model 2, the CLI,
+    # the data 2 x model 2 dry run
+    details["tp"] = tp_slice(record, card)
     return details
 
 

@@ -223,11 +223,16 @@ def test_vit_l16_launches_of_slice_j(frames, image_size, ffn, attention):
 def test_the_kernel_record_names_fifteen_kernels(repo_root):
     """REPLACES, SOURCE and TOL name the same kernels, every one of the 17
     pallas_call sites (#10 and #10b, the split-head flash forward and
-    backward, since its port); each source is in the repo and each REPLACES
-    line is the def of the Pallas kernel's wrapper (#10b: of its backward's
-    _flash_bwd_impl)."""
+    backward, since its port) and the four split forms of tensor
+    parallelism, which replace the blocks' sites (#2, #3, #9a, #9b) under
+    the JAX mesh's model axis; each source is in the repo and each
+    REPLACES line is the def of the Pallas kernel's wrapper (#10b: of its
+    backward's _flash_bwd_impl)."""
     root = pathlib.Path(repo_root)
-    assert len(CS.REPLACES) == 17
+    assert len(CS.REPLACES) == 21 and len(set(CS.REPLACES.values())) == 17
+    for name in ("fused_block", "fused_block_tanh", "block_train_fwd", "block_train_bwd"):
+        assert CS.REPLACES[name + "_tp"] == CS.REPLACES[name]
+        assert CS.SOURCE[name + "_tp"] == CS.SOURCE[name]
     assert set(CS.REPLACES) == set(CS.SOURCE) == set(CS.TOL)
     for name, where in CS.REPLACES.items():
         assert (root / CS.SOURCE[name]).is_file(), name
@@ -1466,6 +1471,143 @@ def test_slice_r_pp3_holds_and_rejects_the_planted_faults(slice_r_dry):
     for fault, r in step["planted"].items():
         assert (r["loss_rel"] > CS.LOSS_REL_TOL or r["grad_norm_rel"] > CS.GNORM_REL_TOL
                 or r["max_grad_rel"] > CS.GRAD_REL_TOL), fault
+
+
+# ---------------------------------------------------------------------------
+# slice s: tensor parallelism, dry runs on gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+
+# the kernels the model path reaches under tensor parallelism, counted by
+# the calls of their plain versions and split forms on the CPU
+TP_PLAIN_OF = SP_PLAIN_OF + [
+    ("vitxtgqa_tpu_torch.ops.fused_block", "fused_block_tp", "fused_block_tp"),
+    ("vitxtgqa_tpu_torch.ops.fused_block", "fused_block_tanh_tp", "fused_block_tanh_tp"),
+    ("vitxtgqa_tpu_torch.ops.block_train", "block_train_fwd_tp_steps", "block_train_fwd_tp"),
+    ("vitxtgqa_tpu_torch.ops.block_train", "recompute_tp", "block_train_fwd_tp"),
+    ("vitxtgqa_tpu_torch.ops.block_train", "block_train_bwd_tp_steps", "block_train_bwd_tp"),
+]
+
+
+@pytest.fixture(scope="module")
+def slice_s_dry(tmp_path_factory):
+    """(the launch runs' config, each rank's calls in a full-eval forward and
+    a training step at model 2 on two ranks of tests/torch_tp_ranks.py,
+    mesh_spawn's dry run of s(ii)): the ranks start first and run while
+    this process runs the dry run's two."""
+    from tests import torch_tp_ranks
+
+    cfg = _mesh_launch_config()
+    b, nf = MESH_LAUNCH_BATCH, 32 + FRAMES * OCR_PF
+    batch = synthetic_batch(batch=b, frames=FRAMES, ocr_per_frame=OCR_PF, dec_steps=4,
+                            text_len=10, video_feat_dim=32, fasttext_dim=16, phoc_dim=24,
+                            num_final_outputs=nf, text_vocab=128, seed=0)
+    rng = np.random.default_rng(1)
+    noise = {(b, 2, FRAMES): rng.gumbel(size=(b, 2, FRAMES)).astype(np.float32),
+             (b, 2, FRAMES * OCR_PF): rng.gumbel(size=(b, 2, FRAMES * OCR_PF)).astype(np.float32)}
+    state = {k: v.numpy() for k, v in
+             T2S(cfg, nf, opts=cpu_options()).init_weights(0).state_dict().items()}
+    case = dict(kind="launches", cfg=cfg, nf=nf, state=state, batch=batch, noise=noise,
+                plain_of=TP_PLAIN_OF, losses=[{"type": "pos_bce_loss", "weight": 1.0},
+                                              {"type": "InfoNCE", "weight": 1000}])
+    ranks = torch_tp_ranks.start({"launches": case}, tmp_path_factory.mktemp("tp_launch"),
+                                 world=2)
+    try:
+        dry = CS.mesh_spawn("cpu", "tp2", dry=True)
+        return cfg, ranks.results(), dry
+    finally:
+        for p in ranks.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["full_eval", "train"])
+def test_slice_s_launches_count_each_ranks_kernel_calls(slice_s_dry, train):
+    """chip_smoke.expected_tp_launches against the calls each of two ranks
+    makes at model 2 in a full-eval forward over the bf16 cache and in a
+    training step: in every layer where the unsplit block would run, its
+    split form once (the eval block's tanh form in the QTV's last layer;
+    #9a's a second time for the remat recompute), no unsplit block; the
+    flash and decode kernels as in one process."""
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.parallel.mesh import ModelGroup
+
+    cfg, ranks, _ = slice_s_dry
+    opts = Options(device="cpu", tp=ModelGroup(None, 0, 2))
+    for rank in ranks:
+        got = rank["launches"]["train" if train else "eval"]
+        counts = {n: got["counts"].get(n, 0) for n in CS.REPLACES}
+        want = CS.expected_tp_launches(cfg, got["rows"], opts, full_eval=not train, train=train,
+                                       text_len=10, dec_len=4)
+        assert counts == want
+        forms = (("block_train_fwd_tp", "block_train_bwd_tp") if train
+                 else ("fused_block_tp", "fused_block_tanh_tp"))
+        layers = sum(cfg[s]["num_hidden_layers"] for s in ("text_bert", "translayers", "mmt"))
+        assert all(want[f] > 0 for f in forms)
+        if train:   # a layer: the forward and its recompute, one backward; the MMT's 3 passes
+            n = layers + 2 * cfg["mmt"]["num_hidden_layers"]
+            assert (want["block_train_fwd_tp"], want["block_train_bwd_tp"]) == (2 * n, n)
+
+
+def test_slice_s_holds_and_rejects_the_planted_faults(slice_s_dry):
+    """mesh_spawn's dry run of s(ii) (two gloo ranks on the CPU at model 2,
+    the tiny model at the production layer counts in float32): full-eval
+    over the bf16 cache equal to one process; the step within float32
+    noise of the one-process step; an attention input gradient left a
+    rank's partial and the whole parameters' gradients summed over the
+    model replicas each outside slice e's limits (mesh_train fails the run
+    otherwise)."""
+    ev, step = slice_s_dry[2]["eval"], slice_s_dry[2]["step"]
+    assert ev["token_agreement"] == 1.0 and max(ev["refneg_max_abs_diff"].values()) <= 1e-5
+    assert step["loss_rel"] <= 1e-5 and step["grad_norm_rel"] <= 1e-5
+    assert step["max_grad_rel"] <= 1e-4
+    assert sorted(step["planted"]) == sorted(CS.TP_FAULTS)
+    for fault, r in step["planted"].items():
+        assert (r["loss_rel"] > CS.LOSS_REL_TOL or r["grad_norm_rel"] > CS.GNORM_REL_TOL
+                or r["max_grad_rel"] > CS.GRAD_REL_TOL), fault
+
+
+def test_slice_s_split_form_checks_reject_the_planted_sums():
+    """check_tp_blocks on the CPU (the twins at tiny widths): every rank's
+    whole outputs alike and equal to the twin's, the unsplit block's twin
+    within its tolerance, and each of TP_SUM_FAULTS outside it (the check
+    fails the run otherwise); the split forms' record gets their errors
+    beside the launches an earlier slice counted into it."""
+    names = ["block_train_bwd_tp", "block_train_fwd_tp", "fused_block_tanh_tp", "fused_block_tp"]
+    record = {name: {"launches": 3} for name in names}
+    CS.check_tp_blocks(torch.device("cpu"), record, rows_list=(160,), d=128, m=256,
+                       timed=False)
+    assert sorted(record) == names
+    assert all(r["max_abs_err"] == 0.0 and r["launches"] == 3 for r in record.values())
+    with pytest.raises(SystemExit, match="planted fault summed_twice passes"):
+        real = CS.tp_reduce
+        try:
+            CS.tp_reduce = lambda fault=None: real(None if fault == "summed_twice" else fault)
+            CS.check_tp_blocks(torch.device("cpu"), {}, rows_list=(160,), d=128, m=256,
+                               timed=False)
+        finally:
+            CS.tp_reduce = real
+
+
+def test_slice_s_cli_dry_run_restores_its_checkpoint_whole():
+    """dp_cli with slice s's mesh.model=2 on the CPU: torchrun's two gloo
+    processes at model 2 run the CLI, their losses within float32 noise of
+    the one-process run's, and ckpt/final restores in a trainer of this
+    process with every optimizer moment at the whole parameter's shape
+    (reload_whole fails the run otherwise)."""
+    out = CS.dp_cli("cpu", extra=_dp_cli_extra() + list(CS.TP_CLI_AXES), ranks=CS.TP_CLI_RANKS,
+                    label="s(ii)", reload=True)
+    assert out["world_size"] == CS.TP_CLI_RANKS and out["predictions"] == 6
+    np.testing.assert_allclose(out["losses"], out["losses_one_process"], rtol=1e-5)
+
+
+def test_slice_s_kernels_enter_the_record_line():
+    """The split forms are kernels of the record line (REPLACES, SOURCE,
+    TOL), the eval block's split forms on the eval block's source and the
+    training block's on its, with the tolerances of the unsplit kernels."""
+    for name in ("fused_block", "fused_block_tanh", "block_train_fwd", "block_train_bwd"):
+        assert CS.TOL[name + "_tp"] == CS.TOL[name]
+    assert CS.S_PLANS == ("tp2",) and CS.MESH_PLANS["tp2"] == (2, (1, 2, 1, 1))
 
 
 # ---------------------------------------------------------------------------

@@ -421,7 +421,8 @@ def test_the_ranks_dropout_masks_differ(ranks):
 
 def test_dryrun_multichip_on_two_ranks():
     """entry.dryrun_multichip(2, device="cpu"): two spawned gloo ranks take
-    the T2S step on the global batch's rows, held to the one-process step."""
+    the T2S step on JAX's default mesh of two devices (model 2), held to the
+    one-process step."""
     from vitxtgqa_tpu_torch.entry import DRYRUN_LIMITS, dryrun_multichip
 
     out = dryrun_multichip(2, device="cpu")
@@ -431,13 +432,13 @@ def test_dryrun_multichip_on_two_ranks():
 
 
 @pytest.mark.parametrize("kw, err, words", [
-    (dict(model=2), NotImplementedError, "tensor parallelism"),
+    (dict(model=2, sp=2), NotImplementedError, "tensor parallelism"),
     (dict(pp=4), ValueError, "sp=1 x pp=4 needs a multiple of 4 processes; the world has 2"),
     (dict(sp=4), ValueError, "sp=4 x pp=1 needs a multiple of 4 processes; the world has 2")])
 def test_dryrun_multichip_refuses_the_unported_axes(kw, err, words):
-    """The tensor-parallel axis raises, naming its slice; the sp and pp
-    axes run (tests/test_torch_mesh.py) and raise, before any rank starts,
-    for a world too small for them."""
+    """The tensor-parallel axis beside sp raises, naming the rest of its
+    slice; the sp and pp axes run (tests/test_torch_mesh.py) and raise,
+    before any rank starts, for a world too small for them."""
     from vitxtgqa_tpu_torch.entry import dryrun_multichip
 
     with pytest.raises(err, match=words):

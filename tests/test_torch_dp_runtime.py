@@ -206,6 +206,35 @@ def test_two_rank_predictions_list_each_question_once(ranks):
     assert r1["reports"] == {} and r0["writes"] == r1["writes"] == 0
 
 
+def test_two_rank_predictions_go_over_the_bf16_cache(repo_root, tmp_path, ranks):
+    """configs/t2s_serving.yml (the int8 cache on) predicting on two ranks:
+    the data mesh turns the int8 cache off, as the JAX trainer does on its
+    data mesh, and rank 0's report equals, row for row, one process
+    predicting over the bf16 cache from the same checkpoint (the answers,
+    grounded frames and sources equal, the boxes within 1e-5)."""
+    import pickle
+
+    from vitxtgqa_tpu_torch.run import run
+
+    r0, r1 = (r["predict"] for r in ranks.results())
+    assert not r0["kv_cache_int8"] and not r1["kv_cache_int8"]
+    with open(os.path.join(ranks.directory, "cases.pkl"), "rb") as f:
+        argv = pickle.load(f)["predict"]["argv"]
+    argv = [o for o in argv if o not in MESH2 and "save_dir" not in o] + MESH1 + [
+        f"training_parameters.save_dir={tmp_path / 'one'}",
+        "training_parameters.tpu.kv_cache_int8=False"]
+    t = run(argv)
+    assert not t.opts.kv_cache_int8
+    (got,), (want,) = r0["reports"].values(), torch_dp_ranks._reports(t.logger.save_dir).values()
+    assert len(got) == len(want) == 6
+    by_q = {row["question_id"]: row for row in want}
+    for row in got:
+        ref = by_q[row["question_id"]]
+        for k in ("video_id", "answer", "grounded frame", "pred_source"):
+            assert row[k] == ref[k], k
+        np.testing.assert_allclose(row["grounded box"], ref["grounded box"], atol=1e-5)
+
+
 def test_a_resumed_two_rank_run_equals_an_uninterrupted_one(ranks):
     """Four steps straight on two ranks (dropout on) against three, a
     snapshot and a resume from it for the fourth: the fourth step's loss and

@@ -128,6 +128,26 @@ def test_the_block_plans_of_the_main_paths():
     assert {ln.tile_n for ln in FFN.launch_plan(12608, 1024, 4096, 1024)} == {W}
 
 
+@pytest.mark.parametrize("rows", (1152, 2304, 4608, 9216))
+def test_the_split_forms_cover_a_ranks_outputs(rows):
+    """The split forms' launches on a rank's shares at model 2 (ops/
+    fused_block.tp_launch_plan, ops/block_train.tp_gemm_launches: 384
+    attention and 1,536 FFN columns) each cover their output once, in K
+    steps that cover K; at model 4 a rank's 192 attention columns fit no
+    tile, so the wrappers refuse them (#9b's dctx and dWo products would
+    launch N = 192)."""
+    d, m = 768, 3072
+    FB.check_tp_widths("fused_block_tp", d, d // 2, m // 2)
+    for ln in FB.tp_launch_plan(rows, d, d // 2, m // 2) + BT.tp_gemm_launches(
+            rows, d, d // 2, m // 2):
+        assert_covers_once(ln)
+        assert_k_steps_cover(ln)
+    with pytest.raises(NotImplementedError):
+        FB.check_tp_widths("block_train_bwd_tp", d, d // 4, m // 4)
+    with pytest.raises(ValueError):
+        BT.tp_gemm_launches(rows, d, d // 4, m // 4)
+
+
 def assert_k_steps_cover(ln: G.Launch):
     """Per problem and split, the K steps (k_step elements each, from the
     split's start) cover the split's rows of K exactly: no step reads past

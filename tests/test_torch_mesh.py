@@ -494,8 +494,9 @@ def test_rank_layout_is_the_jax_meshs_device_order(worlds):
 def test_a_mesh_the_world_cannot_hold_raises():
     """mesh_shape: -1 takes the world over sp x pp; a product other than
     the world, a world that sp x pp does not divide, a global batch the
-    data axis does not divide raise ValueError; model > 1
-    NotImplementedError naming the tensor-parallel slice."""
+    data axis does not divide raise ValueError; model beside sp
+    NotImplementedError naming the rest of the tensor-parallel slice
+    (tests/test_torch_tp.py holds the model axis itself)."""
     from vitxtgqa_tpu_torch.parallel.mesh import mesh_shape, rank_coords
 
     assert mesh_shape(-1, 1, 2, 2, world=8) == {"data": 2, "model": 1, "sp": 2, "pp": 2}
@@ -507,7 +508,7 @@ def test_a_mesh_the_world_cannot_hold_raises():
         with pytest.raises(ValueError, match=words):
             mesh_shape(**{"data": -1, "world": 2, **kw})
     with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-        mesh_shape(model=2, world=2)
+        mesh_shape(model=2, sp=2, world=4)
 
 
 # ---------------------------------------------------------------------------
@@ -585,6 +586,7 @@ def test_dryrun_multichip_on_the_mesh(background, name):
     n, kw = DRYRUNS[name]
     out = background["dryruns"].result()[name]
     loss_tol, norm_tol, tol, update_tol = DRYRUN_LIMITS["cpu"]
-    assert out["ranks"] == n and out["mesh"] == {"data": n // 2, "sp": 1, "pp": 1, **kw}
+    assert out["ranks"] == n
+    assert out["mesh"] == {"data": n // 2, "model": 1, "sp": 1, "pp": 1, **kw}
     assert out["loss_rel"] <= loss_tol and out["norm_rel"] <= norm_tol
     assert out["grad_rel"][0] <= tol and out["update_rel"][0] <= update_tol

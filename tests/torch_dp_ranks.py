@@ -24,8 +24,8 @@ Case kinds (the ``kind`` key):
   generators reseeded, trained: the meter's series, the parameters (those
   of ckpt/best, which the trainer restores at its end) and ckpt/final's,
   the checkpoint writes of the rank;
-- "run": ``run(argv)`` (the CLI in-process): the prediction report's rows
-  and the checkpoint writes of the rank;
+- "run": ``run(argv)`` (the CLI in-process): the prediction report's rows,
+  the checkpoint writes of the rank and whether it ran the int8 cache;
 - "launches": one data-parallel training step whose plain kernel
   versions ((module, function, kernel) in case["plain_of"]) are counted,
   by the kernel each stands for.
@@ -203,7 +203,8 @@ def run_cli(case, rank, world):
     finally:
         writes.close()
     return {"writes": writes.n, "reports": _reports(trainer.logger.save_dir) if rank == 0 else {},
-            "rows": len(trainer.datasets["test"]) if "test" in trainer.datasets else 0}
+            "rows": len(trainer.datasets["test"]) if "test" in trainer.datasets else 0,
+            "kv_cache_int8": trainer.opts.kv_cache_int8}
 
 
 def run_launches(case, rank, world):

@@ -1,0 +1,241 @@
+"""Runs of the port under tensor parallelism (the mesh's model axis) on gloo
+ranks on the CPU, for the port's tests (tests/test_torch_tp.py).
+
+As tests/torch_mesh_ranks.py: a test module starts one world with
+``start(cases, directory, world)`` and collects it with
+``Ranks.results()``; each rank (``python -m tests.torch_tp_ranks DIR RANK
+WORLD``) imports torch and the port only, no JAX, joins a gloo group (a
+``file://`` rendezvous in DIR), runs every case in order and pickles its
+results.
+
+Case kinds (the ``kind`` key):
+- "encoder": a TransformerEncoder of ``cfg`` (``state``'s whole weights,
+  each rank taking its shards) over the model axis of the whole world: a
+  training pass with a dropout generator (the output, the input's
+  gradient, every parameter's gradient made whole) and an eval pass with
+  the tanh residual;
+- "step": one T2S training step (the config's losses, Adam of ``oa`` /
+  ``tp``) on the mesh ``mesh`` ((data, model)), the data row's rows of the
+  global batch, the gumbel noise global numpy arrays, the dropout
+  generator of ``drop_seed``: the loss, the gradient norm, each
+  parameter's applied gradient and the parameters after (both made
+  whole), the rank's coordinates;
+- "eval": the full-eval forward of T2S on the whole batch at the model
+  axis of the world: the scores;
+- "run": ``run(argv)`` (the CLI in-process): the meter's series, the
+  reports (rank 0), ckpt/final's state as saved (rank 0), and the rank's
+  own parameters and optimizer moments as they were when it was saved;
+- "launches": a full-eval forward (the bf16 cache) and a training step
+  at the model axis of the world, the calls of the plain versions and
+  split forms ((module, function, kernel) in ``plain_of``) counted by the
+  kernel each stands for.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+from tests.torch_dp_ranks import Ranks, _reports, _series, _tensors  # noqa: F401
+from tests.torch_dp_ranks import start as _start
+
+
+def _whole(model, grads):
+    from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
+
+    return {k: v.numpy() for k, v in TP.whole_state(model, grads).items()}
+
+
+def run_encoder(case, rank, world):
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.models.common import TransformerConfig, TransformerEncoder
+    from vitxtgqa_tpu_torch.ops.masks import MaskSpec
+    from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
+    from vitxtgqa_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(1, world)
+    enc = TransformerEncoder(TransformerConfig(**case["cfg"]),
+                             Options(device="cpu", tp=mesh.model))
+    enc.load_state_dict(TP.local_state(enc, {k: torch.from_numpy(v)
+                                             for k, v in case["state"].items()}))
+    x, g, km = (torch.from_numpy(case[k]) for k in ("x", "g", "key_mask"))
+    spec = MaskSpec(key_mask=km, dec_len=case["dec_len"])
+    xg = x.clone().requires_grad_()
+    y = enc(xg, spec, train=True, gen=torch.Generator().manual_seed(case["drop_seed"]))
+    y.backward(g)
+    with torch.no_grad():
+        y_eval = enc(x, spec, tanh_residual_base=x)
+    grads = {k: p.grad for k, p in enc.named_parameters()}
+    return {"y": y.detach().numpy(), "dx": xg.grad.numpy(), "y_eval": y_eval.numpy(),
+            "grads": _whole(enc, grads), "sharded": TP.sharded_dims(enc)}
+
+
+def run_step(case, rank, world):
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.models.t2s import T2S
+    from vitxtgqa_tpu_torch.ops.gumbel import RankRows
+    from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
+    from vitxtgqa_tpu_torch.parallel.mesh import build_mesh
+    from vitxtgqa_tpu_torch.training.optim import build_optimizer
+    from vitxtgqa_tpu_torch.training.step import step_generators, train_step
+
+    data, model_ax = case["mesh"]
+    mesh = build_mesh(data, model_ax, batch_size=case["batch"]["text"].shape[0])
+    model = T2S(case["cfg"], case["nf"], bos_idx=2, opts=Options(device="cpu", tp=mesh.model))
+    model.load_state_dict(TP.local_state(model, {k: torch.from_numpy(v)
+                                                 for k, v in case["state"].items()}))
+    opt = build_optimizer(model, case["oa"], case["tp"], case["cfg"], group=mesh.data)
+    d, n = mesh.coords["data"], mesh.shape["data"]
+    batch = _tensors({k: v[d::n] for k, v in case["batch"].items()})
+    noise = RankRows(lambda shape, kind: case["noise"][shape], d, n)
+    names = [k for k, _ in model.named_parameters()]
+    applied = {}
+    apply = opt.apply
+
+    def keep_and_apply():
+        applied.update({k: m.grad.detach().clone() for k, (_, m) in zip(names, opt.pairs)})
+        apply()
+
+    opt.apply = keep_and_apply
+    drop = step_generators(case["drop_seed"], 1, torch.device("cpu"), mesh.data)[0]
+    r = train_step(model, Losses(case["losses"], group=mesh.data), opt, batch, (drop, noise))
+    TP.check_replicas(list(model.parameters()), "the parameters after the step", mesh.data)
+    return {"loss": float(r["loss"]), "norm": float(r["grad_norm"]), "applied": r["applied"],
+            "grads": _whole(model, applied), "coords": mesh.coords,
+            "state": _whole(model, {k: v.detach() for k, v in model.state_dict().items()})}
+
+
+def run_eval(case, rank, world):
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.models.t2s import T2S
+    from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
+    from vitxtgqa_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(1, world)
+    model = T2S(case["cfg"], case["nf"], bos_idx=2, inference_only=False,
+                opts=Options(device="cpu", tp=mesh.model))
+    model.load_state_dict(TP.local_state(model, {k: torch.from_numpy(v)
+                                                 for k, v in case["state"].items()}))
+    noise = tuple(torch.from_numpy(n) for n in case["noise"])
+    with torch.no_grad():
+        out = model(_tensors(case["batch"]), noise)
+    return {k: out[k].numpy() for k in ("pos_scores", "ref_scores", "neg_scores")}
+
+
+def run_cli(case, rank, world):
+    from vitxtgqa_tpu_torch.run import run
+    from vitxtgqa_tpu_torch.training.trainer import BaseTrainer
+
+    own = {}
+    state = BaseTrainer._state
+
+    def spy(self):
+        """The rank's own shards each time a snapshot's state is taken (the
+        last: ckpt/final's)."""
+        own["model"] = {k: v.detach().numpy().copy() for k, v in self.model.state_dict().items()}
+        own["moments"] = {i: {k: v.numpy().copy() for k, v in st.items() if v.dim() > 0}
+                          for i, st in self.optimizer.inner.state_dict()["state"].items()}
+        return state(self)
+
+    BaseTrainer._state = spy
+    try:
+        trainer = run(case["argv"])
+    finally:
+        BaseTrainer._state = state
+    final = os.path.join(trainer.logger.save_dir, "ckpt", "final", "state.pt")
+    saved = torch.load(final) if rank == 0 and os.path.exists(final) else None
+    return {"series": _series(trainer.meter),
+            "reports": _reports(trainer.logger.save_dir) if rank == 0 else {},
+            "mesh": trainer.mesh.shape, "kv_cache_int8": trainer.opts.kv_cache_int8,
+            "saved": None if saved is None else {
+                "model": {k: v.numpy() for k, v in saved["model"].items()},
+                "moments": {i: {k: v.numpy() for k, v in st.items() if v.dim() > 0}
+                            for i, st in saved["optimizer"]["adam"]["state"].items()}},
+            "own": own["model"], "own_moments": own["moments"],
+            "sharded": {i: getattr(p, "tp_dim", None)
+                        for i, (p, _) in enumerate(trainer.optimizer.pairs)}}
+
+
+def run_launches(case, rank, world):
+    import importlib
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.models.t2s import T2S
+    from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
+    from vitxtgqa_tpu_torch.parallel.mesh import build_mesh
+    from vitxtgqa_tpu_torch.training.optim import build_optimizer
+    from vitxtgqa_tpu_torch.training.step import train_step
+
+    mesh = build_mesh(1, world)
+    counts = {}
+
+    def counting(fn, kernel):
+        def call(*a, **kw):
+            counts[kernel] = counts.get(kernel, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    out = {}
+    for train in (False, True):
+        model = T2S(case["cfg"], case["nf"], bos_idx=2, inference_only=False,
+                    opts=Options(device="cpu", tp=mesh.model))
+        model.load_state_dict(TP.local_state(model, {k: torch.from_numpy(v)
+                                                     for k, v in case["state"].items()}))
+        batch = _tensors(case["batch"])
+        noise = lambda shape, kind: case["noise"][shape]
+        originals = []
+        counts.clear()
+        for mod_name, fn_name, kernel in case["plain_of"]:
+            mod = importlib.import_module(mod_name)
+            originals.append((mod, fn_name, getattr(mod, fn_name)))
+            setattr(mod, fn_name, counting(getattr(mod, fn_name), kernel))
+        try:
+            if train:
+                opt = build_optimizer(model, model_config=case["cfg"])
+                train_step(model, Losses(case["losses"]), opt, batch,
+                           (torch.Generator().manual_seed(0), noise))
+            else:
+                with torch.no_grad():
+                    model(batch, noise)
+        finally:
+            for mod, fn_name, fn in originals:
+                setattr(mod, fn_name, fn)
+        out["train" if train else "eval"] = {"rows": batch["text"].shape[0],
+                                             "counts": dict(counts)}
+    return out
+
+
+RUNNERS = {"encoder": run_encoder, "step": run_step, "eval": run_eval, "run": run_cli,
+           "launches": run_launches}
+
+
+def main(argv) -> int:
+    import pickle
+
+    directory, rank, world = argv[0], int(argv[1]), int(argv[2])
+    torch.set_num_threads(1)
+    with open(os.path.join(directory, "cases.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        out = {name: RUNNERS[case["kind"]](case, rank, world) for name, case in cases.items()}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(directory, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def start(cases, directory, world: int, timeout: float = 600.0) -> Ranks:
+    """Start ``cases`` on ``world`` gloo ranks in the background."""
+    return _start(cases, directory, world=world, timeout=timeout, module="tests.torch_tp_ranks")
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -53,6 +53,23 @@
 //   B7 the partials summed in order into the 10 f32 outputs.
 // The row passes' grid (row_blocks) and the split (k_chunk) come from the
 // wrapper's plan (ops/block_train.launch_plan), which sizes the scratch.
+//
+// Tensor parallelism (the split forms, ops/block_train.block_train_fwd_tp
+// and block_train_bwd_tp): a rank holds Wo's columns of its heads (wo_l
+// [d, dl]), W1's rows and b1 of its FFN share (w1_l [ml, d]) and W2's
+// columns (w2_l [d, ml]); the 768-wide rows between the products are
+// whole on every rank.  The same launches run with the model group's
+// all-reduce of an f32 partial between them:
+//  forward: F1 ctx_l Wo_l^T -> f32 partial (vt_gemm_f32, fused_block.cu);
+//   sum; F2' rows: x1h = bf16(x_q + K_a (sum + bo)), xb = bf16(LN1(x1h))
+//   (vt_block_train_tp_rows); F3 xb W1_l^T (vt_block_train_tp_ffn_in);
+//   F4 h_l W2_l^T -> f32 partial; sum; F5' rows: x2h, y as F2'.
+//  backward: B1-B3 with B3 storing the f32 partial dpre_l W1_l
+//   (vt_block_train_tp_bwd_head); sum; B4 with dx = sum + du2, B5 dctx_l,
+//   B6, B7 (vt_block_train_tp_bwd_tail).
+// The masks are drawn over the whole rows from the one seed, so every
+// rank draws the same ones; the biases of the row-parallel products are
+// added once, after the sum.
 #include "gemm_sm90.cuh"
 #include "philox.cuh"
 #include "row_ops.cuh"
@@ -211,6 +228,18 @@ struct StoreEpi {
   }
 };
 
+// the split forms' row-parallel products: out = acc (f32), the rank's
+// partial of the model group's sum
+struct StoreF32Epi {
+  float* out;
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      g90::store8(out + (size_t)row * t.N + col, v);
+    });
+  }
+};
+
 // B6: problem p's split s stores its f32 partial at out[p] + s * stride[p]
 // (stride 0 with one split: the output itself)
 struct PartialEpi {
@@ -343,10 +372,12 @@ ln2_bwd_rows(const bf16* __restrict__ g, const bf16* __restrict__ x2h,
   row_colsums(red, cs, part);
 }
 
-// B4: LN1 backward from dx (f32): dx_q = du1, dlin1 = K_a du1, xb =
+// B4: LN1 backward from dx (f32; + dx_add where given: the split form's
+// summed partial plus du2): dx_q = du1, dlin1 = K_a du1, xb =
 // bf16(LN1(x1h)); partial sums of dx xhat, dx, dlin1
 __global__ void __launch_bounds__(kRowThreads)
-ln1_bwd_rows(const float* __restrict__ dx, const bf16* __restrict__ x1h,
+ln1_bwd_rows(const float* __restrict__ dx, const float* __restrict__ dx_add,
+             const bf16* __restrict__ x1h,
              const float* __restrict__ s1, const float* __restrict__ g1, bf16* __restrict__ xb,
              bf16* __restrict__ dxq, bf16* __restrict__ dlin1, float* __restrict__ part,
              Drop drop, int M, float eps) {
@@ -363,6 +394,12 @@ ln1_bwd_rows(const float* __restrict__ dx, const bf16* __restrict__ x1h,
 #pragma unroll
     for (int q = 0; q < RGROUPS; ++q) {
       load4(dx + rb + q * 128 + lane * 4, dv[q]);
+      if (dx_add != nullptr) {
+        float a[4];
+        load4(dx_add + rb + q * 128 + lane * 4, a);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) dv[q][t] += a[t];
+      }
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         cs[0][q][t] += dv[q][t] * xhat[q][t];
@@ -386,6 +423,52 @@ ln1_bwd_rows(const float* __restrict__ dx, const bf16* __restrict__ x1h,
     }
   }
   row_colsums(red, cs, part);
+}
+
+// the split forward's F2' / F5': xh = bf16(resid + K (sum + bias)) (the
+// F1 / F4 epilogue on the summed partial), out = bf16(LN(xh)); the drawn
+// mask to drop.mask_out
+__global__ void __launch_bounds__(kRowThreads)
+resid_ln_rows(const float* __restrict__ sum, const float* __restrict__ bias,
+              const bf16* __restrict__ resid, const float* __restrict__ s,
+              const float* __restrict__ g, bf16* __restrict__ xh, bf16* __restrict__ out,
+              Drop drop, int M, float eps) {
+  const int lane = threadIdx.x % 32, per = kRowThreads / 32;
+  const bool dropout = drop.seed != nullptr;
+  const uint32_t seed = seed_of(drop);
+  for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
+    const size_t rb = (size_t)row * RN;
+    float v[RGROUPS][4];
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q) {
+      const int c = q * 128 + lane * 4;
+      float a[4], b[4], r[4];
+      load4(sum + rb + c, a);
+      load4(bias + c, b);
+      load4(resid + rb + c, r);
+      bool keep[4] = {true, true, true, true};
+      if (dropout) row_keep4(drop, seed, row, c, keep);
+      if (drop.mask_out != nullptr) {
+        uint32_t w = 0u;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) w |= (uint32_t)keep[t] << (8 * t);
+        *reinterpret_cast<uint32_t*>(drop.mask_out + rb + c) = w;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float x = a[t] + b[t];
+        if (dropout) x = keep[t] ? x * drop.keep_scale : 0.f;
+        v[q][t] = round_bf16(r[t] + x);
+      }
+      store4(xh + rb + c, v[q]);
+    }
+    const gemm::RowStats st = gemm::row_stats(v, eps);
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v[q][t] = (v[q][t] - st.mu) * st.inv;
+    ln_store(out + rb, v, s, g, lane);
+  }
 }
 
 // ---- B7: partials summed in a fixed order ------------------------------------
@@ -477,37 +560,16 @@ extern "C" int vt_block_train_fwd(const void* x_q, const void* ctx, const void* 
   return (int)cudaGetLastError();
 }
 
-// #9b.  g, ctx, x1h, x2h [rows, d], pre1, h [rows, m] bf16; weights and
-// LayerNorm vectors as in the forward; the dropout seed as in the forward.
-// Outputs dxq, dctx [rows, d] bf16; dwo [d, d], dw1 [m, d], dw2 [d, m],
-// dbo, ds1, dg1, db2, ds2, dg2 [d], db1 [m] f32 (every element written).
-// Scratch: du2 [rows, d] f32; dlin2, xb, dlin1 [rows, d] and dpre
-// [rows, m] bf16; col_part f32 [2 * row_blocks * 3 * d + m_tiles * m]
-// (the column sums' partials); w_part f32 [splits * (d * d + 2 * m * d)]
-// (the weight gradients' partials; unused with one split).  The plan
-// (ops/block_train.launch_plan): row_blocks, the row passes' grid, and
-// k_chunk, the rows of one split of the weight gradients (a multiple of 64).
-extern "C" int vt_block_train_bwd(const void* g, const void* ctx, const void* x1h,
-                                  const void* pre1, const void* h, const void* x2h,
-                                  const void* wo, const void* w1, const void* w2, const void* s1,
-                                  const void* g1, const void* s2, const void* seed, void* dxq,
-                                  void* dctx,
-                                  void* dwo, void* dbo, void* ds1, void* dg1, void* dw1,
-                                  void* db1, void* dw2, void* db2, void* ds2, void* dg2,
-                                  void* du2, void* dlin2, void* dpre, void* xb, void* dlin1,
-                                  void* col_part, void* w_part, int row_blocks, int k_chunk,
-                                  int rows, int d, int m, unsigned int threshold,
-                                  float keep_scale, float eps, void* stream) {
-  if (!widths_ok(rows, d, m) || row_blocks <= 0 || k_chunk <= 0 || k_chunk % vt::g90::kBK)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const Drop drop_a = {(const int64_t*)seed, nullptr, 1u, threshold, keep_scale};
-  const Drop drop_f = {(const int64_t*)seed, nullptr, 2u, threshold, keep_scale};
-  const int m_tiles = (rows + vt::g90::kBM - 1) / vt::g90::kBM;
-  float* ln2_part = (float*)col_part;
-  float* ln1_part = ln2_part + (size_t)row_blocks * 3 * d;
-  float* db1_part = ln1_part + (size_t)row_blocks * 3 * d;
+namespace {
 
+// B1-B3: du2, dlin2, dpre, the LN2 and db1 column-sum partials, and dx:
+// du2 + dpre W1 in place over du2 (dx_part null), or the f32 partial
+// dpre W1 into dx_part (the split form).  m: the FFN width this rank
+// holds (w2 [d, m], w1 [m, d], pre1 [rows, m]).
+int bwd_head(const void* g, const void* x2h, const void* pre1, const void* w2, const void* w1,
+             const void* s2, const Drop& drop_f, void* du2, void* dlin2, void* dpre,
+             void* dx_part, float* ln2_part, float* db1_part, int row_blocks, int rows, int d,
+             int m, float eps, cudaStream_t st) {
   // B1. LN2 backward and the FFN dropout
   ln2_bwd_rows<<<row_blocks, kRowThreads, 0, st>>>((const bf16*)g, (const bf16*)x2h,
                                                    (const float*)s2, (float*)du2, (bf16*)dlin2,
@@ -516,28 +578,46 @@ extern "C" int vt_block_train_bwd(const void* g, const void* ctx, const void* x1
   // B2. dpre = (dlin2 W2) gelu'(pre1); db1's partials
   VT_TRY((launch_gemm<false, true>(one((const bf16*)dlin2, d, (const bf16*)w2, m, rows, m, d),
                             GeluGradEpi{(const bf16*)pre1, (bf16*)dpre, db1_part}, st)));
-  // B3. dx = du2 + dpre W1
-  VT_TRY((launch_gemm<false, true>(one((const bf16*)dpre, m, (const bf16*)w1, d, rows, d, m),
-                            AddF32Epi{(float*)du2}, st)));
+  // B3. dx = du2 + dpre W1 (or its partial dpre W1)
+  if (dx_part == nullptr)
+    VT_TRY((launch_gemm<false, true>(one((const bf16*)dpre, m, (const bf16*)w1, d, rows, d, m),
+                              AddF32Epi{(float*)du2}, st)));
+  else
+    VT_TRY((launch_gemm<false, true>(one((const bf16*)dpre, m, (const bf16*)w1, d, rows, d, m),
+                              StoreF32Epi{(float*)dx_part}, st)));
+  return 0;
+}
+
+// B4-B7 from dx (+ dx_add where given): dx_q, dctx [rows, dl], the weight
+// gradients (dwo [d, dl], dw1 [m, d], dw2 [d, m]) and the column sums.
+// dl: the attention width this rank holds (ctx [rows, dl], wo [d, dl]).
+int bwd_tail(const void* dx, const void* dx_add, const void* ctx, const void* x1h,
+             const void* h, const void* wo, const void* s1, const void* g1, const Drop& drop_a,
+             void* dxq, void* dctx, void* dwo, void* dbo, void* ds1, void* dg1, void* dw1,
+             void* db1, void* dw2, void* db2, void* ds2, void* dg2, void* dlin2, void* dpre,
+             void* xb, void* dlin1, const float* ln2_part, float* ln1_part,
+             const float* db1_part, void* w_part, int row_blocks, int k_chunk, int rows, int d,
+             int dl, int m, float eps, cudaStream_t st) {
+  const int m_tiles = (rows + vt::g90::kBM - 1) / vt::g90::kBM;
   // B4. LN1 backward and the attention-output dropout
   ln1_bwd_rows<<<row_blocks, kRowThreads, 0, st>>>(
-      (const float*)du2, (const bf16*)x1h, (const float*)s1, (const float*)g1, (bf16*)xb,
-      (bf16*)dxq, (bf16*)dlin1, ln1_part, drop_a, rows, eps);
+      (const float*)dx, (const float*)dx_add, (const bf16*)x1h, (const float*)s1,
+      (const float*)g1, (bf16*)xb, (bf16*)dxq, (bf16*)dlin1, ln1_part, drop_a, rows, eps);
   VT_TRY(cudaGetLastError());
   // B5. dctx = dlin1 Wo
-  VT_TRY((launch_gemm<false, true>(one((const bf16*)dlin1, d, (const bf16*)wo, d, rows, d, d),
+  VT_TRY((launch_gemm<false, true>(one((const bf16*)dlin1, d, (const bf16*)wo, dl, rows, dl, d),
                             StoreEpi{(bf16*)dctx}, st)));
 
   // B6. the weight gradients, reduced over the rows in splits of k_chunk
   const int splits = (rows + k_chunk - 1) / k_chunk;
-  const size_t n_o = (size_t)d * d, n_1 = (size_t)m * d, n_2 = (size_t)d * m;
+  const size_t n_o = (size_t)d * dl, n_1 = (size_t)m * d, n_2 = (size_t)d * m;
   float* part_o = splits > 1 ? (float*)w_part : (float*)dwo;
   float* part_1 = splits > 1 ? part_o + splits * n_o : (float*)dw1;
   float* part_2 = splits > 1 ? part_1 + splits * n_1 : (float*)dw2;
   vt::g90::GemmArgs wg = {};
   const bf16* a_of[3] = {(const bf16*)dlin1, (const bf16*)dpre, (const bf16*)dlin2};
   const bf16* b_of[3] = {(const bf16*)ctx, (const bf16*)xb, (const bf16*)h};
-  const int out_of[3] = {d, m, d}, in_of[3] = {d, d, m};
+  const int out_of[3] = {d, m, d}, in_of[3] = {dl, d, m};
   for (int p = 0; p < 3; ++p)
     wg.p[p] = vt::g90::make_problem({a_of[p], out_of[p]}, {b_of[p], in_of[p]}, out_of[p],
                                     in_of[p], rows, k_chunk);
@@ -567,4 +647,149 @@ extern "C" int vt_block_train_bwd(const void* g, const void* ctx, const void* x1
   for (int k = 0; k < jobs.n_jobs; ++k) units += jobs.j[k].n / 4;
   sum_partials<<<(unsigned)((units + 255) / 256), 256, 0, st>>>(jobs);
   return (int)cudaGetLastError();
+}
+
+// the split forms' widths: d the rows' 768, dl and m this rank's shares,
+// each a multiple of the narrow tile's 128 columns
+bool tp_widths_ok(int rows, int d, int dl, int m) {
+  return widths_ok(rows, d, m) && dl > 0 && dl % vt::g90::Narrow::kBN == 0;
+}
+
+}  // namespace
+
+// #9b.  g, ctx, x1h, x2h [rows, d], pre1, h [rows, m] bf16; weights and
+// LayerNorm vectors as in the forward; the dropout seed as in the forward.
+// Outputs dxq, dctx [rows, d] bf16; dwo [d, d], dw1 [m, d], dw2 [d, m],
+// dbo, ds1, dg1, db2, ds2, dg2 [d], db1 [m] f32 (every element written).
+// Scratch: du2 [rows, d] f32; dlin2, xb, dlin1 [rows, d] and dpre
+// [rows, m] bf16; col_part f32 [2 * row_blocks * 3 * d + m_tiles * m]
+// (the column sums' partials); w_part f32 [splits * (d * d + 2 * m * d)]
+// (the weight gradients' partials; unused with one split).  The plan
+// (ops/block_train.launch_plan): row_blocks, the row passes' grid, and
+// k_chunk, the rows of one split of the weight gradients (a multiple of 64).
+extern "C" int vt_block_train_bwd(const void* g, const void* ctx, const void* x1h,
+                                  const void* pre1, const void* h, const void* x2h,
+                                  const void* wo, const void* w1, const void* w2, const void* s1,
+                                  const void* g1, const void* s2, const void* seed, void* dxq,
+                                  void* dctx,
+                                  void* dwo, void* dbo, void* ds1, void* dg1, void* dw1,
+                                  void* db1, void* dw2, void* db2, void* ds2, void* dg2,
+                                  void* du2, void* dlin2, void* dpre, void* xb, void* dlin1,
+                                  void* col_part, void* w_part, int row_blocks, int k_chunk,
+                                  int rows, int d, int m, unsigned int threshold,
+                                  float keep_scale, float eps, void* stream) {
+  if (!widths_ok(rows, d, m) || row_blocks <= 0 || k_chunk <= 0 || k_chunk % vt::g90::kBK)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Drop drop_a = {(const int64_t*)seed, nullptr, 1u, threshold, keep_scale};
+  const Drop drop_f = {(const int64_t*)seed, nullptr, 2u, threshold, keep_scale};
+  float* ln2_part = (float*)col_part;
+  float* ln1_part = ln2_part + (size_t)row_blocks * 3 * d;
+  float* db1_part = ln1_part + (size_t)row_blocks * 3 * d;
+  const int err = bwd_head(g, x2h, pre1, w2, w1, s2, drop_f, du2, dlin2, dpre, nullptr, ln2_part,
+                           db1_part, row_blocks, rows, d, m, eps, st);
+  if (err) return err;
+  return bwd_tail(du2, nullptr, ctx, x1h, h, wo, s1, g1, drop_a, dxq, dctx, dwo, dbo, ds1, dg1,
+                  dw1, db1, dw2, db2, ds2, dg2, dlin2, dpre, xb, dlin1, ln2_part, ln1_part,
+                  db1_part, w_part, row_blocks, k_chunk, rows, d, d, m, eps, st);
+}
+
+// The split forward's row pass (F2' / F5'): sum [rows, d] f32 (the model
+// group's summed partial), bias, s, g [d] f32, resid [rows, d] bf16 ->
+// xh = bf16(resid + K (sum + bias)), out = bf16(LN(xh)) [rows, d] bf16.
+// Dropout: seed (int64 [1] on the device, or null), stream (1: the
+// attention output's mask, 2: the FFN's), mask_out (nullable) the drawn
+// int8 keep mask [rows, d].
+extern "C" int vt_block_train_tp_rows(const void* sum, const void* bias, const void* resid,
+                                      const void* s, const void* g, const void* seed,
+                                      void* mask_out, void* xh, void* out, int rows, int d,
+                                      int stream_id, unsigned int threshold, float keep_scale,
+                                      float eps, void* stream) {
+  if (d != RN || rows <= 0 || (stream_id != 1 && stream_id != 2))
+    return (int)cudaErrorInvalidValue;
+  const Drop drop = {(const int64_t*)seed, (int8_t*)mask_out, (uint32_t)stream_id, threshold,
+                     keep_scale};
+  const int per = kRowThreads / 32;
+  const int row_blocks = min((rows + per - 1) / per, 2 * 132);
+  resid_ln_rows<<<row_blocks, kRowThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)sum, (const float*)bias, (const bf16*)resid, (const float*)s,
+      (const float*)g, (bf16*)xh, (bf16*)out, drop, rows, eps);
+  return (int)cudaGetLastError();
+}
+
+// The split forward's F3 on this rank's FFN share: xb [rows, d] bf16, w1
+// [m, d] bf16, b1 [m] f32 -> pre1 = bf16(xb W1^T + b1), h = bf16(gelu(pre1))
+// [rows, m] bf16.
+extern "C" int vt_block_train_tp_ffn_in(const void* xb, const void* w1, const void* b1,
+                                        void* pre1, void* h, int rows, int d, int m,
+                                        void* stream) {
+  if (!widths_ok(rows, d, m)) return (int)cudaErrorInvalidValue;
+  return (int)launch_gemm<false, false>(one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),
+                                        GeluEpi{(const float*)b1, (bf16*)pre1, (bf16*)h},
+                                        (cudaStream_t)stream);
+}
+
+// The split backward's B1-B3 on this rank's FFN share (w2 [d, m], w1
+// [m, d], pre1 [rows, m]): du2 [rows, d] f32, dlin2 [rows, d] and dpre
+// [rows, m] bf16, the f32 partial dx_part = dpre W1 [rows, d] (summed over
+// the model group before the tail), and into col_part (laid out as
+// vt_block_train_bwd's) the LN2 and db1 column-sum partials.
+extern "C" int vt_block_train_tp_bwd_head(const void* g, const void* x2h, const void* pre1,
+                                          const void* w2, const void* w1, const void* s2,
+                                          const void* seed, void* du2, void* dlin2, void* dpre,
+                                          void* dx_part, void* col_part, int row_blocks,
+                                          int rows, int d, int m, unsigned int threshold,
+                                          float keep_scale, float eps, void* stream) {
+  if (!widths_ok(rows, d, m) || row_blocks <= 0 || dx_part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Drop drop_f = {(const int64_t*)seed, nullptr, 2u, threshold, keep_scale};
+  float* ln2_part = (float*)col_part;
+  float* db1_part = ln2_part + 2 * (size_t)row_blocks * 3 * d;
+  return bwd_head(g, x2h, pre1, w2, w1, s2, drop_f, du2, dlin2, dpre, dx_part, ln2_part,
+                  db1_part, row_blocks, rows, d, m, eps, (cudaStream_t)stream);
+}
+
+// The split backward's B4-B7: dx = dx_sum + du2 (the summed partial and
+// the head's du2); ctx [rows, dl] and wo [d, dl] this rank's heads', h
+// [rows, m] its FFN share.  Outputs dxq [rows, d] and dctx [rows, dl]
+// bf16; dwo [d, dl], dw1 [m, d], dw2 [d, m] and the vectors f32 as
+// vt_block_train_bwd's; col_part the head's; w_part f32 [splits * (d * dl
+// + 2 * m * d)].
+extern "C" int vt_block_train_tp_bwd_tail(
+    const void* dx_sum, const void* du2, const void* ctx, const void* x1h, const void* h,
+    const void* wo, const void* s1, const void* g1, const void* seed, void* dxq, void* dctx,
+    void* dwo, void* dbo, void* ds1, void* dg1, void* dw1, void* db1, void* dw2, void* db2,
+    void* ds2, void* dg2, void* dlin2, void* dpre, void* xb, void* dlin1, void* col_part,
+    void* w_part, int row_blocks, int k_chunk, int rows, int d, int dl, int m,
+    unsigned int threshold, float keep_scale, float eps, void* stream) {
+  if (!tp_widths_ok(rows, d, dl, m) || row_blocks <= 0 || k_chunk <= 0 ||
+      k_chunk % vt::g90::kBK)
+    return (int)cudaErrorInvalidValue;
+  const Drop drop_a = {(const int64_t*)seed, nullptr, 1u, threshold, keep_scale};
+  float* ln2_part = (float*)col_part;
+  float* ln1_part = ln2_part + (size_t)row_blocks * 3 * d;
+  float* db1_part = ln1_part + (size_t)row_blocks * 3 * d;
+  return bwd_tail(dx_sum, du2, ctx, x1h, h, wo, s1, g1, drop_a, dxq, dctx, dwo, dbo, ds1, dg1,
+                  dw1, db1, dw2, db2, ds2, dg2, dlin2, dpre, xb, dlin1, ln2_part, ln1_part,
+                  db1_part, w_part, row_blocks, k_chunk, rows, d, dl, m, eps,
+                  (cudaStream_t)stream);
+}
+
+// The split form's recompute under remat: from the saved x1h [rows, d]
+// bf16 (the summed pre-norm rows), xb = bf16(LN1(x1h)) and F3 on this
+// rank's FFN share (pre1, h [rows, m] bf16): the forward's residuals with
+// no collective.
+extern "C" int vt_block_train_tp_recompute(const void* x1h, const void* s1, const void* g1,
+                                           const void* w1, const void* b1, void* xb, void* pre1,
+                                           void* h, int rows, int d, int m, float eps,
+                                           void* stream) {
+  if (!widths_ok(rows, d, m)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int per = kRowThreads / 32;
+  const int row_blocks = min((rows + per - 1) / per, 2 * 132);
+  ln_fwd_rows<<<row_blocks, kRowThreads, 0, st>>>((const bf16*)x1h, (const float*)s1,
+                                                  (const float*)g1, (bf16*)xb, rows, eps);
+  VT_TRY(cudaGetLastError());
+  return (int)launch_gemm<false, false>(one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),
+                                        GeluEpi{(const float*)b1, (bf16*)pre1, (bf16*)h}, st);
 }

@@ -85,11 +85,12 @@ extern "C" int vt_flash_attention_merged(const void* q, const void* k, const voi
                                          const void* key_mask, void* out, void* lse,
                                          const void* seed, void* k8, void* ks, void* v8,
                                          void* vs, int batch, int seq_len, int num_heads,
-                                         int head_dim, int dec_len, unsigned int threshold,
+                                         int head_dim, int dec_len, int head_offset,
+                                         unsigned int threshold,
                                          float keep_scale, void* stream) {
   using namespace vt::flash;
   if (head_dim != HD || batch <= 0 || num_heads <= 0 || seq_len <= 0 || dec_len < 0 ||
-      dec_len > seq_len)
+      dec_len > seq_len || head_offset < 0)
     return (int)cudaErrorInvalidValue;
   const bool emit = k8 != nullptr;
   if (emit && (ks == nullptr || v8 == nullptr || vs == nullptr || seed != nullptr))
@@ -100,6 +101,7 @@ extern "C" int vt_flash_attention_merged(const void* q, const void* k, const voi
   p.v = (const vt::bf16*)v;
   p.out = (vt::bf16*)out;
   p.g = merged_geom(seq_len, num_heads);
+  p.g.head_offset = head_offset;
   p.heads = num_heads;
   p.key_mask = (const float*)key_mask;
   p.dec_len = dec_len;

@@ -23,6 +23,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Geom {
   long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3];
   int Lq, Lk, row_offset;
+  int head_offset;  // the global head of head 0: a tensor-parallel rank's heads in the
+                    // dropout mask's coordinates
 };
 
 __device__ __forceinline__ size_t head_base(const long long s[3], int b, int h) {
@@ -37,6 +39,7 @@ inline Geom merged_geom(int L, int H) {
     for (int i = 0; i < 3; ++i) t[i] = s[i];
   g.Lq = g.Lk = L;
   g.row_offset = 0;
+  g.head_offset = 0;
   return g;
 }
 

@@ -15,15 +15,17 @@ extern "C" int vt_flash_attention_merged_bwd(const void* q, const void* k, const
                                              const void* dout, const void* lse, void* scratch,
                                              void* dq, void* dk, void* dv, const void* seed,
                                              int batch, int seq_len, int num_heads,
-                                             int head_dim, int dec_len, unsigned int threshold,
+                                             int head_dim, int dec_len, int head_offset,
+                                             unsigned int threshold,
                                              float keep_scale, void* stream) {
   using namespace vt::flash;
   if (head_dim != HD || batch <= 0 || num_heads <= 0 || seq_len <= 0 || dec_len < 0 ||
-      dec_len > seq_len)
+      dec_len > seq_len || head_offset < 0)
     return (int)cudaErrorInvalidValue;
+  Geom g = merged_geom(seq_len, num_heads);
+  g.head_offset = head_offset;
   const BwdParams p = bwd_params(q, k, v, key_mask, out, dout, lse, scratch, dq, dk, dv, seed,
-                                 merged_geom(seq_len, num_heads), batch, num_heads, dec_len,
-                                 threshold, keep_scale);
+                                 g, batch, num_heads, dec_len, threshold, keep_scale);
   return launch_flash_bwd<vt::bf16>(p, batch, stream);
 }
 

@@ -447,7 +447,8 @@ __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
 
     uint32_t pa[4][4], sa[4][4];
     bwd_probs<kDropout>(s, dp, pa, sa, lse2_s, lse2_s + kBwdRows, g.row_offset + q0, kval, kin,
-                        kdec, key_group, ci, tq, seed, p.threshold, keep_scale, h, b);
+                        kdec, key_group, ci, tq, seed, p.threshold, keep_scale,
+                        h + g.head_offset, b);
     store_ds(dst_addr, sa, wrow, tq);
     fence_proxy_async();
     __syncthreads();  // dS^T complete before the product reads it

@@ -427,7 +427,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const uint4 w = philox_group(seed, 0u, (uint32_t)(k0 + 8 * j + 4 * (tq >> 1)),
-                                     (uint32_t)my_row, (uint32_t)h, (uint32_t)b);
+                                     (uint32_t)my_row, (uint32_t)(h + g.head_offset),
+                                     (uint32_t)b);
         const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
         const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
         const uint32_t lo0 = odd ? r0 : w.x, lo1 = odd ? r1 : w.y;

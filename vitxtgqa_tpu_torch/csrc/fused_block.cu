@@ -32,6 +32,17 @@
 //  5. rows: out = bf16(LN2(x32)), or bf16(res + tanh(bf16(LN2(x32)))).
 // The f32 round trips of x32 cost ~0.03 ms at the serving shape; h's
 // 2 * rows * M * 2 bytes (113 MB, ~0.03 ms).
+//
+// Tensor parallelism (the split forms, ops/fused_block.fused_block_tp and
+// fused_block_tanh_tp): a rank holds Wo's columns of its heads (wo_l [d,
+// dl]), W1's rows and b1 of its FFN share (w1_l [ml, d]) and W2's columns
+// (w2_l [d, ml]).  The same five launches run with the model group's
+// all-reduce of an f32 partial after launches 1 and 4, which then store
+// the bare product (vt_gemm_f32, also the training block's split
+// forward's); the row passes add the bias and the residual to the sum
+// (vt_fused_block_tp_ln1, vt_fused_block_tp_ln2), so the biases of the
+// row-parallel products are added once; launch 3 runs on the rank's share
+// (vt_fused_block_tp_ffn_in).
 #include "ffn_epi.cuh"
 
 namespace vt {
@@ -80,6 +91,92 @@ struct AddEpi {
     });
   }
 };
+
+// the split forms' row-parallel products: out = acc (f32)
+struct StoreF32Epi {
+  float* out;
+  template <class T>
+  __device__ void operator()(const T& t, int) const {
+    g90::tile_rows(t, [&](int row, int col, float (&v)[8]) {
+      g90::store8(out + (size_t)row * t.N + col, v);
+    });
+  }
+};
+
+// the split form's launch 2: x = LN1(resid + (sum + bias)) (f32, launch
+// 1's epilogue on the summed partial) and xb = bf16(x)
+__global__ void __launch_bounds__(kRowThreads)
+tp_ln1_rows(const float* __restrict__ sum, const float* __restrict__ bias,
+            const bf16* __restrict__ resid, const float* __restrict__ s,
+            const float* __restrict__ g, float* __restrict__ x, bf16* __restrict__ xb, int M,
+            float eps) {
+  const int lane = threadIdx.x % 32, per = kRowThreads / 32;
+  for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
+    const size_t rb = (size_t)row * RN;
+    float v[RGROUPS][4];
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q) {
+      const int c = q * 128 + lane * 4;
+      float a[4], b[4], r[4];
+      load4(sum + rb + c, a);
+      load4(bias + c, b);
+      load4(resid + rb + c, r);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v[q][t] = r[t] + (a[t] + b[t]);
+    }
+    const gemm::RowStats st = gemm::row_stats(v, eps);
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q) {
+      const int c = q * 128 + lane * 4;
+      float xh[4], y[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) xh[t] = (v[q][t] - st.mu) * st.inv;
+      gemm::ln_affine(xh, s, g, c, y);
+      store4(x + rb + c, y);
+      store4(xb + rb + c, y);
+    }
+  }
+}
+
+// the split form's launch 5: out = bf16(LN2(x + (sum + bias))), or with res
+// bf16(res + tanh(bf16(LN2(...))))
+__global__ void __launch_bounds__(kRowThreads)
+tp_ln2_rows(const float* __restrict__ x, const float* __restrict__ sum,
+            const float* __restrict__ bias, const float* __restrict__ s,
+            const float* __restrict__ g, const bf16* __restrict__ res, bf16* __restrict__ out,
+            int M, float eps) {
+  const int lane = threadIdx.x % 32, per = kRowThreads / 32;
+  for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
+    const size_t rb = (size_t)row * RN;
+    float v[RGROUPS][4];
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q) {
+      const int c = q * 128 + lane * 4;
+      float u[4], a[4], b[4];
+      load4(x + rb + c, u);
+      load4(sum + rb + c, a);
+      load4(bias + c, b);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v[q][t] = u[t] + (a[t] + b[t]);
+    }
+    const gemm::RowStats st = gemm::row_stats(v, eps);
+#pragma unroll
+    for (int q = 0; q < RGROUPS; ++q) {
+      const int c = q * 128 + lane * 4;
+      float xh[4], y[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) xh[t] = (v[q][t] - st.mu) * st.inv;
+      gemm::ln_affine(xh, s, g, c, y);
+      if (res != nullptr) {
+        float r[4];
+        load4(res + rb + c, r);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) y[t] = r[t] + tanhf(round_bf16(y[t]));
+      }
+      store4(out + rb + c, y);
+    }
+  }
+}
 
 // launch 2: x = LN1(x) in place (f32) and xb = bf16(x)
 __global__ void __launch_bounds__(kRowThreads)
@@ -163,4 +260,58 @@ extern "C" int vt_fused_block(const void* x_q, const void* ctx, const void* wo, 
                                                (const float*)g2, (const bf16*)res, (bf16*)out,
                                                rows, eps);
   return (int)cudaGetLastError();
+}
+
+// The row-parallel product of a split form: c = a b^T [M, N] f32 of a
+// [M, K] and b [N, K] bf16 (nn.Linear layout), leading dims lda / ldb; N a
+// multiple of 128, K of 64.  The eval block's launches 1 and 4 and the
+// training block's F1 and F4 on a rank's shares.
+extern "C" int vt_gemm_f32(const void* a, int lda, const void* b, int ldb, void* c, int M,
+                           int N, int K, void* stream) {
+  using namespace vt;
+  return (int)g90::launch_gemm<false, false>(g90::one((const bf16*)a, lda, (const bf16*)b, ldb,
+                                                      M, N, K),
+                                             eval_block::StoreF32Epi{(float*)c},
+                                             (cudaStream_t)stream);
+}
+
+// The split form's launch 2 (x32 [rows, d] f32 and xb [rows, d] bf16 from
+// the summed partial sum [rows, d] f32, bo, s1, g1 [d] f32 and x_q [rows,
+// d] bf16) and launch 5 (out [rows, d] bf16 from x32, the summed partial,
+// b2, s2, g2 and res, nullable).
+extern "C" int vt_fused_block_tp_ln1(const void* sum, const void* bo, const void* x_q,
+                                     const void* s1, const void* g1, void* x32, void* xb,
+                                     int rows, int d, float eps, void* stream) {
+  using namespace vt::eval_block;
+  if (d != vt::gemm::RN || rows <= 0) return (int)cudaErrorInvalidValue;
+  const int per = kRowThreads / 32;
+  tp_ln1_rows<<<min((rows + per - 1) / per, 2 * 132), kRowThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)sum, (const float*)bo, (const vt::bf16*)x_q, (const float*)s1,
+      (const float*)g1, (float*)x32, (vt::bf16*)xb, rows, eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vt_fused_block_tp_ln2(const void* x32, const void* sum, const void* b2,
+                                     const void* s2, const void* g2, const void* res, void* out,
+                                     int rows, int d, float eps, void* stream) {
+  using namespace vt::eval_block;
+  if (d != vt::gemm::RN || rows <= 0) return (int)cudaErrorInvalidValue;
+  const int per = kRowThreads / 32;
+  tp_ln2_rows<<<min((rows + per - 1) / per, 2 * 132), kRowThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x32, (const float*)sum, (const float*)b2, (const float*)s2, (const float*)g2,
+      (const vt::bf16*)res, (vt::bf16*)out, rows, eps);
+  return (int)cudaGetLastError();
+}
+
+// The split form's launch 3 on this rank's FFN share: h = bf16(gelu_erf(xb
+// W1^T + b1)) [rows, m] bf16 from xb [rows, d] bf16, w1 [m, d] bf16, b1
+// [m] f32; m a multiple of 128.
+extern "C" int vt_fused_block_tp_ffn_in(const void* xb, const void* w1, const void* b1, void* h,
+                                        int rows, int d, int m, void* stream) {
+  using namespace vt;
+  if (d != gemm::RN || m <= 0 || m % g90::Narrow::kBN != 0 || rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)g90::launch_gemm<false, false>(
+      g90::one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),
+      ffn::GeluBiasEpi{(const float*)b1, (bf16*)h}, (cudaStream_t)stream);
 }

@@ -1,11 +1,13 @@
 """The port's entry points: the counterparts of ``__graft_entry__.entry()``
-and of ``__graft_entry__.dryrun_multichip`` on the data, sp and pp axes.
+and of ``__graft_entry__.dryrun_multichip`` on the data, model, sp and pp
+axes.
 
     fn, args = entry()
     out = fn(*args)   # the serving forward on the card
 
-    dryrun_multichip(2)                        # two ranks on the card(s)
-    dryrun_multichip(2, device="cpu")          # two gloo ranks on the CPU
+    dryrun_multichip(4)                        # data x model = 2 x 2 on the card(s)
+    dryrun_multichip(2, device="cpu")          # model 2 on two gloo ranks on the CPU
+    dryrun_multichip(2, device="cpu", model=1) # data 2
     dryrun_multichip(4, device="cpu", sp=2)    # data x sp = 2 x 2
     dryrun_multichip(2, device="cpu", pp=2)    # a pipeline of two stages
 
@@ -15,35 +17,38 @@ BOS 2) with random weights from seed 0, and a synthetic batch of 2 videos
 on the device.  ``fn`` is the serving forward (the pos greedy decode and
 the grounding), its gumbel draws fixed by a seed.
 
-``dryrun_multichip(n, sp=, pp=)`` spawns ``n`` ranks
+``dryrun_multichip(n, model=, sp=, pp=)`` spawns ``n`` ranks
 (``torch.multiprocessing``, a ``file://`` rendezvous in a temporary
 directory): gloo on the CPU or where ranks share a card, NCCL with a card a
-rank.  They form the mesh data x sp x pp (parallel/mesh.build_mesh, data =
-n / (sp pp)), and each takes one full T2S training step (forward, the
-losses, backward with the pipelined stacks' gradients all-gathered over
-the stages, the gradients' all-reduce over the mesh and their mean over the
-sp x pp replicas, clipping, Adam) on its data
+rank.  They form the mesh data x model x sp x pp (parallel/mesh.build_mesh,
+data = n / (model sp pp); ``model`` defaults to JAX's dry run's, 2 where n
+is even and above 1 and neither sp nor pp is set, else 1), and each takes
+one full T2S training step (forward, the losses, backward with the
+pipelined stacks' gradients all-gathered over the stages, the split
+layers' partials summed over the model group, the gradients' all-reduce
+over the mesh and their mean over the model x sp x pp replicas, clipping,
+Adam) on its data
 row's rows of a global batch of ``2 data``, every dropout at 0 and the
 gumbel draws from the shared generator; this process takes the same step
 on the global batch alone, from the same seeded weights.  The loss, the
 gradient norm, every parameter's gradient and (on the CPU) update,
 relative L2 differences, a key projection's bias left out (softmax
-ignores it), must agree within ``DRYRUN_LIMITS``, and every rank must
-hold the same parameters after the update (``data_parallel_step``,
-which chip_smoke.py's slices o and r run too).  The batch's rows carry
+ignores it), must agree within ``DRYRUN_LIMITS`` (a split layer's
+gradients and updates gathered over the model group), and every rank
+must hold the same parameters after the update (the shards: the ranks
+of one model coordinate; ``data_parallel_step``, which chip_smoke.py's
+slices o, r and s run too).  The batch's rows carry
 unequal loss-mask counts, so a mean of the ranks' ratios would not pass.
 On the CPU the model is the tiny T2S in float32; on the card the
 production T2S in bf16 through the kernels (at 3 / 2 / 3 layers: pp 3
-pipelines the text BERT and the MMT, pp 2 the QTV).  The default mesh is
-the data axis alone; the JAX function's tensor-parallel part (``model``)
-raises (ROADMAP.md queue 1 item 5).
+pipelines the text BERT and the MMT, pp 2 the QTV).
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,21 +120,27 @@ def data_parallel_step(model, cfg, tensors: Dict[str, torch.Tensor], group=None,
     gradient norm, each parameter's applied (reduced, clipped) float32
     gradient and float32 update, flattened.  On a mesh (a data group, or
     the model's sp or pp group) every rank of the world must hold the same
-    parameters after the update (``check_replicas``)."""
+    parameters after the update (``check_replicas``); under tensor
+    parallelism a split layer's gradients and updates are gathered over
+    the model group (every rank returns whole ones)."""
     from vitxtgqa_tpu_torch.losses import Losses
-    from vitxtgqa_tpu_torch.parallel.collectives import assert_replicas_equal
+    from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
+    from vitxtgqa_tpu_torch.parallel.collectives import all_gather
     from vitxtgqa_tpu_torch.training.optim import build_optimizer
     from vitxtgqa_tpu_torch.training.step import step_generators, train_step
 
     opt = build_optimizer(model, model_config=cfg, group=group)
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     before = [m.detach().float().clone() for _, m in opt.pairs]
+    tp = model.opts.tp
+    whole = lambda t, p: (all_gather(t, tp.group, dim=p.tp_dim)
+                          if tp is not None and TP.is_sharded(p) else t).flatten()
     grads = {}
     apply = opt.apply
 
     def keep_and_apply():
-        grads.update({n: m.grad.detach().float().flatten().clone()
-                      for n, (_, m) in zip(names, opt.pairs)})
+        grads.update({n: whole(m.grad.detach().float().clone(), p)
+                      for n, (p, m) in zip(names, opt.pairs)})
         apply()
 
     opt.apply = keep_and_apply
@@ -137,12 +148,16 @@ def data_parallel_step(model, cfg, tensors: Dict[str, torch.Tensor], group=None,
                    step_generators(DRYRUN_SEED, 0, tensors["text"].device, group))
     if not r["applied"]:
         raise RuntimeError(f"a data-parallel step was skipped (loss {float(r['loss'])})")
-    on_mesh = group is not None or model.opts.sp is not None or model.opts.pp is not None
+    o = model.opts
+    on_mesh = group is not None or o.sp is not None or o.pp is not None or o.tp is not None
     if on_mesh and check_replicas:
-        assert_replicas_equal([m for _, m in opt.pairs], "the parameters after the update")
+        for p, m in opt.pairs:
+            if TP.is_sharded(p):
+                TP.mark(m, p.tp_dim)
+        TP.check_replicas([m for _, m in opt.pairs], "the parameters after the update", group)
     return {"loss": float(r["loss"]), "norm": float(r["grad_norm"]), "grads": grads,
-            "update": {n: (m.detach().float() - b).flatten()
-                       for n, (_, m), b in zip(names, opt.pairs, before)}}
+            "update": {n: whole(m.detach().float() - b, p)
+                       for n, (p, m), b in zip(names, opt.pairs, before)}}
 
 
 def largest_gap(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]) -> Tuple[float, str]:
@@ -184,15 +199,16 @@ def _dryrun_step(device: torch.device, batch: Dict[str, np.ndarray], mesh=None):
     ``mesh`` (None: one process), on the CPU for the parent's
     comparison."""
     cfg, nf, _ = dryrun_model_and_batch(device, 1)
-    opts = Options(device=device, sp=mesh.sp if mesh else None, pp=mesh.pp if mesh else None)
+    opts = Options(device=device, sp=mesh.sp if mesh else None, pp=mesh.pp if mesh else None,
+                   tp=mesh.model if mesh else None)
     model = T2S(cfg, nf, bos_idx=2, opts=opts).init_weights(0)
     out = data_parallel_step(model, cfg, to_device(batch, device), mesh.data if mesh else None)
     return {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v)
             for k, v in out.items()}
 
 
-def _dryrun_rank(rank: int, n: int, device_type: str, directory: str, sp: int = 1,
-                 pp: int = 1) -> None:
+def _dryrun_rank(rank: int, n: int, device_type: str, directory: str, model: int = 1,
+                 sp: int = 1, pp: int = 1) -> None:
     """One rank of dryrun_multichip (torch.multiprocessing.spawn's target)."""
     import torch.distributed as dist
 
@@ -204,7 +220,7 @@ def _dryrun_rank(rank: int, n: int, device_type: str, directory: str, sp: int = 
     dist.init_process_group(backend, init_method=f"file://{directory}/rendezvous", rank=rank,
                             world_size=n)
     try:
-        mesh = build_mesh(-1, 1, sp, pp)
+        mesh = build_mesh(-1, model, sp, pp)
         d, data = mesh.coords["data"], mesh.shape["data"]
         _, _, batch = dryrun_model_and_batch(device, DRYRUN_ROWS * data)
         out = _dryrun_step(device, {k: v[d::data] for k, v in batch.items()}, mesh)
@@ -213,32 +229,36 @@ def _dryrun_rank(rank: int, n: int, device_type: str, directory: str, sp: int = 
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
 
 
-def dryrun_multichip(n_devices: int, device: str = "cuda", model: int = 1, sp: int = 1,
-                     pp: int = 1) -> Dict[str, Any]:
-    """The step on the mesh data x sp x pp of ``n_devices`` ranks against
-    the one-process step on the same global batch (module docstring), on
-    the card unless ``device="cpu"``; raises where they disagree (a mesh
-    the ranks cannot hold, and ``model > 1``, raise first), and returns
-    the readings."""
+def dryrun_multichip(n_devices: int, device: str = "cuda", model: Optional[int] = None,
+                     sp: int = 1, pp: int = 1) -> Dict[str, Any]:
+    """The step on the mesh data x model x sp x pp of ``n_devices`` ranks
+    against the one-process step on the same global batch (module
+    docstring), on the card unless ``device="cpu"``; raises where they
+    disagree (a mesh the ranks cannot hold raises first), and returns the
+    readings.  ``model`` None: JAX's default (module docstring)."""
     import torch.multiprocessing as mp
 
     from vitxtgqa_tpu_torch.parallel.mesh import mesh_shape
 
+    if model is None:
+        model = 2 if n_devices > 1 and n_devices % 2 == 0 and sp == 1 and pp == 1 else 1
     data = mesh_shape(-1, model, sp, pp, world=n_devices)["data"]
     dev = torch.device(device)
     with tempfile.TemporaryDirectory() as directory:
-        mp.spawn(_dryrun_rank, args=(n_devices, dev.type, directory, sp, pp), nprocs=n_devices,
-                 join=True)
+        mp.spawn(_dryrun_rank, args=(n_devices, dev.type, directory, model, sp, pp),
+                 nprocs=n_devices, join=True)
         ranks = [torch.load(os.path.join(directory, f"rank{r}.pt")) for r in range(n_devices)]
     _, _, batch = dryrun_model_and_batch(dev, DRYRUN_ROWS * data)
     ref = _dryrun_step(dev, batch)
     limits = DRYRUN_LIMITS[dev.type]
     loss_tol, norm_tol, tol, update_tol = limits
     got = ranks[0]
-    out = {"ranks": n_devices, "mesh": {"data": data, "sp": sp, "pp": pp}, "device": dev.type,
+    out = {"ranks": n_devices, "mesh": {"data": data, "model": model, "sp": sp, "pp": pp},
+           "device": dev.type,
            "loss": [got["loss"], ref["loss"]], **step_gaps(got, ref)}
-    print(f"dryrun_multichip: {n_devices} ranks on {dev.type}, mesh data {data} x sp {sp} x pp "
-          f"{pp}, a step at global batch {DRYRUN_ROWS * data}: loss {got['loss']:.6f} vs one "
+    print(f"dryrun_multichip: {n_devices} ranks on {dev.type}, mesh data {data} x model {model} "
+          f"x sp {sp} x pp {pp}, a step at global batch {DRYRUN_ROWS * data}: loss "
+          f"{got['loss']:.6f} vs one "
           f"process {ref['loss']:.6f} "
           f"(rel {out['loss_rel']:.3e}), gradient norm rel {out['norm_rel']:.3e}, per-parameter "
           f"gradient rel max {out['grad_rel'][0]:.3e} ({out['grad_rel'][1]}), update rel max "

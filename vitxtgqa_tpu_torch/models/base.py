@@ -44,6 +44,7 @@ from vitxtgqa_tpu_torch.models.common import (
 from vitxtgqa_tpu_torch.ops import decode_step as DS
 from vitxtgqa_tpu_torch.ops.dropout import dropout
 from vitxtgqa_tpu_torch.ops.masks import DecodeStepSpec, MaskSpec, joint_mask_spec, length_mask
+from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
 
 PAD_BIAS = -1e30  # classifier pad lanes: the greedy argmax never picks them
 
@@ -132,16 +133,24 @@ class JointQAModel(nn.Module):
     def init_weights(self, seed: int) -> "JointQAModel":
         """BERT-style random init from a seeded generator on the model's
         device: N(0, 0.02) matrices and embeddings, zero biases, unit
-        LayerNorm scales."""
+        LayerNorm scales.  A tensor-parallel shard (Options.tp) draws the
+        whole matrix and keeps its part, so every rank holds its shard of
+        the one-process init."""
         gen = torch.Generator(device=self.opts.device).manual_seed(int(seed))
+        tp = self.opts.tp
         with torch.no_grad():
             for mod in self.modules():
                 if isinstance(mod, nn.LayerNorm):
                     mod.weight.fill_(1.0)
                     mod.bias.zero_()
                 elif isinstance(mod, (nn.Linear, nn.Embedding)):
-                    w = torch.empty(mod.weight.shape, device=mod.weight.device)
-                    mod.weight.copy_(w.normal_(0.0, 0.02, generator=gen))
+                    dim = getattr(mod.weight, "tp_dim", None)
+                    shape = list(mod.weight.shape)
+                    if dim is not None:
+                        shape[dim] *= tp.size
+                    w = torch.empty(shape, device=mod.weight.device).normal_(0.0, 0.02,
+                                                                             generator=gen)
+                    mod.weight.copy_(w if dim is None else TP.shard(w, dim, tp.rank, tp.size))
                     if getattr(mod, "bias", None) is not None:
                         mod.bias.zero_()
         return self

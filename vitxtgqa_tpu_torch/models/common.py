@@ -25,6 +25,16 @@ on all rows on every rank.  Pipeline parallelism: a stack for which
 ``TransformerEncoder.pipelined`` holds runs its layers over the stages of
 ``opts.pp`` (parallel/pipeline.py), each stage's layers on their own
 routes.
+
+Tensor parallelism (``opts.tp``, a ModelGroup; parallel/tensor_parallel.py):
+a layer whose heads and FFN width divide by the group holds its rank's
+heads (Q/K/V column-parallel, the attention output row-parallel) and FFN
+share (FFN-in column-, FFN-out row-parallel); its attention runs on those
+heads, and its post-attention block sums the row-parallel products over
+the group: the eval block's and the training block's split forms where
+their gates hold, else the plain expression with the two all-reduces
+between its products.  The attention's input gradient is summed over the
+group (copy_to_model).
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from vitxtgqa_tpu_torch.ops.attention import (
 )
 from vitxtgqa_tpu_torch.ops.masks import NEG_INF, DecodeStepSpec
 from vitxtgqa_tpu_torch.options import Options
+from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
 
 
 def cfg_get(node: Any, key: str, default: Any = None) -> Any:
@@ -122,21 +133,36 @@ class LayerNorm(nn.LayerNorm):
 
 
 class TransformerLayer(nn.Module):
-    """One post-LN BERT layer with KV export and cached decode."""
+    """One post-LN BERT layer with KV export and cached decode.  Under
+    ``opts.tp`` (where the heads and the FFN width divide by it) the layer
+    holds its rank's shards: ``heads`` of the heads and 1 / tp.size of the
+    FFN."""
 
     def __init__(self, cfg: TransformerConfig, opts: Options):
         super().__init__()
         self.cfg = cfg
         self.opts = opts
         d, m, eps = cfg.hidden_size, cfg.intermediate_size, cfg.layer_norm_eps
+        tp = opts.tp
+        self.tp = tp if tp is not None and TP.layer_splits(cfg.num_attention_heads, m,
+                                                            tp.size) else None
+        n = self.tp.size if self.tp else 1
+        self.heads = cfg.num_attention_heads // n
+        dl, ml = d // n, m // n
         self.attention = nn.ModuleDict({
             "self": nn.ModuleDict({
-                "query": Linear(d, d), "key": Linear(d, d), "value": Linear(d, d),
+                "query": Linear(d, dl), "key": Linear(d, dl), "value": Linear(d, dl),
             }),
-            "output": nn.ModuleDict({"dense": Linear(d, d), "LayerNorm": LayerNorm(d, eps=eps)}),
+            "output": nn.ModuleDict({"dense": Linear(dl, d), "LayerNorm": LayerNorm(d, eps=eps)}),
         })
-        self.intermediate = nn.ModuleDict({"dense": Linear(d, m)})
-        self.output = nn.ModuleDict({"dense": Linear(m, d), "LayerNorm": LayerNorm(d, eps=eps)})
+        self.intermediate = nn.ModuleDict({"dense": Linear(d, ml)})
+        self.output = nn.ModuleDict({"dense": Linear(ml, d), "LayerNorm": LayerNorm(d, eps=eps)})
+        if self.tp:
+            for lin in (self.query, self.key, self.value, self.ffn_in):
+                TP.mark(lin.weight, 0)
+                TP.mark(lin.bias, 0)
+            TP.mark(self.attn_out.weight, 1)
+            TP.mark(self.ffn_out.weight, 1)
 
     # flax-side names of the sublayers
     query = property(lambda self: self.attention["self"]["query"])
@@ -157,8 +183,35 @@ class TransformerLayer(nn.Module):
                              x.numel() // x.shape[-1])
         )
 
+    def _row_parallel(self, lin: Linear, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's output in the compute dtype: the f32
+        partials summed over the model group, then the bias (once)."""
+        part = F.linear(x.to(lin.weight.dtype).float(), lin.weight.float())
+        return (TP.reduce_from_model(part, self.tp) + lin.bias.float()).to(lin.weight.dtype)
+
+    def _finish_tp(self, x_q, ctx, tanh_residual_base=None):
+        """The eval block under tensor parallelism: the eval block's split
+        form (#2 / #3) where the fused gate holds, else the plain
+        expression with the two row-parallel sums."""
+        if self._fused_block_ok(x_q):
+            args = (x_q, ctx, self.attn_out.weight, self.attn_out.bias, self.attn_ln.weight,
+                    self.attn_ln.bias, self.ffn_in.weight, self.ffn_in.bias,
+                    self.ffn_out.weight, self.ffn_out.bias, self.ffn_ln.weight,
+                    self.ffn_ln.bias)
+            kw = dict(eps=self.cfg.layer_norm_eps, tp=self.tp, plain=self.opts.plain)
+            if tanh_residual_base is not None:
+                return FB.fused_block_tanh_tp(tanh_residual_base, *args, **kw)
+            return FB.fused_block_tp(*args, **kw)
+        x = self.attn_ln(x_q + self._row_parallel(self.attn_out, ctx))
+        y = self.ffn_ln(x + self._row_parallel(self.ffn_out, F.gelu(self.ffn_in(x))))
+        if tanh_residual_base is not None:
+            y = tanh_residual_base + torch.tanh(y)
+        return y
+
     def _finish(self, x_q, ctx, tanh_residual_base=None):
         eps = self.cfg.layer_norm_eps
+        if self.tp is not None:
+            return self._finish_tp(x_q, ctx, tanh_residual_base)
         if self._fused_block_ok(x_q):
             plain = self.opts.plain
             if self.opts.w8a8:
@@ -203,12 +256,18 @@ class TransformerLayer(nn.Module):
                 self.attn_ln.bias, self.ffn_in.weight, self.ffn_in.bias, self.ffn_out.weight,
                 self.ffn_out.bias, self.ffn_ln.weight, self.ffn_ln.bias)
         if BT.kernel_ok(d, cfg.intermediate_size) and x_q.shape[-1] == d:
+            if self.tp is not None:
+                return BT.BlockTrainTPFn.apply(x_q, ctx.to(x_q.dtype), *args, rate,
+                                               cfg.layer_norm_eps, seed, self.opts.remat,
+                                               self.opts.plain, self.tp)
             return BT.BlockTrainFn.apply(x_q, ctx.to(x_q.dtype), *args, rate,
                                          cfg.layer_norm_eps, seed, self.opts.remat,
                                          self.opts.plain)
         masks = BT.seed_masks(seed, x_q.numel() // d, d, rate, x_q.device)
-        y = BT.block_train_plain(x_q.reshape(-1, d), ctx.reshape(-1, d).to(x_q.dtype), *args,
-                                 *masks, rate=rate, eps=cfg.layer_norm_eps)
+        tp = {} if self.tp is None else dict(reduce=lambda t: TP.reduce_from_model(t, self.tp),
+                                             copy=lambda t: TP.copy_to_model(t, self.tp))
+        y = BT.block_train_fwd_plain(x_q.reshape(-1, d), ctx.reshape(-1, ctx.shape[-1]).to(
+            x_q.dtype), *args, *masks, rate=rate, eps=cfg.layer_norm_eps, **tp)[0]
         return y.reshape(x_q.shape)
 
     def forward(self, x, bias, return_kv: bool = False, tanh_residual_base=None, *,
@@ -218,28 +277,28 @@ class TransformerLayer(nn.Module):
         vs)), emitted by the flash launch on the flash route."""
         if return_kv and quantize:
             ctx, kq, vq = mha_merged_quantize(self.query(x), self.key(x), self.value(x), bias,
-                                              self.cfg.num_attention_heads,
-                                              plain=self.opts.plain, sp=self.opts.sp)
+                                              self.heads, plain=self.opts.plain,
+                                              sp=self.opts.sp)
             return self._finish(x, ctx), (kq, vq)
         if train:
             cfg = self.cfg
             rate = cfg.attention_probs_dropout_prob if gen is not None else 0.0
-            ctx = attention_train(x, self.query, self.key, self.value, bias,
-                                  cfg.num_attention_heads, rate, gen, self.opts.remat,
-                                  self.opts.plain, sp=self.opts.sp)
+            x_in = x if self.tp is None else TP.copy_to_model(x, self.tp)
+            ctx = attention_train(x_in, self.query, self.key, self.value, bias, self.heads, rate,
+                                  gen, self.opts.remat, self.opts.plain, sp=self.opts.sp,
+                                  tp=self.tp)
             y = self._finish_train(x, ctx, gen)
             return y if tanh_residual_base is None else tanh_residual_base + torch.tanh(y)
         k_raw, v_raw = self.key(x), self.value(x)
-        ctx = mha_merged(self.query(x), k_raw, v_raw, bias,
-                         self.cfg.num_attention_heads, plain=self.opts.plain, sp=self.opts.sp)
+        ctx = mha_merged(self.query(x), k_raw, v_raw, bias, self.heads, plain=self.opts.plain,
+                         sp=self.opts.sp)
         y = self._finish(x, ctx, tanh_residual_base)
         return (y, (k_raw, v_raw)) if return_kv else y
 
     def decode(self, x_t, k_all, v_all, spec):
         """x_t [B, 1, D]; k_all/v_all: the unified merged cache (or int8
         (values, scales) pairs); spec: a DecodeStepSpec."""
-        ctx = decode_mha(self.query(x_t), k_all, v_all, spec,
-                         self.cfg.num_attention_heads, plain=self.opts.plain)
+        ctx = decode_mha(self.query(x_t), k_all, v_all, spec, self.heads, plain=self.opts.plain)
         return self._finish(x_t, ctx)
 
 

@@ -44,11 +44,12 @@ NVCC_FLAGS = (
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, key_mask, out, lse, seed, k8, ks, v8, vs; batch, seq_len,
-    # heads, head_dim, dec_len; threshold; keep_scale; stream
-    "vt_flash_attention_merged": [_P] * 11 + [_I] * 5 + [_U, _F, _P],
+    # heads, head_dim, dec_len, head_offset; threshold; keep_scale; stream
+    "vt_flash_attention_merged": [_P] * 11 + [_I] * 6 + [_U, _F, _P],
     # q, k, v, key_mask, out, dout, lse, scratch, dq, dk, dv, seed; batch,
-    # seq_len, heads, head_dim, dec_len; threshold; keep_scale; stream
-    "vt_flash_attention_merged_bwd": [_P] * 12 + [_I] * 5 + [_U, _F, _P],
+    # seq_len, heads, head_dim, dec_len, head_offset; threshold; keep_scale;
+    # stream
+    "vt_flash_attention_merged_bwd": [_P] * 12 + [_I] * 6 + [_U, _F, _P],
     # q, k, v, key_mask, out, lse, seed, strides (12 int64: q, k, v, out);
     # batch, heads, len_q, len_k, head_dim, dec_len, row_offset; threshold;
     # keep_scale; stream
@@ -65,9 +66,33 @@ _SIGNATURES = {
     # ops/block_train.launch_plan); rows, d, m; threshold; keep_scale, eps;
     # stream
     "vt_block_train_bwd": [_P] * 32 + [_I] * 5 + [_U, _F, _F, _P],
+    # the split forms (tensor parallelism) of #9a / #9b:
+    # sum, bias, resid, s, g, seed, mask_out, xh, out; rows, d, stream_id;
+    # threshold; keep_scale, eps; stream
+    "vt_block_train_tp_rows": [_P] * 9 + [_I] * 3 + [_U, _F, _F, _P],
+    # xb, w1, b1, pre1, h; rows, d, m; stream
+    "vt_block_train_tp_ffn_in": [_P] * 5 + [_I] * 3 + [_P],
+    # g, x2h, pre1, w2, w1, s2, seed, du2, dlin2, dpre, dx_part, col_part;
+    # row_blocks, rows, d, m; threshold; keep_scale, eps; stream
+    "vt_block_train_tp_bwd_head": [_P] * 12 + [_I] * 4 + [_U, _F, _F, _P],
+    # dx_sum, du2, ctx, x1h, h, wo, s1, g1, seed, 12 gradients, dlin2, dpre,
+    # xb, dlin1, col_part, w_part; row_blocks, k_chunk, rows, d, dl, m;
+    # threshold; keep_scale, eps; stream
+    "vt_block_train_tp_bwd_tail": [_P] * 27 + [_I] * 6 + [_U, _F, _F, _P],
+    # x1h, s1, g1, w1, b1, xb, pre1, h; rows, d, m; eps; stream
+    "vt_block_train_tp_recompute": [_P] * 8 + [_I] * 3 + [_F, _P],
     # x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, res, x32, xb, h, out;
     # rows, d, m; eps; stream
     "vt_fused_block": [_P] * 17 + [_I] * 3 + [_F, _P],
+    # a, lda, b, ldb, c; M, N, K; stream (the split forms' row-parallel
+    # products, f32 out)
+    "vt_gemm_f32": [_P, _I, _P, _I, _P] + [_I] * 3 + [_P],
+    # sum, bo, x_q, s1, g1, x32, xb; rows, d; eps; stream
+    "vt_fused_block_tp_ln1": [_P] * 7 + [_I] * 2 + [_F, _P],
+    # x32, sum, b2, s2, g2, res, out; rows, d; eps; stream
+    "vt_fused_block_tp_ln2": [_P] * 7 + [_I] * 2 + [_F, _P],
+    # xb, w1, b1, h; rows, d, m; stream
+    "vt_fused_block_tp_ffn_in": [_P] * 4 + [_I] * 3 + [_P],
     # pointer array (order in csrc/fused_block_w8a8.cu); rows, d, m; eps;
     # stream
     "vt_fused_block_w8a8": [_P] + [_I] * 3 + [_F, _P],
@@ -119,6 +144,11 @@ LAUNCHES: Dict[str, int] = {
     "fused_attention": 0,
     "flash_attention": 0,
     "flash_attention_bwd": 0,
+    # the split forms of the post-attention blocks (tensor parallelism)
+    "fused_block_tp": 0,
+    "fused_block_tanh_tp": 0,
+    "block_train_fwd_tp": 0,
+    "block_train_bwd_tp": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -18,6 +18,10 @@ parallel/sequence_parallel.sp_attention before any other gate, and
 heads and take it where the JAX gates do.  Decode steps (one query row)
 never take it.
 
+Tensor parallelism: the projections a layer passes are its rank's heads
+(``num_heads`` of them); ``attention_train(..., tp=)`` draws their part
+of the whole layer's dropout masks.
+
 Training: ``AttentionFn`` is the flash route as one autograd node — the
 q/k/v projections, the flash forward (with its in-kernel dropout of the
 probabilities) and, in the backward, the flash backward kernel and the
@@ -85,14 +89,17 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * dh)
 
 
-def mha_reference(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None):
+def mha_reference(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None, head_shard=None):
     """Scaled dot-product attention on [B, H, L, Dh]: f32 scores, the
     probabilities (dropped with flax nn.Dropout semantics when a generator
-    is given) rounded to v's dtype, f32 accumulation."""
+    is given) rounded to v's dtype, f32 accumulation.  ``head_shard``
+    (rank, size): the heads are a tensor-parallel rank's, whose mask is
+    their slice of the whole layer's draw."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if bias is not None:
         scores = scores + bias.float()
-    probs = D.dropout(torch.softmax(scores, dim=-1), dropout_rate, gen).to(v.dtype)
+    shard = None if head_shard is None else (1, *head_shard)
+    probs = D.dropout(torch.softmax(scores, dim=-1), dropout_rate, gen, shard).to(v.dtype)
     return torch.matmul(probs.float(), v.float()).to(v.dtype)
 
 
@@ -111,7 +118,8 @@ def sp_active(sp, length: int, dropout_rate: float = 0.0) -> bool:
     return sp is not None and dropout_rate == 0.0 and length % sp.size == 0
 
 
-def mha(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None, plain: bool = False, sp=None):
+def mha(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None, plain: bool = False, sp=None,
+        head_shard=None):
     """[B, H, Lq, Dh] attention; ``bias`` is an additive bias array, None,
     or a spec.  Under ``sp`` (an SPGroup) full-sequence attention (Lq ==
     Lk) with no dropout is sequence-parallel (parallel/sequence_parallel.py,
@@ -119,7 +127,7 @@ def mha(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None, plain: bool = F
     MaskSpec takes the plain path here (full sequences take mha_merged's
     flash route), and an array bias or none takes the bias-tensor kernel
     (#14) where fused_attention_ok holds, or its plain version with
-    ``plain`` or on CPU tensors."""
+    ``plain`` or on CPU tensors.  ``head_shard``: see mha_reference."""
     if isinstance(bias, DecodeStepSpec):
         bias = bias.to_bias()
     if q.shape[2] == k.shape[2] and sp_active(sp, q.shape[2], dropout_rate):
@@ -130,7 +138,7 @@ def mha(q, k, v, bias=None, dropout_rate: float = 0.0, gen=None, plain: bool = F
         bias = bias.to_bias()
     elif fused_attention_ok(bias, q.shape[2], k.shape[2], dropout_rate):
         return (fused_attention_plain if plain else fused_attention)(q, k, v, bias)
-    return mha_reference(q, k, v, bias, dropout_rate, gen)
+    return mha_reference(q, k, v, bias, dropout_rate, gen, head_shard)
 
 
 def flash_ok(bias, num_keys: int) -> bool:
@@ -174,30 +182,35 @@ class AttentionFn(torch.autograd.Function):
     recomputes q/k/v with torch.matmul in its backward, so the backward
     never relaunches the flash forward; with ``"none"`` it saves q/k/v.
     The backward is the flash backward kernel, then the projections'
-    gradients.  ``plain`` runs the plain versions on any device."""
+    gradients.  ``plain`` runs the plain versions on any device.  Under
+    tensor parallelism the weights are a rank's heads' (``num_heads`` of
+    them, the first at global head ``head_offset``, whose dropout mask the
+    kernels draw), and the input gradient is this rank's partial, summed
+    over the model group by the caller's copy_to_model."""
 
     @staticmethod
     def forward(fctx, x, wq, bq, wk, bk, wv, bv, key_mask, dec_len, num_heads, rate, seed,
-                remat, plain):
+                remat, plain, head_offset=0):
         xw = x.to(wq.dtype)
         q, k, v = (F.linear(xw, w, b).contiguous() for w, b in ((wq, bq), (wk, bk), (wv, bv)))
         fwd = flash_attention_merged_plain if plain else flash_attention_merged
-        out, lse = fwd(q, k, v, key_mask, dec_len, num_heads, rate, seed, return_lse=True)
-        fctx.cfg = (dec_len, num_heads, rate, remat, plain, x.dtype)
+        out, lse = fwd(q, k, v, key_mask, dec_len, num_heads, rate, seed, return_lse=True,
+                       head_offset=head_offset)
+        fctx.cfg = (dec_len, num_heads, rate, remat, plain, x.dtype, head_offset)
         saved = (q, k, v) if remat == "none" else (None, None, None)
         fctx.save_for_backward(xw, wq, bq, wk, bk, wv, bv, key_mask, seed, out, lse, *saved)
         return out
 
     @staticmethod
     def backward(fctx, g):
-        dec_len, num_heads, rate, remat, plain, x_dtype = fctx.cfg
+        dec_len, num_heads, rate, remat, plain, x_dtype, head_offset = fctx.cfg
         xw, wq, bq, wk, bk, wv, bv, key_mask, seed, out, lse, q, k, v = fctx.saved_tensors
         if q is None:
             q, k, v = (F.linear(xw, w, b).contiguous()
                        for w, b in ((wq, bq), (wk, bk), (wv, bv)))
         bwd = flash_attention_merged_bwd_plain if plain else flash_attention_merged_bwd
         dq, dk, dv = bwd(q, k, v, key_mask, out, lse, g.to(out.dtype).contiguous(), dec_len,
-                         num_heads, rate, seed)
+                         num_heads, rate, seed, head_offset)
         x2 = xw.reshape(-1, xw.shape[-1])
         grads, dx = [], None
         for dy, w in ((dq, wq), (dk, wk), (dv, wv)):
@@ -205,11 +218,11 @@ class AttentionFn(torch.autograd.Function):
             part = torch.matmul(dy2, w)
             dx = part if dx is None else dx + part
             grads += [torch.matmul(dy2.t(), x2), dy2.sum(0).to(w.dtype)]
-        return (dx.reshape(xw.shape).to(x_dtype), *grads) + (None,) * 7
+        return (dx.reshape(xw.shape).to(x_dtype), *grads) + (None,) * 8
 
 
 def attention_train(x, layer_q, layer_k, layer_v, bias, num_heads: int, rate: float, gen,
-                    remat: str, plain: bool, sp=None):
+                    remat: str, plain: bool, sp=None, tp=None):
     """Training self-attention of one layer from its input x ([B, L, D]);
     returns the merged context [B, L, H*D].  Under ``sp`` at rate 0
     (sp_active) the projections run under autograd and the attention is
@@ -218,7 +231,11 @@ def attention_train(x, layer_q, layer_k, layer_v, bias, num_heads: int, rate: fl
     AttentionFn, with one seed from ``gen`` for the in-kernel dropout;
     elsewhere (the text BERT's 20 keys) the projections and the plain
     attention run under autograd, the probabilities dropped with a mask
-    drawn from ``gen``."""
+    drawn from ``gen``.  Under tensor parallelism (``tp``, a ModelGroup)
+    the projections are a rank's ``num_heads`` heads, the first at global
+    head tp.rank * num_heads: the flash kernels' dropout coordinates; the
+    plain route draws the whole layer's mask and keeps its heads' slice."""
+    shard = (tp.rank, tp.size) if tp is not None else None
     if sp_active(sp, x.shape[1], rate):
         ctx = mha(split_heads(layer_q(x), num_heads), split_heads(layer_k(x), num_heads),
                   split_heads(layer_v(x), num_heads), bias, plain=plain, sp=sp)
@@ -228,9 +245,9 @@ def attention_train(x, layer_q, layer_k, layer_v, bias, num_heads: int, rate: fl
         return AttentionFn.apply(x, layer_q.weight, layer_q.bias, layer_k.weight, layer_k.bias,
                                  layer_v.weight, layer_v.bias,
                                  bias.key_mask.float().contiguous(), bias.dec_len, num_heads,
-                                 rate, seed, remat, plain)
+                                 rate, seed, remat, plain, shard[0] * num_heads if shard else 0)
     ctx = mha(split_heads(layer_q(x), num_heads), split_heads(layer_k(x), num_heads),
-              split_heads(layer_v(x), num_heads), bias, rate, gen)
+              split_heads(layer_v(x), num_heads), bias, rate, gen, head_shard=shard)
     return merge_heads(ctx)
 
 

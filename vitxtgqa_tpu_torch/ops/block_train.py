@@ -21,6 +21,18 @@ explicit keep masks (the JAX mask mode), so ``block_train_plain`` can be
 held against JAX's ``block_train(mask_a, mask_f, interpret=True)``; where
 a wrapper runs its plain version, it materialises the seed's masks for it
 (``seed_masks``).
+
+Tensor parallelism (``BlockTrainTPFn``, ``block_train_fwd_tp_steps``,
+``block_train_bwd_tp_steps``): the split forms on a rank's shards (wo [d,
+dl], w1 [ml, d], b1 [ml], w2 [d, ml]; parallel/tensor_parallel.py), the
+kernels' launches with the model group's all-reduce of an f32 partial
+between them: in the forward after the attention-output and the FFN-out
+products, in the backward after the input gradient of the FFN-in product
+(dh_l W1_l).  The masks are the whole rows', drawn from the one seed on
+every rank.  dbo, db2 and the LayerNorm gradients come out whole on every
+rank, db1 and the weight gradients as the rank's shards.  Each is a
+generator of its steps, as ops/fused_block.fused_block_tp_steps; its plain
+twin is the same sequence in PyTorch.
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ import torch
 from vitxtgqa_tpu_torch.ops import _build
 from vitxtgqa_tpu_torch.ops import dropout as D
 from vitxtgqa_tpu_torch.ops import gemm_sm90 as G
-from vitxtgqa_tpu_torch.ops.fused_block import LANE, gelu_erf
+from vitxtgqa_tpu_torch.ops.fused_block import LANE, check_tp_widths, gelu_erf, gemm_f32
+from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
 
 GRAD_NAMES = ("x_q", "ctx", "wo", "bo", "s1", "g1", "w1", "b1", "w2", "b2", "s2", "g2")
 
@@ -57,14 +70,15 @@ class BlockPlan(NamedTuple):
     w_floats: int     # f32 scratch of the weight-gradient partials (0 with one split)
 
 
-def launch_plan(rows: int, d: int = 768, m: int = 3072) -> BlockPlan:
+def launch_plan(rows: int, d: int = 768, m: int = 3072, dl: int = 0) -> BlockPlan:
     """The backward's cut of its ``rows``: the row passes' grid (each
     block's warps take rows blockIdx * 8 + warp, then every row_blocks * 8
     further) and the weight gradients' split of the rows, with the scratch
     that csrc/block_train.cu's vt_block_train_bwd reads them from: per row
     pass and block three [d] column sums (LN2: ds2, dg2, db2; LN1: ds1,
     dg1, dbo), per 128-row tile db1's [m], and per split the three f32
-    weight-gradient partials."""
+    weight-gradient partials.  ``dl`` (default d): the attention width a
+    split form's rank holds (dWo [d, dl]); m its FFN share."""
     if rows <= 0:
         raise ValueError(f"block_train: {rows} rows")
     m_tiles = -(-rows // TILE_M)
@@ -72,8 +86,9 @@ def launch_plan(rows: int, d: int = 768, m: int = 3072) -> BlockPlan:
     splits = max(1, min(MAX_SPLITS, rows // SPLIT_ROWS))
     k_chunk = -(-(-(-rows // splits)) // K_STEP) * K_STEP
     splits = -(-rows // k_chunk)
+    dl = dl or d
     return BlockPlan(m_tiles, row_blocks, k_chunk, splits, 2 * row_blocks * 3 * d + m_tiles * m,
-                     splits * (d * d + 2 * m * d) if splits > 1 else 0)
+                     splits * (d * dl + 2 * m * d) if splits > 1 else 0)
 
 
 def gemm_launches(rows: int, d: int = 768, m: int = 3072):
@@ -86,6 +101,18 @@ def gemm_launches(rows: int, d: int = 768, m: int = 3072):
     return (one(d, d), one(m, d), one(d, m), one(m, d), one(d, m), one(d, d),
             G.launch(G.problem(d, d, rows, k_chunk), G.problem(m, d, rows, k_chunk),
                      G.problem(d, m, rows, k_chunk), ragged_k=True))
+
+
+def tp_gemm_launches(rows: int, d: int = 768, dl: int = 384, ml: int = 1536):
+    """The split forms' GEMM launches on a rank's shares, in order: the
+    forward's F1 ctx_l Wo_l^T and F4 h_l W2_l^T into f32 partials, F3 xb
+    W1_l^T; the backward's B2 dlin2 W2_l, B3 dpre_l W1_l into an f32
+    partial, B5 dlin1 Wo_l, and B6's three weight gradients in one launch."""
+    k_chunk = launch_plan(rows, d, ml, dl).k_chunk
+    one = lambda n, k: G.launch(G.problem(rows, n, k))
+    return (one(d, dl), one(ml, d), one(d, ml), one(ml, d), one(d, ml), one(dl, d),
+            G.launch(G.problem(d, dl, rows, k_chunk), G.problem(ml, d, rows, k_chunk),
+                     G.problem(d, ml, rows, k_chunk), ragged_k=True))
 
 
 def kernel_ok(d: int, m: int) -> bool:
@@ -132,24 +159,44 @@ def _drop(x, mask, rate: float):
 
 
 def block_train_fwd_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
-                          mask_a=None, mask_f=None, rate: float = 0.0, eps: float = 1e-12):
+                          mask_a=None, mask_f=None, rate: float = 0.0, eps: float = 1e-12,
+                          reduce=None, copy=None):
     """(y, x1h, pre1, h, x2h), rows [R, d] / [R, m] in x_q's dtype: f32
     products from operands in x_q's dtype, f32 LayerNorm statistics, and
     the kernel's roundings (x1h, x2h rounded before their LayerNorm, pre1
-    before the gelu)."""
+    before the gelu).  ``reduce``: applied to the attention-output and
+    FFN-out products (a tensor-parallel rank's partials summed, under
+    autograd: tensor_parallel.reduce_from_model); None, the products.
+    ``copy``: applied to the FFN-in product's input (under tensor
+    parallelism tensor_parallel.copy_to_model, which sums its gradient's
+    partials)."""
+    steps = _fwd_steps_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, mask_a, mask_f,
+                             rate, eps, copy)
+    return TP.drive([steps], (lambda parts: reduce(parts[0])) if reduce else TP.shard_sum)[0]
+
+
+def _fwd_steps_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, mask_a, mask_f, rate,
+                     eps, copy=None):
+    """block_train_fwd_plain as steps: yields the two f32 row-parallel
+    products, takes their sums."""
     dt = x_q.dtype
     mm = lambda a, w: torch.matmul(a.to(dt).float(), w.to(dt).float().t())
-    attn = _drop(mm(ctx, wo) + bo.float(), mask_a, rate)
+    attn = _drop((yield mm(ctx, wo)) + bo.float(), mask_a, rate)
     x1h = (x_q.float() + attn).to(dt)
-    xhat1, _ = _stats(x1h.float(), eps)
-    x = (xhat1 * s1.float() + g1.float()).to(dt)
-    pre1 = (mm(x, w1) + b1.float()).to(dt)
+    x = _ln1(x1h, s1, g1, eps)
+    pre1 = (mm(x if copy is None else copy(x), w1) + b1.float()).to(dt)
     h = gelu_erf(pre1.float()).to(dt)
-    ffn = _drop(mm(h, w2) + b2.float(), mask_f, rate)
+    ffn = _drop((yield mm(h, w2)) + b2.float(), mask_f, rate)
     x2h = (x.float() + ffn).to(dt)
     xhat2, _ = _stats(x2h.float(), eps)
     y = (xhat2 * s2.float() + g2.float()).to(dt)
     return y, x1h, pre1, h, x2h
+
+
+def _ln1(x1h, s1, g1, eps):
+    """x = bf16(LN1(x1h)) in x1h's dtype."""
+    xhat1, _ = _stats(x1h.float(), eps)
+    return (xhat1 * s1.float() + g1.float()).to(x1h.dtype)
 
 
 def block_train_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
@@ -166,6 +213,15 @@ def block_train_bwd_plain(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2,
     ds2, dg2) for the cotangent ``g`` of y, from the forward's residuals:
     the sequence of the Pallas kernel (_block_bwd_kernel) with its bf16
     roundings of dlin2, dpre and dlin1 before their products."""
+    steps = _bwd_steps_plain(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, mask_a, mask_f,
+                             rate, eps)
+    return TP.drive([steps], TP.shard_sum)[0]
+
+
+def _bwd_steps_plain(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, mask_a, mask_f, rate,
+                     eps):
+    """block_train_bwd_plain as steps: yields the f32 partial dpre W1 of
+    the FFN-in input gradient, takes its sum."""
     dt = ctx.dtype
     f = lambda t: t.to(dt).float()
     gf = g.float()
@@ -183,7 +239,7 @@ def block_train_bwd_plain(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2,
     xhat1, inv1 = _stats(x1h.float(), eps)
     x = f(xhat1 * s1f + g1f)
     dw1 = dpre.t() @ x
-    dx = du2 + dpre @ f(w1)
+    dx = du2 + (yield dpre @ f(w1))
     ds1, dg1 = (dx * xhat1).sum(0), dx.sum(0)
     du1 = _ln_bwd(dx, xhat1, inv1, s1f)
     dlin1 = _drop(du1, mask_a, rate)
@@ -374,3 +430,198 @@ def _block_forward(x2, c2, weights, rate, eps, seed, plain):
         masks = seed_masks(seed, x2.shape[0], x2.shape[1], rate, x2.device)
         return block_train_fwd_plain(x2, c2, *weights, *masks, rate, eps)
     return block_train_fwd(x2, c2, *weights, rate=rate, seed=seed, eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# the split forms (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+
+def _fwd_steps_kernel(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate, seed, eps,
+                      emit_masks):
+    rows, d = x_q.shape
+    dl, ml = wo.shape[1], w1.shape[0]
+    check_tp_widths("block_train_fwd_tp", d, dl, ml)
+    dev, bf = x_q.device, torch.bfloat16
+    _build.require(x_q, "x_q", bf, (rows, d), dev)
+    _build.require(ctx, "ctx", bf, (rows, dl), dev)
+    _build.require(w1, "w1", bf, (ml, d), dev)
+    _build.require(w2, "w2", bf, (d, ml), dev)
+    bo, s1, g1, b2, s2, g2 = (_vec(t, d, n, dev) for t, n in (
+        (bo, "bo"), (s1, "s1"), (g1, "g1"), (b2, "b2"), (s2, "s2"), (g2, "g2")))
+    b1 = _vec(b1, ml, "b1", dev)
+    seed, thr, ks = _dropout_inputs(rate, seed, dev)
+    empty = lambda w, dt=bf: torch.empty((rows, w), dtype=dt, device=dev)
+    masks = (empty(d, torch.int8), empty(d, torch.int8)) if emit_masks else (None, None)
+    lib, st = _build.lib(), _build.stream_of(x_q)
+
+    def rows_pass(total, bias, resid, s, g, stream_id, mask_out):
+        xh, out = empty(d), empty(d)
+        with torch.cuda.device(dev):
+            _build.check(lib.vt_block_train_tp_rows(
+                total.data_ptr(), bias.data_ptr(), resid.data_ptr(), s.data_ptr(), g.data_ptr(),
+                _ptr(seed), _ptr(mask_out), xh.data_ptr(), out.data_ptr(), rows, d, stream_id,
+                thr, ks, float(eps), st), "block_train_fwd_tp")
+        return xh, out
+
+    x1h, xb = rows_pass((yield gemm_f32(ctx, wo)), bo, x_q, s1, g1, 1, masks[0])
+    pre1, h = empty(ml), empty(ml)
+    with torch.cuda.device(dev):
+        _build.check(lib.vt_block_train_tp_ffn_in(xb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                                  pre1.data_ptr(), h.data_ptr(), rows, d, ml,
+                                                  st), "block_train_fwd_tp")
+    x2h, y = rows_pass((yield gemm_f32(h, w2)), b2, xb, s2, g2, 2, masks[1])
+    _build.LAUNCHES["block_train_fwd_tp"] += 1
+    out = (y, x1h, pre1, h, x2h)
+    return out + masks if emit_masks else out
+
+
+def block_train_fwd_tp_steps(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                             rate: float = 0.0, seed=None, eps: float = 1e-12,
+                             plain: bool = False, emit_masks: bool = False):
+    """One rank's split form of the forward (#9a) on [rows, d] operands and
+    its shards (ctx [rows, dl], wo [d, dl], w1 [ml, d], b1 [ml], w2 [d,
+    ml]) as a generator: it yields the f32 [rows, d] partials of the
+    attention-output and FFN-out products, takes their sums, and returns
+    (y, x1h, pre1, h, x2h) (pre1, h the rank's [rows, ml]), with
+    ``emit_masks`` also the two int8 masks drawn.  The kernels on a CUDA
+    tensor, the plain twin on the seed's masks on a CPU one or with
+    ``plain``."""
+    rows, d = x_q.shape
+    if plain or not x_q.is_cuda:
+        masks = seed_masks(seed, rows, d, rate, x_q.device)
+        return _fwd_steps_masks(_fwd_steps_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2,
+                                                 g2, *masks, rate, eps), masks, emit_masks)
+    return _fwd_steps_kernel(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate, seed, eps,
+                             emit_masks)
+
+
+def _fwd_steps_masks(steps, masks, emit_masks):
+    out = yield from steps
+    return out + tuple(m.to(torch.int8) for m in masks) if emit_masks else out
+
+
+def _bwd_steps_kernel(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, rate, seed, eps):
+    rows, d = g.shape
+    dl, ml = wo.shape[1], w1.shape[0]
+    check_tp_widths("block_train_bwd_tp", d, dl, ml)
+    dev = g.device
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, t, w in (("g", g, d), ("ctx", ctx, dl), ("x1h", x1h, d), ("x2h", x2h, d),
+                       ("pre1", pre1, ml), ("h", h, ml)):
+        _build.require(t, name, bf, (rows, w), dev)
+    _build.require(wo, "wo", bf, (d, dl), dev)
+    _build.require(w1, "w1", bf, (ml, d), dev)
+    _build.require(w2, "w2", bf, (d, ml), dev)
+    s1, g1, s2 = (_vec(t, d, n, dev) for t, n in ((s1, "s1"), (g1, "g1"), (s2, "s2")))
+    seed, thr, ks = _dropout_inputs(rate, seed, dev)
+    new = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
+    plan = launch_plan(rows, d, ml, dl)
+    col_part, w_part = new(plan.col_floats), new(max(plan.w_floats, 4))
+    du2, dx_part = new(rows, d), new(rows, d)
+    dlin2, xb, dlin1 = new(rows, d, dt=bf), new(rows, d, dt=bf), new(rows, d, dt=bf)
+    dpre = new(rows, ml, dt=bf)
+    lib, st = _build.lib(), _build.stream_of(g)
+    with torch.cuda.device(dev):
+        _build.check(lib.vt_block_train_tp_bwd_head(
+            g.data_ptr(), x2h.data_ptr(), pre1.data_ptr(), w2.data_ptr(), w1.data_ptr(),
+            s2.data_ptr(), _ptr(seed), du2.data_ptr(), dlin2.data_ptr(), dpre.data_ptr(),
+            dx_part.data_ptr(), col_part.data_ptr(), plan.row_blocks, rows, d, ml, thr, ks,
+            float(eps), st), "block_train_bwd_tp")
+    total = yield dx_part
+    dxq, dctx = new(rows, d, dt=bf), new(rows, dl, dt=bf)
+    dwo, dw1, dw2 = new(d, dl), new(ml, d), new(d, ml)
+    dbo, ds1, dg1, db2, ds2, dg2, db1 = new(d), new(d), new(d), new(d), new(d), new(d), new(ml)
+    with torch.cuda.device(dev):
+        _build.check(lib.vt_block_train_tp_bwd_tail(
+            total.data_ptr(), du2.data_ptr(), ctx.data_ptr(), x1h.data_ptr(), h.data_ptr(),
+            wo.data_ptr(), s1.data_ptr(), g1.data_ptr(), _ptr(seed), dxq.data_ptr(),
+            dctx.data_ptr(), dwo.data_ptr(), dbo.data_ptr(), ds1.data_ptr(), dg1.data_ptr(),
+            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ds2.data_ptr(),
+            dg2.data_ptr(), dlin2.data_ptr(), dpre.data_ptr(), xb.data_ptr(), dlin1.data_ptr(),
+            col_part.data_ptr(), w_part.data_ptr(), plan.row_blocks, plan.k_chunk, rows, d, dl,
+            ml, thr, ks, float(eps), st), "block_train_bwd_tp")
+    _build.LAUNCHES["block_train_bwd_tp"] += 1
+    return (dxq, dctx, dwo, dbo, ds1, dg1, dw1, db1, dw2, db2, ds2, dg2)
+
+
+def block_train_bwd_tp_steps(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2,
+                             rate: float = 0.0, seed=None, eps: float = 1e-12,
+                             plain: bool = False):
+    """One rank's split form of the backward (#9b) as a generator: it
+    yields the f32 [rows, d] partial dpre_l W1_l of the FFN-in input
+    gradient, takes its sum, and returns the 12 gradients of
+    block_train_bwd (dctx [rows, dl], dWo [d, dl], dW1 [ml, d], db1 [ml],
+    dW2 [d, ml] the rank's; the rest whole).  The kernels on a CUDA
+    tensor, the plain twin on a CPU one or with ``plain``."""
+    rows, d = g.shape
+    if plain or not g.is_cuda:
+        masks = seed_masks(seed, rows, d, rate, g.device)
+        return _bwd_steps_plain(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, *masks, rate,
+                                eps)
+    return _bwd_steps_kernel(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, rate, seed, eps)
+
+
+def recompute_tp(x1h, s1, g1, w1, b1, eps: float = 1e-12, plain: bool = False):
+    """(pre1, h) of a split forward from its saved x1h (its summed
+    pre-norm rows): LN1 and F3 on the rank's FFN share, no collective."""
+    if plain or not x1h.is_cuda:
+        dt = x1h.dtype
+        x = _ln1(x1h, s1, g1, eps)
+        pre1 = (torch.matmul(x.float(), w1.to(dt).float().t()) + b1.float()).to(dt)
+        return pre1, gelu_erf(pre1.float()).to(dt)
+    rows, d = x1h.shape
+    ml = w1.shape[0]
+    dev = x1h.device
+    s1, g1 = _vec(s1, d, "s1", dev), _vec(g1, d, "g1", dev)
+    b1 = _vec(b1, ml, "b1", dev)
+    _build.require(w1, "w1", torch.bfloat16, (ml, d), dev)
+    xb = torch.empty((rows, d), dtype=torch.bfloat16, device=dev)
+    pre1, h = (torch.empty((rows, ml), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    with torch.cuda.device(dev):
+        _build.check(_build.lib().vt_block_train_tp_recompute(
+            x1h.data_ptr(), s1.data_ptr(), g1.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            xb.data_ptr(), pre1.data_ptr(), h.data_ptr(), rows, d, ml, float(eps),
+            _build.stream_of(x1h)), "block_train_fwd_tp")
+    _build.LAUNCHES["block_train_fwd_tp"] += 1
+    return pre1, h
+
+
+class BlockTrainTPFn(torch.autograd.Function):
+    """The split training block of one tensor-parallel rank as one autograd
+    node (BlockTrainFn's counterpart): x_q [.., d] whole, ctx [.., dl] its
+    heads' context, the weights its shards; the partials summed over ``tp``
+    (a ModelGroup).  ``remat == "attn"`` saves x_q's summed pre-norm rows
+    x1h and x2h (and ctx, the seed) and recomputes pre1 and h from x1h in
+    the backward (recompute_tp: LN1 and F3, no collective), where a
+    relaunch of the whole forward would repeat its two all-reduces;
+    ``"none"`` saves every residual.  The input gradient dx_q is whole,
+    dctx the rank's heads'."""
+
+    @staticmethod
+    def forward(fctx, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate, eps, seed, remat,
+                plain, tp):
+        shape, d = x_q.shape, x_q.shape[-1]
+        x2, c2 = x_q.reshape(-1, d).contiguous(), ctx.reshape(-1, ctx.shape[-1]).contiguous()
+        fctx.cfg = (shape, ctx.shape, rate, eps, remat, plain, tp)
+        y, x1h, pre1, h, x2h = TP.run_split(block_train_fwd_tp_steps(
+            x2, c2, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate, seed, eps, plain), tp)
+        kept = (None, None) if remat == "attn" else (pre1, h)
+        fctx.save_for_backward(c2, x1h, x2h, *kept, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                               seed)
+        return y.reshape(shape)
+
+    @staticmethod
+    def backward(fctx, gy):
+        shape, ctx_shape, rate, eps, remat, plain, tp = fctx.cfg
+        c2, x1h, x2h, pre1, h, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, seed = fctx.saved_tensors
+        if pre1 is None:
+            pre1, h = recompute_tp(x1h, s1, g1, w1, b1, eps, plain)
+        grads = TP.run_split(block_train_bwd_tp_steps(
+            gy.reshape(-1, shape[-1]).to(c2.dtype).contiguous(), c2, x1h, pre1, h, x2h, wo, w1,
+            w2, s1, g1, s2, rate, seed, eps, plain), tp)
+        dxq, dctx, dwo, dbo, ds1, dg1, dw1, db1, dw2, db2, ds2, dg2 = grads
+        like = lambda gr, p: gr.to(p.dtype)
+        return (dxq.reshape(shape), dctx.reshape(ctx_shape), like(dwo, wo), like(dbo, bo),
+                like(ds1, s1), like(dg1, g1), like(dw1, w1), like(db1, b1), like(dw2, w2),
+                like(db2, b2), like(ds2, s2), like(dg2, g2)) + (None,) * 6

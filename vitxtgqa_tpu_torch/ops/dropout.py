@@ -23,7 +23,7 @@ bit products in 16-bit halves, so that nothing overflows int64.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -80,11 +80,14 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
 
 
 def philox_bits(seed: Seed, stream: int, shape: Sequence[int],
-                device: Optional[torch.device] = None, row_offset: int = 0) -> torch.Tensor:
+                device: Optional[torch.device] = None, row_offset: int = 0,
+                head_offset: int = 0) -> torch.Tensor:
     """uint32 bits (as int64) of a mask of ``shape`` (up to 4 dims); with
     ``row_offset`` the rows (the second-to-last dim) of a mask whose
     coordinates start there: a sequence-parallel query shard's rows of
-    the whole sequence's mask."""
+    the whole sequence's mask; with ``head_offset`` alike the heads (the
+    third-to-last dim): a tensor-parallel rank's heads of the whole
+    layer's mask."""
     if isinstance(seed, torch.Tensor):
         device = seed.device if device is None else device
         seed = seed.reshape(()).to(device=device, dtype=torch.int64)
@@ -95,25 +98,36 @@ def philox_bits(seed: Seed, stream: int, shape: Sequence[int],
     g0 = -(-n0 // 4)
     ar = lambda n, dim: torch.arange(n, device=device, dtype=torch.int64).reshape(
         [n if i == dim else 1 for i in range(4)])
-    words = philox4x32(ar(g0, 3), ar(n1, 2) + row_offset, ar(n2, 1), ar(n3, 0), seed, stream)
+    words = philox4x32(ar(g0, 3), ar(n1, 2) + row_offset, ar(n2, 1) + head_offset, ar(n3, 0),
+                       seed, stream)
     full = torch.broadcast_shapes(*(w.shape for w in words))
     bits = torch.stack([w.expand(full) for w in words], dim=-1).reshape(n3, n2, n1, g0 * 4)
     return bits[..., :n0].reshape(shape)
 
 
 def keep_mask(seed: Seed, stream: int, shape: Sequence[int], rate: float,
-              device: Optional[torch.device] = None, row_offset: int = 0) -> torch.Tensor:
-    """Bool keep mask of ``shape``: P(keep) = 1 - rate (``row_offset``: see
-    philox_bits)."""
-    return philox_bits(seed, stream, shape, device, row_offset) >= threshold(rate)
+              device: Optional[torch.device] = None, row_offset: int = 0,
+              head_offset: int = 0) -> torch.Tensor:
+    """Bool keep mask of ``shape``: P(keep) = 1 - rate (``row_offset``,
+    ``head_offset``: see philox_bits)."""
+    return philox_bits(seed, stream, shape, device, row_offset, head_offset) >= threshold(rate)
 
 
-def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+            shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """An ordinary dropout site (embeddings, modality streams, the text
     BERT's attention probabilities) with flax nn.Dropout semantics:
     ``where(keep, x / (1 - rate), 0)``, the keep mask drawn from ``gen``; a
-    no-op without a generator (eval) or at rate 0."""
+    no-op without a generator (eval) or at rate 0.  ``shard`` (dim, rank,
+    size): x is rank's 1 / size of a tensor along dim (a tensor-parallel
+    rank's heads), whose mask is that part of the whole tensor's draw, so
+    that every rank's generator stays in step with one process's."""
     if gen is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=gen.device).to(x.device) >= rate
+    shape = list(x.shape)
+    if shard is not None:
+        shape[shard[0]] *= shard[2]
+    keep = torch.rand(shape, generator=gen, device=gen.device).to(x.device) >= rate
+    if shard is not None:
+        keep = keep.chunk(shard[2], dim=shard[0])[shard[1]]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

@@ -16,9 +16,11 @@ a wrapper launches its kernel (or raises); on a CPU tensor it runs the
 plain version, which is also the oracle the kernel is checked against on
 the card.  Dropout keeps the probability of element (b, h, row, key) where
 its Philox bits pass the threshold (ops/dropout.py, stream 0), with the
-row counted in the whole sequence, so the forward, the backward and the
-plain versions draw the same mask, and a query shard's rows draw the
-unsharded call's.  The JAX wrappers pad the keys to round_up(Lk, 128) with
+row counted in the whole sequence and the head in the whole layer (the
+merged forms' ``head_offset``), so the forward, the backward and the
+plain versions draw the same mask, and a query shard's rows, or a
+tensor-parallel rank's heads, draw the unsharded call's.  The JAX
+wrappers pad the keys to round_up(Lk, 128) with
 key mask 0, so a query row with no allowed key averages V over that many
 keys, the zero-padded ones included; the twins and the kernels count them
 too (``_padded_softmax``), and the backward gives such a row's keys the
@@ -95,25 +97,30 @@ def _scores(q, k, key_mask, dec_len: int, num_heads: int) -> torch.Tensor:
     return s.masked_fill(~_allowed(key_mask, l, dec_len), NEG)
 
 
-def _dropout_scale(q, num_heads: int, rate: float, seed) -> Optional[torch.Tensor]:
-    """The keep mask over 1 - rate ([B, H, L, L] f32), or None at rate 0."""
+def _dropout_scale(q, num_heads: int, rate: float, seed,
+                   head_offset: int = 0) -> Optional[torch.Tensor]:
+    """The keep mask over 1 - rate ([B, H, L, L] f32; the heads from global
+    head ``head_offset``), or None at rate 0."""
     if rate <= 0.0:
         return None
     b, l, _ = q.shape
-    keep = D.keep_mask(seed, D.STREAM_ATTN, (b, num_heads, l, l), rate, q.device)
+    keep = D.keep_mask(seed, D.STREAM_ATTN, (b, num_heads, l, l), rate, q.device,
+                       head_offset=head_offset)
     return keep.float() * (1.0 / (1.0 - rate))
 
 
 def flash_attention_merged_plain(q, k, v, key_mask, dec_len: int, num_heads: int,
                                  dropout_rate: float = 0.0, seed=None,
-                                 return_lse: bool = False):
+                                 return_lse: bool = False, head_offset: int = 0):
     """softmax(Q_h K_h^T / sqrt(d) + mask) V_h per head on merged [B, L, H*D]
     operands; f32 scores, the probabilities dropped (where the Philox mask
     says so) and divided by 1 - rate, then rounded to v's dtype for the
     second product (as the kernel does); output in q's dtype.  With
-    ``return_lse`` also the row log-sum-exp [B, H, L] f32."""
+    ``return_lse`` also the row log-sum-exp [B, H, L] f32.
+    ``head_offset``: the global head of head 0 (a tensor-parallel rank's
+    heads draw the whole layer's mask)."""
     w, lse = _padded_softmax(_scores(q, k, key_mask, dec_len, num_heads), return_lse)
-    ks = _dropout_scale(q, num_heads, dropout_rate, seed)
+    ks = _dropout_scale(q, num_heads, dropout_rate, seed, head_offset)
     if ks is not None:
         w = w * ks
     out = _merge(torch.matmul(w.to(v.dtype).float(), _split(v, num_heads)), q.dtype)
@@ -123,7 +130,8 @@ def flash_attention_merged_plain(q, k, v, key_mask, dec_len: int, num_heads: int
 
 
 def flash_attention_merged_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len: int,
-                                     num_heads: int, dropout_rate: float = 0.0, seed=None):
+                                     num_heads: int, dropout_rate: float = 0.0, seed=None,
+                                     head_offset: int = 0):
     """dq, dk, dv of flash_attention_merged for the cotangent ``g`` of
     ``out``: P = exp(S - lse), dV = (P K_r)^T g, dS = P (K_r (g V^T) -
     rowsum(g * out)), dQ = dS K / sqrt(d), dK = dS^T Q / sqrt(d), with K_r
@@ -131,7 +139,7 @@ def flash_attention_merged_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len: in
     d = q.shape[2] // num_heads
     scale = 1.0 / d ** 0.5
     p = _padded_probs(_scores(q, k, key_mask, dec_len, num_heads), lse)
-    ks = _dropout_scale(q, num_heads, dropout_rate, seed)
+    ks = _dropout_scale(q, num_heads, dropout_rate, seed, head_offset)
     gh, vh = _split(g, num_heads), _split(v, num_heads)
     pd = p if ks is None else p * ks
     dv = torch.matmul(pd.transpose(-1, -2), gh)
@@ -172,14 +180,16 @@ def _check_geometry(q, num_heads: int, dec_len: int, name: str):
 
 
 def flash_attention_merged(q, k, v, key_mask, dec_len: int, num_heads: int,
-                           dropout_rate: float = 0.0, seed=None, return_lse: bool = False):
+                           dropout_rate: float = 0.0, seed=None, return_lse: bool = False,
+                           head_offset: int = 0):
     """q/k/v [B, L, H*D] raw projections (bf16 on CUDA); key_mask [B, L]
     (1 = valid encoder key); dec_len: trailing causal decoder block;
     dropout: rate and an int64 [1] seed tensor on the device; with
-    ``return_lse`` also the row log-sum-exp [B, H, L] f32."""
+    ``return_lse`` also the row log-sum-exp [B, H, L] f32; ``head_offset``:
+    the global head of head 0 in the dropout mask's coordinates."""
     if not q.is_cuda:
         return flash_attention_merged_plain(q, k, v, key_mask, dec_len, num_heads,
-                                            dropout_rate, seed, return_lse)
+                                            dropout_rate, seed, return_lse, head_offset)
     b, l, hd_total = _check_geometry(q, num_heads, dec_len, "flash_attention_merged")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, torch.bfloat16, (b, l, hd_total), q.device)
@@ -194,7 +204,8 @@ def flash_attention_merged(q, k, v, key_mask, dec_len: int, num_heads: int,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             None if seed is None else seed.data_ptr(), None, None, None, None, b, l,
-            num_heads, hd_total // num_heads, dec_len, thr, ks, _build.stream_of(q),
+            num_heads, hd_total // num_heads, dec_len, head_offset, thr, ks,
+            _build.stream_of(q),
         )
     _build.check(err, "flash_attention_merged")
     _build.LAUNCHES["flash_attention_merged"] += 1
@@ -227,7 +238,7 @@ def flash_attention_merged_q8(q, k, v, key_mask, dec_len: int, num_heads: int):
         err = _build.lib().vt_flash_attention_merged(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
             None, None, k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(), b, l,
-            num_heads, hd_total // num_heads, dec_len, 0, 1.0, _build.stream_of(q),
+            num_heads, hd_total // num_heads, dec_len, 0, 0, 1.0, _build.stream_of(q),
         )
     _build.check(err, "flash_attention_merged_q8")
     _build.LAUNCHES["flash_attention_merged_q8"] += 1
@@ -235,13 +246,13 @@ def flash_attention_merged_q8(q, k, v, key_mask, dec_len: int, num_heads: int):
 
 
 def flash_attention_merged_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, num_heads: int,
-                               dropout_rate: float = 0.0, seed=None):
+                               dropout_rate: float = 0.0, seed=None, head_offset: int = 0):
     """dq, dk, dv (bf16 on CUDA) for the cotangent ``g`` of the forward's
     ``out``, from its saved ``lse``; the dropout mask is regenerated from
-    the forward's rate and seed."""
+    the forward's rate, seed and head offset."""
     if not q.is_cuda:
         return flash_attention_merged_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len,
-                                                num_heads, dropout_rate, seed)
+                                                num_heads, dropout_rate, seed, head_offset)
     b, l, hd_total = _check_geometry(q, num_heads, dec_len, "flash_attention_merged_bwd")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("g", g)):
         _build.require(t, name, torch.bfloat16, (b, l, hd_total), q.device)
@@ -257,7 +268,7 @@ def flash_attention_merged_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, num
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if seed is None else seed.data_ptr(), b, l, num_heads,
-            hd_total // num_heads, dec_len, thr, ks, _build.stream_of(q),
+            hd_total // num_heads, dec_len, head_offset, thr, ks, _build.stream_of(q),
         )
     _build.check(err, "flash_attention_merged_bwd")
     _build.LAUNCHES["flash_attention_merged_bwd"] += 1

@@ -16,6 +16,17 @@ in float32 before they are quantized, and the gelu in the Abramowitz-Stegun
 form of the Pallas kernel (``gelu_as``).  The plain version sums the int8
 products in float64, where every partial sum of at most 127^2 * 3072 terms
 is an exact integer, so its int32 accumulators are the TPU kernel's.
+
+Tensor parallelism (``fused_block_tp``, ``fused_block_tanh_tp``): the split
+forms on a rank's shards (wo [d, d / model], w1 [m / model, d], b1, w2
+[d, m / model]; parallel/tensor_parallel.py), the same five launches with
+the model group's all-reduce of an f32 partial after the attention-output
+and the FFN-out products (``tp_launch_plan``); the biases of those products
+and the residuals are added to the sums in the row passes.  Each is a
+generator of its steps (``fused_block_tp_steps``): it yields a partial and
+takes the sum, so one rank's run sums over its group and a check runs
+every rank's shards in one process (``tensor_parallel.drive``); its plain
+twin is the same sequence in PyTorch.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import torch
 from vitxtgqa_tpu_torch.ops import _build
 from vitxtgqa_tpu_torch.ops import gemm_sm90 as G
 from vitxtgqa_tpu_torch.ops.attention import quantize_kv
+from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
 
 LANE = 128
 MIN_ROWS = 2048  # the JAX gate (pallas_ffn.ffn_kernel_ok)
@@ -47,11 +59,19 @@ def _ln(x, scale, bias, eps):
 
 
 def _block_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps, res):
+    steps = _block_steps_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps, res)
+    return TP.drive([steps], TP.shard_sum)[0]
+
+
+def _block_steps_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps, res):
+    """The block's plain version as steps: it yields the f32 products of
+    the attention output and of the FFN out (a rank's partials under
+    tensor parallelism) and takes their sums."""
     dt = x_q.dtype
     mm = lambda a, w: torch.matmul(a.to(dt).float(), w.to(dt).float().t())
-    x = _ln(x_q.float() + (mm(ctx, wo) + bo.float()), s1.float(), g1.float(), eps)
+    x = _ln(x_q.float() + ((yield mm(ctx, wo)) + bo.float()), s1.float(), g1.float(), eps)
     h = gelu_erf(mm(x, w1) + b1.float()).to(dt)
-    out = _ln(x + (mm(h, w2) + b2.float()), s2.float(), g2.float(), eps)
+    out = _ln(x + ((yield mm(h, w2)) + b2.float()), s2.float(), g2.float(), eps)
     if res is None:
         return out.to(dt)
     return (res.float() + torch.tanh(out.to(dt).float())).to(dt)
@@ -80,6 +100,15 @@ def check_widths(name: str, d: int, m: int) -> None:
             f"{name} kernel: hidden 768 and a lane-aligned FFN width only, "
             f"got d={d}, m={m}"
         )
+
+
+def tp_launch_plan(rows: int, d: int = 768, dl: int = 384, ml: int = 1536):
+    """The split form's three GEMM launches on a rank's shares (dl of the
+    attention width, ml of the FFN): ctx_l Wo_l^T and h_l W2_l^T into f32
+    [rows, d] partials, xb W1_l^T into h_l [rows, ml]; its two row passes
+    take every row."""
+    return (G.launch(G.problem(rows, d, dl)), G.launch(G.problem(rows, ml, d)),
+            G.launch(G.problem(rows, d, ml)))
 
 
 def launch_plan(rows: int, d: int = 768, m: int = 3072):
@@ -158,6 +187,106 @@ def fused_block_tanh(res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
                                       w2, b2, s2, g2, eps)
     return _launch("fused_block_tanh", res, x_q, ctx, wo, bo, s1, g1, w1, b1,
                    w2, b2, s2, g2, eps)
+
+
+# ---------------------------------------------------------------------------
+# the split forms (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+
+def check_tp_widths(name: str, d: int, dl: int, ml: int) -> None:
+    """Raise unless the split form's launches take a rank's shares: hidden
+    768 and shares of the attention and FFN widths that are multiples of
+    the narrow GEMM tile's 128 columns."""
+    if d != 768 or dl <= 0 or dl % LANE or ml <= 0 or ml % LANE:
+        raise NotImplementedError(
+            f"{name} kernel: hidden 768 and a rank's attention and FFN shares multiples of "
+            f"{LANE} only, got d={d}, dl={dl}, ml={ml}")
+
+
+def gemm_f32(a, w):
+    """a w^T (f32 [M, N]) of a [M, K] and w [N, K] bf16 on the card: the
+    split forms' row-parallel products (csrc/fused_block.cu vt_gemm_f32)."""
+    (m, k), n = a.shape, w.shape[0]
+    _build.require(a, "a", torch.bfloat16, (m, k), a.device)
+    _build.require(w, "w", torch.bfloat16, (n, k), a.device)
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _build.lib().vt_gemm_f32(a.data_ptr(), k, w.data_ptr(), k, c.data_ptr(), m, n, k,
+                                       _build.stream_of(a))
+    _build.check(err, "gemm_f32")
+    return c
+
+
+def _block_steps_kernel(name, res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps):
+    d, dl, ml = x_q.shape[-1], wo.shape[1], w1.shape[0]
+    check_tp_widths(name, d, dl, ml)
+    dev = x_q.device
+    x2, c2 = x_q.reshape(-1, d), ctx.reshape(-1, dl)
+    rows = x2.shape[0]
+    _build.require(x2, "x_q", torch.bfloat16, (rows, d), dev)
+    _build.require(c2, "ctx", torch.bfloat16, (rows, dl), dev)
+    _build.require(wo, "wo", torch.bfloat16, (d, dl), dev)
+    _build.require(w1, "w1", torch.bfloat16, (ml, d), dev)
+    _build.require(w2, "w2", torch.bfloat16, (d, ml), dev)
+    r2 = None
+    if res is not None:
+        r2 = res.reshape(-1, d)
+        _build.require(r2, "res", torch.bfloat16, (rows, d), dev)
+    vec = [v.to(torch.float32).contiguous() for v in (bo, s1, g1, b1, b2, s2, g2)]
+    for v, n in zip(vec, (d, d, d, ml, d, d, d)):
+        _build.require(v, "bias/LayerNorm vector", torch.float32, (n,), dev)
+    bo, s1, g1, b1, b2, s2, g2 = vec
+    lib, st = _build.lib(), _build.stream_of(x2)
+    total = yield gemm_f32(c2, wo)
+    x32 = torch.empty((rows, d), dtype=torch.float32, device=dev)
+    xb = torch.empty((rows, d), dtype=torch.bfloat16, device=dev)
+    h = torch.empty((rows, ml), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(lib.vt_fused_block_tp_ln1(total.data_ptr(), bo.data_ptr(), x2.data_ptr(),
+                                               s1.data_ptr(), g1.data_ptr(), x32.data_ptr(),
+                                               xb.data_ptr(), rows, d, float(eps), st), name)
+        _build.check(lib.vt_fused_block_tp_ffn_in(xb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                                  h.data_ptr(), rows, d, ml, st), name)
+    total = yield gemm_f32(h, w2)
+    out = torch.empty((rows, d), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(lib.vt_fused_block_tp_ln2(x32.data_ptr(), total.data_ptr(), b2.data_ptr(),
+                                               s2.data_ptr(), g2.data_ptr(),
+                                               None if r2 is None else r2.data_ptr(),
+                                               out.data_ptr(), rows, d, float(eps), st), name)
+    _build.LAUNCHES[name] += 1
+    return out.reshape(x_q.shape)
+
+
+def fused_block_tp_steps(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps: float = 1e-12,
+                         res=None, plain: bool = False):
+    """One rank's split form of fused_block (or, with ``res``,
+    fused_block_tanh) on its shards (ctx [..., dl], wo [d, dl], w1 [ml, d],
+    b1 [ml], w2 [d, ml]) as a generator of its steps: it yields the f32
+    [rows, d] partials of the attention-output and FFN-out products and
+    takes their sums over the model group (tensor_parallel.drive), then
+    returns the block's output.  The kernels on a CUDA tensor, the plain
+    twin (the same sequence in PyTorch) on a CPU one or with ``plain``."""
+    if plain or not x_q.is_cuda:
+        return _block_steps_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps, res)
+    name = "fused_block_tp" if res is None else "fused_block_tanh_tp"
+    return _block_steps_kernel(name, res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps)
+
+
+def fused_block_tp(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps: float = 1e-12,
+                   tp=None, plain: bool = False):
+    """The split form of fused_block on this rank's shards, its partials
+    summed over ``tp`` (a ModelGroup; None: no sum, the unsplit block)."""
+    return TP.run_split(fused_block_tp_steps(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                                             eps, plain=plain), tp)
+
+
+def fused_block_tanh_tp(res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                        eps: float = 1e-12, tp=None, plain: bool = False):
+    """fused_block_tp with the ``res + tanh(out)`` epilogue."""
+    return TP.run_split(fused_block_tp_steps(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
+                                             eps, res=res, plain=plain), tp)
 
 
 # ---------------------------------------------------------------------------

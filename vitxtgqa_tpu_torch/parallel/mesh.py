@@ -1,5 +1,6 @@
-"""The device mesh of the port: the data, sequence-parallel and pipeline
-groups of an initialised torch.distributed world.
+"""The device mesh of the port: the data, tensor-parallel (model),
+sequence-parallel and pipeline groups of an initialised torch.distributed
+world.
 
 Counterpart of vitxtgqa_tpu/parallel/mesh.py's ``build_mesh``.  The JAX
 package shards one program over a device mesh; the port runs one process
@@ -15,6 +16,11 @@ is the JAX mesh's device of coordinates (d, m, s, p).
   batch must divide by the axis, as in the JAX trainer's multi-host branch
   (vitxtgqa_tpu/training/trainer.py:131-135): no rank sits idle (JAX's
   ``build_mesh(batch_size=)`` shrinks the axis instead).
+- The ``model`` axis (``Mesh.model``, a ModelGroup): the ranks of a data
+  row that split each transformer layer's heads and FFN width, each
+  holding only its shards of those weights (parallel/tensor_parallel.py,
+  Megatron's layout of JAX's DEFAULT_PARAM_RULES); the other parameters
+  and every activation between the layers are replicated.
 - The ``sp`` axis (``Mesh.sp``, an SPGroup): the ranks of a data row that
   hold its whole batch and split the query rows of each full-sequence
   attention (parallel/sequence_parallel.py).
@@ -24,13 +30,12 @@ is the JAX mesh's device of coordinates (d, m, s, p).
   with the whole stack's gradients (all-gathered over the group in its
   backward), so the pp ranks hold a data row's gradients as replicas.
 
-Every sp and pp rank of one data row computes what that row's rank would
-compute alone: the same rows, the same dropout and gumbel draws
+Every model, sp and pp rank of one data row computes what that row's rank
+would compute alone: the same rows, the same dropout and gumbel draws
 (training/step.py folds in the data coordinate only).  ``-1`` for the data
-axis takes the world over sp x pp; the product of the axes must equal the
-world size.  Tensor parallelism (the ``model`` axis) is not ported
-(ROADMAP.md queue 1 item 5: its slice splits the post-attention block
-kernels at the two all-reduces of row-parallel products).
+axis takes the world over model x sp x pp; the product of the axes must
+equal the world size.  The model axis runs with the data axis alone:
+model x sp and model x pp raise (ROADMAP.md queue 1 item 5).
 
 ``init_world`` joins the world that ``torchrun`` describes.
 """
@@ -48,13 +53,10 @@ import torch.distributed as dist
 from vitxtgqa_tpu_torch.parallel.collectives import process_count
 
 AXES = ("data", "model", "sp", "pp")
-# the JAX mesh's axis that the port does not run, and where it stands
-NOT_PORTED = {
-    "model": "tensor parallelism (the mesh's model axis) is not ported: it comes with the "
-             "tensor-parallel slice, which splits the post-attention block kernels at the "
-             "all-reduces of the row-parallel attn_out / ffn_out products "
-             "(ROADMAP.md queue 1 item 5)",
-}
+# the combinations of the JAX mesh's axes that the port does not run
+TP_WITH = ("tensor parallelism (the mesh's model axis) runs beside the data axis only: "
+           "model x sp and model x pp are the rest of the tensor-parallel slice "
+           "(ROADMAP.md queue 1 item 5)")
 # torchrun's description of the world
 WORLD_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -82,6 +84,18 @@ class DataGroup:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class ModelGroup:
+    """group: the torch.distributed process group of the tensor-parallel
+    ranks; rank: this process's rank in it (its heads are rank * H / size
+    .. (rank + 1) * H / size, its FFN columns alike); size: the number of
+    ranks."""
+
+    group: Any
+    rank: int
+    size: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class PPGroup:
     """group: the torch.distributed process group of the pipeline stages;
     rank: this process's stage; size: the number of stages; peers: the
@@ -96,12 +110,14 @@ class PPGroup:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """The mesh of this rank: ``shape`` the size of each axis of AXES,
-    ``coords`` this rank's coordinate on each; ``data``, ``sp`` and ``pp``
-    its groups, None where the axis has one rank (nothing to reduce)."""
+    ``coords`` this rank's coordinate on each; ``data``, ``model``, ``sp``
+    and ``pp`` its groups, None where the axis has one rank (nothing to
+    reduce)."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
     data: Optional[DataGroup] = None
+    model: Optional[ModelGroup] = None
     sp: Optional[SPGroup] = None
     pp: Optional[PPGroup] = None
 
@@ -109,12 +125,13 @@ class Mesh:
 def mesh_shape(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,
                batch_size: Optional[int] = None, world: Optional[int] = None) -> Dict[str, int]:
     """The size of each axis of the mesh over a world of ``world``
-    processes (default: this one's).  ``data=-1`` takes world / (sp * pp);
-    the product must equal the world; ``batch_size`` (the global batch),
-    where given, must divide by the data axis.  ``model > 1`` raises
-    NotImplementedError, a shape the world cannot hold ValueError."""
-    if model > 1:
-        raise NotImplementedError(f"mesh model={model}: " + NOT_PORTED["model"])
+    processes (default: this one's).  ``data=-1`` takes world / (model *
+    sp * pp), as JAX's build_mesh does; the product must equal the world;
+    ``batch_size`` (the global batch), where given, must divide by the data
+    axis.  ``model > 1`` beside sp or pp above 1 raises NotImplementedError,
+    a shape the world cannot hold ValueError."""
+    if model > 1 and (sp > 1 or pp > 1):
+        raise NotImplementedError(f"mesh model={model}, sp={sp}, pp={pp}: " + TP_WITH)
     world = process_count() if world is None else int(world)
     if min(sp, pp, model) < 1 or data == 0 or data < -1:
         raise ValueError(f"mesh data={data}, model={model}, sp={sp}, pp={pp}: sizes are >= 1 "
@@ -122,7 +139,8 @@ def mesh_shape(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,
     rest = model * sp * pp
     if data == -1:
         if world % rest:
-            raise ValueError(f"mesh sp={sp} x pp={pp} needs a multiple of {rest} processes; "
+            raise ValueError(f"mesh {'model=' + str(model) + ' x ' if model > 1 else ''}"
+                             f"sp={sp} x pp={pp} needs a multiple of {rest} processes; "
                              f"the world has {world}")
         data = world // rest
     if data * rest != world:
@@ -181,7 +199,8 @@ def build_mesh(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,
     rank = dist.get_rank() if initialized else 0
     coords = rank_coords(rank, shape)
     groups: Dict[str, Any] = {}
-    for axis, cls in (("data", DataGroup), ("sp", SPGroup), ("pp", PPGroup)):
+    for axis, cls in (("data", DataGroup), ("model", ModelGroup), ("sp", SPGroup),
+                      ("pp", PPGroup)):
         if shape[axis] == 1:
             continue
         group, ranks = _axis_group(shape, axis, coords)
@@ -196,6 +215,14 @@ def build_sp_group(sp: int, data: int = 1, model: int = 1, pp: int = 1) -> SPGro
     if sp < 2:
         raise ValueError(f"sp={sp}: a sequence-parallel group has at least 2 ranks")
     return build_mesh(data, model, sp, pp).sp
+
+
+def build_model_group(model: int, data: int = -1) -> ModelGroup:
+    """This rank's tensor-parallel group of build_mesh(data, model)
+    (``Options.tp``); the world must hold the mesh."""
+    if model < 2:
+        raise ValueError(f"model={model}: a tensor-parallel group has at least 2 ranks")
+    return build_mesh(data, model).model
 
 
 def build_data_group(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,

@@ -17,7 +17,7 @@ Data parallelism: ``VITXTGQA_DISTRIBUTED=1`` or
 ``torchrun`` describes (parallel/mesh.init_world: NCCL where every rank has
 its own card, gloo where ranks share one or run on the CPU) and leaves it
 at the end; the trainer then lays the config's mesh (``tpu.mesh.data``,
-``.sp``, ``.pp`` and ``tpu.pp_microbatches``) over the ranks
+``.model``, ``.sp``, ``.pp`` and ``tpu.pp_microbatches``) over the ranks
 (training/trainer.py).  Without a torchrun environment the switch raises;
 it never falls back to one process:
 
@@ -26,6 +26,9 @@ it never falls back to one process:
     python -m torch.distributed.run --nproc_per_node 4 -m vitxtgqa_tpu_torch.run \
         --config ... training_parameters.distributed_init=True \
         training_parameters.tpu.mesh.data=2 training_parameters.tpu.mesh.sp=2
+    python -m torch.distributed.run --nproc_per_node 4 -m vitxtgqa_tpu_torch.run \
+        --config ... training_parameters.distributed_init=True \
+        training_parameters.tpu.mesh.model=2          # data x model = 2 x 2
 """
 
 from __future__ import annotations

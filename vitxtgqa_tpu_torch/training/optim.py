@@ -43,6 +43,17 @@ equal bit for bit, where a kernel that adds with atomics (#1b's dQ) sums
 in another order on another rank and the replicas' parameters would drift
 apart by rounding.
 
+Tensor parallelism (the model's ``Options.tp``): a split layer's shards
+(parallel/tensor_parallel.is_sharded) hold different parameters on the
+ranks of a data row, so their gradients are summed over the data group
+only; every other gradient (and ``extra``) is summed over the mesh and
+divided by the model replicas, as the sp x pp replicas' are.  The clip
+norm counts each shard once: the shards' sum of squares summed over the
+model group, plus the whole parameters' once.  ``state_dict`` gathers the
+shards' master copies and moments over the model group (a collective:
+every rank calls it) and ``load_state_dict`` takes its rank's part of a
+whole state, so a checkpoint loads on any mesh.
+
 Mixed precision: where the model holds a parameter in bfloat16 (the
 transformer stacks in bf16, Options' default on the card), the optimizer
 keeps a float32 master copy, steps that, and writes it back rounded; the
@@ -56,7 +67,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
-from vitxtgqa_tpu_torch.parallel.collectives import all_reduce_flat_
+from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
+from vitxtgqa_tpu_torch.parallel.collectives import all_gather, all_reduce_flat_
 
 # configs/t2s_abinet.yml optimizer_attributes and training_parameters
 PRODUCTION_OPTIMIZER = {"type": "Adam", "params": {"lr": 1e-4, "eps": 1e-8, "weight_decay": 0}}
@@ -139,6 +151,7 @@ class Optimizer:
         opts = getattr(model, "opts", None)
         self.sp = getattr(opts, "sp", None)
         self.pp = getattr(opts, "pp", None)
+        self.tp = getattr(opts, "tp", None)
         self.base_lr = float(lr)
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
@@ -180,6 +193,8 @@ class Optimizer:
         place; returns their global L2 norm before clipping (float32, on
         the device, no sync)."""
         grads = self._master_grads()
+        if self.tp is not None:
+            return self._clip_tp(grads, list(extra))
         tensors = grads + list(extra)
         axes = [g for g in (self.group, self.sp, self.pp) if g is not None]
         # one axis: its group; more: the mesh, which spans the world (mesh_shape)
@@ -192,6 +207,28 @@ class Optimizer:
         if self.max_grad_norm:
             return torch.nn.utils.clip_grad_norm_([m for _, m in self.pairs], self.max_grad_norm)
         return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+    def _clip_tp(self, grads: List[torch.Tensor], extra: List[torch.Tensor]) -> torch.Tensor:
+        """clip() on a data x model mesh (the module docstring)."""
+        sharded = [TP.is_sharded(p) for p, _ in self.pairs]
+        shards = [g for g, s in zip(grads, sharded) if s]
+        whole = [g for g, s in zip(grads, sharded) if not s]
+        if self.group is not None:
+            all_reduce_flat_(shards, self.group.group)
+        all_reduce_flat_(whole + extra, None)
+        for t in whole + extra:
+            t.div_(self.tp.size)
+        square = lambda ts: (torch.stack([t.square().sum() for t in ts]).sum() if ts
+                             else grads[0].new_zeros(()))
+        sq = square(shards)
+        torch.distributed.all_reduce(sq, group=self.tp.group)
+        norm = torch.sqrt(sq + square(whole))
+        if self.max_grad_norm:
+            # torch.nn.utils.clip_grad_norm_'s coefficient
+            coef = torch.clamp(self.max_grad_norm / (norm + 1e-6), max=1.0)
+            for g in grads:
+                g.mul_(coef)
+        return norm
 
     def apply(self) -> None:
         """One update from the clipped gradients at the scheduled learning
@@ -217,9 +254,30 @@ class Optimizer:
         """The count of applied updates, the optimizer's state (Adam's or
         Adamax's moments, SGD's momentum buffers; under the key "adam") and
         the float32 master copies (None where the parameter is its own
-        master)."""
-        return {"count": self.count, "adam": self.inner.state_dict(),
-                "masters": [None if m is p else m.detach().clone() for p, m in self.pairs]}
+        master); under tensor parallelism the shards' made whole."""
+        adam = self.inner.state_dict()
+        masters = [None if m is p else m.detach().clone() for p, m in self.pairs]
+        if self.tp is not None:
+            adam, masters = self._resharded(adam, masters, lambda t, dim: all_gather(
+                t, self.tp.group, dim=dim))
+        return {"count": self.count, "adam": adam, "masters": masters}
+
+    def _resharded(self, adam: Dict[str, Any], masters: List[Any], fn):
+        """``fn(tensor, dim)`` (a gather or a shard) applied to each split
+        parameter's master copy and to its optimizer state's tensors of the
+        parameter's shape (``whole``: their shapes before)."""
+        state = dict(adam["state"])
+        masters = list(masters)
+        for i, (p, m) in enumerate(self.pairs):
+            if not TP.is_sharded(p):
+                continue
+            dim = p.tp_dim
+            if masters[i] is not None:
+                masters[i] = fn(masters[i], dim)
+            if i in state:
+                state[i] = {k: fn(v, dim) if torch.is_tensor(v) and v.dim() == m.dim() and
+                            v.dim() > 0 else v for k, v in state[i].items()}
+        return {**adam, "state": state}, masters
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore ``state_dict()``'s output over the same parameters; the
@@ -227,6 +285,11 @@ class Optimizer:
         if len(state["masters"]) != len(self.pairs):
             raise ValueError(f"optimizer state for {len(state['masters'])} parameters, "
                              f"this optimizer has {len(self.pairs)}")
+        if self.tp is not None:
+            adam, masters = self._resharded(
+                state["adam"], state["masters"],
+                lambda t, dim: TP.shard(t, dim, self.tp.rank, self.tp.size))
+            state = {**state, "adam": adam, "masters": masters}
         self.count = int(state["count"])
         with torch.no_grad():
             for (p, m), saved in zip(self.pairs, state["masters"]):

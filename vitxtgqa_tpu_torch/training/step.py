@@ -13,9 +13,11 @@ one mask over the global batch); the losses are the rank's shares
 (losses.py), and the step's losses ride the gradients' all-reduce, so the
 NaN tripwire decides on the global loss and norm on every rank alike and
 the returned loss is the global one.  The group is the mesh's data group:
-every sp and pp rank of one data row replicates that row's compute, so
-they take the same rows and draw the same dropout and gumbel numbers (the
-generators fold in the data coordinate, never the world rank).
+every model, sp and pp rank of one data row replicates that row's rows,
+so they take the same rows and draw the same dropout and gumbel numbers
+(the generators fold in the data coordinate, never the world rank); a
+tensor-parallel rank's kernels draw their heads' part of the whole
+layer's masks.
 """
 
 from __future__ import annotations

@@ -88,13 +88,13 @@ from vitxtgqa_tpu_torch.losses import Losses
 from vitxtgqa_tpu_torch.metrics.metrics import MetricContext, Metrics, decode_answers, pred_indices
 from vitxtgqa_tpu_torch.options import entry_device
 from vitxtgqa_tpu_torch.parallel.collectives import (
-    assert_replicas_equal,
     broadcast_scalar,
     gather_objects,
     is_main_process,
     process_count,
 )
 from vitxtgqa_tpu_torch.parallel.mesh import Mesh, build_mesh, mesh_shape
+from vitxtgqa_tpu_torch.parallel.tensor_parallel import check_replicas, local_state, whole_state
 from vitxtgqa_tpu_torch.training.checkpoint import Checkpoint
 from vitxtgqa_tpu_torch.training.early_stopping import EarlyStopping
 from vitxtgqa_tpu_torch.training.optim import build_optimizer
@@ -146,12 +146,17 @@ def options_from_config(tp: Any, kernel_free: bool = False,
       * kv_cache_int8, fused_decode, fused_decode_max_batch, w8a8,
         compact_serving: the Options fields of the same names;
       * fused_grads, compact_train, dense_mm, split_dense: false, or raise;
-      * mesh: data x sp x pp over the world's processes (parallel/mesh.
-        mesh_shape: data -1 takes the rest, the product the world size,
-        the global batch divisible by the data axis); ``mesh`` (the
-        trainer's build_mesh, required where sp or pp is above 1) gives
-        Options its sp and pp groups; model above 1 raises (the
-        tensor-parallel slice, ROADMAP.md queue 1 item 5);
+      * mesh: data x model x sp x pp over the world's processes
+        (parallel/mesh.mesh_shape: data -1 takes the rest, the product the
+        world size, the global batch divisible by the data axis; model
+        beside sp or pp raises); ``mesh`` (the trainer's build_mesh,
+        required where model, sp or pp is above 1) gives Options its tp,
+        sp and pp groups.  On a mesh of data x model x pp above 1 the
+        int8 cache and W8A8 are off whatever the config says, as the JAX
+        trainer turns them off with its Pallas kernels there
+        (vitxtgqa_tpu/training/trainer.py:402-415; the port keeps its
+        kernels): such a mesh predicts over the bf16 cache, as JAX's
+        does; an sp-only mesh keeps them, as in JAX;
       * pp_microbatches: Options.pp_microbatches (0: one a stage).
     prefetch, async_checkpoint, profile_steps and debug_nans are read by
     the trainer or have no effect on the model."""
@@ -185,12 +190,14 @@ def options_from_config(tp: Any, kernel_free: bool = False,
         if _tpu_get(tpu, key, False):
             raise NotImplementedError(
                 f"training_parameters.tpu.{key} is not ported (ROADMAP.md queue 1 item 6)")
-    axes = mesh_axes(tp)
-    shape = mesh_shape(**axes, batch_size=getattr(tp, "batch_size", None))
-    if mesh is None and (shape["sp"] > 1 or shape["pp"] > 1):
-        raise ValueError(f"mesh sp={shape['sp']}, pp={shape['pp']}: options_from_config takes "
-                         "the built mesh (mesh=parallel/mesh.build_mesh(...), which every rank "
-                         "calls alike)")
+    shape = (mesh.shape if mesh is not None
+             else mesh_shape(**mesh_axes(tp), batch_size=getattr(tp, "batch_size", None)))
+    if mesh is None and (shape["model"] > 1 or shape["sp"] > 1 or shape["pp"] > 1):
+        raise ValueError(f"mesh model={shape['model']}, sp={shape['sp']}, pp={shape['pp']}: "
+                         "options_from_config takes the built mesh (mesh=parallel/mesh."
+                         "build_mesh(...), which every rank calls alike)")
+    # the JAX trainer's test (its spmd_devs): data x model x pp above 1
+    int8_ok = shape["data"] * shape["model"] * shape["pp"] == 1
     remat = str(_tpu_get(tpu, "remat", "none"))
     if remat in ("None", "false", "False"):
         remat = "none"
@@ -199,11 +206,12 @@ def options_from_config(tp: Any, kernel_free: bool = False,
         # no kernel to take float32 on the card: the plain versions are the
         # only ones its forward reaches
         plain=bool(kernel_free and cuda and dtype == torch.float32),
-        kv_cache_int8=bool(_tpu_get(tpu, "kv_cache_int8", False)),
+        kv_cache_int8=int8_ok and bool(_tpu_get(tpu, "kv_cache_int8", False)),
         fused_decode=bool(_tpu_get(tpu, "fused_decode", True)),
         fused_decode_max_batch=int(_tpu_get(tpu, "fused_decode_max_batch", 2)),
-        w8a8=bool(_tpu_get(tpu, "w8a8", False)),
+        w8a8=int8_ok and bool(_tpu_get(tpu, "w8a8", False)),
         compact_serving=bool(_tpu_get(tpu, "compact_serving", False)),
+        tp=mesh.model if mesh is not None else None,
         sp=mesh.sp if mesh is not None else None,
         pp=mesh.pp if mesh is not None else None,
         pp_microbatches=int(_tpu_get(tpu, "pp_microbatches", 0)),
@@ -280,6 +288,8 @@ class BaseTrainer:
         # axis: None where it has one rank
         self.mesh = build_mesh(**mesh_axes(tp), batch_size=int(tp.batch_size))
         self.opts = options_from_config(tp, kernel_free(self.config.model), mesh=self.mesh)
+        asked = {k: bool(_tpu_get(getattr(tp, "tpu", None), k, False))
+                 for k in ("kv_cache_int8", "w8a8")}
         self.device = self.opts.device
         self.dp = self.mesh.data
         self.rank, self.world = (self.dp.rank, self.dp.size) if self.dp else (0, 1)
@@ -296,10 +306,17 @@ class BaseTrainer:
         )
         registry.register("writer", self.logger)
         self.logger.write(f"device {self.device}, compute dtype {self.opts.dtype}")
+        dropped = [k for k, on in asked.items() if on and not getattr(self.opts, k)]
+        if dropped:
+            self.logger.write(
+                f"{' and '.join(dropped)} off on the {self.mesh.shape} mesh, as the JAX trainer "
+                "turns them off with its kernels on a data x model x pp mesh above one device: "
+                "the predictions go over the bf16 cache")
         if process_count() > 1:
             shape = self.mesh.shape
             self.logger.write(
-                f"mesh data {shape['data']} x sp {shape['sp']} x pp {shape['pp']} over "
+                f"mesh data {shape['data']} x model {shape['model']} x sp {shape['sp']} x pp "
+                f"{shape['pp']} over "
                 f"{process_count()} processes: {int(tp.batch_size) // self.world} rows of each "
                 f"global batch of {tp.batch_size} a data row"
                 + (f", {self.opts.pp_microbatches or shape['pp']} microbatches a pipelined pass"
@@ -412,8 +429,9 @@ class BaseTrainer:
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.write(f"model {model_key}: {n_params / 1e6:.1f}M params")
         if process_count() > 1:
-            # the same seeded init on every rank of the world: checked once
-            assert_replicas_equal(list(self.model.parameters()), "the initial parameters")
+            # the same seeded init on every rank of the world (a split
+            # layer's shards on the ranks of its model coordinate): checked once
+            check_replicas(list(self.model.parameters()), "the initial parameters", self.dp)
         self.losses = Losses(list(getattr(self.model_cfg, "losses", []) or []),
                              self.dataset_name, group=self.dp)
         self.metrics = Metrics(list(getattr(self.model_cfg, "metrics", []) or []),
@@ -467,12 +485,12 @@ class BaseTrainer:
             # a bare model blob, the port's or the reference's: weights
             # only, the reference's dead parameters dropped
             weights, dropped = reference_state(state["model"], self.model)
-            self.model.load_state_dict(weights)
+            self.model.load_state_dict(local_state(self.model, weights))
             self.logger.write(f"loaded model weights from {path}" + (
                 f"; dropped {len(dropped)} names the model does not have, e.g. {dropped[:5]}"
                 if dropped else ""))
             return
-        self.model.load_state_dict(state["model"])
+        self.model.load_state_dict(local_state(self.model, state["model"]))
         self.optimizer.load_state_dict(state["optimizer"])
         meta = self.checkpoint.load_meta(path)
         self.iteration = int(meta["iteration"])
@@ -558,9 +576,9 @@ class BaseTrainer:
             r = train_step(self.model, self.losses, self.optimizer, tensors,
                            step_generators(self.rng_seed, self.iteration, self.device, self.dp))
             if not replicas_checked and process_count() > 1:
-                # every sp / pp / data rank steps alike: checked after the first step
-                assert_replicas_equal(list(self.model.parameters()),
-                                      "the parameters after the first step")
+                # every model / sp / pp / data rank steps alike: checked after the first step
+                check_replicas(list(self.model.parameters()),
+                               "the parameters after the first step", self.dp)
                 replicas_checked = True
             self._sync()
             t1 = time.perf_counter()
@@ -662,12 +680,14 @@ class BaseTrainer:
 
     def _state(self):
         """The snapshot's state on rank 0 (None on the others, which write
-        nothing); the iteration counter and the data position ride in
-        meta.json."""
+        nothing), whole: a tensor-parallel run's shards and their optimizer
+        state gathered over the model group first (every rank takes part);
+        the iteration counter and the data position ride in meta.json."""
+        model = whole_state(self.model, self.model.state_dict())
+        optimizer = self.optimizer.state_dict()
         if not is_main_process():
             return None
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "generator": self.data_rng}
+        return {"model": model, "optimizer": optimizer, "generator": self.data_rng}
 
     # ------------------------------------------------------------------ eval
     @staticmethod

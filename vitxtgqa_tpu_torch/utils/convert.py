@@ -16,7 +16,9 @@ becomes ``weight``, LayerNorm ``scale`` becomes ``weight``.  The legacy
 image-VQA models (pythia and its ablations, lorra, ban,
 top_down_bottom_up) are mapped from their flat keys alone
 (``legacy_entries``), their RNN cells onto torch's stacked LSTM / GRU
-weights.
+weights.  The results are whole tensors: a tensor-parallel model
+(Options.tp) loads its shards of them through
+parallel/tensor_parallel.local_state.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from vitxtgqa_tpu_torch.parallel.tensor_parallel import local_state, sharded_dims
 from vitxtgqa_tpu_torch.training.checkpoint import unwrap_state_dict
 
 CLASSIFIER, CLASSIFIER_ALIAS = "classifier.module.", "classifier."
@@ -48,9 +49,17 @@ def reference_state(sd: Dict[str, object], model: torch.nn.Module
     ``sd``, the names of ``sd`` it dropped).  Every parameter of the model
     is read under its own name or its alias; a persistent buffer that
     ``sd`` lacks keeps the model's value.  Values keep their dtype:
-    ``load_state_dict`` casts them to the model's."""
+    ``load_state_dict`` casts them to the model's.  A tensor-parallel
+    model's split layers are read whole (their shape times the model
+    group along the shard dim): tensor_parallel.local_state takes the
+    rank's part."""
     own = model.state_dict()
     params = {name for name, _ in model.named_parameters()}
+    tp = getattr(getattr(model, "opts", None), "tp", None)
+    for name, dim in sharded_dims(model).items():
+        shape = list(own[name].shape)
+        shape[dim] *= tp.size
+        own[name] = own[name].new_empty(shape)
     state, used, missing = {}, set(), []
     for name, current in own.items():
         src = next((a for a in _aliases(name) if a in sd), None)
@@ -77,5 +86,5 @@ def load_reference_weights(model: torch.nn.Module, path: str) -> List[str]:
     """Load a reference (or port) torch file into ``model``; returns the
     names it dropped."""
     state, dropped = reference_state(load_state_dict(path), model)
-    model.load_state_dict(state)
+    model.load_state_dict(local_state(model, state))
     return dropped
