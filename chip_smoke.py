@@ -296,7 +296,19 @@ Phases (each prints one or more lines; any failure exits non-zero):
           (expected_tp_launches), TP_FAULTS outside the limits; then
           dp_cli with mesh.model=2 on two processes, its ckpt/final
           restored whole in this process (reload_whole); (iii)
-          entry.dryrun_multichip(4), data 2 x model 2; its seconds.
+          entry.dryrun_multichip(4), data 2 x model 2; its seconds;
+       t. the model axis beside sp and pp, and model 4: (i) in this
+          process the split forms at model 4 (check_tp4_blocks: 192
+          attention columns a rank, #9b's dctx and dWo on the GEMM body's
+          64-column tiles), their times beside model 2's, and #1 / #1b on
+          a model-4 rank's 3 heads; (ii) one world of four gloo ranks
+          sharing the card running the plans "tsp" (model 2 x sp 2:
+          full-eval at 6 and the step at TP_TRAIN_BATCH, #10 / #10b on a
+          rank's 6 heads, VOCAB_FAULTS outside the limits), "tpp" (model 2
+          x pp 2: full-eval, the step) and "tp4" (model 4: the step), each
+          against one process, the launches as derived
+          (expected_mesh_launches); (iii) entry.dryrun_multichip(4,
+          model=2, sp=2) and (4, model=2, pp=2); its seconds.
      a-c, f-g, m, n and p serve behind a ServingEngine; each slice checks its
      launch counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
@@ -806,19 +818,47 @@ def expected_sp_launches(cfg, batch: int, opts, sp: int = SP_RANKS, full_eval: b
     return out
 
 
-def expected_tp_launches(cfg, batch: int, opts, full_eval: bool = False, train: bool = False,
-                         text_len: int = 20, dec_len: int = DEC_LEN) -> dict:
-    """Kernel launches per rank of one forward (expected_launches) or one
-    training step (expected_train_launches) under tensor parallelism
-    (Options.tp; the bf16 cache, no W8A8): the split forms in the eval and
-    training blocks' places, as often (a layer's heads and FFN split, its
-    rows whole on every rank); the flash and decode kernels as in one
-    process, on the rank's heads."""
-    out = (expected_train_launches(cfg, opts) if train
-           else expected_launches(cfg, batch, opts, full_eval, text_len, dec_len))
+def tp_forms(out: dict) -> dict:
+    """``out`` (launches of a rank without a model axis) under tensor
+    parallelism (Options.tp; the bf16 cache, no W8A8): the split forms in
+    the eval and training blocks' places, as often (a layer's heads and FFN
+    split, its rows whole on every rank); the flash and decode kernels as
+    they were, on the rank's heads."""
     for name in ("fused_block", "fused_block_tanh", "block_train_fwd", "block_train_bwd"):
         out[name + "_tp"], out[name] = out[name], 0
     return out
+
+
+def expected_tp_launches(cfg, batch: int, opts, full_eval: bool = False, train: bool = False,
+                         text_len: int = 20, dec_len: int = DEC_LEN) -> dict:
+    """Kernel launches per rank of one forward (expected_launches) or one
+    training step (expected_train_launches) on a data x model mesh
+    (tp_forms)."""
+    return tp_forms(expected_train_launches(cfg, opts) if train
+                    else expected_launches(cfg, batch, opts, full_eval, text_len, dec_len))
+
+
+def expected_mesh_launches(cfg, batch: int, opts, mesh, full_eval: bool = False,
+                           train: bool = False, **geometry) -> dict:
+    """Kernel launches per rank of one forward or one training step on
+    ``mesh`` (a parallel/mesh.Mesh) at ``batch`` rows a data row: a
+    pipeline stage's (expected_pp_launches), or a data row's over sp ranks
+    (expected_sp_launches), or one process's; on a model axis with the
+    split forms in the blocks' places (tp_forms).  ``geometry``: text_len,
+    dec_len."""
+    pp, sp = mesh.shape["pp"], mesh.shape["sp"]
+    if pp > 1 and sp > 1:
+        raise ValueError("expected_mesh_launches: sp x pp is no plan of this script")
+    if pp > 1:
+        out = expected_pp_launches(cfg, batch, opts, pp, mesh.coords["pp"], full_eval, train,
+                                   **geometry)
+    elif sp > 1:
+        out = expected_sp_launches(cfg, batch, opts, sp, full_eval, train, **geometry)
+    elif train:
+        out = expected_train_launches(cfg, opts)
+    else:
+        out = expected_launches(cfg, batch, opts, full_eval, **geometry)
+    return out if mesh.model is None else tp_forms(out)
 
 
 def expected_vit_launches(cfg, batch: int) -> dict:
@@ -6087,8 +6127,12 @@ def legacy_slice(dev, card) -> dict:
 # over two ranks
 # the worlds of slices r and s: (ranks, (data, model, sp, pp))
 MESH_PLANS = {"pp3": (3, (1, 1, 1, 3)), "pp2": (2, (1, 1, 1, 2)), "dsp": (4, (2, 1, 2, 1)),
-              "tp2": (2, (1, 2, 1, 1))}
-R_PLANS, S_PLANS = ("pp3", "pp2", "dsp"), ("tp2",)
+              "tp2": (2, (1, 2, 1, 1)), "tsp": (4, (1, 2, 2, 1)), "tpp": (4, (1, 2, 1, 2)),
+              "tp4": (4, (1, 4, 1, 1))}
+R_PLANS, S_PLANS, T_PLANS = ("pp3", "pp2", "dsp"), ("tp2",), ("tsp", "tpp", "tp4")
+# what a plan's ranks run (default: full-eval on a pipeline or a model
+# axis, and the step)
+PLAN_PARTS = {"pp2": ("eval",), "tp4": ("step",)}
 # full-eval under a pipeline: batch 6 (the text BERT's 6 rows and the MMT's
 # 12 teacher-forced rows divide into 3 and 2 microbatches); a dry run's
 # global batch (the CPU, tiny widths at the production layer counts)
@@ -6103,6 +6147,12 @@ MESH_FAULTS = ("stage_skipped", "summed_twice")
 # the whole parameters' gradients summed over the model replicas and not
 # averaged
 TP_FAULTS = ("partial_kept", "replicas_summed")
+# ... and of the vocabulary-parallel weights (slice t, model x sp): the
+# word embeddings' lookup left each rank's own rows (its all-reduce
+# skipped), or the pointer's scores left each rank's partial sum
+VOCAB_FAULTS = ("lookup_unsummed", "pointer_unsummed")
+# the planted faults of a plan's step
+PLAN_FAULTS = {"pp3": MESH_FAULTS, "tp2": TP_FAULTS, "tsp": VOCAB_FAULTS}
 # slice s's step: the global batch (gloo carries every f32 partial through
 # the host: four all-reduces a layer of rows x 768 floats)
 TP_TRAIN_BATCH = 8
@@ -6180,20 +6230,42 @@ def expected_pp_launches(cfg, batch: int, opts, pp: int, stage: int, full_eval: 
 
 @contextlib.contextmanager
 def mesh_fault(name):
-    """Plant one of MESH_FAULTS or TP_FAULTS for the duration:
+    """Plant one of MESH_FAULTS, TP_FAULTS or VOCAB_FAULTS for the duration:
     "stage_skipped" makes stage 1 of every pipelined pass return its input,
     "summed_twice" makes the optimizer's gradient all-reduce sum over the
     pp stages once more; "partial_kept" leaves the attention's input
     gradient each rank's partial (copy_to_model's backward passes it
     through), "replicas_summed" keeps the whole parameters' gradients
-    summed over the model replicas (no mean)."""
+    summed over the model replicas (no mean); "lookup_unsummed" leaves a
+    vocabulary-parallel lookup each rank's own rows (no all-reduce),
+    "pointer_unsummed" the OCR pointer's scores each rank's partial."""
+    import torch
+
+    from vitxtgqa_tpu_torch.models.common import OcrPtrNet
     from vitxtgqa_tpu_torch.parallel import pipeline as P
     from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
     from vitxtgqa_tpu_torch.training import optim as O
 
     saved = [(P, "gpipe", P.gpipe), (O.Optimizer, "clip", O.Optimizer.clip),
-             (TP._CopyToModel, "backward", TP._CopyToModel.__dict__["backward"])]
-    if name == "stage_skipped":
+             (TP._CopyToModel, "backward", TP._CopyToModel.__dict__["backward"]),
+             (TP, "vocab_lookup", TP.vocab_lookup),
+             (OcrPtrNet, "scores_from_keys", OcrPtrNet.scores_from_keys)]
+    if name == "lookup_unsummed":
+        def own_rows(table, ids, tp):
+            local = ids - tp.rank * table.shape[0]
+            hit = (local >= 0) & (local < table.shape[0])
+            got = table[local.clamp(0, table.shape[0] - 1)]
+            return torch.where(hit[..., None], got, torch.zeros_like(got))
+        TP.vocab_lookup = own_rows
+    elif name == "pointer_unsummed":
+        def partial(self, query_inputs, k, attention_mask):
+            tp, self.tp = self.tp, None
+            try:
+                return saved[4][2](self, query_inputs, k, attention_mask)
+            finally:
+                self.tp = tp
+        OcrPtrNet.scores_from_keys = partial
+    elif name == "stage_skipped":
         def skipping(stage_fn, layers, payload, group, num_microbatches=0):
             fn = lambda ls, inp, i: inp["h"] if group.rank == 1 else stage_fn(ls, inp, i)
             return saved[0][2](fn, layers, payload, group, num_microbatches)
@@ -6275,7 +6347,7 @@ def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
     tb = to_device(batch, sl.dev)
     # a model mesh predicts over the bf16 cache, as JAX's trainer does
     int8 = mesh.model is None
-    model = sl.model(False, kv_cache_int8=int8, pp=mesh.pp, tp=mesh.model)
+    model = sl.model(False, kv_cache_int8=int8, sp=mesh.sp, pp=mesh.pp, tp=mesh.model)
     run = lambda m: m(tb, group_generator(0, 0, sl.dev))
     with torch.inference_mode():
         run(model)   # warm-up
@@ -6283,28 +6355,27 @@ def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
         out, ms = mesh_timed(lambda: run(model), sl.dev)
     counts = _build.launch_counts()
     stage, pp = mesh.coords["pp"], mesh.shape["pp"]
+    label = f"slice {slice_of(name)} {name}"
     if sl.dev.type == "cpu":
         want = {n: 0 for n in REPLACES}
-    elif mesh.model is not None:
-        want = expected_tp_launches(sl.cfg, b, model.opts, full_eval=True, **mesh_geometry(sl))
     else:
-        want = expected_pp_launches(sl.cfg, b, model.opts, pp, stage, full_eval=True,
-                                    **mesh_geometry(sl))
+        want = expected_mesh_launches(sl.cfg, b, model.opts, mesh, full_eval=True,
+                                      **mesh_geometry(sl))
     if counts != want:
-        fail(f"slice r {name}, rank {rank} (stage {stage}): launches {counts}, expected {want}")
+        fail(f"{label}, rank {rank} (stage {stage}): launches {counts}, expected {want}")
     scores = {k: v.float().cpu().numpy() for k, v in out.items()
               if k in ("ref_scores", "pos_scores", "neg_scores")}
     tok = scores["pos_scores"].argmax(-1)
     every = C.gather_objects({"rank": rank, "stage": stage, "tokens": tok.tolist(), "ms": ms,
                               "launches": {k: v for k, v in counts.items() if v}})
     if any(e["tokens"] != every[0]["tokens"] for e in every):
-        fail(f"slice r {name}: the ranks' tokens differ")
+        fail(f"{label}: the ranks' tokens differ")
     summary = {"launches": counts, "expected": want}
     if rank != 0:
         return summary
     for k, v in scores.items():
         if v.shape[0] != b or not np.isfinite(v).all():
-            fail(f"slice r {name}: {k} {v.shape}, finite {np.isfinite(v).all()}")
+            fail(f"{label}: {k} {v.shape}, finite {np.isfinite(v).all()}")
     one = sl.model(False, kv_cache_int8=int8)
     with torch.inference_mode():
         run(one)
@@ -6316,9 +6387,9 @@ def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
     same = (tok == tok_1).all(-1)
     diffs = {k: float(np.abs(scores[k][same] - want_s[k][same]).max()) if same.any() else None
              for k in ("ref_scores", "neg_scores")}
-    where = (f"over {mesh.shape['model']} tensor-parallel ranks (bf16 cache)" if not int8
-             else f"over {pp} pipeline stages")
-    print(f"slice {'s' if not int8 else 'r'} {name}: full-eval at batch {b} {where}, launches "
+    where = (f"on model {mesh.shape['model']} x sp {mesh.shape['sp']} x pp {pp} (bf16 cache)"
+             if not int8 else f"over {pp} pipeline stages")
+    print(f"{label}: full-eval at batch {b} {where}, launches "
           "a rank "
           + "; ".join(f"rank {e['rank']} (stage {e['stage']}) " + json.dumps(e["launches"])
                       for e in every)
@@ -6329,8 +6400,7 @@ def mesh_forward(sl, mesh, rank: int, name: str, card: str) -> dict:
           flush=True)
     if agree < MIN_TOKEN_AGREEMENT or not same.any() or not all(
             d <= REFNEG_TOL for d in diffs.values()):
-        fail(f"slice {'s' if not int8 else 'r'} {name}: the full-eval on the mesh disagrees "
-             "with one process")
+        fail(f"{label}: the full-eval on the mesh disagrees with one process")
     summary.update(token_agreement=agree, refneg_max_abs_diff=diffs,
                    forward_ms=[e["ms"] for e in every], one_process_forward_ms=one_ms)
     return summary
@@ -6397,10 +6467,8 @@ def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
     the one-process step on the global batch at slice e's limits (loss,
     gradient norm, every parameter's applied gradient), the ranks'
     parameters equal after the update, each rank's launches as derived
-    (expected_pp_launches for its stage, expected_sp_launches for the
-    rows of a data row, expected_tp_launches on a model mesh); under a
-    pipeline each planted fault of MESH_FAULTS, on a model mesh each of
-    TP_FAULTS, outside the limits; on a model mesh the global batch is
+    (expected_mesh_launches); each planted fault of the plan
+    (PLAN_FAULTS) outside the limits; on a model mesh the global batch is
     TP_TRAIN_BATCH; each rank's ms of the step and of a second one,
     and of the second's collectives (mesh_collective_ms)."""
     from vitxtgqa_tpu_torch.entry import dryrun_model_and_batch, step_gaps, within
@@ -6413,34 +6481,29 @@ def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
     d, n = mesh.coords["data"], mesh.shape["data"]
     rows = to_device({k: v[d::n] for k, v in batch.items()}, sl.dev)
     kern = mesh_step(sl, mesh, rows)
-    stage, pp, sp = mesh.coords["pp"], mesh.shape["pp"], mesh.shape["sp"]
+    pp, sp = mesh.shape["pp"], mesh.shape["sp"]
+    label = f"slice {slice_of(name)} {name}"
     if sl.dev.type == "cpu":
         want = {k: 0 for k in REPLACES}
-    elif tp:
-        want = expected_tp_launches(sl.cfg, g // n, kern["model_opts"], train=True)
-    elif pp > 1:
-        want = expected_pp_launches(sl.cfg, g // n, kern["model_opts"], pp, stage, train=True)
     else:
-        want = expected_sp_launches(sl.cfg, g // n, kern["model_opts"], sp, train=True)
+        want = expected_mesh_launches(sl.cfg, g // n, kern["model_opts"], mesh, train=True)
     if kern["launches"] != want:
-        fail(f"slice r {name}, rank {rank}: launches {kern['launches']}, expected {want}")
+        fail(f"{label}, rank {rank}: launches {kern['launches']}, expected {want}")
     spent = {}
     again = mesh_step(sl, mesh, rows, collectives=spent)
-    planted = TP_FAULTS if tp else MESH_FAULTS if pp > 1 else ()
-    faults = {f: mesh_step(sl, mesh, rows, fault=f) for f in planted}
+    faults = {f: mesh_step(sl, mesh, rows, fault=f) for f in PLAN_FAULTS.get(name, ())}
     every = C.gather_objects({"rank": rank, "coords": mesh.coords, "loss": kern["loss"],
                               "norm": kern["norm"], "ms": [kern["ms"], again["ms"]],
                               "collectives_ms": spent,
                               "launches": {k: v for k, v in kern["launches"].items() if v}})
     if any((e["loss"], e["norm"]) != (every[0]["loss"], every[0]["norm"]) for e in every):
-        fail(f"slice r {name}: the ranks' global loss and gradient norm differ: {every}")
+        fail(f"{label}: the ranks' global loss and gradient norm differ: {every}")
     summary = {"launches": kern["launches"], "expected": want}
     if rank != 0:
         return summary
     del rows
     ref = mesh_step(sl, None, to_device(batch, sl.dev))
     limits = (LOSS_REL_TOL, GNORM_REL_TOL, GRAD_REL_TOL, None)
-    label = f"slice {'s' if tp else 'r'} {name}"
     print(f"{label}: a step at global batch {g} on data {n} x model {mesh.shape['model']} x sp "
           f"{sp} x pp {pp}, "
           "launches a rank " + "; ".join(f"rank {e['rank']} {e['coords']} "
@@ -6480,20 +6543,27 @@ def mesh_train(sl, mesh, rank: int, name: str, card: str) -> dict:
     return summary
 
 
-def mesh_rank(rank: int, directory: str, card: str, plan: str, dry: bool):
-    """One rank of a slice r world (torch.multiprocessing.spawn's target):
-    gloo with every rank on the one card (or the CPU for a dry run, tiny
-    widths at the production layer counts, float32), the mesh of
-    MESH_PLANS[plan]; a pipeline and a model mesh run the full-eval check,
-    every plan but pp 2 the step's; rank 0 writes the summary to
-    ``directory``."""
+def slice_of(plan: str) -> str:
+    """The letter of the slice that runs ``plan``."""
+    return "r" if plan in R_PLANS else "s" if plan in S_PLANS else "t"
+
+
+def mesh_rank(rank: int, directory: str, card: str, plans, dry: bool):
+    """One rank of a slice r, s or t world (torch.multiprocessing.spawn's
+    target): gloo with every rank on the one card (or the CPU for a dry
+    run, tiny widths at the production layer counts, float32), the mesh of
+    MESH_PLANS[plan] for each of ``plans`` (a plan, or several of one
+    world size, run in turn in the one world): full-eval on a pipeline or
+    a model axis and the step (PLAN_PARTS); rank 0 writes the summary to
+    ``directory``, by plan where ``plans`` is several."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
     from vitxtgqa_tpu_torch.parallel.mesh import build_mesh, rank_device
 
-    world, (data, model, sp, pp) = MESH_PLANS[plan]
+    names = (plans,) if isinstance(plans, str) else tuple(plans)
+    world = MESH_PLANS[names[0]][0]
     if dry:
         torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6502,38 +6572,49 @@ def mesh_rank(rank: int, directory: str, card: str, plan: str, dry: bool):
     cfg, nf = mesh_config(dev)
     dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous", rank=rank,
                             world_size=world)
+    out = {}
     try:
-        t0 = time.perf_counter()
         sl = Slices(dev, quiet=True, cfg=cfg, nf=nf, dtype=torch.float32 if dry else None)
-        mesh = build_mesh(data, model, sp, pp)
-        out = {}
-        if pp > 1 or model > 1:
-            out["eval"] = mesh_forward(sl, mesh, rank, plan, card)
-        if plan != "pp2":
-            out["step"] = mesh_train(sl, mesh, rank, plan, card)
-        out["rank_s"] = time.perf_counter() - t0
+        for plan in names:
+            t0 = time.perf_counter()
+            n, (data, model, sp, pp) = MESH_PLANS[plan]
+            if n != world:
+                raise ValueError(f"mesh_rank: plan {plan} needs {n} ranks, the world has {world}")
+            mesh = build_mesh(data, model, sp, pp)
+            parts = PLAN_PARTS.get(plan, ("eval", "step") if pp > 1 or model > 1 else ("step",))
+            res = {}
+            if "eval" in parts:
+                res["eval"] = mesh_forward(sl, mesh, rank, plan, card)
+            if "step" in parts:
+                res["step"] = mesh_train(sl, mesh, rank, plan, card)
+            res["rank_s"] = time.perf_counter() - t0
+            out[plan] = res
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     if rank == 0:
         with open(os.path.join(directory, "rank0.json"), "w") as f:
-            json.dump(out, f)
+            json.dump(out[names[0]] if isinstance(plans, str) else out, f)
 
 
-def mesh_spawn(card: str, plan: str, dry: bool = False) -> dict:
-    """Run mesh_rank on the world of ``plan``; rank 0's summary and the
-    phase's seconds."""
+def mesh_spawn(card: str, plans, dry: bool = False) -> dict:
+    """Run mesh_rank on the world of ``plans`` (a plan, or several of one
+    world size); rank 0's summary (by plan where several) and the phase's
+    seconds."""
     import tempfile
 
     import torch.multiprocessing as mp
 
+    names = (plans,) if isinstance(plans, str) else tuple(plans)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as directory:
-        mp.spawn(mesh_rank, args=(directory, card, plan, dry), nprocs=MESH_PLANS[plan][0],
+        mp.spawn(mesh_rank, args=(directory, card, plans, dry), nprocs=MESH_PLANS[names[0]][0],
                  join=True)
         with open(os.path.join(directory, "rank0.json")) as f:
             out = json.load(f)
     out["phase_s"] = time.perf_counter() - t0
-    print(f"slice {'r' if plan in R_PLANS else 's'} {plan}: {MESH_PLANS[plan][0]} ranks done "
+    print(f"slice {slice_of(names[0])} {'+'.join(names)}: {MESH_PLANS[names[0]][0]} ranks done "
           f"in {out['phase_s']:.1f} s", flush=True)
     return out
 
@@ -6542,12 +6623,18 @@ def mesh_worlds(record, card, plans, dry: bool = False) -> dict:
     """mesh_spawn for each of ``plans``, each world's rank 0 launches into
     the record."""
     out = {plan: mesh_spawn(card, plan, dry) for plan in plans}
+    record_launches(record, out)
+    return out
+
+
+def record_launches(record, out: dict) -> None:
+    """Each plan's rank-0 launches (``out``: its summary by plan) into the
+    record, checked against their derivation."""
     for plan, res in out.items():
         for part in ("eval", "step"):
             if part in res:
-                count_launches(f"slice {'r' if plan in R_PLANS else 's'} {plan} {part}", record,
+                count_launches(f"slice {slice_of(plan)} {plan} {part}", record,
                                res[part]["launches"], res[part]["expected"])
-    return out
 
 
 def mesh_slice(record, card, dry: bool = False) -> dict:
@@ -6839,6 +6926,71 @@ def tp_slice(record, card, dry: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice t: the rest of the mesh (model x sp, model x pp, model 4)
+# ---------------------------------------------------------------------------
+
+
+def check_tp4_blocks(dev, record) -> dict:
+    """t(i). check_tp_blocks at model 4 (a rank's 192 attention and 768 FFN
+    columns: #9b's dctx and dWo products on the GEMM body's thin tiles) on
+    2 x 1,152 rows, one rank's form timed beside the unsplit kernel; its
+    errors into each split form's record and its times beside model 2's
+    (``model4``)."""
+    four = {}
+    times = check_tp_blocks(dev, four, rows_list=TP_ROWS[:1], n=4)
+    for name, rec in four.items():
+        into = record.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": None})
+        into["max_abs_err"] = max(into.get("max_abs_err") or 0.0, rec["max_abs_err"])
+        if rec.get("max_rel_err") is not None:
+            into["max_rel_err"] = max(into.get("max_rel_err") or 0.0, rec["max_rel_err"])
+        into["model4"] = {k: rec.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "unsplit_ms")}
+    return times
+
+
+def tp_mesh_slice(record, card, dry: bool = False) -> dict:
+    """t. The model axis beside sp and pp, and model 4, on the one card: (i)
+    in this process, the split forms at model 4 (check_tp4_blocks) and #1
+    / #1b on a model-4 rank's 3 heads at their offset (check_tp_flash);
+    (ii) one world of four gloo ranks sharing the card (slice r's harness)
+    running T_PLANS in turn: model 2 x sp 2 (full-eval at 6 over the bf16
+    cache, #10 / #10b on a rank's 6 heads; the step at TP_TRAIN_BATCH with
+    VOCAB_FAULTS outside the limits), model 2 x pp 2 (full-eval, the step:
+    the split forms inside the stages), model 4 (the step through the
+    split forms), each against one process, the launches as derived
+    (expected_mesh_launches) into the record; (iii)
+    entry.dryrun_multichip(4, model=2, sp=2) and (4, model=2, pp=2).  A dry
+    run (the CPU) runs (ii) only."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {}
+    if not dry:
+        dev = torch.device("cuda", 0)
+        out["kernels_model4"] = check_tp4_blocks(dev, record)
+        check_tp_flash(dev, record, n=4)
+    worlds = mesh_spawn(card, T_PLANS, dry)
+    record_launches(record, {plan: worlds[plan] for plan in T_PLANS})
+    out.update(worlds)
+    heads = {part: {k: worlds["tsp"][part]["launches"][k]
+                    for k in ("flash_attention", "flash_attention_bwd")}
+             for part in ("eval", "step")}
+    print(f"slice t tsp: the split-head flash pair (#10 / #10b) on a rank's 6 heads, launches "
+          f"of rank 0 {json.dumps(heads)}", flush=True)
+    if not dry:
+        from vitxtgqa_tpu_torch.entry import dryrun_multichip
+
+        for axis in ("sp", "pp"):
+            t = time.perf_counter()
+            out[f"dryrun_multichip_4_model2_{axis}2"] = dryrun_multichip(4, model=2, **{axis: 2})
+            print(f"slice t(iii): entry.dryrun_multichip(4, model=2, {axis}=2) in "
+                  f"{time.perf_counter() - t:.1f} s; card {card}", flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"slice t: done in {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def run_slices(dev, record, card):
     import torch
 
@@ -6974,6 +7126,9 @@ def run_slices(dev, record, card):
     # s. tensor parallelism: the split forms, two ranks at model 2, the CLI,
     # the data 2 x model 2 dry run
     details["tp"] = tp_slice(record, card)
+    # t. model x sp, model x pp and model 4: four ranks, the model-4 split
+    # forms, the dry runs
+    details["tp_mesh"] = tp_mesh_slice(record, card)
     return details
 
 

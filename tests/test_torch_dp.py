@@ -432,13 +432,13 @@ def test_dryrun_multichip_on_two_ranks():
 
 
 @pytest.mark.parametrize("kw, err, words", [
-    (dict(model=2, sp=2), NotImplementedError, "tensor parallelism"),
+    (dict(model=2, sp=2), ValueError, "model=2 x sp=2 x pp=1 needs a multiple of 4 processes"),
     (dict(pp=4), ValueError, "sp=1 x pp=4 needs a multiple of 4 processes; the world has 2"),
     (dict(sp=4), ValueError, "sp=4 x pp=1 needs a multiple of 4 processes; the world has 2")])
 def test_dryrun_multichip_refuses_the_unported_axes(kw, err, words):
-    """The tensor-parallel axis beside sp raises, naming the rest of its
-    slice; the sp and pp axes run (tests/test_torch_mesh.py) and raise,
-    before any rank starts, for a world too small for them."""
+    """The model, sp and pp axes run (tests/test_torch_mesh.py,
+    tests/test_torch_tp_mesh.py) and raise, before any rank starts, for a
+    world too small for them: model x sp, pp or sp alone on two ranks."""
     from vitxtgqa_tpu_torch.entry import dryrun_multichip
 
     with pytest.raises(err, match=words):

@@ -132,20 +132,42 @@ def test_the_block_plans_of_the_main_paths():
 def test_the_split_forms_cover_a_ranks_outputs(rows):
     """The split forms' launches on a rank's shares at model 2 (ops/
     fused_block.tp_launch_plan, ops/block_train.tp_gemm_launches: 384
-    attention and 1,536 FFN columns) each cover their output once, in K
-    steps that cover K; at model 4 a rank's 192 attention columns fit no
-    tile, so the wrappers refuse them (#9b's dctx and dWo products would
-    launch N = 192)."""
+    attention and 1,536 FFN columns) and at model 4 (192 and 768) each
+    cover their output once, in K steps that cover K; at model 4 the
+    launches over a 192-column N (#9b's dctx, and the weight gradients'
+    launch with dWo) take the thin 64-column tiles and the rest the
+    forms they take at model 2; a share of 96 columns (model 8) fits no
+    tile and the wrappers refuse it."""
     d, m = 768, 3072
-    FB.check_tp_widths("fused_block_tp", d, d // 2, m // 2)
-    for ln in FB.tp_launch_plan(rows, d, d // 2, m // 2) + BT.tp_gemm_launches(
-            rows, d, d // 2, m // 2):
-        assert_covers_once(ln)
-        assert_k_steps_cover(ln)
+    for n in (2, 4):
+        FB.check_tp_widths("fused_block_tp", d, d // n, m // n)
+        FB.check_tp_widths("block_train_bwd_tp", d, d // n, m // n)
+        plans = FB.tp_launch_plan(rows, d, d // n, m // n) + BT.tp_gemm_launches(
+            rows, d, d // n, m // n)
+        for ln in plans:
+            assert_covers_once(ln)
+            assert_k_steps_cover(ln)
+        thin = [ln.tile_n == G.THIN_N for ln in plans]
+        assert thin == [False] * 8 + [n == 4, n == 4], n
     with pytest.raises(NotImplementedError):
-        FB.check_tp_widths("block_train_bwd_tp", d, d // 4, m // 4)
+        FB.check_tp_widths("block_train_bwd_tp", d, d // 8, m // 8)
     with pytest.raises(ValueError):
-        BT.tp_gemm_launches(rows, d, d // 4, m // 4)
+        BT.tp_gemm_launches(rows, d, d // 8, m // 8)
+
+
+@pytest.mark.parametrize("rows", ROWS)
+def test_a_thin_product_covers_every_output_once(rows):
+    """A product whose N is a multiple of 64 but not of 128 (a rank's
+    192-column attention share at model 4) takes the thin form and covers
+    its output once, also beside a 768-wide product in splits of a ragged
+    K (the weight gradients' launch, both operands MN-major)."""
+    ln = G.launch(G.problem(rows, 192, 768))
+    assert ln.tile_n == G.THIN_N
+    assert_covers_once(ln)
+    ln = G.launch(G.problem(768, 192, rows, 512), G.problem(768, 768, rows, 512),
+                  ragged_k=True)
+    assert ln.tile_n == G.THIN_N
+    assert_covers_once(ln)
 
 
 def assert_k_steps_cover(ln: G.Launch):

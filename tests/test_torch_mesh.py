@@ -160,7 +160,7 @@ def _step_case(name):
 
 
 # the dry runs of entry.dryrun_multichip: (ranks, mesh axes)
-DRYRUNS = {"data2_sp2": (4, dict(sp=2)), "pp2": (2, dict(pp=2))}
+DRYRUNS = {"data2_sp2": (4, dict(model=1, sp=2)), "pp2": (2, dict(pp=2))}
 
 
 def _dryruns():
@@ -494,9 +494,9 @@ def test_rank_layout_is_the_jax_meshs_device_order(worlds):
 def test_a_mesh_the_world_cannot_hold_raises():
     """mesh_shape: -1 takes the world over sp x pp; a product other than
     the world, a world that sp x pp does not divide, a global batch the
-    data axis does not divide raise ValueError; model beside sp
-    NotImplementedError naming the rest of the tensor-parallel slice
-    (tests/test_torch_tp.py holds the model axis itself)."""
+    data axis does not divide raise ValueError, as does model beside sp in
+    a world too small for them, which runs in one that holds them
+    (tests/test_torch_tp_mesh.py holds the model axis beside sp and pp)."""
     from vitxtgqa_tpu_torch.parallel.mesh import mesh_shape, rank_coords
 
     assert mesh_shape(-1, 1, 2, 2, world=8) == {"data": 2, "model": 1, "sp": 2, "pp": 2}
@@ -507,8 +507,9 @@ def test_a_mesh_the_world_cannot_hold_raises():
                       (dict(data=2, batch_size=3), "batch_size 3")):
         with pytest.raises(ValueError, match=words):
             mesh_shape(**{"data": -1, "world": 2, **kw})
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-        mesh_shape(model=2, sp=2, world=4)
+    assert mesh_shape(model=2, sp=2, world=4) == {"data": 1, "model": 2, "sp": 2, "pp": 1}
+    with pytest.raises(ValueError, match="model=2 x sp=2 x pp=1 needs a multiple of 4"):
+        mesh_shape(model=2, sp=2, world=2)
 
 
 # ---------------------------------------------------------------------------

@@ -735,10 +735,10 @@ REFUSALS = {
     # sp and pp run (tests/test_torch_mesh.py); a world too small for them raises
     "mesh_sp_2": ("cpu", {"mesh": {"data": -1, "sp": 2}}, False, ValueError,
                   "sp=2 x pp=1 needs a multiple of 2 processes; the world has 1"),
-    # the model axis runs beside data (tests/test_torch_tp.py); beside sp
-    # it raises, naming the rest of its slice
-    "mesh_model_2": ("cpu", {"mesh": {"model": 2, "sp": 2}}, False, NotImplementedError,
-                     "tensor parallelism .*queue 1 item 5"),
+    # the model axis runs beside data, sp and pp (tests/test_torch_tp.py,
+    # tests/test_torch_tp_mesh.py); a world too small for model x sp raises
+    "mesh_model_2": ("cpu", {"mesh": {"model": 2, "sp": 2}}, False, ValueError,
+                     "model=2 x sp=2 x pp=1 needs a multiple of 4 processes; the world has 1"),
     "mesh_pp_2": ("cpu", {"mesh": {"pp": 2}}, False, ValueError,
                   "sp=1 x pp=2 needs a multiple of 2 processes; the world has 1"),
     "mesh_data_2_sp_2": ("cpu", {"mesh": {"data": 2, "sp": 2}}, False, ValueError,

@@ -214,10 +214,11 @@ def test_flash_twins_at_a_head_offset_are_the_whole_layers_heads(rate):
 def test_the_rule_table_names_the_split_layers_shards():
     """A T2S at model 2 (tiny widths): exactly the parameters PARAM_RULES
     names are shards (Q/K/V and FFN-in weights and biases by rows, the
-    attention-output and FFN-out weights by columns), the OCR pointer
-    network's query and key and every other parameter whole; its seeded
-    init is the one-process init's shards; shard_state then a concatenation
-    of the shards gives the whole state back."""
+    attention-output and FFN-out weights by columns; the classifier's and
+    the word embeddings' vocabulary rows, the OCR pointer network's query
+    and key by rows), every other parameter whole; its seeded init is the
+    one-process init's shards; shard_state then a concatenation of the
+    shards gives the whole state back."""
     from vitxtgqa_tpu_torch.models.t2s import T2S
     from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
     from vitxtgqa_tpu_torch.parallel.mesh import ModelGroup
@@ -229,8 +230,10 @@ def test_the_rule_table_names_the_split_layers_shards():
     dims = TP.sharded_dims(models[0])
     assert dims == {k: TP.rule_dim(k) for k in whole if TP.rule_dim(k) is not None}
     layers = sum(k.endswith("attention.self.query.weight") for k in whole)
-    assert layers == 6 and len(dims) == 10 * layers  # 6 weights and 4 biases a layer
-    assert not any(k.startswith("ocr_ptr_net.") for k in dims)
+    # 6 weights and 4 biases a layer; the classifier's weight and bias, the
+    # word embeddings, the pointer's query and key weights and biases
+    assert layers == 6 and len(dims) == 10 * layers + 7
+    assert sum(k.startswith("ocr_ptr_net.") for k in dims) == 4
     assert TP.rule_dim("mmt.encoder.layer.0.output.dense.weight") == 1
     assert TP.rule_dim("mmt.encoder.layer.0.attention.output.dense.bias") is None
     states = [m.state_dict() for m in models]
@@ -261,17 +264,24 @@ def test_decode_attention_plans_a_ranks_heads(heads):
 
 
 def test_model_beside_sp_or_pp_and_int8_on_a_model_mesh_raise():
-    """mesh_shape: model x sp and model x pp raise NotImplementedError
-    naming ROADMAP.md queue 1 item 5; data -1 takes the world over model;
-    Options(tp=...) with the int8 cache or W8A8 raises naming queue 2."""
-    from vitxtgqa_tpu_torch.parallel.mesh import ModelGroup, mesh_shape
+    """mesh_shape: data -1 takes the world over model, and over model x sp
+    or model x pp, which run (tests/test_torch_tp_mesh.py) and raise
+    ValueError in a world that does not hold them; Options(tp=...) takes
+    sp and pp beside it, and with the int8 cache or W8A8 raises naming
+    queue 2."""
+    from vitxtgqa_tpu_torch.parallel.mesh import ModelGroup, PPGroup, SPGroup, mesh_shape
 
     assert mesh_shape(-1, 2, world=4) == {"data": 2, "model": 2, "sp": 1, "pp": 1}
     for kw in (dict(sp=2), dict(pp=2)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            mesh_shape(-1, 2, world=4, **kw)
+        assert mesh_shape(-1, 2, world=8, **kw) == {"data": 2, "model": 2, "sp": 1, "pp": 1,
+                                                     **kw}
+        with pytest.raises(ValueError, match="needs a multiple of 4 processes; the world has 1"):
+            mesh_shape(-1, 2, world=1, **kw)
     with pytest.raises(ValueError, match="needs a multiple of 2 processes"):
         mesh_shape(-1, 2, world=3)
+    tp = ModelGroup(None, 0, 2)
+    opts = cpu_options(tp=tp, sp=SPGroup(None, 0, 2), pp=PPGroup(None, 0, 2))
+    assert (opts.tp, opts.sp.size, opts.pp.size) == (tp, 2, 2)
     for kw in (dict(kv_cache_int8=True), dict(w8a8=True)):
         with pytest.raises(NotImplementedError, match="queue 2"):
             cpu_options(tp=ModelGroup(None, 0, 2), **kw)
@@ -476,16 +486,20 @@ def _port_step(cfg_name, drop_seed):
             "state": {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}}
 
 
-def _jax_mesh_step():
-    """JAX's step on a data 2 x model 2 mesh of CPU devices, its parameters
-    under param_shardings and the batch's rows over data: the loss, the
-    gradients clipped as the optimizer clips them, the parameters after
-    (port names)."""
+def _jax_mesh_step(data=2, model=2, sp=1, pp=1):
+    """JAX's step on a data x model x sp x pp mesh of CPU devices (data 2
+    x model 2 by default), its parameters under param_shardings, the
+    batch's rows over data, and its sequence parallelism and pipeline
+    switched on where those axes are above 1 (as its trainer does; traced
+    under jit): the loss, the gradients clipped as the optimizer clips
+    them, the parameters after (port names)."""
     from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as P
 
     from vitxtgqa_tpu.losses import Losses as JLosses
+    from vitxtgqa_tpu.models import common as JC
     from vitxtgqa_tpu.models.t2s import T2S as JT2S
+    from vitxtgqa_tpu.ops import attention as JA
     from vitxtgqa_tpu.parallel.mesh import build_mesh, param_shardings
     from vitxtgqa_tpu.training.optim import build_optimizer as jax_build
 
@@ -496,7 +510,12 @@ def _jax_mesh_step():
         jm = JT2S(config=cfg, num_final_outputs=NF, bos_idx=2, train_variant_scan=True)
         jlosses = JLosses(LOSSES)
         tx, _ = jax_build(_ns(OA), _ns(TRAIN), _step_config(node=True))
-        mesh = build_mesh(data=2, model=2, devices=jax.devices()[:4])
+        mesh = build_mesh(data=data, model=model, sp=sp, pp=pp,
+                          devices=jax.devices()[:data * model * sp * pp])
+        if sp > 1:
+            JA.set_sequence_parallel(mesh, "sp")
+        if pp > 1:
+            JC.set_pipeline(mesh, "pp")
         params = unflatten(convert_t2s_like({k: v.copy() for k, v in state.items()},
                                             text_layers=2, qtv_layers=2, mmt_layers=2))
         params = jax.device_put(params, param_shardings(params, mesh))
@@ -523,6 +542,8 @@ def _jax_mesh_step():
         return {"loss": float(total), "norm": float(norm), "grads": to_port(grads),
                 "state": to_port(new)}
     finally:
+        JA.set_sequence_parallel(None)
+        JC.set_pipeline(None)
         mp.undo()
 
 

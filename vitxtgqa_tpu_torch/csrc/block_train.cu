@@ -69,7 +69,8 @@
 //   B6, B7 (vt_block_train_tp_bwd_tail).
 // The masks are drawn over the whole rows from the one seed, so every
 // rank draws the same ones; the biases of the row-parallel products are
-// added once, after the sum.
+// added once, after the sum.  A share is a multiple of 64 columns: at
+// model 4 a rank's dl = 192 takes the GEMM body's thin tiles in B5 and B6.
 #include "gemm_sm90.cuh"
 #include "philox.cuh"
 #include "row_ops.cuh"
@@ -522,6 +523,13 @@ bool widths_ok(int rows, int d, int m) {
   return d == RN && m % vt::g90::Narrow::kBN == 0 && rows > 0;
 }
 
+// a split form's share of a width: a multiple of the thin tile's 64 columns
+// (a launch over a share that is no multiple of 128 takes thin tiles)
+bool share_ok(int w) { return w > 0 && w % vt::g90::Thin::kBN == 0; }
+
+// the split forms' widths: d the rows' 768, m this rank's FFN share
+bool tp_rows_ok(int rows, int d, int m) { return d == RN && share_ok(m) && rows > 0; }
+
 }  // namespace
 
 // #9a.  x_q, ctx [rows, d] bf16; wo [d, d], w1 [m, d], w2 [d, m] bf16;
@@ -649,10 +657,9 @@ int bwd_tail(const void* dx, const void* dx_add, const void* ctx, const void* x1
   return (int)cudaGetLastError();
 }
 
-// the split forms' widths: d the rows' 768, dl and m this rank's shares,
-// each a multiple of the narrow tile's 128 columns
+// the split forms' widths: d the rows' 768, dl and m this rank's shares
 bool tp_widths_ok(int rows, int d, int dl, int m) {
-  return widths_ok(rows, d, m) && dl > 0 && dl % vt::g90::Narrow::kBN == 0;
+  return tp_rows_ok(rows, d, m) && share_ok(dl);
 }
 
 }  // namespace
@@ -723,7 +730,7 @@ extern "C" int vt_block_train_tp_rows(const void* sum, const void* bias, const v
 extern "C" int vt_block_train_tp_ffn_in(const void* xb, const void* w1, const void* b1,
                                         void* pre1, void* h, int rows, int d, int m,
                                         void* stream) {
-  if (!widths_ok(rows, d, m)) return (int)cudaErrorInvalidValue;
+  if (!tp_rows_ok(rows, d, m)) return (int)cudaErrorInvalidValue;
   return (int)launch_gemm<false, false>(one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),
                                         GeluEpi{(const float*)b1, (bf16*)pre1, (bf16*)h},
                                         (cudaStream_t)stream);
@@ -740,7 +747,7 @@ extern "C" int vt_block_train_tp_bwd_head(const void* g, const void* x2h, const 
                                           void* dx_part, void* col_part, int row_blocks,
                                           int rows, int d, int m, unsigned int threshold,
                                           float keep_scale, float eps, void* stream) {
-  if (!widths_ok(rows, d, m) || row_blocks <= 0 || dx_part == nullptr)
+  if (!tp_rows_ok(rows, d, m) || row_blocks <= 0 || dx_part == nullptr)
     return (int)cudaErrorInvalidValue;
   const Drop drop_f = {(const int64_t*)seed, nullptr, 2u, threshold, keep_scale};
   float* ln2_part = (float*)col_part;
@@ -783,7 +790,7 @@ extern "C" int vt_block_train_tp_recompute(const void* x1h, const void* s1, cons
                                            const void* w1, const void* b1, void* xb, void* pre1,
                                            void* h, int rows, int d, int m, float eps,
                                            void* stream) {
-  if (!widths_ok(rows, d, m)) return (int)cudaErrorInvalidValue;
+  if (!tp_rows_ok(rows, d, m)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int per = kRowThreads / 32;
   const int row_blocks = min((rows + per - 1) / per, 2 * 132);

@@ -264,7 +264,7 @@ extern "C" int vt_fused_block(const void* x_q, const void* ctx, const void* wo, 
 
 // The row-parallel product of a split form: c = a b^T [M, N] f32 of a
 // [M, K] and b [N, K] bf16 (nn.Linear layout), leading dims lda / ldb; N a
-// multiple of 128, K of 64.  The eval block's launches 1 and 4 and the
+// multiple of 64 (the thin tile), K of 64.  The eval block's launches 1 and 4 and the
 // training block's F1 and F4 on a rank's shares.
 extern "C" int vt_gemm_f32(const void* a, int lda, const void* b, int ldb, void* c, int M,
                            int N, int K, void* stream) {
@@ -305,11 +305,11 @@ extern "C" int vt_fused_block_tp_ln2(const void* x32, const void* sum, const voi
 
 // The split form's launch 3 on this rank's FFN share: h = bf16(gelu_erf(xb
 // W1^T + b1)) [rows, m] bf16 from xb [rows, d] bf16, w1 [m, d] bf16, b1
-// [m] f32; m a multiple of 128.
+// [m] f32; m a multiple of 64 (the thin tile).
 extern "C" int vt_fused_block_tp_ffn_in(const void* xb, const void* w1, const void* b1, void* h,
                                         int rows, int d, int m, void* stream) {
   using namespace vt;
-  if (d != gemm::RN || m <= 0 || m % g90::Narrow::kBN != 0 || rows <= 0)
+  if (d != gemm::RN || m <= 0 || m % g90::Thin::kBN != 0 || rows <= 0)
     return (int)cudaErrorInvalidValue;
   return (int)g90::launch_gemm<false, false>(
       g90::one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),

@@ -43,7 +43,10 @@
 // Tile forms (PERF.md section 6 has the sweeps): in bf16, chosen per launch
 // by launch_gemm, Wide, 256 columns (m64n256) and a 4-stage ring, or
 // Narrow, 128 columns (m64n128), for a launch where some N is no multiple
-// of 256 or whose narrow tiles fit one wave of the card; one block an SM.
+// of 256 or whose narrow tiles fit one wave of the card, or Thin, 64
+// columns (m64n64), for a launch where some N is no multiple of 128 (a
+// tensor-parallel rank's 192-column attention share at model 4: the split
+// training block's dctx and dWo); one block an SM.
 // In s8 (launch_gemm_s8) one form, S8: 128 columns and a 3-stage ring, two
 // blocks an SM, since the W8A8 epilogues cost more than its products.  N is
 // a multiple of the form's width; the host-side mirror of the choice and of
@@ -111,6 +114,7 @@ struct Elem<int8_t> {
 // runs under the other's products
 using Wide = Form<256, 4>;
 using Narrow = Form<128, 4>;
+using Thin = Form<64, 4>;
 using S8 = Form<128, 3>;
 constexpr int kSMs = 132;  // the H100's SMs: one wave of one-block-an-SM tiles
 
@@ -203,13 +207,16 @@ template <int BN, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da, uint64_t db) {
   if constexpr (BN == 256)
     sm90::wgmma_ss_n256<TA, TB>(d, da, db);
-  else
+  else if constexpr (BN == 128)
     sm90::wgmma_ss_n128<TA, TB>(d, da, db);
+  else
+    sm90::wgmma_ss_n64t<TA, TB>(d, da, db);
 }
 
 template <int BN, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(int (&d)[BN / 2], uint64_t da, uint64_t db) {
   static_assert(TA == 0 && TB == 0, "the s8 products read K-major operands only");
+  static_assert(BN == 256 || BN == 128, "the s8 forms are 256 or 128 columns wide");
   if constexpr (BN == 256)
     sm90::wgmma_ss_s8_n256(d, da, db);
   else
@@ -311,6 +318,14 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const GemmArgs args, 
   epi(tile, pi);
 }
 
+// Thin where some problem's N is no multiple of the narrow tile
+// (ops/gemm_sm90.tile_n)
+inline bool thin_launch(const GemmArgs& a) {
+  for (int i = 0; i < a.n_problems; ++i)
+    if (a.p[i].N % Narrow::kBN) return true;
+  return false;
+}
+
 // Narrow where some problem's N is no multiple of the wide tile, or where
 // the launch's narrow tiles (over all problems and splits) fit one wave of
 // the card, twice as many blocks on it as wide ones (ops/gemm_sm90.tile_n)
@@ -357,10 +372,11 @@ cudaError_t launch_form(GemmArgs args, const Epi& epi, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// launch one GemmArgs of bf16 operands on `st` in the form narrow_launch
-// picks
+// launch one GemmArgs of bf16 operands on `st` in the form thin_launch and
+// narrow_launch pick
 template <bool kAMN, bool kBMN, class Epi>
 cudaError_t launch_gemm(const GemmArgs& args, const Epi& epi, cudaStream_t st) {
+  if (thin_launch(args)) return launch_form<Thin, kAMN, kBMN, bf16>(args, epi, st);
   return narrow_launch(args) ? launch_form<Narrow, kAMN, kBMN, bf16>(args, epi, st)
                              : launch_form<Wide, kAMN, kBMN, bf16>(args, epi, st);
 }

@@ -164,6 +164,20 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// D[64 x 64] += A[64 x 16] B[16 x 64] of the GEMM body's thin tiles (a
+// rank's 192-column share at model 4): as wgmma_ss_n128, 64 columns
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64t(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : VT_R8(0), VT_R8(8), VT_R8(16), VT_R8(24)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 #undef VT_R8
 
 #define VT_I8(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \

@@ -8,7 +8,9 @@ axes.
     dryrun_multichip(4)                        # data x model = 2 x 2 on the card(s)
     dryrun_multichip(2, device="cpu")          # model 2 on two gloo ranks on the CPU
     dryrun_multichip(2, device="cpu", model=1) # data 2
-    dryrun_multichip(4, device="cpu", sp=2)    # data x sp = 2 x 2
+    dryrun_multichip(4, device="cpu", sp=2)    # model x sp = 2 x 2
+    dryrun_multichip(4, device="cpu", pp=2)    # model x pp = 2 x 2
+    dryrun_multichip(4, device="cpu", model=1, sp=2)  # data x sp = 2 x 2
     dryrun_multichip(2, device="cpu", pp=2)    # a pipeline of two stages
 
 ``entry()`` builds T2S at production dims (configs/t2s_abinet.yml's model,
@@ -21,8 +23,9 @@ the grounding), its gumbel draws fixed by a seed.
 (``torch.multiprocessing``, a ``file://`` rendezvous in a temporary
 directory): gloo on the CPU or where ranks share a card, NCCL with a card a
 rank.  They form the mesh data x model x sp x pp (parallel/mesh.build_mesh,
-data = n / (model sp pp); ``model`` defaults to JAX's dry run's, 2 where n
-is even and above 1 and neither sp nor pp is set, else 1), and each takes
+data = n / (model sp pp); ``model`` defaults to JAX's dry run's, 2 where
+the world holds it beside sp x pp (n a multiple of 2 sp pp), else 1; every
+combination of the axes runs), and each takes
 one full T2S training step (forward, the losses, backward with the
 pipelined stacks' gradients all-gathered over the stages, the split
 layers' partials summed over the model group, the gradients' all-reduce
@@ -154,7 +157,7 @@ def data_parallel_step(model, cfg, tensors: Dict[str, torch.Tensor], group=None,
         for p, m in opt.pairs:
             if TP.is_sharded(p):
                 TP.mark(m, p.tp_dim)
-        TP.check_replicas([m for _, m in opt.pairs], "the parameters after the update", group)
+        TP.check_replicas([m for _, m in opt.pairs], "the parameters after the update", tp)
     return {"loss": float(r["loss"]), "norm": float(r["grad_norm"]), "grads": grads,
             "update": {n: whole(m.detach().float() - b, p)
                        for n, (p, m), b in zip(names, opt.pairs, before)}}
@@ -241,7 +244,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda", model: Optional[int] 
     from vitxtgqa_tpu_torch.parallel.mesh import mesh_shape
 
     if model is None:
-        model = 2 if n_devices > 1 and n_devices % 2 == 0 and sp == 1 and pp == 1 else 1
+        model = 2 if n_devices % (2 * sp * pp) == 0 else 1
     data = mesh_shape(-1, model, sp, pp, world=n_devices)["data"]
     dev = torch.device(device)
     with tempfile.TemporaryDirectory() as directory:

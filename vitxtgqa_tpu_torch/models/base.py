@@ -117,11 +117,14 @@ class JointQAModel(nn.Module):
         classifier and the OCR pointer net."""
         ptr = cfg_get(cfg_get(c, "classifier"), "ocr_ptr_net")
         ocr_max = int(cfg_get(cfg_get(c, "classifier"), "ocr_max_num"))
+        classifier = FixedVocabClassifier(num_final_outputs - ocr_max, mmt_cfg.hidden_size,
+                                          tp=opts.tp)
         self.mmt = Wrap(encoder=TransformerEncoder(mmt_cfg, opts),
-                        prev_pred_embeddings=PrevPredEmbeddings(mmt_cfg))
-        self.classifier = FixedVocabClassifier(num_final_outputs - ocr_max, mmt_cfg.hidden_size)
+                        prev_pred_embeddings=PrevPredEmbeddings(mmt_cfg, classifier.vocab))
+        self.classifier = classifier
         self.ocr_ptr_net = OcrPtrNet(int(cfg_get(ptr, "hidden_size")),
-                                     int(cfg_get(ptr, "query_key_size")), plain=opts.plain)
+                                     int(cfg_get(ptr, "query_key_size")), plain=opts.plain,
+                                     tp=opts.tp)
 
     def _cast_to_compute_dtype(self):
         """The transformer stacks and the input projections compute in the

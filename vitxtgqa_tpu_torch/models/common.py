@@ -34,7 +34,12 @@ heads, and its post-attention block sums the row-parallel products over
 the group: the eval block's and the training block's split forms where
 their gates hold, else the plain expression with the two all-reduces
 between its products.  The attention's input gradient is summed over the
-group (copy_to_model).
+group (copy_to_model).  Beside sp a layer's attention splits its query
+rows over the sp group on its own heads; beside pp each stage's layers
+hold their shards.  The word embeddings (BertEmbeddings), the
+fixed-vocabulary classifier with its answer table (FixedVocabClassifier,
+PrevPredEmbeddings) and the OCR pointer (OcrPtrNet) are vocabulary- or
+column-parallel where the group divides them.
 """
 
 from __future__ import annotations
@@ -124,9 +129,13 @@ class LayerNorm(nn.LayerNorm):
     """LayerNorm with float32 statistics, output in the parameters' dtype
     (``float32``: the float32 output before that rounding)."""
 
-    def float32(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
-                            self.bias.float(), self.eps)
+    def float32(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """``tp``: x is a model rank's rows (a vocabulary shard), so the
+        scale's and shift's gradients are summed over the group."""
+        w, b = self.weight, self.bias
+        if tp is not None:
+            w, b = TP.copy_to_model(w, tp), TP.copy_to_model(b, tp)
+        return F.layer_norm(x.float(), self.normalized_shape, w.float(), b.float(), self.eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.float32(x).to(self.weight.dtype)
@@ -452,21 +461,29 @@ class TransformerEncoder(nn.Module):
 
 
 class BertEmbeddings(nn.Module):
-    """Word + position + token-type embeddings, then LayerNorm."""
+    """Word + position + token-type embeddings, then LayerNorm.  Under
+    ``tp`` (a ModelGroup that divides the vocabulary) the word embeddings
+    are a rank's rows of it, looked up vocabulary-parallel
+    (tensor_parallel.vocab_lookup)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, tp=None):
         super().__init__()
         d = cfg.hidden_size
         self.dropout_prob = cfg.hidden_dropout_prob
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, d)
+        self.tp = tp if TP.divides(tp, cfg.vocab_size) else None
+        self.word_embeddings = nn.Embedding(cfg.vocab_size // (self.tp.size if self.tp else 1), d)
+        if self.tp:
+            TP.mark(self.word_embeddings.weight, 0)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, d)
         self.LayerNorm = LayerNorm(d, eps=cfg.layer_norm_eps)
 
     def forward(self, input_ids, gen=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        words = (self.word_embeddings(input_ids) if self.tp is None
+                 else TP.vocab_lookup(self.word_embeddings.weight, input_ids, self.tp))
         x = (
-            self.word_embeddings(input_ids)
+            words
             + self.position_embeddings(pos)
             + self.token_type_embeddings(torch.zeros_like(input_ids))
         )
@@ -478,7 +495,7 @@ class TextEncoder(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, opts: Options):
         super().__init__()
-        self.embeddings = BertEmbeddings(cfg)
+        self.embeddings = BertEmbeddings(cfg, opts.tp)
         self.encoder = TransformerEncoder(cfg, opts)
 
     def forward(self, txt_inds, txt_mask, train: bool = False, gen=None):
@@ -487,13 +504,17 @@ class TextEncoder(nn.Module):
 
 
 class PrevPredEmbeddings(nn.Module):
-    """Decoder-slot embeddings from previous predictions."""
+    """Decoder-slot embeddings from previous predictions.  ``vocab``: the
+    fixed-vocabulary classifier's (FixedVocabClassifier.vocab), whose
+    table rows the answer slots gather: None where the table is whole, or
+    (model group, answer count) where it holds a rank's rows."""
 
     MAX_DEC_LENGTH = 100
     MAX_TYPE_NUM = 5
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, vocab=None):
         super().__init__()
+        self.vocab = vocab
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.dropout_prob = cfg.hidden_dropout_prob
         self.position_embeddings = nn.Embedding(self.MAX_DEC_LENGTH, d)
@@ -508,21 +529,31 @@ class PrevPredEmbeddings(nn.Module):
         table's dtype, or float32 where ``float32_answers`` (the
         teacher-forced pass: every decoder slot of the batch that names an
         answer gathers its row, so the gather's backward adds hundreds of
-        contributions into a row, which bf16 would round at every add)."""
-        if float32_answers:
-            ans = self.ans_layer_norm.float32(ans_emb)
-        else:
-            ans = self.ans_layer_norm(ans_emb).to(ocr_emb.dtype)
+        contributions into a row, which bf16 would round at every add).
+        A rank's rows of the table (``vocab``) give a partial gradient of the
+        LayerNorm, summed over the model group."""
+        ln = self.ans_layer_norm
+        ans = ln.float32(ans_emb, self.vocab[0] if self.vocab else None)
+        if not float32_answers:
+            ans = ans.to(ln.weight.dtype).to(ocr_emb.dtype)
         return ans, self.ocr_layer_norm(ocr_emb)
 
     def embed(self, ans, ocr, prev_inds, position_offset: int = 0, gen=None):
         """Gather decoder-slot embeddings from prepared tables; prev_inds
         [B, S] index the joint [fixed vocab | OCR copy] space; ``gen``: the
-        training dropout of the (position, type) embedding."""
+        training dropout of the (position, type) embedding.  A rank's rows
+        of the answer table (``vocab``) are gathered vocabulary-parallel,
+        from the table as given (the float32 LayerNorm output in
+        training)."""
         b, s = prev_inds.shape
-        ans_num = ans.shape[0]
+        if self.vocab is None:
+            ans_num = ans.shape[0]
+            from_ans = ans[prev_inds.clamp(0, ans_num - 1)]
+        else:
+            tp, ans_num = self.vocab
+            from_ans = TP.vocab_lookup(ans, prev_inds.clamp(0, ans_num - 1), tp)
         is_ocr = prev_inds >= ans_num
-        from_ans = ans[prev_inds.clamp(0, ans_num - 1)].to(ocr.dtype)
+        from_ans = from_ans.to(ocr.dtype)
         ocr_idx = (prev_inds - ans_num).clamp(0, ocr.shape[1] - 1)
         from_ocr = torch.gather(ocr, 1, ocr_idx[..., None].expand(b, s, ocr.shape[2]))
         raw = torch.where(is_ocr[..., None], from_ocr, from_ans)
@@ -534,26 +565,41 @@ class PrevPredEmbeddings(nn.Module):
 class OcrPtrNet(nn.Module):
     """Dynamic OCR-copy scores.  Keeps the reference quirk of ADDING the raw
     0/1 OCR mask to the scores (valid slots get +1).  ``plain``: the int8-key
-    route runs its kernel's plain version on any device (Options.plain)."""
+    route runs its kernel's plain version on any device (Options.plain).
+    Under ``tp`` (a ModelGroup that divides query_key_size) the query and
+    key are column-parallel: a rank's scores are a partial sum, summed over
+    the group in float32 before the mask (the int8 keys, which a model
+    mesh never runs, take the whole width only)."""
 
-    def __init__(self, hidden_size: int, query_key_size: int = 0, plain: bool = False):
+    def __init__(self, hidden_size: int, query_key_size: int = 0, plain: bool = False,
+                 tp=None):
         super().__init__()
         qk = query_key_size or hidden_size
         self.qk = qk
         self.plain = plain
-        self.query = Linear(hidden_size, qk)
-        self.key = Linear(hidden_size, qk)
+        self.tp = tp if TP.divides(tp, qk) else None
+        n = self.tp.size if self.tp else 1
+        self.query = Linear(hidden_size, qk // n)
+        self.key = Linear(hidden_size, qk // n)
+        if self.tp:
+            for lin in (self.query, self.key):
+                TP.mark(lin.weight, 0)
+                TP.mark(lin.bias, 0)
+
+    def _in(self, x):
+        return x if self.tp is None else TP.copy_to_model(x, self.tp)
 
     def keys(self, key_inputs):
-        """Project the OCR keys; loop-invariant during decode."""
-        return self.key(key_inputs)
+        """Project the OCR keys (a rank's columns under ``tp``);
+        loop-invariant during decode."""
+        return self.key(self._in(key_inputs))
 
     def scores_from_keys(self, query_inputs, k, attention_mask):
         """``k``: the projected keys [B, N, QK], or int8 per-token-scaled
         keys (k8, ks) in the quantize_kv layout, which take the
         ptr_scores_int8 kernel on a CUDA tensor with one query row and a
         lane-aligned width (the JAX gate) and are dequantized elsewhere."""
-        q = self.query(query_inputs)
+        q = self.query(self._in(query_inputs))
         if isinstance(k, tuple):
             k8, ks = k
             if q.is_cuda and q.shape[1] == 1 and self.qk % 128 == 0:
@@ -561,6 +607,8 @@ class OcrPtrNet(nn.Module):
                 return fn(q, k8, ks, attention_mask.float().contiguous())
             k = dequantize_kv(k8, ks, dtype=q.dtype)
         scores = torch.einsum("bsd,bnd->bsn", q.float(), k.float()) / math.sqrt(self.qk)
+        if self.tp is not None:
+            scores = TP.reduce_from_model(scores, self.tp)
         return scores + attention_mask[:, None, :].float()
 
     def forward(self, query_inputs, key_inputs, attention_mask):
@@ -569,15 +617,28 @@ class OcrPtrNet(nn.Module):
 
 class FixedVocabClassifier(nn.Module):
     """Linear classifier whose weight doubles as the fixed-answer embedding
-    table (reference: classifier.module.weight)."""
+    table (reference: classifier.module.weight).  Under ``tp`` (a
+    ModelGroup that divides out_dim) it holds a rank's answer rows (and
+    their biases): its input comes through copy_to_model and its score
+    columns are all-gathered along the vocabulary; ``vocab`` is then (tp,
+    out_dim) for PrevPredEmbeddings, else None."""
 
-    def __init__(self, out_dim: int, in_dim: int = 768):
+    def __init__(self, out_dim: int, in_dim: int = 768, tp=None):
         super().__init__()
-        self.module = Linear(in_dim, out_dim)
+        self.tp = tp if TP.divides(tp, out_dim) else None
+        self.vocab = None if self.tp is None else (self.tp, out_dim)
+        self.module = Linear(in_dim, out_dim // (self.tp.size if self.tp else 1))
+        if self.tp:
+            TP.mark(self.module.weight, 0)
+            TP.mark(self.module.bias, 0)
 
     def forward(self, x):
-        return torch.matmul(x.float(), self.module.weight.float().t()) + self.module.bias.float()
+        if self.tp is not None:
+            x = TP.copy_to_model(x, self.tp)
+        scores = torch.matmul(x.float(), self.module.weight.float().t()) + self.module.bias.float()
+        return scores if self.tp is None else TP.gather_from_model(scores, self.tp)
 
     def table(self) -> torch.Tensor:
-        """[out_dim, in_dim] view of the classifier weight."""
+        """[out_dim, in_dim] view of the classifier weight (a rank's rows
+        under ``tp``)."""
         return self.module.weight

@@ -30,9 +30,12 @@ between them: in the forward after the attention-output and the FFN-out
 products, in the backward after the input gradient of the FFN-in product
 (dh_l W1_l).  The masks are the whole rows', drawn from the one seed on
 every rank.  dbo, db2 and the LayerNorm gradients come out whole on every
-rank, db1 and the weight gradients as the rank's shards.  Each is a
-generator of its steps, as ops/fused_block.fused_block_tp_steps; its plain
-twin is the same sequence in PyTorch.
+rank, db1 and the weight gradients as the rank's shards.  A share is a
+multiple of 64 columns (check_tp_widths): at model 4 a rank's 192
+attention columns take the GEMM body's thin tiles in the dctx and
+weight-gradient launches.  Each is a generator of its steps, as
+ops/fused_block.fused_block_tp_steps; its plain twin is the same sequence
+in PyTorch.
 """
 
 from __future__ import annotations

@@ -197,11 +197,12 @@ def fused_block_tanh(res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
 def check_tp_widths(name: str, d: int, dl: int, ml: int) -> None:
     """Raise unless the split form's launches take a rank's shares: hidden
     768 and shares of the attention and FFN widths that are multiples of
-    the narrow GEMM tile's 128 columns."""
-    if d != 768 or dl <= 0 or dl % LANE or ml <= 0 or ml % LANE:
+    the thin GEMM tile's 64 columns (a share of 192, model 4 of 768, takes
+    thin tiles)."""
+    if d != 768 or dl <= 0 or dl % G.THIN_N or ml <= 0 or ml % G.THIN_N:
         raise NotImplementedError(
             f"{name} kernel: hidden 768 and a rank's attention and FFN shares multiples of "
-            f"{LANE} only, got d={d}, dl={dl}, ml={ml}")
+            f"{G.THIN_N} only, got d={d}, dl={dl}, ml={ml}")
 
 
 def gemm_f32(a, w):

@@ -9,11 +9,13 @@ splits of ``k_chunk`` rows of K and walked in K steps of one 128-byte row:
 64 bf16 elements (``K_STEP``) or 128 int8 (``S8_K_STEP``).  In bf16 its
 blocks own 128 output rows by 256 columns (the wide form) or by 128 (the
 narrow form, for a launch where some N is no multiple of 256, or whose
-narrow tiles fit one wave of the H100's 132 SMs); the s8 products of the
-W8A8 block take one form of 128 columns (``launch_s8``).  The constants
-and the rule are the header's (``kBM``, ``Wide``, ``Narrow``, ``S8``,
-``kSMs``, ``Elem``, ``narrow_launch``, ``launch_gemm_s8``, ``tile_args``
-and the item walk of ``gemm_kernel``).
+narrow tiles fit one wave of the H100's 132 SMs) or by 64 (the thin form,
+for a launch where some N is no multiple of 128: a tensor-parallel rank's
+192-column share at model 4); the s8 products of the W8A8 block take one
+form of 128 columns (``launch_s8``).  The constants and the rule are the
+header's (``kBM``, ``Wide``, ``Narrow``, ``Thin``, ``S8``, ``kSMs``,
+``Elem``, ``thin_launch``, ``narrow_launch``, ``launch_gemm_s8``,
+``tile_args`` and the item walk of ``gemm_kernel``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 from typing import Iterator, NamedTuple, Sequence, Tuple
 
 TILE_M, K_STEP, S8_K_STEP = 128, 64, 128
-WIDE_N, NARROW_N = 256, 128
+WIDE_N, NARROW_N, THIN_N = 256, 128, 64
 SMS = 132  # kSMs: one wave of one-block-an-SM tiles on the H100
 
 
@@ -34,7 +36,7 @@ class Problem(NamedTuple):
 
 class Launch(NamedTuple):
     problems: Tuple[Problem, ...]
-    tile_n: int   # the form's output columns a block: WIDE_N or NARROW_N
+    tile_n: int   # the form's output columns a block: WIDE_N, NARROW_N or THIN_N
     k_step: int = K_STEP  # elements of K a step: K_STEP (bf16) or S8_K_STEP
 
 
@@ -48,9 +50,12 @@ def _splits(p: Problem) -> int:
 
 
 def tile_n(problems: Sequence[Problem]) -> int:
-    """narrow_launch: the narrow form where some N is no multiple of the
-    wide tile, or where the narrow tiles, over every problem and split,
-    fit one wave."""
+    """thin_launch, then narrow_launch: the thin form where some N is no
+    multiple of the narrow tile; else the narrow form where some N is no
+    multiple of the wide tile, or where the narrow tiles, over every
+    problem and split, fit one wave."""
+    if any(p.N % NARROW_N for p in problems):
+        return THIN_N
     wide = 0
     for p in problems:
         if p.N % WIDE_N:

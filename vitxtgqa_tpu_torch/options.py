@@ -67,10 +67,14 @@ class Options:
         its share of the heads (Q/K/V column-parallel, the attention output
         row-parallel) and of the FFN (in column-, out row-parallel), and the
         post-attention block runs its kernels' split forms around two
-        all-reduces; None (default) holds every layer whole.  The int8
+        all-reduces; the classifier, the text BERT's word embeddings and
+        the OCR pointer's query and key are vocabulary- or column-parallel
+        where the group divides them; None (default) holds every layer
+        whole.  It composes with ``sp`` and ``pp`` (a model rank's heads
+        over its sp group, its shards in each pipeline stage).  The int8
         cache, W8A8 and the fused decode have no split forms (JAX runs none
         of them on a model mesh): with ``tp`` they raise (ROADMAP.md queue
-        2), and sp / pp beside it raise (queue 1 item 5).
+        2).
     sp: an SPGroup (parallel/mesh.build_sp_group) to run every
         full-sequence attention sequence-parallel over its ranks, each
         rank holding the whole model and batch — the JAX
@@ -117,16 +121,11 @@ class Options:
             )
         if self.pp_microbatches < 0:
             raise ValueError(f"pp_microbatches={self.pp_microbatches}: 0 (one a stage) or more")
-        if self.tp is not None:
-            if self.kv_cache_int8 or self.w8a8:
-                raise NotImplementedError(
-                    "Options(tp=...) with kv_cache_int8 or w8a8: the int8 cache's kernels, the "
-                    "W8A8 block and the fused decode have no tensor-parallel forms (JAX runs "
-                    "none of them on a model mesh; ROADMAP.md queue 2, TP forms still to port)")
-            if self.sp is not None or self.pp is not None:
-                raise NotImplementedError(
-                    "Options(tp=...) with sp or pp: model x sp and model x pp are the rest of "
-                    "the tensor-parallel slice (ROADMAP.md queue 1 item 5)")
+        if self.tp is not None and (self.kv_cache_int8 or self.w8a8):
+            raise NotImplementedError(
+                "Options(tp=...) with kv_cache_int8 or w8a8: the int8 cache's kernels, the "
+                "W8A8 block and the fused decode have no tensor-parallel forms (JAX runs none "
+                "of them on a model mesh; ROADMAP.md queue 2, TP forms still to port)")
         if self.remat not in REMAT_MODES:
             raise ValueError(
                 f"remat {self.remat!r}: the port has {REMAT_MODES} (the JAX "

@@ -16,26 +16,30 @@ is the JAX mesh's device of coordinates (d, m, s, p).
   batch must divide by the axis, as in the JAX trainer's multi-host branch
   (vitxtgqa_tpu/training/trainer.py:131-135): no rank sits idle (JAX's
   ``build_mesh(batch_size=)`` shrinks the axis instead).
-- The ``model`` axis (``Mesh.model``, a ModelGroup): the ranks of a data
-  row that split each transformer layer's heads and FFN width, each
-  holding only its shards of those weights (parallel/tensor_parallel.py,
-  Megatron's layout of JAX's DEFAULT_PARAM_RULES); the other parameters
-  and every activation between the layers are replicated.
-- The ``sp`` axis (``Mesh.sp``, an SPGroup): the ranks of a data row that
-  hold its whole batch and split the query rows of each full-sequence
-  attention (parallel/sequence_parallel.py).
-- The ``pp`` axis (``Mesh.pp``, a PPGroup): the stages of the GPipe
-  schedule over a transformer stack's layers (parallel/pipeline.py).
-  Every rank holds the whole model; a pipelined pass leaves every stage
-  with the whole stack's gradients (all-gathered over the group in its
-  backward), so the pp ranks hold a data row's gradients as replicas.
+- The ``model`` axis (``Mesh.model``, a ModelGroup): the ranks that
+  split each transformer layer's heads and FFN width and the
+  vocabulary-sized weights, each holding only its shards of those weights
+  (parallel/tensor_parallel.py, Megatron's layout of JAX's
+  DEFAULT_PARAM_RULES); the other parameters and every activation between
+  the layers are replicated.  A model group is the ranks that share (d, s,
+  p); the ranks that hold the same shards share m (ModelGroup.replicas).
+- The ``sp`` axis (``Mesh.sp``, an SPGroup): the ranks (sharing d, m, p)
+  that hold a data row's whole batch and split the query rows of each
+  full-sequence attention (parallel/sequence_parallel.py), over a model
+  rank's heads on a model mesh.
+- The ``pp`` axis (``Mesh.pp``, a PPGroup): the stages (sharing d, m, s)
+  of the GPipe schedule over a transformer stack's layers
+  (parallel/pipeline.py), a model rank's shards of them on a model mesh.
+  A pipelined pass leaves every stage with the whole stack's gradients
+  (all-gathered over the group in its backward), so the pp ranks hold a
+  data row's gradients as replicas.
 
 Every model, sp and pp rank of one data row computes what that row's rank
 would compute alone: the same rows, the same dropout and gumbel draws
 (training/step.py folds in the data coordinate only).  ``-1`` for the data
 axis takes the world over model x sp x pp; the product of the axes must
-equal the world size.  The model axis runs with the data axis alone:
-model x sp and model x pp raise (ROADMAP.md queue 1 item 5).
+equal the world size.  Every combination of the four axes runs, as the
+JAX trainer's meshes do.
 
 ``init_world`` joins the world that ``torchrun`` describes.
 """
@@ -53,10 +57,6 @@ import torch.distributed as dist
 from vitxtgqa_tpu_torch.parallel.collectives import process_count
 
 AXES = ("data", "model", "sp", "pp")
-# the combinations of the JAX mesh's axes that the port does not run
-TP_WITH = ("tensor parallelism (the mesh's model axis) runs beside the data axis only: "
-           "model x sp and model x pp are the rest of the tensor-parallel slice "
-           "(ROADMAP.md queue 1 item 5)")
 # torchrun's description of the world
 WORLD_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -87,12 +87,15 @@ class DataGroup:
 class ModelGroup:
     """group: the torch.distributed process group of the tensor-parallel
     ranks; rank: this process's rank in it (its heads are rank * H / size
-    .. (rank + 1) * H / size, its FFN columns alike); size: the number of
-    ranks."""
+    .. (rank + 1) * H / size, its FFN columns and vocabulary rows alike);
+    size: the number of ranks; replicas: the process group of the ranks
+    that hold the same shards (data x sp x pp through this rank's model
+    coordinate), None where this rank is alone in it."""
 
     group: Any
     rank: int
     size: int
+    replicas: Any = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -128,10 +131,7 @@ def mesh_shape(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,
     processes (default: this one's).  ``data=-1`` takes world / (model *
     sp * pp), as JAX's build_mesh does; the product must equal the world;
     ``batch_size`` (the global batch), where given, must divide by the data
-    axis.  ``model > 1`` beside sp or pp above 1 raises NotImplementedError,
-    a shape the world cannot hold ValueError."""
-    if model > 1 and (sp > 1 or pp > 1):
-        raise NotImplementedError(f"mesh model={model}, sp={sp}, pp={pp}: " + TP_WITH)
+    axis.  A shape the world cannot hold raises ValueError."""
     world = process_count() if world is None else int(world)
     if min(sp, pp, model) < 1 or data == 0 or data < -1:
         raise ValueError(f"mesh data={data}, model={model}, sp={sp}, pp={pp}: sizes are >= 1 "
@@ -160,26 +160,28 @@ def rank_coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
     return {a: int(i) for a, i in zip(AXES, idx)}
 
 
-def axis_ranks(shape: Dict[str, int], axis: str, coords: Dict[str, int]) -> Tuple[int, ...]:
-    """The world ranks along ``axis`` through ``coords`` (the other
-    coordinates fixed), in the axis's order."""
+def _line_ranks(shape: Dict[str, int], axes: Tuple[str, ...],
+                fixed: Dict[str, int]) -> Tuple[int, ...]:
+    """The world ranks whose coordinates off ``axes`` are ``fixed``, in
+    world order (along one axis: its order)."""
     sizes = tuple(shape[a] for a in AXES)
-    return tuple(int(np.ravel_multi_index(tuple(i if a == axis else coords[a] for a in AXES),
-                                          sizes)) for i in range(shape[axis]))
+    return tuple(int(np.ravel_multi_index(tuple({**fixed, **dict(zip(axes, idx))}[a]
+                                                for a in AXES), sizes))
+                 for idx in np.ndindex(*(shape[a] for a in axes)))
 
 
-def _axis_group(shape: Dict[str, int], axis: str, coords: Dict[str, int]):
-    """(this rank's process group along ``axis``, its world ranks).  Every
-    rank creates every group of the axis in the same order
-    (``new_group`` is collective); an axis that spans the world is the
-    world's group."""
-    mine = axis_ranks(shape, axis, coords)
-    if shape[axis] == dist.get_world_size():
+def _axes_group(shape: Dict[str, int], axes: Tuple[str, ...], coords: Dict[str, int]):
+    """(this rank's process group over ``axes``: the ranks that differ
+    from it only there, and their world ranks).  Every rank creates every
+    group of those axes in the same order (``new_group`` is collective);
+    a group that spans the world is the world's group."""
+    others = [a for a in AXES if a not in axes]
+    mine = _line_ranks(shape, axes, {a: coords[a] for a in others})
+    if len(mine) == dist.get_world_size():
         return dist.group.WORLD, mine
     group = None
-    others = [a for a in AXES if a != axis]
     for line in np.ndindex(*(shape[a] for a in others)):
-        ranks = axis_ranks(shape, axis, {**dict(zip(others, line)), axis: 0})
+        ranks = _line_ranks(shape, axes, dict(zip(others, line)))
         g = dist.new_group(list(ranks))
         if ranks == mine:
             group = g
@@ -203,8 +205,10 @@ def build_mesh(data: int = -1, model: int = 1, sp: int = 1, pp: int = 1,
                       ("pp", PPGroup)):
         if shape[axis] == 1:
             continue
-        group, ranks = _axis_group(shape, axis, coords)
+        group, ranks = _axes_group(shape, (axis,), coords)
         extra = {"peers": ranks} if cls is PPGroup else {}
+        if cls is ModelGroup and shape["data"] * shape["sp"] * shape["pp"] > 1:
+            extra["replicas"] = _axes_group(shape, ("data", "sp", "pp"), coords)[0]
         groups[axis] = cls(group=group, rank=coords[axis], size=shape[axis], **extra)
     return Mesh(shape=shape, coords=coords, **groups)
 

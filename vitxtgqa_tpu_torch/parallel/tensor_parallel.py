@@ -22,12 +22,26 @@ one process per rank that holds only its shards (Options.tp, a ModelGroup):
   it (the block's FFN-in input gradient is summed inside the block's split
   backward), so each partial is summed exactly once.
 
+The vocabulary-sized weights and the OCR pointer network's query and key
+(which JAX's query/key rule also catches) follow JAX's other rules, each
+where the group divides its dimension (``divides``, JAX's param_shardings
+condition), else whole on every rank:
+
+- the text BERT's word embeddings hold a rank's rows of the vocabulary:
+  ``vocab_lookup`` gives a zero row for an id outside them, then one
+  all-reduce (Megatron's VocabParallelEmbedding); its backward keeps each
+  rank's rows;
+- the fixed-vocabulary classifier holds a rank's answer rows: its input
+  comes through copy_to_model, its score columns are all-gathered along
+  the vocabulary (``gather_from_model``, whose backward keeps the rank's
+  columns), and its table's LayerNormed rows feed the decoder slots
+  through ``vocab_lookup``;
+- the pointer network's query and key are column-parallel over
+  query_key_size, so its scores are a partial sum, all-reduced in f32.
+
 The biases of the column-parallel products go with their columns (JAX's
 rules name the kernels only and keep the biases whole; GSPMD computes the
-same function).  The other weights that JAX's rules shard over ``model``
-(the classifier, the word embeddings) stay whole here, as do the OCR
-pointer network's query and key (which JAX's query/key rule also catches):
-the same function with more memory (ROADMAP.md §3).
+same function).
 
 ``PARAM_RULES`` is the port's rule table over its parameter names;
 ``shard_state`` / ``gather_state`` map a whole state dict to a rank's
@@ -47,14 +61,17 @@ from vitxtgqa_tpu_torch.parallel import collectives as C
 
 # parameter name -> the dimension it shards (nn.Linear layout [out, in]):
 # column-parallel weights and biases over their output features (dim 0),
-# row-parallel weights over their input features (dim 1); a transformer
-# layer's FFN output is "output.dense", its attention output
-# "attention.output.dense"
+# row-parallel weights over their input features (dim 1), the vocabulary
+# tables over their rows (dim 0); a transformer layer's FFN output is
+# "output.dense", its attention output "attention.output.dense"
 PARAM_RULES: Tuple[Tuple[str, int], ...] = (
     (r"(?:^|\.)attention\.self\.(?:query|key|value)\.(?:weight|bias)$", 0),
     (r"(?:^|\.)attention\.output\.dense\.weight$", 1),
     (r"(?:^|\.)intermediate\.dense\.(?:weight|bias)$", 0),
     (r"(?:^|(?<!attention)\.)output\.dense\.weight$", 1),
+    (r"(?:^|\.)classifier\.module\.(?:weight|bias)$", 0),
+    (r"(?:^|\.)word_embeddings\.weight$", 0),
+    (r"(?:^|\.)ocr_ptr_net\.(?:query|key)\.(?:weight|bias)$", 0),
 )
 
 
@@ -74,6 +91,12 @@ def layer_splits(num_heads: int, intermediate: int, size: int) -> bool:
     return size > 1 and num_heads % size == 0 and intermediate % size == 0
 
 
+def divides(tp, dim: int) -> bool:
+    """Whether ``tp`` (a ModelGroup, or None) splits a dimension of
+    ``dim``: JAX's rule applies where the axis divides the dimension."""
+    return tp is not None and tp.size > 1 and dim % tp.size == 0
+
+
 def mark(param: nn.Parameter, dim: int) -> None:
     """Mark ``param`` as a shard along ``dim`` (read by sharded_dims, the
     optimizer and the checkpoints)."""
@@ -82,7 +105,8 @@ def mark(param: nn.Parameter, dim: int) -> None:
 
 def sharded_dims(model: nn.Module) -> Dict[str, int]:
     """{parameter name: shard dim} of the parameters a model holds as
-    tensor-parallel shards (its split layers'); the others are whole."""
+    tensor-parallel shards (Options.tp: its split layers' and vocabulary
+    tables'); the others are whole."""
     return {n: p.tp_dim for n, p in model.named_parameters() if hasattr(p, "tp_dim")}
 
 
@@ -107,7 +131,7 @@ def shard_state(state: Dict[str, torch.Tensor], dims: Dict[str, int], rank: int,
 
 def local_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A whole state dict as ``model`` holds it: its tensor-parallel
-    rank's shards of its split layers (Options.tp), else the dict as it is
+    rank's shards (sharded_dims; Options.tp), else the dict as it is
     (a checkpoint of any mesh loads on any other)."""
     tp = getattr(getattr(model, "opts", None), "tp", None)
     dims = sharded_dims(model)
@@ -126,15 +150,15 @@ def whole_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> Dict[str, t
     return gather_state(state, dims, tp.group)
 
 
-def check_replicas(params: Sequence[torch.Tensor], what: str, data=None) -> None:
+def check_replicas(params: Sequence[torch.Tensor], what: str, tp=None) -> None:
     """Raise unless the ranks that should hold the same ``params`` do: the
-    whole ones on every rank of the world, a split layer's shards on the
-    ranks of one model coordinate (the data group ``data``)."""
+    whole ones on every rank of the world, the shards on the ranks of one
+    model coordinate (``tp.replicas``: data x sp x pp)."""
     whole = [p for p in params if not is_sharded(p)]
     shards = [p for p in params if is_sharded(p)]
     C.assert_replicas_equal(whole, what)
-    if shards and data is not None:
-        C.assert_replicas_equal(shards, what + " (the tensor-parallel shards)", data.group)
+    if shards and tp is not None and tp.replicas is not None:
+        C.assert_replicas_equal(shards, what + " (the tensor-parallel shards)", tp.replicas)
 
 
 def gather_state(state: Dict[str, torch.Tensor], dims: Dict[str, int],
@@ -171,6 +195,20 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' ``x`` concatenated along the last dimension forward; the
+    backward keeps this rank's columns of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return C.all_gather(x, tp.group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.tp.size, dim=-1)[ctx.tp.rank].contiguous(), None
+
+
 def copy_to_model(x: torch.Tensor, tp) -> torch.Tensor:
     """x, whose gradient is summed over ``tp``'s ranks in the backward."""
     return _CopyToModel.apply(x, tp.group) if torch.is_grad_enabled() else x
@@ -181,6 +219,28 @@ def reduce_from_model(x: torch.Tensor, tp) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
         return _ReduceFromModel.apply(x, tp.group)
     return C.all_reduce(x, tp.group)
+
+
+def gather_from_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along its last dimension in rank
+    order (a vocabulary-parallel product's columns), on every rank."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherFromModel.apply(x, tp)
+    return C.all_gather(x, tp.group, dim=-1)
+
+
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor, tp) -> torch.Tensor:
+    """``whole_table[ids]`` from this rank's rows of it (``table``, rows
+    tp.rank * V / size on): a zero row for an id outside them, then the
+    sum over ``tp`` (one all-reduce in float32, where a row and zeros add
+    exactly; the table's dtype after it).  The backward reaches each
+    rank's rows only."""
+    rows = table.shape[0]
+    local = ids - tp.rank * rows
+    hit = (local >= 0) & (local < rows)
+    got = table[local.clamp(0, rows - 1)]
+    own = torch.where(hit[..., None], got, torch.zeros_like(got)).float()
+    return reduce_from_model(own, tp).to(table.dtype)
 
 
 # ---- the split forms' steps ------------------------------------------------

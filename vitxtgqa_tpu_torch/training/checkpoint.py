@@ -24,8 +24,9 @@ snapshot it copies where the file system allows.  Saving is synchronous.
 On the ranks of a data axis rank 0 alone writes (the others pass no state)
 and every rank waits at a barrier after a save, so that each can then
 restore the same files.  Under tensor parallelism the state is whole:
-the trainer gathers the split layers' shards and their optimizer moments
-over the model group before rank 0 writes, and a load takes each rank's
+the trainer gathers the shards (the split layers', the vocabulary-parallel
+tables') and their optimizer moments over the model group before rank 0
+writes, and a load takes each rank's
 shards of it (parallel/tensor_parallel.local_state,
 training/optim.Optimizer.load_state_dict), so a checkpoint of a model-2
 run loads in one process and the reverse.

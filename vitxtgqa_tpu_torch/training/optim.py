@@ -43,13 +43,14 @@ equal bit for bit, where a kernel that adds with atomics (#1b's dQ) sums
 in another order on another rank and the replicas' parameters would drift
 apart by rounding.
 
-Tensor parallelism (the model's ``Options.tp``): a split layer's shards
-(parallel/tensor_parallel.is_sharded) hold different parameters on the
-ranks of a data row, so their gradients are summed over the data group
-only; every other gradient (and ``extra``) is summed over the mesh and
-divided by the model replicas, as the sp x pp replicas' are.  The clip
-norm counts each shard once: the shards' sum of squares summed over the
-model group, plus the whole parameters' once.  ``state_dict`` gathers the
+Tensor parallelism (the model's ``Options.tp``): the shards
+(parallel/tensor_parallel.is_sharded) differ between the model ranks, so
+their gradients are summed over the ranks of one model coordinate
+(``ModelGroup.replicas``: data x sp x pp) and divided by the sp x pp
+replicas; every other gradient (and ``extra``) is summed over the mesh and
+divided by the model x sp x pp replicas, in one all-reduce as without a
+model axis.  The clip norm counts each shard once: the shards' sum of
+squares summed over the model group, plus the whole parameters' once.  ``state_dict`` gathers the
 shards' master copies and moments over the model group (a collective:
 every rank calls it) and ``load_state_dict`` takes its rank's part of a
 whole state, so a checkpoint loads on any mesh.
@@ -209,15 +210,18 @@ class Optimizer:
         return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
 
     def _clip_tp(self, grads: List[torch.Tensor], extra: List[torch.Tensor]) -> torch.Tensor:
-        """clip() on a data x model mesh (the module docstring)."""
+        """clip() on a mesh with a model axis (the module docstring)."""
         sharded = [TP.is_sharded(p) for p, _ in self.pairs]
         shards = [g for g, s in zip(grads, sharded) if s]
         whole = [g for g, s in zip(grads, sharded) if not s]
-        if self.group is not None:
-            all_reduce_flat_(shards, self.group.group)
+        replicas = (self.sp.size if self.sp else 1) * (self.pp.size if self.pp else 1)
+        if self.tp.replicas is not None:
+            all_reduce_flat_(shards, self.tp.replicas)
         all_reduce_flat_(whole + extra, None)
-        for t in whole + extra:
-            t.div_(self.tp.size)
+        for ts, n in ((shards, replicas), (whole + extra, self.tp.size * replicas)):
+            if n > 1:
+                for t in ts:
+                    t.div_(n)
         square = lambda ts: (torch.stack([t.square().sum() for t in ts]).sum() if ts
                              else grads[0].new_zeros(()))
         sq = square(shards)

@@ -48,8 +48,11 @@ eligible stack runs the GPipe schedule over the pp stages.  The sp and pp
 ranks of one data row replicate that row: the loader's rows, the dropout
 and gumbel draws and the losses' shares are the data coordinate's, and
 the records are gathered over the data group alone, so each question is
-counted once.  The parameters are checked equal over the whole world
-after they load and after the first step.
+counted once.  The model axis (``tpu.mesh.model``) splits the layers and
+the vocabulary-sized weights over its ranks (parallel/tensor_parallel.py)
+beside any of the others.  The parameters are checked equal after they
+load and after the first step: the whole ones over the world, the shards
+over the ranks of their model coordinate.
 
 More than one dataset (``--datasets a,b``): the first is the primary one
 (its validation, head sizes, loss and metric keys, as in JAX); training
@@ -148,8 +151,8 @@ def options_from_config(tp: Any, kernel_free: bool = False,
       * fused_grads, compact_train, dense_mm, split_dense: false, or raise;
       * mesh: data x model x sp x pp over the world's processes
         (parallel/mesh.mesh_shape: data -1 takes the rest, the product the
-        world size, the global batch divisible by the data axis; model
-        beside sp or pp raises); ``mesh`` (the trainer's build_mesh,
+        world size, the global batch divisible by the data axis; every
+        combination of the axes); ``mesh`` (the trainer's build_mesh,
         required where model, sp or pp is above 1) gives Options its tp,
         sp and pp groups.  On a mesh of data x model x pp above 1 the
         int8 cache and W8A8 are off whatever the config says, as the JAX
@@ -429,9 +432,10 @@ class BaseTrainer:
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.write(f"model {model_key}: {n_params / 1e6:.1f}M params")
         if process_count() > 1:
-            # the same seeded init on every rank of the world (a split
-            # layer's shards on the ranks of its model coordinate): checked once
-            check_replicas(list(self.model.parameters()), "the initial parameters", self.dp)
+            # the same seeded init on every rank of the world (the shards on
+            # the ranks of their model coordinate): checked once
+            check_replicas(list(self.model.parameters()), "the initial parameters",
+                           self.opts.tp)
         self.losses = Losses(list(getattr(self.model_cfg, "losses", []) or []),
                              self.dataset_name, group=self.dp)
         self.metrics = Metrics(list(getattr(self.model_cfg, "metrics", []) or []),
@@ -578,7 +582,7 @@ class BaseTrainer:
             if not replicas_checked and process_count() > 1:
                 # every model / sp / pp / data rank steps alike: checked after the first step
                 check_replicas(list(self.model.parameters()),
-                               "the parameters after the first step", self.dp)
+                               "the parameters after the first step", self.opts.tp)
                 replicas_checked = True
             self._sync()
             t1 = time.perf_counter()

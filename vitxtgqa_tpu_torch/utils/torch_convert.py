@@ -50,7 +50,7 @@ def reference_state(sd: Dict[str, object], model: torch.nn.Module
     is read under its own name or its alias; a persistent buffer that
     ``sd`` lacks keeps the model's value.  Values keep their dtype:
     ``load_state_dict`` casts them to the model's.  A tensor-parallel
-    model's split layers are read whole (their shape times the model
+    model's shards are read whole (their shape times the model
     group along the shard dim): tensor_parallel.local_state takes the
     rank's part."""
     own = model.state_dict()
