@@ -4,7 +4,8 @@ its ViT frame-feature path, its sequence-parallel path, its runtime
 (train, validate, checkpoint, resume, predict), the zoo's T2S-family
 models, its selector baselines (TranSTR, MIST), its data parallelism, its
 serving demo and raw-video pipeline, the legacy image-VQA zoo and the
-mesh's sp, pp and model axes once on one NVIDIA GPU.
+mesh's sp, pp and model axes, and T2S at bert-large-uncased's widths,
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -42,8 +43,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
      55,296 rows (QTV, MMT), 960 (text BERT) and the ragged 1,000 and
      9,000, rate 0 and 0.1, against the twins on the same inputs, its
      emitted masks equal to the twin's and two backward calls equal bit
-     for bit, timed at 55,296 and 960, and again at the FFN width 3,200
-     (narrow GEMM tiles) at 4,608 and 1,000 rows.  The eval block and its
+     for bit, timed at 55,296, and again at the FFN width 3,200
+     (narrow GEMM tiles) at 4,608 and 1,000 rows.  Every
+     kernel check times the main path's shape only (the first case, batch
+     1 for #5 / #6, batch 8 over 960 slots for #12) and checks the others
+     untimed.  The eval block and its
      tanh form (check_eval_block: EVAL_BLOCK_CASES) at 9,216, 2,304,
      3,072 and the ragged 2,100 rows, at the FFN width 3,200, with an
      LN1 output at 64 + O(1) that an f32 second residual must keep, and at
@@ -272,11 +276,12 @@ Phases (each prints one or more lines; any failure exits non-zero):
           at the global batch 48 against the one-process step at slice e's
           limits, the ranks' parameters equal after it, and each planted
           fault (MESH_FAULTS: a stage skipped, every gradient summed over
-          the stages) outside the limits; (ii) pp 2 (the QTV pipelined):
-          the same full-eval check; (iii) data x sp = 2 x 2 on four ranks:
-          the step at 48, 24 rows a data row (#10 / #10b in the QTV / MMT
-          attentions), against one process; each rank's ms of the checked
-          step and of a second; (iv) ``python -m torch.distributed.run
+          the stages) outside the limits; then one world of four ranks:
+          (ii) data 2 x pp 2 (the QTV pipelined on each data row): the
+          same full-eval check; (iii) data x sp = 2 x 2: the step at 48,
+          24 rows a data row (#10 / #10b in the QTV / MMT attentions),
+          against one process; each rank's ms of the checked step and of a
+          second; (iv) ``python -m torch.distributed.run
           --standalone --nproc_per_node 4 -m vitxtgqa_tpu_torch.run ...
           training_parameters.tpu.mesh.data=2 training_parameters.tpu.
           mesh.sp=2`` on slice l's fixtures against run() in this process
@@ -308,7 +313,25 @@ Phases (each prints one or more lines; any failure exits non-zero):
           x pp 2: full-eval, the step) and "tp4" (model 4: the step), each
           against one process, the launches as derived
           (expected_mesh_launches); (iii) entry.dryrun_multichip(4,
-          model=2, sp=2) and (4, model=2, pp=2); its seconds.
+          model=2, sp=2) and (4, model=2, pp=2); its seconds;
+       u. the widths the Pallas kernels take beyond the main path's: (i)
+          the block kernels at (hidden, FFN) of WIDTH_CASES (512 / 2,048,
+          1,024 / 4,096, 1,280 / 5,120, 1,024 / 3,200) on 2,304 rows,
+          #5 at STEP_WIDTH_CASES (16 and 8 heads) at batch 1, 2 and 8,
+          #6 at 1,024, #12 at 1,280 and 1,024, the split forms at model 2
+          at 1,024, each against its twin and beside a planted fault its
+          tolerance rejects (width_faults; TP_SUM_FAULTS; #5's planted
+          attention and row-pass fault; #12 over the old 1,024 columns),
+          timed at 1,024 only with the products alone as the library time;
+          (ii) T2S at bert-large-uncased's widths (t2s_bert_large_config:
+          hidden 1,024, 16 heads, FFN 4,096, the production depths and
+          sequence; 143.7M parameters) served at 8 (int8, bf16 cache,
+          W8A8), 1 and 2 (fused decode), the preset at 2 and 8, full-eval
+          at 8, the module entry points, a training step at 4 against
+          plain with the planted faults and 4 Adam steps at 48, at slices
+          a-h's limits, the launches as derived.
+     Each phase prints its seconds ("phase NAME: S s"), and after the
+     slices one line holds them all ("phases (s): {...}").
      a-c, f-g, m, n and p serve behind a ServingEngine; each slice checks its
      launch counts (derived from the gates), the outputs' shapes and finiteness,
      and the same inputs through the plain versions on the card.
@@ -1179,17 +1202,19 @@ def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: i
     attention planted (decode_step_cache) over the cache length of
     ``mask``: y against the tolerance, the quantized rows within one int8
     step and 1% of the scale, and at most ROW8_HEAD_MOVED values of any
-    head's slice moved.  With ``timed``, at step 11 each batch's time warm
-    (the same weights and cache every call) and cold (cold_copies sets of
-    weight stacks and caches in turn, so none is left in the L2, as a
-    forward's other kernels leave it), with its bound; the batch-1 ones
-    kept as the kernel's record when ``keep``.  Returns {shape: times}."""
+    head's slice moved.  With ``timed``, at step 11 the first batch's time
+    warm (the same weights and cache every call) and cold (cold_copies
+    sets of weight stacks and caches in turn, so none is left in the L2,
+    as a forward's other kernels leave it), with its bound, kept as the
+    kernel's record when ``keep``; the other batches checked untimed.
+    Returns {shape: times}."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import decode_step as DS
 
-    dev, h, lp = mask.device, 12, mask.shape[1]
+    dev, lp = mask.device, mask.shape[1]
     m, d = stacks["w1"].shape[1:]
+    h = d // 64
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     times = {}
     for step in (0, 11):
@@ -1206,14 +1231,14 @@ def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: i
             d8 = (got[1].int() - want[1].int()).abs().max().item()
             head = row8_head_moved(got[1], want[1], h)
             dsc = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
-            shape = f"[{b},1,768] x 3 layers, kv8 [3,{b},{lp},1536] step={step}"
+            shape = f"[{b},1,{d}] x 3 layers, kv8 [3,{b},{lp},{2 * d}] step={step}"
             print(f"kernel fused_decode_step {shape}: row8 max|diff| {d8} (tol {ROW8_TOL}), most "
                   f"moved in one head {head} of 64 (tol {ROW8_HEAD_MOVED}), rowsc max rel diff "
                   f"{dsc:.3e} (tol {ROWSC_REL_TOL})", flush=True)
             if not (d8 <= ROW8_TOL and head <= ROW8_HEAD_MOVED and dsc <= ROWSC_REL_TOL):
                 fail(f"fused_decode_step quantized rows disagree at {shape}")
             timed_rec = {}
-            if timed and step == 11:
+            if timed and step == 11 and b == batches[0]:
                 ms = cuda_time_ms(lambda: DS.fused_decode_step(*sargs, buffers=buffers))
                 pms = cuda_time_ms(lambda: DS.fused_decode_step_plain(*sargs))
                 keys = 3 * (decode_keys(km, step) - b)
@@ -1230,8 +1255,9 @@ def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: i
                       f"cold ({copies} sets in turn), plain {pms:.4f} ms, bound {bound[0]:.4f} ms "
                       f"({bound[1]})", flush=True)
                 times[f"[{b},{lp}]"] = dict(warm_ms=ms, cold_ms=cold, plain_ms=pms,
-                                            bound_ms=bound[0], cold_copies=copies)
-                if b == 1 and keep:  # the record's shape: the fused branch's batch-1 step
+                                            bound_ms=bound[0], bound_by=bound[1],
+                                            cold_copies=copies)
+                if keep:  # the record's shape: the fused branch's batch-1 step
                     timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
             report(record, "fused_decode_step", err, extra=" " + shape, **timed_rec)
     if dev.type == "cuda":
@@ -1754,7 +1780,7 @@ def check_epilogue_batch_order(dev, record, order=EPI_ORDER):
         torch.cuda.empty_cache()
 
 
-def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True):
+def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True, d: int = 768):
     """The fused epilogue (#6) against its twin at each batch, on random
     inputs and with the planted tie and OCR row (plant_epilogue): the
     scores within the tolerance and their pad lanes exactly -1e30, the
@@ -1762,12 +1788,13 @@ def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True):
     tolerance, the next embedding within it where the tokens agree; with
     the plant, the lower tied row wins bit for bit (both rows' scores
     equal) in every batch row but row 1, whose planted OCR slot wins.  With
-    ``timed``, each batch's time warm (the same inputs every call) and
-    cold (cold_copies sets of classifier, pointer weights and keys in
+    ``timed``, the first batch's time warm (the same inputs every call)
+    and cold (cold_copies sets of classifier, pointer weights and keys in
     turn), the twin's, and its two GEMVs alone as float32 torch.matmul (a
-    yardstick: no single call computes the epilogue); batch 1 warm is the
-    kernel's record.  The launches share one epilogue_buffers, as a
-    forward's do.  Returns {batch: times}."""
+    yardstick: no single call computes the epilogue), warm kept as the
+    kernel's record; the other batches checked untimed.  The launches
+    share one epilogue_buffers, as a forward's do.  Returns {batch:
+    times}."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import decode_step as DS
@@ -1777,8 +1804,8 @@ def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True):
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     times = {}
     for b in batches:
-        eargs = epilogue_inputs(dev, gen, b)
-        d, qk = eargs[0].shape[-1], eargs[3].shape[0]
+        eargs = epilogue_inputs(dev, gen, b, d)
+        qk = eargs[3].shape[0]
         grid = (DS.epilogue_grid(b, d, qk) if dev.type == "cuda"
                 else DS.EPILOGUE_BLOCKS_PER_SM * DS.H100_SMS)
         buf = DS.epilogue_buffers(b, qk, dev)
@@ -1794,7 +1821,7 @@ def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True):
             tok_ok = (tok == wtok) | ((top2[:, 0] - top2[:, 1]) <= tol)
             same = tok == wtok
             emb_err = (got[2] - want[2]).float().abs()[same].max().item() if same.any() else 0.0
-            label = f" [{b},1,768] -> [{b},1,{EPI_V_P + EPI_N}]" + (" planted" if planted else "")
+            label = f" [{b},1,{d}] -> [{b},1,{EPI_V_P + EPI_N}]" + (" planted" if planted else "")
             print(f"kernel fused_epilogue{label}: tokens {tok.tolist()} vs plain {wtok.tolist()}; "
                   f"next-embedding max|diff| {emb_err:.3e}; pad lanes -1e30: {pads}", flush=True)
             if not bool(tok_ok.all()) or not emb_err <= tol or not pads:
@@ -1812,7 +1839,7 @@ def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True):
                 if not tied or not torch.equal(tok, want_tok):
                     fail(f"fused_epilogue's planted tie or OCR row at{label}")
             timed_rec = {}
-            if timed and not planted:
+            if timed and not planted and b == batches[0]:
                 run = lambda cls_w, ptr_w, keys: DS.fused_epilogue(
                     eargs[0], cls_w, eargs[2], ptr_w, eargs[4], keys, *eargs[6:], buffers=buf)
                 first = (eargs[1], eargs[3], eargs[5])
@@ -1833,9 +1860,8 @@ def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True):
                       f"as torch.matmul) {gemv:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})",
                       flush=True)
                 times[b] = dict(warm_ms=ms, cold_ms=cold, plain_ms=pms, yardstick_ms=gemv,
-                                bound_ms=bound[0], cold_copies=copies)
-                if b == 1:  # the record's shape: the fused branch's batch-1 step
-                    timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
+                                bound_ms=bound[0], bound_by=bound[1], cold_copies=copies)
+                timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
             report(record, "fused_epilogue", err, extra=label, **timed_rec)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1848,12 +1874,12 @@ def check_ptr_scores(dev, record, cases=PTR_CASES, d: int = 768, timed: bool = T
     repeated; a 961st slot valid): random q within the tolerance, and q of
     small integers bit for bit (the dot is then exact in any order, so the
     scale's order, acc * (ks * scale) + mask, decides every bit).  With
-    ``timed``, each case's time warm (the same keys every call) and cold
-    (cold_copies sets of keys in turn), the twin's, and the bf16-key
-    einsum that the JAX package's default decode takes instead
-    (OcrPtrNet.scores_from_keys on bf16 keys: a yardstick, it reads twice
-    the bytes); batch 8 warm is the kernel's record.  Returns {case:
-    times}."""
+    ``timed``, the main path's case (batch 8 over 960 slots) warm (the
+    same keys every call) and cold (cold_copies sets of keys in turn), the
+    twin's, and the bf16-key einsum that the JAX package's default decode
+    takes instead (OcrPtrNet.scores_from_keys on bf16 keys: a yardstick,
+    it reads twice the bytes), warm kept as the kernel's record; the other
+    cases checked untimed.  Returns {case: times}."""
     import torch
     import torch.nn.functional as F
 
@@ -1880,7 +1906,7 @@ def check_ptr_scores(dev, record, cases=PTR_CASES, d: int = 768, timed: bool = T
         if not exact:
             fail(f"ptr_scores_int8 on integer q is not the twin's bit for bit at{label}")
         timed_rec = {}
-        if timed:
+        if timed and (b, n) == (BATCH, 960):
             copies = cold_copies(nbytes(k8, ks))
             sets = [(k8, ks)] + [quantize_kv(torch.randn(b, n, d, generator=gen, device=dev)
                                              .to(torch.bfloat16)) for _ in range(copies - 1)]
@@ -1896,9 +1922,8 @@ def check_ptr_scores(dev, record, cases=PTR_CASES, d: int = 768, timed: bool = T
                   f"({copies} sets in turn), plain {pms:.4f} ms, yardstick (the bf16-key einsum) "
                   f"{yard:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
             times[f"[{b},{n}]"] = dict(warm_ms=ms, cold_ms=cold, plain_ms=pms, yardstick_ms=yard,
-                                       bound_ms=bound[0], cold_copies=copies)
-            if (b, n) == (BATCH, 960):
-                timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
+                                       bound_ms=bound[0], bound_by=bound[1], cold_copies=copies)
+            timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
         report(record, "ptr_scores_int8", (got - want).abs().max().item(), label, **timed_rec)
         del kb, k8, ks, got, want, got_i
     if dev.type == "cuda":
@@ -1909,9 +1934,9 @@ def check_ptr_scores(dev, record, cases=PTR_CASES, d: int = 768, timed: bool = T
 def check_eval_block(dev, record, cases=EVAL_BLOCK_CASES, d: int = 768, timed: bool = True):
     """The eval block (#2) and its tanh form (#3) against their twins at
     each (rows, FFN width, LN1 shift) of ``cases`` (EVAL_BLOCK_CASES), the
-    weights and inputs from one seed; with ``timed``, each case's kernel
-    and twin times and bound, the first case's kept as the kernels'
-    record.  Returns {case: {kernel: times}}."""
+    weights and inputs from one seed; with ``timed``, the first case's
+    (the main path's) kernel and twin times and bound, kept as the kernels'
+    record; the others checked untimed.  Returns {case: {kernel: times}}."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import fused_block as FB
@@ -1938,7 +1963,7 @@ def check_eval_block(dev, record, cases=EVAL_BLOCK_CASES, d: int = 768, timed: b
             sync()
             err = (got.float() - want.float()).abs().max().item()
             timed_case = {}
-            if timed:
+            if timed and i == 0:
                 timed_case = dict(
                     ms=cuda_time_ms(lambda: fn(*a)), plain_ms=cuda_time_ms(lambda: plain(*a)),
                     bound=block_bound(rows, d, m, n_in, nbytes(got), nbytes(wo, w1, w2),
@@ -1946,11 +1971,7 @@ def check_eval_block(dev, record, cases=EVAL_BLOCK_CASES, d: int = 768, timed: b
                 times.setdefault(label.strip(), {})[name] = {
                     "ms": timed_case["ms"], "plain_ms": timed_case["plain_ms"],
                     "bound_ms": timed_case["bound"][0], "max_abs_err": err}
-                if i:
-                    print(f"kernel {name}{label}: kernel {timed_case['ms']:.4f} ms, plain "
-                          f"{timed_case['plain_ms']:.4f} ms, bound {timed_case['bound'][0]:.4f} "
-                          f"ms ({timed_case['bound'][1]})", flush=True)
-            report(record, name, err, label, **(timed_case if i == 0 else {}))
+            report(record, name, err, label, **timed_case)
             del got, want
         del x_q, ctx, res, args, pv
     if dev.type == "cuda":
@@ -1968,9 +1989,10 @@ def check_w8a8_block(dev, record, cases=W8A8_CASES, d: int = 768, timed: bool = 
     twin's f32 operations and their order, so only the LayerNorm's sums may
     differ, and they lie before x8).  First, the s8 products alone
     (s8_products) at each (M, N, K) of ``s8_cases``, bit for bit the exact
-    sums.  With ``timed``, each case's kernel, twin and bf16 block (#2, the
-    bf16 weights on the same inputs) times and bound, the first case's
-    kept as the kernel's record.  Returns {case: times}."""
+    sums.  With ``timed``, the first case's (the main path's) kernel, twin
+    and bf16 block (#2, the bf16 weights on the same inputs) times and
+    bound, kept as the kernel's record; the others checked untimed.
+    Returns {case: times}."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import fused_block as FB
@@ -2018,7 +2040,7 @@ def check_w8a8_block(dev, record, cases=W8A8_CASES, d: int = 768, timed: bool = 
             fail(f"fused_block_w8a8 forms or quantizes h otherwise than its twin at {rows} rows")
         err = (got.float() - want.float()).abs().max().item()
         timed_case = {}
-        if timed:
+        if timed and i == 0:
             ms = cuda_time_ms(lambda: FB.fused_block_w8a8(*args))
             pms = cuda_time_ms(lambda: FB.fused_block_w8a8_plain(*args), reps=3, warmup=1)
             bf_ms = cuda_time_ms(lambda: FB.fused_block(x_q, ctx, *pv))
@@ -2029,8 +2051,7 @@ def check_w8a8_block(dev, record, cases=W8A8_CASES, d: int = 768, timed: bool = 
                   f"({bound[1]})", flush=True)
             times[label.strip()] = {"ms": ms, "plain_ms": pms, "bf16_block_ms": bf_ms,
                                     "bound_ms": bound[0], "max_abs_err": err}
-            if i == 0:
-                timed_case = dict(ms=ms, plain_ms=pms, bound=bound)
+            timed_case = dict(ms=ms, plain_ms=pms, bound=bound)
         report(record, "fused_block_w8a8", err, label, **timed_case)
         del x_q, ctx, got, want, c8, want8, x8, h8, h8_want
     if dev.type == "cuda":
@@ -2181,9 +2202,9 @@ def check_vit_kernels(dev, record):
 
 def check_ffn(dev, record, cases=FFN_CASES, timed: bool = True):
     """The fused FFN (#13) against its twin at each (rows, d, m, d2,
-    label) of ``cases`` (FFN_CASES); with ``timed``, each case's kernel and
-    twin times and bound, the first case's kept as the kernel's record.
-    Returns {case: times}."""
+    label) of ``cases`` (FFN_CASES); with ``timed``, the first case's (the
+    main path's) kernel and twin times and bound, kept as the kernel's
+    record; the others checked untimed.  Returns {case: times}."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import ffn as FFN
@@ -2202,17 +2223,14 @@ def check_ffn(dev, record, cases=FFN_CASES, timed: bool = True):
         err = (got.float() - want.float()).abs().max().item()
         shape = f" {label} [{rows},{d}]->{m}->{d2}"
         timed_case = {}
-        if timed:
+        if timed and i == 0:
             ms = cuda_time_ms(lambda: FFN.fused_ffn(*args))
             pms = cuda_time_ms(lambda: FFN.fused_ffn_plain(*args))
             bound = bound_of(nbytes(x, w1, b1, w2, b2, got), 2 * rows * m * (d + d2))
             details[f"fused_ffn{shape}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bound[0],
                                             "max_abs_err": err}
             timed_case = dict(ms=ms, plain_ms=pms, bound=bound)
-            if i:
-                print(f"kernel fused_ffn{shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-                      f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
-        report(record, "fused_ffn", err, shape, **(timed_case if i == 0 else {}))
+        report(record, "fused_ffn", err, shape, **timed_case)
         del x, got, want
     return details
 
@@ -2442,9 +2460,9 @@ def check_training_kernels(dev, record):
     torch.cuda.empty_cache()
 
     details["block_times"] = check_block_kernels(
-        dev, record, (b * l, bt * l, bt * 20) + BLOCK_RAGGED_ROWS, timed_rows=(bt * l, bt * 20))
+        dev, record, (b * l, bt * l, bt * 20) + BLOCK_RAGGED_ROWS, timed_rows=(bt * l,))
     details["block_times"].update(check_block_kernels(
-        dev, record, BLOCK_NARROW_ROWS, m=BLOCK_NARROW_M, timed_rows=BLOCK_NARROW_ROWS[:1],
+        dev, record, BLOCK_NARROW_ROWS, m=BLOCK_NARROW_M, timed_rows=(),
         keep=False))
     return details
 
@@ -3160,7 +3178,8 @@ def near_tie_faults(kp, pp, forced, same, cap: int):
     return faults, step0
 
 
-def full_eval_slice(sl: Slices, record, card, compact: bool = False, batch_size: int = BATCH):
+def full_eval_slice(sl: Slices, record, card, compact: bool = False, batch_size: int = BATCH,
+                    prefix: str = ""):
     """d. full-eval at batch 8, int8 cache: the pos decode, then ref / neg
     from one teacher-forced pass at 2B (h., ``compact``: the pos decode and
     the neg pass on the kept rows, ref over the full sequence at B); the
@@ -3172,7 +3191,7 @@ def full_eval_slice(sl: Slices, record, card, compact: bool = False, batch_size:
     from vitxtgqa_tpu_torch.ops import _build
     from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
 
-    name = f"{'compact_' if compact else ''}full_eval_b{batch_size}"
+    name = f"{prefix}{'compact_' if compact else ''}full_eval_b{batch_size}"
     if sl.key != "t2s":
         name = f"{sl.key}_{name}"
     opts = dict(kv_cache_int8=True, compact_serving=compact)
@@ -3215,7 +3234,7 @@ def full_eval_slice(sl: Slices, record, card, compact: bool = False, batch_size:
             "max_abs_diff": diffs, "forward_ms_all": lat}
 
 
-def module_entry_slice(sl: Slices, record):
+def module_entry_slice(sl: Slices, record, name: str = "module_entries"):
     """i. The int8 kernels' module entry points at production width: the
     MMT encoder's encode_with_cache(quantize=True) over a batch-8 joint
     sequence (#11 in each layer), whose cache must equal quantize_cache of
@@ -3232,10 +3251,11 @@ def module_entry_slice(sl: Slices, record):
     dev, bf = sl.dev, torch.bfloat16
     model = sl.model(kv_cache_int8=True)
     enc, ppe = model.mmt.encoder, model.mmt.prev_pred_embeddings
+    d, n_layers = enc.cfg.hidden_size, enc.cfg.num_hidden_layers
     gen = torch.Generator(device=dev).manual_seed(1357)
     mask, ocr_mask = serving_masks(dev)
-    x = torch.randn(BATCH, L_JOINT, 768, generator=gen, device=dev).to(bf)
-    ocr = torch.randn(BATCH, 960, 768, generator=gen, device=dev).to(bf)
+    x = torch.randn(BATCH, L_JOINT, d, generator=gen, device=dev).to(bf)
+    ocr = torch.randn(BATCH, 960, d, generator=gen, device=dev).to(bf)
     spec = MaskSpec(key_mask=mask)
     only = lambda **kw: {**{k: 0 for k in REPLACES}, **kw}
     with torch.inference_mode():
@@ -3243,8 +3263,8 @@ def module_entry_slice(sl: Slices, record):
         _, emitted = enc.encode_with_cache(x, spec, quantize=True)
         torch.cuda.synchronize()
         counts = _build.launch_counts()
-        count_launches("slice module_entries, encode_with_cache(quantize=True)", record, counts,
-                       only(flash_attention_merged_q8=3, fused_block=3))
+        count_launches(f"slice {name}, encode_with_cache(quantize=True)", record, counts,
+                       only(flash_attention_merged_q8=n_layers, fused_block=n_layers))
         separate = enc.quantize_cache(enc.encode_with_cache(x, spec)[1])
         cache_equal = all(torch.equal(a, b) for layer_e, layer_s in zip(emitted, separate)
                           for pair_e, pair_s in zip(layer_e, layer_s)
@@ -3262,23 +3282,23 @@ def module_entry_slice(sl: Slices, record):
                 steps.append(prev)
             tokens.append(torch.stack(steps, dim=1))
         same_tokens = bool(torch.equal(*tokens))
-        print(f"slice module_entries: MMT encode_with_cache(quantize=True) at [8,1152,768]: cache "
+        print(f"slice {name}: MMT encode_with_cache(quantize=True) at [8,1152,{d}]: cache "
               f"equal to quantize_cache's: {cache_equal}; the per-layer decode from both gives "
               f"equal tokens: {same_tokens} ({tokens[0][0].tolist()} ...)", flush=True)
         if not cache_equal or not same_tokens:
-            fail("slice module_entries: encode_with_cache(quantize=True)")
+            fail(f"slice {name}: encode_with_cache(quantize=True)")
 
         ptr = model.ocr_ptr_net
-        y = torch.randn(BATCH, 1, 768, generator=gen, device=dev).to(bf)
+        y = torch.randn(BATCH, 1, d, generator=gen, device=dev).to(bf)
         keys = quantize_kv(ptr.keys(ocr))
         _build.reset_launch_counts()
         got = ptr.scores_from_keys(y, keys, ocr_mask)
         torch.cuda.synchronize()
-        count_launches("slice module_entries, scores_from_keys((k8, ks))", record,
+        count_launches(f"slice {name}, scores_from_keys((k8, ks))", record,
                        _build.launch_counts(), only(ptr_scores_int8=1))
         want = PS.ptr_scores_int8_plain(ptr.query(y), *keys, ocr_mask)
     report(record, "ptr_scores_int8", (got - want).abs().max().item(),
-           " OcrPtrNet.scores_from_keys over int8 keys [8,1,768] x [8,960,768]")
+           f" OcrPtrNet.scores_from_keys over int8 keys [8,1,{d}] x [8,960,{d}]")
     del model, emitted, separate
     return {"encode_launches": counts, "cache_equal": cache_equal, "tokens_equal": same_tokens}
 
@@ -3553,12 +3573,13 @@ def step_agreement(run, ref, loss_tol=LOSS_REL_TOL, norm_tol=GNORM_REL_TOL,
     return loss_rel, norm_rel, (rel[worst], worst), len(rel), ok
 
 
-def train_slice(sl: Slices, record, card):
+def train_slice(sl: Slices, record, card, name: str = "train"):
     """e. (i) one training step at batch TRAIN_CHECK_BATCH through the
     kernels and through the plain versions, from the same weights, batch,
     gumbel noise and dropout generator, and the plain step with each
     planted fault; (ii) TRAIN_STEPS Adam steps at batch TRAIN_BATCH
-    through the kernels, remat "attn"."""
+    through the kernels, remat "attn".  ``name``: the slice's name in its
+    lines."""
     import torch
 
     from vitxtgqa_tpu_torch import Options
@@ -3572,36 +3593,36 @@ def train_slice(sl: Slices, record, card):
     dev, losses = sl.dev, Losses(sl.cfg["losses"])
     tb = to_device(synthetic_batch(batch=TRAIN_CHECK_BATCH, num_final_outputs=sl.nf, seed=2), dev)
     kern = train_check_step(sl, tb, losses, plain=False)
-    print(f"slice train: launches in one batch-{TRAIN_CHECK_BATCH} step " + json.dumps(kern[3]),
+    print(f"slice {name}: launches in one batch-{TRAIN_CHECK_BATCH} step " + json.dumps(kern[3]),
           flush=True)
-    count_launches("slice train", record, kern[3],
+    count_launches(f"slice {name}", record, kern[3],
                    expected_train_launches(sl.cfg, Options(device=dev)))
     plain = train_check_step(sl, tb, losses, plain=True)
     if any(plain[3].values()):
-        fail(f"slice train: the plain step launched kernels {plain[3]}")
+        fail(f"slice {name}: the plain step launched kernels {plain[3]}")
     limits = (f"(limits: loss {LOSS_REL_TOL}, norm {GNORM_REL_TOL}, parameter {GRAD_REL_TOL}, "
               f"relative to the plain step)")
     summary = {"check": {"batch": TRAIN_CHECK_BATCH, "loss": [kern[0], plain[0]],
                          "grad_norm": [kern[1], plain[1]]}, "planted": {}}
-    for name, run in [("kernels", kern)] + [(f, None) for f in PLANTED_FAULTS]:
+    for form, run in [("kernels", kern)] + [(f, None) for f in PLANTED_FAULTS]:
         if run is None:
-            run = train_check_step(sl, tb, losses, plain=True, fault=name)
+            run = train_check_step(sl, tb, losses, plain=True, fault=form)
         loss_rel, norm_rel, (grad_rel, worst), n, ok = step_agreement(run, plain)
-        print(f"slice train: batch {TRAIN_CHECK_BATCH}, {name} vs plain: loss {run[0]:.6f} vs "
+        print(f"slice {name}: batch {TRAIN_CHECK_BATCH}, {form} vs plain: loss {run[0]:.6f} vs "
               f"{plain[0]:.6f} (rel {loss_rel:.3e}), gradient norm {run[1]:.5f} vs {plain[1]:.5f} "
               f"(rel {norm_rel:.3e}), per-parameter gradient rel diff max {grad_rel:.3e} "
               f"({worst}) over {n} parameters {limits}: {'within' if ok else 'outside'}",
               flush=True)
         reading = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "max_grad_rel": grad_rel,
                    "max_grad_rel_param": worst}
-        if name == "kernels":
+        if form == "kernels":
             summary["check"].update(reading)
             if not ok:
-                fail("slice train: the kernel step disagrees with the plain step")
+                fail(f"slice {name}: the kernel step disagrees with the plain step")
         else:
-            summary["planted"][name] = reading
+            summary["planted"][form] = reading
             if ok:
-                fail(f"slice train: the planted fault {name} passes the limits")
+                fail(f"slice {name}: the planted fault {form} passes the limits")
         del run
     del kern, plain
     torch.cuda.empty_cache()
@@ -3622,23 +3643,23 @@ def train_slice(sl: Slices, record, card):
         r = train_step(model, losses, opt, batch, step_generators(0, step, dev))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-        count_launches(f"slice train, batch-{TRAIN_BATCH} step {step}", record,
+        count_launches(f"slice {name}, batch-{TRAIN_BATCH} step {step}", record,
                        _build.launch_counts(), expected_train_launches(sl.cfg, model.opts))
         losses_seen.append(float(r["loss"]))
         if not r["applied"]:
-            fail(f"slice train: batch-{TRAIN_BATCH} step {step} had a non-finite loss or "
+            fail(f"slice {name}: batch-{TRAIN_BATCH} step {step} had a non-finite loss or "
                  f"gradient (loss {losses_seen[-1]}, norm {float(r['grad_norm'])})")
     peak = torch.cuda.max_memory_allocated()
     moved = {k: float((p.detach() - watch[k]).abs().max()) for k, p in model.named_parameters()
              if k in watch}
     med = statistics.median(times[1:])
-    print(f"slice train: batch {TRAIN_BATCH}, remat {model.opts.remat}, {TRAIN_STEPS} Adam steps "
+    print(f"slice {name}: batch {TRAIN_BATCH}, remat {model.opts.remat}, {TRAIN_STEPS} Adam steps "
           f"through the kernels: losses {losses_seen}; step ms {[round(x, 2) for x in times]} "
           f"(the first warms up); median {med:.2f} ms, {TRAIN_BATCH / med * 1e3:.2f} videos/s; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; parameters moved {moved}; card {card}",
           flush=True)
     if min(moved.values()) <= 0.0:
-        fail("slice train: the Adam steps left a parameter unchanged")
+        fail(f"slice {name}: the Adam steps left a parameter unchanged")
     summary["batch48"] = {"step_ms_all": times, "step_ms_median": med,
                           "videos_per_s": TRAIN_BATCH / med * 1e3, "losses": losses_seen,
                           "max_memory_allocated": peak, "param_max_abs_change": moved}
@@ -6121,18 +6142,20 @@ def legacy_slice(dev, card) -> dict:
 # slice r: the mesh's sp and pp axes (data x sp, the GPipe pipeline)
 # ---------------------------------------------------------------------------
 
-# slice r's worlds on the one card: (ranks, (data, sp, pp)); pp 3 pipelines
-# the text BERT and the MMT (3 layers each), pp 2 the QTV (2 layers), data x
-# sp splits the global batch over two data rows and each row's attentions
-# over two ranks
-# the worlds of slices r and s: (ranks, (data, model, sp, pp))
-MESH_PLANS = {"pp3": (3, (1, 1, 1, 3)), "pp2": (2, (1, 1, 1, 2)), "dsp": (4, (2, 1, 2, 1)),
+# the plans of slices r, s and t on the one card: (ranks, (data, model, sp,
+# pp)); pp 3 pipelines the text BERT and the MMT (3 layers each), pp 2 (on
+# each of two data rows) the QTV (2 layers), data x sp splits the global
+# batch over two data rows and each row's attentions over two ranks
+MESH_PLANS = {"pp3": (3, (1, 1, 1, 3)), "dpp2": (4, (2, 1, 1, 2)), "dsp": (4, (2, 1, 2, 1)),
               "tp2": (2, (1, 2, 1, 1)), "tsp": (4, (1, 2, 2, 1)), "tpp": (4, (1, 2, 1, 2)),
               "tp4": (4, (1, 4, 1, 1))}
-R_PLANS, S_PLANS, T_PLANS = ("pp3", "pp2", "dsp"), ("tp2",), ("tsp", "tpp", "tp4")
+R_PLANS, S_PLANS, T_PLANS = ("pp3", "dpp2", "dsp"), ("tp2",), ("tsp", "tpp", "tp4")
+# slice r's worlds: a plan, or plans of one world size run in turn in one
+# world (pp 2 on two data rows shares data x sp's world of four)
+R_WORLDS = ("pp3", ("dpp2", "dsp"))
 # what a plan's ranks run (default: full-eval on a pipeline or a model
 # axis, and the step)
-PLAN_PARTS = {"pp2": ("eval",), "tp4": ("step",)}
+PLAN_PARTS = {"dpp2": ("eval",), "tp4": ("step",)}
 # full-eval under a pipeline: batch 6 (the text BERT's 6 rows and the MMT's
 # 12 teacher-forced rows divide into 3 and 2 microbatches); a dry run's
 # global batch (the CPU, tiny widths at the production layer counts)
@@ -6619,10 +6642,17 @@ def mesh_spawn(card: str, plans, dry: bool = False) -> dict:
     return out
 
 
-def mesh_worlds(record, card, plans, dry: bool = False) -> dict:
-    """mesh_spawn for each of ``plans``, each world's rank 0 launches into
-    the record."""
-    out = {plan: mesh_spawn(card, plan, dry) for plan in plans}
+def mesh_worlds(record, card, worlds, dry: bool = False) -> dict:
+    """mesh_spawn for each of ``worlds`` (a plan, or plans of one world size
+    run in turn in one world); each plan's rank-0 launches into the record.
+    Returns each plan's summary."""
+    out = {}
+    for world in worlds:
+        res = mesh_spawn(card, world, dry)
+        if isinstance(world, str):
+            out[world] = res
+        else:
+            out.update({plan: {**res[plan], "world_s": res["phase_s"]} for plan in world})
     record_launches(record, out)
     return out
 
@@ -6639,12 +6669,13 @@ def record_launches(record, out: dict) -> None:
 
 def mesh_slice(record, card, dry: bool = False) -> dict:
     """r. The mesh's sp and pp axes on the one card: (i) pp 3 (full-eval,
-    then the step with its planted faults), (ii) pp 2 (full-eval), (iii)
-    data x sp = 2 x 2 (the step), each world's rank 0 launches into the
-    record; (iv) the torchrun CLI on four processes with mesh.data=2
-    mesh.sp=2 against run() in this process (dp_cli; not in a dry run)."""
+    then the step with its planted faults), then in one world of four (ii)
+    data 2 x pp 2 (full-eval) and (iii) data x sp = 2 x 2 (the step), each
+    plan's rank 0 launches into the record; (iv) the torchrun CLI on four
+    processes with mesh.data=2 mesh.sp=2 against run() in this process
+    (dp_cli; not in a dry run)."""
     t0 = time.perf_counter()
-    out = mesh_worlds(record, card, R_PLANS, dry)
+    out = mesh_worlds(record, card, R_WORLDS, dry)
     if not dry:
         out["cli"] = dp_cli(card, extra=MESH_CLI_AXES, ranks=MESH_CLI_RANKS, label="r(iv)")
     out["wall_s"] = time.perf_counter() - t0
@@ -6931,6 +6962,22 @@ def tp_slice(record, card, dry: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def merge_record(record, other, key: str, library=None) -> None:
+    """Each kernel's errors in ``other`` (a record of checks at other shapes)
+    into its record, and its timed call's numbers, where it has one, under
+    ``key`` (with the library time of ``library``, by kernel, where given)."""
+    for name, rec in other.items():
+        into = record.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": None})
+        into["max_abs_err"] = max(into.get("max_abs_err") or 0.0, rec["max_abs_err"])
+        if rec.get("max_rel_err") is not None:
+            into["max_rel_err"] = max(into.get("max_rel_err") or 0.0, rec["max_rel_err"])
+        if rec.get("ms") is not None:
+            into[key] = {k: rec.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "unsplit_ms")}
+            if library is not None:
+                into[key]["library_ms"] = library.get(name)
+
+
 def check_tp4_blocks(dev, record) -> dict:
     """t(i). check_tp_blocks at model 4 (a rank's 192 attention and 768 FFN
     columns: #9b's dctx and dWo products on the GEMM body's thin tiles) on
@@ -6939,13 +6986,7 @@ def check_tp4_blocks(dev, record) -> dict:
     (``model4``)."""
     four = {}
     times = check_tp_blocks(dev, four, rows_list=TP_ROWS[:1], n=4)
-    for name, rec in four.items():
-        into = record.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": None})
-        into["max_abs_err"] = max(into.get("max_abs_err") or 0.0, rec["max_abs_err"])
-        if rec.get("max_rel_err") is not None:
-            into["max_rel_err"] = max(into.get("max_rel_err") or 0.0, rec["max_rel_err"])
-        into["model4"] = {k: rec.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                  "unsplit_ms")}
+    merge_record(record, four, "model4")
     return times
 
 
@@ -6991,7 +7032,309 @@ def tp_mesh_slice(record, card, dry: bool = False) -> dict:
     return out
 
 
-def run_slices(dev, record, card):
+# u: the block kernels (#2, #3, #8, #9a, #9b and the split forms),
+# the decode step (#5), the epilogue (#6) and the int8 pointer scores (#12)
+# at other widths than the main path's 768 / 3,072, each against its twin
+# and beside a planted fault (width_faults); then T2S at bert-large-uncased's
+# widths (models/t2s.t2s_bert_large_config) through every path
+WIDTH_CASES = ((512, 2048), (1024, 4096), (1280, 5120), (1024, 3200))  # (hidden, FFN)
+WIDTH_TIMED = (1024, 4096)  # the widths of the timed calls: bert-large's
+# ... and beside the instantiations ptxas reports spilling: #9b's backward
+# row passes from 1,280 columns on, #12's 8-chunk stream form (1,793-2,048)
+SPILL_TIMED = (1280, 5120)
+WIDTH_ROWS = 2304           # the width checks' rows: batch 2 of the joint sequence
+STEP_WIDTH_CASES = ((1024, 4096), (512, 2048))  # #5's (hidden, FFN); heads of 64
+PTR_WIDTHS = (1280, 2048, 1024)  # #12 beyond the old 1,024 cap; 2,048 and 1,024 timed
+
+
+@contextlib.contextmanager
+def row_width_fault(width: int):
+    """A planted fault of the row passes: the plain versions' LayerNorms
+    (fused_block._ln, block_train._stats) divide a row's sums by ``width``
+    instead of the row's width, as a row pass built for another width
+    would, for the duration."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+    from vitxtgqa_tpu_torch.ops import fused_block as FB
+
+    ln, stats = FB._ln, BT._stats
+
+    def moments(x):
+        mu = x.sum(dim=-1, keepdim=True) / width
+        return mu, (x - mu).square().sum(dim=-1, keepdim=True) / width
+
+    def ln_bad(x, scale, bias, eps):
+        mu, var = moments(x)
+        return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+    def stats_bad(x, eps):
+        mu, var = moments(x)
+        inv = torch.rsqrt(var + eps)
+        return (x - mu) * inv, inv
+
+    FB._ln, BT._stats = ln_bad, stats_bad
+    try:
+        yield
+    finally:
+        FB._ln, BT._stats = ln, stats
+
+
+def fault_width(d: int) -> int:
+    """The width a planted row-pass fault divides by: the main path's 768
+    where the row is wider, else one 128-column group fewer."""
+    return 768 if d > 768 else d - 128
+
+
+def planted_rejected(name: str, err: float, what: str) -> dict:
+    """Print a planted fault's distance from the kernel; fail unless it lies
+    outside the kernel's tolerance."""
+    ok = not err <= TOL[name]
+    print(f"kernel {name}: planted {what}: max|diff| from the kernel {err:.3e} (tol "
+          f"{TOL[name]:.0e}) {'rejected' if ok else 'PASSES'}", flush=True)
+    if not ok:
+        fail(f"{name}: the planted fault ({what}) passes the tolerance")
+    return {"fault": what, "max_abs_diff": err}
+
+
+def width_faults(dev, d: int, m: int, rows: int = WIDTH_ROWS) -> dict:
+    """u(i). The blocks at (d, m) against planted faults of their twins,
+    each of which the tolerance must reject: #2, #3 and #8 with the row
+    passes' sums divided by another width (row_width_fault), #9a with its dropout masks keyed as if
+    the rows were 768 wide (the flat index of a [rows * d / 768, 768]
+    mask: a stream that agrees with the element coordinates only at 768)
+    and #9b with the row passes' fault."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+    from vitxtgqa_tpu_torch.ops import fused_block as FB
+
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    bf = torch.bfloat16
+    rn = lambda *s_, scale=1.0: (torch.randn(*s_, generator=gen, device=dev) * scale).to(bf)
+    vec = lambda n, base=0.0: (base + torch.randn(n, generator=gen, device=dev) * 0.05).float()
+    x_q, ctx, res, gy = rn(rows, d), rn(rows, d, scale=0.5), rn(rows, d), rn(rows, d)
+    wo, w1, w2 = rn(d, d, scale=0.02), rn(m, d, scale=0.02), rn(d, m, scale=0.02)
+    pv = (wo, vec(d), vec(d, 1.0), vec(d), w1, vec(m), w2, vec(d), vec(d, 1.0), vec(d))
+    q8 = FB.quantize_block_weights(wo, w1, w2)
+    w8 = (x_q, ctx, q8[0], q8[1], pv[1], pv[2], pv[3], q8[2], q8[3], pv[5], q8[4], q8[5],
+          pv[7], pv[8], pv[9])
+    narrow = f"LayerNorm sums of {d} columns over {fault_width(d)}"
+    out = {}
+    for name, fn, plain, a in (
+            ("fused_block", FB.fused_block, FB.fused_block_plain, (x_q, ctx) + pv),
+            ("fused_block_tanh", FB.fused_block_tanh, FB.fused_block_tanh_plain,
+             (res, x_q, ctx) + pv),
+            ("fused_block_w8a8", FB.fused_block_w8a8, FB.fused_block_w8a8_plain, w8)):
+        got = fn(*a)
+        with row_width_fault(fault_width(d)):
+            bad = plain(*a)
+        out[name] = planted_rejected(name, (got.float() - bad.float()).abs().max().item(),
+                                     f"{narrow} [{rows},{d}]->{m}")
+    seed = torch.tensor([20261023], dtype=torch.int64, device=dev)
+    fwd = BT.block_train_fwd(x_q, ctx, *pv, rate=RATE, seed=seed)
+    flat = [t.flatten()[:rows * d].reshape(rows, d)
+            for t in BT.masks_from_seed(seed, -(-rows * d // 768), 768, RATE, dev)]
+    bad = BT.block_train_fwd_plain(x_q, ctx, *pv, *flat, rate=RATE)
+    out["block_train_fwd"] = planted_rejected(
+        "block_train_fwd", (fwd[0].float() - bad[0].float()).abs().max().item(),
+        f"masks keyed to 768-wide rows, rate {RATE} [{rows},{d}]->{m}")
+    bwd_args = (gy, ctx, *fwd[1:], wo, w1, w2, pv[2], pv[3], pv[8])
+    grads = BT.block_train_bwd(*bwd_args)
+    with row_width_fault(fault_width(d)):
+        want = BT.block_train_bwd_plain(*bwd_args)
+    worst = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                for a, w in zip(grads, want))
+    out["block_train_bwd"] = planted_rejected("block_train_bwd", worst,
+                                              f"{narrow}, scale-relative [{rows},{d}]->{m}")
+    del fwd, bad, grads, want
+    return out
+
+
+def products_ms(pairs) -> float:
+    """One call of each product a w^T (a [M, K], w [N, K]) as torch.matmul
+    in bf16, timed together: the library time of a kernel's products."""
+    import torch
+
+    return cuda_time_ms(lambda: [torch.matmul(a, w.t()) for a, w in pairs])
+
+
+def width_library_ms(dev, d: int, m: int, rows: int = WIDTH_ROWS, tp: int = 2) -> dict:
+    """The library times of the timed width checks' kernels: their products
+    alone as bf16 torch.matmul on the same shapes (#2 / #3 / #8 / #9a: ctx
+    Wo^T, x W1^T, h W2^T; #9b: its six products; #5: a batch-1 step's
+    GEMVs over 3 layers; the split forms: one rank's products at model
+    ``tp``)."""
+    import torch
+
+    bf = torch.bfloat16
+    r = lambda *s_: torch.randn(*s_, device=dev).to(bf)
+    a, h, wo, w1, w2 = r(rows, d), r(rows, m), r(d, d), r(m, d), r(d, m)
+    fwd = [(a, wo), (a, w1), (h, w2)]
+    bwd = [(a, wo.t().contiguous()), (h, w1.t().contiguous()), (a, w2.t().contiguous()),
+           (a.t().contiguous(), a.t().contiguous()), (h.t().contiguous(), a.t().contiguous()),
+           (a.t().contiguous(), h.t().contiguous())]
+    x1 = r(1, d)
+    step = [p for _ in range(3) for p in ((x1, r(3 * d, d)), (x1, r(d, d)), (x1, r(m, d)),
+                                          (r(1, m), r(d, m)))]
+    dl, ml = d // tp, m // tp
+    split = [(r(rows, dl), r(d, dl)), (a, r(ml, d)), (r(rows, ml), r(d, ml))]
+    out = {"forward": products_ms(fwd), "backward": products_ms(bwd),
+           "decode_step": products_ms(step), "split": products_ms(split)}
+    print(f"slice u: library times (the products alone as bf16 torch.matmul) at d {d}, m {m}, "
+          f"{rows} rows: " + json.dumps({k: round(v, 4) for k, v in out.items()}), flush=True)
+    return out
+
+
+def check_width_kernels(dev, record) -> dict:
+    """u(i). Every kernel whose widths this slice opened, against its twin
+    at each (hidden, FFN) of WIDTH_CASES on WIDTH_ROWS rows: #2 / #3
+    (check_eval_block), #8 (check_w8a8_block, its quantizations bit for
+    bit), #9a / #9b (check_block_kernels: rate 0 and RATE, the masks it
+    drew against the seed's, two backward calls bit for bit), each beside
+    its planted faults (width_faults); #5 at STEP_WIDTH_CASES, batch 1, 2
+    and 8 over the serving mask, its attention planted, and its twin with
+    the row passes' fault (row_width_fault) outside the tolerance; #6 at 1,024 (its
+    planted tie and OCR row); #12 at PTR_WIDTHS, its twin over the first
+    1,024 columns (the old cap) outside the tolerance; the split forms at
+    model 2 at 1,024 (check_tp_blocks: one rank's shards in turn, no
+    collective, TP_SUM_FAULTS).  Only the WIDTH_TIMED / 1,024 calls are
+    timed, with the products alone as the library time
+    (width_library_ms), and #9a / #9b at SPILL_TIMED and #12 at 2,048,
+    whose instantiations spill.  Errors go into the kernels' records; the
+    1,024 times under each record's "width_1024"."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+    from vitxtgqa_tpu_torch.ops import ptr_scores as PS
+    from vitxtgqa_tpu_torch.ops.attention import quantize_kv
+
+    u, spilling, details = {}, {}, {}
+    for d, m in WIDTH_CASES:
+        timed = (d, m) == WIDTH_TIMED
+        det = details[f"{d} x {m}"] = {}
+        det["eval_block"] = check_eval_block(dev, u, cases=((WIDTH_ROWS, m, 0.0),), d=d,
+                                             timed=timed)
+        det["w8a8"] = check_w8a8_block(dev, u, cases=((WIDTH_ROWS, m),), d=d, timed=timed,
+                                       s8_cases=())
+        det["block_train"] = check_block_kernels(
+            dev, u if timed else spilling, (WIDTH_ROWS,), d=d, m=m,
+            timed_rows=(WIDTH_ROWS,) if timed or (d, m) == SPILL_TIMED else ())
+        det["faults"] = width_faults(dev, d, m)
+        torch.cuda.empty_cache()
+    mask, ocr_mask = serving_masks(dev)
+    for d, m in STEP_WIDTH_CASES:
+        gen = torch.Generator(device=dev).manual_seed(97)
+        x_all, stacks = decode_step_weights(dev, gen, 3, d, m)
+        timed = d == WIDTH_TIMED[0]
+        det = details[f"decode_step {d} x {m}"] = {}
+        det["times"] = check_decode_step(u, x_all, stacks, mask, gen, (1, 2, BATCH),
+                                         WRITE_OFFSET, keep=timed, timed=timed)
+        kv8, kvs = decode_step_cache(x_all, stacks, mask, 11, gen, d // 64, WRITE_OFFSET)
+        sargs = (x_all, stacks, kv8, kvs, mask, 11, WRITE_OFFSET, d // 64)
+        got = DS.fused_decode_step(*sargs)[0]
+        with row_width_fault(fault_width(d)):
+            bad = DS.fused_decode_step_plain(*sargs)[0]
+        det["fault"] = planted_rejected(
+            "fused_decode_step", (got.float() - bad.float()).abs().max().item(),
+            f"LayerNorm sums of {d} columns over {fault_width(d)}, batch {BATCH} step 11")
+        del x_all, stacks, kv8, kvs, got, bad
+        torch.cuda.empty_cache()
+    details["fused_epilogue 1024"] = check_fused_epilogue(dev, u, batches=(1, 2), d=1024)
+    for d in PTR_WIDTHS:
+        details[f"ptr_scores {d}"] = check_ptr_scores(dev, u if d == 1024 else spilling,
+                                                      cases=((BATCH, 960),), d=d,
+                                                      timed=d in (1024, 2048))
+        if d == 1280:
+            gen = torch.Generator(device=dev).manual_seed(11)
+            k8, ks = quantize_kv(torch.randn(BATCH, 960, d, generator=gen, device=dev)
+                                 .to(torch.bfloat16))
+            q = torch.randn(BATCH, 1, d, generator=gen, device=dev) * 0.5
+            km = ocr_mask[torch.arange(BATCH, device=dev) % ocr_mask.shape[0]].contiguous()
+            got = PS.ptr_scores_int8(q, k8, ks, km)
+            bad = PS.ptr_scores_int8_plain(q[..., :1024], k8[..., :1024], ks, km)
+            details[f"ptr_scores {d}"]["fault"] = planted_rejected(
+                "ptr_scores_int8", (got - bad).abs().max().item(),
+                f"the first 1024 of {d} columns, [{BATCH},960,{d}]")
+    details["split forms 1024"] = check_tp_blocks(dev, u, rows_list=(WIDTH_ROWS,), d=1024,
+                                                  m=4096, n=2)
+    lib = details["library"] = width_library_ms(dev, *WIDTH_TIMED)
+    library = {"fused_block": lib["forward"], "fused_block_tanh": lib["forward"],
+               "fused_block_w8a8": lib["forward"], "block_train_fwd": lib["forward"],
+               "block_train_bwd": lib["backward"], "fused_decode_step": lib["decode_step"]}
+    for name in ("fused_block_tp", "fused_block_tanh_tp", "block_train_fwd_tp",
+                 "block_train_bwd_tp"):
+        library[name] = lib["split"]
+    merge_record(record, u, "width_1024", library)
+    merge_record(record, spilling, "spilling")
+    details["spilling"] = {name: record[name]["spilling"] for name in spilling
+                           if "spilling" in record[name]}
+    for name in u:
+        if "width_1024" in record[name]:
+            print(f"slice u: {name} at hidden {WIDTH_TIMED[0]}: "
+                  + json.dumps(record[name]["width_1024"]), flush=True)
+    return details
+
+
+def bert_large_slice(dev, record, card) -> dict:
+    """u(ii). T2S at bert-large-uncased's widths (t2s_bert_large_config:
+    hidden 1,024, 16 heads, FFN 4,096, the production depths and
+    sequence), bf16, random weights from seed 0, through the kernels
+    against the plain versions at slices a-h's limits, every launch count
+    derived from the gates: served with the int8 cache at batch 8 (#1, #2,
+    #3, #4) and at buckets 1 and 2 (#5, #6), with the bf16 cache at 8
+    (#7), in the serving preset at buckets 2 and 8 (compact), under W8A8
+    at 8 (#8); full-eval at 8; the module entry points (#11, #12 over int8
+    keys at 1,024); a training step at TRAIN_CHECK_BATCH against plain
+    with the planted block faults, then TRAIN_STEPS Adam steps at
+    TRAIN_BATCH (#1, #1b, #9a, #9b)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.models.t2s import t2s_bert_large_config
+
+    sl = Slices(dev, cfg=t2s_bert_large_config())
+    out = {"params_m": sl.n_params / 1e6}
+    for name, opts, groups in (
+            ("u_int8_b8", dict(kv_cache_int8=True), [BATCH]),
+            ("u_int8_fused_b1_b2", dict(kv_cache_int8=True), [1, 2]),
+            ("u_bf16_b8", dict(kv_cache_int8=False), [BATCH]),
+            ("u_serving_preset_b2_b8", dict(kv_cache_int8=True, compact_serving=True),
+             [2, BATCH]),
+            ("u_w8a8_b8", dict(w8a8=True, kv_cache_int8=True), [BATCH])):
+        model, out[name] = serve_slice(name, sl, record, opts, groups)
+        del model
+        torch.cuda.empty_cache()
+    out["full_eval_b8"] = full_eval_slice(sl, record, card, prefix="u_")
+    out["module_entries"] = module_entry_slice(sl, record, name="u_module_entries")
+    out["train"] = train_slice(sl, record, card, name="u_train")
+    del sl
+    torch.cuda.empty_cache()
+    return out
+
+
+def width_slice(dev, record, card) -> dict:
+    """u. The kernels at other widths (check_width_kernels), then T2S at
+    bert-large-uncased's widths (bert_large_slice)."""
+    return {"kernels": check_width_kernels(dev, record),
+            "bert_large": bert_large_slice(dev, record, card)}
+
+
+@contextlib.contextmanager
+def phase(phases: dict, name: str):
+    """Time one phase of the script on the host clock; print its seconds and
+    keep them in ``phases`` under ``name``."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        phases[name] = time.perf_counter() - t
+        print(f"phase {name}: {phases[name]:.1f} s", flush=True)
+
+
+def main_slices(dev, record, card, phases):
+    """Slices a-j and e: T2S at production width, each serving mode,
+    full-eval, the module entry points, the frame features, a training
+    step."""
     import torch
 
     from vitxtgqa_tpu_torch.serving.engine import ServingEngine, group_generator, to_device
@@ -7104,31 +7447,43 @@ def run_slices(dev, record, card):
     details["vit_l16"] = vit_slice(sl, record, card)
     details["vit_l16_384"] = vit_module_entry(dev, record)
     details["vit_l16_384_backward"] = vit_backward_check(dev, record)
-    details["train"] = train_slice(sl, record, card)
+    with phase(phases, "slice e"):
+        details["train"] = train_slice(sl, record, card)
     del sl
     torch.cuda.empty_cache()
-    # k. sequence parallelism, on SP_RANKS processes
-    details["sp"] = sp_slice(record, card)
-    # l. the runtime: train, check, resume, predict; the recompute oracle
-    details["runtime"] = runtime_slice(dev, record, card)
-    # m. the zoo's T2S-family models
-    details["zoo"] = zoo_slice(dev, record, card)
-    # n. the selector baselines, TranSTR and MIST
-    details["selectors"] = selector_slice(dev, record, card)
-    # o. data parallelism over DP_RANKS ranks: parity, timing, the torchrun CLI
-    details["dp"] = dp_slice(record, card)
-    # p. serving at bucket 48, the serve demo, the raw-video pipeline
-    details["serving"] = serving_slice(dev, record, card)
-    # q. the legacy image-VQA zoo: bf16 against float32, Adamax steps, run()
-    details["legacy"] = legacy_slice(dev, card)
-    # r. the mesh's sp and pp axes: pp 3, pp 2, data x sp, the torchrun CLI
-    details["mesh"] = mesh_slice(record, card)
-    # s. tensor parallelism: the split forms, two ranks at model 2, the CLI,
-    # the data 2 x model 2 dry run
-    details["tp"] = tp_slice(record, card)
-    # t. model x sp, model x pp and model 4: four ranks, the model-4 split
-    # forms, the dry runs
-    details["tp_mesh"] = tp_mesh_slice(record, card)
+    return details
+
+
+def run_slices(dev, record, card, phases):
+    with phase(phases, "slices a-j"):
+        details = main_slices(dev, record, card, phases)
+    for letter, name, run in (
+            # sequence parallelism, on SP_RANKS processes
+            ("k", "sp", lambda: sp_slice(record, card)),
+            # the runtime: train, check, resume, predict; the recompute oracle
+            ("l", "runtime", lambda: runtime_slice(dev, record, card)),
+            # the zoo's T2S-family models
+            ("m", "zoo", lambda: zoo_slice(dev, record, card)),
+            # the selector baselines, TranSTR and MIST
+            ("n", "selectors", lambda: selector_slice(dev, record, card)),
+            # data parallelism over DP_RANKS ranks: parity, timing, the CLI
+            ("o", "dp", lambda: dp_slice(record, card)),
+            # serving at bucket 48, the serve demo, the raw-video pipeline
+            ("p", "serving", lambda: serving_slice(dev, record, card)),
+            # the legacy image-VQA zoo: bf16 against float32, Adamax, run()
+            ("q", "legacy", lambda: legacy_slice(dev, card)),
+            # the mesh's sp and pp axes: pp 3, data x pp 2, data x sp, the CLI
+            ("r", "mesh", lambda: mesh_slice(record, card)),
+            # tensor parallelism: the split forms, two ranks at model 2, the
+            # CLI, the data 2 x model 2 dry run
+            ("s", "tp", lambda: tp_slice(record, card)),
+            # model x sp, model x pp and model 4: four ranks, the model-4
+            # split forms, the dry runs
+            ("t", "tp_mesh", lambda: tp_mesh_slice(record, card)),
+            # the kernels at other widths, T2S at bert-large's widths
+            ("u", "widths", lambda: width_slice(dev, record, card))):
+        with phase(phases, f"slice {letter}"):
+            details[name] = run()
     return details
 
 
@@ -7151,8 +7506,10 @@ def main(argv) -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.lib()
+    phases = {}  # each phase's seconds, in the order run
+    with phase(phases, "build"):
+        lib_path = _build.build()
+        _build.lib()
     build_s = time.perf_counter() - t0
     log = (lib_path.parent / "nvcc.log").read_text().splitlines()
     ptxas = [ln.split("ptxas info    : ")[-1] for ln in log if "Used" in ln or "spill" in ln]
@@ -7167,12 +7524,15 @@ def main(argv) -> int:
         for name, regs, st, ld in _build.ptxas_kernels(log, "decode_attention.cu")),
         flush=True)
     for source, what in (("block_train.cu", "the training block"),
-                         ("fused_block.cu", "the eval block"), ("fused_ffn.cu", "the ViT FFN")):
+                         ("fused_block.cu", "the eval block"),
+                         ("fused_block_w8a8.cu", "the W8A8 block"),
+                         ("fused_ffn.cu", "the ViT FFN")):
         print(f"build: {what} (csrc/{source}, csrc/gemm_sm90.cuh): " + "; ".join(
             f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
             for name, regs, st, ld in _build.ptxas_kernels(log, source)), flush=True)
 
-    for source, what in (("fused_epilogue.cu", "the fused epilogue"),
+    for source, what in (("fused_decode_step.cu", "the decode step"),
+                         ("fused_epilogue.cu", "the fused epilogue"),
                          ("ptr_scores.cu", "the int8 pointer scores")):
         print(f"build: {what} (csrc/{source}): " + "; ".join(
             f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
@@ -7182,17 +7542,21 @@ def main(argv) -> int:
     os.makedirs(out_dir, exist_ok=True)
 
     record = {}
-    decode = check_kernels(dev, record)
+    with phase(phases, "kernels: the serving kernels"):
+        decode = check_kernels(dev, record)
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "build_s": build_s, "kernels": record, "decode_attention": decode}
-    details["serving_mode_kernels"] = check_serving_mode_kernels(dev, record)
-    details["vit_kernels"] = check_vit_kernels(dev, record)
-    details["training_kernels"] = check_training_kernels(dev, record)
-    details["sp_kernels"] = check_sp_kernels(dev, record)
-    check_padded_keys(dev, record)
-    details["zoo_geometries"] = check_zoo_geometries(dev, record)
-    details["slices"] = run_slices(dev, record, card)
+               "build_s": build_s, "kernels": record, "decode_attention": decode,
+               "phase_s": phases}
+    for name, check in (("serving_mode_kernels", check_serving_mode_kernels),
+                        ("vit_kernels", check_vit_kernels),
+                        ("training_kernels", check_training_kernels),
+                        ("sp_kernels", check_sp_kernels), ("padded_keys", check_padded_keys),
+                        ("zoo_geometries", check_zoo_geometries)):
+        with phase(phases, f"kernels: {name.replace('_', ' ')}"):
+            details[name] = check(dev, record)
+    details["slices"] = run_slices(dev, record, card, phases)
     stop_child_processes()
+    print("phases (s): " + json.dumps({k: round(v, 1) for k, v in phases.items()}), flush=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
 

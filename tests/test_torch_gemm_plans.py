@@ -104,10 +104,10 @@ def test_the_routes_admit_only_widths_the_wrappers_take(m):
             assert_covers_once(ln)
 
 
-@pytest.mark.parametrize("d, m", [(640, 3072), (768, 3000)])
+@pytest.mark.parametrize("d, m", [(704, 3072), (768, 3000)])
 def test_the_wrappers_refuse_what_the_kernels_do_not_take(d, m):
-    """A hidden width other than 768 (the row passes), or an FFN width no
-    multiple of 128, raises before a launch."""
+    """A hidden width no multiple of 128 (the row passes; JAX's gate refuses
+    it too), or an FFN width no multiple of 128, raises before a launch."""
     with pytest.raises(NotImplementedError):
         BT.check_widths("block_train", d, m)
     with pytest.raises(NotImplementedError):
@@ -121,10 +121,10 @@ def test_the_block_plans_of_the_main_paths():
     m narrow (the 768-wide ones at 55,296 rows wide); the ViT-L/16 FFN
     wide."""
     N, W = G.NARROW_N, G.WIDE_N
-    assert {ln.tile_n for ln in BT.gemm_launches(55296)} == {W}
-    assert [ln.tile_n for ln in BT.gemm_launches(960)] == [N, W, N, W, N, N, W]
+    assert {ln.tile_n for ln in BT.gemm_launches(55296, 768, 3072)} == {W}
+    assert [ln.tile_n for ln in BT.gemm_launches(960, 768, 3072)] == [N, W, N, W, N, N, W]
     assert [ln.tile_n for ln in BT.gemm_launches(55296, 768, 3200)] == [W, N, W, N, W, W, N]
-    assert {ln.tile_n for ln in FB.launch_plan(9216)} == {W}
+    assert {ln.tile_n for ln in FB.launch_plan(9216, 768, 3072)} == {W}
     assert {ln.tile_n for ln in FFN.launch_plan(12608, 1024, 4096, 1024)} == {W}
 
 
@@ -205,7 +205,7 @@ def test_the_w8a8_launch_plan(rows):
     """ops/fused_block.w8a8_launch_plan: c8 Wo8^T over [rows, 768] (K
     768), x8 W18^T over [rows, 3072] (K 768), h8 W28^T over [rows, 768] (K
     3,072), each covering its output once in K steps of 128."""
-    plan = FB.w8a8_launch_plan(rows)
+    plan = FB.w8a8_launch_plan(rows, 768, 3072)
     assert [(ln.problems[0].N, ln.problems[0].K) for ln in plan] == [(768, 768), (3072, 768),
                                                                       (768, 3072)]
     for ln in plan:

@@ -412,9 +412,9 @@ def test_block_launch_plan_covers_every_row_once(rows, widths):
 def test_block_launch_plan_of_the_training_step():
     """The step's shapes: 55,296 rows in four splits of 13,824 (37.7 MB of
     f32 partials for dW1), the text BERT's 960 rows in one."""
-    big, text = TBT.launch_plan(55296), TBT.launch_plan(960)
+    big, text = TBT.launch_plan(55296, 768, 3072), TBT.launch_plan(960, 768, 3072)
     assert (big.splits, big.k_chunk, big.m_tiles, big.row_blocks) == (4, 13824, 432, 264)
     assert big.w_floats == 4 * (768 * 768 + 2 * 3072 * 768)
     assert (text.splits, text.k_chunk, text.w_floats) == (1, 960, 0)
     with pytest.raises(ValueError):
-        TBT.launch_plan(0)
+        TBT.launch_plan(0, 768, 3072)

@@ -14,22 +14,24 @@
 // ds1, dg1, dW1, db1, dW2, db2, ds2, dg2 (f32; weight gradients in
 // nn.Linear layout), with gelu' recomputed from pre1 and both LayerNorm
 // backwards from the statistics of x1h / x2h, as the Pallas kernel does.
-// The masks are the Philox bits of element (row, col) of the [R, 768]
-// mask in streams 1 and 2 (philox.cuh, ops/dropout.py), so the forward, a
-// remat recompute and the backward draw the same ones; the forward can
-// write out the masks it drew.
+// The masks are the Philox bits of element (row, col) of the [R, d] mask
+// in streams 1 and 2 (philox.cuh, ops/dropout.py): the counter is the
+// element's coordinates, never a flat index, so a mask's bits do not
+// depend on d, and the forward, a remat recompute and the backward draw
+// the same ones; the forward can write out the masks it drew.
 //
-// What bounds it on the H100: at the training shape (R = 48 * 1152 = 55,296
-// rows, d = 768, m = 3072) the forward is 2R(d^2 + 2dm) = 587 GFLOP and the
-// backward twice that, against ~0.9 GB (forward) and ~2 GB (backward) of
+// What bounds it on the H100: at the main path's training shape (R = 48 *
+// 1152 = 55,296 rows, d = 768, m = 3072) the forward is 2R(d^2 + 2dm) =
+// 587 GFLOP and the backward twice that, against ~0.9 GB (forward) and ~2 GB (backward) of
 // activations: the tensor cores bound both (0.59 / 1.19 ms at 989 TFLOP/s).
 //
 // Design.  Every product is gemm_sm90.cuh's wgmma body (128-row tiles on
 // two warpgroups, a cp.async ring), its epilogue on the register
-// accumulator; the LayerNorms, which need whole 768-wide rows, are light
-// row passes (a warp a row) over the pre-norm values that the GEMM
-// epilogues write, so no block holds a full row of the output and the
-// weights are read once per 128 rows.  The TPU backward keeps its weight
+// accumulator; the LayerNorms, which need whole rows of the hidden width d
+// (768 on the main path, any multiple of 128 up to 2,048), are light row
+// passes (a warp a row, row_ops.cuh, one instantiation a width) over the
+// pre-norm values that the GEMM epilogues write, so no block holds a full
+// row of the output and the weights are read once per 128 rows.  The TPU backward keeps its weight
 // gradient accumulators resident across a sequential row grid; here the
 // reductions over the rows are split-K products whose f32 partials, like
 // the blocks' column sums, go to scratch and are added in a fixed order:
@@ -57,8 +59,8 @@
 // Tensor parallelism (the split forms, ops/block_train.block_train_fwd_tp
 // and block_train_bwd_tp): a rank holds Wo's columns of its heads (wo_l
 // [d, dl]), W1's rows and b1 of its FFN share (w1_l [ml, d]) and W2's
-// columns (w2_l [d, ml]); the 768-wide rows between the products are
-// whole on every rank.  The same launches run with the model group's
+// columns (w2_l [d, ml]); the d-wide rows between the products are whole
+// on every rank.  The same launches run with the model group's
 // all-reduce of an f32 partial between them:
 //  forward: F1 ctx_l Wo_l^T -> f32 partial (vt_gemm_f32, fused_block.cu);
 //   sum; F2' rows: x1h = bf16(x_q + K_a (sum + bo)), xb = bf16(LN1(x1h))
@@ -79,8 +81,6 @@ namespace vt {
 namespace bt {
 
 using gemm::load4;
-using gemm::RGROUPS;
-using gemm::RN;
 using gemm::row_xhat;
 using gemm::store4;
 using g90::launch_gemm;
@@ -91,7 +91,7 @@ constexpr int kRowThreads = 256;  // row passes: a warp a row, 8 rows a block
 // ---- dropout -------------------------------------------------------------
 struct Drop {
   const int64_t* seed;  // null: no dropout
-  int8_t* mask_out;     // the drawn mask [R, 768], or null
+  int8_t* mask_out;     // the drawn mask [R, d], or null
   uint32_t stream;
   uint32_t threshold;
   float keep_scale;     // 1 / (1 - rate)
@@ -257,13 +257,14 @@ struct PartialEpi {
 };
 
 // ---- LayerNorm row passes (a warp a row, a lane on four consecutive
-// columns in each of six 128-column groups) --------------------------------
+// columns in each of the row's G 128-column groups) ------------------------
 
 // out = bf16(xhat * s + g): the forward's LN1 / LN2 and the backward's xb
-__device__ __forceinline__ void ln_store(bf16* out, const float xhat[RGROUPS][4], const float* s,
+template <int G>
+__device__ __forceinline__ void ln_store(bf16* out, const float xhat[G][4], const float* s,
                                          const float* g, int lane) {
 #pragma unroll
-  for (int q = 0; q < RGROUPS; ++q) {
+  for (int q = 0; q < G; ++q) {
     const int c = q * 128 + lane * 4;
     float y[4];
     gemm::ln_affine(xhat[q], s, g, c, y);
@@ -272,41 +273,47 @@ __device__ __forceinline__ void ln_store(bf16* out, const float xhat[RGROUPS][4]
 }
 
 // LayerNorm backward through y = xhat * s + b: du = inv (g s - mean(g s) -
-// xhat mean(g s xhat))
-__device__ __forceinline__ void ln_bwd_row(const float g[RGROUPS][4], const float xhat[RGROUPS][4],
-                                           const float* s, float inv, float du[RGROUPS][4]) {
-  float sv[RGROUPS][4];
+// xhat mean(g s xhat)), in place over g (s is read twice, from L1, so that
+// a wide row keeps no third array in registers)
+template <int G>
+__device__ __forceinline__ void ln_bwd_row(float g[G][4], const float xhat[G][4], const float* s,
+                                           float inv) {
   const int lane = threadIdx.x % 32;
   float m1 = 0.f, m2 = 0.f;
 #pragma unroll
-  for (int q = 0; q < RGROUPS; ++q) {
-    load4(s + q * 128 + lane * 4, sv[q]);
+  for (int q = 0; q < G; ++q) {
+    float sv[4];
+    load4(s + q * 128 + lane * 4, sv);
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      const float dxh = g[q][t] * sv[q][t];
+      const float dxh = g[q][t] * sv[t];
       m1 += dxh;
       m2 += dxh * xhat[q][t];
     }
   }
-  m1 = warp_sum(m1) / RN;
-  m2 = warp_sum(m2) / RN;
+  m1 = warp_sum(m1) / (G * 128);
+  m2 = warp_sum(m2) / (G * 128);
 #pragma unroll
-  for (int q = 0; q < RGROUPS; ++q)
+  for (int q = 0; q < G; ++q) {
+    float sv[4];
+    load4(s + q * 128 + lane * 4, sv);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) du[q][t] = inv * (g[q][t] * sv[q][t] - m1 - xhat[q][t] * m2);
+    for (int t = 0; t < 4; ++t) g[q][t] = inv * (g[q][t] * sv[t] - m1 - xhat[q][t] * m2);
+  }
 }
 
 // the block's three column sums in a fixed order (warp 0's, then warp
-// 1's added, ...) into part[blockIdx.x][3][768]
-__device__ __forceinline__ void row_colsums(float* red, const float cs[3][RGROUPS][4],
-                                            float* part) {
+// 1's added, ...) into part[blockIdx.x][3][G * 128]
+template <int G>
+__device__ __forceinline__ void row_colsums(float* red, const float cs[3][G][4], float* part) {
+  constexpr int RN = G * 128;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int w = 0; w < kRowThreads / 32; ++w) {
     if (warp == w) {
 #pragma unroll
       for (int n = 0; n < 3; ++n)
 #pragma unroll
-        for (int q = 0; q < RGROUPS; ++q)
+        for (int q = 0; q < G; ++q)
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
             float* r = red + n * RN + q * 128 + lane * 4 + t;
@@ -320,43 +327,45 @@ __device__ __forceinline__ void row_colsums(float* red, const float cs[3][RGROUP
 }
 
 // F2 / F5: out = bf16(LN(x))
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 ln_fwd_rows(const bf16* __restrict__ x, const float* __restrict__ s, const float* __restrict__ g,
             bf16* __restrict__ out, int M, float eps) {
   const int lane = threadIdx.x % 32, per = kRowThreads / 32;
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    float xhat[RGROUPS][4];
-    row_xhat(x + (size_t)row * RN, lane, eps, xhat);
-    ln_store(out + (size_t)row * RN, xhat, s, g, lane);
+    float xhat[G][4];
+    row_xhat<G>(x + (size_t)row * (G * 128), lane, eps, xhat);
+    ln_store<G>(out + (size_t)row * (G * 128), xhat, s, g, lane);
   }
 }
 
 // B1: du2 = LN2'(g), dlin2 = K_f du2; partial sums of g xhat, g, dlin2
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 ln2_bwd_rows(const bf16* __restrict__ g, const bf16* __restrict__ x2h,
              const float* __restrict__ s2, float* __restrict__ du2, bf16* __restrict__ dlin2,
              float* __restrict__ part, Drop drop, int M, float eps) {
-  __shared__ __align__(16) float red[3 * RN];
+  __shared__ __align__(16) float red[3 * G * 128];
   const int lane = threadIdx.x % 32, per = kRowThreads / 32;
   const bool dropout = drop.seed != nullptr;
   const uint32_t seed = seed_of(drop);
-  float cs[3][RGROUPS][4] = {};
+  float cs[3][G][4] = {};
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    const size_t rb = (size_t)row * RN;
-    float gv[RGROUPS][4], xhat[RGROUPS][4], du[RGROUPS][4];
-    const float inv = row_xhat(x2h + rb, lane, eps, xhat);
+    const size_t rb = (size_t)row * (G * 128);
+    float du[G][4], xhat[G][4];  // du: g, then LN2'(g) in place
+    const float inv = row_xhat<G>(x2h + rb, lane, eps, xhat);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
-      load4(g + rb + q * 128 + lane * 4, gv[q]);
+    for (int q = 0; q < G; ++q) {
+      load4(g + rb + q * 128 + lane * 4, du[q]);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        cs[0][q][t] += gv[q][t] * xhat[q][t];
-        cs[1][q][t] += gv[q][t];
+        cs[0][q][t] += du[q][t] * xhat[q][t];
+        cs[1][q][t] += du[q][t];
       }
     }
-    ln_bwd_row(gv, xhat, s2, inv, du);
+    ln_bwd_row<G>(du, xhat, s2, inv);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       store4(du2 + rb + c, du[q]);
       bool keep[4] = {true, true, true, true};
@@ -370,46 +379,47 @@ ln2_bwd_rows(const bf16* __restrict__ g, const bf16* __restrict__ x2h,
       store4(dlin2 + rb + c, dl);
     }
   }
-  row_colsums(red, cs, part);
+  row_colsums<G>(red, cs, part);
 }
 
 // B4: LN1 backward from dx (f32; + dx_add where given: the split form's
 // summed partial plus du2): dx_q = du1, dlin1 = K_a du1, xb =
 // bf16(LN1(x1h)); partial sums of dx xhat, dx, dlin1
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 ln1_bwd_rows(const float* __restrict__ dx, const float* __restrict__ dx_add,
              const bf16* __restrict__ x1h,
              const float* __restrict__ s1, const float* __restrict__ g1, bf16* __restrict__ xb,
              bf16* __restrict__ dxq, bf16* __restrict__ dlin1, float* __restrict__ part,
              Drop drop, int M, float eps) {
-  __shared__ __align__(16) float red[3 * RN];
+  __shared__ __align__(16) float red[3 * G * 128];
   const int lane = threadIdx.x % 32, per = kRowThreads / 32;
   const bool dropout = drop.seed != nullptr;
   const uint32_t seed = seed_of(drop);
-  float cs[3][RGROUPS][4] = {};
+  float cs[3][G][4] = {};
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    const size_t rb = (size_t)row * RN;
-    float dv[RGROUPS][4], xhat[RGROUPS][4], du[RGROUPS][4];
-    const float inv = row_xhat(x1h + rb, lane, eps, xhat);
-    ln_store(xb + rb, xhat, s1, g1, lane);
+    const size_t rb = (size_t)row * (G * 128);
+    float du[G][4], xhat[G][4];  // du: dx, then LN1'(dx) in place
+    const float inv = row_xhat<G>(x1h + rb, lane, eps, xhat);
+    ln_store<G>(xb + rb, xhat, s1, g1, lane);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
-      load4(dx + rb + q * 128 + lane * 4, dv[q]);
+    for (int q = 0; q < G; ++q) {
+      load4(dx + rb + q * 128 + lane * 4, du[q]);
       if (dx_add != nullptr) {
         float a[4];
         load4(dx_add + rb + q * 128 + lane * 4, a);
 #pragma unroll
-        for (int t = 0; t < 4; ++t) dv[q][t] += a[t];
+        for (int t = 0; t < 4; ++t) du[q][t] += a[t];
       }
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        cs[0][q][t] += dv[q][t] * xhat[q][t];
-        cs[1][q][t] += dv[q][t];
+        cs[0][q][t] += du[q][t] * xhat[q][t];
+        cs[1][q][t] += du[q][t];
       }
     }
-    ln_bwd_row(dv, xhat, s1, inv, du);
+    ln_bwd_row<G>(du, xhat, s1, inv);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       store4(dxq + rb + c, du[q]);
       bool keep[4] = {true, true, true, true};
@@ -423,12 +433,13 @@ ln1_bwd_rows(const float* __restrict__ dx, const float* __restrict__ dx_add,
       store4(dlin1 + rb + c, dl);
     }
   }
-  row_colsums(red, cs, part);
+  row_colsums<G>(red, cs, part);
 }
 
 // the split forward's F2' / F5': xh = bf16(resid + K (sum + bias)) (the
 // F1 / F4 epilogue on the summed partial), out = bf16(LN(xh)); the drawn
 // mask to drop.mask_out
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 resid_ln_rows(const float* __restrict__ sum, const float* __restrict__ bias,
               const bf16* __restrict__ resid, const float* __restrict__ s,
@@ -438,10 +449,10 @@ resid_ln_rows(const float* __restrict__ sum, const float* __restrict__ bias,
   const bool dropout = drop.seed != nullptr;
   const uint32_t seed = seed_of(drop);
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    const size_t rb = (size_t)row * RN;
-    float v[RGROUPS][4];
+    const size_t rb = (size_t)row * (G * 128);
+    float v[G][4];
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       float a[4], b[4], r[4];
       load4(sum + rb + c, a);
@@ -463,12 +474,12 @@ resid_ln_rows(const float* __restrict__ sum, const float* __restrict__ bias,
       }
       store4(xh + rb + c, v[q]);
     }
-    const gemm::RowStats st = gemm::row_stats(v, eps);
+    const gemm::RowStats st = gemm::row_stats<G>(v, eps);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q)
+    for (int q = 0; q < G; ++q)
 #pragma unroll
       for (int t = 0; t < 4; ++t) v[q][t] = (v[q][t] - st.mu) * st.inv;
-    ln_store(out + rb, v, s, g, lane);
+    ln_store<G>(out + rb, v, s, g, lane);
   }
 }
 
@@ -517,18 +528,37 @@ using vt::bf16;
 
 namespace {
 
-// d the LayerNorm rows' 768; m any multiple of the narrow tile's 128 columns
-// (a launch over an m that is no multiple of 256 takes narrow tiles)
+// d the LayerNorm rows' width, a multiple of 128 up to 2,048 (768 on the
+// main path); m any multiple of the narrow tile's 128 columns (a launch
+// over an m that is no multiple of 256 takes narrow tiles)
 bool widths_ok(int rows, int d, int m) {
-  return d == RN && m % vt::g90::Narrow::kBN == 0 && rows > 0;
+  return vt::gemm::row_width_ok(d) && m > 0 && m % vt::g90::Narrow::kBN == 0 && rows > 0;
+}
+
+// the row passes' grid: a block per 8 rows, at most two blocks an SM
+int row_grid(int rows) {
+  const int per = kRowThreads / 32;
+  return min((rows + per - 1) / per, 2 * 132);
+}
+
+// out = bf16(LN(x)) over [rows, d] (F2, F5, the split form's recompute)
+cudaError_t launch_ln_fwd(const void* x, const void* s, const void* g, void* out, int rows, int d,
+                          float eps, cudaStream_t st) {
+  return vt::gemm::by_row_groups(d, [&](auto grp) {
+    ln_fwd_rows<decltype(grp)::value><<<row_grid(rows), kRowThreads, 0, st>>>(
+        (const bf16*)x, (const float*)s, (const float*)g, (bf16*)out, rows, eps);
+    return cudaGetLastError();
+  });
 }
 
 // a split form's share of a width: a multiple of the thin tile's 64 columns
 // (a launch over a share that is no multiple of 128 takes thin tiles)
 bool share_ok(int w) { return w > 0 && w % vt::g90::Thin::kBN == 0; }
 
-// the split forms' widths: d the rows' 768, m this rank's FFN share
-bool tp_rows_ok(int rows, int d, int m) { return d == RN && share_ok(m) && rows > 0; }
+// the split forms' widths: d the rows' (as widths_ok), m this rank's FFN share
+bool tp_rows_ok(int rows, int d, int m) {
+  return vt::gemm::row_width_ok(d) && share_ok(m) && rows > 0;
+}
 
 }  // namespace
 
@@ -549,23 +579,17 @@ extern "C" int vt_block_train_fwd(const void* x_q, const void* ctx, const void* 
   cudaStream_t st = (cudaStream_t)stream;
   const Drop drop_a = {(const int64_t*)seed, (int8_t*)mask_a_out, 1u, threshold, keep_scale};
   const Drop drop_f = {(const int64_t*)seed, (int8_t*)mask_f_out, 2u, threshold, keep_scale};
-  const int per = kRowThreads / 32;
-  const int row_blocks = min((rows + per - 1) / per, 2 * 132);
 
   VT_TRY((launch_gemm<false, false>(one((const bf16*)ctx, d, (const bf16*)wo, d, rows, d, d),
                              ResidDropEpi{(const float*)bo, (const bf16*)x_q, (bf16*)x1h, drop_a},
                              st)));
-  ln_fwd_rows<<<row_blocks, kRowThreads, 0, st>>>((const bf16*)x1h, (const float*)s1,
-                                                  (const float*)g1, (bf16*)xb, rows, eps);
-  VT_TRY(cudaGetLastError());
+  VT_TRY(launch_ln_fwd(x1h, s1, g1, xb, rows, d, eps, st));
   VT_TRY((launch_gemm<false, false>(one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),
                              GeluEpi{(const float*)b1, (bf16*)pre1, (bf16*)h}, st)));
   VT_TRY((launch_gemm<false, false>(one((const bf16*)h, m, (const bf16*)w2, m, rows, d, m),
                              ResidDropEpi{(const float*)b2, (const bf16*)xb, (bf16*)x2h, drop_f},
                              st)));
-  ln_fwd_rows<<<row_blocks, kRowThreads, 0, st>>>((const bf16*)x2h, (const float*)s2,
-                                                  (const float*)g2, (bf16*)y, rows, eps);
-  return (int)cudaGetLastError();
+  return (int)launch_ln_fwd(x2h, s2, g2, y, rows, d, eps, st);
 }
 
 namespace {
@@ -579,10 +603,12 @@ int bwd_head(const void* g, const void* x2h, const void* pre1, const void* w2, c
              void* dx_part, float* ln2_part, float* db1_part, int row_blocks, int rows, int d,
              int m, float eps, cudaStream_t st) {
   // B1. LN2 backward and the FFN dropout
-  ln2_bwd_rows<<<row_blocks, kRowThreads, 0, st>>>((const bf16*)g, (const bf16*)x2h,
-                                                   (const float*)s2, (float*)du2, (bf16*)dlin2,
-                                                   ln2_part, drop_f, rows, eps);
-  VT_TRY(cudaGetLastError());
+  VT_TRY(vt::gemm::by_row_groups(d, [&](auto grp) {
+    ln2_bwd_rows<decltype(grp)::value><<<row_blocks, kRowThreads, 0, st>>>(
+        (const bf16*)g, (const bf16*)x2h, (const float*)s2, (float*)du2, (bf16*)dlin2, ln2_part,
+        drop_f, rows, eps);
+    return cudaGetLastError();
+  }));
   // B2. dpre = (dlin2 W2) gelu'(pre1); db1's partials
   VT_TRY((launch_gemm<false, true>(one((const bf16*)dlin2, d, (const bf16*)w2, m, rows, m, d),
                             GeluGradEpi{(const bf16*)pre1, (bf16*)dpre, db1_part}, st)));
@@ -608,10 +634,12 @@ int bwd_tail(const void* dx, const void* dx_add, const void* ctx, const void* x1
              int dl, int m, float eps, cudaStream_t st) {
   const int m_tiles = (rows + vt::g90::kBM - 1) / vt::g90::kBM;
   // B4. LN1 backward and the attention-output dropout
-  ln1_bwd_rows<<<row_blocks, kRowThreads, 0, st>>>(
-      (const float*)dx, (const float*)dx_add, (const bf16*)x1h, (const float*)s1,
-      (const float*)g1, (bf16*)xb, (bf16*)dxq, (bf16*)dlin1, ln1_part, drop_a, rows, eps);
-  VT_TRY(cudaGetLastError());
+  VT_TRY(vt::gemm::by_row_groups(d, [&](auto grp) {
+    ln1_bwd_rows<decltype(grp)::value><<<row_blocks, kRowThreads, 0, st>>>(
+        (const float*)dx, (const float*)dx_add, (const bf16*)x1h, (const float*)s1,
+        (const float*)g1, (bf16*)xb, (bf16*)dxq, (bf16*)dlin1, ln1_part, drop_a, rows, eps);
+    return cudaGetLastError();
+  }));
   // B5. dctx = dlin1 Wo
   VT_TRY((launch_gemm<false, true>(one((const bf16*)dlin1, d, (const bf16*)wo, dl, rows, dl, d),
                             StoreEpi{(bf16*)dctx}, st)));
@@ -657,7 +685,7 @@ int bwd_tail(const void* dx, const void* dx_add, const void* ctx, const void* x1
   return (int)cudaGetLastError();
 }
 
-// the split forms' widths: d the rows' 768, dl and m this rank's shares
+// the split forms' widths: d the rows', dl and m this rank's shares
 bool tp_widths_ok(int rows, int d, int dl, int m) {
   return tp_rows_ok(rows, d, m) && share_ok(dl);
 }
@@ -712,16 +740,15 @@ extern "C" int vt_block_train_tp_rows(const void* sum, const void* bias, const v
                                       void* mask_out, void* xh, void* out, int rows, int d,
                                       int stream_id, unsigned int threshold, float keep_scale,
                                       float eps, void* stream) {
-  if (d != RN || rows <= 0 || (stream_id != 1 && stream_id != 2))
-    return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || (stream_id != 1 && stream_id != 2)) return (int)cudaErrorInvalidValue;
   const Drop drop = {(const int64_t*)seed, (int8_t*)mask_out, (uint32_t)stream_id, threshold,
                      keep_scale};
-  const int per = kRowThreads / 32;
-  const int row_blocks = min((rows + per - 1) / per, 2 * 132);
-  resid_ln_rows<<<row_blocks, kRowThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)sum, (const float*)bias, (const bf16*)resid, (const float*)s,
-      (const float*)g, (bf16*)xh, (bf16*)out, drop, rows, eps);
-  return (int)cudaGetLastError();
+  return (int)vt::gemm::by_row_groups(d, [&](auto grp) {
+    resid_ln_rows<decltype(grp)::value><<<row_grid(rows), kRowThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)sum, (const float*)bias, (const bf16*)resid, (const float*)s,
+        (const float*)g, (bf16*)xh, (bf16*)out, drop, rows, eps);
+    return cudaGetLastError();
+  });
 }
 
 // The split forward's F3 on this rank's FFN share: xb [rows, d] bf16, w1
@@ -792,11 +819,7 @@ extern "C" int vt_block_train_tp_recompute(const void* x1h, const void* s1, cons
                                            void* stream) {
   if (!tp_rows_ok(rows, d, m)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int per = kRowThreads / 32;
-  const int row_blocks = min((rows + per - 1) / per, 2 * 132);
-  ln_fwd_rows<<<row_blocks, kRowThreads, 0, st>>>((const bf16*)x1h, (const float*)s1,
-                                                  (const float*)g1, (bf16*)xb, rows, eps);
-  VT_TRY(cudaGetLastError());
+  VT_TRY(launch_ln_fwd(x1h, s1, g1, xb, rows, d, eps, st));
   return (int)launch_gemm<false, false>(one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),
                                         GeluEpi{(const float*)b1, (bf16*)pre1, (bf16*)h}, st);
 }

@@ -12,18 +12,19 @@
 // the f32 pre-activation; the Pallas kernel approximated erf with A&S
 // 7.1.26 because Mosaic has none.  x stays f32 for the second residual.
 //
-// What bounds it on the H100: at the serving shape (rows = 8*1152 = 9216,
-// D = 768, M = 3072) the three products are 2*rows*(D*D + 2*D*M) = 98 GFLOP
+// What bounds it on the H100: at the main path's serving shape (rows =
+// 8*1152 = 9216, D = 768, M = 3072) the three products are 2*rows*(D*D + 2*D*M) = 98 GFLOP
 // against ~16 MB of weights and 3*rows*D*2 = 42 MB of activations — far
 // above the bf16 ridge, so the tensor cores bound it (0.099 ms).
 //
 // Design: the training block's (block_train.cu, #9a): every product on
 // gemm_sm90.cuh's wgmma body (128-row tiles on two warpgroups, a cp.async
 // ring), its epilogue on the tile staged in shared memory, and the
-// LayerNorms, which need whole 768-wide rows, as light row passes (a warp
-// a row, row_ops.cuh) over f32 pre-norm values that the GEMM epilogues
-// write; so no block holds a full output row and the weights are read once
-// per 128 rows.  Five launches:
+// LayerNorms, which need whole rows of the hidden width (768 on the main
+// path, any multiple of 128 up to 2,048), as light row passes (a warp a
+// row, row_ops.cuh, one instantiation a width) over f32 pre-norm values
+// that the GEMM epilogues write; so no block holds a full output row and
+// the weights are read once per 128 rows.  Five launches:
 //  1. GEMM ctx Wo^T, epilogue x32 = x_q + (acc + bo)        (f32);
 //  2. rows: x32 = LN1(x32) in place, xb = bf16(x32);
 //  3. GEMM xb W1^T, epilogue h = bf16(gelu_erf(acc + b1))   (ffn_epi.cuh);
@@ -49,11 +50,15 @@ namespace vt {
 namespace eval_block {
 
 using gemm::load4;
-using gemm::RGROUPS;
-using gemm::RN;
 using gemm::store4;
 
 constexpr int kRowThreads = 256;  // row passes: a warp a row, 8 rows a block
+
+// the row passes' grid: a block per 8 rows, at most two blocks an SM
+inline int row_blocks(int rows) {
+  const int per = kRowThreads / 32;
+  return min((rows + per - 1) / per, 2 * 132);
+}
 
 // launch 1: out = resid + (acc + bias), f32
 struct ResidEpi {
@@ -105,6 +110,7 @@ struct StoreF32Epi {
 
 // the split form's launch 2: x = LN1(resid + (sum + bias)) (f32, launch
 // 1's epilogue on the summed partial) and xb = bf16(x)
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 tp_ln1_rows(const float* __restrict__ sum, const float* __restrict__ bias,
             const bf16* __restrict__ resid, const float* __restrict__ s,
@@ -112,10 +118,10 @@ tp_ln1_rows(const float* __restrict__ sum, const float* __restrict__ bias,
             float eps) {
   const int lane = threadIdx.x % 32, per = kRowThreads / 32;
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    const size_t rb = (size_t)row * RN;
-    float v[RGROUPS][4];
+    const size_t rb = (size_t)row * (G * 128);
+    float v[G][4];
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       float a[4], b[4], r[4];
       load4(sum + rb + c, a);
@@ -124,9 +130,9 @@ tp_ln1_rows(const float* __restrict__ sum, const float* __restrict__ bias,
 #pragma unroll
       for (int t = 0; t < 4; ++t) v[q][t] = r[t] + (a[t] + b[t]);
     }
-    const gemm::RowStats st = gemm::row_stats(v, eps);
+    const gemm::RowStats st = gemm::row_stats<G>(v, eps);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       float xh[4], y[4];
 #pragma unroll
@@ -140,6 +146,7 @@ tp_ln1_rows(const float* __restrict__ sum, const float* __restrict__ bias,
 
 // the split form's launch 5: out = bf16(LN2(x + (sum + bias))), or with res
 // bf16(res + tanh(bf16(LN2(...))))
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 tp_ln2_rows(const float* __restrict__ x, const float* __restrict__ sum,
             const float* __restrict__ bias, const float* __restrict__ s,
@@ -147,10 +154,10 @@ tp_ln2_rows(const float* __restrict__ x, const float* __restrict__ sum,
             int M, float eps) {
   const int lane = threadIdx.x % 32, per = kRowThreads / 32;
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    const size_t rb = (size_t)row * RN;
-    float v[RGROUPS][4];
+    const size_t rb = (size_t)row * (G * 128);
+    float v[G][4];
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       float u[4], a[4], b[4];
       load4(x + rb + c, u);
@@ -159,9 +166,9 @@ tp_ln2_rows(const float* __restrict__ x, const float* __restrict__ sum,
 #pragma unroll
       for (int t = 0; t < 4; ++t) v[q][t] = u[t] + (a[t] + b[t]);
     }
-    const gemm::RowStats st = gemm::row_stats(v, eps);
+    const gemm::RowStats st = gemm::row_stats<G>(v, eps);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       float xh[4], y[4];
 #pragma unroll
@@ -179,16 +186,17 @@ tp_ln2_rows(const float* __restrict__ x, const float* __restrict__ sum,
 }
 
 // launch 2: x = LN1(x) in place (f32) and xb = bf16(x)
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 ln1_rows(float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ g,
          bf16* __restrict__ xb, int M, float eps) {
   const int lane = threadIdx.x % 32, per = kRowThreads / 32;
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    const size_t rb = (size_t)row * RN;
-    float xhat[RGROUPS][4];
-    gemm::row_xhat(x + rb, lane, eps, xhat);
+    const size_t rb = (size_t)row * (G * 128);
+    float xhat[G][4];
+    gemm::row_xhat<G>(x + rb, lane, eps, xhat);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       float y[4];
       gemm::ln_affine(xhat[q], s, g, c, y);
@@ -199,16 +207,17 @@ ln1_rows(float* __restrict__ x, const float* __restrict__ s, const float* __rest
 }
 
 // launch 5: out = bf16(LN2(x)), or with res bf16(res + tanh(bf16(LN2(x))))
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 ln2_rows(const float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ g,
          const bf16* __restrict__ res, bf16* __restrict__ out, int M, float eps) {
   const int lane = threadIdx.x % 32, per = kRowThreads / 32;
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    const size_t rb = (size_t)row * RN;
-    float xhat[RGROUPS][4];
-    gemm::row_xhat(x + rb, lane, eps, xhat);
+    const size_t rb = (size_t)row * (G * 128);
+    float xhat[G][4];
+    gemm::row_xhat<G>(x + rb, lane, eps, xhat);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       float y[4];
       gemm::ln_affine(xhat[q], s, g, c, y);
@@ -229,8 +238,9 @@ ln2_rows(const float* __restrict__ x, const float* __restrict__ s, const float* 
 // x_q, ctx, res: [rows, d] bf16 (res nullable: plain block without the tanh
 // epilogue); wo [d, d], w1 [m, d], w2 [d, m] bf16 in nn.Linear layout;
 // bo, s1, g1, b1, b2, s2, g2 f32.  Scratch from the caller: x32 [rows, d]
-// f32, xb [rows, d] bf16, h [rows, m] bf16.  out [rows, d] bf16.  d = 768,
-// m a multiple of 128 (the narrow tile).
+// f32, xb [rows, d] bf16, h [rows, m] bf16.  out [rows, d] bf16.  d a
+// multiple of 128 up to 2,048 (the row passes; 768 on the main path), m a
+// multiple of 128 (the narrow tile).
 extern "C" int vt_fused_block(const void* x_q, const void* ctx, const void* wo, const void* bo,
                               const void* s1, const void* g1, const void* w1, const void* b1,
                               const void* w2, const void* b2, const void* s2, const void* g2,
@@ -238,28 +248,31 @@ extern "C" int vt_fused_block(const void* x_q, const void* ctx, const void* wo, 
                               int d, int m, float eps, void* stream) {
   using namespace vt;
   using namespace vt::eval_block;
-  if (d != RN || m <= 0 || m % g90::Narrow::kBN != 0 || rows <= 0)
+  if (!gemm::row_width_ok(d) || m <= 0 || m % g90::Narrow::kBN != 0 || rows <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int per = kRowThreads / 32;
-  const int row_blocks = min((rows + per - 1) / per, 2 * 132);
+  const int blocks = row_blocks(rows);
 
   VT_TRY((g90::launch_gemm<false, false>(
       g90::one((const bf16*)ctx, d, (const bf16*)wo, d, rows, d, d),
       ResidEpi{(const float*)bo, (const bf16*)x_q, (float*)x32}, st)));
-  ln1_rows<<<row_blocks, kRowThreads, 0, st>>>((float*)x32, (const float*)s1, (const float*)g1,
-                                               (bf16*)xb, rows, eps);
-  VT_TRY(cudaGetLastError());
+  VT_TRY(gemm::by_row_groups(d, [&](auto g) {
+    ln1_rows<decltype(g)::value><<<blocks, kRowThreads, 0, st>>>(
+        (float*)x32, (const float*)s1, (const float*)g1, (bf16*)xb, rows, eps);
+    return cudaGetLastError();
+  }));
   VT_TRY((g90::launch_gemm<false, false>(
       g90::one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),
       ffn::GeluBiasEpi{(const float*)b1, (bf16*)h}, st)));
   VT_TRY((g90::launch_gemm<false, false>(
       g90::one((const bf16*)h, m, (const bf16*)w2, m, rows, d, m),
       AddEpi{(const float*)b2, (float*)x32}, st)));
-  ln2_rows<<<row_blocks, kRowThreads, 0, st>>>((const float*)x32, (const float*)s2,
-                                               (const float*)g2, (const bf16*)res, (bf16*)out,
-                                               rows, eps);
-  return (int)cudaGetLastError();
+  return (int)gemm::by_row_groups(d, [&](auto g) {
+    ln2_rows<decltype(g)::value><<<blocks, kRowThreads, 0, st>>>(
+        (const float*)x32, (const float*)s2, (const float*)g2, (const bf16*)res, (bf16*)out,
+        rows, eps);
+    return cudaGetLastError();
+  });
 }
 
 // The row-parallel product of a split form: c = a b^T [M, N] f32 of a
@@ -278,29 +291,31 @@ extern "C" int vt_gemm_f32(const void* a, int lda, const void* b, int ldb, void*
 // The split form's launch 2 (x32 [rows, d] f32 and xb [rows, d] bf16 from
 // the summed partial sum [rows, d] f32, bo, s1, g1 [d] f32 and x_q [rows,
 // d] bf16) and launch 5 (out [rows, d] bf16 from x32, the summed partial,
-// b2, s2, g2 and res, nullable).
+// b2, s2, g2 and res, nullable); d as vt_fused_block's.
 extern "C" int vt_fused_block_tp_ln1(const void* sum, const void* bo, const void* x_q,
                                      const void* s1, const void* g1, void* x32, void* xb,
                                      int rows, int d, float eps, void* stream) {
   using namespace vt::eval_block;
-  if (d != vt::gemm::RN || rows <= 0) return (int)cudaErrorInvalidValue;
-  const int per = kRowThreads / 32;
-  tp_ln1_rows<<<min((rows + per - 1) / per, 2 * 132), kRowThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)sum, (const float*)bo, (const vt::bf16*)x_q, (const float*)s1,
-      (const float*)g1, (float*)x32, (vt::bf16*)xb, rows, eps);
-  return (int)cudaGetLastError();
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  return (int)vt::gemm::by_row_groups(d, [&](auto g) {
+    tp_ln1_rows<decltype(g)::value><<<row_blocks(rows), kRowThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)sum, (const float*)bo, (const vt::bf16*)x_q, (const float*)s1,
+        (const float*)g1, (float*)x32, (vt::bf16*)xb, rows, eps);
+    return cudaGetLastError();
+  });
 }
 
 extern "C" int vt_fused_block_tp_ln2(const void* x32, const void* sum, const void* b2,
                                      const void* s2, const void* g2, const void* res, void* out,
                                      int rows, int d, float eps, void* stream) {
   using namespace vt::eval_block;
-  if (d != vt::gemm::RN || rows <= 0) return (int)cudaErrorInvalidValue;
-  const int per = kRowThreads / 32;
-  tp_ln2_rows<<<min((rows + per - 1) / per, 2 * 132), kRowThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x32, (const float*)sum, (const float*)b2, (const float*)s2, (const float*)g2,
-      (const vt::bf16*)res, (vt::bf16*)out, rows, eps);
-  return (int)cudaGetLastError();
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  return (int)vt::gemm::by_row_groups(d, [&](auto g) {
+    tp_ln2_rows<decltype(g)::value><<<row_blocks(rows), kRowThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x32, (const float*)sum, (const float*)b2, (const float*)s2,
+        (const float*)g2, (const vt::bf16*)res, (vt::bf16*)out, rows, eps);
+    return cudaGetLastError();
+  });
 }
 
 // The split form's launch 3 on this rank's FFN share: h = bf16(gelu_erf(xb
@@ -309,7 +324,7 @@ extern "C" int vt_fused_block_tp_ln2(const void* x32, const void* sum, const voi
 extern "C" int vt_fused_block_tp_ffn_in(const void* xb, const void* w1, const void* b1, void* h,
                                         int rows, int d, int m, void* stream) {
   using namespace vt;
-  if (d != gemm::RN || m <= 0 || m % g90::Thin::kBN != 0 || rows <= 0)
+  if (!gemm::row_width_ok(d) || m <= 0 || m % g90::Thin::kBN != 0 || rows <= 0)
     return (int)cudaErrorInvalidValue;
   return (int)g90::launch_gemm<false, false>(
       g90::one((const bf16*)xb, d, (const bf16*)w1, d, rows, m, d),

@@ -18,8 +18,8 @@
 // plain version only in the order of the LayerNorms' f32 sums, which can
 // move one element of x or h across a rounding boundary of its int8 step.
 //
-// What bounds it on the H100: at the serving shape (rows = 8 * 1152 = 9216,
-// D = 768, M = 3072) the products are 2 * rows * (D*D + 2*D*M) = 97.8 G
+// What bounds it on the H100: at the main path's serving shape (rows = 8 *
+// 1152 = 9216, D = 768, M = 3072) the products are 2 * rows * (D*D + 2*D*M) = 97.8 G
 // integer operations against ~48 MB of activations and int8 weights: at
 // 1,979 T int8 operations/s the tensor cores bound it (0.049 ms; the bytes
 // need 0.014 ms).
@@ -48,9 +48,6 @@
 
 namespace vt {
 namespace w8a8 {
-
-using gemm::RGROUPS;
-using gemm::RN;
 
 constexpr int kRowThreads = 256;  // row passes: a warp a row, 8 rows a block
 
@@ -105,7 +102,7 @@ __device__ __forceinline__ void gelu8(float (&v)[8], float as, const float* ws, 
 }
 
 // ---- 1: q(ctx), a warp per row ---------------------------------------------
-// cols % 256 == 0; the row is read twice (amax, then the values), the
+// cols % 8 == 0; the row is read twice (amax, then the values), the
 // second time from cache
 __global__ void __launch_bounds__(kRowThreads)
 quant_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scales,
@@ -155,18 +152,19 @@ struct CtxEpi {
 };
 
 // ---- 3: x32 = LN1(x32) in place, x8, xs = q(x32), hmax = 0 -------------------
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 ln1_quant_rows(float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ g,
                int8_t* __restrict__ x8, float* __restrict__ xs, float* __restrict__ hmax, int M,
                float eps) {
   const int lane = threadIdx.x % 32, per = kRowThreads / 32;
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    const size_t rb = (size_t)row * RN;
-    float y[RGROUPS][4];
-    gemm::row_xhat(x + rb, lane, eps, y);
+    const size_t rb = (size_t)row * (G * 128);
+    float y[G][4];
+    gemm::row_xhat<G>(x + rb, lane, eps, y);
     float amax = 0.f;
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       gemm::ln_affine(y[q], s, g, c, y[q]);
       gemm::store4(x + rb + c, y[q]);
@@ -175,7 +173,7 @@ ln1_quant_rows(float* __restrict__ x, const float* __restrict__ s, const float* 
     }
     const float scale = quant_scale(warp_max(amax));
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       *reinterpret_cast<char4*>(x8 + rb + c) = make_char4(
           quant(y[q][0], scale), quant(y[q][1], scale), quant(y[q][2], scale), quant(y[q][3], scale));
@@ -256,16 +254,17 @@ struct ResidAddEpi {
 };
 
 // ---- 7: out = bf16(LN2(x32)) -------------------------------------------------
+template <int G>
 __global__ void __launch_bounds__(kRowThreads)
 ln2_rows(const float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ g,
          bf16* __restrict__ out, int M, float eps) {
   const int lane = threadIdx.x % 32, per = kRowThreads / 32;
   for (int row = blockIdx.x * per + threadIdx.x / 32; row < M; row += gridDim.x * per) {
-    const size_t rb = (size_t)row * RN;
-    float y[RGROUPS][4];
-    gemm::row_xhat(x + rb, lane, eps, y);
+    const size_t rb = (size_t)row * (G * 128);
+    float y[G][4];
+    gemm::row_xhat<G>(x + rb, lane, eps, y);
 #pragma unroll
-    for (int q = 0; q < RGROUPS; ++q) {
+    for (int q = 0; q < G; ++q) {
       const int c = q * 128 + lane * 4;
       gemm::ln_affine(y[q], s, g, c, y[q]);
       gemm::store4(out + rb + c, y[q]);
@@ -280,13 +279,14 @@ ln2_rows(const float* __restrict__ x, const float* __restrict__ s, const float* 
 // bo, s1, g1 [d]; w18 [m, d], w1s [m], b1 [m]; w28 [d, m], w2s [d]; b2, s2,
 // g2 [d] (int8 weights, f32 vectors); scratch c8 [rows, d] int8, cs [rows],
 // x32 [rows, d] f32, x8 [rows, d] int8, xs [rows], hmax [rows] f32, h32
-// [rows, m] f32, h8 [rows, m] int8; out [rows, d] bf16.  d = 768, m a
-// multiple of 128 (the S8 tile, and the K step of h8 W28^T).
+// [rows, m] f32, h8 [rows, m] int8; out [rows, d] bf16.  d a multiple of
+// 128 up to 2,048 (the row passes; 768 on the main path), m a multiple of
+// 128 (the S8 tile, and the K step of h8 W28^T).
 extern "C" int vt_fused_block_w8a8(void* const* ptrs, int rows, int d, int m, float eps,
                                    void* stream) {
   using namespace vt;
   using namespace vt::w8a8;
-  if (d != RN || m <= 0 || m % g90::Narrow::kBN != 0 || rows <= 0)
+  if (!gemm::row_width_ok(d) || m <= 0 || m % g90::Narrow::kBN != 0 || rows <= 0)
     return (int)cudaErrorInvalidValue;
   const bf16* x_q = (const bf16*)ptrs[0];
   const bf16* ctx = (const bf16*)ptrs[1];
@@ -316,16 +316,21 @@ extern "C" int vt_fused_block_w8a8(void* const* ptrs, int rows, int d, int m, fl
   VT_TRY(cudaGetLastError());
   VT_TRY((g90::launch_gemm_s8(g90::one(c8, d, wo8, d, rows, d, d),
                                                   CtxEpi{cs, wos, bo, x_q, x32}, st)));
-  ln1_quant_rows<<<row_blocks, kRowThreads, 0, st>>>(x32, s1, g1, x8, xs, hmax, rows, eps);
-  VT_TRY(cudaGetLastError());
+  VT_TRY(gemm::by_row_groups(d, [&](auto g) {
+    ln1_quant_rows<decltype(g)::value><<<row_blocks, kRowThreads, 0, st>>>(x32, s1, g1, x8, xs,
+                                                                           hmax, rows, eps);
+    return cudaGetLastError();
+  }));
   const g90::GemmArgs ffn1 = g90::one(x8, d, w18, d, rows, m, d);
   VT_TRY((g90::launch_gemm_s8(ffn1, HstoreMaxEpi{xs, w1s, b1, h32, hmax}, st)));
   quant_h<<<8 * g90::kSMs, kRowThreads, 0, st>>>(h32, hmax, h8, rows, m);
   VT_TRY(cudaGetLastError());
   VT_TRY((g90::launch_gemm_s8(g90::one(h8, m, w28, m, rows, d, m),
                                                   ResidAddEpi{hmax, w2s, b2, x32}, st)));
-  ln2_rows<<<row_blocks, kRowThreads, 0, st>>>(x32, s2, g2, out, rows, eps);
-  return (int)cudaGetLastError();
+  return (int)gemm::by_row_groups(d, [&](auto g) {
+    ln2_rows<decltype(g)::value><<<row_blocks, kRowThreads, 0, st>>>(x32, s2, g2, out, rows, eps);
+    return cudaGetLastError();
+  });
 }
 
 namespace vt {

@@ -19,14 +19,14 @@
 // Weights arrive in torch nn.Linear layout ([out, in], bf16, stacked over
 // layers); biases and LayerNorm parameters in f32 [L, width].
 //
-// What bounds it on the H100: at batch 1-2 the weight reads, 14.2 MB per
-// layer (42.5 MB per 3-layer step; ~13 us at 3.35 TB/s), plus 3.5 MB of
-// int8 cache per row and layer; the FLOPs (2 per weight byte per row) are
+// What bounds it on the H100: at the main path's widths, at batch 1-2 the
+// weight reads, 14.2 MB per layer (42.5 MB per 3-layer step; ~13 us at
+// 3.35 TB/s), plus 3.5 MB of int8 cache per row and layer; the FLOPs (2 per weight byte per row) are
 // negligible.  The per-layer dependencies cost grid-wide barriers, and
 // every phase between two barriers is a chain of memory latencies.
 //
 // Design: a persistent cooperative kernel, one block of 384 threads per SM
-// (168 registers a thread), four phases a layer with
+// (at most 168 registers a thread), four phases a layer with
 // cooperative_groups::this_grid().sync() between them, where the first
 // version had five and put each (row, head) unit's attention on one block
 // (PERF.md section 6 has the phase times that chose this):
@@ -44,16 +44,28 @@
 //     block, then the W1 GEMV with the gelu;
 //  D. the W2 GEMV, x1 + h W2^T + b2 -> the next layer's pre-LN rows.
 // Each GEMV gives a warp several weight rows at once (one row of 3,072, or
-// four of 768), the groups of rows dealt to the blocks in turn so that
-// every SM streams, and issues all of a lane's 16-byte loads of them before
-// the phase's input is formed (the LayerNorm, the staging of h), so twelve
-// loads a lane are in flight under it.  Before the attention phase each
+// four of 768, on the main path), the groups of rows dealt to the blocks in
+// turn so that every SM streams, and issues all of a lane's 16-byte loads
+// of them before the phase's input is formed (the LayerNorm, the staging of
+// h), so twelve loads a lane are in flight under it.  A weight of K input
+// columns takes one of two forms (gemv): four rows a warp in pieces of 768
+// columns where K <= 1,536, else one row a warp in pieces of 3,072 (the
+// kernel is instantiated per pair of forms); a piece is twelve loads a
+// lane, the last one masked where K ends inside it, and the next piece's
+// loads go out before the dots of this one are reduced.  The GEMV inputs are bf16 values (the layer input, bf16(LN1)
+// and h), held as bf16 in shared memory.  Before the attention phase each
 // warp prefetches its W1 and W2 rows into L2 (cp.async.bulk.prefetch), and
 // before the W2 phase its next-layer Q/K/V rows.  Scratch written inside
 // the launch is read back with __ldcg (L2, not the non-coherent L1 path).
-// The grid and the shared-memory attribute are computed once per device.
-// The widths are the MMT's (768, 3,072, 12 heads of 64) and the cache at
-// most 1,152 slots; the wrapper raises on others.
+// The grid and the shared-memory attribute are computed once per device
+// and shared-memory size.  The widths are runtime values: the hidden width
+// D = H x 64, a multiple of 128 up to 2,048, the FFN width M, a multiple of
+// 128 up to 8,192 (the main path's MMT: 768, 3,072, 12 heads), at most 8
+// batch rows, and the cache at most 1,152 slots; the wrapper raises on
+// others.  Shared memory holds the f32 pre-LN rows [B][D], the bf16 layer
+// input [B][D] and the GEMV input [B][max(D, M)] in bf16, which the
+// attention scratch shares: 229,440 bytes at B = 8, D = 2,048, M = 8,192,
+// within the 232,448 a block may take.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -67,16 +79,27 @@ constexpr int NT = 384;
 constexpr int NW = NT / 32;
 constexpr int HD = 64;
 constexpr int MAXB = 8;
-constexpr int kD = 768, kM = 3072;  // the MMT's hidden and FFN widths
-constexpr int kH = kD / HD;
+constexpr int kMaxD = 2048, kMaxM = 8192;  // the widest hidden and FFN widths
 constexpr int kLoads = 12;          // a lane's 16-byte weight loads in flight
+constexpr int kNarrowK = 1536;      // the widest K of the four-row GEMV form
 constexpr int kMaxLp = 1152;        // cache slots (the exact serving sequence)
 constexpr int kMaxSpans = 16;       // key spans of one (row, head) unit
 constexpr float kFill = -1e30f;     // pallas_decode_step.py _NEG
 // attention scratch beyond the scores: qh, cur (k8 | v8), per-warp partial
 // outputs, reduction scratch, scalars, ctx_h
 constexpr int kAttnExtra = HD + 2 * HD + NW * HD + 32 + 8 + HD;
-static_assert(kMaxLp + kAttnExtra <= kM, "attention scratch fits the GEMV input of one row");
+constexpr int kAttnBytes = (kMaxLp + kAttnExtra) * 4;
+
+// the dynamic shared memory of a launch: x1 f32 [B][D], xs bf16 [B][D],
+// the GEMV input bf16 [B][max(D, M)] or the attention scratch, the
+// LayerNorm statistics f32 [B][2]
+__host__ __device__ constexpr int act_bytes(int B, int D, int M) {
+  return 2 * B * (D > M ? D : M) > kAttnBytes ? 2 * B * (D > M ? D : M) : kAttnBytes;
+}
+__host__ __device__ constexpr int smem_bytes(int B, int D, int M) {
+  return 4 * B * D + 2 * B * D + act_bytes(B, D, M) + 8 * B;
+}
+static_assert(smem_bytes(MAXB, kMaxD, kMaxM) <= 232448, "the widest launch fits an SM");
 
 struct Params {
   const bf16* x;                                                 // [B, D]
@@ -95,6 +118,7 @@ struct Params {
   float* apart;                                                  // [B*H, spans, HD] V partials
   int* arrive;                                                   // [B*H] span counters
   int L, B, Lp, step, write_offset, spans;
+  int D, M, H;                                                   // hidden, FFN, heads
   float eps, scale;
 };
 
@@ -123,31 +147,50 @@ __device__ __forceinline__ int first_group() {
   return (threadIdx.x / 32) * gridDim.x + blockIdx.x;
 }
 
-// out[b][n] = act[b, :] . W[n, :] for the N rows of one [N, K] weight: a
-// warp takes R = kLoads / (K / 256) consecutive rows at once and loads them
-// all before it uses any.  The warp's first loads are issued before
-// prep(), which every thread calls and which fills act ([B][K] f32 in
-// shared memory, B <= MB) and ends in a block barrier, so the weights
-// stream while the input is formed.  epi(b, n, acc) consumes each dot on
-// lane 0.
-template <int K, int MB, typename Row, typename Prep, typename Epi>
-__device__ __forceinline__ void gemv(Row wrow, const float* act, int N, int B, Prep prep,
+// The two GEMV forms: four rows a warp in pieces of 3 x 256 columns (K up
+// to kNarrowK), or one row in pieces of 12 x 256.  The kernel is a
+// template on the form of its D-column weights (Q/K/V, W1) and of its
+// M-column one (W2), so each call site holds one form's registers.
+struct Rows4 {
+  static constexpr int C = 3, R = 4;
+};
+struct Rows1 {
+  static constexpr int C = 12, R = 1;
+};
+__host__ __device__ constexpr bool narrow_k(int K) { return K <= kNarrowK; }
+
+// out[b][n] = act[b, :] . W[n, :] for the N rows of one [N, K] weight (K a
+// multiple of 128): a warp takes R consecutive rows at once, in pieces of
+// C x 256 columns, and loads a piece of all R rows (R x C = kLoads loads a
+// lane; where K ends inside a piece the loads past it are skipped) before
+// it uses any.  The warp's first loads are issued before prep(), which
+// every thread calls and which fills act ([B][K] bf16 in shared memory, B
+// <= MB) and ends in a block barrier, so the weights stream while the
+// input is formed; each later piece's loads (the next piece, or the next
+// group's first) go out before the dots of the current one are reduced.
+// epi(b, n, acc) consumes each dot on lane 0.  F: the form (Rows4, Rows1).
+template <class F, int MB, typename Row, typename Prep, typename Epi>
+__device__ __forceinline__ void gemv(Row wrow, const bf16* act, int K, int N, int B, Prep prep,
                                      Epi epi) {
-  constexpr int kPer = K / 256, R = kLoads / kPer;
+  constexpr int C = F::C, R = F::R;
+  static_assert(R * C == kLoads, "a piece is kLoads loads a lane");
   const int lane = threadIdx.x % 32;
   const int step = gridDim.x * NW * R;
-  uint4 raw[R][kPer];
-  auto load = [&](int n0) {
+  const int pieces = (K + C * 256 - 1) / (C * 256);
+  uint4 raw[R][C];
+  auto load = [&](int n0, int pc) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const bf16* wr = wrow(min(n0 + r, N - 1));
 #pragma unroll
-      for (int i = 0; i < kPer; ++i)
-        raw[r][i] = __ldg(reinterpret_cast<const uint4*>(wr + lane * 8 + i * 256));
+      for (int i = 0; i < C; ++i) {
+        const int k = (pc * C + i) * 256 + lane * 8;
+        if (k < K) raw[r][i] = __ldg(reinterpret_cast<const uint4*>(wr + k));
+      }
     }
   };
   int n0 = first_group() * R;
-  if (n0 < N) load(n0);
+  if (n0 < N) load(n0, 0);
   prep();
   for (; n0 < N; n0 += step) {
     float acc[R][MB];
@@ -155,25 +198,30 @@ __device__ __forceinline__ void gemv(Row wrow, const float* act, int N, int B, P
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int b = 0; b < MB; ++b) acc[r][b] = 0.f;
+    for (int pc = 0; pc < pieces; ++pc) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int k0 = lane * 8 + i * 256;
+      for (int i = 0; i < C; ++i) {
+        const int k0 = (pc * C + i) * 256 + lane * 8;
+        if (k0 < K) {
 #pragma unroll
-      for (int b = 0; b < MB; ++b) {
-        if (b < B) {
-          const float4 a0 = *reinterpret_cast<const float4*>(act + b * K + k0);
-          const float4 a1 = *reinterpret_cast<const float4*>(act + b * K + k0 + 4);
+          for (int b = 0; b < MB; ++b) {
+            if (b < B) {
+              float a[8];
+              bf16x8(*reinterpret_cast<const uint4*>(act + b * K + k0), a);
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float w[8];
-            bf16x8(raw[r][i], w);
-            acc[r][b] += a0.x * w[0] + a0.y * w[1] + a0.z * w[2] + a0.w * w[3] + a1.x * w[4] +
-                         a1.y * w[5] + a1.z * w[6] + a1.w * w[7];
+              for (int r = 0; r < R; ++r) {
+                float w[8];
+                bf16x8(raw[r][i], w);
+                acc[r][b] += a[0] * w[0] + a[1] * w[1] + a[2] * w[2] + a[3] * w[3] +
+                             a[4] * w[4] + a[5] * w[5] + a[6] * w[6] + a[7] * w[7];
+              }
+            }
           }
         }
       }
+      if (pc + 1 < pieces) load(n0, pc + 1);
+      else if (n0 + step < N) load(n0 + step, 0);
     }
-    if (n0 + step < N) load(n0 + step);
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -186,58 +234,58 @@ __device__ __forceinline__ void gemv(Row wrow, const float* act, int N, int B, P
   }
 }
 
-// prefetch into L2 the weight rows this warp's gemv<K> will read (a group
-// of R rows is contiguous; N is a multiple of R): one bulk prefetch a group
-template <int K, typename Row>
-__device__ __forceinline__ void prefetch_rows(Row wrow, int N) {
-  constexpr int R = kLoads / (K / 256);
+// prefetch into L2 the weight rows this warp's gemv in the form F will read
+// (a group of R rows is contiguous; N is a multiple of R): one bulk
+// prefetch a group
+template <class F, typename Row>
+__device__ __forceinline__ void prefetch_rows(Row wrow, int N, int K) {
+  constexpr int R = F::R;
   if (threadIdx.x % 32) return;
   for (int n0 = first_group() * R; n0 < N; n0 += gridDim.x * NW * R)
     prefetch_l2(wrow(n0), R * K * 2);
 }
 
-// LayerNorm of the B rows of src (shared memory, f32) with the f32 scale
-// / shift: a warp forms each row's statistics, then every thread
-// normalises elements.  Each output is nullable: out_f32 (shared) takes the
-// f32 result, out_bf_f32 (shared) its bf16 rounding as f32, out_bf
-// (global) the bf16 values.  Safe in place (out_f32 == src); stats is
-// 2 * B floats of shared scratch.  Ends in a block barrier.
+// LayerNorm of the B rows of src (shared memory, f32, D wide) with the f32
+// scale / shift: a warp forms each row's statistics, then every thread
+// normalises elements.  Each output is nullable: out_f32 (shared) takes
+// the f32 result, out_bfs (shared) and out_bf (global) the bf16 values.
+// Safe in place (out_f32 == src); stats is 2 * B floats of shared scratch.
+// Ends in a block barrier.
+template <int KD>
 __device__ void layer_norm_rows(const float* src, const float* gamma, const float* beta, int B,
-                                float eps, float* stats, float* out_f32, float* out_bf_f32,
+                                int d, float eps, float* stats, float* out_f32, bf16* out_bfs,
                                 bf16* out_bf) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, D = KD ? KD : d;
   for (int b = warp; b < B; b += NW) {
-    const float* r = src + b * kD;
+    const float* r = src + b * D;
     float s = 0.f;
-#pragma unroll
-    for (int c = lane; c < kD; c += 32) s += r[c];
-    const float mu = warp_sum(s) / kD;
+    for (int c = lane; c < D; c += 32) s += r[c];
+    const float mu = warp_sum(s) / D;
     float v = 0.f;
-#pragma unroll
-    for (int c = lane; c < kD; c += 32) {
+    for (int c = lane; c < D; c += 32) {
       const float d = r[c] - mu;
       v += d * d;
     }
-    const float inv = rsqrtf(warp_sum(v) / kD + eps);
+    const float inv = rsqrtf(warp_sum(v) / D + eps);
     if (lane == 0) stats[2 * b] = mu, stats[2 * b + 1] = inv;
   }
   __syncthreads();
   constexpr int kU = 4;  // elements a thread, their scale / shift loaded together
-  for (int i0 = threadIdx.x; i0 < B * kD; i0 += kU * NT) {
+  for (int i0 = threadIdx.x; i0 < B * D; i0 += kU * NT) {
     float gv[kU], bv[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      const int c = (i0 + u * NT) % kD;
+      const int c = (i0 + u * NT) % D;
       gv[u] = __ldg(gamma + c);
       bv[u] = __ldg(beta + c);
     }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      const int i = i0 + u * NT, b = i / kD;
-      if (i >= B * kD) break;
+      const int i = i0 + u * NT, b = i / D;
+      if (i >= B * D) break;
       const float y = (src[i] - stats[2 * b]) * stats[2 * b + 1] * gv[u] + bv[u];
       if (out_f32) out_f32[i] = y;
-      if (out_bf_f32) out_bf_f32[i] = round_bf16(y);
+      if (out_bfs) out_bfs[i] = __float2bfloat16(y);
       if (out_bf) out_bf[i] = __float2bfloat16(y);
     }
   }
@@ -250,14 +298,10 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src, int coun
     *reinterpret_cast<float4*>(dst + i) = __ldcg(reinterpret_cast<const float4*>(src + i));
 }
 
-// dst[i] = f32(src[i]) for count bf16 values written in this launch
-__device__ __forceinline__ void stage_bf16(float* dst, const bf16* src, int count) {
-  for (int i = threadIdx.x * 8; i < count; i += NT * 8) {
-    float w[8];
-    bf16x8(__ldcg(reinterpret_cast<const uint4*>(src + i)), w);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) dst[i + t] = w[t];
-  }
+// dst[i] = src[i] for count bf16 values written in this launch
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int count) {
+  for (int i = threadIdx.x * 8; i < count; i += NT * 8)
+    *reinterpret_cast<uint4*>(dst + i) = __ldcg(reinterpret_cast<const uint4*>(src + i));
 }
 
 // four int8 of a word as exact floats: each byte, biased by 128, becomes
@@ -301,13 +345,14 @@ constexpr int kVPre = 2;                      // V passes of a span loaded early
 // softmax over all keys, the weighted V rows of the span -> apart.  Four
 // lanes share a key, sixteen channels each (int8 to f32 by byte permutes);
 // the span's first V rows and scales load under the softmax.
+template <int KD>
 __device__ void attention_span(const Params& p, int l, int b, int h, int sp, int S,
                                const AttnSmem& a) {
-  const int tid = threadIdx.x, ch = tid % 4;
-  const bf16* qkv = p.qkv + (size_t)b * 3 * kD;
+  const int tid = threadIdx.x, ch = tid % 4, D = KD ? KD : p.D, H = KD ? KD / HD : p.H;
+  const bf16* qkv = p.qkv + (size_t)b * 3 * D;
   const int pos = p.write_offset + p.step;
   const size_t cache0 = ((size_t)l * p.B + b) * p.Lp;
-  const int8_t* kv = p.kv8 + cache0 * 2 * kD + h * HD + ch * 16;
+  const int8_t* kv = p.kv8 + cache0 * 2 * D + h * HD + ch * 16;
   const float* ks = p.kvs + ((size_t)l * p.B + b) * 2 * p.Lp;
   const float* vs = ks + p.Lp;
   const float* mask = p.mask + (size_t)b * p.Lp;
@@ -320,29 +365,33 @@ __device__ void attention_span(const Params& p, int l, int b, int h, int sp, int
     if (j < p.Lp) mk[it] = mask[j], ksk[it] = ks[j];
   }
 
-  // the new row's scales from the amax over all heads (bf16 values)
+  // the new row's scales from the amax over all heads (bf16 values): the K
+  // row then the V row, eight values a thread at a time
   float ka = 0.f, va = 0.f;
-  if (tid < 2 * kD / 8) {
+  for (int c = tid * 8; c < 2 * D; c += NT * 8) {
     float w[8];
-    bf16x8(__ldcg(reinterpret_cast<const uint4*>(qkv + kD + tid * 8)), w);
+    bf16x8(__ldcg(reinterpret_cast<const uint4*>(qkv + D + c)), w);
+    float m = 0.f;
 #pragma unroll
-    for (int t = 0; t < 8; ++t) (tid < kD / 8 ? ka : va) = fmaxf(tid < kD / 8 ? ka : va, fabsf(w[t]));
+    for (int t = 0; t < 8; ++t) m = fmaxf(m, fabsf(w[t]));
+    if (c < D) ka = fmaxf(ka, m);
+    else va = fmaxf(va, m);
   }
   ka = block_max(ka, a.red);
   va = block_max(va, a.red);
   const float k_sc = fmaxf(ka, 1e-6f) / 127.f;
   const float v_sc = fmaxf(va, 1e-6f) / 127.f;
-  int8_t* r8 = p.row8 + ((size_t)l * p.B + b) * 2 * kD;
+  int8_t* r8 = p.row8 + ((size_t)l * p.B + b) * 2 * D;
   if (tid < HD) {
     const int c = h * HD + tid;
     a.qh[tid] = __bfloat162float(__ldcg(qkv + c));
-    const int8_t k8 = quantize(__bfloat162float(__ldcg(qkv + kD + c)), k_sc);
-    const int8_t v8 = quantize(__bfloat162float(__ldcg(qkv + 2 * kD + c)), v_sc);
+    const int8_t k8 = quantize(__bfloat162float(__ldcg(qkv + D + c)), k_sc);
+    const int8_t v8 = quantize(__bfloat162float(__ldcg(qkv + 2 * D + c)), v_sc);
     a.cur[tid] = (float)k8;
     a.cur[HD + tid] = (float)v8;
     if (sp == 0) {
       r8[c] = k8;
-      r8[kD + c] = v8;
+      r8[D + c] = v8;
     }
   }
   if (h == 0 && sp == 0 && tid == 0) {
@@ -363,7 +412,7 @@ __device__ void attention_span(const Params& p, int l, int b, int h, int sp, int
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int j = tid / 4 + (it0 + u) * kKeyPass;
-      if (j < p.Lp && j != pos) kr[u] = __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * kD));
+      if (j < p.Lp && j != pos) kr[u] = __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * D));
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
@@ -400,7 +449,7 @@ __device__ void attention_span(const Params& p, int l, int b, int h, int sp, int
   for (int it = 0; it < kVPre; ++it) {
     const int j = j0 + tid / 4 + it * kKeyPass;
     if (j < j1 && j != pos) {
-      vr[it] = __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * kD + kD));
+      vr[it] = __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * D + D));
       vsr[it] = vs[j];
     }
   }
@@ -441,7 +490,7 @@ __device__ void attention_span(const Params& p, int l, int b, int h, int sp, int
     if (j < j1 && j != pos) weigh(j, vr[it], vsr[it]);
   }
   for (int j = j0 + tid / 4 + kVPre * kKeyPass; j < j1; j += kKeyPass)
-    if (j != pos) weigh(j, __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * kD + kD)), vs[j]);
+    if (j != pos) weigh(j, __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * D + D)), vs[j]);
 #pragma unroll
   for (int t = 0; t < 16; ++t) {
     acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], 4);
@@ -457,7 +506,7 @@ __device__ void attention_span(const Params& p, int l, int b, int h, int sp, int
     float o = 0.f;
 #pragma unroll
     for (int i = 0; i < NW; ++i) o += a.part[i * HD + tid];
-    p.apart[((size_t)(b * kH + h) * S + sp) * HD + tid] = o;
+    p.apart[((size_t)(b * H + h) * S + sp) * HD + tid] = o;
   }
 }
 
@@ -482,28 +531,29 @@ constexpr int kWoPre = 2;  // passes of a span's Wo rows loaded before the wait
 // row (128 bytes of Wo), a warp on four
 struct WoSlice {
   const bf16* wo;  // Wo[l] + h * HD + (lane % 8) * 8
-  int n_lo, n_hi;
+  int n_lo, n_hi, D;
   uint4 pre[kWoPre];
-  __device__ WoSlice(const Params& p, int l, int h, int sp, int S) {
+  __device__ WoSlice(const Params& p, int l, int h, int sp, int S, int d) {
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    wo = p.wo + (size_t)l * kD * kD + h * HD + (lane % 8) * 8;
-    n_lo = sp * kD / S;
-    n_hi = (sp + 1) * kD / S;
+    D = d;
+    wo = p.wo + (size_t)l * D * D + h * HD + (lane % 8) * 8;
+    n_lo = sp * D / S;
+    n_hi = (sp + 1) * D / S;
 #pragma unroll
     for (int i = 0; i < kWoPre; ++i) {
       const int n = n_lo + warp * 4 + i * NW * 4 + lane / 8;
-      if (n < n_hi) pre[i] = __ldg(reinterpret_cast<const uint4*>(wo + (size_t)n * kD));
+      if (n < n_hi) pre[i] = __ldg(reinterpret_cast<const uint4*>(wo + (size_t)n * D));
     }
   }
 };
 
 // ctx_h = bf16(sum of the unit's span partials in span order + w_cur *
 // v_cur), then this span's share of ctx_h Wo[n, h*HD:(h+1)*HD]^T -> opart
-__device__ void head_out(const Params& p, int b, int h, int S, const WoSlice& wos,
+__device__ void head_out(const Params& p, int b, int h, int H, int S, const WoSlice& wos,
                          const AttnSmem& a) {
   const int tid = threadIdx.x;
   if (tid < HD) {
-    const float* part = p.apart + (size_t)(b * kH + h) * S * HD + tid;
+    const float* part = p.apart + (size_t)(b * H + h) * S * HD + tid;
     float o = 0.f;
     for (int s = 0; s < S; ++s) o += __ldcg(part + s * HD);
     o += a.scal[0] * (a.cur[HD + tid] * a.scal[1]);
@@ -523,105 +573,109 @@ __device__ void head_out(const Params& p, int b, int h, int S, const WoSlice& wo
     acc += __shfl_xor_sync(0xffffffffu, acc, 4);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (c8 == 0 && n < wos.n_hi) p.opart[((size_t)h * p.B + b) * kD + n] = acc;
+    if (c8 == 0 && n < wos.n_hi) p.opart[((size_t)h * p.B + b) * wos.D + n] = acc;
   };
 #pragma unroll
   for (int i = 0; i < kWoPre; ++i)
     if (wos.n_lo + warp * 4 + i * NW * 4 < wos.n_hi) out(i, wos.pre[i]);
   for (int i = kWoPre; wos.n_lo + warp * 4 + i * NW * 4 < wos.n_hi; ++i) {
     const int n = min(wos.n_lo + warp * 4 + i * NW * 4 + lane / 8, wos.n_hi - 1);
-    out(i, __ldg(reinterpret_cast<const uint4*>(wos.wo + (size_t)n * kD)));
+    out(i, __ldg(reinterpret_cast<const uint4*>(wos.wo + (size_t)n * wos.D)));
   }
   __syncthreads();  // the unit's scratch is reused by the block's next unit
 }
 
-// MB: the largest batch of the instantiation (its GEMV accumulators)
-template <int MB>
+// MB: the largest batch of the instantiation (its GEMV accumulators); FD,
+// FM: the GEMV forms of the D-column and the M-column weights; KD, KM: the
+// widths where fixed at compile time (the main path's), else 0 (the
+// widths of Params)
+template <int MB, class FD, class FM, int KD, int KM>
 __global__ void __launch_bounds__(NT, 1) fused_step_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int B = p.B, S = p.spans, units = B * kH;
-  float* xs = smem;             // [B][D] layer input (bf16 values)
-  float* x1 = xs + B * kD;      // [B][D] pre-LN1 rows, then LN1's output, f32
-  float* act = x1 + B * kD;     // [B][max(D, M)] GEMV input; attention scratch
-  float* stats = act + B * kM;  // [B][2] LayerNorm statistics
-  const AttnSmem attn(act);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = KD ? KD : p.D, M = KM ? KM : p.M, H = KD ? KD / HD : p.H;
+  const int B = p.B, S = p.spans, units = B * H;
+  float* x1 = reinterpret_cast<float*>(smem);           // [B][D] pre-LN rows, then LN1, f32
+  bf16* xs = reinterpret_cast<bf16*>(x1 + B * D);        // [B][D] layer input
+  unsigned char* act_raw = reinterpret_cast<unsigned char*>(xs + B * D);
+  bf16* act = reinterpret_cast<bf16*>(act_raw);          // [B][max(D, M)] GEMV input
+  float* stats = reinterpret_cast<float*>(act_raw + act_bytes(B, D, M));  // [B][2]
+  const AttnSmem attn(reinterpret_cast<float*>(act_raw));  // shares the GEMV input's bytes
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   auto qkv_row = [&](int l) {
-    const size_t o = (size_t)l * kD * kD;
+    const size_t o = (size_t)l * D * D;
     const bf16 *wq = p.wq + o, *wk = p.wk + o, *wv = p.wv + o;
-    return [=](int n) { return (n < kD ? wq : (n < 2 * kD ? wk : wv)) + (size_t)(n % kD) * kD; };
+    return [=](int n) { return (n < D ? wq : (n < 2 * D ? wk : wv)) + (size_t)(n % D) * D; };
   };
 
   for (int l = 0; l < p.L; ++l) {
-    const size_t vD = (size_t)l * kD, vM = (size_t)l * kM;
-    const bf16* w1 = p.w1 + (size_t)l * kM * kD;
-    const bf16* w2 = p.w2 + (size_t)l * kD * kM;
-    auto w1_row = [=](int n) { return w1 + (size_t)n * kD; };
-    auto w2_row = [=](int n) { return w2 + (size_t)n * kM; };
+    const size_t vD = (size_t)l * D, vM = (size_t)l * M;
+    const bf16* w1 = p.w1 + (size_t)l * M * D;
+    const bf16* w2 = p.w2 + (size_t)l * D * M;
+    auto w1_row = [=](int n) { return w1 + (size_t)n * D; };
+    auto w2_row = [=](int n) { return w2 + (size_t)n * M; };
     // A: the layer input (LN2 of the previous layer's rows), then the
     // Q/K/V rows
-    gemv<kD, MB>(qkv_row(l), xs, 3 * kD, B, [&] {
+    gemv<FD, MB>(qkv_row(l), xs, D, 3 * D, B, [&] {
       if (l == 0) {
-        for (int i = tid; i < B * kD; i += NT) xs[i] = __bfloat162float(p.x[i]);
+        for (int i = tid; i < B * D; i += NT) xs[i] = p.x[i];
         __syncthreads();
       } else {
-        stage_f32(act, p.pre, B * kD);
+        stage_f32(x1, p.pre, B * D);
         __syncthreads();
-        layer_norm_rows(act, p.s2 + vD - kD, p.g2 + vD - kD, B, p.eps, stats, nullptr, xs,
-                        nullptr);
+        layer_norm_rows<KD>(x1, p.s2 + vD - D, p.g2 + vD - D, B, D, p.eps, stats, nullptr, xs,
+                            nullptr);
       }
     }, [&](int b, int n, float a) {
-      const float* bias = n < kD ? p.bq : (n < 2 * kD ? p.bk : p.bv);
-      p.qkv[(size_t)b * 3 * kD + n] = __float2bfloat16(a + bias[vD + n % kD]);
+      const float* bias = n < D ? p.bq : (n < 2 * D ? p.bk : p.bv);
+      p.qkv[(size_t)b * 3 * D + n] = __float2bfloat16(a + bias[vD + n % D]);
     });
-    prefetch_rows<kD>(w1_row, kM);
-    prefetch_rows<kM>(w2_row, kD);
+    prefetch_rows<FD>(w1_row, M, D);
+    prefetch_rows<FM>(w2_row, D, M);
     grid.sync();
 
     // B: attention over key spans and the head's share of ctx Wo^T
     for (int item = blockIdx.x; item < units * S; item += gridDim.x) {
       const int u = item / S, sp = item % S;
-      attention_span(p, l, u / kH, u % kH, sp, S, attn);
-      const WoSlice wos(p, l, u % kH, sp, S);
+      attention_span<KD>(p, l, u / H, u % H, sp, S, attn);
+      const WoSlice wos(p, l, u % H, sp, S, D);
       if (S > 1) unit_barrier(p.arrive + u, (l + 1) * S);
       else __syncthreads();
-      head_out(p, u / kH, u % kH, S, wos, attn);
+      head_out(p, u / H, u % H, H, S, wos, attn);
     }
     grid.sync();
 
     // C: x1 = LN1(x + sum_h opart[h] + bo) (in every block), then
     // h = bf16(gelu(bf16(x1) W1^T + b1))
-    gemv<kD, MB>(w1_row, act, kM, B, [&] {
-      for (int i = tid * 4; i < B * kD; i += NT * 4) {
-        const int n = i % kD;
+    gemv<FD, MB>(w1_row, act, D, M, B, [&] {
+      for (int i = tid * 4; i < B * D; i += NT * 4) {
+        const int n = i % D;
         float4 o = __ldcg(reinterpret_cast<const float4*>(p.opart + i));
-#pragma unroll
-        for (int hh = 1; hh < kH; ++hh) {
+        for (int hh = 1; hh < H; ++hh) {
           const float4 t =
-              __ldcg(reinterpret_cast<const float4*>(p.opart + (size_t)hh * B * kD + i));
+              __ldcg(reinterpret_cast<const float4*>(p.opart + (size_t)hh * B * D + i));
           o.x += t.x, o.y += t.y, o.z += t.z, o.w += t.w;
         }
         const float* bo = p.bo + vD + n;
-        x1[i] = xs[i] + (o.x + bo[0]);
-        x1[i + 1] = xs[i + 1] + (o.y + bo[1]);
-        x1[i + 2] = xs[i + 2] + (o.z + bo[2]);
-        x1[i + 3] = xs[i + 3] + (o.w + bo[3]);
+        x1[i] = __bfloat162float(xs[i]) + (o.x + bo[0]);
+        x1[i + 1] = __bfloat162float(xs[i + 1]) + (o.y + bo[1]);
+        x1[i + 2] = __bfloat162float(xs[i + 2]) + (o.z + bo[2]);
+        x1[i + 3] = __bfloat162float(xs[i + 3]) + (o.w + bo[3]);
       }
       __syncthreads();
-      layer_norm_rows(x1, p.s1 + vD, p.g1 + vD, B, p.eps, stats, x1, act, nullptr);
+      layer_norm_rows<KD>(x1, p.s1 + vD, p.g1 + vD, B, D, p.eps, stats, x1, act, nullptr);
     }, [&](int b, int n, float a) {
-      p.h[(size_t)b * kM + n] = __float2bfloat16(gelu_erf(a + p.b1[vM + n]));
+      p.h[(size_t)b * M + n] = __float2bfloat16(gelu_erf(a + p.b1[vM + n]));
     });
-    if (l + 1 < p.L) prefetch_rows<kD>(qkv_row(l + 1), 3 * kD);
+    if (l + 1 < p.L) prefetch_rows<FD>(qkv_row(l + 1), 3 * D, D);
     grid.sync();
 
     // D: x1 + h W2^T + b2 -> pre (LN2 runs at the next layer's start)
-    gemv<kM, MB>(w2_row, act, kD, B, [&] {
-      stage_bf16(act, p.h, B * kM);
+    gemv<FM, MB>(w2_row, act, M, D, B, [&] {
+      stage_bf16(act, p.h, B * M);
       __syncthreads();
     }, [&](int b, int n, float a) {
-      p.pre[(size_t)b * kD + n] = x1[b * kD + n] + (a + p.b2[vD + n]);
+      p.pre[(size_t)b * D + n] = x1[b * D + n] + (a + p.b2[vD + n]);
     });
     grid.sync();
   }
@@ -629,21 +683,43 @@ __global__ void __launch_bounds__(NT, 1) fused_step_kernel(const Params p) {
     // every unit barrier of the launch is behind the last grid barrier:
     // the counters go back to zero for the next launch
     for (int u = tid; u < units; u += NT) p.arrive[u] = 0;
-    const size_t vD = (size_t)(p.L - 1) * kD;
-    stage_f32(act, p.pre, B * kD);
+    const size_t vD = (size_t)(p.L - 1) * D;
+    stage_f32(x1, p.pre, B * D);
     __syncthreads();
-    layer_norm_rows(act, p.s2 + vD, p.g2 + vD, B, p.eps, stats, nullptr, nullptr, p.y);
+    layer_norm_rows<KD>(x1, p.s2 + vD, p.g2 + vD, B, D, p.eps, stats, nullptr, nullptr, p.y);
   }
 }
 
-// the cooperative grid (one block an SM) of the current device, with the
-// shared-memory attribute set to the instantiation's largest launch;
-// computed once a device
-template <int MB>
-CoopLaunch launch_config() {
-  constexpr int kMaxSmem = (2 * MB * kD + MB * kM + 2 * MB) * 4;
+// One launch of an instantiation: its cooperative grid (one block an SM)
+// on the current device for `smem` bytes, with the shared-memory attribute
+// raised to it (computed once a (device, size)), and the key spans of a
+// unit: the units' spans fill the grid at most once, so every block of a
+// unit is resident when it waits for the others.
+template <int MB, class FD, class FM, int KD = 0, int KM = 0>
+cudaError_t launch(Params p, int smem, cudaStream_t stream) {
   static CoopCache cache;
-  return coop_launch(cache, (const void*)fused_step_kernel<MB>, NT, kMaxSmem, 1);
+  const void* kernel = (const void*)fused_step_kernel<MB, FD, FM, KD, KM>;
+  const CoopLaunch cfg = coop_launch(cache, kernel, NT, smem, 1);
+  if (cfg.err != cudaSuccess) return cfg.err;
+  const int per_unit = cfg.grid / (p.B * p.H);
+  p.spans = per_unit < 1 ? 1 : (per_unit > kMaxSpans ? kMaxSpans : per_unit);
+  void* args[] = {&p};
+  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, cfg.grid, NT, args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// the instantiation of batch bound MB whose forms fit the widths: the main
+// path's MMT (768, 3,072) with its widths fixed at compile time (with them
+// read from Params its batch-1 step took 0.17 ms instead of 0.11 on the
+// H100: PERF.md section 6), any other with the widths of Params
+template <int MB>
+cudaError_t launch_forms(const Params& p, int smem, cudaStream_t stream) {
+  if (p.D == 768 && p.M == 3072) return launch<MB, Rows4, Rows1, 768, 3072>(p, smem, stream);
+  if (narrow_k(p.D))
+    return narrow_k(p.M) ? launch<MB, Rows4, Rows4>(p, smem, stream)
+                         : launch<MB, Rows4, Rows1>(p, smem, stream);
+  return narrow_k(p.M) ? launch<MB, Rows1, Rows4>(p, smem, stream)
+                       : launch<MB, Rows1, Rows1>(p, smem, stream);
 }
 
 }  // namespace step
@@ -652,18 +728,17 @@ CoopLaunch launch_config() {
 // ptrs, in order: x, wq, bq, wk, bk, wv, bv, wo, bo, s1, g1, w1, b1, w2,
 // b2, s2, g2, kv8, kvs, mask, y, row8, rowsc, qkv, pre, h, opart [H, B, D]
 // f32, apart [B * H * 16, 64] f32, arrive [B * H] int32 (zero before the
-// first launch; each launch leaves it zero) (29).  d = 768, m = 3072.
+// first launch; each launch leaves it zero) (29).  d = num_heads x 64, a
+// multiple of 128 up to 2,048; m a multiple of 128 up to 8,192.
 extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, int cache_len,
                                     int d, int m, int num_heads, int step, int write_offset,
                                     float eps, void* stream) {
   using namespace vt::step;
   using vt::bf16;
-  if (d != kD || m != kM || num_heads != kH || batch < 1 || batch > MAXB ||
-      cache_len > kMaxLp || write_offset + step >= cache_len)
+  if (d != num_heads * HD || d % 128 != 0 || d > kMaxD || m <= 0 || m % 128 != 0 ||
+      m > kMaxM || batch < 1 || batch > MAXB || cache_len > kMaxLp ||
+      write_offset + step >= cache_len)
     return (int)cudaErrorInvalidValue;
-  const bool small = batch <= 2;  // the fused decode's route: batch 1 and 2
-  const auto cfg = small ? launch_config<2>() : launch_config<MAXB>();
-  if (cfg.err != cudaSuccess) return (int)cfg.err;
   Params p;
   int i = 0;
   p.x = (const bf16*)ptrs[i++];
@@ -700,18 +775,14 @@ extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, 
   p.Lp = cache_len;
   p.step = step;
   p.write_offset = write_offset;
-  // key spans of a unit: the units' spans fill the grid at most once, so
-  // every block of a unit is resident when it waits for the others
-  const int units = batch * kH;
-  p.spans = cfg.grid / units < 1 ? 1 : (cfg.grid / units > kMaxSpans ? kMaxSpans : cfg.grid / units);
+  p.D = d;
+  p.M = m;
+  p.H = num_heads;
+  p.spans = 1;  // set by launch from the grid
   p.eps = eps;
   p.scale = 1.0f / sqrtf((float)HD);
-
-  const int smem = (2 * batch * d + batch * m + 2 * batch) * (int)sizeof(float);
-  void* args[] = {&p};
-  const void* kernel = small ? (const void*)fused_step_kernel<2> : (const void*)fused_step_kernel<MAXB>;
-  cudaError_t err =
-      cudaLaunchCooperativeKernel(kernel, cfg.grid, NT, args, smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const int smem = smem_bytes(batch, d, m);
+  const cudaStream_t st = (cudaStream_t)stream;
+  // the fused decode's route: batch 1 and 2
+  return (int)(batch <= 2 ? launch_forms<2>(p, smem, st) : launch_forms<MAXB>(p, smem, st));
 }

@@ -42,7 +42,7 @@
 namespace vt {
 namespace ptr {
 
-constexpr int kMaxChunks = 4;  // D <= 16 lanes x 16 bytes x 4 = 1024
+constexpr int kMaxChunks = 8;  // D <= 16 lanes x 16 bytes x 8 = 2048
 constexpr int kSpreadThreads = 64, kSpreadKh = 1;  // 4 keys a block
 constexpr int kStreamThreads = 128, kStreamKh = 4;  // 32 keys a block
 constexpr int kPerSM = 4;
@@ -176,7 +176,7 @@ void launch(const Plan& p, cudaStream_t stream, const float* q, const int8_t* k8
 }  // namespace vt
 
 // q [B, D] f32; k8 [B, N, D] int8; ks, mask [B, N] f32; out [B, N] f32;
-// D % 16 == 0 and D <= 1024; scale: 1 / sqrt(D) as the caller rounds it.
+// D % 16 == 0 and D <= 2048; scale: 1 / sqrt(D) as the caller rounds it.
 extern "C" int vt_ptr_scores_int8(const void* q, const void* k8, const void* ks, const void* mask,
                                   void* out, int batch, int n, int d, float scale, void* stream) {
   using namespace vt::ptr;
@@ -195,7 +195,11 @@ extern "C" int vt_ptr_scores_int8(const void* q, const void* k8, const void* ks,
     case 1: launch<1>(p, s, qp, kp, sp, mp, (float*)out, n, d, scale); break;
     case 2: launch<2>(p, s, qp, kp, sp, mp, (float*)out, n, d, scale); break;
     case 3: launch<3>(p, s, qp, kp, sp, mp, (float*)out, n, d, scale); break;
-    default: launch<4>(p, s, qp, kp, sp, mp, (float*)out, n, d, scale); break;
+    case 4: launch<4>(p, s, qp, kp, sp, mp, (float*)out, n, d, scale); break;
+    case 5: launch<5>(p, s, qp, kp, sp, mp, (float*)out, n, d, scale); break;
+    case 6: launch<6>(p, s, qp, kp, sp, mp, (float*)out, n, d, scale); break;
+    case 7: launch<7>(p, s, qp, kp, sp, mp, (float*)out, n, d, scale); break;
+    default: launch<8>(p, s, qp, kp, sp, mp, (float*)out, n, d, scale); break;
   }
   return (int)cudaGetLastError();
 }

@@ -2,17 +2,44 @@
 // eval block (fused_block.cu), the W8A8 block (fused_block_w8a8.cu, its
 // LayerNorms and x's quantization) and the training block (block_train.cu):
 // four-wide vector loads and stores, the erf gelu and its derivative, and
-// the LayerNorm of a 768-wide row held by one warp (a lane on four
-// consecutive columns in each of six 128-column groups).
+// the LayerNorm of a row of G x 128 columns held by one warp in registers
+// (a lane on four consecutive columns in each of G 128-column groups; the
+// main path's 768 is G = 6).  Every row pass is a template on G, and its
+// entry point picks the instantiation of the hidden width (by_row_groups):
+// any multiple of 128 up to kMaxRowGroups x 128 = 2,048.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace vt {
 namespace gemm {
 
-constexpr int RN = 768;            // the row width (the hidden size)
-constexpr int RGROUPS = RN / 128;  // a lane's four-column groups per row
+constexpr int kMaxRowGroups = 16;  // rows up to 2,048 wide
+
+// f(std::integral_constant<int, G>{}) with G = d / 128, d a multiple of 128
+// up to kMaxRowGroups x 128; an invalid value for any other d
+template <class F>
+inline cudaError_t by_row_groups(int d, F&& f) {
+  if (d <= 0 || d % 128 != 0 || d > 128 * kMaxRowGroups) return cudaErrorInvalidValue;
+  switch (d / 128) {
+#define VT_ROW_GROUPS(g) \
+  case g:                \
+    return f(std::integral_constant<int, g>{});
+    VT_ROW_GROUPS(1) VT_ROW_GROUPS(2) VT_ROW_GROUPS(3) VT_ROW_GROUPS(4)
+    VT_ROW_GROUPS(5) VT_ROW_GROUPS(6) VT_ROW_GROUPS(7) VT_ROW_GROUPS(8)
+    VT_ROW_GROUPS(9) VT_ROW_GROUPS(10) VT_ROW_GROUPS(11) VT_ROW_GROUPS(12)
+    VT_ROW_GROUPS(13) VT_ROW_GROUPS(14) VT_ROW_GROUPS(15) VT_ROW_GROUPS(16)
+#undef VT_ROW_GROUPS
+  }
+  return cudaErrorInvalidValue;
+}
+
+// a hidden width that the row passes take
+__host__ __device__ constexpr bool row_width_ok(int d) {
+  return d > 0 && d % 128 == 0 && d <= 128 * kMaxRowGroups;
+}
 
 // ---- small vector helpers -------------------------------------------------
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
@@ -48,39 +75,39 @@ __device__ __forceinline__ float gelu_erf_grad(float x) {
          x * expf(-0.5f * x * x) * 0.3989422804014327f;
 }
 
-// LayerNorm statistics of one row held as RGROUPS x 4 values per lane
+// LayerNorm statistics of one row held as G x 4 values per lane
 struct RowStats {
   float mu, inv;
 };
 
-__device__ __forceinline__ RowStats row_stats(const float x[RGROUPS][4], float eps) {
+template <int G>
+__device__ __forceinline__ RowStats row_stats(const float x[G][4], float eps) {
   float s = 0.f;
 #pragma unroll
-  for (int g = 0; g < RGROUPS; ++g)
+  for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int t = 0; t < 4; ++t) s += x[g][t];
-  const float mu = warp_sum(s) / RN;
+  const float mu = warp_sum(s) / (G * 128);
   float v = 0.f;
 #pragma unroll
-  for (int g = 0; g < RGROUPS; ++g)
+  for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       const float d = x[g][t] - mu;
       v += d * d;
     }
-  return {mu, rsqrtf(warp_sum(v) / RN + eps)};
+  return {mu, rsqrtf(warp_sum(v) / (G * 128) + eps)};
 }
 
 // the row's values (f32 or bf16 in memory) and their LayerNorm xhat, a
 // warp on the row; returns 1 / std
-template <class T>
-__device__ __forceinline__ float row_xhat(const T* x, int lane, float eps,
-                                          float xhat[RGROUPS][4]) {
+template <int G, class T>
+__device__ __forceinline__ float row_xhat(const T* x, int lane, float eps, float xhat[G][4]) {
 #pragma unroll
-  for (int q = 0; q < RGROUPS; ++q) load4(x + q * 128 + lane * 4, xhat[q]);
-  const RowStats st = row_stats(xhat, eps);
+  for (int q = 0; q < G; ++q) load4(x + q * 128 + lane * 4, xhat[q]);
+  const RowStats st = row_stats<G>(xhat, eps);
 #pragma unroll
-  for (int q = 0; q < RGROUPS; ++q)
+  for (int q = 0; q < G; ++q)
 #pragma unroll
     for (int t = 0; t < 4; ++t) xhat[q][t] = (xhat[q][t] - st.mu) * st.inv;
   return st.inv;

@@ -102,6 +102,28 @@ def t2s_production_config() -> Dict[str, Any]:
     }
 
 
+# bert-large-uncased's published widths (its config.json): hidden 1,024, 16
+# heads of 64, FFN 4,096, LayerNorm eps 1e-12
+BERT_LARGE = {"hidden_size": 1024, "num_attention_heads": 16, "intermediate_size": 4096,
+              "layer_norm_eps": 1e-12}
+
+
+def t2s_bert_large_config() -> Dict[str, Any]:
+    """t2s_production_config with every transformer stack at
+    bert-large-uncased's widths (BERT_LARGE): the same T2S, depths (3 / 2 /
+    3 text-BERT / QTV / MMT) and sequence (20 + 64 + 960, joint 1,152),
+    with the grounding's and the pointer net's widths at the stacks'
+    1,024."""
+    cfg = t2s_production_config()
+    for stack in ("text_bert", "translayers", "encoder", "mmt"):
+        cfg[stack] = {**cfg[stack], **BERT_LARGE}
+    d = BERT_LARGE["hidden_size"]
+    cfg["grounding"] = {**cfg["grounding"], "hidden_size": d}
+    cfg["classifier"] = {**cfg["classifier"],
+                         "ocr_ptr_net": {"hidden_size": d, "query_key_size": d}}
+    return cfg
+
+
 @registry.register_model("t2s")
 class T2S(JointQAModel):
     # the grounding mechanism; the ablations swap it (models/t2s_ablations.py)

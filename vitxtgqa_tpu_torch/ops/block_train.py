@@ -47,7 +47,8 @@ import torch
 from vitxtgqa_tpu_torch.ops import _build
 from vitxtgqa_tpu_torch.ops import dropout as D
 from vitxtgqa_tpu_torch.ops import gemm_sm90 as G
-from vitxtgqa_tpu_torch.ops.fused_block import LANE, check_tp_widths, gelu_erf, gemm_f32
+from vitxtgqa_tpu_torch.ops.fused_block import (LANE, check_hidden, check_tp_widths, gelu_erf,
+                                                gemm_f32)
 from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
 
 GRAD_NAMES = ("x_q", "ctx", "wo", "bo", "s1", "g1", "w1", "b1", "w2", "b2", "s2", "g2")
@@ -73,7 +74,7 @@ class BlockPlan(NamedTuple):
     w_floats: int     # f32 scratch of the weight-gradient partials (0 with one split)
 
 
-def launch_plan(rows: int, d: int = 768, m: int = 3072, dl: int = 0) -> BlockPlan:
+def launch_plan(rows: int, d: int, m: int, dl: int = 0) -> BlockPlan:
     """The backward's cut of its ``rows``: the row passes' grid (each
     block's warps take rows blockIdx * 8 + warp, then every row_blocks * 8
     further) and the weight gradients' split of the rows, with the scratch
@@ -94,7 +95,7 @@ def launch_plan(rows: int, d: int = 768, m: int = 3072, dl: int = 0) -> BlockPla
                      splits * (d * dl + 2 * m * d) if splits > 1 else 0)
 
 
-def gemm_launches(rows: int, d: int = 768, m: int = 3072):
+def gemm_launches(rows: int, d: int, m: int):
     """csrc/block_train.cu's GEMM launches (ops/gemm_sm90.py), in order:
     the forward's F1 ctx Wo^T, F3 xb W1^T, F4 h W2^T; the backward's B2
     dlin2 W2, B3 dpre W1, B5 dlin1 Wo and B6, the three weight gradients
@@ -106,7 +107,7 @@ def gemm_launches(rows: int, d: int = 768, m: int = 3072):
                      G.problem(d, m, rows, k_chunk), ragged_k=True))
 
 
-def tp_gemm_launches(rows: int, d: int = 768, dl: int = 384, ml: int = 1536):
+def tp_gemm_launches(rows: int, d: int, dl: int, ml: int):
     """The split forms' GEMM launches on a rank's shares, in order: the
     forward's F1 ctx_l Wo_l^T and F4 h_l W2_l^T into f32 partials, F3 xb
     W1_l^T; the backward's B2 dlin2 W2_l, B3 dpre_l W1_l into an f32
@@ -274,13 +275,15 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def check_widths(name: str, d: int, m: int) -> None:
-    """Raise unless csrc/block_train.cu takes these widths: hidden 768 (its
-    LayerNorm row passes) and an FFN width that its route admits, a
-    multiple of the narrow GEMM tile's 128 columns."""
-    if d != 768 or m <= 0 or m % G.NARROW_N:
+    """Raise unless csrc/block_train.cu takes these widths: what JAX's gate
+    block_bwd_kernel_ok routes to its kernel, a lane-aligned hidden width
+    (the LayerNorm row passes, up to fused_block.MAX_HIDDEN) and an FFN
+    width a multiple of the narrow GEMM tile's 128 columns."""
+    check_hidden(name, d)
+    if m <= 0 or m % G.NARROW_N:
         raise NotImplementedError(
-            f"{name} kernel: hidden 768 and an FFN width a multiple of {G.NARROW_N} (the "
-            f"narrow GEMM tile's columns) only, got d={d}, m={m}")
+            f"{name} kernel: an FFN width a multiple of {G.NARROW_N} (the narrow GEMM tile's "
+            f"columns), got d={d}, m={m}")
 
 
 def block_train_fwd(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate: float = 0.0,

@@ -30,7 +30,9 @@ from vitxtgqa_tpu_torch.ops.fused_block import fused_block_plain
 
 NEG = -1e30  # pallas_decode_step.py _NEG
 MAX_BATCH = 8  # the kernels hold at most 8 batch rows on chip
-STEP_WIDTHS = (768, 3072)  # csrc/fused_decode_step.cu: the MMT's hidden and FFN widths
+# csrc/fused_decode_step.cu kMaxD / kMaxM: the widest hidden and FFN widths
+# of the step kernel (each a multiple of 128; the hidden width H x 64)
+MAX_STEP_HIDDEN, MAX_STEP_FFN = 2048, 8192
 HEAD_DIM = 64
 MAX_CACHE = 1152  # cache slots of one step kernel launch (the exact serving sequence)
 MAX_SPANS = 16  # key spans of one (batch row, head) unit of the step kernel
@@ -91,6 +93,25 @@ def fused_decode_step_plain(x_t, stacks, kv8, kvs, key_mask, step: int,
     return xv[:, None, :], torch.stack(rows8), torch.stack(rowsc)
 
 
+def step_widths_ok(d: int, m: int) -> bool:
+    """Whether the step kernel takes hidden width d and FFN width m:
+    multiples of 128 up to MAX_STEP_HIDDEN / MAX_STEP_FFN."""
+    return 0 < d <= MAX_STEP_HIDDEN and d % 128 == 0 and 0 < m <= MAX_STEP_FFN and m % 128 == 0
+
+
+def check_step_shape(d: int, m: int, num_heads: int, hd_total: int, b: int, l_p: int) -> None:
+    """Raise unless csrc/fused_decode_step.cu takes this launch: H heads of
+    64 making the hidden width, widths step_widths_ok takes, at most
+    MAX_BATCH rows and MAX_CACHE slots (ROADMAP queue 2 item 3)."""
+    if (hd_total != d or d != num_heads * HEAD_DIM or not step_widths_ok(d, m)
+            or b > MAX_BATCH or l_p > MAX_CACHE):
+        raise NotImplementedError(
+            f"fused_decode_step kernel: H heads of {HEAD_DIM} == hidden, hidden and FFN "
+            f"widths multiples of 128 up to {MAX_STEP_HIDDEN} / {MAX_STEP_FFN}, batch <= "
+            f"{MAX_BATCH} and at most {MAX_CACHE} cache slots (ROADMAP queue 2 item 3); got "
+            f"hidden {d}, H*D {hd_total}, FFN {m}, batch {b}, cache {l_p}")
+
+
 def step_buffers(n_layers: int, b: int, d: int, m: int, device) -> dict:
     """The outputs and scratch of one fused_decode_step launch; allocate
     once per decode and pass to every step.  ``opart`` holds each head's
@@ -127,14 +148,7 @@ def fused_decode_step(x_t, stacks, kv8, kvs, key_mask, step: int,
     d = x_t.shape[-1]
     m = stacks["w1"].shape[1]
     check_head_dim("fused_decode_step", two_hd // 2, num_heads)
-    if (two_hd != 2 * d or (d, m) != STEP_WIDTHS or d != num_heads * HEAD_DIM
-            or b > MAX_BATCH or l_p > MAX_CACHE):
-        raise NotImplementedError(
-            f"fused_decode_step kernel: H*D == hidden, hidden and FFN widths "
-            f"{STEP_WIDTHS}, batch <= {MAX_BATCH} and at most {MAX_CACHE} cache "
-            f"slots; got hidden {d}, H*D {two_hd // 2}, FFN {m}, batch {b}, "
-            f"cache {l_p}"
-        )
+    check_step_shape(d, m, num_heads, two_hd // 2, b, l_p)
     if not 0 <= write_offset + int(step) < l_p:
         raise ValueError(f"decoder slot {write_offset + int(step)} outside the cache ({l_p})")
     dev = x_t.device

@@ -40,6 +40,9 @@ from vitxtgqa_tpu_torch.parallel import tensor_parallel as TP
 
 LANE = 128
 MIN_ROWS = 2048  # the JAX gate (pallas_ffn.ffn_kernel_ok)
+# csrc/row_ops.cuh kMaxRowGroups x 128: the widest row the blocks' LayerNorm
+# row passes hold (one instantiation a multiple of 128 up to it)
+MAX_HIDDEN = 2048
 
 
 def kernel_ok(d: int, m: int, rows: int) -> bool:
@@ -91,18 +94,27 @@ def fused_block_tanh_plain(res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2,
     return _block_plain(x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, eps, res)
 
 
-def check_widths(name: str, d: int, m: int) -> None:
-    """Raise unless csrc/fused_block.cu takes these widths: hidden 768 (its
-    LayerNorm row passes) and a lane-aligned FFN width (the narrow GEMM
-    tile's 128 columns)."""
-    if d != 768 or m <= 0 or m % LANE:
+def check_hidden(name: str, d: int) -> None:
+    """Raise unless the blocks' LayerNorm row passes take hidden width d: a
+    multiple of 128 up to MAX_HIDDEN (beyond it, ROADMAP queue 2 item 2)."""
+    if d <= 0 or d % LANE or d > MAX_HIDDEN:
         raise NotImplementedError(
-            f"{name} kernel: hidden 768 and a lane-aligned FFN width only, "
-            f"got d={d}, m={m}"
-        )
+            f"{name} kernel: a hidden width that is a multiple of {LANE} up to {MAX_HIDDEN} "
+            f"(ROADMAP queue 2 item 2), got d={d}")
 
 
-def tp_launch_plan(rows: int, d: int = 768, dl: int = 384, ml: int = 1536):
+def check_widths(name: str, d: int, m: int) -> None:
+    """Raise unless csrc/fused_block.cu (and csrc/fused_block_w8a8.cu) take
+    these widths: what JAX's gate ffn_kernel_ok routes to its kernel, a
+    lane-aligned hidden width (the LayerNorm row passes, up to MAX_HIDDEN)
+    and a lane-aligned FFN width (the narrow GEMM tile's 128 columns)."""
+    check_hidden(name, d)
+    if m <= 0 or m % LANE:
+        raise NotImplementedError(
+            f"{name} kernel: a lane-aligned FFN width, got d={d}, m={m}")
+
+
+def tp_launch_plan(rows: int, d: int, dl: int, ml: int):
     """The split form's three GEMM launches on a rank's shares (dl of the
     attention width, ml of the FFN): ctx_l Wo_l^T and h_l W2_l^T into f32
     [rows, d] partials, xb W1_l^T into h_l [rows, ml]; its two row passes
@@ -111,7 +123,7 @@ def tp_launch_plan(rows: int, d: int = 768, dl: int = 384, ml: int = 1536):
             G.launch(G.problem(rows, d, ml)))
 
 
-def launch_plan(rows: int, d: int = 768, m: int = 3072):
+def launch_plan(rows: int, d: int, m: int):
     """csrc/fused_block.cu's three GEMM launches (ops/gemm_sm90.py): ctx
     Wo^T and h W2^T into the f32 [rows, d] pre-norm rows, xb W1^T into h
     [rows, m]; its two LayerNorm row passes take every row, a warp a
@@ -120,7 +132,7 @@ def launch_plan(rows: int, d: int = 768, m: int = 3072):
             G.launch(G.problem(rows, d, m)))
 
 
-def w8a8_launch_plan(rows: int, d: int = 768, m: int = 3072):
+def w8a8_launch_plan(rows: int, d: int, m: int):
     """csrc/fused_block_w8a8.cu's three GEMM launches on the body's s8 form
     (ops/gemm_sm90.py: 128-column tiles, K steps of 128 int8): c8 Wo8^T into
     the f32 [rows, d] pre-norm rows, x8 W18^T into h [rows, m] (f32, and its
@@ -195,14 +207,15 @@ def fused_block_tanh(res, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
 
 
 def check_tp_widths(name: str, d: int, dl: int, ml: int) -> None:
-    """Raise unless the split form's launches take a rank's shares: hidden
-    768 and shares of the attention and FFN widths that are multiples of
-    the thin GEMM tile's 64 columns (a share of 192, model 4 of 768, takes
-    thin tiles)."""
-    if d != 768 or dl <= 0 or dl % G.THIN_N or ml <= 0 or ml % G.THIN_N:
+    """Raise unless the split form's launches take a rank's shares: a
+    hidden width the row passes take (check_hidden) and shares of the
+    attention and FFN widths that are multiples of the thin GEMM tile's 64
+    columns (a share of 192, model 4 of 768, takes thin tiles)."""
+    check_hidden(name, d)
+    if dl <= 0 or dl % G.THIN_N or ml <= 0 or ml % G.THIN_N:
         raise NotImplementedError(
-            f"{name} kernel: hidden 768 and a rank's attention and FFN shares multiples of "
-            f"{G.THIN_N} only, got d={d}, dl={dl}, ml={ml}")
+            f"{name} kernel: a rank's attention and FFN shares multiples of {G.THIN_N} only, "
+            f"got d={d}, dl={dl}, ml={ml}")
 
 
 def gemm_f32(a, w):
@@ -419,10 +432,7 @@ def fused_block_w8a8(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s, b1, w28, w2s,
         return fused_block_w8a8_plain(x_q, ctx, wo8, wos, bo, s1, g1, w18, w1s,
                                       b1, w28, w2s, b2, s2, g2, eps)
     d, m = x_q.shape[-1], w18.shape[0]
-    if d != 768 or m % LANE:
-        raise NotImplementedError(
-            f"fused_block_w8a8 kernel: hidden 768 and a lane-aligned FFN width "
-            f"only, got d={d}, m={m}")
+    check_widths("fused_block_w8a8", d, m)
     dev = x_q.device
     x2, c2 = x_q.reshape(-1, d), ctx.reshape(-1, d)
     rows = x2.shape[0]

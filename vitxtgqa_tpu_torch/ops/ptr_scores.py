@@ -24,6 +24,7 @@ SPREAD_THREADS, SPREAD_KH = 64, 1
 STREAM_THREADS, STREAM_KH = 128, 4
 PER_SM, SMS = 4, 132
 MAGIC = 8388736.0  # 2^23 + 128
+MAX_WIDTH = 2048  # csrc/ptr_scores.cu kMaxChunks: 16 lanes x 16 bytes x 8
 
 
 class PtrPlan(NamedTuple):
@@ -84,16 +85,22 @@ def ptr_scores_int8_plain(q, k8, ks, mask):
     return s * (ks.float() * scale)[:, None, :] + mask.float()[:, None, :]
 
 
+def width_ok(d: int) -> bool:
+    """Whether the kernel takes key width d: a multiple of 16 up to
+    MAX_WIDTH."""
+    return 0 < d <= MAX_WIDTH and d % 16 == 0
+
+
 def ptr_scores_int8(q, k8, ks, mask):
     """The scores of ptr_scores_int8_plain in one launch (one query row)."""
     if not q.is_cuda:
         return ptr_scores_int8_plain(q, k8, ks, mask)
     b, s_len, d = q.shape
     n = k8.shape[1]
-    if s_len != 1 or d % 16 or d > 1024:
+    if s_len != 1 or not width_ok(d):
         raise NotImplementedError(
             f"ptr_scores_int8 kernel: one query row and a width that is a multiple of 16 "
-            f"up to 1024, got q {tuple(q.shape)}")
+            f"up to {MAX_WIDTH} (ROADMAP queue 2 item 2), got q {tuple(q.shape)}")
     dev = q.device
     _build.require(q, "q", torch.float32, (b, 1, d), dev)
     _build.require(k8, "k8", torch.int8, (b, n, d), dev)
