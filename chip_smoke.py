@@ -313,7 +313,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
           x pp 2: full-eval, the step) and "tp4" (model 4: the step), each
           against one process, the launches as derived
           (expected_mesh_launches); (iii) entry.dryrun_multichip(4,
-          model=2, sp=2) and (4, model=2, pp=2); its seconds;
+          model=2, sp=2) (model 2 x pp 2's step: (ii)'s "tpp"); its
+          seconds;
        u. the widths the Pallas kernels take beyond the main path's: (i)
           the block kernels at (hidden, FFN) of WIDTH_CASES (512 / 2,048,
           1,024 / 4,096, 1,280 / 5,120, 1,024 / 3,200) on 2,304 rows,
@@ -2312,6 +2313,8 @@ def check_training_kernels(dev, record):
                     report(record, "flash_attention_merged_bwd", err,
                            scale=w.float().abs().max().item(),
                            extra=f" {name} rate={rate} [{b},1152,768] dec_len={dec_len}{label}")
+    # 8b. their ordered form, which slices o(iii), r(iv) and s(ii) run
+    details["ordered_bwd"] = check_ordered_bwd(record, q, k, v, g, mask_for(b, 12), h, seed)
 
     # 9. the flash dropout on uniform attention (q = k = 0, every key
     # allowed): with v[key, head * 64 + c] = (key % 64 == c) the output
@@ -2465,6 +2468,57 @@ def check_training_kernels(dev, record):
         dev, record, BLOCK_NARROW_ROWS, m=BLOCK_NARROW_M, timed_rows=(),
         keep=False))
     return details
+
+
+def check_ordered_bwd(record, q, k, v, g, km, h: int, seed) -> dict:
+    """The flash backwards' ordered form (ops/flash_attention.bwd_ordered:
+    dq summed over the key blocks in a fixed order, taken under PyTorch's
+    deterministic algorithms, as the runtime runs of slices o(iii), r(iv)
+    and s(ii) are): #1b on [B, 1152, 768] and #10b on the last half of the same
+    rows as a query shard, dec_len 12, dropout RATE, from the twins' out
+    and lse: two calls give the same bits, each within the twin's
+    tolerance; #1b's time beside the atomic form's."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+    from vitxtgqa_tpu_torch.run import deterministic_algorithms
+
+    b, l, _ = q.shape
+    rows = l // 2
+    out, lse = FA.flash_attention_merged_plain(q, k, v, km, 12, h, RATE, seed, return_lse=True)
+    qh, kh, vh, gh = (sdpa_split(t, h) for t in (q, k, v, g))
+    qs, gs = qh[:, :, rows:], gh[:, :, rows:]
+    s_out, s_lse = FA.flash_attention_plain(qs, kh, vh, km, 12, rows, RATE, seed,
+                                            return_lse=True)
+    calls = {
+        "flash_attention_merged_bwd": (
+            lambda: FA.flash_attention_merged_bwd(q, k, v, km, out, lse, g, 12, h, RATE, seed),
+            FA.flash_attention_merged_bwd_plain(q, k, v, km, out, lse, g, 12, h, RATE, seed),
+            f"[{b},{l},{h * 64}]"),
+        "flash_attention_bwd": (
+            lambda: FA.flash_attention_bwd(qs, kh, vh, km, s_out, s_lse, gs, 12, rows, RATE,
+                                           seed),
+            FA.flash_attention_bwd_plain(qs, kh, vh, km, s_out, s_lse, gs, 12, rows, RATE, seed),
+            f"[{b},{h},{rows},64] x [{b},{h},{l},64] row_offset={rows}")}
+    merged = calls["flash_attention_merged_bwd"][0]
+    atomic_ms = cuda_time_ms(merged)
+    with deterministic_algorithms(True):
+        got = {name: (fn(), fn()) for name, (fn, _, _) in calls.items()}
+        ordered_ms = cuda_time_ms(merged)
+    torch.cuda.synchronize()
+    for name, (one, two) in got.items():
+        _, want, shape = calls[name]
+        for part, a, w in zip(("dq", "dk", "dv"), one, want):
+            report(record, name, (a.float() - w.float()).abs().max().item(),
+                   scale=w.float().abs().max().item(),
+                   extra=f" {part} ordered rate={RATE} {shape} dec_len=12")
+        same = all(torch.equal(x, y) for x, y in zip(one, two))
+        print(f"kernel {name} ordered {shape}: two calls the same bits {same}", flush=True)
+        if not same:
+            fail(f"{name}: the ordered form gave other bits on a second call")
+    print(f"kernel flash_attention_merged_bwd [{b},{l},{h * 64}] rate={RATE}: ordered "
+          f"{ordered_ms:.4f} ms, atomic {atomic_ms:.4f} ms", flush=True)
+    return {"ordered_ms": ordered_ms, "atomic_ms": atomic_ms}
 
 
 def check_block_kernels(dev, record, cases, d: int = 768, m: int = 3072, timed_rows=(),
@@ -4738,6 +4792,9 @@ DP_FAULTS = ("local_counts", "unreduced", "first_rows")
 # the CLI phase: slice l's fixtures at a global batch of 4 (2 a rank), the
 # data assembled in 2 worker processes a rank
 DP_CLI_BATCH, DP_CLI_WORKERS = 4, 2
+# dp_cli's one-process runs by their options (``extra`` less its mesh
+# axes): deterministic, so o(iii)'s serves r(iv) and s(ii) too
+ONE_PROCESS_CLI = {}
 # a dry run's global batch (the CPU, tiny widths)
 DP_DRY_BATCH = 4
 
@@ -5021,10 +5078,15 @@ def dp_cli(card: str, extra=(), timeout: float = 600.0, ranks: int = DP_RANKS,
     distributed_init=True`` on slice l's fixtures: configs/t2s_abinet.yml,
     train+inference with EvalAI predictions, RUNTIME_STEPS iterations at
     the global batch DP_CLI_BATCH, every dropout 0, DP_CLI_WORKERS worker
-    processes a rank (``extra``: more options, a dry run's or slice r's
-    mesh); the same through run() in this process (``extra`` less its mesh
-    axes).  Each iteration's loss within RUNTIME_LOSS_REL_TOL of the
-    one-process run's; one log file, ckpt/best and ckpt/final written by a
+    processes a rank, ``training_parameters.deterministic=True``
+    (``extra``: more options, a dry run's or slice r's mesh); the same
+    through run() in this process (``extra`` less its mesh axes; once a
+    set of options, ONE_PROCESS_CLI).  Both runs deterministic (the flash backward's ordered dq): with dq summed
+    by atomics the one-process run's own loss moved by up to 5e-3 from one
+    run to the next at the third iteration, as far as the limit, so each
+    side is made to repeat before the two are compared.
+    Each iteration's loss within RUNTIME_LOSS_REL_TOL of the one-process
+    run's; one log file, ckpt/best and ckpt/final written by a
     world of ``ranks``; the test report lists each test question once; no
     process of the run left behind.  With ``reload`` (slice s) a trainer
     in this process (no mesh) then restores ckpt/final: the whole model
@@ -5044,11 +5106,15 @@ def dp_cli(card: str, extra=(), timeout: float = 600.0, ranks: int = DP_RANKS,
                   evalai_inference=True)
         argv = lambda save: (runtime_argv("t2s_abinet.yml", "train+inference", fixroot,
                                           os.path.join(tmp, save), **tp)
-                             + dp_dropout_opts() + list(extra))
-        one = run([o for o in argv("one") if ".tpu.mesh." not in o])
-        want = list(one.meter["train/total_loss"].series)
-        questions = len(one.datasets["test"])
-        del one
+                             + dp_dropout_opts() + ["training_parameters.deterministic=True"]
+                             + list(extra))
+        key = tuple(o for o in extra if ".tpu.mesh." not in o)
+        if key not in ONE_PROCESS_CLI:
+            one = run([o for o in argv("one") if ".tpu.mesh." not in o])
+            ONE_PROCESS_CLI[key] = (list(one.meter["train/total_loss"].series),
+                                    len(one.datasets["test"]))
+            del one
+        want, questions = ONE_PROCESS_CLI[key]
         tag = uuid.uuid4().hex
         env = dict(os.environ, CHIP_SMOKE_DP_TAG=tag,
                    PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -7001,8 +7067,8 @@ def tp_mesh_slice(record, card, dry: bool = False) -> dict:
     the split forms inside the stages), model 4 (the step through the
     split forms), each against one process, the launches as derived
     (expected_mesh_launches) into the record; (iii)
-    entry.dryrun_multichip(4, model=2, sp=2) and (4, model=2, pp=2).  A dry
-    run (the CPU) runs (ii) only."""
+    entry.dryrun_multichip(4, model=2, sp=2) (model 2 x pp 2's step runs
+    in (ii)'s plan tpp).  A dry run (the CPU) runs (ii) only."""
     import torch
 
     t0 = time.perf_counter()
@@ -7022,11 +7088,10 @@ def tp_mesh_slice(record, card, dry: bool = False) -> dict:
     if not dry:
         from vitxtgqa_tpu_torch.entry import dryrun_multichip
 
-        for axis in ("sp", "pp"):
-            t = time.perf_counter()
-            out[f"dryrun_multichip_4_model2_{axis}2"] = dryrun_multichip(4, model=2, **{axis: 2})
-            print(f"slice t(iii): entry.dryrun_multichip(4, model=2, {axis}=2) in "
-                  f"{time.perf_counter() - t:.1f} s; card {card}", flush=True)
+        t = time.perf_counter()
+        out["dryrun_multichip_4_model2_sp2"] = dryrun_multichip(4, model=2, sp=2)
+        print(f"slice t(iii): entry.dryrun_multichip(4, model=2, sp=2) in "
+              f"{time.perf_counter() - t:.1f} s; card {card}", flush=True)
     out["wall_s"] = time.perf_counter() - t0
     print(f"slice t: done in {out['wall_s']:.1f} s", flush=True)
     return out

@@ -8,24 +8,26 @@
 
 // q, k, v, out, dout, dq, dk, dv [B, L, H*64] bf16; key_mask [B, L] f32;
 // lse [B, H, L] f32 from the forward; scratch: f32 of B * H *
-// round_up(L, 64) * 66 (bwd_params); seed: int64 [1] on the device, or
-// null for no dropout.
+// round_up(L, 64) * (64 * parts + 2), parts = bwd_parts(L, ordered)
+// (bwd_params); seed: int64 [1] on the device, or null for no dropout;
+// ordered: dq summed over the key blocks in a fixed order (1) or by
+// atomics (0).
 extern "C" int vt_flash_attention_merged_bwd(const void* q, const void* k, const void* v,
                                              const void* key_mask, const void* out,
                                              const void* dout, const void* lse, void* scratch,
                                              void* dq, void* dk, void* dv, const void* seed,
                                              int batch, int seq_len, int num_heads,
                                              int head_dim, int dec_len, int head_offset,
-                                             unsigned int threshold,
+                                             int ordered, unsigned int threshold,
                                              float keep_scale, void* stream) {
   using namespace vt::flash;
   if (head_dim != HD || batch <= 0 || num_heads <= 0 || seq_len <= 0 || dec_len < 0 ||
-      dec_len > seq_len || head_offset < 0)
+      dec_len > seq_len || head_offset < 0 || (ordered != 0 && ordered != 1))
     return (int)cudaErrorInvalidValue;
   Geom g = merged_geom(seq_len, num_heads);
   g.head_offset = head_offset;
   const BwdParams p = bwd_params(q, k, v, key_mask, out, dout, lse, scratch, dq, dk, dv, seed,
-                                 g, batch, num_heads, dec_len, threshold, keep_scale);
+                                 g, batch, num_heads, dec_len, ordered, threshold, keep_scale);
   return launch_flash_bwd<vt::bf16>(p, batch, stream);
 }
 
@@ -34,24 +36,26 @@ extern "C" int vt_flash_attention_merged_bwd(const void* q, const void* k, const
 // head, row) element strides (strides: 24 int64, q, k, v, out, dout, dq,
 // dk, dv), the last dimension contiguous and the rows 16-byte aligned;
 // key_mask [B, Lk] f32; lse [B, H, Lq] f32 from the forward; scratch: f32
-// of B * H * round_up(Lq, 64) * 66; row_offset, seed, threshold,
-// keep_scale as the forward's.
+// of B * H * round_up(Lq, 64) * (64 * bwd_parts(Lk, ordered) + 2);
+// row_offset, seed, threshold, keep_scale as the forward's; ordered as the
+// merged form's.
 extern "C" int vt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* key_mask, const void* out, const void* dout,
                                       const void* lse, void* scratch, void* dq, void* dk,
                                       void* dv, const void* seed, const void* strides, int batch,
                                       int num_heads, int len_q, int len_k, int head_dim,
-                                      int dec_len, int row_offset, unsigned int threshold,
+                                      int dec_len, int row_offset, int ordered,
+                                      unsigned int threshold,
                                       float keep_scale, void* stream) {
   using namespace vt::flash;
   if (head_dim != HD || batch <= 0 || num_heads <= 0 || len_q <= 0 || len_k <= 0 ||
-      dec_len < 0 || dec_len > len_k || row_offset < 0)
+      dec_len < 0 || dec_len > len_k || row_offset < 0 || (ordered != 0 && ordered != 1))
     return (int)cudaErrorInvalidValue;
   Geom g = merged_geom(len_k, num_heads);
   read_strides(g, (const long long*)strides, 8);
   g.Lq = len_q;
   g.row_offset = row_offset;
   const BwdParams p = bwd_params(q, k, v, key_mask, out, dout, lse, scratch, dq, dk, dv, seed, g,
-                                 batch, num_heads, dec_len, threshold, keep_scale);
+                                 batch, num_heads, dec_len, ordered, threshold, keep_scale);
   return launch_flash_bwd<float>(p, batch, stream);
 }

@@ -70,14 +70,19 @@
 //       in a swizzled tile, async-proxy fence and a barrier before the
 //       product), added into the f32 accumulator with vector atomicAdd
 //       (float2).  The order of those sums changes from run to run, so
-//       dq's last bits may too (dk and dv are deterministic).
+//       dq's last bits may too (dk and dv are deterministic).  The ordered
+//       form (parts > 1, taken under PyTorch's deterministic algorithms)
+//       stores each key block's dQ tile into a slice of its own instead,
+//       and launch 3 sums the slices in key order: the same bits every
+//       run, for parts x the accumulator's scratch and its traffic.
 //     dK * scale and dV leave from registers at the end: bf16 (#1b) or f32
 //     (#10b).  Five products per pair, one Philox evaluation per four
 //     elements: in the S^T layout a four-key group of one row lies on the
 //     four lanes lane / 4 = 4g .. 4g + 3 that share lane % 4; each of them
 //     evaluates one of the four groups of its (8-row chunk) and they
 //     exchange the words by three xor shuffles.
-//  3. flash_bwd_dq_kernel: dq = bf16(acc * scale) through dq's strides.
+//  3. flash_bwd_dq_kernel: dq = bf16(acc * scale) through dq's strides
+//     (the ordered form: acc = the key blocks' slices summed in order).
 // The form was chosen by measurement on the H100 (PERF.md section 6; the
 // sweep was removed once the choice was made): against 128 keys on two
 // warpgroups sharing each Q / dO stage (their dQ partials summed in shared
@@ -126,7 +131,7 @@ struct BwdParams {
   const bf16* dout;
   const float* key_mask;  // [B, Lk]
   const float* lse;       // [B, H, Lq] from the forward
-  float* acc;             // scratch [B, H, lq_pad, 64]: dq sums
+  float* acc;             // scratch [parts, B, H, lq_pad, 64]: dq sums
   float* di;              // scratch [B, H, lq_pad]: D_i
   float* lse2;            // scratch [B, H, lq_pad]: row_lse * log2 e
   bf16* dq;
@@ -134,19 +139,27 @@ struct BwdParams {
   void* dv;
   Geom g;
   int heads, lq_pad, l_pad, dec_len;
+  int parts;              // 1: atomics; else one slice a key block (ordered)
+  size_t part_stride;     // floats between two slices of acc
   const int64_t* seed;    // dropout seed on the device, or null
   uint32_t threshold;
   float keep_scale;
 };
 
-// the parameters shared by both entry points; scratch: f32, [B, H, lq_pad,
-// 64] dq sums, then [B, H, lq_pad] D_i, then [B, H, lq_pad] base-2 lse,
-// with lq_pad = round_up(Lq, 64)
+// the number of dq slices of the scratch: 1 (atomics), or with `ordered`
+// one a key block
+inline int bwd_parts(int len_k, int ordered) {
+  return ordered ? (len_k + kBwdKeys - 1) / kBwdKeys : 1;
+}
+
+// the parameters shared by both entry points; scratch: f32, parts x [B, H,
+// lq_pad, 64] dq sums, then [B, H, lq_pad] D_i, then [B, H, lq_pad] base-2
+// lse, with lq_pad = round_up(Lq, 64) and parts = bwd_parts(Lk, ordered)
 inline BwdParams bwd_params(const void* q, const void* k, const void* v, const void* key_mask,
                             const void* out, const void* dout, const void* lse, void* scratch,
                             void* dq, void* dk, void* dv, const void* seed, const Geom& g,
-                            int batch, int num_heads, int dec_len, unsigned int threshold,
-                            float keep_scale) {
+                            int batch, int num_heads, int dec_len, int ordered,
+                            unsigned int threshold, float keep_scale) {
   BwdParams p = {};
   p.q = (const bf16*)q;
   p.k = (const bf16*)k;
@@ -161,8 +174,10 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v, const v
   p.l_pad = (g.Lk + 127) / 128 * 128;
   p.dec_len = dec_len;
   const size_t stats = (size_t)batch * num_heads * p.lq_pad;
+  p.parts = bwd_parts(g.Lk, ordered);
+  p.part_stride = stats * HD;
   p.acc = (float*)scratch;
-  p.di = p.acc + stats * HD;
+  p.di = p.acc + p.parts * p.part_stride;
   p.lse2 = p.di + stats;
   p.dq = (bf16*)dq;
   p.dk = dk;
@@ -173,8 +188,9 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v, const v
   return p;
 }
 
-// 1. D_i, the base-2 lse and the zeroed dq accumulator: eight threads a
-// row (one 16-byte chunk of dO and O each), 32 rows a block
+// 1. D_i, the base-2 lse and the zeroed dq accumulator (each slice of
+// it): eight threads a row (one 16-byte chunk of dO and O each), 32 rows a
+// block
 static __global__ void __launch_bounds__(256) flash_bwd_pre_kernel(const BwdParams p) {
   const Geom& g = p.g;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -195,15 +211,18 @@ static __global__ void __launch_bounds__(256) flash_bwd_pre_kernel(const BwdPara
   }
 #pragma unroll
   for (int off = 4; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-  float4* acc = reinterpret_cast<float4*>(p.acc + stat * HD + c * 8);
-  acc[0] = acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < p.parts; ++s) {
+    float4* acc = reinterpret_cast<float4*>(p.acc + s * p.part_stride + stat * HD + c * 8);
+    acc[0] = acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   if (c == 0) {
     p.di[stat] = d;
     p.lse2[stat] = l2;
   }
 }
 
-// 3. dq = bf16(acc * scale), eight elements a thread
+// 3. dq = bf16(acc * scale), eight elements a thread; the ordered form
+// sums the slices in key-block order first
 static __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(const BwdParams p, int batch) {
   const Geom& g = p.g;
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
@@ -214,7 +233,13 @@ static __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(const BwdParam
   const int h = bh % p.heads, b = bh / p.heads;
   const float4* src = reinterpret_cast<const float4*>(p.acc + ((size_t)bh * p.lq_pad + row) * HD +
                                                       c * 8);
-  const float4 a0 = src[0], a1 = src[1];
+  float4 a0 = src[0], a1 = src[1];
+  for (int s = 1; s < p.parts; ++s) {
+    const float4* part = src + s * (p.part_stride / 4);
+    const float4 b0 = part[0], b1 = part[1];
+    a0 = make_float4(a0.x + b0.x, a0.y + b0.y, a0.z + b0.z, a0.w + b0.w);
+    a1 = make_float4(a1.x + b1.x, a1.y + b1.y, a1.z + b1.z, a1.w + b1.w);
+  }
   const float sc = 0.125f;  // 1 / sqrt(64)
   const uint4 out = make_uint4(sm90::pack_bf16(a0.x * sc, a0.y * sc),
                                sm90::pack_bf16(a0.z * sc, a0.w * sc),
@@ -477,13 +502,24 @@ __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
                    : "memory");
     fence_regs(dq);
     // dq[4j + 2hh + e] is (q row wrow + 8hh, column 8j + 2tq + e); the pad
-    // rows of the last tile add zeros into the scratch's padded rows
-    float* acc = p.acc + (stat + q0 + wrow) * HD + 2 * tq;
+    // rows of the last tile add zeros into the scratch's padded rows; the
+    // ordered form stores into this key block's own slice
+    if (p.parts > 1) {
+      float* part = p.acc + blockIdx.x * p.part_stride + (stat + q0 + wrow) * HD + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      atomicAdd(reinterpret_cast<float2*>(acc + 8 * j), make_float2(dq[4 * j], dq[4 * j + 1]));
-      atomicAdd(reinterpret_cast<float2*>(acc + 8 * HD + 8 * j),
-                make_float2(dq[4 * j + 2], dq[4 * j + 3]));
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<float2*>(part + 8 * j) = make_float2(dq[4 * j], dq[4 * j + 1]);
+        *reinterpret_cast<float2*>(part + 8 * HD + 8 * j) =
+            make_float2(dq[4 * j + 2], dq[4 * j + 3]);
+      }
+    } else {
+      float* acc = p.acc + (stat + q0 + wrow) * HD + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        atomicAdd(reinterpret_cast<float2*>(acc + 8 * j), make_float2(dq[4 * j], dq[4 * j + 1]));
+        atomicAdd(reinterpret_cast<float2*>(acc + 8 * HD + 8 * j),
+                  make_float2(dq[4 * j + 2], dq[4 * j + 3]));
+      }
     }
   }
   cp_async_wait<0>();

@@ -47,17 +47,17 @@ _SIGNATURES = {
     # heads, head_dim, dec_len, head_offset; threshold; keep_scale; stream
     "vt_flash_attention_merged": [_P] * 11 + [_I] * 6 + [_U, _F, _P],
     # q, k, v, key_mask, out, dout, lse, scratch, dq, dk, dv, seed; batch,
-    # seq_len, heads, head_dim, dec_len, head_offset; threshold; keep_scale;
-    # stream
-    "vt_flash_attention_merged_bwd": [_P] * 12 + [_I] * 6 + [_U, _F, _P],
+    # seq_len, heads, head_dim, dec_len, head_offset, ordered; threshold;
+    # keep_scale; stream
+    "vt_flash_attention_merged_bwd": [_P] * 12 + [_I] * 7 + [_U, _F, _P],
     # q, k, v, key_mask, out, lse, seed, strides (12 int64: q, k, v, out);
     # batch, heads, len_q, len_k, head_dim, dec_len, row_offset; threshold;
     # keep_scale; stream
     "vt_flash_attention": [_P] * 8 + [_I] * 7 + [_U, _F, _P],
     # q, k, v, key_mask, out, dout, lse, scratch, dq, dk, dv, seed, strides (24
     # int64: q, k, v, out, dout, dq, dk, dv); batch, heads, len_q, len_k,
-    # head_dim, dec_len, row_offset; threshold; keep_scale; stream
-    "vt_flash_attention_bwd": [_P] * 13 + [_I] * 7 + [_U, _F, _P],
+    # head_dim, dec_len, row_offset, ordered; threshold; keep_scale; stream
+    "vt_flash_attention_bwd": [_P] * 13 + [_I] * 8 + [_U, _F, _P],
     # 12 block operands, seed, mask_a_out, mask_f_out, y, x1h, pre1, h,
     # x2h, xb; rows, d, m; threshold; keep_scale, eps; stream
     "vt_block_train_fwd": [_P] * 21 + [_I] * 3 + [_U, _F, _F, _P],

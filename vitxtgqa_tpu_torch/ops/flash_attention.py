@@ -161,12 +161,27 @@ def _dropout_args(rate: float, seed):
     return seed, D.threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _bwd_scratch(b: int, h: int, lq: int, device) -> torch.Tensor:
+def bwd_ordered() -> bool:
+    """Whether the backward kernels sum dq over the key blocks in a fixed
+    order (csrc/flash_bwd.cuh, the ordered form: the same bits every run)
+    rather than by atomics: under PyTorch's deterministic algorithms
+    (torch.use_deterministic_algorithms), as PyTorch's own ops choose."""
+    return torch.are_deterministic_algorithms_enabled()
+
+
+def bwd_parts(lk: int, ordered: bool) -> int:
+    """The dq slices of the backward's scratch: one a block of 64 keys in
+    the ordered form, else 1 (csrc/flash_bwd.cuh bwd_parts)."""
+    return -(-lk // 64) if ordered else 1
+
+
+def _bwd_scratch(b: int, h: int, lq: int, lk: int, ordered: bool, device) -> torch.Tensor:
     """The backward kernel's f32 scratch (csrc/flash_bwd.cuh bwd_params):
     per (batch, head) and query row, padded to a multiple of 64 rows, the
-    64 dq sums, D_i and the base-2 lse."""
+    64 dq sums of each slice (bwd_parts), D_i and the base-2 lse."""
     lq_pad = -(-lq // 64) * 64
-    return torch.empty(b * h * lq_pad * 66, dtype=torch.float32, device=device)
+    return torch.empty(b * h * lq_pad * (64 * bwd_parts(lk, ordered) + 2), dtype=torch.float32,
+                       device=device)
 
 
 def _check_geometry(q, num_heads: int, dec_len: int, name: str):
@@ -249,7 +264,8 @@ def flash_attention_merged_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, num
                                dropout_rate: float = 0.0, seed=None, head_offset: int = 0):
     """dq, dk, dv (bf16 on CUDA) for the cotangent ``g`` of the forward's
     ``out``, from its saved ``lse``; the dropout mask is regenerated from
-    the forward's rate, seed and head offset."""
+    the forward's rate, seed and head offset.  Under PyTorch's
+    deterministic algorithms dq is summed in a fixed order (bwd_ordered)."""
     if not q.is_cuda:
         return flash_attention_merged_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len,
                                                 num_heads, dropout_rate, seed, head_offset)
@@ -261,14 +277,16 @@ def flash_attention_merged_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, num
     seed, thr, ks = _dropout_args(dropout_rate, seed)
     if seed is not None:
         _build.require(seed, "seed", torch.int64, (1,), q.device)
-    scratch = _bwd_scratch(b, num_heads, l, q.device)
+    ordered = bwd_ordered()
+    scratch = _bwd_scratch(b, num_heads, l, l, ordered, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _build.lib().vt_flash_attention_merged_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if seed is None else seed.data_ptr(), b, l, num_heads,
-            hd_total // num_heads, dec_len, head_offset, thr, ks, _build.stream_of(q),
+            hd_total // num_heads, dec_len, head_offset, int(ordered), thr, ks,
+            _build.stream_of(q),
         )
     _build.check(err, "flash_attention_merged_bwd")
     _build.LAUNCHES["flash_attention_merged_bwd"] += 1
@@ -408,7 +426,8 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, row_offset
     """dq [B, H, Lq, 64] bf16 and the f32 partial dk, dv [B, H, Lk, 64] of
     flash_attention for the cotangent ``g`` of its ``out``, from the saved
     ``lse``; q / k / v / out / g through their strides; the dropout mask is
-    regenerated from the forward's rate, seed and row offset."""
+    regenerated from the forward's rate, seed and row offset; dq in a
+    fixed order as flash_attention_merged_bwd's."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len, row_offset,
                                          dropout_rate, seed)
@@ -427,14 +446,15 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, row_offset
     dk, dv = (_split_empty(b, lk, h, d, torch.float32, dev) for _ in range(2))
     for t in (dq, dk, dv):
         strides += list(t.stride()[:3])
-    scratch = _bwd_scratch(b, h, lq, dev)
+    ordered = bwd_ordered()
+    scratch = _bwd_scratch(b, h, lq, lk, ordered, dev)
     with torch.cuda.device(dev):
         err = _build.lib().vt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if seed is None else seed.data_ptr(),
-            (ctypes.c_longlong * 24)(*strides), b, h, lq, lk, d, dec_len, row_offset, thr, ks,
-            _build.stream_of(q))
+            (ctypes.c_longlong * 24)(*strides), b, h, lq, lk, d, dec_len, row_offset,
+            int(ordered), thr, ks, _build.stream_of(q))
     _build.check(err, "flash_attention_bwd")
     _build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

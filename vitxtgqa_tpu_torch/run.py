@@ -29,10 +29,17 @@ it never falls back to one process:
     python -m torch.distributed.run --nproc_per_node 4 -m vitxtgqa_tpu_torch.run \
         --config ... training_parameters.distributed_init=True \
         training_parameters.tpu.mesh.model=2          # data x model = 2 x 2
+
+``training_parameters.deterministic: true`` runs the whole call under
+PyTorch's deterministic algorithms (``deterministic_algorithms``), which
+the port's kernels honour too: the flash backward (#1b, #10b) then sums
+dq over its key blocks in a fixed order instead of by atomics, so that a
+run repeats bit for bit and two runs can be compared step by step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import os
 
@@ -68,6 +75,27 @@ def setup_imports() -> None:
         importlib.import_module(mod)
 
 
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool):
+    """With ``on``: torch.use_deterministic_algorithms(True) for the block
+    (cuBLAS's workspace fixed, as that asks, where the environment does not
+    set it), the previous setting restored after it."""
+    if not on:
+        yield
+        return
+    was = torch.are_deterministic_algorithms_enabled()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if env is None:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
 def run(argv=None):
     setup_imports()
     args = get_parser().parse_args(argv)
@@ -86,20 +114,21 @@ def run(argv=None):
             init_world(cuda and torch.cuda.is_available())
             joined = True
     try:
-        trainer_cls = registry.get_trainer_class(getattr(tp, "trainer", "base_trainer"))
-        trainer = trainer_cls(cfg)
-        trainer.load()
-        try:
-            trainer.train()
-        except Exception:
-            # log the traceback to the run's log file before re-raising
-            # (reference: tools/run.py:75-84)
-            import traceback
+        with deterministic_algorithms(bool(getattr(tp, "deterministic", False))):
+            trainer_cls = registry.get_trainer_class(getattr(tp, "trainer", "base_trainer"))
+            trainer = trainer_cls(cfg)
+            trainer.load()
+            try:
+                trainer.train()
+            except Exception:
+                # log the traceback to the run's log file before re-raising
+                # (reference: tools/run.py:75-84)
+                import traceback
 
-            trainer.logger.write(traceback.format_exc(), "error")
-            raise
-        finally:
-            trainer.close()
+                trainer.logger.write(traceback.format_exc(), "error")
+                raise
+            finally:
+                trainer.close()
     finally:
         if joined:
             close_world()
