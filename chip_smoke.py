@@ -4,8 +4,8 @@ its ViT frame-feature path, its sequence-parallel path, its runtime
 (train, validate, checkpoint, resume, predict), the zoo's T2S-family
 models, its selector baselines (TranSTR, MIST), its data parallelism, its
 serving demo and raw-video pipeline, the legacy image-VQA zoo and the
-mesh's sp, pp and model axes, and T2S at bert-large-uncased's widths,
-once on one NVIDIA GPU.
+mesh's sp, pp and model axes, T2S at bert-large-uncased's and at
+MiniLM-L12-H384's widths and ViT-H/14, once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -261,10 +261,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
           (the config's optimizer and schedule, dropout on), the eval
           forward's ms and the peak memory; (ii) run() on synthetic VQA2 /
           VizWiz / TextVQA trees it writes (utils/legacy_fixtures, 8
-          worker processes): pythia on vqa2 and LoRRA on textvqa (3
-          iterations, validation, EvalAI records of val and test), pythia
-          on vqa2,vizwiz (6 iterations), its dataset schedule against the
-          port's MultiDataset on the same seed;
+          worker processes): LoRRA on textvqa (3 iterations, validation,
+          EvalAI records of val and test), pythia on vqa2,vizwiz (6
+          iterations), its dataset schedule against the port's
+          MultiDataset on the same seed;
        r. the mesh's sp and pp axes (parallel/mesh.build_mesh,
           parallel/pipeline.py) on gloo ranks sharing the one card
           (torch.multiprocessing.spawn; the kernels built before the ranks
@@ -276,7 +276,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
           at the global batch 48 against the one-process step at slice e's
           limits, the ranks' parameters equal after it, and each planted
           fault (MESH_FAULTS: a stage skipped, every gradient summed over
-          the stages) outside the limits; then one world of four ranks:
+          the stages) outside the limits; then one world of four ranks,
+          which also runs slice t's plans (ii) after these:
           (ii) data 2 x pp 2 (the QTV pipelined on each data row): the
           same full-eval check; (iii) data x sp = 2 x 2: the step at 48,
           24 rows a data row (#10 / #10b in the QTV / MMT attentions),
@@ -306,15 +307,13 @@ Phases (each prints one or more lines; any failure exits non-zero):
           process the split forms at model 4 (check_tp4_blocks: 192
           attention columns a rank, #9b's dctx and dWo on the GEMM body's
           64-column tiles), their times beside model 2's, and #1 / #1b on
-          a model-4 rank's 3 heads; (ii) one world of four gloo ranks
+          a model-4 rank's 3 heads; (ii) slice r's world of four gloo ranks
           sharing the card running the plans "tsp" (model 2 x sp 2:
           full-eval at 6 and the step at TP_TRAIN_BATCH, #10 / #10b on a
           rank's 6 heads, VOCAB_FAULTS outside the limits), "tpp" (model 2
           x pp 2: full-eval, the step) and "tp4" (model 4: the step), each
           against one process, the launches as derived
-          (expected_mesh_launches); (iii) entry.dryrun_multichip(4,
-          model=2, sp=2) (model 2 x pp 2's step: (ii)'s "tpp"); its
-          seconds;
+          (expected_mesh_launches); its seconds;
        u. the widths the Pallas kernels take beyond the main path's: (i)
           the block kernels at (hidden, FFN) of WIDTH_CASES (512 / 2,048,
           1,024 / 4,096, 1,280 / 5,120, 1,024 / 3,200) on 2,304 rows,
@@ -330,7 +329,22 @@ Phases (each prints one or more lines; any failure exits non-zero):
           W8A8), 1 and 2 (fused decode), the preset at 2 and 8, full-eval
           at 8, the module entry points, a training step at 4 against
           plain with the planted faults and 4 Adam steps at 48, at slices
-          a-h's limits, the launches as derived.
+          a-h's limits, the launches as derived;
+       v. every head width the attention kernels take (a multiple of 8 up
+          to 128) and #5's caches past 1,152 slots: (i) #1 (eval, dropout
+          + lse, the causal tail, a batch row with no valid key), #1b
+          (atomic and ordered), #10 / #10b at a row offset, #11, #14 (no
+          bias, per-row, key-mask and prefix-LM bias), #4 / #7 at [8,
+          1,152] at head widths 32, 72, 80, 128 and 64, each against its
+          twin and beside a planted fault (a head row's last 8-column chunk
+          dropped) that its tolerance rejects, timed at 32, 80 and 128
+          beside SDPA; #5 at 12 x 32 and 8 x 128 (batch 1, 2, 8), 16 x 72
+          and 16 x 80 (batch 1), and at 768 / 3,072 over 2,048 and 4,096
+          slots;
+          (ii) T2S at MiniLM-L12-H384's widths (t2s_minilm_config: 384, 12
+          heads of 32, FFN 1,536) through slice u(ii)'s paths; (iii)
+          ViT-H/14 (VIT_H_14: 1,280 / 5,120, 16 heads of 80, 32 layers)
+          extracting 64 frames against the plain versions, its frames/s.
      Each phase prints its seconds ("phase NAME: S s"), and after the
      slices one line holds them all ("phases (s): {...}").
      a-c, f-g, m, n and p serve behind a ServingEngine; each slice checks its
@@ -434,10 +448,10 @@ RATE, KEEP_TOL, MIN_DRAWS = 0.1, 1e-3, 10 ** 7
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 PEAK_INT8_OPS, PEAK_F32_FLOPS = 1979e12, 67e12
 ROW8_TOL, ROWSC_REL_TOL = 1, 1e-2
-# ... and at most half of the 64 values of any head's K or V slice of a
-# quantized row moved (the kernel on the H100 read at most 11 at batch 8;
-# a whole head moved is a kernel fault, not rounding)
-ROW8_HEAD_MOVED = 32
+# ... and at most half of the values of any head's K or V slice of a
+# quantized row moved (the kernel on the H100 read at most 11 of 64 at
+# batch 8; a whole head moved is a kernel fault, not rounding)
+ROW8_HEAD_MOVED = 0.5
 # the decode-step check plants its attention scores (decode_step_cache), per
 # head after the 1/sqrt(64) scale: two allowed encoder keys and, from step
 # 1, the decoder key before the current slot score PLANTED; the current
@@ -477,11 +491,11 @@ SOURCE = {
     "fused_block_tanh": "vitxtgqa_tpu_torch/csrc/fused_block.cu",
     "decode_attention_int8": "vitxtgqa_tpu_torch/csrc/decode_attention.cu",
     "decode_attention": "vitxtgqa_tpu_torch/csrc/decode_attention.cu",
-    "fused_decode_step": "vitxtgqa_tpu_torch/csrc/fused_decode_step.cu",
+    "fused_decode_step": "vitxtgqa_tpu_torch/csrc/fused_decode_step.cuh",
     "fused_epilogue": "vitxtgqa_tpu_torch/csrc/fused_epilogue.cu",
     "flash_attention_merged_bwd": "vitxtgqa_tpu_torch/csrc/flash_bwd.cuh",
     "block_train_fwd": "vitxtgqa_tpu_torch/csrc/block_train.cu",
-    "block_train_bwd": "vitxtgqa_tpu_torch/csrc/block_train.cu",
+    "block_train_bwd": "vitxtgqa_tpu_torch/csrc/block_train_bwd.cu",
     "fused_block_w8a8": "vitxtgqa_tpu_torch/csrc/fused_block_w8a8.cu",
     "flash_attention_merged_q8": "vitxtgqa_tpu_torch/csrc/flash_attention.cu",
     "ptr_scores_int8": "vitxtgqa_tpu_torch/csrc/ptr_scores.cu",
@@ -492,7 +506,7 @@ SOURCE = {
     "fused_block_tp": "vitxtgqa_tpu_torch/csrc/fused_block.cu",
     "fused_block_tanh_tp": "vitxtgqa_tpu_torch/csrc/fused_block.cu",
     "block_train_fwd_tp": "vitxtgqa_tpu_torch/csrc/block_train.cu",
-    "block_train_bwd_tp": "vitxtgqa_tpu_torch/csrc/block_train.cu",
+    "block_train_bwd_tp": "vitxtgqa_tpu_torch/csrc/block_train_bwd.cu",
 }
 # slice, kernels vs plain on the card: greedy tokens may diverge where two
 # scores tie within bf16 noise, and diverge for the rest of the sequence
@@ -1079,19 +1093,20 @@ def attn_pairs(key_mask, dec_len: int, off: int = 0, rows=None) -> int:
     return int(allowed.sum().item()) * (rows if allowed.shape[2] == 1 else 1)
 
 
-def flash_bound(q, key_mask, dec_len: int, lse: bool = False):
+def flash_bound(q, key_mask, dec_len: int, lse: bool = False, heads: int = 12):
     """q, k, v read, out (and the lse) written; 2 products of 2*HD per
-    allowed pair."""
+    allowed pair (HD: the H*D columns of q, D the head width, not a
+    kernel tier's padded width)."""
     b, l, hd = q.shape
-    return bound_of(4 * nbytes(q) + nbytes(key_mask) + (b * 12 * l * 4 if lse else 0),
+    return bound_of(4 * nbytes(q) + nbytes(key_mask) + (b * heads * l * 4 if lse else 0),
                     4 * hd * attn_pairs(key_mask, dec_len))
 
 
-def flash_bwd_bound(q, key_mask, dec_len: int):
+def flash_bwd_bound(q, key_mask, dec_len: int, heads: int = 12):
     """q, k, v, out, dO and the lse read, dq, dk, dv written; 5 products
     (S, dP, dV, dQ, dK) of 2*HD per allowed pair."""
     b, l, hd = q.shape
-    return bound_of(8 * nbytes(q) + nbytes(key_mask) + b * 12 * l * 4,
+    return bound_of(8 * nbytes(q) + nbytes(key_mask) + b * heads * l * 4,
                     10 * hd * attn_pairs(key_mask, dec_len))
 
 
@@ -1198,24 +1213,26 @@ def row8_head_moved(got, want, num_heads: int = 12) -> int:
 
 
 def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: int,
-                      keep: bool, timed: bool = True):
+                      keep: bool, timed: bool = True, num_heads=None, into=None):
     """The decode step over 3 MMT layers at each batch, steps 0 and 11, its
     attention planted (decode_step_cache) over the cache length of
     ``mask``: y against the tolerance, the quantized rows within one int8
-    step and 1% of the scale, and at most ROW8_HEAD_MOVED values of any
+    step and 1% of the scale, and at most the ROW8_HEAD_MOVED share of any
     head's slice moved.  With ``timed``, at step 11 the first batch's time
     warm (the same weights and cache every call) and cold (cold_copies
     sets of weight stacks and caches in turn, so none is left in the L2,
     as a forward's other kernels leave it), with its bound, kept as the
     kernel's record when ``keep``; the other batches checked untimed.
-    Returns {shape: times}."""
+    ``num_heads``: the heads of the hidden width (default: heads of 64);
+    ``into``: the record that takes the errors where ``record`` is a
+    scratch one.  Returns {shape: times}."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import decode_step as DS
 
     dev, lp = mask.device, mask.shape[1]
     m, d = stacks["w1"].shape[1:]
-    h = d // 64
+    h = d // 64 if num_heads is None else num_heads
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     times = {}
     for step in (0, 11):
@@ -1223,7 +1240,7 @@ def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: i
         for b in batches:
             kv8, kvs = kv8_all[:, :b].contiguous(), kvs_all[:, :b].contiguous()
             x_t, km = x_all[:b].contiguous(), mask[:b].contiguous()
-            buffers = DS.step_buffers(3, b, d, m, dev)
+            buffers = DS.step_buffers(3, b, d, m, dev, h)
             sargs = (x_t, stacks, kv8, kvs, km, step, write_offset, h)
             got = [t.clone() for t in DS.fused_decode_step(*sargs, buffers=buffers)]
             want = DS.fused_decode_step_plain(*sargs)
@@ -1234,9 +1251,10 @@ def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: i
             dsc = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
             shape = f"[{b},1,{d}] x 3 layers, kv8 [3,{b},{lp},{2 * d}] step={step}"
             print(f"kernel fused_decode_step {shape}: row8 max|diff| {d8} (tol {ROW8_TOL}), most "
-                  f"moved in one head {head} of 64 (tol {ROW8_HEAD_MOVED}), rowsc max rel diff "
+                  f"moved in one head {head} of {d // h} (tol {int(ROW8_HEAD_MOVED * d // h)}), "
+                  f"rowsc max rel diff "
                   f"{dsc:.3e} (tol {ROWSC_REL_TOL})", flush=True)
-            if not (d8 <= ROW8_TOL and head <= ROW8_HEAD_MOVED and dsc <= ROWSC_REL_TOL):
+            if not (d8 <= ROW8_TOL and head <= ROW8_HEAD_MOVED * d // h and dsc <= ROWSC_REL_TOL):
                 fail(f"fused_decode_step quantized rows disagree at {shape}")
             timed_rec = {}
             if timed and step == 11 and b == batches[0]:
@@ -1261,6 +1279,8 @@ def check_decode_step(record, x_all, stacks, mask, gen, batches, write_offset: i
                 if keep:  # the record's shape: the fused branch's batch-1 step
                     timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
             report(record, "fused_decode_step", err, extra=" " + shape, **timed_rec)
+            if into is not None:
+                report(into, "fused_decode_step", err, extra=" " + shape)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return times
@@ -1524,7 +1544,7 @@ def check_step_clip(record, label, x_all, stacks, km, gen, batches, write_offset
         kv8_all, kvs_all = decode_step_cache(x_all, stacks, km, step, gen, 12, write_offset)
         for b in batches:
             kv8, kvs = kv8_all[:, :b].contiguous(), kvs_all[:, :b].contiguous()
-            buffers = DS.step_buffers(3, b, d, m, dev)
+            buffers = DS.step_buffers(3, b, d, m, dev, 12)
             y = [DS.fused_decode_step(x_all[:b].contiguous(), stacks, kv8, kvs,
                                       mk[:b].contiguous(), step, write_offset, 12,
                                       buffers=buffers)[0].clone() for mk in (km, clipped)]
@@ -6082,12 +6102,12 @@ def legacy_runtime(card, geo=LEGACY_GEOMETRY, extra=None, workers=None,
     VQA2 / VizWiz / TextVQA trees the port writes (utils/legacy_fixtures:
     3 batches of training questions, one of validation, half of test,
     8 questions an image, the geometry's features and answer spaces; the
-    question vocabulary the models' 100,000 words): pythia on vqa2 and
-    LoRRA on textvqa (``steps`` iterations, the snapshot's and the final
-    validation, EvalAI predictions of val and test), then pythia on
-    vqa2,vizwiz (VizWiz on VQA2's answer space, twice the steps), its
-    schedule printed and held against the port's own MultiDataset on the
-    same seed.  ``extra(model)``: more opts (the CPU dry run's); ``workers``:
+    question vocabulary the models' 100,000 words): LoRRA on textvqa
+    (``steps`` iterations, the snapshot's and the final validation, EvalAI
+    predictions of val and test), then pythia on vqa2,vizwiz (VizWiz on
+    VQA2's answer space, twice the steps: it trains pythia on vqa2, which
+    a run of its own repeated), its schedule printed and held against the
+    port's own MultiDataset on the same seed.  ``extra(model)``: more opts (the CPU dry run's); ``workers``:
     training_parameters.num_workers (None: the configs' 8).  No kernel may
     launch."""
     import json as _json
@@ -6119,8 +6139,7 @@ def legacy_runtime(card, geo=LEGACY_GEOMETRY, extra=None, workers=None,
         with open(two, "w") as f:
             f.write(f"includes:\n- {os.path.join(ROOT, 'configs', 'pythia_vqa2.yml')}\n"
                     "- common/defaults/configs/datasets/vqa/vizwiz.yml\n")
-        runs = (("pythia_vqa2", "pythia_vqa2.yml", "pythia", ("vqa2",), steps),
-                ("lorra_textvqa", "lorra_textvqa.yml", "lorra", ("textvqa",), steps),
+        runs = (("lorra_textvqa", "lorra_textvqa.yml", "lorra", ("textvqa",), steps),
                 ("pythia_vqa2_vizwiz", two, "pythia", ("vqa2", "vizwiz"), 2 * steps))
         _build.reset_launch_counts()
         for name, config, model, datasets, n_steps in runs:
@@ -6217,8 +6236,12 @@ MESH_PLANS = {"pp3": (3, (1, 1, 1, 3)), "dpp2": (4, (2, 1, 1, 2)), "dsp": (4, (2
               "tp4": (4, (1, 4, 1, 1))}
 R_PLANS, S_PLANS, T_PLANS = ("pp3", "dpp2", "dsp"), ("tp2",), ("tsp", "tpp", "tp4")
 # slice r's worlds: a plan, or plans of one world size run in turn in one
-# world (pp 2 on two data rows shares data x sp's world of four)
-R_WORLDS = ("pp3", ("dpp2", "dsp"))
+# world: pp 2 on two data rows, data x sp and slice t's plans share one
+# world of four (one spawn of four ranks for slices r and t; t reads its
+# plans' results from FOUR_RANK_RESULTS)
+FOUR_RANK_WORLD = ("dpp2", "dsp") + T_PLANS
+R_WORLDS = ("pp3", FOUR_RANK_WORLD)
+FOUR_RANK_RESULTS = {}
 # what a plan's ranks run (default: full-eval on a pipeline or a model
 # axis, and the step)
 PLAN_PARTS = {"dpp2": ("eval",), "tp4": ("step",)}
@@ -6737,11 +6760,14 @@ def mesh_slice(record, card, dry: bool = False) -> dict:
     """r. The mesh's sp and pp axes on the one card: (i) pp 3 (full-eval,
     then the step with its planted faults), then in one world of four (ii)
     data 2 x pp 2 (full-eval) and (iii) data x sp = 2 x 2 (the step), each
-    plan's rank 0 launches into the record; (iv) the torchrun CLI on four
+    plan's rank 0 launches into the record, then in the same world slice
+    t's plans (kept in FOUR_RANK_RESULTS for tp_mesh_slice, their launches
+    into the record here); (iv) the torchrun CLI on four
     processes with mesh.data=2 mesh.sp=2 against run() in this process
     (dp_cli; not in a dry run)."""
     t0 = time.perf_counter()
     out = mesh_worlds(record, card, R_WORLDS, dry)
+    FOUR_RANK_RESULTS.update({plan: out.pop(plan) for plan in T_PLANS})
     if not dry:
         out["cli"] = dp_cli(card, extra=MESH_CLI_AXES, ranks=MESH_CLI_RANKS, label="r(iv)")
     out["wall_s"] = time.perf_counter() - t0
@@ -7060,15 +7086,18 @@ def tp_mesh_slice(record, card, dry: bool = False) -> dict:
     """t. The model axis beside sp and pp, and model 4, on the one card: (i)
     in this process, the split forms at model 4 (check_tp4_blocks) and #1
     / #1b on a model-4 rank's 3 heads at their offset (check_tp_flash);
-    (ii) one world of four gloo ranks sharing the card (slice r's harness)
-    running T_PLANS in turn: model 2 x sp 2 (full-eval at 6 over the bf16
+    (ii) one world of four gloo ranks sharing the card (slice r's harness;
+    in the whole script slice r's world of four, whose results
+    FOUR_RANK_RESULTS keeps) running T_PLANS in turn: model 2 x sp 2
+    (full-eval at 6 over the bf16
     cache, #10 / #10b on a rank's 6 heads; the step at TP_TRAIN_BATCH with
     VOCAB_FAULTS outside the limits), model 2 x pp 2 (full-eval, the step:
     the split forms inside the stages), model 4 (the step through the
     split forms), each against one process, the launches as derived
-    (expected_mesh_launches) into the record; (iii)
-    entry.dryrun_multichip(4, model=2, sp=2) (model 2 x pp 2's step runs
-    in (ii)'s plan tpp).  A dry run (the CPU) runs (ii) only."""
+    (expected_mesh_launches) into the record.  entry.dryrun_multichip
+    runs in slice s(iii); its model 2 x sp 2 and model 2 x pp 2 steps
+    would repeat (ii)'s plans tsp and tpp.  A dry run (the CPU) runs (ii)
+    only."""
     import torch
 
     t0 = time.perf_counter()
@@ -7077,21 +7106,17 @@ def tp_mesh_slice(record, card, dry: bool = False) -> dict:
         dev = torch.device("cuda", 0)
         out["kernels_model4"] = check_tp4_blocks(dev, record)
         check_tp_flash(dev, record, n=4)
-    worlds = mesh_spawn(card, T_PLANS, dry)
-    record_launches(record, {plan: worlds[plan] for plan in T_PLANS})
+    if all(plan in FOUR_RANK_RESULTS for plan in T_PLANS):
+        worlds = {plan: FOUR_RANK_RESULTS[plan] for plan in T_PLANS}
+    else:
+        worlds = mesh_spawn(card, T_PLANS, dry)
+        record_launches(record, {plan: worlds[plan] for plan in T_PLANS})
     out.update(worlds)
     heads = {part: {k: worlds["tsp"][part]["launches"][k]
                     for k in ("flash_attention", "flash_attention_bwd")}
              for part in ("eval", "step")}
     print(f"slice t tsp: the split-head flash pair (#10 / #10b) on a rank's 6 heads, launches "
           f"of rank 0 {json.dumps(heads)}", flush=True)
-    if not dry:
-        from vitxtgqa_tpu_torch.entry import dryrun_multichip
-
-        t = time.perf_counter()
-        out["dryrun_multichip_4_model2_sp2"] = dryrun_multichip(4, model=2, sp=2)
-        print(f"slice t(iii): entry.dryrun_multichip(4, model=2, sp=2) in "
-              f"{time.perf_counter() - t:.1f} s; card {card}", flush=True)
     out["wall_s"] = time.perf_counter() - t0
     print(f"slice t: done in {out['wall_s']:.1f} s", flush=True)
     return out
@@ -7343,38 +7368,12 @@ def check_width_kernels(dev, record) -> dict:
 
 def bert_large_slice(dev, record, card) -> dict:
     """u(ii). T2S at bert-large-uncased's widths (t2s_bert_large_config:
-    hidden 1,024, 16 heads, FFN 4,096, the production depths and
-    sequence), bf16, random weights from seed 0, through the kernels
-    against the plain versions at slices a-h's limits, every launch count
-    derived from the gates: served with the int8 cache at batch 8 (#1, #2,
-    #3, #4) and at buckets 1 and 2 (#5, #6), with the bf16 cache at 8
-    (#7), in the serving preset at buckets 2 and 8 (compact), under W8A8
-    at 8 (#8); full-eval at 8; the module entry points (#11, #12 over int8
-    keys at 1,024); a training step at TRAIN_CHECK_BATCH against plain
-    with the planted block faults, then TRAIN_STEPS Adam steps at
-    TRAIN_BATCH (#1, #1b, #9a, #9b)."""
-    import torch
-
+    hidden 1,024, 16 heads, FFN 4,096, eps 1e-12 in every stack; the
+    production depths and sequence) through config_slice, #12 over int8
+    keys at 1,024."""
     from vitxtgqa_tpu_torch.models.t2s import t2s_bert_large_config
 
-    sl = Slices(dev, cfg=t2s_bert_large_config())
-    out = {"params_m": sl.n_params / 1e6}
-    for name, opts, groups in (
-            ("u_int8_b8", dict(kv_cache_int8=True), [BATCH]),
-            ("u_int8_fused_b1_b2", dict(kv_cache_int8=True), [1, 2]),
-            ("u_bf16_b8", dict(kv_cache_int8=False), [BATCH]),
-            ("u_serving_preset_b2_b8", dict(kv_cache_int8=True, compact_serving=True),
-             [2, BATCH]),
-            ("u_w8a8_b8", dict(w8a8=True, kv_cache_int8=True), [BATCH])):
-        model, out[name] = serve_slice(name, sl, record, opts, groups)
-        del model
-        torch.cuda.empty_cache()
-    out["full_eval_b8"] = full_eval_slice(sl, record, card, prefix="u_")
-    out["module_entries"] = module_entry_slice(sl, record, name="u_module_entries")
-    out["train"] = train_slice(sl, record, card, name="u_train")
-    del sl
-    torch.cuda.empty_cache()
-    return out
+    return config_slice(dev, record, card, t2s_bert_large_config(), "u_")
 
 
 def width_slice(dev, record, card) -> dict:
@@ -7382,6 +7381,459 @@ def width_slice(dev, record, card) -> dict:
     bert-large-uncased's widths (bert_large_slice)."""
     return {"kernels": check_width_kernels(dev, record),
             "bert_large": bert_large_slice(dev, record, card)}
+
+
+# v: every head width the Pallas attention kernels take (a multiple of 8 up
+# to 128), and #5's caches past 1,152 slots: (i) each attention kernel
+# against its twin at HEAD_WIDTHS (and 64 once more) beside a planted fault
+# (a head row's last 8-column chunk dropped: what a tier that loses a
+# chunk computes), the new rows of the kernel table timed at HEAD_TIMED,
+# #5 at STEP_HEAD_CASES and at STEP_LONG_CACHES slots; (ii) T2S at
+# MiniLM-L12-H384's widths (models/t2s.t2s_minilm_config: 12 heads of 32)
+# through every path; (iii) ViT-H/14 (models/vit.VIT_H_14: 16 heads of 80)
+# extracting VIT_FRAMES frames
+HEAD_WIDTHS = (32, 72, 80, 128, 64)
+HEAD_TIMED = (32, 80, 128)
+# the heads at each width: MiniLM's 12 of 32, 16 of 72 (SigLIP-so400m's
+# 1,152), ViT-H's 16 of 80, 8 of 128; the main path's 12 of 64
+HEAD_COUNT = {32: 12, 64: 12, 72: 16, 80: 16, 128: 8}
+# #5 (hidden, FFN, heads): checked at batch 1, 2 and 8 (12 x 32, 8 x 128),
+# timed at batch 1 (and 16 x 72: 8-byte cache loads; 16 x 80)
+STEP_HEAD_CASES = ((384, 1536, 12), (1024, 4096, 8))
+STEP_HEAD_TIMED = ((384, 1536, 12), (1152, 4608, 16), (1280, 5120, 16), (1024, 4096, 8))
+STEP_LONG_CACHES = (2048, 4096)  # #5's caches at the main path's 768 / 3,072, 12 x 64
+STEP_LONG_WIDTHS = (768, 3072)
+HEAD_BIAS_KEYS = 577             # #14's keys with no bias and a per-row one (ViT-L/16 at 384 px)
+
+
+def drop_chunk(x, d: int):
+    """x with the last 8 columns of each d-wide head zeroed (x [..., H*d]
+    merged, or [B, H, L, d] split): the planted fault of slice v(i)."""
+    y = x.clone()
+    if x.shape[-1] == d:
+        y[..., d - 8:] = 0
+    else:
+        y.view(*x.shape[:-1], -1, d)[..., d - 8:] = 0
+    return y
+
+
+def fault_rejected(name: str, err: float, d: int, shape: str, scale=None) -> dict:
+    """planted_rejected for the chunk-dropped fault at head width d (held
+    scale-relative where ``scale`` is given, as the gradient kernels)."""
+    crit = err if scale is None else err / scale
+    return planted_rejected(name, crit, f"the last 8 of {d} columns of each head dropped, "
+                                        f"{shape}")
+
+
+def head_flash_case(dev, gen, d: int, record, out: dict, timed: bool) -> None:
+    """v(i), the flash family at head width d (HEAD_COUNT heads over the
+    serving mask's 1,152 keys): #1 eval at BATCH (dec_len 12) and with
+    dropout and the lse at TRAIN_CHECK_BATCH (dec_len 12, the causal tail,
+    and a batch row with no valid key); #1b at rate RATE in the atomic and
+    the ordered form (two ordered calls bit for bit); #10 / #10b on the
+    second half of the query rows; #11 (its int8 cache bit for bit); #14
+    with no bias and a per-row bias at HEAD_BIAS_KEYS keys, the key-mask
+    and the prefix-LM bias at 1,152.  Each beside its chunk-dropped fault;
+    at ``timed`` widths #1, #1b and #14 (no bias) timed beside SDPA.  The
+    lengths are the serving mask's (a dry run's own on the CPU)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.ops import fused_attention as FAT
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+    from vitxtgqa_tpu_torch.ops.attention import quantize_kv
+    from vitxtgqa_tpu_torch.ops.masks import prefix_lm_bias, self_attention_bias
+    from vitxtgqa_tpu_torch.run import deterministic_algorithms
+
+    bf, h = torch.bfloat16, HEAD_COUNT[d]
+    hd = h * d
+    rn = lambda *s_, scale=1.0: (torch.randn(*s_, generator=gen, device=dev) * scale).to(bf)
+    mask, _ = serving_masks(dev)
+    l = mask.shape[1]
+    seed = torch.tensor([20261018], dtype=torch.int64, device=dev)
+    tag = f" D={d} ({h} heads)"
+    diff = lambda a, b: (a.float() - b.float()).abs().max().item()
+
+    # #1 eval at the serving batch
+    km = mask.clone()
+    km[:, l - DEC_LEN:] = 0.0
+    q, k, v = (rn(BATCH, l, hd) for _ in range(3))
+    args = (q, k, v, km, DEC_LEN, h)
+    got = FA.flash_attention_merged(*args)
+    shape = f"[{BATCH},{l},{hd}] dec_len={DEC_LEN}"
+    report(record, "flash_attention_merged", diff(got, FA.flash_attention_merged_plain(*args)),
+           extra=f"{tag} {shape}")
+    out[f"flash_attention_merged D{d} fault"] = fault_rejected(
+        "flash_attention_merged",
+        diff(got, FA.flash_attention_merged_plain(*(drop_chunk(t, d) for t in (q, k, v)),
+                                                  km, DEC_LEN, h)), d, shape)
+    if timed:
+        am = sdpa_mask(km, DEC_LEN)
+        sd = lambda: F.scaled_dot_product_attention(sdpa_split(q, h), sdpa_split(k, h),
+                                                    sdpa_split(v, h), am)
+        out[f"flash_attention_merged D{d}"] = dict(
+            ms=cuda_time_ms(lambda: FA.flash_attention_merged(*args)),
+            plain_ms=cuda_time_ms(lambda: FA.flash_attention_merged_plain(*args), reps=3),
+            library_ms=cuda_time_ms(sd), bound=flash_bound(q, km, DEC_LEN, heads=h))
+    # #11: the int8 cache bit for bit, the output as #1's
+    o8, (k8, ks), (v8, vs) = FA.flash_attention_merged_q8(*args)
+    (wk8, wks), (wv8, wvs) = quantize_kv(k), quantize_kv(v)
+    exact = all(torch.equal(a, b) for a, b in ((k8, wk8), (ks, wks), (v8, wv8), (vs, wvs)))
+    report(record, "flash_attention_merged_q8", diff(o8, got), extra=f"{tag} {shape} against #1; "
+           f"int8 cache and scales bit for bit: {exact}")
+    if not exact:
+        fail(f"flash_attention_merged_q8{tag}: the int8 cache is not quantize_kv's")
+    out[f"flash_attention_merged_q8 D{d} fault"] = fault_rejected(
+        "flash_attention_merged_q8", diff(o8, FA.flash_attention_merged_plain(
+            *(drop_chunk(t, d) for t in (q, k, v)), km, DEC_LEN, h)), d, shape)
+    del q, k, v, got, o8, k8, v8, wk8, wv8
+
+    # #1 with dropout and the lse, #1b atomic and ordered, at the check batch
+    b = TRAIN_CHECK_BATCH
+    q, k, v, g = (rn(b, l, hd) for _ in range(4))
+    kb = km[:b].contiguous()
+    none_label, none_km = edge_masks(kb, DEC_LEN)[0]
+    for label, m_ in (("", kb), (", " + none_label, none_km)):
+        a = (q, k, v, m_, DEC_LEN, h, RATE, seed)
+        got, lse = FA.flash_attention_merged(*a, return_lse=True)
+        want, want_lse = FA.flash_attention_merged_plain(*a, return_lse=True)
+        lse_err = (lse - want_lse).abs().max().item()
+        report(record, "flash_attention_merged", diff(got, want),
+               extra=f"{tag} dropout {RATE} [{b},{l},{hd}] dec_len={DEC_LEN}{label}; lse "
+                     f"max|diff| {lse_err:.3e} (tol {LSE_TOL:.0e})")
+        if not lse_err <= LSE_TOL:
+            fail(f"flash_attention_merged{tag}: the lse disagrees{label}")
+    out_, lse = FA.flash_attention_merged_plain(q, k, v, kb, DEC_LEN, h, RATE, seed,
+                                                return_lse=True)
+    bargs = (q, k, v, kb, out_, lse, g, DEC_LEN, h, RATE, seed)
+    want = FA.flash_attention_merged_bwd_plain(*bargs)
+    bad = FA.flash_attention_merged_bwd_plain(*(drop_chunk(t, d) for t in (q, k, v)),
+                                              *bargs[3:])
+    bshape = f"[{b},{l},{hd}] rate={RATE} dec_len={DEC_LEN}"
+    for form, deterministic in (("atomic", False), ("ordered", True)):
+        with deterministic_algorithms(deterministic):
+            got = FA.flash_attention_merged_bwd(*bargs)
+            if deterministic:
+                again = FA.flash_attention_merged_bwd(*bargs)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"flash_attention_merged_bwd{tag}: two ordered calls differ")
+        for name_, a_, w_, f_ in zip(("dq", "dk", "dv"), got, want, bad):
+            scale = w_.float().abs().max().item()
+            report(record, "flash_attention_merged_bwd", diff(a_, w_), scale=scale,
+                   extra=f"{tag} {form} {name_} {bshape}")
+        worst = max(diff(a_, f_) / w_.float().abs().max().item()
+                    for a_, w_, f_ in zip(got, want, bad))
+        out[f"flash_attention_merged_bwd D{d} {form} fault"] = planted_rejected(
+            "flash_attention_merged_bwd", worst,
+            f"the last 8 of {d} columns of each head dropped, {form}, scale-relative {bshape}")
+    if timed:
+        am = sdpa_mask(kb, DEC_LEN)
+        qs, ks_, vs_ = (sdpa_split(t, h).detach().requires_grad_(True) for t in (q, k, v))
+        o_sd = F.scaled_dot_product_attention(qs, ks_, vs_, am)
+        gs = sdpa_split(g, h)
+        sd_bwd = lambda: torch.autograd.grad(o_sd, (qs, ks_, vs_), gs, retain_graph=True)
+        out[f"flash_attention_merged_bwd D{d}"] = dict(
+            ms=cuda_time_ms(lambda: FA.flash_attention_merged_bwd(*bargs)),
+            plain_ms=cuda_time_ms(lambda: FA.flash_attention_merged_bwd_plain(*bargs), reps=3),
+            library_ms=cuda_time_ms(sd_bwd), bound=flash_bwd_bound(q, kb, DEC_LEN, heads=h))
+        del qs, ks_, vs_, o_sd
+    del got, want, bad
+
+    # #10 / #10b on the second half of the query rows (split-head views)
+    off = l // 2
+    qs, ks_, vs_, gs = (sdpa_split(t, h) for t in (q, k, v, g))
+    qo, go = qs[:, :, off:], gs[:, :, off:]
+    sa = (qo, ks_, vs_, kb, DEC_LEN, off)
+    got = FA.flash_attention(*sa)
+    sshape = f"[{b},{h},{l - off},{d}] of {l} keys, row offset {off}"
+    report(record, "flash_attention", diff(got, FA.flash_attention_plain(*sa)),
+           extra=f"{tag} {sshape}")
+    out[f"flash_attention D{d} fault"] = fault_rejected(
+        "flash_attention", diff(got, FA.flash_attention_plain(
+            *(drop_chunk(t, d) for t in (qo, ks_, vs_)), kb, DEC_LEN, off)), d, sshape)
+    o_, lse_ = FA.flash_attention_plain(*sa, return_lse=True)
+    sb = (qo, ks_, vs_, kb, o_, lse_, go, DEC_LEN, off)
+    got = FA.flash_attention_bwd(*sb)
+    want = FA.flash_attention_bwd_plain(*sb)
+    bad = FA.flash_attention_bwd_plain(*(drop_chunk(t, d) for t in (qo, ks_, vs_)), *sb[3:])
+    for name_, a_, w_ in zip(("dq", "dk", "dv"), got, want):
+        report(record, "flash_attention_bwd", diff(a_, w_), scale=w_.float().abs().max().item(),
+               extra=f"{tag} {name_} {sshape}")
+    worst = max(diff(a_, f_) / w_.float().abs().max().item() for a_, w_, f_ in zip(got, want, bad))
+    out[f"flash_attention_bwd D{d} fault"] = planted_rejected(
+        "flash_attention_bwd", worst,
+        f"the last 8 of {d} columns of each head dropped, scale-relative {sshape}")
+    del q, k, v, g, qs, ks_, vs_, gs, got, want, bad
+
+    # #14: no bias and a per-row bias at HEAD_BIAS_KEYS keys, the key-mask
+    # and the prefix-LM bias (batch row 3 fully masked) at 1,152
+    enc = mask[:, :l - DEC_LEN].clone()
+    enc[3] = 0.0
+    nk = HEAD_BIAS_KEYS
+    row_bias = torch.randn(BATCH, 1, nk, nk, generator=gen, device=dev) * 2.0
+    for form, lk, bias in (("no bias", nk, None), ("per-row bias", nk, row_bias),
+                           ("key-mask bias", l, self_attention_bias(mask)),
+                           ("prefix-LM bias, batch row 3 fully masked", l,
+                            prefix_lm_bias(enc, DEC_LEN))):
+        q, k, v = (sdpa_split(rn(BATCH, lk, hd), h) for _ in range(3))
+        got = FAT.fused_attention(q, k, v, bias)
+        fshape = f"[{BATCH},{h},{lk},{d}] {form}"
+        report(record, "fused_attention", diff(got, FAT.fused_attention_plain(q, k, v, bias)),
+               extra=f"{tag} {fshape}")
+        if bias is None:
+            out[f"fused_attention D{d} fault"] = fault_rejected(
+                "fused_attention", diff(got, FAT.fused_attention_plain(
+                    *(drop_chunk(t, d) for t in (q, k, v)))), d, fshape)
+            if timed:
+                out[f"fused_attention D{d}"] = dict(
+                    ms=cuda_time_ms(lambda: FAT.fused_attention(q, k, v)),
+                    plain_ms=cuda_time_ms(lambda: FAT.fused_attention_plain(q, k, v)),
+                    library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                    bound=bound_of(4 * nbytes(q), 4 * BATCH * h * lk * lk * d))
+        del q, k, v, got
+    torch.cuda.empty_cache()
+
+
+def head_decode_case(dev, gen, d: int, record, out: dict, timed: bool) -> None:
+    """v(i), the decode attention (#4 int8, #7 bf16) at head width d, [8,
+    1152] over the serving mask at steps 0 and 11 and with a batch row of
+    no valid encoder key, beside the chunk-dropped fault; at ``timed``
+    widths both timed warm at step 11 beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.ops import decode_attention as DA
+
+    h = HEAD_COUNT[d]
+    mask, _ = serving_masks(dev)
+    l = mask.shape[1]
+    wo = l - DEC_LEN
+    forms = {"decode_attention_int8": (DA.decode_attention_int8, DA.decode_attention_int8_plain),
+             "decode_attention": (DA.decode_attention, DA.decode_attention_plain)}
+    for name, (fn, plain) in forms.items():
+        int8 = name == "decode_attention_int8"
+        q, (cache,), ((kd, vd),) = decode_inputs(gen, BATCH, l, int8, d=h * d)
+        shape = f"[{BATCH},1,{h * d}] x [{BATCH},{l}]"
+        for mlabel, km in decode_edge_masks(mask):
+            for step in (0, 11):
+                a = (q, *cache, km, step, wo, h)
+                report(record, name, (fn(*a).float() - plain(*a).float()).abs().max().item(),
+                       extra=f" D={d} ({h} heads) {shape} step={step}, {mlabel}")
+        a = (q, *cache, mask, 11, wo, h)
+        got = fn(*a)
+        bad_cache = [drop_chunk(t, d) if t.dim() == 3 else t for t in cache]
+        bad = plain(drop_chunk(q, d), *bad_cache, mask, 11, wo, h)
+        out[f"{name} D{d} fault"] = fault_rejected(
+            name, (got.float() - bad.float()).abs().max().item(), d, f"{shape} step=11")
+        if timed:
+            am = decode_sdpa_mask(mask, 11, wo)
+            out[f"{name} D{d}"] = dict(
+                ms=cuda_time_ms(lambda: fn(*a)), plain_ms=cuda_time_ms(lambda: plain(*a)),
+                library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    sdpa_split(q, h), sdpa_split(kd, h), sdpa_split(vd, h), am)),
+                bound=decode_bound(q, mask, 11, 1 if int8 else 2, 8 if int8 else 0))
+        del q, cache, kd, vd, got, bad
+
+
+def long_cache_mask(dev, slots: int):
+    """A [BATCH, slots] key mask: the serving mask's encoder keys repeated
+    over slots - DEC_LEN encoder slots, then DEC_LEN decoder slots."""
+    import torch
+
+    mask, _ = serving_masks(dev)
+    enc = mask[:, :mask.shape[1] - DEC_LEN]
+    reps = -(-(slots - DEC_LEN) // enc.shape[1])
+    enc = enc.repeat(1, reps)[:, :slots - DEC_LEN]
+    return torch.cat([enc, torch.zeros(BATCH, DEC_LEN, device=dev)], 1).contiguous()
+
+
+def head_step_cases(dev, record, out: dict) -> None:
+    """v(i), the decode step (#5): at STEP_HEAD_CASES (12 heads of 32, 8 of
+    128) at batch 1, 2 and 8 over the serving mask (check_decode_step, its
+    attention planted), beside the fault of a head row's last chunk of the
+    cached V dropped; 16 heads of 72 and of 80 at batch 1; each timed at
+    batch 1 (STEP_HEAD_TIMED); then the main path's 768 / 3,072 (12 x 64)
+    over STEP_LONG_CACHES slots at batch 1, 2 and 8, timed at batch 1."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    mask, _ = serving_masks(dev)
+    lp = mask.shape[1]
+    wo = lp - DEC_LEN
+    r = lambda *s_: torch.randn(*s_, device=dev).to(torch.bfloat16)
+    # the library time: a batch-1 step's 12 GEMVs as bf16 torch.matmul
+    step_lib = lambda d, m: products_ms([p for _ in range(3) for p in (
+        (r(1, d), r(3 * d, d)), (r(1, d), r(d, d)), (r(1, d), r(m, d)), (r(1, m), r(d, m)))])
+    for d, m, h in STEP_HEAD_TIMED:
+        gen = torch.Generator(device=dev).manual_seed(97)
+        x_all, stacks = decode_step_weights(dev, gen, 3, d, m)
+        batches = (1, 2, BATCH) if (d, m, h) in STEP_HEAD_CASES else (1,)
+        times = check_decode_step({}, x_all, stacks, mask, gen, batches, wo, keep=False,
+                                  num_heads=h, into=record)
+        t = times[f"[1,{lp}]"]
+        out[f"fused_decode_step D{d // h}"] = dict(
+            ms=t["warm_ms"], plain_ms=t["plain_ms"], library_ms=step_lib(d, m),
+            bound=(t["bound_ms"], t["bound_by"]), hidden=d, ffn=m, heads=h)
+        kv8, kvs = decode_step_cache(x_all, stacks, mask, 11, gen, h, wo)
+        sargs = (x_all, stacks, kv8, kvs, mask, 11, wo, h)
+        got = DS.fused_decode_step(*sargs)[0]
+        bad8 = kv8.clone()
+        bad8[..., d:] = drop_chunk(kv8[..., d:], d // h)
+        bad = DS.fused_decode_step_plain(x_all, stacks, bad8, kvs, mask, 11, wo, h)[0]
+        out[f"fused_decode_step D{d // h} fault"] = planted_rejected(
+            "fused_decode_step", (got.float() - bad.float()).abs().max().item(),
+            f"the last 8 of {d // h} columns of each head of the cached V dropped, [{BATCH},1,"
+            f"{d}] step 11")
+        del x_all, stacks, kv8, kvs, got, bad, bad8
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(98)
+    x_all, stacks = decode_step_weights(dev, gen, 3, *STEP_LONG_WIDTHS)
+    for slots in STEP_LONG_CACHES:
+        km = long_cache_mask(dev, slots)
+        times = check_decode_step({}, x_all, stacks, km, gen, (1, 2, BATCH), slots - DEC_LEN,
+                                  keep=False, into=record)
+        t = times[f"[1,{slots}]"]
+        record.setdefault("fused_decode_step", {})[f"slots_{slots}"] = out[
+            f"fused_decode_step {slots} slots"] = dict(
+            ms=t["warm_ms"], cold_ms=t["cold_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"])
+    del x_all, stacks
+    torch.cuda.empty_cache()
+
+
+def check_head_kernels(dev, record) -> dict:
+    """v(i). Every attention kernel at every width of HEAD_WIDTHS (the
+    flash family head_flash_case, the decode attention head_decode_case),
+    the decode step's head widths and long caches (head_step_cases), each
+    beside its planted fault; the HEAD_TIMED widths' times under each
+    record's "head_D<d>"."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2424)
+    out = {}
+    for d in HEAD_WIDTHS:
+        head_flash_case(dev, gen, d, record, out, d in HEAD_TIMED)
+        head_decode_case(dev, gen, d, record, out, d in HEAD_TIMED)
+    head_step_cases(dev, record, out)
+    for key in [k for k in out if isinstance(out[k], dict) and "bound" in out[k]]:
+        name, width = key.split(" D")
+        t = out[key]
+        bound = t.pop("bound")
+        t.update(bound_ms=bound[0], bound_by=bound[1])
+        record.setdefault(name, {})[f"head_D{width}"] = t
+        print(f"slice v: {name} at head width {width}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return out
+
+
+def config_slice(dev, record, card, cfg, prefix: str) -> dict:
+    """T2S under another config of the production depths and sequence
+    (slice u's bert-large, slice v's MiniLM), bf16, random weights from
+    seed 0, through the kernels against the plain versions at slices
+    a-h's limits, every launch count derived from the gates: served with
+    the int8 cache at batch 8 (#1, #2, #3, #4) and at buckets 1 and 2 (#5,
+    #6), with the bf16 cache at 8 (#7), in the serving preset at buckets 2
+    and 8 (compact), under W8A8 at 8 (#8); full-eval at 8; the module entry
+    points (#11, #12); a training step at TRAIN_CHECK_BATCH against plain
+    with the planted block faults, then TRAIN_STEPS Adam steps at
+    TRAIN_BATCH (#1, #1b, #9a, #9b)."""
+    import torch
+
+    sl = Slices(dev, cfg=cfg)
+    out = {"params_m": sl.n_params / 1e6}
+    for name, opts, groups in (
+            ("int8_b8", dict(kv_cache_int8=True), [BATCH]),
+            ("int8_fused_b1_b2", dict(kv_cache_int8=True), [1, 2]),
+            ("bf16_b8", dict(kv_cache_int8=False), [BATCH]),
+            ("serving_preset_b2_b8", dict(kv_cache_int8=True, compact_serving=True),
+             [2, BATCH]),
+            ("w8a8_b8", dict(w8a8=True, kv_cache_int8=True), [BATCH])):
+        model, out[prefix + name] = serve_slice(prefix + name, sl, record, opts, groups)
+        del model
+        torch.cuda.empty_cache()
+    out["full_eval_b8"] = full_eval_slice(sl, record, card, prefix=prefix)
+    out["module_entries"] = module_entry_slice(sl, record, name=prefix + "module_entries")
+    out["train"] = train_slice(sl, record, card, name=prefix + "train")
+    del sl
+    torch.cuda.empty_cache()
+    return out
+
+
+def minilm_slice(dev, record, card) -> dict:
+    """v(ii). T2S at MiniLM-L12-H384's widths (t2s_minilm_config: hidden
+    384, 12 heads of 32, FFN 1,536, eps 1e-12 in every stack; production
+    depths and sequence) through config_slice: #1, #1b, #4, #5, #6, #7,
+    #11 and #12 at 12 heads of 32."""
+    from vitxtgqa_tpu_torch.models.t2s import t2s_minilm_config
+
+    return config_slice(dev, record, card, t2s_minilm_config(), "v_")
+
+
+def vit_h_slice(dev, record, card) -> dict:
+    """v(iii). ViT-H/14 (VIT_H_14: 16 heads of 80, 1,280 / 5,120, 32
+    layers, 257 tokens at 224 px), bf16, random weights from seed 0,
+    extracting VIT_FRAMES frames (240 x 320, resized) against the same
+    frames through Options(plain=True): #13 and #14 in all 32 layers, CLS
+    within VIT_FEAT_REL_TOL; frames/s over VIT_REPS forwards."""
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.models.vit import VIT_H_14, make_feature_extractor
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_frames
+
+    bf, cfg = torch.bfloat16, VIT_H_14
+    extract, vit = make_feature_extractor(cfg, None, Options(device=dev, dtype=bf))
+    extract_plain, _ = make_feature_extractor(cfg, vit.state_dict(),
+                                              Options(device=dev, dtype=bf, plain=True))
+    frames = torch.from_numpy(synthetic_frames(VIT_FRAMES, 240, 320, seed=0)).to(dev)
+    n_params = sum(p.numel() for p in vit.parameters())
+    extract(frames)  # warm-up
+    _build.reset_launch_counts()
+    feats = extract(frames)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"slice vit_h14: ViT-H/14 at {cfg.image_size} px ({cfg.num_patches + 1} tokens, "
+          f"{cfg.num_heads} heads of {cfg.hidden_size // cfg.num_heads}), {n_params / 1e6:.1f}M "
+          f"params; launches in one forward at batch {VIT_FRAMES} " + json.dumps(counts),
+          flush=True)
+    count_launches(f"slice vit_h14, a batch-{VIT_FRAMES} forward", record, counts,
+                   expected_vit_launches(cfg, VIT_FRAMES))
+    feats_plain = extract_plain(frames)
+    err, rel = feature_agreement(feats, feats_plain)
+    ok = feats.shape == (VIT_FRAMES, cfg.hidden_size) and bool(torch.isfinite(feats).all())
+    print(f"slice vit_h14: CLS {tuple(feats.shape)}, finite {ok}; kernels vs plain: max|diff| "
+          f"{err:.4e}, largest per-frame relative L2 difference {rel:.4e} (limit "
+          f"{VIT_FEAT_REL_TOL})", flush=True)
+    if not ok or not rel <= VIT_FEAT_REL_TOL:
+        fail("slice vit_h14: the CLS features disagree with the plain versions")
+    lat = []
+    for _ in range(VIT_REPS):
+        t = time.perf_counter()
+        extract(frames)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(lat)
+    device_ms = cuda_time_ms(lambda: extract(frames), reps=VIT_REPS, warmup=1)
+    print(f"slice vit_h14: batch {VIT_FRAMES} forward ms {[round(x, 2) for x in lat]}, median "
+          f"{med:.2f} ms, {VIT_FRAMES / med * 1e3:.1f} frames/s; device {device_ms:.2f} ms per "
+          f"forward (CUDA events); card {card}", flush=True)
+    del extract, extract_plain, vit
+    torch.cuda.empty_cache()
+    return {"params_m": n_params / 1e6, "launches": counts, "cls_max_abs_diff": err,
+            "cls_max_rel_l2": rel, "forward_ms_all": lat, "forward_ms_median": med,
+            "frames_per_s": VIT_FRAMES / med * 1e3, "device_ms": device_ms}
+
+
+def head_slice(dev, record, card) -> dict:
+    """v. The attention kernels at every head width and #5's long caches
+    (check_head_kernels), T2S at MiniLM's widths (minilm_slice), ViT-H/14
+    (vit_h_slice)."""
+    return {"kernels": check_head_kernels(dev, record),
+            "minilm": minilm_slice(dev, record, card),
+            "vit_h14": vit_h_slice(dev, record, card)}
 
 
 @contextlib.contextmanager
@@ -7546,7 +7998,10 @@ def run_slices(dev, record, card, phases):
             # split forms, the dry runs
             ("t", "tp_mesh", lambda: tp_mesh_slice(record, card)),
             # the kernels at other widths, T2S at bert-large's widths
-            ("u", "widths", lambda: width_slice(dev, record, card))):
+            ("u", "widths", lambda: width_slice(dev, record, card)),
+            # every head width, #5's long caches, T2S at MiniLM's widths,
+            # ViT-H/14
+            ("v", "head_widths", lambda: head_slice(dev, record, card))):
         with phase(phases, f"slice {letter}"):
             details[name] = run()
     return details
@@ -7577,18 +8032,26 @@ def main(argv) -> int:
         _build.lib()
     build_s = time.perf_counter() - t0
     log = (lib_path.parent / "nvcc.log").read_text().splitlines()
+    compiles = sorted(((float(nxt.split()[1]), cmd.split("/")[-1])
+                       for cmd, nxt in zip(log, log[1:])
+                       if " -c " in cmd and nxt.startswith("# ")), reverse=True)
+    print("build: the slowest sources (s from the start, all started together): " + ", ".join(
+        f"{src} {sec:.1f}" for sec, src in compiles[:6]), flush=True)
     ptxas = [ln.split("ptxas info    : ")[-1] for ln in log if "Used" in ln or "spill" in ln]
     print(f"build: {build_s:.1f} s -> {os.path.relpath(lib_path, ROOT)}; ptxas: "
           + " | ".join(ptxas), flush=True)
-    print("build: the flash backward body (csrc/flash_bwd.cuh): " + "; ".join(
-        f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
-        for name, regs, st, ld in _build.ptxas_kernels(log, "flash_attention_bwd.cu")),
-        flush=True)
+    for source in ("flash_attention_bwd.cu", "flash_bwd_narrow.cu", "flash_bwd_wide.cu",
+                   "flash_fwd_narrow.cu", "flash_fwd_wide.cu"):
+        print(f"build: the flash {'backward' if 'bwd' in source else 'forward'} body "
+              f"(csrc/{source}): " + "; ".join(
+                  f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
+                  for name, regs, st, ld in _build.ptxas_kernels(log, source)), flush=True)
     print("build: the decode attention body (csrc/decode_attention.cu): " + "; ".join(
         f"{name} {regs} registers, spill stores / loads {st} / {ld} bytes"
         for name, regs, st, ld in _build.ptxas_kernels(log, "decode_attention.cu")),
         flush=True)
-    for source, what in (("block_train.cu", "the training block"),
+    for source, what in (("block_train.cu", "the training block's forward"),
+                         ("block_train_bwd.cu", "the training block's backward"),
                          ("fused_block.cu", "the eval block"),
                          ("fused_block_w8a8.cu", "the W8A8 block"),
                          ("fused_ffn.cu", "the ViT FFN")):
@@ -7597,6 +8060,10 @@ def main(argv) -> int:
             for name, regs, st, ld in _build.ptxas_kernels(log, source)), flush=True)
 
     for source, what in (("fused_decode_step.cu", "the decode step"),
+                         ("fused_decode_step_b2_h64.cu", "the decode step"),
+                         ("fused_decode_step_b8_h64.cu", "the decode step"),
+                         ("fused_decode_step_b2_h128.cu", "the decode step"),
+                         ("fused_decode_step_b8_h128.cu", "the decode step"),
                          ("fused_epilogue.cu", "the fused epilogue"),
                          ("ptr_scores.cu", "the int8 pointer scores")):
         print(f"build: {what} (csrc/{source}): " + "; ".join(

@@ -218,8 +218,8 @@ def test_the_wrappers_check_the_query_rows():
         TFA._split_geometry(T(q[:, :, :64]), T(k), DEC, 96, "flash_attention")
     with pytest.raises(ValueError, match="dec_len"):
         TFA._split_geometry(T(q), T(k), 129, 0, "flash_attention")
-    q, k, _, _, _ = _case(d=16)
-    with pytest.raises(NotImplementedError, match="head dim 64"):
+    q, k, _, _, _ = _case(d=136)
+    with pytest.raises(NotImplementedError, match="head widths above 128"):
         TFA._split_geometry(T(q), T(k), DEC, 0, "flash_attention")
 
 

@@ -345,7 +345,7 @@ def step_forms(ms, timed, dev):
         for b in ((1, 2) if lp == 1152 else (1,)):
             kv8, kvs = kv8_all[:, :b].contiguous(), kvs_all[:, :b].contiguous()
             x_t, km = x_all[:b].contiguous(), km_all[:b].contiguous()
-            bufs = DS.step_buffers(3, b, 768, 3072, dev)
+            bufs = DS.step_buffers(3, b, 768, 3072, dev, 12)
             copies = CS.cold_copies(CS.nbytes(*stacks.values(), kv8, kvs))
             sets = [(stacks, kv8, kvs)] + [({k: v.clone() for k, v in stacks.items()},
                                             kv8.clone(), kvs.clone()) for _ in range(copies - 1)]

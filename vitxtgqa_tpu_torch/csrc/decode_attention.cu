@@ -53,6 +53,21 @@
 // it exits.  A block may write a peer's shared memory only once the peer
 // runs: an arrival at the start, waited for before the first such write,
 // orders that without a third barrier.
+// Head widths.  D is any multiple of 8 up to 128; a thread owns one chunk
+// of kPer elements of its head's row segment, CPH chunks a head (a power of
+// two, so that a head's lanes reduce by xor shuffles within a warp), and
+// the chunks past D of a head idle (they load nothing and add zeros):
+//   D = 64 (every form before):      int8 16 x 4 (16-byte chunks), bf16 8 x 8
+//   D <= 32 (MiniLM's 12 heads of 32): 8 x 4, 8-byte int8 / 16-byte bf16 chunks
+//   32 < D < 64:                      8 x 8
+//   64 < D <= 128 (ViT-H's 16 of 80,  8 x 16 (80: 10 of 16 lanes busy)
+//     8 or 16 of 128)
+// Eight elements a chunk below 64 and above: an int8 head row of 72 or 80
+// starts at a multiple of 8 bytes, not of 16.  The D = 64 forms take D as
+// a compile-time constant (KD), as before; the others read it at run time.
+// A block's heads hg x CPH chunks must divide the NT = 192 threads: 12
+// heads of 32 in one group (48 chunks, 4 key slices), 16 of 80 or 8 of 128
+// in groups of up to 4 (ops/decode_attention.launch_plan).
 // Dead keys are never read.  That leaves the result unchanged: every row
 // has at least one allowed key, the decoder slot at write_offset (the
 // wrapper requires 0 <= write_offset and write_offset + step < L), so M is
@@ -67,30 +82,37 @@
 #include "common.cuh"
 
 #include <cooperative_groups.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace vt {
 namespace decode {
 
-constexpr int HD = 64;          // head dim
-constexpr int NT = 192;         // threads a block: 64 / kPer * heads divides it for 1-12 heads
+constexpr int NT = 192;         // threads a block: CPH * heads divides it for 1-12 heads at D 64
 constexpr int NW = NT / 32;
 constexpr int U = 4;            // keys a thread loads at once
 constexpr int kMaxPer = 32;     // keys a thread tests in the compaction (span <= 32 * NT)
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
-template <typename T>
-__host__ __device__ constexpr int per16() { return 16 / (int)sizeof(T); }  // elements in 16 B
-
 // dynamic shared memory: part [NT * kPer], peer_stat [kMaxCluster][hg][2], obuf
-// [hg * HD + kMaxCluster], gstat [hg][2], wcount [8], idx [span], vss
+// [hg * D + kMaxCluster], gstat [hg][2], wcount [8], idx [span], vss
 // [span], sc [hg * span]
-template <typename T>
-size_t smem_bytes(int span, int hg) {
-  return 4 * ((size_t)NT * per16<T>() + (2 * kMaxCluster + 2) * hg + hg * HD + kMaxCluster + 8 +
+inline size_t smem_bytes(int span, int hg, int kPer, int D) {
+  return 4 * ((size_t)NT * kPer + (2 * kMaxCluster + 2) * hg + hg * D + kMaxCluster + 8 +
               (size_t)span * (2 + hg));
 }
+
+// one thread's chunk of a cache row: kPer elements of T, 16 or 8 bytes
+template <typename T, int kPer>
+using Chunk = typename std::conditional<kPer * sizeof(T) == 16, int4, int2>::type;
+
+template <typename V>
+__device__ __forceinline__ V zero_chunk();
+template <>
+__device__ __forceinline__ int4 zero_chunk<int4>() { return make_int4(0, 0, 0, 0); }
+template <>
+__device__ __forceinline__ int2 zero_chunk<int2>() { return make_int2(0, 0); }
 
 // a full cluster barrier: what a thread wrote before it, to its own or a
 // peer's shared memory, is seen by every thread of the cluster after it
@@ -103,7 +125,12 @@ __device__ __forceinline__ int4 ld16(const void* p) {
   return __ldg(reinterpret_cast<const int4*>(p));
 }
 
-// the query's kPer values at p (bf16) as floats
+template <typename V>
+__device__ __forceinline__ V ldc(const void* p) {
+  return __ldg(reinterpret_cast<const V*>(p));
+}
+
+// the query's kPer values at p (bf16) as floats (kPer a multiple of 8)
 template <int kPer>
 __device__ __forceinline__ void load_q(const bf16* p, float* out) {
 #pragma unroll
@@ -115,38 +142,48 @@ __device__ __forceinline__ void load_q(const bf16* p, float* out) {
   }
 }
 
-// element t of a 16-byte chunk of the cache as a float
-template <typename T>
-__device__ __forceinline__ float elem(const int4& r, int t);
+// element t of a chunk of the cache as a float
+template <typename T, typename V>
+__device__ __forceinline__ float elem(const V& r, int t);
 template <>
-__device__ __forceinline__ float elem<int8_t>(const int4& r, int t) {
+__device__ __forceinline__ float elem<int8_t, int4>(const int4& r, int t) {
   return (float)reinterpret_cast<const int8_t*>(&r)[t];
 }
 template <>
-__device__ __forceinline__ float elem<bf16>(const int4& r, int t) {
+__device__ __forceinline__ float elem<int8_t, int2>(const int2& r, int t) {
+  return (float)reinterpret_cast<const int8_t*>(&r)[t];
+}
+template <>
+__device__ __forceinline__ float elem<bf16, int4>(const int4& r, int t) {
   return __bfloat162float(reinterpret_cast<const bf16*>(&r)[t]);
 }
 
-// T = int8_t: ks / vs are the per-token scales; T = bf16: both null
-template <typename T>
+// T = int8_t: ks / vs are the per-token scales; T = bf16: both null.
+// kPer: elements of a thread's chunk; CPH: chunks a head (kPer x CPH >= D);
+// KD: the head width where fixed at compile time (64), else 0 and the
+// head width is d (a multiple of kPer)
+template <typename T, int kPer, int CPH, int KD>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
               const float* __restrict__ ks, const T* __restrict__ v,
               const float* __restrict__ vs, const float* __restrict__ key_mask,
               bf16* __restrict__ out, int L, int H, int hg, int span, int step,
-              int write_offset, float scale) {
-  constexpr int kPer = per16<T>();
-  constexpr int CPH = HD / kPer;  // 16-byte chunks a head: 4 int8, 8 bf16
+              int write_offset, float scale, int d) {
+  using V = Chunk<T, kPer>;
+  static_assert(KD == 0 || KD == kPer * CPH, "a fixed width fills its chunks");
+  const int D = KD ? KD : d;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int g = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int nchunks = hg * CPH, nsl = NT / nchunks;
   const int c = tid % nchunks, sl = tid / nchunks, hl = c / CPH;
-  const int row = H * HD;                    // elements of a cache row
-  const int seg = hg * HD;                   // elements of the group's row segment
+  const int row = H * D;                     // elements of a cache row
+  const int seg = hg * D;                    // elements of the group's row segment
+  const int segp = nchunks * kPer;           // ... with each head padded to CPH chunks
   const int shmax = (seg + C - 1) / C;       // output elements a block sums
-  const int col = g * seg + c * kPer;        // this thread's chunk in a row
+  const bool live = KD || (c % CPH) * kPer < D;  // the chunk lies inside its head
+  const int col = g * seg + hl * D + (live ? (c % CPH) * kPer : 0);  // the chunk in a row
   const int k0 = rank * span, k1 = max(k0, min(L, k0 + span));
   const size_t row0 = (size_t)b * L;
 
@@ -166,6 +203,9 @@ decode_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
 
   float qr[kPer];
   load_q<kPer>(q + (size_t)b * row + col, qr);
+  if (!live)
+#pragma unroll
+    for (int t = 0; t < kPer; ++t) qr[t] = 0.f;
 
   // 1. compaction: thread tid tests keys [j0, j1) of the span
   const int per = (k1 - k0 + NT - 1) / NT;
@@ -194,22 +234,22 @@ decode_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
 
   // 2. scores of the live keys; V's first U keys of each thread prefetched
   const bool lead = c % CPH == 0;  // the lane that writes its head's score
-  int4 vpre[U];
+  V vpre[U];
 #pragma unroll
-  for (int u = 0; u < U; ++u) vpre[u] = make_int4(0, 0, 0, 0);
+  for (int u = 0; u < U; ++u) vpre[u] = zero_chunk<V>();
   for (int base = 0; base < n; base += U * nsl) {
-    int4 kr[U];
+    V kr[U];
     float ksc[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = base + sl + u * nsl;
-      kr[u] = make_int4(0, 0, 0, 0);
+      kr[u] = zero_chunk<V>();
       ksc[u] = 1.f;
       if (i < n) {
         const int j = idx[i];
         const size_t off = (row0 + j) * row + col;
-        kr[u] = ld16(k + off);
-        if (base == 0) vpre[u] = ld16(v + off);
+        if (live) kr[u] = ldc<V>(k + off);
+        if (base == 0 && live) vpre[u] = ldc<V>(v + off);
         if (ks != nullptr && lead) ksc[u] = __ldg(ks + row0 + j);
         if (vs != nullptr && lead && hl == 0) vss[i] = __ldg(vs + row0 + j);
       }
@@ -218,7 +258,7 @@ decode_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < U; ++u) {
       float dot = 0.f;
 #pragma unroll
-      for (int t = 0; t < kPer; ++t) dot += qr[t] * elem<T>(kr[u], t);
+      for (int t = 0; t < kPer; ++t) dot += qr[t] * elem<T, V>(kr[u], t);
 #pragma unroll
       for (int o = CPH / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
       const int i = base + sl + u * nsl;
@@ -267,15 +307,15 @@ decode_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int t = 0; t < kPer; ++t) acc[t] = 0.f;
   for (int base = 0; base < n; base += U * nsl) {
-    int4 vr[U];
+    V vr[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = base + sl + u * nsl;
       if (base == 0) {
         vr[u] = vpre[u];
       } else {
-        vr[u] = make_int4(0, 0, 0, 0);
-        if (i < n) vr[u] = ld16(v + (row0 + idx[i]) * row + col);
+        vr[u] = zero_chunk<V>();
+        if (i < n && live) vr[u] = ldc<V>(v + (row0 + idx[i]) * row + col);
       }
     }
 #pragma unroll
@@ -284,11 +324,11 @@ decode_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
       if (i < n) {
         const float w = sc[hl * span + i];
 #pragma unroll
-        for (int t = 0; t < kPer; ++t) acc[t] += w * elem<T>(vr[u], t);
+        for (int t = 0; t < kPer; ++t) acc[t] += w * elem<T, V>(vr[u], t);
       }
     }
   }
-  float4* pp = reinterpret_cast<float4*>(part + tid * kPer);  // [sl][c * kPer + t]
+  float4* pp = reinterpret_cast<float4*>(part + tid * kPer);  // [sl][c * kPer + t], padded heads
 #pragma unroll
   for (int t = 0; t < kPer; t += 4) pp[t / 4] = make_float4(acc[t], acc[t + 1], acc[t + 2], acc[t + 3]);
   __syncthreads();
@@ -298,8 +338,9 @@ decode_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
   // rank order (so the result does not depend on timing).  No block
   // touches a peer's shared memory after the barrier, so each may exit.
   for (int e = tid; e < seg; e += NT) {
+    const int ep = KD ? e : (e / D) * (CPH * kPer) + e % D;  // in the padded heads
     float s = 0.f;
-    for (int x = 0; x < nsl; ++x) s += part[x * seg + e];
+    for (int x = 0; x < nsl; ++x) s += part[x * segp + ep];
     cluster.map_shared_rank(obuf, e % C)[rank * shmax + e / C] = s;
   }
   cluster_sync();
@@ -311,22 +352,21 @@ decode_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int kPer, int CPH, int KD>
 cudaError_t config(int batch, int cache_len, int num_heads, int head_dim, int cluster,
                    int head_groups, int* span, int* hg, size_t* smem) {
-  if (head_dim != HD || cluster < 1 || cluster > kMaxCluster || head_groups < 1 ||
-      num_heads % head_groups || batch < 1 || cache_len < 1)
+  if (head_dim % kPer || head_dim > kPer * CPH || cluster < 1 || cluster > kMaxCluster ||
+      head_groups < 1 || num_heads % head_groups || batch < 1 || cache_len < 1)
     return cudaErrorInvalidValue;
   *hg = num_heads / head_groups;
   *span = (cache_len + cluster - 1) / cluster;
-  if (NT % (*hg * HD / per16<T>()) || *span > kMaxPer * NT) return cudaErrorInvalidValue;
-  *smem = smem_bytes<T>(*span, *hg);
-  return cudaFuncSetAttribute(decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
+  if (NT % (*hg * CPH) || *span > kMaxPer * NT) return cudaErrorInvalidValue;
+  *smem = smem_bytes(*span, *hg, kPer, head_dim);
+  return cudaFuncSetAttribute(decode_kernel<T, kPer, CPH, KD>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
-template <typename T>
-void fill(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int batch, int cluster,
+inline void fill(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int batch, int cluster,
           int head_groups, size_t smem, void* stream) {
   *cfg = {};
   cfg->gridDim = dim3(cluster, head_groups, batch);
@@ -341,39 +381,77 @@ void fill(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int batch, int clu
   cfg->numAttrs = 1;
 }
 
+template <typename T, int kPer, int CPH, int KD>
+int launch_form(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+                const void* key_mask, void* out, int batch, int cache_len, int num_heads,
+                int head_dim, int cluster, int head_groups, int step, int write_offset,
+                void* stream) {
+  int span, hg;
+  size_t smem;
+  cudaError_t err = config<T, kPer, CPH, KD>(batch, cache_len, num_heads, head_dim, cluster,
+                                             head_groups, &span, &hg, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  fill(&cfg, &attr, batch, cluster, head_groups, smem, stream);
+  err = cudaLaunchKernelEx(&cfg, decode_kernel<T, kPer, CPH, KD>, (const bf16*)q, (const T*)k,
+                           (const float*)ks, (const T*)v, (const float*)vs,
+                           (const float*)key_mask, (bf16*)out, cache_len, num_heads, hg, span,
+                           step, write_offset, 1.0f / sqrtf((float)head_dim), head_dim);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kPer, int CPH, int KD>
+int max_clusters_form(int batch, int cache_len, int num_heads, int head_dim, int cluster,
+                      int head_groups, int* count) {
+  int span, hg;
+  size_t smem;
+  cudaError_t err = config<T, kPer, CPH, KD>(batch, cache_len, num_heads, head_dim, cluster,
+                                             head_groups, &span, &hg, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  fill(&cfg, &attr, batch, cluster, head_groups, smem, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(count, (void*)decode_kernel<T, kPer, CPH, KD>,
+                                             &cfg);
+}
+
+// the form of head width d (the table in the note): f(kPer, CPH, KD) as
+// integral constants; d a multiple of 8 up to 128 (else invalid)
+template <typename T, typename F>
+int by_width(int d, F&& f) {
+  using std::integral_constant;
+  using Runtime = integral_constant<int, 0>;
+  if (d <= 0 || d % 8 || d > 128) return (int)cudaErrorInvalidValue;
+  if (d == 64)
+    return f(integral_constant<int, 16 / (int)sizeof(T)>(),
+             integral_constant<int, 64 * (int)sizeof(T) / 16>(), integral_constant<int, 64>());
+  if (d <= 32) return f(integral_constant<int, 8>(), integral_constant<int, 4>(), Runtime());
+  if (d < 64) return f(integral_constant<int, 8>(), integral_constant<int, 8>(), Runtime());
+  return f(integral_constant<int, 8>(), integral_constant<int, 16>(), Runtime());
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
            const void* key_mask, void* out, int batch, int cache_len, int num_heads,
            int head_dim, int cluster, int head_groups, int step, int write_offset,
            void* stream) {
-  int span, hg;
-  size_t smem;
-  cudaError_t err = config<T>(batch, cache_len, num_heads, head_dim, cluster, head_groups,
-                              &span, &hg, &smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  fill<T>(&cfg, &attr, batch, cluster, head_groups, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, decode_kernel<T>, (const bf16*)q, (const T*)k,
-                           (const float*)ks, (const T*)v, (const float*)vs,
-                           (const float*)key_mask, (bf16*)out, cache_len, num_heads, hg, span,
-                           step, write_offset, 1.0f / sqrtf((float)head_dim));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return by_width<T>(head_dim, [&](auto per, auto cph, auto kd) {
+    return launch_form<T, decltype(per)::value, decltype(cph)::value, decltype(kd)::value>(
+        q, k, ks, v, vs, key_mask, out, batch, cache_len, num_heads, head_dim, cluster,
+        head_groups, step, write_offset, stream);
+  });
 }
 
 template <typename T>
 int max_clusters(int batch, int cache_len, int num_heads, int head_dim, int cluster,
                  int head_groups, int* count) {
-  int span, hg;
-  size_t smem;
-  cudaError_t err = config<T>(batch, cache_len, num_heads, head_dim, cluster, head_groups,
-                              &span, &hg, &smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  fill<T>(&cfg, &attr, batch, cluster, head_groups, smem, nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(count, (void*)decode_kernel<T>, &cfg);
+  return by_width<T>(head_dim, [&](auto per, auto cph, auto kd) {
+    return max_clusters_form<T, decltype(per)::value, decltype(cph)::value,
+                             decltype(kd)::value>(
+        batch, cache_len, num_heads, head_dim, cluster, head_groups, count);
+  });
 }
 
 }  // namespace decode

@@ -4,14 +4,16 @@
 // Replaces: vitxtgqa_tpu/ops/pallas_attention.py:flash_attention_merged
 // (the Pallas body _flash_merged_kernel / _merged_heads_attend), and, as
 // its split-head form (#10), pallas_attention.py:flash_attention
-// (_flash_impl / _flash_kernel): q [B, H, Lq, 64] and k / v [B, H, Lk, 64]
+// (_flash_impl / _flash_kernel): q [B, H, Lq, D] and k / v [B, H, Lk, D]
 // read through their strides (the split-head views of the merged
 // projections, not copied), Lq != Lk (a sequence-parallel query shard
 // against the whole key range), and row_offset, the global row of query
 // row 0, which enters the mask and the dropout coordinates, so a shard's
 // rows are the unsharded call's rows.  The output is written [B, Lq, H,
 // 64]-major, so merge_heads and the ranks' row gather work on contiguous
-// row blocks.
+// row blocks.  Any head width D a multiple of 8 up to 128 (flash_fwd.cuh's
+// tiers); the D == 64 forms are compiled here, the others in
+// flash_fwd_narrow.cu and flash_fwd_wide.cu.
 //
 // Computes, per head h, softmax(Q_h K_h^T / sqrt(d) + mask) V_h on bf16
 // operands, with the mask built in-kernel from key_mask [B, Lk] plus a
@@ -64,21 +66,29 @@
 namespace vt {
 namespace flash {
 
-// the mask-policy launch: emission, dropout (seed given) or neither
-inline int launch_masked(FwdParams& p, int batch, bool emit, void* stream) {
+// the mask-policy launch at head width d: emission, dropout (seed given)
+// or neither
+inline int launch_masked(FwdParams& p, int batch, int d, bool emit, void* stream) {
   p.l_pad = (p.g.Lk + 127) / 128 * 128;
   p.bias = nullptr;
-  if (emit) return launch_flash_fwd<true, false, true>(p, batch, stream);
-  if (p.seed != nullptr) return launch_flash_fwd<true, true, false>(p, batch, stream);
-  return launch_flash_fwd<true, false, false>(p, batch, stream);
+  p.dch = d / 8;
+  p.scale = 1.0f / sqrtf((float)d);
+  return by_head_tier(d, [&](auto na, auto full) {
+    constexpr int NA = decltype(na)::value;
+    constexpr bool F = decltype(full)::value;
+    if (emit) return launch_flash_fwd<true, false, true, NA, F>(p, batch, stream);
+    if (p.seed != nullptr) return launch_flash_fwd<true, true, false, NA, F>(p, batch, stream);
+    return launch_flash_fwd<true, false, false, NA, F>(p, batch, stream);
+  });
 }
 
 }  // namespace flash
 }  // namespace vt
 
-// q, k, v, out [B, L, H*64] bf16; key_mask [B, L] f32; lse [B, H, L] f32
+// q, k, v, out [B, L, H*D] bf16 (D = head_dim, a multiple of 8 up to 128);
+// key_mask [B, L] f32; lse [B, H, L] f32
 // or null (eval); seed: int64 [1] on the device, or null for no dropout;
-// k8, ks, v8, vs: the int8 cache of k and v ([B, L, H*64] int8, [B, L] f32),
+// k8, ks, v8, vs: the int8 cache of k and v ([B, L, H*D] int8, [B, L] f32),
 // or all null; threshold / keep_scale: the dropout keep test and 1 / (1 -
 // rate).
 extern "C" int vt_flash_attention_merged(const void* q, const void* k, const void* v,
@@ -89,8 +99,8 @@ extern "C" int vt_flash_attention_merged(const void* q, const void* k, const voi
                                          unsigned int threshold,
                                          float keep_scale, void* stream) {
   using namespace vt::flash;
-  if (head_dim != HD || batch <= 0 || num_heads <= 0 || seq_len <= 0 || dec_len < 0 ||
-      dec_len > seq_len || head_offset < 0)
+  if (!head_width_ok(head_dim) || batch <= 0 || num_heads <= 0 || seq_len <= 0 ||
+      dec_len < 0 || dec_len > seq_len || head_offset < 0)
     return (int)cudaErrorInvalidValue;
   const bool emit = k8 != nullptr;
   if (emit && (ks == nullptr || v8 == nullptr || vs == nullptr || seed != nullptr))
@@ -100,7 +110,7 @@ extern "C" int vt_flash_attention_merged(const void* q, const void* k, const voi
   p.k = (const vt::bf16*)k;
   p.v = (const vt::bf16*)v;
   p.out = (vt::bf16*)out;
-  p.g = merged_geom(seq_len, num_heads);
+  p.g = merged_geom(seq_len, num_heads, head_dim);
   p.g.head_offset = head_offset;
   p.heads = num_heads;
   p.key_mask = (const float*)key_mask;
@@ -110,11 +120,11 @@ extern "C" int vt_flash_attention_merged(const void* q, const void* k, const voi
   p.threshold = threshold;
   p.keep_scale = keep_scale;
   p.emit = {(int8_t*)k8, (float*)ks, (int8_t*)v8, (float*)vs};
-  return launch_masked(p, batch, emit, stream);
+  return launch_masked(p, batch, head_dim, emit, stream);
 }
 
-// The split-head form (#10): q [B, H, Lq, 64], k / v [B, H, Lk, 64], out
-// [B, H, Lq, 64] bf16, each through its (batch, head, row) element strides
+// The split-head form (#10): q [B, H, Lq, D], k / v [B, H, Lk, D], out
+// [B, H, Lq, D] bf16, each through its (batch, head, row) element strides
 // (strides: 12 int64, q, k, v, out), the last dimension contiguous and
 // every row 16-byte aligned; key_mask [B, Lk] f32; lse [B, H, Lq] f32 or
 // null; row_offset: the global row of query row 0; seed / threshold /
@@ -125,15 +135,15 @@ extern "C" int vt_flash_attention(const void* q, const void* k, const void* v,
                                   int len_k, int head_dim, int dec_len, int row_offset,
                                   unsigned int threshold, float keep_scale, void* stream) {
   using namespace vt::flash;
-  if (head_dim != HD || batch <= 0 || num_heads <= 0 || len_q <= 0 || len_k <= 0 ||
-      dec_len < 0 || dec_len > len_k || row_offset < 0)
+  if (!head_width_ok(head_dim) || batch <= 0 || num_heads <= 0 || len_q <= 0 ||
+      len_k <= 0 || dec_len < 0 || dec_len > len_k || row_offset < 0)
     return (int)cudaErrorInvalidValue;
   FwdParams p = {};
   p.q = (const vt::bf16*)q;
   p.k = (const vt::bf16*)k;
   p.v = (const vt::bf16*)v;
   p.out = (vt::bf16*)out;
-  p.g = merged_geom(len_k, num_heads);
+  p.g = merged_geom(len_k, num_heads, head_dim);
   read_strides(p.g, (const long long*)strides, 4);
   p.g.Lq = len_q;
   p.g.row_offset = row_offset;
@@ -144,5 +154,5 @@ extern "C" int vt_flash_attention(const void* q, const void* k, const void* v,
   p.seed = (const int64_t*)seed;
   p.threshold = threshold;
   p.keep_scale = keep_scale;
-  return launch_masked(p, batch, false, stream);
+  return launch_masked(p, batch, head_dim, false, stream);
 }

@@ -1,6 +1,6 @@
 // Pieces shared by the flash attention forward body (flash_fwd.cuh: #1,
-// #10, #11, #14) and backward body (flash_bwd.cuh: #1b, #10b): the head
-// dim, the operands' strides (Geom), log2(e).
+// #10, #11, #14) and backward body (flash_bwd.cuh: #1b, #10b): the
+// operands' strides (Geom), log2(e).
 #pragma once
 
 #include "common.cuh"
@@ -9,13 +9,12 @@
 namespace vt {
 namespace flash {
 
-constexpr int HD = 64;  // head dim
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Where one flash call's operands live: the element strides (batch, head,
 // row) of each operand, the last dimension contiguous.  The merged [B, L,
-// H*64] layout (#1 / #1b) is the strides (L*H*64, 64, H*64); the split-head
-// views [B, H, L, 64] (#10 / #10b) are read through their own strides, so
+// H*D] layout (#1 / #1b) is the strides (L*H*D, D, H*D); the split-head
+// views [B, H, L, D] (#10 / #10b) are read through their own strides, so
 // split_heads is never copied.  Lq query rows attend Lk keys, and query row
 // i is row row_offset + i of the sequence the keys span (a sequence-
 // parallel shard's first row; 0 for a whole sequence): the mask and the
@@ -31,9 +30,9 @@ __device__ __forceinline__ size_t head_base(const long long s[3], int b, int h) 
   return (size_t)(b * s[0] + h * s[1]);
 }
 
-inline Geom merged_geom(int L, int H) {
+inline Geom merged_geom(int L, int H, int D) {
   Geom g;
-  const long long s[3] = {(long long)L * H * HD, HD, (long long)H * HD};
+  const long long s[3] = {(long long)L * H * D, D, (long long)H * D};
   long long* all[8] = {g.q, g.k, g.v, g.o, g.dout, g.dq, g.dk, g.dv};
   for (long long* t : all)
     for (int i = 0; i < 3; ++i) t[i] = s[i];

@@ -19,7 +19,10 @@
 //   dQ = dS K * scale,   dK = dS^T Q * scale
 // in f32 accumulation from bf16 operands (P * K_r and dS rounded to bf16
 // before their products, as the Pallas kernel feeds bf16 to its matmuls);
-// dq comes back bf16, dk and dv bf16 (#1b) or f32 (#10b).
+// dq comes back bf16, dk and dv bf16 (#1b) or f32 (#10b).  Any head width
+// D a multiple of 8 up to 128, on the forward's tiers (flash_fwd.cuh):
+// below 64 on one 64-column atom zero-filled past D, 64 on one atom with
+// every width a constant (the main path), above 64 on two atoms.
 //
 // Semantics kept from the JAX wrappers, which pad the keys to round_up(Lk,
 // 128) with key mask 0: a masked score is kBwdFill (-1e4) here, so that a
@@ -83,6 +86,15 @@
 //     exchange the words by three xor shuffles.
 //  3. flash_bwd_dq_kernel: dq = bf16(acc * scale) through dq's strides
 //     (the ordered form: acc = the key blocks' slices summed in order).
+//  Head widths above 64 (two atoms): dK and dV of 64 keys x 128 columns
+//  in registers would be 128 floats a thread beside S, dP and dQ's 96, past
+//  the 255 a thread may hold.  So the grid gets a block per (key block,
+//  atom): each block computes S^T and dP^T over the whole head row (4 k16
+//  steps an atom) and then dV, dK and dQ for its atom's 64 columns only,
+//  with today's registers; S, dP and the Philox groups are computed once
+//  per atom (at D = 128, 7 products a pair instead of 5).  Its shared
+//  memory doubles the K / V tiles and each Q / dO stage (107 KB with the
+//  ring's two stages, two blocks an SM).
 // The form was chosen by measurement on the H100 (PERF.md section 6; the
 // sweep was removed once the choice was made): against 128 keys on two
 // warpgroups sharing each Q / dO stage (their dQ partials summed in shared
@@ -104,8 +116,7 @@
 
 #include <limits.h>
 
-#include "flash_attention.cuh"
-#include "sm90.cuh"
+#include "flash_fwd.cuh"
 
 namespace vt {
 namespace flash {
@@ -113,12 +124,19 @@ namespace flash {
 constexpr int kBwdRows = 64;        // q rows of a tile
 constexpr int kBwdKeys = 64;        // keys of a warpgroup
 constexpr int kBwdStages = 2;       // Q / dO ring depth
-constexpr int kTile = 64 * 128;     // bytes of a 64-row bf16 tile
-// a stage: Q, dO, then the tile's lse (base 2) and D, 64 floats each
-constexpr int kBwdStageBytes = (2 * kTile + 2 * 64 * 4 + 1023) / 1024 * 1024;
+constexpr int kTile = kAtom;        // bytes of a 64-row bf16 tile of one 64-column atom
+// a stage at NA atoms a head row: Q, dO, then the tile's lse (base 2) and
+// D, 64 floats each
+template <int NA>
+__host__ __device__ constexpr int bwd_stage_bytes() {
+  return (2 * NA * kTile + 2 * 64 * 4 + 1023) / 1024 * 1024;
+}
 // shared memory of a block: + 1024 (the dynamic shared memory is aligned
 // to 1024 bytes in-kernel), K, V, dS^T and the ring
-constexpr int kBwdSmemBytes = 1024 + 3 * kTile + kBwdStages * kBwdStageBytes;
+template <int NA>
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  return 1024 + (2 * NA + 1) * kTile + kBwdStages * bwd_stage_bytes<NA>();
+}
 
 // A masked score takes kBwdFill here, not the forward's -1e9: see the note.
 constexpr float kBwdFill = -1e4f;
@@ -131,7 +149,7 @@ struct BwdParams {
   const bf16* dout;
   const float* key_mask;  // [B, Lk]
   const float* lse;       // [B, H, Lq] from the forward
-  float* acc;             // scratch [parts, B, H, lq_pad, 64]: dq sums
+  float* acc;             // scratch [parts, B, H, lq_pad, 64 * na]: dq sums
   float* di;              // scratch [B, H, lq_pad]: D_i
   float* lse2;            // scratch [B, H, lq_pad]: row_lse * log2 e
   bf16* dq;
@@ -139,6 +157,8 @@ struct BwdParams {
   void* dv;
   Geom g;
   int heads, lq_pad, l_pad, dec_len;
+  int na, dch;            // 64-column atoms of a head row; D / 8
+  float scale;            // 1 / sqrt(D)
   int parts;              // 1: atomics; else one slice a key block (ordered)
   size_t part_stride;     // floats between two slices of acc
   const int64_t* seed;    // dropout seed on the device, or null
@@ -152,13 +172,14 @@ inline int bwd_parts(int len_k, int ordered) {
   return ordered ? (len_k + kBwdKeys - 1) / kBwdKeys : 1;
 }
 
-// the parameters shared by both entry points; scratch: f32, parts x [B, H,
-// lq_pad, 64] dq sums, then [B, H, lq_pad] D_i, then [B, H, lq_pad] base-2
-// lse, with lq_pad = round_up(Lq, 64) and parts = bwd_parts(Lk, ordered)
+// the parameters shared by both entry points at head width d; scratch:
+// f32, parts x [B, H, lq_pad, 64 * na] dq sums, then [B, H, lq_pad] D_i,
+// then [B, H, lq_pad] base-2 lse, with lq_pad = round_up(Lq, 64), parts =
+// bwd_parts(Lk, ordered) and na = 1 (d <= 64) or 2
 inline BwdParams bwd_params(const void* q, const void* k, const void* v, const void* key_mask,
                             const void* out, const void* dout, const void* lse, void* scratch,
                             void* dq, void* dk, void* dv, const void* seed, const Geom& g,
-                            int batch, int num_heads, int dec_len, int ordered,
+                            int batch, int num_heads, int d, int dec_len, int ordered,
                             unsigned int threshold, float keep_scale) {
   BwdParams p = {};
   p.q = (const bf16*)q;
@@ -173,9 +194,12 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v, const v
   p.lq_pad = (g.Lq + kBwdRows - 1) / kBwdRows * kBwdRows;
   p.l_pad = (g.Lk + 127) / 128 * 128;
   p.dec_len = dec_len;
+  p.na = d <= 64 ? 1 : 2;
+  p.dch = d / 8;
+  p.scale = 1.0f / sqrtf((float)d);
   const size_t stats = (size_t)batch * num_heads * p.lq_pad;
   p.parts = bwd_parts(g.Lk, ordered);
-  p.part_stride = stats * HD;
+  p.part_stride = stats * 64 * p.na;
   p.acc = (float*)scratch;
   p.di = p.acc + p.parts * p.part_stride;
   p.lse2 = p.di + stats;
@@ -189,32 +213,42 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v, const v
 }
 
 // 1. D_i, the base-2 lse and the zeroed dq accumulator (each slice of
-// it): eight threads a row (one 16-byte chunk of dO and O each), 32 rows a
-// block
-static __global__ void __launch_bounds__(256) flash_bwd_pre_kernel(const BwdParams p) {
+// it): eight threads a row (16-byte chunks c, c + 8 of dO and O), 32 rows
+// a block; NA / kFull: the head-width tier (flash_fwd.cuh)
+template <int NA, bool kFull>
+__global__ void __launch_bounds__(256) flash_bwd_pre_kernel(const BwdParams p) {
   const Geom& g = p.g;
   const int h = blockIdx.y, b = blockIdx.z;
   const int row = blockIdx.x * 32 + threadIdx.x / 8, c = threadIdx.x % 8;
   const size_t stat = ((size_t)b * p.heads + h) * p.lq_pad + row;
+  const int dch = kFull ? 8 * NA : p.dch;
   float d = 0.f, l2 = INFINITY;
   if (row < g.Lq) {
-    const uint4 go = *reinterpret_cast<const uint4*>(p.dout + head_base(g.dout, b, h) +
-                                                     (size_t)row * g.dout[2] + c * 8);
-    const uint4 oo = *reinterpret_cast<const uint4*>(p.o + head_base(g.o, b, h) +
-                                                     (size_t)row * g.o[2] + c * 8);
-    const bf16* ge = reinterpret_cast<const bf16*>(&go);
-    const bf16* oe = reinterpret_cast<const bf16*>(&oo);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) d += __bfloat162float(ge[t]) * __bfloat162float(oe[t]);
+    for (int a = 0; a < NA; ++a) {
+      const int cc = c + 8 * a;
+      if (!kFull && cc >= dch) continue;
+      const uint4 go = *reinterpret_cast<const uint4*>(p.dout + head_base(g.dout, b, h) +
+                                                       (size_t)row * g.dout[2] + cc * 8);
+      const uint4 oo = *reinterpret_cast<const uint4*>(p.o + head_base(g.o, b, h) +
+                                                       (size_t)row * g.o[2] + cc * 8);
+      const bf16* ge = reinterpret_cast<const bf16*>(&go);
+      const bf16* oe = reinterpret_cast<const bf16*>(&oo);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) d += __bfloat162float(ge[t]) * __bfloat162float(oe[t]);
+    }
     const float lse = p.lse[((size_t)b * p.heads + h) * g.Lq + row];
     l2 = (lse <= 0.5f * kNeg ? kBwdFill + logf((float)p.l_pad) : lse) * kLog2e;
   }
 #pragma unroll
   for (int off = 4; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-  for (int s = 0; s < p.parts; ++s) {
-    float4* acc = reinterpret_cast<float4*>(p.acc + s * p.part_stride + stat * HD + c * 8);
-    acc[0] = acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  for (int s = 0; s < p.parts; ++s)
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      float4* acc = reinterpret_cast<float4*>(p.acc + s * p.part_stride + stat * (64 * NA) +
+                                              (c + 8 * a) * 8);
+      acc[0] = acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   if (c == 0) {
     p.di[stat] = d;
     p.lse2[stat] = l2;
@@ -223,16 +257,19 @@ static __global__ void __launch_bounds__(256) flash_bwd_pre_kernel(const BwdPara
 
 // 3. dq = bf16(acc * scale), eight elements a thread; the ordered form
 // sums the slices in key-block order first
-static __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(const BwdParams p, int batch) {
+template <int NA, bool kFull>
+__global__ void __launch_bounds__(256) flash_bwd_dq_kernel(const BwdParams p, int batch) {
   const Geom& g = p.g;
+  constexpr int CPR = 8 * NA;  // 16-byte chunks of an accumulator row
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= (long long)batch * p.heads * g.Lq * 8) return;
-  const int c = (int)(i % 8);
-  const long long r = i / 8;
+  if (i >= (long long)batch * p.heads * g.Lq * CPR) return;
+  const int c = (int)(i % CPR);
+  if (!kFull && c >= p.dch) return;  // a zero-filled column of the tier
+  const long long r = i / CPR;
   const int row = (int)(r % g.Lq), bh = (int)(r / g.Lq);
   const int h = bh % p.heads, b = bh / p.heads;
-  const float4* src = reinterpret_cast<const float4*>(p.acc + ((size_t)bh * p.lq_pad + row) * HD +
-                                                      c * 8);
+  const float4* src = reinterpret_cast<const float4*>(
+      p.acc + ((size_t)bh * p.lq_pad + row) * (64 * NA) + c * 8);
   float4 a0 = src[0], a1 = src[1];
   for (int s = 1; s < p.parts; ++s) {
     const float4* part = src + s * (p.part_stride / 4);
@@ -240,7 +277,7 @@ static __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(const BwdParam
     a0 = make_float4(a0.x + b0.x, a0.y + b0.y, a0.z + b0.z, a0.w + b0.w);
     a1 = make_float4(a1.x + b1.x, a1.y + b1.y, a1.z + b1.z, a1.w + b1.w);
   }
-  const float sc = 0.125f;  // 1 / sqrt(64)
+  const float sc = kFull && NA == 1 ? 0.125f : p.scale;  // 1 / sqrt(D)
   const uint4 out = make_uint4(sm90::pack_bf16(a0.x * sc, a0.y * sc),
                                sm90::pack_bf16(a0.z * sc, a0.w * sc),
                                sm90::pack_bf16(a1.x * sc, a1.y * sc),
@@ -274,9 +311,10 @@ __device__ __forceinline__ void bwd_probs(float (&s)[32], float (&dp)[32], uint3
                                           const float* d_s, int grow0, const bool (&kval)[2],
                                           const bool (&kin)[2], const int (&kdec)[2],
                                           int key_group, int ci, int tq, uint32_t seed,
-                                          uint32_t threshold, float keep_scale, int h, int b) {
+                                          uint32_t threshold, float keep_scale, int h, int b,
+                                          float scale) {
   using namespace sm90;
-  const float sl2 = 0.125f * kLog2e;  // 1 / sqrt(64), in the base-2 domain
+  const float sl2 = scale * kLog2e;  // 1 / sqrt(D), in the base-2 domain
   const float fill2 = kBwdFill * kLog2e;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -336,19 +374,24 @@ __device__ __forceinline__ void store_ds(uint32_t dst, const uint32_t (&sa)[4][4
                    : "memory");
 }
 
-// 2. the main kernel: one warpgroup of 64 keys; TG the type of dk / dv
-// (bf16 for #1b, f32 for #10b)
-template <bool kDropout, typename TG>
+// 2. the main kernel: one warpgroup of 64 keys and (NA = 2) one 64-column
+// atom of dK / dV / dQ; TG the type of dk / dv (bf16 for #1b, f32 for
+// #10b); NA / kFull the head-width tier
+template <bool kDropout, typename TG, int NA, bool kFull>
 __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
   using namespace sm90;
   constexpr int kThreads = 128;
+  constexpr int CPR = 8 * NA;  // 16-byte chunks of a tile row
+  constexpr int kStage = bwd_stage_bytes<NA>();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_addr = smem_addr(smem_raw);
   unsigned char* sm = smem_raw + (((raw_addr + 1023u) & ~1023u) - raw_addr);
 
   const Geom& g = p.g;
   const int Lq = g.Lq, Lk = g.Lk;
-  const int c0 = blockIdx.x * kBwdKeys, h = blockIdx.y, b = blockIdx.z;
+  const int kblk = blockIdx.x / NA, ca = blockIdx.x % NA;  // key block, dK / dV / dQ atom
+  const int c0 = kblk * kBwdKeys, h = blockIdx.y, b = blockIdx.z;
+  const int dch = kFull ? CPR : p.dch;
   const int tid = threadIdx.x, lane = tid % 32, tq = lane & 3;
   const int wrow = (tid / 32) * 16 + lane / 4;  // the thread's lower key row of its tile
   const int l_enc = Lk - p.dec_len;
@@ -357,9 +400,9 @@ __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
   const size_t stat = ((size_t)b * p.heads + h) * p.lq_pad;
 
   unsigned char* k_s = sm;
-  unsigned char* v_s = sm + kTile;
-  unsigned char* dst_s = sm + 2 * kTile;  // dS^T, [key][q row]
-  unsigned char* stages = sm + 3 * kTile;
+  unsigned char* v_s = sm + NA * kTile;
+  unsigned char* dst_s = sm + 2 * NA * kTile;  // dS^T, [key][q row]
+  unsigned char* stages = dst_s + kTile;
 
   // the live q tiles: all of them, or a prefix (encoder rows of a batch row
   // with no valid key) and a suffix (rows at or past the first decoder key)
@@ -401,31 +444,35 @@ __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
   }
 
   auto load_stage = [&](int s, int t) {
-    unsigned char* st = stages + s * kBwdStageBytes;
-    const uint32_t q_dst = smem_addr(st), o_dst = q_dst + kTile;
+    unsigned char* st = stages + s * kStage;
+    const uint32_t q_dst = smem_addr(st), o_dst = q_dst + NA * kTile;
     const int q0 = t * kBwdRows;
-    for (int i = tid; i < kBwdRows * 8; i += kThreads) {
-      const int r = i >> 3, c = i & 7, row = q0 + r;
-      const bool ok = row < Lq;
-      const size_t rr = (size_t)(ok ? row : 0);
-      cp_async16(q_dst + sw128(r, c), p.q + qb + rr * g.q[2] + c * 8, ok);
-      cp_async16(o_dst + sw128(r, c), p.dout + gb + rr * g.dout[2] + c * 8, ok);
+    for (int i = tid; i < kBwdRows * CPR; i += kThreads) {
+      const int r = (unsigned)i / CPR, cc = (unsigned)i % CPR, row = q0 + r;
+      const bool in = kFull || cc < dch;
+      const bool ok = row < Lq && in;
+      const size_t rr = (size_t)(row < Lq ? row : 0);
+      const int col = in ? cc * 8 : 0;
+      cp_async16(q_dst + atom_off(r, cc), p.q + qb + rr * g.q[2] + col, ok);
+      cp_async16(o_dst + atom_off(r, cc), p.dout + gb + rr * g.dout[2] + col, ok);
     }
     if (tid < 32) {  // the tile's lse and D: 16 chunks of 4 floats each
       const float* src = (tid < 16 ? p.lse2 : p.di) + stat + q0 + (tid % 16) * 4;
-      cp_async16(o_dst + kTile + tid * 16, src, true);
+      cp_async16(o_dst + NA * kTile + tid * 16, src, true);
     }
   };
 
   // prologue: K, V and the first tile, one commit group
   {
     const uint32_t k_dst = smem_addr(k_s), v_dst = smem_addr(v_s);
-    for (int i = tid; i < kBwdKeys * 8; i += kThreads) {
-      const int r = i >> 3, c = i & 7, key = c0 + r;
-      const bool ok = key < Lk;
-      const size_t row = (size_t)(ok ? key : 0);
-      cp_async16(k_dst + sw128(r, c), p.k + kb + row * g.k[2] + c * 8, ok);
-      cp_async16(v_dst + sw128(r, c), p.v + vb + row * g.v[2] + c * 8, ok);
+    for (int i = tid; i < kBwdKeys * CPR; i += kThreads) {
+      const int r = (unsigned)i / CPR, cc = (unsigned)i % CPR, key = c0 + r;
+      const bool in = kFull || cc < dch;
+      const bool ok = key < Lk && in;
+      const size_t row = (size_t)(key < Lk ? key : 0);
+      const int col = in ? cc * 8 : 0;
+      cp_async16(k_dst + atom_off(r, cc), p.k + kb + row * g.k[2] + col, ok);
+      cp_async16(v_dst + atom_off(r, cc), p.v + vb + row * g.v[2] + col, ok);
     }
   }
   if (n_live > 0) load_stage(0, tile_of(0));
@@ -439,6 +486,8 @@ __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
   const int key_group = c0 + (tid / 32) * 16 + 4 * (lane >> 4) + 8 * (ci >> 1);
   const uint32_t k_addr = smem_addr(k_s), v_addr = smem_addr(v_s);
   const uint32_t dst_addr = smem_addr(dst_s);
+  const int ksteps = kFull ? 4 * NA : (dch + 1) / 2;  // k16 steps of S^T, dP^T
+  const float scale = kFull && NA == 1 ? 0.125f : p.scale;
 
   float dk[32], dv[32];
 #pragma unroll
@@ -452,19 +501,23 @@ __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
     cp_async_commit();
 
     const int q0 = tile_of(i) * kBwdRows;
-    unsigned char* st = stages + (i % kBwdStages) * kBwdStageBytes;
-    const uint32_t q_addr = smem_addr(st), o_addr = q_addr + kTile;
-    const float* lse2_s = reinterpret_cast<const float*>(st + 2 * kTile);
+    unsigned char* st = stages + (i % kBwdStages) * kStage;
+    const uint32_t q_addr = smem_addr(st), o_addr = q_addr + NA * kTile;
+    const float* lse2_s = reinterpret_cast<const float*>(st + 2 * NA * kTile);
 
-    // S^T = K Q^T, dP^T = V dO^T
+    // S^T = K Q^T, dP^T = V dO^T over the whole head row
     float s[32], dp[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(s, desc_sw128(k_addr) + 2 * kk, desc_sw128(q_addr) + 2 * kk, kk > 0);
+    for (int kt = 0; kt < 4 * NA; ++kt)
+      if (kFull || kt < ksteps)
+        wgmma_ss_n64(s, desc_sw128(k_addr + (kt / 4) * kTile) + 2 * (kt % 4),
+                     desc_sw128(q_addr + (kt / 4) * kTile) + 2 * (kt % 4), kt > 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(dp, desc_sw128(v_addr) + 2 * kk, desc_sw128(o_addr) + 2 * kk, kk > 0);
+    for (int kt = 0; kt < 4 * NA; ++kt)
+      if (kFull || kt < ksteps)
+        wgmma_ss_n64(dp, desc_sw128(v_addr + (kt / 4) * kTile) + 2 * (kt % 4),
+                     desc_sw128(o_addr + (kt / 4) * kTile) + 2 * (kt % 4), kt > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -473,24 +526,27 @@ __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
     uint32_t pa[4][4], sa[4][4];
     bwd_probs<kDropout>(s, dp, pa, sa, lse2_s, lse2_s + kBwdRows, g.row_offset + q0, kval, kin,
                         kdec, key_group, ci, tq, seed, p.threshold, keep_scale,
-                        h + g.head_offset, b);
+                        h + g.head_offset, b, scale);
     store_ds(dst_addr, sa, wrow, tq);
     fence_proxy_async();
     __syncthreads();  // dS^T complete before the product reads it
 
-    // dV += (P^T K_r) dO, dK += dS^T Q, dQ_tile = dS K
+    // dV += (P^T K_r) dO, dK += dS^T Q, dQ_tile = dS K on this block's atom
     float dq[32];
+    const uint32_t at = ca * kTile;
     wgmma_fence();
     fence_regs(dk);
     fence_regs(dv);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64_tb(dv, pa[kk], desc_sw128(o_addr + kk * 2048));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64_tb(dk, sa[kk], desc_sw128(q_addr + kk * 2048));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n64_tb(dv, pa[kk], desc_sw128(o_addr + at + kk * 2048));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64_tatb(dq, desc_sw128(dst_addr + kk * 2048), desc_sw128(k_addr + kk * 2048),
-                        kk > 0);
+      wgmma_rs_n64_tb(dk, sa[kk], desc_sw128(q_addr + at + kk * 2048));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64_tatb(dq, desc_sw128(dst_addr + kk * 2048),
+                        desc_sw128(k_addr + at + kk * 2048), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dk);
@@ -501,30 +557,32 @@ __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
                    "r"(sa[kk][0]), "r"(sa[kk][1]), "r"(sa[kk][2]), "r"(sa[kk][3])
                    : "memory");
     fence_regs(dq);
-    // dq[4j + 2hh + e] is (q row wrow + 8hh, column 8j + 2tq + e); the pad
-    // rows of the last tile add zeros into the scratch's padded rows; the
-    // ordered form stores into this key block's own slice
+    // dq[4j + 2hh + e] is (q row wrow + 8hh, column 64 ca + 8j + 2tq + e);
+    // the pad rows of the last tile add zeros into the scratch's padded
+    // rows; the ordered form stores into this key block's own slice
+    constexpr int DP = 64 * NA;  // columns of an accumulator row
     if (p.parts > 1) {
-      float* part = p.acc + blockIdx.x * p.part_stride + (stat + q0 + wrow) * HD + 2 * tq;
+      float* part = p.acc + kblk * p.part_stride + (stat + q0 + wrow) * DP + 64 * ca + 2 * tq;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         *reinterpret_cast<float2*>(part + 8 * j) = make_float2(dq[4 * j], dq[4 * j + 1]);
-        *reinterpret_cast<float2*>(part + 8 * HD + 8 * j) =
+        *reinterpret_cast<float2*>(part + 8 * DP + 8 * j) =
             make_float2(dq[4 * j + 2], dq[4 * j + 3]);
       }
     } else {
-      float* acc = p.acc + (stat + q0 + wrow) * HD + 2 * tq;
+      float* acc = p.acc + (stat + q0 + wrow) * DP + 64 * ca + 2 * tq;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         atomicAdd(reinterpret_cast<float2*>(acc + 8 * j), make_float2(dq[4 * j], dq[4 * j + 1]));
-        atomicAdd(reinterpret_cast<float2*>(acc + 8 * HD + 8 * j),
+        atomicAdd(reinterpret_cast<float2*>(acc + 8 * DP + 8 * j),
                   make_float2(dq[4 * j + 2], dq[4 * j + 3]));
       }
     }
   }
   cp_async_wait<0>();
 
-  // dK * scale and dV: dk[4j + 2hh + e] is (key wrow + 8hh, column 8j + 2tq + e)
+  // dK * scale and dV: dk[4j + 2hh + e] is (key wrow + 8hh, column 64 ca +
+  // 8j + 2tq + e)
   TG* dkp = reinterpret_cast<TG*>(p.dk) + head_base(g.dk, b, h);
   TG* dvp = reinterpret_cast<TG*>(p.dv) + head_base(g.dv, b, h);
 #pragma unroll
@@ -533,29 +591,49 @@ __global__ void __launch_bounds__(128) flash_bwd_kernel(const BwdParams p) {
     if (key >= Lk) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * tq, idx = 4 * j + 2 * hh;
-      put2(dkp + (size_t)key * g.dk[2] + c, dk[idx] * 0.125f, dk[idx + 1] * 0.125f);
+      const int c = 64 * ca + 8 * j + 2 * tq, idx = 4 * j + 2 * hh;
+      if (!kFull && c >= 8 * dch) continue;  // a zero-filled column of the tier
+      put2(dkp + (size_t)key * g.dk[2] + c, dk[idx] * scale, dk[idx + 1] * scale);
       put2(dvp + (size_t)key * g.dv[2] + c, dv[idx], dv[idx + 1]);
     }
   }
 }
 
-// the three launches of one backward on `stream`
-template <typename TG>
+// the three launches of one backward on `stream` at one head-width tier
+template <typename TG, int NA, bool kFull>
 int launch_flash_bwd(const BwdParams& p, int batch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  flash_bwd_pre_kernel<<<dim3(p.lq_pad / 32, p.heads, batch), 256, 0, st>>>(p);
+  constexpr int smem = bwd_smem_bytes<NA>();
+  flash_bwd_pre_kernel<NA, kFull><<<dim3(p.lq_pad / 32, p.heads, batch), 256, 0, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  auto kernel = p.seed != nullptr ? flash_bwd_kernel<true, TG> : flash_bwd_kernel<false, TG>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmemBytes);
+  auto kernel = p.seed != nullptr ? flash_bwd_kernel<true, TG, NA, kFull>
+                                  : flash_bwd_kernel<false, TG, NA, kFull>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((p.g.Lk + kBwdKeys - 1) / kBwdKeys, p.heads, batch), 128, kBwdSmemBytes, st>>>(p);
+  kernel<<<dim3((p.g.Lk + kBwdKeys - 1) / kBwdKeys * NA, p.heads, batch), 128, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)batch * p.heads * p.g.Lq * 8;
-  flash_bwd_dq_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(p, batch);
+  const long long n = (long long)batch * p.heads * p.g.Lq * 8 * NA;
+  flash_bwd_dq_kernel<NA, kFull><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(p, batch);
   return (int)cudaGetLastError();
+}
+
+// the launches of one backward at head width d (flash_fwd.cuh's tiers); the
+// tiers other than 64 are instantiated in flash_bwd_narrow.cu and
+// flash_bwd_wide.cu and declared extern here
+#define VT_FLASH_BWD_TIER(PREFIX, NA, FULL)                                              \
+  PREFIX template int launch_flash_bwd<bf16, NA, FULL>(const BwdParams&, int, void*);  \
+  PREFIX template int launch_flash_bwd<float, NA, FULL>(const BwdParams&, int, void*);
+
+VT_FLASH_BWD_TIER(extern, 1, false)
+VT_FLASH_BWD_TIER(extern, 2, false)
+
+template <typename TG>
+int launch_flash_bwd_d(const BwdParams& p, int batch, int d, void* stream) {
+  return by_head_tier(d, [&](auto na, auto full) {
+    return launch_flash_bwd<TG, decltype(na)::value, decltype(full)::value>(p, batch, stream);
+  });
 }
 
 }  // namespace flash

@@ -3,10 +3,12 @@
 // (#10) and the bias-tensor attention (#14): one key loop for Hopper, a
 // score policy chosen at compile time.
 //
-//   out = softmax(Q K^T / sqrt(64) + score policy) V  per (batch b, head h)
+//   out = softmax(Q K^T / sqrt(D) + score policy) V  per (batch b, head h)
 //
-// on bf16 q [Lq, 64] and k / v [Lk, 64] slices read through their element
-// strides (Geom, flash_attention.cuh), out bf16 through its own.
+// on bf16 q [Lq, D] and k / v [Lk, D] slices read through their element
+// strides (Geom, flash_attention.cuh), out bf16 through its own, for any
+// head width D a multiple of 8 up to 128 (the widths the Pallas kernels
+// take, which pad D to 128 lanes).
 //
 // Score policies:
 //  - mask (kMask, #1 / #10 / #11): the in-kernel mask of
@@ -43,9 +45,19 @@
 //
 // Design.  A block of one warpgroup (128 threads) owns 64 query rows of one
 // (head, batch) and walks the keys in tiles of 64.
+//  - Head-width tiers (template NA, kFull): a head row is NA 64-column
+//    atoms, each one 128-byte swizzle atom a row (a tile of NA x 8 KB):
+//    D <= 64 on one atom (kFull: D == 64, today's main path, every width
+//    a compile-time constant), 64 < D <= 128 on two.  A width that does
+//    not fill its tier (32, 72, 80) loads its 16-byte chunks up to D and
+//    zero-fills the rest of the tier through cp.async's source size, as
+//    the Pallas wrapper pads D to 128 lanes: zero columns add nothing to S
+//    or O, and only D columns are stored.  S takes ceil(D / 16) k16 steps
+//    (four an atom at the full tiers); O is one n64 product an atom.  The
+//    scale 1 / sqrt(D) is a parameter (0.125 at kFull on one atom).
 //  - S = Q K^T is wgmma m64n64k16 from shared memory (sm90.cuh), Q and K
-//    tiles in the 128-byte-swizzle layout (a 64-wide bf16 head row is one
-//    128-byte atom).  S lives in registers (32 floats a thread).
+//    tiles in the 128-byte-swizzle layout (a 64-column atom of a bf16 head
+//    row is one 128-byte row).  S lives in registers (32 floats a thread).
 //  - The online softmax runs on the accumulator fragment: a thread holds
 //    two rows, the row max and sum are shuffles among the four lanes of a
 //    row; exponentials are ex2 with scale * log2(e) folded into one
@@ -55,8 +67,9 @@
 //    keys equally); the lse is converted back to natural log.
 //  - P goes to the second product in registers: the S fragment converted
 //    to bf16x2 is the A operand of O += P V (wgmma m64n64k16, register A),
-//    with V the MN-major B operand from shared memory (trans-b).  O stays
-//    in registers (32 floats a thread).
+//    with V the MN-major B operand from shared memory (trans-b), one
+//    product an atom of V.  O stays in registers (32 floats a thread an
+//    atom: 64 at the 128-wide tier, beside S's 32).
 //  - K / V tiles (and #14's bias tile) stream through a ring of two
 //    shared-memory stages filled by 16-byte cp.async copies: the copies of
 //    tile t + 1 are issued before the products of tile t, and waited for
@@ -84,6 +97,8 @@
 //    the ring's steady state.
 #pragma once
 
+#include <type_traits>
+
 #include "flash_attention.cuh"
 #include "sm90.cuh"
 
@@ -107,6 +122,8 @@ struct Emit {
 };
 
 struct FwdParams {
+  float scale;  // 1 / sqrt(D)
+  int dch;      // D / 8: the 16-byte chunks of a head row
   const bf16* q;
   const bf16* k;
   const bf16* v;
@@ -160,12 +177,16 @@ __device__ __forceinline__ void emit_int8(const bf16* __restrict__ src, int8_t* 
   }
 }
 
-// Shared-memory layout of one launch: the Q tile, kStages stages of (K, V,
-// bias) each 1024-byte aligned, then (mask policy) the key bit mask and the
-// live tile list.
+// bytes of one 64-row, 64-column bf16 atom of a tile (kBQ == kBK)
+constexpr int kAtom = 64 * 128;
+
+// Shared-memory layout of one launch at NA atoms a head row: the Q tile,
+// kStages stages of (K, V, bias) each 1024-byte aligned, then (mask
+// policy) the key bit mask and the live tile list.
+template <int NA>
 struct FwdLayout {
-  static constexpr int kQBytes = kBQ * 128;
-  static constexpr int kKVBytes = kBK * 128;
+  static constexpr int kQBytes = NA * kAtom;
+  static constexpr int kKVBytes = NA * kAtom;
   static constexpr int kBiasLd = kBK + 8;  // floats: conflict-free float2 reads
   int bias_rows;                           // 0 (none), 1 (one row) or kBQ
   int stage_bytes, n_words, n_tiles, bytes;
@@ -180,10 +201,20 @@ struct FwdLayout {
   }
 };
 
-template <bool kMask, bool kDropout, bool kEmit>
+// the shared offset of 16-byte chunk cc of row r within a tile of atoms:
+// atom cc / 8, swizzled chunk cc % 8 of row r
+__device__ __forceinline__ uint32_t atom_off(int r, int cc) {
+  return (uint32_t)((cc >> 3) * kAtom) + sm90::sw128(r, cc & 7);
+}
+
+// NA: 64-column atoms of a head row; kFull: D == 64 * NA (no chunk is
+// zero-filled; every width a compile-time constant)
+template <bool kMask, bool kDropout, bool kEmit, int NA, bool kFull>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) {
   using namespace sm90;
   constexpr int NJ = kBK / 8;  // 8-key column chunks of the S fragment
+  constexpr int CPR = 8 * NA;  // 16-byte chunks of a tile row
+  using Layout = FwdLayout<NA>;
   static_assert(!kDropout || kMask, "dropout: mask policy only");
 
   extern __shared__ unsigned char smem_raw[];
@@ -197,13 +228,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, tq = lane & 3;
   const int wrow = (tid / 32) * 16 + lane / 4;  // the thread's lower row
-  const FwdLayout lay(Lk, kMask, kMask || p.bias == nullptr ? 0 : (p.bias_r == 0 ? 1 : kBQ));
+  const Layout lay(Lk, kMask, kMask || p.bias == nullptr ? 0 : (p.bias_r == 0 ? 1 : kBQ));
+  const int dch = kFull ? CPR : p.dch;  // the chunks of a head row that are copied
   const size_t qb = head_base(g.q, b, h), kb = head_base(g.k, b, h);
   const size_t vb = head_base(g.v, b, h), ob = head_base(g.o, b, h);
   const int l_enc = Lk - p.dec_len;
 
   unsigned char* q_s = sm;
-  unsigned char* stages = sm + FwdLayout::kQBytes;
+  unsigned char* stages = sm + Layout::kQBytes;
   uint32_t* kbits = reinterpret_cast<uint32_t*>(stages + kStages * lay.stage_bytes);
   int* live = reinterpret_cast<int*>(kbits + lay.n_words);
 
@@ -240,17 +272,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
   // one tile's K, V (and bias) into stage s
   auto load_stage = [&](int s, int t) {
     unsigned char* st = stages + s * lay.stage_bytes;
-    const uint32_t k_dst = smem_addr(st), v_dst = k_dst + FwdLayout::kKVBytes;
+    const uint32_t k_dst = smem_addr(st), v_dst = k_dst + Layout::kKVBytes;
     const int k0 = t * kBK;
-    for (int i = tid; i < kBK * 8; i += kThreads) {
-      const int r = i >> 3, c = i & 7, key = k0 + r;
-      const bool ok = key < Lk;
-      const size_t row = (size_t)(ok ? key : 0);
-      cp_async16(k_dst + sw128(r, c), p.k + kb + row * g.k[2] + c * 8, ok);
-      cp_async16(v_dst + sw128(r, c), p.v + vb + row * g.v[2] + c * 8, ok);
+    for (int i = tid; i < kBK * CPR; i += kThreads) {
+      const int r = (unsigned)i / CPR, cc = (unsigned)i % CPR, key = k0 + r;
+      const bool in = kFull || cc < dch;
+      const bool ok = key < Lk && in;
+      const size_t row = (size_t)(key < Lk ? key : 0);
+      const int col = in ? cc * 8 : 0;
+      cp_async16(k_dst + atom_off(r, cc), p.k + kb + row * g.k[2] + col, ok);
+      cp_async16(v_dst + atom_off(r, cc), p.v + vb + row * g.v[2] + col, ok);
     }
     if (!kMask && lay.bias_rows > 0) {
-      const uint32_t b_dst = v_dst + FwdLayout::kKVBytes;
+      const uint32_t b_dst = v_dst + Layout::kKVBytes;
       const float* src = p.bias + b * p.bias_b;
       if (p.bias_vec16) {
         for (int i = tid; i < lay.bias_rows * (kBK / 4); i += kThreads) {
@@ -260,7 +294,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
           const int bytes = ok ? min(16, (Lk - key) * 4) : 0;
           const float* s_ = ok ? src + qr * p.bias_r + key : p.bias;
           asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                           b_dst + (uint32_t)((r * FwdLayout::kBiasLd + c) * 4)),
+                           b_dst + (uint32_t)((r * Layout::kBiasLd + c) * 4)),
                        "l"(s_), "r"(bytes)
                        : "memory");
         }
@@ -268,7 +302,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
         for (int i = tid; i < lay.bias_rows * kBK; i += kThreads) {
           const int r = i / kBK, c = i % kBK, qr = q0 + r, key = k0 + c;
           const bool ok = qr < Lq && key < Lk;
-          cp_async4(b_dst + (uint32_t)((r * FwdLayout::kBiasLd + c) * 4),
+          cp_async4(b_dst + (uint32_t)((r * Layout::kBiasLd + c) * 4),
                     ok ? src + qr * p.bias_r + key : p.bias, ok);
         }
       }
@@ -279,10 +313,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
   // prologue: Q and the first kStages - 1 tiles, one commit group each
   {
     const uint32_t q_dst = smem_addr(q_s);
-    for (int i = tid; i < kBQ * 8; i += kThreads) {
-      const int r = i >> 3, c = i & 7;
-      const bool ok = q0 + r < Lq;
-      cp_async16(q_dst + sw128(r, c), p.q + qb + (size_t)(ok ? q0 + r : 0) * g.q[2] + c * 8, ok);
+    for (int i = tid; i < kBQ * CPR; i += kThreads) {
+      const int r = (unsigned)i / CPR, cc = (unsigned)i % CPR;
+      const bool in = kFull || cc < dch;
+      const bool ok = q0 + r < Lq && in;
+      cp_async16(q_dst + atom_off(r, cc),
+                 p.q + qb + (size_t)(q0 + r < Lq ? q0 + r : 0) * g.q[2] + (in ? cc * 8 : 0), ok);
     }
   }
 #pragma unroll
@@ -300,14 +336,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
     emit_int8<kThreads>(p.v + bb, p.emit.v8 + bb, p.emit.vs + (size_t)b * Lk, r0, r1, rs);
   }
 
-  const float sl2 = 0.125f * kLog2e;  // 1 / sqrt(64), in the log2 domain
+  // 1 / sqrt(D), in the log2 domain
+  const float sl2 = (kFull && NA == 1 ? 0.125f : p.scale) * kLog2e;
   const uint32_t seed = kDropout ? (uint32_t)(*p.seed) : 0u;
   const int grow_lo = g.row_offset + q0 + wrow, grow_hi = grow_lo + 8;  // global rows
-  float o[32];
+  float o[NA][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  const uint64_t q_desc = desc_sw128(smem_addr(q_s));
+  uint64_t q_desc[NA];  // each atom of the Q tile
+#pragma unroll
+  for (int a = 0; a < NA; ++a) q_desc[a] = desc_sw128(smem_addr(q_s) + a * kAtom);
+  const int ksteps = kFull ? 4 * NA : (dch + 1) / 2;  // k16 steps of S: ceil(D / 16)
 
   for (int i = 0; i < n_live; ++i) {
     cp_async_wait<kStages - 2>();
@@ -318,14 +360,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
 
     const int t = tile_of(i), k0 = t * kBK;
     unsigned char* st = stages + (i % kStages) * lay.stage_bytes;
-    const uint32_t k_addr = smem_addr(st), v_addr = k_addr + FwdLayout::kKVBytes;
+    const uint32_t k_addr = smem_addr(st), v_addr = k_addr + Layout::kKVBytes;
 
-    // S = Q K^T
+    // S = Q K^T over the head row's atoms
     float s[kBK / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(s, q_desc + 2 * kk, desc_sw128(k_addr) + 2 * kk, kk > 0);
+    for (int kt = 0; kt < 4 * NA; ++kt)
+      if (kFull || kt < ksteps)
+        wgmma_ss_n64(s, q_desc[kt / 4] + 2 * (kt % 4),
+                     desc_sw128(k_addr + (kt / 4) * kAtom) + 2 * (kt % 4), kt > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -366,7 +410,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
     } else {
       raw = raw && lay.bias_rows == 0;
       if (!raw) {
-        const float* bs = reinterpret_cast<const float*>(st + 2 * FwdLayout::kKVBytes);
+        const float* bs = reinterpret_cast<const float*>(st + 2 * Layout::kKVBytes);
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -375,7 +419,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
             float2 bv = make_float2(0.f, 0.f);
             if (lay.bias_rows > 0)
               bv = *reinterpret_cast<const float2*>(
-                  bs + (lay.bias_rows == 1 ? 0 : (wrow + 8 * hh) * FwdLayout::kBiasLd) + c);
+                  bs + (lay.bias_rows == 1 ? 0 : (wrow + 8 * hh) * Layout::kBiasLd) + c);
             float x0 = s[4 * j + 2 * hh] * sl2 + bv.x * kLog2e;
             float x1 = s[4 * j + 2 * hh + 1] * sl2 + bv.y * kLog2e;
             if (tail && k0 + c >= Lk) x0 = -INFINITY;
@@ -442,12 +486,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
 
     // O = O * corr + P V
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[4 * j] *= corr_lo;
-      o[4 * j + 1] *= corr_lo;
-      o[4 * j + 2] *= corr_hi;
-      o[4 * j + 3] *= corr_hi;
-    }
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[a][4 * j] *= corr_lo;
+        o[a][4 * j + 1] *= corr_lo;
+        o[a][4 * j + 2] *= corr_hi;
+        o[a][4 * j + 3] *= corr_hi;
+      }
     uint32_t a[kBK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -457,13 +503,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
       a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
     wgmma_fence();
-    fence_regs(o);
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_rs_n64_tb(o, a[kk], desc_sw128(v_addr + kk * 2048));
+    for (int at = 0; at < NA; ++at) fence_regs(o[at]);
+#pragma unroll
+    for (int at = 0; at < NA; ++at)
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs_n64_tb(o[at], a[kk], desc_sw128(v_addr + at * kAtom + kk * 2048));
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(o);
+#pragma unroll
+    for (int at = 0; at < NA; ++at) fence_regs(o[at]);
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
       asm volatile("" ::"r"(a[kk][0]), "r"(a[kk][1]), "r"(a[kk][2]), "r"(a[kk][3]) : "memory");
@@ -498,15 +548,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
   f_hi /= l_hi;
   const int r_lo = q0 + wrow, r_hi = r_lo + 8;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + 2 * tq;
-    if (r_lo < Lq)
-      *reinterpret_cast<uint32_t*>(p.out + ob + (size_t)r_lo * g.o[2] + c) =
-          pack_bf16(o[4 * j] * f_lo, o[4 * j + 1] * f_lo);
-    if (r_hi < Lq)
-      *reinterpret_cast<uint32_t*>(p.out + ob + (size_t)r_hi * g.o[2] + c) =
-          pack_bf16(o[4 * j + 2] * f_hi, o[4 * j + 3] * f_hi);
-  }
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 64 * a + 8 * j + 2 * tq;
+      if (!kFull && c >= 8 * dch) continue;  // a zero-filled column of the tier
+      if (r_lo < Lq)
+        *reinterpret_cast<uint32_t*>(p.out + ob + (size_t)r_lo * g.o[2] + c) =
+            pack_bf16(o[a][4 * j] * f_lo, o[a][4 * j + 1] * f_lo);
+      if (r_hi < Lq)
+        *reinterpret_cast<uint32_t*>(p.out + ob + (size_t)r_hi * g.o[2] + c) =
+            pack_bf16(o[a][4 * j + 2] * f_hi, o[a][4 * j + 3] * f_hi);
+    }
   if (kMask && p.lse != nullptr && tq == 0) {
     const size_t stat = ((size_t)b * p.heads + h) * Lq;
     if (r_lo < Lq) p.lse[stat + r_lo] = (filled_lo ? kNeg : m_lo * kLn2) + logf(l_lo);
@@ -515,11 +568,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
 }
 
 // launch one forward over grid (q tiles, heads, batch) on `stream`
-template <bool kMask, bool kDropout, bool kEmit>
+template <bool kMask, bool kDropout, bool kEmit, int NA, bool kFull>
 int launch_flash_fwd(const FwdParams& p, int batch, void* stream) {
-  auto kernel = flash_fwd_kernel<kMask, kDropout, kEmit>;
+  auto kernel = flash_fwd_kernel<kMask, kDropout, kEmit, NA, kFull>;
   const int bias_rows = kMask || p.bias == nullptr ? 0 : (p.bias_r == 0 ? 1 : kBQ);
-  const FwdLayout lay(p.g.Lk, kMask, bias_rows);
+  const FwdLayout<NA> lay(p.g.Lk, kMask, bias_rows);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return (int)err;
@@ -527,6 +580,37 @@ int launch_flash_fwd(const FwdParams& p, int batch, void* stream) {
   kernel<<<grid, kThreads, lay.bytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+// The forms of one head-width tier (NA, kFull): the three mask-policy
+// forms (plain, dropout, int8 emission) and the bias policy.  Only the
+// D == 64 tier is compiled beside its entry points; the others are
+// instantiated in flash_fwd_narrow.cu (D < 64) and flash_fwd_wide.cu (64 <
+// D <= 128), so that the build compiles the tiers in parallel, and
+// declared extern (PREFIX) where they are called.
+#define VT_FLASH_FWD_TIER(PREFIX, NA, FULL)                                                    \
+  PREFIX template int launch_flash_fwd<true, false, false, NA, FULL>(const FwdParams&, int,   \
+                                                                     void*);                  \
+  PREFIX template int launch_flash_fwd<true, true, false, NA, FULL>(const FwdParams&, int,    \
+                                                                    void*);                   \
+  PREFIX template int launch_flash_fwd<true, false, true, NA, FULL>(const FwdParams&, int,    \
+                                                                    void*);                   \
+  PREFIX template int launch_flash_fwd<false, false, false, NA, FULL>(const FwdParams&, int,  \
+                                                                      void*);
+
+// dispatch one launch to the tier of head width d (a multiple of 8, 8 <= d
+// <= 128; the entry points check it) with the policy chosen by F
+template <typename F>
+int by_head_tier(int d, F&& f) {
+  if (d == 64) return f(std::integral_constant<int, 1>(), std::true_type());
+  if (d < 64) return f(std::integral_constant<int, 1>(), std::false_type());
+  return f(std::integral_constant<int, 2>(), std::false_type());
+}
+
+// whether the flash bodies take head width d
+inline bool head_width_ok(int d) { return d >= 8 && d <= 128 && d % 8 == 0; }
+
+VT_FLASH_FWD_TIER(extern, 1, false)
+VT_FLASH_FWD_TIER(extern, 2, false)
 
 }  // namespace flash
 }  // namespace vt

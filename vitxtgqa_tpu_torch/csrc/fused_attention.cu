@@ -5,9 +5,12 @@
 // or none at >= 256 keys, more than one query row and no dropout: the
 // ViT's self-attention (vitxtgqa_tpu/models/vit.py, mha(q, k, v) with no
 // bias) once its token count reaches 256.  Computes per (batch b, head h)
-//   out = softmax(Q K^T / sqrt(64) + bias) V
-// on bf16 q [B, H, Lq, 64], k / v [B, H, Lk, 64] given by element strides
-// (the split-head views of a [B, L, H*64] projection need no copy), with an
+//   out = softmax(Q K^T / sqrt(D) + bias) V
+// on bf16 q [B, H, Lq, D], k / v [B, H, Lk, D] given by element strides
+// (the split-head views of a [B, L, H*D] projection need no copy), any head
+// width D a multiple of 8 up to 128 (flash_fwd.cuh's tiers: ViT-H/14's 80
+// on the 128-wide tier, zero-filled past D as the Pallas wrapper pads D to
+// 128 lanes, so the result is the padded kernel's), with an
 // f32 bias broadcast over the query rows ([B, 1, 1, Lk]: row stride 0) or
 // per row ([B, 1, Lq, Lk]), or none.  Scores are f32 (s * scale + bias,
 // as the Pallas kernel adds its bias after the scale); the Pallas wrapper
@@ -33,7 +36,7 @@
 // point only.
 #include "flash_fwd.cuh"
 
-// q [B, H, Lq, 64], k / v [B, H, Lk, 64], out [B, H, Lq, 64] bf16, each
+// q [B, H, Lq, D], k / v [B, H, Lk, D], out [B, H, Lq, D] bf16, each
 // through its (batch, head, row) element strides, the last dimension
 // contiguous and every row 16-byte aligned; bias f32 through its (batch,
 // row) strides (row stride 0: one row for all queries), or null.
@@ -43,7 +46,7 @@ extern "C" int vt_fused_attention(const void* q, const void* k, const void* v, c
                                   void* out, const void* strides, int batch, int num_heads,
                                   int len_q, int len_k, int head_dim, void* stream) {
   using namespace vt::flash;
-  if (head_dim != HD || batch <= 0 || num_heads <= 0 || len_q <= 0 || len_k <= 0)
+  if (!head_width_ok(head_dim) || batch <= 0 || num_heads <= 0 || len_q <= 0 || len_k <= 0)
     return (int)cudaErrorInvalidValue;
   const long long* s = (const long long*)strides;
   FwdParams p = {};
@@ -51,15 +54,20 @@ extern "C" int vt_fused_attention(const void* q, const void* k, const void* v, c
   p.k = (const vt::bf16*)k;
   p.v = (const vt::bf16*)v;
   p.out = (vt::bf16*)out;
-  p.g = merged_geom(len_k, num_heads);
+  p.g = merged_geom(len_k, num_heads, head_dim);
   read_strides(p.g, s, 4);
   p.g.Lq = len_q;
   p.heads = num_heads;
   p.l_pad = (len_k + 127) / 128 * 128;
   p.keep_scale = 1.0f;
+  p.dch = head_dim / 8;
+  p.scale = 1.0f / sqrtf((float)head_dim);
   p.bias = (const float*)bias;
   p.bias_b = s[12];
   p.bias_r = s[13];
   p.bias_vec16 = ((uintptr_t)bias % 16 == 0 && p.bias_b % 4 == 0 && p.bias_r % 4 == 0) ? 1 : 0;
-  return launch_flash_fwd<false, false, false>(p, batch, stream);
+  return by_head_tier(head_dim, [&](auto na, auto full) {
+    return launch_flash_fwd<false, false, false, decltype(na)::value, decltype(full)::value>(
+        p, batch, stream);
+  });
 }

@@ -1,725 +1,26 @@
-// One greedy-decode step through every MMT layer in ONE launch.
-//
-// Replaces: vitxtgqa_tpu/ops/pallas_decode_step.py:fused_decode_step (the
-// Pallas body _fused_step_kernel).  Per layer l, for each batch row:
-//   q, k_t, v_t = bf16(x Wq^T + bq), bf16(x Wk^T + bk), bf16(x Wv^T + bv)
-//   k8_t, k_sc = quantize(k_t)   (bit for bit ops/attention.quantize_kv:
-//   v8_t, v_sc = quantize(v_t)    amax over the bf16 values, IEEE divide,
-//                                 round half to even, clip to +-127)
-//   attention of q over the packed int8 cache kv8 / kvs with the decoder
-//   slots write_offset <= j < pos allowed, other masked keys at -1e30, and
-//   slot pos = write_offset + step taken from (k8_t, k_sc) / (v8_t, v_sc)
-//   in registers instead of the cache: its weight w_cur enters as
-//   w_cur * (v8_t * v_sc) in f32, outside the bf16-rounded w * vs product;
-//   x1 = LN1(x + ctx Wo^T + bo);  h = bf16(gelu_erf(bf16(x1) W1^T + b1))
-//   x  = bf16(LN2(x1 + h W2^T + b2))      -> next layer's input
-// Outputs: y (the last layer's x), the quantized rows row8 [L, B, 2*H*D]
-// (K | V) and their scales rowsc [L, B, 2].  The caller commits the rows at
-// write_offset + step after the launch; the kernel never reads that slot.
-// Weights arrive in torch nn.Linear layout ([out, in], bf16, stacked over
-// layers); biases and LayerNorm parameters in f32 [L, width].
-//
-// What bounds it on the H100: at the main path's widths, at batch 1-2 the
-// weight reads, 14.2 MB per layer (42.5 MB per 3-layer step; ~13 us at
-// 3.35 TB/s), plus 3.5 MB of int8 cache per row and layer; the FLOPs (2 per weight byte per row) are
-// negligible.  The per-layer dependencies cost grid-wide barriers, and
-// every phase between two barriers is a chain of memory latencies.
-//
-// Design: a persistent cooperative kernel, one block of 384 threads per SM
-// (at most 168 registers a thread), four phases a layer with
-// cooperative_groups::this_grid().sync() between them, where the first
-// version had five and put each (row, head) unit's attention on one block
-// (PERF.md section 6 has the phase times that chose this):
-//  A. LN2 of the previous layer (every block, from the f32 rows staged in
-//     shared memory), then the Q/K/V GEMV;
-//  B. attention and Wo: each (batch row, head) unit is cut into key spans
-//     that together fill the grid.  Every block of a unit scores all its
-//     keys (so each forms the same softmax max and sum, and the weights
-//     round after normalising as in the twin), then weighs V over its own
-//     span only and writes that f32 partial; the unit's blocks meet at a
-//     counter (no grid barrier), each sums the unit's partials in span order
-//     into ctx_h (bf16), and each multiplies ctx_h by its share of the
-//     output rows of Wo[:, h], writing the head's f32 partial of ctx Wo^T;
-//  C. x1 = LN1(x + sum of the head partials in head order + bo) in every
-//     block, then the W1 GEMV with the gelu;
-//  D. the W2 GEMV, x1 + h W2^T + b2 -> the next layer's pre-LN rows.
-// Each GEMV gives a warp several weight rows at once (one row of 3,072, or
-// four of 768, on the main path), the groups of rows dealt to the blocks in
-// turn so that every SM streams, and issues all of a lane's 16-byte loads
-// of them before the phase's input is formed (the LayerNorm, the staging of
-// h), so twelve loads a lane are in flight under it.  A weight of K input
-// columns takes one of two forms (gemv): four rows a warp in pieces of 768
-// columns where K <= 1,536, else one row a warp in pieces of 3,072 (the
-// kernel is instantiated per pair of forms); a piece is twelve loads a
-// lane, the last one masked where K ends inside it, and the next piece's
-// loads go out before the dots of this one are reduced.  The GEMV inputs are bf16 values (the layer input, bf16(LN1)
-// and h), held as bf16 in shared memory.  Before the attention phase each
-// warp prefetches its W1 and W2 rows into L2 (cp.async.bulk.prefetch), and
-// before the W2 phase its next-layer Q/K/V rows.  Scratch written inside
-// the launch is read back with __ldcg (L2, not the non-coherent L1 path).
-// The grid and the shared-memory attribute are computed once per device
-// and shared-memory size.  The widths are runtime values: the hidden width
-// D = H x 64, a multiple of 128 up to 2,048, the FFN width M, a multiple of
-// 128 up to 8,192 (the main path's MMT: 768, 3,072, 12 heads), at most 8
-// batch rows, and the cache at most 1,152 slots; the wrapper raises on
-// others.  Shared memory holds the f32 pre-LN rows [B][D], the bf16 layer
-// input [B][D] and the GEMV input [B][max(D, M)] in bf16, which the
-// attention scratch shares: 229,440 bytes at B = 8, D = 2,048, M = 8,192,
-// within the 232,448 a block may take.
-#include <cooperative_groups.h>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+// One greedy-decode step through every MMT layer in ONE launch (#5): the
+// entry point and the main path's form.  The kernel, its note (what it
+// replaces, its bound, its design) and its forms are in
+// fused_decode_step.cuh; the main path's MMT (768 / 3,072, 12 heads of 64,
+// at most 1,152 slots) compiles here with its widths as constants (read at
+// run time they cost its batch-1 step 57% on the H100: PERF.md section 6),
+// the run-time forms in fused_decode_step_{b2,b8}_{h64,h128}.cu.
+#include "fused_decode_step.cuh"
 
 namespace vt {
 namespace step {
 
-constexpr int NT = 384;
-constexpr int NW = NT / 32;
-constexpr int HD = 64;
-constexpr int MAXB = 8;
-constexpr int kMaxD = 2048, kMaxM = 8192;  // the widest hidden and FFN widths
-constexpr int kLoads = 12;          // a lane's 16-byte weight loads in flight
-constexpr int kNarrowK = 1536;      // the widest K of the four-row GEMV form
-constexpr int kMaxLp = 1152;        // cache slots (the exact serving sequence)
-constexpr int kMaxSpans = 16;       // key spans of one (row, head) unit
-constexpr float kFill = -1e30f;     // pallas_decode_step.py _NEG
-// attention scratch beyond the scores: qh, cur (k8 | v8), per-warp partial
-// outputs, reduction scratch, scalars, ctx_h
-constexpr int kAttnExtra = HD + 2 * HD + NW * HD + 32 + 8 + HD;
-constexpr int kAttnBytes = (kMaxLp + kAttnExtra) * 4;
-
-// the dynamic shared memory of a launch: x1 f32 [B][D], xs bf16 [B][D],
-// the GEMV input bf16 [B][max(D, M)] or the attention scratch, the
-// LayerNorm statistics f32 [B][2]
-__host__ __device__ constexpr int act_bytes(int B, int D, int M) {
-  return 2 * B * (D > M ? D : M) > kAttnBytes ? 2 * B * (D > M ? D : M) : kAttnBytes;
-}
-__host__ __device__ constexpr int smem_bytes(int B, int D, int M) {
-  return 4 * B * D + 2 * B * D + act_bytes(B, D, M) + 8 * B;
-}
-static_assert(smem_bytes(MAXB, kMaxD, kMaxM) <= 232448, "the widest launch fits an SM");
-
-struct Params {
-  const bf16* x;                                                 // [B, D]
-  const bf16 *wq, *wk, *wv, *wo, *w1, *w2;                       // [L, out, in]
-  const float *bq, *bk, *bv, *bo, *s1, *g1, *b1, *b2, *s2, *g2;  // [L, out]
-  const int8_t* kv8;                                             // [L, B, Lp, 2*D]
-  const float* kvs;                                              // [L, B, 2, Lp]
-  const float* mask;                                             // [B, Lp]
-  bf16* y;                                                       // [B, D]
-  int8_t* row8;                                                  // [L, B, 2*D]
-  float* rowsc;                                                  // [L, B, 2]
-  bf16* qkv;                                                     // [B, 3*D] scratch
-  float* pre;                                                    // [B, D] pre-LN rows
-  bf16* h;                                                       // [B, M] scratch
-  float* opart;                                                  // [H, B, D] ctx_h Wo[:, h]^T
-  float* apart;                                                  // [B*H, spans, HD] V partials
-  int* arrive;                                                   // [B*H] span counters
-  int L, B, Lp, step, write_offset, spans;
-  int D, M, H;                                                   // hidden, FFN, heads
-  float eps, scale;
-};
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return x * 0.5f * (1.0f + erff(x * 0.7071067811865476f));
+// the main path's form: its widths and cache bound at compile time
+inline bool main_form(const Params& p) {
+  return p.D == 768 && p.M == 3072 && p.H == 12 && p.Lp <= kMainLp;
 }
 
-__device__ __forceinline__ int8_t quantize(float x, float sc) {
-  return (int8_t)fminf(fmaxf(rintf(x / sc), -127.f), 127.f);
-}
-
-// an asynchronous L2 prefetch of `bytes` (a multiple of 16) from p
-__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bf16x8(uint4 raw, float (&w)[8]) {
-  const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int t = 0; t < 8; ++t) w[t] = __bfloat162float(e[t]);
-}
-
-// the first row of this warp's first group of R rows: groups go to the
-// blocks in turn, so that a phase's rows spread over every SM
-__device__ __forceinline__ int first_group() {
-  return (threadIdx.x / 32) * gridDim.x + blockIdx.x;
-}
-
-// The two GEMV forms: four rows a warp in pieces of 3 x 256 columns (K up
-// to kNarrowK), or one row in pieces of 12 x 256.  The kernel is a
-// template on the form of its D-column weights (Q/K/V, W1) and of its
-// M-column one (W2), so each call site holds one form's registers.
-struct Rows4 {
-  static constexpr int C = 3, R = 4;
-};
-struct Rows1 {
-  static constexpr int C = 12, R = 1;
-};
-__host__ __device__ constexpr bool narrow_k(int K) { return K <= kNarrowK; }
-
-// out[b][n] = act[b, :] . W[n, :] for the N rows of one [N, K] weight (K a
-// multiple of 128): a warp takes R consecutive rows at once, in pieces of
-// C x 256 columns, and loads a piece of all R rows (R x C = kLoads loads a
-// lane; where K ends inside a piece the loads past it are skipped) before
-// it uses any.  The warp's first loads are issued before prep(), which
-// every thread calls and which fills act ([B][K] bf16 in shared memory, B
-// <= MB) and ends in a block barrier, so the weights stream while the
-// input is formed; each later piece's loads (the next piece, or the next
-// group's first) go out before the dots of the current one are reduced.
-// epi(b, n, acc) consumes each dot on lane 0.  F: the form (Rows4, Rows1).
-template <class F, int MB, typename Row, typename Prep, typename Epi>
-__device__ __forceinline__ void gemv(Row wrow, const bf16* act, int K, int N, int B, Prep prep,
-                                     Epi epi) {
-  constexpr int C = F::C, R = F::R;
-  static_assert(R * C == kLoads, "a piece is kLoads loads a lane");
-  const int lane = threadIdx.x % 32;
-  const int step = gridDim.x * NW * R;
-  const int pieces = (K + C * 256 - 1) / (C * 256);
-  uint4 raw[R][C];
-  auto load = [&](int n0, int pc) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const bf16* wr = wrow(min(n0 + r, N - 1));
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        const int k = (pc * C + i) * 256 + lane * 8;
-        if (k < K) raw[r][i] = __ldg(reinterpret_cast<const uint4*>(wr + k));
-      }
-    }
-  };
-  int n0 = first_group() * R;
-  if (n0 < N) load(n0, 0);
-  prep();
-  for (; n0 < N; n0 += step) {
-    float acc[R][MB];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int b = 0; b < MB; ++b) acc[r][b] = 0.f;
-    for (int pc = 0; pc < pieces; ++pc) {
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        const int k0 = (pc * C + i) * 256 + lane * 8;
-        if (k0 < K) {
-#pragma unroll
-          for (int b = 0; b < MB; ++b) {
-            if (b < B) {
-              float a[8];
-              bf16x8(*reinterpret_cast<const uint4*>(act + b * K + k0), a);
-#pragma unroll
-              for (int r = 0; r < R; ++r) {
-                float w[8];
-                bf16x8(raw[r][i], w);
-                acc[r][b] += a[0] * w[0] + a[1] * w[1] + a[2] * w[2] + a[3] * w[3] +
-                             a[4] * w[4] + a[5] * w[5] + a[6] * w[6] + a[7] * w[7];
-              }
-            }
-          }
-        }
-      }
-      if (pc + 1 < pieces) load(n0, pc + 1);
-      else if (n0 + step < N) load(n0 + step, 0);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int b = 0; b < MB; ++b) {
-        if (b < B) {
-          const float s = warp_sum(acc[r][b]);
-          if (lane == 0 && n0 + r < N) epi(b, n0 + r, s);
-        }
-      }
-  }
-}
-
-// prefetch into L2 the weight rows this warp's gemv in the form F will read
-// (a group of R rows is contiguous; N is a multiple of R): one bulk
-// prefetch a group
-template <class F, typename Row>
-__device__ __forceinline__ void prefetch_rows(Row wrow, int N, int K) {
-  constexpr int R = F::R;
-  if (threadIdx.x % 32) return;
-  for (int n0 = first_group() * R; n0 < N; n0 += gridDim.x * NW * R)
-    prefetch_l2(wrow(n0), R * K * 2);
-}
-
-// LayerNorm of the B rows of src (shared memory, f32, D wide) with the f32
-// scale / shift: a warp forms each row's statistics, then every thread
-// normalises elements.  Each output is nullable: out_f32 (shared) takes
-// the f32 result, out_bfs (shared) and out_bf (global) the bf16 values.
-// Safe in place (out_f32 == src); stats is 2 * B floats of shared scratch.
-// Ends in a block barrier.
-template <int KD>
-__device__ void layer_norm_rows(const float* src, const float* gamma, const float* beta, int B,
-                                int d, float eps, float* stats, float* out_f32, bf16* out_bfs,
-                                bf16* out_bf) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, D = KD ? KD : d;
-  for (int b = warp; b < B; b += NW) {
-    const float* r = src + b * D;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += r[c];
-    const float mu = warp_sum(s) / D;
-    float v = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = r[c] - mu;
-      v += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(v) / D + eps);
-    if (lane == 0) stats[2 * b] = mu, stats[2 * b + 1] = inv;
-  }
-  __syncthreads();
-  constexpr int kU = 4;  // elements a thread, their scale / shift loaded together
-  for (int i0 = threadIdx.x; i0 < B * D; i0 += kU * NT) {
-    float gv[kU], bv[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int c = (i0 + u * NT) % D;
-      gv[u] = __ldg(gamma + c);
-      bv[u] = __ldg(beta + c);
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int i = i0 + u * NT, b = i / D;
-      if (i >= B * D) break;
-      const float y = (src[i] - stats[2 * b]) * stats[2 * b + 1] * gv[u] + bv[u];
-      if (out_f32) out_f32[i] = y;
-      if (out_bfs) out_bfs[i] = __float2bfloat16(y);
-      if (out_bf) out_bf[i] = __float2bfloat16(y);
-    }
-  }
-  __syncthreads();
-}
-
-// dst[i] = src[i] for count f32 values written in this launch
-__device__ __forceinline__ void stage_f32(float* dst, const float* src, int count) {
-  for (int i = threadIdx.x * 4; i < count; i += NT * 4)
-    *reinterpret_cast<float4*>(dst + i) = __ldcg(reinterpret_cast<const float4*>(src + i));
-}
-
-// dst[i] = src[i] for count bf16 values written in this launch
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, int count) {
-  for (int i = threadIdx.x * 8; i < count; i += NT * 8)
-    *reinterpret_cast<uint4*>(dst + i) = __ldcg(reinterpret_cast<const uint4*>(src + i));
-}
-
-// four int8 of a word as exact floats: each byte, biased by 128, becomes
-// the mantissa of 2^23 (a byte permute and a subtraction, no conversion)
-__device__ __forceinline__ void i8x4(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
-  f[1] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
-  f[2] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
-  f[3] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
-}
-
-__device__ __forceinline__ void i8x16(int4 w, float (&f)[16]) {
-  i8x4((uint32_t)w.x, f);
-  i8x4((uint32_t)w.y, f + 4);
-  i8x4((uint32_t)w.z, f + 8);
-  i8x4((uint32_t)w.w, f + 12);
-}
-
-// the shared attention scratch of one unit (kMaxLp + kAttnExtra floats)
-struct AttnSmem {
-  float *s, *qh, *cur, *part, *red, *scal, *ctxh;
-  __device__ explicit AttnSmem(float* sm) {
-    s = sm;
-    qh = s + kMaxLp;
-    cur = qh + HD;
-    part = cur + 2 * HD;
-    red = part + NW * HD;
-    scal = red + 32;
-    ctxh = scal + 8;
-  }
-};
-
-constexpr int kKeyPass = NT / 4;              // keys a pass: four lanes a key
-constexpr int kBatch = 4;                     // key passes whose loads are in flight together
-constexpr int kKeyIts = kMaxLp / NT;          // keys a thread in the masking pass
-constexpr int kVPre = 2;                      // V passes of a span loaded early
-
-// Attention of one (batch row b, head h) unit of layer l over key span sp of
-// S: the new row's quantization (span 0 writes row8 / rowsc), the scores and
-// softmax over all keys, the weighted V rows of the span -> apart.  Four
-// lanes share a key, sixteen channels each (int8 to f32 by byte permutes);
-// the span's first V rows and scales load under the softmax.
-template <int KD>
-__device__ void attention_span(const Params& p, int l, int b, int h, int sp, int S,
-                               const AttnSmem& a) {
-  const int tid = threadIdx.x, ch = tid % 4, D = KD ? KD : p.D, H = KD ? KD / HD : p.H;
-  const bf16* qkv = p.qkv + (size_t)b * 3 * D;
-  const int pos = p.write_offset + p.step;
-  const size_t cache0 = ((size_t)l * p.B + b) * p.Lp;
-  const int8_t* kv = p.kv8 + cache0 * 2 * D + h * HD + ch * 16;
-  const float* ks = p.kvs + ((size_t)l * p.B + b) * 2 * p.Lp;
-  const float* vs = ks + p.Lp;
-  const float* mask = p.mask + (size_t)b * p.Lp;
-  const int j0 = sp * p.Lp / S, j1 = (sp + 1) * p.Lp / S;
-  // every key's mask and K scale (a key a thread), loaded first
-  float mk[kKeyIts], ksk[kKeyIts];
-#pragma unroll
-  for (int it = 0; it < kKeyIts; ++it) {
-    const int j = tid + it * NT;
-    if (j < p.Lp) mk[it] = mask[j], ksk[it] = ks[j];
-  }
-
-  // the new row's scales from the amax over all heads (bf16 values): the K
-  // row then the V row, eight values a thread at a time
-  float ka = 0.f, va = 0.f;
-  for (int c = tid * 8; c < 2 * D; c += NT * 8) {
-    float w[8];
-    bf16x8(__ldcg(reinterpret_cast<const uint4*>(qkv + D + c)), w);
-    float m = 0.f;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) m = fmaxf(m, fabsf(w[t]));
-    if (c < D) ka = fmaxf(ka, m);
-    else va = fmaxf(va, m);
-  }
-  ka = block_max(ka, a.red);
-  va = block_max(va, a.red);
-  const float k_sc = fmaxf(ka, 1e-6f) / 127.f;
-  const float v_sc = fmaxf(va, 1e-6f) / 127.f;
-  int8_t* r8 = p.row8 + ((size_t)l * p.B + b) * 2 * D;
-  if (tid < HD) {
-    const int c = h * HD + tid;
-    a.qh[tid] = __bfloat162float(__ldcg(qkv + c));
-    const int8_t k8 = quantize(__bfloat162float(__ldcg(qkv + D + c)), k_sc);
-    const int8_t v8 = quantize(__bfloat162float(__ldcg(qkv + 2 * D + c)), v_sc);
-    a.cur[tid] = (float)k8;
-    a.cur[HD + tid] = (float)v8;
-    if (sp == 0) {
-      r8[c] = k8;
-      r8[D + c] = v8;
-    }
-  }
-  if (h == 0 && sp == 0 && tid == 0) {
-    p.rowsc[((size_t)l * p.B + b) * 2] = k_sc;
-    p.rowsc[((size_t)l * p.B + b) * 2 + 1] = v_sc;
-  }
-  __syncthreads();
-
-  float qr[16];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) qr[t] = a.qh[ch * 16 + t];
-  float cur_sc = 0.f;  // the current token's score (slot pos)
-  for (int t = 0; t < HD; ++t) cur_sc += a.qh[t] * a.cur[t];
-  cur_sc *= k_sc * p.scale;
-  // q . k of every key, kBatch passes' loads in flight at a time
-  for (int it0 = 0; it0 * kKeyPass < p.Lp; it0 += kBatch) {
-    int4 kr[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int j = tid / 4 + (it0 + u) * kKeyPass;
-      if (j < p.Lp && j != pos) kr[u] = __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * D));
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int j = tid / 4 + (it0 + u) * kKeyPass;
-      float part = 0.f;
-      if (j < p.Lp && j != pos) {
-        float kf[16];
-        i8x16(kr[u], kf);
-#pragma unroll
-        for (int t = 0; t < 16; ++t) part += qr[t] * kf[t];
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      if (ch == 0 && j < p.Lp) a.s[j] = part;
-    }
-  }
-  __syncthreads();
-  // the scores: scaled, masked, the current token's from registers
-  float lmax = -INFINITY;
-#pragma unroll
-  for (int it = 0; it < kKeyIts; ++it) {
-    const int j = tid + it * NT;
-    if (j >= p.Lp) break;
-    float sc;
-    if (j == pos) sc = cur_sc;
-    else if (mk[it] > 0.f || (j >= p.write_offset && j < pos)) sc = a.s[j] * (ksk[it] * p.scale);
-    else sc = kFill;
-    a.s[j] = sc;
-    lmax = fmaxf(lmax, sc);
-  }
-  int4 vr[kVPre];
-  float vsr[kVPre];
-#pragma unroll
-  for (int it = 0; it < kVPre; ++it) {
-    const int j = j0 + tid / 4 + it * kKeyPass;
-    if (j < j1 && j != pos) {
-      vr[it] = __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * D + D));
-      vsr[it] = vs[j];
-    }
-  }
-  const float mx = block_max(lmax, a.red);
-  float lsum = 0.f;
-  for (int j = tid; j < p.Lp; j += NT) {
-    const float e = expf(a.s[j] - mx);
-    a.s[j] = e;
-    lsum += e;
-  }
-  const float total = block_sum(lsum, a.red);
-  if (tid == 0) {
-    a.scal[0] = a.s[pos] / total;  // w_cur
-    a.scal[1] = v_sc;
-  }
-
-  // the span's weights x V: a lane owns 16 channels of one key; a warp
-  // covers 8 keys, the block 96 keys per pass; each weight is rounded
-  // after normalising (slot pos is skipped: w_cur enters in head_out);
-  // lanes that share channels reduce by shuffles, the warps through shared
-  // memory
-  const int lane = tid % 32, warp = tid / 32;
-  float acc[16];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) acc[t] = 0.f;
-  auto weigh = [&](int j, int4 raw, float vsj) {
-    const float w = round_bf16(a.s[j] / total * vsj);
-    if (w != 0.f) {
-      float vf[16];
-      i8x16(raw, vf);
-#pragma unroll
-      for (int t = 0; t < 16; ++t) acc[t] += w * vf[t];
-    }
-  };
-#pragma unroll
-  for (int it = 0; it < kVPre; ++it) {
-    const int j = j0 + tid / 4 + it * kKeyPass;
-    if (j < j1 && j != pos) weigh(j, vr[it], vsr[it]);
-  }
-  for (int j = j0 + tid / 4 + kVPre * kKeyPass; j < j1; j += kKeyPass)
-    if (j != pos) weigh(j, __ldg(reinterpret_cast<const int4*>(kv + (size_t)j * 2 * D + D)), vs[j]);
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], 4);
-    acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], 8);
-    acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], 16);
-  }
-  if (lane < 4) {
-#pragma unroll
-    for (int t = 0; t < 16; ++t) a.part[warp * HD + ch * 16 + t] = acc[t];
-  }
-  __syncthreads();
-  if (tid < HD) {
-    float o = 0.f;
-#pragma unroll
-    for (int i = 0; i < NW; ++i) o += a.part[i * HD + tid];
-    p.apart[((size_t)(b * H + h) * S + sp) * HD + tid] = o;
-  }
-}
-
-// wait until `count` arrivals at *counter, this block's included (the
-// blocks of one unit; co-resident under the cooperative launch)
-__device__ __forceinline__ void unit_barrier(int* counter, int count) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(counter, 1);
-    int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
-    } while (seen < count);
-  }
-  __syncthreads();
-}
-
-constexpr int kWoPre = 2;  // passes of a span's Wo rows loaded before the wait
-
-// Wo rows n .. of head h for this span's outputs: eight lanes on one output
-// row (128 bytes of Wo), a warp on four
-struct WoSlice {
-  const bf16* wo;  // Wo[l] + h * HD + (lane % 8) * 8
-  int n_lo, n_hi, D;
-  uint4 pre[kWoPre];
-  __device__ WoSlice(const Params& p, int l, int h, int sp, int S, int d) {
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    D = d;
-    wo = p.wo + (size_t)l * D * D + h * HD + (lane % 8) * 8;
-    n_lo = sp * D / S;
-    n_hi = (sp + 1) * D / S;
-#pragma unroll
-    for (int i = 0; i < kWoPre; ++i) {
-      const int n = n_lo + warp * 4 + i * NW * 4 + lane / 8;
-      if (n < n_hi) pre[i] = __ldg(reinterpret_cast<const uint4*>(wo + (size_t)n * D));
-    }
-  }
-};
-
-// ctx_h = bf16(sum of the unit's span partials in span order + w_cur *
-// v_cur), then this span's share of ctx_h Wo[n, h*HD:(h+1)*HD]^T -> opart
-__device__ void head_out(const Params& p, int b, int h, int H, int S, const WoSlice& wos,
-                         const AttnSmem& a) {
-  const int tid = threadIdx.x;
-  if (tid < HD) {
-    const float* part = p.apart + (size_t)(b * H + h) * S * HD + tid;
-    float o = 0.f;
-    for (int s = 0; s < S; ++s) o += __ldcg(part + s * HD);
-    o += a.scal[0] * (a.cur[HD + tid] * a.scal[1]);
-    a.ctxh[tid] = round_bf16(o);
-  }
-  __syncthreads();
-  const int lane = tid % 32, warp = tid / 32, c8 = lane % 8;
-  auto out = [&](int i, uint4 raw) {  // pass i: warp-uniform
-    const int n = wos.n_lo + warp * 4 + i * NW * 4 + lane / 8;
-    float acc = 0.f;
-    if (n < wos.n_hi) {
-      float w[8];
-      bf16x8(raw, w);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) acc += a.ctxh[c8 * 8 + t] * w[t];
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (c8 == 0 && n < wos.n_hi) p.opart[((size_t)h * p.B + b) * wos.D + n] = acc;
-  };
-#pragma unroll
-  for (int i = 0; i < kWoPre; ++i)
-    if (wos.n_lo + warp * 4 + i * NW * 4 < wos.n_hi) out(i, wos.pre[i]);
-  for (int i = kWoPre; wos.n_lo + warp * 4 + i * NW * 4 < wos.n_hi; ++i) {
-    const int n = min(wos.n_lo + warp * 4 + i * NW * 4 + lane / 8, wos.n_hi - 1);
-    out(i, __ldg(reinterpret_cast<const uint4*>(wos.wo + (size_t)n * wos.D)));
-  }
-  __syncthreads();  // the unit's scratch is reused by the block's next unit
-}
-
-// MB: the largest batch of the instantiation (its GEMV accumulators); FD,
-// FM: the GEMV forms of the D-column and the M-column weights; KD, KM: the
-// widths where fixed at compile time (the main path's), else 0 (the
-// widths of Params)
-template <int MB, class FD, class FM, int KD, int KM>
-__global__ void __launch_bounds__(NT, 1) fused_step_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int D = KD ? KD : p.D, M = KM ? KM : p.M, H = KD ? KD / HD : p.H;
-  const int B = p.B, S = p.spans, units = B * H;
-  float* x1 = reinterpret_cast<float*>(smem);           // [B][D] pre-LN rows, then LN1, f32
-  bf16* xs = reinterpret_cast<bf16*>(x1 + B * D);        // [B][D] layer input
-  unsigned char* act_raw = reinterpret_cast<unsigned char*>(xs + B * D);
-  bf16* act = reinterpret_cast<bf16*>(act_raw);          // [B][max(D, M)] GEMV input
-  float* stats = reinterpret_cast<float*>(act_raw + act_bytes(B, D, M));  // [B][2]
-  const AttnSmem attn(reinterpret_cast<float*>(act_raw));  // shares the GEMV input's bytes
-  cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x;
-  auto qkv_row = [&](int l) {
-    const size_t o = (size_t)l * D * D;
-    const bf16 *wq = p.wq + o, *wk = p.wk + o, *wv = p.wv + o;
-    return [=](int n) { return (n < D ? wq : (n < 2 * D ? wk : wv)) + (size_t)(n % D) * D; };
-  };
-
-  for (int l = 0; l < p.L; ++l) {
-    const size_t vD = (size_t)l * D, vM = (size_t)l * M;
-    const bf16* w1 = p.w1 + (size_t)l * M * D;
-    const bf16* w2 = p.w2 + (size_t)l * D * M;
-    auto w1_row = [=](int n) { return w1 + (size_t)n * D; };
-    auto w2_row = [=](int n) { return w2 + (size_t)n * M; };
-    // A: the layer input (LN2 of the previous layer's rows), then the
-    // Q/K/V rows
-    gemv<FD, MB>(qkv_row(l), xs, D, 3 * D, B, [&] {
-      if (l == 0) {
-        for (int i = tid; i < B * D; i += NT) xs[i] = p.x[i];
-        __syncthreads();
-      } else {
-        stage_f32(x1, p.pre, B * D);
-        __syncthreads();
-        layer_norm_rows<KD>(x1, p.s2 + vD - D, p.g2 + vD - D, B, D, p.eps, stats, nullptr, xs,
-                            nullptr);
-      }
-    }, [&](int b, int n, float a) {
-      const float* bias = n < D ? p.bq : (n < 2 * D ? p.bk : p.bv);
-      p.qkv[(size_t)b * 3 * D + n] = __float2bfloat16(a + bias[vD + n % D]);
-    });
-    prefetch_rows<FD>(w1_row, M, D);
-    prefetch_rows<FM>(w2_row, D, M);
-    grid.sync();
-
-    // B: attention over key spans and the head's share of ctx Wo^T
-    for (int item = blockIdx.x; item < units * S; item += gridDim.x) {
-      const int u = item / S, sp = item % S;
-      attention_span<KD>(p, l, u / H, u % H, sp, S, attn);
-      const WoSlice wos(p, l, u % H, sp, S, D);
-      if (S > 1) unit_barrier(p.arrive + u, (l + 1) * S);
-      else __syncthreads();
-      head_out(p, u / H, u % H, H, S, wos, attn);
-    }
-    grid.sync();
-
-    // C: x1 = LN1(x + sum_h opart[h] + bo) (in every block), then
-    // h = bf16(gelu(bf16(x1) W1^T + b1))
-    gemv<FD, MB>(w1_row, act, D, M, B, [&] {
-      for (int i = tid * 4; i < B * D; i += NT * 4) {
-        const int n = i % D;
-        float4 o = __ldcg(reinterpret_cast<const float4*>(p.opart + i));
-        for (int hh = 1; hh < H; ++hh) {
-          const float4 t =
-              __ldcg(reinterpret_cast<const float4*>(p.opart + (size_t)hh * B * D + i));
-          o.x += t.x, o.y += t.y, o.z += t.z, o.w += t.w;
-        }
-        const float* bo = p.bo + vD + n;
-        x1[i] = __bfloat162float(xs[i]) + (o.x + bo[0]);
-        x1[i + 1] = __bfloat162float(xs[i + 1]) + (o.y + bo[1]);
-        x1[i + 2] = __bfloat162float(xs[i + 2]) + (o.z + bo[2]);
-        x1[i + 3] = __bfloat162float(xs[i + 3]) + (o.w + bo[3]);
-      }
-      __syncthreads();
-      layer_norm_rows<KD>(x1, p.s1 + vD, p.g1 + vD, B, D, p.eps, stats, x1, act, nullptr);
-    }, [&](int b, int n, float a) {
-      p.h[(size_t)b * M + n] = __float2bfloat16(gelu_erf(a + p.b1[vM + n]));
-    });
-    if (l + 1 < p.L) prefetch_rows<FD>(qkv_row(l + 1), 3 * D, D);
-    grid.sync();
-
-    // D: x1 + h W2^T + b2 -> pre (LN2 runs at the next layer's start)
-    gemv<FM, MB>(w2_row, act, M, D, B, [&] {
-      stage_bf16(act, p.h, B * M);
-      __syncthreads();
-    }, [&](int b, int n, float a) {
-      p.pre[(size_t)b * D + n] = x1[b * D + n] + (a + p.b2[vD + n]);
-    });
-    grid.sync();
-  }
-  if (blockIdx.x == 0) {
-    // every unit barrier of the launch is behind the last grid barrier:
-    // the counters go back to zero for the next launch
-    for (int u = tid; u < units; u += NT) p.arrive[u] = 0;
-    const size_t vD = (size_t)(p.L - 1) * D;
-    stage_f32(x1, p.pre, B * D);
-    __syncthreads();
-    layer_norm_rows<KD>(x1, p.s2 + vD, p.g2 + vD, B, D, p.eps, stats, nullptr, nullptr, p.y);
-  }
-}
-
-// One launch of an instantiation: its cooperative grid (one block an SM)
-// on the current device for `smem` bytes, with the shared-memory attribute
-// raised to it (computed once a (device, size)), and the key spans of a
-// unit: the units' spans fill the grid at most once, so every block of a
-// unit is resident when it waits for the others.
-template <int MB, class FD, class FM, int KD = 0, int KM = 0>
-cudaError_t launch(Params p, int smem, cudaStream_t stream) {
-  static CoopCache cache;
-  const void* kernel = (const void*)fused_step_kernel<MB, FD, FM, KD, KM>;
-  const CoopLaunch cfg = coop_launch(cache, kernel, NT, smem, 1);
-  if (cfg.err != cudaSuccess) return cfg.err;
-  const int per_unit = cfg.grid / (p.B * p.H);
-  p.spans = per_unit < 1 ? 1 : (per_unit > kMaxSpans ? kMaxSpans : per_unit);
-  void* args[] = {&p};
-  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, cfg.grid, NT, args, smem, stream);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// the instantiation of batch bound MB whose forms fit the widths: the main
-// path's MMT (768, 3,072) with its widths fixed at compile time (with them
-// read from Params its batch-1 step took 0.17 ms instead of 0.11 on the
-// H100: PERF.md section 6), any other with the widths of Params
+// the instantiation of batch bound MB that fits the launch
 template <int MB>
 cudaError_t launch_forms(const Params& p, int smem, cudaStream_t stream) {
-  if (p.D == 768 && p.M == 3072) return launch<MB, Rows4, Rows1, 768, 3072>(p, smem, stream);
-  if (narrow_k(p.D))
-    return narrow_k(p.M) ? launch<MB, Rows4, Rows4>(p, smem, stream)
-                         : launch<MB, Rows4, Rows1>(p, smem, stream);
-  return narrow_k(p.M) ? launch<MB, Rows1, Rows4>(p, smem, stream)
-                       : launch<MB, Rows1, Rows1>(p, smem, stream);
+  if (main_form(p)) return launch<MB, Rows4, Rows1, 768, 3072, 2>(p, smem, stream);
+  return p.Dh <= 64 ? launch_runtime<MB, 2>(p, smem, stream)
+                    : launch_runtime<MB, 4>(p, smem, stream);
 }
 
 }  // namespace step
@@ -727,17 +28,19 @@ cudaError_t launch_forms(const Params& p, int smem, cudaStream_t stream) {
 
 // ptrs, in order: x, wq, bq, wk, bk, wv, bv, wo, bo, s1, g1, w1, b1, w2,
 // b2, s2, g2, kv8, kvs, mask, y, row8, rowsc, qkv, pre, h, opart [H, B, D]
-// f32, apart [B * H * 16, 64] f32, arrive [B * H] int32 (zero before the
-// first launch; each launch leaves it zero) (29).  d = num_heads x 64, a
-// multiple of 128 up to 2,048; m a multiple of 128 up to 8,192.
+// f32, apart [B * H * 16, d / num_heads] f32, arrive [B * H] int32 (zero
+// before the first launch; each launch leaves it zero) (29).  d = num_heads
+// x the head width, a multiple of 8 up to 128, and a multiple of 128 up to
+// 2,048; m a multiple of 128 up to 8,192; cache_len at most 4,096.
 extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, int cache_len,
                                     int d, int m, int num_heads, int step, int write_offset,
                                     float eps, void* stream) {
   using namespace vt::step;
   using vt::bf16;
-  if (d != num_heads * HD || d % 128 != 0 || d > kMaxD || m <= 0 || m % 128 != 0 ||
-      m > kMaxM || batch < 1 || batch > MAXB || cache_len > kMaxLp ||
-      write_offset + step >= cache_len)
+  const int dh = num_heads > 0 ? d / num_heads : 0;
+  if (num_heads <= 0 || d != num_heads * dh || dh % 8 != 0 || dh > kMaxHd || d % 128 != 0 ||
+      d > kMaxD || m <= 0 || m % 128 != 0 || m > kMaxM || batch < 1 || batch > MAXB ||
+      cache_len > kMaxLp || write_offset + step >= cache_len)
     return (int)cudaErrorInvalidValue;
   Params p;
   int i = 0;
@@ -778,10 +81,14 @@ extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, 
   p.D = d;
   p.M = m;
   p.H = num_heads;
+  p.Dh = dh;
   p.spans = 1;  // set by launch from the grid
   p.eps = eps;
-  p.scale = 1.0f / sqrtf((float)HD);
-  const int smem = smem_bytes(batch, d, m);
+  p.scale = 1.0f / sqrtf((float)dh);
+  // the score slots of the attention scratch: the main path's form keeps
+  // its 1,152, a run-time form the launch's cache rounded to 4 slots
+  p.scap = main_form(p) ? kMainLp : (cache_len + 3) / 4 * 4;
+  const int smem = smem_bytes(batch, d, m, 4 * attn_floats(p.scap, dh <= 64 ? 64 : 128));
   const cudaStream_t st = (cudaStream_t)stream;
   // the fused decode's route: batch 1 and 2
   return (int)(batch <= 2 ? launch_forms<2>(p, smem, st) : launch_forms<MAXB>(p, smem, st));

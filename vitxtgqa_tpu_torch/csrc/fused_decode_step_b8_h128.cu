@@ -1,0 +1,12 @@
+// The decode step's (#5, fused_decode_step.cuh) run-time forms of batch
+// bound 8 (batch 3-8) and heads up to 128 wide
+// (72, 80, 128): the four pairs of GEMV forms, compiled apart from
+// the entry point (fused_decode_step.cu) so that the build compiles the
+// forms in parallel.
+#include "fused_decode_step.cuh"
+
+namespace vt {
+namespace step {
+template cudaError_t launch_runtime<8, 4>(const Params&, int, cudaStream_t);
+}  // namespace step
+}  // namespace vt

@@ -435,7 +435,8 @@ class TransformerEncoder(nn.Module):
         if kv8.is_cuda and not self.opts.plain:
             n_layers, b = kv8.shape[:2]
             buffers = DS.step_buffers(n_layers, b, self.cfg.hidden_size,
-                                      self.cfg.intermediate_size, kv8.device)
+                                      self.cfg.intermediate_size, kv8.device,
+                                      self.cfg.num_attention_heads)
         return stacks, kv8, kvsc, buffers
 
     def fused_decode_step_apply(self, stacks, x_t, kv8, kvsc, step: int,

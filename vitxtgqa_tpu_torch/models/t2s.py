@@ -114,14 +114,35 @@ def t2s_bert_large_config() -> Dict[str, Any]:
     3 text-BERT / QTV / MMT) and sequence (20 + 64 + 960, joint 1,152),
     with the grounding's and the pointer net's widths at the stacks'
     1,024."""
+    return _with_widths(BERT_LARGE)
+
+
+# microsoft/MiniLM-L12-H384-uncased's published widths (its config.json,
+# which sentence-transformers/all-MiniLM-L6-v2 shares): hidden 384, 12 heads
+# of 32, FFN 1,536, LayerNorm eps 1e-12
+MINILM_L12_H384 = {"hidden_size": 384, "num_attention_heads": 12, "intermediate_size": 1536,
+                   "layer_norm_eps": 1e-12}
+
+
+def _with_widths(widths: Dict[str, Any]) -> Dict[str, Any]:
+    """t2s_production_config with every transformer stack at ``widths`` and
+    the grounding's and the pointer net's widths at its hidden width."""
     cfg = t2s_production_config()
     for stack in ("text_bert", "translayers", "encoder", "mmt"):
-        cfg[stack] = {**cfg[stack], **BERT_LARGE}
-    d = BERT_LARGE["hidden_size"]
+        cfg[stack] = {**cfg[stack], **widths}
+    d = widths["hidden_size"]
     cfg["grounding"] = {**cfg["grounding"], "hidden_size": d}
     cfg["classifier"] = {**cfg["classifier"],
                          "ocr_ptr_net": {"hidden_size": d, "query_key_size": d}}
     return cfg
+
+
+def t2s_minilm_config() -> Dict[str, Any]:
+    """t2s_production_config with every transformer stack at
+    MiniLM-L12-H384's widths (MINILM_L12_H384: 12 heads of 32): the same
+    T2S, depths (3 / 2 / 3) and sequence (20 + 64 + 960, joint 1,152),
+    the grounding's and the pointer net's widths at 384."""
+    return _with_widths(MINILM_L12_H384)
 
 
 @registry.register_model("t2s")

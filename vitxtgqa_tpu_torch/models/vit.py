@@ -12,7 +12,7 @@ kernel (ops/ffn.py) where the JAX gate holds (eval, lane-aligned widths,
 >= 2048 rows: ViT-L/16 at 224 px from 11 frames), and the self-attention
 through the bias-tensor kernel (ops/fused_attention.py) where the token
 count reaches 256 (ViT-L/16 at 384 px, 577 tokens; not at 224 px, 197
-tokens).  On CPU tensors the kernel ops run their plain versions;
+tokens; ViT-H/14 at 224 px, 257 tokens of 16 heads of 80).  On CPU tensors the kernel ops run their plain versions;
 ``Options(plain=True)`` runs the plain versions on the card along the same
 branches.
 
@@ -60,6 +60,14 @@ VIT_B_32 = ViTConfig(
     patch_size=32, hidden_size=768, num_layers=12, num_heads=12, mlp_dim=3072,
     ln_eps=1e-5,
 )  # CLIP tower geometry
+# google/vit-huge-patch14-224-in21k's config.json: 16 heads of 80, 257
+# tokens at 224 px (the bias-tensor attention at head width 80 in every layer)
+VIT_H_14 = ViTConfig(
+    patch_size=14, hidden_size=1280, num_layers=32, num_heads=16, mlp_dim=5120,
+    ln_eps=1e-12,
+)
+# the frame-feature backbones by name (video_feat --model)
+VIT_CONFIGS = {"vit_l_16": VIT_L_16, "vit_h_14": VIT_H_14}
 
 
 class ViTLayer(nn.Module):

@@ -193,15 +193,25 @@ def source_hash() -> str:
 
 def _run(cmds):
     """Run the commands in parallel; return [(cmd, returncode, output,
-    seconds since the start)]."""
+    seconds from the start to its own end)], each command waited for by a
+    thread of its own, so that its seconds are its own (a source's compile
+    time: the build's critical path is the largest)."""
     t0 = time.perf_counter()
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
-    out = []
-    for cmd, proc in procs:
+    out = [None] * len(procs)
+
+    def wait(i, cmd, proc):
         text, _ = proc.communicate()
-        out.append((cmd, proc.returncode, text, time.perf_counter() - t0))
+        out[i] = (cmd, proc.returncode, text, time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(i, cmd, proc))
+               for i, (cmd, proc) in enumerate(procs)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     return out
 
 

@@ -6,7 +6,9 @@ and decode_attention.  Both CUDA kernels are csrc/decode_attention.cu (one
 template, with and without the scale folding): a thread block cluster per
 (head group, batch row) whose blocks split the cache's keys into spans and
 read only the allowed keys' rows; ``launch_plan`` picks the cluster size
-and the head grouping.
+and the head grouping.  Any head width a multiple of 8 up to 128: a thread
+holds one chunk of a head row (``chunking``: 16 bytes at the main path's
+64, else 8 elements), a head CPH chunks, the ones past D idle.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from vitxtgqa_tpu_torch.ops import _build
+from vitxtgqa_tpu_torch.ops.flash_attention import check_head_width
 
 NEG = -1e9
 
@@ -41,12 +44,22 @@ class DecodePlan(NamedTuple):
     blocks: int
 
 
+def chunking(head_dim: int, elem_bytes: int):
+    """(elements of a thread's chunk, chunks a head) of csrc/decode_attention.cu
+    at this head width (its by_width): 16-byte chunks at 64, else chunks of
+    8 elements, 4 a head up to 32, 8 up to 64, 16 up to 128."""
+    if head_dim == 64:
+        return 16 // elem_bytes, 64 * elem_bytes // 16
+    return 8, (4 if head_dim <= 32 else 8 if head_dim <= 64 else 16)
+
+
 def smem_bytes(span: int, heads_per_group: int, elem_bytes: int, head_dim: int = 64) -> int:
-    """csrc/decode_attention.cu's smem_bytes: V partial sums [THREADS x 16 /
-    elem_bytes], the peers' (max, sum) pairs and partial outputs, the row's
-    pairs, the scan's counts, and per key of the span its index, its vs and
-    its scores."""
-    return 4 * (THREADS * (16 // elem_bytes) + (2 * MAX_CLUSTER + 2) * heads_per_group
+    """csrc/decode_attention.cu's smem_bytes: V partial sums [THREADS x the
+    chunk's elements], the peers' (max, sum) pairs and partial outputs, the
+    row's pairs, the scan's counts, and per key of the span its index, its
+    vs and its scores."""
+    per, _ = chunking(head_dim, elem_bytes)
+    return 4 * (THREADS * per + (2 * MAX_CLUSTER + 2) * heads_per_group
                 + heads_per_group * head_dim + MAX_CLUSTER + 8 + span * (2 + heads_per_group))
 
 
@@ -56,17 +69,15 @@ def launch_plan(batch: int, cache_len: int, num_heads: int, elem_bytes: int,
     """The grid of one decode call, batch x head groups x cluster blocks:
     first the cluster grows (2, 4, 8 key spans of at least MIN_SPAN keys),
     then the heads split into more groups (a block holds the whole row
-    segment of its heads, 16-byte chunks over THREADS threads), each while
+    segment of its heads, CPH chunks a head over THREADS threads), each while
     the grid stays within one WAVE.  A block whose shared memory would pass
     SMEM_TARGET splits its span further while the cluster may grow, and
     one that passes what shared memory or the compaction take must; a
     cache no plan fits raises."""
-    per = 16 // elem_bytes  # elements of one 16-byte load
-    if (num_heads * head_dim * elem_bytes) % 16 or (head_dim * elem_bytes) % 16:
-        raise ValueError(f"decode attention: rows of {num_heads} x {head_dim} x {elem_bytes} B "
-                         "are not a whole number of 16-byte chunks")
+    check_head_width("decode attention", head_dim)
+    _, cph = chunking(head_dim, elem_bytes)
     groups = [g for g in range(1, num_heads + 1)
-              if num_heads % g == 0 and THREADS % (num_heads // g * head_dim // per) == 0]
+              if num_heads % g == 0 and THREADS % (num_heads // g * cph) == 0]
     if not groups:
         raise NotImplementedError(f"decode attention: no head grouping of {num_heads} heads")
     gi, cluster = 0, 1
@@ -90,13 +101,14 @@ def launch_plan(batch: int, cache_len: int, num_heads: int, elem_bytes: int,
     return DecodePlan(cluster, groups[gi], hg, span, smem(), blocks())
 
 
-def max_active_clusters(batch: int, cache_len: int, num_heads: int, int8: bool) -> int:
+def max_active_clusters(batch: int, cache_len: int, num_heads: int, int8: bool,
+                        head_dim: int = 64) -> int:
     """cudaOccupancyMaxActiveClusters of the plan's launch on the current
     card (0 if the card cannot run one of its clusters)."""
-    plan = launch_plan(batch, cache_len, num_heads, 1 if int8 else 2)
+    plan = launch_plan(batch, cache_len, num_heads, 1 if int8 else 2, head_dim)
     count = ctypes.c_int(0)
     err = _build.lib().vt_decode_attention_clusters(
-        int(int8), batch, cache_len, num_heads, 64, plan.cluster, plan.head_groups,
+        int(int8), batch, cache_len, num_heads, head_dim, plan.cluster, plan.head_groups,
         ctypes.addressof(count))
     _build.check(err, "decode_attention occupancy")
     return count.value
@@ -155,10 +167,11 @@ def decode_attention_plain(q, k, v, key_mask, step: int, write_offset: int,
 
 
 def check_head_dim(name, hd_total, num_heads):
-    if hd_total % num_heads or hd_total // num_heads != 64:
-        raise NotImplementedError(
-            f"{name} kernel: head dim 64 only, got {hd_total}/{num_heads}"
-        )
+    """Raise unless ``hd_total`` columns are ``num_heads`` heads of a width
+    the kernel takes (flash_attention.head_width_ok)."""
+    if num_heads <= 0 or hd_total % num_heads:
+        raise ValueError(f"{name}: {hd_total} columns are not {num_heads} heads")
+    check_head_width(name, hd_total // num_heads)
 
 
 def decode_attention(q, k, v, key_mask, step: int, write_offset: int,
@@ -176,7 +189,7 @@ def decode_attention(q, k, v, key_mask, step: int, write_offset: int,
         _build.require(t, name, torch.bfloat16, (b, l, hd_total), dev)
     _build.require(key_mask, "key_mask", torch.float32, (b, l), dev)
     _check_slots(l, step, write_offset)
-    plan = launch_plan(b, l, num_heads, 2)
+    plan = launch_plan(b, l, num_heads, 2, hd_total // num_heads)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = _build.lib().vt_decode_attention(
@@ -205,7 +218,7 @@ def decode_attention_int8(q, k8, ks, v8, vs, key_mask, step: int,
     for name, t in (("ks", ks), ("vs", vs), ("key_mask", key_mask)):
         _build.require(t, name, torch.float32, (b, l), dev)
     _check_slots(l, step, write_offset)
-    plan = launch_plan(b, l, num_heads, 1)
+    plan = launch_plan(b, l, num_heads, 1, hd_total // num_heads)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = _build.lib().vt_decode_attention_int8(

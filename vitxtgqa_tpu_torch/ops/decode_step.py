@@ -25,16 +25,16 @@ import torch
 
 from vitxtgqa_tpu_torch.ops import _build
 from vitxtgqa_tpu_torch.ops.attention import quantize_kv
-from vitxtgqa_tpu_torch.ops.decode_attention import check_head_dim
 from vitxtgqa_tpu_torch.ops.fused_block import fused_block_plain
+from vitxtgqa_tpu_torch.ops.flash_attention import head_width_ok
 
 NEG = -1e30  # pallas_decode_step.py _NEG
 MAX_BATCH = 8  # the kernels hold at most 8 batch rows on chip
-# csrc/fused_decode_step.cu kMaxD / kMaxM: the widest hidden and FFN widths
-# of the step kernel (each a multiple of 128; the hidden width H x 64)
+# csrc/fused_decode_step.cuh kMaxD / kMaxM: the widest hidden and FFN widths
+# of the step kernel (each a multiple of 128; the hidden width H x Dh, Dh a
+# multiple of 8 up to 128)
 MAX_STEP_HIDDEN, MAX_STEP_FFN = 2048, 8192
-HEAD_DIM = 64
-MAX_CACHE = 1152  # cache slots of one step kernel launch (the exact serving sequence)
+MAX_CACHE = 4096  # cache slots of one step kernel launch (kMaxLp)
 MAX_SPANS = 16  # key spans of one (batch row, head) unit of the step kernel
 # csrc/fused_epilogue.cu: (max, index) partials a batch row (kMaxGrid), warps
 # a block, blocks an SM at most; the H100's SM count
@@ -101,25 +101,29 @@ def step_widths_ok(d: int, m: int) -> bool:
 
 def check_step_shape(d: int, m: int, num_heads: int, hd_total: int, b: int, l_p: int) -> None:
     """Raise unless csrc/fused_decode_step.cu takes this launch: H heads of
-    64 making the hidden width, widths step_widths_ok takes, at most
-    MAX_BATCH rows and MAX_CACHE slots (ROADMAP queue 2 item 3)."""
-    if (hd_total != d or d != num_heads * HEAD_DIM or not step_widths_ok(d, m)
+    a width head_width_ok takes making the hidden width (ROADMAP queue 2
+    item 5 past 128), widths step_widths_ok takes, at most MAX_BATCH rows
+    and MAX_CACHE slots (ROADMAP queue 2 item 3)."""
+    hd = hd_total // num_heads if num_heads > 0 and hd_total % num_heads == 0 else 0
+    if (hd_total != d or not head_width_ok(hd) or not step_widths_ok(d, m)
             or b > MAX_BATCH or l_p > MAX_CACHE):
         raise NotImplementedError(
-            f"fused_decode_step kernel: H heads of {HEAD_DIM} == hidden, hidden and FFN "
-            f"widths multiples of 128 up to {MAX_STEP_HIDDEN} / {MAX_STEP_FFN}, batch <= "
-            f"{MAX_BATCH} and at most {MAX_CACHE} cache slots (ROADMAP queue 2 item 3); got "
-            f"hidden {d}, H*D {hd_total}, FFN {m}, batch {b}, cache {l_p}")
+            f"fused_decode_step kernel: H heads of a multiple of 8 up to 128 (head widths "
+            f"above 128: ROADMAP queue 2 item 5) == hidden, hidden and FFN widths multiples "
+            f"of 128 up to {MAX_STEP_HIDDEN} / {MAX_STEP_FFN}, batch <= {MAX_BATCH} and at "
+            f"most {MAX_CACHE} cache slots (ROADMAP queue 2 item 3); got hidden {d}, H*D "
+            f"{hd_total} over {num_heads} heads, FFN {m}, batch {b}, cache {l_p}")
 
 
-def step_buffers(n_layers: int, b: int, d: int, m: int, device) -> dict:
-    """The outputs and scratch of one fused_decode_step launch; allocate
-    once per decode and pass to every step.  ``opart`` holds each head's
-    f32 share of ctx Wo^T, ``apart`` each key span's f32 weighted V rows,
-    and ``arrive`` the span counters of the (row, head) units, zero here
-    and left zero by every launch."""
+def step_buffers(n_layers: int, b: int, d: int, m: int, device, num_heads: int) -> dict:
+    """The outputs and scratch of one fused_decode_step launch over
+    ``num_heads`` heads; allocate once per decode and pass to every step.
+    ``opart`` holds each head's f32 share of ctx Wo^T, ``apart`` each key
+    span's f32 weighted V rows (a head row each), and ``arrive`` the span
+    counters of the (row, head) units, zero here and left zero by every
+    launch."""
     dev = torch.device(device)
-    h = d // HEAD_DIM
+    h = num_heads
     e = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
     return {
         "y": e((b, 1, d), torch.bfloat16),
@@ -129,7 +133,7 @@ def step_buffers(n_layers: int, b: int, d: int, m: int, device) -> dict:
         "pre": e((b, d), torch.float32),
         "h": e((b, m), torch.bfloat16),
         "opart": e((h, b, d), torch.float32),
-        "apart": e((b * h * MAX_SPANS, HEAD_DIM), torch.float32),
+        "apart": e((b * h * MAX_SPANS, d // h), torch.float32),
         "arrive": torch.zeros((b * h,), dtype=torch.int32, device=dev),
     }
 
@@ -147,7 +151,6 @@ def fused_decode_step(x_t, stacks, kv8, kvs, key_mask, step: int,
     n_layers, b, l_p, two_hd = kv8.shape
     d = x_t.shape[-1]
     m = stacks["w1"].shape[1]
-    check_head_dim("fused_decode_step", two_hd // 2, num_heads)
     check_step_shape(d, m, num_heads, two_hd // 2, b, l_p)
     if not 0 <= write_offset + int(step) < l_p:
         raise ValueError(f"decoder slot {write_offset + int(step)} outside the cache ({l_p})")
@@ -164,8 +167,8 @@ def fused_decode_step(x_t, stacks, kv8, kvs, key_mask, step: int,
     _build.require(kv8, "kv8", torch.int8, (n_layers, b, l_p, 2 * d), dev)
     _build.require(kvs, "kvs", torch.float32, (n_layers, b, 2, l_p), dev)
     _build.require(key_mask, "key_mask", torch.float32, (b, l_p), dev)
-    buf = buffers if buffers is not None else step_buffers(n_layers, b, d, m, dev)
-    for name, t in step_buffers(n_layers, b, d, m, "meta").items():
+    buf = buffers if buffers is not None else step_buffers(n_layers, b, d, m, dev, num_heads)
+    for name, t in step_buffers(n_layers, b, d, m, "meta", num_heads).items():
         _build.require(buf[name], name, t.dtype, t.shape, dev)
     ptrs = _build.pointers(
         x_t, *(stacks[n] for n in STACK_NAMES), kv8, kvs, key_mask,

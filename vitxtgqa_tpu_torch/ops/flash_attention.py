@@ -24,7 +24,10 @@ wrappers pad the keys to round_up(Lk, 128) with
 key mask 0, so a query row with no allowed key averages V over that many
 keys, the zero-padded ones included; the twins and the kernels count them
 too (``_padded_softmax``), and the backward gives such a row's keys the
-weight 1 / round_up(Lk, 128).
+weight 1 / round_up(Lk, 128).  Every form takes any head width that is a
+multiple of 8 up to 128 (the kernels' tiers, csrc/flash_fwd.cuh): 64 on the
+main path's constant-width forms, below 64 zero-filled on one 64-column
+atom, above 64 on two; wider heads raise (``check_head_width``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,29 @@ from vitxtgqa_tpu_torch.ops import dropout as D
 
 NEG = -1e9  # masked-score fill of the kernels (pallas_attention.py _NEG)
 LANE = 128  # the JAX wrappers pad the keys to a multiple of this
+MAX_HEAD_DIM = 128  # the widest head of the attention kernels' tiers
+
+
+def head_width_ok(d: int) -> bool:
+    """Whether the attention kernels (#1, #1b, #4, #5, #7, #10, #10b, #11,
+    #14) take head width ``d``: a multiple of 8 up to MAX_HEAD_DIM, the
+    widths their tiers hold (csrc/flash_fwd.cuh, csrc/decode_attention.cu,
+    csrc/fused_decode_step.cuh)."""
+    return 0 < d <= MAX_HEAD_DIM and d % 8 == 0
+
+
+def check_head_width(name: str, d: int) -> None:
+    """Raise unless the kernel ``name`` takes head width ``d``."""
+    if not head_width_ok(d):
+        raise NotImplementedError(
+            f"{name} kernel: head widths a multiple of 8 up to {MAX_HEAD_DIM}, got {d} (head "
+            "widths above 128: ROADMAP.md queue 2 item 5)")
+
+
+def head_atoms(d: int) -> int:
+    """The 64-column atoms of a head row in the kernels' tiers: 1 up to 64,
+    2 above."""
+    return 1 if d <= 64 else 2
 
 
 def _padded_softmax(scores: torch.Tensor, with_lse: bool):
@@ -175,20 +201,22 @@ def bwd_parts(lk: int, ordered: bool) -> int:
     return -(-lk // 64) if ordered else 1
 
 
-def _bwd_scratch(b: int, h: int, lq: int, lk: int, ordered: bool, device) -> torch.Tensor:
+def _bwd_scratch(b: int, h: int, lq: int, lk: int, ordered: bool, device,
+                 d: int = 64) -> torch.Tensor:
     """The backward kernel's f32 scratch (csrc/flash_bwd.cuh bwd_params):
     per (batch, head) and query row, padded to a multiple of 64 rows, the
-    64 dq sums of each slice (bwd_parts), D_i and the base-2 lse."""
+    dq sums of each slice (bwd_parts; 64 columns an atom of the head
+    width ``d``), D_i and the base-2 lse."""
     lq_pad = -(-lq // 64) * 64
-    return torch.empty(b * h * lq_pad * (64 * bwd_parts(lk, ordered) + 2), dtype=torch.float32,
-                       device=device)
+    return torch.empty(b * h * lq_pad * (64 * head_atoms(d) * bwd_parts(lk, ordered) + 2),
+                       dtype=torch.float32, device=device)
 
 
 def _check_geometry(q, num_heads: int, dec_len: int, name: str):
     b, l, hd_total = q.shape
-    if hd_total % num_heads or hd_total // num_heads != 64:
-        raise NotImplementedError(
-            f"{name} kernel: head dim 64 only, got {hd_total}/{num_heads}")
+    if num_heads <= 0 or hd_total % num_heads:
+        raise ValueError(f"{name}: {hd_total} columns are not {num_heads} heads")
+    check_head_width(name, hd_total // num_heads)
     if not 0 <= dec_len <= l:
         raise ValueError(f"dec_len {dec_len} outside [0, {l}]")
     return b, l, hd_total
@@ -278,7 +306,7 @@ def flash_attention_merged_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, num
     if seed is not None:
         _build.require(seed, "seed", torch.int64, (1,), q.device)
     ordered = bwd_ordered()
-    scratch = _bwd_scratch(b, num_heads, l, l, ordered, q.device)
+    scratch = _bwd_scratch(b, num_heads, l, l, ordered, q.device, hd_total // num_heads)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _build.lib().vt_flash_attention_merged_bwd(
@@ -356,7 +384,7 @@ def flash_attention_bwd_plain(q, k, v, key_mask, out, lse, g, dec_len: int, row_
 
 
 def _head_strides(t: torch.Tensor, name: str, shape, dtype: torch.dtype, device) -> list:
-    """(batch, head, row) element strides of a [B, H, L, 64] view with a
+    """(batch, head, row) element strides of a [B, H, L, D] view with a
     contiguous last dimension and 16-byte aligned rows; raises otherwise."""
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
         raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, expected {dtype} "
@@ -377,8 +405,7 @@ def _split_empty(b: int, rows: int, h: int, d: int, dtype: torch.dtype, device) 
 def _split_geometry(q, k, dec_len: int, row_offset: int, name: str):
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if d != 64:
-        raise NotImplementedError(f"{name} kernel: head dim 64 only, got {d}")
+    check_head_width(name, d)
     if not 0 <= dec_len <= lk:
         raise ValueError(f"dec_len {dec_len} outside [0, {lk}]")
     if row_offset < 0 or row_offset + lq > lk:
@@ -388,12 +415,12 @@ def _split_geometry(q, k, dec_len: int, row_offset: int, name: str):
 
 def flash_attention(q, k, v, key_mask, dec_len: int, row_offset: int = 0,
                     dropout_rate: float = 0.0, seed=None, return_lse: bool = False):
-    """q [B, H, Lq, 64], k / v [B, H, Lk, 64] (bf16 on CUDA, any strides
+    """q [B, H, Lq, D], k / v [B, H, Lk, D] (bf16 on CUDA, any strides
     with a contiguous last dimension: split_heads views are not copied);
     key_mask [B, Lk] (1 = valid encoder key); dec_len: the trailing causal
     decoder block of the Lk-row sequence; row_offset: the global row of
     query row 0; dropout: rate and an int64 [1] seed tensor on the device.
-    Returns out [B, H, Lq, 64] (a view of a [B, Lq, H, 64] buffer), and
+    Returns out [B, H, Lq, D] (a view of a [B, Lq, H, D] buffer), and
     with ``return_lse`` the row log-sum-exp [B, H, Lq] f32."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, key_mask, dec_len, row_offset, dropout_rate, seed,
@@ -423,7 +450,7 @@ def flash_attention(q, k, v, key_mask, dec_len: int, row_offset: int = 0,
 
 def flash_attention_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, row_offset: int = 0,
                         dropout_rate: float = 0.0, seed=None):
-    """dq [B, H, Lq, 64] bf16 and the f32 partial dk, dv [B, H, Lk, 64] of
+    """dq [B, H, Lq, D] bf16 and the f32 partial dk, dv [B, H, Lk, D] of
     flash_attention for the cotangent ``g`` of its ``out``, from the saved
     ``lse``; q / k / v / out / g through their strides; the dropout mask is
     regenerated from the forward's rate, seed and row offset; dq in a
@@ -447,7 +474,7 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, g, dec_len: int, row_offset
     for t in (dq, dk, dv):
         strides += list(t.stride()[:3])
     ordered = bwd_ordered()
-    scratch = _bwd_scratch(b, h, lq, lk, ordered, dev)
+    scratch = _bwd_scratch(b, h, lq, lk, ordered, dev, d)
     with torch.cuda.device(dev):
         err = _build.lib().vt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),

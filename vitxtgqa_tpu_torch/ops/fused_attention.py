@@ -4,8 +4,8 @@
 Counterpart of vitxtgqa_tpu/ops/pallas_attention.py:fused_attention, which
 the split-head ``mha`` takes for an array bias or none (ops/attention.py).
 The CUDA kernel is csrc/fused_attention.cu, the flash forward body of
-csrc/flash_fwd.cuh under its bias policy: head width 64 (every model of
-the repo with >= 256 keys: T2S 768 / 12, ViT-L 1024 / 16, ViT-B 768 / 12),
+csrc/flash_fwd.cuh under its bias policy: any head width a multiple of 8
+up to 128 (ViT-L/16's 64, ViT-H/14's 80; flash_attention.head_width_ok),
 q / k / v read through their strides, so the split-head views of a merged
 projection are not copied.
 """
@@ -19,9 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from vitxtgqa_tpu_torch.ops import _build
-from vitxtgqa_tpu_torch.ops.flash_attention import LANE, NEG, _head_strides
-
-HEAD_DIM = 64
+from vitxtgqa_tpu_torch.ops.flash_attention import LANE, NEG, _head_strides, check_head_width
 
 
 def fused_attention_plain(q, k, v, bias=None):
@@ -45,10 +43,7 @@ def fused_attention_plain(q, k, v, bias=None):
 def _launch(q, k, v, bias):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
-    if dh != HEAD_DIM:
-        raise NotImplementedError(
-            f"fused_attention kernel: head width {HEAD_DIM} only, got {dh} (other widths: "
-            "ROADMAP.md queue 2, #14)")
+    check_head_width("fused_attention", dh)
     dev, bf = q.device, torch.bfloat16
     strides = (_head_strides(q, "q", (b, h, lq, dh), bf, dev)
                + _head_strides(k, "k", (b, h, lk, dh), bf, dev)
@@ -106,6 +101,7 @@ class FusedAttentionFn(torch.autograd.Function):
 def fused_attention(q, k, v, bias=None):
     """q [B, H, Lq, Dh], k / v [B, H, Lk, Dh]; bias [B, 1, 1, Lk], [B, 1, Lq,
     Lk] or None -> [B, H, Lq, Dh] in q's dtype.  On CUDA tensors the kernel
-    (bf16, Dh 64; another head width raises), on CPU tensors the plain
+    (bf16, Dh a multiple of 8 up to 128; another head width raises), on CPU
+    tensors the plain
     version; differentiable (FusedAttentionFn)."""
     return FusedAttentionFn.apply(q, k, v, bias)

@@ -1,14 +1,14 @@
 """Per-frame ViT features on the card: frames to ``video_feat`` rows.
 
     python -m vitxtgqa_tpu_torch.video_feat --frames DIR --out DIR \\
-        [--weights F] [--batch 64]
+        [--weights F] [--batch 64] [--model vit_l_16|vit_h_14]
 
 Counterpart of tools/video_feat/obtain_vit_feat.py, with its contract:
 reads ``<frames>/<video>/<n>.jpg`` in numeric order of ``n``, resizes each
 frame to 224 x 224 as that tool does (PIL's ``Image.resize``), runs the
-frames through ViT-L/16 in bf16 on the card in chunks of ``--batch`` and
-writes ``<out>/<video>/<n>.npy``, the frame's CLS feature as float32 [1,
-1024].
+frames through ViT-L/16 (``--model vit_h_14``: ViT-H/14) in bf16 on the card
+in chunks of ``--batch`` and writes ``<out>/<video>/<n>.npy``, the frame's
+CLS feature as float32 [1, 1024] (ViT-H/14: [1, 1280]).
 ``--weights`` is a torch checkpoint of HF ``ViTModel`` (or a model with a
 head: its ``vit.`` prefix is stripped); without it the weights are random
 from seed 0, for pipeline tests only.  Pillow is needed here alone, and is
@@ -92,8 +92,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True)
     ap.add_argument("--weights", default=None, help="torch ViTModel checkpoint")
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--model", default="vit_l_16", choices=("vit_l_16", "vit_h_14"),
+                    help="the ViT: the reference's ViT-L/16 or ViT-H/14")
     args = ap.parse_args(argv)
-    extract_features(args.frames, args.out, args.weights, args.batch)
+    from vitxtgqa_tpu_torch.models.vit import VIT_CONFIGS
+
+    extract_features(args.frames, args.out, args.weights, args.batch,
+                     cfg=VIT_CONFIGS[args.model])
     return 0
 
 
