@@ -296,8 +296,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
           (TP_SUM_FAULTS) outside the tolerance, one rank's form timed
           beside the unsplit kernel; #1 / #1b on a rank's heads at their
           head offset (check_tp_flash), offset 0 planted; (ii) slice r's
-          harness on the plan "tp2" (two gloo ranks sharing the card, model
-          2): full-eval at 6 over the bf16 cache and a step at
+          harness on the plan "dtp2" (data 2 x model 2 on four gloo ranks
+          sharing the card, in r's world of four): full-eval at 6 over the
+          bf16 cache and a step at
           TP_TRAIN_BATCH against one process, the launches as derived
           (expected_tp_launches), TP_FAULTS outside the limits; then
           dp_cli with mesh.model=2 on two processes, its ckpt/final
@@ -344,7 +345,19 @@ Phases (each prints one or more lines; any failure exits non-zero):
           (ii) T2S at MiniLM-L12-H384's widths (t2s_minilm_config: 384, 12
           heads of 32, FFN 1,536) through slice u(ii)'s paths; (iii)
           ViT-H/14 (VIT_H_14: 1,280 / 5,120, 16 heads of 80, 32 layers)
-          extracting 64 frames against the plain versions, its frames/s.
+          extracting 64 frames against the plain versions, its frames/s;
+       w. the JAX trainer's opt-in arms (train_arms_slice): (i) #1 with
+          dropout and lse and #1b (atomic, ordered) at [48, 384, 768] on
+          the compact mask, #9a / #9b at 18,432 rows, each against its
+          twin beside a planted fault, timed with bound, twin and library;
+          (ii) a compact training step at 4 (compact_train True and
+          "live") against plain with the planted block faults, and at
+          dropout 0 its scores against the full pass's (ref and the fill
+          bit for bit, kept slots within STEP0_TOL); (iii) 4 Adam steps at
+          48 under compact training beside full ones, in turns; (iv) every
+          remat mode at 4 under the deterministic algorithms against
+          "attn" bit for bit, then timed at 48, its peak memory falling
+          from "none" to "attn" to "full".
      Each phase prints its seconds ("phase NAME: S s"), and after the
      slices one line holds them all ("phases (s): {...}").
      a-c, f-g, m, n and p serve behind a ServingEngine; each slice checks its
@@ -368,6 +381,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8
@@ -807,21 +821,36 @@ def expected_recompute_launches(cfg, batch: int, opts, full_eval: bool = False,
     return out
 
 
-def expected_train_launches(cfg, opts, model: str = "t2s") -> dict:
+def expected_train_launches(cfg, opts, model: str = "t2s", text_len: int = 20,
+                            dec_len: int = DEC_LEN) -> dict:
     """Kernel launches in one training step: per flash-route layer (QTV,
     and MMT in each of the ref / pos / neg passes; the single-variant
-    models: the MMT once) the flash forward and backward; per layer (text
-    BERT too) the block forward, once more in the backward with remat
-    "attn", and the block backward; no eval kernel."""
+    models: the MMT once; under compact training (T2S, whose grounding
+    gives both gather lists) pos and neg on their kept rows, on the flash
+    route where those reach MIN_KV keys: 384 at production width) the
+    flash forward, once more in the
+    backward where Options.remat keeps no flash output ("dots", "full":
+    ops/attention.KEEPS_OUT), and the flash backward; per layer (text BERT
+    too) the block forward, once more in the backward under the modes that
+    recompute the block (ops/block_train.RECOMPUTES: under "full" the
+    layer's recompute region runs it), and the block backward; no eval
+    kernel."""
+    from vitxtgqa_tpu_torch.ops.attention import KEEPS_OUT, MIN_KV
+    from vitxtgqa_tpu_torch.ops.block_train import RECOMPUTES
+
     family = model in T2S_FAMILY
     n_text = cfg["text_bert"]["num_hidden_layers"]
     n_qtv = cfg["translayers"]["num_hidden_layers"] if family else 0
     n_mmt = cfg["mmt"]["num_hidden_layers"] * (3 if family else 1)
-    flash = n_qtv + n_mmt
     blocks = n_text + n_qtv + n_mmt
+    if opts.compact_train and model == "t2s" and (
+            joint_lengths(cfg, text_len, dec_len)[1] < MIN_KV):
+        n_mmt = cfg["mmt"]["num_hidden_layers"]   # pos and neg on the plain route
+    flash = n_qtv + n_mmt
     out = {name: 0 for name in REPLACES}
-    out.update(flash_attention_merged=flash, flash_attention_merged_bwd=flash,
-               block_train_fwd=blocks * (2 if opts.remat == "attn" else 1),
+    out.update(flash_attention_merged=flash * (1 if opts.remat in KEEPS_OUT else 2),
+               flash_attention_merged_bwd=flash,
+               block_train_fwd=blocks * (2 if opts.remat in RECOMPUTES else 1),
                block_train_bwd=blocks)
     return out
 
@@ -3647,31 +3676,23 @@ def step_agreement(run, ref, loss_tol=LOSS_REL_TOL, norm_tol=GNORM_REL_TOL,
     return loss_rel, norm_rel, (rel[worst], worst), len(rel), ok
 
 
-def train_slice(sl: Slices, record, card, name: str = "train"):
-    """e. (i) one training step at batch TRAIN_CHECK_BATCH through the
-    kernels and through the plain versions, from the same weights, batch,
-    gumbel noise and dropout generator, and the plain step with each
-    planted fault; (ii) TRAIN_STEPS Adam steps at batch TRAIN_BATCH
-    through the kernels, remat "attn".  ``name``: the slice's name in its
-    lines."""
+def step_vs_plain(sl: Slices, record, tb, losses, name: str, **opts) -> dict:
+    """One training step at batch TRAIN_CHECK_BATCH (``tb``) with these
+    Options fields through the kernels, its launches against their
+    derivation, and through the plain versions from the same weights,
+    batch, gumbel noise and dropout generator: the kernel step within slice
+    e's limits of the plain step, the plain step with each planted block
+    fault (PLANTED_FAULTS) outside them.  ``name``: the lines' slice."""
     import torch
 
     from vitxtgqa_tpu_torch import Options
-    from vitxtgqa_tpu_torch.losses import Losses
-    from vitxtgqa_tpu_torch.ops import _build
-    from vitxtgqa_tpu_torch.serving.engine import to_device
-    from vitxtgqa_tpu_torch.training.optim import build_optimizer
-    from vitxtgqa_tpu_torch.training.step import step_generators, train_step
-    from vitxtgqa_tpu_torch.utils.synthetic import synthetic_batch
 
-    dev, losses = sl.dev, Losses(sl.cfg["losses"])
-    tb = to_device(synthetic_batch(batch=TRAIN_CHECK_BATCH, num_final_outputs=sl.nf, seed=2), dev)
-    kern = train_check_step(sl, tb, losses, plain=False)
+    kern = train_check_step(sl, tb, losses, plain=False, **opts)
     print(f"slice {name}: launches in one batch-{TRAIN_CHECK_BATCH} step " + json.dumps(kern[3]),
           flush=True)
     count_launches(f"slice {name}", record, kern[3],
-                   expected_train_launches(sl.cfg, Options(device=dev)))
-    plain = train_check_step(sl, tb, losses, plain=True)
+                   expected_train_launches(sl.cfg, Options(device=sl.dev, **opts), sl.key))
+    plain = train_check_step(sl, tb, losses, plain=True, **opts)
     if any(plain[3].values()):
         fail(f"slice {name}: the plain step launched kernels {plain[3]}")
     limits = (f"(limits: loss {LOSS_REL_TOL}, norm {GNORM_REL_TOL}, parameter {GRAD_REL_TOL}, "
@@ -3680,7 +3701,7 @@ def train_slice(sl: Slices, record, card, name: str = "train"):
                          "grad_norm": [kern[1], plain[1]]}, "planted": {}}
     for form, run in [("kernels", kern)] + [(f, None) for f in PLANTED_FAULTS]:
         if run is None:
-            run = train_check_step(sl, tb, losses, plain=True, fault=form)
+            run = train_check_step(sl, tb, losses, plain=True, fault=form, **opts)
         loss_rel, norm_rel, (grad_rel, worst), n, ok = step_agreement(run, plain)
         print(f"slice {name}: batch {TRAIN_CHECK_BATCH}, {form} vs plain: loss {run[0]:.6f} vs "
               f"{plain[0]:.6f} (rel {loss_rel:.3e}), gradient norm {run[1]:.5f} vs {plain[1]:.5f} "
@@ -3700,18 +3721,37 @@ def train_slice(sl: Slices, record, card, name: str = "train"):
         del run
     del kern, plain
     torch.cuda.empty_cache()
+    return summary
 
-    # (ii) batch 48 through the kernels
-    model = sl.model()
+
+def timed_steps(sl: Slices, record, name: str, card, steps: Optional[int] = None,
+                **opts) -> dict:
+    """``steps`` (default TRAIN_STEPS) Adam steps at batch TRAIN_BATCH
+    through the kernels with these Options fields (the first warms up),
+    each step's launches
+    against their derivation and its update applied: the step ms, their
+    median, videos/s, max_memory_allocated over the steps and the largest
+    change of three watched parameters."""
+    import torch
+
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.ops import _build
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+    from vitxtgqa_tpu_torch.training.optim import build_optimizer
+    from vitxtgqa_tpu_torch.training.step import step_generators, train_step
+
+    dev, losses = sl.dev, Losses(sl.cfg["losses"])
+    steps = TRAIN_STEPS if steps is None else steps
+    model = sl.model(**opts)
     opt = build_optimizer(model, model_config=sl.cfg)
-    batch = to_device(synthetic_batch(batch=TRAIN_BATCH, num_final_outputs=sl.nf, seed=3), dev)
+    batch = to_device(sl.batch(TRAIN_BATCH, 3), dev)
     watch = {k: p.detach().clone() for k, p in model.named_parameters()
              if k in ("text_bert.encoder.layer.0.attention.self.query.weight",
                       "mmt.encoder.layer.2.output.dense.weight", "classifier.module.weight")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses_seen = [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         _build.reset_launch_counts()
         t = time.perf_counter()
         r = train_step(model, losses, opt, batch, step_generators(0, step, dev))
@@ -3727,18 +3767,33 @@ def train_slice(sl: Slices, record, card, name: str = "train"):
     moved = {k: float((p.detach() - watch[k]).abs().max()) for k, p in model.named_parameters()
              if k in watch}
     med = statistics.median(times[1:])
-    print(f"slice {name}: batch {TRAIN_BATCH}, remat {model.opts.remat}, {TRAIN_STEPS} Adam steps "
-          f"through the kernels: losses {losses_seen}; step ms {[round(x, 2) for x in times]} "
-          f"(the first warms up); median {med:.2f} ms, {TRAIN_BATCH / med * 1e3:.2f} videos/s; "
-          f"max_memory_allocated {peak / 2**30:.2f} GiB; parameters moved {moved}; card {card}",
-          flush=True)
+    arms = ", ".join(f"{k} {v}" for k, v in sorted(opts.items())) or "the defaults"
+    print(f"slice {name}: batch {TRAIN_BATCH}, remat {model.opts.remat} ({arms}), {steps} Adam "
+          f"steps through the kernels: losses {losses_seen}; step ms "
+          f"{[round(x, 2) for x in times]} (the first warms up); median {med:.2f} ms, "
+          f"{TRAIN_BATCH / med * 1e3:.2f} videos/s; max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"parameters moved {moved}; card {card}", flush=True)
     if min(moved.values()) <= 0.0:
         fail(f"slice {name}: the Adam steps left a parameter unchanged")
-    summary["batch48"] = {"step_ms_all": times, "step_ms_median": med,
-                          "videos_per_s": TRAIN_BATCH / med * 1e3, "losses": losses_seen,
-                          "max_memory_allocated": peak, "param_max_abs_change": moved}
     del model, opt, batch
     torch.cuda.empty_cache()
+    return {"step_ms_all": times, "step_ms_median": med, "videos_per_s": TRAIN_BATCH / med * 1e3,
+            "losses": losses_seen, "max_memory_allocated": peak, "param_max_abs_change": moved}
+
+
+def train_slice(sl: Slices, record, card, name: str = "train"):
+    """e. (i) one training step at batch TRAIN_CHECK_BATCH through the
+    kernels and through the plain versions, from the same weights, batch,
+    gumbel noise and dropout generator, and the plain step with each
+    planted fault (step_vs_plain); (ii) TRAIN_STEPS Adam steps at batch
+    TRAIN_BATCH through the kernels, remat "attn" (timed_steps).
+    ``name``: the slice's name in its lines."""
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+
+    tb = to_device(sl.batch(TRAIN_CHECK_BATCH, 2), sl.dev)
+    summary = step_vs_plain(sl, record, tb, Losses(sl.cfg["losses"]), name)
+    summary["batch48"] = timed_steps(sl, record, name, card)
     return summary
 
 
@@ -6230,16 +6285,17 @@ def legacy_slice(dev, card) -> dict:
 # the plans of slices r, s and t on the one card: (ranks, (data, model, sp,
 # pp)); pp 3 pipelines the text BERT and the MMT (3 layers each), pp 2 (on
 # each of two data rows) the QTV (2 layers), data x sp splits the global
-# batch over two data rows and each row's attentions over two ranks
+# batch over two data rows and each row's attentions over two ranks, data
+# x model (slice s) each row's layers over two model ranks
 MESH_PLANS = {"pp3": (3, (1, 1, 1, 3)), "dpp2": (4, (2, 1, 1, 2)), "dsp": (4, (2, 1, 2, 1)),
-              "tp2": (2, (1, 2, 1, 1)), "tsp": (4, (1, 2, 2, 1)), "tpp": (4, (1, 2, 1, 2)),
+              "dtp2": (4, (2, 2, 1, 1)), "tsp": (4, (1, 2, 2, 1)), "tpp": (4, (1, 2, 1, 2)),
               "tp4": (4, (1, 4, 1, 1))}
-R_PLANS, S_PLANS, T_PLANS = ("pp3", "dpp2", "dsp"), ("tp2",), ("tsp", "tpp", "tp4")
+R_PLANS, S_PLANS, T_PLANS = ("pp3", "dpp2", "dsp"), ("dtp2",), ("tsp", "tpp", "tp4")
 # slice r's worlds: a plan, or plans of one world size run in turn in one
-# world: pp 2 on two data rows, data x sp and slice t's plans share one
-# world of four (one spawn of four ranks for slices r and t; t reads its
-# plans' results from FOUR_RANK_RESULTS)
-FOUR_RANK_WORLD = ("dpp2", "dsp") + T_PLANS
+# world: pp 2 on two data rows, data x sp, slice s's data x model and slice
+# t's plans share one world of four (one spawn of four ranks for slices r,
+# s and t; s and t read their plans' results from FOUR_RANK_RESULTS)
+FOUR_RANK_WORLD = ("dpp2", "dsp") + S_PLANS + T_PLANS
 R_WORLDS = ("pp3", FOUR_RANK_WORLD)
 FOUR_RANK_RESULTS = {}
 # what a plan's ranks run (default: full-eval on a pipeline or a model
@@ -6264,7 +6320,7 @@ TP_FAULTS = ("partial_kept", "replicas_summed")
 # skipped), or the pointer's scores left each rank's partial sum
 VOCAB_FAULTS = ("lookup_unsummed", "pointer_unsummed")
 # the planted faults of a plan's step
-PLAN_FAULTS = {"pp3": MESH_FAULTS, "tp2": TP_FAULTS, "tsp": VOCAB_FAULTS}
+PLAN_FAULTS = {"pp3": MESH_FAULTS, "dtp2": TP_FAULTS, "tsp": VOCAB_FAULTS}
 # slice s's step: the global batch (gloo carries every f32 partial through
 # the host: four all-reduces a layer of rows x 768 floats)
 TP_TRAIN_BATCH = 8
@@ -6760,14 +6816,15 @@ def mesh_slice(record, card, dry: bool = False) -> dict:
     """r. The mesh's sp and pp axes on the one card: (i) pp 3 (full-eval,
     then the step with its planted faults), then in one world of four (ii)
     data 2 x pp 2 (full-eval) and (iii) data x sp = 2 x 2 (the step), each
-    plan's rank 0 launches into the record, then in the same world slice
-    t's plans (kept in FOUR_RANK_RESULTS for tp_mesh_slice, their launches
-    into the record here); (iv) the torchrun CLI on four
+    plan's rank 0 launches into the record, then in the same world slices
+    s's and t's plans (kept in FOUR_RANK_RESULTS for tp_slice and
+    tp_mesh_slice, their launches into the record here); (iv) the torchrun
+    CLI on four
     processes with mesh.data=2 mesh.sp=2 against run() in this process
     (dp_cli; not in a dry run)."""
     t0 = time.perf_counter()
     out = mesh_worlds(record, card, R_WORLDS, dry)
-    FOUR_RANK_RESULTS.update({plan: out.pop(plan) for plan in T_PLANS})
+    FOUR_RANK_RESULTS.update({plan: out.pop(plan) for plan in S_PLANS + T_PLANS})
     if not dry:
         out["cli"] = dp_cli(card, extra=MESH_CLI_AXES, ranks=MESH_CLI_RANKS, label="r(iv)")
     out["wall_s"] = time.perf_counter() - t0
@@ -7018,10 +7075,12 @@ def check_tp_flash(dev, record, b: int = TRAIN_CHECK_BATCH, n: int = TP_SIZE):
 def tp_slice(record, card, dry: bool = False) -> dict:
     """s. Tensor parallelism on the one card: (i) the split forms against
     their twins (check_tp_blocks) and #1 / #1b at a rank's head offset
-    (check_tp_flash), in this process; (ii) two gloo ranks on the card at
-    model 2 (mesh_spawn "tp2": full-eval over the bf16 cache against one
-    process, a step at TP_TRAIN_BATCH against one process with TP_FAULTS
-    rejected, each rank's launches into the record), then run() through
+    (check_tp_flash), in this process; (ii) four gloo ranks on the card at
+    data 2 x model 2 (the plan "dtp2"; in the whole script slice r's world
+    of four, FOUR_RANK_RESULTS, else mesh_spawn: full-eval over the bf16
+    cache against one process, a step at TP_TRAIN_BATCH against one process
+    with TP_FAULTS rejected, each rank's launches into the record), then
+    run() through
     the torchrun CLI at mesh.model=2 against run() in this process, its
     checkpoint restored in one process (dp_cli, reload); (iii)
     entry.dryrun_multichip(4), JAX's default data 2 x model 2 mesh.  A dry
@@ -7034,7 +7093,10 @@ def tp_slice(record, card, dry: bool = False) -> dict:
         dev = torch.device("cuda", 0)
         out["kernels"] = check_tp_blocks(dev, record)
         check_tp_flash(dev, record)
-    out.update(mesh_worlds(record, card, S_PLANS, dry))
+    if all(plan in FOUR_RANK_RESULTS for plan in S_PLANS):
+        out.update({plan: FOUR_RANK_RESULTS[plan] for plan in S_PLANS})
+    else:
+        out.update(mesh_worlds(record, card, S_PLANS, dry))
     if not dry:
         from vitxtgqa_tpu_torch.entry import dryrun_multichip
 
@@ -7836,6 +7898,322 @@ def head_slice(dev, record, card) -> dict:
             "vit_h14": vit_h_slice(dev, record, card)}
 
 
+# ---------------------------------------------------------------------------
+# slice w: the JAX trainer's opt-in arms (compact training, the remat modes)
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "attn", "attn_qkv", "dots", "full")
+
+
+def check_compact_train_kernels(dev, record) -> dict:
+    """w(i). The training kernels at compact training's shapes: #1 with
+    dropout RATE and its lse at [TRAIN_BATCH, L_COMPACT, 768] (12 heads,
+    dec_len DEC_LEN, the compact key mask), #1b there in the atomic and the
+    ordered form (two ordered calls bit for bit), #9a / #9b at TRAIN_BATCH
+    x L_COMPACT rows, each against its twin at slice e's limits beside a
+    planted fault its tolerance rejects (#1 / #1b: the last 8 of 64
+    columns of each head dropped; #9a: its two dropout masks swapped; #9b:
+    its LayerNorm sums over fault_width(768) columns); then each timed
+    beside its twin, its bound and the library (#1: SDPA with dropout;
+    #1b: SDPA's backward; #9a / #9b: none, their products alone as
+    torch.matmul beside), kept under each record's "compact_train"."""
+    import torch
+    import torch.nn.functional as F
+
+    from vitxtgqa_tpu_torch.ops import block_train as BT
+    from vitxtgqa_tpu_torch.ops import flash_attention as FA
+    from vitxtgqa_tpu_torch.run import deterministic_algorithms
+
+    gen = torch.Generator(device=dev).manual_seed(2525)
+    bf = torch.bfloat16
+    rn = lambda *s_, scale=1.0: (torch.randn(*s_, generator=gen, device=dev) * scale).to(bf)
+    diff = lambda a, w: (a.float() - w.float()).abs().max().item()
+    cmask = compact_mask(dev)
+    h, l, b = 12, cmask.shape[1], TRAIN_BATCH
+    d, m = h * 64, 4 * h * 64
+    seed = torch.tensor([20261019], dtype=torch.int64, device=dev)
+    km = cmask[torch.arange(b, device=dev) % cmask.shape[0]].contiguous()
+    rows_ok = km > 0
+    rows_ok[:, l - DEC_LEN:] = True
+    on_rows = lambda a, w: (a.float() - w.float()).abs()[rows_ok].max().item()
+    shape = f"[{b},{l},{d}] dec_len={DEC_LEN}, the compact mask"
+    out, times = {}, {}
+
+    # #1 with dropout and its lse
+    q, k, v, g = (rn(b, l, d) for _ in range(4))
+    a = (q, k, v, km, DEC_LEN, h, RATE, seed)
+    got, lse = FA.flash_attention_merged(*a, return_lse=True)
+    want, want_lse = FA.flash_attention_merged_plain(*a, return_lse=True)
+    lse_err = (lse - want_lse).abs()[rows_ok[:, None, :].expand_as(lse)].max().item()
+    report(record, "flash_attention_merged", on_rows(got, want),
+           extra=f" dropout {RATE} {shape}; lse max|diff| {lse_err:.3e} (tol {LSE_TOL:.0e})")
+    if not lse_err <= LSE_TOL:
+        fail(f"flash_attention_merged: the lse disagrees at {shape}")
+    out["flash_attention_merged fault"] = fault_rejected(
+        "flash_attention_merged", on_rows(got, FA.flash_attention_merged_plain(
+            *(drop_chunk(t, 64) for t in (q, k, v)), *a[3:])), 64, f"dropout {RATE} {shape}")
+    am = sdpa_mask(km, DEC_LEN)
+    qh, kh, vh = (sdpa_split(t, h) for t in (q, k, v))
+    times["flash_attention_merged"] = dict(
+        ms=cuda_time_ms(lambda: FA.flash_attention_merged(*a, return_lse=True)),
+        plain_ms=cuda_time_ms(lambda: FA.flash_attention_merged_plain(*a, return_lse=True),
+                              reps=3, warmup=1),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, am,
+                                                                       dropout_p=RATE)),
+        bound=flash_bound(q, km, DEC_LEN, lse=True))
+    del got, lse
+
+    # #1b, atomic and ordered, from the twin's out and lse
+    bargs = (q, k, v, km, want, want_lse, g, DEC_LEN, h, RATE, seed)
+    ref = FA.flash_attention_merged_bwd_plain(*bargs)
+    bad = FA.flash_attention_merged_bwd_plain(*(drop_chunk(t, 64) for t in (q, k, v)),
+                                              *bargs[3:])
+    bshape = f"rate={RATE} {shape}"
+    for form, ordered in (("atomic", False), ("ordered", True)):
+        with deterministic_algorithms(ordered):
+            got = FA.flash_attention_merged_bwd(*bargs)
+            if ordered:
+                again = FA.flash_attention_merged_bwd(*bargs)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"flash_attention_merged_bwd: two ordered calls differ at {bshape}")
+                times["ordered_ms"] = cuda_time_ms(lambda: FA.flash_attention_merged_bwd(*bargs))
+        for name_, a_, w_ in zip(("dq", "dk", "dv"), got, ref):
+            report(record, "flash_attention_merged_bwd", diff(a_, w_),
+                   scale=w_.float().abs().max().item(), extra=f" {form} {name_} {bshape}")
+        worst = max(diff(a_, f_) / w_.float().abs().max().item()
+                    for a_, w_, f_ in zip(got, ref, bad))
+        out[f"flash_attention_merged_bwd {form} fault"] = planted_rejected(
+            "flash_attention_merged_bwd", worst,
+            f"the last 8 of 64 columns of each head dropped, {form}, scale-relative {bshape}")
+    qs, ks_, vs_ = (sdpa_split(t, h).detach().requires_grad_() for t in (q, k, v))
+    o_sd = F.scaled_dot_product_attention(qs, ks_, vs_, am, dropout_p=RATE)
+    gs = sdpa_split(g, h)
+    times["flash_attention_merged_bwd"] = dict(
+        ms=cuda_time_ms(lambda: FA.flash_attention_merged_bwd(*bargs)),
+        plain_ms=cuda_time_ms(lambda: FA.flash_attention_merged_bwd_plain(*bargs), reps=3,
+                              warmup=1),
+        library_ms=cuda_time_ms(lambda: torch.autograd.grad(o_sd, (qs, ks_, vs_), gs,
+                                                            retain_graph=True)),
+        bound=flash_bwd_bound(q, km, DEC_LEN))
+    del q, k, v, g, want, want_lse, ref, bad, got, qs, ks_, vs_, o_sd, qh, kh, vh
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # #9a / #9b at TRAIN_BATCH x L_COMPACT rows
+    rows = b * l
+    vec = lambda n, base=0.0: base + torch.randn(n, generator=gen, device=dev) * 0.05
+    x_q, ctx, gy = rn(rows, d), rn(rows, d), rn(rows, d)
+    wo, w1, w2 = (rn(*s_, scale=0.02) for s_ in ((d, d), (m, d), (d, m)))
+    vecs = [vec(d), vec(d, 1.0), vec(d), vec(m), vec(d), vec(d, 1.0), vec(d)]
+    bo, s1, g1, b1, b2, s2, g2 = vecs
+    wargs = (wo, bo, s1, g1, w1, b1, w2, b2, s2, g2)
+    bl = f" rate={RATE} [{rows},{d}]->{m}"
+    ma, mf = BT.seed_masks(seed, rows, d, RATE, dev)
+    fwd = BT.block_train_fwd(x_q, ctx, *wargs, rate=RATE, seed=seed)
+    twin = BT.block_train_fwd_plain(x_q, ctx, *wargs, ma, mf, rate=RATE)
+    for name_, a_, w_ in zip(("y", "x1h", "pre1", "h", "x2h"), fwd, twin):
+        report(record, "block_train_fwd", diff(a_, w_), extra=f" {name_}{bl}")
+    out["block_train_fwd fault"] = planted_rejected(
+        "block_train_fwd", diff(fwd[0], BT.block_train_fwd_plain(x_q, ctx, *wargs, mf, ma,
+                                                                 rate=RATE)[0]),
+        f"its two dropout masks swapped{bl}")
+    bwd_args = (gy, ctx, *twin[1:], wo, w1, w2, s1, g1, s2)
+    grads = BT.block_train_bwd(*bwd_args, rate=RATE, seed=seed)
+    want_g = BT.block_train_bwd_plain(*bwd_args, ma, mf, rate=RATE)
+    for name_, a_, w_ in zip(BT.GRAD_NAMES, grads, want_g):
+        report(record, "block_train_bwd", diff(a_, w_), scale=w_.float().abs().max().item(),
+               extra=f" d{name_}{bl}")
+    with row_width_fault(fault_width(d)):
+        bad_g = BT.block_train_bwd_plain(*bwd_args, ma, mf, rate=RATE)
+    out["block_train_bwd fault"] = planted_rejected(
+        "block_train_bwd", max(diff(a_, f_) / w_.float().abs().max().item()
+                               for a_, w_, f_ in zip(grads, want_g, bad_g)),
+        f"LayerNorm sums of {d} columns over {fault_width(d)}, scale-relative{bl}")
+    del fwd, grads, want_g, bad_g, ma, mf
+    sub = {}
+    block_times(sub, rows, d, m, x_q, ctx, wargs, bwd_args, seed, vecs)
+    h_act = twin[3]
+    gemm = {"block_train_fwd": products_ms([(ctx, wo), (x_q, w1), (h_act, w2)]),
+            "block_train_bwd": products_ms([(gy, w2.t()), (h_act, w1.t()), (gy, wo.t()),
+                                            (gy.t(), x_q.t()), (h_act.t(), x_q.t()),
+                                            (gy.t(), h_act.t())])}
+    for name in ("flash_attention_merged", "flash_attention_merged_bwd"):
+        t = times[name]
+        bound = t.pop("bound")
+        t.update(bound_ms=bound[0], bound_by=bound[1])
+    for name in ("block_train_fwd", "block_train_bwd"):
+        t = {key: sub[name][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by")}
+        times[name] = dict(t, gemm_ms=gemm[name])
+    times["flash_attention_merged_bwd"]["ordered_ms"] = times.pop("ordered_ms")
+    for name, t in times.items():
+        record.setdefault(name, {})["compact_train"] = t
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        extra = "".join(f", {key} {t[key]:.4f} ms" for key in ("ordered_ms", "gemm_ms")
+                        if key in t)
+        print(f"slice w: {name} at compact training's shape: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {lib}{extra}, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it", flush=True)
+    del x_q, ctx, gy, twin, bwd_args, h_act
+    out["times"] = times
+    return out
+
+
+def compact_scores_check(sl: Slices, tb) -> dict:
+    """w(ii), dropout 0: the training forward under compact_train against
+    the full one through the kernels (the same weights, batch and gumbel
+    noise): the ref scores equal bit for bit, pos / neg's fixed-vocabulary
+    scores and copy scores of their kept slots (the grounding's gather
+    lists) within STEP0_TOL, the never-kept slots the ref scores."""
+    import torch
+
+    from vitxtgqa_tpu_torch.training.step import step_generators
+
+    outs, kept = {}, {}
+    for compact in (False, True):
+        model = sl.model(compact_train=compact)
+        probe = GroundingProbe(model)
+        with torch.no_grad():
+            out = model(tb, step_generators(7, 0, sl.dev)[1], train=True, dropout_gen=None)
+        outs[compact] = {k: out[k].float() for k in ("ref_scores", "pos_scores", "neg_scores")}
+        kept[compact] = {k: probe.out[k] for k in ("pos_ocr_idx", "neg_ocr_idx")}
+        probe.remove()
+        del model, out
+    for k, v in outs[True].items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"slice w: compact training's {k} are not finite")
+    n = tb["ocr_mask"].shape[1]
+    v_fix = outs[True]["ref_scores"].shape[-1] - n
+    ref = outs[True]["ref_scores"]
+    res = {"ref_equal": bool(torch.equal(ref, outs[False]["ref_scores"]))}
+    for pfx in ("pos", "neg"):
+        ci = kept[True][f"{pfx}_ocr_idx"].long()
+        if not torch.equal(ci, kept[False][f"{pfx}_ocr_idx"].long()):
+            fail(f"slice w: the {pfx} gather lists differ between the compact and full passes")
+        mask = torch.zeros(ci.shape[0], n, dtype=torch.bool, device=ci.device)
+        mask.scatter_(1, ci.clamp_min(0), ci >= 0)
+        mask = mask[:, None, :].expand(-1, ref.shape[1], -1)
+        cs, fs = outs[True][f"{pfx}_scores"], outs[False][f"{pfx}_scores"]
+        res[f"{pfx}_fixed_max_abs_diff"] = (cs[..., :v_fix] - fs[..., :v_fix]).abs().max().item()
+        res[f"{pfx}_kept_max_abs_diff"] = (cs[..., v_fix:] - fs[..., v_fix:])[mask].abs().max(
+            ).item()
+        res[f"{pfx}_fill_equal"] = bool(torch.equal(cs[..., v_fix:][~mask],
+                                                    ref[..., v_fix:][~mask]))
+    print(f"slice w: dropout 0, compact training against the full forward through the kernels: "
+          f"{json.dumps(res)} (limit {STEP0_TOL}; ref and the fill exact)", flush=True)
+    if not (res["ref_equal"] and res["pos_fill_equal"] and res["neg_fill_equal"]
+            and max(v for k, v in res.items() if k.endswith("diff")) <= STEP0_TOL):
+        fail("slice w: compact training's scores disagree with the full pass's")
+    return res
+
+
+def remat_checks(sl: Slices, record, card, tb, losses) -> dict:
+    """w(iv). Every remat mode: a step at TRAIN_CHECK_BATCH under PyTorch's
+    deterministic algorithms (the ordered #1b) through the kernels, its
+    launches against their derivation; the loss and every gradient
+    against "attn"'s bit for bit, a mode that differs held at slice e's
+    limits and named; then timed_steps per mode at TRAIN_BATCH, the peak
+    memory falling from "none" to "attn" to "full"."""
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.run import deterministic_algorithms
+
+    steps, out = {}, {"bit_equal": {}, "batch48": {}}
+    with deterministic_algorithms(True):
+        for mode in REMAT_MODES:
+            steps[mode] = train_check_step(sl, tb, losses, plain=False, remat=mode)
+            count_launches(f"slice w remat={mode}, a batch-{TRAIN_CHECK_BATCH} step", record,
+                           steps[mode][3],
+                           expected_train_launches(sl.cfg, Options(device=sl.dev, remat=mode)))
+    ref = steps["attn"]
+    for mode, run in steps.items():
+        differ = [k for k in ref[2] if not torch.equal(run[2][k], ref[2][k])]
+        same = run[0] == ref[0] and not differ
+        loss_rel, norm_rel, (grad_rel, worst), _, ok = step_agreement(run, ref)
+        print(f"slice w: remat {mode} against attn at batch {TRAIN_CHECK_BATCH}, deterministic: "
+              f"loss {run[0]!r} vs {ref[0]!r}, {len(differ)} of {len(ref[2])} gradients differ "
+              f"({differ[:3]}); bit for bit: {same}; rel loss {loss_rel:.3e}, norm "
+              f"{norm_rel:.3e}, worst gradient {grad_rel:.3e} ({worst}); launches "
+              + json.dumps({k: v for k, v in run[3].items() if v}), flush=True)
+        out["bit_equal"][mode] = {"equal": same, "differ": differ, "loss_rel": loss_rel,
+                                  "max_grad_rel": grad_rel}
+        if not same and not ok:
+            fail(f"slice w: remat {mode} disagrees with attn beyond slice e's limits")
+    del steps, ref
+    torch.cuda.empty_cache()
+    for mode in REMAT_MODES:
+        out["batch48"][mode] = timed_steps(sl, record, f"w remat={mode}", card, remat=mode)
+    check_peaks_fall({mode: r["max_memory_allocated"] for mode, r in out["batch48"].items()})
+    return out
+
+
+def check_peaks_fall(peak: dict) -> None:
+    """Fail unless the steps' peak memory ({remat mode: bytes}) falls from
+    "none" to "attn" to "full"."""
+    print("slice w: peak memory by remat mode (GiB) "
+          + json.dumps({k: round(v / 2**30, 3) for k, v in peak.items()}), flush=True)
+    if not peak["none"] > peak["attn"] > peak["full"]:
+        fail(f"slice w: peak memory does not fall from none to attn to full: {peak}")
+
+
+def train_arms_slice(dev, record, card, e_step=None) -> dict:
+    """w. The JAX trainer's opt-in arms at T2S's production widths: (i) the
+    training kernels at compact training's shapes
+    (check_compact_train_kernels); (ii) a compact training step at
+    TRAIN_CHECK_BATCH against plain in both fill modes (step_vs_plain)
+    and, at dropout 0, its scores against the full pass's
+    (compact_scores_check); (iii) TRAIN_STEPS Adam steps at TRAIN_BATCH
+    under compact_train beside the full step, in turns (full, compact,
+    compact, full), with slice e(ii)'s reading (``e_step``) printed beside;
+    (iv) the remat modes (remat_checks)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.losses import Losses
+    from vitxtgqa_tpu_torch.serving.engine import to_device
+
+    t0 = time.perf_counter()
+    secs = {}
+    out = {"kernels": check_compact_train_kernels(dev, record)}
+    secs["i"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    sl = Slices(dev)
+    losses = Losses(sl.cfg["losses"])
+    tb = to_device(sl.batch(TRAIN_CHECK_BATCH, 2), dev)
+    t = time.perf_counter()
+    out["compact_step"] = {str(mode): step_vs_plain(sl, record, tb, losses,
+                                                    f"w compact_train={mode}",
+                                                    compact_train=mode)
+                           for mode in (True, "live")}
+    out["compact_scores"] = compact_scores_check(sl, tb)
+    secs["ii"] = time.perf_counter() - t
+    t = time.perf_counter()
+    runs = {"full": [], "compact": []}
+    for form in ("full", "compact", "compact", "full"):
+        runs[form].append(timed_steps(sl, record, f"w {form}", card,
+                                      compact_train=form == "compact"))
+    med = {form: statistics.median(x for r in rs for x in r["step_ms_all"][1:])
+           for form, rs in runs.items()}
+    peak = {form: max(r["max_memory_allocated"] for r in rs) for form, rs in runs.items()}
+    e_med = "not run" if e_step is None else f"{e_step['step_ms_median']:.2f} ms"
+    print(f"slice w: batch {TRAIN_BATCH}, compact training median {med['compact']:.2f} ms "
+          f"({TRAIN_BATCH / med['compact'] * 1e3:.2f} videos/s, "
+          f"{peak['compact'] / 2**30:.2f} GiB) against the full step's {med['full']:.2f} ms "
+          f"({TRAIN_BATCH / med['full'] * 1e3:.2f} videos/s, {peak['full'] / 2**30:.2f} GiB) "
+          f"in turns; slice e(ii)'s full step {e_med}; card {card}", flush=True)
+    out["compact_batch48"] = {"runs": runs, "median_ms": med, "max_memory_allocated": peak}
+    secs["iii"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["remat"] = remat_checks(sl, record, card, tb, losses)
+    secs["iv"] = time.perf_counter() - t
+    del sl
+    torch.cuda.empty_cache()
+    out["part_s"] = secs
+    print("slice w: parts (s) " + json.dumps({k: round(v, 1) for k, v in secs.items()}),
+          flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def phase(phases: dict, name: str):
     """Time one phase of the script on the host clock; print its seconds and
@@ -8001,7 +8379,11 @@ def run_slices(dev, record, card, phases):
             ("u", "widths", lambda: width_slice(dev, record, card)),
             # every head width, #5's long caches, T2S at MiniLM's widths,
             # ViT-H/14
-            ("v", "head_widths", lambda: head_slice(dev, record, card))):
+            ("v", "head_widths", lambda: head_slice(dev, record, card)),
+            # the JAX trainer's opt-in arms: compact training, the remat
+            # modes, fused grads, the post-scan epilogue
+            ("w", "train_arms", lambda: train_arms_slice(
+                dev, record, card, details["train"].get("batch48")))):
         with phase(phases, f"slice {letter}"):
             details[name] = run()
     return details

@@ -1512,7 +1512,7 @@ def slice_s_dry(tmp_path_factory):
     ranks = torch_tp_ranks.start({"launches": case}, tmp_path_factory.mktemp("tp_launch"),
                                  world=2)
     try:
-        dry = CS.mesh_spawn("cpu", "tp2", dry=True)
+        dry = CS.mesh_spawn("cpu", "dtp2", dry=True)
         return cfg, ranks.results(), dry
     finally:
         for p in ranks.procs:
@@ -1550,8 +1550,8 @@ def test_slice_s_launches_count_each_ranks_kernel_calls(slice_s_dry, train):
 
 
 def test_slice_s_holds_and_rejects_the_planted_faults(slice_s_dry):
-    """mesh_spawn's dry run of s(ii) (two gloo ranks on the CPU at model 2,
-    the tiny model at the production layer counts in float32): full-eval
+    """mesh_spawn's dry run of s(ii) (four gloo ranks on the CPU at data 2 x
+    model 2, the tiny model at the production layer counts in float32): full-eval
     over the bf16 cache equal to one process; the step within float32
     noise of the one-process step; an attention input gradient left a
     rank's partial and the whole parameters' gradients summed over the
@@ -1607,7 +1607,8 @@ def test_slice_s_kernels_enter_the_record_line():
     training block's on its, with the tolerances of the unsplit kernels."""
     for name in ("fused_block", "fused_block_tanh", "block_train_fwd", "block_train_bwd"):
         assert CS.TOL[name + "_tp"] == CS.TOL[name]
-    assert CS.S_PLANS == ("tp2",) and CS.MESH_PLANS["tp2"] == (2, (1, 2, 1, 1))
+    assert CS.S_PLANS == ("dtp2",) and CS.MESH_PLANS["dtp2"] == (4, (2, 2, 1, 1))
+    assert set(CS.S_PLANS) <= set(CS.FOUR_RANK_WORLD)
 
 
 # ---------------------------------------------------------------------------

@@ -121,4 +121,4 @@ def test_slice_t_plans():
     assert CS.T_PLANS == ("tsp", "tpp", "tp4")
     assert {CS.MESH_PLANS[p] for p in CS.T_PLANS} == {
         (4, (1, 2, 2, 1)), (4, (1, 2, 1, 2)), (4, (1, 4, 1, 1))}
-    assert CS.slice_of("tsp") == "t" and CS.slice_of("tp2") == "s" and CS.slice_of("dsp") == "r"
+    assert CS.slice_of("tsp") == "t" and CS.slice_of("dtp2") == "s" and CS.slice_of("dsp") == "r"

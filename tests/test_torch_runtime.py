@@ -724,14 +724,8 @@ REFUSALS = {
     "float16": ("cpu", {"compute_dtype": "float16"}, False, ValueError, "computes in"),
     "use_pallas_false_on_the_card": ("auto", {"use_pallas": False}, True, ValueError,
                                      "never the main path"),
-    "fused_grads": ("cpu", {"fused_grads": True}, False, NotImplementedError, "queue 1 item 6"),
-    "compact_train": ("cpu", {"compact_train": True}, False, NotImplementedError,
-                      "queue 1 item 6"),
-    "dense_mm": ("cpu", {"dense_mm": True}, False, NotImplementedError, "queue 1 item 6"),
-    "split_dense": ("cpu", {"split_dense": True}, False, NotImplementedError, "queue 1 item 6"),
-    "remat_full": ("cpu", {"remat": "full"}, False, ValueError, "queue 1 item 6"),
-    "remat_dots": ("cpu", {"remat": "dots"}, False, ValueError, "queue 1 item 6"),
-    "remat_attn_qkv": ("cpu", {"remat": "attn_qkv"}, False, ValueError, "queue 1 item 6"),
+    # every remat mode of the JAX trainer maps (MAPPINGS); another raises
+    "remat_unknown": ("cpu", {"remat": "sometimes"}, False, ValueError, "remat 'sometimes'"),
     # sp and pp run (tests/test_torch_mesh.py); a world too small for them raises
     "mesh_sp_2": ("cpu", {"mesh": {"data": -1, "sp": 2}}, False, ValueError,
                   "sp=2 x pp=1 needs a multiple of 2 processes; the world has 1"),
@@ -785,7 +779,19 @@ MAPPINGS = {
     "fused_block_bwd_false": ("cpu", {"fused_block_bwd": False}, False, {}),
     "fused_block_fwd_false": ("cpu", {"fused_block_fwd": False}, False, {}),
     "unported_false": ("cpu", {k: False for k in ("fused_grads", "compact_train", "dense_mm",
-                                                   "split_dense")}, False, {}),
+                                                   "split_dense")}, False,
+                       dict(compact_train=False)),
+    # the JAX trainer's opt-in arms (tests/test_torch_train_arms.py reads
+    # every value); fused_grads taken with no field (the port's backward
+    # already accumulates in float32); dense_mm and split_dense, keys JAX
+    # reads nowhere, ignored
+    "fused_grads": ("cpu", {"fused_grads": True}, False, {}),
+    "compact_train": ("cpu", {"compact_train": True}, False, dict(compact_train=True)),
+    "dense_mm": ("cpu", {"dense_mm": True}, False, {}),
+    "split_dense": ("cpu", {"split_dense": True}, False, {}),
+    "remat_full": ("cpu", {"remat": "full"}, False, dict(remat="full")),
+    "remat_dots": ("cpu", {"remat": "dots"}, False, dict(remat="dots")),
+    "remat_attn_qkv": ("cpu", {"remat": "attn_qkv"}, False, dict(remat="attn_qkv")),
     "remat_attn": ("cpu", {"remat": "attn"}, False, dict(remat="attn")),
     "remat_false": ("cpu", {"remat": False}, False, dict(remat="none")),
     "serving": ("cpu", {"kv_cache_int8": True, "fused_decode": False,

@@ -282,8 +282,9 @@ def test_sp_route_is_the_jax_gate(entry, lq, lk, rate, monkeypatch):
                 TA.mha_merged(*(T(xq),) * 3, tspec, h, sp=sp)
             else:
                 lin = [torch.nn.Linear(h * d, h * d) for _ in range(3)]
-                TA.attention_train(T(xq), *lin, tspec, h, rate, torch.Generator().manual_seed(0),
-                                   "attn", False, sp=sp)
+                draw = TA.attention_draw(T(xq), tspec, h, rate, torch.Generator().manual_seed(0),
+                                         sp)
+                TA.attention_train(T(xq), *lin, tspec, h, rate, draw, "attn", False, sp=sp)
         else:
             JA.mha_merged_quantize(*(jnp.asarray(xq),) * 3, jspec, h)
             TA.mha_merged_quantize(*(T(xq),) * 3, tspec, h, sp=sp)

@@ -305,12 +305,14 @@ def test_port_synthetic_batch_equals_the_jax_packages():
 
 def test_unported_branches_raise():
     """The recompute decode oracle builds now (tests/test_torch_recompute.py
-    holds it against JAX); an unported remat mode still raises, naming its
-    ROADMAP.md item; compact serving is an Options field and builds."""
+    holds it against JAX); every JAX remat mode builds (tests/test_torch_remat.py
+    holds them against JAX) and another raises; compact serving is an
+    Options field and builds."""
     cfg = tiny_model_config()
     assert T2S(cfg, 56, opts=cpu_options(), decode_recompute=True).decode_recompute
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        cpu_options(remat="full")
+    assert T2S(cfg, 56, opts=cpu_options(remat="full")).opts.remat == "full"
+    with pytest.raises(ValueError, match="remat"):
+        cpu_options(remat="sometimes")
     assert T2S(cfg, 56, opts=cpu_options(compact_serving=True, w8a8=True)).opts.compact_serving
 
 

@@ -375,8 +375,9 @@ def test_options_default_to_the_card():
     else:  # nothing falls back to the CPU
         with pytest.raises((RuntimeError, AssertionError)):
             T2S(cfg, 56)
+    assert Options(remat="full").remat == "full"
     with pytest.raises(ValueError, match="remat"):
-        Options(remat="full")
+        Options(remat="sometimes")
 
 
 def test_options_resolve_the_dtype_by_device():

@@ -56,13 +56,15 @@ def _whole(model, grads):
 
 def _mesh(case, world, batch_size=None):
     """build_mesh of the case's (data, model[, sp, pp]), or the model axis
-    of the world; and the Options of its groups on the CPU."""
+    of the world; and the Options of its groups on the CPU, with the
+    case's further Options fields (``opts``, where it has them)."""
     from vitxtgqa_tpu_torch import Options
     from vitxtgqa_tpu_torch.parallel.mesh import build_mesh
 
     axes = (tuple(case.get("mesh", (1, world))) + (1, 1))[:4]
     mesh = build_mesh(*axes, batch_size=batch_size)
-    return mesh, Options(device="cpu", tp=mesh.model, sp=mesh.sp, pp=mesh.pp)
+    return mesh, Options(device="cpu", tp=mesh.model, sp=mesh.sp, pp=mesh.pp,
+                         **case.get("opts", {}))
 
 
 def run_encoder(case, rank, world):

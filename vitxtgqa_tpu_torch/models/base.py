@@ -12,8 +12,9 @@ the per-layer decode over the int8 or bf16 cache.  Both passes take the
 compact hooks (``embed_ocr``, ``dynamic_scatter``) of compact serving and
 compact full-eval.  ``_recompute_decode`` is the reference-style greedy
 decode that reruns ``_mmt_full`` at every step, the parity oracle of the
-cached decode.  The multi-variant cached decode and the post-scan compact
-epilogue are not ported (ROADMAP.md queue 1).
+cached decode.  The multi-variant cached decode is not ported (ROADMAP.md
+queue 1), nor is the JAX package's post-scan compact epilogue, an A/B arm
+that no configuration selects (ROADMAP.md, known deviations).
 
 The zoo's models share the rest of their assembly here: the modality
 streams (``_add_frame_stream`` / ``_frame_stream``, ``_add_ocr_stream`` /
@@ -236,20 +237,22 @@ class JointQAModel(nn.Module):
         return (-(l_enc + dec_len)) % self.LANE
 
     @staticmethod
-    def _scatter_dynamic(dynamic, idx, full_n: int, may_pad: bool):
+    def _scatter_dynamic(dynamic, idx, full_n: int, may_pad: bool, fill=None):
         """Scatter compact-row copy scores [B, S, n_compact] back to the full
-        OCR width [B, S, full_n]; never-kept slots hold -1e4 (the compact
-        deviation from the reference's raw 0/1 pointer mask).  ``may_pad``:
-        -1 entries of a padded gather list write into a trash slot that is
-        sliced away (JAX base.py:_scatter_dynamic without ``fill``, which
-        only compact training uses)."""
+        OCR width [B, S, full_n] (JAX base.py:_scatter_dynamic); never-kept
+        slots hold -1e4 (the compact deviation from the reference's raw 0/1
+        pointer mask), or ``fill`` [B, S, full_n] where given (compact
+        training: the ref pass's scores there).  ``may_pad``: -1 entries of
+        a padded gather list write into a trash slot that is sliced away."""
         b, s, n = dynamic.shape
         idx_b = idx.long()[:, None, :].expand(b, s, n)
         if may_pad:
             safe = torch.where(idx_b < 0, torch.full_like(idx_b, full_n), idx_b)
-            full = dynamic.new_full((b, s, full_n + 1), -1e4)
+            full = (dynamic.new_full((b, s, full_n + 1), -1e4) if fill is None
+                    else F.pad(fill.to(dynamic.dtype), (0, 1)))
             return full.scatter(-1, safe, dynamic)[..., :full_n]
-        return dynamic.new_full((b, s, full_n), -1e4).scatter(-1, idx_b, dynamic)
+        full = dynamic.new_full((b, s, full_n), -1e4) if fill is None else fill.to(dynamic.dtype)
+        return full.scatter(-1, idx_b, dynamic)
 
     def _mmt_full(self, txt, obj, ocr, enc_mask, ocr_masks, prev_inds, train: bool = False,
                   gen=None, embed_ocr=None, dynamic_scatter=None):
@@ -257,7 +260,8 @@ class JointQAModel(nn.Module):
         decoder slots of prev_inds] (JAX base.py:_mmt_full); returns float32
         scores [B, S, V + N].  Compact hooks, as in _greedy_decode: ``ocr``
         may be grounding-gathered rows, ``embed_ocr`` the full OCR stream
-        for the copy tables, ``dynamic_scatter`` (idx, full_n, may_pad)."""
+        for the copy tables, ``dynamic_scatter`` (idx, full_n, may_pad[,
+        fill]), the fill of the never-kept slots under compact training."""
         dec_len = prev_inds.shape[1]
         ppe = self.mmt.prev_pred_embeddings
         ans_tbl, ocr_tbl = ppe.tables(self.classifier.table(),

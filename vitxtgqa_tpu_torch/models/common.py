@@ -13,10 +13,13 @@ normalises in float32 and returns its parameters' dtype.
 Training (``train=True`` with a dropout ``gen``erator): a layer on the
 flash route runs its attention as ops/attention.AttentionFn and its
 post-attention block as ops/block_train.BlockTrainFn (the JAX
-``_fused_block_bwd_ok`` path, gated on lane-aligned widths), each drawing
-one dropout seed per call from ``gen``; the embeddings' and the 20-key text
-BERT's attention dropouts draw their masks from ``gen``.  The eval fused
-block (``_fused_block_ok``) never runs in training, as in JAX.
+``_fused_block_bwd_ok`` path, gated on lane-aligned widths), each on one
+dropout seed from ``gen``; the embeddings' and the 20-key text BERT's
+attention dropouts draw their masks from ``gen``.  A layer draws its seeds
+and masks before it computes, so that every Options.remat mode advances
+``gen`` alike; under "full" the layer is one recompute region
+(torch.utils.checkpoint) that replays them.  The eval fused block
+(``_fused_block_ok``) never runs in training, as in JAX.
 
 Sequence parallelism: every layer passes ``opts.sp`` to the attention
 routing (ops/attention.py), which splits the query rows over the ranks
@@ -51,6 +54,7 @@ from typing import Any, List, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vitxtgqa_tpu_torch.ops import block_train as BT
 from vitxtgqa_tpu_torch.ops import decode_step as DS
@@ -58,6 +62,7 @@ from vitxtgqa_tpu_torch.ops import dropout as D
 from vitxtgqa_tpu_torch.ops import fused_block as FB
 from vitxtgqa_tpu_torch.ops import ptr_scores as PS
 from vitxtgqa_tpu_torch.ops.attention import (
+    attention_draw,
     attention_train,
     decode_mha,
     dequantize_kv,
@@ -252,32 +257,50 @@ class TransformerLayer(nn.Module):
             y = tanh_residual_base + torch.tanh(y)
         return y
 
-    def _finish_train(self, x_q, ctx, gen):
+    def _finish_train(self, x_q, ctx, seed, remat: str, dropout: bool):
         """The training block: BlockTrainFn where the width gate of the JAX
         _fused_block_bwd_ok holds (lane-aligned widths), else the same
-        expression in plain autograd on the same seed's masks.  One seed
-        per call from ``gen``."""
+        expression in plain autograd on the same seed's masks.  ``seed``:
+        its dropout seed, drawn before (None at rate 0)."""
         cfg = self.cfg
         d = cfg.hidden_size
-        rate = cfg.hidden_dropout_prob if gen is not None else 0.0
-        seed = D.draw_seed(gen, x_q.device) if rate > 0.0 else None
+        rate = cfg.hidden_dropout_prob if dropout else 0.0
         args = (self.attn_out.weight, self.attn_out.bias, self.attn_ln.weight,
                 self.attn_ln.bias, self.ffn_in.weight, self.ffn_in.bias, self.ffn_out.weight,
                 self.ffn_out.bias, self.ffn_ln.weight, self.ffn_ln.bias)
         if BT.kernel_ok(d, cfg.intermediate_size) and x_q.shape[-1] == d:
             if self.tp is not None:
                 return BT.BlockTrainTPFn.apply(x_q, ctx.to(x_q.dtype), *args, rate,
-                                               cfg.layer_norm_eps, seed, self.opts.remat,
+                                               cfg.layer_norm_eps, seed, remat,
                                                self.opts.plain, self.tp)
             return BT.BlockTrainFn.apply(x_q, ctx.to(x_q.dtype), *args, rate,
-                                         cfg.layer_norm_eps, seed, self.opts.remat,
-                                         self.opts.plain)
+                                         cfg.layer_norm_eps, seed, remat, self.opts.plain)
         masks = BT.seed_masks(seed, x_q.numel() // d, d, rate, x_q.device)
         tp = {} if self.tp is None else dict(reduce=lambda t: TP.reduce_from_model(t, self.tp),
                                              copy=lambda t: TP.copy_to_model(t, self.tp))
         y = BT.block_train_fwd_plain(x_q.reshape(-1, d), ctx.reshape(-1, ctx.shape[-1]).to(
             x_q.dtype), *args, *masks, rate=rate, eps=cfg.layer_norm_eps, **tp)[0]
         return y.reshape(x_q.shape)
+
+    def _train_draws(self, x, bias, gen):
+        """The layer's dropout draws from ``gen`` (None: none), in the order
+        the layer makes them: the attention's (ops/attention.attention_draw),
+        then the block's seed."""
+        if gen is None:
+            return None, None
+        cfg = self.cfg
+        attn = attention_draw(x, bias, self.heads, cfg.attention_probs_dropout_prob, gen,
+                              self.opts.sp, self.tp)
+        return attn, D.draw_seed(gen, x.device) if cfg.hidden_dropout_prob > 0.0 else None
+
+    def _train(self, x, bias, attn_draw, seed, remat: str, dropout: bool):
+        """The layer's training pass on its draws (``dropout``: the config's
+        rates, else 0)."""
+        rate = self.cfg.attention_probs_dropout_prob if dropout else 0.0
+        x_in = x if self.tp is None else TP.copy_to_model(x, self.tp)
+        ctx = attention_train(x_in, self.query, self.key, self.value, bias, self.heads, rate,
+                              attn_draw, remat, self.opts.plain, sp=self.opts.sp, tp=self.tp)
+        return self._finish_train(x, ctx, seed, remat, dropout)
 
     def forward(self, x, bias, return_kv: bool = False, tanh_residual_base=None, *,
                 quantize: bool = False, train: bool = False, gen=None):
@@ -290,13 +313,16 @@ class TransformerLayer(nn.Module):
                                               sp=self.opts.sp)
             return self._finish(x, ctx), (kq, vq)
         if train:
-            cfg = self.cfg
-            rate = cfg.attention_probs_dropout_prob if gen is not None else 0.0
-            x_in = x if self.tp is None else TP.copy_to_model(x, self.tp)
-            ctx = attention_train(x_in, self.query, self.key, self.value, bias, self.heads, rate,
-                                  gen, self.opts.remat, self.opts.plain, sp=self.opts.sp,
-                                  tp=self.tp)
-            y = self._finish_train(x, ctx, gen)
+            # the draws come first, so that every remat mode advances gen
+            # alike and a recompute replays them
+            draws = self._train_draws(x, bias, gen)
+            if self.opts.remat == "full":
+                # the whole layer one recompute region (JAX's nn.remat with no
+                # policy), its kernels keeping everything inside it
+                y = checkpoint(self._train, x, bias, *draws, "none", gen is not None,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                y = self._train(x, bias, *draws, self.opts.remat, gen is not None)
             return y if tanh_residual_base is None else tanh_residual_base + torch.tanh(y)
         k_raw, v_raw = self.key(x), self.value(x)
         ctx = mha_merged(self.query(x), k_raw, v_raw, bias, self.heads, plain=self.opts.plain,

@@ -15,7 +15,9 @@ Counterpart of vitxtgqa_tpu/models/t2s.py:
     passes (ref, pos, neg) at batch B, a Python loop where JAX scans.
 Options.compact_serving (configs/t2s_serving.yml) runs the serving decode,
 and full-eval's pos decode and neg pass, on the rows the grounding keeps
-(``_compact_decode``); the ref pass stays full.  ``decode_recompute``
+(``_compact_decode``); the ref pass stays full.  Options.compact_train does
+the same for the training forward's pos and neg passes
+(``_compact_train_scores``).  ``decode_recompute``
 swaps the cached decode for the reference's loop (``_recompute_decode``: the
 full MMT at every step), the parity oracle: serving decodes the pos variant
 with it, full-eval the three variants stacked at 3B with the pos argmax
@@ -256,7 +258,9 @@ class T2S(JointQAModel):
     def _forward_train(self, batch, gumbel, gen):
         """The training forward of the production step (JAX t2s.py:357-390,
         train_variant_scan): ref, pos and neg teacher-forced passes at
-        batch B, each with its own dropout draws."""
+        batch B, each with its own dropout draws; under
+        Options.compact_train, where the grounding gives both gather lists,
+        pos and neg on the rows it keeps (_compact_train_scores)."""
         txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask = self._encode_modalities(
             batch, train=True, gen=gen)
         txt_emb, obj_in, ocr_in, _ = self._apply_qtv(
@@ -264,6 +268,9 @@ class T2S(JointQAModel):
         g, common = self._grounding(batch, txt_emb, txt_mask, obj_in, obj_mask, ocr_in,
                                     ocr_mask, gumbel)
         prev = batch["train_prev_inds"]
+        if self.opts.compact_train and "pos_ocr_idx" in g and "neg_ocr_idx" in g:
+            return {**self._compact_train_scores(txt_emb, txt_mask, obj_in, obj_mask, ocr_in,
+                                                 ocr_mask, g, prev, gen), **common}
         scores = {}
         for name, obj_m, ocr_m in (("ref", obj_mask, ocr_mask),
                                    ("pos", g["pos_obj_mask"], g["pos_ocr_mask"]),
@@ -272,6 +279,38 @@ class T2S(JointQAModel):
             scores[f"{name}_scores"] = self._mmt_full(txt_emb, obj_in, ocr_in, enc_mask, ocr_m,
                                                       prev, train=True, gen=gen)
         return {**scores, **common}
+
+    def _compact_train_scores(self, txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask, g,
+                              prev, gen):
+        """Compact training (JAX t2s.py:303-355, set_compact_train): the ref
+        pass over the full sequence, then the pos and neg passes on the rows
+        their grounding keeps ([question | kept frames | kept OCR slots],
+        384 rows with the decoder slots at production width), each on its
+        gather lists.  The kept rows attend to the same keys either way, so
+        their scores are the full pass's; the copy scores of the slots a
+        pass never keeps take the ref pass's (``ref_fill``), detached under
+        compact_train True and with their gradient under "live".  The mask
+        values are gathered from the gumbel hard masks, so the
+        straight-through gradient reaches the grounding through the
+        attention bias and the pointer's raw-mask add, as in the full
+        pass's kept entries."""
+        enc_mask = torch.cat([txt_mask, obj_mask, ocr_mask], dim=1)
+        ref = self._mmt_full(txt_emb, obj_in, ocr_in, enc_mask, ocr_mask, prev, train=True,
+                             gen=gen)
+        n_ocr = ocr_in.shape[1]
+        ref_fill = ref[..., -n_ocr:]
+        if self.opts.compact_train != "live":
+            ref_fill = ref_fill.detach()
+        scores = {"ref_scores": ref}
+        for pfx in ("pos", "neg"):
+            oi, ci = g[f"{pfx}_obj_idx"].long(), g[f"{pfx}_ocr_idx"].long()
+            obj_m = torch.gather(g[f"{pfx}_obj_mask"], 1, oi)
+            ocr_m = torch.gather(g[f"{pfx}_ocr_mask"], 1, ci)
+            scores[f"{pfx}_scores"] = self._mmt_full(
+                txt_emb, self._take_rows(obj_in, oi), self._take_rows(ocr_in, ci),
+                torch.cat([txt_mask, obj_m, ocr_m], dim=1), ocr_m, prev, train=True, gen=gen,
+                embed_ocr=ocr_in, dynamic_scatter=(ci, n_ocr, False, ref_fill))
+        return scores
 
     def _forward_eval(self, batch, gumbel):
         txt_emb, txt_mask, obj_in, obj_mask, ocr_in, ocr_mask = self._encode_modalities(batch)

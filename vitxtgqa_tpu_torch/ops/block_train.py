@@ -382,13 +382,21 @@ def block_train_bwd(g, ctx, x1h, pre1, h, x2h, wo, w1, w2, s1, g1, s2, rate: flo
     return (dxq, dctx, dwo, dbo, ds1, dg1, dw1, db1, dw2, db2, ds2, dg2)
 
 
+# the remat modes under which the block keeps x_q, ctx and the seed and
+# recomputes its residuals in the backward; "none" and "dots" keep them
+# (the residuals are outputs of the block's products: JAX's dots_saveable
+# keeps them)
+RECOMPUTES = ("attn", "attn_qkv", "full")
+
+
 class BlockTrainFn(torch.autograd.Function):
     """The training block as one autograd node over the two kernels (the
-    JAX ``block_train`` custom VJP).  ``remat == "attn"`` saves only x_q,
-    ctx and the dropout seed and relaunches the forward kernel in the
-    backward for the residuals (JAX's remat "attn" with fused_block_fwd);
-    ``"none"`` saves the residuals.  ``plain`` runs the plain versions on
-    the seed's masks on any device (Options.plain)."""
+    JAX ``block_train`` custom VJP).  Under a ``remat`` mode of RECOMPUTES
+    it saves only x_q, ctx and the dropout seed and relaunches the forward
+    kernel in the backward for the residuals (JAX's remat "attn" with
+    fused_block_fwd); under "none" and "dots" it saves the residuals.
+    ``plain`` runs the plain versions on the seed's masks on any device
+    (Options.plain)."""
 
     @staticmethod
     def forward(fctx, x_q, ctx, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate, eps, seed, remat,
@@ -398,7 +406,7 @@ class BlockTrainFn(torch.autograd.Function):
         fctx.cfg = (shape, rate, eps, remat, plain)
         res = _block_forward(x2, c2, (wo, bo, s1, g1, w1, b1, w2, b2, s2, g2), rate, eps, seed,
                              plain)
-        if remat == "attn":
+        if remat in RECOMPUTES:
             fctx.save_for_backward(x2, c2, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, seed)
         else:
             fctx.save_for_backward(c2, *res[1:], wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, seed)
@@ -408,7 +416,7 @@ class BlockTrainFn(torch.autograd.Function):
     def backward(fctx, gy):
         shape, rate, eps, remat, plain = fctx.cfg
         saved = fctx.saved_tensors
-        if remat == "attn":
+        if remat in RECOMPUTES:
             x2, c2, *weights, seed = saved
             _, x1h, pre1, h, x2h = _block_forward(x2, c2, weights, rate, eps, seed, plain)
         else:
@@ -597,11 +605,11 @@ class BlockTrainTPFn(torch.autograd.Function):
     """The split training block of one tensor-parallel rank as one autograd
     node (BlockTrainFn's counterpart): x_q [.., d] whole, ctx [.., dl] its
     heads' context, the weights its shards; the partials summed over ``tp``
-    (a ModelGroup).  ``remat == "attn"`` saves x_q's summed pre-norm rows
-    x1h and x2h (and ctx, the seed) and recomputes pre1 and h from x1h in
-    the backward (recompute_tp: LN1 and F3, no collective), where a
-    relaunch of the whole forward would repeat its two all-reduces;
-    ``"none"`` saves every residual.  The input gradient dx_q is whole,
+    (a ModelGroup).  Under a ``remat`` mode of RECOMPUTES it saves x_q's
+    summed pre-norm rows x1h and x2h (and ctx, the seed) and recomputes
+    pre1 and h from x1h in the backward (recompute_tp: LN1 and F3, no
+    collective), where a relaunch of the whole forward would repeat its
+    two all-reduces; under "none" and "dots" it saves every residual.  The input gradient dx_q is whole,
     dctx the rank's heads'."""
 
     @staticmethod
@@ -612,7 +620,7 @@ class BlockTrainTPFn(torch.autograd.Function):
         fctx.cfg = (shape, ctx.shape, rate, eps, remat, plain, tp)
         y, x1h, pre1, h, x2h = TP.run_split(block_train_fwd_tp_steps(
             x2, c2, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, rate, seed, eps, plain), tp)
-        kept = (None, None) if remat == "attn" else (pre1, h)
+        kept = (None, None) if remat in RECOMPUTES else (pre1, h)
         fctx.save_for_backward(c2, x1h, x2h, *kept, wo, bo, s1, g1, w1, b1, w2, b2, s2, g2,
                                seed)
         return y.reshape(shape)

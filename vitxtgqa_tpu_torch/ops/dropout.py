@@ -113,6 +113,28 @@ def keep_mask(seed: Seed, stream: int, shape: Sequence[int], rate: float,
     return philox_bits(seed, stream, shape, device, row_offset, head_offset) >= threshold(rate)
 
 
+def draw_keep(shape, rate: float, gen: torch.Generator, device,
+              shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """The keep mask that ``dropout`` draws from ``gen`` for an x of
+    ``shape`` on ``device`` (``shard``: see dropout).  Drawn apart, it can
+    be replayed: a layer's recompute (Options.remat "full") applies the
+    masks its forward drew."""
+    shape = list(shape)
+    if shard is not None:
+        shape[shard[0]] *= shard[2]
+    keep = torch.rand(shape, generator=gen, device=gen.device).to(device) >= rate
+    if shard is not None:
+        keep = keep.chunk(shard[2], dim=shard[0])[shard[1]]
+    return keep
+
+
+def apply_keep(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """``where(keep, x / (1 - rate), 0)``; x itself where ``keep`` is None."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
             shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """An ordinary dropout site (embeddings, modality streams, the text
@@ -124,10 +146,4 @@ def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
     that every rank's generator stays in step with one process's."""
     if gen is None or rate <= 0.0:
         return x
-    shape = list(x.shape)
-    if shard is not None:
-        shape[shard[0]] *= shard[2]
-    keep = torch.rand(shape, generator=gen, device=gen.device).to(x.device) >= rate
-    if shard is not None:
-        keep = keep.chunk(shard[2], dim=shard[0])[shard[1]]
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return apply_keep(x, draw_keep(x.shape, rate, gen, x.device, shard), rate)

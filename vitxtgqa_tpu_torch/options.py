@@ -10,14 +10,39 @@ there.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Optional, Union
 
 import torch
 
 if TYPE_CHECKING:
     from vitxtgqa_tpu_torch.parallel.mesh import ModelGroup, PPGroup, SPGroup
 
-REMAT_MODES = ("none", "attn")
+REMAT_MODES = ("none", "attn", "attn_qkv", "dots", "full")
+
+
+def parse_remat(value) -> str:
+    """A ``training_parameters.tpu.remat`` value as the JAX ``set_remat``
+    reads it (vitxtgqa_tpu/models/common.py): False / None / "none" /
+    "false" off, True / "true" / "full" the whole layer, "dots", "attn" and
+    "attn_qkv" as named, case-insensitive.  Anything else raises."""
+    if value is None or isinstance(value, bool):
+        return "full" if value else "none"
+    mode = str(value).lower()
+    mode = {"false": "none", "true": "full"}.get(mode, mode)
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat {value!r}: one of {REMAT_MODES} (or true / false)")
+    return mode
+
+
+def parse_compact_train(value):
+    """A ``training_parameters.tpu.compact_train`` value as the JAX
+    ``set_compact_train`` reads it: "live" (any case) is "live", another
+    string is True unless it is "", "0", "false" or "none"; anything else
+    is its truth value."""
+    if isinstance(value, str):
+        mode = value.lower()
+        return "live" if mode == "live" else mode not in ("", "0", "false", "none")
+    return bool(value)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,14 +77,22 @@ class Options:
         ``set_compact_serving`` (configs/t2s_serving.yml sets it, with
         ``kv_cache_int8``).
 
-    Training (the counterpart of ``training_parameters.tpu.remat`` in
-    configs/t2s_abinet.yml, with that config's default):
-    remat: "attn" keeps only each layer's input, attention context and
-        row log-sum-exp for the backward, which recomputes the q/k/v
-        projections and relaunches the block's forward kernel instead of
-        holding their activations; "none" keeps them.  The JAX
-        ``set_remat`` (its "full", "dots" and "attn_qkv" modes are not
-        ported).
+    Training (the counterpart of ``training_parameters.tpu`` in
+    configs/t2s_abinet.yml, with that config's remat):
+    remat: what a training layer keeps for its backward, the JAX
+        ``set_remat`` (parse_remat reads its config values): "attn" keeps
+        the layer's input, attention context and row log-sum-exp, and the
+        backward recomputes the q/k/v projections and relaunches the
+        block's forward kernel; "attn_qkv" keeps q/k/v too; "dots" keeps
+        the products' outputs (q/k/v and the block's residuals) and
+        relaunches the flash forward; "full" keeps the layer's input only
+        and recomputes the whole layer; "none" keeps everything.  The
+        table is ops/attention.AttentionFn's docstring.
+    compact_train: False; True: the training forward runs the pos and neg
+        teacher-forced passes on the rows the grounding keeps, the ref
+        pass full, and fills the never-kept copy scores with the ref
+        pass's, detached; "live": the same with the fill's gradient kept
+        (the JAX ``set_compact_train``; models/t2s.py).
     Parallelism:
     tp: a ModelGroup (parallel/mesh.build_mesh's ``model``) to split every
         transformer layer over its ranks, Megatron's layout of the JAX
@@ -102,6 +135,7 @@ class Options:
     w8a8: bool = False
     compact_serving: bool = False
     remat: str = "attn"
+    compact_train: Union[bool, str] = False
     tp: Optional["ModelGroup"] = None
     sp: Optional["SPGroup"] = None
     pp: Optional["PPGroup"] = None
@@ -127,11 +161,9 @@ class Options:
                 "W8A8 block and the fused decode have no tensor-parallel forms (JAX runs none "
                 "of them on a model mesh; ROADMAP.md queue 2, TP forms still to port)")
         if self.remat not in REMAT_MODES:
-            raise ValueError(
-                f"remat {self.remat!r}: the port has {REMAT_MODES} (the JAX "
-                "'full', 'dots' and 'attn_qkv' modes are ROADMAP.md queue 1 "
-                "item 6)"
-            )
+            raise ValueError(f"remat {self.remat!r}: one of {REMAT_MODES}")
+        if self.compact_train not in (False, True, "live"):
+            raise ValueError(f"compact_train {self.compact_train!r}: False, True or 'live'")
 
 
 def entry_device(device=None, knob: str = "device='cpu'") -> torch.device:

@@ -1,7 +1,7 @@
 """Where the time of a training step goes, on one CUDA card.
 
     python -m vitxtgqa_tpu_torch.training.profiling [--out DIR] [--batch N] [--reps N]
-        [--model KEY]
+        [--model KEY] [--remat MODE] [--compact-train VALUE]
 
 T2S at production width (t2s_production_config), or with ``--model`` a
 zoo model at its shipped config's model block (MODEL_CONFIGS), bf16 with
@@ -15,7 +15,12 @@ config's).  The host-clock time of 5 steps ending in
 median step time``.  Kernel time is grouped by the port's kernels (#1,
 #1b, #9a, #9b), cuBLAS products and the rest.  Prints a summary and the
 largest kernels; writes DIR/profile_train.json (default: build/;
-profile_train_KEY.json for another model).
+profile_train_KEY.json for another model).  ``--remat`` (none, attn,
+attn_qkv, dots, full; default attn) and ``--compact-train`` (false, true,
+live; default false) set the training arms (Options.remat,
+Options.compact_train), so that the device time by kernel group can be
+read under each; another arm than the defaults adds ``_remat-MODE`` /
+``_compact-VALUE`` to the file's name.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ def main(argv) -> int:
     from vitxtgqa_tpu_torch.core.registry import registry
     from vitxtgqa_tpu_torch.losses import Losses
     from vitxtgqa_tpu_torch.models.t2s import PRODUCTION_NUM_FINAL_OUTPUTS, t2s_production_config
+    from vitxtgqa_tpu_torch.options import parse_compact_train, parse_remat
     from vitxtgqa_tpu_torch.run import setup_imports
     from vitxtgqa_tpu_torch.serving.engine import to_device
     from vitxtgqa_tpu_torch.training.optim import build_optimizer
@@ -72,6 +78,8 @@ def main(argv) -> int:
 
     arg = lambda flag, default: type(default)(argv[argv.index(flag) + 1]) if flag in argv else default
     batch_size, reps, key = arg("--batch", 48), arg("--reps", 2), arg("--model", "t2s")
+    remat = parse_remat(arg("--remat", "attn"))
+    compact = parse_compact_train(arg("--compact-train", "false"))
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     out_dir = arg("--out", os.path.join(root, "build"))
     dev = torch.device("cuda", 0)
@@ -85,7 +93,9 @@ def main(argv) -> int:
         cfg = build_config(os.path.join(root, "configs", config)).model_attributes[block].to_dict()
     setup_imports()
     model = registry.get_model_class(key)(cfg, nf, bos_idx=2,
-                                          opts=Options(device=dev)).init_weights(0)
+                                          opts=Options(device=dev, remat=remat,
+                                                               compact_train=compact)
+                                          ).init_weights(0)
     opt = build_optimizer(model, model_config=cfg)
     losses = Losses(cfg["losses"])
     batch = to_device(synthetic_batch(batch=batch_size, num_final_outputs=nf, seed=0), dev)
@@ -120,14 +130,16 @@ def main(argv) -> int:
     card = torch.cuda.get_device_name(0)
     kernels = sorted(((n, ms, c / reps) for n, (ms, c) in per_kernel.items()), key=lambda r: -r[1])
     result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "model": key, "batch": batch_size, "reps": reps, "step_ms_all": lat, "step_ms_median": median,
+              "model": key, "remat": remat, "compact_train": compact, "batch": batch_size,
+              "reps": reps, "step_ms_all": lat, "step_ms_median": median,
               "step_ms_min": min(lat), "videos_per_s": batch_size / median * 1e3,
               "device_ms_per_step": device_ms, "idle_share": 1.0 - device_ms / median,
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "groups_ms_per_step": dict(groups),
               "kernels": [{"name": n, "ms_per_step": ms, "calls_per_step": c}
                           for n, ms, c in kernels]}
-    print(f"profile train {key}, batch {batch_size}: step median {median:.3f} ms (min {min(lat):.3f}), "
+    print(f"profile train {key}, remat {remat}, compact_train {compact}, batch {batch_size}: "
+          f"step median {median:.3f} ms (min {min(lat):.3f}), "
           f"{result['videos_per_s']:.2f} videos/s, device {device_ms:.3f} ms per step, idle share "
           f"{result['idle_share']:.3f}, max_memory_allocated "
           f"{result['max_memory_allocated'] / 2**30:.2f} GiB; {card}", flush=True)
@@ -136,7 +148,9 @@ def main(argv) -> int:
     for n, ms, c in kernels[:TOP]:
         print(f"    {ms:9.3f} ms  x{c:<6g} {n[:100]}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
-    name = "profile_train.json" if key == "t2s" else f"profile_train_{key}.json"
+    name = "profile_train" + ("" if key == "t2s" else f"_{key}")
+    name += ("" if remat == "attn" else f"_remat-{remat}") + (
+        f"_compact-{str(compact).lower()}" if compact else "") + ".json"
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(result, f, indent=1)
     return 0

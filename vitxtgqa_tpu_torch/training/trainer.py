@@ -70,7 +70,7 @@ import inspect
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -89,7 +89,7 @@ from vitxtgqa_tpu_torch.data.loader import (
 from vitxtgqa_tpu_torch.data.multi_dataset import MultiDataset
 from vitxtgqa_tpu_torch.losses import Losses
 from vitxtgqa_tpu_torch.metrics.metrics import MetricContext, Metrics, decode_answers, pred_indices
-from vitxtgqa_tpu_torch.options import entry_device
+from vitxtgqa_tpu_torch.options import entry_device, parse_compact_train, parse_remat
 from vitxtgqa_tpu_torch.parallel.collectives import (
     broadcast_scalar,
     gather_objects,
@@ -107,9 +107,6 @@ from vitxtgqa_tpu_torch.utils.torch_convert import reference_state
 from vitxtgqa_tpu_torch.utils.timer import Timer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# training_parameters.tpu switches of the JAX package that the port has no
-# counterpart for: accepted when false, an error when set
-UNPORTED = ("fused_grads", "compact_train", "dense_mm", "split_dense")
 
 
 def _tpu_get(tpu, key: str, default=None):
@@ -138,17 +135,24 @@ def options_from_config(tp: Any, kernel_free: bool = False,
         models' KERNEL_FREE) takes it there, as JAX takes it everywhere;
       * use_pallas: absent or true is the kernels; false raises on the card
         (the plain versions are the oracle, never the main path);
-      * remat: "attn" or "none" (also None / false); the JAX modes "full",
-        "dots" and "attn_qkv" raise (Options);
+      * remat: every value the JAX trainer takes (options.parse_remat:
+        none / false / None off, true / full, dots, attn, attn_qkv);
+      * compact_train: false, true or "live" (options.parse_compact_train,
+        JAX's set_compact_train);
       * kernel_dropout, fused_block_bwd, fused_block_fwd: either.  The port
         has one training block, its kernels with in-kernel dropout; JAX's
         false forms (base.yml's default, which the zoo's configs keep) run
         XLA's block with materialised masks and autodiff: the same function
         with another dropout stream, as the port's can never be JAX's;
+      * fused_grads: either, logged (arm_lines).  JAX's dense_mm computes
+        the projections' weight and bias gradients as products with
+        float32 accumulation; the port's backward already does (cuBLAS
+        and torch.sum accumulate bf16 in float32), and keeps its training
+        block's kernels where JAX turns its block kernel off (ROADMAP.md,
+        known deviations);
       * variant_scan: either (the port loops over the three variants);
       * kv_cache_int8, fused_decode, fused_decode_max_batch, w8a8,
         compact_serving: the Options fields of the same names;
-      * fused_grads, compact_train, dense_mm, split_dense: false, or raise;
       * mesh: data x model x sp x pp over the world's processes
         (parallel/mesh.mesh_shape: data -1 takes the rest, the product the
         world size, the global batch divisible by the data axis; every
@@ -162,7 +166,8 @@ def options_from_config(tp: Any, kernel_free: bool = False,
         does; an sp-only mesh keeps them, as in JAX;
       * pp_microbatches: Options.pp_microbatches (0: one a stage).
     prefetch, async_checkpoint, profile_steps and debug_nans are read by
-    the trainer or have no effect on the model."""
+    the trainer or have no effect on the model; keys the JAX trainer reads
+    nowhere (dense_mm, split_dense) are ignored, as there."""
     tpu = getattr(tp, "tpu", None)
     device = str(getattr(tp, "device", "auto") or "auto")
     if device not in ("cpu", "auto") and not device.startswith("cuda"):
@@ -189,10 +194,6 @@ def options_from_config(tp: Any, kernel_free: bool = False,
         raise ValueError(
             "training_parameters.tpu.use_pallas=false on the card: the port runs its kernels "
             "there; the plain versions are the oracle (Options.plain), never the main path")
-    for key in UNPORTED:
-        if _tpu_get(tpu, key, False):
-            raise NotImplementedError(
-                f"training_parameters.tpu.{key} is not ported (ROADMAP.md queue 1 item 6)")
     shape = (mesh.shape if mesh is not None
              else mesh_shape(**mesh_axes(tp), batch_size=getattr(tp, "batch_size", None)))
     if mesh is None and (shape["model"] > 1 or shape["sp"] > 1 or shape["pp"] > 1):
@@ -201,11 +202,9 @@ def options_from_config(tp: Any, kernel_free: bool = False,
                          "build_mesh(...), which every rank calls alike)")
     # the JAX trainer's test (its spmd_devs): data x model x pp above 1
     int8_ok = shape["data"] * shape["model"] * shape["pp"] == 1
-    remat = str(_tpu_get(tpu, "remat", "none"))
-    if remat in ("None", "false", "False"):
-        remat = "none"
     return Options(
-        device=dev, dtype=dtype, remat=remat,
+        device=dev, dtype=dtype, remat=parse_remat(_tpu_get(tpu, "remat", "none")),
+        compact_train=parse_compact_train(_tpu_get(tpu, "compact_train", False)),
         # no kernel to take float32 on the card: the plain versions are the
         # only ones its forward reaches
         plain=bool(kernel_free and cuda and dtype == torch.float32),
@@ -219,6 +218,25 @@ def options_from_config(tp: Any, kernel_free: bool = False,
         pp=mesh.pp if mesh is not None else None,
         pp_microbatches=int(_tpu_get(tpu, "pp_microbatches", 0)),
     )
+
+
+def arm_lines(opts: Options, tpu=None) -> List[str]:
+    """The log lines of the opt-in training arms an Options (and, for
+    fused_grads, which maps onto no field, ``training_parameters.tpu``)
+    has on, as the JAX trainer writes them
+    (vitxtgqa_tpu/training/trainer.py)."""
+    lines = []
+    if opts.remat != "none":
+        lines.append(f"transformer-layer rematerialisation enabled ({opts.remat})")
+    if _tpu_get(tpu, "fused_grads", False):
+        lines.append("fused dense grads: the port's backward already accumulates the "
+                     "projections' weight and bias gradients in float32 (the same function); "
+                     "the training block keeps its kernels")
+    if opts.compact_train:
+        lines.append("EXPERIMENTAL compact training enabled (pos/neg variants on grounding-kept "
+                     f"rows, {'live' if opts.compact_train == 'live' else 'stop-gradient'} ref "
+                     "fill: an estimator deviation, see models/t2s.py)")
+    return lines
 
 
 def kernel_free(model_key: str) -> bool:
@@ -309,6 +327,8 @@ class BaseTrainer:
         )
         registry.register("writer", self.logger)
         self.logger.write(f"device {self.device}, compute dtype {self.opts.dtype}")
+        for line in arm_lines(self.opts, getattr(tp, "tpu", None)):
+            self.logger.write(line)
         dropped = [k for k, on in asked.items() if on and not getattr(self.opts, k)]
         if dropped:
             self.logger.write(
