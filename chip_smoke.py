@@ -5,7 +5,8 @@ its ViT frame-feature path, its sequence-parallel path, its runtime
 models, its selector baselines (TranSTR, MIST), its data parallelism, its
 serving demo and raw-video pipeline, the legacy image-VQA zoo and the
 mesh's sp, pp and model axes, T2S at bert-large-uncased's and at
-MiniLM-L12-H384's widths and ViT-H/14, once on one NVIDIA GPU.
+MiniLM-L12-H384's widths and ViT-H/14, the fused decode above 8 batch rows
+and the CLIP / MIST text towers, once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -357,7 +358,24 @@ Phases (each prints one or more lines; any failure exits non-zero):
           48 under compact training beside full ones, in turns; (iv) every
           remat mode at 4 under the deterministic algorithms against
           "attn" bit for bit, then timed at 48, its peak memory falling
-          from "none" to "attn" to "full".
+          from "none" to "attn" to "full";
+       x. the fused decode above 8 batch rows, a launch a group of 8 rows,
+          and the CLIP / MIST text towers (decode_groups_slice): (i) #5 at
+          batch 48, 9, 10 and 16 (steps 0 and 11) over group_mask, whose
+          rows' planted and trapped slots differ, against its twin, each
+          batch beside the planted group faults (the first group's cache
+          rows read, the cache strided by the group), timed at 9, 16, 48
+          and 192 with its bound and the 12 GEMVs as torch.matmul; (ii) #6
+          across its instantiations inside a step (EPI_GROUP_ORDER), then
+          at 9, 11 and 48 with the tie planted and the OCR row in the last
+          group, beside the group fault, timed at 9, 16, 48 and 192; (iii)
+          T2S with the cap lifted to 192 served at 48 (int8 cache, and the
+          serving preset) against plain, the fused tokens against the
+          per-layer decode's, the forward fused against per-layer at 4, 8,
+          48 and 192 in turns; (iv) CLIP ViT-B/32 and RN50 at 224 px (16
+          images and texts), DistilTransformer (768, 2 layers) and AModel
+          (BERT-base) in float32 against the CPU, relative L2 1e-4, and
+          ViT-B/32's images/s at 64.
      Each phase prints its seconds ("phase NAME: S s"), and after the
      slices one line holds them all ("phases (s): {...}").
      a-c, f-g, m, n and p serve behind a ServingEngine; each slice checks its
@@ -767,9 +785,12 @@ def expected_launches(cfg, batch: int, opts, full_eval: bool = False, text_len: 
     (the bf16 one only at >= 256 keys).  With ``full_eval`` (the T2S
     family) the teacher-forced pass at 2B over the full sequence, or under
     compact full-eval (T2S only) ref at B over it and neg at B over the
-    compact one.  No training kernel, and no #11 / #12 (the decode keeps
-    the separate quantize pass and bf16 pointer keys, as JAX does)."""
+    compact one.  The fused step and epilogue launch once a group of at
+    most 8 rows (ceil(batch / 8) a step).  No training kernel, and no #11 /
+    #12 (the decode keeps the separate quantize pass and bf16 pointer keys,
+    as JAX does)."""
     from vitxtgqa_tpu_torch.models.common import TransformerConfig
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
     from vitxtgqa_tpu_torch.ops.attention import MIN_KV
 
     mmt = TransformerConfig.from_config(cfg["mmt"])
@@ -784,9 +805,10 @@ def expected_launches(cfg, batch: int, opts, full_eval: bool = False, text_len: 
     encode(mmt, batch, l_mmt, 0)
     fused = (opts.fused_decode and opts.kv_cache_int8 and not opts.w8a8
              and batch <= opts.fused_decode_max_batch)
-    if fused:
-        out["fused_decode_step"] += dec_len
-        out["fused_epilogue"] += 0 if compact else dec_len
+    if fused:  # a launch of each a group of at most 8 rows (DS.row_groups)
+        groups = len(DS.row_groups(batch))
+        out["fused_decode_step"] += dec_len * groups
+        out["fused_epilogue"] += 0 if compact else dec_len * groups
     elif opts.kv_cache_int8:
         out["decode_attention_int8"] += mmt.num_hidden_layers * dec_len
     elif l_mmt >= MIN_KV:
@@ -1036,8 +1058,8 @@ def serving_masks(device):
     return enc.to(device).contiguous(), ocr.to(device).contiguous()
 
 
-def decode_step_weights(dev, gen, n_layers=3, d=768, m=3072):
-    """x_t [BATCH, 1, d] and the weight stacks of the decode-step check, in
+def decode_step_weights(dev, gen, n_layers=3, d=768, m=3072, rows=BATCH):
+    """x_t [rows, 1, d] and the weight stacks of the decode-step check, in
     ops/decode_step.py's layout: q and the current token's k have ~unit
     entries in every layer (k = K_GAIN * q), so its attention can be
     planted."""
@@ -1053,7 +1075,7 @@ def decode_step_weights(dev, gen, n_layers=3, d=768, m=3072):
     for name in ("s1", "s2"):
         stacks[name] = vec(n_layers, 1, d, base=1.0)
     stacks["wk"], stacks["bk"] = stacks["wq"] * K_GAIN, stacks["bq"] * K_GAIN
-    return rn(BATCH, 1, d, scale=1.0), stacks
+    return rn(rows, 1, d, scale=1.0), stacks
 
 
 def decode_step_cache(x_t, stacks, mask, step, gen, num_heads=12, write_offset=WRITE_OFFSET):
@@ -1743,30 +1765,33 @@ def epilogue_inputs(dev, gen, b: int, d: int = 768, keys=None):
             1.0 / d ** 0.5, DEC_LEN]
 
 
-def plant_epilogue(eargs, grid: int):
+def plant_epilogue(eargs, grids, ocr_row: int = 1):
     """Plant the tie and the OCR row into epilogue_inputs' arguments (in
     place): classifier rows r1 = 3 and r2, the first row from EPI_V_FIX / 2
-    whose item lies in another block's share of a grid of ``grid`` blocks
-    (ops/decode_step.epilogue_block_of), get row 7's weights and the bias
-    EPI_TIE_BIAS; at batch >= 2, row 1's key at its first valid OCR slot
-    n1 is set along its q so that it scores EPI_OCR_SCORE.  Returns (r1,
-    r2, n1 or None)."""
+    whose item lies in another block's share than r1's in a grid of each
+    of ``grids`` blocks (ops/decode_step.epilogue_block_of; a grid a
+    launch of the batch's row groups), get row 7's weights and the bias
+    EPI_TIE_BIAS; at batch >= 2, row ``ocr_row``'s key at its first valid
+    OCR slot n1 is set along its q so that it scores EPI_OCR_SCORE.
+    Returns (r1, r2, n1 or None)."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import decode_step as DS
 
     y, cls_w, cls_b, ptr_w, ptr_b, keys, mask = eargs[:7]
     qk = ptr_w.shape[0]
-    owner = lambda r: DS.epilogue_block_of(qk + r, grid)
+    apart = lambda r, r1: all(DS.epilogue_block_of(qk + r, g) != DS.epilogue_block_of(qk + r1, g)
+                              for g in grids)
     r1 = 3
-    r2 = next(r for r in range(EPI_V_FIX // 2, EPI_V_FIX) if owner(r) != owner(r1))
+    r2 = next(r for r in range(EPI_V_FIX // 2, EPI_V_FIX) if apart(r, r1))
     cls_w[r1] = cls_w[r2] = cls_w[7]
     cls_b[r1] = cls_b[r2] = EPI_TIE_BIAS
     if y.shape[0] < 2:
         return r1, r2, None
-    n1 = int(torch.nonzero(mask[1] > 0)[0, 0])
-    q = y[1, 0].float() @ ptr_w.t() + ptr_b
-    keys[1, n1] = q * ((EPI_OCR_SCORE - float(mask[1, n1])) / (float(q @ q) * eargs[12]))
+    n1 = int(torch.nonzero(mask[ocr_row] > 0)[0, 0])
+    q = y[ocr_row, 0].float() @ ptr_w.t() + ptr_b
+    keys[ocr_row, n1] = q * ((EPI_OCR_SCORE - float(mask[ocr_row, n1]))
+                             / (float(q @ q) * eargs[12]))
     return r1, r2, n1
 
 
@@ -1830,21 +1855,23 @@ def check_epilogue_batch_order(dev, record, order=EPI_ORDER):
         torch.cuda.empty_cache()
 
 
-def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True, d: int = 768):
+def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True, d: int = 768,
+                         keep: bool = True, ocr_row: int = 1):
     """The fused epilogue (#6) against its twin at each batch, on random
     inputs and with the planted tie and OCR row (plant_epilogue): the
     scores within the tolerance and their pad lanes exactly -1e30, the
     tokens equal wherever the twin's top two differ by more than the
     tolerance, the next embedding within it where the tokens agree; with
     the plant, the lower tied row wins bit for bit (both rows' scores
-    equal) in every batch row but row 1, whose planted OCR slot wins.  With
-    ``timed``, the first batch's time warm (the same inputs every call)
-    and cold (cold_copies sets of classifier, pointer weights and keys in
-    turn), the twin's, and its two GEMVs alone as float32 torch.matmul (a
-    yardstick: no single call computes the epilogue), warm kept as the
-    kernel's record; the other batches checked untimed.  The launches
-    share one epilogue_buffers, as a forward's do.  Returns {batch:
-    times}."""
+    equal) in every batch row but ``ocr_row``, whose planted OCR slot wins.
+    With ``timed``, the first batch's time warm (the same inputs every
+    call) and cold (cold_copies sets of classifier, pointer weights and
+    keys in turn), the twin's, and its two GEMVs alone as float32
+    torch.matmul (a yardstick: no single call computes the epilogue), warm
+    kept as the kernel's record where ``keep``; the other batches checked
+    untimed.  The launches share one epilogue_buffers, as a forward's do
+    (above 8 rows: the launches of the batch's row groups too).  Returns
+    {batch: times}."""
     import torch
 
     from vitxtgqa_tpu_torch.ops import decode_step as DS
@@ -1856,11 +1883,13 @@ def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True, d
     for b in batches:
         eargs = epilogue_inputs(dev, gen, b, d)
         qk = eargs[3].shape[0]
-        grid = (DS.epilogue_grid(b, d, qk) if dev.type == "cuda"
-                else DS.EPILOGUE_BLOCKS_PER_SM * DS.H100_SMS)
+        grids = sorted({DS.epilogue_grid(rows, d, qk) if dev.type == "cuda"
+                        else DS.EPILOGUE_BLOCKS_PER_SM * DS.H100_SMS
+                        for _, rows in DS.row_groups(b)})
+        grid = grids[0]
         buf = DS.epilogue_buffers(b, qk, dev)
         for planted in (False, True):
-            plant = plant_epilogue(eargs, grid) if planted else None
+            plant = plant_epilogue(eargs, grids, ocr_row) if planted else None
             got = DS.fused_epilogue(*eargs, buffers=buf)
             want = DS.fused_epilogue_plain(*eargs)
             sync()
@@ -1880,7 +1909,7 @@ def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True, d
                 r1, r2, n1 = plant
                 want_tok = torch.full_like(tok, r1)
                 if n1 is not None:
-                    want_tok[1] = EPI_V_P + n1
+                    want_tok[ocr_row] = EPI_V_P + n1
                 tied = bool(torch.equal(scores[:, r1], scores[:, r2]))
                 print(f"kernel fused_epilogue{label}: rows {r1} and {r2} (blocks "
                       f"{DS.epilogue_block_of(qk + r1, grid)} and "
@@ -1910,8 +1939,10 @@ def check_fused_epilogue(dev, record, batches=EPI_BATCHES, timed: bool = True, d
                       f"as torch.matmul) {gemv:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})",
                       flush=True)
                 times[b] = dict(warm_ms=ms, cold_ms=cold, plain_ms=pms, yardstick_ms=gemv,
-                                bound_ms=bound[0], bound_by=bound[1], cold_copies=copies)
-                timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
+                                bound_ms=bound[0], bound_by=bound[1], cold_copies=copies,
+                                launches=len(DS.row_groups(b)))
+                if keep:
+                    timed_rec = dict(ms=ms, plain_ms=pms, bound=bound)
             report(record, "fused_epilogue", err, extra=label, **timed_rec)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -7326,13 +7357,10 @@ def width_library_ms(dev, d: int, m: int, rows: int = WIDTH_ROWS, tp: int = 2) -
     bwd = [(a, wo.t().contiguous()), (h, w1.t().contiguous()), (a, w2.t().contiguous()),
            (a.t().contiguous(), a.t().contiguous()), (h.t().contiguous(), a.t().contiguous()),
            (a.t().contiguous(), h.t().contiguous())]
-    x1 = r(1, d)
-    step = [p for _ in range(3) for p in ((x1, r(3 * d, d)), (x1, r(d, d)), (x1, r(m, d)),
-                                          (r(1, m), r(d, m)))]
     dl, ml = d // tp, m // tp
     split = [(r(rows, dl), r(d, dl)), (a, r(ml, d)), (r(rows, ml), r(d, ml))]
     out = {"forward": products_ms(fwd), "backward": products_ms(bwd),
-           "decode_step": products_ms(step), "split": products_ms(split)}
+           "decode_step": step_yardstick_ms(dev, 1, d, m), "split": products_ms(split)}
     print(f"slice u: library times (the products alone as bf16 torch.matmul) at d {d}, m {m}, "
           f"{rows} rows: " + json.dumps({k: round(v, 4) for k, v in out.items()}), flush=True)
     return out
@@ -7723,10 +7751,6 @@ def head_step_cases(dev, record, out: dict) -> None:
     mask, _ = serving_masks(dev)
     lp = mask.shape[1]
     wo = lp - DEC_LEN
-    r = lambda *s_: torch.randn(*s_, device=dev).to(torch.bfloat16)
-    # the library time: a batch-1 step's 12 GEMVs as bf16 torch.matmul
-    step_lib = lambda d, m: products_ms([p for _ in range(3) for p in (
-        (r(1, d), r(3 * d, d)), (r(1, d), r(d, d)), (r(1, d), r(m, d)), (r(1, m), r(d, m)))])
     for d, m, h in STEP_HEAD_TIMED:
         gen = torch.Generator(device=dev).manual_seed(97)
         x_all, stacks = decode_step_weights(dev, gen, 3, d, m)
@@ -7735,7 +7759,7 @@ def head_step_cases(dev, record, out: dict) -> None:
                                   num_heads=h, into=record)
         t = times[f"[1,{lp}]"]
         out[f"fused_decode_step D{d // h}"] = dict(
-            ms=t["warm_ms"], plain_ms=t["plain_ms"], library_ms=step_lib(d, m),
+            ms=t["warm_ms"], plain_ms=t["plain_ms"], library_ms=step_yardstick_ms(dev, 1, d, m),
             bound=(t["bound_ms"], t["bound_by"]), hidden=d, ffn=m, heads=h)
         kv8, kvs = decode_step_cache(x_all, stacks, mask, 11, gen, h, wo)
         sargs = (x_all, stacks, kv8, kvs, mask, 11, wo, h)
@@ -8214,6 +8238,427 @@ def train_arms_slice(dev, record, card, e_step=None) -> dict:
     return out
 
 
+# slice x: #5 and #6 above 8 batch rows (a launch a group of 8 rows), T2S
+# served through them at 48 with the cap lifted, and the CLIP / MIST text
+# towers.  #5 is checked at STEP_GROUP_BATCHES (groups of 8 + 1, 8 + 2, two
+# full groups, six), #6 at EPI_GROUP_BATCHES (8 + 1, 8 + 3, six groups) with
+# the planted tie and the OCR row in the last group's last row; both timed
+# at GROUP_TIMED (the JAX latency tool's fused arm runs 48 and 192:
+# tools/bench_latency.py:48-50).  EPI_GROUP_ORDER launches #6's two
+# instantiations in turns inside one step (a group of 8, then the last of 1
+# or 2).  GROUP_FAULTS: a grouped launch that reads the first group's cache
+# rows, or strides the [L, B, ...] arrays by the group's rows instead of the
+# batch's; each must move y far outside the tolerance.
+STEP_GROUP_BATCHES = (48, 9, 10, 16)
+EPI_GROUP_BATCHES = (9, 11, 48)
+GROUP_TIMED = (9, 16, 48, 192)
+EPI_GROUP_ORDER = (9, 10, 16, 9)
+GROUP_FAULTS = ("wrong_offset", "group_stride")
+# x(iii): the fused decode's cap lifted to the JAX tool's largest batch; the
+# forwards timed fused against per-layer in turns
+FUSED_CAP = 192
+FUSED_FORWARD_BATCHES = (4, 8, 48, 192)
+
+
+def group_mask(dev, b: int, l: int = L_JOINT):
+    """[b, l] encoder key mask whose rows differ in their planted and
+    trapped slots (decode_step_cache): row r is the serving mask's row r
+    mod BATCH with the keys before r masked and key r allowed, so its
+    first allowed key (a planted one) is r and no two rows allow the same
+    keys."""
+    import torch
+
+    mask, _ = serving_masks(dev)
+    rows = mask[torch.arange(b, device=dev) % BATCH, :l].clone()
+    for r in range(b):
+        rows[r, :r] = 0.0
+        rows[r, r] = 1.0
+    return rows.contiguous()
+
+
+def step_group_fault(fault: str):
+    """fused_decode_step's plain version behind a planted fault of the
+    grouped launch (a launch a group of DS.row_groups): each group reads
+    the first group's cache rows (``wrong_offset``: the row offset
+    dropped), or the [L, B, ...] cache strided by the group's rows from
+    its first row (``group_stride``: the batch stride taken from the
+    launch)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    def step(x_t, stacks, kv8, kvs, key_mask, step, write_offset, num_heads, eps=1e-12,
+             buffers=None):
+        n_layers, b, l_p, two_d = kv8.shape
+        outs = []
+        for b0, rows in DS.row_groups(b):
+            if fault == "wrong_offset":
+                k8, ks = kv8[:, :rows], kvs[:, :rows]
+            else:
+                k8 = kv8.reshape(-1)[b0 * l_p * two_d:][:n_layers * rows * l_p * two_d]
+                ks = kvs.reshape(-1)[b0 * 2 * l_p:][:n_layers * rows * 2 * l_p]
+                k8, ks = k8.view(n_layers, rows, l_p, two_d), ks.view(n_layers, rows, 2, l_p)
+            outs.append(DS.fused_decode_step_plain(
+                x_t[b0:b0 + rows], stacks, k8, ks, key_mask[b0:b0 + rows], step, write_offset,
+                num_heads, eps))
+        return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs], 1),
+                torch.cat([o[2] for o in outs], 1))
+    return step
+
+
+def epilogue_group_fault(eargs):
+    """fused_epilogue's plain version behind a grouped launch whose
+    batch-major tensors (keys, mask, OCR table) start at the first
+    group's row in every group (the row offset dropped)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    y, keys, mask, ocr = eargs[0], eargs[5], eargs[6], eargs[8]
+    outs = []
+    for b0, rows in DS.row_groups(y.shape[0]):
+        args = list(eargs)
+        args[0], args[5], args[6], args[8] = y[b0:b0 + rows], keys[:rows], mask[:rows], ocr[:rows]
+        outs.append(DS.fused_epilogue_plain(*args))
+    return [torch.cat([o[i] for o in outs]) for i in range(3)]
+
+
+def step_yardstick_ms(dev, b: int, d: int = 768, m: int = 3072) -> float:
+    """A step's 12 GEMVs at batch b (3 layers: Q/K/V, Wo, W1, W2) as bf16
+    torch.matmul, timed together: #5's yardstick (no single call computes
+    the step; slice v's library time at batch 1)."""
+    import torch
+
+    r = lambda *s_: torch.randn(*s_, device=dev).to(torch.bfloat16)
+    return products_ms([p for _ in range(3) for p in (
+        (r(b, d), r(3 * d, d)), (r(b, d), r(d, d)), (r(b, d), r(m, d)), (r(b, m), r(d, m)))])
+
+
+def step_group_time(dev, gen, stacks, b: int, card: str) -> dict:
+    """#5 at batch b over the group mask at step 11: checked against its
+    twin and timed warm beside the twin and the yardstick; the bound counts
+    the step's weights once and the cache rows its mask allows (every
+    group's launch reads the weights again).  y within the tolerance; the
+    first layer's quantized rows, whose inputs are the same bits on both
+    sides, within ROW8_TOL; every layer's within ROW8_HEAD_MOVED of a
+    head.  A later layer's input carries the earlier layers' rounding (a
+    bf16 ulp), which can move one of its quantized values by a second step
+    (at 192 rows, 1 of 294,912 values in layers 1 and 2 on the H100; the
+    first layer exact): its largest move is printed, not held to
+    ROW8_TOL."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    d = stacks["wq"].shape[-1]
+    m = stacks["w1"].shape[1]
+    x_t = decode_step_weights(dev, gen, m=m, rows=b)[0]
+    km = group_mask(dev, b)
+    kv8, kvs = decode_step_cache(x_t, stacks, km, 11, gen, d // 64, WRITE_OFFSET)
+    sargs = (x_t, stacks, kv8, kvs, km, 11, WRITE_OFFSET, d // 64)
+    buffers = DS.step_buffers(3, b, d, m, dev, d // 64)
+    got = [t.clone() for t in DS.fused_decode_step(*sargs, buffers=buffers)]
+    want = DS.fused_decode_step_plain(*sargs)
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    d8 = [int((got[1][l].int() - want[1][l].int()).abs().max().item()) for l in range(3)]
+    head = row8_head_moved(got[1], want[1], d // 64)
+    print(f"slice x: fused_decode_step at batch {b}: row8 max|diff| by layer {d8} (layer 0 "
+          f"tol {ROW8_TOL}), most moved in one head {head} of 64 (tol "
+          f"{int(ROW8_HEAD_MOVED * 64)})", flush=True)
+    if not (err <= TOL["fused_decode_step"] and d8[0] <= ROW8_TOL
+            and head <= ROW8_HEAD_MOVED * 64):
+        fail(f"fused_decode_step disagrees at batch {b} (y {err:.3e}, row8 by layer {d8})")
+    ms = cuda_time_ms(lambda: DS.fused_decode_step(*sargs, buffers=buffers))
+    pms = cuda_time_ms(lambda: DS.fused_decode_step_plain(*sargs), reps=3)
+    yard = step_yardstick_ms(dev, b, d, m)
+    keys = 3 * (decode_keys(km, 11) - b)
+    flops = 3 * 2 * b * (4 * d * d + 2 * d * m) + 4 * d * keys
+    moved = nbytes(*stacks.values()) + nbytes(x_t, km, *got) + keys * (2 * d + 8)
+    bound = bound_of(moved, flops)
+    launches = len(DS.row_groups(b))
+    print(f"slice x: fused_decode_step [{b},1,{d}] x 3 layers over [{b},{L_JOINT}] step 11: "
+          f"max|diff| {err:.3e} (tol {TOL['fused_decode_step']:.0e}); {launches} launches "
+          f"{ms:.4f} ms warm, plain {pms:.4f} ms, yardstick (12 GEMVs as torch.matmul) "
+          f"{yard:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; the weights once, "
+          f"{keys * (2 * d + 8) / 1e6:.1f} MB of live cache rows); card {card}", flush=True)
+    del kv8, kvs, buffers, got, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, row8_max_by_layer=d8, launches=launches, ms=ms, plain_ms=pms,
+                yardstick_ms=yard, bound_ms=bound[0], bound_by=bound[1])
+
+
+def check_step_groups(dev, record, card: str, timed: bool = True, m: int = 3072) -> dict:
+    """x(i). #5 above 8 rows (FFN width ``m``): check_decode_step at
+    STEP_GROUP_BATCHES, steps 0 and 11, over group_mask (each row's planted
+    and trapped slots its own), every GROUP_FAULTS fault beside the kernel
+    at each batch (each must lie outside the tolerance), then with
+    ``timed`` each batch of GROUP_TIMED (step_group_time)."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    gen = torch.Generator(device=dev).manual_seed(2626)
+    b_max = max(STEP_GROUP_BATCHES)
+    x_all, stacks = decode_step_weights(dev, gen, m=m, rows=b_max)
+    d, h = x_all.shape[-1], x_all.shape[-1] // 64
+    mask = group_mask(dev, b_max)
+    check_decode_step(record, x_all, stacks, mask, gen, STEP_GROUP_BATCHES, WRITE_OFFSET,
+                      keep=False, timed=False)
+    out = {"faults": {}}
+    kv8_all, kvs_all = decode_step_cache(x_all, stacks, mask, 11, gen, h, WRITE_OFFSET)
+    for b in STEP_GROUP_BATCHES:
+        sargs = (x_all[:b].contiguous(), stacks, kv8_all[:, :b].contiguous(),
+                 kvs_all[:, :b].contiguous(), mask[:b].contiguous(), 11, WRITE_OFFSET, h)
+        got = DS.fused_decode_step(*sargs)[0].float()
+        for fault in GROUP_FAULTS:
+            bad = step_group_fault(fault)(*sargs)[0].float()
+            out["faults"][f"{fault} {b}"] = planted_rejected(
+                "fused_decode_step", (got - bad).abs().max().item(),
+                f"{fault} at [{b},1,{d}] step 11 ({len(DS.row_groups(b))} launches)")
+    del kv8_all, kvs_all
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if timed:
+        out["timed"] = {b: step_group_time(dev, gen, stacks, b, card) for b in GROUP_TIMED}
+    return out
+
+
+def check_epilogue_groups(dev, record, card: str, timed: bool = True) -> dict:
+    """x(ii). #6 above 8 rows: check_epilogue_batch_order at
+    EPI_GROUP_ORDER, then check_fused_epilogue at each batch of
+    EPI_GROUP_BATCHES and (with ``timed``) GROUP_TIMED, its OCR row planted
+    in the last group's last row (the tie in every row), the times not the
+    kernel's record; beside each batch the planted group fault
+    (epilogue_group_fault), which must lie outside the tolerance."""
+    import torch
+
+    from vitxtgqa_tpu_torch.ops import decode_step as DS
+
+    check_epilogue_batch_order(dev, record, order=EPI_GROUP_ORDER)
+    out = {"timed": {}, "faults": {}}
+    batches = sorted(set(EPI_GROUP_BATCHES) | (set(GROUP_TIMED) if timed else set()))
+    for b in batches:
+        t = check_fused_epilogue(dev, record, batches=(b,), timed=timed and b in GROUP_TIMED,
+                                 keep=False, ocr_row=b - 1)
+        if t:
+            out["timed"][b] = t[b]
+            print(f"slice x: fused_epilogue at batch {b}: {t[b]['launches']} launches "
+                  f"{t[b]['warm_ms']:.4f} ms warm, bound {t[b]['bound_ms']:.4f} ms; card {card}",
+                  flush=True)
+        if b in EPI_GROUP_BATCHES:
+            gen = torch.Generator(device=dev).manual_seed(b)
+            eargs = epilogue_inputs(dev, gen, b)
+            got = DS.fused_epilogue(*eargs)[0]
+            bad = epilogue_group_fault(eargs)[0]
+            out["faults"][b] = planted_rejected(
+                "fused_epilogue", (got - bad).abs().max().item(),
+                f"the row offset dropped at [{b},1,768] ({len(DS.row_groups(b))} launches)")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def fused_serving_slice(sl: Slices, record, card) -> dict:
+    """x(iii). T2S at production width with the fused decode's cap lifted
+    to FUSED_CAP: the int8 cache and the serving preset (compact) served at
+    SERVE_BUCKET through serve_slice (launch counts from the gates: each
+    step's #5 and #6 a launch a group of 8 rows; against plain at slices
+    a-h's limits, near ties as slice p's), the fused tokens' agreement
+    with the per-layer decode's printed; then the forward at each of
+    FUSED_FORWARD_BATCHES fused against per-layer, in turns."""
+    import torch
+
+    from vitxtgqa_tpu_torch.serving.engine import group_generator, to_device
+
+    out = {}
+    cap = dict(kv_cache_int8=True, fused_decode_max_batch=FUSED_CAP)
+    fused, out["int8_fused_b48"] = serve_slice("int8_fused_b48", sl, record, cap,
+                                               [SERVE_BUCKET], near_ties=NEAR_TIE_ROWS)
+    per_layer = sl.model(kv_cache_int8=True, fused_decode=False)
+    batch = sl.batch(max(FUSED_FORWARD_BATCHES), 0)
+    tb = to_device({k: v[:SERVE_BUCKET] for k, v in batch.items()}, sl.dev)
+    with torch.inference_mode():
+        tok_f = fused(tb, group_generator(0, 0, sl.dev))["pos_scores"].argmax(-1)
+        tok_p = per_layer(tb, group_generator(0, 0, sl.dev))["pos_scores"].argmax(-1)
+    agree = (tok_f == tok_p).float().mean().item()
+    print(f"slice x: batch {SERVE_BUCKET}, fused decode (cap {FUSED_CAP}) against the per-layer "
+          f"decode, both on the kernels: greedy-token agreement {agree:.4f}", flush=True)
+    out["int8_fused_b48"]["per_layer_token_agreement"] = agree
+    preset = dict(cap, compact_serving=True)
+    model, out["preset_fused_b48"] = serve_slice("preset_fused_b48", sl, record, preset,
+                                                 [SERVE_BUCKET], near_ties=NEAR_TIE_ROWS)
+    del model
+    lat = {}
+    for b in FUSED_FORWARD_BATCHES:
+        sub = {k: v[:b] for k, v in batch.items()}
+        forward_ms(fused, sub, sl.dev, reps=1)  # warm-up
+        forward_ms(per_layer, sub, sl.dev, reps=1)
+        f1, p1 = forward_ms(fused, sub, sl.dev, reps=3), forward_ms(per_layer, sub, sl.dev, reps=3)
+        p2, f2 = forward_ms(per_layer, sub, sl.dev, reps=3), forward_ms(fused, sub, sl.dev, reps=3)
+        fm, pm = statistics.median(f1 + f2), statistics.median(p1 + p2)
+        lat[b] = {"fused_ms_all": f1 + f2, "per_layer_ms_all": p1 + p2, "fused_ms_median": fm,
+                  "per_layer_ms_median": pm}
+        print(f"slice x: forward at batch {b}: fused decode median {fm:.2f} ms (min "
+              f"{min(f1 + f2):.2f}), per-layer decode median {pm:.2f} ms (min {min(p1 + p2):.2f})"
+              f"; card {card}", flush=True)
+        torch.cuda.empty_cache()
+    out["forward_latency"] = lat
+    del fused, per_layer
+    torch.cuda.empty_cache()
+    return out
+
+
+# x(iv): the CLIP towers and MIST's text modules at full width on the card in
+# float32 (TF32 off, as main sets it), each against the port's own float32
+# run of the same weights on the CPU: relative L2 of every output within
+# TOWER_REL_TOL (float32 sums in another order on two devices)
+TOWER_BATCH, TOWER_RATE_BATCH, TOWER_REL_TOL = 16, 64, 1e-4
+DISTIL_LEN, ANSWERS, ANSWER_LEN = 64, 5, 12
+
+
+def tower_agreement(name: str, card_out: dict, cpu_out: dict, record_out: dict) -> None:
+    """Fail unless every output is finite and within TOWER_REL_TOL of the
+    CPU's (|card - cpu| / |cpu| over the whole tensor, in float64); keep
+    and print the distances."""
+    import torch
+
+    rel = {}
+    for key, want in cpu_out.items():
+        got = card_out[key]
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"slice x: {name} {key}: shape {tuple(got.shape)} (CPU {tuple(want.shape)}) "
+                 "or a non-finite value")
+        got, want = got.double().cpu(), want.double()
+        rel[key] = float((got - want).norm() / want.norm())
+    print(f"slice x: {name} on the card against the CPU, float32: relative L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (tol {TOWER_REL_TOL:.0e})",
+          flush=True)
+    record_out[name] = rel
+    if not all(v <= TOWER_REL_TOL for v in rel.values()):
+        fail(f"slice x: {name} on the card disagrees with its CPU run")
+
+
+def clip_inputs(cfg, b: int, seed: int):
+    """b random images [b, 3, R, R] and b texts of the context length,
+    each with its end-of-text token (the largest id) at a random place."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randn(b, 3, cfg.image_resolution, cfg.image_resolution, generator=gen)
+    text = torch.randint(1, cfg.vocab_size - 1, (b, cfg.context_length), generator=gen)
+    eot = torch.randint(2, cfg.context_length, (b,), generator=gen)
+    text[torch.arange(b), eot] = cfg.vocab_size - 1
+    return images, text
+
+
+def towers_slice(dev, record, card, clip_cfgs=None, distil=None, bert=None,
+                 batch: int = TOWER_BATCH, rate_batch: int = TOWER_RATE_BATCH) -> dict:
+    """x(iv). CLIP ViT-B/32 and RN50 (``clip_cfgs``: (name, CLIPConfig)
+    pairs) at batch ``batch`` images and texts: the image and text
+    features and both logit matrices; MIST's DistilTransformer
+    (``distil``, default 768 wide, 2 layers) on [batch, DISTIL_LEN] with
+    masked tails and AModel on BERT-base (``bert``) over [batch, ANSWERS,
+    ANSWER_LEN] answers through the plain versions in float32; each on
+    the card against the CPU (tower_agreement), the weights from seed 0
+    (RN50's BatchNorm statistics drawn too); then ViT-B/32's images/s at
+    ``rate_batch``."""
+    import torch
+
+    from vitxtgqa_tpu_torch import Options
+    from vitxtgqa_tpu_torch.models import clip as CLIP
+    from vitxtgqa_tpu_torch.models import mist_text as MT
+    from vitxtgqa_tpu_torch.models.common import TransformerConfig
+
+    clip_cfgs = clip_cfgs or (("clip_vit_b_32", CLIP.CLIP_VIT_B_32), ("clip_rn50", CLIP.CLIP_RN50))
+    out = {"rel_l2": {}}
+    first = None
+    for name, cfg in clip_cfgs:
+        cpu = CLIP.CLIP(cfg, device="cpu").init_weights(0).eval()
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for mod in cpu.modules():
+                if isinstance(mod, torch.nn.BatchNorm2d):
+                    mod.running_mean.normal_(0, 0.3, generator=gen)
+                    mod.running_var.uniform_(0.5, 1.5, generator=gen)
+        model = CLIP.CLIP(cfg, device=dev)
+        model.load_state_dict(cpu.state_dict())
+        model.eval()
+        images, text = clip_inputs(cfg, batch, 2)
+        runs = {}
+        for where, m in (("card", model), ("cpu", cpu)):
+            x, t = images.to(m.logit_scale.device), text.to(m.logit_scale.device)
+            with torch.no_grad():
+                txt, word = m.encode_text(t)
+                per_image, _ = m(x, t)
+                runs[where] = {"image": m.encode_image(x), "text": txt, "words": word,
+                               "logits": per_image}
+        tower_agreement(name, runs["card"], runs["cpu"], out["rel_l2"])
+        first = first or (name, model, cfg)
+        del cpu, runs
+    name, model, cfg = first
+    x = clip_inputs(cfg, rate_batch, 3)[0].to(dev)
+    with torch.no_grad():
+        ms = cuda_time_ms(lambda: model.encode_image(x), reps=5, warmup=2)
+    out["images_per_s"] = {"model": name, "batch": rate_batch, "ms": ms,
+                           "images_per_s": rate_batch / ms * 1e3}
+    print(f"slice x: {name} encode_image at batch {rate_batch}, float32: {ms:.3f} ms, "
+          f"{rate_batch / ms * 1e3:.1f} images/s; card {card}", flush=True)
+    del model, x
+    torch.cuda.empty_cache()
+
+    dcfg = distil or MT.DistilConfig(dropout=0.0, attention_dropout=0.0)
+    cpu = MT.DistilTransformer(dcfg, device="cpu").eval()
+    card_model = MT.DistilTransformer(dcfg, device=dev).eval()
+    card_model.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(4)
+    h = torch.randn(batch, DISTIL_LEN, dcfg.dim, generator=gen)
+    mask = (torch.arange(DISTIL_LEN)[None, :]
+            < torch.randint(DISTIL_LEN // 4, DISTIL_LEN + 1, (batch, 1), generator=gen)).float()
+    with torch.no_grad():
+        runs = {w: {"x": m(h.to(d), mask.to(d))} for w, m, d in (("card", card_model, dev),
+                                                                  ("cpu", cpu, "cpu"))}
+    tower_agreement(f"distil_transformer {dcfg.dim} x {dcfg.n_layers}", runs["card"],
+                    runs["cpu"], out["rel_l2"])
+    del cpu, card_model, runs
+
+    bcfg = bert or TransformerConfig(num_hidden_layers=12, hidden_dropout_prob=0.0,
+                                     attention_probs_dropout_prob=0.0)
+    torch.manual_seed(5)
+    cpu = MT.AModel(512, bcfg, Options(device="cpu")).eval()
+    card_model = MT.AModel(512, bcfg, Options(device=dev, dtype=torch.float32, plain=True))
+    card_model.load_state_dict(cpu.state_dict())
+    answers = torch.randint(1, bcfg.vocab_size, (batch, ANSWERS, ANSWER_LEN), generator=gen)
+    answers[:, :, ANSWER_LEN // 2:] *= (torch.rand(batch, ANSWERS, 1, generator=gen) > 0.5)
+    with torch.no_grad():
+        runs = {w: {"answers": m(answers.to(d))} for w, m, d in (("card", card_model, dev),
+                                                                 ("cpu", cpu, "cpu"))}
+    tower_agreement(f"amodel bert {bcfg.hidden_size} x {bcfg.num_hidden_layers}", runs["card"],
+                    runs["cpu"], out["rel_l2"])
+    del cpu, card_model, runs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_groups_slice(dev, record, card) -> dict:
+    """x. The fused decode above 8 batch rows (check_step_groups,
+    check_epilogue_groups, fused_serving_slice), then the CLIP and MIST
+    text towers (towers_slice); each part's seconds."""
+    secs, out = {}, {}
+    for part, key, run in (
+            ("i", "step_groups", lambda: check_step_groups(dev, record, card)),
+            ("ii", "epilogue_groups", lambda: check_epilogue_groups(dev, record, card)),
+            ("iii", "fused_serving", lambda: fused_serving_slice(Slices(dev), record, card)),
+            ("iv", "towers", lambda: towers_slice(dev, record, card))):
+        t = time.perf_counter()
+        out[key] = run()
+        secs[part] = time.perf_counter() - t
+    out["part_s"] = secs
+    print("slice x: parts (s) " + json.dumps({k: round(v, 1) for k, v in secs.items()}),
+          flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def phase(phases: dict, name: str):
     """Time one phase of the script on the host clock; print its seconds and
@@ -8383,7 +8828,10 @@ def run_slices(dev, record, card, phases):
             # the JAX trainer's opt-in arms: compact training, the remat
             # modes, fused grads, the post-scan epilogue
             ("w", "train_arms", lambda: train_arms_slice(
-                dev, record, card, details["train"].get("batch48")))):
+                dev, record, card, details["train"].get("batch48"))),
+            # #5 / #6 above 8 batch rows, T2S served through them at 48,
+            # the CLIP towers and MIST's text modules
+            ("x", "decode_groups", lambda: decode_groups_slice(dev, record, card))):
         with phase(phases, f"slice {letter}"):
             details[name] = run()
     return details

@@ -26,21 +26,25 @@ cudaError_t launch_forms(const Params& p, int smem, cudaStream_t stream) {
 }  // namespace step
 }  // namespace vt
 
-// ptrs, in order: x, wq, bq, wk, bk, wv, bv, wo, bo, s1, g1, w1, b1, w2,
-// b2, s2, g2, kv8, kvs, mask, y, row8, rowsc, qkv, pre, h, opart [H, B, D]
-// f32, apart [B * H * 16, d / num_heads] f32, arrive [B * H] int32 (zero
-// before the first launch; each launch leaves it zero) (29).  d = num_heads
-// x the head width, a multiple of 8 up to 128, and a multiple of 128 up to
-// 2,048; m a multiple of 128 up to 8,192; cache_len at most 4,096.
-extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, int cache_len,
-                                    int d, int m, int num_heads, int step, int write_offset,
-                                    float eps, void* stream) {
+// One launch over `batch` rows (at most 8: a group of a larger batch) of a
+// batch of `batch_stride` rows.  ptrs, in order: x, wq, bq, wk, bk, wv, bv,
+// wo, bo, s1, g1, w1, b1, w2, b2, s2, g2, kv8, kvs, mask, y, row8, rowsc,
+// each at the group's first row (kv8, kvs, row8 and rowsc keep the whole
+// batch's layer stride), then the scratch of one launch: qkv, pre, h,
+// opart [H, batch, D] f32, apart [batch * H * 16, d / num_heads] f32,
+// arrive [batch * H] int32 (zero before the first launch; each launch
+// leaves it zero) (29).  d = num_heads x the head width, a multiple of 8 up
+// to 128, and a multiple of 128 up to 2,048; m a multiple of 128 up to
+// 8,192; cache_len at most 4,096.
+extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, int batch_stride,
+                                    int cache_len, int d, int m, int num_heads, int step,
+                                    int write_offset, float eps, void* stream) {
   using namespace vt::step;
   using vt::bf16;
   const int dh = num_heads > 0 ? d / num_heads : 0;
   if (num_heads <= 0 || d != num_heads * dh || dh % 8 != 0 || dh > kMaxHd || d % 128 != 0 ||
       d > kMaxD || m <= 0 || m % 128 != 0 || m > kMaxM || batch < 1 || batch > MAXB ||
-      cache_len > kMaxLp || write_offset + step >= cache_len)
+      batch_stride < batch || cache_len > kMaxLp || write_offset + step >= cache_len)
     return (int)cudaErrorInvalidValue;
   Params p;
   int i = 0;
@@ -75,6 +79,7 @@ extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, 
   p.arrive = (int*)ptrs[i++];
   p.L = n_layers;
   p.B = batch;
+  p.BS = batch_stride;
   p.Lp = cache_len;
   p.step = step;
   p.write_offset = write_offset;
@@ -90,6 +95,6 @@ extern "C" int vt_fused_decode_step(void* const* ptrs, int n_layers, int batch, 
   p.scap = main_form(p) ? kMainLp : (cache_len + 3) / 4 * 4;
   const int smem = smem_bytes(batch, d, m, 4 * attn_floats(p.scap, dh <= 64 ? 64 : 128));
   const cudaStream_t st = (cudaStream_t)stream;
-  // the fused decode's route: batch 1 and 2
+  // the instantiation of the group's rows: 1-2, else 3-8
   return (int)(batch <= 2 ? launch_forms<2>(p, smem, st) : launch_forms<MAXB>(p, smem, st));
 }

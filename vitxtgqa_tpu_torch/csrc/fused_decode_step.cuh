@@ -16,6 +16,12 @@
 // Outputs: y (the last layer's x), the quantized rows row8 [L, B, 2*H*D]
 // (K | V) and their scales rowsc [L, B, 2].  The caller commits the rows at
 // write_offset + step after the launch; the kernel never reads that slot.
+// A launch takes at most 8 batch rows: a larger batch runs in groups of 8
+// rows (the last one 1-8), a launch each, in turn on one stream, as the
+// Pallas kernel's grid runs blocks of 8 rows.  A group's pointers start at
+// its first row; the [L, B, ...] arrays (kv8, kvs, row8, rowsc) keep the
+// whole batch's layer stride (Params::BS), so no group copies the cache,
+// and the scratch is one group's, reused by the next launch.
 // Weights arrive in torch nn.Linear layout ([out, in], bf16, stacked over
 // layers); biases and LayerNorm parameters in f32 [L, width].
 //
@@ -61,8 +67,8 @@
 // and shared-memory size.  The widths are runtime values: the hidden width
 // D = H x Dh, a multiple of 128 up to 2,048, with the head width Dh a
 // multiple of 8 up to 128, the FFN width M, a multiple of 128 up to 8,192
-// (the main path's MMT: 768, 3,072, 12 heads of 64), at most 8 batch rows,
-// and the cache at most 4,096 slots; the wrapper raises on others.  Shared
+// (the main path's MMT: 768, 3,072, 12 heads of 64), at most 8 batch rows
+// a launch, and the cache at most 4,096 slots; the wrapper raises on others.  Shared
 // memory holds the f32 pre-LN rows [B][D], the bf16 layer input [B][D] and
 // the GEMV input [B][max(D, M)] in bf16, which the attention scratch
 // shares: 229,440 bytes at B = 8, D = 2,048, M = 8,192, within the 232,448
@@ -149,7 +155,8 @@ struct Params {
   float* opart;                                                  // [H, B, D] ctx_h Wo[:, h]^T
   float* apart;                                                  // [B*H, spans, Dh] V partials
   int* arrive;                                                   // [B*H] span counters
-  int L, B, Lp, step, write_offset, spans;
+  int L, B, Lp, step, write_offset, spans;                       // B: this launch's rows
+  int BS;                                                        // rows a layer of kv8 / kvs / row8 / rowsc
   int D, M, H, Dh;                                               // hidden, FFN, heads, head width
   int scap;                                                      // score slots of the scratch
   float eps, scale;
@@ -415,12 +422,12 @@ __device__ void attention_span(const Params& p, int l, int b, int h, int sp, int
   const int Dh = KD ? 64 : p.Dh;
   const bf16* qkv = p.qkv + (size_t)b * 3 * D;
   const int pos = p.write_offset + p.step;
-  const size_t cache0 = ((size_t)l * p.B + b) * p.Lp;
+  const size_t cache0 = ((size_t)l * p.BS + b) * p.Lp;
   // this lane's chunks of a head row, and whether they load in pairs
   const int nval = min(CPL, max(0, (Dh - ch * NC) / 8));
   const bool vec16 = KD ? true : Dh % 16 == 0;
   const int8_t* kv = p.kv8 + cache0 * 2 * D + h * Dh + (nval > 0 ? ch * NC : 0);
-  const float* ks = p.kvs + ((size_t)l * p.B + b) * 2 * p.Lp;
+  const float* ks = p.kvs + ((size_t)l * p.BS + b) * 2 * p.Lp;
   const float* vs = ks + p.Lp;
   const float* mask = p.mask + (size_t)b * p.Lp;
   const int j0 = sp * p.Lp / S, j1 = (sp + 1) * p.Lp / S;
@@ -448,7 +455,7 @@ __device__ void attention_span(const Params& p, int l, int b, int h, int sp, int
   va = block_max(va, a.red);
   const float k_sc = fmaxf(ka, 1e-6f) / 127.f;
   const float v_sc = fmaxf(va, 1e-6f) / 127.f;
-  int8_t* r8 = p.row8 + ((size_t)l * p.B + b) * 2 * D;
+  int8_t* r8 = p.row8 + ((size_t)l * p.BS + b) * 2 * D;
   if (tid < HT) {  // the head's row, zero past Dh
     float qv = 0.f, kc = 0.f, vc = 0.f;
     if (KD || tid < Dh) {
@@ -468,8 +475,8 @@ __device__ void attention_span(const Params& p, int l, int b, int h, int sp, int
     a.cur[HT + tid] = vc;
   }
   if (h == 0 && sp == 0 && tid == 0) {
-    p.rowsc[((size_t)l * p.B + b) * 2] = k_sc;
-    p.rowsc[((size_t)l * p.B + b) * 2 + 1] = v_sc;
+    p.rowsc[((size_t)l * p.BS + b) * 2] = k_sc;
+    p.rowsc[((size_t)l * p.BS + b) * 2 + 1] = v_sc;
   }
   __syncthreads();
 

@@ -42,7 +42,12 @@
 // two 256-thread blocks an SM, sized at the instantiation's largest launch)
 // computed once per device and width.  The scratch
 // (ops/decode_step.epilogue_buffers) is zero before the first launch;
-// every launch leaves its ticket zero.
+// every launch leaves its ticket zero.  A launch takes at most 8 batch
+// rows: a larger batch runs in groups of 8 rows (the last one 1-8), a
+// launch each, in turn on one stream, every batch-major pointer (y, keys,
+// mask, ocr, scores, tok, emb_out) at the group's first row, as the Pallas
+// kernel's grid runs blocks of rows.  The groups share one scratch: each
+// launch's q rows carry its own tag and the ticket is zero between them.
 #include "common.cuh"
 
 namespace vt {

@@ -109,9 +109,10 @@ _SIGNATURES = {
     # int8; batch, cache_len, heads, head_dim, cluster, head_groups; out
     # count (cudaOccupancyMaxActiveClusters of that launch)
     "vt_decode_attention_clusters": [_I] * 7 + [_P],
-    # pointer array (order in csrc/fused_decode_step.cu); n_layers, batch,
-    # cache_len, d, m, heads, step, write_offset; eps; stream
-    "vt_fused_decode_step": [_P] + [_I] * 8 + [_F, _P],
+    # pointer array (order in csrc/fused_decode_step.cu); n_layers, the
+    # launch's rows, the batch's rows, cache_len, d, m, heads, step,
+    # write_offset; eps; stream
+    "vt_fused_decode_step": [_P] + [_I] * 9 + [_F, _P],
     # pointer array (order in csrc/fused_epilogue.cu); batch, d, vp, n, qk,
     # s2, step, dec_len; qk_scale; stream
     "vt_fused_epilogue": [_P] + [_I] * 8 + [_F, _P],

@@ -7,7 +7,11 @@ int8 quantization of the new K/V rows, attention over the packed int8
 cache with the current token substituted, the post-attention block), and
 ``fused_epilogue`` turns its output into the step's scores, greedy token
 and next decoder-slot embedding in a second launch.  The CUDA kernels are
-csrc/fused_decode_step.cu and csrc/fused_epilogue.cu.
+csrc/fused_decode_step.cu and csrc/fused_epilogue.cu.  Each launch of either
+holds at most GROUP_ROWS batch rows: a larger batch runs in groups of
+GROUP_ROWS rows (the last one 1 to GROUP_ROWS, ``row_groups``), a launch
+each, over the whole batch's cache and tables, so a step at batch B is
+ceil(B / 8) launches of each kernel.
 
 Layouts differ from the JAX functions in one respect: every weight keeps
 torch's nn.Linear layout ``[out, in]`` (stacked over layers for the step:
@@ -29,7 +33,7 @@ from vitxtgqa_tpu_torch.ops.fused_block import fused_block_plain
 from vitxtgqa_tpu_torch.ops.flash_attention import head_width_ok
 
 NEG = -1e30  # pallas_decode_step.py _NEG
-MAX_BATCH = 8  # the kernels hold at most 8 batch rows on chip
+GROUP_ROWS = 8  # the batch rows of one launch of either kernel
 # csrc/fused_decode_step.cuh kMaxD / kMaxM: the widest hidden and FFN widths
 # of the step kernel (each a multiple of 128; the hidden width H x Dh, Dh a
 # multiple of 8 up to 128)
@@ -99,52 +103,60 @@ def step_widths_ok(d: int, m: int) -> bool:
     return 0 < d <= MAX_STEP_HIDDEN and d % 128 == 0 and 0 < m <= MAX_STEP_FFN and m % 128 == 0
 
 
+def row_groups(b: int) -> list:
+    """The launches of one step of either kernel at batch b: (first row,
+    rows) of each group, GROUP_ROWS rows each but the last."""
+    return [(b0, min(GROUP_ROWS, b - b0)) for b0 in range(0, b, GROUP_ROWS)]
+
+
 def check_step_shape(d: int, m: int, num_heads: int, hd_total: int, b: int, l_p: int) -> None:
-    """Raise unless csrc/fused_decode_step.cu takes this launch: H heads of
+    """Raise unless csrc/fused_decode_step.cu takes this step: H heads of
     a width head_width_ok takes making the hidden width (ROADMAP queue 2
-    item 5 past 128), widths step_widths_ok takes, at most MAX_BATCH rows
-    and MAX_CACHE slots (ROADMAP queue 2 item 3)."""
+    item 5 past 128), widths step_widths_ok takes and at most MAX_CACHE
+    slots (ROADMAP queue 2 item 3), at any batch (row_groups)."""
     hd = hd_total // num_heads if num_heads > 0 and hd_total % num_heads == 0 else 0
-    if (hd_total != d or not head_width_ok(hd) or not step_widths_ok(d, m)
-            or b > MAX_BATCH or l_p > MAX_CACHE):
+    if (hd_total != d or not head_width_ok(hd) or not step_widths_ok(d, m) or b < 1
+            or l_p > MAX_CACHE):
         raise NotImplementedError(
             f"fused_decode_step kernel: H heads of a multiple of 8 up to 128 (head widths "
             f"above 128: ROADMAP queue 2 item 5) == hidden, hidden and FFN widths multiples "
-            f"of 128 up to {MAX_STEP_HIDDEN} / {MAX_STEP_FFN}, batch <= {MAX_BATCH} and at "
-            f"most {MAX_CACHE} cache slots (ROADMAP queue 2 item 3); got hidden {d}, H*D "
-            f"{hd_total} over {num_heads} heads, FFN {m}, batch {b}, cache {l_p}")
+            f"of 128 up to {MAX_STEP_HIDDEN} / {MAX_STEP_FFN} and at most {MAX_CACHE} cache "
+            f"slots (ROADMAP queue 2 item 3); got hidden {d}, H*D {hd_total} over "
+            f"{num_heads} heads, FFN {m}, batch {b}, cache {l_p}")
 
 
 def step_buffers(n_layers: int, b: int, d: int, m: int, device, num_heads: int) -> dict:
-    """The outputs and scratch of one fused_decode_step launch over
-    ``num_heads`` heads; allocate once per decode and pass to every step.
-    ``opart`` holds each head's f32 share of ctx Wo^T, ``apart`` each key
-    span's f32 weighted V rows (a head row each), and ``arrive`` the span
-    counters of the (row, head) units, zero here and left zero by every
-    launch."""
+    """The outputs of one fused_decode_step at batch ``b`` over
+    ``num_heads`` heads, and the scratch of one launch, which its groups'
+    launches (row_groups) take in turn; allocate once per decode and pass
+    to every step.  ``opart`` holds each head's f32 share of ctx Wo^T,
+    ``apart`` each key span's f32 weighted V rows (a head row each), and
+    ``arrive`` the span counters of the (row, head) units, zero here and
+    left zero by every launch."""
     dev = torch.device(device)
-    h = num_heads
+    h, g = num_heads, min(b, GROUP_ROWS)
     e = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
     return {
         "y": e((b, 1, d), torch.bfloat16),
         "row8": e((n_layers, b, 1, 2 * d), torch.int8),
         "rowsc": e((n_layers, b, 2, 1), torch.float32),
-        "qkv": e((b, 3 * d), torch.bfloat16),
-        "pre": e((b, d), torch.float32),
-        "h": e((b, m), torch.bfloat16),
-        "opart": e((h, b, d), torch.float32),
-        "apart": e((b * h * MAX_SPANS, d // h), torch.float32),
-        "arrive": torch.zeros((b * h,), dtype=torch.int32, device=dev),
+        "qkv": e((g, 3 * d), torch.bfloat16),
+        "pre": e((g, d), torch.float32),
+        "h": e((g, m), torch.bfloat16),
+        "opart": e((h, g, d), torch.float32),
+        "apart": e((g * h * MAX_SPANS, d // h), torch.float32),
+        "arrive": torch.zeros((g * h,), dtype=torch.int32, device=dev),
     }
 
 
 def fused_decode_step(x_t, stacks, kv8, kvs, key_mask, step: int,
                       write_offset: int, num_heads: int, eps: float = 1e-12,
                       buffers: dict | None = None):
-    """One decode step over all layers in one launch; the arguments and
-    returns of fused_decode_step_plain.  ``buffers`` (step_buffers) holds
-    the outputs and scratch; the returned tensors are its ``y``, ``row8``
-    and ``rowsc``, overwritten by the next call that shares them."""
+    """One decode step over all layers, one launch a group of rows
+    (row_groups); the arguments and returns of fused_decode_step_plain.
+    ``buffers`` (step_buffers) holds the outputs and scratch; the returned
+    tensors are its ``y``, ``row8`` and ``rowsc``, overwritten by the next
+    call that shares them."""
     if not x_t.is_cuda:
         return fused_decode_step_plain(x_t, stacks, kv8, kvs, key_mask, step,
                                        write_offset, num_heads, eps)
@@ -170,18 +182,20 @@ def fused_decode_step(x_t, stacks, kv8, kvs, key_mask, step: int,
     buf = buffers if buffers is not None else step_buffers(n_layers, b, d, m, dev, num_heads)
     for name, t in step_buffers(n_layers, b, d, m, "meta", num_heads).items():
         _build.require(buf[name], name, t.dtype, t.shape, dev)
-    ptrs = _build.pointers(
-        x_t, *(stacks[n] for n in STACK_NAMES), kv8, kvs, key_mask,
-        *(buf[n] for n in ("y", "row8", "rowsc", "qkv", "pre", "h", "opart", "apart",
-                           "arrive")),
-    )
+    scratch = [buf[n] for n in ("qkv", "pre", "h", "opart", "apart", "arrive")]
     with torch.cuda.device(dev):
-        err = _build.lib().vt_fused_decode_step(
-            ptrs, n_layers, b, l_p, d, m, num_heads, int(step),
-            int(write_offset), float(eps), _build.stream_of(x_t),
-        )
-    _build.check(err, "fused_decode_step")
-    _build.LAUNCHES["fused_decode_step"] += 1
+        for b0, rows in row_groups(b):
+            # a group's pointers at its first row; the [L, B, ...] arrays
+            # keep the whole batch's layer stride (the kernel's BS)
+            ptrs = _build.pointers(
+                x_t[b0:], *(stacks[n] for n in STACK_NAMES), kv8[:, b0], kvs[:, b0],
+                key_mask[b0:], buf["y"][b0:], buf["row8"][:, b0], buf["rowsc"][:, b0], *scratch)
+            err = _build.lib().vt_fused_decode_step(
+                ptrs, n_layers, rows, b, l_p, d, m, num_heads, int(step),
+                int(write_offset), float(eps), _build.stream_of(x_t),
+            )
+            _build.check(err, "fused_decode_step")
+            _build.LAUNCHES["fused_decode_step"] += 1
     return buf["y"], buf["row8"], buf["rowsc"]
 
 
@@ -217,17 +231,19 @@ def fused_epilogue_plain(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask,
 
 
 def epilogue_buffers(b: int, qk: int, device) -> dict:
-    """The scratch of one fused_epilogue launch; allocate once per decode
-    and pass to every step.  ``q`` holds the pointer query, each entry
-    (launch tag << 32) | float32 bits, ``part_v`` / ``part_i`` each block's
-    (max, index) per batch row, and ``sync`` the blocks' ticket and the
-    last launch's tag; q and sync are zero here, and every launch leaves
-    the ticket zero."""
+    """The scratch of one fused_epilogue launch at batch ``b``, which the
+    launches of its groups (row_groups) share; allocate once per decode and
+    pass to every step.  ``q`` holds the pointer query, each entry (launch
+    tag << 32) | float32 bits, ``part_v`` / ``part_i`` each block's (max,
+    index) per batch row, and ``sync`` the blocks' ticket and the last
+    launch's tag; q and sync are zero here, and every launch leaves the
+    ticket zero."""
     dev = torch.device(device)
+    g = min(b, GROUP_ROWS)
     return {
-        "q": torch.zeros((b, qk), dtype=torch.int64, device=dev),
-        "part_v": torch.empty((b, EPILOGUE_MAX_GRID), dtype=torch.float32, device=dev),
-        "part_i": torch.empty((b, EPILOGUE_MAX_GRID), dtype=torch.int32, device=dev),
+        "q": torch.zeros((g, qk), dtype=torch.int64, device=dev),
+        "part_v": torch.empty((g, EPILOGUE_MAX_GRID), dtype=torch.float32, device=dev),
+        "part_i": torch.empty((g, EPILOGUE_MAX_GRID), dtype=torch.int32, device=dev),
         "sync": torch.zeros((2,), dtype=torch.int32, device=dev),
     }
 
@@ -242,7 +258,8 @@ def epilogue_block_of(item: int, grid: int) -> int:
 
 
 def epilogue_grid(b: int, d: int, qk: int) -> int:
-    """The blocks of one fused_epilogue launch on the current CUDA device."""
+    """The blocks of one fused_epilogue launch of ``b`` rows (at most
+    GROUP_ROWS: a group) on the current CUDA device."""
     grid = ctypes.c_int(0)
     _build.check(_build.lib().vt_fused_epilogue_grid(b, d, qk, ctypes.byref(grid)),
                  "fused_epilogue_grid")
@@ -252,9 +269,10 @@ def epilogue_grid(b: int, d: int, qk: int) -> int:
 def fused_epilogue(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask, ans_tbl,
                    ocr_tbl, emb_rows, step: int, n_fixed: int, qk_scale: float,
                    dec_len: int, buffers: dict | None = None):
-    """Decode-step epilogue in one launch; the arguments and returns of
-    fused_epilogue_plain.  ``buffers`` (epilogue_buffers) holds the
-    launch's scratch; without it each call allocates its own."""
+    """Decode-step epilogue, one launch a group of rows (row_groups); the
+    arguments and returns of fused_epilogue_plain.  ``buffers``
+    (epilogue_buffers) holds the launches' scratch; without it each call
+    allocates its own."""
     if not y.is_cuda:
         return fused_epilogue_plain(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys,
                                     ocr_mask, ans_tbl, ocr_tbl, emb_rows, step,
@@ -263,10 +281,10 @@ def fused_epilogue(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask, ans_tbl,
     v_p = cls_w.shape[0]
     n, qk = ptr_keys.shape[1], ptr_keys.shape[2]
     s2 = emb_rows.shape[0]
-    if b > MAX_BATCH or d % 128 or qk % 128 or s2 < 2 * dec_len:
+    if d % 128 or qk % 128 or s2 < 2 * dec_len:
         raise NotImplementedError(
-            f"fused_epilogue kernel: batch <= {MAX_BATCH}, hidden and pointer "
-            f"widths multiples of 128; got batch {b}, hidden {d}, pointer {qk}"
+            f"fused_epilogue kernel: hidden and pointer widths multiples of 128 (ROADMAP "
+            f"queue 2 item 2); got batch {b}, hidden {d}, pointer {qk}"
         )
     dev = y.device
     f32, bf = torch.float32, torch.bfloat16
@@ -285,19 +303,20 @@ def fused_epilogue(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask, ans_tbl,
         buf = epilogue_buffers(b, qk, dev)
     else:
         buf = buffers
-        for name, dt, shape in (
-            ("q", torch.int64, (b, qk)), ("part_v", f32, (b, EPILOGUE_MAX_GRID)),
-            ("part_i", torch.int32, (b, EPILOGUE_MAX_GRID)), ("sync", torch.int32, (2,)),
-        ):
-            _build.require(buf[name], name, dt, shape, dev)
-    ptrs = _build.pointers(y, cls_w, cls_b, ptr_w, ptr_b, ptr_keys, ocr_mask,
-                           ans_tbl, ocr_tbl, emb_rows, scores, tok, nxt,
-                           *(buf[n] for n in ("q", "part_v", "part_i", "sync")))
+        for name, t in epilogue_buffers(b, qk, "meta").items():
+            _build.require(buf[name], name, t.dtype, t.shape, dev)
+    scratch = [buf[n] for n in ("q", "part_v", "part_i", "sync")]
     with torch.cuda.device(dev):
-        err = _build.lib().vt_fused_epilogue(
-            ptrs, b, d, v_p, n, qk, s2, int(step), int(dec_len),
-            float(qk_scale), _build.stream_of(y),
-        )
-    _build.check(err, "fused_epilogue")
-    _build.LAUNCHES["fused_epilogue"] += 1
+        for b0, rows in row_groups(b):
+            # a group's batch-major tensors at its first row; the launches
+            # share the scratch (each its own q tag, the ticket zero between)
+            ptrs = _build.pointers(y[b0:], cls_w, cls_b, ptr_w, ptr_b, ptr_keys[b0:],
+                                   ocr_mask[b0:], ans_tbl, ocr_tbl[b0:], emb_rows, scores[b0:],
+                                   tok[b0:], nxt[b0:], *scratch)
+            err = _build.lib().vt_fused_epilogue(
+                ptrs, rows, d, v_p, n, qk, s2, int(step), int(dec_len),
+                float(qk_scale), _build.stream_of(y),
+            )
+            _build.check(err, "fused_epilogue")
+            _build.LAUNCHES["fused_epilogue"] += 1
     return scores, tok, nxt

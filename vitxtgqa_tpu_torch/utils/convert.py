@@ -16,7 +16,10 @@ becomes ``weight``, LayerNorm ``scale`` becomes ``weight``.  The legacy
 image-VQA models (pythia and its ablations, lorra, ban,
 top_down_bottom_up) are mapped from their flat keys alone
 (``legacy_entries``), their RNN cells onto torch's stacked LSTM / GRU
-weights.  The results are whole tensors: a tensor-parallel model
+weights.  ``from_jax_mist_text_params`` maps MIST's auxiliary modules
+(models/mist_text.py) and ``clip_state_dict_from_jax`` turns the JAX
+CLIP's variables into OpenAI's state-dict layout (models/clip.py), the
+inverse of vitxtgqa_tpu's build_clip_params.  The results are whole tensors: a tensor-parallel model
 (Options.tp) loads its shards of them through
 parallel/tensor_parallel.local_state.
 """
@@ -328,3 +331,144 @@ def strip_vit_prefix(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if not k.startswith(("pooler.", "classifier.")):
             out[k] = v
     return out
+
+
+# the JAX mist_text modules (vitxtgqa_tpu/models/mist_text.py) by the
+# port's class names; MistBert's TextEncoder sits at "bert", AModel's at
+# "bert/bert"
+MIST_TEXT_MODULES = ("DistilTransformer", "FusionEmbeddings", "PositionEmbeddings",
+                     "TokenTypeEmbeddings", "EncoderVid", "SentenceMaxpool", "MistBert", "AModel")
+
+
+def _text_encoder_entries(flat, torch_prefix: str, flax_prefix: str):
+    e, fe = f"{torch_prefix}.embeddings", f"{flax_prefix}/embeddings"
+    yield from [(f"{e}.word_embeddings", f"{fe}/word_embeddings", "embed"),
+                (f"{e}.position_embeddings", f"{fe}/position_embeddings", "embed"),
+                (f"{e}.token_type_embeddings", f"{fe}/token_type_embeddings", "embed"),
+                (f"{e}.LayerNorm", f"{fe}/ln", "ln")]
+    for i in range(_num_layers(flat, f"{flax_prefix}/encoder")):
+        yield from bert_layer_entries(f"{torch_prefix}.encoder", f"{flax_prefix}/encoder", i)
+
+
+def from_jax_mist_text_params(flat: Dict[str, np.ndarray], module: str,
+                              batch_stats: Dict[str, np.ndarray] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """The flat params of a JAX mist_text module (``module``: its class
+    name, MIST_TEXT_MODULES) -> the port module's ``state_dict()``;
+    EncoderVid's BatchNorm running statistics come from ``batch_stats``
+    (its flat ``batch_stats`` collection).  Dense kernels over channels
+    become the 1x1 convolutions' [out, in, 1, 1] weights."""
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    if module == "DistilTransformer":
+        entries = []
+        for i in range(_num_layers(flat, "")):
+            f = f"layer_{i}"
+            entries += [(f"layer.{i}.attention.{n}", f"{f}/attention/{n}", "linear")
+                        for n in ("q_lin", "k_lin", "v_lin", "out_lin")]
+            entries += [(f"layer.{i}.sa_layer_norm", f"{f}/sa_layer_norm", "ln"),
+                        (f"layer.{i}.ffn.lin1", f"{f}/ffn/lin1", "linear"),
+                        (f"layer.{i}.ffn.lin2", f"{f}/ffn/lin2", "linear"),
+                        (f"layer.{i}.output_layer_norm", f"{f}/output_layer_norm", "ln")]
+        return convert_entries(flat, entries)
+    if module == "FusionEmbeddings":
+        return {"position_embeddings.weight": t(flat["position_embeddings"]),
+                "modality_embedding.weight": t(flat["modality_embedding"]),
+                **convert_entries(flat, [("LayerNorm", "LayerNorm", "ln")])}
+    if module == "PositionEmbeddings":
+        return {"position_embeddings.weight": t(flat["position_embeddings"])}
+    if module == "TokenTypeEmbeddings":
+        return {"modality_embedding.weight": t(flat["modality_embedding"])}
+    if module == "EncoderVid":
+        sd = convert_entries(flat, [("tohid.0", "tohid", "linear")])
+        for conv, bn, fi in ((0, 1, 1), (3, 4, 2)):
+            sd[f"bbox_conv.{conv}.weight"] = t(np.asarray(flat[f"bbox_conv{fi}/kernel"]).T[:, :, None, None])
+            sd[f"bbox_conv.{conv}.bias"] = t(flat[f"bbox_conv{fi}/bias"])
+            sd[f"bbox_conv.{bn}.weight"] = t(flat[f"bbox_bn{fi}/scale"])
+            sd[f"bbox_conv.{bn}.bias"] = t(flat[f"bbox_bn{fi}/bias"])
+            sd[f"bbox_conv.{bn}.running_mean"] = t(batch_stats[f"bbox_bn{fi}/mean"])
+            sd[f"bbox_conv.{bn}.running_var"] = t(batch_stats[f"bbox_bn{fi}/var"])
+            sd[f"bbox_conv.{bn}.num_batches_tracked"] = torch.tensor(0)
+        return sd
+    if module == "SentenceMaxpool":
+        return convert_entries(flat, [("fc", "fc", "linear")])
+    if module == "MistBert":
+        return convert_entries(flat, _text_encoder_entries(flat, "bert", "bert"))
+    if module == "AModel":
+        return convert_entries(flat, [*_text_encoder_entries(flat, "bert.bert", "bert/bert"),
+                                      ("linear_text", "linear_text", "linear")])
+    raise KeyError(f"{module}: not one of {MIST_TEXT_MODULES}")
+
+
+def _clip_block(sd: dict, p: str, blk: dict) -> None:
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    lin = lambda a: t(np.asarray(a).T)
+    sd[f"{p}.ln_1.weight"], sd[f"{p}.ln_1.bias"] = t(blk["ln_1"]["scale"]), t(blk["ln_1"]["bias"])
+    sd[f"{p}.attn.in_proj_weight"] = lin(blk["attn_in"]["kernel"])
+    sd[f"{p}.attn.in_proj_bias"] = t(blk["attn_in"]["bias"])
+    sd[f"{p}.attn.out_proj.weight"] = lin(blk["attn_out"]["kernel"])
+    sd[f"{p}.attn.out_proj.bias"] = t(blk["attn_out"]["bias"])
+    sd[f"{p}.ln_2.weight"], sd[f"{p}.ln_2.bias"] = t(blk["ln_2"]["scale"]), t(blk["ln_2"]["bias"])
+    for n in ("c_fc", "c_proj"):
+        sd[f"{p}.mlp.{n}.weight"] = lin(blk[n]["kernel"])
+        sd[f"{p}.mlp.{n}.bias"] = t(blk[n]["bias"])
+
+
+def clip_state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
+    """The JAX CLIP's variables ({"params": ..., "batch_stats": ...}, the
+    nested trees of vitxtgqa_tpu's build_clip_params) -> a CLIP state dict
+    in OpenAI's layout (models/clip.py): build_clip_params' inverse.  The
+    flax convolution kernels [kh, kw, in, out] become [out, in, kh, kw],
+    the Dense kernels transposed; flax counts no BatchNorm batches, so each
+    ``num_batches_tracked`` is 0."""
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    conv = lambda a: t(np.asarray(a).transpose(3, 2, 0, 1))
+    lin = lambda a: t(np.asarray(a).T)
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    vis, sd = params["visual"], {}
+
+    def bn(name: str, p: dict, s: dict) -> None:
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = t(p["scale"]), t(p["bias"])
+        sd[f"{name}.running_mean"], sd[f"{name}.running_var"] = t(s["mean"]), t(s["var"])
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    if "proj" in vis:  # the ViT tower
+        sd["visual.conv1.weight"] = conv(vis["conv1"]["kernel"])
+        for name in ("class_embedding", "positional_embedding", "proj"):
+            sd[f"visual.{name}"] = t(vis[name])
+        for ln in ("ln_pre", "ln_post"):
+            sd[f"visual.{ln}.weight"], sd[f"visual.{ln}.bias"] = (t(vis[ln]["scale"]),
+                                                                    t(vis[ln]["bias"]))
+        for i in range(len(vis["transformer"])):
+            _clip_block(sd, f"visual.transformer.resblocks.{i}",
+                        vis["transformer"][f"resblock_{i}"])
+    else:  # ModifiedResNet
+        vs = stats["visual"]
+        for i in (1, 2, 3):
+            sd[f"visual.conv{i}.weight"] = conv(vis[f"conv{i}"]["kernel"])
+            bn(f"visual.bn{i}", vis[f"bn{i}"], vs[f"bn{i}"])
+        for stage in (1, 2, 3, 4):
+            blk = 0
+            while f"layer{stage}_{blk}" in vis:
+                fp, tp = f"layer{stage}_{blk}", f"visual.layer{stage}.{blk}"
+                bp, bs = vis[fp], vs[fp]
+                for j in (1, 2, 3):
+                    sd[f"{tp}.conv{j}.weight"] = conv(bp[f"conv{j}"]["kernel"])
+                    bn(f"{tp}.bn{j}", bp[f"bn{j}"], bs[f"bn{j}"])
+                if "downsample_conv" in bp:
+                    sd[f"{tp}.downsample.0.weight"] = conv(bp["downsample_conv"]["kernel"])
+                    bn(f"{tp}.downsample.1", bp["downsample_bn"], bs["downsample_bn"])
+                blk += 1
+        ap = vis["attnpool"]
+        sd["visual.attnpool.positional_embedding"] = t(ap["positional_embedding"])
+        for n in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            sd[f"visual.attnpool.{n}.weight"] = lin(ap[n]["kernel"])
+            sd[f"visual.attnpool.{n}.bias"] = t(ap[n]["bias"])
+    for i in range(len(params["transformer"])):
+        _clip_block(sd, f"transformer.resblocks.{i}", params["transformer"][f"resblock_{i}"])
+    sd["token_embedding.weight"] = t(params["token_embedding"]["embedding"])
+    sd["positional_embedding"] = t(params["positional_embedding"])
+    sd["ln_final.weight"] = t(params["ln_final"]["scale"])
+    sd["ln_final.bias"] = t(params["ln_final"]["bias"])
+    sd["text_projection"] = t(params["text_projection"])
+    sd["logit_scale"] = t(np.asarray(params["logit_scale"]).reshape(()))
+    return sd
